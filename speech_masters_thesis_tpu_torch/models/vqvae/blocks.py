@@ -1,0 +1,108 @@
+"""Residual conv blocks of the VQ-VAE codec (counterpart of
+speech_masters_thesis_tpu/models/vqvae/blocks.py), NTC layout.
+
+Only ``gated_hifi`` is ported; ``base``, ``wavenet`` and ``hifi`` raise in
+``get_block``. Modules keep the reference torch ``state_dict`` layout
+(``blocks.{d}.0``, ``blocks.{d}.1.model.{2,5}``, ``gate``). The Dropout
+modules hold their places in that layout; the inference path runs with
+dropout off.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from speech_masters_thesis_tpu_torch.ops.gated_hifi import gated_hifi, pack_weights
+
+
+def get_mod_cycle(depth: int, cycle: Optional[int]) -> int:
+    return depth if cycle is None else depth % cycle
+
+
+def _zero_(conv: nn.Conv1d) -> None:
+    nn.init.zeros_(conv.weight)
+    nn.init.zeros_(conv.bias)
+
+
+class ResLayer(nn.Module):
+    """relu -> dilated conv -> relu -> 1x1 (zero-init) with residual; dropout off.
+
+    ``model`` is a Sequential so the parameter keys are ``model.2`` and
+    ``model.5``, as in a reference checkpoint.
+    """
+
+    def __init__(self, n_in: int, n_state: int, dilation: int = 1, kernel_size: int = 3,
+                 zero_out: bool = True, res_scale: float = 1.0, dropout: float = 0.1):
+        super().__init__()
+        pad = ((kernel_size - 1) * dilation) // 2
+        self.model = nn.Sequential(
+            nn.Dropout(dropout),
+            nn.ReLU(),
+            nn.Conv1d(n_in, n_state, kernel_size, 1, pad, dilation),
+            nn.Dropout(dropout),
+            nn.ReLU(),
+            nn.Conv1d(n_state, n_in, 1),
+        )
+        if zero_out:
+            _zero_(self.model[-1])
+        self.res_scale = res_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, C] -> [B, T, C]."""
+        h = self.model[2](torch.relu(x).transpose(1, 2))
+        h = self.model[5](torch.relu(h)).transpose(1, 2)
+        return x + self.res_scale * h
+
+
+class GatedHiFiBlock(nn.Module):
+    """Parallel HiFi branches fused by softmax/tanh gating, run by ``ops.gated_hifi``.
+
+    Returns the sequence-masked output ``(x*m + scale*v) * m`` on every
+    device, so the convs downstream see the same values whichever version
+    of the block ran.
+    """
+
+    def __init__(self, n_in: int, n_depth: int, dilation_growth_rate: int = 1,
+                 dilation_cycle: Optional[int] = None, kernel_size_growth_rate: int = 2,
+                 kernel_size_cycle: Optional[int] = None, zero_out: bool = True,
+                 res_scale: bool = False):
+        super().__init__()
+        self.res_scale = 1.0 if not res_scale else 1.0 / math.sqrt(n_depth)
+        self.dilations = tuple(dilation_growth_rate ** get_mod_cycle(d, dilation_cycle)
+                               for d in range(n_depth))
+        kernels = [3 + kernel_size_growth_rate * get_mod_cycle(d, kernel_size_cycle)
+                   for d in range(n_depth)]
+        self.blocks = nn.ModuleList([
+            nn.Sequential(
+                nn.Conv1d(n_in, 2 * n_in, 1),
+                ResLayer(2 * n_in, 2 * n_in, dilation=dil, kernel_size=k, zero_out=zero_out,
+                         res_scale=self.res_scale),
+            )
+            for k, dil in zip(kernels, self.dilations)
+        ])
+        self.gate = nn.Conv1d(n_in, n_in, 1)
+        if zero_out:
+            _zero_(self.gate)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        """x: [B, T, W]; mask: [B, T, 1] -> (out [B, T, W], mask)."""
+        lens = mask[..., 0].sum(dim=1).to(torch.int32)
+        weights = pack_weights(dict(self.named_parameters()), self.dilations)
+        out = gated_hifi((x * mask).contiguous(), lens, weights, self.res_scale)
+        return out, mask
+
+
+BLOCKS = {"gated_hifi": GatedHiFiBlock}
+NOT_PORTED = ("base", "wavenet", "hifi")
+
+
+def get_block(block_type: str):
+    if block_type in NOT_PORTED:
+        raise NotImplementedError(f"block_type={block_type} is not ported yet; only gated_hifi is")
+    if block_type not in BLOCKS:
+        raise ValueError(f"Unknown block_type={block_type}; known: {sorted(BLOCKS)}")
+    return BLOCKS[block_type]

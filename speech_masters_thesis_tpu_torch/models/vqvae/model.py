@@ -1,0 +1,117 @@
+"""VQ-VAE raw-waveform codec, inference path (counterpart of
+speech_masters_thesis_tpu/models/vqvae/model.py).
+
+One encoder/decoder over the full down stack with ``width *
+multipliers[-1]`` channels, as the JAX package builds it; module names
+(``encoders.0``, ``decoders.0``, ``bottleneck``) follow the reference
+checkpoint. Waveforms are [B, T] in [-1, 1]; encodings are
+[B, T / compression_factor, C]. Ported: ``encode``, ``decode`` and the eval
+``forward``; the training step comes later.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from speech_masters_thesis_tpu_torch.models.vqvae.bottleneck import Bottleneck
+from speech_masters_thesis_tpu_torch.models.vqvae.encdec import Decoder, Encoder
+from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
+from speech_masters_thesis_tpu_torch.ops.losses import (
+    MultiNormReconstructionLoss,
+    MultiResolutionSpectralLoss,
+)
+
+
+def compression_factor(model_cfg: dict) -> int:
+    """prod(stride**down) over all levels."""
+    total = 1
+    for down, stride in zip(model_cfg["downs_t"], model_cfg["strides_t"]):
+        total *= stride ** down
+    return total
+
+
+class VQVAE(nn.Module):
+    """Codec built from a ``model:`` config dict (see ``configs.VQVAE_TPU``)."""
+
+    def __init__(self, model_cfg: dict):
+        super().__init__()
+        cfg = model_cfg
+        if cfg.get("folded_convs", False):
+            raise ValueError("model.folded_convs is a rejected TPU experiment and is not ported")
+        if not cfg.get("use_bottleneck", True):
+            raise NotImplementedError("use_bottleneck: false is not ported yet")
+        multiplier = (cfg.get("multipliers") or [1] * cfg["levels"])[-1]
+        common = dict(
+            input_emb_width=1,
+            output_emb_width=cfg["emb_width"],
+            downs_t=tuple(cfg["downs_t"]),
+            strides_t=tuple(cfg["strides_t"]),
+            block_type=cfg["block_type"],
+            width=cfg["width"] * multiplier,
+            depth=cfg["depth"] * multiplier,
+            dilation_growth_rate=cfg["dilation_growth_rate"],
+            dilation_cycle=cfg["dilation_cycle"],
+            kernel_size_growth_rate=cfg["kernel_size_growth_rate"],
+            kernel_size_cycle=cfg["kernel_size_cycle"],
+            zero_out=cfg["zero_out"],
+        )
+        self.encoders = nn.ModuleList([Encoder(**common)])
+        self.decoders = nn.ModuleList([Decoder(**common)])
+        self.bottleneck = Bottleneck(cfg["l_bins"], cfg["emb_width"], cfg["mu"], 1,
+                                     cfg["revival_threshold"])
+
+        loss_cfg = cfg["loss"]
+        self.multi_stft_loss = MultiResolutionSpectralLoss(
+            n_ffts=loss_cfg["n_ffts"], hop_lengths=loss_cfg["hop_lengths"],
+            win_lengths=loss_cfg.get("win_lengths"), window=loss_cfg.get("window", "hann"),
+            log=loss_cfg["log"])
+        self.multi_recon_loss = MultiNormReconstructionLoss(
+            l1=loss_cfg["l1"], l2=loss_cfg["l2"], linf=loss_cfg["linf"],
+            linf_topk=loss_cfg["linf_topk"], linf_approx=loss_cfg.get("linf_approx", False))
+        self.commit = loss_cfg["commit"]
+        self.multispectral = loss_cfg["multispectral"]
+
+    def encode(self, x: torch.Tensor, mask: torch.Tensor):
+        """[B, T] waveform + [B, T] mask -> (codes [B, T'], code_mask [B, T'])."""
+        h, h_mask = self.encoders[0](x[..., None], mask[..., None])
+        codes = self.bottleneck.encode([h], [h_mask[..., 0]])[0]
+        return codes, h_mask[..., 0]
+
+    def decode(self, codes: torch.Tensor, code_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, T'] codes -> [B, T' * compression] waveform."""
+        if code_mask is None:
+            code_mask = torch.ones(codes.shape, dtype=torch.float32, device=codes.device)
+        x_d = self.bottleneck.decode([codes])[0]
+        y, _ = self.decoders[0](x_d, code_mask[..., None])
+        return y[..., 0]
+
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, train: bool = False):
+        """Eval forward (the val step). x: [B, T]; x_lengths: [B].
+
+        Returns (loss_dict, metrics); metrics is empty in eval, as in the
+        JAX package.
+        """
+        if train:
+            raise NotImplementedError("the VQ-VAE training step is not ported yet")
+        x_mask = sequence_mask(x_lengths, x.shape[-1]).to(x.dtype)
+        h, h_mask = self.encoders[0](x[..., None], x_mask[..., None])
+        _, xqs, commit_losses, _ = self.bottleneck([h], [h_mask[..., 0]], update_k=False)
+        x_out, _ = self.decoders[0](xqs[0], h_mask)
+        x_out = x_out[..., 0]
+        assert x_out.shape == x.shape, f"Expected {x.shape}, got {x_out.shape}"
+
+        loss_recon = self.multi_recon_loss(x, x_out, x_mask)
+        loss_stft = self.multi_stft_loss(x, x_out, x_mask)
+        loss_commit = sum(commit_losses)
+        loss = loss_recon + self.multispectral * loss_stft + self.commit * loss_commit
+        loss_dict = {
+            "loss": loss,
+            "loss_recon": loss_recon,
+            "loss_stft": loss_stft,
+            "loss_commit": loss_commit,
+            "yh": x_out,
+        }
+        return loss_dict, {}

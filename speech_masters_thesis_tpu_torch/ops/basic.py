@@ -1,0 +1,23 @@
+"""Numeric primitives (counterpart of speech_masters_thesis_tpu/ops/basic.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def safe_log(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """log(max(x, eps)); clamps to avoid -inf on silence/zero bins."""
+    return torch.log(torch.clamp(x, min=eps))
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt with a zero (not NaN/inf) gradient at x == 0 (double-where)."""
+    positive = x > 0
+    guarded = torch.where(positive, x, torch.ones_like(x))
+    return torch.where(positive, torch.sqrt(guarded), torch.zeros_like(x))
+
+
+def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
+    """[b] lengths -> [b, max_length] float32 mask (1 inside, 0 in padding)."""
+    positions = torch.arange(max_length, device=lengths.device, dtype=lengths.dtype)
+    return (positions[None, :] < lengths[:, None]).to(torch.float32)

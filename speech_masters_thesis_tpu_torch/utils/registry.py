@@ -1,0 +1,27 @@
+"""Model registry: ``_import_`` strings and short names -> the port's classes.
+
+Counterpart of speech_masters_thesis_tpu/utils/registry.py (the table) and
+``train/harness.py:get_model``.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any, Dict
+
+_MODEL_PATHS: Dict[str, str] = {
+    "models.vqvae.vqvae.VQVAE": "speech_masters_thesis_tpu_torch.models.vqvae.model:VQVAE",
+    "vqvae": "speech_masters_thesis_tpu_torch.models.vqvae.model:VQVAE",
+}
+
+
+def resolve_model(import_path: str) -> Any:
+    if import_path not in _MODEL_PATHS:
+        raise KeyError(f"Unknown or not yet ported model '{import_path}'. Known: {sorted(_MODEL_PATHS)}")
+    module_name, attr = _MODEL_PATHS[import_path].split(":")
+    return getattr(importlib.import_module(module_name), attr)
+
+
+def get_model(model_cfg: dict):
+    """Builds the model a ``model:`` config section names in ``_import_``."""
+    return resolve_model(model_cfg["_import_"])(model_cfg)

@@ -1,0 +1,61 @@
+"""The PyTorch port as a package: no jax anywhere in it, configs, registry."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from speech_masters_thesis_tpu.utils.config import load_config
+from speech_masters_thesis_tpu_torch import configs
+from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock, get_block
+from speech_masters_thesis_tpu_torch.models.vqvae.model import VQVAE, compression_factor
+from speech_masters_thesis_tpu_torch.utils.registry import get_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import speech_masters_thesis_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "speech_masters_thesis_tpu" not in sys.modules
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 12  # every module was imported
+
+
+def test_config_dict_equals_yaml():
+    assert configs.VQVAE_TPU == load_config(
+        os.path.join(REPO, "configs/models/vqvae_tpu.yaml")).to_dict()["model"]
+
+
+@pytest.mark.parametrize("name", ["models.vqvae.vqvae.VQVAE", "vqvae"])
+def test_get_model_resolves_vqvae(name):
+    cfg = {**configs.VQVAE_TPU, "_import_": name}
+    model = get_model(cfg)
+    assert isinstance(model, VQVAE)
+    assert compression_factor(cfg) == 128
+    blocks = [m for m in model.modules() if isinstance(m, GatedHiFiBlock)]
+    assert len(blocks) == 14  # 7 in the encoder, 7 in the decoder
+    assert {b.dilations for b in blocks} == {(1, 3, 9, 27)}
+    assert "bottleneck.level_blocks.0.k" in model.state_dict()
+    assert not any(k.endswith(("k_sum", "k_elem")) for k in model.state_dict())
+
+
+def test_registry_and_blocks_reject_what_is_not_ported():
+    with pytest.raises(KeyError):
+        get_model({**configs.VQVAE_TPU, "_import_": "glow_tts"})
+    for block_type in ("base", "wavenet", "hifi"):
+        with pytest.raises(NotImplementedError):
+            get_block(block_type)
+    with pytest.raises(ValueError):
+        get_block("nonexistent")
