@@ -3,20 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the VQ-VAE codec's inference path (configs.VQVAE_TPU, full published
-width, random seeded weights) through the entry points a user calls, with
-every kernel built from csrc/ in this checkout:
+Drives the VQ-VAE codec's inference path and its training step
+(configs.VQVAE_TPU, full published width, random seeded weights) through
+the entry points a user calls, with every kernel built from csrc/ in this
+checkout:
 
   1. device: torch/CUDA versions, the card's name and power limit;
-  2. build: nvcc for sm_90a, with ptxas's register and shared-memory report;
-  3. each GatedHiFi block shape of the path (batch 16, W=64), kernel against
-     its plain PyTorch version in fp32 (TF32 off), with both times;
-  4. the slice at batch 16 x 66048 samples: encode, decode and the eval
-     forward, counting kernel launches (7 per encode, 7 per decode, 14 per
-     forward);
+  2. build: nvcc for sm_90a, one process per source, with ptxas's register
+     and shared-memory report;
+  3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
+     against its plain PyTorch version in fp32 (TF32 off), with both times;
+  4. the inference path at batch 16 x 66048 samples: encode, decode and the
+     eval forward, counting kernel launches (7 per encode, 7 per decode, 14
+     per forward);
   5. the same model on the CPU (plain path) on a 2 x 22016 subset: codes,
      reconstruction and losses;
-  6. encode + decode wall time at batch 16 x 66048.
+  6. encode + decode wall time at batch 16 x 66048;
+  7. each block shape, backward kernels (tile passes and weight-gradient
+     reduction) against plain autograd, at p=0 and at p=0.1: dx and every
+     weight gradient, two calls bitwise equal, both times;
+  8. the dropout law on the card: the kernel's masks (read from its
+     backward buffers) equal the plain version's bit for bit, keep rates
+     within 5 sigma of 0.9, one seed reproduces and another differs, and the
+     train-mode forward equals the plain version;
+  9. the training path at batch 16 x 66048: lazy codebook init, then 5 train
+     steps (dropout 0.1, Adam, codebook and parameter EMA), 14 forward and
+     14 backward launches per step, step time and mel-frames/s;
+ 10. one train step on the card against the CPU (plain path) on a
+     2 x 22016 subset, dropout 0 and no codebook revival: losses, and grads
+     as close to the same step in fp64 as the CPU's fp32 grads are.
 
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
@@ -37,10 +52,15 @@ import torch
 
 from speech_masters_thesis_tpu_torch import configs
 from speech_masters_thesis_tpu_torch.device import cuda_device
+from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
 from speech_masters_thesis_tpu_torch.models.vqvae.model import compression_factor
 from speech_masters_thesis_tpu_torch.ops import _build
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+from speech_masters_thesis_tpu_torch.train import harness
+from speech_masters_thesis_tpu_torch.train.loop import make_train_step, raise_if_not_finite
+from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
+from speech_masters_thesis_tpu_torch.train.state import TrainState
 from speech_masters_thesis_tpu_torch.utils.registry import get_model
 
 BATCH = 16
@@ -51,8 +71,18 @@ KERNEL_RTOL = 1e-4             # of max|ref|: fp32, but another summation order
 RECON_RTOL = 1e-4              # of max|y|: 14 blocks and 16 convs, fp32, TF32 off
 LOSS_RTOL = 1e-4
 CODE_AGREEMENT = 0.999
-SOURCE = "speech_masters_thesis_tpu_torch/csrc/gated_hifi_fwd.cu"
-REPLACES = "speech_masters_thesis_tpu/ops/pallas/gated_hifi.py:591"
+DX_RTOL = 1e-4                 # of max|ref|: fp32, another summation order
+WGRAD_RTOL = 1e-3              # of each leaf's max|ref|: sums over up to 528K frames
+FLIP_RTOL = 1e-5               # a relu decision may flip only within this of max|value| of 0
+P_DROP = 0.1                   # the JAX package's default (models/vqvae/model.py)
+TRAIN_STEPS = 5
+TRAIN_SEED = 6
+STEP_LOSS_RTOL = 1e-4          # card vs CPU train step: fp32, other summation orders
+STEP_GRAD_MEDIAN_ATOL = 1e-4   # phase 10: card's gradient error against fp64, beyond 2x the
+STEP_GRAD_WORST_ATOL = 1e-3    # CPU fp32's (median and worst parameter; relu decisions may flip)
+HOP = 256                      # samples per mel frame (the JAX package's data config)
+SOURCE_DIR = "speech_masters_thesis_tpu_torch/csrc/"
+PALLAS = "speech_masters_thesis_tpu/ops/pallas/gated_hifi.py"
 
 
 def require(ok: bool, what: str) -> None:
@@ -270,6 +300,345 @@ def phase_timing(model, device, audio, lengths, card: str) -> None:
           f"[{card}]")
 
 
+def block_weights(device: torch.device, seed: int) -> gh.GatedHiFiWeights:
+    """Packed weights of a vqvae_tpu-width block (W=64, depth 4), all seeded."""
+    block = GatedHiFiBlock(64, 4, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
+    randomize(block, seed=seed)
+    block.to(device)
+    with torch.no_grad():
+        return gh.pack_weights(dict(block.named_parameters()), block.dilations)
+
+
+def block_inputs(T: int, batch: int, seed: int, device: torch.device):
+    """Pre-masked x [batch, T, 64] with ragged lengths, lens, the valid mask and
+    a cotangent g."""
+    rng = np.random.RandomState(seed)
+    lens_np = rng.randint(T // 2, T + 1, (batch,)).astype(np.int32)
+    lens_np[0] = T
+    valid = torch.from_numpy(np.arange(T)[None, :] < lens_np[:, None]).to(device)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, T, 64)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.randn(batch, T, 64).astype(np.float32)).to(device)
+    return x * valid[..., None], torch.from_numpy(lens_np).to(device), valid, g
+
+
+def grads_at_gates(x, lens, w: gh.GatedHiFiWeights, g, gate_a, gate_h):
+    """Plain autograd of the block (res_scale 1) with each branch's relu(z)*m0 replaced by
+    z * gate_a and relu(c)*m1 by c * gate_h: the gradient of the piecewise-
+    linear piece the kernel's own relu and dropout decisions select. Where a
+    pre-activation lies within fp32 rounding of 0, the kernel and the plain
+    version may take opposite sides of the kink, and that element's gradient
+    then differs by a whole term; at these shapes that happens somewhere in
+    most calls."""
+    B, T, W = x.shape
+    H = 2 * W
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in w.tensors().items()}
+        xl = x.detach().requires_grad_(True)
+        z_all = xl @ leaves["wall"] + leaves["ball"]
+        ts, ss = [], []
+        for d, dil in enumerate(w.dilations):
+            cols = slice(d * H, (d + 1) * H)
+            kernel = leaves[f"ks.{d}"]
+            k = kernel.shape[0]
+            c = torch.nn.functional.conv1d(
+                (z_all[..., cols] * gate_a[..., cols]).transpose(1, 2), kernel.permute(2, 1, 0),
+                leaves["cb"][d], padding=(k - 1) // 2 * dil, dilation=dil).transpose(1, 2)
+            zp = z_all[..., cols] + (c * gate_h[..., cols]) @ leaves["w1"][d] + leaves["b1"][d]
+            ts.append(zp[..., :W])
+            ss.append(zp[..., W:])
+        s_max = torch.stack(ss).amax(dim=0)
+        exps = [torch.exp(s_ - s_max) for s_ in ss]
+        u = sum(torch.tanh(t) * e for t, e in zip(ts, exps)) / sum(exps)
+        out = (xl + u @ leaves["wg"] + leaves["bg"])
+        out = out * (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None]
+        grads = torch.autograd.grad(out, [xl, *leaves.values()], g)
+    return grads[0], gh.GatedHiFiWeights(
+        ks=tuple(grads[1:][list(leaves).index(f"ks.{d}")] for d in range(len(w.ks))),
+        dilations=w.dilations,
+        **{k: gr for k, gr in zip(leaves, grads[1:]) if not k.startswith("ks.")})
+
+
+def kink_flips(ours: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(elements whose relu/dropout decision differs, the largest of their
+    values on either side, max|ref|): a flip is a near-tie when its values
+    are within fp32 rounding of 0."""
+    flip = (ours > 0) != (ref > 0)
+    worst = torch.maximum(ours.abs(), ref.abs())[flip].max().item() if bool(flip.any()) else 0.0
+    return int(flip.sum()), worst, ref.abs().max().item()
+
+
+def leaf_errors(ours: gh.GatedHiFiWeights, ref: gh.GatedHiFiWeights) -> dict:
+    """name -> (max abs error, max|ref|) over every weight gradient."""
+    refs = ref.tensors()
+    return {name: ((t - refs[name]).abs().max().item(), refs[name].abs().max().item())
+            for name, t in ours.tensors().items()}
+
+
+def phase_backward(device, card: str, block_ts, batch: int) -> dict:
+    """Backward kernels against plain autograd at each block shape, p=0 and p=0.1."""
+    w = block_weights(device, seed=1)
+    seed = 12345
+    out = {"dx_err": 0.0, "red_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "red_ms": 0.0, "red_plain_ms": 0.0}
+    for p in (0.0, P_DROP):
+        sums = {"bwd": 0.0, "plain": 0.0, "tiles": 0.0, "tiles_plain": 0.0, "red": 0.0, "red_plain": 0.0}
+        for i, T in enumerate(block_ts):
+            x, lens, _, g = block_inputs(T, batch, 200 + i, device)
+            args = (x, lens, w, g, 1.0, p, seed)
+            dx_k, gw_k = gh.gated_hifi_backward(*args)
+            dx_k2, gw_k2 = gh.gated_hifi_backward(*args)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(dx_k, dx_k2) and all(
+                torch.equal(a, b) for a, b in zip(gw_k.tensors().values(), gw_k2.tensors().values()))
+            # the kernel's relu and dropout decisions, read from its buffers,
+            # against the plain forward's: every flip must be a near-tie
+            _, bufs_k = gh.backward_buffers(*args)
+            dx_b, bufs_r = gh.backward_buffers_reference(*args)
+            flips = {"a": kink_flips(bufs_k.a, bufs_r.a), "h1": kink_flips(bufs_k.h1, bufs_r.h1)}
+            keep = gh.keep_scale(p)
+            dx_r, gw_r = grads_at_gates(x, lens, w, g, (bufs_k.a > 0) * keep, (bufs_k.h1 > 0) * keep)
+            dx_scale = dx_r.abs().max().item()
+            dx_err = (dx_k - dx_r).abs().max().item()
+            leaves = leaf_errors(gw_k, gw_r)
+            worst = max(leaves, key=lambda n: leaves[n][0] / max(leaves[n][1], 1e-30))
+            # against plain autograd at its own decisions: differs by whole terms
+            # where a decision flipped (printed, not held to a tolerance)
+            dx_p, gw_p = gh.gated_hifi_backward_reference(*args)
+            free = leaf_errors(gw_k, gw_p)
+            free_worst = max(e / max(s_, 1e-30) for e, s_ in free.values())
+            free_dx = (dx_k - dx_p).abs().max().item() / dx_p.abs().max().item()
+            buf_errs = {name: (getattr(bufs_k, name) - getattr(bufs_r, name)).abs().max().item()
+                        / max(getattr(bufs_r, name).abs().max().item(), 1e-30)
+                        for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv")}
+            # the reduction alone, on the plain version's buffers
+            red_k = gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations)
+            red_r = gh.weight_grad_reduce_reference(x, bufs_r, w.kernels, w.dilations)
+            red = leaf_errors(red_k, red_r)
+            del dx_b, bufs_k, dx_p, gw_p
+            times = {
+                "bwd": cuda_ms(lambda: gh.gated_hifi_backward(*args), reps=5, warmup=1),
+                "plain": cuda_ms(lambda: gh.gated_hifi_backward_reference(*args), reps=5, warmup=1),
+                "tiles": cuda_ms(lambda: gh.backward_buffers(*args), reps=5, warmup=1),
+                "tiles_plain": cuda_ms(lambda: gh.backward_buffers_reference(*args), reps=5, warmup=1),
+                "red": cuda_ms(lambda: gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations),
+                               reps=5, warmup=1),
+                "red_plain": cuda_ms(lambda: gh.weight_grad_reduce_reference(
+                    x, bufs_r, w.kernels, w.dilations), reps=5, warmup=1),
+            }
+            for key, ms in times.items():
+                sums[key] += ms
+            print(f"[backward] p={p} B={batch} T={T}: relu/dropout decisions flipped against the "
+                  f"plain forward: " + ", ".join(
+                      f"{k} {n_} (largest value {v:.1e} of max {m:.1e})" for k, (n_, v, m) in flips.items())
+                  + f"; at the kernel's decisions dx max_abs_err {dx_err:.3e} (tol "
+                  f"{DX_RTOL * dx_scale:.3e}), worst weight grad {worst} {leaves[worst][0]:.3e} of "
+                  f"max|ref| {leaves[worst][1]:.3e} (tol {WGRAD_RTOL:g}x); at the plain version's own "
+                  f"decisions dx {free_dx:.1e} and worst weight grad {free_worst:.1e} of max|ref|; "
+                  f"reduction alone worst "
+                  f"{max(e / max(s_, 1e-30) for e, s_ in red.values()):.3e} of max|ref|; buffers "
+                  f"rel err {', '.join(f'{k} {v:.1e}' for k, v in buf_errs.items())}; two calls "
+                  f"bitwise equal {bitwise}; ms: backward kernels {times['bwd']:.3f} vs plain autograd "
+                  f"{times['plain']:.3f}, tile passes {times['tiles']:.3f} vs plain "
+                  f"{times['tiles_plain']:.3f}, reduction {times['red']:.3f} vs plain "
+                  f"{times['red_plain']:.3f} (median of 5) [{card}]")
+            for name, (_, value, scale) in flips.items():
+                require(value <= FLIP_RTOL * scale, f"{name}: a decision flipped at {value} of {scale}")
+            require(np.isfinite(dx_err) and dx_err <= DX_RTOL * dx_scale,
+                    f"dx differs at p={p} T={T}: {dx_err}")
+            for name, (err, scale) in leaves.items():
+                require(np.isfinite(err) and err <= WGRAD_RTOL * scale,
+                        f"grad {name} differs at p={p} T={T}: {err} > {WGRAD_RTOL} * {scale}")
+            for name, (err, scale) in red.items():
+                require(np.isfinite(err) and err <= WGRAD_RTOL * scale,
+                        f"reduction {name} differs at p={p} T={T}: {err} > {WGRAD_RTOL} * {scale}")
+            require(bitwise, f"two backward calls differ at p={p} T={T}")
+            out["dx_err"] = max(out["dx_err"], dx_err)
+            out["red_err"] = max(out["red_err"], max(e for e, _ in red.values()))
+            del dx_r, gw_r, dx_k, gw_k, dx_k2, gw_k2, bufs_r, red_k, red_r
+            torch.cuda.empty_cache()
+        print(f"[backward] p={p} sums over the {len(block_ts)} block shapes: backward kernels "
+              f"{sums['bwd']:.3f} ms vs plain autograd {sums['plain']:.3f} ms; tile passes "
+              f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms; reduction {sums['red']:.3f} vs "
+              f"{sums['red_plain']:.3f} ms [{card}]")
+        if p == P_DROP:  # the training configuration
+            out.update(ms=sums["tiles"], plain_ms=sums["tiles_plain"], red_ms=sums["red"],
+                       red_plain_ms=sums["red_plain"])
+    return out
+
+
+def phase_dropout(device, card: str) -> float:
+    """The dropout law on the card; returns the train-mode forward's error."""
+    T, batch, seed = 4128, 16, 777
+    x, lens, valid, g = block_inputs(T, batch, 400, device)
+    # expand and conv biases of 10 (conv weights scaled down) make z > 0 and
+    # c > 0 everywhere, so the kernel's a > 0 and h1 > 0 exactly where kept
+    block = GatedHiFiBlock(64, 4, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
+    randomize(block, seed=7)
+    with torch.no_grad():
+        for d in range(4):
+            block.blocks[d][0].bias.fill_(10.0)
+            block.blocks[d][1].model[2].weight.mul_(0.01)
+            block.blocks[d][1].model[2].bias.fill_(10.0)
+        block.to(device)
+        w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
+        _, plain = gh.backward_buffers(x, lens, w, g, 1.0, 0.0, seed)
+        require(bool((plain.a > 0).all()) and bool((plain.h1 > 0).all()),
+                "the dropout probe's expands and convs are not all positive")
+        _, bufs = gh.backward_buffers(x, lens, w, g, 1.0, P_DROP, seed)
+        _, again = gh.backward_buffers(x, lens, w, g, 1.0, P_DROP, seed)
+        _, other = gh.backward_buffers(x, lens, w, g, 1.0, P_DROP, seed + 1)
+        H = 128
+        keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
+        n0 = n1 = n01 = 0
+        for d in range(4):
+            k0 = bufs.a[..., d * H:(d + 1) * H] > 0
+            k1 = bufs.h1[..., d * H:(d + 1) * H] > 0
+            m0, m1 = gh.branch_masks(seed, batch, d, 0, T, H, P_DROP, device)
+            require(torch.equal(k0, m0 > 0) and torch.equal(k1, m1 > 0),
+                    f"branch {d}: the kernel's masks differ from the plain version's")
+            n0 += int(k0.sum())
+            n1 += int(k1.sum())
+            n01 += int((k0 & k1).sum())
+        n = batch * T * H * 4
+        rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
+        same = torch.equal(bufs.a, again.a) and torch.equal(bufs.h1, again.h1)
+        changed = ((bufs.a > 0) != (other.a > 0)).float().mean().item()
+        wr = block_weights(device, seed=1)
+        xr, lr, vr, _ = block_inputs(T, batch, 401, device)
+        ref = gh.gated_hifi_reference(xr, lr, wr, 1.0, P_DROP, seed)
+        out = gh.gated_hifi(xr, lr, wr, 1.0, P_DROP, seed)
+        err = (out - ref)[vr].abs().max().item()
+        scale = ref[vr].abs().max().item()
+        no_drop = (gh.gated_hifi_reference(xr, lr, wr) - ref)[vr].abs().max().item()
+    print(f"[dropout] p={P_DROP} B={batch} T={T}: kernel masks equal the plain version's at both "
+          f"sites of all 4 branches; keep rates " + ", ".join(
+              f"{k} {r:.6f} (expect {q:.6f}, 5 sigma {5 * np.sqrt(q * (1 - q) / n):.1e})"
+              for k, (r, q) in rates.items())
+          + f"; same seed same masks {same}; another seed changes {changed:.4f} of site 0; "
+          f"train-mode forward max_abs_err {err:.3e} (tol {KERNEL_RTOL * scale:.3e}), "
+          f"dropout moved the output by {no_drop:.3e} [{card}]")
+    for k, (r, q) in rates.items():
+        require(abs(r - q) <= 5 * np.sqrt(q * (1 - q) / n), f"keep rate {k} {r} vs {q}")
+    require(same, "the same seed gave other masks")
+    require(changed > 0.1, f"another seed changed only {changed} of the masks")
+    require(np.isfinite(err) and err <= KERNEL_RTOL * scale, f"train-mode forward differs: {err}")
+    require(no_drop > 100 * KERNEL_RTOL * scale, "dropout did not change the output")
+    return err
+
+
+def launch_counts() -> tuple:
+    return gh.gated_hifi.launches, gh.backward_buffers.launches, gh.weight_grad_reduce.launches
+
+
+def phase_train(device, card: str) -> dict:
+    """The training path: lazy codebook init, then TRAIN_STEPS steps."""
+    model = harness.get_model({"model": copy.deepcopy(configs.VQVAE_TPU)}).to(device)
+    audio, lengths = audio_batch(BATCH, SAMPLES, seed=8)
+    batch = {"audio": audio.to(device), "audio_len": lengths.to(device)}
+    bn = model.bottleneck.level_blocks[0]
+    require(not bool(bn.initialized), "the codebook starts initialized")
+    harness.init_model_variables(model, batch, seed=TRAIN_SEED)
+    require(bool(bn.initialized), "the lazy codebook init did not run")
+    opt, schedule = build_optimizer(model.parameters(), configs.VQVAE_TPU_OPTIMIZER)
+    state = TrainState.create(model, opt, use_ema=True)
+    train_step = make_train_step(schedule, default_mu(BATCH, 1), use_ema=True)
+    params0 = {k: v.detach().clone() for k, v in state.params.items()}
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+    k0 = bn.k.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gh.gated_hifi.launches = gh.backward_buffers.launches = gh.weight_grad_reduce.launches = 0
+    times, per_step, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = train_step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+        raise_if_not_finite(scalars, state.step)
+        losses.append({k: float(v) for k, v in scalars.items()})
+    fwd, bwd, red = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p.detach(), params0[k]) for k, p in state.params.items())
+    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
+    dk = (bn.k - k0).abs().max().item()
+    median = statistics.median(times[1:])
+    mel_fps = BATCH * SAMPLES / HOP / (median / 1e3)
+    print(f"[train] B={BATCH} x {SAMPLES} samples, p_dropout {model.encoders[0].level_blocks[0].blocks[1].p_dropout}, "
+          f"Adam + codebook EMA + parameter EMA: losses per step "
+          f"{[round(l['loss'], 6) for l in losses]}; last step {losses[-1]}")
+    print(f"[train] launches per step (forward, backward tiles, reduction) {per_step}; "
+          f"{moved}/{len(params0)} parameters and {ema_moved}/{len(ema0)} EMA parameters moved; "
+          f"codebook k moved by up to {dk:.3e}")
+    print(f"[train] step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps 2-{TRAIN_STEPS} "
+          f"{median:.3f} ms = {mel_fps:.1f} mel-frames/s ({BATCH} x {SAMPLES} / {HOP} per step); "
+          f"max_memory_allocated {peak:.3f} GiB [{card}]")
+    require(all(s_ == (14, 14, 14) for s_ in per_step), f"launches per step {per_step} != (14, 14, 14)")
+    require(moved == len(params0), f"only {moved}/{len(params0)} parameters moved")
+    require(ema_moved == len(ema0), f"only {ema_moved}/{len(ema0)} EMA parameters moved")
+    require(dk > 0, "the codebook did not change")
+    return {"fwd": fwd, "bwd": bwd, "red": red, "step_ms": median}
+
+
+def phase_train_vs_cpu(device, card: str) -> None:
+    """One train step on the card against the CPU's plain path, same state.
+
+    The codebook starts from other audio (no self-matches, whose codes are
+    near-ties). The log-magnitude STFT loss makes the gradient ill-conditioned
+    in fp32 (its 1/|Y| near the clamp): the CPU's own fp32 gradients differ
+    from fp64 by about 6e-3 (median over parameters, relative L2). So each
+    fp32 step is held against the same step in fp64 on the CPU (the STFT
+    loss stays fp32 there, by design), and the card must come as close to it
+    as the CPU's fp32 step does.
+    """
+    batch_n, samples = SUBSET
+    cfg = {**copy.deepcopy(configs.VQVAE_TPU), "p_dropout": 0.0, "revival_threshold": 0.0,
+           "zero_out": False}
+    audio, _ = audio_batch(BATCH, SAMPLES, seed=9)
+    other, _ = audio_batch(BATCH, SAMPLES, seed=5)
+    x = audio[:batch_n, :samples].contiguous()
+    n = torch.tensor([samples, samples - 5013])
+    models = {"cuda": harness.get_model({"model": cfg}).to(device)}
+    harness.init_model_variables(models["cuda"], {"audio": other[:batch_n, :samples], "audio_len": n},
+                                 seed=TRAIN_SEED + 1)
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
+    out = {}
+    for name, model in models.items():
+        dev = next(model.parameters()).device
+        xx = x.double() if name == "cpu64" else x
+        opt, schedule = build_optimizer(model.parameters(), configs.VQVAE_TPU_OPTIMIZER)
+        state = TrainState.create(model, opt, use_ema=True)
+        scalars = make_train_step(schedule, default_mu(batch_n, 1), use_ema=True)(
+            state, {"audio": xx.to(dev), "audio_len": n.to(dev)}, TRAIN_SEED)
+        out[name] = ({k: float(v) for k, v in scalars.items()},
+                     {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()})
+
+    def rel_l2(ours: dict, ref: dict) -> dict:
+        return {k: ((ours[k] - r).norm() / max(r.norm().item(), 1e-30)).item() for k, r in ref.items()}
+
+    ref = out["cpu64"][1]
+    errs = {name: rel_l2(out[name][1], ref) for name in ("cuda", "cpu")}
+    stats = {name: (statistics.median(e.values()), max(e.values())) for name, e in errs.items()}
+    direct = rel_l2(out["cuda"][1], out["cpu"][1])
+    print(f"[train vs cpu] {batch_n} x {samples}, p_dropout 0, revival off: losses card {out['cuda'][0]}; "
+          f"cpu {out['cpu'][0]}; cpu fp64 {out['cpu64'][0]}")
+    print(f"[train vs cpu] gradients against the fp64 step, relative L2 over {len(ref)} parameters: "
+          f"card median {stats['cuda'][0]:.3e} worst {stats['cuda'][1]:.3e}; cpu fp32 median "
+          f"{stats['cpu'][0]:.3e} worst {stats['cpu'][1]:.3e} (card within 2x + {STEP_GRAD_MEDIAN_ATOL:g} "
+          f"/ {STEP_GRAD_WORST_ATOL:g}); card against cpu fp32 median {statistics.median(direct.values()):.3e} "
+          f"worst {max(direct.values()):.3e} [{card}]")
+    for key in ("loss", "loss_recon", "loss_stft", "loss_commit"):
+        g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
+        rel = abs(g_ - c_) / max(abs(c_), 1e-12)
+        require(rel <= STEP_LOSS_RTOL, f"train step {key} differs: {rel}")
+    require(stats["cuda"][0] <= 2 * stats["cpu"][0] + STEP_GRAD_MEDIAN_ATOL,
+            f"train step grads: card median {stats['cuda'][0]} vs cpu {stats['cpu'][0]}")
+    require(stats["cuda"][1] <= 2 * stats["cpu"][1] + STEP_GRAD_WORST_ATOL,
+            f"train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -277,12 +646,27 @@ def main() -> None:
     kernel = phase_kernel(device, card, BLOCK_TS, BATCH)
     model = build_model(device, *audio_batch(BATCH, SAMPLES, seed=5))
     audio, lengths = audio_batch(BATCH, SAMPLES, seed=4)
-    launches = phase_slice(model, device, audio, lengths, card)
+    inference_launches = phase_slice(model, device, audio, lengths, card)
     phase_vs_cpu(model, device, audio)
     phase_timing(model, device, audio, lengths, card)
-    print(json.dumps({"kernels": [{
-        "name": "gated_hifi_fwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches, **kernel}]}))
+    del model
+    backward = phase_backward(device, card, BLOCK_TS, BATCH)
+    dropout_err = phase_dropout(device, card)
+    train = phase_train(device, card)
+    phase_train_vs_cpu(device, card)
+    print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
+          f"forward, {train['bwd']} backward tile passes, {train['red']} reductions")
+    print(json.dumps({"kernels": [
+        {"name": "gated_hifi_fwd", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_fwd.cu",
+         "replaces": PALLAS + ":591", "launches": train["fwd"],
+         "max_abs_err": max(kernel["max_abs_err"], dropout_err), "ms": kernel["ms"],
+         "plain_ms": kernel["plain_ms"]},
+        {"name": "gated_hifi_bwd", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_bwd.cu",
+         "replaces": PALLAS + ":612", "launches": train["bwd"], "max_abs_err": backward["dx_err"],
+         "ms": backward["ms"], "plain_ms": backward["plain_ms"]},
+        {"name": "gated_hifi_wgrad", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_bwd.cu",
+         "replaces": PALLAS + ":360", "launches": train["red"], "max_abs_err": backward["red_err"],
+         "ms": backward["red_ms"], "plain_ms": backward["red_plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

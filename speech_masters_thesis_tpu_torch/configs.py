@@ -1,7 +1,8 @@
 """Model configurations as plain dicts (no YAML parser needed at run time).
 
-``VQVAE_TPU`` is the ``model:`` section of ``configs/models/vqvae_tpu.yaml``,
-key for key; a test holds the two equal.
+``VQVAE_TPU`` is the ``model:`` section of ``configs/models/vqvae_tpu.yaml``
+and ``VQVAE_TPU_OPTIMIZER`` its ``optimizer:`` section (its ``scheduler:`` is
+null), key for key; a test holds them equal.
 """
 
 from __future__ import annotations
@@ -44,4 +45,12 @@ VQVAE_TPU = {
         "window": "hann",
         "log": True,
     },
+}
+
+VQVAE_TPU_OPTIMIZER = {
+    "name": "adam",
+    "lr": 0.0001,
+    "betas": [0.9, 0.98],
+    "weight_decay": 0,
+    "eps": 1e-9,
 }

@@ -1,9 +1,13 @@
-"""Weights from the JAX package's VQ-VAE variables into the port's ``state_dict``.
+"""Weights and train state from the JAX package's VQ-VAE into the port.
 
 ``vqvae_state_dict_from_jax`` takes the flax ``{"params", "codebook"}`` tree
 as nested dicts of numpy arrays and returns tensors under the reference
 checkpoint's keys, which the port's ``VQVAE`` loads with
-``load_state_dict``. Conventions:
+``load_state_dict``. ``params_from_jax`` maps a params tree alone (the EMA
+params of a JAX ``TrainState`` go through it too), and
+``codebook_from_jax`` the whole codebook state (``k``, ``k_sum``, ``k_elem``,
+``initialized``) under the bottleneck's buffer names, so a JAX ``TrainState``
+and the port's can start from the same point. Conventions:
 
   flax Conv kernel [k, in, out]            -> torch Conv1d weight [out, in, k]
   ConvTranspose1d kernel [k, out, in]      -> torch ConvTranspose1d weight [in, out, k]
@@ -19,7 +23,7 @@ import torch
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a copy: jax arrays are read-only
 
 
 def _conv(tree: dict, name: str, out: Dict[str, torch.Tensor]) -> None:
@@ -36,10 +40,9 @@ def _gated_hifi(tree: dict, prefix: str, depth: int, out: Dict[str, torch.Tensor
     _conv(tree["gate"], f"{prefix}.gate", out)
 
 
-def vqvae_state_dict_from_jax(variables: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
-    """JAX VQVAE ``{"params", "codebook"}`` (numpy) -> the port's ``state_dict``."""
+def params_from_jax(params: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX VQVAE params tree (numpy) -> the port's parameters by name."""
     depth = model_cfg["depth"] * (model_cfg.get("multipliers") or [1] * model_cfg["levels"])[-1]
-    params = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
     for level, down_t in enumerate(model_cfg["downs_t"]):
         enc = params["encoder"][f"level_{level}"]
@@ -57,5 +60,20 @@ def vqvae_state_dict_from_jax(variables: dict, model_cfg: dict) -> Dict[str, tor
             _conv(dec[f"MaskedConvTranspose1d_{i}"]["ConvTranspose1d_0"],
                   f"{p}.blocks.{2 * i + 2}", sd)
     _conv(params["decoder"]["out"], "decoders.0.out", sd)
+    return sd
+
+
+def codebook_from_jax(codebook: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``codebook`` collection (numpy) -> the bottleneck's buffers by name."""
+    level = codebook["bottleneck"]["level_0"]
+    prefix = "bottleneck.level_blocks.0"
+    out = {f"{prefix}.{name}": _tensor(level[name]) for name in ("k", "k_sum", "k_elem")}
+    out[f"{prefix}.initialized"] = torch.tensor(bool(np.asarray(level["initialized"])))
+    return out
+
+
+def vqvae_state_dict_from_jax(variables: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX VQVAE ``{"params", "codebook"}`` (numpy) -> the port's ``state_dict``."""
+    sd = params_from_jax(variables["params"], model_cfg)
     sd["bottleneck.level_blocks.0.k"] = _tensor(variables["codebook"]["bottleneck"]["level_0"]["k"])
     return sd

@@ -1,16 +1,18 @@
-// GatedHiFi block forward for Hopper (sm_90a), fp32, dropout off.
+// GatedHiFi block forward for Hopper (sm_90a), fp32, with in-kernel dropout.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
-// fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward). The
-// recompute backward (_bwd_kernel) and the in-kernel dropout are not ported.
+// fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward), and
+// its dropout (_branch_masks, _mix). The backward is gated_hifi_bwd.cu.
 //
 // What it computes, per sequence b and frame t (x pre-masked, H = 2W):
 //   z_d   = x W_d + b_d                       (4 branch 1x1 expands)
-//   a_d   = relu(z_d), zero outside [0, T)    (the convs' zero padding)
+//   a_d   = relu(z_d) * m0_d, zero outside [0, T)  (the convs' zero padding)
 //   c_d   = dilated_conv_d(a_d) + cb_d        (kernel k_d, dilation dil_d)
-//   zp_d  = z_d + scale * (relu(c_d) W1_d + b1_d)
+//   zp_d  = z_d + scale * ((relu(c_d) * m1_d) W1_d + b1_d)
 //   u     = sum_d tanh(zp_d[:, :W]) * softmax_d(zp_d[:, W:])
 //   out   = (x + scale * (u Wg + bg)) * [t < min(T, lens[b])]
+// m0_d and m1_d are the dropout masks (gated_hifi_common.cuh); with p = 0
+// the kernel is instantiated without them and does no hashing.
 //
 // What bounds it on an H100: arithmetic, and the latency of the weight
 // loads that feed it. At W=64, H=128 and kernels (3,5,7,9) a frame costs
@@ -20,7 +22,9 @@
 // weights (about 1.6 MB) stay in L2, but the tile fills 217 KB of shared
 // memory, so L1 keeps little of them and one block (8 warps) per SM must
 // hide L2 latency: the channel loops are unrolled 8 deep so each warp keeps
-// 16 weight loads in flight (2 deep ran 1.5x slower on the card).
+// 16 weight loads in flight (2 deep ran 1.5x slower on the card). The mask
+// hash costs about 20 integer operations per element and draw, against
+// 64 FMAs per element of the expand and 384-1152 of the conv.
 //
 // Design: one thread block per (time tile of TT=64 frames, sequence). The
 // x window with the largest halo (4*27 = 108 frames at the shipped config)
@@ -41,55 +45,21 @@
 // Shared memory: (TT + 2*max_halo) * ((W+1) + (2W+1)) floats, 217,280 bytes
 // at the shipped config (one block per SM).
 
-#include <cuda_runtime.h>
+#include "gated_hifi_common.cuh"
+
 #include <math.h>
 
+namespace gated_hifi {
 namespace {
 
-constexpr int W = 64;
-constexpr int H = 2 * W;
-constexpr int TT = 64;
-constexpr int NT = 256;
-constexpr int MAX_DEPTH = 8;
-constexpr int XS = W + 1;  // padded row strides (bank-conflict-free row reads)
-constexpr int AS = H + 1;
-
-struct Branches {
-  int depth;
-  int max_halo;
-  int k[MAX_DEPTH];
-  int dil[MAX_DEPTH];
-  int k_off[MAX_DEPTH];  // offset of branch d's [k, H, H] conv kernel in ks
-};
-
-size_t smem_bytes(int max_halo) {
-  const size_t rows = TT + 2 * (size_t)max_halo;
-  return sizeof(float) * rows * (XS + AS);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// acc[j] += v * (w0, w1)[j] for the 8 columns of two float4s
-__device__ __forceinline__ void fma8(float (&acc)[8], float v, float4 w0, float4 w1) {
-  acc[0] = fmaf(v, w0.x, acc[0]);
-  acc[1] = fmaf(v, w0.y, acc[1]);
-  acc[2] = fmaf(v, w0.z, acc[2]);
-  acc[3] = fmaf(v, w0.w, acc[3]);
-  acc[4] = fmaf(v, w1.x, acc[4]);
-  acc[5] = fmaf(v, w1.y, acc[5]);
-  acc[6] = fmaf(v, w1.z, acc[6]);
-  acc[7] = fmaf(v, w1.w, acc[7]);
-}
-
-__global__ void __launch_bounds__(NT) gated_hifi_fwd_kernel(
+template <bool DROP>
+__global__ void __launch_bounds__(NT, 1) gated_hifi_fwd_kernel(
     const float* __restrict__ x, const int* __restrict__ lens,
     const float* __restrict__ wall, const float* __restrict__ ball,
     const float* __restrict__ ks, const float* __restrict__ cb,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ wg, const float* __restrict__ bg,
-    float* __restrict__ out, int T, float scale, Branches br) {
+    float* __restrict__ out, int T, float scale, Branches br, Dropout drop) {
   extern __shared__ float smem[];
   const int R = TT + 2 * br.max_halo;
   float* xs = smem;          // [R][XS]  x window, zero outside [0, T)
@@ -128,118 +98,46 @@ __global__ void __launch_bounds__(NT) gated_hifi_fwd_kernel(
 
   for (int d = 0; d < br.depth; ++d) {
     const int k = br.k[d], dil = br.dil[d];
-    const int half = (k - 1) / 2;
-    const int halo = half * dil;
-    const int Rd = TT + 2 * halo;
-    const int xoff = br.max_halo - halo;  // xs row of this branch's window row 0
+    const int halo = (k - 1) / 2 * dil;
+    const uint32_t key = DROP ? dropout_key(drop.seed, b, d) : 0u;
 
-    // expand: as[r] = relu(x[r] W_d + b_d), zero outside [0, T)
-    {
-      const float* wd = wall + d * H + n8;
-      for (int r0 = 0; r0 < Rd; r0 += TT) {
-        float acc[4][8] = {};
-#pragma unroll 8
-        for (int c = 0; c < W; ++c) {
-          const float4 w0 = ld4(wd + (size_t)c * ldw), w1v = ld4(wd + (size_t)c * ldw + 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + rg + 16 * i;
-            fma8(acc[i], r < Rd ? xs[(xoff + r) * XS + c] : 0.f, w0, w1v);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + rg + 16 * i;
-          if (r >= Rd) continue;
-          const int t = t0 - halo + r;
-          const bool inside = t >= 0 && t < T;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            as[r * AS + n8 + j] = inside ? fmaxf(acc[i][j] + ball[d * H + n8 + j], 0.f) : 0.f;
-        }
-      }
-    }
+    // expand: as[r] = relu(x[r] W_d + b_d) * m0 over the branch's window
+    expand_tile<DROP>(as, xs, wall, ball, d, ldw, TT + 2 * halo, br.max_halo - halo, t0 - halo,
+                      halo, T, key, drop, rg, n8, nullptr);
     __syncthreads();
 
-    // dilated conv at the TT centre rows: relu(sum_j a[t + (j-half)*dil] K_d[j] + cb_d)
+    // dilated conv at the TT centre rows: relu(sum_j a[t + (j-half)*dil] K_d[j] + cb_d) * m1
     {
       float acc[4][8] = {};
-      const float* kd = ks + br.k_off[d] + n8;
-      for (int j = 0; j < k; ++j) {
-        const float* arow = as + (rg + halo + (j - half) * dil) * AS;
-        const float* kj = kd + (size_t)j * H * H;
-#pragma unroll 8
-        for (int c = 0; c < H; ++c) {
-          const float4 w0 = ld4(kj + (size_t)c * H), w1v = ld4(kj + (size_t)c * H + 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) fma8(acc[i], arow[16 * i * AS + c], w0, w1v);
-        }
-      }
+      conv_tile(acc, as, ks + br.k_off[d] + n8, k, rg, dil);
       __syncthreads();  // every conv read of `as` is done; rows [0, TT) are free
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + rg + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          as[(rg + 16 * i) * AS + n8 + j] = fmaxf(acc[i][j] + cb[d * H + n8 + j], 0.f);
+        for (int j = 0; j < 8; ++j) {
+          float h = fmaxf(acc[i][j] + cb[d * H + n8 + j], 0.f);
+          if (DROP)
+            h *= (dropout_bits(key, t, n8 + j) & 0xFFFFu) >= drop.threshold ? drop.scale : 0.f;
+          as[(rg + 16 * i) * AS + n8 + j] = h;
+        }
+      }
     }
     __syncthreads();
 
-    // zp = scale * (h1 W1 + b1) + x W_d + b_d at the centre rows, t/s columns
-    // paired, then folded into the online softmax
+    // the branch output at the centre rows, folded into the online softmax
     {
-      float zt[4][4] = {}, zs[4][4] = {};
-      const float* w1d = w1 + (size_t)d * H * H;
-#pragma unroll 8
-      for (int c = 0; c < H; ++c) {
-        const float4 wt = ld4(w1d + (size_t)c * H + n4), wsv = ld4(w1d + (size_t)c * H + W + n4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float h = as[(rg + 16 * i) * AS + c];
-          zt[i][0] = fmaf(h, wt.x, zt[i][0]);
-          zt[i][1] = fmaf(h, wt.y, zt[i][1]);
-          zt[i][2] = fmaf(h, wt.z, zt[i][2]);
-          zt[i][3] = fmaf(h, wt.w, zt[i][3]);
-          zs[i][0] = fmaf(h, wsv.x, zs[i][0]);
-          zs[i][1] = fmaf(h, wsv.y, zs[i][1]);
-          zs[i][2] = fmaf(h, wsv.z, zs[i][2]);
-          zs[i][3] = fmaf(h, wsv.w, zs[i][3]);
-        }
-      }
+      float tv[4][4], sv[4][4];
+      branch_out_tile(tv, sv, as, xs, wall, ball, w1, b1, d, ldw, br.max_halo, scale, rg, n4);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          zt[i][j] = scale * (zt[i][j] + b1[d * H + n4 + j]);
-          zs[i][j] = scale * (zs[i][j] + b1[d * H + W + n4 + j]);
-        }
-      const float* wd = wall + d * H;
-#pragma unroll 8
-      for (int c = 0; c < W; ++c) {
-        const float4 wt = ld4(wd + (size_t)c * ldw + n4), wsv = ld4(wd + (size_t)c * ldw + W + n4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xv = xs[(br.max_halo + rg + 16 * i) * XS + c];
-          zt[i][0] = fmaf(xv, wt.x, zt[i][0]);
-          zt[i][1] = fmaf(xv, wt.y, zt[i][1]);
-          zt[i][2] = fmaf(xv, wt.z, zt[i][2]);
-          zt[i][3] = fmaf(xv, wt.w, zt[i][3]);
-          zs[i][0] = fmaf(xv, wsv.x, zs[i][0]);
-          zs[i][1] = fmaf(xv, wsv.y, zs[i][1]);
-          zs[i][2] = fmaf(xv, wsv.z, zs[i][2]);
-          zs[i][3] = fmaf(xv, wsv.w, zs[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float tv = zt[i][j] + ball[d * H + n4 + j];
-          const float sv = zs[i][j] + ball[d * H + W + n4 + j];
-          const float m_new = fmaxf(m_run[i][j], sv);
+          const float m_new = fmaxf(m_run[i][j], sv[i][j]);
           const float corr = expf(m_run[i][j] - m_new);
-          const float e = expf(sv - m_new);
+          const float e = expf(sv[i][j] - m_new);
           den[i][j] = den[i][j] * corr + e;
-          num[i][j] = num[i][j] * corr + tanhf(tv) * e;
+          num[i][j] = num[i][j] * corr + tanhf(tv[i][j]) * e;
           m_run[i][j] = m_new;
         }
     }
@@ -258,13 +156,7 @@ __global__ void __launch_bounds__(NT) gated_hifi_fwd_kernel(
   for (int c = 0; c < W; ++c) {
     const float4 wv = ld4(wg + (size_t)c * W + n4);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float u = as[(rg + 16 * i) * AS + c];
-      acc[i][0] = fmaf(u, wv.x, acc[i][0]);
-      acc[i][1] = fmaf(u, wv.y, acc[i][1]);
-      acc[i][2] = fmaf(u, wv.z, acc[i][2]);
-      acc[i][3] = fmaf(u, wv.w, acc[i][3]);
-    }
+    for (int i = 0; i < 4; ++i) fma4(acc[i], as[(rg + 16 * i) * AS + c], wv);
   }
   const int len = min(T, lens[b]);
 #pragma unroll
@@ -282,41 +174,50 @@ __global__ void __launch_bounds__(NT) gated_hifi_fwd_kernel(
   }
 }
 
-}  // namespace
+template <bool DROP>
+cudaError_t launch(const float* x, const int* lens, const float* wall, const float* ball,
+                   const float* ks, const float* cb, const float* w1, const float* b1,
+                   const float* wg, const float* bg, float* out, int B, int T, float scale,
+                   const Branches& br, const Dropout& drop, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(br.max_halo);
+  cudaError_t err = cudaFuncSetAttribute(gated_hifi_fwd_kernel<DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + TT - 1) / TT, B);
+  gated_hifi_fwd_kernel<DROP><<<grid, NT, smem, stream>>>(
+      x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, T, scale, br, drop);
+  return cudaGetLastError();
+}
 
-extern "C" long gated_hifi_fwd_smem_bytes(int max_halo) { return (long)smem_bytes(max_halo); }
+}  // namespace
+}  // namespace gated_hifi
+
+extern "C" long gated_hifi_fwd_smem_bytes(int max_halo) {
+  return (long)gated_hifi::tile_smem_bytes(max_halo);
+}
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 on success).
 // kernels/dilations are host arrays of `depth` entries. All tensors are
 // contiguous float32 on the device (lens int32): x/out [B, T, width],
 // wall [width, depth*2*width], ball [depth*2*width], ks the branches'
 // [k_d, H, H] kernels back to back, cb/b1 [depth, H], w1 [depth, H, H],
-// wg [width, width], bg [width].
+// wg [width, width], bg [width]. Dropout keeps an element when its 16-bit
+// field is >= threshold and scales it by keep_scale; threshold 0 is p = 0.
 extern "C" int gated_hifi_fwd(const float* x, const int* lens, const float* wall,
                               const float* ball, const float* ks, const float* cb,
                               const float* w1, const float* b1, const float* wg,
                               const float* bg, float* out, int B, int T, int width,
                               int depth, const int* kernels, const int* dilations,
-                              float scale, void* stream) {
-  if (width != W || depth < 1 || depth > MAX_DEPTH || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  Branches br{};
-  br.depth = depth;
-  int off = 0;
-  for (int d = 0; d < depth; ++d) {
-    if (kernels[d] < 1 || kernels[d] % 2 == 0 || dilations[d] < 1) return (int)cudaErrorInvalidValue;
-    br.k[d] = kernels[d];
-    br.dil[d] = dilations[d];
-    br.k_off[d] = off;
-    off += kernels[d] * H * H;
-    const int halo = (kernels[d] - 1) / 2 * dilations[d];
-    br.max_halo = halo > br.max_halo ? halo : br.max_halo;
-  }
-  const size_t smem = smem_bytes(br.max_halo);
-  cudaError_t err = cudaFuncSetAttribute(gated_hifi_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  gated_hifi_fwd_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, T, scale, br);
-  return (int)cudaGetLastError();
+                              float scale, unsigned seed, unsigned threshold,
+                              float keep_scale, void* stream) {
+  using namespace gated_hifi;
+  Branches br;
+  if (width != W || B < 1 || T < 1 || !make_branches(depth, kernels, dilations, &br))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{seed, threshold, keep_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      threshold ? launch<true>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, B, T, scale, br, drop, s)
+                : launch<false>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, B, T, scale, br, drop, s);
+  return (int)err;
 }

@@ -3,9 +3,11 @@ speech_masters_thesis_tpu/models/vqvae/blocks.py), NTC layout.
 
 Only ``gated_hifi`` is ported; ``base``, ``wavenet`` and ``hifi`` raise in
 ``get_block``. Modules keep the reference torch ``state_dict`` layout
-(``blocks.{d}.0``, ``blocks.{d}.1.model.{2,5}``, ``gate``). The Dropout
-modules hold their places in that layout; the inference path runs with
-dropout off.
+(``blocks.{d}.0``, ``blocks.{d}.1.model.{2,5}``, ``gate``). Dropout runs in
+train mode only and draws from the ``torch.Generator`` the caller passes:
+``ResLayer`` draws its masks from it, ``GatedHiFiBlock`` one 32-bit seed per
+call for the kernel's hashed masks (as the JAX block draws its seed from
+``make_rng("dropout")``).
 """
 
 from __future__ import annotations
@@ -24,15 +26,27 @@ def get_mod_cycle(depth: int, cycle: Optional[int]) -> int:
 
 
 def _zero_(conv: nn.Conv1d) -> None:
+    """Zero-init (``zero_out``); ``zero_init`` tells the initializer to keep it."""
     nn.init.zeros_(conv.weight)
     nn.init.zeros_(conv.bias)
+    conv.zero_init = True
+
+
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with masks drawn from ``generator`` (on x's device)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class ResLayer(nn.Module):
-    """relu -> dilated conv -> relu -> 1x1 (zero-init) with residual; dropout off.
+    """dropout -> relu -> dilated conv -> dropout -> relu -> 1x1 (zero-init),
+    with residual.
 
     ``model`` is a Sequential so the parameter keys are ``model.2`` and
-    ``model.5``, as in a reference checkpoint.
+    ``model.5``, as in a reference checkpoint; its Dropout modules hold the
+    rate.
     """
 
     def __init__(self, n_in: int, n_state: int, dilation: int = 1, kernel_size: int = 3,
@@ -51,9 +65,14 @@ class ResLayer(nn.Module):
             _zero_(self.model[-1])
         self.res_scale = res_scale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, C] -> [B, T, C]."""
-        h = self.model[2](torch.relu(x).transpose(1, 2))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, T, C] -> [B, T, C]; dropout (train only) from ``generator``."""
+        p = self.model[0].p if train else 0.0
+        h = _dropout(x, p, generator) if p > 0 else x
+        h = self.model[2](torch.relu(h).transpose(1, 2))
+        if p > 0:
+            h = _dropout(h, p, generator)
         h = self.model[5](torch.relu(h)).transpose(1, 2)
         return x + self.res_scale * h
 
@@ -69,8 +88,9 @@ class GatedHiFiBlock(nn.Module):
     def __init__(self, n_in: int, n_depth: int, dilation_growth_rate: int = 1,
                  dilation_cycle: Optional[int] = None, kernel_size_growth_rate: int = 2,
                  kernel_size_cycle: Optional[int] = None, zero_out: bool = True,
-                 res_scale: bool = False):
+                 res_scale: bool = False, p_dropout: float = 0.1):
         super().__init__()
+        self.p_dropout = p_dropout
         self.res_scale = 1.0 if not res_scale else 1.0 / math.sqrt(n_depth)
         self.dilations = tuple(dilation_growth_rate ** get_mod_cycle(d, dilation_cycle)
                                for d in range(n_depth))
@@ -80,7 +100,7 @@ class GatedHiFiBlock(nn.Module):
             nn.Sequential(
                 nn.Conv1d(n_in, 2 * n_in, 1),
                 ResLayer(2 * n_in, 2 * n_in, dilation=dil, kernel_size=k, zero_out=zero_out,
-                         res_scale=self.res_scale),
+                         res_scale=self.res_scale, dropout=p_dropout),
             )
             for k, dil in zip(kernels, self.dilations)
         ])
@@ -88,11 +108,23 @@ class GatedHiFiBlock(nn.Module):
         if zero_out:
             _zero_(self.gate)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        """x: [B, T, W]; mask: [B, T, 1] -> (out [B, T, W], mask)."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: [B, T, W]; mask: [B, T, 1] -> (out [B, T, W], mask).
+
+        In train mode with ``p_dropout > 0`` one seed is drawn from
+        ``generator`` (a CPU generator keeps the draw off the device).
+        """
+        p = self.p_dropout if train else 0.0
+        seed = 0
+        if p > 0:
+            if generator is None:
+                raise ValueError("GatedHiFiBlock in train mode needs a dropout torch.Generator")
+            seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
+                                     device=generator.device).item())
         lens = mask[..., 0].sum(dim=1).to(torch.int32)
         weights = pack_weights(dict(self.named_parameters()), self.dilations)
-        out = gated_hifi((x * mask).contiguous(), lens, weights, self.res_scale)
+        out = gated_hifi((x * mask).contiguous(), lens, weights, self.res_scale, p, seed)
         return out, mask
 
 

@@ -6,17 +6,30 @@ Masked strided convs subsample the mask along with the signal
 filter 2*stride and pad stride//2, so lengths divide exactly. The convs are
 ``F.conv1d``/``F.conv_transpose1d`` over the NCW view; parameter keys follow
 the reference checkpoint (``level_blocks.{l}.blocks.{i}``, ``out``).
-Single level only (``all_levels=False``).
+Single level only (``all_levels=False``). ``train`` and the dropout
+``generator`` reach the residual blocks.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import get_block
+
+
+def _run(mods: nn.ModuleList, x: torch.Tensor, mask: torch.Tensor, train: bool,
+         generator: Optional[torch.Generator]):
+    """The convs take (x, mask); the residual blocks also the train flag and
+    the dropout generator."""
+    for mod in mods:
+        if isinstance(mod, (MaskedConv1d, MaskedConvTranspose1d)):
+            x, mask = mod(x, mask)
+        else:
+            x, mask = mod(x, mask, train=train, generator=generator)
+    return x, mask
 
 
 class MaskedConv1d(nn.Conv1d):
@@ -53,10 +66,9 @@ class EncoderConvBlock(nn.Module):
             mods.append(MaskedConv1d(width, output_emb_width, 3, 1, 1))
         self.blocks = nn.ModuleList(mods)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        for mod in self.blocks:
-            x, mask = mod(x, mask)
-        return x, mask
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        return _run(self.blocks, x, mask, train, generator)
 
 
 class DecoderConvBlock(nn.Module):
@@ -76,10 +88,9 @@ class DecoderConvBlock(nn.Module):
                     width, input_emb_width if i == down_t - 1 else width, filt, stride_t, pad))
         self.blocks = nn.ModuleList(mods)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        for mod in self.blocks:
-            x, mask = mod(x, mask)
-        return x, mask
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        return _run(self.blocks, x, mask, train, generator)
 
 
 class Encoder(nn.Module):
@@ -99,10 +110,11 @@ class Encoder(nn.Module):
             for level, (down_t, stride_t) in enumerate(zip(downs_t, strides_t))
         ])
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: [B, T, input_emb_width]; mask: [B, T, 1] -> ([B, T', C], [B, T', 1])."""
         for block in self.level_blocks:
-            x, mask = block(x, mask)
+            x, mask = block(x, mask, train, generator)
         return x, mask
 
 
@@ -120,9 +132,10 @@ class Decoder(nn.Module):
         ])
         self.out = nn.Conv1d(output_emb_width, input_emb_width, 1)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: [B, T', C]; mask: [B, T', 1] -> ([B, T, input_emb_width], [B, T, 1])."""
         for block in reversed(self.level_blocks):
-            x, mask = block(x, mask)
+            x, mask = block(x, mask, train, generator)
         y = self.out((x * mask).transpose(1, 2)).transpose(1, 2)
         return y, mask

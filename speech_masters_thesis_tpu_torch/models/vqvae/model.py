@@ -1,21 +1,23 @@
-"""VQ-VAE raw-waveform codec, inference path (counterpart of
+"""VQ-VAE raw-waveform codec (counterpart of
 speech_masters_thesis_tpu/models/vqvae/model.py).
 
 One encoder/decoder over the full down stack with ``width *
 multipliers[-1]`` channels, as the JAX package builds it; module names
 (``encoders.0``, ``decoders.0``, ``bottleneck``) follow the reference
 checkpoint. Waveforms are [B, T] in [-1, 1]; encodings are
-[B, T / compression_factor, C]. Ported: ``encode``, ``decode`` and the eval
-``forward``; the training step comes later.
+[B, T / compression_factor, C]. ``encode``, ``decode``, and the forward in
+eval mode (the val step) and in train mode, which updates the codebook and
+returns the quantizer metrics.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
 from speech_masters_thesis_tpu_torch.models.vqvae.bottleneck import Bottleneck
 from speech_masters_thesis_tpu_torch.models.vqvae.encdec import Decoder, Encoder
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
@@ -33,7 +35,7 @@ def compression_factor(model_cfg: dict) -> int:
     return total
 
 
-class VQVAE(nn.Module):
+class VQVAE(WaveformReconstructionModel):
     """Codec built from a ``model:`` config dict (see ``configs.VQVAE_TPU``)."""
 
     def __init__(self, model_cfg: dict):
@@ -57,6 +59,8 @@ class VQVAE(nn.Module):
             kernel_size_growth_rate=cfg["kernel_size_growth_rate"],
             kernel_size_cycle=cfg["kernel_size_cycle"],
             zero_out=cfg["zero_out"],
+            # the reference hardwires ResLayer dropout 0.1; one knob, as in the JAX package
+            p_dropout=cfg.get("p_dropout", 0.1),
         )
         self.encoders = nn.ModuleList([Encoder(**common)])
         self.decoders = nn.ModuleList([Decoder(**common)])
@@ -88,18 +92,24 @@ class VQVAE(nn.Module):
         y, _ = self.decoders[0](x_d, code_mask[..., None])
         return y[..., 0]
 
-    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, train: bool = False):
-        """Eval forward (the val step). x: [B, T]; x_lengths: [B].
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, speaker=None, train: bool = False,
+                generators: Optional[Mapping[str, torch.Generator]] = None):
+        """x: [B, T]; x_lengths: [B]. Returns (loss_dict, metrics).
 
-        Returns (loss_dict, metrics); metrics is empty in eval, as in the
-        JAX package.
+        Train mode needs ``generators["dropout"]`` (a CPU generator: the
+        blocks draw host-side seeds from it) and ``generators["codebook"]``
+        (on the model's device); it updates the codebook in place and
+        returns the quantizer metrics. Eval mode returns no metrics, as in
+        the JAX package. ``speaker`` is accepted and unused.
         """
-        if train:
-            raise NotImplementedError("the VQ-VAE training step is not ported yet")
+        del speaker
+        gens = generators or {}
+        dropout = gens.get("dropout")
         x_mask = sequence_mask(x_lengths, x.shape[-1]).to(x.dtype)
-        h, h_mask = self.encoders[0](x[..., None], x_mask[..., None])
-        _, xqs, commit_losses, _ = self.bottleneck([h], [h_mask[..., 0]], update_k=False)
-        x_out, _ = self.decoders[0](xqs[0], h_mask)
+        h, h_mask = self.encoders[0](x[..., None], x_mask[..., None], train, dropout)
+        _, xqs, commit_losses, quantizer_metrics = self.bottleneck(
+            [h], [h_mask[..., 0]], update_k=train, generator=gens.get("codebook"))
+        x_out, _ = self.decoders[0](xqs[0], h_mask, train, dropout)
         x_out = x_out[..., 0]
         assert x_out.shape == x.shape, f"Expected {x.shape}, got {x_out.shape}"
 
@@ -114,4 +124,5 @@ class VQVAE(nn.Module):
             "loss_commit": loss_commit,
             "yh": x_out,
         }
-        return loss_dict, {}
+        metrics = quantizer_metrics[-1] if (train and quantizer_metrics) else {}
+        return loss_dict, metrics

@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
-Every ``csrc/*.cu`` goes into one shared library with a plain C interface,
-compiled for ``sm_90a`` into ``build/kernels/`` at the repository root on
-first use. The library's name carries a hash of the sources and flags, so a
-changed source builds anew and an unchanged one loads from the cache. A
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own nvcc process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, under ``build/kernels/`` at the repository root, on first
+use. The library's name carries a hash of the sources, headers and flags, so
+a changed source builds anew and an unchanged one loads from the cache. A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
@@ -22,12 +23,16 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# compile-time shape limits of csrc/gated_hifi_fwd.cu
+# compile-time shape limits of csrc/gated_hifi_common.cuh
 GATED_HIFI_WIDTH = 64
 GATED_HIFI_MAX_DEPTH = 8
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
+# the weight-gradient reduction splits the B*T frames into at most this many
+# slices of at least this many frames
+WGRAD_MAX_SPLIT = 64
+WGRAD_ROWS_PER_SPLIT = 1024
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 
 
@@ -54,7 +59,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
@@ -64,15 +69,24 @@ def compile_library(lib_path: Path) -> str:
     """Runs nvcc into ``lib_path``; returns nvcc's output (ptxas register report)."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            objects.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        reports = [(src.name, proc.communicate()[0], proc.returncode)
+                   for src, proc in zip(_sources(), procs)]
+        failed = [f"{name} ({rc}):\n{out}" for name, out, rc in reports if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib_tmp = os.path.join(tmp, lib_path.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objects], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(lib_tmp, lib_path)  # atomic: a concurrent loader never sees half a file
+    return "".join(out for _, out, _ in reports)
 
 
 @functools.cache
@@ -82,9 +96,16 @@ def build() -> ctypes.CDLL:
     if not lib_path.exists():
         compile_library(lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gated_hifi_fwd.argtypes = [p] * 11 + [i] * 4 + [ctypes.POINTER(i)] * 2 + [ctypes.c_float, p]
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    ints = ctypes.POINTER(i)
+    lib.gated_hifi_fwd.argtypes = [p] * 11 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_fwd.restype = i
     lib.gated_hifi_fwd_smem_bytes.argtypes = [i]
     lib.gated_hifi_fwd_smem_bytes.restype = ctypes.c_long
+    lib.gated_hifi_bwd.argtypes = [p] * 21 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
+    lib.gated_hifi_bwd.restype = i
+    lib.gated_hifi_wgrad_partial_floats.argtypes = [i, ints, i]
+    lib.gated_hifi_wgrad_partial_floats.restype = ctypes.c_long
+    lib.gated_hifi_wgrad.argtypes = [p] * 10 + [i] * 4 + [ints] * 2 + [f, i, p]
+    lib.gated_hifi_wgrad.restype = i
     return lib

@@ -1,30 +1,47 @@
-"""GatedHiFi block forward: plain PyTorch version, weight packing, kernel wrapper.
+"""GatedHiFi block: plain PyTorch versions, weight packing, dropout masks and
+the kernel wrappers (forward, recompute backward, weight-gradient reduction).
 
 Counterpart of speech_masters_thesis_tpu/ops/pallas/gated_hifi.py
-(``fused_gated_hifi``), forward only and without dropout: the inference path
-runs the block with dropout off. The CUDA kernel is
-``csrc/gated_hifi_fwd.cu``; ``gated_hifi`` launches it for a CUDA tensor and
-runs ``gated_hifi_reference`` for a CPU tensor.
+(``fused_gated_hifi`` and its custom VJP). The CUDA kernels are
+``csrc/gated_hifi_fwd.cu`` and ``csrc/gated_hifi_bwd.cu``. For a CUDA tensor
+``gated_hifi`` runs ``GatedHiFiFunction``, whose forward and backward launch
+them; for a CPU tensor it runs ``gated_hifi_reference``, which CPU autograd
+differentiates. Nothing falls back: a CUDA tensor the kernels do not take
+raises.
 
-Semantics both versions keep:
+Semantics every version keeps:
   * the input arrives pre-masked (``x * mask``);
   * the dilated convs zero-pad only outside [0, T), the array length, so
     inside [len_b, T) the expand bias still reaches valid frames through
     the conv (the reference model does the same);
   * the output is ``(x + scale * v)`` masked per sequence past
-    ``min(T, lens[b])``.
+    ``min(T, lens[b])``, so the output's cotangent is zero there;
+  * dropout (``p_drop > 0``) keeps each element of a branch's two sites
+    with probability ``1 - p`` (quantized to 2^-16) and scales it by
+    ``1 / (1 - p)``. The masks are a pure function of (seed, sequence,
+    branch, absolute frame, channel): one 32-bit draw per element feeds
+    both sites, the high 16 bits the one before the conv and the low 16 bits
+    the one after it (the TPU kernel's economy, ``_branch_masks``). The
+    kernels compute the same hash, so kernel and plain version agree bit
+    for bit on the masks and the backward regenerates them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Mapping, Sequence
+import math
+from dataclasses import dataclass, fields
+from typing import Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
+
+U32 = 0xFFFFFFFF
+# must equal MAX_DEPTH in csrc/gated_hifi_common.cuh: it spaces the (sequence, branch) keys
+MASK_KEY_DEPTH = 8
 
 
 @dataclass(frozen=True)
@@ -34,7 +51,8 @@ class GatedHiFiWeights:
     wall [W, depth*H] and ball [depth*H]: the branch 1x1 expands side by side.
     ks[d] [k_d, H, H]: branch d's dilated conv as (tap, in, out); cb [depth, H]
     its bias. w1 [depth, H, H] (in, out) and b1 [depth, H]: the branch 1x1s.
-    wg [W, W] (in, out) and bg [W]: the gate 1x1. H = 2 * W.
+    wg [W, W] (in, out) and bg [W]: the gate 1x1. H = 2 * W. A gradient of
+    the block has the same layout.
     """
 
     wall: torch.Tensor
@@ -51,6 +69,12 @@ class GatedHiFiWeights:
     def kernels(self) -> tuple[int, ...]:
         return tuple(k.shape[0] for k in self.ks)
 
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The tensors by name, the branch kernels as ``ks.{d}``."""
+        out = {f.name: getattr(self, f.name) for f in fields(self) if f.name not in ("ks", "dilations")}
+        out.update({f"ks.{d}": k for d, k in enumerate(self.ks)})
+        return out
+
 
 def pack_weights(params: Mapping[str, torch.Tensor], dilations: Sequence[int]) -> GatedHiFiWeights:
     """Per-branch reference ``state_dict`` tensors -> ``GatedHiFiWeights``.
@@ -58,7 +82,8 @@ def pack_weights(params: Mapping[str, torch.Tensor], dilations: Sequence[int]) -
     Keys are the block's own: ``blocks.{d}.0`` (branch expand, Conv1d W->H),
     ``blocks.{d}.1.model.2`` (dilated conv H->H), ``blocks.{d}.1.model.5``
     (branch 1x1 H->H) and ``gate`` (W->W); torch Conv1d weights are
-    [out, in, k].
+    [out, in, k]. Differentiable: gradients of the packed tensors reach
+    ``params`` through ``cat``/``permute``.
     """
     depth = len(dilations)
     branch = [f"blocks.{d}" for d in range(depth)]
@@ -75,28 +100,95 @@ def pack_weights(params: Mapping[str, torch.Tensor], dilations: Sequence[int]) -
     )
 
 
-def gated_hifi_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
-                         res_scale: float = 1.0) -> torch.Tensor:
-    """Plain PyTorch GatedHiFi block forward (dropout off).
+# ---------------------------------------------------------------------------
+# dropout masks: the hash of csrc/gated_hifi_common.cuh in int64 torch ops
+# ---------------------------------------------------------------------------
+def _mul32(a, c: int):
+    """a * c mod 2^32 for a u32 held in int64 (tensor or int): c split in 16-bit
+    halves so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & U32
 
-    x: [B, T, W] pre-masked input; lens: [B] int valid lengths.
-    Returns [B, T, W], zero past ``min(T, lens[b])``.
-    """
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer on a u32 held in int64."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_key(seed: int, b: int, d: int) -> int:
+    """The u32 key of sequence ``b``, branch ``d`` under ``seed``."""
+    return _fmix32((_fmix32(seed & U32) + _mul32(b * MASK_KEY_DEPTH + d + 1, 0x9E3779B9)) & U32)
+
+
+def dropout_bits(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """[batch, rows, hidden] int64 holding the u32 draws of branch ``d`` at
+    absolute frames t0 .. t0+rows-1, channels 0 .. hidden-1."""
+    keys = torch.tensor([dropout_key(seed, b, d) for b in range(batch)], dtype=torch.int64,
+                        device=device)[:, None, None]
+    t = torch.arange(t0, t0 + rows, dtype=torch.int64, device=device)
+    c = torch.arange(hidden, dtype=torch.int64, device=device)
+    counter = (t[:, None] * hidden + c[None, :]) & U32
+    return _fmix32((_fmix32(keys ^ counter[None]) + keys) & U32)
+
+
+def keep_threshold(p_drop: float) -> int:
+    """A 16-bit field keeps its element when it is >= this (0: no dropout)."""
+    if not 0.0 <= p_drop < 1.0:
+        raise ValueError(f"p_drop must be in [0, 1), got {p_drop}")
+    return max(1, int(p_drop * 65536.0 + 0.5)) if p_drop > 0.0 else 0
+
+
+def keep_scale(p_drop: float) -> float:
+    """The float32 factor a kept element is multiplied by."""
+    return float(np.float32(1.0 / (1.0 - p_drop)))
+
+
+def branch_masks(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int, p_drop: float,
+                 device: torch.device | str = "cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both dropout masks of branch ``d`` (before and after the conv), each
+    [batch, rows, hidden] float32 of 0 or 1/(1-p)."""
+    bits = dropout_bits(seed, batch, d, t0, rows, hidden, device)
+    th, scale = keep_threshold(p_drop), keep_scale(p_drop)
+    m0 = ((bits >> 16) >= th).to(torch.float32) * scale
+    m1 = ((bits & 0xFFFF) >= th).to(torch.float32) * scale
+    return m0, m1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _branches(x: torch.Tensor, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int):
+    """Per branch of the plain forward: (a, h1, zp) with a = relu(z)*m0 (the
+    conv input), h1 = relu(c)*m1 (the 1x1 input) and zp = z + scale*h."""
     B, T, W = x.shape
     H = 2 * W
     z_all = x @ w.wall + w.ball                               # [B, T, depth*H]
-    ts, ss = [], []
+    out = []
     for d, (kernel, dil) in enumerate(zip(w.ks, w.dilations)):
         z = z_all[..., d * H:(d + 1) * H]
-        a = torch.relu(z).transpose(1, 2)                     # [B, H, T]
+        a = torch.relu(z)
+        if p_drop > 0.0:
+            m0, m1 = branch_masks(seed, B, d, 0, T, H, p_drop, x.device)
+            a = a * m0
         k = kernel.shape[0]
-        c = F.conv1d(a, kernel.permute(2, 1, 0), w.cb[d],
+        c = F.conv1d(a.transpose(1, 2), kernel.permute(2, 1, 0), w.cb[d],
                      padding=(k - 1) // 2 * dil, dilation=dil).transpose(1, 2)
-        h = torch.relu(c) @ w.w1[d] + w.b1[d]
-        zp = z + res_scale * h
-        ts.append(zp[..., :W])
-        ss.append(zp[..., W:])
-    # tanh(t) weighted by the softmax over branches of s
+        h1 = torch.relu(c)
+        if p_drop > 0.0:
+            h1 = h1 * m1
+        out.append((a, h1, z + res_scale * (h1 @ w.w1[d] + w.b1[d])))
+    return out
+
+
+def _gate(zps: Sequence[torch.Tensor], W: int):
+    """tanh(t) weighted by the softmax over branches of s: (u, weights, tanh t)."""
+    ts = [torch.tanh(zp[..., :W]) for zp in zps]
+    ss = [zp[..., W:] for zp in zps]
     s_max = ss[0]
     for s in ss[1:]:
         s_max = torch.maximum(s_max, s)
@@ -104,72 +196,331 @@ def gated_hifi_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeight
     den = exps[0]
     for e in exps[1:]:
         den = den + e
+    ps = [e / den for e in exps]
     u = torch.zeros_like(ts[0])
-    for t, e in zip(ts, exps):
-        u = u + torch.tanh(t) * (e / den)
-    v = u @ w.wg + w.bg
-    out = x + res_scale * v
+    for t, p in zip(ts, ps):
+        u = u + t * p
+    return u, ps, ts
+
+
+def gated_hifi_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
+                         res_scale: float = 1.0, p_drop: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch GatedHiFi block forward.
+
+    x: [B, T, W] pre-masked input; lens: [B] int valid lengths; dropout at
+    rate ``p_drop`` with the masks of ``seed``. Returns [B, T, W], zero past
+    ``min(T, lens[b])``.
+    """
+    B, T, W = x.shape
+    keep_threshold(p_drop)  # validates p_drop
+    u, _, _ = _gate([zp for *_, zp in _branches(x, w, res_scale, p_drop, seed)], W)
+    out = x + res_scale * (u @ w.wg + w.bg)
     valid = torch.arange(T, device=x.device)[None, :] < lens.to(x.device)[:, None]
     return out * valid[..., None].to(out.dtype)
 
 
-def gated_hifi(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
-               res_scale: float = 1.0, p_drop: float = 0.0) -> torch.Tensor:
-    """GatedHiFi block forward; same contract as ``gated_hifi_reference``.
+def gated_hifi_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
+                                  g: torch.Tensor, res_scale: float = 1.0, p_drop: float = 0.0,
+                                  seed: int = 0) -> Tuple[torch.Tensor, GatedHiFiWeights]:
+    """Plain version of the backward: autograd through ``gated_hifi_reference``.
 
-    A CUDA tensor launches ``csrc/gated_hifi_fwd.cu``, and anything the
-    kernel does not take raises. A CPU tensor runs the plain version.
-    ``gated_hifi.launches`` counts kernel launches.
+    Returns (dx, the weights' gradients as ``GatedHiFiWeights``).
     """
-    if p_drop != 0.0:
-        raise NotImplementedError("dropout inside the GatedHiFi block is not ported; p_drop must be 0")
-    if x.device.type == "cpu":
-        return gated_hifi_reference(x, lens, w, res_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"gated_hifi: unsupported device {x.device}")
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in w.tensors().items()}
+        x_leaf = x.detach().requires_grad_(True)
+        wl = _weights_from(leaves, w.dilations)
+        out = gated_hifi_reference(x_leaf, lens, wl, res_scale, p_drop, seed)
+        grads = torch.autograd.grad(out, [x_leaf, *leaves.values()], g)
+    return grads[0], _weights_from(dict(zip(leaves, grads[1:])), w.dilations)
 
+
+def _weights_from(named: Mapping[str, torch.Tensor], dilations: Sequence[int]) -> GatedHiFiWeights:
+    ks = tuple(named[f"ks.{d}"] for d in range(len(dilations)))
+    rest = {k: v for k, v in named.items() if not k.startswith("ks.")}
+    return GatedHiFiWeights(ks=ks, dilations=tuple(dilations), **rest)
+
+
+@dataclass(frozen=True)
+class BackwardBuffers:
+    """What the backward's tile passes leave in device memory for the weight
+    gradients, all [B, T, depth*H] but u and gv ([B, T, W]).
+
+    a: relu(z)*m0 (the conv input); h1: relu(c)*m1 (the branch 1x1 input);
+    dzp: the cotangent of the branch outputs z + scale*h; dc: of the conv
+    outputs; dz: of the branch expands; u: the gate input; gv: the cotangent
+    of v, scale * g masked past the length.
+    """
+
+    a: torch.Tensor
+    h1: torch.Tensor
+    dzp: torch.Tensor
+    dc: torch.Tensor
+    dz: torch.Tensor
+    u: torch.Tensor
+    gv: torch.Tensor
+
+
+def _shift_time(a: torch.Tensor, shift: int) -> torch.Tensor:
+    """out[:, t] = a[:, t + shift], zero where t + shift is outside [0, T)."""
+    T = a.shape[1]
+    out = torch.zeros_like(a)
+    if abs(shift) < T:
+        if shift >= 0:
+            out[:, :T - shift] = a[:, shift:]
+        else:
+            out[:, -shift:] = a[:, :T + shift]
+    return out
+
+
+def backward_buffers_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
+                               g: torch.Tensor, res_scale: float = 1.0, p_drop: float = 0.0,
+                               seed: int = 0) -> Tuple[torch.Tensor, BackwardBuffers]:
+    """Plain version of the backward kernel's tile passes: dx and the
+    buffers, by the formulas of csrc/gated_hifi_bwd.cu. With
+    ``weight_grad_reduce_reference`` it gives what autograd gives."""
+    B, T, W = x.shape
+    H = 2 * W
+    keep = keep_scale(p_drop)
+    valid = (torch.arange(T, device=x.device)[None, :] < lens.to(x.device)[:, None])[..., None]
+    g_masked = g * valid.to(g.dtype)
+    gv = res_scale * g_masked
+    du = gv @ w.wg.t()
+    branches = _branches(x, w, res_scale, p_drop, seed)
+    u, ps, ths = _gate([zp for *_, zp in branches], W)
+    dzps, dcs, dzs = [], [], []
+    for d, ((a, h1, _), kernel, dil) in enumerate(zip(branches, w.ks, w.dilations)):
+        p, th = ps[d], ths[d]
+        dzp = torch.cat([du * p * (1 - th * th), du * p * (th - u)], dim=-1)
+        # relu(c)*m1 > 0 exactly where c > 0 and the element is kept, and m1 = keep there
+        dc = res_scale * (dzp @ w.w1[d].t()) * (h1 > 0) * keep
+        half = (kernel.shape[0] - 1) // 2
+        da = sum(_shift_time(dc, -(j - half) * dil) @ kernel[j].t() for j in range(kernel.shape[0]))
+        dzps.append(dzp)
+        dcs.append(dc)
+        dzs.append(dzp + da * (a > 0) * keep)
+    dz = torch.cat(dzs, dim=-1)
+    dx = g_masked + dz @ w.wall.t()
+    cat = lambda xs: torch.cat(xs, dim=-1)
+    return dx, BackwardBuffers(a=cat([b[0] for b in branches]), h1=cat([b[1] for b in branches]),
+                               dzp=cat(dzps), dc=cat(dcs), dz=dz, u=u, gv=gv)
+
+
+def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence[int],
+                                 dilations: Sequence[int], res_scale: float = 1.0) -> GatedHiFiWeights:
+    """Plain version of the weight-gradient reduction: each gradient is a
+    product of two [B*T, .] operands summed over time (one tap at a time
+    for the convs, the conv input shifted by the tap's offset)."""
+    W = x.shape[-1]
+    H = 2 * W
+    outer = lambda p, q: torch.einsum("btm,btn->mn", p, q)
+    ks, cbs, w1s, b1s = [], [], [], []
+    for d, (k, dil) in enumerate(zip(kernels, dilations)):
+        cols = slice(d * H, (d + 1) * H)
+        a, dc, dzp = bufs.a[..., cols], bufs.dc[..., cols], bufs.dzp[..., cols]
+        half = (k - 1) // 2
+        ks.append(torch.stack([outer(_shift_time(a, (j - half) * dil), dc) for j in range(k)]))
+        cbs.append(dc.sum(dim=(0, 1)))
+        w1s.append(res_scale * outer(bufs.h1[..., cols], dzp))
+        b1s.append(res_scale * dzp.sum(dim=(0, 1)))
+    return GatedHiFiWeights(
+        wall=outer(x, bufs.dz), ball=bufs.dz.sum(dim=(0, 1)), ks=tuple(ks),
+        cb=torch.stack(cbs), w1=torch.stack(w1s), b1=torch.stack(b1s),
+        wg=outer(bufs.u, bufs.gv), bg=bufs.gv.sum(dim=(0, 1)), dilations=tuple(dilations))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _check_call(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
+                extra: Mapping[str, torch.Tensor] = {}) -> None:
+    """Raises on anything the kernels do not take."""
     B, T, W = x.shape
     H = 2 * W
     depth = len(w.ks)
     if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError("gated_hifi: the kernel is built for sm_90a (Hopper)")
+        raise RuntimeError("gated_hifi: the kernels are built for sm_90a (Hopper)")
     if W != _build.GATED_HIFI_WIDTH:
-        raise ValueError(f"gated_hifi: kernel is built for W={_build.GATED_HIFI_WIDTH}, got W={W}")
+        raise ValueError(f"gated_hifi: kernels are built for W={_build.GATED_HIFI_WIDTH}, got W={W}")
     if T < 1 or B < 1:
         raise ValueError(f"gated_hifi: empty input {tuple(x.shape)}")
     if any(k % 2 == 0 for k in w.kernels) or not 1 <= depth <= _build.GATED_HIFI_MAX_DEPTH:
         raise ValueError(f"gated_hifi: kernels {w.kernels} must be odd, 1..8 branches")
-    ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
-    tensors = {"x": x, "wall": w.wall, "ball": w.ball, "ks": ks_flat, "cb": w.cb,
-               "w1": w.w1, "b1": w.b1, "wg": w.wg, "bg": w.bg}
-    shapes = {"x": (B, T, W), "wall": (W, depth * H), "ball": (depth * H,),
-              "ks": (sum(w.kernels) * H * H,), "cb": (depth, H), "w1": (depth, H, H),
-              "b1": (depth, H), "wg": (W, W), "bg": (W,)}
-    for name, t in tensors.items():
+    shapes = {"x": (B, T, W), "wall": (W, depth * H), "ball": (depth * H,), "cb": (depth, H),
+              "w1": (depth, H, H), "b1": (depth, H), "wg": (W, W), "bg": (W,),
+              **{f"ks.{d}": (k, H, H) for d, k in enumerate(w.kernels)},
+              **{name: (B, T, W) for name in extra}}
+    for name, t in {"x": x, **w.tensors(), **extra}.items():
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"gated_hifi: {name} must be a contiguous float32 tensor on {x.device}")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"gated_hifi: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-    if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x.device:
-        raise ValueError("gated_hifi: lens must be an int32 [B] tensor on the input's device")
-    lens = lens.contiguous()
-
-    lib = _build.build()
+    if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x.device or not lens.is_contiguous():
+        raise ValueError("gated_hifi: lens must be a contiguous int32 [B] tensor on the input's device")
     max_halo = max((k - 1) // 2 * d for k, d in zip(w.kernels, w.dilations))
-    if lib.gated_hifi_fwd_smem_bytes(max_halo) > _build.MAX_SMEM_BYTES:
+    if _build.build().gated_hifi_fwd_smem_bytes(max_halo) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"gated_hifi: halo {max_halo} needs more shared memory than a block has")
+
+
+def _ints(values: Sequence[int]):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(x, lens, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int) -> torch.Tensor:
+    _check_call(x, lens, w)
+    B, T, W = x.shape
+    ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
     out = torch.empty_like(x)
-    ints = ctypes.c_int * depth
-    rc = lib.gated_hifi_fwd(
+    rc = _build.build().gated_hifi_fwd(
         x.data_ptr(), lens.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(),
         w.wg.data_ptr(), w.bg.data_ptr(), out.data_ptr(),
-        B, T, W, depth, ints(*w.kernels), ints(*w.dilations), float(res_scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        B, T, W, len(w.ks), _ints(w.kernels), _ints(w.dilations), float(res_scale),
+        seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gated_hifi_fwd launch failed with cudaError {rc}")
     gated_hifi.launches += 1
     return out
 
 
+def gated_hifi_backward(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g: torch.Tensor,
+                        res_scale: float = 1.0, p_drop: float = 0.0,
+                        seed: int = 0) -> Tuple[torch.Tensor, GatedHiFiWeights]:
+    """The block's VJP: (dx, weight gradients) for the output cotangent ``g``,
+    as ``backward_buffers`` then ``weight_grad_reduce`` (each launches its
+    kernel for a CUDA tensor and runs its plain version for a CPU one)."""
+    dx, bufs = backward_buffers(x, lens, w, g, res_scale, p_drop, seed)
+    return dx, weight_grad_reduce(x, bufs, w.kernels, w.dilations, res_scale)
+
+
+def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g: torch.Tensor,
+                     res_scale: float = 1.0, p_drop: float = 0.0,
+                     seed: int = 0) -> Tuple[torch.Tensor, BackwardBuffers]:
+    """dx and the ``BackwardBuffers`` of the cotangent ``g``.
+
+    A CUDA tensor launches the two tile passes of ``csrc/gated_hifi_bwd.cu``,
+    which recompute the forward from x and the seed; ``backward_buffers.launches``
+    counts launches. A CPU tensor runs ``backward_buffers_reference``.
+    """
+    if x.device.type == "cpu":
+        return backward_buffers_reference(x, lens, w, g, res_scale, p_drop, seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"backward_buffers: unsupported device {x.device}")
+    _check_call(x, lens, w, {"g": g})
+    B, T, W = x.shape
+    H, depth = 2 * W, len(w.ks)
+    wide = lambda: torch.empty(B, T, depth * H, device=x.device, dtype=torch.float32)
+    bufs = BackwardBuffers(a=wide(), h1=wide(), dzp=wide(), dc=wide(), dz=wide(),
+                           u=torch.empty_like(x), gv=torch.empty_like(x))
+    # transposed weights: each product of the backward reads its operand
+    # along rows, as the forward's do
+    ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
+    ks_t = torch.cat([k.transpose(1, 2).reshape(-1) for k in w.ks])
+    w1_t = w.w1.transpose(1, 2).contiguous()
+    wg_t = w.wg.t().contiguous()
+    wall_t = w.wall.t().contiguous()
+    dx = torch.empty_like(x)
+    rc = _build.build().gated_hifi_bwd(
+        x.data_ptr(), lens.data_ptr(), g.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
+        ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), wg_t.data_ptr(),
+        w1_t.data_ptr(), ks_t.data_ptr(), wall_t.data_ptr(),
+        bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
+        bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), dx.data_ptr(),
+        B, T, W, depth, _ints(w.kernels), _ints(w.dilations), float(res_scale),
+        seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"gated_hifi_bwd launch failed with cudaError {rc}")
+    backward_buffers.launches += 1
+    return dx, bufs
+
+
+def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence[int],
+                       dilations: Sequence[int], res_scale: float = 1.0) -> GatedHiFiWeights:
+    """The block's weight gradients from the backward's buffers.
+
+    A CUDA tensor launches the split-over-time reduction of
+    ``csrc/gated_hifi_bwd.cu`` (per-block partial sums over a slice of the
+    B*T frames, then a second pass that adds the slices in a fixed order:
+    no float atomics, so equal inputs give bitwise-equal gradients); a CPU
+    tensor runs ``weight_grad_reduce_reference``. ``weight_grad_reduce.launches``
+    counts launches.
+    """
+    if x.device.type == "cpu":
+        return weight_grad_reduce_reference(x, bufs, kernels, dilations, res_scale)
+    B, T, W = x.shape
+    H, depth = 2 * W, len(kernels)
+    for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv"):
+        t = getattr(bufs, name)
+        want = (B, T, W) if name in ("u", "gv") else (B, T, depth * H)
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.shape != want:
+            raise ValueError(f"weight_grad_reduce: {name} must be contiguous float32 {want} on {x.device}")
+    lib = _build.build()
+    n_split = max(1, min(_build.WGRAD_MAX_SPLIT, math.ceil(B * T / _build.WGRAD_ROWS_PER_SPLIT)))
+    partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
+                           device=x.device, dtype=torch.float32)
+    sizes = [W * depth * H, depth * H, sum(kernels) * H * H, depth * H, depth * H * H, depth * H, W * W, W]
+    flat = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    rc = lib.gated_hifi_wgrad(
+        x.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
+        bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), partials.data_ptr(),
+        flat.data_ptr(), B, T, W, depth, _ints(kernels), _ints(dilations), float(res_scale),
+        n_split, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"gated_hifi_wgrad launch failed with cudaError {rc}")
+    weight_grad_reduce.launches += 1
+    wall, ball, ks, cb, w1, b1, wg, bg = torch.split(flat, sizes)
+    ks = torch.split(ks, [k * H * H for k in kernels])
+    return GatedHiFiWeights(
+        wall=wall.view(W, depth * H), ball=ball, ks=tuple(k.view(-1, H, H) for k in ks),
+        cb=cb.view(depth, H), w1=w1.view(depth, H, H), b1=b1.view(depth, H), wg=wg.view(W, W),
+        bg=bg, dilations=tuple(dilations))
+
+
+class GatedHiFiFunction(torch.autograd.Function):
+    """The block on the card: forward kernel, and a backward that saves only
+    x, lens, the weights and the seed and recomputes the rest in the
+    backward kernel (as the TPU kernel's custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, x, lens, dilations, res_scale, p_drop, seed,
+                wall, ball, cb, w1, b1, wg, bg, *ks):  # pylint: disable=arguments-differ
+        w = GatedHiFiWeights(wall, ball, tuple(ks), cb, w1, b1, wg, bg, tuple(dilations))
+        ctx.save_for_backward(x, lens, wall, ball, cb, w1, b1, wg, bg, *ks)
+        ctx.meta = (tuple(dilations), res_scale, p_drop, seed)
+        return _launch_fwd(x, lens, w, res_scale, p_drop, seed)
+
+    @staticmethod
+    def backward(ctx, g):  # pylint: disable=arguments-differ
+        x, lens, wall, ball, cb, w1, b1, wg, bg, *ks = ctx.saved_tensors
+        dilations, res_scale, p_drop, seed = ctx.meta
+        w = GatedHiFiWeights(wall, ball, tuple(ks), cb, w1, b1, wg, bg, dilations)
+        dx, dw = gated_hifi_backward(x, lens, w, g.contiguous(), res_scale, p_drop, seed)
+        return (dx, None, None, None, None, None,
+                dw.wall, dw.ball, dw.cb, dw.w1, dw.b1, dw.wg, dw.bg, *dw.ks)
+
+
+def gated_hifi(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
+               res_scale: float = 1.0, p_drop: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """GatedHiFi block forward; same contract as ``gated_hifi_reference``.
+
+    A CUDA tensor runs ``GatedHiFiFunction`` (``csrc/gated_hifi_fwd.cu``,
+    differentiable through ``gated_hifi_backward``), and anything the kernels
+    do not take raises. A CPU tensor runs the plain version.
+    ``gated_hifi.launches`` counts forward kernel launches.
+    """
+    if x.device.type == "cpu":
+        return gated_hifi_reference(x, lens, w, res_scale, p_drop, seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"gated_hifi: unsupported device {x.device}")
+    keep_threshold(p_drop)
+    return GatedHiFiFunction.apply(x, lens, w.dilations, float(res_scale), float(p_drop), int(seed),
+                                   w.wall, w.ball, w.cb, w.w1, w.b1, w.wg, w.bg, *w.ks)
+
+
 gated_hifi.launches = 0
+backward_buffers.launches = 0
+weight_grad_reduce.launches = 0

@@ -3,7 +3,8 @@ against the JAX package's, on the CPU.
 
 The same numpy weights and inputs go through the port's plain version, the
 JAX fused Pallas kernel in interpret mode (dropout off, as
-tests/test_fused_block.py runs it) and the flax block. Valid positions match
+tests/test_fused_block.py runs it) and the flax block; dropout and the
+backward are tests/test_torch_gated_hifi_bwd.py's. Valid positions match
 within rtol 2e-5 / atol 2e-6 (fp32; summation order differs), and the port's
 output is exactly 0 past each sequence's length. The CUDA kernel itself runs
 only on the card (chip_smoke.py).
@@ -131,11 +132,23 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
 
 
 def test_wrapper_rejects_dropout():
+    """Dropout rates outside [0, 1) raise; a valid rate on a CPU tensor runs
+    the plain version with the seed's masks and counts no launch."""
     block = _torch_block(2, seed=8)
     weights = gh.pack_weights(dict(block.named_parameters()), block.dilations)
     x, lens, _ = _inputs(1, 64, seed=9)
-    with pytest.raises(NotImplementedError, match="p_drop"):
-        gh.gated_hifi(torch.from_numpy(x), torch.from_numpy(lens), weights, p_drop=0.1)
+    x, lens = torch.from_numpy(x), torch.from_numpy(lens)
+    for p_drop in (-0.1, 1.0, 1.5):
+        with pytest.raises(ValueError, match="p_drop"):
+            gh.gated_hifi(x, lens, weights, p_drop=p_drop)
+    before = gh.gated_hifi.launches
+    with torch.no_grad():
+        out = gh.gated_hifi(x, lens, weights, p_drop=0.1, seed=3)
+        ref = gh.gated_hifi_reference(x, lens, weights, p_drop=0.1, seed=3)
+        no_drop = gh.gated_hifi_reference(x, lens, weights)
+    assert gh.gated_hifi.launches == before
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert not torch.allclose(out, no_drop)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):

@@ -22,7 +22,7 @@ for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "speech_masters_thesis_tpu" not in sys.modules
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -30,12 +30,22 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12  # every module was imported
+    names = proc.stdout.split()
+    assert len(names) >= 24  # every module was imported
+    for module in ("models.ema", "models.base", "train.harness", "train.loop", "train.optim",
+                   "train.state"):
+        assert f"speech_masters_thesis_tpu_torch.{module}" in names, module
 
 
 def test_config_dict_equals_yaml():
     assert configs.VQVAE_TPU == load_config(
         os.path.join(REPO, "configs/models/vqvae_tpu.yaml")).to_dict()["model"]
+
+
+def test_optimizer_config_equals_yaml():
+    cfg = load_config(os.path.join(REPO, "configs/models/vqvae_tpu.yaml")).to_dict()
+    assert configs.VQVAE_TPU_OPTIMIZER == cfg["optimizer"]
+    assert cfg["scheduler"] is None
 
 
 @pytest.mark.parametrize("name", ["models.vqvae.vqvae.VQVAE", "vqvae"])

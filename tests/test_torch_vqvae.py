@@ -6,7 +6,8 @@ parameter shapes with every leaf drawn from a numpy seed, and go across
 through convert.py; the
 codebook is the same seeded numpy array on both sides. Audio is 2 x 2048
 samples with ragged lengths. Codes must be bitwise equal; decode within
-atol 1e-5; the eval forward's loss terms within rtol 1e-5.
+atol 1e-5; the eval forward's loss terms within rtol 1e-5. The training
+step is tests/test_torch_train.py's.
 """
 
 import copy
@@ -139,7 +140,13 @@ def test_bottleneck_eval_forward_matches():
     np.testing.assert_allclose(float(commit), float(jcommit), rtol=1e-5)
     for key in ("fit", "prenorm"):
         np.testing.assert_allclose(float(metrics[key]), float(jmetrics[key]), rtol=1e-5, err_msg=key)
-    with pytest.raises(NotImplementedError):
+    # the eval forward leaves the codebook alone and passes no gradient to x;
+    # the update needs a generator (tests/test_torch_train.py checks it)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    _, xq, commit, _ = block(xt, torch.from_numpy(mask))
+    assert not xq.requires_grad and commit.requires_grad
+    np.testing.assert_array_equal(block.k.numpy(), k)
+    with pytest.raises(ValueError, match="Generator"):
         block(torch.from_numpy(x), torch.from_numpy(mask), update_k=True)
 
 
@@ -197,7 +204,10 @@ def test_port_model_rejects_what_is_not_ported():
         VQVAE({**cfg, "folded_convs": True})
     with pytest.raises(NotImplementedError):
         VQVAE({**cfg, "block_type": "wavenet"})
+    with pytest.raises(NotImplementedError, match="use_bottleneck"):
+        VQVAE({**cfg, "use_bottleneck": False})
     model = VQVAE(cfg)
     audio, lengths, _ = _audio(t=1024)
-    with pytest.raises(NotImplementedError, match="training"):
+    # the training forward is ported; it needs its generators
+    with pytest.raises(ValueError, match="Generator"):
         model(torch.from_numpy(audio), torch.from_numpy(lengths), train=True)
