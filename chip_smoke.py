@@ -33,6 +33,30 @@ checkout:
      2 x 22016 subset, dropout 0 and no codebook revival: losses, and grads
      as close to the same step in fp64 as the CPU's fp32 grads are.
 
+Then the Transformer LM (configs.TRANSFORMER_LM_TPU, 12 layers, d_model
+512, 16 heads of 32, seeded flax-default weights) over the frozen codec of
+phases 4-6, grafted with load_vqvae_into_lm:
+
+ 11. the small-T attention kernels against their plain versions at
+     (B, T) = (8, 258), (64, 258) and (8, 1024), H=16, D=32, ragged lengths,
+     at p=0 and p=0.1: the forward, dq/dk/dv of the recompute backward, two
+     backward calls bitwise equal, both times; the kernel's dropout masks
+     read back bit for bit against the plain version's, keep rate within
+     5 sigma of 0.9, one seed reproduces and another differs;
+ 12. the LM training path at batch 8 x 258 and 64 x 258 tokens (dropout
+     0.1, Adam with the LM's warm-up, parameter EMA, the codec frozen): 5
+     steps each, 12 attention forward and 12 backward launches per step and
+     no GatedHiFi launch, every trainable parameter moves and the codec and
+     codebook stay bitwise unchanged; step time and tokens/s;
+ 13. the val step on the EMA parameters: 12 attention forward launches and
+     one codec decode's GatedHiFi launches, audio of the argmax codes;
+ 14. KV-cached sampling of 344 codes at batch 4 and 16, then the codec
+     decode: no attention launch, one decode's GatedHiFi launches, tokens/s
+     and the decode's share; the cached decode's logits against a full
+     teacher-forced forward over the sampled prefix;
+ 15. one LM train step on the card against the CPU (plain path) on a
+     2 x 64 subset at dropout 0: losses and gradients.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -42,10 +66,12 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,11 +80,18 @@ from speech_masters_thesis_tpu_torch import configs
 from speech_masters_thesis_tpu_torch.device import cuda_device
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
+from speech_masters_thesis_tpu_torch.models.transformer_lm.model import (
+    BOS,
+    OFFSET,
+    PAD,
+    load_vqvae_into_lm,
+)
 from speech_masters_thesis_tpu_torch.models.vqvae.model import compression_factor
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops import attention as att
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 from speech_masters_thesis_tpu_torch.train import harness
-from speech_masters_thesis_tpu_torch.train.loop import make_train_step, raise_if_not_finite
+from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step, raise_if_not_finite
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 from speech_masters_thesis_tpu_torch.utils.registry import get_model
@@ -83,6 +116,23 @@ STEP_GRAD_WORST_ATOL = 1e-3    # CPU fp32's (median and worst parameter; relu de
 HOP = 256                      # samples per mel frame (the JAX package's data config)
 SOURCE_DIR = "speech_masters_thesis_tpu_torch/csrc/"
 PALLAS = "speech_masters_thesis_tpu/ops/pallas/gated_hifi.py"
+PALLAS_ATTENTION = "speech_masters_thesis_tpu/ops/pallas/attention.py"
+# the Transformer LM
+ATTN_SHAPES = ((8, 258), (64, 258), (8, 1024))  # (B, T): the LM's train shapes and the route's bound
+ATTN_HEADS, ATTN_DIM = 16, 32
+ATTN_FWD_RTOL = 1e-5           # of max|ref|: fp32, an online softmax against a two-pass one
+ATTN_GRAD_RTOL = 2e-5          # of each gradient's max|ref|: sums over up to 1024 rows, other order
+LM_BATCHES = (8, 64)
+LM_T = 258                     # BOS + 256 codes, padded (the JAX package's LM train shape)
+LM_STEPS = 5
+LM_SEED = 11
+SAMPLE_BATCHES = (4, 16)
+SAMPLE_STEPS = 344             # 2 s of audio, the JAX bench's length (benchmarks/run_benchmarks.py:57)
+KV_RTOL = 1e-4                 # of max|logit|: 12 layers, cached single-row attention vs the kernel
+LM_SUBSET = (2, 64)
+LM_LOSS_RTOL = 1e-5            # card vs CPU LM step: fp32, other summation orders
+LM_GRAD_MEDIAN_RTOL = 1e-5     # relative L2 per parameter, denominator floored at 1e-4 of the
+LM_GRAD_WORST_RTOL = 1e-3      # global gradient norm (the key bias's true gradient is zero)
 
 
 def require(ok: bool, what: str) -> None:
@@ -144,14 +194,38 @@ def phase_device() -> str:
     return card
 
 
+KERNEL_NAMES = ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
+                "gated_hifi_fwd_kernel", "bwd_recompute_kernel", "bwd_transpose_kernel",
+                "wgrad_partial_kernel", "wgrad_reduce_kernel")
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel: its name (with the template tag of the
+    mangled name), registers, barriers, shared memory and spills."""
+    lines, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            tag = re.search(r"_kernelI(\w+?)E", mangled)
+            name += f"<{tag.group(1)}>" if tag else ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}, {spills}")
+            name = None
+    return lines
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     report = _build.compile_library(_build.library_path())
     _build.build()
-    ptxas = [line.strip() for line in report.splitlines()
-             if "registers" in line or "spill" in line or "smem" in line]
+    ptxas = ptxas_summary(report)
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} -> {_build.library_path().name} "
           f"in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
+    for name in KERNEL_NAMES:
+        require(any(line.startswith(name) for line in ptxas), f"ptxas reports no {name}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -212,8 +286,9 @@ def build_model(device: torch.device, audio: torch.Tensor, lengths: torch.Tensor
     return model
 
 
-def phase_slice(model, device, audio, lengths, card: str) -> int:
-    """encode -> decode and the eval forward on the card; returns the launches."""
+def phase_slice(model, device, audio, lengths, card: str) -> tuple:
+    """encode -> decode and the eval forward on the card; returns the launches
+    and those of one decode."""
     x, n = audio.to(device), lengths.to(device)
     mask = (torch.arange(x.shape[1], device=device)[None, :] < n[:, None]).float()
     gh.gated_hifi.launches = 0
@@ -240,7 +315,7 @@ def phase_slice(model, device, audio, lengths, card: str) -> int:
             "forward losses")
     require((n_encode, n_decode, n_forward) == (7, 7, 14),
             f"launches {(n_encode, n_decode, n_forward)} != (7, 7, 14)")
-    return launches
+    return launches, n_decode
 
 
 def phase_vs_cpu(model, device, audio) -> None:
@@ -639,6 +714,339 @@ def phase_train_vs_cpu(device, card: str) -> None:
             f"train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
 
 
+# ---------------------------------------------------------------------------
+# the Transformer LM
+# ---------------------------------------------------------------------------
+def packed_qkv(B: int, T: int, seed: int, device: torch.device):
+    """A packed [B, T, 3*H*D] projection (the LM's layout), ragged lens
+    (lens[0] = T) and a cotangent g [B, T, H, D]."""
+    rng = np.random.RandomState(seed)
+    hd = ATTN_HEADS * ATTN_DIM
+    qkv = torch.from_numpy(rng.randn(B, T, 3 * hd).astype(np.float32)).to(device)
+    lens_np = rng.randint(1, T + 1, (B,)).astype(np.int32)
+    lens_np[0] = T
+    g = torch.from_numpy(rng.randn(B, T, ATTN_HEADS, ATTN_DIM).astype(np.float32)).to(device)
+    return qkv, torch.from_numpy(lens_np).to(device), g
+
+
+def heads(qkv: torch.Tensor):
+    """q, k, v as [B, T, H, D] views of the packed projection."""
+    B, T, _ = qkv.shape
+    return [t.view(B, T, ATTN_HEADS, ATTN_DIM) for t in qkv.split(ATTN_HEADS * ATTN_DIM, dim=-1)]
+
+
+def kernel_keep_mask(B: int, T: int, lens: torch.Tensor, seed: torch.Tensor, device) -> torch.Tensor:
+    """The forward kernel's dropout decisions [B, H, T, T] at p=P_DROP, read
+    back through its output: with q = k = 0 every valid key of row r has
+    probability 1/n_r exactly (n_r = min(r + 1, len_b)), and with v one-hot
+    over a window of D keys, o[b, r, h, d] * n_r * (1 - p) is 1 where the
+    kernel kept key c0 + d and 0 where it dropped it."""
+    H, D = ATTN_HEADS, ATTN_DIM
+    zeros = torch.zeros(B, T, H, D, device=device)
+    n = torch.minimum(torch.arange(1, T + 1, device=device)[None, :], lens[:, None].long())
+    keep = torch.zeros(B, H, T, T, dtype=torch.bool, device=device)
+    for c0 in range(0, T, D):
+        w = min(D, T - c0)
+        v = torch.zeros(B, T, H, D, device=device)
+        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=device)[None, :, None, :]
+        o = att.fused_attention(zeros, zeros, v, lens, seed, 1.0, P_DROP)
+        kept = o[..., :w] * n[:, :, None, None] * (1.0 - P_DROP) > 0.5
+        keep[..., c0:c0 + w] = kept.permute(0, 2, 1, 3)
+    return keep
+
+
+def phase_attention_dropout(device, card: str) -> None:
+    """The attention kernel's masks on the card against the plain version's."""
+    B, T = ATTN_SHAPES[0]
+    _, lens, _ = packed_qkv(B, T, 600, device)
+    seed = torch.tensor([31337], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        keep = kernel_keep_mask(B, T, lens, seed, device)
+        again = kernel_keep_mask(B, T, lens, seed, device)
+        other = kernel_keep_mask(B, T, lens, seed + 1, device)
+        plain = att.dropout_bits(seed, B, ATTN_HEADS, T, device) >= att.keep_threshold(P_DROP)
+    valid = att.valid_pairs(lens, T).expand(B, ATTN_HEADS, T, T)
+    n = int(valid.sum())
+    rate = keep[valid].double().mean().item()
+    expect = 1.0 - att.keep_threshold(P_DROP) / 2 ** 32
+    sigma = np.sqrt(expect * (1 - expect) / n)
+    equal = torch.equal(keep[valid], plain[valid])
+    same = torch.equal(keep[valid], again[valid])
+    changed = (keep[valid] != other[valid]).double().mean().item()
+    print(f"[attention dropout] p={P_DROP} B={B} T={T} H={ATTN_HEADS}: kernel masks read back at "
+          f"{n} valid pairs equal the plain version's {equal}; keep rate {rate:.6f} (expect "
+          f"{expect:.6f}, 5 sigma {5 * sigma:.1e}); same seed same masks {same}; another seed "
+          f"changes {changed:.4f} [{card}]")
+    require(equal, "the attention kernel's dropout masks differ from the plain version's")
+    require(abs(rate - expect) <= 5 * sigma, f"attention keep rate {rate} vs {expect}")
+    require(same, "the same seed gave other attention masks")
+    require(changed > 0.1, f"another seed changed only {changed} of the attention masks")
+
+
+def phase_attention(device, card: str) -> dict:
+    """Forward and recompute backward kernels against their plain versions.
+
+    The kernel's gradients come through autograd (``FusedAttentionFunction``,
+    whose backward launches both kernels of attention_bwd.cu), the plain
+    ones through autograd of ``attention_reference``; times are of those two
+    backward passes (CUDA events, median of 10, each with a retained graph).
+    """
+    scale = 1.0 / np.sqrt(ATTN_DIM)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for i, (B, T) in enumerate(ATTN_SHAPES):
+        packed, lens, g = packed_qkv(B, T, 500 + i, device)
+        for p in (0.0, P_DROP):
+            seed = torch.tensor([12345 + i], dtype=torch.int64, device=device)
+            qkv = packed.clone().requires_grad_(True)
+            qkv_ref = packed.clone().requires_grad_(True)
+            o = att.fused_attention(*heads(qkv), lens, seed, scale, p)
+            ref = att.attention_reference(*heads(qkv_ref), lens, seed, scale, p)
+            grads = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
+            again = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
+            grads_ref = torch.autograd.grad(ref, qkv_ref, g, retain_graph=True)[0]
+            torch.cuda.synchronize()
+            fwd_scale = ref.abs().max().item()
+            fwd_err = (o - ref).abs().max().item()
+            errs = {name: ((a - b).abs().max().item(), b.abs().max().item())
+                    for name, a, b in zip(("dq", "dk", "dv"), heads(grads), heads(grads_ref))}
+            bitwise = torch.equal(grads, again)
+            with torch.no_grad():
+                args = (*heads(packed), lens, seed, scale, p)
+                times = {"fwd": cuda_ms(lambda: att.fused_attention(*args)),
+                         "fwd_plain": cuda_ms(lambda: att.attention_reference(*args))}
+            times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
+            times["bwd_plain"] = cuda_ms(lambda: torch.autograd.grad(ref, qkv_ref, g, retain_graph=True))
+            print(f"[attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward max_abs_err "
+                  f"{fwd_err:.3e} (tol {ATTN_FWD_RTOL * fwd_scale:.3e}); " + ", ".join(
+                      f"{k} {e:.3e} (tol {ATTN_GRAD_RTOL * s_:.3e})" for k, (e, s_) in errs.items())
+                  + f"; two backward calls bitwise equal {bitwise}; ms: forward kernel "
+                  f"{times['fwd']:.4f} vs plain {times['fwd_plain']:.4f}, backward kernels "
+                  f"{times['bwd']:.4f} vs plain autograd {times['bwd_plain']:.4f} (median of 10) [{card}]")
+            require(np.isfinite(fwd_err) and fwd_err <= ATTN_FWD_RTOL * fwd_scale,
+                    f"attention forward differs at B={B} T={T} p={p}: {fwd_err}")
+            for name, (err, s_) in errs.items():
+                require(np.isfinite(err) and err <= ATTN_GRAD_RTOL * s_,
+                        f"attention {name} differs at B={B} T={T} p={p}: {err} > {ATTN_GRAD_RTOL} * {s_}")
+            require(bitwise, f"two attention backward calls differ at B={B} T={T} p={p}")
+            out["fwd_err"] = max(out["fwd_err"], fwd_err)
+            out["bwd_err"] = max(out["bwd_err"], max(e for e, _ in errs.values()))
+            if (B, T) == ATTN_SHAPES[0] and p == P_DROP:  # the LM's training call
+                out.update(fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                           bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"])
+            del o, ref, grads, again, grads_ref, qkv, qkv_ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_tokens(batch: int, T: int, seed: int, device) -> dict:
+    """BOS then seeded codes + OFFSET, padded with PAD to T: the first row
+    holds T - 1 tokens, the others ragged lengths in [T/2, T - 1]."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(T // 2, T, (batch,)).astype(np.int32)
+    lens[0] = T - 1
+    tokens = np.full((batch, T), PAD, np.int64)
+    for b, n in enumerate(lens):
+        tokens[b, 0] = BOS
+        tokens[b, 1:n] = rng.randint(0, configs.TRANSFORMER_LM_TPU["vocab_size"], n - 1) + OFFSET
+    return {"token": torch.from_numpy(tokens).to(device), "token_len": torch.from_numpy(lens).to(device)}
+
+
+def build_lm(device, vq_state: dict, seed: int, dropout: Optional[float] = None):
+    """The LM at TRANSFORMER_LM_TPU width with flax-default seeded weights,
+    the frozen VQVAE_TPU codec grafted from ``vq_state``."""
+    cfg = copy.deepcopy(configs.TRANSFORMER_LM_TPU)
+    if dropout is not None:
+        cfg["dropout"] = dropout
+    lm = harness.get_model({"model": cfg}, vqvae_model_config=configs.VQVAE_TPU)
+    harness.init_model_variables(lm, None, seed=seed)
+    load_vqvae_into_lm(lm, vq_state)
+    return lm.to(device)
+
+
+def lm_counts() -> tuple:
+    return att.fused_attention.launches, att.attention_backward.launches, gh.gated_hifi.launches
+
+
+def zero_counts() -> None:
+    att.fused_attention.launches = att.attention_backward.launches = 0
+    gh.gated_hifi.launches = gh.backward_buffers.launches = gh.weight_grad_reduce.launches = 0
+
+
+def lm_optimizer(lm):
+    return build_optimizer(harness.trainable_parameters(lm), configs.TRANSFORMER_LM_TPU_OPTIMIZER,
+                           configs.TRANSFORMER_LM_TPU_SCHEDULER)
+
+
+def phase_lm_train(device, card: str, vq_state: dict) -> dict:
+    """LM_STEPS train steps at each batch of LM_BATCHES x LM_T; returns the
+    launches and times, and the state after the first batch's steps."""
+    out = {"fwd": 0, "bwd": 0}
+    n_layers = configs.TRANSFORMER_LM_TPU["num_layers"]
+    for batch_n in LM_BATCHES:
+        lm = build_lm(device, vq_state, seed=LM_SEED)
+        opt, schedule = lm_optimizer(lm)
+        state = TrainState.create(lm, opt, use_ema=True)
+        train_step = make_train_step(schedule, default_mu(batch_n, 1), use_ema=True)
+        batch = lm_tokens(batch_n, LM_T, seed=20 + batch_n, device=device)
+        frozen = {n for n, keep in harness.frozen_param_mask(lm).items() if not keep}
+        params0 = {k: v.detach().clone() for k, v in state.params.items()}
+        codebook0 = {k: v.clone() for k, v in state.codebook.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times, per_step, losses = [], [], []
+        for _ in range(LM_STEPS):
+            before = lm_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scalars = train_step(state, batch, LM_SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(tuple(a - b for a, b in zip(lm_counts(), before)))
+            raise_if_not_finite(scalars, state.step)
+            losses.append({k: float(v) for k, v in scalars.items()})
+        fwd, bwd, _ = lm_counts()
+        out["fwd"] += fwd
+        out["bwd"] += bwd
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainable = [k for k in params0 if k not in frozen]
+        moved = sum(not torch.equal(state.params[k].detach(), params0[k]) for k in trainable)
+        frozen_same = all(torch.equal(state.params[k].detach(), params0[k]) for k in frozen)
+        codebook_same = all(torch.equal(v, codebook0[k]) for k, v in state.codebook.items())
+        median = statistics.median(times[1:])
+        targets = int((batch["token_len"] - 1).sum())
+        print(f"[lm train] B={batch_n} x {LM_T} tokens, dropout {lm.dropout_p}, Adam (warm-up "
+              f"{configs.TRANSFORMER_LM_TPU_SCHEDULER['warmup_steps']}) + parameter EMA, codec frozen: "
+              f"losses {[round(l['loss'], 6) for l in losses]}, accuracy {losses[-1]['accuracy']:.6f}; "
+              f"launches per step (attention forward, attention backward, GatedHiFi forward) "
+              f"{per_step}; {moved}/{len(trainable)} trainable parameters moved; {len(frozen)} frozen "
+              f"codec parameters unchanged {frozen_same}, codebook unchanged {codebook_same}")
+        print(f"[lm train] B={batch_n}: step ms {', '.join(f'{t:.3f}' for t in times)}; median of "
+              f"steps 2-{LM_STEPS} {median:.3f} ms = {batch_n * LM_T / (median / 1e3):.1f} token "
+              f"positions/s ({batch_n} x {LM_T} per step), {targets / (median / 1e3):.1f} target "
+              f"tokens/s ({targets} per step); max_memory_allocated {peak:.3f} GiB [{card}]")
+        require(all(s_ == (n_layers, n_layers, 0) for s_ in per_step),
+                f"launches per step {per_step} != ({n_layers}, {n_layers}, 0)")
+        require(moved == len(trainable), f"only {moved}/{len(trainable)} trainable parameters moved")
+        require(frozen and frozen_same, "a frozen codec parameter changed")
+        require(codebook_same, "the frozen codebook changed")
+        out[batch_n] = {"step_ms": median}
+        if batch_n == LM_BATCHES[0]:
+            out.update(state=state, model=lm)
+        else:
+            del state, lm, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_val(state: TrainState, device, card: str, decode_launches: int) -> None:
+    batch_n = LM_BATCHES[0]
+    batch = lm_tokens(batch_n, LM_T, seed=40, device=device)
+    zero_counts()
+    loss_dict, metrics = make_val_step(use_ema=True)(state, batch)
+    torch.cuda.synchronize()
+    counts = lm_counts()
+    n_layers = configs.TRANSFORMER_LM_TPU["num_layers"]
+    yh = loss_dict["yh"]
+    shape = (batch_n, (LM_T - 1) * compression_factor(configs.VQVAE_TPU))
+    print(f"[lm val] B={batch_n} x {LM_T} on the EMA parameters: loss {float(loss_dict['loss']):.6f} "
+          f"accuracy {float(metrics['accuracy']):.6f}; yh {tuple(yh.shape)}; launches (attention "
+          f"forward, attention backward, GatedHiFi forward) {counts} [{card}]")
+    require(counts == (n_layers, 0, decode_launches),
+            f"val step launches {counts} != ({n_layers}, 0, {decode_launches})")
+    require(tuple(yh.shape) == shape and bool(torch.isfinite(yh).all()), f"yh {tuple(yh.shape)}")
+    require(np.isfinite(float(loss_dict["loss"])), "val loss")
+
+
+@torch.no_grad()
+def cached_logits(lm, tokens: torch.Tensor) -> torch.Tensor:
+    """The logits of ``sample``'s KV-cached decode, fed ``tokens`` one by one."""
+    B, T = tokens.shape
+    layers = lm.transformer.layers
+    caches = torch.zeros(2, len(layers), B, T, lm.n_heads, lm.d_model // lm.n_heads, device=tokens.device)
+    out = []
+    for pos in range(T):
+        x = lm.embedding(tokens[:, pos:pos + 1]) * np.sqrt(lm.d_model) + lm.pe[None, pos:pos + 1]
+        for i, layer in enumerate(layers):
+            x = layer.decode_step(x, caches[0, i], caches[1, i], pos)
+        out.append(lm.classifier(lm.transformer.norm(x)[:, 0]))
+    return torch.stack(out, dim=1)
+
+
+def phase_lm_sample(lm, device, card: str, decode_launches: int) -> dict:
+    """KV-cached sampling then the codec decode, at each of SAMPLE_BATCHES."""
+    out = {}
+    samples = SAMPLE_STEPS * compression_factor(configs.VQVAE_TPU)
+    for batch_n in SAMPLE_BATCHES:
+        lm.sample(batch_n, 8, torch.Generator(device=device).manual_seed(0))  # warm-up
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, codes = lm.sample(batch_n, SAMPLE_STEPS, torch.Generator(device=device).manual_seed(batch_n))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = lm_counts()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lm.reconstruct(codes, torch.ones(codes.shape, device=device))
+            torch.cuda.synchronize()
+            decode = time.perf_counter() - t0
+        rate = batch_n * SAMPLE_STEPS / total
+        out[batch_n] = {"tokens_per_s": rate, "ms": total * 1e3, "decode_ms": decode * 1e3}
+        print(f"[lm sample] B={batch_n} x {SAMPLE_STEPS} codes: {total * 1e3:.3f} ms = {rate:.1f} "
+              f"tokens/s; the codec decode alone {decode * 1e3:.3f} ms ({decode / total:.4f} of it); "
+              f"audio {tuple(audio.shape)}, {len(torch.unique(codes))} distinct codes; launches "
+              f"(attention forward, attention backward, GatedHiFi forward) {counts} [{card}]")
+        require(counts == (0, 0, decode_launches), f"sampling launches {counts} != (0, 0, {decode_launches})")
+        require(tuple(audio.shape) == (batch_n, samples) and bool(torch.isfinite(audio).all()), "sampled audio")
+        require(int(codes.min()) >= 0 and int(codes.max()) < lm.vocab_size, "sampled codes out of range")
+        if batch_n == SAMPLE_BATCHES[0]:
+            seq = torch.cat([torch.full((batch_n, 1), BOS, device=device), codes[:, :-1] + OFFSET], dim=1)
+            kv = cached_logits(lm, seq)
+            with torch.no_grad():
+                lens = torch.full((batch_n,), SAMPLE_STEPS, dtype=torch.int32, device=device)
+                full = lm.classifier(lm._backbone(seq, lens, train=False))
+            err, scale = (kv - full).abs().max().item(), full.abs().max().item()
+            print(f"[lm sample] KV-cached logits against a full teacher-forced forward over the "
+                  f"sampled prefix ({batch_n} x {SAMPLE_STEPS}): max_abs_err {err:.3e} (tol "
+                  f"{KV_RTOL * scale:.3e} = {KV_RTOL:g} * max|logit| {scale:.3e})")
+            require(err <= KV_RTOL * scale, f"cached logits differ from the full forward: {err}")
+    return out
+
+
+def phase_lm_vs_cpu(device, card: str, vq_state: dict) -> None:
+    """One LM train step on the card against the CPU's plain path, dropout 0."""
+    batch_n, T = LM_SUBSET
+    models = {"cuda": build_lm(device, vq_state, seed=LM_SEED + 1, dropout=0.0)}
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    batch = lm_tokens(batch_n, T, seed=50, device="cpu")
+    out = {}
+    for name, lm in models.items():
+        dev = next(lm.parameters()).device
+        opt, schedule = lm_optimizer(lm)
+        state = TrainState.create(lm, opt, use_ema=True)
+        scalars = make_train_step(schedule, default_mu(batch_n, 1), use_ema=True)(
+            state, {k: v.to(dev) for k, v in batch.items()}, LM_SEED)
+        out[name] = ({k: float(v) for k, v in scalars.items()},
+                     {k: p.grad.detach().cpu().double() for k, p in lm.named_parameters() if p.grad is not None})
+    grads, ref = out["cuda"][1], out["cpu"][1]
+    floor = 1e-4 * np.sqrt(sum(float((g ** 2).sum()) for g in ref.values()))
+    rel = {k: ((grads[k] - r).norm().item() / max(r.norm().item(), floor)) for k, r in ref.items()}
+    worst = max(rel, key=rel.get)
+    median = statistics.median(rel.values())
+    print(f"[lm vs cpu] {batch_n} x {T}, dropout 0: card {out['cuda'][0]}; cpu {out['cpu'][0]}; "
+          f"gradients of {len(ref)} parameters, relative L2 (denominator floor {floor:.3e}): median "
+          f"{median:.3e} (tol {LM_GRAD_MEDIAN_RTOL:g}), worst {rel[worst]:.3e} at {worst} (tol "
+          f"{LM_GRAD_WORST_RTOL:g}) [{card}]")
+    require(set(grads) == set(ref), "card and CPU differ in which parameters have gradients")
+    require(not any(k.startswith(("vqvae_decoder.", "vqvae_bottleneck.")) for k in ref),
+            "a frozen codec parameter has a gradient")
+    loss_g, loss_c = out["cuda"][0]["loss"], out["cpu"][0]["loss"]
+    require(abs(loss_g - loss_c) <= LM_LOSS_RTOL * abs(loss_c), f"LM step loss {loss_g} vs {loss_c}")
+    require(median <= LM_GRAD_MEDIAN_RTOL, f"LM step gradients: median {median}")
+    require(rel[worst] <= LM_GRAD_WORST_RTOL, f"LM step gradients: {worst} {rel[worst]}")
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -646,16 +1054,25 @@ def main() -> None:
     kernel = phase_kernel(device, card, BLOCK_TS, BATCH)
     model = build_model(device, *audio_batch(BATCH, SAMPLES, seed=5))
     audio, lengths = audio_batch(BATCH, SAMPLES, seed=4)
-    inference_launches = phase_slice(model, device, audio, lengths, card)
+    inference_launches, decode_launches = phase_slice(model, device, audio, lengths, card)
     phase_vs_cpu(model, device, audio)
     phase_timing(model, device, audio, lengths, card)
+    vq_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}  # the LM's codec
     del model
     backward = phase_backward(device, card, BLOCK_TS, BATCH)
     dropout_err = phase_dropout(device, card)
     train = phase_train(device, card)
     phase_train_vs_cpu(device, card)
+    attention = phase_attention(device, card)
+    phase_attention_dropout(device, card)
+    lm = phase_lm_train(device, card, vq_state)
+    phase_lm_val(lm.pop("state"), device, card, decode_launches)
+    phase_lm_sample(lm.pop("model"), device, card, decode_launches)
+    torch.cuda.empty_cache()
+    phase_lm_vs_cpu(device, card, vq_state)
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
-          f"forward, {train['bwd']} backward tile passes, {train['red']} reductions")
+          f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
+          f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward")
     print(json.dumps({"kernels": [
         {"name": "gated_hifi_fwd", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_fwd.cu",
          "replaces": PALLAS + ":591", "launches": train["fwd"],
@@ -666,7 +1083,15 @@ def main() -> None:
          "ms": backward["ms"], "plain_ms": backward["plain_ms"]},
         {"name": "gated_hifi_wgrad", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_bwd.cu",
          "replaces": PALLAS + ":360", "launches": train["red"], "max_abs_err": backward["red_err"],
-         "ms": backward["red_ms"], "plain_ms": backward["red_plain_ms"]}]}))
+         "ms": backward["red_ms"], "plain_ms": backward["red_plain_ms"]},
+        {"name": "attention_fwd", "route": "cuda", "source": SOURCE_DIR + "attention_fwd.cu",
+         "replaces": PALLAS_ATTENTION + ":226", "launches": lm["fwd"],
+         "max_abs_err": attention["fwd_err"], "ms": attention["fwd_ms"],
+         "plain_ms": attention["fwd_plain_ms"]},
+        {"name": "attention_bwd", "route": "cuda", "source": SOURCE_DIR + "attention_bwd.cu",
+         "replaces": PALLAS_ATTENTION + ":253", "launches": lm["bwd"],
+         "max_abs_err": attention["bwd_err"], "ms": attention["bwd_ms"],
+         "plain_ms": attention["bwd_plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

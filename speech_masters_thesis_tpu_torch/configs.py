@@ -2,7 +2,10 @@
 
 ``VQVAE_TPU`` is the ``model:`` section of ``configs/models/vqvae_tpu.yaml``
 and ``VQVAE_TPU_OPTIMIZER`` its ``optimizer:`` section (its ``scheduler:`` is
-null), key for key; a test holds them equal.
+null); ``TRANSFORMER_LM_TPU``, ``TRANSFORMER_LM_TPU_OPTIMIZER`` and
+``TRANSFORMER_LM_TPU_SCHEDULER`` are the three sections of
+``configs/models/transformer_lm_tpu.yaml``. Key for key; tests hold them
+equal.
 """
 
 from __future__ import annotations
@@ -54,3 +57,31 @@ VQVAE_TPU_OPTIMIZER = {
     "weight_decay": 0,
     "eps": 1e-9,
 }
+
+TRANSFORMER_LM_TPU = {
+    "_import_": "models.transformer_lm.transformer_lm.TransformerLM",
+    "fused_attention": True,
+    "vocab_size": 512,
+    "embed_dim": 512,
+    "max_len": 5000,
+    "num_layers": 12,
+    "d_model": 512,
+    "nhead": 16,
+    "dim_feedforward": 2048,
+    "dropout": 0.1,
+    "activation": "relu",
+    "layer_norm_eps": 1e-5,
+    "norm_first": False,
+    "loss_type": "ce",
+    "vqvae": {"log_dir": "./logs/vqvae", "ckpt_num": 32500},
+}
+
+TRANSFORMER_LM_TPU_OPTIMIZER = {
+    "name": "adam",
+    "lr": 0.0002,
+    "betas": [0.9, 0.98],
+    "weight_decay": 0,
+    "eps": 1e-9,
+}
+
+TRANSFORMER_LM_TPU_SCHEDULER = {"name": "linear", "warmup_steps": 1000}

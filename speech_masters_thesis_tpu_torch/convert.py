@@ -1,4 +1,9 @@
-"""Weights and train state from the JAX package's VQ-VAE into the port.
+"""Weights and train state from the JAX package's VQ-VAE and Transformer LM
+into the port.
+
+``transformer_lm_params_from_jax`` maps an LM's params tree (its frozen
+codec's decoder included); ``codebook_from_jax`` takes an LM's codebook
+collection as well as a VQ-VAE's.
 
 ``vqvae_state_dict_from_jax`` takes the flax ``{"params", "codebook"}`` tree
 as nested dicts of numpy arrays and returns tensors under the reference
@@ -12,11 +17,13 @@ and the port's can start from the same point. Conventions:
   flax Conv kernel [k, in, out]            -> torch Conv1d weight [out, in, k]
   ConvTranspose1d kernel [k, out, in]      -> torch ConvTranspose1d weight [in, out, k]
   codebook k [K, C]                        -> bottleneck.level_blocks.0.k
+  flax Dense kernel [in, out]              -> torch Linear weight [out, in]
+  flax LayerNorm scale                     -> torch LayerNorm weight
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,9 +47,26 @@ def _gated_hifi(tree: dict, prefix: str, depth: int, out: Dict[str, torch.Tensor
     _conv(tree["gate"], f"{prefix}.gate", out)
 
 
+def _codec_depth(model_cfg: dict) -> int:
+    return model_cfg["depth"] * (model_cfg.get("multipliers") or [1] * model_cfg["levels"])[-1]
+
+
+def _decoder(tree: dict, prefix: str, model_cfg: dict, out: Dict[str, torch.Tensor]) -> None:
+    """A JAX decoder tree -> the port's ``Decoder`` parameters under ``prefix``."""
+    depth = _codec_depth(model_cfg)
+    for level, down_t in enumerate(model_cfg["downs_t"]):
+        dec = tree[f"level_{level}"]
+        p = f"{prefix}.level_blocks.{level}"
+        _conv(dec["MaskedConv1d_0"]["Conv_0"], f"{p}.blocks.0", out)
+        for i in range(down_t):
+            _gated_hifi(dec[f"GatedHiFiBlock_{i}"], f"{p}.blocks.{2 * i + 1}", depth, out)
+            _conv(dec[f"MaskedConvTranspose1d_{i}"]["ConvTranspose1d_0"], f"{p}.blocks.{2 * i + 2}", out)
+    _conv(tree["out"], f"{prefix}.out", out)
+
+
 def params_from_jax(params: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
     """JAX VQVAE params tree (numpy) -> the port's parameters by name."""
-    depth = model_cfg["depth"] * (model_cfg.get("multipliers") or [1] * model_cfg["levels"])[-1]
+    depth = _codec_depth(model_cfg)
     sd: Dict[str, torch.Tensor] = {}
     for level, down_t in enumerate(model_cfg["downs_t"]):
         enc = params["encoder"][f"level_{level}"]
@@ -51,29 +75,66 @@ def params_from_jax(params: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
             _conv(enc[f"MaskedConv1d_{i}"]["Conv_0"], f"{p}.blocks.{2 * i}", sd)
             _gated_hifi(enc[f"GatedHiFiBlock_{i}"], f"{p}.blocks.{2 * i + 1}", depth, sd)
         _conv(enc[f"MaskedConv1d_{down_t}"]["Conv_0"], f"{p}.blocks.{2 * down_t}", sd)
-
-        dec = params["decoder"][f"level_{level}"]
-        p = f"decoders.0.level_blocks.{level}"
-        _conv(dec["MaskedConv1d_0"]["Conv_0"], f"{p}.blocks.0", sd)
-        for i in range(down_t):
-            _gated_hifi(dec[f"GatedHiFiBlock_{i}"], f"{p}.blocks.{2 * i + 1}", depth, sd)
-            _conv(dec[f"MaskedConvTranspose1d_{i}"]["ConvTranspose1d_0"],
-                  f"{p}.blocks.{2 * i + 2}", sd)
-    _conv(params["decoder"]["out"], "decoders.0.out", sd)
+    _decoder(params["decoder"], "decoders.0", model_cfg, sd)
     return sd
 
 
-def codebook_from_jax(codebook: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``codebook`` collection (numpy) -> the bottleneck's buffers by name."""
-    level = codebook["bottleneck"]["level_0"]
-    prefix = "bottleneck.level_blocks.0"
+def _codebook_level(level: dict, prefix: str) -> Dict[str, torch.Tensor]:
     out = {f"{prefix}.{name}": _tensor(level[name]) for name in ("k", "k_sum", "k_elem")}
     out[f"{prefix}.initialized"] = torch.tensor(bool(np.asarray(level["initialized"])))
     return out
+
+
+def codebook_from_jax(codebook: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``codebook`` collection (numpy) -> the codebook buffers by name: a
+    VQ-VAE's (``bottleneck.level_0`` -> ``bottleneck.level_blocks.0``) or an
+    LM's frozen codec's (``vqvae_bottleneck``)."""
+    if "vqvae_bottleneck" in codebook:
+        return _codebook_level(codebook["vqvae_bottleneck"], "vqvae_bottleneck")
+    return _codebook_level(codebook["bottleneck"]["level_0"], "bottleneck.level_blocks.0")
 
 
 def vqvae_state_dict_from_jax(variables: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
     """JAX VQVAE ``{"params", "codebook"}`` (numpy) -> the port's ``state_dict``."""
     sd = params_from_jax(variables["params"], model_cfg)
     sd["bottleneck.level_blocks.0.k"] = _tensor(variables["codebook"]["bottleneck"]["level_0"]["k"])
+    return sd
+
+
+def _dense(tree: dict, name: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{name}.weight"] = _tensor(np.asarray(tree["kernel"]).T)
+    out[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def _layer_norm(tree: dict, name: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{name}.weight"] = _tensor(tree["scale"])
+    out[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def transformer_lm_params_from_jax(params: dict, vqvae_model_cfg: Optional[dict] = None
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX TransformerLM params tree (numpy) -> the port's parameters by name.
+
+    Dense kernels [in, out] become Linear weights [out, in] (the packed
+    in_proj as ``in_proj_weight`` [3C, C], torch MHA's layout), LayerNorm
+    ``scale`` becomes ``weight``, the embedding table ``embedding.weight``;
+    the frozen ``vqvae_decoder`` (when ``vqvae_model_cfg`` is given) goes
+    through the codec's decoder mapping.
+    """
+    sd: Dict[str, torch.Tensor] = {"embedding.weight": _tensor(params["embedding"]["embedding"])}
+    n_layers = sum(1 for name in params if name.startswith("layer_"))
+    for i in range(n_layers):
+        tree, p = params[f"layer_{i}"], f"transformer.layers.{i}"
+        attn = tree["self_attn"]
+        sd[f"{p}.self_attn.in_proj_weight"] = _tensor(np.asarray(attn["in_proj"]["kernel"]).T)
+        sd[f"{p}.self_attn.in_proj_bias"] = _tensor(attn["in_proj"]["bias"])
+        _dense(attn["out_proj"], f"{p}.self_attn.out_proj", sd)
+        _dense(tree["linear1"], f"{p}.linear1", sd)
+        _dense(tree["linear2"], f"{p}.linear2", sd)
+        _layer_norm(tree["norm1"], f"{p}.norm1", sd)
+        _layer_norm(tree["norm2"], f"{p}.norm2", sd)
+    _layer_norm(params["final_norm"], "transformer.norm", sd)
+    _dense(params["classifier"], "classifier", sd)
+    if vqvae_model_cfg is not None:
+        _decoder(params["vqvae_decoder"], "vqvae_decoder", vqvae_model_cfg, sd)
     return sd

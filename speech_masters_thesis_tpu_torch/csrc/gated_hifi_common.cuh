@@ -10,12 +10,14 @@
 // feeds both dropout sites of the branch: the high 16 bits decide the site
 // before the conv, the low 16 bits the site after it, each keeping when
 // the field is >= round(p * 2^16). The draw is two rounds of MurmurHash3's
-// finalizer over a per-(seed, b, d) key and the counter t*H + c;
+// finalizer over a per-(seed, b, d) key and the counter t*H + c (hash.cuh);
 // ops/gated_hifi.py:dropout_bits computes the same bits in torch int64 ops.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hash.cuh"
 
 namespace gated_hifi {
 
@@ -83,21 +85,12 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float v, float4 w) {
   acc[3] = fmaf(v, w.w, acc[3]);
 }
 
-__host__ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 __host__ __device__ __forceinline__ uint32_t dropout_key(uint32_t seed, int b, int d) {
-  return fmix32(fmix32(seed) + (uint32_t)(b * MAX_DEPTH + d + 1) * 0x9E3779B9u);
+  return stream_key(seed, (uint32_t)(b * MAX_DEPTH + d));
 }
 
 __device__ __forceinline__ uint32_t dropout_bits(uint32_t key, int t, int c) {
-  return fmix32(fmix32(key ^ ((uint32_t)t * (uint32_t)H + (uint32_t)c)) + key);
+  return hash_draw(key, (uint32_t)t * (uint32_t)H + (uint32_t)c);
 }
 
 // Dropout of one call: keep when a 16-bit field >= threshold; threshold 0

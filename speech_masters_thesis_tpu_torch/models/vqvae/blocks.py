@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch.ops.basic import dropout
 from speech_masters_thesis_tpu_torch.ops.gated_hifi import gated_hifi, pack_weights
 
 
@@ -30,14 +31,6 @@ def _zero_(conv: nn.Conv1d) -> None:
     nn.init.zeros_(conv.weight)
     nn.init.zeros_(conv.bias)
     conv.zero_init = True
-
-
-def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with masks drawn from ``generator`` (on x's device)."""
-    if generator is None:
-        raise ValueError("dropout in train mode needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class ResLayer(nn.Module):
@@ -69,10 +62,10 @@ class ResLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C] -> [B, T, C]; dropout (train only) from ``generator``."""
         p = self.model[0].p if train else 0.0
-        h = _dropout(x, p, generator) if p > 0 else x
+        h = dropout(x, p, generator) if p > 0 else x
         h = self.model[2](torch.relu(h).transpose(1, 2))
         if p > 0:
-            h = _dropout(h, p, generator)
+            h = dropout(h, p, generator)
         h = self.model[5](torch.relu(h)).transpose(1, 2)
         return x + self.res_scale * h
 

@@ -35,6 +35,31 @@ def compression_factor(model_cfg: dict) -> int:
     return total
 
 
+def codec_kwargs(model_cfg: dict) -> dict:
+    """Encoder/decoder arguments of a VQ-VAE ``model:`` section: one stack of
+    ``width * multipliers[-1]`` channels and ``depth * multipliers[-1]``
+    branches per block (the JAX package's single-level build, which the
+    LM's frozen decoder uses too)."""
+    cfg = model_cfg
+    multiplier = (cfg.get("multipliers") or [1] * cfg["levels"])[-1]
+    return dict(
+        input_emb_width=1,
+        output_emb_width=cfg["emb_width"],
+        downs_t=tuple(cfg["downs_t"]),
+        strides_t=tuple(cfg["strides_t"]),
+        block_type=cfg["block_type"],
+        width=cfg["width"] * multiplier,
+        depth=cfg["depth"] * multiplier,
+        dilation_growth_rate=cfg["dilation_growth_rate"],
+        dilation_cycle=cfg["dilation_cycle"],
+        kernel_size_growth_rate=cfg["kernel_size_growth_rate"],
+        kernel_size_cycle=cfg["kernel_size_cycle"],
+        zero_out=cfg["zero_out"],
+        # the reference hardwires ResLayer dropout 0.1; one knob, as in the JAX package
+        p_dropout=cfg.get("p_dropout", 0.1),
+    )
+
+
 class VQVAE(WaveformReconstructionModel):
     """Codec built from a ``model:`` config dict (see ``configs.VQVAE_TPU``)."""
 
@@ -45,23 +70,7 @@ class VQVAE(WaveformReconstructionModel):
             raise ValueError("model.folded_convs is a rejected TPU experiment and is not ported")
         if not cfg.get("use_bottleneck", True):
             raise NotImplementedError("use_bottleneck: false is not ported yet")
-        multiplier = (cfg.get("multipliers") or [1] * cfg["levels"])[-1]
-        common = dict(
-            input_emb_width=1,
-            output_emb_width=cfg["emb_width"],
-            downs_t=tuple(cfg["downs_t"]),
-            strides_t=tuple(cfg["strides_t"]),
-            block_type=cfg["block_type"],
-            width=cfg["width"] * multiplier,
-            depth=cfg["depth"] * multiplier,
-            dilation_growth_rate=cfg["dilation_growth_rate"],
-            dilation_cycle=cfg["dilation_cycle"],
-            kernel_size_growth_rate=cfg["kernel_size_growth_rate"],
-            kernel_size_cycle=cfg["kernel_size_cycle"],
-            zero_out=cfg["zero_out"],
-            # the reference hardwires ResLayer dropout 0.1; one knob, as in the JAX package
-            p_dropout=cfg.get("p_dropout", 0.1),
-        )
+        common = codec_kwargs(cfg)
         self.encoders = nn.ModuleList([Encoder(**common)])
         self.decoders = nn.ModuleList([Decoder(**common)])
         self.bottleneck = Bottleneck(cfg["l_bins"], cfg["emb_width"], cfg["mu"], 1,

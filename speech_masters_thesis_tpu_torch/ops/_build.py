@@ -25,7 +25,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# compile-time shape limits of csrc/gated_hifi_common.cuh
+# compile-time shape limits of csrc/gated_hifi_common.cuh and csrc/attention_common.cuh
 GATED_HIFI_WIDTH = 64
 GATED_HIFI_MAX_DEPTH = 8
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
@@ -33,6 +33,7 @@ MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 # slices of at least this many frames
 WGRAD_MAX_SPLIT = 64
 WGRAD_ROWS_PER_SPLIT = 1024
+ATTENTION_HEAD_DIM = 32
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 
 
@@ -108,4 +109,8 @@ def build() -> ctypes.CDLL:
     lib.gated_hifi_wgrad_partial_floats.restype = ctypes.c_long
     lib.gated_hifi_wgrad.argtypes = [p] * 10 + [i] * 4 + [ints] * 2 + [f, i, p]
     lib.gated_hifi_wgrad.restype = i
+    lib.attention_fwd.argtypes = [p] * 3 + [i] + [p] * 4 + [i] * 4 + [f, i, u, f, p]
+    lib.attention_fwd.restype = i
+    lib.attention_bwd.argtypes = [p] * 3 + [i] + [p] * 9 + [i] * 4 + [f, i, u, f, p]
+    lib.attention_bwd.restype = i
     return lib

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -21,3 +23,17 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """[b] lengths -> [b, max_length] float32 mask (1 inside, 0 in padding)."""
     positions = torch.arange(max_length, device=lengths.device, dtype=lengths.dtype)
     return (positions[None, :] < lengths[:, None]).to(torch.float32)
+
+
+def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
+    """Last-axis softmax reduced in float32, returned in the input dtype (for
+    float32 inputs exactly ``torch.softmax``)."""
+    return torch.softmax(logits.to(torch.float32), dim=-1).to(logits.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with masks drawn from ``generator`` (on x's device)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)

@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops.hash import U32, draw, stream_key
 
-U32 = 0xFFFFFFFF
 # must equal MAX_DEPTH in csrc/gated_hifi_common.cuh: it spaces the (sequence, branch) keys
 MASK_KEY_DEPTH = 8
 
@@ -103,25 +103,9 @@ def pack_weights(params: Mapping[str, torch.Tensor], dilations: Sequence[int]) -
 # ---------------------------------------------------------------------------
 # dropout masks: the hash of csrc/gated_hifi_common.cuh in int64 torch ops
 # ---------------------------------------------------------------------------
-def _mul32(a, c: int):
-    """a * c mod 2^32 for a u32 held in int64 (tensor or int): c split in 16-bit
-    halves so no product leaves int64."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & U32
-
-
-def _fmix32(h):
-    """MurmurHash3's 32-bit finalizer on a u32 held in int64."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def dropout_key(seed: int, b: int, d: int) -> int:
     """The u32 key of sequence ``b``, branch ``d`` under ``seed``."""
-    return _fmix32((_fmix32(seed & U32) + _mul32(b * MASK_KEY_DEPTH + d + 1, 0x9E3779B9)) & U32)
+    return stream_key(seed, b * MASK_KEY_DEPTH + d)
 
 
 def dropout_bits(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int,
@@ -132,8 +116,7 @@ def dropout_bits(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int,
                         device=device)[:, None, None]
     t = torch.arange(t0, t0 + rows, dtype=torch.int64, device=device)
     c = torch.arange(hidden, dtype=torch.int64, device=device)
-    counter = (t[:, None] * hidden + c[None, :]) & U32
-    return _fmix32((_fmix32(keys ^ counter[None]) + keys) & U32)
+    return draw(keys, (t[:, None] * hidden + c[None, :])[None])
 
 
 def keep_threshold(p_drop: float) -> int:

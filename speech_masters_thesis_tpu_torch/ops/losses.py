@@ -1,12 +1,13 @@
-"""VQ-VAE reconstruction losses (counterpart of speech_masters_thesis_tpu/ops/losses.py).
+"""VQ-VAE reconstruction losses and the Transformer LM's losses (counterpart
+of speech_masters_thesis_tpu/ops/losses.py).
 
 Layouts are NTC: waveforms [B, T], masks [B, T], spectra [B, frames, bins].
-The LM losses (cross-entropy, MMI, focal) are not ported yet.
+The LM losses take flattened logits [N, C] and reduce in float32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -85,3 +86,57 @@ class MultiNormReconstructionLoss:
             topk_vals = torch.topk(sq, k, dim=-1).values
             loss = loss + self.linf * torch.sum(torch.mean(topk_vals, dim=0))
         return loss
+
+
+# ---------------------------------------------------------------------------
+# Transformer LM losses: logits [N, C], targets [N] int, mask [N]
+# ---------------------------------------------------------------------------
+def _target_log_prob(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(logp, 1, targets.to(torch.int64)[:, None])[:, 0]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE over rows."""
+    return -torch.mean(_target_log_prob(logits, targets))
+
+
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """CE averaged over the rows the mask selects."""
+    nll = -_target_log_prob(logits, targets)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def mmi_loss(logits: torch.Tensor, targets: torch.Tensor, num_classes: int,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Maximum-mutual-information loss: H(z|x) upper bound minus H(z).
+
+    Keeps the reference's log_softmax of the one-hot target (a quirk that
+    scales the CE-like term by a constant), as the JAX package does on
+    purpose. A target outside [0, num_classes) has an all-zero one-hot row,
+    as jax.nn.one_hot gives.
+    """
+    p_zy = torch.softmax(logits.to(torch.float32), dim=-1)
+    if mask is not None:
+        p_z = torch.sum(p_zy * mask[:, None], dim=0) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        p_z = torch.mean(p_zy, dim=0)
+    h_z = -torch.sum(p_z * torch.log(p_z))
+    classes = torch.arange(num_classes, device=targets.device)
+    one_hot = (targets[:, None] == classes[None, :]).to(logits.dtype)
+    row = -torch.sum(p_zy * torch.log_softmax(one_hot, dim=-1), dim=-1)
+    if mask is not None:
+        h_z_x_ub = torch.sum(row * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        h_z_x_ub = torch.mean(row)
+    return h_z_x_ub - h_z
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 0.0,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Focal loss (1 - p_t)^gamma * CE, mean over rows (or the masked rows)."""
+    log_pt = _target_log_prob(logits, targets)
+    per_row = (1.0 - torch.exp(log_pt)) ** gamma * -log_pt
+    if mask is not None:
+        return torch.sum(per_row * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(per_row)

@@ -1,51 +1,112 @@
-"""Model factory and initialisation (counterpart of
-speech_masters_thesis_tpu/train/harness.py, ``get_model`` and
-``init_model_variables``).
+"""Model factory, initialisation and the frozen-parameter mask (counterpart of
+speech_masters_thesis_tpu/train/harness.py: ``get_model``,
+``init_model_variables`` and ``frozen_param_mask``).
 
 ``init_model_variables`` draws the parameters from a seed with the JAX
-package's initializers (lecun-normal conv weights, zero biases, zero for the
-``zero_out`` layers) and then runs the bottleneck's lazy codebook init on a
-first batch, so the codebook starts from real encodings. The data loaders,
-the CLI, checkpoints and the epoch loop are not ported.
+package's initializers: lecun-normal conv weights and zero biases, zero for
+the ``zero_out`` layers (the codec), and flax's defaults for the LM
+(truncated lecun-normal Dense kernels, zero biases, LayerNorm 1 and 0, an
+N(0, 1) embedding whose PAD row is zero). For the VQ-VAE it then runs the
+bottleneck's lazy codebook init on a first batch, so the codebook starts
+from real encodings. The data loaders, the CLI, checkpoints and the epoch
+loop are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Dict, List, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
+from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
 
+# flax's truncated_normal draws within +-2 stds and divides its std by this,
+# the std of a unit normal truncated there
+_TRUNCATED_STD = 0.87962566103423978
 
-def get_model(config: Mapping) -> nn.Module:
-    """The model a config's ``model:`` section names in ``_import_``."""
-    return _get_model(dict(config["model"]))
+
+def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None) -> nn.Module:
+    """The model a config's ``model:`` section names in ``_import_``.
+
+    ``vqvae_model_config`` (or ``config["vqvae_model_config"]``) is the
+    ``model:`` section of the VQ-VAE whose frozen codec an LM holds (the JAX
+    package reads it from the codec's log dir; the port takes the dict, e.g.
+    ``configs.VQVAE_TPU``).
+    """
+    vq = vqvae_model_config if vqvae_model_config is not None else config.get("vqvae_model_config")
+    kwargs = {} if vq is None else {"vqvae_model_config": dict(vq)}
+    return _get_model(dict(config["model"]), **kwargs)
+
+
+def _lecun_truncated(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    std = 1.0 / math.sqrt(fan_in) / _TRUNCATED_STD
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 @torch.no_grad()
-def init_model_variables(model: nn.Module, batch: Mapping[str, torch.Tensor], seed: int) -> None:
-    """Seeded parameters, then the lazy codebook init on ``batch`` (on the
-    model's device; the encoder runs in eval mode)."""
+def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Tensor]], seed: int) -> None:
+    """Seeded parameters for every module, then, for the VQ-VAE, the lazy
+    codebook init on ``batch`` (on the model's device; the encoder runs in
+    eval mode). The LM needs no batch; its frozen codec stays as drawn here
+    until ``load_vqvae_into_lm`` grafts a trained one."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if not isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
-            continue
-        weight = module.weight
-        if getattr(module, "zero_init", False):
-            nn.init.zeros_(weight)
-        else:
-            std = 1.0 / math.sqrt(weight[0].numel())
-            weight.copy_(torch.randn(weight.shape, generator=gen) * std)
-        nn.init.zeros_(module.bias)
+        if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
+            weight = module.weight
+            if getattr(module, "zero_init", False):
+                nn.init.zeros_(weight)
+            else:
+                std = 1.0 / math.sqrt(weight[0].numel())
+                weight.copy_(torch.randn(weight.shape, generator=gen) * std)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Linear):
+            module.weight.copy_(_lecun_truncated(module.weight.shape, module.in_features, gen))
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, MultiHeadSelfAttention):  # the packed in-projection
+            w = module.in_proj_weight
+            w.copy_(_lecun_truncated(w.shape, w.shape[1], gen))
+            nn.init.zeros_(module.in_proj_bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Embedding):
+            table = torch.randn(module.weight.shape, generator=gen)
+            table[PAD] = 0.0
+            module.weight.copy_(table)
 
-    device = next(model.parameters()).device
-    audio = batch["audio"].to(device)
-    mask = sequence_mask(batch["audio_len"].to(device), audio.shape[-1]).to(audio.dtype)
-    h, h_mask = model.encoders[0](audio[..., None], mask[..., None])
-    codebook_gen = torch.Generator(device=device).manual_seed(seed + 1)
-    block = model.bottleneck.level_blocks[0]
-    block._maybe_init(h.reshape(-1, h.shape[-1]), h_mask.reshape(-1), codebook_gen)
+    if isinstance(model, WaveformReconstructionModel):
+        device = next(model.parameters()).device
+        audio = batch["audio"].to(device)
+        mask = sequence_mask(batch["audio_len"].to(device), audio.shape[-1]).to(audio.dtype)
+        h, h_mask = model.encoders[0](audio[..., None], mask[..., None])
+        codebook_gen = torch.Generator(device=device).manual_seed(seed + 1)
+        block = model.bottleneck.level_blocks[0]
+        block._maybe_init(h.reshape(-1, h.shape[-1]), h_mask.reshape(-1), codebook_gen)
+
+
+def frozen_param_mask(model: nn.Module) -> Optional[Dict[str, bool]]:
+    """Parameter name -> False where the model freezes it (its
+    ``FROZEN_PREFIXES``); None for a model that freezes nothing."""
+    prefixes = getattr(model, "FROZEN_PREFIXES", ())
+    if not prefixes:
+        return None
+    return {name: name.split(".")[0] not in prefixes for name, _ in model.named_parameters()}
+
+
+def trainable_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters the optimizer gets: ``requires_grad=False`` on the
+    frozen ones (which then have no gradient, so the clip by global norm
+    leaves them out as ``optax.masked`` does), and the rest returned."""
+    mask = frozen_param_mask(model)
+    params = []
+    for name, p in model.named_parameters():
+        if mask is not None and not mask[name]:
+            p.requires_grad_(False)
+        else:
+            params.append(p)
+    return params

@@ -2,14 +2,18 @@
 ``make_train_step``, ``make_val_step`` and ``NanLossError``).
 
 One train step: forward in train mode (dropout, codebook init and EMA
-update), backward, optional clip by global norm, the optimizer update with
-the schedule's learning rate, and the parameter EMA. Randomness is
-explicit: the step's seed and the step count give two generators, one for
-dropout (on the CPU: the GatedHiFi blocks draw host-side seeds from it) and
-one for the codebook (on the model's device), as the JAX step folds the
-step into its key and splits it. The step returns its scalars as device
-tensors with ``finite``; nothing syncs with the host except the codebook's
-lazy-init check. fp32 only: the JAX step's bf16 path needs a bf16 kernel.
+update), backward, optional clip by global norm (over the parameters that
+train: frozen ones have no gradient), the optimizer update with the
+schedule's learning rate, and the parameter EMA. Randomness is explicit:
+the step's seed and the step count give three generators, as the JAX step
+folds the step into its key and splits it: ``dropout`` on the CPU (the
+GatedHiFi blocks draw host-side seeds from it), ``codebook`` and
+``device_dropout`` on the model's device (the LM draws its dropout masks and
+its attention-dropout seeds there, so nothing waits for the host). The step
+returns its scalars as device tensors with ``finite``; nothing syncs with
+the host except the VQ-VAE codebook's lazy-init check. The val step runs the
+model's ``supervised_step`` in eval mode with the EMA parameters, so it
+evaluates any task. fp32 only: the JAX step's bf16 path needs bf16 kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 from torch.func import functional_call
 
 from speech_masters_thesis_tpu_torch.models.ema import ema_step, eval_params
@@ -30,12 +35,12 @@ class NanLossError(RuntimeError):
 
 
 def step_generators(seed: int, step: int, device: torch.device) -> Dict[str, torch.Generator]:
-    """The step's dropout (CPU) and codebook (``device``) generators, a pure
-    function of (seed, step)."""
-    dropout_seed, codebook_seed = np.random.SeedSequence([seed, step]).generate_state(2)
-    dropout = torch.Generator().manual_seed(int(dropout_seed))
-    codebook = torch.Generator(device=device).manual_seed(int(codebook_seed))
-    return {"dropout": dropout, "codebook": codebook}
+    """The step's dropout (CPU), codebook and device dropout (``device``)
+    generators, a pure function of (seed, step)."""
+    dropout_seed, codebook_seed, device_seed = np.random.SeedSequence([seed, step]).generate_state(3)
+    return {"dropout": torch.Generator().manual_seed(int(dropout_seed)),
+            "codebook": torch.Generator(device=device).manual_seed(int(codebook_seed)),
+            "device_dropout": torch.Generator(device=device).manual_seed(int(device_seed))}
 
 
 def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bool,
@@ -65,18 +70,29 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
     return train_step
 
 
+class _SupervisedStep(nn.Module):
+    """Runs ``model.supervised_step`` as a forward, so ``functional_call`` can
+    swap the parameters in (parameter names gain the prefix ``model.``)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: Mapping[str, torch.Tensor], train: bool):  # pylint: disable=arguments-differ
+        return self.model.supervised_step(batch, train=train)
+
+
 def make_val_step(use_ema: bool) -> Callable:
-    """Builds the val step: (state, batch) -> (loss_dict, metrics), with the
-    EMA parameters when tracking."""
+    """Builds the val step: (state, batch) -> (loss_dict, metrics): the
+    model's ``supervised_step`` in eval mode, with the EMA parameters when
+    tracking."""
 
     @torch.no_grad()
     def val_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         params = eval_params(state.params, state.ema_params, use_ema)
-        loss_dict, metrics = functional_call(
-            state.model, dict(params), (batch["audio"], batch["audio_len"]),
-            {"speaker": batch.get("speaker"), "train": False})
-        loss_dict["y"] = batch["audio"]
-        return loss_dict, metrics
+        return functional_call(_SupervisedStep(state.model),
+                               {f"model.{name}": p for name, p in params.items()},
+                               (batch,), {"train": False})
 
     return val_step
 

@@ -2,9 +2,11 @@
 
 The JAX package threads one immutable pytree through its jitted step. Here
 the state is an object the step updates in place: the step count, the model
-(its parameters, and the codebook state as the bottleneck's buffers
-``k``, ``k_sum``, ``k_elem``, ``initialized``), the optimizer with its state,
-and the EMA parameters.
+(its parameters, and the codebook state as the buffers ``k``, ``k_sum``,
+``k_elem``, ``initialized`` of its ``BottleneckBlock``s: the VQ-VAE's
+bottleneck, or the LM's frozen ``vqvae_bottleneck``), the optimizer with its
+state, and the EMA parameters (of every parameter, frozen ones included, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from speech_masters_thesis_tpu_torch.models.ema import init_ema
+from speech_masters_thesis_tpu_torch.models.vqvae.bottleneck import BottleneckBlock
 
 
 @dataclass
@@ -38,5 +41,8 @@ class TrainState:
 
     @property
     def codebook(self) -> Dict[str, torch.Tensor]:
-        """The codebook state by buffer name (``bottleneck.level_blocks.0.k``, ...)."""
-        return {name: b for name, b in self.model.named_buffers() if name.startswith("bottleneck.")}
+        """The codebook state by buffer name (``bottleneck.level_blocks.0.k``, or
+        ``vqvae_bottleneck.k`` for the LM, ...)."""
+        return {f"{prefix}.{name}": b
+                for prefix, module in self.model.named_modules() if isinstance(module, BottleneckBlock)
+                for name, b in module.named_buffers()}

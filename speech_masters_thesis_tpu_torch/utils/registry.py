@@ -12,6 +12,9 @@ from typing import Any, Dict
 _MODEL_PATHS: Dict[str, str] = {
     "models.vqvae.vqvae.VQVAE": "speech_masters_thesis_tpu_torch.models.vqvae.model:VQVAE",
     "vqvae": "speech_masters_thesis_tpu_torch.models.vqvae.model:VQVAE",
+    "models.transformer_lm.transformer_lm.TransformerLM":
+        "speech_masters_thesis_tpu_torch.models.transformer_lm.model:TransformerLM",
+    "transformer_lm": "speech_masters_thesis_tpu_torch.models.transformer_lm.model:TransformerLM",
 }
 
 
@@ -22,6 +25,7 @@ def resolve_model(import_path: str) -> Any:
     return getattr(importlib.import_module(module_name), attr)
 
 
-def get_model(model_cfg: dict):
-    """Builds the model a ``model:`` config section names in ``_import_``."""
-    return resolve_model(model_cfg["_import_"])(model_cfg)
+def get_model(model_cfg: dict, **kwargs):
+    """Builds the model a ``model:`` config section names in ``_import_``;
+    ``kwargs`` go to its constructor (the LM's ``vqvae_model_config``)."""
+    return resolve_model(model_cfg["_import_"])(model_cfg, **kwargs)

@@ -348,6 +348,46 @@ def test_step_generators_and_nan_guard():
         loop.raise_if_not_finite({"loss": torch.tensor(float("nan")), "finite": torch.tensor(False)}, 7)
 
 
+def test_val_step_runs_supervised_step_on_the_ema(monkeypatch):
+    """The val step is the model's ``supervised_step`` in eval mode, with the
+    EMA tensors in place of the parameters, so it evaluates any task."""
+    cfg = _model_cfg()
+    model = _port_model(cfg, _variables(cfg, JaxVQVAE(config={"model": cfg}), seed=14))
+    state = TrainState.create(model, optim.build_optimizer(model.parameters(), OPTIMIZER)[0], use_ema=True)
+    with torch.no_grad():
+        for e in state.ema_params.values():
+            e.mul_(0.5)
+    seen = []
+    original = type(model).supervised_step
+
+    def spy(self, batch, train=True, generators=None):
+        seen.append((train, generators, self.encoders[0].level_blocks[0].blocks[0].weight))
+        return original(self, batch, train=train, generators=generators)
+
+    monkeypatch.setattr(type(model), "supervised_step", spy)
+    audio, lengths = _batch(seed=15)
+    batch = {"audio": torch.from_numpy(audio), "audio_len": torch.from_numpy(lengths)}
+    loss, _ = loop.make_val_step(use_ema=True)(state, batch)
+    ((train, generators, weight),) = seen
+    name = "encoders.0.level_blocks.0.blocks.0.weight"
+    assert train is False and generators is None
+    assert weight is state.ema_params[name] and not torch.equal(weight, state.params[name])
+    assert torch.equal(loss["y"], batch["audio"])
+
+
+def test_train_state_codebook_and_frozen_mask_for_the_vqvae():
+    """The VQ-VAE freezes nothing: every parameter trains; its codebook state
+    is the bottleneck's four buffers."""
+    model = harness.get_model({"model": _model_cfg()})
+    assert harness.frozen_param_mask(model) is None
+    trainable = harness.trainable_parameters(model)
+    assert len(trainable) == len(list(model.parameters())) and all(p.requires_grad for p in trainable)
+    state = TrainState.create(model, optim.build_optimizer(trainable, OPTIMIZER)[0])
+    prefix = "bottleneck.level_blocks.0."
+    assert set(state.codebook) == {prefix + k for k in ("k", "k_sum", "k_elem", "initialized")}
+    assert state.codebook[prefix + "k"] is model.get_buffer(prefix + "k")
+
+
 def test_harness_init_runs_the_lazy_codebook_init():
     cfg = _model_cfg()
     cfg["zero_out"] = True
