@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the VQ-VAE codec's inference path and its training step
-(configs.VQVAE_TPU, full published width, random seeded weights) through
-the entry points a user calls, with every kernel built from csrc/ in this
-checkout:
+(configs.VQVAE_TPU, full published width, random seeded weights), then the
+Transformer LM and Glow-TTS's serving path, through the entry points a user
+calls, with every kernel built from csrc/ in this checkout:
 
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
@@ -57,6 +57,31 @@ phases 4-6, grafted with load_vqvae_into_lm:
  15. one LM train step on the card against the CPU (plain path) on a
      2 x 64 subset at dropout 0: losses and gradients.
 
+Then Glow-TTS (configs.GLOW_TTS_TPU with configs.LJSPEECH_TPU: encoder 6
+layers of 192, 2 heads of 96, window 4; decoder 12 flow blocks over 160
+squeezed channels, WN hidden 192, 4 layers, k=5; seeded JAX initializers
+with the zero-init leaves drawn from the seed):
+
+ 16. the coupling-conditioner kernel (B3) against its plain version at
+     (B, squeezed T) = (8, 384), (1, 512), (8, 512) and (3, 7), ragged
+     lengths, 1e-5 of max|ref| at valid frames; both times and the bound;
+ 17. the encoder-layer kernel (B5) against its plain version at (B, T) =
+     (8, 256), (1, 160), (8, 512) and (3, 3), ragged lengths, 1e-4 of
+     max|ref| at valid rows; both times and the bound;
+ 18. the MAS kernel (B4) against its plain version bit for bit at
+     [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties;
+ 19. the val step (make_val_step, EMA parameters) at batch 8: 768 frames of
+     seeded audio (the mel computed on the card) and 256 tokens, ragged;
+     launches (B5, B3, B4) = (6, 24, 1) per step, finite losses, step time;
+ 20. synthesis through GlowTTSSynthesizer.synthesize_ids at batch 1 and 8,
+     100-256 tokens, max_frames 1024, 32 Griffin-Lim iterations: the flow
+     cache built once and equal to the uncached path, (6, 12, 0) launches per
+     call, the median of 5 of the mel and text-to-waveform times, seconds of
+     audio per second;
+ 21. the eval forward on the card against the CPU on 2 sequences: losses
+     1e-4 relative, yh 1e-4 of max|yh| with the same noise, and MAS run on
+     the CPU on the card's log-prior table equal to the card's path.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -78,7 +103,11 @@ import torch
 
 from speech_masters_thesis_tpu_torch import configs
 from speech_masters_thesis_tpu_torch.device import cuda_device
+from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
+from speech_masters_thesis_tpu_torch.models.base import spect_from_audio
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
+from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
+from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import (
     BOS,
@@ -89,7 +118,10 @@ from speech_masters_thesis_tpu_torch.models.transformer_lm.model import (
 from speech_masters_thesis_tpu_torch.models.vqvae.model import compression_factor
 from speech_masters_thesis_tpu_torch.ops import _build
 from speech_masters_thesis_tpu_torch.ops import attention as att
+from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+from speech_masters_thesis_tpu_torch.ops import mas as mas_ops
+from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
 from speech_masters_thesis_tpu_torch.train import harness
 from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step, raise_if_not_finite
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
@@ -133,6 +165,30 @@ LM_SUBSET = (2, 64)
 LM_LOSS_RTOL = 1e-5            # card vs CPU LM step: fp32, other summation orders
 LM_GRAD_MEDIAN_RTOL = 1e-5     # relative L2 per parameter, denominator floored at 1e-4 of the
 LM_GRAD_WORST_RTOL = 1e-3      # global gradient norm (the key bias's true gradient is zero)
+# Glow-TTS
+PALLAS_WN = "speech_masters_thesis_tpu/ops/pallas/wn_coupling.py"
+PALLAS_MAS = "speech_masters_thesis_tpu/ops/pallas/mas.py"
+PALLAS_ENC = "speech_masters_thesis_tpu/ops/pallas/enc_layer.py"
+# (B, squeezed frames): the val step's, a synthesis call's, the route's bound, one shorter than a tile
+B3_SHAPES = ((8, 384), (1, 512), (8, 512), (3, 7))
+# (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window
+B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3))
+MAS_SHAPES = ((8, 256, 768), (8, 512, 1024))  # [B, t_x, t_y]
+B3_RTOL = 1e-5                 # of max|ref| at valid frames: fp32, other summation orders
+B5_RTOL = 1e-4                 # of max|ref| at valid rows: fp32, an online softmax and other orders
+GLOW_BATCH, GLOW_FRAMES, GLOW_TOKENS = 8, 768, 256
+SYNTH_BATCHES = (1, 8)
+SYNTH_MIN_TOKENS = 100           # token lengths 100-256
+SYNTH_MAX_FRAMES = 1024
+SYNTH_REPS = 5
+GL_ITERS = 32
+GLOW_VS_CPU = 2
+GLOW_LOSS_RTOL = 1e-4          # card vs CPU eval losses: fp32, 24 flow steps, other orders
+GLOW_YH_RTOL = 1e-4            # of max|yh|
+GLOW_SEED = 13
+# the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def require(ok: bool, what: str) -> None:
@@ -162,6 +218,13 @@ def audio_batch(batch: int, samples: int, seed: int):
     lengths = rng.randint(samples // 2, samples + 1, (batch,)).astype(np.int64)
     lengths[0] = samples
     return torch.from_numpy(audio), torch.from_numpy(lengths)
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms the card could take, "operations" or "bytes"): the larger of
+    the operations over the fp32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -196,7 +259,8 @@ def phase_device() -> str:
 
 KERNEL_NAMES = ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
                 "gated_hifi_fwd_kernel", "bwd_recompute_kernel", "bwd_transpose_kernel",
-                "wgrad_partial_kernel", "wgrad_reduce_kernel")
+                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "enc_attention_kernel",
+                "conv_rows_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -234,7 +298,7 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
     randomize(block, seed=1)
     block.to(device)
     w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
-    max_err, ms_total, plain_total = 0.0, 0.0, 0.0
+    max_err, ms_total, plain_total, flops, nbytes = 0.0, 0.0, 0.0, 0, 0
     with torch.inference_mode():
         for i, T in enumerate(block_ts):
             rng = np.random.RandomState(100 + i)
@@ -261,9 +325,20 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
             max_err = max(max_err, err)
             ms_total += ms
             plain_total += plain
+            flops += batch * T * block_flops_per_frame(w)
+            nbytes += 4 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f"[kernel] sum over the {len(block_ts)} block shapes: kernel {ms_total:.3f} ms, "
-          f"plain {plain_total:.3f} ms [{card}]")
-    return {"max_abs_err": max_err, "ms": ms_total, "plain_ms": plain_total}
+          f"plain {plain_total:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB) [{card}]")
+    return {"max_abs_err": max_err, "ms": ms_total, "plain_ms": plain_total, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def block_flops_per_frame(w: gh.GatedHiFiWeights) -> int:
+    """The forward's multiply-adds per frame, times 2: the expand, each
+    branch's conv and 1x1, the gate."""
+    return 2 * (w.wall.numel() + sum(k.numel() for k in w.ks) + w.w1.numel() + w.wg.numel())
 
 
 def build_model(device: torch.device, audio: torch.Tensor, lengths: torch.Tensor):
@@ -271,9 +346,9 @@ def build_model(device: torch.device, audio: torch.Tensor, lengths: torch.Tensor
     draws (with replacement) of valid encoder outputs of ``audio`` plus
     0.01/sqrt(C) noise, as the JAX package's first-batch init does. The
     batches encoded later are other audio, so codes are not self-matches."""
-    model = get_model(copy.deepcopy(configs.VQVAE_TPU))
+    model = get_model(copy.deepcopy(configs.VQVAE_TPU), device=device)
     randomize(model, seed=2)
-    model.to(device).eval()
+    model.eval()
     gen = torch.Generator().manual_seed(3)
     with torch.inference_mode():
         mask = (torch.arange(audio.shape[1])[None, :] < lengths[:, None]).float()
@@ -456,6 +531,10 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
     out = {"dx_err": 0.0, "red_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "red_ms": 0.0, "red_plain_ms": 0.0}
     for p in (0.0, P_DROP):
         sums = {"bwd": 0.0, "plain": 0.0, "tiles": 0.0, "tiles_plain": 0.0, "red": 0.0, "red_plain": 0.0}
+        # the tile passes: the recomputed forward and the transposed products (2x the
+        # forward's operations); x and g in, dx and the buffers out. The reduction: one
+        # product per weight; x and the buffers in, the weight gradients out
+        work = {"tiles": [0, 0], "red": [0, 0]}
         for i, T in enumerate(block_ts):
             x, lens, _, g = block_inputs(T, batch, 200 + i, device)
             args = (x, lens, w, g, 1.0, p, seed)
@@ -488,6 +567,12 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
             red_k = gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations)
             red_r = gh.weight_grad_reduce_reference(x, bufs_r, w.kernels, w.dilations)
             red = leaf_errors(red_k, red_r)
+            frames_flops = batch * T * block_flops_per_frame(w)
+            buf_bytes = 4 * sum(getattr(bufs_r, f).numel() for f in ("a", "h1", "dzp", "dc", "dz", "u", "gv"))
+            work["tiles"][0] += 2 * frames_flops
+            work["tiles"][1] += 4 * 3 * x.numel() + buf_bytes
+            work["red"][0] += frames_flops
+            work["red"][1] += 4 * x.numel() + buf_bytes + 4 * sum(t.numel() for t in w.tensors().values())
             del dx_b, bufs_k, dx_p, gw_p
             times = {
                 "bwd": cuda_ms(lambda: gh.gated_hifi_backward(*args), reps=5, warmup=1),
@@ -535,8 +620,13 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
               f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms; reduction {sums['red']:.3f} vs "
               f"{sums['red_plain']:.3f} ms [{card}]")
         if p == P_DROP:  # the training configuration
+            tiles_bound, tiles_by = bound(*work["tiles"])
+            red_bound, red_by = bound(*work["red"])
+            print(f"[backward] p={p} bounds summed over the block shapes: tile passes {tiles_bound:.3f} ms by "
+                  f"{tiles_by}, reduction {red_bound:.3f} ms by {red_by} [{card}]")
             out.update(ms=sums["tiles"], plain_ms=sums["tiles_plain"], red_ms=sums["red"],
-                       red_plain_ms=sums["red_plain"])
+                       red_plain_ms=sums["red_plain"], bound_ms=tiles_bound, bound_by=tiles_by,
+                       red_bound_ms=red_bound, red_bound_by=red_by)
     return out
 
 
@@ -606,7 +696,7 @@ def launch_counts() -> tuple:
 
 def phase_train(device, card: str) -> dict:
     """The training path: lazy codebook init, then TRAIN_STEPS steps."""
-    model = harness.get_model({"model": copy.deepcopy(configs.VQVAE_TPU)}).to(device)
+    model = harness.get_model({"model": copy.deepcopy(configs.VQVAE_TPU)}, device=device)
     audio, lengths = audio_batch(BATCH, SAMPLES, seed=8)
     batch = {"audio": audio.to(device), "audio_len": lengths.to(device)}
     bn = model.bottleneck.level_blocks[0]
@@ -674,7 +764,7 @@ def phase_train_vs_cpu(device, card: str) -> None:
     other, _ = audio_batch(BATCH, SAMPLES, seed=5)
     x = audio[:batch_n, :samples].contiguous()
     n = torch.tensor([samples, samples - 5013])
-    models = {"cuda": harness.get_model({"model": cfg}).to(device)}
+    models = {"cuda": harness.get_model({"model": cfg}, device=device)}
     harness.init_model_variables(models["cuda"], {"audio": other[:batch_n, :samples], "audio_len": n},
                                  seed=TRAIN_SEED + 1)
     models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
@@ -816,12 +906,16 @@ def phase_attention(device, card: str) -> dict:
                          "fwd_plain": cuda_ms(lambda: att.attention_reference(*args))}
             times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
             times["bwd_plain"] = cuda_ms(lambda: torch.autograd.grad(ref, qkv_ref, g, retain_graph=True))
+            if p == 0.0:  # the library's attention on the same inputs and mask (timed, used nowhere)
+                times.update(sdpa_times(packed, lens, g, scale))
             print(f"[attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward max_abs_err "
                   f"{fwd_err:.3e} (tol {ATTN_FWD_RTOL * fwd_scale:.3e}); " + ", ".join(
                       f"{k} {e:.3e} (tol {ATTN_GRAD_RTOL * s_:.3e})" for k, (e, s_) in errs.items())
                   + f"; two backward calls bitwise equal {bitwise}; ms: forward kernel "
                   f"{times['fwd']:.4f} vs plain {times['fwd_plain']:.4f}, backward kernels "
-                  f"{times['bwd']:.4f} vs plain autograd {times['bwd_plain']:.4f} (median of 10) [{card}]")
+                  f"{times['bwd']:.4f} vs plain autograd {times['bwd_plain']:.4f} (median of 10)"
+                  + (f"; F.scaled_dot_product_attention (same mask, p=0) forward {times['sdpa']:.4f}, "
+                     f"backward {times['sdpa_bwd']:.4f}" if p == 0.0 else "") + f" [{card}]")
             require(np.isfinite(fwd_err) and fwd_err <= ATTN_FWD_RTOL * fwd_scale,
                     f"attention forward differs at B={B} T={T} p={p}: {fwd_err}")
             for name, (err, s_) in errs.items():
@@ -830,12 +924,39 @@ def phase_attention(device, card: str) -> dict:
             require(bitwise, f"two attention backward calls differ at B={B} T={T} p={p}")
             out["fwd_err"] = max(out["fwd_err"], fwd_err)
             out["bwd_err"] = max(out["bwd_err"], max(e for e, _ in errs.values()))
+            if (B, T) == ATTN_SHAPES[0] and p == 0.0:
+                out.update(sdpa_ms=times["sdpa"], sdpa_bwd_ms=times["sdpa_bwd"])
             if (B, T) == ATTN_SHAPES[0] and p == P_DROP:  # the LM's training call
+                pairs = int(torch.minimum(torch.arange(1, T + 1, device=device)[None, :],
+                                          lens.long()[:, None]).sum()) * ATTN_HEADS
+                row = B * T * ATTN_HEADS * ATTN_DIM * 4  # bytes of one [B, T, H, D] tensor
+                out["bound"] = bound(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
+                out["bwd_bound"] = bound(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
+                print(f"[attention] bounds at B={B} T={T} ({pairs} valid (query, key) pairs): forward "
+                      f"{out['bound'][0]:.4f} ms by {out['bound'][1]}, backward {out['bwd_bound'][0]:.4f} ms by "
+                      f"{out['bwd_bound'][1]} [{card}]")
                 out.update(fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
                            bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"])
             del o, ref, grads, again, grads_ref, qkv, qkv_ref
             torch.cuda.empty_cache()
     return out
+
+
+def sdpa_times(packed: torch.Tensor, lens: torch.Tensor, g: torch.Tensor, scale: float) -> dict:
+    """F.scaled_dot_product_attention's forward and backward on the same
+    inputs and boolean mask at p=0, in ms (CUDA events, median of 10)."""
+    B, T, _ = packed.shape
+    mask = att.valid_pairs(lens, T)
+    leaf = packed.clone().requires_grad_(True)
+    q, k, v = (t.transpose(1, 2) for t in heads(leaf))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, dropout_p=0.0, scale=scale)
+    with torch.no_grad():
+        fwd = cuda_ms(sdpa)
+    o = sdpa()
+    gt = g.transpose(1, 2)
+    bwd = cuda_ms(lambda: torch.autograd.grad(o, leaf, gt, retain_graph=True))
+    return {"sdpa": fwd, "sdpa_bwd": bwd}
 
 
 def lm_tokens(batch: int, T: int, seed: int, device) -> dict:
@@ -857,10 +978,10 @@ def build_lm(device, vq_state: dict, seed: int, dropout: Optional[float] = None)
     cfg = copy.deepcopy(configs.TRANSFORMER_LM_TPU)
     if dropout is not None:
         cfg["dropout"] = dropout
-    lm = harness.get_model({"model": cfg}, vqvae_model_config=configs.VQVAE_TPU)
+    lm = harness.get_model({"model": cfg}, vqvae_model_config=configs.VQVAE_TPU, device=device)
     harness.init_model_variables(lm, None, seed=seed)
     load_vqvae_into_lm(lm, vq_state)
-    return lm.to(device)
+    return lm
 
 
 def lm_counts() -> tuple:
@@ -1047,6 +1168,317 @@ def phase_lm_vs_cpu(device, card: str, vq_state: dict) -> None:
     require(rel[worst] <= LM_GRAD_WORST_RTOL, f"LM step gradients: {worst} {rel[worst]}")
 
 
+# ---------------------------------------------------------------------------
+# Glow-TTS
+# ---------------------------------------------------------------------------
+def glow_config() -> dict:
+    return {"model": copy.deepcopy(configs.GLOW_TTS_TPU), "dataset": copy.deepcopy(configs.LJSPEECH_TPU)}
+
+
+def build_glow(device, seed: int) -> GlowTTS:
+    """GlowTTS at GLOW_TTS_TPU width with the JAX initializers, then the leaves
+    those leave at zero drawn from the seed: each coupling's end conv and the
+    prenet's proj lecun-normal (the end convs at a quarter of it, so 24 flow
+    steps keep the latent finite), ActNorm N(0, 0.1^2). The duration head's
+    proj is scaled to 0.3 of lecun-normal with bias log(2.5), so a token lasts
+    about 3 frames (LJSpeech speaks about 12 phonemes and blanks a second
+    against 86 frames a second)."""
+    model = harness.get_model(glow_config(), device=device)
+    harness.init_model_variables(model, None, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for module in model.modules():
+            if getattr(module, "zero_init", False):
+                w = module.weight
+                scale = 0.25 if w.shape[0] == model.n_mels * model.n_sqz else 1.0
+                w.copy_(torch.randn(w.shape, generator=gen) * scale / np.sqrt(w[0].numel()))
+            elif isinstance(module, glow_flows.ActNorm):
+                module.logs.copy_(torch.randn(module.logs.shape, generator=gen) * 0.1)
+                module.bias.copy_(torch.randn(module.bias.shape, generator=gen) * 0.1)
+        proj = model.encoder.proj_w.proj
+        proj.weight.mul_(0.3)
+        proj.bias.fill_(float(np.log(2.5)))
+    return model.eval()
+
+
+def glow_counts() -> tuple:
+    return enc_ops.enc_layer.launches, wn_ops.wn_coupling.launches, mas_ops.maximum_path_auto.launches
+
+
+def zero_glow_counts() -> None:
+    enc_ops.enc_layer.launches = wn_ops.wn_coupling.launches = mas_ops.maximum_path_auto.launches = 0
+
+
+def ragged(rng, batch: int, lo: int, hi: int) -> np.ndarray:
+    lens = rng.randint(lo, hi + 1, (batch,))
+    lens[0] = hi
+    return lens
+
+
+def wn_flops_per_frame(w: wn_ops.WNWeights) -> int:
+    tensors = [w.ws, w.wend, *w.win, *w.wrs]
+    return 2 * sum(t.numel() for t in tensors)
+
+
+def phase_wn_coupling(model: GlowTTS, device, card: str) -> dict:
+    """B3 against its plain version on the first coupling block's weights."""
+    w = model.decoder.flows[2].conditioner_weights()
+    half = model.n_mels * model.n_sqz // 2
+    out = {"max_abs_err": 0.0}
+    for i, (B, T) in enumerate(B3_SHAPES):
+        rng = np.random.RandomState(700 + i)
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) * valid[..., None]
+        x0 = x[..., :half]
+        with torch.no_grad():
+            ours = wn_ops.wn_coupling(x0, lens, w)
+            ref = wn_ops.wn_coupling_reference(x0, lens, w)
+            torch.cuda.synchronize()
+            err = (ours - ref)[valid].abs().max().item()
+            scale = ref[valid].abs().max().item()
+            ms = cuda_ms(lambda: wn_ops.wn_coupling(x0, lens, w))
+            plain = cuda_ms(lambda: wn_ops.wn_coupling_reference(x0, lens, w))
+        frames = int(lens_np.sum())  # padded frames are masked: the work is the valid ones
+        flops = frames * wn_flops_per_frame(w)
+        nbytes = 4 * (frames * (x0.shape[2] + ours.shape[2]) + sum(t.numel() for t in (
+            w.ws, w.bs, w.wend, w.bend, *w.win, *w.bin, *w.wrs, *w.brs)))
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[B3] B={B} T={T} (squeezed frames) half={half} H={w.hidden}: max_abs_err {err:.3e} (tol "
+              f"{B3_RTOL * scale:.3e} = {B3_RTOL:g} * max|ref| {scale:.3e}) at valid frames; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms (median of 10); bound {bound_ms:.4f} ms by {bound_by} "
+              f"({frames} valid frames: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
+        require(np.isfinite(err) and err <= B3_RTOL * scale, f"B3 disagrees at B={B} T={T}: {err}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if i == 0:  # the val step's shape
+            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def enc_flops(lens: np.ndarray, w: enc_ops.EncLayerWeights) -> int:
+    """The work of the valid rows: per token QKV, conv_o and the FFN; per valid
+    (query, key) pair q.k and p.v over all heads; per valid pair in the band
+    |j - i| <= w the two relative terms. Padded rows and masked keys add nothing."""
+    C, Fc, k = w.wq.shape[0], w.w1.shape[0], w.w1.shape[2]
+    D = C // w.n_heads
+    tokens = int(lens.sum())
+    pairs = int((lens.astype(np.int64) ** 2).sum())
+    i = np.arange(int(lens.max()))
+    band = sum(int((np.minimum(i[:n] + w.window, n - 1) - np.maximum(i[:n] - w.window, 0) + 1).sum()) for n in lens)
+    return tokens * (8 * C * C + 4 * k * C * Fc) + 4 * C * pairs + 4 * D * w.n_heads * band
+
+
+def phase_enc_layer(model: GlowTTS, device, card: str) -> dict:
+    """B5 against its plain version on the first encoder layer's weights."""
+    w = model.encoder.layer_weights(0)
+    C = w.wq.shape[0]
+    out = {"max_abs_err": 0.0}
+    for i, (B, T) in enumerate(B5_SHAPES):
+        rng = np.random.RandomState(800 + i)
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device)
+        with torch.no_grad():
+            ours = enc_ops.enc_layer(x, lens, w)
+            ref = enc_ops.enc_layer_reference(x, lens, w)
+            torch.cuda.synchronize()
+            err = (ours - ref)[valid].abs().max().item()
+            scale = ref[valid].abs().max().item()
+            finite = bool(torch.isfinite(ours).all())
+            ms = cuda_ms(lambda: enc_ops.enc_layer(x, lens, w))
+            plain = cuda_ms(lambda: enc_ops.enc_layer_reference(x, lens, w))
+        flops = enc_flops(lens_np, w)
+        nbytes = 4 * (2 * int(lens_np.sum()) * C + sum(t.numel() for t in w.tensors().values()))
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[B5] B={B} T={T} C={C} heads {w.n_heads} window {w.window}: max_abs_err {err:.3e} (tol "
+              f"{B5_RTOL * scale:.3e} = {B5_RTOL:g} * max|ref| {scale:.3e}) at valid rows, all finite {finite}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median of 10); bound {bound_ms:.4f} ms by {bound_by} "
+              f"({int(lens_np.sum())} valid rows: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
+        require(np.isfinite(err) and err <= B5_RTOL * scale, f"B5 disagrees at B={B} T={T}: {err}")
+        require(finite, f"B5 output not finite at B={B} T={T}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if i == 0:  # the val step's shape
+            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def mas_inputs(B: int, t_x: int, t_y: int, seed: int, ties: bool, device):
+    rng = np.random.RandomState(seed)
+    value = rng.randn(B, t_x, t_y).astype(np.float32)
+    if ties:
+        value = np.round(value * 4) / 4
+    x_len = ragged(rng, B, t_x // 2, t_x)
+    y_len = np.maximum(ragged(rng, B, t_y // 2, t_y), x_len)
+    mask = ((np.arange(t_x)[None, :, None] < x_len[:, None, None])
+            & (np.arange(t_y)[None, None, :] < y_len[:, None, None])).astype(np.float32)
+    return torch.from_numpy(value).to(device), torch.from_numpy(mask).to(device)
+
+
+def phase_mas(device, card: str) -> dict:
+    """B4 against its plain version, bit for bit."""
+    out = {}
+    cases = [(shape, False) for shape in MAS_SHAPES] + [(MAS_SHAPES[0], True)]
+    for i, ((B, t_x, t_y), ties) in enumerate(cases):
+        value, mask = mas_inputs(B, t_x, t_y, 900 + i, ties, device)
+        path = mas_ops.maximum_path_auto(value, mask)
+        ref = mas_ops.maximum_path(value, mask)
+        torch.cuda.synchronize()
+        equal = torch.equal(path, ref)
+        covers = torch.equal(path.sum(dim=1), mask[:, 0, :])
+        ms = cuda_ms(lambda: mas_ops.maximum_path_auto(value, mask))
+        plain = cuda_ms(lambda: mas_ops.maximum_path(value, mask), reps=3, warmup=1)
+        cells = int(mask.sum())  # the DP reads value and mask at valid cells only; the path is written whole
+        nbytes = 4 * (2 * cells + value.numel())
+        bound_ms, bound_by = bound(3 * cells, nbytes)
+        print(f"[B4] [{B}, {t_x}, {t_y}]{' values in steps of 0.25 (exact ties)' if ties else ''}: path equal to "
+              f"the plain version's bit for bit {equal}, one token per valid frame {covers}; kernel {ms:.4f} ms "
+              f"(median of 10), plain {plain:.2f} ms (median of 3); bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.1f} MB; the DP's {t_y} serial frames are the real limit) [{card}]")
+        require(equal, f"B4 differs from the plain version at [{B}, {t_x}, {t_y}] ties={ties}")
+        require(covers, f"B4 path does not cover the valid frames at [{B}, {t_x}, {t_y}]")
+        if i == 0:
+            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+    out["max_abs_err"] = 0.0
+    return out
+
+
+def glow_val_batch(batch: int, device, seed: int) -> dict:
+    """Seeded audio of GLOW_FRAMES frames and token ids with ragged lengths."""
+    rng = np.random.RandomState(seed)
+    samples = GLOW_FRAMES * HOP
+    frames = ragged(rng, batch, GLOW_FRAMES // 2, GLOW_FRAMES)
+    tokens = np.minimum(ragged(rng, batch, GLOW_TOKENS // 2, GLOW_TOKENS), frames)
+    t = np.arange(samples) / configs.LJSPEECH_TPU["sample_rate"]
+    pitch = rng.uniform(100, 300, (batch, 1))
+    audio = 0.3 * np.sin(2 * np.pi * pitch * t[None]) + 0.05 * rng.randn(batch, samples)
+    audio *= np.arange(samples)[None, :] < frames[:, None] * HOP
+    ids = rng.randint(0, configs.GLOW_TTS_TPU["encoder"]["n_vocab"] + 1, (batch, GLOW_TOKENS))
+    ids *= np.arange(GLOW_TOKENS)[None, :] < tokens[:, None]
+    return {"token": torch.from_numpy(ids).to(device), "token_len": torch.from_numpy(tokens).to(device),
+            "audio": torch.from_numpy(audio.astype(np.float32)).to(device),
+            "audio_len": torch.from_numpy(frames * HOP).to(device)}
+
+
+def phase_glow_val(model: GlowTTS, device, card: str) -> dict:
+    """The val step on the EMA parameters, the mel computed on the card."""
+    opt, _ = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER, configs.GLOW_TTS_TPU_SCHEDULER,
+                             configs.GLOW_TTS_TPU)
+    state = TrainState.create(model, opt, use_ema=True)
+    batch = glow_val_batch(GLOW_BATCH, device, seed=30)
+    val_step = make_val_step(use_ema=True)
+    val_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    times, counts = [], []
+    for _ in range(3):
+        zero_glow_counts()
+        t0 = time.perf_counter()
+        loss, _ = val_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(glow_counts())
+    losses = {k: float(loss[k]) for k in ("loss", "loss_mle", "loss_length")}
+    yh = loss["yh"]
+    print(f"[glow val] B={GLOW_BATCH} x {GLOW_FRAMES} frames ({GLOW_FRAMES * HOP} samples) and {GLOW_TOKENS} "
+          f"tokens, ragged; mel on the card {tuple(loss['y'].shape)}; EMA parameters: losses {losses}; yh "
+          f"{tuple(yh.shape)}; launches (B5, B3, B4) per step {counts}; step ms "
+          f"{', '.join(f'{t:.3f}' for t in times)}, median {statistics.median(times):.3f} [{card}]")
+    require(all(c == (6, 24, 1) for c in counts), f"val step launches {counts} != (6, 24, 1)")
+    require(all(np.isfinite(v) for v in losses.values()), f"val losses {losses}")
+    require(tuple(yh.shape) == tuple(loss["y"].shape) and bool(torch.isfinite(yh).all()), "val yh")
+    return {"launches": counts[0], "step_ms": statistics.median(times), "batch": batch, "state": state}
+
+
+def audio_seconds(z_lengths: torch.Tensor, max_frames: int) -> float:
+    return float(torch.clamp(z_lengths, max=max_frames).sum()) * HOP / configs.LJSPEECH_TPU["sample_rate"]
+
+
+def phase_synthesis(model: GlowTTS, device, card: str) -> dict:
+    """GlowTTSSynthesizer.synthesize_ids at batch 1 and 8."""
+    rng = np.random.RandomState(40)
+    n_vocab = configs.GLOW_TTS_TPU["encoder"]["n_vocab"] + 1
+    ids = torch.from_numpy(rng.randint(0, n_vocab, (max(SYNTH_BATCHES), GLOW_TOKENS))).to(device)
+    lens = torch.from_numpy(ragged(rng, max(SYNTH_BATCHES), SYNTH_MIN_TOKENS, GLOW_TOKENS)).to(device)
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    uncached, _ = model.infer(ids[:2], lens[:2], generator=gen(1), max_frames=SYNTH_MAX_FRAMES, noise_scale=0.667)
+    synth = GlowTTSSynthesizer(model, glow_config(), max_frames=SYNTH_MAX_FRAMES, gl_iters=GL_ITERS)
+    folded = synth.model.decoder.flows[2].start.folded_weight
+    require(folded is not None, "the synthesizer built no flow cache")
+    require(model.decoder.flows[2].start.folded_weight is None, "the synthesizer cached the caller's model")
+    cached, _ = synth.synthesize_mel(ids[:2], gen(1), 0.667, lens[:2])
+    cache_err = (cached - uncached).abs().max().item()
+    cache_scale = uncached.abs().max().item()
+    out = {"launches": None}
+    for B in SYNTH_BATCHES:
+        mel_ms, total_ms, per_call = [], [], []
+        for rep in range(SYNTH_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel, z = synth.synthesize_mel(ids[:B], gen(rep), 0.667, lens[:B])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            zero_glow_counts()
+            mel, audio, z = synth.synthesize_ids(ids[:B], gen(rep), 0.667, lens[:B])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            per_call.append(glow_counts())
+            if rep:  # the first is a warm-up
+                mel_ms.append((t1 - t0) * 1e3)
+                total_ms.append((t2 - t1) * 1e3)
+        secs = audio_seconds(z, synth.max_frames)
+        med_mel, med_total = statistics.median(mel_ms), statistics.median(total_ms)
+        print(f"[synthesis] B={B}, tokens {lens[:B].tolist()}: z_lengths {z.tolist()}; mel {tuple(mel.shape)}, "
+              f"audio {tuple(audio.shape)}; launches (B5, B3, B4) per call {per_call[-1]}; median of "
+              f"{SYNTH_REPS}: mel {med_mel:.3f} ms, text to waveform ({GL_ITERS} Griffin-Lim iterations) "
+              f"{med_total:.3f} ms; {secs:.3f} s of audio: {secs / (med_mel / 1e3):.1f} s/s as mel, "
+              f"{secs / (med_total / 1e3):.1f} s/s as waveform [{card}]")
+        require(all(c == (6, 12, 0) for c in per_call), f"synthesis launches {per_call} != (6, 12, 0)")
+        require(bool(torch.isfinite(mel).all()) and bool(torch.isfinite(audio).all()), "synthesis output")
+        require(tuple(audio.shape) == (B, synth.max_frames * HOP), f"audio shape {tuple(audio.shape)}")
+        out[B] = {"mel_ms": med_mel, "total_ms": med_total, "audio_s": secs}
+        out["launches"] = per_call[-1]
+    require(synth.model.decoder.flows[2].start.folded_weight is folded, "the flow cache was rebuilt")
+    print(f"[synthesis] flow cache built once, on the synthesizer's own copy; cached against the caller's uncached mel (B=2): max_abs_err {cache_err:.3e} "
+          f"(tol {1e-5 * cache_scale:.3e}) [{card}]")
+    require(cache_err <= 1e-5 * cache_scale, f"cached mel differs: {cache_err}")
+    return out
+
+
+def phase_glow_vs_cpu(model: GlowTTS, batch: dict, device, card: str) -> None:
+    """The eval forward on the card against the CPU on a 2-sequence subset."""
+    n = GLOW_VS_CPU
+    sub = {k: v[:n] for k, v in batch.items()}
+    with torch.no_grad():
+        spect, spect_len = spect_from_audio(model, sub)
+        x, x_len = sub["token"], sub["token_len"]
+        T = int(spect_len.max()) // model.n_sqz * model.n_sqz
+        noise = torch.randn(n, T, model.n_mels, generator=torch.Generator().manual_seed(9)).to(device)
+        cpu = copy.deepcopy(model).to("cpu")
+        loss_g, _ = model(x, x_len, spect, spect_len, noise=noise)
+        loss_c, _ = cpu(x.cpu(), x_len.cpu(), spect.cpu(), spect_len.cpu(), noise=noise.cpu())
+        x_m, x_logs, _, x_mask = model.encoder(x, x_len)
+        y_len = spect_len // model.n_sqz * model.n_sqz
+        y_mask = (torch.arange(T, device=device)[None, :] < y_len[:, None]).float()[..., None]
+        z, _ = model.decoder(spect[:, :T], y_mask)
+        logp = mas_ops.mas_log_prior(x_m, x_logs, z)
+        attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
+        path_g = mas_ops.maximum_path_auto(logp, attn_mask).cpu()
+        path_c = mas_ops.maximum_path(logp.cpu(), attn_mask.cpu())
+    yh_err = (loss_g["yh"].cpu() - loss_c["yh"]).abs().max().item()
+    yh_scale = loss_c["yh"].abs().max().item()
+    rels = {k: abs(float(loss_g[k]) - float(loss_c[k])) / max(abs(float(loss_c[k])), 1e-12)
+            for k in ("loss", "loss_mle", "loss_length")}
+    print(f"[glow vs cpu] {n} sequences: losses card {[round(float(loss_g[k]), 7) for k in rels]} cpu "
+          f"{[round(float(loss_c[k]), 7) for k in rels]}, relative {rels} (tol {GLOW_LOSS_RTOL:g}); yh max_abs_err "
+          f"{yh_err:.3e} (tol {GLOW_YH_RTOL * yh_scale:.3e}); MAS on the CPU on the card's log-prior table equal "
+          f"to the card's path bit for bit {torch.equal(path_g, path_c)} [{card}]")
+    for k, rel in rels.items():
+        require(rel <= GLOW_LOSS_RTOL, f"glow {k} differs: {rel}")
+    require(yh_err <= GLOW_YH_RTOL * yh_scale, f"glow yh differs: {yh_err}")
+    require(torch.equal(path_g, path_c), "MAS on the CPU differs from the card's path")
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -1070,28 +1502,44 @@ def main() -> None:
     phase_lm_sample(lm.pop("model"), device, card, decode_launches)
     torch.cuda.empty_cache()
     phase_lm_vs_cpu(device, card, vq_state)
+
+    glow = build_glow(device, GLOW_SEED)
+    b3 = phase_wn_coupling(glow, device, card)
+    b5 = phase_enc_layer(glow, device, card)
+    b4 = phase_mas(device, card)
+    val = phase_glow_val(glow, device, card)
+    synthesis = phase_synthesis(glow, device, card)
+    phase_glow_vs_cpu(glow, val["batch"], device, card)
+    glow_launches = tuple(a + b for a, b in zip(val["launches"], synthesis["launches"]))
+
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
-          f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward")
+          f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
+          f"one synthesis call (B5, B3, B4) {glow_launches}")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
+        return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "gated_hifi_fwd", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_fwd.cu",
-         "replaces": PALLAS + ":591", "launches": train["fwd"],
-         "max_abs_err": max(kernel["max_abs_err"], dropout_err), "ms": kernel["ms"],
-         "plain_ms": kernel["plain_ms"]},
-        {"name": "gated_hifi_bwd", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_bwd.cu",
-         "replaces": PALLAS + ":612", "launches": train["bwd"], "max_abs_err": backward["dx_err"],
-         "ms": backward["ms"], "plain_ms": backward["plain_ms"]},
-        {"name": "gated_hifi_wgrad", "route": "cuda", "source": SOURCE_DIR + "gated_hifi_bwd.cu",
-         "replaces": PALLAS + ":360", "launches": train["red"], "max_abs_err": backward["red_err"],
-         "ms": backward["red_ms"], "plain_ms": backward["red_plain_ms"]},
-        {"name": "attention_fwd", "route": "cuda", "source": SOURCE_DIR + "attention_fwd.cu",
-         "replaces": PALLAS_ATTENTION + ":226", "launches": lm["fwd"],
-         "max_abs_err": attention["fwd_err"], "ms": attention["fwd_ms"],
-         "plain_ms": attention["fwd_plain_ms"]},
-        {"name": "attention_bwd", "route": "cuda", "source": SOURCE_DIR + "attention_bwd.cu",
-         "replaces": PALLAS_ATTENTION + ":253", "launches": lm["bwd"],
-         "max_abs_err": attention["bwd_err"], "ms": attention["bwd_ms"],
-         "plain_ms": attention["bwd_plain_ms"]}]}))
+        entry("gated_hifi_fwd", "gated_hifi_fwd.cu", PALLAS + ":591", train["fwd"],
+              max(kernel["max_abs_err"], dropout_err), kernel["ms"], kernel["plain_ms"], kernel["bound_ms"],
+              kernel["bound_by"]),
+        entry("gated_hifi_bwd", "gated_hifi_bwd.cu", PALLAS + ":612", train["bwd"], backward["dx_err"],
+              backward["ms"], backward["plain_ms"], backward["bound_ms"], backward["bound_by"]),
+        entry("gated_hifi_wgrad", "gated_hifi_bwd.cu", PALLAS + ":360", train["red"], backward["red_err"],
+              backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"]),
+        entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
+              attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"]),
+        entry("attention_bwd", "attention_bwd.cu", PALLAS_ATTENTION + ":253", lm["bwd"], attention["bwd_err"],
+              attention["bwd_ms"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_ms"]),
+        entry("wn_coupling_fwd", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_launches[1], b3["max_abs_err"],
+              b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"]),
+        entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2], b4["max_abs_err"], b4["ms"],
+              b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
+        entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0], b5["max_abs_err"],
+              b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,11 @@
 and ``VQVAE_TPU_OPTIMIZER`` its ``optimizer:`` section (its ``scheduler:`` is
 null); ``TRANSFORMER_LM_TPU``, ``TRANSFORMER_LM_TPU_OPTIMIZER`` and
 ``TRANSFORMER_LM_TPU_SCHEDULER`` are the three sections of
-``configs/models/transformer_lm_tpu.yaml``. Key for key; tests hold them
-equal.
+``configs/models/transformer_lm_tpu.yaml``; ``GLOW_TTS_TPU``,
+``GLOW_TTS_TPU_OPTIMIZER`` and ``GLOW_TTS_TPU_SCHEDULER`` those of
+``configs/models/glow_tts_tpu.yaml``, and ``LJSPEECH_TPU`` the ``dataset:``
+section of ``configs/datasets/ljspeech_tpu.yaml``. Key for key; tests hold
+them equal.
 """
 
 from __future__ import annotations
@@ -85,3 +88,67 @@ TRANSFORMER_LM_TPU_OPTIMIZER = {
 }
 
 TRANSFORMER_LM_TPU_SCHEDULER = {"name": "linear", "warmup_steps": 1000}
+
+GLOW_TTS_TPU = {
+    "_import_": "models.glow_tts.glow_tts.GlowTTS",
+    "fused_blocks": True,
+    "fused_flow_step": False,
+    "fused_encoder": True,
+    "n_speakers": 1,
+    "gin_channels": 0,
+    "intersperse_blanks": None,
+    "encoder": {
+        "n_vocab": 148,
+        "out_channels": None,
+        "hidden_channels": 192,
+        "filter_channels": 768,
+        "filter_channels_dp": 256,
+        "kernel_size": 3,
+        "p_dropout": 0.1,
+        "n_layers": 6,
+        "n_heads": 2,
+        "window_size": 4,
+        "prenet": True,
+        "mean_only": True,
+    },
+    "decoder": {
+        "in_channels": None,
+        "hidden_channels": 192,
+        "kernel_size": 5,
+        "n_blocks": 12,
+        "n_layers": 4,
+        "n_sqz": 2,
+        "n_split": 4,
+        "sigmoid_scale": False,
+        "p_dropout": 0.05,
+        "dilation_rate": 1,
+    },
+    "ddi": False,
+}
+
+GLOW_TTS_TPU_OPTIMIZER = {
+    "name": "adam",
+    "lr": 1.0,
+    "betas": [0.9, 0.98],
+    "weight_decay": 0,
+    "eps": 1e-9,
+}
+
+GLOW_TTS_TPU_SCHEDULER = {"name": "noam", "warmup_steps": 4000}
+
+LJSPEECH_TPU = {
+    "_import_": "datasets.ljspeech.LJSpeech",
+    "dataset_path": "./data/LJSpeech-1.1",
+    "cmudict_path": "./data/cmudict.dict",
+    "sample_rate": 22050,
+    "n_fft": 1024,
+    "hop_length": 256,
+    "win_length": 1024,
+    "n_mels": 80,
+    "intersperse_blanks": True,
+    "segment_length": -1,
+    "on_device_spect": True,
+    "use_token": True,
+    "use_spect": True,
+    "use_audio": True,
+}

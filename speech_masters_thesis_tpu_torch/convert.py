@@ -1,5 +1,5 @@
-"""Weights and train state from the JAX package's VQ-VAE and Transformer LM
-into the port.
+"""Weights and train state from the JAX package's VQ-VAE, Transformer LM and
+Glow-TTS into the port.
 
 ``transformer_lm_params_from_jax`` maps an LM's params tree (its frozen
 codec's decoder included); ``codebook_from_jax`` takes an LM's codebook
@@ -19,6 +19,13 @@ and the port's can start from the same point. Conventions:
   codebook k [K, C]                        -> bottleneck.level_blocks.0.k
   flax Dense kernel [in, out]              -> torch Linear weight [out, in]
   flax LayerNorm scale                     -> torch LayerNorm weight
+  WNConv1d v [k, in, out], g [out]         -> weight_v [out, in, k], weight_g [out, 1, 1]
+  ChannelLayerNorm LayerNorm_0 scale/bias  -> gamma/beta
+  ActNorm logs/bias [C]                    -> [1, C, 1]
+
+``glow_tts_params_from_jax`` gives the reference checkpoint's layout, key for
+key as ``tools/import_torch_checkpoint.py:export_glow_tts`` writes it (a
+copy of that mapping: the port imports nothing from ``tools/``).
 """
 
 from __future__ import annotations
@@ -137,4 +144,76 @@ def transformer_lm_params_from_jax(params: dict, vqvae_model_cfg: Optional[dict]
     _dense(params["classifier"], "classifier", sd)
     if vqvae_model_cfg is not None:
         _decoder(params["vqvae_decoder"], "vqvae_decoder", vqvae_model_cfg, sd)
+    return sd
+
+
+def _wn_conv(tree: dict, name: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{name}.weight_v"] = _tensor(np.transpose(np.asarray(tree["v"]), (2, 1, 0)))
+    out[f"{name}.weight_g"] = _tensor(np.asarray(tree["g"]).reshape(-1, 1, 1))
+    out[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def _channel_layer_norm(tree: dict, name: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{name}.gamma"] = _tensor(tree["LayerNorm_0"]["scale"])
+    out[f"{name}.beta"] = _tensor(tree["LayerNorm_0"]["bias"])
+
+
+def _text_encoder(enc: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.emb.weight"] = _tensor(enc["emb"]["embedding"])
+    if "pre" in enc:
+        _conv(enc["pre"]["proj"], f"{prefix}.pre.proj", out)
+        for i in range(3):
+            _conv(enc["pre"][f"conv_{i}"], f"{prefix}.pre.conv_layers.{i}", out)
+            _channel_layer_norm(enc["pre"][f"norm_{i}"], f"{prefix}.pre.norm_layers.{i}", out)
+    i = 0
+    while f"attn_{i}" in enc:
+        attn = enc[f"attn_{i}"]
+        for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            _conv(attn[name], f"{prefix}.attn_layers.{i}.{name}", out)
+        for rel in ("emb_rel_k", "emb_rel_v"):
+            out[f"{prefix}.attn_layers.{i}.{rel}"] = _tensor(attn[rel])
+        _channel_layer_norm(enc[f"norm1_{i}"], f"{prefix}.norm_layers_1.{i}", out)
+        _conv(enc[f"ffn_{i}"]["conv_1"], f"{prefix}.ffn_layers.{i}.conv_1", out)
+        _conv(enc[f"ffn_{i}"]["conv_2"], f"{prefix}.ffn_layers.{i}.conv_2", out)
+        _channel_layer_norm(enc[f"norm2_{i}"], f"{prefix}.norm_layers_2.{i}", out)
+        i += 1
+    _conv(enc["proj_m"], f"{prefix}.proj_m", out)
+    if "proj_s" in enc:
+        _conv(enc["proj_s"], f"{prefix}.proj_s", out)
+    dp = enc["proj_w"]
+    _conv(dp["conv_1"], f"{prefix}.proj_w.conv_1", out)
+    _channel_layer_norm(dp["norm_1"], f"{prefix}.proj_w.norm_1", out)
+    _conv(dp["conv_2"], f"{prefix}.proj_w.conv_2", out)
+    _channel_layer_norm(dp["norm_2"], f"{prefix}.proj_w.norm_2", out)
+    _conv(dp["proj"], f"{prefix}.proj_w.proj", out)
+
+
+def _flow_decoder(dec: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    b = 0
+    while f"actnorm_{b}" in dec:
+        f = 3 * b
+        out[f"{prefix}.flows.{f}.logs"] = _tensor(np.asarray(dec[f"actnorm_{b}"]["logs"]).reshape(1, -1, 1))
+        out[f"{prefix}.flows.{f}.bias"] = _tensor(np.asarray(dec[f"actnorm_{b}"]["bias"]).reshape(1, -1, 1))
+        out[f"{prefix}.flows.{f + 1}.weight"] = _tensor(dec[f"invconv_{b}"]["weight"])
+        cpl, p = dec[f"coupling_{b}"], f"{prefix}.flows.{f + 2}"
+        _wn_conv(cpl["start"], f"{p}.start", out)
+        i = 0
+        while f"in_{i}" in cpl["wn"]:
+            _wn_conv(cpl["wn"][f"in_{i}"], f"{p}.wn.in_layers.{i}", out)
+            _wn_conv(cpl["wn"][f"res_skip_{i}"], f"{p}.wn.res_skip_layers.{i}", out)
+            i += 1
+        _conv(cpl["end"], f"{p}.end", out)
+        b += 1
+
+
+def glow_tts_params_from_jax(params: dict, model_cfg: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """JAX GlowTTS params tree (numpy) -> the port's ``state_dict`` (the
+    reference checkpoint's keys and layouts). ``model_cfg`` is accepted for
+    symmetry with the other mappings; the tree alone decides the keys."""
+    del model_cfg
+    if "emb_g" in params:
+        raise NotImplementedError("glow_tts_params_from_jax: multi-speaker models are not ported")
+    sd: Dict[str, torch.Tensor] = {}
+    _text_encoder(params["encoder"], "encoder", sd)
+    _flow_decoder(params["decoder"], "decoder", sd)
     return sd

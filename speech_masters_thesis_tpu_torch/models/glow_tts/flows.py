@@ -1,0 +1,215 @@
+"""Invertible flow layers for Glow-TTS (counterpart of
+speech_masters_thesis_tpu/models/glow_tts/flows.py).
+
+Activations are [B, T, C], masks [B, T, 1], lengths [B] int32. Every layer
+maps (x, mask, lens, reverse) -> (z, logdet), logdet None in reverse.
+Parameters keep the reference checkpoint's names and layouts (ActNorm
+``logs``/``bias`` [1, C, 1]; weight norm as ``weight_v`` [out, in, k] and
+``weight_g`` [out, 1, 1]).
+
+The flow cache (``build_flow_cache``): for inference, each ``WNConv1d``
+folds its weight norm once and each ``InvConvNear`` stores its inverse
+once, as non-persistent buffers that later calls read. ``clear_flow_cache``
+drops them (the cached values do not follow parameter updates).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from speech_masters_thesis_tpu_torch.ops.enc_layer import conv1d_ntc
+from speech_masters_thesis_tpu_torch.ops.wn_coupling import WNWeights, wn_coupling, wn_coupling_reference
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalized Conv1d: w = g * v / ||v||, the norm over (in, k) per
+    output channel (floored at 1e-12, as the JAX package does)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1):
+        super().__init__()
+        self.dilation = dilation
+        self.weight_v = nn.Parameter(torch.zeros(out_channels, in_channels, kernel_size))
+        self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.register_buffer("folded_weight", None, persistent=False)
+
+    def weight(self) -> torch.Tensor:
+        """The normalized weight [out, in, k]: the cached one when the flow
+        cache is built."""
+        if self.folded_weight is not None:
+            return self.folded_weight
+        norm = self.weight_v.flatten(1).norm(dim=1).clamp(min=1e-12)
+        return self.weight_v * (self.weight_g.view(-1) / norm)[:, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # pylint: disable=arguments-differ
+        return conv1d_ntc(x, self.weight(), self.bias, self.dilation)
+
+
+class ActNorm(nn.Module):
+    """Per-channel affine (``logs``, ``bias``); logdet sum(logs) * length.
+    Data-dependent init waits for the training slice."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.logs = nn.Parameter(torch.zeros(1, channels, 1))
+        self.bias = nn.Parameter(torch.zeros(1, channels, 1))
+
+    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+        logs, bias = self.logs.view(-1), self.bias.view(-1)
+        if reverse:
+            return (x - bias) * torch.exp(-logs) * mask, None
+        return (bias + torch.exp(logs) * x) * mask, torch.sum(logs) * lens.to(x.dtype)
+
+
+def _regroup(x: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, T, C] -> [B, T, s, C/s]: C factors as (2, C/s, s/2) and the group
+    axis is (half, position in half), as the reference regroups."""
+    b, t, c = x.shape
+    return x.reshape(b, t, 2, c // s, s // 2).permute(0, 1, 2, 4, 3).reshape(b, t, s, c // s)
+
+
+def _ungroup(z: torch.Tensor, s: int) -> torch.Tensor:
+    b, t, _, cs = z.shape
+    return z.reshape(b, t, 2, s // 2, cs).permute(0, 1, 2, 4, 3).reshape(b, t, s * cs)
+
+
+class InvConvNear(nn.Module):
+    """Invertible 1x1 conv over groups of ``n_split`` channels, one
+    [n_split, n_split] ``weight``; logdet log|det w| * (C / n_split) * length."""
+
+    def __init__(self, channels: int, n_split: int = 4):
+        super().__init__()
+        if channels % n_split:
+            raise ValueError(f"InvConvNear: {channels} channels do not split into groups of {n_split}")
+        self.n_split = n_split
+        self.weight = nn.Parameter(torch.eye(n_split))
+        self.register_buffer("weight_inv", None, persistent=False)
+
+    def inverse(self) -> torch.Tensor:
+        return self.weight_inv if self.weight_inv is not None else torch.linalg.inv(self.weight)
+
+    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+        s = self.n_split
+        if reverse:
+            w, logdet = self.inverse(), None
+        else:
+            w = self.weight
+            logdet = torch.linalg.slogdet(w)[1] * (x.shape[2] / s) * lens.to(x.dtype)
+        z = torch.einsum("btsc,ks->btkc", _regroup(x, s), w)
+        return _ungroup(z, s) * mask, logdet
+
+
+class WN(nn.Module):
+    """The WaveNet conditioner's layers: ``in_layers`` (dilated, 2H out) and
+    ``res_skip_layers`` (2H out, H for the last), all weight-normalized."""
+
+    def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int, n_layers: int):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError("WN needs an odd kernel size")
+        self.dilations = tuple(dilation_rate ** i for i in range(n_layers))
+        self.in_layers = nn.ModuleList(
+            WNConv1d(hidden_channels, 2 * hidden_channels, kernel_size, d) for d in self.dilations)
+        self.res_skip_layers = nn.ModuleList(
+            WNConv1d(hidden_channels, 2 * hidden_channels if i < n_layers - 1 else hidden_channels, 1)
+            for i in range(n_layers))
+
+
+class CouplingBlock(nn.Module):
+    """Affine coupling: the second channel half is shifted and scaled by the
+    conditioner (``start`` -> ``wn`` -> zero-initialised ``end``) of the
+    first. The conditioner goes through the kernel wrapper
+    ``ops.wn_coupling.wn_coupling`` when ``fused`` and T <= ``fused_max_t``
+    (the JAX package's routing, flows.py:349), else through the plain
+    version."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int,
+                 n_layers: int, sigmoid_scale: bool = False, fused: bool = False, fused_max_t: int = 768):
+        super().__init__()
+        self.in_channels = in_channels
+        self.sigmoid_scale = sigmoid_scale
+        self.fused = fused
+        self.fused_max_t = fused_max_t
+        self.start = WNConv1d(in_channels // 2, hidden_channels, 1)
+        self.wn = WN(hidden_channels, kernel_size, dilation_rate, n_layers)
+        self.end = nn.Conv1d(hidden_channels, in_channels, 1)
+        self.end.zero_init = True
+
+    def conditioner_weights(self) -> WNWeights:
+        return WNWeights(
+            ws=self.start.weight(), bs=self.start.bias,
+            win=tuple(m.weight() for m in self.wn.in_layers), bin=tuple(m.bias for m in self.wn.in_layers),
+            wrs=tuple(m.weight() for m in self.wn.res_skip_layers),
+            brs=tuple(m.bias for m in self.wn.res_skip_layers),
+            wend=self.end.weight, bend=self.end.bias, dilations=self.wn.dilations)
+
+    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+        half = self.in_channels // 2
+        x_0, x_1 = x[..., :half], x[..., half:]
+        conditioner = wn_coupling if self.fused and x.shape[1] <= self.fused_max_t else wn_coupling_reference
+        out = conditioner(x_0, lens, self.conditioner_weights())
+        m, logs = out[..., :half], out[..., half:]
+        if self.sigmoid_scale:
+            logs = torch.log(1e-6 + torch.sigmoid(logs + 2))
+        if reverse:
+            z_1, logdet = (x_1 - m) * torch.exp(-logs) * mask, None
+        else:
+            z_1 = (m + torch.exp(logs) * x_1) * mask
+            logdet = torch.sum(logs * mask, dim=(1, 2))
+        return torch.cat([x_0, z_1], dim=-1), logdet
+
+
+@torch.no_grad()
+def build_flow_cache(model: nn.Module) -> None:
+    """Folds every WNConv1d's weight norm and stores every InvConvNear's
+    inverse, once (the reference's ``remove_weight_norm`` and
+    ``store_inverse``)."""
+    for module in model.modules():
+        if isinstance(module, WNConv1d):
+            module.folded_weight = None
+            module.folded_weight = module.weight().detach().clone()
+        elif isinstance(module, InvConvNear):
+            module.weight_inv = torch.linalg.inv(module.weight).detach().clone()
+
+
+def clear_flow_cache(model: nn.Module) -> None:
+    for module in model.modules():
+        if isinstance(module, WNConv1d):
+            module.folded_weight = None
+        elif isinstance(module, InvConvNear):
+            module.weight_inv = None
+
+
+def invconv_qr_init(n_split: int, gen: torch.Generator) -> torch.Tensor:
+    """A random orthogonal [n, n] matrix with det > 0 (QR of a normal draw,
+    the first column negated when the determinant is negative)."""
+    w = torch.linalg.qr(torch.randn(n_split, n_split, generator=gen))[0]
+    if torch.det(w) < 0:
+        w[:, 0] = -w[:, 0]
+    return w
+
+
+def squeeze(x: torch.Tensor, x_mask: torch.Tensor, n_sqz: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Folds n_sqz frames into channels: [B, T, C] -> [B, T/n, n*C] (frame-major channels)."""
+    b, t, c = x.shape
+    t = (t // n_sqz) * n_sqz
+    x_sqz = x[:, :t].reshape(b, t // n_sqz, n_sqz * c)
+    x_mask = x_mask[:, n_sqz - 1::n_sqz]
+    return x_sqz * x_mask, x_mask
+
+
+def unsqueeze(x: torch.Tensor, x_mask: torch.Tensor, n_sqz: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, n*C] -> [B, T*n, C] (inverse of squeeze)."""
+    b, t, c = x.shape
+    x_unsqz = x.reshape(b, t * n_sqz, c // n_sqz)
+    x_mask = torch.repeat_interleave(x_mask, n_sqz, dim=1)
+    return x_unsqz * x_mask, x_mask
+
+
+def mask_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """[B, T, 1] 0/1 mask -> int32 lengths [B] (on the mask's device, no sync)."""
+    return mask[..., 0].sum(dim=1).to(torch.int32)
+

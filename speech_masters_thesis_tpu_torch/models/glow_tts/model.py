@@ -1,0 +1,147 @@
+"""Glow-TTS: text -> mel normalizing flow with monotonic alignment search
+(counterpart of speech_masters_thesis_tpu/models/glow_tts/model.py).
+
+``forward`` is the eval path of the JAX ``__call__`` (model.py:129-183):
+mel -> latent through the forward flow, the MAS log-prior table, MAS on the
+model's device, the MLE and duration losses, and ``yh``, the mel that the
+reverse flow makes from a draw of the aligned prior. ``infer`` is
+``model.py:185-213``: tokens -> durations -> ``generate_path`` -> the reverse
+flow. Mels are [B, frames, n_mels]. The normal draws come from ``noise``
+when given (a test hands in JAX's own draw), else from ``generator`` (on
+the model's device; seed 0 when None, as the JAX model falls back to
+PRNGKey(0)).
+
+Training (dropout, DDI, the backward kernels) is the next slice: a
+train-mode call with dropout raises. Speaker conditioning is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+
+from speech_masters_thesis_tpu_torch.models.base import TokenToSpectrogramModel
+from speech_masters_thesis_tpu_torch.models.glow_tts.encoder import FlowSpecDecoder, TextEncoder
+from speech_masters_thesis_tpu_torch.ops.basic import generate_path, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.mas import mas_log_prior, maximum_path_auto
+
+
+def _normal(shape, like: torch.Tensor, noise: Optional[torch.Tensor],
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    if noise is not None:
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {tuple(shape)}")
+        return noise.to(device=like.device, dtype=like.dtype)
+    if generator is None:
+        generator = torch.Generator(device=like.device).manual_seed(0)
+    return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+class GlowTTS(TokenToSpectrogramModel):
+    """Glow-TTS at a ``model:`` config section and its dataset's settings."""
+
+    def __init__(self, model_cfg: Mapping, dataset_config: Mapping):
+        super().__init__()
+        enc, dec = model_cfg["encoder"], model_cfg["decoder"]
+        if model_cfg.get("n_speakers", 1) > 1 or model_cfg.get("gin_channels", 0):
+            raise NotImplementedError("GlowTTS: multi-speaker models are not ported")
+        self.dataset_config = dict(dataset_config)
+        self.n_sqz = dec["n_sqz"]
+        self.n_mels = dataset_config["n_mels"]
+        self.p_dropout = max(enc["p_dropout"], dec["p_dropout"])
+        fused_blocks = model_cfg.get("fused_blocks", False)
+        self.encoder = TextEncoder(
+            n_vocab=enc["n_vocab"] + int(dataset_config["intersperse_blanks"]),
+            out_channels=self.n_mels,
+            hidden_channels=enc["hidden_channels"],
+            filter_channels=enc["filter_channels"],
+            # the JAX model's width: encoder.filter_channels, not filter_channels_dp (model.py:50)
+            filter_channels_dp=enc["filter_channels"],
+            n_heads=enc["n_heads"],
+            n_layers=enc["n_layers"],
+            kernel_size=enc["kernel_size"],
+            window_size=enc["window_size"],
+            mean_only=enc["mean_only"],
+            prenet=enc["prenet"],
+            fused=model_cfg.get("fused_encoder", fused_blocks),
+        )
+        self.decoder = FlowSpecDecoder(
+            in_channels=self.n_mels,
+            hidden_channels=dec["hidden_channels"],
+            kernel_size=dec["kernel_size"],
+            dilation_rate=dec["dilation_rate"],
+            n_blocks=dec["n_blocks"],
+            n_layers=dec["n_layers"],
+            n_split=dec["n_split"],
+            n_sqz=dec["n_sqz"],
+            sigmoid_scale=dec["sigmoid_scale"],
+            fused=fused_blocks,
+            fused_flow_step=model_cfg.get("fused_flow_step", True),
+        )
+
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor, y_lengths: torch.Tensor,
+                speaker=None, train: bool = False, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, generators=None):  # pylint: disable=arguments-differ
+        """x [B, T_x] token ids, y [B, T_y, n_mels] log-mels -> (losses with
+        ``loss_mle``, ``loss_length``, ``loss`` and, in eval mode, ``yh``; {})."""
+        if speaker is not None:
+            raise NotImplementedError("GlowTTS: speaker conditioning is not ported")
+        if train and self.p_dropout > 0:
+            raise NotImplementedError("GlowTTS: train-mode dropout comes with the training slice")
+        del generators
+        x_m, x_logs, logw_enc, x_mask = self.encoder(x, x_lengths)
+
+        y_max_length = (y.shape[1] // self.n_sqz) * self.n_sqz
+        y = y[:, :y_max_length]
+        y_lengths = (y_lengths // self.n_sqz) * self.n_sqz
+        y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(y.dtype)
+        z_dec, logdet = self.decoder(y, y_mask, reverse=False)
+
+        attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
+        with torch.no_grad():
+            logp = mas_log_prior(x_m.detach(), x_logs.detach(), z_dec.detach())
+            attn = maximum_path_auto(logp, attn_mask)
+
+        logw_dec = torch.log(1e-8 + attn.sum(dim=-1)) * x_mask[:, :, 0]
+        attn_t = attn.transpose(1, 2)
+        z_m_enc = attn_t @ x_m
+        z_logs_enc = attn_t @ x_logs
+
+        yh = None
+        if not train:
+            eps = _normal(z_m_enc.shape, z_m_enc, noise, generator)
+            z_enc = (z_m_enc + torch.exp(z_logs_enc) * eps) * y_mask
+            yh, _ = self.decoder(z_enc, y_mask, reverse=True)
+
+        l_mle = 0.5 * math.log(2 * math.pi) + (
+            torch.sum(z_logs_enc)
+            + 0.5 * torch.sum(torch.exp(-2 * z_logs_enc) * (z_dec - z_m_enc) ** 2)
+            - torch.sum(logdet)
+        ) / (torch.sum(y_lengths) * z_dec.shape[-1])
+        l_length = torch.sum((logw_enc - logw_dec) ** 2) / torch.sum(x_lengths)
+        return {"loss_mle": l_mle, "loss_length": l_length, "loss": l_mle + l_length, "yh": yh}, {}
+
+    @torch.no_grad()
+    def infer(self, x: torch.Tensor, x_lengths: torch.Tensor, generator: Optional[torch.Generator] = None,
+              noise: Optional[torch.Tensor] = None, max_frames: int = 1024, noise_scale: float = 1.0):
+        """Token ids [B, T_x] -> (mel [B, max_frames', n_mels], z_lengths [B]
+        int32), max_frames' = max_frames rounded down to n_sqz; frames past
+        a sequence's z_length are masked to zero. z_lengths is the predicted
+        total duration and may exceed max_frames'."""
+        x_m, x_logs, logw_enc, x_mask = self.encoder(x, x_lengths)
+        w = torch.ceil(torch.exp(logw_enc)) * x_mask[:, :, 0]
+        z_lengths = torch.clamp(torch.sum(w, dim=1), min=1.0).to(torch.int32)
+        z_lengths = (z_lengths // self.n_sqz) * self.n_sqz
+        t_y = (max_frames // self.n_sqz) * self.n_sqz
+        z_mask = sequence_mask(z_lengths, t_y)[..., None]
+
+        attn_mask = x_mask[:, :, 0][:, :, None] * z_mask[:, :, 0][:, None, :]
+        attn_t = generate_path(w, attn_mask).transpose(1, 2)
+        z_m_enc = attn_t @ x_m
+        z_logs_enc = attn_t @ x_logs
+        eps = _normal(z_m_enc.shape, z_m_enc, noise, generator)
+        z_enc = (z_m_enc + torch.exp(z_logs_enc) * noise_scale * eps) * z_mask
+        yh, _ = self.decoder(z_enc, z_mask, reverse=True)
+        return yh, z_lengths

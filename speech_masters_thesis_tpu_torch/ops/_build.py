@@ -34,6 +34,10 @@ MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 WGRAD_MAX_SPLIT = 64
 WGRAD_ROWS_PER_SPLIT = 1024
 ATTENTION_HEAD_DIM = 32
+# compile-time limits of csrc/enc_layer_fwd.cu
+ENC_HEAD_DIM = 96
+ENC_MAX_WINDOW = 8
+ENC_CHANNELS = 192  # the LayerNorm epilogue's tile holds a whole row of this width
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 
 
@@ -113,4 +117,13 @@ def build() -> ctypes.CDLL:
     lib.attention_fwd.restype = i
     lib.attention_bwd.argtypes = [p] * 3 + [i] + [p] * 9 + [i] * 4 + [f, i, u, f, p]
     lib.attention_bwd.restype = i
+    lib.mas_forward.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.mas_forward.restype = i
+    lib.mas_smem_bytes.argtypes = [i, i]
+    lib.mas_smem_bytes.restype = ctypes.c_long
+    ptrs = ctypes.POINTER(p)
+    lib.wn_coupling_fwd.argtypes = [p, i, p, p, p] + [ptrs] * 4 + [p] * 6 + [i] * 8 + [p]
+    lib.wn_coupling_fwd.restype = i
+    lib.enc_layer_fwd.argtypes = [p] * 25 + [i] * 7 + [f, p]
+    lib.enc_layer_fwd.restype = i
     return lib

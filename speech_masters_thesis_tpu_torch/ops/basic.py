@@ -25,6 +25,22 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     return (positions[None, :] < lengths[:, None]).to(torch.float32)
 
 
+def pointwise(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 1x1 Conv1d on [B, T, C] activations (weight [out, in, 1]) as one product."""
+    return x @ w[:, :, 0].t() + b
+
+
+def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-token durations [b, t_x] -> hard monotonic 0/1 path [b, t_x, t_y]
+    (``mask``'s shape): row i covers frames [cumdur[i-1], cumdur[i])."""
+    t_y = mask.shape[2]
+    cum_duration = torch.cumsum(duration, dim=1)
+    frame = torch.arange(t_y, device=duration.device, dtype=cum_duration.dtype)
+    upper = (frame[None, None, :] < cum_duration[:, :, None]).to(mask.dtype)
+    lower = torch.nn.functional.pad(upper, (0, 0, 1, 0))[:, :-1]
+    return (upper - lower) * mask
+
+
 def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
     """Last-axis softmax reduced in float32, returned in the input dtype (for
     float32 inputs exactly ``torch.softmax``)."""

@@ -6,10 +6,12 @@ speech_masters_thesis_tpu/train/harness.py: ``get_model``,
 package's initializers: lecun-normal conv weights and zero biases, zero for
 the ``zero_out`` layers (the codec), and flax's defaults for the LM
 (truncated lecun-normal Dense kernels, zero biases, LayerNorm 1 and 0, an
-N(0, 1) embedding whose PAD row is zero). For the VQ-VAE it then runs the
-bottleneck's lazy codebook init on a first batch, so the codebook starts
-from real encodings. The data loaders, the CLI, checkpoints and the epoch
-loop are not ported.
+N(0, 1) embedding whose PAD row is zero), and Glow-TTS's own (xavier q/k/v,
+weight norm's g = ||v||, a QR rotation per InvConvNear, zeros where the JAX
+package has zeros). For the VQ-VAE it then runs the bottleneck's lazy
+codebook init on a first batch, so the codebook starts from real encodings.
+``get_model`` builds on the card unless the caller passes a device. The data
+loaders, the CLI, checkpoints and the epoch loop are not ported.
 """
 
 from __future__ import annotations
@@ -20,27 +22,37 @@ from typing import Dict, List, Mapping, Optional
 import torch
 import torch.nn as nn
 
-from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
+from speech_masters_thesis_tpu_torch.models.base import TOKEN_TO_SPECTROGRAM, WaveformReconstructionModel
+from speech_masters_thesis_tpu_torch.models.glow_tts import attention as glow_attention
+from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
+from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
+from speech_masters_thesis_tpu_torch.utils.registry import resolve_model
 
 # flax's truncated_normal draws within +-2 stds and divides its std by this,
 # the std of a unit normal truncated there
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None) -> nn.Module:
-    """The model a config's ``model:`` section names in ``_import_``.
+def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None,
+              device: Optional[torch.device | str] = None) -> nn.Module:
+    """The model a config's ``model:`` section names in ``_import_``, built on
+    ``device``: the card (``device.cuda_device()``, which raises when there is
+    none) unless the caller asks for another, e.g. ``device="cpu"``.
 
     ``vqvae_model_config`` (or ``config["vqvae_model_config"]``) is the
     ``model:`` section of the VQ-VAE whose frozen codec an LM holds (the JAX
     package reads it from the codec's log dir; the port takes the dict, e.g.
-    ``configs.VQVAE_TPU``).
+    ``configs.VQVAE_TPU``). A token-to-spectrogram model (Glow-TTS) takes the
+    config's ``dataset:`` section.
     """
     vq = vqvae_model_config if vqvae_model_config is not None else config.get("vqvae_model_config")
     kwargs = {} if vq is None else {"vqvae_model_config": dict(vq)}
-    return _get_model(dict(config["model"]), **kwargs)
+    if getattr(resolve_model(config["model"]["_import_"]), "TASK", None) == TOKEN_TO_SPECTROGRAM:
+        kwargs["dataset_config"] = dict(config["dataset"])
+    return _get_model(dict(config["model"]), device=device, **kwargs)
 
 
 def _lecun_truncated(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
@@ -48,13 +60,65 @@ def _lecun_truncated(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
     return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
+def _xavier_uniform(shape, gen: torch.Generator) -> torch.Tensor:
+    """flax's xavier_uniform for a conv kernel: fans include the kernel width."""
+    receptive = shape[2] if len(shape) == 3 else 1
+    limit = math.sqrt(6.0 / (shape[1] * receptive + shape[0] * receptive))
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+
+@torch.no_grad()
+def _init_glow_tts(model: GlowTTS, gen: torch.Generator) -> None:
+    """The JAX package's Glow-TTS initializers: truncated lecun-normal conv
+    weights and zero biases; xavier-uniform q/k/v; normal(D^-1/2) relative
+    tables; normal(H^-1/2) embedding; LayerNorm 1 and 0; weight norm's
+    v lecun-normal and g = ||v||; a QR rotation with det > 0 for each
+    InvConvNear; zeros for ActNorm, the prenet's proj and each coupling's
+    end conv."""
+    xavier = {id(c) for m in model.modules() if isinstance(m, glow_attention.RelativeSelfAttention)
+              for c in (m.conv_q, m.conv_k, m.conv_v)}
+    for module in model.modules():
+        if isinstance(module, glow_attention.RelativeSelfAttention):
+            for conv in (module.conv_q, module.conv_k, module.conv_v):
+                conv.weight.copy_(_xavier_uniform(conv.weight.shape, gen))
+            std = module.emb_rel_k.shape[-1] ** -0.5
+            module.emb_rel_k.copy_(torch.randn(module.emb_rel_k.shape, generator=gen) * std)
+            module.emb_rel_v.copy_(torch.randn(module.emb_rel_v.shape, generator=gen) * std)
+        elif isinstance(module, nn.Conv1d):
+            if getattr(module, "zero_init", False):
+                nn.init.zeros_(module.weight)
+            elif id(module) not in xavier:
+                w = module.weight
+                module.weight.copy_(_lecun_truncated(w.shape, w.shape[1] * w.shape[2], gen))
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, glow_flows.WNConv1d):
+            v = module.weight_v
+            v.copy_(_lecun_truncated(v.shape, v.shape[1] * v.shape[2], gen))
+            module.weight_g.copy_(v.flatten(1).norm(dim=1).view(-1, 1, 1))
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, glow_flows.InvConvNear):
+            module.weight.copy_(glow_flows.invconv_qr_init(module.n_split, gen))
+        elif isinstance(module, glow_flows.ActNorm):
+            nn.init.zeros_(module.logs)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, glow_attention.ChannelLayerNorm):
+            nn.init.ones_(module.gamma)
+            nn.init.zeros_(module.beta)
+        elif isinstance(module, nn.Embedding):
+            module.weight.copy_(torch.randn(module.weight.shape, generator=gen) * module.weight.shape[1] ** -0.5)
+
+
 @torch.no_grad()
 def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Tensor]], seed: int) -> None:
     """Seeded parameters for every module, then, for the VQ-VAE, the lazy
     codebook init on ``batch`` (on the model's device; the encoder runs in
     eval mode). The LM needs no batch; its frozen codec stays as drawn here
-    until ``load_vqvae_into_lm`` grafts a trained one."""
+    until ``load_vqvae_into_lm`` grafts a trained one. Glow-TTS needs no
+    batch (its data-dependent ActNorm init comes with the training slice)."""
     gen = torch.Generator().manual_seed(seed)
+    if isinstance(model, GlowTTS):
+        _init_glow_tts(model, gen)
+        return
     for module in model.modules():
         if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
             weight = module.weight

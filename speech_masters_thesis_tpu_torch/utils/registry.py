@@ -7,7 +7,11 @@ Counterpart of speech_masters_thesis_tpu/utils/registry.py (the table) and
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
+
+from speech_masters_thesis_tpu_torch.device import cuda_device
 
 _MODEL_PATHS: Dict[str, str] = {
     "models.vqvae.vqvae.VQVAE": "speech_masters_thesis_tpu_torch.models.vqvae.model:VQVAE",
@@ -15,6 +19,8 @@ _MODEL_PATHS: Dict[str, str] = {
     "models.transformer_lm.transformer_lm.TransformerLM":
         "speech_masters_thesis_tpu_torch.models.transformer_lm.model:TransformerLM",
     "transformer_lm": "speech_masters_thesis_tpu_torch.models.transformer_lm.model:TransformerLM",
+    "models.glow_tts.glow_tts.GlowTTS": "speech_masters_thesis_tpu_torch.models.glow_tts.model:GlowTTS",
+    "glow_tts": "speech_masters_thesis_tpu_torch.models.glow_tts.model:GlowTTS",
 }
 
 
@@ -25,7 +31,10 @@ def resolve_model(import_path: str) -> Any:
     return getattr(importlib.import_module(module_name), attr)
 
 
-def get_model(model_cfg: dict, **kwargs):
-    """Builds the model a ``model:`` config section names in ``_import_``;
-    ``kwargs`` go to its constructor (the LM's ``vqvae_model_config``)."""
-    return resolve_model(model_cfg["_import_"])(model_cfg, **kwargs)
+def get_model(model_cfg: dict, device: Optional[torch.device | str] = None, **kwargs):
+    """Builds the model a ``model:`` config section names in ``_import_``, on
+    ``device`` (the card, ``device.cuda_device()``, unless the caller asks
+    for another); ``kwargs`` go to its constructor (the LM's
+    ``vqvae_model_config``, Glow-TTS's ``dataset_config``)."""
+    device = cuda_device() if device is None else torch.device(device)
+    return resolve_model(model_cfg["_import_"])(model_cfg, **kwargs).to(device)

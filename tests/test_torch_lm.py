@@ -123,7 +123,7 @@ def _variables(jmodel, seed=1):
 
 
 def _port_model(lm_cfg, variables, vq_cfg=None):
-    model = harness.get_model({"model": copy.deepcopy(lm_cfg)}, vqvae_model_config=vq_cfg)
+    model = harness.get_model({"model": copy.deepcopy(lm_cfg)}, vqvae_model_config=vq_cfg, device="cpu")
     state = transformer_lm_params_from_jax(variables["params"], vq_cfg)
     buffers = codebook_from_jax(variables["codebook"]) if vq_cfg is not None else {}
     if vq_cfg is not None:
@@ -395,7 +395,7 @@ def test_sampling_is_deterministic_per_generator(codec_lm):
 
 def test_harness_init_takes_flax_defaults_and_freezes_the_codec():
     vq_cfg = _vq_cfg()
-    model = get_model(_lm_cfg(), vqvae_model_config=vq_cfg)
+    model = get_model(_lm_cfg(), vqvae_model_config=vq_cfg, device="cpu")
     harness.init_model_variables(model, None, seed=3)
     layer = model.transformer.layers[0]
     for w, fan_in in ((layer.linear1.weight, D_MODEL), (layer.linear2.weight, 128),
@@ -427,14 +427,14 @@ def test_harness_init_takes_flax_defaults_and_freezes_the_codec():
 
 def test_load_vqvae_into_lm_grafts_decoder_and_codebook():
     vq_cfg = _vq_cfg()
-    vqvae = get_model(copy.deepcopy(vq_cfg))
+    vqvae = get_model(copy.deepcopy(vq_cfg), device="cpu")
     gen = torch.Generator().manual_seed(5)
     with torch.no_grad():
         for p in vqvae.parameters():
             p.copy_(torch.randn(p.shape, generator=gen))
         vqvae.bottleneck.level_blocks[0].k.copy_(torch.randn(vqvae.bottleneck.level_blocks[0].k.shape,
                                                              generator=gen))
-    lm = get_model(_lm_cfg(), vqvae_model_config=vq_cfg)
+    lm = get_model(_lm_cfg(), vqvae_model_config=vq_cfg, device="cpu")
     load_vqvae_into_lm(lm, vqvae.state_dict())
     for name, p in vqvae.decoders[0].named_parameters():
         assert torch.equal(lm.vqvae_decoder.get_parameter(name), p), name
@@ -446,4 +446,4 @@ def test_load_vqvae_into_lm_grafts_decoder_and_codebook():
         np.testing.assert_array_equal(lm.reconstruct(codes, torch.ones(2, 5)).numpy(), y[..., 0].numpy())
     partial = {k: v for k, v in vqvae.state_dict().items() if not k.endswith("out.weight")}
     with pytest.raises(KeyError, match="lacks"):
-        load_vqvae_into_lm(get_model(_lm_cfg(), vqvae_model_config=vq_cfg), partial)
+        load_vqvae_into_lm(get_model(_lm_cfg(), vqvae_model_config=vq_cfg, device="cpu"), partial)

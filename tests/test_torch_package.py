@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
     names = proc.stdout.split()
     assert len(names) >= 28  # every module was imported
     for module in ("models.ema", "models.base", "train.harness", "train.loop", "train.optim",
-                   "train.state", "ops.attention", "ops.hash", "models.transformer_lm.model"):
+                   "train.state", "ops.attention", "ops.hash", "models.transformer_lm.model",
+                   "models.glow_tts.model", "ops.wn_coupling", "ops.enc_layer", "ops.mas",
+                   "ops.griffin_lim", "inference"):
         assert f"speech_masters_thesis_tpu_torch.{module}" in names, module
 
 
@@ -51,7 +53,7 @@ def test_optimizer_config_equals_yaml():
 @pytest.mark.parametrize("name", ["models.vqvae.vqvae.VQVAE", "vqvae"])
 def test_get_model_resolves_vqvae(name):
     cfg = {**configs.VQVAE_TPU, "_import_": name}
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     assert isinstance(model, VQVAE)
     assert compression_factor(cfg) == 128
     blocks = [m for m in model.modules() if isinstance(m, GatedHiFiBlock)]
@@ -63,7 +65,7 @@ def test_get_model_resolves_vqvae(name):
 
 def test_registry_and_blocks_reject_what_is_not_ported():
     with pytest.raises(KeyError):
-        get_model({**configs.VQVAE_TPU, "_import_": "glow_tts"})
+        get_model({**configs.VQVAE_TPU, "_import_": "vqtts"}, device="cpu")
     for block_type in ("base", "wavenet", "hifi"):
         with pytest.raises(NotImplementedError):
             get_block(block_type)

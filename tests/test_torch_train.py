@@ -76,7 +76,7 @@ def _variables(cfg, model, seed=1):
 
 
 def _port_model(cfg, variables):
-    model = harness.get_model({"model": copy.deepcopy(cfg)})
+    model = harness.get_model({"model": copy.deepcopy(cfg)}, device="cpu")
     model.load_state_dict(vqvae_state_dict_from_jax(variables, cfg), strict=True)
     with torch.no_grad():
         for name, value in codebook_from_jax(variables["codebook"]).items():
@@ -378,7 +378,7 @@ def test_val_step_runs_supervised_step_on_the_ema(monkeypatch):
 def test_train_state_codebook_and_frozen_mask_for_the_vqvae():
     """The VQ-VAE freezes nothing: every parameter trains; its codebook state
     is the bottleneck's four buffers."""
-    model = harness.get_model({"model": _model_cfg()})
+    model = harness.get_model({"model": _model_cfg()}, device="cpu")
     assert harness.frozen_param_mask(model) is None
     trainable = harness.trainable_parameters(model)
     assert len(trainable) == len(list(model.parameters())) and all(p.requires_grad for p in trainable)
@@ -391,7 +391,7 @@ def test_train_state_codebook_and_frozen_mask_for_the_vqvae():
 def test_harness_init_runs_the_lazy_codebook_init():
     cfg = _model_cfg()
     cfg["zero_out"] = True
-    model = harness.get_model({"model": cfg})
+    model = harness.get_model({"model": cfg}, device="cpu")
     audio, lengths = _batch(seed=13)
     block = model.bottleneck.level_blocks[0]
     assert not bool(block.initialized)

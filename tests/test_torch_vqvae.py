@@ -64,7 +64,7 @@ def models():
     assert jax.tree.structure(codebook) == jax.tree.structure(shapes["codebook"])
     variables = {"params": params, "codebook": codebook}
 
-    port = get_model(copy.deepcopy(cfg))
+    port = get_model(copy.deepcopy(cfg), device="cpu")
     port.load_state_dict(vqvae_state_dict_from_jax(variables, cfg), strict=True)
     return cfg, jax_models, variables, port
 
