@@ -5,8 +5,8 @@
 
 Drives the VQ-VAE codec's inference path and its training step
 (configs.VQVAE_TPU, full published width, random seeded weights), then the
-Transformer LM and Glow-TTS's serving path, through the entry points a user
-calls, with every kernel built from csrc/ in this checkout:
+Transformer LM, and Glow-TTS's serving and training paths, through the entry
+points a user calls, with every kernel built from csrc/ in this checkout:
 
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
@@ -80,7 +80,29 @@ with the zero-init leaves drawn from the seed):
      audio per second;
  21. the eval forward on the card against the CPU on 2 sequences: losses
      1e-4 relative, yh 1e-4 of max|yh| with the same noise, and MAS run on
-     the CPU on the card's log-prior table equal to the card's path.
+     the CPU on the card's log-prior table equal to the card's path;
+ 22. B3's backward kernels against its plain backward at the shapes of
+     phase 16, p=0 and the decoder's 0.05: dx0 1e-4 of max|ref| at valid
+     frames, every weight gradient 1e-3 of its leaf's max|ref| (floored at
+     3e-4 of the largest leaf's), two calls bitwise equal, the train-mode
+     forward against the plain one; the kernels' masks, read back from the
+     recompute's conv outputs (biases of 10 make them all positive), equal
+     the plain version's bit for bit, keep rate within 5 sigma, one seed
+     reproduces and another differs; both times and the bound;
+ 23. the same for B5 at the shapes of phase 17, p=0 and the encoder's 0.1,
+     the plain backward taken at the kernel's own FFN relu decisions (every
+     flip a near-tie), the masks of all four sites read back from the
+     backward's buffers (the attention's on the band, every pair at T=3);
+ 24. the Glow-TTS training path at batch 8 x 768 frames of seeded audio
+     (the mel on the card) and 256 tokens, ragged: ddi_init (each ActNorm's
+     output then has mean 0 and variance 1 at valid frames), then 5 train
+     steps with dropout, AdamW + Noam and the parameter EMA; launches (B5
+     fwd, B5 bwd, B3 fwd, B3 bwd, B4) = (6, 6, 12, 12, 1) per step, every
+     parameter a finite nonzero gradient, finite losses; step time (median
+     of steps 2-5), mel-frames/s and peak memory;
+ 25. one train step (p=0) on the card against the CPU on 2 sequences:
+     losses 1e-4 relative, and the card's and the CPU's gradients each
+     against the same step in fp64 on the CPU.
 
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
@@ -186,6 +208,9 @@ GLOW_VS_CPU = 2
 GLOW_LOSS_RTOL = 1e-4          # card vs CPU eval losses: fp32, 24 flow steps, other orders
 GLOW_YH_RTOL = 1e-4            # of max|yh|
 GLOW_SEED = 13
+B3_DROP = 0.05                 # the decoder's p_dropout (glow_tts_tpu.yaml)
+B5_DROP = 0.1                  # the encoder's
+GRAD_FLOOR = 3e-4              # a gradient leaf's tolerance scale is at least this of the largest leaf's
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -257,10 +282,10 @@ def phase_device() -> str:
     return card
 
 
-KERNEL_NAMES = ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
+KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", "enc_attention_kernel",
+                "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
                 "gated_hifi_fwd_kernel", "bwd_recompute_kernel", "bwd_transpose_kernel",
-                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "enc_attention_kernel",
-                "conv_rows_kernel")
+                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -1479,6 +1504,357 @@ def phase_glow_vs_cpu(model: GlowTTS, batch: dict, device, card: str) -> None:
     require(torch.equal(path_g, path_c), "MAS on the CPU differs from the card's path")
 
 
+# ---------------------------------------------------------------------------
+# Glow-TTS training
+# ---------------------------------------------------------------------------
+def leaf_report(ours: dict, ref: dict) -> dict:
+    """name -> (max abs error, scale): the scale is the leaf's max|ref|, floored
+    at GRAD_FLOOR of the largest leaf's (a leaf whose true gradient is zero,
+    like the key bias under the shift-invariant softmax, holds rounding only)."""
+    top = max(t.abs().max().item() for t in ref.values())
+    return {n: ((ours[n] - ref[n]).abs().max().item(), max(ref[n].abs().max().item(), GRAD_FLOOR * top))
+            for n in ref}
+
+
+def keep_rates_ok(rates: dict, p: float) -> None:
+    """rates: site -> (kept, checked); each within 5 sigma of 1 - p."""
+    q = 1.0 - p
+    for site, (kept, n) in rates.items():
+        require(abs(kept / n - q) <= 5 * np.sqrt(q * p / n), f"{site}: keep rate {kept / n} vs {q} over {n}")
+
+
+def print_grads(tag: str, dx_err: float, dx_scale: float, leaves: dict, bitwise: bool, fwd: tuple, times: dict,
+                bnd: tuple, card: str) -> None:
+    worst = max(leaves, key=lambda n: leaves[n][0] / leaves[n][1])
+    print(f"{tag}: dx max_abs_err {dx_err:.3e} (tol {DX_RTOL * dx_scale:.3e}) at valid rows; worst weight grad "
+          f"{worst} {leaves[worst][0]:.3e} of scale {leaves[worst][1]:.3e} (tol {WGRAD_RTOL:g}x); two calls bitwise "
+          f"equal {bitwise}; train-mode forward max_abs_err {fwd[0]:.3e} (tol {fwd[1]:.3e}); ms (median of 5): "
+          f"backward kernels {times['bwd']:.4f}, plain backward {times['plain']:.4f}, forward kernel "
+          f"{times['fwd']:.4f}, plain forward {times['fwd_plain']:.4f}; backward bound {bnd[0]:.4f} ms by {bnd[1]} "
+          f"[{card}]")
+    require(np.isfinite(dx_err) and dx_err <= DX_RTOL * dx_scale, f"{tag}: dx differs: {dx_err}")
+    for name, (err, scale) in leaves.items():
+        require(np.isfinite(err) and err <= WGRAD_RTOL * scale, f"{tag}: grad {name} differs: {err} > "
+                f"{WGRAD_RTOL} * {scale}")
+    require(bitwise, f"{tag}: two backward calls differ")
+    require(np.isfinite(fwd[0]) and fwd[0] <= fwd[1], f"{tag}: the train-mode forward differs: {fwd[0]}")
+
+
+def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
+    """B3's backward kernels against the plain backward at p=0 and the
+    decoder's p, then its dropout masks read back from the recompute."""
+    w = model.decoder.flows[2].conditioner_weights()
+    half, C, H, L = model.n_mels * model.n_sqz // 2, w.wend.shape[0], w.hidden, len(w.win)
+    seed = torch.tensor([4242], dtype=torch.int64, device=device)
+    out = {"max_abs_err": 0.0}
+    for i, (B, T) in enumerate(B3_SHAPES):
+        rng = np.random.RandomState(720 + i)
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) * valid[..., None]
+        x0 = x[..., :half]
+        g = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device)
+        for p in (0.0, B3_DROP):
+            args = (x0, lens, w, g, seed, p)
+            with torch.no_grad():
+                dx_k, gw_k = wn_ops.wn_coupling_backward(*args)
+                dx_k2, gw_k2 = wn_ops.wn_coupling_backward(*args)
+                dx_r, gw_r = wn_ops.wn_coupling_backward_reference(*args)
+                fwd_k = wn_ops.wn_coupling(x0, lens, w, seed, p)
+                fwd_r = wn_ops.wn_coupling_reference(x0, lens, w, seed, p)
+                torch.cuda.synchronize()
+                bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(a, b) for a, b in zip(gw_k.flat(), gw_k2.flat()))
+                fwd = ((fwd_k - fwd_r)[valid].abs().max().item(), B3_RTOL * fwd_r[valid].abs().max().item())
+                times = {"bwd": cuda_ms(lambda: wn_ops.wn_coupling_backward(*args), reps=5, warmup=1),
+                         "plain": cuda_ms(lambda: wn_ops.wn_coupling_backward_reference(*args), reps=5, warmup=1),
+                         "fwd": cuda_ms(lambda: wn_ops.wn_coupling(x0, lens, w, seed, p), reps=5, warmup=1),
+                         "fwd_plain": cuda_ms(lambda: wn_ops.wn_coupling_reference(x0, lens, w, seed, p), reps=5,
+                                              warmup=1)}
+            frames = int(lens_np.sum())
+            weights = sum(t.numel() for t in w.flat())
+            # recompute, transposed products and weight products: 3x the forward's operations;
+            # x0 and g in, dx0 out, the weights in and their gradients out
+            bnd = bound(3 * frames * wn_flops_per_frame(w), 4 * (frames * (2 * half + C) + 2 * weights))
+            dx_err = (dx_k - dx_r)[valid].abs().max().item()
+            print_grads(f"[B3 bwd] p={p} B={B} T={T}", dx_err, dx_r[valid].abs().max().item(),
+                        leaf_report(gw_k.tensors(), gw_r.tensors()), bitwise, fwd, times, bnd, card)
+            out["max_abs_err"] = max(out["max_abs_err"], dx_err)
+            if i == 0 and p > 0:  # the train step's shape
+                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
+                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"])
+            del dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r
+    # the masks: with conv biases of 10 (conv weights scaled down) every pre-dropout
+    # x_in is positive, so the recompute's x_in > 0 exactly where the kernel kept it
+    B, T = B3_SHAPES[0]
+    rng = np.random.RandomState(760)
+    lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    x0 = torch.from_numpy(rng.randn(B, T, half).astype(np.float32)).to(device)
+    g = torch.zeros(B, T, C, device=device)
+    probe = wn_ops.WNWeights(ws=w.ws, bs=w.bs, win=tuple(t * 0.01 for t in w.win),
+                             bin=tuple(torch.full_like(b, 10.0) for b in w.bin), wrs=w.wrs, brs=w.brs,
+                             wend=w.wend, bend=w.bend, dilations=w.dilations)
+    with torch.no_grad():
+        plain = wn_ops.wn_coupling_backward(x0, lens, probe, g, seed, 0.0, return_buffers=True)[2]["xin"]
+        require(bool((plain > 0).all()), "the B3 dropout probe's conv outputs are not all positive")
+        bufs = [wn_ops.wn_coupling_backward(x0, lens, probe, g, s_, B3_DROP, return_buffers=True)[2]["xin"] > 0
+                for s_ in (seed, seed, seed + 1)]
+    for i in range(L):
+        require(torch.equal(bufs[0][i], wn_ops.keep_mask(seed, lens, T, i, 2 * H, B3_DROP) > 0),
+                f"B3 layer {i}: the kernel's masks differ from the plain version's")
+    n = bufs[0].numel()
+    keep_rates_ok({"x_in": (int(bufs[0].sum()), n)}, B3_DROP)
+    changed = (bufs[0] != bufs[2]).float().mean().item()
+    print(f"[B3 dropout] p={B3_DROP} B={B} T={T}: the kernel's masks of all {L} layers equal the plain version's "
+          f"bit for bit; keep rate {bufs[0].float().mean().item():.6f} (expect {1 - B3_DROP:.6f}, 5 sigma "
+          f"{5 * np.sqrt(B3_DROP * (1 - B3_DROP) / n):.1e}); same seed same masks {torch.equal(bufs[0], bufs[1])}; "
+          f"another seed changes {changed:.4f} [{card}]")
+    require(torch.equal(bufs[0], bufs[1]), "B3: the same seed gave other masks")
+    require(changed > B3_DROP, f"B3: another seed changed only {changed} of the masks")
+    return out
+
+
+def band_keys(lens: torch.Tensor, T: int, window: int) -> torch.Tensor:
+    """[B, T, 2w+1] bool: row t's band key t + o - w is a valid key of a valid row."""
+    t = torch.arange(T, device=lens.device)
+    c = t[:, None] + torch.arange(-window, window + 1, device=lens.device)[None, :]
+    ln = lens.to(torch.int64)[:, None, None]
+    return (t[None, :, None] < ln) & (c[None] >= 0) & (c[None] < ln)
+
+
+def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
+    """B5's backward kernels against the plain backward at the kernel's own
+    relu decisions, at p=0 and the encoder's p, with the four dropout sites'
+    masks read back from the kernels' buffers."""
+    w = model.encoder.layer_weights(0)
+    C, H, Fc = w.wq.shape[0], w.n_heads, w.w1.shape[0]
+    seed = torch.tensor([5151], dtype=torch.int64, device=device)
+    out = {"max_abs_err": 0.0}
+    for i, (B, T) in enumerate(B5_SHAPES):
+        rng = np.random.RandomState(820 + i)
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device)
+        g = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device)
+        for p in (0.0, B5_DROP):
+            args = (x, lens, w, g, seed, p)
+            with torch.no_grad():
+                dx_k, gw_k, bufs = enc_ops.enc_layer_backward(*args, return_buffers=True)
+                dx_k2, gw_k2 = enc_ops.enc_layer_backward(*args)
+                plain = enc_ops._forward(x, lens, w, seed, p)
+                gate = bufs["hid"] > 0  # the kernel's relu decisions where it kept the row
+                kept_mid = (enc_ops.dropout_keep(seed, lens, T, Fc, enc_ops.SITE_FFN_MID, p) > 0) if p else True
+                flip = ((plain["c1"] > 0) != gate) & kept_mid & valid[..., None]
+                flips = (int(flip.sum()), plain["c1"].abs()[flip].max().item() if bool(flip.any()) else 0.0,
+                         plain["c1"].abs().max().item())
+                dx_r, gw_r = enc_ops.enc_layer_backward_reference(*args, relu_gate=gate.float())
+                fwd_k = enc_ops.enc_layer(x, lens, w, seed, p)
+                fwd = ((fwd_k - plain["out"])[valid].abs().max().item(),
+                       B5_RTOL * plain["out"][valid].abs().max().item())
+                torch.cuda.synchronize()
+                bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(gw_k[n], gw_k2[n]) for n in gw_k)
+                times = {"bwd": cuda_ms(lambda: enc_ops.enc_layer_backward(*args), reps=5, warmup=1),
+                         "plain": cuda_ms(lambda: enc_ops.enc_layer_backward_reference(*args), reps=5, warmup=1),
+                         "fwd": cuda_ms(lambda: enc_ops.enc_layer(x, lens, w, seed, p), reps=5, warmup=1),
+                         "fwd_plain": cuda_ms(lambda: enc_ops.enc_layer_reference(x, lens, w, seed, p), reps=5,
+                                              warmup=1)}
+            tokens = int(lens_np.sum())
+            params = sum(t.numel() for t in w.tensors().values())
+            bnd = bound(3 * enc_flops(lens_np, w), 4 * (3 * tokens * C + 2 * params))
+            dx_err = (dx_k - dx_r)[valid].abs().max().item()
+            print(f"[B5 bwd] p={p} B={B} T={T}: FFN relu decisions flipped against the plain forward {flips[0]} "
+                  f"(largest |c1| {flips[1]:.1e} of max {flips[2]:.1e}) [{card}]")
+            require(flips[1] <= FLIP_RTOL * flips[2], f"B5: a relu decision flipped at {flips[1]} of {flips[2]}")
+            print_grads(f"[B5 bwd] p={p} B={B} T={T}", dx_err, dx_r[valid].abs().max().item(),
+                        leaf_report(gw_k, gw_r), bitwise, fwd, times, bnd, card)
+            out["max_abs_err"] = max(out["max_abs_err"], dx_err)
+            if i == 0 and p > 0:  # the train step's shape
+                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
+                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"])
+            if p > 0:
+                enc_masks(x, lens, w, g, seed, bufs, plain, valid, card)
+            del dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
+    return out
+
+
+def enc_masks(x, lens, w: enc_ops.EncLayerWeights, g, seed, bufs: dict, plain: dict, valid, card: str) -> None:
+    """B5's four dropout sites read back from its backward buffers: the
+    band's dropped probabilities (every pair at T <= w + 1), conv_o's output
+    cotangent after dropout, the FFN's hidden rows (where |c1| is clear of
+    0) and its output cotangent, each against the plain version's masks."""
+    B, T, C = x.shape
+    H, R, Fc, p = w.n_heads, 2 * w.window + 1, w.w1.shape[0], B5_DROP
+    site = lambda s, width: enc_ops.dropout_keep(seed, lens, T, width, s, p) > 0  # noqa: E731
+    band_ok = band_keys(lens, T, w.window)[:, :, None, :].expand(B, T, H, R)
+    want_p = enc_ops.band_extract(enc_ops.attention_keep(seed, lens, H, T, p), w.window).permute(0, 2, 1, 3) > 0
+    c1 = plain["c1"]
+    clear = (c1.abs() > FLIP_RTOL * c1.abs().max()) & valid[..., None]  # relu decisions clear of a tie
+    rows = valid[..., None].expand(B, T, C)
+    checks = {
+        "attention P (band)": (bufs["bandp"].view(B, T, H, R) != 0, want_p, band_ok),
+        "conv_o output": (bufs["dy"] != 0, site(enc_ops.SITE_ATTN_Y, C), rows),
+        "FFN hidden (c1 > 0)": (bufs["hid"] != 0, site(enc_ops.SITE_FFN_MID, Fc), clear & (c1 > 0)),
+        "FFN output": (bufs["dc2"] != 0, site(enc_ops.SITE_FFN_Y, C), rows),
+    }
+    require(not bool((bufs["hid"] != 0)[clear & (c1 < 0)].any()), "B5: the kernel's relu kept a negative row")
+    rates = {}
+    for name, (got, want, where) in checks.items():
+        require(torch.equal(got[where], want[where]), f"B5 {name}: the kernel's masks differ from the plain version's")
+        rates[name] = (int(got[where].sum()), int(where.sum()))
+    other = enc_ops.enc_layer_backward(x, lens, w, g, seed + 1, p, return_buffers=True)[2]
+    changed = ((bufs["dy"] != 0) != (other["dy"] != 0))[rows].float().mean().item()
+    print(f"[B5 dropout] p={p} B={B} T={T}: the kernels' masks equal the plain version's bit for bit; keep rates "
+          + ", ".join(f"{k} {kept / n:.5f} of {n} (5 sigma {5 * np.sqrt(p * (1 - p) / n):.1e})"
+                      for k, (kept, n) in rates.items())
+          + f" (expect {1 - p:.5f}); another seed changes {changed:.4f} of conv_o's [{card}]")
+    keep_rates_ok(rates, p)
+    require(changed > p, f"B5: another seed changed only {changed} of the masks")
+
+
+def glow_train_counts() -> tuple:
+    return (enc_ops.enc_layer.launches, enc_ops.enc_layer_backward.launches, wn_ops.wn_coupling.launches,
+            wn_ops.wn_coupling_backward.launches, mas_ops.maximum_path_auto.launches)
+
+
+def zero_glow_train_counts() -> None:
+    zero_glow_counts()
+    enc_ops.enc_layer_backward.launches = wn_ops.wn_coupling_backward.launches = 0
+
+
+def actnorm_outputs(model: GlowTTS, batch: dict, seed: int) -> list:
+    """(output, mask) of every ActNorm in a train-mode forward whose dropout
+    generator starts at ``seed``."""
+    seen = []
+    hooks = [f.register_forward_hook(lambda m, inp, out: seen.append((out[0], inp[1])))
+             for f in model.decoder.flows if isinstance(f, glow_flows.ActNorm)]
+    try:
+        with torch.no_grad():
+            model.supervised_step(batch, train=True, generators={
+                "device_dropout": torch.Generator(device=batch["audio"].device).manual_seed(seed)})
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return seen
+
+
+def phase_glow_train(device, card: str) -> dict:
+    """The Glow-TTS training path at batch 8 x 768 frames: ddi_init, then
+    TRAIN_STEPS train steps with dropout, AdamW + Noam and the EMA."""
+    model = build_glow(device, GLOW_SEED + 1)
+    batch = glow_val_batch(GLOW_BATCH, device, seed=31)
+    ddi_seed = 17
+    model.ddi_init(batch, {"device_dropout": torch.Generator(device=device).manual_seed(ddi_seed)})
+    # the same dropout draws again: every ActNorm sees the input its init saw
+    worst_mean = worst_var = 0.0
+    for z, mask in actnorm_outputs(model, batch, ddi_seed):
+        n = mask.sum()
+        mean = (z * mask).sum(dim=(0, 1)) / n
+        var = (z * z * mask).sum(dim=(0, 1)) / n - mean * mean
+        worst_mean = max(worst_mean, mean.abs().max().item())
+        worst_var = max(worst_var, (var - 1).abs().max().item())
+    opt, schedule = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
+                                    configs.GLOW_TTS_TPU_SCHEDULER, configs.GLOW_TTS_TPU)
+    state = TrainState.create(model, opt, use_ema=True)
+    train_step = make_train_step(schedule, default_mu(GLOW_BATCH, 1), use_ema=True)
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_glow_train_counts()
+    times, per_step, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = glow_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = train_step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(glow_train_counts(), before)))
+        raise_if_not_finite(scalars, state.step)
+        losses.append({k: round(float(v), 6) for k, v in scalars.items() if k != "finite"})
+    totals = glow_train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [k for k, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.abs().sum() > 0)]
+    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
+    median = statistics.median(times[1:])
+    frames = GLOW_BATCH * GLOW_FRAMES
+    valid = int((batch["audio_len"] // HOP).sum())
+    print(f"[glow train] ddi_init on B={GLOW_BATCH} x {GLOW_FRAMES} frames: each ActNorm's output at valid frames "
+          f"has per-channel mean within {worst_mean:.2e} of 0 and variance within {worst_var:.2e} of 1 [{card}]")
+    print(f"[glow train] B={GLOW_BATCH} x {GLOW_FRAMES} frames ({valid} valid) and {GLOW_TOKENS} tokens, ragged, "
+          f"mel on the card; dropout (encoder {model.encoder.p_dropout}, decoder "
+          f"{model.decoder.flows[2].p_dropout}, prenet {model.encoder.pre.P_DROPOUT}), AdamW + Noam (lr at step 1 "
+          f"{schedule(0):.3e}) + parameter EMA: losses per step {losses}")
+    print(f"[glow train] launches per step (B5 fwd, B5 bwd, B3 fwd, B3 bwd, B4) {per_step}; every one of "
+          f"{len(list(model.parameters()))} parameters has a finite nonzero gradient: {not bad}; "
+          f"{ema_moved}/{len(ema0)} EMA parameters moved")
+    print(f"[glow train] step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps 2-{TRAIN_STEPS} "
+          f"{median:.3f} ms = {frames / (median / 1e3):.1f} mel-frames/s ({GLOW_BATCH} x {GLOW_FRAMES} per step; "
+          f"{valid / (median / 1e3):.1f} valid frames/s); max_memory_allocated {peak:.3f} GiB [{card}]")
+    require(worst_mean <= 1e-3 and worst_var <= 1e-3, f"ddi_init: mean {worst_mean}, variance {worst_var}")
+    require(all(c == (6, 6, 12, 12, 1) for c in per_step), f"train step launches {per_step} != (6, 6, 12, 12, 1)")
+    require(not bad, f"parameters without a finite nonzero gradient: {bad[:8]}")
+    require(ema_moved == len(ema0), f"only {ema_moved}/{len(ema0)} EMA parameters moved")
+    return {"launches": totals, "step_ms": median}
+
+
+def set_dropout(model: GlowTTS, p: float) -> None:
+    """Every dropout site of the model at p, the prenet's fixed rate included."""
+    model.encoder.p_dropout = p
+    model.encoder.pre.P_DROPOUT = p
+    for flow in model.decoder.flows[2::3]:
+        flow.p_dropout = p
+
+
+def phase_glow_train_vs_cpu(device, card: str) -> None:
+    """One train step (p=0) on the card against the CPU on 2 sequences, each
+    held against the same step in fp64 on the CPU, as phase 10 does: the
+    card's gradients must come as close to fp64 as the CPU's fp32 ones."""
+    n = GLOW_VS_CPU
+    sub = {k: v[:n] for k, v in glow_val_batch(GLOW_BATCH, device, seed=32).items()}
+    models = {"cuda": build_glow(device, GLOW_SEED + 2)}
+    set_dropout(models["cuda"], 0.0)
+    with torch.no_grad():
+        spect, spect_len = spect_from_audio(models["cuda"], sub)
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
+    out = {}
+    for name, model in models.items():
+        dev = next(model.parameters()).device
+        batch = {"token": sub["token"].to(dev), "token_len": sub["token_len"].to(dev),
+                 "spect": spect.to(dev, torch.float64 if name == "cpu64" else torch.float32),
+                 "spect_len": spect_len.to(dev)}
+        opt, schedule = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
+                                        configs.GLOW_TTS_TPU_SCHEDULER, configs.GLOW_TTS_TPU)
+        state = TrainState.create(model, opt, use_ema=True)
+        scalars = make_train_step(schedule, default_mu(n, 1), use_ema=True)(state, batch, TRAIN_SEED)
+        out[name] = ({k: float(v) for k, v in scalars.items()},
+                     {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()})
+    ref = out["cpu64"][1]
+    floor = 1e-4 * torch.sqrt(sum((r * r).sum() for r in ref.values())).item()
+
+    def rel_l2(ours: dict) -> dict:  # floored: the key biases' true gradients are zero
+        return {k: ((ours[k] - r).norm() / max(r.norm().item(), floor)).item() for k, r in ref.items()}
+
+    errs = {name: rel_l2(out[name][1]) for name in ("cuda", "cpu")}
+    stats = {name: (statistics.median(e.values()), max(e.values())) for name, e in errs.items()}
+    print(f"[glow train vs cpu] {n} sequences, p=0: losses card {out['cuda'][0]}; cpu {out['cpu'][0]}; cpu fp64 "
+          f"{out['cpu64'][0]}")
+    print(f"[glow train vs cpu] gradients against the fp64 step, relative L2 over {len(ref)} parameters "
+          f"(denominator floored at 1e-4 of the global norm): card median {stats['cuda'][0]:.3e} worst "
+          f"{stats['cuda'][1]:.3e}; cpu fp32 median {stats['cpu'][0]:.3e} worst {stats['cpu'][1]:.3e} (card within "
+          f"2x + {STEP_GRAD_MEDIAN_ATOL:g} / {STEP_GRAD_WORST_ATOL:g}) [{card}]")
+    for key in ("loss", "loss_mle", "loss_length"):
+        g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
+        rel = abs(g_ - c_) / max(abs(c_), 1e-12)
+        require(rel <= STEP_LOSS_RTOL, f"glow train step {key} differs: {rel}")
+    require(stats["cuda"][0] <= 2 * stats["cpu"][0] + STEP_GRAD_MEDIAN_ATOL,
+            f"glow train step grads: card median {stats['cuda'][0]} vs cpu {stats['cpu'][0]}")
+    require(stats["cuda"][1] <= 2 * stats["cpu"][1] + STEP_GRAD_WORST_ATOL,
+            f"glow train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -1511,11 +1887,19 @@ def main() -> None:
     synthesis = phase_synthesis(glow, device, card)
     phase_glow_vs_cpu(glow, val["batch"], device, card)
     glow_launches = tuple(a + b for a, b in zip(val["launches"], synthesis["launches"]))
+    b3_bwd = phase_wn_coupling_bwd(glow, device, card)
+    b5_bwd = phase_enc_layer_bwd(glow, device, card)
+    del glow, val, synthesis
+    torch.cuda.empty_cache()
+    glow_train = phase_glow_train(device, card)
+    phase_glow_train_vs_cpu(device, card)
+    b5_fwd_n, b5_bwd_n, b3_fwd_n, b3_bwd_n, b4_n = glow_train["launches"]
 
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
           f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
-          f"one synthesis call (B5, B3, B4) {glow_launches}")
+          f"one synthesis call (B5, B3, B4) {glow_launches}; Glow-TTS training path (B5 fwd, B5 bwd, "
+          f"B3 fwd, B3 bwd, B4) {glow_train['launches']}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
         return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
@@ -1534,12 +1918,16 @@ def main() -> None:
               attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"]),
         entry("attention_bwd", "attention_bwd.cu", PALLAS_ATTENTION + ":253", lm["bwd"], attention["bwd_err"],
               attention["bwd_ms"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_ms"]),
-        entry("wn_coupling_fwd", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_launches[1], b3["max_abs_err"],
-              b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"]),
-        entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2], b4["max_abs_err"], b4["ms"],
+        entry("wn_coupling_fwd", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_launches[1] + b3_fwd_n,
+              b3["max_abs_err"], b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"]),
+        entry("wn_coupling_bwd", "wn_coupling_bwd.cu", PALLAS_WN + ":484", b3_bwd_n, b3_bwd["max_abs_err"],
+              b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"]),
+        entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
               b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
-        entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0], b5["max_abs_err"],
-              b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"])]}))
+        entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
+              b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"]),
+        entry("enc_layer_bwd", "enc_layer_bwd.cu", PALLAS_ENC + ":496", b5_bwd_n, b5_bwd["max_abs_err"],
+              b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's Glow-TTS serving path on one GPU.
+"""Where the time goes in the PyTorch port's Glow-TTS paths on one GPU.
 
     python3 profile_glow.py
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
-seeded weights), and runs torch.profiler over 3 calls each of: the val step
-at batch 8 x 768 frames and 256 tokens, and synthesize_ids at batch 1 and 8
-(100-256 tokens, max_frames 1024, 32 Griffin-Lim iterations). For each it
+seeded weights), and runs torch.profiler over 3 calls each of: the train step
+(dropout on, AdamW + Noam, parameter EMA) and the val step at batch 8 x 768
+frames and 256 tokens, and synthesize_ids at batch 1 and 8 (100-256 tokens,
+max_frames 1024, 32 Griffin-Lim iterations). For each it
 prints the wall time per call, the device's busy share (the sum of kernel
 times over the wall time; one stream, so kernels do not overlap), the
 kernel launches per call, and the kernels that take the most device time,
@@ -25,12 +26,13 @@ import chip_smoke as cs
 from speech_masters_thesis_tpu_torch.device import cuda_device
 from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
 from speech_masters_thesis_tpu_torch.ops import _build
-from speech_masters_thesis_tpu_torch.train.loop import make_val_step
+from speech_masters_thesis_tpu_torch.models.ema import default_mu
+from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 
 CALLS = 3
-TOP = 12
+TOP = 16
 
 
 def device_time_us(event) -> float:
@@ -41,7 +43,10 @@ def device_time_us(event) -> float:
 
 
 def is_kernel(event) -> bool:
-    return getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA
+    """A kernel on the card, not a range annotation over kernels (the
+    optimizer's step is one), which would count their time twice."""
+    return (getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not event.key.startswith(("Optimizer.", "ProfilerStep")))
 
 
 def report(name: str, fn, card: str) -> None:
@@ -56,8 +61,9 @@ def report(name: str, fn, card: str) -> None:
     kernels = [e for e in prof.key_averages() if is_kernel(e)]
     busy = sum(device_time_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"[{name}] {wall_us / CALLS / 1e3:.3f} ms a call (under the profiler), device busy "
-          f"{busy / wall_us:.3f} of the wall time, {launches / CALLS:.0f} kernel launches a call [{card}]")
+    print(f"[{name}] {wall_us / CALLS / 1e3:.3f} ms a call (under the profiler), kernels {busy / CALLS / 1e3:.3f} "
+          f"ms a call, device busy {busy / wall_us:.3f} of the wall time, {launches / CALLS:.0f} kernel launches "
+          f"a call [{card}]")
     for e in sorted(kernels, key=device_time_us, reverse=True)[:TOP]:
         print(f"[{name}]   {device_time_us(e) / CALLS / 1e3:8.3f} ms {e.count // CALLS:5d}x  {e.key[:110]}")
 
@@ -66,6 +72,14 @@ def main() -> None:
     card = cs.phase_device()
     device = cuda_device()
     _build.build()
+    train_model = cs.build_glow(device, cs.GLOW_SEED + 1)
+    batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)
+    opt, schedule = build_optimizer(train_model.parameters(), cs.configs.GLOW_TTS_TPU_OPTIMIZER,
+                                    cs.configs.GLOW_TTS_TPU_SCHEDULER, cs.configs.GLOW_TTS_TPU)
+    train_state = TrainState.create(train_model, opt, use_ema=True)
+    train_step = make_train_step(schedule, default_mu(cs.GLOW_BATCH, 1), use_ema=True)
+    report("train step", lambda: train_step(train_state, batch, cs.TRAIN_SEED), card)
+    del train_model, train_state, opt
     model = cs.build_glow(device, cs.GLOW_SEED)
     opt, _ = build_optimizer(model.parameters(), cs.configs.GLOW_TTS_TPU_OPTIMIZER,
                              cs.configs.GLOW_TTS_TPU_SCHEDULER, cs.configs.GLOW_TTS_TPU)

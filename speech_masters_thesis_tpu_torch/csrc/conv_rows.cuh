@@ -1,37 +1,59 @@
 // A row-tiled 1-D convolution over [B, T, C] activations with fused
-// epilogues, shared by the Glow-TTS kernels (wn_coupling_fwd.cu,
-// enc_layer_fwd.cu). fp32 on the CUDA cores.
+// epilogues, shared by the Glow-TTS kernels (wn_coupling_{fwd,bwd}.cu,
+// enc_layer_{fwd,bwd}.cu). fp32 on the CUDA cores.
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * w[n, c, tap]
 //
 // with pad = (taps - 1) / 2 * dil, zero rows outside [0, T) and, when
 // mask_in is set, at t >= lens[b]; w in PyTorch's Conv1d layout
-// [n_out, c_in, taps]. Each block computes TR rows of one sequence and TN
-// output channels: the input rows (with the halo) and the weights stream
-// through shared memory KC input channels at a time; each of the 256
-// threads accumulates RM = TR / 8 rows by RN = TN / 32 channels in
-// registers (rows broadcast, channels 32 apart, so shared-memory reads are
-// conflict-free). The tile of z then goes through shared memory to the
-// epilogue:
+// [n_out, c_in, taps]. With `wt` set, w is the weight of the conv being
+// transposed ([c_in, n_out, taps]) and is read as w[c, n, taps - 1 - tap]:
+// the launch then computes that conv's input gradient. Input channels at or
+// past `split` come from in2 (rows ldi2 apart) when in2 is set. bias may be
+// null. Each block computes TR rows of one sequence and TN output channels:
+// the input rows (with the halo) and the weights stream through shared
+// memory KC input channels at a time; each of the 256 threads accumulates
+// RM = TR / 8 rows by RN = TN / 32 channels in registers (rows broadcast,
+// channels 32 apart, so shared-memory reads are conflict-free). The tile of
+// z then goes through shared memory to the epilogue:
 //   BIAS      out = z
 //   MASK      out = z * valid(t)
-//   RELU_MASK out = max(z, 0) * valid(t)
-//   GATE      channel pairs (p, hidden + p) of one tile: out[p] = tanh(z_p) * sigmoid(z_{H+p})
+//   RELU_MASK out = max(z, 0) * drop * valid(t)
+//   GATE      channel pairs (p, hidden + p) of one tile: zt = z_p * drop, zg = z_{H+p} * drop,
+//             out[p] = tanh(zt) * sigmoid(zg); with xin set, xin[p] = zt and xin[H + p] = zg
 //   RES_SKIP  channels n < n_out - hidden: out[n] = (res[n] + z) * valid(t) (may be in place);
 //             the last hidden channels: skip[n'] = (first ? 0 : skip[n']) + z
-//   LN        z' = z * (mask_acc ? valid(t) : 1) + res * (mask_res ? valid(t) : 1),
+//   LN        z' = z * (mask_acc ? valid(t) : 1) * drop + res * (mask_res ? valid(t) : 1),
 //             then LayerNorm over the row (flax: var = E[z'^2] - E[z']^2, clamped
-//             at 0), times gamma plus beta; needs TN == n_out
-// valid(t) = t < lens[b]. The kernel template carries a tag type so each
-// translation unit that includes this header has kernels of its own names.
+//             at 0), times gamma plus beta; zhat (rows ldz apart) and rinv [B*T]
+//             get the normalised row and 1/std when set; needs TN == n_out
+//   GATE_BWD z is the gate output's cotangent for channel p < hidden; with zt, zg
+//             read from xin: out[p] = z * sigmoid(zg) * (1 - tanh(zt)^2) * drop,
+//             out[hidden + p] = z * tanh(zt) * sigmoid(zg) * (1 - sigmoid(zg)) * drop
+//   LN_BWD    dx = z * (mask_acc ? valid(t) : 1) + res * (mask_res ? valid(t) : 1) is a
+//             LayerNorm output's cotangent; with zhat and rinv of its forward:
+//             out = rinv * (dy - mean(dy) - zhat * mean(dy * zhat)), dy = dx * gamma;
+//             out2 = dx and out3 = out * drop * valid(t) when set; needs TN == n_out
+//   DRELU     out = res > 0 ? z * (dropout ? keep_scale : 1) : 0 (res: the relu's
+//             output after dropout and the mask)
+// valid(t) = t < lens[b]. drop is 1 without dropout (threshold 0), else the
+// factor of (row t, output column n): hash_draw(stream_key(seed, b *
+// stream_mul + stream_add), t * drop_ld + n) >= threshold ? keep_scale : 0
+// (hash.cuh; the plain versions draw the same bits). The kernel template
+// carries a tag type so each translation unit that includes this header has
+// kernels of its own names.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hash.cuh"
 
 namespace conv_rows {
 
-enum Epilogue : int { BIAS = 0, MASK = 1, RELU_MASK = 2, GATE = 3, RES_SKIP = 4, LN = 5 };
+enum Epilogue : int { BIAS = 0, MASK = 1, RELU_MASK = 2, GATE = 3, RES_SKIP = 4, LN = 5, GATE_BWD = 6,
+                      LN_BWD = 7, DRELU = 8 };
 
 constexpr int NT = 256;  // threads per block: 32 channel groups x 8 row groups
 constexpr int KC = 16;   // input channels per shared-memory stage
@@ -39,19 +61,33 @@ constexpr int KC = 16;   // input channels per shared-memory stage
 struct Args {
   const float* in;
   int ldi, cin, mask_in;
-  const float* w;     // [n_out, cin, taps]
-  const float* bias;  // [n_out]
+  const float* in2;   // channels >= split (when set)
+  int ldi2, split;
+  const float* w;     // [n_out, cin, taps], or with wt [cin, n_out, taps]
+  int wt;
+  const float* bias;  // [n_out] or null
   int n_out, dil;
   float* out;
   int ldo;
-  const float* res;   // RES_SKIP: the residual stream (read), LN: the residual
+  const float* res;   // RES_SKIP: the residual stream (read), LN/LN_BWD: the residual, DRELU: the relu output
   int ldr, mask_res, mask_acc;
   float* skip;        // RES_SKIP: the skip sum
   int lds, first;
   const float* gamma;
   const float* beta;
   float eps;
-  int hidden;         // GATE, RES_SKIP
+  int hidden;         // GATE, GATE_BWD, RES_SKIP
+  float* xin;         // GATE: post-dropout z (written when set); GATE_BWD: read
+  int ldx;
+  float* zhat;        // LN: written when set; LN_BWD: read
+  float* rinv;
+  int ldz;
+  float* out2;        // LN_BWD
+  float* out3;
+  const long long* seed;  // dropout: threshold 0 means none
+  unsigned threshold;
+  float keep_scale;
+  int stream_mul, stream_add, drop_ld;
   const int* lens;
   int T;
 };
@@ -75,6 +111,12 @@ __device__ __forceinline__ bool out_column(const Args& a, int j, int* col) {
   return *col < a.n_out;
 }
 
+// the dropout factor of (row t, output column col) under `key`
+__device__ __forceinline__ float drop_factor(const Args& a, uint32_t key, int t, int col) {
+  if (!a.threshold) return 1.0f;
+  return hash_draw(key, (uint32_t)t * (uint32_t)a.drop_ld + (uint32_t)col) >= a.threshold ? a.keep_scale : 0.0f;
+}
+
 template <class Tag, int TAPS, int TR, int TN, int EPI>
 __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
   constexpr int RM = TR / 8, RN = TN / 32;
@@ -89,6 +131,8 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
   const int b = blockIdx.z, r0 = blockIdx.x * TR;
   const int len = a.lens[b];
   const size_t row0 = (size_t)b * a.T;
+  const uint32_t key =
+      a.threshold ? stream_key((uint32_t)a.seed[0], (uint32_t)(b * a.stream_mul + a.stream_add)) : 0u;
 
   float acc[RM][RN];
 #pragma unroll
@@ -100,14 +144,17 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
     for (int e = tid; e < xrows * KC; e += NT) {
       const int rr = e / KC, c = e % KC, t = r0 - pad + rr, ch = c0 + c;
       float x = 0.0f;
-      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len)) x = a.in[(row0 + t) * a.ldi + ch];
+      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len))
+        x = (a.in2 && ch >= a.split) ? a.in2[(row0 + t) * a.ldi2 + (ch - a.split)] : a.in[(row0 + t) * a.ldi + ch];
       xs[rr * KC + c] = x;
     }
     for (int e = tid; e < TN * KC * TAPS; e += NT) {
-      const int j = e / (KC * TAPS), kk = e % (KC * TAPS), ch = c0 + kk / TAPS;
+      const int j = e / (KC * TAPS), kk = e % (KC * TAPS), ch = c0 + kk / TAPS, tap = kk % TAPS;
       int col;
       float wv = 0.0f;
-      if (out_column<TN, EPI>(a, j, &col) && ch < a.cin) wv = a.w[((size_t)col * a.cin + ch) * TAPS + kk % TAPS];
+      if (out_column<TN, EPI>(a, j, &col) && ch < a.cin)
+        wv = a.wt ? a.w[((size_t)ch * a.n_out + col) * TAPS + (TAPS - 1 - tap)]
+                  : a.w[((size_t)col * a.cin + ch) * TAPS + tap];
       ws[kk * (TN + 1) + j] = wv;
     }
     __syncthreads();
@@ -131,36 +178,67 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
   for (int q = 0; q < RN; ++q) {
     int col;
     const int j = tx + 32 * q;
-    const float bv = out_column<TN, EPI>(a, j, &col) ? a.bias[col] : 0.0f;
+    const float bv = (a.bias && out_column<TN, EPI>(a, j, &col)) ? a.bias[col] : 0.0f;
 #pragma unroll
     for (int r = 0; r < RM; ++r) zs[(ty * RM + r) * (TN + 1) + j] = acc[r][q] + bv;
   }
   __syncthreads();
 
-  if (EPI == LN) {
+  if (EPI == LN || EPI == LN_BWD) {
     // one warp per row; TN == n_out
     for (int rl = ty; rl < TR; rl += NT / 32) {
       const int t = r0 + rl;
       if (t >= a.T) continue;
+      const size_t row = row0 + t;
       const float valid = t < len ? 1.0f : 0.0f;
       const float za = a.mask_acc ? valid : 1.0f, zr = a.mask_res ? valid : 1.0f;
-      const float* res = a.res + (row0 + t) * a.ldr;
-      float s = 0.0f, sq = 0.0f;
-      for (int j = tx; j < TN; j += 32) {
-        const float z = zs[rl * (TN + 1) + j] * za + res[j] * zr;
-        zs[rl * (TN + 1) + j] = z;
-        s += z;
-        sq += z * z;
-      }
+      const float* res = a.res + row * a.ldr;
+      float* z = zs + rl * (TN + 1);
+      if (EPI == LN) {
+        float s = 0.0f, sq = 0.0f;
+        for (int j = tx; j < TN; j += 32) {
+          const float v = z[j] * za * drop_factor(a, key, t, j) + res[j] * zr;
+          z[j] = v;
+          s += v;
+          sq += v * v;
+        }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+        for (int o = 16; o > 0; o >>= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+          sq += __shfl_xor_sync(0xffffffffu, sq, o);
+        }
+        const float mean = s / TN;
+        const float inv = rsqrtf(fmaxf(sq / TN - mean * mean, 0.0f) + a.eps);
+        if (a.rinv && tx == 0) a.rinv[row] = inv;
+        float* out = a.out + row * a.ldo;
+        for (int j = tx; j < TN; j += 32) {
+          const float zh = (z[j] - mean) * inv;
+          if (a.zhat) a.zhat[row * a.ldz + j] = zh;
+          out[j] = zh * a.gamma[j] + a.beta[j];
+        }
+      } else {
+        const float* zh = a.zhat + row * a.ldz;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int j = tx; j < TN; j += 32) {
+          const float dx = z[j] * za + res[j] * zr;
+          if (a.out2) a.out2[row * a.ldo + j] = dx;
+          const float dy = dx * a.gamma[j];
+          z[j] = dy;
+          s1 += dy;
+          s2 += dy * zh[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+        }
+        const float m1 = s1 / TN, m2 = s2 / TN, inv = a.rinv[row];
+        for (int j = tx; j < TN; j += 32) {
+          const float dz = inv * (z[j] - m1 - zh[j] * m2);
+          a.out[row * a.ldo + j] = dz;
+          if (a.out3) a.out3[row * a.ldo + j] = dz * drop_factor(a, key, t, j) * valid;
+        }
       }
-      const float mean = s / TN;
-      const float inv = rsqrtf(fmaxf(sq / TN - mean * mean, 0.0f) + a.eps);
-      float* out = a.out + (row0 + t) * a.ldo;
-      for (int j = tx; j < TN; j += 32) out[j] = (zs[rl * (TN + 1) + j] - mean) * inv * a.gamma[j] + a.beta[j];
     }
     return;
   }
@@ -169,7 +247,12 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
     for (int e = tid; e < TR * half; e += NT) {
       const int rl = e / half, j = e % half, t = r0 + rl, p = blockIdx.y * half + j;
       if (t >= a.T || p >= a.hidden) continue;
-      const float zt = zs[rl * (TN + 1) + j], zg = zs[rl * (TN + 1) + half + j];
+      const float zt = zs[rl * (TN + 1) + j] * drop_factor(a, key, t, p);
+      const float zg = zs[rl * (TN + 1) + half + j] * drop_factor(a, key, t, a.hidden + p);
+      if (a.xin) {
+        a.xin[(row0 + t) * a.ldx + p] = zt;
+        a.xin[(row0 + t) * a.ldx + a.hidden + p] = zg;
+      }
       a.out[(row0 + t) * a.ldo + p] = tanhf(zt) * (1.0f / (1.0f + expf(-zg)));
     }
     return;
@@ -178,21 +261,29 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
     const int rl = e / TN, j = e % TN, t = r0 + rl;
     int col;
     if (t >= a.T || !out_column<TN, EPI>(a, j, &col)) continue;
+    const size_t row = row0 + t;
     const float valid = t < len ? 1.0f : 0.0f;
     const float z = zs[rl * (TN + 1) + j];
     if (EPI == RES_SKIP) {
       const int n_res = a.n_out - a.hidden;
       if (col < n_res) {
-        a.out[(row0 + t) * a.ldo + col] = (a.res[(row0 + t) * a.ldr + col] + z) * valid;
+        a.out[row * a.ldo + col] = (a.res[row * a.ldr + col] + z) * valid;
       } else {
-        float* s = a.skip + (row0 + t) * a.lds + (col - n_res);
+        float* s = a.skip + row * a.lds + (col - n_res);
         *s = a.first ? z : *s + z;
       }
+    } else if (EPI == GATE_BWD) {
+      const float zt = a.xin[row * a.ldx + col], zg = a.xin[row * a.ldx + a.hidden + col];
+      const float th = tanhf(zt), sg = 1.0f / (1.0f + expf(-zg));
+      a.out[row * a.ldo + col] = z * sg * (1.0f - th * th) * drop_factor(a, key, t, col);
+      a.out[row * a.ldo + a.hidden + col] = z * th * sg * (1.0f - sg) * drop_factor(a, key, t, a.hidden + col);
+    } else if (EPI == DRELU) {
+      a.out[row * a.ldo + col] = a.res[row * a.ldr + col] > 0.0f ? z * (a.threshold ? a.keep_scale : 1.0f) : 0.0f;
     } else {
       float v = z;
       if (EPI == MASK) v = z * valid;
-      if (EPI == RELU_MASK) v = fmaxf(z, 0.0f) * valid;
-      a.out[(row0 + t) * a.ldo + col] = v;
+      if (EPI == RELU_MASK) v = fmaxf(z, 0.0f) * drop_factor(a, key, t, col) * valid;
+      a.out[row * a.ldo + col] = v;
     }
   }
 }
@@ -206,7 +297,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   int tiles;
   if (EPI == GATE) tiles = (a.hidden + TN / 2 - 1) / (TN / 2);
-  else if (EPI == LN) tiles = 1;
+  else if (EPI == LN || EPI == LN_BWD) tiles = 1;
   else tiles = (a.n_out + TN - 1) / TN;
   const dim3 grid((a.T + TR - 1) / TR, tiles, B);
   kernel<<<grid, NT, smem, stream>>>(a);

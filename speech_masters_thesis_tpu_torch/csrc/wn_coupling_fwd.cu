@@ -1,16 +1,16 @@
 // The Glow-TTS coupling conditioner (WaveNet with weight norm) forward for
-// Hopper (sm_90a), fp32.
+// Hopper (sm_90a), fp32, with dropout.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // fused_wn_coupling -> pallas_call(_fwd_kernel) (body _forward_body). The
-// recompute backward (its _vjp_bwd) is not ported yet. Plain version:
+// recompute backward (its _vjp_bwd) is wn_coupling_bwd.cu. Plain version:
 // ops/wn_coupling.py:wn_coupling_reference.
 //
 // What it computes for x0 [B, T, half] (rows ldx floats apart: the first
 // half of the coupling input) and the post-weight-norm weights:
 //   h    = (x0 W_s + b_s) * valid                                start 1x1
 //   for each layer i (dilation rate^i):
-//     z    = conv_k(h, W_in_i, dil) + b_in_i                     [T, 2H]
+//     z    = (conv_k(h, W_in_i, dil) + b_in_i) * keep_i          [T, 2H]
 //     acts = tanh(z[:, :H]) * sigmoid(z[:, H:])
 //     rs   = acts W_rs_i + b_rs_i
 //     h    = (h + rs[:, :H]) * valid, skip += rs[:, H:]          (i < L - 1)
@@ -18,7 +18,8 @@
 //   out  = (skip * valid) W_end + b_end                          [T, c_out]
 // with valid = t < lens[b]: the start output, each residual and the skip
 // sum are masked where the JAX kernel masks them (wn_coupling.py:137-160,
-// :178).
+// :178). keep_i is 1 without dropout (threshold 0), else the hash mask of
+// wn_coupling_common.cuh, scaled by 1/(1-p).
 //
 // What bounds it on an H100: operations. At Glow-TTS's width (half 80,
 // H 192, k 5, 4 layers, c_out 160) a squeezed frame costs about 3.56 MFLOP
@@ -31,59 +32,40 @@
 // so the time axis spreads over the card and a halo is only the conv's own
 // (k - 1) / 2 * dil rows, read again by the neighbouring tile. The dilated
 // conv's launch computes the channel pairs (c, H + c) in one tile and
-// applies the gate in its epilogue; the res/skip launch updates h in place
-// and accumulates the skip sum. The dilated-conv weight ([2H, H, k] fp32,
-// 1.47 MB) streams through shared memory 16 input channels at a time. One
-// conditioner call is 2 + 2 * n_layers launches (10 at 4 layers); h, acts
-// and skip ([B, T, H] each) go through device memory between them.
+// applies the dropout and the gate in its epilogue; the res/skip launch
+// updates h in place and accumulates the skip sum. The dilated-conv weight
+// ([2H, H, k] fp32, 1.47 MB) streams through shared memory 16 input channels
+// at a time. One conditioner call is 2 + 2 * n_layers launches (10 at 4
+// layers); h, acts and skip ([B, T, H] each) go through device memory
+// between them.
 
 #include <cuda_runtime.h>
 
-#include "conv_rows.cuh"
+#include "wn_coupling_common.cuh"
 
 namespace {
-struct WnTag {};
+struct WnFwdTag {};
 }  // namespace
 
-extern "C" int wn_coupling_fwd(const float* x0, int ldx, const int* lens, const float* ws,
-                               const float* bs, const float* const* win, const float* const* bin,
-                               const float* const* wrs, const float* const* brs, const float* wend,
-                               const float* bend, float* out, float* h, float* acts, float* skip,
-                               int B, int T, int half, int H, int c_out, int n_layers,
-                               int kernel_size, int dilation_rate, void* stream) {
+extern "C" int wn_coupling_fwd(const float* x0, int ldx, const int* lens, const long long* seed,
+                               const float* ws, const float* bs, const float* const* win,
+                               const float* const* bin, const float* const* wrs,
+                               const float* const* brs, const float* wend, const float* bend,
+                               float* out, float* h, float* acts, float* skip, int B, int T, int half,
+                               int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
+                               unsigned threshold, float keep_scale, void* stream) {
   using namespace conv_rows;
-  if (B < 1 || T < 1 || n_layers < 1 || (kernel_size != 1 && kernel_size != 3 && kernel_size != 5))
-    return (int)cudaErrorInvalidValue;
+  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
+  if (!wn_coupling::valid_shape(sh)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{};
-  a.lens = lens;
-  a.T = T;
-  a.hidden = H;
-  a.dil = 1;
-
-  a.in = x0; a.ldi = ldx; a.cin = half; a.mask_in = 0;
-  a.w = ws; a.bias = bs; a.n_out = H; a.out = h; a.ldo = H;
-  cudaError_t err = launch<WnTag, 1, 32, 64, MASK>(a, B, s);
+  const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs};
+  cudaError_t err = wn_coupling::forward_chain<WnFwdTag>(x0, ldx, lens, w, sh, {seed, threshold, keep_scale},
+                                                         h, 0, acts, 0, nullptr, 0, skip, s);
   if (err != cudaSuccess) return (int)err;
 
-  int dil = 1;
-  for (int i = 0; i < n_layers; ++i, dil *= dilation_rate) {
-    Args g = a;
-    g.in = h; g.ldi = H; g.cin = H; g.mask_in = 1;
-    g.w = win[i]; g.bias = bin[i]; g.n_out = 2 * H; g.dil = dil; g.out = acts; g.ldo = H;
-    err = launch_taps<WnTag, 32, 64, GATE>(kernel_size, g, B, s);
-    if (err != cudaSuccess) return (int)err;
-
-    Args r = a;
-    r.in = acts; r.ldi = H; r.cin = H; r.mask_in = 0;
-    r.w = wrs[i]; r.bias = brs[i]; r.n_out = i < n_layers - 1 ? 2 * H : H;
-    r.out = h; r.ldo = H; r.res = h; r.ldr = H; r.skip = skip; r.lds = H; r.first = i == 0;
-    err = launch<WnTag, 1, 32, 64, RES_SKIP>(r, B, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  Args e = a;
+  Args e{};
+  e.lens = lens; e.T = T; e.dil = 1;
   e.in = skip; e.ldi = H; e.cin = H; e.mask_in = 1;
   e.w = wend; e.bias = bend; e.n_out = c_out; e.out = out; e.ldo = c_out;
-  return (int)launch<WnTag, 1, 32, 64, BIAS>(e, B, s);
+  return (int)launch<WnFwdTag, 1, 32, 64, BIAS>(e, B, s);
 }

@@ -4,18 +4,22 @@ windowed relative self-attention, the conv FFN and the duration predictor
 
 Activations are [B, T, C]; parameters keep the reference checkpoint's names
 and PyTorch's Conv1d layout, so ``state_dict`` keys are those of
-``tools/import_torch_checkpoint.py:export_glow_tts``. Eval only: dropout
-waits for the training slice (the model raises on a train-mode call with
-dropout). The attention and FFN modules hold the weights of an encoder
-layer; the layer itself runs as one call of ``ops/enc_layer.py`` (the fused
-kernel or its plain version), which also holds the math used here.
+``tools/import_torch_checkpoint.py:export_glow_tts``. The attention and
+FFN modules hold the weights of an encoder layer; the layer itself runs as
+one call of ``ops/enc_layer.py`` (the fused kernel or its plain version),
+which also holds the math used here and the layer's own dropout sites. The
+prenet's and the duration predictor's dropout masks are drawn on the
+activations' device from a ``torch.Generator`` (no host sync).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch.ops.basic import dropout
 from speech_masters_thesis_tpu_torch.ops.enc_layer import conv1d_ntc, layer_norm
 
 
@@ -33,8 +37,11 @@ class ChannelLayerNorm(nn.Module):
 
 
 class ConvReluNorm(nn.Module):
-    """Prenet: n x (conv -> LayerNorm -> relu), then x + proj(...), masked;
-    ``proj`` starts at zero."""
+    """Prenet: n x (conv -> LayerNorm -> relu -> dropout), then x + proj(...),
+    masked; ``proj`` starts at zero. Its dropout is ``P_DROPOUT`` in train
+    mode, whatever the encoder's (the JAX encoder fixes it)."""
+
+    P_DROPOUT = 0.1
 
     def __init__(self, hidden_channels: int, out_channels: int, kernel_size: int, n_layers: int):
         super().__init__()
@@ -46,10 +53,13 @@ class ConvReluNorm(nn.Module):
         self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
         self.proj.zero_init = True
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:  # pylint: disable=arguments-differ
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:  # pylint: disable=arguments-differ
         x_org = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             x = torch.relu(norm(conv1d_ntc(x * mask, conv.weight, conv.bias)))
+            if train and self.P_DROPOUT > 0:
+                x = dropout(x, self.P_DROPOUT, generator)
         return (x_org + conv1d_ntc(x, self.proj.weight, self.proj.bias)) * mask
 
 
@@ -86,7 +96,8 @@ class FeedForwardNetwork(nn.Module):
 
 
 class DurationPredictor(nn.Module):
-    """Per-token log-durations: 2 x (conv -> relu -> LayerNorm), then a 1x1 to one channel."""
+    """Per-token log-durations: 2 x (conv -> relu -> LayerNorm -> dropout),
+    then a 1x1 to one channel."""
 
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int):
         super().__init__()
@@ -96,8 +107,13 @@ class DurationPredictor(nn.Module):
         self.norm_2 = ChannelLayerNorm(filter_channels)
         self.proj = nn.Conv1d(filter_channels, 1, 1)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:  # pylint: disable=arguments-differ
-        """x [B, T, C], mask [B, T, 1] -> [B, T]."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, p_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:  # pylint: disable=arguments-differ
+        """x [B, T, C], mask [B, T, 1] -> [B, T]; dropout ``p_drop`` (train mode)."""
         h = self.norm_1(torch.relu(conv1d_ntc(x * mask, self.conv_1.weight, self.conv_1.bias)))
+        if p_drop > 0.0:
+            h = dropout(h, p_drop, generator)
         h = self.norm_2(torch.relu(conv1d_ntc(h * mask, self.conv_2.weight, self.conv_2.bias)))
+        if p_drop > 0.0:
+            h = dropout(h, p_drop, generator)
         return (conv1d_ntc(h * mask, self.proj.weight, self.proj.bias) * mask)[..., 0]

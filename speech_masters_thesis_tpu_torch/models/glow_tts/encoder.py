@@ -11,6 +11,12 @@ Routes, as the JAX package chooses them:
     ``ops.wn_coupling.wn_coupling`` (kernel B3) when ``fused`` and the
     squeezed T <= 768; the whole-flow-step kernel (B6, ``fused_flow_step``)
     is not ported and raises.
+
+In train mode every route drops with the model's rates: each encoder layer
+and each coupling call draws one dropout seed on the card from the
+``generator`` it is given (encoder.py:217-223), and the prenet's and the
+duration predictor's masks come from the same generator. Both routes of a
+layer draw the same masks for the same seed.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from speech_masters_thesis_tpu_torch.models.glow_tts.flows import (
     squeeze,
     unsqueeze,
 )
-from speech_masters_thesis_tpu_torch.ops.basic import pointwise, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.basic import draw_seed, pointwise, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.enc_layer import EncLayerWeights, enc_layer, enc_layer_reference
 
 
@@ -46,11 +52,12 @@ class TextEncoder(nn.Module):
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int, filter_channels: int,
                  filter_channels_dp: int, n_heads: int, n_layers: int, kernel_size: int,
                  window_size: Optional[int], mean_only: bool = False, prenet: bool = False,
-                 gin_channels: int = 0, fused: bool = False, fused_max_t: int = 512):
+                 gin_channels: int = 0, fused: bool = False, fused_max_t: int = 512, p_dropout: float = 0.0):
         super().__init__()
         if gin_channels:
             raise NotImplementedError("TextEncoder: speaker conditioning is not ported")
         self.hidden_channels = hidden_channels
+        self.p_dropout = p_dropout
         self.n_heads = n_heads
         self.window_size = window_size
         self.mean_only = mean_only
@@ -69,6 +76,8 @@ class TextEncoder(nn.Module):
         self.proj_m = nn.Conv1d(hidden_channels, out_channels, 1)
         self.proj_s = None if mean_only else nn.Conv1d(hidden_channels, out_channels, 1)
         self.proj_w = DurationPredictor(hidden_channels, filter_channels_dp, kernel_size)
+        # the seed of a layer call without dropout (the kernels do not read it): no draw, no launch
+        self.register_buffer("zero_seed", torch.zeros(1, dtype=torch.int64), persistent=False)
 
     def layer_weights(self, i: int) -> EncLayerWeights:
         """Layer i's weights as the fused layer takes them."""
@@ -81,23 +90,25 @@ class TextEncoder(nn.Module):
             w1=ffn.conv_1.weight, b1=ffn.conv_1.bias, w2=ffn.conv_2.weight, b2=ffn.conv_2.bias,
             g2=n2.gamma, be2=n2.beta, n_heads=self.n_heads, window=self.window_size, eps=n1.eps)
 
-    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor):  # pylint: disable=arguments-differ
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):  # pylint: disable=arguments-differ
         """text [B, T] ids -> (x_m, x_logs [B, T, out], logw [B, T], x_mask [B, T, 1])."""
         x = self.emb(text) * math.sqrt(self.hidden_channels)
         x_mask = sequence_mask(text_lengths, x.shape[1])[..., None]
         if self.pre is not None:
-            x = self.pre(x, x_mask)
+            x = self.pre(x, x_mask, train, generator)
         layer = enc_layer if self.fused and x.shape[1] <= self.fused_max_t else enc_layer_reference
         lens = text_lengths.to(torch.int32)
+        p = self.p_dropout if train else 0.0
         for i in range(len(self.attn_layers)):
-            x = layer(x, lens, self.layer_weights(i))
+            x = layer(x, lens, self.layer_weights(i), draw_seed(generator, x.device) if p > 0 else self.zero_seed, p)
         x = x * x_mask
         x_m = pointwise(x, self.proj_m.weight, self.proj_m.bias) * x_mask
         if self.mean_only:
             x_logs = torch.zeros_like(x_m)
         else:
             x_logs = pointwise(x, self.proj_s.weight, self.proj_s.bias) * x_mask
-        logw = self.proj_w(x.detach(), x_mask)
+        logw = self.proj_w(x.detach(), x_mask, p, generator)
         return x_m, x_logs, logw, x_mask
 
 
@@ -108,7 +119,7 @@ class FlowSpecDecoder(nn.Module):
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int,
                  n_blocks: int, n_layers: int, n_split: int = 4, n_sqz: int = 2,
                  sigmoid_scale: bool = False, gin_channels: int = 0, fused: bool = False,
-                 fused_flow_step: bool = True):
+                 fused_flow_step: bool = True, p_dropout: float = 0.0):
         super().__init__()
         if gin_channels:
             raise NotImplementedError("FlowSpecDecoder: speaker conditioning is not ported")
@@ -122,19 +133,21 @@ class FlowSpecDecoder(nn.Module):
             flows.append(ActNorm(channels))
             flows.append(InvConvNear(channels, n_split))
             flows.append(CouplingBlock(channels, hidden_channels, kernel_size, dilation_rate, n_layers,
-                                       sigmoid_scale=sigmoid_scale, fused=fused))
+                                       sigmoid_scale=sigmoid_scale, fused=fused, p_dropout=p_dropout))
         self.flows = nn.ModuleList(flows)
 
-    def forward(self, spect: torch.Tensor, spect_mask: torch.Tensor,
-                reverse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:  # pylint: disable=arguments-differ
-        """spect [B, T, C], spect_mask [B, T, 1] -> (x [B, T, C], logdet [B] or None)."""
+    def forward(self, spect: torch.Tensor, spect_mask: torch.Tensor, reverse: bool = False, ddi: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:  # pylint: disable=arguments-differ
+        """spect [B, T, C], spect_mask [B, T, 1] -> (x [B, T, C], logdet [B] or None);
+        ``ddi`` initialises each ActNorm from the batch on the way."""
         x, x_mask = spect, spect_mask
         if self.n_sqz > 1:
             x, x_mask = squeeze(x, x_mask, self.n_sqz)
         lens = mask_lengths(x_mask)
         logdet_tot = None if reverse else 0.0
         for flow in (reversed(self.flows) if reverse else self.flows):
-            x, logdet = flow(x, x_mask, lens, reverse=reverse)
+            x, logdet = flow(x, x_mask, lens, reverse=reverse, ddi=ddi, train=train, generator=generator)
             if not reverse:
                 logdet_tot = logdet_tot + logdet
         if self.n_sqz > 1:

@@ -2,7 +2,9 @@
 speech_masters_thesis_tpu/models/glow_tts/flows.py).
 
 Activations are [B, T, C], masks [B, T, 1], lengths [B] int32. Every layer
-maps (x, mask, lens, reverse) -> (z, logdet), logdet None in reverse.
+maps (x, mask, lens, reverse, ddi, train, generator) -> (z, logdet), logdet
+None in reverse; each uses the keywords it needs (ActNorm ``ddi``, the
+coupling block ``train`` and ``generator``).
 Parameters keep the reference checkpoint's names and layouts (ActNorm
 ``logs``/``bias`` [1, C, 1]; weight norm as ``weight_v`` [out, in, k] and
 ``weight_g`` [out, 1, 1]).
@@ -10,16 +12,18 @@ Parameters keep the reference checkpoint's names and layouts (ActNorm
 The flow cache (``build_flow_cache``): for inference, each ``WNConv1d``
 folds its weight norm once and each ``InvConvNear`` stores its inverse
 once, as non-persistent buffers that later calls read. ``clear_flow_cache``
-drops them (the cached values do not follow parameter updates).
+drops them (the cached values do not follow parameter updates); a
+train-mode coupling call with the cache built raises.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch.ops.basic import draw_seed
 from speech_masters_thesis_tpu_torch.ops.enc_layer import conv1d_ntc
 from speech_masters_thesis_tpu_torch.ops.wn_coupling import WNWeights, wn_coupling, wn_coupling_reference
 
@@ -50,14 +54,27 @@ class WNConv1d(nn.Module):
 
 class ActNorm(nn.Module):
     """Per-channel affine (``logs``, ``bias``); logdet sum(logs) * length.
-    Data-dependent init waits for the training slice."""
+    With ``ddi`` (data-dependent init) it first sets its parameters from its
+    input's masked per-channel mean and variance, so that its output has
+    mean 0 and variance 1 at valid frames, and applies them in the same pass:
+    the layers after it see initialised ones (flows.py:90-107 of the JAX
+    package)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.logs = nn.Parameter(torch.zeros(1, channels, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1))
 
-    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+    def forward(self, x, mask, lens, reverse: bool = False, ddi: bool = False,
+                **_) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:  # pylint: disable=arguments-differ
+        if ddi:
+            with torch.no_grad():
+                denom = torch.clamp(mask.sum(dim=(0, 1)), min=1.0)
+                mean = (x * mask).sum(dim=(0, 1)) / denom
+                var = (x * x * mask).sum(dim=(0, 1)) / denom - mean * mean
+                logs = -0.5 * torch.log(torch.clamp(var, min=1e-6))
+                self.logs.copy_(logs.view_as(self.logs))
+                self.bias.copy_((-mean * torch.exp(logs)).view_as(self.bias))
         logs, bias = self.logs.view(-1), self.bias.view(-1)
         if reverse:
             return (x - bias) * torch.exp(-logs) * mask, None
@@ -91,7 +108,7 @@ class InvConvNear(nn.Module):
     def inverse(self) -> torch.Tensor:
         return self.weight_inv if self.weight_inv is not None else torch.linalg.inv(self.weight)
 
-    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+    def forward(self, x, mask, lens, reverse: bool = False, **_):  # pylint: disable=arguments-differ
         s = self.n_split
         if reverse:
             w, logdet = self.inverse(), None
@@ -124,12 +141,17 @@ class CouplingBlock(nn.Module):
     first. The conditioner goes through the kernel wrapper
     ``ops.wn_coupling.wn_coupling`` when ``fused`` and T <= ``fused_max_t``
     (the JAX package's routing, flows.py:349), else through the plain
-    version."""
+    version; in train mode both drop the conditioner's conv outputs with
+    ``p_dropout``, under one seed per call drawn from ``generator`` on the
+    activations' device (the JAX package draws one per call too,
+    flows.py:451)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 n_layers: int, sigmoid_scale: bool = False, fused: bool = False, fused_max_t: int = 768):
+                 n_layers: int, sigmoid_scale: bool = False, fused: bool = False, fused_max_t: int = 768,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.in_channels = in_channels
+        self.p_dropout = p_dropout
         self.sigmoid_scale = sigmoid_scale
         self.fused = fused
         self.fused_max_t = fused_max_t
@@ -137,6 +159,8 @@ class CouplingBlock(nn.Module):
         self.wn = WN(hidden_channels, kernel_size, dilation_rate, n_layers)
         self.end = nn.Conv1d(hidden_channels, in_channels, 1)
         self.end.zero_init = True
+        # the seed of a call without dropout (the kernels do not read it): no draw, no launch
+        self.register_buffer("zero_seed", torch.zeros(1, dtype=torch.int64), persistent=False)
 
     def conditioner_weights(self) -> WNWeights:
         return WNWeights(
@@ -144,13 +168,19 @@ class CouplingBlock(nn.Module):
             win=tuple(m.weight() for m in self.wn.in_layers), bin=tuple(m.bias for m in self.wn.in_layers),
             wrs=tuple(m.weight() for m in self.wn.res_skip_layers),
             brs=tuple(m.bias for m in self.wn.res_skip_layers),
-            wend=self.end.weight, bend=self.end.bias, dilations=self.wn.dilations)
+            wend=self.end.weight, bend=self.end.bias, dilations=self.wn.dilations,
+            cached=self.start.folded_weight is not None)
 
-    def forward(self, x, mask, lens, reverse: bool = False):  # pylint: disable=arguments-differ
+    def forward(self, x, mask, lens, reverse: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None, **_):  # pylint: disable=arguments-differ
         half = self.in_channels // 2
         x_0, x_1 = x[..., :half], x[..., half:]
+        w = self.conditioner_weights()
+        if train and w.cached:
+            raise RuntimeError("CouplingBlock: the flow cache is for inference; clear_flow_cache before training")
+        p = self.p_dropout if train else 0.0
         conditioner = wn_coupling if self.fused and x.shape[1] <= self.fused_max_t else wn_coupling_reference
-        out = conditioner(x_0, lens, self.conditioner_weights())
+        out = conditioner(x_0, lens, w, draw_seed(generator, x.device) if p > 0 else self.zero_seed, p)
         m, logs = out[..., :half], out[..., half:]
         if self.sigmoid_scale:
             logs = torch.log(1e-6 + torch.sigmoid(logs + 2))

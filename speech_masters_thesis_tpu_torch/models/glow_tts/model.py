@@ -1,18 +1,20 @@
 """Glow-TTS: text -> mel normalizing flow with monotonic alignment search
 (counterpart of speech_masters_thesis_tpu/models/glow_tts/model.py).
 
-``forward`` is the eval path of the JAX ``__call__`` (model.py:129-183):
-mel -> latent through the forward flow, the MAS log-prior table, MAS on the
-model's device, the MLE and duration losses, and ``yh``, the mel that the
-reverse flow makes from a draw of the aligned prior. ``infer`` is
-``model.py:185-213``: tokens -> durations -> ``generate_path`` -> the reverse
-flow. Mels are [B, frames, n_mels]. The normal draws come from ``noise``
-when given (a test hands in JAX's own draw), else from ``generator`` (on
-the model's device; seed 0 when None, as the JAX model falls back to
-PRNGKey(0)).
-
-Training (dropout, DDI, the backward kernels) is the next slice: a
-train-mode call with dropout raises. Speaker conditioning is not ported.
+``forward`` is the JAX ``__call__`` (model.py:129-183): mel -> latent
+through the forward flow, the MAS log-prior table, MAS on the model's
+device, the MLE and duration losses and, in eval mode, ``yh``, the mel that
+the reverse flow makes from a draw of the aligned prior. In train mode every
+dropout site of the JAX model drops, with masks and kernel seeds drawn on the
+card from ``generators["device_dropout"]``, and the encoder-layer and
+coupling kernels differentiate through their recompute backwards.
+``ddi_init`` is the data-dependent ActNorm init (model.py:88-127): one
+train-mode pass over a real batch that sets every ActNorm from its input.
+``infer`` is ``model.py:185-213``: tokens -> durations -> ``generate_path``
+-> the reverse flow. Mels are [B, frames, n_mels]. The normal draws come from
+``noise`` when given (a test hands in JAX's own draw), else from
+``generator`` (on the model's device; seed 0 when None, as the JAX model
+falls back to PRNGKey(0)). Speaker conditioning is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Mapping, Optional
 
 import torch
 
-from speech_masters_thesis_tpu_torch.models.base import TokenToSpectrogramModel
+from speech_masters_thesis_tpu_torch.models.base import TokenToSpectrogramModel, spect_from_audio
 from speech_masters_thesis_tpu_torch.models.glow_tts.encoder import FlowSpecDecoder, TextEncoder
 from speech_masters_thesis_tpu_torch.ops.basic import generate_path, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.mas import mas_log_prior, maximum_path_auto
@@ -50,7 +52,6 @@ class GlowTTS(TokenToSpectrogramModel):
         self.dataset_config = dict(dataset_config)
         self.n_sqz = dec["n_sqz"]
         self.n_mels = dataset_config["n_mels"]
-        self.p_dropout = max(enc["p_dropout"], dec["p_dropout"])
         fused_blocks = model_cfg.get("fused_blocks", False)
         self.encoder = TextEncoder(
             n_vocab=enc["n_vocab"] + int(dataset_config["intersperse_blanks"]),
@@ -66,6 +67,7 @@ class GlowTTS(TokenToSpectrogramModel):
             mean_only=enc["mean_only"],
             prenet=enc["prenet"],
             fused=model_cfg.get("fused_encoder", fused_blocks),
+            p_dropout=enc["p_dropout"],
         )
         self.decoder = FlowSpecDecoder(
             in_channels=self.n_mels,
@@ -79,30 +81,33 @@ class GlowTTS(TokenToSpectrogramModel):
             sigmoid_scale=dec["sigmoid_scale"],
             fused=fused_blocks,
             fused_flow_step=model_cfg.get("fused_flow_step", True),
+            p_dropout=dec["p_dropout"],
         )
 
     def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor, y_lengths: torch.Tensor,
-                speaker=None, train: bool = False, noise: Optional[torch.Tensor] = None,
+                speaker=None, train: bool = False, ddi: bool = False, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, generators=None):  # pylint: disable=arguments-differ
         """x [B, T_x] token ids, y [B, T_y, n_mels] log-mels -> (losses with
-        ``loss_mle``, ``loss_length``, ``loss`` and, in eval mode, ``yh``; {})."""
+        ``loss_mle``, ``loss_length``, ``loss`` and, in eval mode, ``yh``; {}).
+        Train mode needs ``generators["device_dropout"]`` on the model's
+        device; ``ddi`` initialises every ActNorm from this batch."""
         if speaker is not None:
             raise NotImplementedError("GlowTTS: speaker conditioning is not ported")
-        if train and self.p_dropout > 0:
-            raise NotImplementedError("GlowTTS: train-mode dropout comes with the training slice")
-        del generators
-        x_m, x_logs, logw_enc, x_mask = self.encoder(x, x_lengths)
+        drop_gen = (generators or {}).get("device_dropout")
+        if train and drop_gen is None:
+            raise ValueError("GlowTTS in train mode needs generators['device_dropout']")
+        x_m, x_logs, logw_enc, x_mask = self.encoder(x, x_lengths, train=train, generator=drop_gen)
 
         y_max_length = (y.shape[1] // self.n_sqz) * self.n_sqz
         y = y[:, :y_max_length]
         y_lengths = (y_lengths // self.n_sqz) * self.n_sqz
         y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(y.dtype)
-        z_dec, logdet = self.decoder(y, y_mask, reverse=False)
+        z_dec, logdet = self.decoder(y, y_mask, reverse=False, ddi=ddi, train=train, generator=drop_gen)
 
         attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
         with torch.no_grad():
             logp = mas_log_prior(x_m.detach(), x_logs.detach(), z_dec.detach())
-            attn = maximum_path_auto(logp, attn_mask)
+            attn = maximum_path_auto(logp, attn_mask).to(x_m.dtype)
 
         logw_dec = torch.log(1e-8 + attn.sum(dim=-1)) * x_mask[:, :, 0]
         attn_t = attn.transpose(1, 2)
@@ -122,6 +127,22 @@ class GlowTTS(TokenToSpectrogramModel):
         ) / (torch.sum(y_lengths) * z_dec.shape[-1])
         l_length = torch.sum((logw_enc - logw_dec) ** 2) / torch.sum(x_lengths)
         return {"loss_mle": l_mle, "loss_length": l_length, "loss": l_mle + l_length, "yh": yh}, {}
+
+    @torch.no_grad()
+    def ddi_init(self, batch: Mapping[str, torch.Tensor], generators=None) -> None:
+        """Data-dependent init: one train-mode pass over ``batch`` (the mel
+        computed on the model's device when the batch carries audio) that sets
+        every ActNorm's ``logs`` and ``bias`` from its own input, in place.
+        The dropout generator defaults to seed 0 on the model's device, as the
+        JAX package's pass uses PRNGKey(0)."""
+        spect, spect_len = batch.get("spect"), batch.get("spect_len")
+        if spect is None and batch.get("audio") is not None:
+            spect, spect_len = spect_from_audio(self, batch)
+        if generators is None:
+            device = next(self.parameters()).device
+            generators = {"device_dropout": torch.Generator(device=device).manual_seed(0)}
+        self(batch["token"], batch["token_len"], spect, spect_len, speaker=batch.get("speaker"), train=True,
+             ddi=True, generators=generators)
 
     @torch.no_grad()
     def infer(self, x: torch.Tensor, x_lengths: torch.Tensor, generator: Optional[torch.Generator] = None,

@@ -33,8 +33,14 @@ MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 # slices of at least this many frames
 WGRAD_MAX_SPLIT = 64
 WGRAD_ROWS_PER_SPLIT = 1024
+
+
+def wgrad_splits(rows: int) -> int:
+    """Slices of ``rows`` frames a weight-gradient reduction sums apart."""
+    return max(1, min(WGRAD_MAX_SPLIT, -(-rows // WGRAD_ROWS_PER_SPLIT)))
+
 ATTENTION_HEAD_DIM = 32
-# compile-time limits of csrc/enc_layer_fwd.cu
+# compile-time limits of csrc/enc_layer_common.cuh
 ENC_HEAD_DIM = 96
 ENC_MAX_WINDOW = 8
 ENC_CHANNELS = 192  # the LayerNorm epilogue's tile holds a whole row of this width
@@ -122,8 +128,17 @@ def build() -> ctypes.CDLL:
     lib.mas_smem_bytes.argtypes = [i, i]
     lib.mas_smem_bytes.restype = ctypes.c_long
     ptrs = ctypes.POINTER(p)
-    lib.wn_coupling_fwd.argtypes = [p, i, p, p, p] + [ptrs] * 4 + [p] * 6 + [i] * 8 + [p]
+    lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 6 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
-    lib.enc_layer_fwd.argtypes = [p] * 25 + [i] * 7 + [f, p]
+    lib.wn_coupling_bwd.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
+                                    + [p] * 10 + [i] * 8 + [u, f, i, p])
+    lib.wn_coupling_bwd.restype = i
+    lib.wn_coupling_bwd_partial_floats.argtypes = [i] * 9
+    lib.wn_coupling_bwd_partial_floats.restype = ctypes.c_long
+    lib.enc_layer_fwd.argtypes = [p] * 26 + [i] * 7 + [f, u, f, p]
     lib.enc_layer_fwd.restype = i
+    lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, i, p]
+    lib.enc_layer_bwd.restype = i
+    lib.enc_layer_bwd_partial_floats.argtypes = [i] * 8
+    lib.enc_layer_bwd_partial_floats.restype = ctypes.c_long
     return lib

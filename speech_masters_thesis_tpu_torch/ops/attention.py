@@ -29,11 +29,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from speech_masters_thesis_tpu_torch.ops import _build
-from speech_masters_thesis_tpu_torch.ops.hash import draw, stream_key
+from speech_masters_thesis_tpu_torch.ops.hash import draw, keep_scale, keep_threshold, stream_key
 
 NEG_INF = -1e9
 
@@ -41,19 +40,6 @@ NEG_INF = -1e9
 # ---------------------------------------------------------------------------
 # dropout masks: the hash of csrc/attention_common.cuh in int64 torch ops
 # ---------------------------------------------------------------------------
-def keep_threshold(p_drop: float) -> int:
-    """A draw keeps its element when it is >= this u32 (as the TPU kernel's
-    ``int(p * 2**32)``)."""
-    if not 0.0 <= p_drop < 1.0:
-        raise ValueError(f"p_drop must be in [0, 1), got {p_drop}")
-    return int(p_drop * 2 ** 32)
-
-
-def keep_scale(p_drop: float) -> float:
-    """The float32 factor a kept element is multiplied by."""
-    return float(np.float32(1.0 / (1.0 - p_drop)))
-
-
 def dropout_bits(seed, batch: int, n_heads: int, T: int,
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """[batch, n_heads, T, T] int64 holding the u32 draws of every (query,

@@ -53,3 +53,11 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
+
+
+def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """One kernel call's dropout seed, an int64 [1] tensor drawn on ``device``
+    from ``generator`` (no host sync)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    return torch.randint(0, 2 ** 32, (1,), generator=generator, device=device, dtype=torch.int64)

@@ -1,36 +1,58 @@
-"""One Glow-TTS text-encoder layer: the plain PyTorch version, its pieces, and
-the kernel wrapper (counterpart of
-speech_masters_thesis_tpu/ops/pallas/enc_layer.py, ``fused_enc_layer``'s
-forward, and of the unfused layer in models/glow_tts/{attention,encoder}.py).
+"""One Glow-TTS text-encoder layer: plain PyTorch versions of its forward and
+recompute backward, its pieces, and the kernel wrappers (counterpart of
+speech_masters_thesis_tpu/ops/pallas/enc_layer.py, ``fused_enc_layer`` and
+its custom VJP, and of the unfused layer in models/glow_tts/{attention,
+encoder}.py).
 
-The CUDA kernel is ``csrc/enc_layer_fwd.cu``. For a CUDA tensor
-``enc_layer`` launches it (one call: 7 launches) or raises; for a CPU tensor
-it runs ``enc_layer_reference``, the unfused layer:
+The CUDA kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``.
+``enc_layer`` runs ``EncLayerFunction``: for a CUDA tensor its forward
+launches the forward kernel (one call: 7 launches) and its backward the
+backward kernels, or raises; for a CPU tensor the same Function runs
+``enc_layer_reference`` and ``enc_layer_backward_reference``. The forward
+saves the input, the lengths, the weights and the seed, no activations. The
+layer:
 
     xm = x * valid
-    y  = conv_o(relative_attention(conv_q(xm), conv_k(xm), conv_v(xm)))
+    y  = conv_o(attention(conv_q(xm), conv_k(xm), conv_v(xm))) -> dropout
     x1 = LN1(xm + y)
-    out = LN2(x1 + FFN(x1))
+    out = LN2(x1 + FFN(x1) -> dropout)
 
 with windowed relative attention (shared-head tables, scores -1e4 where the
-query or the key is padding), the k=3 conv FFN masked by the lengths, and
-flax's LayerNorm (var = E[x^2] - E[x]^2, eps 1e-4). Eval only: the
-recompute backward and in-kernel dropout wait for the training slice.
-Weights are in PyTorch's Conv1d layout [out, in, k].
+query or the key is padding, dropout on the probabilities, which the
+relative-value term uses too), the k=3 conv FFN masked by the lengths with
+dropout after its relu, and flax's LayerNorm (var = E[x^2] - E[x]^2, eps
+1e-4). Dropout keeps an element when its 32-bit draw (``ops/hash.py``) is >=
+int(p * 2^32) and scales it by 1/(1-p); the draws of the attention
+probabilities are keyed by (sequence, head, query, key), those of the three
+row sites by (sequence, site, row, channel), so kernels and plain version
+agree bit for bit and the backward regenerates them from the seed (an int64
+[1] tensor on the input's device). Weights are in PyTorch's Conv1d layout
+[out, in, k]. Rows at or past the length are unspecified in the output;
+their cotangent is taken as zero and their input gradient is zero, as in the
+TPU kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
 from speech_masters_thesis_tpu_torch.ops.basic import pointwise, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.hash import keep_factor, keep_scale, keep_threshold
+from speech_masters_thesis_tpu_torch.ops.wn_coupling import dilated_transpose, dilated_weight_grad
 
 NEG_MASK = -1e4
+ENC_STREAMS = 64  # hash streams per sequence: 16 per dropout site (csrc/enc_layer_common.cuh)
+# the dropout sites of one layer (the JAX kernel's seed-mixing ids)
+SITE_ATTN_P, SITE_ATTN_Y, SITE_FFN_MID, SITE_FFN_Y = 0, 1, 2, 3
+PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "rk", "rv", "wo", "bo", "g1", "be1",
+               "w1", "b1", "w2", "b2", "g2", "be2")
 
 
 @dataclass(frozen=True)
@@ -61,10 +83,12 @@ class EncLayerWeights:
     window: int
     eps: float = 1e-4
 
-    def tensors(self) -> dict:
-        return {name: getattr(self, name) for name in (
-            "wq", "bq", "wk", "bk", "wv", "bv", "rk", "rv", "wo", "bo", "g1", "be1",
-            "w1", "b1", "w2", "b2", "g2", "be2")}
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in PARAM_NAMES}
+
+    def with_tensors(self, tensors) -> "EncLayerWeights":
+        """The same layer with other tensors, in ``PARAM_NAMES`` order."""
+        return EncLayerWeights(*tensors, n_heads=self.n_heads, window=self.window, eps=self.eps)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
@@ -81,58 +105,185 @@ def conv1d_ntc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int 
                     dilation=dilation).transpose(1, 2)
 
 
-def relative_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, x_mask: torch.Tensor,
-                       rk: torch.Tensor, rv: torch.Tensor, n_heads: int, window: int) -> torch.Tensor:
-    """Bidirectional self-attention with windowed relative position tables.
+def band_scatter(vals: torch.Tensor, window: int) -> torch.Tensor:
+    """[..., T, 2w+1] -> [..., T, T]: out[i, j] = vals[i, j - i + w] on the
+    band |j - i| <= w, else 0."""
+    T = vals.shape[-2]
+    pos = torch.arange(T, device=vals.device)
+    off = pos[None, :] - pos[:, None]
+    index = (off + window).clamp(0, 2 * window).expand(*vals.shape[:-2], T, T)
+    return torch.gather(vals, -1, index) * (off.abs() <= window)
 
-    q, k, v [B, T, C]; x_mask [B, T, 1]; rk, rv [2w+1, D] shared by the
-    heads. The relative terms sit on the band |j - i| <= w: the JAX
-    package's pad-and-skew construction, written as a gather."""
-    B, T, C = q.shape
-    D = C // n_heads
-    qh, kh, vh = (t.reshape(B, T, n_heads, D).transpose(1, 2) for t in (q, k, v))
-    pos = torch.arange(T, device=q.device)
-    off = pos[None, :] - pos[:, None]                            # j - i
-    in_band = off.abs() <= window
-    rel_index = (off + window).clamp(0, 2 * window).expand(B, n_heads, T, T)
-    scores = qh @ kh.transpose(-2, -1) / math.sqrt(D)
-    rel_logits = qh @ rk.t()                                     # [B, H, T, 2w+1]
-    scores = scores + torch.gather(rel_logits, 3, rel_index) * in_band / math.sqrt(D)
+
+def band_extract(mat: torch.Tensor, window: int) -> torch.Tensor:
+    """[..., T, T] -> [..., T, 2w+1]: out[i, o] = mat[i, i + o - w], 0 where
+    that column leaves [0, T)."""
+    T = mat.shape[-1]
+    cols = torch.arange(T, device=mat.device)[:, None] + torch.arange(-window, window + 1, device=mat.device)[None]
+    ok = (cols >= 0) & (cols < T)
+    return torch.gather(mat, -1, cols.clamp(0, T - 1).expand(*mat.shape[:-2], T, 2 * window + 1)) * ok
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, C = t.shape
+    return t.reshape(B, T, n_heads, C // n_heads).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    B, H, T, D = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * D)
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, x_mask: torch.Tensor, rk: torch.Tensor,
+                    n_heads: int, window: int) -> torch.Tensor:
+    """Softmax probabilities [B, heads, T, T] of windowed relative
+    self-attention: scores (q.k + [|j - i| <= w] q.R_k[j - i + w]) / sqrt(D),
+    -1e4 where the query or the key is padding; rk [2w+1, D] is shared by the
+    heads. The relative terms sit on the band |j - i| <= w: the JAX package's
+    pad-and-skew construction, written as a gather."""
+    D = q.shape[2] // n_heads
+    qh, kh = _heads(q, n_heads), _heads(k, n_heads)
+    scores = (qh @ kh.transpose(-2, -1) + band_scatter(qh @ rk.t(), window)) * (1.0 / math.sqrt(D))
     attn_mask = x_mask[:, None, :, 0, None] * x_mask[:, None, None, :, 0]
     scores = torch.where(attn_mask == 0, NEG_MASK, scores)
-    p = torch.softmax(scores.to(torch.float32), dim=-1)
-    out = p @ vh
-    band_cols = pos[:, None] + torch.arange(-window, window + 1, device=q.device)[None, :]
-    band_ok = (band_cols >= 0) & (band_cols < T)
-    band_p = torch.gather(p, 3, band_cols.clamp(0, T - 1).expand(B, n_heads, T, 2 * window + 1)) * band_ok
-    out = out + band_p @ rv
-    return out.transpose(1, 2).reshape(B, T, C)
+    return torch.softmax(scores, dim=-1)
 
 
-def ffn(x: torch.Tensor, x_mask: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """conv2(relu(conv1(x * mask)) * mask) * mask."""
-    h = torch.relu(conv1d_ntc(x * x_mask, w1, b1))
-    return conv1d_ntc(h * x_mask, w2, b2) * x_mask
+def dropout_keep(seed, lens: torch.Tensor, T: int, width: int, site: int, p_drop: float,
+                 dtype=torch.float32) -> torch.Tensor:
+    """A row site's dropout factors [B, T, width] (0 or 1/(1-p)): stream
+    b * ENC_STREAMS + site * 16, counter t * width + c."""
+    device = lens.device
+    streams = torch.arange(lens.shape[0], dtype=torch.int64, device=device) * ENC_STREAMS + site * 16
+    counter = (torch.arange(T, dtype=torch.int64, device=device)[:, None] * width
+               + torch.arange(width, dtype=torch.int64, device=device)[None, :])
+    return keep_factor(seed, streams[:, None, None], counter[None], p_drop, dtype)
 
 
-def enc_layer_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights) -> torch.Tensor:
-    """Plain layer: x [B, T, C], lens [B] -> [B, T, C]."""
-    x_mask = sequence_mask(lens, x.shape[1]).to(x.dtype)[..., None]
-    xm = x * x_mask
-    att = relative_attention(pointwise(xm, w.wq, w.bq), pointwise(xm, w.wk, w.bk),
-                             pointwise(xm, w.wv, w.bv), x_mask, w.rk, w.rv, w.n_heads, w.window)
-    x1 = layer_norm(xm + pointwise(att, w.wo, w.bo), w.g1, w.be1, w.eps)
-    return layer_norm(x1 + ffn(x1, x_mask, w.w1, w.b1, w.w2, w.b2), w.g2, w.be2, w.eps)
+def attention_keep(seed, lens: torch.Tensor, n_heads: int, T: int, p_drop: float,
+                   dtype=torch.float32) -> torch.Tensor:
+    """The attention probabilities' dropout factors [B, heads, T, T]: stream
+    b * ENC_STREAMS + head, counter query * T + key."""
+    device = lens.device
+    streams = (torch.arange(lens.shape[0], dtype=torch.int64, device=device)[:, None] * ENC_STREAMS
+               + SITE_ATTN_P * 16 + torch.arange(n_heads, dtype=torch.int64, device=device)[None, :])
+    pos = torch.arange(T, dtype=torch.int64, device=device)
+    return keep_factor(seed, streams[:, :, None, None], (pos[:, None] * T + pos[None, :])[None, None],
+                       p_drop, dtype)
 
 
-def _check_call(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights) -> None:
+def _ln_stats(z: torch.Tensor, eps: float):
+    """(zhat, 1/std) of flax's LayerNorm over the last axis."""
+    mean = z.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(torch.clamp((z * z).mean(dim=-1, keepdim=True) - mean * mean, min=0.0) + eps)
+    return (z - mean) * inv, inv
+
+
+def _ln_backward(dout: torch.Tensor, zhat: torch.Tensor, inv: torch.Tensor, gamma: torch.Tensor):
+    """(dz, dgamma, dbeta) of a LayerNorm whose output has cotangent dout."""
+    dy = dout * gamma
+    dz = inv * (dy - dy.mean(dim=-1, keepdim=True) - zhat * (dy * zhat).mean(dim=-1, keepdim=True))
+    return dz, (dout * zhat).sum(dim=(0, 1)), dout.sum(dim=(0, 1))
+
+
+def _forward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed, p_drop: float) -> dict:
+    """The layer, keeping what the backward needs."""
+    T, C = x.shape[1], x.shape[2]
+    drop = p_drop > 0.0
+    valid = sequence_mask(lens, T).to(x.dtype)[..., None]
+    s = {"valid": valid, "xm": x * valid}
+    s["q"], s["k"], s["v"] = (pointwise(s["xm"], wt, b) for wt, b in ((w.wq, w.bq), (w.wk, w.bk), (w.wv, w.bv)))
+    s["p"] = attention_probs(s["q"], s["k"], valid, w.rk, w.n_heads, w.window)
+    s["keep_p"] = attention_keep(seed, lens, w.n_heads, T, p_drop, x.dtype) if drop else None
+    s["pd"] = s["p"] * s["keep_p"] if drop else s["p"]
+    s["att"] = _merge(s["pd"] @ _heads(s["v"], w.n_heads) + band_extract(s["pd"], w.window) @ w.rv)
+    y = pointwise(s["att"], w.wo, w.bo)
+    if drop:
+        y = y * dropout_keep(seed, lens, T, C, SITE_ATTN_Y, p_drop, x.dtype)
+    s["z1"] = s["xm"] + y
+    s["x1"] = layer_norm(s["z1"], w.g1, w.be1, w.eps)
+    s["c1"] = conv1d_ntc(s["x1"] * valid, w.w1, w.b1)
+    a1 = torch.relu(s["c1"])
+    if drop:
+        a1 = a1 * dropout_keep(seed, lens, T, w.w1.shape[0], SITE_FFN_MID, p_drop, x.dtype)
+    s["d1m"] = a1 * valid
+    y2 = conv1d_ntc(s["d1m"], w.w2, w.b2) * valid
+    if drop:
+        y2 = y2 * dropout_keep(seed, lens, T, C, SITE_FFN_Y, p_drop, x.dtype)
+    s["z2"] = s["x1"] + y2
+    s["out"] = layer_norm(s["z2"], w.g2, w.be2, w.eps)
+    return s
+
+
+def enc_layer_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=0,
+                        p_drop: float = 0.0) -> torch.Tensor:
+    """Plain layer: x [B, T, C], lens [B] -> [B, T, C], with dropout
+    (``p_drop > 0``) at the JAX kernel's four sites and masks from ``seed``
+    (an int or an int64 tensor of one element)."""
+    return _forward(x, lens, w, seed, p_drop)["out"]
+
+
+def enc_layer_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, g: torch.Tensor,
+                                 seed=0, p_drop: float = 0.0, relu_gate: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain recompute backward, by the TPU kernel's formulas
+    (``_bwd_kernel``): (dx, {name: gradient} in ``PARAM_NAMES`` order), with
+    g taken as zero at rows at or past the length. ``relu_gate`` [B, T, F]
+    replaces the FFN relu's decisions (c1 > 0), e.g. by a kernel's own."""
+    T, C = x.shape[1], x.shape[2]
+    H, k = w.n_heads, w.w1.shape[2]
+    drop = p_drop > 0.0
+    with torch.no_grad():
+        s = _forward(x, lens, w, seed, p_drop)
+        valid = s["valid"]
+        grads = {}
+        zhat2, inv2 = _ln_stats(s["z2"], w.eps)
+        dz2, grads["g2"], grads["be2"] = _ln_backward(g * valid, zhat2, inv2, w.g2)
+        dc2 = dz2 * valid
+        if drop:
+            dc2 = dc2 * dropout_keep(seed, lens, T, C, SITE_FFN_Y, p_drop, x.dtype)
+        grads["w2"], grads["b2"] = dilated_weight_grad(s["d1m"], dc2, k, 1), dc2.sum(dim=(0, 1))
+        dc1 = dilated_transpose(dc2, w.w2, 1) * valid
+        if drop:
+            dc1 = dc1 * dropout_keep(seed, lens, T, w.w1.shape[0], SITE_FFN_MID, p_drop, x.dtype)
+        dc1 = dc1 * (s["c1"] > 0 if relu_gate is None else relu_gate)
+        grads["w1"], grads["b1"] = dilated_weight_grad(s["x1"] * valid, dc1, k, 1), dc1.sum(dim=(0, 1))
+        zhat1, inv1 = _ln_stats(s["z1"], w.eps)
+        dz1, grads["g1"], grads["be1"] = _ln_backward(dz2 + dilated_transpose(dc1, w.w1, 1) * valid,
+                                                      zhat1, inv1, w.g1)
+        dy = dz1 * dropout_keep(seed, lens, T, C, SITE_ATTN_Y, p_drop, x.dtype) if drop else dz1
+        grads["wo"] = torch.einsum("btn,btc->nc", dy, s["att"])[..., None]
+        grads["bo"] = dy.sum(dim=(0, 1))
+        doh = _heads(dy @ w.wo[:, :, 0], H)
+        p, pd = s["p"], s["pd"]
+        qh, kh, vh = (_heads(s[n], H) for n in ("q", "k", "v"))
+        grads["rv"] = torch.einsum("bhto,bhtd->od", band_extract(pd, w.window), doh)
+        dp = doh @ vh.transpose(-2, -1) + band_scatter(doh @ w.rv.t(), w.window)
+        if drop:
+            dp = dp * s["keep_p"]
+        smask = valid[:, None, :, 0, None] * valid[:, None, None, :, 0]
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * smask / math.sqrt(C // H)
+        dclog = band_extract(ds, w.window)
+        grads["rk"] = torch.einsum("bhto,bhtd->od", dclog, qh)
+        dxm = dz1
+        for name, d in (("q", _merge(ds @ kh + dclog @ w.rk)), ("k", _merge(ds.transpose(-2, -1) @ qh)),
+                        ("v", _merge(pd.transpose(-2, -1) @ doh))):
+            grads[f"w{name}"] = torch.einsum("btn,btc->nc", d, s["xm"])[..., None]
+            grads[f"b{name}"] = d.sum(dim=(0, 1))
+            dxm = dxm + d @ getattr(w, f"w{name}")[:, :, 0]
+    return dxm * valid, {name: grads[name] for name in PARAM_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _check_call(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed: torch.Tensor) -> None:
     B, T, C = x.shape
     if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError("enc_layer: the kernel is built for sm_90a (Hopper)")
+        raise RuntimeError("enc_layer: the kernels are built for sm_90a (Hopper)")
     D = C // w.n_heads
     if C != _build.ENC_CHANNELS or D != _build.ENC_HEAD_DIM or w.n_heads * D != C:
-        raise ValueError(f"enc_layer: the kernel is built for C={_build.ENC_CHANNELS} in heads of "
+        raise ValueError(f"enc_layer: the kernels are built for C={_build.ENC_CHANNELS} in heads of "
                          f"{_build.ENC_HEAD_DIM}; got C={C}, {w.n_heads} heads")
     if not 0 <= w.window <= _build.ENC_MAX_WINDOW or B < 1 or T < 1:
         raise ValueError(f"enc_layer: window {w.window} (at most {_build.ENC_MAX_WINDOW}), input {tuple(x.shape)}")
@@ -151,34 +302,135 @@ def _check_call(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights) -> None
             raise ValueError(f"enc_layer: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x.device or not lens.is_contiguous():
         raise ValueError("enc_layer: lens must be a contiguous int32 [B] tensor on the input's device")
+    if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != x.device:
+        raise ValueError("enc_layer: seed must be an int64 tensor of one element on the input's device")
 
 
-def enc_layer(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights) -> torch.Tensor:
-    """One encoder layer; same contract as ``enc_layer_reference`` at valid
-    rows (rows at or past lens[b] are finite and unspecified).
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
-    A CUDA tensor launches ``csrc/enc_layer_fwd.cu`` (C = 192 in heads of 96,
-    lens int32 [B] on the same device) and counts ``enc_layer.launches``;
-    anything the kernel does not take raises. A CPU tensor runs the plain
-    version.
-    """
-    if x.device.type == "cpu":
-        return enc_layer_reference(x, lens, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"enc_layer: unsupported device {x.device}")
-    _check_call(x, lens, w)
+
+def _shape_args(x: torch.Tensor, w: EncLayerWeights) -> tuple:
     B, T, C = x.shape
-    Fc, k = w.w1.shape[0], w.w1.shape[2]
+    return B, T, C, w.n_heads, w.window, w.w1.shape[0], w.w1.shape[2], float(w.eps)
+
+
+def _launch_fwd(x, lens, w: EncLayerWeights, seed, p_drop: float) -> torch.Tensor:
+    _check_call(x, lens, w, seed)
+    B, T, C = x.shape
+    Fc = w.w1.shape[0]
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
     out, qkv, att, x1, hid = empty(B, T, C), empty(B, T, 3 * C), empty(B, T, C), empty(B, T, C), empty(B, T, Fc)
     rc = _build.build().enc_layer_fwd(
-        x.data_ptr(), lens.data_ptr(), *[t.data_ptr() for t in w.tensors().values()],
+        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), *[t.data_ptr() for t in w.tensors().values()],
         out.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-        B, T, C, w.n_heads, w.window, Fc, k, float(w.eps), torch.cuda.current_stream(x.device).cuda_stream)
+        *_shape_args(x, w), keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_fwd launch failed with cudaError {rc}")
     enc_layer.launches += 1
     return out
 
 
+def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tuple]:
+    """The backward kernels' device buffers, in the order
+    ``csrc/enc_layer_bwd.cu`` takes them: the recomputed forward's (q|k|v,
+    the heads' output, each row's softmax (max, sum), LN1's output, both
+    LayerNorms' normalised input and 1/std, the FFN's hidden rows after
+    relu and dropout, the output), then the backward's (LN2's input
+    cotangent, g masked, the FFN's output and hidden cotangents, LN1's input
+    and output cotangents, conv_o's output cotangent after dropout, the heads'
+    output cotangent, each row's rowsum(doh * oh), the band's ds and dropped
+    probabilities, dq|dk|dv)."""
+    B, T, C = x.shape
+    H, R, Fc = w.n_heads, 2 * w.window + 1, w.w1.shape[0]
+    row = lambda n: (B, T, n)  # noqa: E731
+    return {"qkv": row(3 * C), "att": row(C), "stats": (B, H, T, 2), "x1": row(C), "zhat1": row(C),
+            "rinv1": (B, T), "hid": row(Fc), "out": row(C), "zhat2": row(C), "rinv2": (B, T),
+            "dz2": row(C), "gm": row(C), "dc2": row(C), "dc1": row(Fc), "dz1": row(C), "dx1": row(C),
+            "dy": row(C), "datt": row(C), "delta": (B, H, T), "dclog": row(H * R), "bandp": row(H * R),
+            "dqkv": row(3 * C)}
+
+
+def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, g: torch.Tensor, seed,
+                       p_drop: float = 0.0, return_buffers: bool = False):
+    """(dx, {name: gradient}) for the output cotangent g.
+
+    A CUDA tensor launches ``csrc/enc_layer_bwd.cu`` (the recomputed forward
+    with its LayerNorm statistics and softmax (max, sum), the LayerNorm and
+    FFN backwards, the attention backward as a dq and a dk/dv kernel that
+    recompute P, then one fixed-order reduction of every weight gradient: two
+    calls are bitwise equal) and counts ``enc_layer_backward.launches``;
+    ``return_buffers`` adds its device buffers (``backward_buffer_shapes``).
+    A CPU tensor runs ``enc_layer_backward_reference``.
+    """
+    if x.device.type == "cpu":
+        if return_buffers:
+            raise ValueError("enc_layer_backward: the buffers are the CUDA kernels'")
+        return enc_layer_backward_reference(x, lens, w, g, seed, p_drop)
+    if x.device.type != "cuda":
+        raise ValueError(f"enc_layer_backward: unsupported device {x.device}")
+    _check_call(x, lens, w, seed)
+    if g.shape != x.shape or g.dtype != torch.float32 or not g.is_contiguous() or g.device != x.device:
+        raise ValueError(f"enc_layer_backward: g must be a contiguous float32 {tuple(x.shape)} tensor")
+    empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
+    dx = empty(*x.shape)
+    grads = {name: empty(*t.shape) for name, t in w.tensors().items()}
+    bufs = {name: empty(*shape) for name, shape in backward_buffer_shapes(x, w).items()}
+    pointers = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
+    n_split = _build.wgrad_splits(x.shape[0] * x.shape[1])
+    lib = _build.build()
+    shape = _shape_args(x, w)
+    partials = empty(lib.enc_layer_bwd_partial_floats(*shape[:-1], n_split))
+    rc = lib.enc_layer_bwd(
+        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(), pointers(list(w.tensors().values())),
+        dx.data_ptr(), pointers(list(grads.values())), pointers(list(bufs.values())), partials.data_ptr(),
+        *shape, keep_threshold(p_drop), keep_scale(p_drop), n_split, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"enc_layer_bwd launch failed with cudaError {rc}")
+    enc_layer_backward.launches += 1
+    return (dx, grads, bufs) if return_buffers else (dx, grads)
+
+
+class EncLayerFunction(torch.autograd.Function):
+    """One encoder layer with a recompute backward: saves the input, the
+    lengths, the seed and the weights, no activations."""
+
+    @staticmethod
+    def forward(ctx, x, lens, seed, p_drop, meta, *tensors):  # pylint: disable=arguments-differ
+        w = EncLayerWeights(*tensors, *meta)
+        out = enc_layer_reference(x, lens, w, seed, p_drop) if x.device.type == "cpu" else \
+            _launch_fwd(x, lens, w, seed, p_drop)
+        ctx.save_for_backward(x, lens, seed, *tensors)
+        ctx.meta = (p_drop, meta)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # pylint: disable=arguments-differ
+        x, lens, seed, *tensors = ctx.saved_tensors
+        p_drop, meta = ctx.meta
+        dx, grads = enc_layer_backward(x, lens, EncLayerWeights(*tensors, *meta), g.contiguous(), seed, p_drop)
+        return (dx, None, None, None, None, *grads.values())
+
+
+def enc_layer(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=None,
+              p_drop: float = 0.0) -> torch.Tensor:
+    """One encoder layer; same contract as ``enc_layer_reference`` at valid
+    rows (rows at or past lens[b] are finite and unspecified), differentiable
+    in x and every weight through ``EncLayerFunction``.
+
+    A CUDA tensor launches ``csrc/enc_layer_fwd.cu`` (C = 192 in heads of 96,
+    lens int32 [B] and seed int64 [1] on the same device) and counts
+    ``enc_layer.launches``; anything the kernels do not take raises. A CPU
+    tensor runs the plain versions.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"enc_layer: unsupported device {x.device}")
+    keep_threshold(p_drop)
+    if seed is None:
+        seed = torch.zeros(1, dtype=torch.int64, device=x.device)
+    return EncLayerFunction.apply(x, lens, seed, float(p_drop), (w.n_heads, w.window, w.eps),
+                                  *w.tensors().values())
+
+
 enc_layer.launches = 0
+enc_layer_backward.launches = 0

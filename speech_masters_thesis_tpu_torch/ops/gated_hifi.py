@@ -29,7 +29,6 @@ Semantics every version keeps:
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass, fields
 from typing import Mapping, Sequence, Tuple
 
@@ -442,7 +441,7 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.shape != want:
             raise ValueError(f"weight_grad_reduce: {name} must be contiguous float32 {want} on {x.device}")
     lib = _build.build()
-    n_split = max(1, min(_build.WGRAD_MAX_SPLIT, math.ceil(B * T / _build.WGRAD_ROWS_PER_SPLIT)))
+    n_split = _build.wgrad_splits(B * T)
     partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
                            device=x.device, dtype=torch.float32)
     sizes = [W * depth * H, depth * H, sum(kernels) * H * H, depth * H, depth * H * H, depth * H, W * W, W]

@@ -7,6 +7,9 @@ mod 2^32, so the plain versions reproduce the kernels' bits exactly.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 U32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9  # 2^32 / golden ratio: spaces the per-stream keys
 
@@ -36,3 +39,27 @@ def stream_key(seed, stream):
 def draw(key, counter):
     """One u32 draw per counter: fmix32(fmix32(key ^ counter) + key)."""
     return fmix32((fmix32(key ^ (counter & U32)) + key) & U32)
+
+
+def keep_threshold(p_drop: float) -> int:
+    """A 32-bit draw keeps its element when it is >= this u32 (as the TPU
+    kernels' ``int(p * 2**32)``)."""
+    if not 0.0 <= p_drop < 1.0:
+        raise ValueError(f"p_drop must be in [0, 1), got {p_drop}")
+    return int(p_drop * 2 ** 32)
+
+
+def keep_scale(p_drop: float) -> float:
+    """The float32 factor a kept element is multiplied by."""
+    return float(np.float32(1.0 / (1.0 - p_drop)))
+
+
+def keep_factor(seed, stream, counter, p_drop: float, dtype=torch.float32) -> torch.Tensor:
+    """0 or 1/(1-p) per element: kept when ``draw(stream_key(seed, stream),
+    counter) >= keep_threshold(p_drop)``. ``seed`` is an int or an int64
+    tensor of one element; ``stream`` and ``counter`` int64 tensors that
+    broadcast together."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64).reshape(())
+    bits = draw(stream_key(seed, stream), counter)
+    return (bits >= keep_threshold(p_drop)).to(dtype) * keep_scale(p_drop)

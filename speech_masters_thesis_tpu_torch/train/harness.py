@@ -10,6 +10,7 @@ N(0, 1) embedding whose PAD row is zero), and Glow-TTS's own (xavier q/k/v,
 weight norm's g = ||v||, a QR rotation per InvConvNear, zeros where the JAX
 package has zeros). For the VQ-VAE it then runs the bottleneck's lazy
 codebook init on a first batch, so the codebook starts from real encodings.
+``maybe_ddi_init`` is train.py's data-dependent init of Glow-TTS's ActNorms.
 ``get_model`` builds on the card unless the caller passes a device. The data
 loaders, the CLI, checkpoints and the epoch loop are not ported.
 """
@@ -114,7 +115,7 @@ def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Te
     codebook init on ``batch`` (on the model's device; the encoder runs in
     eval mode). The LM needs no batch; its frozen codec stays as drawn here
     until ``load_vqvae_into_lm`` grafts a trained one. Glow-TTS needs no
-    batch (its data-dependent ActNorm init comes with the training slice)."""
+    batch here (its data-dependent ActNorm init is ``maybe_ddi_init``)."""
     gen = torch.Generator().manual_seed(seed)
     if isinstance(model, GlowTTS):
         _init_glow_tts(model, gen)
@@ -151,6 +152,19 @@ def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Te
         codebook_gen = torch.Generator(device=device).manual_seed(seed + 1)
         block = model.bottleneck.level_blocks[0]
         block._maybe_init(h.reshape(-1, h.shape[-1]), h_mask.reshape(-1), codebook_gen)
+
+
+def maybe_ddi_init(model: nn.Module, config: Mapping, batch: Mapping[str, torch.Tensor],
+                   generators: Optional[Mapping[str, torch.Generator]] = None) -> bool:
+    """train.py:195-212: when ``config["model"]["ddi"]`` is set, no checkpoint
+    is loaded (``config["train"]["load_ckpt"]``) and the model has a
+    ``ddi_init``, runs it on ``batch`` (on the model's device) and returns
+    True; else returns False."""
+    if not config["model"].get("ddi") or (config.get("train") or {}).get("load_ckpt") \
+            or not hasattr(model, "ddi_init"):
+        return False
+    model.ddi_init(batch, generators)
+    return True
 
 
 def frozen_param_mask(model: nn.Module) -> Optional[Dict[str, bool]]:

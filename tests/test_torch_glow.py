@@ -218,13 +218,6 @@ def test_val_step_with_on_device_spect_matches_jax(glow):
     assert loss["yh"].shape == loss["y"].shape and bool(torch.isfinite(loss["yh"]).all())
 
 
-def test_train_mode_with_dropout_raises(glow):
-    _, _, _, model = glow
-    x, x_len, y, y_len = (torch.from_numpy(a) for a in batch_numpy())
-    with pytest.raises(NotImplementedError):
-        model(x.long(), x_len.long(), y, y_len.long(), train=True)
-
-
 def test_fused_flow_step_is_not_ported():
     config = tiny_config()
     config["model"]["fused_flow_step"] = True
