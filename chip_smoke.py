@@ -72,10 +72,11 @@ with the zero-init leaves drawn from the seed):
      [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties;
  19. the val step (make_val_step, EMA parameters) at batch 8: 768 frames of
      seeded audio (the mel computed on the card) and 256 tokens, ragged;
-     launches (B5, B3, B4) = (6, 24, 1) per step, finite losses, step time;
+     launches (B5, B3, B4, B6) = (6, 24, 1, 0) per step, finite losses, step
+     time;
  20. synthesis through GlowTTSSynthesizer.synthesize_ids at batch 1 and 8,
      100-256 tokens, max_frames 1024, 32 Griffin-Lim iterations: the flow
-     cache built once and equal to the uncached path, (6, 12, 0) launches per
+     cache built once and equal to the uncached path, (6, 12, 0, 0) launches per
      call, the median of 5 of the mel and text-to-waveform times, seconds of
      audio per second;
  21. the eval forward on the card against the CPU on 2 sequences: losses
@@ -95,14 +96,37 @@ with the zero-init leaves drawn from the seed):
      backward's buffers (the attention's on the band, every pair at T=3);
  24. the Glow-TTS training path at batch 8 x 768 frames of seeded audio
      (the mel on the card) and 256 tokens, ragged: ddi_init (each ActNorm's
-     output then has mean 0 and variance 1 at valid frames), then 5 train
+     output then has mean 0 and variance 1 at valid frames), then 10 train
      steps with dropout, AdamW + Noam and the parameter EMA; launches (B5
-     fwd, B5 bwd, B3 fwd, B3 bwd, B4) = (6, 6, 12, 12, 1) per step, every
-     parameter a finite nonzero gradient, finite losses; step time (median
-     of steps 2-5), mel-frames/s and peak memory;
+     fwd, B5 bwd, B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) = (6, 6, 12, 12, 1, 0,
+     0) per step, every parameter a finite nonzero gradient, finite losses;
+     step time (median of steps 4-10), mel-frames/s and peak memory;
  25. one train step (p=0) on the card against the CPU on 2 sequences:
      losses 1e-4 relative, and the card's and the CPU's gradients each
      against the same step in fp64 on the CPU.
+
+Then the whole-flow-step route (B6, GLOW_TTS_TPU with fused_flow_step: true,
+the override glow_tts_tpu.yaml names):
+
+ 26. the flow-step kernels (B6: ActNorm + InvConvNear + the coupling
+     conditioner) against their plain versions at the shapes of phase 16,
+     p=0 and 0.05, on the first flow step's weights (ActNorm drawn, the
+     InvConvNear a rotation, the end conv drawn): xc and out 1e-5 of max|ref|
+     at valid frames; dx, daln, dalb, dmt and every conditioner gradient at
+     phase 22's tolerances and floor; two backward calls bitwise equal; the
+     B3 route (plain ActNorm and InvConvNear, B3's kernels) through autograd
+     against the B6 route: outputs and the prefix's gradients; the kernels'
+     masks read back bit for bit against the B3 plain version's; the times
+     of both routes, the plain versions and the bounds;
+ 27. phase 24 on the B6 route in the same process (the same model seed,
+     batch and dropout draws): ddi_init (B3), then 10 train steps; launches
+     (6, 6, 0, 0, 1, 12, 12) per step, every parameter (each ActNorm's and
+     InvConvNear's included) a finite nonzero gradient, step 1's loss
+     within 1e-3 of phase 24's; the A/B of step time (median of steps
+     4-10), mel-frames/s and peak memory, then 20 more steps of each route
+     in turns (B3, B6, B6, B3, ...); then the val step on the B6 route:
+     launches (B5, B3, B4, B6) = (6, 12, 1, 12) per step;
+ 28. phase 25 on the B6 route.
 
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
@@ -141,6 +165,7 @@ from speech_masters_thesis_tpu_torch.models.vqvae.model import compression_facto
 from speech_masters_thesis_tpu_torch.ops import _build
 from speech_masters_thesis_tpu_torch.ops import attention as att
 from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
+from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 from speech_masters_thesis_tpu_torch.ops import mas as mas_ops
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
@@ -209,6 +234,11 @@ GLOW_LOSS_RTOL = 1e-4          # card vs CPU eval losses: fp32, 24 flow steps, o
 GLOW_YH_RTOL = 1e-4            # of max|yh|
 GLOW_SEED = 13
 B3_DROP = 0.05                 # the decoder's p_dropout (glow_tts_tpu.yaml)
+GLOW_TRAIN_STEPS = 10          # the step time still falls after 5 steps
+GLOW_STEADY_FROM = 4           # the step time is the median of steps 4-10
+GLOW_AB_ROUNDS = 20            # then 20 more steps of each route, in turns B3, B6, B6, B3, ...
+ROUTE_LOSS_RTOL = 1e-3         # step 1's loss, B6 route vs B3 route: the same function and masks; MAS may
+                               # flip a near-tie
 B5_DROP = 0.1                  # the encoder's
 GRAD_FLOOR = 3e-4              # a gradient leaf's tolerance scale is at least this of the largest leaf's
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
@@ -1196,11 +1226,14 @@ def phase_lm_vs_cpu(device, card: str, vq_state: dict) -> None:
 # ---------------------------------------------------------------------------
 # Glow-TTS
 # ---------------------------------------------------------------------------
-def glow_config() -> dict:
-    return {"model": copy.deepcopy(configs.GLOW_TTS_TPU), "dataset": copy.deepcopy(configs.LJSPEECH_TPU)}
+def glow_config(flow_step: bool = False) -> dict:
+    """GLOW_TTS_TPU; with ``flow_step`` the B6 route, the override the YAML
+    names (fused_flow_step: true)."""
+    model = dict(copy.deepcopy(configs.GLOW_TTS_TPU), fused_flow_step=flow_step)
+    return {"model": model, "dataset": copy.deepcopy(configs.LJSPEECH_TPU)}
 
 
-def build_glow(device, seed: int) -> GlowTTS:
+def build_glow(device, seed: int, flow_step: bool = False) -> GlowTTS:
     """GlowTTS at GLOW_TTS_TPU width with the JAX initializers, then the leaves
     those leave at zero drawn from the seed: each coupling's end conv and the
     prenet's proj lecun-normal (the end convs at a quarter of it, so 24 flow
@@ -1208,7 +1241,8 @@ def build_glow(device, seed: int) -> GlowTTS:
     proj is scaled to 0.3 of lecun-normal with bias log(2.5), so a token lasts
     about 3 frames (LJSpeech speaks about 12 phonemes and blanks a second
     against 86 frames a second)."""
-    model = harness.get_model(glow_config(), device=device)
+    model = harness.get_model(glow_config(flow_step), device=device)
+    require(model.decoder.fused_flow_step == flow_step, f"the decoder's route is not fused_flow_step={flow_step}")
     harness.init_model_variables(model, None, seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
@@ -1227,11 +1261,13 @@ def build_glow(device, seed: int) -> GlowTTS:
 
 
 def glow_counts() -> tuple:
-    return enc_ops.enc_layer.launches, wn_ops.wn_coupling.launches, mas_ops.maximum_path_auto.launches
+    return (enc_ops.enc_layer.launches, wn_ops.wn_coupling.launches, mas_ops.maximum_path_auto.launches,
+            fs_ops.flow_step.launches)
 
 
 def zero_glow_counts() -> None:
     enc_ops.enc_layer.launches = wn_ops.wn_coupling.launches = mas_ops.maximum_path_auto.launches = 0
+    fs_ops.flow_step.launches = 0
 
 
 def ragged(rng, batch: int, lo: int, hi: int) -> np.ndarray:
@@ -1386,8 +1422,9 @@ def glow_val_batch(batch: int, device, seed: int) -> dict:
             "audio_len": torch.from_numpy(frames * HOP).to(device)}
 
 
-def phase_glow_val(model: GlowTTS, device, card: str) -> dict:
-    """The val step on the EMA parameters, the mel computed on the card."""
+def phase_glow_val(model: GlowTTS, device, card: str, expect: tuple = (6, 24, 1, 0)) -> dict:
+    """The val step on the EMA parameters, the mel computed on the card;
+    ``expect`` is its launches (B5, B3, B4, B6) per step."""
     opt, _ = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER, configs.GLOW_TTS_TPU_SCHEDULER,
                              configs.GLOW_TTS_TPU)
     state = TrainState.create(model, opt, use_ema=True)
@@ -1405,11 +1442,12 @@ def phase_glow_val(model: GlowTTS, device, card: str) -> dict:
         counts.append(glow_counts())
     losses = {k: float(loss[k]) for k in ("loss", "loss_mle", "loss_length")}
     yh = loss["yh"]
-    print(f"[glow val] B={GLOW_BATCH} x {GLOW_FRAMES} frames ({GLOW_FRAMES * HOP} samples) and {GLOW_TOKENS} "
-          f"tokens, ragged; mel on the card {tuple(loss['y'].shape)}; EMA parameters: losses {losses}; yh "
-          f"{tuple(yh.shape)}; launches (B5, B3, B4) per step {counts}; step ms "
+    route = "B6 route" if model.decoder.fused_flow_step else "B3 route"
+    print(f"[glow val] {route}, B={GLOW_BATCH} x {GLOW_FRAMES} frames ({GLOW_FRAMES * HOP} samples) and "
+          f"{GLOW_TOKENS} tokens, ragged; mel on the card {tuple(loss['y'].shape)}; EMA parameters: losses {losses}; "
+          f"yh {tuple(yh.shape)}; launches (B5, B3, B4, B6) per step {counts}; step ms "
           f"{', '.join(f'{t:.3f}' for t in times)}, median {statistics.median(times):.3f} [{card}]")
-    require(all(c == (6, 24, 1) for c in counts), f"val step launches {counts} != (6, 24, 1)")
+    require(all(c == expect for c in counts), f"val step launches {counts} != {expect}")
     require(all(np.isfinite(v) for v in losses.values()), f"val losses {losses}")
     require(tuple(yh.shape) == tuple(loss["y"].shape) and bool(torch.isfinite(yh).all()), "val yh")
     return {"launches": counts[0], "step_ms": statistics.median(times), "batch": batch, "state": state}
@@ -1454,11 +1492,11 @@ def phase_synthesis(model: GlowTTS, device, card: str) -> dict:
         secs = audio_seconds(z, synth.max_frames)
         med_mel, med_total = statistics.median(mel_ms), statistics.median(total_ms)
         print(f"[synthesis] B={B}, tokens {lens[:B].tolist()}: z_lengths {z.tolist()}; mel {tuple(mel.shape)}, "
-              f"audio {tuple(audio.shape)}; launches (B5, B3, B4) per call {per_call[-1]}; median of "
+              f"audio {tuple(audio.shape)}; launches (B5, B3, B4, B6) per call {per_call[-1]}; median of "
               f"{SYNTH_REPS}: mel {med_mel:.3f} ms, text to waveform ({GL_ITERS} Griffin-Lim iterations) "
               f"{med_total:.3f} ms; {secs:.3f} s of audio: {secs / (med_mel / 1e3):.1f} s/s as mel, "
               f"{secs / (med_total / 1e3):.1f} s/s as waveform [{card}]")
-        require(all(c == (6, 12, 0) for c in per_call), f"synthesis launches {per_call} != (6, 12, 0)")
+        require(all(c == (6, 12, 0, 0) for c in per_call), f"synthesis launches {per_call} != (6, 12, 0, 0)")
         require(bool(torch.isfinite(mel).all()) and bool(torch.isfinite(audio).all()), "synthesis output")
         require(tuple(audio.shape) == (B, synth.max_frames * HOP), f"audio shape {tuple(audio.shape)}")
         out[B] = {"mel_ms": med_mel, "total_ms": med_total, "audio_s": secs}
@@ -1614,6 +1652,143 @@ def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
     return out
 
 
+def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
+    """B6 against its plain version at p=0 and the decoder's p on the first
+    flow step's weights, the B3 route it replaces against it, then its masks
+    against the B3 plain version's."""
+    act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
+    w = cpl.conditioner_weights()
+    w = wn_ops.WNWeights.from_flat([t.detach() for t in w.flat()], w.dilations)
+    with torch.no_grad():
+        aln, alb, mt = act.logs.view(-1).clone(), act.bias.view(-1).clone(), inv.dense_matrix_t()
+    C = model.n_mels * model.n_sqz
+    half, H, L = C // 2, w.hidden, len(w.win)
+    seed = torch.tensor([4343], dtype=torch.int64, device=device)
+    n_weights = sum(t.numel() for t in w.flat()) + 2 * C + C * C
+    out = {"max_abs_err": 0.0, "fwd_err": 0.0}
+    for i, (B, T) in enumerate(B3_SHAPES):
+        rng = np.random.RandomState(720 + i)  # phase 22's lengths: the same valid frames as B3's backward
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        mask = valid[..., None].float()
+        x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * mask
+        g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
+        frames = int(lens_np.sum())
+        # B3's operations plus the [C, C] product a frame (3x in the backward); x in, xc and out out
+        # (x, g_xc, g_out in, dx out), the weights in (and their gradients out)
+        flops = frames * (wn_flops_per_frame(w) + 2 * C * C)
+        bnd = {"fwd": bound(flops, 4 * (3 * frames * C + n_weights)),
+               "bwd": bound(3 * flops, 4 * (4 * frames * C + 2 * n_weights))}
+        for p in (0.0, B3_DROP):
+            args = (x, lens, aln, alb, mt, w)
+            with torch.no_grad():
+                xc_k, out_k = fs_ops.flow_step(*args, seed, p)
+                xc_r, out_r = fs_ops.flow_step_reference(*args, seed, p)
+                dx_k, *gk = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
+                dx_k2, *gk2 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
+                dx_r, *gr = fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p)
+                torch.cuda.synchronize()
+            leaves = lambda g: {"daln": g[0], "dalb": g[1], "dmt": g[2], **g[3].tensors()}  # noqa: E731
+            bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(a, leaves(gk2)[n]) for n, a in leaves(gk).items())
+            fwd_errs = {n: ((k - r)[valid].abs().max().item(), r[valid].abs().max().item())
+                        for n, k, r in (("xc", xc_k, xc_r), ("out", out_k, out_r))}
+            times = {"fwd": cuda_ms(lambda: fs_ops.flow_step(*args, seed, p), reps=5, warmup=1),
+                     "fwd_plain": cuda_ms(lambda: fs_ops.flow_step_reference(*args, seed, p), reps=5, warmup=1),
+                     "bwd": cuda_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p), reps=5, warmup=1),
+                     "plain": cuda_ms(lambda: fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p),
+                                      reps=5, warmup=1)}
+            routes = flow_step_routes(act, inv, x, mask, lens, w, g_xc, g_out, seed, p)
+            dx_err = (dx_k - dx_r)[valid].abs().max().item()
+            tag = f"[B6] p={p} B={B} T={T}"
+            print(f"{tag}: forward xc max_abs_err {fwd_errs['xc'][0]:.3e} of max|ref| {fwd_errs['xc'][1]:.3e}, out "
+                  f"{fwd_errs['out'][0]:.3e} of {fwd_errs['out'][1]:.3e} (tol {B3_RTOL:g}x) at valid frames; B3 "
+                  f"route (plain ActNorm + InvConvNear, B3's kernels) against the B6 route through autograd: out "
+                  f"{routes['out_err'][0]:.3e} of {routes['out_err'][1]:.3e}, worst prefix/input gradient "
+                  f"{routes['worst']} {routes['grads'][routes['worst']][0]:.3e} of scale "
+                  f"{routes['grads'][routes['worst']][1]:.3e}; ms (median of 5): B6 route forward "
+                  f"{routes['b6_fwd']:.4f} vs B3 route {routes['b3_fwd']:.4f}, forward + backward "
+                  f"{routes['b6_fwd_bwd']:.4f} vs {routes['b3_fwd_bwd']:.4f}; forward bound {bnd['fwd'][0]:.4f} ms "
+                  f"by {bnd['fwd'][1]} ({frames} valid frames: {flops / 1e9:.2f} GFLOP) [{card}]")
+            for n, (err, scale) in fwd_errs.items():
+                require(np.isfinite(err) and err <= B3_RTOL * scale, f"{tag}: {n} differs: {err}")
+            require(routes["out_err"][0] <= B3_RTOL * routes["out_err"][1], f"{tag}: the B3 route's out differs")
+            for n, (err, scale) in routes["grads"].items():
+                require(np.isfinite(err) and err <= WGRAD_RTOL * scale, f"{tag}: route gradient {n} differs: {err}")
+            print_grads(f"{tag} bwd", dx_err, dx_r[valid].abs().max().item(), leaf_report(leaves(gk), leaves(gr)),
+                        bitwise, fwd_errs["out"][:1] + (B3_RTOL * fwd_errs["out"][1],), times, bnd["bwd"], card)
+            out["max_abs_err"] = max(out["max_abs_err"], dx_err)
+            out["fwd_err"] = max(out["fwd_err"], fwd_errs["xc"][0], fwd_errs["out"][0])
+            if i == 0 and p > 0:  # the train step's shape
+                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd["bwd"][0], bound_by=bnd["bwd"][1],
+                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], fwd_bound_ms=bnd["fwd"][0],
+                           fwd_bound_by=bnd["fwd"][1])
+            del dx_k, gk, dx_k2, gk2, dx_r, gr
+    # the masks, as in phase 22: with conv biases of 10 every pre-dropout x_in is positive
+    B, T = B3_SHAPES[0]
+    rng = np.random.RandomState(780)
+    lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device)
+    g = torch.zeros(B, T, C, device=device)
+    probe = wn_ops.WNWeights(ws=w.ws, bs=w.bs, win=tuple(t * 0.01 for t in w.win),
+                             bin=tuple(torch.full_like(b, 10.0) for b in w.bin), wrs=w.wrs, brs=w.brs,
+                             wend=w.wend, bend=w.bend, dilations=w.dilations)
+    with torch.no_grad():
+        plain = fs_ops.flow_step_backward(x, lens, aln, alb, mt, probe, g, g, seed, 0.0, return_buffers=True)[5]["xin"]
+        require(bool((plain > 0).all()), "the B6 dropout probe's conv outputs are not all positive")
+        bufs = [fs_ops.flow_step_backward(x, lens, aln, alb, mt, probe, g, g, s_, B3_DROP,
+                                          return_buffers=True)[5]["xin"] > 0 for s_ in (seed, seed + 1)]
+    for i in range(L):
+        require(torch.equal(bufs[0][i], wn_ops.keep_mask(seed, lens, T, i, 2 * H, B3_DROP) > 0),
+                f"B6 layer {i}: the kernel's masks differ from the B3 plain version's")
+    n = bufs[0].numel()
+    keep_rates_ok({"x_in": (int(bufs[0].sum()), n)}, B3_DROP)
+    changed = (bufs[0] != bufs[1]).float().mean().item()
+    print(f"[B6 dropout] p={B3_DROP} B={B} T={T}: the kernels' masks of all {L} layers equal the B3 plain "
+          f"version's bit for bit; keep rate {bufs[0].float().mean().item():.6f} (expect {1 - B3_DROP:.6f}); "
+          f"another seed changes {changed:.4f} [{card}]")
+    require(changed > B3_DROP, f"B6: another seed changed only {changed} of the masks")
+    return out
+
+
+def flow_step_routes(act, inv, x, mask, lens, w, g_xc, g_out, seed, p) -> dict:
+    """The B3 route of one flow step (the ActNorm and InvConvNear modules,
+    then B3's kernels) and the B6 route through autograd: the B3 route's out
+    against the B6 route's at valid frames, the gradients of x and of the
+    prefix's parameters (WGRAD_RTOL of each leaf's scale), and both routes'
+    forward and forward + backward times."""
+    half = x.shape[2] // 2
+    xg = x.clone().requires_grad_(True)
+    wl = wn_ops.WNWeights.from_flat([t.clone().requires_grad_(True) for t in w.flat()], w.dilations)
+    inputs = [xg, act.logs, act.bias, inv.weight, *wl.flat()]
+
+    def b3():
+        x1, _ = act(xg, mask, lens)
+        xc, _ = inv(x1, mask, lens)
+        return xc, wn_ops.wn_coupling(xc[..., :half], lens, wl, seed, p)
+
+    def b6():
+        return fs_ops.flow_step(xg, lens, act.logs.view(-1), act.bias.view(-1), inv.dense_matrix_t(), wl, seed, p)
+
+    def grads(route):
+        return torch.autograd.grad(route(), inputs, (g_xc, g_out))
+
+    valid = mask[..., 0] > 0
+    with torch.no_grad():
+        o3, o6 = b3()[1], b6()[1]
+    names = ["x", "actnorm.logs", "actnorm.bias", "invconv.weight"]
+    g3 = dict(zip(names, grads(b3)))
+    g6 = dict(zip(names, grads(b6)))
+    g3["x"], g6["x"] = g3["x"][valid], g6["x"][valid]
+    report = leaf_report(g6, g3)
+    with torch.no_grad():
+        b3_fwd, b6_fwd = (cuda_ms(r, reps=5, warmup=1) for r in (b3, b6))
+    return {"out_err": ((o6 - o3)[valid].abs().max().item(), o3[valid].abs().max().item()), "grads": report,
+            "worst": max(report, key=lambda n: report[n][0] / report[n][1]), "b3_fwd": b3_fwd, "b6_fwd": b6_fwd,
+            "b3_fwd_bwd": cuda_ms(lambda: grads(b3), reps=5, warmup=1),
+            "b6_fwd_bwd": cuda_ms(lambda: grads(b6), reps=5, warmup=1)}
+
+
 def band_keys(lens: torch.Tensor, T: int, window: int) -> torch.Tensor:
     """[B, T, 2w+1] bool: row t's band key t + o - w is a valid key of a valid row."""
     t = torch.arange(T, device=lens.device)
@@ -1714,34 +1889,45 @@ def enc_masks(x, lens, w: enc_ops.EncLayerWeights, g, seed, bufs: dict, plain: d
 
 def glow_train_counts() -> tuple:
     return (enc_ops.enc_layer.launches, enc_ops.enc_layer_backward.launches, wn_ops.wn_coupling.launches,
-            wn_ops.wn_coupling_backward.launches, mas_ops.maximum_path_auto.launches)
+            wn_ops.wn_coupling_backward.launches, mas_ops.maximum_path_auto.launches, fs_ops.flow_step.launches,
+            fs_ops.flow_step_backward.launches)
 
 
 def zero_glow_train_counts() -> None:
     zero_glow_counts()
     enc_ops.enc_layer_backward.launches = wn_ops.wn_coupling_backward.launches = 0
+    fs_ops.flow_step_backward.launches = 0
 
 
 def actnorm_outputs(model: GlowTTS, batch: dict, seed: int) -> list:
     """(output, mask) of every ActNorm in a train-mode forward whose dropout
-    generator starts at ``seed``."""
+    generator starts at ``seed``, on the B3 route (the B6 route runs no
+    ActNorm module; both draw the same masks)."""
     seen = []
     hooks = [f.register_forward_hook(lambda m, inp, out: seen.append((out[0], inp[1])))
              for f in model.decoder.flows if isinstance(f, glow_flows.ActNorm)]
+    route = model.decoder.fused_flow_step
+    model.decoder.fused_flow_step = False
     try:
         with torch.no_grad():
             model.supervised_step(batch, train=True, generators={
                 "device_dropout": torch.Generator(device=batch["audio"].device).manual_seed(seed)})
     finally:
+        model.decoder.fused_flow_step = route
         for hook in hooks:
             hook.remove()
+    require(len(seen) == len(model.decoder.flows) // 3, f"{len(seen)} ActNorm outputs seen")
     return seen
 
 
-def phase_glow_train(device, card: str) -> dict:
+def phase_glow_train(device, card: str, flow_step: bool = False) -> dict:
     """The Glow-TTS training path at batch 8 x 768 frames: ddi_init, then
-    TRAIN_STEPS train steps with dropout, AdamW + Noam and the EMA."""
-    model = build_glow(device, GLOW_SEED + 1)
+    GLOW_TRAIN_STEPS train steps with dropout, AdamW + Noam and the EMA, on
+    the B3 route or (``flow_step``) the B6 route."""
+    tag = "[glow train B6]" if flow_step else "[glow train]"
+    expect = (6, 6, 0, 0, 1, 12, 12) if flow_step else (6, 6, 12, 12, 1, 0, 0)
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold: not this route's
+    model = build_glow(device, GLOW_SEED + 1, flow_step)
     batch = glow_val_batch(GLOW_BATCH, device, seed=31)
     ddi_seed = 17
     model.ddi_init(batch, {"device_dropout": torch.Generator(device=device).manual_seed(ddi_seed)})
@@ -1762,7 +1948,7 @@ def phase_glow_train(device, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_glow_train_counts()
     times, per_step, losses = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(GLOW_TRAIN_STEPS):
         before = glow_train_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1773,30 +1959,51 @@ def phase_glow_train(device, card: str) -> dict:
         raise_if_not_finite(scalars, state.step)
         losses.append({k: round(float(v), 6) for k, v in scalars.items() if k != "finite"})
     totals = glow_train_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     bad = [k for k, p in model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.abs().sum() > 0)]
     ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
-    median = statistics.median(times[1:])
+    median = statistics.median(times[GLOW_STEADY_FROM - 1:])
     frames = GLOW_BATCH * GLOW_FRAMES
     valid = int((batch["audio_len"] // HOP).sum())
-    print(f"[glow train] ddi_init on B={GLOW_BATCH} x {GLOW_FRAMES} frames: each ActNorm's output at valid frames "
+    prefix_params = [k for k, _ in model.named_parameters() if k.endswith((".logs", ".bias", ".weight"))
+                     and k.startswith("decoder.flows.") and int(k.split(".")[2]) % 3 < 2]
+    print(f"{tag} ddi_init on B={GLOW_BATCH} x {GLOW_FRAMES} frames: each ActNorm's output at valid frames "
           f"has per-channel mean within {worst_mean:.2e} of 0 and variance within {worst_var:.2e} of 1 [{card}]")
-    print(f"[glow train] B={GLOW_BATCH} x {GLOW_FRAMES} frames ({valid} valid) and {GLOW_TOKENS} tokens, ragged, "
+    print(f"{tag} B={GLOW_BATCH} x {GLOW_FRAMES} frames ({valid} valid) and {GLOW_TOKENS} tokens, ragged, "
           f"mel on the card; dropout (encoder {model.encoder.p_dropout}, decoder "
           f"{model.decoder.flows[2].p_dropout}, prenet {model.encoder.pre.P_DROPOUT}), AdamW + Noam (lr at step 1 "
           f"{schedule(0):.3e}) + parameter EMA: losses per step {losses}")
-    print(f"[glow train] launches per step (B5 fwd, B5 bwd, B3 fwd, B3 bwd, B4) {per_step}; every one of "
-          f"{len(list(model.parameters()))} parameters has a finite nonzero gradient: {not bad}; "
-          f"{ema_moved}/{len(ema0)} EMA parameters moved")
-    print(f"[glow train] step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps 2-{TRAIN_STEPS} "
-          f"{median:.3f} ms = {frames / (median / 1e3):.1f} mel-frames/s ({GLOW_BATCH} x {GLOW_FRAMES} per step; "
-          f"{valid / (median / 1e3):.1f} valid frames/s); max_memory_allocated {peak:.3f} GiB [{card}]")
+    print(f"{tag} launches per step (B5 fwd, B5 bwd, B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) {per_step}; every one "
+          f"of {len(list(model.parameters()))} parameters ({len(prefix_params)} ActNorm and InvConvNear) has a "
+          f"finite nonzero gradient: {not bad}; {ema_moved}/{len(ema0)} EMA parameters moved")
+    print(f"{tag} step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps {GLOW_STEADY_FROM}-"
+          f"{GLOW_TRAIN_STEPS} {median:.3f} ms = {frames / (median / 1e3):.1f} mel-frames/s ({GLOW_BATCH} x "
+          f"{GLOW_FRAMES} per step; {valid / (median / 1e3):.1f} valid frames/s); max_memory_allocated "
+          f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held before the phase [{card}]")
     require(worst_mean <= 1e-3 and worst_var <= 1e-3, f"ddi_init: mean {worst_mean}, variance {worst_var}")
-    require(all(c == (6, 6, 12, 12, 1) for c in per_step), f"train step launches {per_step} != (6, 6, 12, 12, 1)")
+    require(all(c == expect for c in per_step), f"train step launches {per_step} != {expect}")
+    require(len(prefix_params) == 3 * len(model.decoder.flows) // 3, f"prefix parameters {prefix_params}")
     require(not bad, f"parameters without a finite nonzero gradient: {bad[:8]}")
     require(ema_moved == len(ema0), f"only {ema_moved}/{len(ema0)} EMA parameters moved")
-    return {"launches": totals, "step_ms": median}
+    return {"launches": totals, "step_ms": median, "frames_per_s": frames / (median / 1e3), "peak": peak,
+            "loss1": losses[0]["loss"], "model": model,
+            "step": lambda: raise_if_not_finite(train_step(state, batch, TRAIN_SEED), state.step)}
+
+
+def steps_in_turns(steps: dict, rounds: int) -> dict:
+    """name -> wall times (ms) of ``rounds`` calls of each step function,
+    taken in turns: a, b, then b, a, and so on."""
+    names = list(steps)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[n]()
+            torch.cuda.synchronize()
+            times[n].append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def set_dropout(model: GlowTTS, p: float) -> None:
@@ -1807,13 +2014,15 @@ def set_dropout(model: GlowTTS, p: float) -> None:
         flow.p_dropout = p
 
 
-def phase_glow_train_vs_cpu(device, card: str) -> None:
+def phase_glow_train_vs_cpu(device, card: str, flow_step: bool = False) -> None:
     """One train step (p=0) on the card against the CPU on 2 sequences, each
     held against the same step in fp64 on the CPU, as phase 10 does: the
-    card's gradients must come as close to fp64 as the CPU's fp32 ones."""
+    card's gradients must come as close to fp64 as the CPU's fp32 ones. On
+    the B3 route or (``flow_step``) the B6 route."""
+    tag = "[glow train vs cpu B6]" if flow_step else "[glow train vs cpu]"
     n = GLOW_VS_CPU
     sub = {k: v[:n] for k, v in glow_val_batch(GLOW_BATCH, device, seed=32).items()}
-    models = {"cuda": build_glow(device, GLOW_SEED + 2)}
+    models = {"cuda": build_glow(device, GLOW_SEED + 2, flow_step)}
     set_dropout(models["cuda"], 0.0)
     with torch.no_grad():
         spect, spect_len = spect_from_audio(models["cuda"], sub)
@@ -1839,9 +2048,9 @@ def phase_glow_train_vs_cpu(device, card: str) -> None:
 
     errs = {name: rel_l2(out[name][1]) for name in ("cuda", "cpu")}
     stats = {name: (statistics.median(e.values()), max(e.values())) for name, e in errs.items()}
-    print(f"[glow train vs cpu] {n} sequences, p=0: losses card {out['cuda'][0]}; cpu {out['cpu'][0]}; cpu fp64 "
+    print(f"{tag} {n} sequences, p=0: losses card {out['cuda'][0]}; cpu {out['cpu'][0]}; cpu fp64 "
           f"{out['cpu64'][0]}")
-    print(f"[glow train vs cpu] gradients against the fp64 step, relative L2 over {len(ref)} parameters "
+    print(f"{tag} gradients against the fp64 step, relative L2 over {len(ref)} parameters "
           f"(denominator floored at 1e-4 of the global norm): card median {stats['cuda'][0]:.3e} worst "
           f"{stats['cuda'][1]:.3e}; cpu fp32 median {stats['cpu'][0]:.3e} worst {stats['cpu'][1]:.3e} (card within "
           f"2x + {STEP_GRAD_MEDIAN_ATOL:g} / {STEP_GRAD_WORST_ATOL:g}) [{card}]")
@@ -1893,13 +2102,44 @@ def main() -> None:
     torch.cuda.empty_cache()
     glow_train = phase_glow_train(device, card)
     phase_glow_train_vs_cpu(device, card)
-    b5_fwd_n, b5_bwd_n, b3_fwd_n, b3_bwd_n, b4_n = glow_train["launches"]
+    b5_fwd_n, b5_bwd_n, b3_fwd_n, b3_bwd_n, b4_n, _, _ = glow_train["launches"]
+    torch.cuda.empty_cache()
+
+    glow = build_glow(device, GLOW_SEED, flow_step=True)
+    b6 = phase_flow_step(glow, device, card)
+    del glow
+    torch.cuda.empty_cache()
+    glow_train_b6 = phase_glow_train(device, card, flow_step=True)
+    route_rel = abs(glow_train_b6["loss1"] - glow_train["loss1"]) / abs(glow_train["loss1"])
+    print(f"[glow train A/B] {GLOW_TRAIN_STEPS} steps each, the same model seed, batch and dropout draws; median "
+          f"of steps {GLOW_STEADY_FROM}-{GLOW_TRAIN_STEPS}: B3 route {glow_train['step_ms']:.3f} ms = "
+          f"{glow_train['frames_per_s']:.1f} mel-frames/s, peak {glow_train['peak']:.3f} GiB; B6 route "
+          f"{glow_train_b6['step_ms']:.3f} ms = {glow_train_b6['frames_per_s']:.1f} mel-frames/s, peak "
+          f"{glow_train_b6['peak']:.3f} GiB; B6 / B3 step time {glow_train_b6['step_ms'] / glow_train['step_ms']:.4f}; "
+          f"step 1 loss B3 {glow_train['loss1']} B6 {glow_train_b6['loss1']} (relative {route_rel:.2e}, tol "
+          f"{ROUTE_LOSS_RTOL:g}) [{card}]")
+    require(route_rel <= ROUTE_LOSS_RTOL, f"step 1's loss differs between the routes: {route_rel}")
+    turns = steps_in_turns({"B3": glow_train.pop("step"), "B6": glow_train_b6.pop("step")}, GLOW_AB_ROUNDS)
+    medians = {n: statistics.median(t) for n, t in turns.items()}
+    print(f"[glow train A/B] then {GLOW_AB_ROUNDS} more steps of each, in turns (B3, B6, B6, B3, ...): step ms B3 "
+          f"{', '.join(f'{t:.3f}' for t in turns['B3'])}; B6 {', '.join(f'{t:.3f}' for t in turns['B6'])}; median "
+          f"B3 {medians['B3']:.3f} ms = {GLOW_BATCH * GLOW_FRAMES / (medians['B3'] / 1e3):.1f} mel-frames/s, B6 "
+          f"{medians['B6']:.3f} ms = {GLOW_BATCH * GLOW_FRAMES / (medians['B6'] / 1e3):.1f} mel-frames/s; B6 / B3 "
+          f"{medians['B6'] / medians['B3']:.4f} [{card}]")
+    del glow_train["model"]
+    val_b6 = phase_glow_val(glow_train_b6.pop("model"), device, card, expect=(6, 12, 1, 12))
+    del val_b6["state"], val_b6["batch"]
+    torch.cuda.empty_cache()
+    phase_glow_train_vs_cpu(device, card, flow_step=True)
+    b6_fwd_n = glow_train_b6["launches"][5] + val_b6["launches"][3]
+    b6_bwd_n = glow_train_b6["launches"][6]
 
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
           f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
-          f"one synthesis call (B5, B3, B4) {glow_launches}; Glow-TTS training path (B5 fwd, B5 bwd, "
-          f"B3 fwd, B3 bwd, B4) {glow_train['launches']}")
+          f"one synthesis call (B5, B3, B4, B6) {glow_launches}; Glow-TTS training path (B5 fwd, B5 bwd, "
+          f"B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) {glow_train['launches']}; on the B6 route "
+          f"{glow_train_b6['launches']} and one val step {val_b6['launches']}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
         return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
@@ -1927,7 +2167,11 @@ def main() -> None:
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
               b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"]),
         entry("enc_layer_bwd", "enc_layer_bwd.cu", PALLAS_ENC + ":496", b5_bwd_n, b5_bwd["max_abs_err"],
-              b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"])]}))
+              b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"]),
+        entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
+              b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"]),
+        entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
+              b6["plain_ms"], b6["bound_ms"], b6["bound_by"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

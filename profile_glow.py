@@ -5,8 +5,9 @@
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
 seeded weights), and runs torch.profiler over 3 calls each of: the train step
-(dropout on, AdamW + Noam, parameter EMA) and the val step at batch 8 x 768
-frames and 256 tokens, and synthesize_ids at batch 1 and 8 (100-256 tokens,
+(dropout on, AdamW + Noam, parameter EMA) on the conditioner-only route (B3)
+and on the whole-flow-step route (B6, fused_flow_step: true), and the val
+step at batch 8 x 768 frames and 256 tokens, and synthesize_ids at batch 1 and 8 (100-256 tokens,
 max_frames 1024, 32 Griffin-Lim iterations). For each it
 prints the wall time per call, the device's busy share (the sum of kernel
 times over the wall time; one stream, so kernels do not overlap), the
@@ -72,14 +73,16 @@ def main() -> None:
     card = cs.phase_device()
     device = cuda_device()
     _build.build()
-    train_model = cs.build_glow(device, cs.GLOW_SEED + 1)
     batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)
-    opt, schedule = build_optimizer(train_model.parameters(), cs.configs.GLOW_TTS_TPU_OPTIMIZER,
-                                    cs.configs.GLOW_TTS_TPU_SCHEDULER, cs.configs.GLOW_TTS_TPU)
-    train_state = TrainState.create(train_model, opt, use_ema=True)
-    train_step = make_train_step(schedule, default_mu(cs.GLOW_BATCH, 1), use_ema=True)
-    report("train step", lambda: train_step(train_state, batch, cs.TRAIN_SEED), card)
-    del train_model, train_state, opt
+    for flow_step in (False, True):
+        train_model = cs.build_glow(device, cs.GLOW_SEED + 1, flow_step)
+        opt, schedule = build_optimizer(train_model.parameters(), cs.configs.GLOW_TTS_TPU_OPTIMIZER,
+                                        cs.configs.GLOW_TTS_TPU_SCHEDULER, cs.configs.GLOW_TTS_TPU)
+        train_state = TrainState.create(train_model, opt, use_ema=True)
+        train_step = make_train_step(schedule, default_mu(cs.GLOW_BATCH, 1), use_ema=True)
+        report(f"train step, {'B6' if flow_step else 'B3'} route",
+               lambda: train_step(train_state, batch, cs.TRAIN_SEED), card)
+        del train_model, train_state, opt
     model = cs.build_glow(device, cs.GLOW_SEED)
     opt, _ = build_optimizer(model.parameters(), cs.configs.GLOW_TTS_TPU_OPTIMIZER,
                              cs.configs.GLOW_TTS_TPU_SCHEDULER, cs.configs.GLOW_TTS_TPU)

@@ -5,7 +5,9 @@
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * w[n, c, tap]
 //
 // with pad = (taps - 1) / 2 * dil, zero rows outside [0, T) and, when
-// mask_in is set, at t >= lens[b]; w in PyTorch's Conv1d layout
+// mask_in is set, at t >= lens[b] (ACTNORM_FWD: the loader first applies an
+// ActNorm to what it reads, pre_bias[c] + exp(pre_logs[c]) * in); w in
+// PyTorch's Conv1d layout
 // [n_out, c_in, taps]. With `wt` set, w is the weight of the conv being
 // transposed ([c_in, n_out, taps]) and is read as w[c, n, taps - 1 - tap]:
 // the launch then computes that conv's input gradient. Input channels at or
@@ -36,6 +38,11 @@
 //             out2 = dx and out3 = out * drop * valid(t) when set; needs TN == n_out
 //   DRELU     out = res > 0 ? z * (dropout ? keep_scale : 1) : 0 (res: the relu's
 //             output after dropout and the mask)
+//   ACTNORM_FWD out = z, the input through an ActNorm in the loader; with in_out set
+//             (one tap), the blocks of the first channel tile also write the rows
+//             they load, after the ActNorm and the mask, to in_out (rows ldio apart)
+//   ACTNORM_BWD out2 = z * valid(t) and out = out2 * exp(out_logs[n]) (rows ldo apart):
+//             an ActNorm's input cotangent from its output's
 // valid(t) = t < lens[b]. drop is 1 without dropout (threshold 0), else the
 // factor of (row t, output column n): hash_draw(stream_key(seed, b *
 // stream_mul + stream_add), t * drop_ld + n) >= threshold ? keep_scale : 0
@@ -53,7 +60,7 @@
 namespace conv_rows {
 
 enum Epilogue : int { BIAS = 0, MASK = 1, RELU_MASK = 2, GATE = 3, RES_SKIP = 4, LN = 5, GATE_BWD = 6,
-                      LN_BWD = 7, DRELU = 8 };
+                      LN_BWD = 7, DRELU = 8, ACTNORM_FWD = 9, ACTNORM_BWD = 10 };
 
 constexpr int NT = 256;  // threads per block: 32 channel groups x 8 row groups
 constexpr int KC = 16;   // input channels per shared-memory stage
@@ -61,6 +68,10 @@ constexpr int KC = 16;   // input channels per shared-memory stage
 struct Args {
   const float* in;
   int ldi, cin, mask_in;
+  const float* pre_logs;  // ACTNORM_FWD: the loader's ActNorm
+  const float* pre_bias;
+  float* in_out;          // ACTNORM_FWD, one tap: the loaded rows written back (rows ldio apart), or null
+  int ldio;
   const float* in2;   // channels >= split (when set)
   int ldi2, split;
   const float* w;     // [n_out, cin, taps], or with wt [cin, n_out, taps]
@@ -84,6 +95,7 @@ struct Args {
   int ldz;
   float* out2;        // LN_BWD
   float* out3;
+  const float* out_logs;  // ACTNORM_BWD
   const long long* seed;  // dropout: threshold 0 means none
   unsigned threshold;
   float keep_scale;
@@ -144,9 +156,13 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
     for (int e = tid; e < xrows * KC; e += NT) {
       const int rr = e / KC, c = e % KC, t = r0 - pad + rr, ch = c0 + c;
       float x = 0.0f;
-      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len))
+      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len)) {
         x = (a.in2 && ch >= a.split) ? a.in2[(row0 + t) * a.ldi2 + (ch - a.split)] : a.in[(row0 + t) * a.ldi + ch];
+        if (EPI == ACTNORM_FWD) x = a.pre_bias[ch] + expf(a.pre_logs[ch]) * x;
+      }
       xs[rr * KC + c] = x;
+      if (EPI == ACTNORM_FWD && TAPS == 1 && a.in_out && blockIdx.y == 0 && t < a.T && ch < a.cin)
+        a.in_out[(row0 + t) * a.ldio + ch] = x;
     }
     for (int e = tid; e < TN * KC * TAPS; e += NT) {
       const int j = e / (KC * TAPS), kk = e % (KC * TAPS), ch = c0 + kk / TAPS, tap = kk % TAPS;
@@ -277,6 +293,10 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
       const float th = tanhf(zt), sg = 1.0f / (1.0f + expf(-zg));
       a.out[row * a.ldo + col] = z * sg * (1.0f - th * th) * drop_factor(a, key, t, col);
       a.out[row * a.ldo + a.hidden + col] = z * th * sg * (1.0f - sg) * drop_factor(a, key, t, a.hidden + col);
+    } else if (EPI == ACTNORM_BWD) {
+      const float v = z * valid;
+      a.out2[row * a.ldo + col] = v;
+      a.out[row * a.ldo + col] = v * expf(a.out_logs[col]);
     } else if (EPI == DRELU) {
       a.out[row * a.ldo + col] = a.res[row * a.ldr + col] > 0.0f ? z * (a.threshold ? a.keep_scale : 1.0f) : 0.0f;
     } else {

@@ -6,7 +6,8 @@
 // `groups` to a frame when a frame holds several heads):
 //   outer: out_w[n * ldn + m * ldm] = sum_r Y[r, n] * X[r + shift, m]
 //   diag:  out_w[n * ldn]           = sum_r Y[r, n] * X[r, n]
-//   out_b[n] = sum_r Y[r, n] when out_b is set (a bias gradient)
+//   out_b[n] = sum_r Y[r, n] when out_b is set (a bias gradient); with out_w
+//   null a problem gives only these column sums
 // where row r is frame f = r / groups, group g = r % groups of sequence
 // b = f / T at t = f % T; Y[r, n] = Y[f * ldy + g * gy + n], zero at t >=
 // lens[b] when mask_y; X[r + shift, m] = X[(f + shift) * ldx + g * gx + m],
@@ -32,7 +33,7 @@ constexpr int NT = 256;
 constexpr int TILE = 64;
 constexpr int SLAB = 16;
 constexpr int PART = TILE * TILE + TILE;  // a partial: the tile, then its column sums of Y
-constexpr int MAX_PROBLEMS = 32;          // per launch: the batch travels as a kernel parameter
+constexpr int MAX_PROBLEMS = 40;          // per launch: the batch travels as a kernel parameter (< 4 KB)
 
 struct Problem {
   const float* X;
@@ -46,6 +47,7 @@ struct Problem {
 struct Batch {
   Problem p[MAX_PROBLEMS];
 };
+static_assert(sizeof(Batch) + 64 <= 4096, "a launch's problems must fit the 4 KB of kernel parameters");
 
 __host__ __device__ inline int m_tiles(const Problem& p) { return p.diag ? 1 : (p.M + TILE - 1) / TILE; }
 __host__ __device__ inline int tiles(const Problem& p) { return (p.N + TILE - 1) / TILE * m_tiles(p); }
@@ -139,7 +141,7 @@ __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(const Batch batch, int
   const Problem& pr = batch.p[blockIdx.z];
   const int tile = blockIdx.y;
   const int e = blockIdx.x * NT + threadIdx.x;
-  if (tile >= tiles(pr) || e >= PART) return;
+  if (tile >= tiles(pr) || e >= PART || (e < TILE * TILE && !pr.out_w)) return;
   const int mt = m_tiles(pr);
   const int n0 = tile / mt * TILE, m0 = tile % mt * TILE;
   int n, m = 0;

@@ -1,7 +1,9 @@
-// The Glow-TTS coupling conditioner's forward chain, shared by the forward
-// kernel (wn_coupling_fwd.cu) and the backward's recompute
-// (wn_coupling_bwd.cu): the start 1x1, then per layer the dilated conv with
-// dropout and the gate, and the res/skip 1x1, each a launch of
+// The Glow-TTS coupling conditioner's launch chains, shared by its kernels
+// (wn_coupling_{fwd,bwd}.cu) and the whole flow step's (flow_step_{fwd,bwd}.cu):
+// the forward (start 1x1, then per layer the dilated conv with dropout and the
+// gate and the res/skip 1x1, then the end 1x1), the backward's recompute and
+// transposed products, its weight-gradient problems, and the flow step's
+// prefix (ActNorm + InvConvNear as one [C, C] product), each step a launch of
 // conv_rows.cuh.
 //
 // Dropout of layer i's conv output (both halves, before the gate): stream
@@ -11,7 +13,10 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 #include "conv_rows.cuh"
+#include "wgrad_rows.cuh"
 
 namespace wn_coupling {
 
@@ -24,6 +29,8 @@ struct Weights {
   const float* const* bin;
   const float* const* wrs;
   const float* const* brs;
+  const float* wend;
+  const float* bend;
 };
 
 struct Shape {
@@ -34,6 +41,23 @@ struct Dropout {
   const long long* seed;
   unsigned threshold;
   float keep_scale;
+};
+
+struct Grads {
+  float* dws;
+  float* dbs;
+  float* const* dwin;
+  float* const* dbin;
+  float* const* dwrs;
+  float* const* dbrs;
+  float* dwend;
+  float* dbend;
+};
+
+// The backward's buffers in device memory: hs, acts, dh [L, B, T, H], xin,
+// dxin [L, B, T, 2H], skip, dskip [B, T, H].
+struct Scratch {
+  float *hs, *xin, *acts, *skip, *dskip, *dh, *dxin;
 };
 
 inline bool valid_shape(const Shape& s) {
@@ -85,6 +109,146 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The whole conditioner: the chain with h updated in place, then out =
+// (skip * valid) W_end + b_end [B, T, c_out] contiguous. 2 + 2 L launches.
+template <class Tag>
+cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
+                    const Dropout& drop, float* out, float* h, float* acts, float* skip, cudaStream_t s) {
+  using namespace conv_rows;
+  cudaError_t err = forward_chain<Tag>(x0, ldx, lens, w, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
+  if (err != cudaSuccess) return err;
+  Args e{};
+  e.lens = lens; e.T = sh.T; e.dil = 1;
+  e.in = skip; e.ldi = sh.H; e.cin = sh.H; e.mask_in = 1;
+  e.w = w.wend; e.bias = w.bend; e.n_out = sh.c_out; e.out = out; e.ldo = sh.c_out;
+  return launch<Tag, 1, 32, 64, BIAS>(e, sh.B, s);
+}
+
+// The backward for the output cotangent g [B, T, c_out], up to the weight
+// gradients: the recompute into the scratch, dskip = (g W_end^T) * valid,
+// per layer in reverse the gate's derivative with the regenerated mask and
+// dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
+//   dx0 = (res + dh_0 W_s^T) * valid   (res rows ldres apart; 0 when null)
+// into dx0 (rows ld_dx0 apart). 3 + 4 L launches.
+template <class Tag>
+cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const float* g, const Weights& w,
+                           const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
+                           float* dx0, int ld_dx0, cudaStream_t s) {
+  using namespace conv_rows;
+  const int B = sh.B, H = sh.H;
+  const size_t lay = (size_t)B * sh.T * H;
+  cudaError_t err = forward_chain<Tag>(x0, ldx, lens, w, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay,
+                                       sc.skip, s);
+  if (err != cudaSuccess) return err;
+
+  Args a{};
+  a.lens = lens; a.T = sh.T; a.dil = 1; a.wt = 1; a.hidden = H;
+  a.seed = drop.seed; a.threshold = drop.threshold; a.keep_scale = drop.keep_scale;
+  a.stream_mul = WN_STREAMS; a.drop_ld = 2 * H;
+
+  Args e = a;  // dskip = (g W_end^T) * valid
+  e.in = g; e.ldi = sh.c_out; e.cin = sh.c_out; e.mask_in = 1;
+  e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H;
+  err = launch<Tag, 1, 32, 64, MASK>(e, B, s);
+  if (err != cudaSuccess) return err;
+
+  for (int i = sh.n_layers - 1; i >= 0; --i) {
+    const bool last = i == sh.n_layers - 1;
+    int dil = 1;
+    for (int j = 0; j < i; ++j) dil *= sh.rate;
+    float* dh_next = last ? nullptr : sc.dh + (i + 1) * lay;
+    Args r = a;  // dacts = drs W_rs^T, then the gate's derivative and the mask
+    if (last) {
+      r.in = sc.dskip; r.ldi = H; r.cin = H;
+    } else {
+      r.in = dh_next; r.ldi = H; r.in2 = sc.dskip; r.ldi2 = H; r.split = H; r.cin = 2 * H;
+    }
+    r.w = w.wrs[i]; r.n_out = H; r.out = sc.dxin + 2 * i * lay; r.ldo = 2 * H;
+    r.xin = sc.xin + 2 * i * lay; r.ldx = 2 * H; r.stream_add = i;
+    err = launch<Tag, 1, 32, 64, GATE_BWD>(r, B, s);
+    if (err != cudaSuccess) return err;
+
+    Args c = a;  // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid
+    c.in = sc.dxin + 2 * i * lay; c.ldi = 2 * H; c.cin = 2 * H; c.mask_in = 1;
+    c.w = w.win[i]; c.n_out = H; c.dil = dil; c.out = sc.dh + i * lay; c.ldo = H;
+    if (last) {
+      err = launch_taps<Tag, 32, 64, MASK>(sh.kernel_size, c, B, s);
+    } else {
+      c.res = dh_next; c.ldr = H; c.hidden = 0;
+      err = launch_taps<Tag, 32, 64, RES_SKIP>(sh.kernel_size, c, B, s);
+    }
+    if (err != cudaSuccess) return err;
+  }
+
+  Args x = a;  // dx0 = (res + dh_0 W_s^T) * valid
+  x.in = sc.dh; x.ldi = H; x.cin = H; x.mask_in = 1;
+  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0;
+  if (!res) return launch<Tag, 1, 32, 64, MASK>(x, B, s);
+  x.res = res; x.ldr = ldres; x.hidden = 0;
+  return launch<Tag, 1, 32, 64, RES_SKIP>(x, B, s);
+}
+
+// Every conditioner weight gradient as a reduction problem (pointers may be
+// null when only the partials' size is wanted): W_end from (skip * valid, g),
+// W_rs_i from (acts_i, [dh_{i+1}, dskip]), W_in_i from (h_i shifted by each
+// tap, dx_in_i), W_s from (x0, dh_0); the biases are the column sums.
+inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const float* g, const Grads& d,
+                                                 const Scratch& sc, const Shape& sh) {
+  using wgrad_rows::problem;
+  const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
+  const size_t lay = (size_t)sh.B * sh.T * H;
+  auto at = [](const float* p, size_t off) { return p ? p + off : nullptr; };
+  auto atw = [](float* p, size_t off) { return p ? p + off : nullptr; };
+  std::vector<wgrad_rows::Problem> probs;
+  wgrad_rows::Problem p = problem(x0, ldx, sh.half, sc.dh, H, H, d.dws, sh.half, 1);
+  p.out_b = d.dbs;
+  probs.push_back(p);
+  int dil = 1;
+  for (int i = 0; i < L; ++i, dil *= sh.rate) {
+    const int pad = (k - 1) / 2 * dil;
+    for (int j = 0; j < k; ++j) {
+      p = problem(at(sc.hs, i * lay), H, H, at(sc.dxin, 2 * i * lay), 2 * H, 2 * H,
+                  atw(d.dwin ? d.dwin[i] : nullptr, j), H * k, k);
+      p.shift = j * dil - pad;
+      p.out_b = j == 0 && d.dbin ? d.dbin[i] : nullptr;
+      probs.push_back(p);
+    }
+    float* dwrs = d.dwrs ? d.dwrs[i] : nullptr;
+    float* dbrs = d.dbrs ? d.dbrs[i] : nullptr;
+    const bool last = i == L - 1;
+    if (!last) {  // the residual half of drs: dh_{i+1}
+      p = problem(at(sc.acts, i * lay), H, H, at(sc.dh, (i + 1) * lay), H, H, dwrs, H, 1);
+      p.out_b = dbrs;
+      probs.push_back(p);
+    }
+    p = problem(at(sc.acts, i * lay), H, H, sc.dskip, H, H, atw(dwrs, last ? 0 : (size_t)H * H), H, 1);
+    p.out_b = atw(dbrs, last ? 0 : H);
+    probs.push_back(p);
+  }
+  p = problem(sc.skip, H, H, g, sh.c_out, sh.c_out, d.dwend, H, 1);
+  p.mask_x = 1;
+  p.out_b = d.dbend;
+  probs.push_back(p);
+  return probs;
+}
+
+// The flow step's prefix (ActNorm, then InvConvNear as one dense product):
+//   xc = ((alb + exp(aln) * x) * valid) mt      x, xc [B, T, C] contiguous, mt [C, C]
+// with the ActNorm in the tile loader and mt read as the transposed weight
+// of a 1x1 conv. With x1 set, the loader's rows (the ActNorm's output) are
+// written there too. One launch.
+template <class Tag>
+cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const float* alb, const float* mt,
+                        int B, int T, int C, float* xc, float* x1, cudaStream_t s) {
+  using namespace conv_rows;
+  Args a{};
+  a.lens = lens; a.T = T; a.dil = 1;
+  a.in = x; a.ldi = C; a.cin = C; a.mask_in = 1; a.pre_logs = aln; a.pre_bias = alb;
+  a.in_out = x1; a.ldio = C;
+  a.w = mt; a.wt = 1; a.n_out = C; a.out = xc; a.ldo = C;
+  return launch<Tag, 1, 32, 64, ACTNORM_FWD>(a, B, s);
 }
 
 }  // namespace wn_coupling

@@ -54,18 +54,9 @@ extern "C" int wn_coupling_fwd(const float* x0, int ldx, const int* lens, const 
                                float* out, float* h, float* acts, float* skip, int B, int T, int half,
                                int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
                                unsigned threshold, float keep_scale, void* stream) {
-  using namespace conv_rows;
   const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
   if (!wn_coupling::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs};
-  cudaError_t err = wn_coupling::forward_chain<WnFwdTag>(x0, ldx, lens, w, sh, {seed, threshold, keep_scale},
-                                                         h, 0, acts, 0, nullptr, 0, skip, s);
-  if (err != cudaSuccess) return (int)err;
-
-  Args e{};
-  e.lens = lens; e.T = T; e.dil = 1;
-  e.in = skip; e.ldi = H; e.cin = H; e.mask_in = 1;
-  e.w = wend; e.bias = bend; e.n_out = c_out; e.out = out; e.ldo = c_out;
-  return (int)launch<WnFwdTag, 1, 32, 64, BIAS>(e, B, s);
+  const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, bend};
+  return (int)wn_coupling::forward<WnFwdTag>(x0, ldx, lens, w, sh, {seed, threshold, keep_scale}, out, h, acts,
+                                             skip, static_cast<cudaStream_t>(stream));
 }

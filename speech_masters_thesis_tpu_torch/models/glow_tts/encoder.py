@@ -7,10 +7,17 @@ Routes, as the JAX package chooses them:
   * TextEncoder: with ``fused`` and T <= ``fused_max_t`` (512) each layer is
     one call of ``ops.enc_layer.enc_layer`` (kernel B5 on the card), else
     of ``enc_layer_reference``, the unfused layer (encoder.py:149-177);
-  * FlowSpecDecoder: each coupling block's conditioner through
-    ``ops.wn_coupling.wn_coupling`` (kernel B3) when ``fused`` and the
-    squeezed T <= 768; the whole-flow-step kernel (B6, ``fused_flow_step``)
-    is not ported and raises.
+  * FlowSpecDecoder: with ``fused`` and ``fused_flow_step``, in the forward
+    direction without DDI and at squeezed T <= 768, each flow step (ActNorm,
+    InvConvNear, coupling) is one call of ``ops.flow_step.flow_step``
+    (kernel B6 on the card) and the ActNorm and InvConvNear logdets are
+    summed here (encoder.py:281-313); otherwise each coupling block's
+    conditioner goes through ``ops.wn_coupling.wn_coupling`` (kernel B3)
+    when ``fused`` and the squeezed T <= 768: DDI, the reverse pass and
+    ``infer`` take B3. Train mode with dropout stays on B6: the JAX package
+    turns B6 off away from a TPU (encoder.py:292-294) because its kernel's
+    dropout needs the TPU's hardware generator, and the port's hashed
+    dropout runs on every device.
 
 In train mode every route drops with the model's rates: each encoder layer
 and each coupling call draws one dropout seed on the card from the
@@ -123,10 +130,8 @@ class FlowSpecDecoder(nn.Module):
         super().__init__()
         if gin_channels:
             raise NotImplementedError("FlowSpecDecoder: speaker conditioning is not ported")
-        if fused and fused_flow_step:
-            raise NotImplementedError("FlowSpecDecoder: the whole-flow-step kernel (B6, "
-                                      "fused_flow_step: true) is not ported; set fused_flow_step: false")
         self.n_sqz = n_sqz
+        self.fused_flow_step = fused and fused_flow_step
         channels = in_channels * n_sqz
         flows = []
         for _ in range(n_blocks):
@@ -146,10 +151,19 @@ class FlowSpecDecoder(nn.Module):
             x, x_mask = squeeze(x, x_mask, self.n_sqz)
         lens = mask_lengths(x_mask)
         logdet_tot = None if reverse else 0.0
-        for flow in (reversed(self.flows) if reverse else self.flows):
-            x, logdet = flow(x, x_mask, lens, reverse=reverse, ddi=ddi, train=train, generator=generator)
-            if not reverse:
-                logdet_tot = logdet_tot + logdet
+        if self.fused_flow_step and not reverse and not ddi and x.shape[1] <= self.flows[2].fused_max_t:
+            x_len = lens.to(x.dtype)
+            for actnorm, invconv, coupling in zip(self.flows[0::3], self.flows[1::3], self.flows[2::3]):
+                prefix = (actnorm.logs.view(-1), actnorm.bias.view(-1), invconv.dense_matrix_t())
+                x, logdet_c = coupling(x, x_mask, lens, train=train, generator=generator, prefix=prefix)
+                slogdet = torch.linalg.slogdet(invconv.weight)[1]
+                logdet_tot = logdet_tot + (torch.sum(actnorm.logs) * x_len
+                                           + slogdet * (x.shape[2] / invconv.n_split) * x_len + logdet_c)
+        else:
+            for flow in (reversed(self.flows) if reverse else self.flows):
+                x, logdet = flow(x, x_mask, lens, reverse=reverse, ddi=ddi, train=train, generator=generator)
+                if not reverse:
+                    logdet_tot = logdet_tot + logdet
         if self.n_sqz > 1:
             x, x_mask = unsqueeze(x, x_mask, self.n_sqz)
         return x, logdet_tot

@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from speech_masters_thesis_tpu_torch.ops.basic import draw_seed
 from speech_masters_thesis_tpu_torch.ops.enc_layer import conv1d_ntc
+from speech_masters_thesis_tpu_torch.ops.flow_step import flow_step, flow_step_reference
 from speech_masters_thesis_tpu_torch.ops.wn_coupling import WNWeights, wn_coupling, wn_coupling_reference
 
 
@@ -104,9 +105,24 @@ class InvConvNear(nn.Module):
         self.n_split = n_split
         self.weight = nn.Parameter(torch.eye(n_split))
         self.register_buffer("weight_inv", None, persistent=False)
+        self.register_buffer("position_eye", torch.eye(channels // n_split), persistent=False)
 
     def inverse(self) -> torch.Tensor:
         return self.weight_inv if self.weight_inv is not None else torch.linalg.inv(self.weight)
+
+    def dense_matrix_t(self) -> torch.Tensor:
+        """The layer as one dense [C, C] matrix, transposed: forward(x) ==
+        x @ dense_matrix_t() at valid frames. M[i, j] is weight[slot(i),
+        slot(j)] where channels i and j share a group position, else 0
+        (flows.py:169-179 of the JAX package, a gather there). Channel i
+        factors as (half u, position v, place w), row-major, as ``_regroup``
+        reads it, with slot = (u, w); so M^T is the transposed weight
+        broadcast over (u, ., w, u', ., w') times the identity over (v, v'):
+        the same values as the gather, and a gradient of M reaches the weight
+        through a reduction rather than an indexed scatter."""
+        c, h = self.position_eye.shape[0] * self.n_split, self.n_split // 2
+        w_t = self.weight.t().reshape(2, 1, h, 2, 1, h)
+        return (w_t * self.position_eye[None, :, None, None, :, None]).reshape(c, c)
 
     def forward(self, x, mask, lens, reverse: bool = False, **_):  # pylint: disable=arguments-differ
         s = self.n_split
@@ -144,7 +160,14 @@ class CouplingBlock(nn.Module):
     version; in train mode both drop the conditioner's conv outputs with
     ``p_dropout``, under one seed per call drawn from ``generator`` on the
     activations' device (the JAX package draws one per call too,
-    flows.py:451)."""
+    flows.py:451).
+
+    With ``prefix`` = (aln, alb, mt), the ActNorm's logs and bias [C] and the
+    InvConvNear's ``dense_matrix_t``, the block runs the whole flow step
+    (ActNorm -> InvConvNear -> coupling) on x: through
+    ``ops.flow_step.flow_step`` under the same rule, else
+    ``flow_step_reference``, with its seed drawn at the same point, and the
+    affine applied to the step's xc (flows.py:343-346 of the JAX package)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int,
                  n_layers: int, sigmoid_scale: bool = False, fused: bool = False, fused_max_t: int = 768,
@@ -172,15 +195,23 @@ class CouplingBlock(nn.Module):
             cached=self.start.folded_weight is not None)
 
     def forward(self, x, mask, lens, reverse: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None, **_):  # pylint: disable=arguments-differ
+                generator: Optional[torch.Generator] = None, prefix=None, **_):  # pylint: disable=arguments-differ
         half = self.in_channels // 2
-        x_0, x_1 = x[..., :half], x[..., half:]
         w = self.conditioner_weights()
         if train and w.cached:
             raise RuntimeError("CouplingBlock: the flow cache is for inference; clear_flow_cache before training")
         p = self.p_dropout if train else 0.0
-        conditioner = wn_coupling if self.fused and x.shape[1] <= self.fused_max_t else wn_coupling_reference
-        out = conditioner(x_0, lens, w, draw_seed(generator, x.device) if p > 0 else self.zero_seed, p)
+        seed = draw_seed(generator, x.device) if p > 0 else self.zero_seed
+        fused = self.fused and x.shape[1] <= self.fused_max_t
+        if prefix is not None:
+            if reverse:
+                raise ValueError("CouplingBlock: the flow-step prefix runs the forward direction only")
+            step = flow_step if fused else flow_step_reference
+            xc, out = step(x, lens, *prefix, w, seed, p)
+            x_0, x_1 = xc[..., :half], xc[..., half:]
+        else:
+            x_0, x_1 = x[..., :half], x[..., half:]
+            out = (wn_coupling if fused else wn_coupling_reference)(x_0, lens, w, seed, p)
         m, logs = out[..., :half], out[..., half:]
         if self.sigmoid_scale:
             logs = torch.log(1e-6 + torch.sigmoid(logs + 2))

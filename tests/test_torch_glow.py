@@ -218,13 +218,6 @@ def test_val_step_with_on_device_spect_matches_jax(glow):
     assert loss["yh"].shape == loss["y"].shape and bool(torch.isfinite(loss["yh"]).all())
 
 
-def test_fused_flow_step_is_not_ported():
-    config = tiny_config()
-    config["model"]["fused_flow_step"] = True
-    with pytest.raises(NotImplementedError, match="B6"):
-        harness.get_model(config, device="cpu")
-
-
 @pytest.mark.parametrize("build", ["harness", "registry"])
 def test_get_model_builds_on_the_card_by_default(build, monkeypatch):
     """With no device given, get_model asks for the card: here (no GPU) it
