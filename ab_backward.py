@@ -1,0 +1,115 @@
+"""Parent against change on one card: B2's backward, B1's backward tile
+passes, the VQ-VAE train step and the LM train step, each tree in its own
+process, in the order given (parent, change, change, parent, ...).
+
+    python3 ab_backward.py build/parent . . build/parent
+
+Each argument is the root of a checkout of the port (its package and its
+``chip_smoke.py``); a worker puts that root first on ``sys.path``, builds
+that tree's kernels and measures through the wrappers both trees share
+(``attention.attention_backward``, ``gated_hifi.backward_buffers``) and
+``chip_smoke``'s train phases. Kernel times are CUDA events around
+back-to-back calls over their count (device time); step times are those of
+``chip_smoke.phase_train`` (median of steps 2-5) and
+``chip_smoke.phase_lm_train`` (batch 64). Prints one JSON line per worker,
+then the pairs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ATTN_SHAPES = ((8, 258), (64, 258))
+ATTN_REPS = 50
+TILE_REPS = 20
+TILE_P = 0.1
+
+
+def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
+    """chip_smoke.device_ms, kept here because a parent tree's chip_smoke.py
+    may not have it: one event pair around n calls, over n."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def worker(tree: str) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from speech_masters_thesis_tpu_torch.ops import attention as att
+    from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+
+    card = cs.phase_device()
+    device = cs.cuda_device()
+    cs.phase_build()
+    out = {"tree": tree, "card": card, "attention_bwd": {}, "tiles": {}}
+    scale = 1.0 / np.sqrt(cs.ATTN_DIM)
+    with torch.no_grad():
+        for i, (B, T) in enumerate(ATTN_SHAPES):
+            packed, lens, g = cs.packed_qkv(B, T, 500 + i, device)
+            q, k, v = cs.heads(packed)
+            for p in (0.0, cs.P_DROP):
+                seed = torch.tensor([12345 + i], dtype=torch.int64, device=device)
+                o, stats = att._launch_fwd(q, k, v, lens, seed, scale, p)
+                out["attention_bwd"][f"{B}x{T} p={p}"] = back_to_back_ms(
+                    torch, lambda: att.attention_backward(q, k, v, o, stats, lens, seed, g, scale, p), ATTN_REPS)
+        w = cs.block_weights(device, seed=1)
+        for i, T in enumerate(cs.BLOCK_TS):
+            x, lens, _, g = cs.block_inputs(T, cs.BATCH, 200 + i, device)
+            out["tiles"][T] = back_to_back_ms(
+                torch, lambda: gh.backward_buffers(x, lens, w, g, 1.0, TILE_P, 12345), TILE_REPS, warmup=1)
+            del x, lens, g
+            torch.cuda.empty_cache()
+    out["tiles_sum"] = sum(out["tiles"].values())
+    out["vqvae_step_ms"] = cs.phase_train(device, card)["step_ms"]
+    torch.cuda.empty_cache()
+    model = cs.build_model(device, *cs.audio_batch(cs.BATCH, cs.SAMPLES, seed=5))
+    vq_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    out["lm_b64_step_ms"] = cs.phase_lm_train(device, card, vq_state)[64]["step_ms"]
+    return out
+
+
+def main() -> None:
+    if sys.argv[1:2] == ["--worker"]:
+        print("AB_RESULT " + json.dumps(worker(sys.argv[2])), flush=True)
+        return
+    trees = sys.argv[1:]
+    if len(trees) < 2:
+        raise SystemExit("usage: python3 ab_backward.py TREE TREE [TREE ...] (e.g. parent change change parent)")
+    results = []
+    for tree in trees:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
+                              capture_output=True, text=True, timeout=1800)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            raise SystemExit(f"worker for {tree} failed with exit code {proc.returncode}")
+        res = json.loads(lines[-1][len("AB_RESULT "):])
+        res["seconds"] = time.perf_counter() - t0
+        print(json.dumps(res), flush=True)
+        results.append(res)
+    for key in (*results[0]["attention_bwd"], "tiles_sum", "vqvae_step_ms", "lm_b64_step_ms"):
+        vals = [r["attention_bwd"][key] if key in r["attention_bwd"] else r[key] for r in results]
+        print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {v:.4f}" for r, v in zip(results, vals))
+              + f" [{results[0]['card']}]")
+
+
+if __name__ == "__main__":
+    main()

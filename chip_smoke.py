@@ -243,7 +243,9 @@ B5_DROP = 0.1                  # the encoder's
 GRAD_FLOOR = 3e-4              # a gradient leaf's tolerance scale is at least this of the largest leaf's
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12             # dense TF32 on the tensor cores; 3xTF32 takes 3 products per fp32 product
 PEAK_BYTES = 3.35e12
+DEVICE_REPS = 50               # back-to-back calls per device_ms timing
 
 
 def require(ok: bool, what: str) -> None:
@@ -282,6 +284,13 @@ def bound(flops: float, nbytes: float) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def tf32_bound_ms(flops: float, nbytes: float) -> float:
+    """The least ms at the 3xTF32 rate: the larger of 3 x the operations over
+    the TF32 tensor-core peak and the bytes over the memory rate. Every
+    product kernel carries it beside ``bound``'s fp32 CUDA-core bound."""
+    return max(3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
     for _ in range(warmup):
@@ -295,6 +304,23 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = DEVICE_REPS, warmup: int = 3) -> float:
+    """Device time of one call of ``fn()`` in ms: one CUDA-event pair around
+    ``n`` back-to-back calls after ``warmup``, over ``n``. While the host
+    issues calls faster than the card runs them, this is the card's time
+    alone; a call whose host work outlasts its kernels shows the host's."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def phase_device() -> str:
@@ -314,7 +340,8 @@ def phase_device() -> str:
 
 KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", "enc_attention_kernel",
                 "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
-                "gated_hifi_fwd_kernel", "bwd_recompute_kernel", "bwd_transpose_kernel",
+                "gated_hifi_fwd_kernel", "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel",
+                "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel")
 
 
@@ -387,7 +414,7 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
           f"plain {plain_total:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB) [{card}]")
     return {"max_abs_err": max_err, "ms": ms_total, "plain_ms": plain_total, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "tf32_ms": tf32_bound_ms(flops, nbytes)}
 
 
 def block_flops_per_frame(w: gh.GatedHiFiWeights) -> int:
@@ -585,7 +612,8 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
     seed = 12345
     out = {"dx_err": 0.0, "red_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "red_ms": 0.0, "red_plain_ms": 0.0}
     for p in (0.0, P_DROP):
-        sums = {"bwd": 0.0, "plain": 0.0, "tiles": 0.0, "tiles_plain": 0.0, "red": 0.0, "red_plain": 0.0}
+        sums = {"bwd": 0.0, "plain": 0.0, "tiles": 0.0, "tiles_plain": 0.0, "red": 0.0, "red_plain": 0.0,
+                "tiles_dev": 0.0}
         # the tile passes: the recomputed forward and the transposed products (2x the
         # forward's operations); x and g in, dx and the buffers out. The reduction: one
         # product per weight; x and the buffers in, the weight gradients out
@@ -638,6 +666,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
                                reps=5, warmup=1),
                 "red_plain": cuda_ms(lambda: gh.weight_grad_reduce_reference(
                     x, bufs_r, w.kernels, w.dilations), reps=5, warmup=1),
+                "tiles_dev": device_ms(lambda: gh.backward_buffers(*args)),
             }
             for key, ms in times.items():
                 sums[key] += ms
@@ -654,7 +683,8 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
                   f"bitwise equal {bitwise}; ms: backward kernels {times['bwd']:.3f} vs plain autograd "
                   f"{times['plain']:.3f}, tile passes {times['tiles']:.3f} vs plain "
                   f"{times['tiles_plain']:.3f}, reduction {times['red']:.3f} vs plain "
-                  f"{times['red_plain']:.3f} (median of 5) [{card}]")
+                  f"{times['red_plain']:.3f} (median of 5); tile passes {times['tiles_dev']:.3f} over "
+                  f"{DEVICE_REPS} back-to-back calls [{card}]")
             for name, (_, value, scale) in flips.items():
                 require(value <= FLIP_RTOL * scale, f"{name}: a decision flipped at {value} of {scale}")
             require(np.isfinite(dx_err) and dx_err <= DX_RTOL * dx_scale,
@@ -672,16 +702,20 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
             torch.cuda.empty_cache()
         print(f"[backward] p={p} sums over the {len(block_ts)} block shapes: backward kernels "
               f"{sums['bwd']:.3f} ms vs plain autograd {sums['plain']:.3f} ms; tile passes "
-              f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms; reduction {sums['red']:.3f} vs "
-              f"{sums['red_plain']:.3f} ms [{card}]")
+              f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms ({sums['tiles_dev']:.3f} ms over "
+              f"{DEVICE_REPS} back-to-back calls); reduction {sums['red']:.3f} vs {sums['red_plain']:.3f} ms "
+              f"[{card}]")
         if p == P_DROP:  # the training configuration
             tiles_bound, tiles_by = bound(*work["tiles"])
             red_bound, red_by = bound(*work["red"])
             print(f"[backward] p={p} bounds summed over the block shapes: tile passes {tiles_bound:.3f} ms by "
-                  f"{tiles_by}, reduction {red_bound:.3f} ms by {red_by} [{card}]")
-            out.update(ms=sums["tiles"], plain_ms=sums["tiles_plain"], red_ms=sums["red"],
+                  f"{tiles_by} ({tf32_bound_ms(*work['tiles']):.3f} at the 3xTF32 rate), reduction "
+                  f"{red_bound:.3f} ms by {red_by} ({tf32_bound_ms(*work['red']):.3f}) [{card}]")
+            out.update(ms=sums["tiles_dev"], tiles_call_ms=sums["tiles"], plain_ms=sums["tiles_plain"],
+                       red_ms=sums["red"],
                        red_plain_ms=sums["red_plain"], bound_ms=tiles_bound, bound_by=tiles_by,
-                       red_bound_ms=red_bound, red_bound_by=red_by)
+                       red_bound_ms=red_bound, red_bound_by=red_by, tf32_ms=tf32_bound_ms(*work["tiles"]),
+                       red_tf32_ms=tf32_bound_ms(*work["red"]))
     return out
 
 
@@ -961,6 +995,11 @@ def phase_attention(device, card: str) -> dict:
                          "fwd_plain": cuda_ms(lambda: att.attention_reference(*args))}
             times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
             times["bwd_plain"] = cuda_ms(lambda: torch.autograd.grad(ref, qkv_ref, g, retain_graph=True))
+            with torch.no_grad():  # the backward kernels alone, back to back
+                q_, k_, v_ = heads(packed)
+                o_k, stats_k = att._launch_fwd(q_, k_, v_, lens, seed, scale, p)
+                times["bwd_dev"] = device_ms(
+                    lambda: att.attention_backward(q_, k_, v_, o_k, stats_k, lens, seed, g, scale, p))
             if p == 0.0:  # the library's attention on the same inputs and mask (timed, used nowhere)
                 times.update(sdpa_times(packed, lens, g, scale))
             print(f"[attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward max_abs_err "
@@ -970,7 +1009,11 @@ def phase_attention(device, card: str) -> dict:
                   f"{times['fwd']:.4f} vs plain {times['fwd_plain']:.4f}, backward kernels "
                   f"{times['bwd']:.4f} vs plain autograd {times['bwd_plain']:.4f} (median of 10)"
                   + (f"; F.scaled_dot_product_attention (same mask, p=0) forward {times['sdpa']:.4f}, "
-                     f"backward {times['sdpa_bwd']:.4f}" if p == 0.0 else "") + f" [{card}]")
+                     f"backward {times['sdpa_bwd']:.4f}" if p == 0.0 else "")
+                  + f"; over {DEVICE_REPS} back-to-back calls: backward kernels (attention_backward) "
+                  f"{times['bwd_dev']:.4f}"
+                  + (f", SDPA's backward (autograd.grad, p=0) {times['sdpa_bwd_dev']:.4f}" if p == 0.0 else "")
+                  + f" [{card}]")
             require(np.isfinite(fwd_err) and fwd_err <= ATTN_FWD_RTOL * fwd_scale,
                     f"attention forward differs at B={B} T={T} p={p}: {fwd_err}")
             for name, (err, s_) in errs.items():
@@ -980,26 +1023,30 @@ def phase_attention(device, card: str) -> dict:
             out["fwd_err"] = max(out["fwd_err"], fwd_err)
             out["bwd_err"] = max(out["bwd_err"], max(e for e, _ in errs.values()))
             if (B, T) == ATTN_SHAPES[0] and p == 0.0:
-                out.update(sdpa_ms=times["sdpa"], sdpa_bwd_ms=times["sdpa_bwd"])
+                out.update(sdpa_ms=times["sdpa"], sdpa_bwd_ms=times["sdpa_bwd"], bwd_dev_p0=times["bwd_dev"],
+                           sdpa_bwd_dev=times["sdpa_bwd_dev"])
             if (B, T) == ATTN_SHAPES[0] and p == P_DROP:  # the LM's training call
                 pairs = int(torch.minimum(torch.arange(1, T + 1, device=device)[None, :],
                                           lens.long()[:, None]).sum()) * ATTN_HEADS
                 row = B * T * ATTN_HEADS * ATTN_DIM * 4  # bytes of one [B, T, H, D] tensor
                 out["bound"] = bound(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
                 out["bwd_bound"] = bound(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
+                out["tf32"] = tf32_bound_ms(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
+                out["bwd_tf32"] = tf32_bound_ms(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
                 print(f"[attention] bounds at B={B} T={T} ({pairs} valid (query, key) pairs): forward "
                       f"{out['bound'][0]:.4f} ms by {out['bound'][1]}, backward {out['bwd_bound'][0]:.4f} ms by "
                       f"{out['bwd_bound'][1]} [{card}]")
                 out.update(fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
-                           bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"])
-            del o, ref, grads, again, grads_ref, qkv, qkv_ref
+                           bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"], bwd_dev=times["bwd_dev"])
+            del o, ref, grads, again, grads_ref, qkv, qkv_ref, o_k, stats_k
             torch.cuda.empty_cache()
     return out
 
 
 def sdpa_times(packed: torch.Tensor, lens: torch.Tensor, g: torch.Tensor, scale: float) -> dict:
     """F.scaled_dot_product_attention's forward and backward on the same
-    inputs and boolean mask at p=0, in ms (CUDA events, median of 10)."""
+    inputs and boolean mask at p=0, in ms (CUDA events, median of 10; and
+    the backward over DEVICE_REPS back-to-back calls)."""
     B, T, _ = packed.shape
     mask = att.valid_pairs(lens, T)
     leaf = packed.clone().requires_grad_(True)
@@ -1011,7 +1058,8 @@ def sdpa_times(packed: torch.Tensor, lens: torch.Tensor, g: torch.Tensor, scale:
     o = sdpa()
     gt = g.transpose(1, 2)
     bwd = cuda_ms(lambda: torch.autograd.grad(o, leaf, gt, retain_graph=True))
-    return {"sdpa": fwd, "sdpa_bwd": bwd}
+    bwd_dev = device_ms(lambda: torch.autograd.grad(o, leaf, gt, retain_graph=True))
+    return {"sdpa": fwd, "sdpa_bwd": bwd, "sdpa_bwd_dev": bwd_dev}
 
 
 def lm_tokens(batch: int, T: int, seed: int, device) -> dict:
@@ -1313,7 +1361,8 @@ def phase_wn_coupling(model: GlowTTS, device, card: str) -> dict:
         require(np.isfinite(err) and err <= B3_RTOL * scale, f"B3 disagrees at B={B} T={T}: {err}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if i == 0:  # the val step's shape
-            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                       tf32_ms=tf32_bound_ms(flops, nbytes))
     return out
 
 
@@ -1361,7 +1410,8 @@ def phase_enc_layer(model: GlowTTS, device, card: str) -> dict:
         require(finite, f"B5 output not finite at B={B} T={T}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if i == 0:  # the val step's shape
-            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                       tf32_ms=tf32_bound_ms(flops, nbytes))
     return out
 
 
@@ -1613,14 +1663,15 @@ def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
             weights = sum(t.numel() for t in w.flat())
             # recompute, transposed products and weight products: 3x the forward's operations;
             # x0 and g in, dx0 out, the weights in and their gradients out
-            bnd = bound(3 * frames * wn_flops_per_frame(w), 4 * (frames * (2 * half + C) + 2 * weights))
+            work = (3 * frames * wn_flops_per_frame(w), 4 * (frames * (2 * half + C) + 2 * weights))
+            bnd = bound(*work)
             dx_err = (dx_k - dx_r)[valid].abs().max().item()
             print_grads(f"[B3 bwd] p={p} B={B} T={T}", dx_err, dx_r[valid].abs().max().item(),
                         leaf_report(gw_k.tensors(), gw_r.tensors()), bitwise, fwd, times, bnd, card)
             out["max_abs_err"] = max(out["max_abs_err"], dx_err)
             if i == 0 and p > 0:  # the train step's shape
                 out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
-                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"])
+                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], tf32_ms=tf32_bound_ms(*work))
             del dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r
     # the masks: with conv biases of 10 (conv weights scaled down) every pre-dropout
     # x_in is positive, so the recompute's x_in > 0 exactly where the kernel kept it
@@ -1678,8 +1729,9 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
         # B3's operations plus the [C, C] product a frame (3x in the backward); x in, xc and out out
         # (x, g_xc, g_out in, dx out), the weights in (and their gradients out)
         flops = frames * (wn_flops_per_frame(w) + 2 * C * C)
-        bnd = {"fwd": bound(flops, 4 * (3 * frames * C + n_weights)),
-               "bwd": bound(3 * flops, 4 * (4 * frames * C + 2 * n_weights))}
+        work = {"fwd": (flops, 4 * (3 * frames * C + n_weights)),
+                "bwd": (3 * flops, 4 * (4 * frames * C + 2 * n_weights))}
+        bnd = {key: bound(*w_) for key, w_ in work.items()}
         for p in (0.0, B3_DROP):
             args = (x, lens, aln, alb, mt, w)
             with torch.no_grad():
@@ -1722,7 +1774,8 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
             if i == 0 and p > 0:  # the train step's shape
                 out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd["bwd"][0], bound_by=bnd["bwd"][1],
                            fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], fwd_bound_ms=bnd["fwd"][0],
-                           fwd_bound_by=bnd["fwd"][1])
+                           fwd_bound_by=bnd["fwd"][1], tf32_ms=tf32_bound_ms(*work["bwd"]),
+                           fwd_tf32_ms=tf32_bound_ms(*work["fwd"]))
             del dx_k, gk, dx_k2, gk2, dx_r, gr
     # the masks, as in phase 22: with conv biases of 10 every pre-dropout x_in is positive
     B, T = B3_SHAPES[0]
@@ -1836,7 +1889,8 @@ def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
                                               warmup=1)}
             tokens = int(lens_np.sum())
             params = sum(t.numel() for t in w.tensors().values())
-            bnd = bound(3 * enc_flops(lens_np, w), 4 * (3 * tokens * C + 2 * params))
+            work = (3 * enc_flops(lens_np, w), 4 * (3 * tokens * C + 2 * params))
+            bnd = bound(*work)
             dx_err = (dx_k - dx_r)[valid].abs().max().item()
             print(f"[B5 bwd] p={p} B={B} T={T}: FFN relu decisions flipped against the plain forward {flips[0]} "
                   f"(largest |c1| {flips[1]:.1e} of max {flips[2]:.1e}) [{card}]")
@@ -1846,7 +1900,7 @@ def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
             out["max_abs_err"] = max(out["max_abs_err"], dx_err)
             if i == 0 and p > 0:  # the train step's shape
                 out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
-                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"])
+                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], tf32_ms=tf32_bound_ms(*work))
             if p > 0:
                 enc_masks(x, lens, w, g, seed, bufs, plain, valid, card)
             del dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
@@ -2141,37 +2195,45 @@ def main() -> None:
           f"B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) {glow_train['launches']}; on the B6 route "
           f"{glow_train_b6['launches']} and one val step {val_b6['launches']}")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
     print(json.dumps({"kernels": [
         entry("gated_hifi_fwd", "gated_hifi_fwd.cu", PALLAS + ":591", train["fwd"],
               max(kernel["max_abs_err"], dropout_err), kernel["ms"], kernel["plain_ms"], kernel["bound_ms"],
-              kernel["bound_by"]),
+              kernel["bound_by"], bound_3xtf32_ms=kernel["tf32_ms"]),
         entry("gated_hifi_bwd", "gated_hifi_bwd.cu", PALLAS + ":612", train["bwd"], backward["dx_err"],
-              backward["ms"], backward["plain_ms"], backward["bound_ms"], backward["bound_by"]),
+              backward["ms"], backward["plain_ms"], backward["bound_ms"], backward["bound_by"],
+              call_ms=backward["tiles_call_ms"], bound_3xtf32_ms=backward["tf32_ms"]),
         entry("gated_hifi_wgrad", "gated_hifi_bwd.cu", PALLAS + ":360", train["red"], backward["red_err"],
-              backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"]),
+              backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
+              bound_3xtf32_ms=backward["red_tf32_ms"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
-              attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"]),
+              attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"],
+              bound_3xtf32_ms=attention["tf32"]),
         entry("attention_bwd", "attention_bwd.cu", PALLAS_ATTENTION + ":253", lm["bwd"], attention["bwd_err"],
-              attention["bwd_ms"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_ms"]),
+              attention["bwd_dev"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_dev"],
+              ms_p0=attention["bwd_dev_p0"], call_ms=attention["bwd_ms"], bound_3xtf32_ms=attention["bwd_tf32"]),
         entry("wn_coupling_fwd", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_launches[1] + b3_fwd_n,
-              b3["max_abs_err"], b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"]),
+              b3["max_abs_err"], b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"],
+              bound_3xtf32_ms=b3["tf32_ms"]),
         entry("wn_coupling_bwd", "wn_coupling_bwd.cu", PALLAS_WN + ":484", b3_bwd_n, b3_bwd["max_abs_err"],
-              b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"]),
+              b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"],
+              bound_3xtf32_ms=b3_bwd["tf32_ms"]),
         entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
               b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
-              b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"]),
+              b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"],
+              bound_3xtf32_ms=b5["tf32_ms"]),
         entry("enc_layer_bwd", "enc_layer_bwd.cu", PALLAS_ENC + ":496", b5_bwd_n, b5_bwd["max_abs_err"],
-              b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"]),
+              b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
+              bound_3xtf32_ms=b5_bwd["tf32_ms"]),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
-              b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"]),
+              b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], bound_3xtf32_ms=b6["fwd_tf32_ms"]),
         entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
-              b6["plain_ms"], b6["bound_ms"], b6["bound_by"])]}))
+              b6["plain_ms"], b6["bound_ms"], b6["bound_by"], bound_3xtf32_ms=b6["tf32_ms"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // Shared by the small-T attention kernels (attention_fwd.cu, attention_bwd.cu):
-// compile-time shapes, tile loads, row products and the dropout draw.
+// compile-time shapes, the masking and dropout rules and the call checks;
+// the forward's one-row-a-thread tile loads and row products.
 //
 // Layout. q, k and v are [B, T, H, D] with D contiguous and rows `ld` floats
 // apart (ld = 3*H*D for the views of the LM's packed in-projection, H*D for
@@ -30,7 +31,7 @@ namespace attention {
 
 constexpr int D = 32;         // head dimension (the LM's 512 / 16)
 constexpr int ROWS = 64;      // rows per tile: queries (forward, dq) or keys (dk/dv)
-constexpr int NT = ROWS;      // threads per block: one per row of the block's tile
+constexpr int NT = ROWS;      // the forward's threads per block: one per row of the tile
 constexpr int CHUNK = 16;     // keys per online-softmax update in the forward
 constexpr int D4 = D / 4;
 

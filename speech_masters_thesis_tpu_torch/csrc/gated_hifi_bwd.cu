@@ -1,5 +1,6 @@
-// GatedHiFi block backward for Hopper (sm_90a), fp32, with the dropout
-// masks regenerated from the seed.
+// GatedHiFi block backward for Hopper (sm_90a), fp32 at its interface, the
+// tile passes' products in 3xTF32 on the tensor cores (tf32_mma.cuh), with
+// the dropout masks regenerated from the seed.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
 // _vjp_bwd -> _bwd -> _bwd_kernel (the TPU kernel's recompute backward).
@@ -17,18 +18,22 @@
 // Two things of the TPU kernel do not carry over to Hopper:
 //  1. Its window. The TPU tile holds centre +- 2*halo of every branch in
 //     VMEM so that one grid step produces dx. Branch 4's halo of 108 frames
-//     would make that window 64 + 432 = 496 frames here, 254 KB for the
-//     a-window of one branch alone, over the 227 KB a block may have. So
-//     the backward is split into passes that meet in device memory:
-//       pass A (bwd_recompute_kernel), per 64-frame tile and sequence:
-//         the forward's recompute over centre +- halo (the forward kernel's
-//         tiling and shared memory), then the gating backward and
-//         dc_d = scale (dzp_d W1_d^T) m1 [c > 0]. Writes a_d, h1_d, dzp_d
-//         and dc_d ([B, T, depth*H] each, 270 MB per branch at 16 x 33024),
-//         u and gv ([B, T, W]).
-//       pass B (bwd_transpose_kernel), per tile and sequence: the
-//         transposed dilated conv over the dc window centre +- halo, then
-//         dz_d (written, [B, T, depth*H]) and dx = g' + dz Wall^T.
+//     would make that window 496 frames here, 254 KB for one branch's
+//     expand alone, over the 227 KB a block may have. So the backward's
+//     tile passes are stages that meet in device memory, in the buffers the
+//     weight gradients need anyway (ops/gated_hifi.py:BackwardBuffers):
+//       1 expand   a_d   = relu(x Wall_d + ball_d) * m0_d
+//       2 conv     h1_d  = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
+//       3 branch   zp_d  = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d  (into dzp)
+//       4 gate     du = gv Wg^T; u, gv and dzp_d from zp_d in place
+//       5 dc       dc_d  = scale * (dzp_d W1_d^T) * m1 * [c > 0]
+//       6 convt    dz_d  = dzp_d + (sum_j dc_d[t - (j-half) dil] K_d[j]^T) * m0 * [z > 0]
+//       7 dx       dx    = g' + dz Wall^T
+//     Each stage is one launch over (64-frame tile, sequence, branch). A
+//     conv tap's operand is 64 consecutive frames of a (or dc) shifted by
+//     the tap's offset, so no block holds a halo window: the taps stream
+//     through shared memory like any other k-slice. The a and dc windows
+//     are read once per tap, from L2 for the neighbours' rows.
 //  2. Its weight gradients. The TPU accumulates them across its sequential
 //     grid (@pl.when(first) ... += ...). Hopper's blocks run in parallel
 //     and in no order, so every weight gradient is a product summed over
@@ -39,16 +44,26 @@
 //     adds the slices in a fixed order. No float atomics: equal inputs give
 //     bitwise-equal gradients.
 //
-// What bounds it: arithmetic, as in the forward. The JAX cost model puts
-// the backward at 3x the forward's FLOPs; here pass A costs a forward plus
-// the 1x1 transposes, pass B the transposed convs (about a forward), and
-// the weight gradients about the convs' share again. Device-memory traffic
-// is about 10 GB per call at 16 x 33024, a few ms at 3.35 TB/s. Products are
-// plain fp32 FMA on the CUDA cores, tiled as in the forward kernel (4 rows x
-// 8 columns a thread, channel loops unrolled 8 deep); the reduction tiles
-// are 128 x 128 with 8 x 8 a thread over 16-frame slabs in shared memory.
+// What bounds the tile passes: arithmetic. They cost twice the forward's
+// multiply-adds (the recompute, then the transposed products), about 2
+// MFLOP a frame, 3x that on the tensor cores in 3xTF32; the stages move
+// about 15 [B, T, depth*H] passes of device memory. At 16 x 33024 that is
+// 16 GB (4.7 ms at 3.35 TB/s) against 3.2 TFLOP of TF32 products (6.5 ms
+// at 495 TF/s); these stages reach about a quarter of that rate.
+// Design: every stage is a [64 frames x BN] output tile (BN = 128 for a
+// branch's columns, 64 for the width) of 8 warps, each warp 32 x 32 (or
+// 16 x 32) in m16n8k8 MMAs, over k-slices of 32 channels: the activation
+// slice (64 x 32, zero-filled outside [0, T)) and the weight slice
+// (32 x BN) are staged by cp.async three slices ahead, rows padded to 36
+// and BN + 8 floats so that fragment reads fall on distinct banks. About
+// 80 KB of shared memory and at most 128 registers a thread: two blocks
+// (16 warps) per SM. The epilogues apply bias, relu, the dropout masks (the
+// same hash as the forward, bit for bit) and the gating, and write the
+// buffers. The weight-gradient reduction is plain fp32 FMA on the CUDA
+// cores, 128 x 128 tiles with 8 x 8 a thread over 16-frame slabs.
 
 #include "gated_hifi_common.cuh"
+#include "tf32_mma.cuh"
 
 #include <math.h>
 
@@ -57,295 +72,345 @@
 namespace gated_hifi {
 namespace {
 
-__device__ __forceinline__ float4 ld4v(const float* p) {  // plain load: p may be written here
-  return *reinterpret_cast<const float4*>(p);
-}
+// ---- the tile passes: a [TT x BN] output tile over streamed k-slices ------
+constexpr int KS = 32;          // channels per k-slice
+constexpr int STAGES = 3;       // k-slices in flight
+constexpr int LDA = KS + 4;     // row stride of an activation slice
 
-// dst[r][c] (row stride AS) = src[b, tstart + r, col0 + c] for r < rows, c < H,
-// zero where tstart + r is outside [0, T). src rows are ld floats; row0 = b*T.
-// Each thread issues 8 loads before it stores any, so 8 are in flight.
-__device__ __forceinline__ void load_window(float* dst, const float* src, size_t row0, int ld,
-                                            int col0, int tstart, int rows, int T) {
-  constexpr int U = 8;
-  const int n = rows * H;
-  for (int i0 = threadIdx.x; i0 < n; i0 += NT * U) {
-    float v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * NT;
-      const int t = tstart + i / H;
-      v[u] = (i < n && t >= 0 && t < T) ? src[(row0 + t) * ld + col0 + i % H] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * NT;
-      if (i < n) dst[(i / H) * AS + i % H] = v[u];
-    }
+template <int BN>
+struct TileShape {
+  static constexpr int LDB = BN + 8;                  // row stride of a weight slice
+  static constexpr int WARPS_M = BN == 128 ? 2 : 4;   // 8 warps: WARPS_M x (8 / WARPS_M)
+  static constexpr int MT = TT / 16 / WARPS_M;        // m16 tiles per warp
+  static constexpr int STAGE_FLOATS = TT * LDA + KS * LDB;
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE_FLOATS;
+};
+
+// One k-slice: 32 channels of an activation buffer (frame t at a + t*lda,
+// read at t + shift, zero outside [0, T)) against 32 rows of a weight
+// matrix (b, rows ldb floats apart).
+struct Slice {
+  const float* a;
+  int lda;
+  int shift;
+  const float* b;
+  int ldb;
+};
+
+template <int BN>
+__device__ __forceinline__ void load_slice(float* st, const Slice& s, int t0, int T) {
+  float* as = st;
+  float* bs = st + TT * LDA;
+  for (int f = threadIdx.x; f < TT * (KS / 4); f += NT) {
+    const int r = f / (KS / 4), c4 = f % (KS / 4);
+    const int t = t0 + r + s.shift;
+    const bool in = t >= 0 && t < T;
+    tf32::cp_async16(as + r * LDA + 4 * c4, in ? s.a + (size_t)t * s.lda + 4 * c4 : s.a, in ? 16 : 0);
+  }
+  for (int f = threadIdx.x; f < KS * (BN / 4); f += NT) {
+    const int r = f / (BN / 4), c4 = f % (BN / 4);
+    tf32::cp_async16(bs + r * TileShape<BN>::LDB + 4 * c4, s.b + (size_t)r * s.ldb + 4 * c4, 16);
   }
 }
 
-template <bool DROP>
-__global__ void __launch_bounds__(NT, 1) bwd_recompute_kernel(
-    const float* __restrict__ x, const int* __restrict__ lens, const float* __restrict__ g,
-    const float* __restrict__ wall, const float* __restrict__ ball,
-    const float* __restrict__ ks, const float* __restrict__ cb,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ wg_t, const float* __restrict__ w1_t,
-    float* __restrict__ a_out, float* __restrict__ h1_out, float* __restrict__ dzp,
-    float* __restrict__ dc_out, float* __restrict__ u_out, float* __restrict__ gv_out,
-    int T, float scale, Branches br, Dropout drop) {
-  extern __shared__ float smem[];
-  const int R = TT + 2 * br.max_halo;
-  float* xs = smem;          // [R][XS]  x window, zero outside [0, T)
-  float* as = xs + R * XS;   // [R][AS]  gv, then per branch relu(expand)*m0 and
-                             //          h1; at the end dzp_d
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int rg = lane & 15;             // this thread's rows: rg + 16*i, i < 4
-  const int cg = lane >> 4;
-  const int n8 = warp * 16 + cg * 8;    // its 8 columns of H
-  const int n4 = warp * 8 + cg * 4;     // its 4 columns of W
-  const int ldw = br.depth * H;         // row stride of wall and of the [B, T, depth*H] buffers
-  const size_t row0 = (size_t)b * T;
-  const float* xb = x + row0 * W;
-  const int len = min(T, lens[b]);
-
-  for (int i = tid; i < R * W; i += NT) {
-    const int r = i / W, c = i % W;
-    const int t = t0 - br.max_halo + r;
-    xs[r * XS + c] = (t >= 0 && t < T) ? xb[(size_t)t * W + c] : 0.f;
+// The warp's place in the tile: rows row0 + 16*mt + gr (+8), columns
+// col0 + 8*nt + 2*qd (+1), as in the accumulator layout.
+template <int BN>
+struct WarpTile {
+  int row0, col0, gr, qd;
+  __device__ __forceinline__ WarpTile() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    row0 = (warp % TileShape<BN>::WARPS_M) * 16 * TileShape<BN>::MT;
+    col0 = (warp / TileShape<BN>::WARPS_M) * 32;
+    gr = lane >> 2;
+    qd = lane & 3;
   }
-  // gv = scale * g, zero past the length, at the centre rows
-  for (int i = tid; i < TT * W; i += NT) {
-    const int r = i / W, c = i % W;
+};
+
+// acc += sum over the n slices slice_of(0 .. n-1), in slice order
+template <int BN, class F>
+__device__ __forceinline__ void gemm(float (&acc)[TileShape<BN>::MT][4][4], float* smem, int n, int t0,
+                                     int T, F slice_of) {
+  using S = TileShape<BN>;
+  const WarpTile<BN> wt;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load_slice<BN>(smem + s * S::STAGE_FLOATS, slice_of(s), t0, T);
+    tf32::cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    tf32::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice s has landed, and every warp is done with slice s - 1
+    if (s + STAGES - 1 < n)
+      load_slice<BN>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE_FLOATS, slice_of(s + STAGES - 1), t0, T);
+    tf32::cp_async_commit();
+    const float* as = smem + (s % STAGES) * S::STAGE_FLOATS;
+    const float* bs = as + TT * LDA;
+#pragma unroll
+    for (int kk = 0; kk < KS / 8; ++kk) {
+      tf32::FragA fa[S::MT];
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt) {
+        const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA + 8 * kk + wt.qd;
+        fa[mt] = tf32::frag_a(r[0], r[8 * LDA], r[4], r[8 * LDA + 4]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* c = bs + (8 * kk + wt.qd) * S::LDB + wt.col0 + 8 * nt + wt.gr;
+        const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
+#pragma unroll
+        for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+      }
+    }
+  }
+  tf32::cp_async_wait<0>();
+  __syncthreads();  // the staging buffers are free for the next gemm
+}
+
+// f(tile row, tile column, acc[.][.][e], acc[.][.][e + 1]) for each pair of
+// adjacent columns the warp holds
+template <int BN, class F>
+__device__ __forceinline__ void for_pairs(float (&acc)[TileShape<BN>::MT][4][4], F f) {
+  const WarpTile<BN> wt;
+#pragma unroll
+  for (int mt = 0; mt < TileShape<BN>::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(wt.row0 + 16 * mt + wt.gr + 8 * h, wt.col0 + 8 * nt + 2 * wt.qd, acc[mt][nt][2 * h],
+          acc[mt][nt][2 * h + 1]);
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// 0 or the keep scale of one dropout site (hi: the site before the conv)
+__device__ __forceinline__ float site_keep(uint32_t bits, bool hi, const Dropout& drop) {
+  return ((hi ? bits >> 16 : bits & 0xFFFFu) >= drop.threshold) ? drop.scale : 0.f;
+}
+
+// Everything the stages read and write; the buffers are [B, T, depth*H]
+// (a, h1, dzp, dc, dz) or [B, T, W] (u, gv, dx, x, g).
+struct Args {
+  const float *x, *g, *wall, *ball, *ks, *cb, *w1, *b1, *wg_t, *w1_t, *ks_t, *wall_t;
+  const int* lens;
+  float *a, *h1, *dzp, *dc, *dz, *u, *gv, *dx;
+  int T;
+  float scale, keep;  // keep: the dropout scale, 1 without dropout
+  Branches br;
+  Dropout drop;
+};
+
+#define TILE_PROLOGUE                                        \
+  extern __shared__ __align__(16) float smem[];             \
+  const int b = blockIdx.y, d = blockIdx.z;                 \
+  const int t0 = blockIdx.x * TT;                           \
+  const int T = p.T;                                        \
+  const int ldw = p.br.depth * H;                           \
+  const size_t row0 = (size_t)b * T;                        \
+  (void)d;                                                  \
+  (void)ldw
+
+// 1. a_d = relu(x Wall_d + ball_d) * m0_d
+__global__ void __launch_bounds__(NT, 2) tile_expand_kernel(const Args p) {
+  TILE_PROLOGUE;
+  float acc[TileShape<H>::MT][4][4] = {};
+  gemm<H>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
+  });
+  const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
+  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
-    const float v = t < len ? scale * g[(row0 + t) * W + c] : 0.f;
-    as[r * AS + c] = v;
-    if (t < T) gv_out[(row0 + t) * W + c] = v;
-  }
-  __syncthreads();
-
-  // du = gv Wg^T at (row rg+16i, column n4+j)
-  float du[4][4] = {};
-#pragma unroll 8
-  for (int c = 0; c < W; ++c) {
-    const float4 wv = ld4(wg_t + (size_t)c * W + n4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) fma4(du[i], as[(rg + 16 * i) * AS + c], wv);
-  }
-  __syncthreads();
-
-  float m_run[4][4], den[4][4], num[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      m_run[i][j] = -INFINITY;
-      den[i][j] = 0.f;
-      num[i][j] = 0.f;
+    if (t >= T) return;
+    const int n = d * H + c;
+    v0 = fmaxf(v0 + p.ball[n], 0.f);
+    v1 = fmaxf(v1 + p.ball[n + 1], 0.f);
+    if (p.drop.threshold) {
+      v0 *= site_keep(dropout_bits(key, t, c), true, p.drop);
+      v1 *= site_keep(dropout_bits(key, t, c + 1), true, p.drop);
     }
-
-  // ---- recompute, as the forward kernel does; keep a, h1 and zp ----------
-  for (int d = 0; d < br.depth; ++d) {
-    const int k = br.k[d], dil = br.dil[d];
-    const int halo = (k - 1) / 2 * dil;
-    const uint32_t key = DROP ? dropout_key(drop.seed, b, d) : 0u;
-
-    expand_tile<DROP>(as, xs, wall, ball, d, ldw, TT + 2 * halo, br.max_halo - halo, t0 - halo,
-                      halo, T, key, drop, rg, n8, a_out + row0 * ldw + d * H + n8);
-    __syncthreads();
-
-    {
-      float acc[4][8] = {};
-      conv_tile(acc, as, ks + br.k_off[d] + n8, k, rg, dil);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + rg + 16 * i;
-        float h[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          h[j] = fmaxf(acc[i][j] + cb[d * H + n8 + j], 0.f);
-          if (DROP)
-            h[j] *= (dropout_bits(key, t, n8 + j) & 0xFFFFu) >= drop.threshold ? drop.scale : 0.f;
-          as[(rg + 16 * i) * AS + n8 + j] = h[j];
-        }
-        if (t < T) {
-          float* dst = h1_out + (row0 + t) * ldw + d * H + n8;
-          st4(dst, h[0], h[1], h[2], h[3]);
-          st4(dst + 4, h[4], h[5], h[6], h[7]);
-        }
-      }
-    }
-    __syncthreads();
-
-    {
-      float tv[4][4], sv[4][4];
-      branch_out_tile(tv, sv, as, xs, wall, ball, w1, b1, d, ldw, br.max_halo, scale, rg, n4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + rg + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float m_new = fmaxf(m_run[i][j], sv[i][j]);
-          const float corr = expf(m_run[i][j] - m_new);
-          const float e = expf(sv[i][j] - m_new);
-          den[i][j] = den[i][j] * corr + e;
-          num[i][j] = num[i][j] * corr + tanhf(tv[i][j]) * e;
-          m_run[i][j] = m_new;
-        }
-        if (t < T) {  // zp, turned into its cotangent once every branch is in
-          float* dst = dzp + (row0 + t) * ldw + d * H + n4;
-          st4(dst, tv[i][0], tv[i][1], tv[i][2], tv[i][3]);
-          st4(dst + W, sv[i][0], sv[i][1], sv[i][2], sv[i][3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- gating backward: zp_d -> dzp_d, element by element ---------------
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + rg + 16 * i;
-    if (t >= T) continue;
-    float u[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) u[j] = num[i][j] / den[i][j];
-    st4(u_out + (row0 + t) * W + n4, u[0], u[1], u[2], u[3]);
-    for (int d = 0; d < br.depth; ++d) {
-      float* pt = dzp + (row0 + t) * ldw + d * H + n4;
-      const float4 t4 = ld4v(pt), s4 = ld4v(pt + W);
-      const float tz[4] = {t4.x, t4.y, t4.z, t4.w}, sz[4] = {s4.x, s4.y, s4.z, s4.w};
-      float dt[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float th = tanhf(tz[j]);
-        const float p = expf(sz[j] - m_run[i][j]) / den[i][j];
-        dt[j] = du[i][j] * p * (1.f - th * th);
-        ds[j] = du[i][j] * p * (th - u[j]);
-      }
-      st4(pt, dt[0], dt[1], dt[2], dt[3]);
-      st4(pt + W, ds[0], ds[1], ds[2], ds[3]);
-    }
-  }
-  __syncthreads();  // dzp of the whole tile is in device memory
-
-  // ---- dc_d = scale * (dzp_d W1_d^T) * m1 * [c > 0] ------------------------
-  const float keep = DROP ? drop.scale : 1.f;
-  for (int d = 0; d < br.depth; ++d) {
-    load_window(as, dzp, row0, ldw, d * H, t0, TT, T);
-    __syncthreads();
-    float acc[4][8] = {};
-    const float* wt = w1_t + (size_t)d * H * H + n8;
-#pragma unroll 8
-    for (int c = 0; c < H; ++c) {
-      const float4 w0 = ld4(wt + (size_t)c * H), w1v = ld4(wt + (size_t)c * H + 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) fma8(acc[i], as[(rg + 16 * i) * AS + c], w0, w1v);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + rg + 16 * i;
-      if (t >= T) continue;
-      const size_t idx = (row0 + t) * ldw + d * H + n8;
-      const float4 h0 = ld4v(h1_out + idx), h4 = ld4v(h1_out + idx + 4);
-      const float h[8] = {h0.x, h0.y, h0.z, h0.w, h4.x, h4.y, h4.z, h4.w};
-      float dc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)  // h1 = relu(c) * m1 > 0 exactly where c > 0 and kept
-        dc[j] = h[j] > 0.f ? scale * acc[i][j] * keep : 0.f;
-      st4(dc_out + idx, dc[0], dc[1], dc[2], dc[3]);
-      st4(dc_out + idx + 4, dc[4], dc[5], dc[6], dc[7]);
-    }
-    __syncthreads();
-  }
+    st2(p.a + (row0 + t) * ldw + n, v0, v1);
+  });
 }
 
-__global__ void __launch_bounds__(NT, 1) bwd_transpose_kernel(
-    const int* __restrict__ lens, const float* __restrict__ g,
-    const float* __restrict__ ks_t, const float* __restrict__ wall_t,
-    const float* __restrict__ a_in, const float* __restrict__ dzp,
-    const float* __restrict__ dc_in, float* __restrict__ dz_out, float* __restrict__ dx,
-    int T, float keep, Branches br) {
-  extern __shared__ float smem[];
-  float* as = smem;  // [TT + 2*max_halo][AS]  dc window, then dz at rows [0, TT)
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int rg = lane & 15;
-  const int cg = lane >> 4;
-  const int n8 = warp * 16 + cg * 8;
-  const int n4 = warp * 8 + cg * 4;
-  const int ldw = br.depth * H;
-  const size_t row0 = (size_t)b * T;
-
-  float dxa[4][4] = {};
-  for (int d = 0; d < br.depth; ++d) {
-    const int k = br.k[d], dil = br.dil[d];
-    const int half = (k - 1) / 2;
-    const int halo = half * dil;
-    load_window(as, dc_in, row0, ldw, d * H, t0 - halo, TT + 2 * halo, T);
-    __syncthreads();
-
-    // da[t] = sum_j dc[t - (j-half)*dil] K_d[j]^T at the centre rows
-    float acc[4][8] = {};
-    conv_tile(acc, as, ks_t + br.k_off[d] + n8, k, rg + 2 * halo, -dil);
-    __syncthreads();  // the dc window is read; rows [0, TT) take dz
-
-    // dz = dzp + da * m0 * [z > 0] (a = relu(z) * m0 > 0 exactly there)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + rg + 16 * i;
-      float v[8] = {};
-      if (t < T) {
-        const size_t idx = (row0 + t) * ldw + d * H + n8;
-        const float4 z0 = ld4(dzp + idx), z4 = ld4(dzp + idx + 4);
-        const float4 a0 = ld4(a_in + idx), a4 = ld4(a_in + idx + 4);
-        const float z[8] = {z0.x, z0.y, z0.z, z0.w, z4.x, z4.y, z4.z, z4.w};
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = z[j] + (a[j] > 0.f ? acc[i][j] * keep : 0.f);
-        st4(dz_out + idx, v[0], v[1], v[2], v[3]);
-        st4(dz_out + idx + 4, v[4], v[5], v[6], v[7]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) as[(rg + 16 * i) * AS + n8 + j] = v[j];
+// 2. h1_d = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
+__global__ void __launch_bounds__(NT, 2) tile_conv_kernel(const Args p) {
+  TILE_PROLOGUE;
+  const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
+  const float* kd = p.ks + p.br.k_off[d];
+  float acc[TileShape<H>::MT][4][4] = {};
+  gemm<H>(acc, smem, k * (H / KS), t0, T, [&](int s) {
+    const int j = s / (H / KS), c = s % (H / KS);
+    return Slice{p.a + row0 * ldw + d * H + KS * c, ldw, (j - half) * dil,
+                 kd + (size_t)j * H * H + (size_t)KS * c * H, H};
+  });
+  const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
+  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    const int n = d * H + c;
+    v0 = fmaxf(v0 + p.cb[n], 0.f);
+    v1 = fmaxf(v1 + p.cb[n + 1], 0.f);
+    if (p.drop.threshold) {
+      v0 *= site_keep(dropout_bits(key, t, c), false, p.drop);
+      v1 *= site_keep(dropout_bits(key, t, c + 1), false, p.drop);
     }
-    __syncthreads();
+    st2(p.h1 + (row0 + t) * ldw + n, v0, v1);
+  });
+}
 
-    // dx += dz_d Wall_d^T
-    const float* wt = wall_t + (size_t)d * H * W + n4;
-#pragma unroll 8
-    for (int c = 0; c < H; ++c) {
-      const float4 wv = ld4(wt + (size_t)c * W);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) fma4(dxa[i], as[(rg + 16 * i) * AS + c], wv);
-    }
-    __syncthreads();
-  }
+// 3. zp_d = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d, into dzp
+__global__ void __launch_bounds__(NT, 2) tile_branch_kernel(const Args p) {
+  TILE_PROLOGUE;
+  float acc[TileShape<H>::MT][4][4] = {};
+  gemm<H>(acc, smem, H / KS, t0, T, [&](int s) {
+    return Slice{p.h1 + row0 * ldw + d * H + KS * s, ldw, 0,
+                 p.w1 + (size_t)d * H * H + (size_t)KS * s * H, H};
+  });
+  for_pairs<H>(acc, [&](int, int c, float& v0, float& v1) {
+    v0 = p.scale * (v0 + p.b1[d * H + c]);
+    v1 = p.scale * (v1 + p.b1[d * H + c + 1]);
+  });
+  gemm<H>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
+  });
+  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    const int n = d * H + c;
+    st2(p.dzp + (row0 + t) * ldw + n, v0 + p.ball[n], v1 + p.ball[n + 1]);
+  });
+}
 
-  const int len = min(T, lens[b]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + rg + 16 * i;
-    if (t >= T) continue;
-    const float* gr = g + (row0 + t) * W + n4;
+// 4. du = gv Wg^T, then gv, u and dzp_d (from zp_d, in place), element by
+// element: the softmax over branches of the s halves, tanh of the t halves
+__global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
+  TILE_PROLOGUE;
+  float acc[TileShape<W>::MT][4][4] = {};
+  gemm<W>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice{p.g + row0 * W + KS * s, W, 0, p.wg_t + (size_t)KS * s * W, W};
+  });
+  const int len = min(T, p.lens[b]);
+  const int depth = p.br.depth;
+  for_pairs<W>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
     const bool valid = t < len;
-    float4 o;
-    o.x = dxa[i][0] + (valid ? gr[0] : 0.f);
-    o.y = dxa[i][1] + (valid ? gr[1] : 0.f);
-    o.z = dxa[i][2] + (valid ? gr[2] : 0.f);
-    o.w = dxa[i][3] + (valid ? gr[3] : 0.f);
-    *reinterpret_cast<float4*>(dx + (row0 + t) * W + n4) = o;
-  }
+    const float2 gg = ld2(p.g + (row0 + t) * W + c);
+    st2(p.gv + (row0 + t) * W + c, valid ? p.scale * gg.x : 0.f, valid ? p.scale * gg.y : 0.f);
+    const float du[2] = {valid ? p.scale * v0 : 0.f, valid ? p.scale * v1 : 0.f};
+    float* zrow = p.dzp + (row0 + t) * ldw + c;
+    float2 tz[MAX_DEPTH], sz[MAX_DEPTH];  // every branch's (t, s) pair, loaded at once
+#pragma unroll
+    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
+      if (dd >= depth) break;
+      tz[dd] = ld2(zrow + dd * H);
+      sz[dd] = ld2(zrow + dd * H + W);
+    }
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
+      if (dd >= depth) break;
+      m[0] = fmaxf(m[0], sz[dd].x);
+      m[1] = fmaxf(m[1], sz[dd].y);
+    }
+    float den[2] = {0.f, 0.f}, num[2] = {0.f, 0.f};
+#pragma unroll
+    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
+      if (dd >= depth) break;
+      const float e0 = expf(sz[dd].x - m[0]), e1 = expf(sz[dd].y - m[1]);
+      den[0] += e0;
+      den[1] += e1;
+      num[0] += tanhf(tz[dd].x) * e0;
+      num[1] += tanhf(tz[dd].y) * e1;
+    }
+    const float u[2] = {num[0] / den[0], num[1] / den[1]};
+    st2(p.u + (row0 + t) * W + c, u[0], u[1]);
+#pragma unroll
+    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
+      if (dd >= depth) break;
+      const float tv[2] = {tz[dd].x, tz[dd].y}, sv[2] = {sz[dd].x, sz[dd].y};
+      float dt[2], ds[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float th = tanhf(tv[j]);
+        const float pj = expf(sv[j] - m[j]) / den[j];
+        dt[j] = du[j] * pj * (1.f - th * th);
+        ds[j] = du[j] * pj * (th - u[j]);
+      }
+      st2(zrow + dd * H, dt[0], dt[1]);
+      st2(zrow + dd * H + W, ds[0], ds[1]);
+    }
+  });
+}
+
+// 5. dc_d = scale * (dzp_d W1_d^T) * m1 * [c > 0]  (h1 > 0 exactly there)
+__global__ void __launch_bounds__(NT, 2) tile_dc_kernel(const Args p) {
+  TILE_PROLOGUE;
+  float acc[TileShape<H>::MT][4][4] = {};
+  gemm<H>(acc, smem, H / KS, t0, T, [&](int s) {
+    return Slice{p.dzp + row0 * ldw + d * H + KS * s, ldw, 0,
+                 p.w1_t + (size_t)d * H * H + (size_t)KS * s * H, H};
+  });
+  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    const size_t idx = (row0 + t) * ldw + d * H + c;
+    const float2 h = ld2(p.h1 + idx);
+    st2(p.dc + idx, h.x > 0.f ? p.scale * v0 * p.keep : 0.f, h.y > 0.f ? p.scale * v1 * p.keep : 0.f);
+  });
+}
+
+// 6. dz_d = dzp_d + (sum_j dc_d[t - (j-half) dil] K_d[j]^T) * m0 * [z > 0]
+// (a = relu(z) * m0 > 0 exactly there)
+__global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args p) {
+  TILE_PROLOGUE;
+  const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
+  const float* kd = p.ks_t + p.br.k_off[d];
+  float acc[TileShape<H>::MT][4][4] = {};
+  gemm<H>(acc, smem, k * (H / KS), t0, T, [&](int s) {
+    const int j = s / (H / KS), c = s % (H / KS);
+    return Slice{p.dc + row0 * ldw + d * H + KS * c, ldw, -(j - half) * dil,
+                 kd + (size_t)j * H * H + (size_t)KS * c * H, H};
+  });
+  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    const size_t idx = (row0 + t) * ldw + d * H + c;
+    const float2 z = ld2(p.dzp + idx), av = ld2(p.a + idx);
+    st2(p.dz + idx, z.x + (av.x > 0.f ? v0 * p.keep : 0.f), z.y + (av.y > 0.f ? v1 * p.keep : 0.f));
+  });
+}
+
+// 7. dx = g * [t < len] + dz Wall^T
+__global__ void __launch_bounds__(NT, 2) tile_dx_kernel(const Args p) {
+  TILE_PROLOGUE;
+  float acc[TileShape<W>::MT][4][4] = {};
+  gemm<W>(acc, smem, ldw / KS, t0, T, [&](int s) {
+    return Slice{p.dz + row0 * ldw + KS * s, ldw, 0, p.wall_t + (size_t)KS * s * W, W};
+  });
+  const int len = min(T, p.lens[b]);
+  for_pairs<W>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    const float2 gg = t < len ? ld2(p.g + (row0 + t) * W + c) : make_float2(0.f, 0.f);
+    st2(p.dx + (row0 + t) * W + c, v0 + gg.x, v1 + gg.y);
+  });
+}
+
+#undef TILE_PROLOGUE
+
+template <int BN>
+cudaError_t launch_stage(void (*kernel)(const Args), const Args& p, int B, int branches, cudaStream_t s) {
+  const size_t smem = TileShape<BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((p.T + TT - 1) / TT, B, branches), NT, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 // ---- weight gradients: split-over-time reduction ---------------------------
@@ -454,9 +519,9 @@ int wgrad_problem_count(const Branches& br) {
 }  // namespace
 }  // namespace gated_hifi
 
-// Launches the two tile passes on `stream`; returns a cudaError_t (0 on
-// success). Inputs as for gated_hifi_fwd, plus g [B, T, width] (the output's
-// cotangent) and the transposed weights: wg_t [W(out), W(in)], w1_t
+// Launches the tile passes' seven stages on `stream`; returns a cudaError_t
+// (0 on success). Inputs as for gated_hifi_fwd, plus g [B, T, width] (the
+// output's cotangent) and the transposed weights: wg_t [W(out), W(in)], w1_t
 // [depth, H(out), H(in)], ks_t the branches' [k_d, H(out), H(in)] back to
 // back, wall_t [depth*H, W]. Outputs: a, h1, dzp, dc, dz [B, T, depth*H];
 // u, gv, dx [B, T, width].
@@ -470,40 +535,23 @@ extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, c
                               unsigned threshold, float keep_scale, void* stream) {
   using namespace gated_hifi;
   Branches br;
-  if (width != W || B < 1 || T < 1 || !make_branches(depth, kernels, dilations, &br))
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br))
     return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, threshold, keep_scale};
+  const Args p{x,  g,  wall, ball, ks, cb, w1, b1, wg_t, w1_t, ks_t, wall_t, lens,
+               a,  h1, dzp,  dc,   dz, u,  gv, dx, T,    scale, threshold ? keep_scale : 1.f,
+               br, Dropout{seed, threshold, keep_scale}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + TT - 1) / TT, B);
-
-  const size_t smem_a = tile_smem_bytes(br.max_halo);
-  cudaError_t err;
-  if (threshold) {
-    err = cudaFuncSetAttribute(bwd_recompute_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-    if (err != cudaSuccess) return (int)err;
-    bwd_recompute_kernel<true><<<grid, NT, smem_a, s>>>(x, lens, g, wall, ball, ks, cb, w1, b1,
-                                                        wg_t, w1_t, a, h1, dzp, dc, u, gv, T,
-                                                        scale, br, drop);
-  } else {
-    err = cudaFuncSetAttribute(bwd_recompute_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-    if (err != cudaSuccess) return (int)err;
-    bwd_recompute_kernel<false><<<grid, NT, smem_a, s>>>(x, lens, g, wall, ball, ks, cb, w1, b1,
-                                                         wg_t, w1_t, a, h1, dzp, dc, u, gv, T,
-                                                         scale, br, drop);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem_b = sizeof(float) * (TT + 2 * (size_t)br.max_halo) * AS;
-  err = cudaFuncSetAttribute(bwd_transpose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-  bwd_transpose_kernel<<<grid, NT, smem_b, s>>>(lens, g, ks_t, wall_t, a, dzp, dc, dz, dx, T,
-                                                threshold ? keep_scale : 1.f, br);
-  return (int)cudaGetLastError();
+  // in stream order: each stage reads what the ones before it wrote
+  cudaError_t err = launch_stage<H>(tile_expand_kernel, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage<H>(tile_conv_kernel, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage<H>(tile_branch_kernel, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage<W>(tile_gate_kernel, p, B, 1, s);
+  if (err == cudaSuccess) err = launch_stage<H>(tile_dc_kernel, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage<H>(tile_convt_kernel, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage<W>(tile_dx_kernel, p, B, 1, s);
+  return (int)err;
 }
+
 
 // Floats of the partials buffer gated_hifi_wgrad needs.
 extern "C" long gated_hifi_wgrad_partial_floats(int depth, const int* kernels, int n_split) {

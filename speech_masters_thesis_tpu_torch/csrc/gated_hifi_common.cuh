@@ -1,6 +1,7 @@
 // Shared by the GatedHiFi kernels (gated_hifi_fwd.cu, gated_hifi_bwd.cu):
-// compile-time shapes, the branch table, the inner-product helpers and the
-// dropout hash.
+// compile-time shapes, the branch table, the dropout hash, and the forward's
+// fp32 tile stages (the backward's tile passes run on the tensor cores,
+// gated_hifi_bwd.cu).
 //
 // Dropout. The mask of an element is a pure function of (seed, sequence b,
 // branch d, absolute frame t, channel c), so any tile, forward or backward,
@@ -101,7 +102,7 @@ struct Dropout {
   float scale;  // 1 / (1 - p), as float32
 };
 
-// ---- the tile stages the forward and the backward's passes share ----------
+// ---- the forward kernel's tile stages (fp32 FMA on the CUDA cores) --------
 // A thread owns rows rg + 16*i (i < 4) and, in H-wide stages, the 8 columns
 // n8..n8+7, in W-wide stages the 4 columns n4..n4+3 (see the kernels).
 

@@ -384,8 +384,9 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
                      seed: int = 0) -> Tuple[torch.Tensor, BackwardBuffers]:
     """dx and the ``BackwardBuffers`` of the cotangent ``g``.
 
-    A CUDA tensor launches the two tile passes of ``csrc/gated_hifi_bwd.cu``,
-    which recompute the forward from x and the seed; ``backward_buffers.launches``
+    A CUDA tensor launches the tile passes of ``csrc/gated_hifi_bwd.cu``
+    (seven 3xTF32 tensor-core stages that meet in these buffers), which
+    recompute the forward from x and the seed; ``backward_buffers.launches``
     counts launches. A CPU tensor runs ``backward_buffers_reference``.
     """
     if x.device.type == "cpu":

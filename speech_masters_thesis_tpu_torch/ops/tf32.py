@@ -1,0 +1,50 @@
+"""The 3xTF32 split of ``csrc/tf32_mma.cuh``, emulated in torch.
+
+The backward kernels of B1 (``csrc/gated_hifi_bwd.cu``) and B2
+(``csrc/attention_bwd.cu``) run their products on the tensor cores with
+TF32 operands. A TF32 operand keeps 10 explicit mantissa bits, so each fp32
+operand is split as ``x = big + small`` (both TF32), and a product is
+``small_a big_b + big_a small_b + big_a big_b`` accumulated in fp32, one
+8-deep MMA k-step at a time. This module computes the same numbers on the
+CPU, so the tests can show why the kernels meet the fp32 tolerances that a
+single TF32 product misses. Nothing on the model paths uses it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KSTEP = 8  # the k depth of one mma.m16n8k8 TF32 step
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, on the
+    low 13 mantissa bits of each float32 (the kernels' ``tf32::to_tf32``:
+    half a TF32 ulp added to the magnitude, then the low bits cleared)."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rounded = ((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
+    return torch.where(rounded >= 2 ** 31, rounded - 2 ** 32, rounded).to(torch.int32).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    """(big, small): x = big + small up to the dropped low bits, both TF32."""
+    big = round_tf32(x)
+    return big, round_tf32(x.to(torch.float32) - big)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a [M, K] @ b [K, N] as the kernels compute it: K in steps of 8, each
+    step's products of TF32 operands summed exactly (float64) and added to a
+    float32 accumulator, for passes = 3 in the kernels' order (small big,
+    big small, big big); passes = 1 is a single TF32 product (big big)."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a_big, a_small = split(a)
+    b_big, b_small = split(b)
+    terms = [(a_big, b_big)] if passes == 1 else [(a_small, b_big), (a_big, b_small), (a_big, b_big)]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], KSTEP):
+        for x, y in terms:
+            step = x[:, k0:k0 + KSTEP].double() @ y[k0:k0 + KSTEP].double()
+            acc = (acc.double() + step).to(torch.float32)
+    return acc
