@@ -1,5 +1,6 @@
-"""Parent against change on one card: B2's backward, B1's backward tile
-passes, the VQ-VAE train step and the LM train step, each tree in its own
+"""Parent against change on one card: B2's backward, B1's forward, backward
+tile passes and weight-gradient reduction, the VQ-VAE train step, the
+codec's encode + decode and the LM train step, each tree in its own
 process, in the order given (parent, change, change, parent, ...).
 
     python3 ab_backward.py build/parent . . build/parent
@@ -7,12 +8,17 @@ process, in the order given (parent, change, change, parent, ...).
 Each argument is the root of a checkout of the port (its package and its
 ``chip_smoke.py``); a worker puts that root first on ``sys.path``, builds
 that tree's kernels and measures through the wrappers both trees share
-(``attention.attention_backward``, ``gated_hifi.backward_buffers``) and
-``chip_smoke``'s train phases. Kernel times are CUDA events around
-back-to-back calls over their count (device time); step times are those of
-``chip_smoke.phase_train`` (median of steps 2-5) and
-``chip_smoke.phase_lm_train`` (batch 64). Prints one JSON line per worker,
-then the pairs.
+(``attention.attention_backward``, ``gated_hifi.gated_hifi``,
+``gated_hifi.backward_buffers``, ``gated_hifi.weight_grad_reduce``) and
+``chip_smoke``'s phases. Kernel times are CUDA events around back-to-back
+calls over their count (device time), summed over the 7 block shapes of
+the VQ-VAE path at batch 16: the forward at p=0 and p=0.1, the tile passes
+and the reduction at p=0.1. Step times are those of
+``chip_smoke.phase_train`` (median of steps 2-5, with its peak memory) and
+``chip_smoke.phase_lm_train`` (batch 64); encode + decode is timed as
+``chip_smoke.phase_timing`` times it (batch 16 x 66048, median of 5 after a
+warm-up, with its peak memory). Prints one JSON line per worker, then the
+pairs.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ ATTN_SHAPES = ((8, 258), (64, 258))
 ATTN_REPS = 50
 TILE_REPS = 20
 TILE_P = 0.1
+FWD_PS = (0.0, 0.1)
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -44,6 +51,27 @@ def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def encode_decode(torch, cs, model, device) -> tuple:
+    """(median ms, peak GiB) of encode + decode as chip_smoke.phase_timing
+    runs it; kept here because a parent tree's phase_timing returns nothing."""
+    audio, lengths = cs.audio_batch(cs.BATCH, cs.SAMPLES, seed=4)
+    x, n = audio.to(device), lengths.to(device)
+    mask = (torch.arange(x.shape[1], device=device)[None, :] < n[:, None]).float()
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for rep in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            codes, code_mask = model.encode(x, mask)
+            model.decode(codes, code_mask)
+            torch.cuda.synchronize()
+            if rep:  # the first is a warm-up
+                times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], torch.cuda.max_memory_allocated() / 2 ** 30
+
+
 def worker(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
@@ -56,7 +84,8 @@ def worker(tree: str) -> dict:
     card = cs.phase_device()
     device = cs.cuda_device()
     cs.phase_build()
-    out = {"tree": tree, "card": card, "attention_bwd": {}, "tiles": {}}
+    out = {"tree": tree, "card": card, "attention_bwd": {}, "tiles": {}, "reduction": {},
+           **{f"forward p={p}": {} for p in FWD_PS}}
     scale = 1.0 / np.sqrt(cs.ATTN_DIM)
     with torch.no_grad():
         for i, (B, T) in enumerate(ATTN_SHAPES):
@@ -70,14 +99,23 @@ def worker(tree: str) -> dict:
         w = cs.block_weights(device, seed=1)
         for i, T in enumerate(cs.BLOCK_TS):
             x, lens, _, g = cs.block_inputs(T, cs.BATCH, 200 + i, device)
+            for p in FWD_PS:
+                out[f"forward p={p}"][T] = back_to_back_ms(
+                    torch, lambda: gh.gated_hifi(x, lens, w, 1.0, p, 12345), TILE_REPS, warmup=1)
             out["tiles"][T] = back_to_back_ms(
                 torch, lambda: gh.backward_buffers(x, lens, w, g, 1.0, TILE_P, 12345), TILE_REPS, warmup=1)
-            del x, lens, g
+            _, bufs = gh.backward_buffers(x, lens, w, g, 1.0, TILE_P, 12345)
+            out["reduction"][T] = back_to_back_ms(
+                torch, lambda: gh.weight_grad_reduce(x, bufs, w.kernels, w.dilations), TILE_REPS, warmup=1)
+            del x, lens, g, bufs
             torch.cuda.empty_cache()
-    out["tiles_sum"] = sum(out["tiles"].values())
+    for key in ("tiles", "reduction", *(f"forward p={p}" for p in FWD_PS)):
+        out[f"{key} sum"] = sum(out[key].values())
     out["vqvae_step_ms"] = cs.phase_train(device, card)["step_ms"]
+    out["vqvae_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30  # phase_train resets it
     torch.cuda.empty_cache()
     model = cs.build_model(device, *cs.audio_batch(cs.BATCH, cs.SAMPLES, seed=5))
+    out["encode_decode_ms"], out["encode_decode_peak_gib"] = encode_decode(torch, cs, model, device)
     vq_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     del model
     torch.cuda.empty_cache()
@@ -105,7 +143,9 @@ def main() -> None:
         res["seconds"] = time.perf_counter() - t0
         print(json.dumps(res), flush=True)
         results.append(res)
-    for key in (*results[0]["attention_bwd"], "tiles_sum", "vqvae_step_ms", "lm_b64_step_ms"):
+    for key in (*results[0]["attention_bwd"], *(f"forward p={p} sum" for p in FWD_PS), "tiles sum",
+                "reduction sum", "vqvae_step_ms", "vqvae_step_peak_gib", "encode_decode_ms",
+                "encode_decode_peak_gib", "lm_b64_step_ms"):
         vals = [r["attention_bwd"][key] if key in r["attention_bwd"] else r[key] for r in results]
         print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {v:.4f}" for r, v in zip(results, vals))
               + f" [{results[0]['card']}]")

@@ -10,18 +10,22 @@ points a user calls, with every kernel built from csrc/ in this checkout:
 
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
-     and shared-memory report;
+     and shared-memory report, B1's resident blocks per SM, and no B1 kernel
+     spilling;
   3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
-     against its plain PyTorch version in fp32 (TF32 off), with both times;
+     against its plain PyTorch version in fp32 (TF32 off), with both times
+     and the kernel's over 50 back-to-back calls (p=0);
   4. the inference path at batch 16 x 66048 samples: encode, decode and the
      eval forward, counting kernel launches (7 per encode, 7 per decode, 14
      per forward);
   5. the same model on the CPU (plain path) on a 2 x 22016 subset: codes,
      reconstruction and losses;
-  6. encode + decode wall time at batch 16 x 66048;
+  6. encode + decode wall time and peak memory at batch 16 x 66048;
   7. each block shape, backward kernels (tile passes and weight-gradient
      reduction) against plain autograd, at p=0 and at p=0.1: dx and every
-     weight gradient, two calls bitwise equal, both times;
+     weight gradient, two calls bitwise equal, both times; the tile passes
+     and the reduction over 50 back-to-back calls, beside the reduction's
+     products as one torch.mm each (the library yardstick);
   8. the dropout law on the card: the kernel's masks (read from its
      backward buffers) equal the plain version's bit for bit, keep rates
      within 5 sigma of 0.9, one seed reproduces and another differs, and the
@@ -136,6 +140,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import re
 import statistics
@@ -340,9 +345,14 @@ def phase_device() -> str:
 
 KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", "enc_attention_kernel",
                 "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
-                "gated_hifi_fwd_kernel", "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel",
+                "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel",
                 "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel")
+# B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
+B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
+B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
+                  "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel", "wgrad_partial_kernel",
+                  "wgrad_reduce_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -372,6 +382,15 @@ def phase_build() -> None:
           f"in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
     for name in KERNEL_NAMES:
         require(any(line.startswith(name) for line in ptxas), f"ptxas reports no {name}")
+    lib = _build.build()
+    for side, names in (("fwd", B1_FWD_KERNELS), ("bwd", B1_BWD_KERNELS)):
+        blocks = (ctypes.c_int * len(names))()
+        rc = getattr(lib, f"gated_hifi_{side}_blocks_per_sm")(blocks)
+        require(rc == 0 and min(blocks) >= 1, f"B1 {side}: blocks per SM {list(blocks)} (cudaError {rc})")
+        print(f"[build] B1 {side}: resident blocks per SM (256 threads, at the launch's shared memory): "
+              + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
+    b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
+    require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -380,7 +399,7 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
     randomize(block, seed=1)
     block.to(device)
     w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
-    max_err, ms_total, plain_total, flops, nbytes = 0.0, 0.0, 0.0, 0, 0
+    max_err, ms_total, plain_total, dev_total, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
     with torch.inference_mode():
         for i, T in enumerate(block_ts):
             rng = np.random.RandomState(100 + i)
@@ -399,22 +418,26 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
             tol = KERNEL_RTOL * scale
             ms = cuda_ms(lambda: gh.gated_hifi(x, lens, w))
             plain = cuda_ms(lambda: gh.gated_hifi_reference(x, lens, w))
+            dev = device_ms(lambda: gh.gated_hifi(x, lens, w))
             print(f"[kernel] B={batch} T={T} W=64: max_abs_err {err:.3e} (tol {tol:.3e} = "
                   f"{KERNEL_RTOL:g} * max|ref| {scale:.3e}), exact zeros past lens {zeros}; "
-                  f"kernel {ms:.3f} ms, plain {plain:.3f} ms (median of 10) [{card}]")
+                  f"kernel {ms:.3f} ms, plain {plain:.3f} ms (median of 10); kernel {dev:.3f} ms over "
+                  f"{DEVICE_REPS} back-to-back calls [{card}]")
             require(np.isfinite(err) and err <= tol, f"kernel disagrees at T={T}: {err} > {tol}")
             require(zeros, f"kernel output not zero past lens at T={T}")
             max_err = max(max_err, err)
             ms_total += ms
             plain_total += plain
+            dev_total += dev
             flops += batch * T * block_flops_per_frame(w)
             nbytes += 4 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[kernel] sum over the {len(block_ts)} block shapes: kernel {ms_total:.3f} ms, "
-          f"plain {plain_total:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB) [{card}]")
-    return {"max_abs_err": max_err, "ms": ms_total, "plain_ms": plain_total, "bound_ms": bound_ms,
-            "bound_by": bound_by, "tf32_ms": tf32_bound_ms(flops, nbytes)}
+          f"plain {plain_total:.3f} ms; kernel {dev_total:.3f} ms over {DEVICE_REPS} back-to-back calls; "
+          f"bound {bound_ms:.3f} ms by {bound_by} ({tf32_bound_ms(flops, nbytes):.3f} at the 3xTF32 rate; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+    return {"max_abs_err": max_err, "ms": dev_total, "call_ms": ms_total, "plain_ms": plain_total,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tf32_ms": tf32_bound_ms(flops, nbytes)}
 
 
 def block_flops_per_frame(w: gh.GatedHiFiWeights) -> int:
@@ -518,6 +541,8 @@ def phase_timing(model, device, audio, lengths, card: str) -> None:
     x, n = audio.to(device), lengths.to(device)
     mask = (torch.arange(x.shape[1], device=device)[None, :] < n[:, None]).float()
     times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         for rep in range(6):
             torch.cuda.synchronize()
@@ -528,8 +553,8 @@ def phase_timing(model, device, audio, lengths, card: str) -> None:
             if rep:  # the first is a warm-up
                 times.append((time.perf_counter() - t0) * 1e3)
     print(f"[timing] encode + decode, B={x.shape[0]} x {x.shape[1]} samples: median "
-          f"{statistics.median(times):.3f} ms of {len(times)} ({', '.join(f'{t:.3f}' for t in times)}) "
-          f"[{card}]")
+          f"{statistics.median(times):.3f} ms of {len(times)} ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]")
 
 
 def block_weights(device: torch.device, seed: int) -> gh.GatedHiFiWeights:
@@ -613,7 +638,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
     out = {"dx_err": 0.0, "red_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "red_ms": 0.0, "red_plain_ms": 0.0}
     for p in (0.0, P_DROP):
         sums = {"bwd": 0.0, "plain": 0.0, "tiles": 0.0, "tiles_plain": 0.0, "red": 0.0, "red_plain": 0.0,
-                "tiles_dev": 0.0}
+                "tiles_dev": 0.0, "red_dev": 0.0, "red_mm": 0.0}
         # the tile passes: the recomputed forward and the transposed products (2x the
         # forward's operations); x and g in, dx and the buffers out. The reduction: one
         # product per weight; x and the buffers in, the weight gradients out
@@ -667,6 +692,8 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
                 "red_plain": cuda_ms(lambda: gh.weight_grad_reduce_reference(
                     x, bufs_r, w.kernels, w.dilations), reps=5, warmup=1),
                 "tiles_dev": device_ms(lambda: gh.backward_buffers(*args)),
+                "red_dev": device_ms(lambda: gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations)),
+                "red_mm": device_ms(wgrad_mm_calls(x, bufs_r, w.kernels, w.dilations)),
             }
             for key, ms in times.items():
                 sums[key] += ms
@@ -683,8 +710,9 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
                   f"bitwise equal {bitwise}; ms: backward kernels {times['bwd']:.3f} vs plain autograd "
                   f"{times['plain']:.3f}, tile passes {times['tiles']:.3f} vs plain "
                   f"{times['tiles_plain']:.3f}, reduction {times['red']:.3f} vs plain "
-                  f"{times['red_plain']:.3f} (median of 5); tile passes {times['tiles_dev']:.3f} over "
-                  f"{DEVICE_REPS} back-to-back calls [{card}]")
+                  f"{times['red_plain']:.3f} (median of 5); over {DEVICE_REPS} back-to-back calls tile "
+                  f"passes {times['tiles_dev']:.3f}, reduction {times['red_dev']:.3f} vs its products as "
+                  f"torch.mm {times['red_mm']:.3f} [{card}]")
             for name, (_, value, scale) in flips.items():
                 require(value <= FLIP_RTOL * scale, f"{name}: a decision flipped at {value} of {scale}")
             require(np.isfinite(dx_err) and dx_err <= DX_RTOL * dx_scale,
@@ -704,7 +732,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
               f"{sums['bwd']:.3f} ms vs plain autograd {sums['plain']:.3f} ms; tile passes "
               f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms ({sums['tiles_dev']:.3f} ms over "
               f"{DEVICE_REPS} back-to-back calls); reduction {sums['red']:.3f} vs {sums['red_plain']:.3f} ms "
-              f"[{card}]")
+              f"({sums['red_dev']:.3f} ms back to back, its products as torch.mm {sums['red_mm']:.3f}) [{card}]")
         if p == P_DROP:  # the training configuration
             tiles_bound, tiles_by = bound(*work["tiles"])
             red_bound, red_by = bound(*work["red"])
@@ -712,11 +740,39 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
                   f"{tiles_by} ({tf32_bound_ms(*work['tiles']):.3f} at the 3xTF32 rate), reduction "
                   f"{red_bound:.3f} ms by {red_by} ({tf32_bound_ms(*work['red']):.3f}) [{card}]")
             out.update(ms=sums["tiles_dev"], tiles_call_ms=sums["tiles"], plain_ms=sums["tiles_plain"],
-                       red_ms=sums["red"],
+                       red_ms=sums["red_dev"], red_call_ms=sums["red"], red_library_ms=sums["red_mm"],
                        red_plain_ms=sums["red_plain"], bound_ms=tiles_bound, bound_by=tiles_by,
                        red_bound_ms=red_bound, red_bound_by=red_by, tf32_ms=tf32_bound_ms(*work["tiles"]),
                        red_tf32_ms=tf32_bound_ms(*work["red"]))
     return out
+
+
+def wgrad_mm_calls(x, bufs: gh.BackwardBuffers, kernels, dilations):
+    """The reduction's products as one torch.mm each (TF32 off, phase_device),
+    the library yardstick for its time: a function that runs every conv
+    tap's a^T dc, each branch's h1^T dzp, u^T gv and each branch's x^T dz
+    over the B*T frames (33 products at the shipped config). A tap's shift runs over the flattened frames, so the few frames
+    at each sequence boundary that the kernel zero-fills are not zeroed: the
+    same work, not the same bits. The port never calls this."""
+    B, T, W = x.shape
+    H = 2 * W
+    rows = B * T
+    flat = {name: getattr(bufs, name).reshape(rows, -1) for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv")}
+    pairs = []
+    for d, (k, dil) in enumerate(zip(kernels, dilations)):
+        cols = slice(d * H, (d + 1) * H)
+        for j in range(k):
+            shift = (j - (k - 1) // 2) * dil
+            lo, hi = max(shift, 0), rows + min(shift, 0)   # X rows r + shift for r in [lo - shift, hi - shift)
+            pairs.append((flat["a"][lo:hi, cols], flat["dc"][lo - shift:hi - shift, cols]))
+        pairs.append((flat["h1"][:, cols], flat["dzp"][:, cols]))
+    pairs.append((flat["u"], flat["gv"]))
+    pairs += [(x.reshape(rows, W), flat["dz"][:, d * H:(d + 1) * H]) for d in range(len(kernels))]
+
+    def run():
+        for a, b in pairs:
+            torch.mm(a.t(), b)
+    return run
 
 
 def phase_dropout(device, card: str) -> float:
@@ -2203,13 +2259,13 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("gated_hifi_fwd", "gated_hifi_fwd.cu", PALLAS + ":591", train["fwd"],
               max(kernel["max_abs_err"], dropout_err), kernel["ms"], kernel["plain_ms"], kernel["bound_ms"],
-              kernel["bound_by"], bound_3xtf32_ms=kernel["tf32_ms"]),
+              kernel["bound_by"], call_ms=kernel["call_ms"], bound_3xtf32_ms=kernel["tf32_ms"]),
         entry("gated_hifi_bwd", "gated_hifi_bwd.cu", PALLAS + ":612", train["bwd"], backward["dx_err"],
               backward["ms"], backward["plain_ms"], backward["bound_ms"], backward["bound_by"],
               call_ms=backward["tiles_call_ms"], bound_3xtf32_ms=backward["tf32_ms"]),
         entry("gated_hifi_wgrad", "gated_hifi_bwd.cu", PALLAS + ":360", train["red"], backward["red_err"],
               backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
-              bound_3xtf32_ms=backward["red_tf32_ms"]),
+              backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"],
               bound_3xtf32_ms=attention["tf32"]),

@@ -1,12 +1,13 @@
-// GatedHiFi block backward for Hopper (sm_90a), fp32 at its interface, the
-// tile passes' products in 3xTF32 on the tensor cores (tf32_mma.cuh), with
-// the dropout masks regenerated from the seed.
+// GatedHiFi block backward for Hopper (sm_90a), fp32 at its interface, its
+// products in 3xTF32 on the tensor cores (tf32_mma.cuh), with the dropout
+// masks regenerated from the seed.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
-// _vjp_bwd -> _bwd -> _bwd_kernel (the TPU kernel's recompute backward).
-// Like it, this saves no residuals beyond x, lens, the weights and the
-// seed: the forward is recomputed from x. What it computes, with the
-// forward's names (gated_hifi_fwd.cu) and g the output's cotangent:
+// _vjp_bwd -> _bwd -> _bwd_kernel (the TPU kernel's recompute backward,
+// its weight sums at :360-454). Like it, this saves no residuals beyond x,
+// lens, the weights and the seed: the forward is recomputed from x. What
+// it computes, with the forward's names (gated_hifi_fwd.cu) and g the
+// output's cotangent:
 //   gv    = scale * g * [t < min(T, len)]             (d v)
 //   du    = gv Wg^T;  dWg = u^T gv;  dbg = sum gv
 //   dzp_d = [du p_d (1 - tanh^2 t_d),  du p_d (tanh t_d - u)]
@@ -22,276 +23,65 @@
 //     expand alone, over the 227 KB a block may have. So the backward's
 //     tile passes are stages that meet in device memory, in the buffers the
 //     weight gradients need anyway (ops/gated_hifi.py:BackwardBuffers):
-//       1 expand   a_d   = relu(x Wall_d + ball_d) * m0_d
-//       2 conv     h1_d  = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
-//       3 branch   zp_d  = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d  (into dzp)
+//       1-3 expand, conv, branch: the forward's stages (gated_hifi_tiles.cuh),
+//           zp_d into dzp
 //       4 gate     du = gv Wg^T; u, gv and dzp_d from zp_d in place
 //       5 dc       dc_d  = scale * (dzp_d W1_d^T) * m1 * [c > 0]
 //       6 convt    dz_d  = dzp_d + (sum_j dc_d[t - (j-half) dil] K_d[j]^T) * m0 * [z > 0]
 //       7 dx       dx    = g' + dz Wall^T
-//     Each stage is one launch over (64-frame tile, sequence, branch). A
-//     conv tap's operand is 64 consecutive frames of a (or dc) shifted by
-//     the tap's offset, so no block holds a halo window: the taps stream
-//     through shared memory like any other k-slice. The a and dc windows
-//     are read once per tap, from L2 for the neighbours' rows.
+//     Each stage is one launch of the shared tile (gated_hifi_tiles.cuh);
+//     the transposed conv's taps are shifted k-slices of dc. The epilogues
+//     apply bias, relu, the dropout masks and the gating.
 //  2. Its weight gradients. The TPU accumulates them across its sequential
 //     grid (@pl.when(first) ... += ...). Hopper's blocks run in parallel
 //     and in no order, so every weight gradient is a product summed over
-//     the B*T frames, computed as a split-over-time reduction: each block of
-//     wgrad_partial_kernel sums one slice of the frames for one product
-//     (one conv tap of one branch, a branch 1x1, the gate, or a branch's
-//     slice of the expand) into its own partial, and wgrad_reduce_kernel
-//     adds the slices in a fixed order. No float atomics: equal inputs give
+//     the B*T frames, computed as a split-over-frames reduction: each block
+//     of wgrad_partial_kernel sums one slice of the frames for one product
+//     (one conv tap of one branch, a branch 1x1, the gate, or 256 columns
+//     of the expand) into its own partial, and wgrad_reduce_kernel adds the
+//     slices in a fixed order. No float atomics: equal inputs give
 //     bitwise-equal gradients.
 //
-// What bounds the tile passes: arithmetic. They cost twice the forward's
+// What bounds it: arithmetic. The tile passes cost twice the forward's
 // multiply-adds (the recompute, then the transposed products), about 2
-// MFLOP a frame, 3x that on the tensor cores in 3xTF32; the stages move
-// about 15 [B, T, depth*H] passes of device memory. At 16 x 33024 that is
-// 16 GB (4.7 ms at 3.35 TB/s) against 3.2 TFLOP of TF32 products (6.5 ms
-// at 495 TF/s); these stages reach about a quarter of that rate.
-// Design: every stage is a [64 frames x BN] output tile (BN = 128 for a
-// branch's columns, 64 for the width) of 8 warps, each warp 32 x 32 (or
-// 16 x 32) in m16n8k8 MMAs, over k-slices of 32 channels: the activation
-// slice (64 x 32, zero-filled outside [0, T)) and the weight slice
-// (32 x BN) are staged by cp.async three slices ahead, rows padded to 36
-// and BN + 8 floats so that fragment reads fall on distinct banks. About
-// 80 KB of shared memory and at most 128 registers a thread: two blocks
-// (16 warps) per SM. The epilogues apply bias, relu, the dropout masks (the
-// same hash as the forward, bit for bit) and the gating, and write the
-// buffers. The weight-gradient reduction is plain fp32 FMA on the CUDA
-// cores, 128 x 128 tiles with 8 x 8 a thread over 16-frame slabs.
+// MFLOP a frame, the reduction about 1, each 3x that on the tensor cores in
+// 3xTF32; the stages move about 15 [B, T, depth*H] passes of device
+// memory, the reduction reads its 7 buffers once. At 16 x 33024 that is
+// 16 GB (4.7 ms at 3.35 TB/s) against 3.2 TFLOP of TF32 products (6.5 ms at
+// 495 TF/s) for the tile passes, 3.2 GB against 1.6 TFLOP for the reduction.
+//
+// The reduction's design: out[M, N] = sum_r X[r + shift]^T Y[r] runs k =
+// frames in m16n8k8 MMAs. Both operands are [frames x channels] slabs of
+// 32 frames, double-buffered by cp.async (a frame whose t + shift
+// leaves [0, T) is zero-filled); the A fragment is X^T, read transposed
+// from shared memory, and rows 8 floats longer than the tile put lane
+// (g, q) of a fragment read on bank 8q + g. A block's tile is 128 x 128
+// (conv taps, branch 1x1s) or 64 x 256 (the expand's 64 input channels
+// against 256 of its columns, so the 64-wide operand fills a whole tile;
+// the gate's 64 x 64 uses a quarter of one); 8 warps of 32 x 64 each. A
+// slice runs up to 3,100 MMAs into each accumulator, and the tensor cores'
+// accumulation truncates each one's sum, which over a whole slice lost 30x
+// the fp32 sum's accuracy on the card; so every 32 slabs (384 MMAs) the
+// block adds its accumulators into its partial in fp32 and restarts them
+// from zero. The partial keeps the tile in the accumulators' own order, so
+// those adds are coalesced and cost no address registers (the 64
+// accumulators a thread leave no room for a second set). The bias
+// gradients are the column sums of Y, taken from the staged slabs on the
+// CUDA cores in fp32.
 
-#include "gated_hifi_common.cuh"
-#include "tf32_mma.cuh"
-
-#include <math.h>
+#include "gated_hifi_tiles.cuh"
 
 #include <vector>
 
 namespace gated_hifi {
 namespace {
 
-// ---- the tile passes: a [TT x BN] output tile over streamed k-slices ------
-constexpr int KS = 32;          // channels per k-slice
-constexpr int STAGES = 3;       // k-slices in flight
-constexpr int LDA = KS + 4;     // row stride of an activation slice
-
-template <int BN>
-struct TileShape {
-  static constexpr int LDB = BN + 8;                  // row stride of a weight slice
-  static constexpr int WARPS_M = BN == 128 ? 2 : 4;   // 8 warps: WARPS_M x (8 / WARPS_M)
-  static constexpr int MT = TT / 16 / WARPS_M;        // m16 tiles per warp
-  static constexpr int STAGE_FLOATS = TT * LDA + KS * LDB;
-  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE_FLOATS;
-};
-
-// One k-slice: 32 channels of an activation buffer (frame t at a + t*lda,
-// read at t + shift, zero outside [0, T)) against 32 rows of a weight
-// matrix (b, rows ldb floats apart).
-struct Slice {
-  const float* a;
-  int lda;
-  int shift;
-  const float* b;
-  int ldb;
-};
-
-template <int BN>
-__device__ __forceinline__ void load_slice(float* st, const Slice& s, int t0, int T) {
-  float* as = st;
-  float* bs = st + TT * LDA;
-  for (int f = threadIdx.x; f < TT * (KS / 4); f += NT) {
-    const int r = f / (KS / 4), c4 = f % (KS / 4);
-    const int t = t0 + r + s.shift;
-    const bool in = t >= 0 && t < T;
-    tf32::cp_async16(as + r * LDA + 4 * c4, in ? s.a + (size_t)t * s.lda + 4 * c4 : s.a, in ? 16 : 0);
-  }
-  for (int f = threadIdx.x; f < KS * (BN / 4); f += NT) {
-    const int r = f / (BN / 4), c4 = f % (BN / 4);
-    tf32::cp_async16(bs + r * TileShape<BN>::LDB + 4 * c4, s.b + (size_t)r * s.ldb + 4 * c4, 16);
-  }
-}
-
-// The warp's place in the tile: rows row0 + 16*mt + gr (+8), columns
-// col0 + 8*nt + 2*qd (+1), as in the accumulator layout.
-template <int BN>
-struct WarpTile {
-  int row0, col0, gr, qd;
-  __device__ __forceinline__ WarpTile() {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    row0 = (warp % TileShape<BN>::WARPS_M) * 16 * TileShape<BN>::MT;
-    col0 = (warp / TileShape<BN>::WARPS_M) * 32;
-    gr = lane >> 2;
-    qd = lane & 3;
-  }
-};
-
-// acc += sum over the n slices slice_of(0 .. n-1), in slice order
-template <int BN, class F>
-__device__ __forceinline__ void gemm(float (&acc)[TileShape<BN>::MT][4][4], float* smem, int n, int t0,
-                                     int T, F slice_of) {
-  using S = TileShape<BN>;
-  const WarpTile<BN> wt;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n) load_slice<BN>(smem + s * S::STAGE_FLOATS, slice_of(s), t0, T);
-    tf32::cp_async_commit();
-  }
-  for (int s = 0; s < n; ++s) {
-    tf32::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice s has landed, and every warp is done with slice s - 1
-    if (s + STAGES - 1 < n)
-      load_slice<BN>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE_FLOATS, slice_of(s + STAGES - 1), t0, T);
-    tf32::cp_async_commit();
-    const float* as = smem + (s % STAGES) * S::STAGE_FLOATS;
-    const float* bs = as + TT * LDA;
-#pragma unroll
-    for (int kk = 0; kk < KS / 8; ++kk) {
-      tf32::FragA fa[S::MT];
-#pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt) {
-        const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA + 8 * kk + wt.qd;
-        fa[mt] = tf32::frag_a(r[0], r[8 * LDA], r[4], r[8 * LDA + 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* c = bs + (8 * kk + wt.qd) * S::LDB + wt.col0 + 8 * nt + wt.gr;
-        const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
-#pragma unroll
-        for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
-      }
-    }
-  }
-  tf32::cp_async_wait<0>();
-  __syncthreads();  // the staging buffers are free for the next gemm
-}
-
-// f(tile row, tile column, acc[.][.][e], acc[.][.][e + 1]) for each pair of
-// adjacent columns the warp holds
-template <int BN, class F>
-__device__ __forceinline__ void for_pairs(float (&acc)[TileShape<BN>::MT][4][4], F f) {
-  const WarpTile<BN> wt;
-#pragma unroll
-  for (int mt = 0; mt < TileShape<BN>::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(wt.row0 + 16 * mt + wt.gr + 8 * h, wt.col0 + 8 * nt + 2 * wt.qd, acc[mt][nt][2 * h],
-          acc[mt][nt][2 * h + 1]);
-}
-
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-
-// 0 or the keep scale of one dropout site (hi: the site before the conv)
-__device__ __forceinline__ float site_keep(uint32_t bits, bool hi, const Dropout& drop) {
-  return ((hi ? bits >> 16 : bits & 0xFFFFu) >= drop.threshold) ? drop.scale : 0.f;
-}
-
-// Everything the stages read and write; the buffers are [B, T, depth*H]
-// (a, h1, dzp, dc, dz) or [B, T, W] (u, gv, dx, x, g).
-struct Args {
-  const float *x, *g, *wall, *ball, *ks, *cb, *w1, *b1, *wg_t, *w1_t, *ks_t, *wall_t;
-  const int* lens;
-  float *a, *h1, *dzp, *dc, *dz, *u, *gv, *dx;
-  int T;
-  float scale, keep;  // keep: the dropout scale, 1 without dropout
-  Branches br;
-  Dropout drop;
-};
-
-#define TILE_PROLOGUE                                        \
-  extern __shared__ __align__(16) float smem[];             \
-  const int b = blockIdx.y, d = blockIdx.z;                 \
-  const int t0 = blockIdx.x * TT;                           \
-  const int T = p.T;                                        \
-  const int ldw = p.br.depth * H;                           \
-  const size_t row0 = (size_t)b * T;                        \
-  (void)d;                                                  \
-  (void)ldw
-
-// 1. a_d = relu(x Wall_d + ball_d) * m0_d
-__global__ void __launch_bounds__(NT, 2) tile_expand_kernel(const Args p) {
-  TILE_PROLOGUE;
-  float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H>(acc, smem, W / KS, t0, T, [&](int s) {
-    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
-  });
-  const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
-  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
-    const int t = t0 + r;
-    if (t >= T) return;
-    const int n = d * H + c;
-    v0 = fmaxf(v0 + p.ball[n], 0.f);
-    v1 = fmaxf(v1 + p.ball[n + 1], 0.f);
-    if (p.drop.threshold) {
-      v0 *= site_keep(dropout_bits(key, t, c), true, p.drop);
-      v1 *= site_keep(dropout_bits(key, t, c + 1), true, p.drop);
-    }
-    st2(p.a + (row0 + t) * ldw + n, v0, v1);
-  });
-}
-
-// 2. h1_d = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
-__global__ void __launch_bounds__(NT, 2) tile_conv_kernel(const Args p) {
-  TILE_PROLOGUE;
-  const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
-  const float* kd = p.ks + p.br.k_off[d];
-  float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H>(acc, smem, k * (H / KS), t0, T, [&](int s) {
-    const int j = s / (H / KS), c = s % (H / KS);
-    return Slice{p.a + row0 * ldw + d * H + KS * c, ldw, (j - half) * dil,
-                 kd + (size_t)j * H * H + (size_t)KS * c * H, H};
-  });
-  const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
-  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
-    const int t = t0 + r;
-    if (t >= T) return;
-    const int n = d * H + c;
-    v0 = fmaxf(v0 + p.cb[n], 0.f);
-    v1 = fmaxf(v1 + p.cb[n + 1], 0.f);
-    if (p.drop.threshold) {
-      v0 *= site_keep(dropout_bits(key, t, c), false, p.drop);
-      v1 *= site_keep(dropout_bits(key, t, c + 1), false, p.drop);
-    }
-    st2(p.h1 + (row0 + t) * ldw + n, v0, v1);
-  });
-}
-
-// 3. zp_d = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d, into dzp
-__global__ void __launch_bounds__(NT, 2) tile_branch_kernel(const Args p) {
-  TILE_PROLOGUE;
-  float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H>(acc, smem, H / KS, t0, T, [&](int s) {
-    return Slice{p.h1 + row0 * ldw + d * H + KS * s, ldw, 0,
-                 p.w1 + (size_t)d * H * H + (size_t)KS * s * H, H};
-  });
-  for_pairs<H>(acc, [&](int, int c, float& v0, float& v1) {
-    v0 = p.scale * (v0 + p.b1[d * H + c]);
-    v1 = p.scale * (v1 + p.b1[d * H + c + 1]);
-  });
-  gemm<H>(acc, smem, W / KS, t0, T, [&](int s) {
-    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
-  });
-  for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
-    const int t = t0 + r;
-    if (t >= T) return;
-    const int n = d * H + c;
-    st2(p.dzp + (row0 + t) * ldw + n, v0 + p.ball[n], v1 + p.ball[n + 1]);
-  });
-}
-
 // 4. du = gv Wg^T, then gv, u and dzp_d (from zp_d, in place), element by
 // element: the softmax over branches of the s halves, tanh of the t halves
 __global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
   TILE_PROLOGUE;
   float acc[TileShape<W>::MT][4][4] = {};
-  gemm<W>(acc, smem, W / KS, t0, T, [&](int s) {
+  gemm<W, false>(acc, smem, W / KS, t0, T, [&](int s) {
     return Slice{p.g + row0 * W + KS * s, W, 0, p.wg_t + (size_t)KS * s * W, W};
   });
   const int len = min(T, p.lens[b]);
@@ -304,43 +94,20 @@ __global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
     st2(p.gv + (row0 + t) * W + c, valid ? p.scale * gg.x : 0.f, valid ? p.scale * gg.y : 0.f);
     const float du[2] = {valid ? p.scale * v0 : 0.f, valid ? p.scale * v1 : 0.f};
     float* zrow = p.dzp + (row0 + t) * ldw + c;
-    float2 tz[MAX_DEPTH], sz[MAX_DEPTH];  // every branch's (t, s) pair, loaded at once
+    Mix mx;
+    mix(mx, zrow, depth);
+    st2(p.u + (row0 + t) * W + c, mx.u[0], mx.u[1]);
 #pragma unroll
     for (int dd = 0; dd < MAX_DEPTH; ++dd) {
       if (dd >= depth) break;
-      tz[dd] = ld2(zrow + dd * H);
-      sz[dd] = ld2(zrow + dd * H + W);
-    }
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
-      if (dd >= depth) break;
-      m[0] = fmaxf(m[0], sz[dd].x);
-      m[1] = fmaxf(m[1], sz[dd].y);
-    }
-    float den[2] = {0.f, 0.f}, num[2] = {0.f, 0.f};
-#pragma unroll
-    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
-      if (dd >= depth) break;
-      const float e0 = expf(sz[dd].x - m[0]), e1 = expf(sz[dd].y - m[1]);
-      den[0] += e0;
-      den[1] += e1;
-      num[0] += tanhf(tz[dd].x) * e0;
-      num[1] += tanhf(tz[dd].y) * e1;
-    }
-    const float u[2] = {num[0] / den[0], num[1] / den[1]};
-    st2(p.u + (row0 + t) * W + c, u[0], u[1]);
-#pragma unroll
-    for (int dd = 0; dd < MAX_DEPTH; ++dd) {
-      if (dd >= depth) break;
-      const float tv[2] = {tz[dd].x, tz[dd].y}, sv[2] = {sz[dd].x, sz[dd].y};
+      const float tv[2] = {mx.tz[dd].x, mx.tz[dd].y}, sv[2] = {mx.sz[dd].x, mx.sz[dd].y};
       float dt[2], ds[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float th = tanhf(tv[j]);
-        const float pj = expf(sv[j] - m[j]) / den[j];
+        const float pj = expf(sv[j] - mx.m[j]) / mx.den[j];
         dt[j] = du[j] * pj * (1.f - th * th);
-        ds[j] = du[j] * pj * (th - u[j]);
+        ds[j] = du[j] * pj * (th - mx.u[j]);
       }
       st2(zrow + dd * H, dt[0], dt[1]);
       st2(zrow + dd * H + W, ds[0], ds[1]);
@@ -352,7 +119,7 @@ __global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
 __global__ void __launch_bounds__(NT, 2) tile_dc_kernel(const Args p) {
   TILE_PROLOGUE;
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H>(acc, smem, H / KS, t0, T, [&](int s) {
+  gemm<H, false>(acc, smem, H / KS, t0, T, [&](int s) {
     return Slice{p.dzp + row0 * ldw + d * H + KS * s, ldw, 0,
                  p.w1_t + (size_t)d * H * H + (size_t)KS * s * H, H};
   });
@@ -372,7 +139,7 @@ __global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args p) {
   const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
   const float* kd = p.ks_t + p.br.k_off[d];
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H>(acc, smem, k * (H / KS), t0, T, [&](int s) {
+  gemm<H, false>(acc, smem, k * (H / KS), t0, T, [&](int s) {
     const int j = s / (H / KS), c = s % (H / KS);
     return Slice{p.dc + row0 * ldw + d * H + KS * c, ldw, -(j - half) * dil,
                  kd + (size_t)j * H * H + (size_t)KS * c * H, H};
@@ -390,7 +157,7 @@ __global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args p) {
 __global__ void __launch_bounds__(NT, 2) tile_dx_kernel(const Args p) {
   TILE_PROLOGUE;
   float acc[TileShape<W>::MT][4][4] = {};
-  gemm<W>(acc, smem, ldw / KS, t0, T, [&](int s) {
+  gemm<W, false>(acc, smem, ldw / KS, t0, T, [&](int s) {
     return Slice{p.dz + row0 * ldw + KS * s, ldw, 0, p.wall_t + (size_t)KS * s * W, W};
   });
   const int len = min(T, p.lens[b]);
@@ -404,29 +171,25 @@ __global__ void __launch_bounds__(NT, 2) tile_dx_kernel(const Args p) {
 
 #undef TILE_PROLOGUE
 
-template <int BN>
-cudaError_t launch_stage(void (*kernel)(const Args), const Args& p, int B, int branches, cudaStream_t s) {
-  const size_t smem = TileShape<BN>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((p.T + TT - 1) / TT, B, branches), NT, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
-// ---- weight gradients: split-over-time reduction ---------------------------
-constexpr int WG_TILE = 128;       // out tile: M, N <= 128
-constexpr int WG_ROWS = 16;        // frames per shared-memory slab
-constexpr int WG_PART = (WG_TILE + 1) * WG_TILE;  // a partial: the tile and its column sums
+// ---- weight gradients: split-over-frames reduction on the tensor cores -----
+constexpr int WG_TILE = 128 * 128;        // a partial's product tile: TM x (WG_TILE / TM), TM = 128 or 64
+constexpr int WG_PART = WG_TILE + 256;    // a partial: the tile (fragment order) and its column sums
+constexpr int WG_KF = 32;                 // frames per staged slab: four k-steps
+constexpr int WG_STAGES = 2;              // slabs in flight (double buffering)
+constexpr int WG_FLUSH = 32;              // slabs between two adds of the accumulators into the partial
+constexpr int WG_STAGE_FLOATS = WG_KF * ((64 + 8) + (256 + 8));  // the wider (64 x 256) tile's slabs
+constexpr size_t WG_SMEM = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
 constexpr int WG_MAX_PROBLEMS = 48;
 
-// out_w[m, n] (+)= scale * sum_r X[r + shift, m] * Y[r, n] over the B*T frames r
+// out_w[m, n] = scale * sum_r X[r + shift, m] * Y[r, n] over the B*T frames r
 // (X zero where t + shift leaves [0, T)); out_b[n] = scale * sum_r Y[r, n].
+// M and N are multiples of 64, at most tm and WG_TILE / tm.
 struct WgradProblem {
   const float* X;
   const float* Y;
   float* out_w;
   float* out_b;  // nullptr: no column sums
-  int ldx, ldy, ldo, shift, M, N;
+  int ldx, ldy, ldo, shift, M, N, tm;
   float scale;
 };
 
@@ -434,77 +197,136 @@ struct WgradBatch {
   WgradProblem p[WG_MAX_PROBLEMS];
 };
 
-__global__ void __launch_bounds__(NT) wgrad_partial_kernel(
+__global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
     const WgradBatch batch, int p0, float* __restrict__ partials, int B, int T, int n_split) {
-  __shared__ __align__(16) float xsl[WG_ROWS][WG_TILE];
-  __shared__ __align__(16) float ysl[WG_ROWS][WG_TILE];
+  extern __shared__ __align__(16) float smem[];
   const WgradProblem pr = batch.p[blockIdx.y];
-  const int s = blockIdx.x;
+  const int tm = pr.tm, tn = WG_TILE / tm;
+  const int ldxs = tm + 8, ldys = tn + 8;  // slab row strides: conflict-free fragment reads
   const long long rows = (long long)B * T;
   const long long chunk = (rows + n_split - 1) / n_split;
-  const long long r_begin = s * chunk;
+  const long long r_begin = (long long)blockIdx.x * chunk;
   const long long r_end = r_begin + chunk < rows ? r_begin + chunk : rows;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // rows ty*4 (+64), columns tx*4 (+64) of the tile
+  const int n_slabs = r_end > r_begin ? (int)((r_end - r_begin + WG_KF - 1) / WG_KF) : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps_m = tm / 32;
+  const int wrow = (warp % warps_m) * 32, wcol = (warp / warps_m) * 64;  // the warp's 32 x 64
+  const bool active = wrow < pr.M && wcol < pr.N;
+  const int gr = lane >> 2, qd = lane & 3;
+  const int col = threadIdx.x % tn;  // this thread's column of the column sums
 
-  float acc[8][8] = {};
-  float colsum = 0.f;  // column tid's sum of Y, tid < WG_TILE
-  for (long long r0 = r_begin; r0 < r_end; r0 += WG_ROWS) {
-    for (int q = tid; q < WG_ROWS * WG_TILE / 4; q += NT) {
-      const int rr = q / (WG_TILE / 4), c4 = (q % (WG_TILE / 4)) * 4;
+  auto load = [&](int slab) {
+    float* xs = smem + (slab % WG_STAGES) * WG_STAGE_FLOATS;
+    float* ys = xs + WG_KF * ldxs;
+    const long long r0 = r_begin + (long long)slab * WG_KF;
+    const int xq = pr.M / 4, yq = pr.N / 4;  // 16-byte copies per frame
+    for (int f = threadIdx.x; f < WG_KF * xq; f += NT) {
+      const int rr = f / xq, c4 = f % xq;
       const long long r = r0 + rr;
-      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), yv = xv;
-      if (r < r_end) {
-        const int ts = (int)(r % T) + pr.shift;
-        if (c4 < pr.N) yv = *reinterpret_cast<const float4*>(pr.Y + r * pr.ldy + c4);
-        if (c4 < pr.M && ts >= 0 && ts < T)
-          xv = *reinterpret_cast<const float4*>(pr.X + (r + pr.shift) * pr.ldx + c4);
-      }
-      *reinterpret_cast<float4*>(&xsl[rr][c4]) = xv;
-      *reinterpret_cast<float4*>(&ysl[rr][c4]) = yv;
+      const int ts = (int)(r % T) + pr.shift;
+      const bool in = r < r_end && ts >= 0 && ts < T;
+      tf32::cp_async16(xs + rr * ldxs + 4 * c4, in ? pr.X + (r + pr.shift) * pr.ldx + 4 * c4 : pr.X,
+                       in ? 16 : 0);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < WG_ROWS; ++rr) {
-      const float4 xa = *reinterpret_cast<const float4*>(&xsl[rr][ty * 4]);
-      const float4 xb = *reinterpret_cast<const float4*>(&xsl[rr][64 + ty * 4]);
-      const float4 ya = *reinterpret_cast<const float4*>(&ysl[rr][tx * 4]);
-      const float4 yb = *reinterpret_cast<const float4*>(&ysl[rr][64 + tx * 4]);
-      const float xm[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-      const float yn[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xm[i], yn[j], acc[i][j]);
-      if (tid < WG_TILE) colsum += ysl[rr][tid];
+    for (int f = threadIdx.x; f < WG_KF * yq; f += NT) {
+      const int rr = f / yq, c4 = f % yq;
+      const long long r = r0 + rr;
+      const bool in = r < r_end;
+      tf32::cp_async16(ys + rr * ldys + 4 * c4, in ? pr.Y + r * pr.ldy + 4 * c4 : pr.Y, in ? 16 : 0);
     }
-    __syncthreads();
-  }
+  };
 
-  float* out = partials + ((size_t)(p0 + blockIdx.y) * n_split + s) * WG_PART;
+  // this thread's accumulator pairs in the partial: (mt, nt, h) at
+  // ((mt * 8 + nt) * 2 + h) * 64 floats from here, a warp's 32 lanes side by side
+  float* frag = partials + ((size_t)(p0 + blockIdx.y) * n_split + blockIdx.x) * WG_PART + warp * 2048 + 2 * lane;
+  float acc[2][8][4] = {};
+  auto flush = [&](bool first) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    *reinterpret_cast<float4*>(out + m * WG_TILE + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(out + m * WG_TILE + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* q = reinterpret_cast<float2*>(frag + ((mt * 8 + nt) * 2 + h) * 64);
+          float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (!first) {
+            const float2 o = *q;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *q = v;
+          acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+        }
+  };
+  float colsum = 0.f;
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < n_slabs) load(s);
+    tf32::cp_async_commit();
   }
-  if (tid < WG_TILE) out[WG_TILE * WG_TILE + tid] = colsum;
+  for (int s = 0; s < n_slabs; ++s) {
+    tf32::cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // slab s has landed, and every warp is done with slab s - 1
+    if (s + WG_STAGES - 1 < n_slabs) load(s + WG_STAGES - 1);
+    tf32::cp_async_commit();
+    const float* xs = smem + (s % WG_STAGES) * WG_STAGE_FLOATS;
+    const float* ys = xs + WG_KF * ldxs;
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < WG_KF / 8; ++kk) {
+        // A (m, k) = X[frame k, channel m]: rows of the slab are frames
+        tf32::FragA fa[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* q = xs + (8 * kk + qd) * ldxs + wrow + 16 * mt + gr;
+          fa[mt] = tf32::frag_a(q[0], q[8], q[4 * ldxs], q[4 * ldxs + 8]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* c = ys + (8 * kk + qd) * ldys + wcol + 8 * nt + gr;
+          const tf32::FragB fb = tf32::frag_b(c[0], c[4 * ldys]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+        }
+      }
+      if ((s + 1) % WG_FLUSH == 0 || s + 1 == n_slabs) flush(s < WG_FLUSH);
+    }
+    if (pr.out_b != nullptr && col < pr.N)
+      for (int rr = threadIdx.x / tn; rr < WG_KF; rr += NT / tn) colsum += ys[rr * ldys + col];
+  }
+  tf32::cp_async_wait<0>();
+  __syncthreads();  // the staging buffers are free: the column sums' halves meet there
+
+  if (active && n_slabs == 0) flush(true);  // an empty slice: zeros
+  if (pr.out_b != nullptr) {
+    smem[threadIdx.x] = colsum;
+    __syncthreads();
+    if (threadIdx.x < tn) {
+      float sum = 0.f;
+      for (int h = threadIdx.x; h < NT; h += tn) sum += smem[h];  // fixed order
+      partials[((size_t)(p0 + blockIdx.y) * n_split + blockIdx.x) * WG_PART + WG_TILE + threadIdx.x] = sum;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(
     const WgradBatch batch, int p0, const float* __restrict__ partials, int n_split) {
   const WgradProblem pr = batch.p[blockIdx.y];
+  const int tn = WG_TILE / pr.tm;
   const int e = blockIdx.x * NT + threadIdx.x;
-  if (e >= WG_PART) return;
-  const int m = e / WG_TILE, n = e % WG_TILE;
-  if (n >= pr.N || (m < WG_TILE && m >= pr.M) || (m == WG_TILE && pr.out_b == nullptr)) return;
-  const float* src = partials + (size_t)(p0 + blockIdx.y) * n_split * WG_PART + e;
+  if (e >= WG_TILE + tn) return;
+  const int m = e / tn, n = e % tn;  // m == tm: the column sums
+  if (n >= pr.N || (m < pr.tm && m >= pr.M) || (m == pr.tm && pr.out_b == nullptr)) return;
+  int at = e;  // where the partial keeps (m, n): the accumulator layout of wgrad_partial_kernel
+  if (m < pr.tm) {
+    const int warp = m / 32 + (pr.tm / 32) * (n / 64), r = m % 32, c = n % 64;
+    const int lane = (r % 8) * 4 + (c % 8) / 2;
+    at = ((((warp * 2 + r / 16) * 8 + c / 8) * 2 + (r % 16) / 8) * 32 + lane) * 2 + c % 2;
+  }
+  const float* src = partials + (size_t)(p0 + blockIdx.y) * n_split * WG_PART + at;
   float sum = 0.f;
   for (int s = 0; s < n_split; ++s) sum += src[(size_t)s * WG_PART];  // fixed order
   sum *= pr.scale;
-  if (m == WG_TILE)
+  if (m == pr.tm)
     pr.out_b[n] = sum;
   else
     pr.out_w[(size_t)m * pr.ldo + n] = sum;
@@ -513,7 +335,8 @@ __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(
 int wgrad_problem_count(const Branches& br) {
   int taps = 0;
   for (int d = 0; d < br.depth; ++d) taps += br.k[d];
-  return taps + 2 * br.depth + 1;  // conv taps, branch 1x1s, gate, expand slices
+  // conv taps, branch 1x1s, gate, the expand in 256-column pieces
+  return taps + br.depth + 1 + (br.depth * H + 255) / 256;
 }
 
 }  // namespace
@@ -537,21 +360,71 @@ extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, c
   Branches br;
   if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br))
     return (int)cudaErrorInvalidValue;
-  const Args p{x,  g,  wall, ball, ks, cb, w1, b1, wg_t, w1_t, ks_t, wall_t, lens,
-               a,  h1, dzp,  dc,   dz, u,  gv, dx, T,    scale, threshold ? keep_scale : 1.f,
-               br, Dropout{seed, threshold, keep_scale}};
+  Args p{};
+  p.br = br;
+  p.x = x;
+  p.g = g;
+  p.lens = lens;
+  p.wall = wall;
+  p.ball = ball;
+  p.ks = ks;
+  p.cb = cb;
+  p.w1 = w1;
+  p.b1 = b1;
+  p.wg_t = wg_t;
+  p.w1_t = w1_t;
+  p.ks_t = ks_t;
+  p.wall_t = wall_t;
+  p.a = a;
+  p.h1 = h1;
+  p.dzp = dzp;
+  p.dc = dc;
+  p.dz = dz;
+  p.u = u;
+  p.gv = gv;
+  p.dx = dx;
+  p.T = T;
+  p.scale = scale;
+  p.keep = threshold ? keep_scale : 1.f;
+  p.drop = Dropout{seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // in stream order: each stage reads what the ones before it wrote
-  cudaError_t err = launch_stage<H>(tile_expand_kernel, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage<H>(tile_conv_kernel, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage<H>(tile_branch_kernel, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage<W>(tile_gate_kernel, p, B, 1, s);
-  if (err == cudaSuccess) err = launch_stage<H>(tile_dc_kernel, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage<H>(tile_convt_kernel, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage<W>(tile_dx_kernel, p, B, 1, s);
+  cudaError_t err = launch_stage(tile_expand_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_gate_kernel, TileShape<W>::SMEM, p, B, 1, s);
+  if (err == cudaSuccess) err = launch_stage(tile_dc_kernel, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_convt_kernel, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_dx_kernel, TileShape<W>::SMEM, p, B, 1, s);
   return (int)err;
 }
 
+// Slices of the B*T frames gated_hifi_wgrad sums apart: one per 1,024
+// frames, at most 64, then as many as fill the same number of waves of the
+// card's resident wgrad_partial_kernel blocks (the blocks are problems x
+// slices: 31 x 9 = 279 for 264 slots left a second wave of 15 at 16 x 516
+// frames). Returns -1 on an invalid branch table or a failed device query.
+extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* kernels) {
+  using namespace gated_hifi;
+  static int slots = 0;  // SMs x resident blocks, queried once
+  std::vector<int> dil(depth > 0 ? depth : 1, 1);
+  Branches br;
+  if (!make_branches(depth, kernels, dil.data(), &br) || rows < 1) return -1;
+  if (slots == 0) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return -1;
+    const int per_sm = blocks_per_sm((const void*)wgrad_partial_kernel, NT, WG_SMEM);
+    if (per_sm < 1) return -1;
+    slots = sms * per_sm;
+  }
+  const int problems = wgrad_problem_count(br);
+  const long long n = (rows + 1023) / 1024 < 64 ? (rows + 1023) / 1024 : 64;
+  const long long waves = (problems * n + slots - 1) / slots;
+  const long long fill = waves * slots / problems;
+  return (int)(fill < 1 ? 1 : fill < rows ? fill : rows);
+}
 
 // Floats of the partials buffer gated_hifi_wgrad needs.
 extern "C" long gated_hifi_wgrad_partial_floats(int depth, const int* kernels, int n_split) {
@@ -592,28 +465,47 @@ extern "C" int gated_hifi_wgrad(const float* x, const float* a, const float* h1,
     const int half = (br.k[d] - 1) / 2;
     for (int j = 0; j < br.k[d]; ++j)
       probs.push_back({a + d * H, dc + d * H, dks + br.k_off[d] + (size_t)j * H * H,
-                       j == 0 ? dcb + d * H : nullptr, ldb, ldb, H, (j - half) * br.dil[d], H, H,
+                       j == 0 ? dcb + d * H : nullptr, ldb, ldb, H, (j - half) * br.dil[d], H, H, 128,
                        1.f});
   }
   for (int d = 0; d < depth; ++d)
     probs.push_back({h1 + d * H, dzp + d * H, dw1 + (size_t)d * H * H, db1 + d * H, ldb, ldb, H,
-                     0, H, H, scale});
-  probs.push_back({u, gv, dwg, dbg, W, W, W, 0, W, W, 1.f});
-  for (int d = 0; d < depth; ++d)
-    probs.push_back({x, dz + d * H, dwall + d * H, dball + d * H, W, ldb, ldb, 0, W, H, 1.f});
+                     0, H, H, 128, scale});
+  probs.push_back({u, gv, dwg, dbg, W, W, W, 0, W, W, 64, 1.f});
+  for (int c0 = 0; c0 < ldb; c0 += 256)  // x^T dz in 64 x 256 tiles
+    probs.push_back({x, dz + c0, dwall + c0, dball + c0, W, ldb, ldb, 0, W,
+                     ldb - c0 < 256 ? ldb - c0 : 256, 64, 1.f});
 
+  cudaError_t err = cudaFuncSetAttribute(wgrad_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)WG_SMEM);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int p0 = 0; p0 < (int)probs.size(); p0 += WG_MAX_PROBLEMS) {
     const int left = (int)probs.size() - p0;
     const int n = left < WG_MAX_PROBLEMS ? left : WG_MAX_PROBLEMS;
     WgradBatch batch{};
     for (int i = 0; i < n; ++i) batch.p[i] = probs[p0 + i];
-    wgrad_partial_kernel<<<dim3(n_split, n), NT, 0, s>>>(batch, p0, partials, B, T, n_split);
-    cudaError_t err = cudaGetLastError();
+    wgrad_partial_kernel<<<dim3(n_split, n), NT, WG_SMEM, s>>>(batch, p0, partials, B, T, n_split);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     wgrad_reduce_kernel<<<dim3((WG_PART + NT - 1) / NT, n), NT, 0, s>>>(batch, p0, partials, n_split);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// Resident blocks per SM of the backward's kernels, in launch order (the
+// seven tile stages, then wgrad_partial_kernel, wgrad_reduce_kernel), into
+// blocks[0..8]; returns a cudaError_t.
+extern "C" int gated_hifi_bwd_blocks_per_sm(int* blocks) {
+  using namespace gated_hifi;
+  const StageKernel stages[7] = {tile_expand_kernel<false>, tile_conv_kernel<false>, tile_branch_kernel<false>,
+                                 tile_gate_kernel, tile_dc_kernel, tile_convt_kernel, tile_dx_kernel};
+  const size_t stage_smem[7] = {TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<W>::SMEM,
+                                TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<W>::SMEM};
+  for (int i = 0; i < 7; ++i) blocks[i] = blocks_per_sm((const void*)stages[i], NT, stage_smem[i]);
+  blocks[7] = blocks_per_sm((const void*)wgrad_partial_kernel, NT, WG_SMEM);
+  blocks[8] = blocks_per_sm((const void*)wgrad_reduce_kernel, NT, 0);
+  return (int)cudaGetLastError();
 }

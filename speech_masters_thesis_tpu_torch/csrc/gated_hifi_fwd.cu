@@ -1,4 +1,6 @@
-// GatedHiFi block forward for Hopper (sm_90a), fp32, with in-kernel dropout.
+// GatedHiFi block forward for Hopper (sm_90a), fp32 at its interface, its
+// products in 3xTF32 on the tensor cores (tf32_mma.cuh), with in-kernel
+// dropout.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
 // fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward), and
@@ -12,212 +14,134 @@
 //   u     = sum_d tanh(zp_d[:, :W]) * softmax_d(zp_d[:, W:])
 //   out   = (x + scale * (u Wg + bg)) * [t < min(T, lens[b])]
 // m0_d and m1_d are the dropout masks (gated_hifi_common.cuh); with p = 0
-// the kernel is instantiated without them and does no hashing.
+// no stage computes a hash.
 //
-// What bounds it on an H100: arithmetic, and the latency of the weight
-// loads that feed it. At W=64, H=128 and kernels (3,5,7,9) a frame costs
-// about 1 MFLOP, nearly all of it in the dilated convs, against 512 bytes of
-// input and output. Every intermediate ([T, 4H] expands, convs, branch
-// outputs) would otherwise go through device memory; here none does. The
-// weights (about 1.6 MB) stay in L2, but the tile fills 217 KB of shared
-// memory, so L1 keeps little of them and one block (8 warps) per SM must
-// hide L2 latency: the channel loops are unrolled 8 deep so each warp keeps
-// 16 weight loads in flight (2 deep ran 1.5x slower on the card). The mask
-// hash costs about 20 integer operations per element and draw, against
-// 64 FMAs per element of the expand and 384-1152 of the conv.
+// What bounds it on an H100: arithmetic. At W=64, H=128 and kernels
+// (3,5,7,9) a frame costs about 1.06 MFLOP (the dilated convs 74% of it),
+// 3x that on the tensor cores in 3xTF32, against about 10 KB of device
+// memory the stages move (a, h1 and zp written and read back, x twice):
+// at 16 x 33024 frames 1.7 ms of bytes at 3.35 TB/s against 3.4 ms of
+// 3xTF32 products at 495 TF/s.
 //
-// Design: one thread block per (time tile of TT=64 frames, sequence). The
-// x window with the largest halo (4*27 = 108 frames at the shipped config)
-// is staged once in shared memory. The branches run in a loop; branch d
-// recomputes its expand over its own halo (1, 6, 27 or 108 frames), runs
-// the conv for the TT centre rows, then the 1x1, and folds the branch into
-// an online softmax over branches (running max, denominator and
-// sum tanh(t)*exp(s-max)) held in registers, so only [TT, W] state lives
-// across branches. The conv output (and at the end u) reuses the first TT
-// rows of the expand buffer, which is what lets a 64-frame tile fit.
-// Products are plain fp32 FMA (no tensor cores: TF32 would not meet the
-// fp32 tolerance). Each thread owns 4 rows x 8 columns (4 shared loads and
-// two 16-byte weight loads per 32 FMAs); its rows are strided by 16 so the
-// 16 row lanes of a warp read 16 different banks (rows padded by one
-// float), and each weight element is read once per block. wgmma and TMA
-// are later work.
-//
-// Shared memory: (TT + 2*max_halo) * ((W+1) + (2W+1)) floats, 217,280 bytes
-// at the shipped config (one block per SM).
+// Design: the TPU kernel holds the centre and the halo of every branch in
+// VMEM. Here that window (branch 4's 280 frames of x and of the expand)
+// took 217 KB, one block of 8 warps per SM, and its products ran as fp32
+// FMA on the CUDA cores (67 TF/s). Now the forward runs the backward's
+// recompute stages (gated_hifi_tiles.cuh: expand, conv, branch; each conv
+// tap a shifted k-slice, so no halo and any dilation) on the tensor cores,
+// two 80 KB blocks per SM, each k-step's MMAs added to the accumulators in
+// fp32 (RN, see gated_hifi_tiles.cuh), and ends with its own output stage:
+//   4 out   u from zp (Mix, the backward's gate formula), u Wg, residual,
+//           length mask, exact zeros past min(T, len)
+// The wrapper passes two [B, T, depth*H] scratch buffers: a (stage 1),
+// which stage 3 overwrites with zp once stage 2 has read it, and h1.
 
-#include "gated_hifi_common.cuh"
-
-#include <math.h>
+#include "gated_hifi_tiles.cuh"
 
 namespace gated_hifi {
 namespace {
 
-template <bool DROP>
-__global__ void __launch_bounds__(NT, 1) gated_hifi_fwd_kernel(
-    const float* __restrict__ x, const int* __restrict__ lens,
-    const float* __restrict__ wall, const float* __restrict__ ball,
-    const float* __restrict__ ks, const float* __restrict__ cb,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ wg, const float* __restrict__ bg,
-    float* __restrict__ out, int T, float scale, Branches br, Dropout drop) {
-  extern __shared__ float smem[];
-  const int R = TT + 2 * br.max_halo;
-  float* xs = smem;          // [R][XS]  x window, zero outside [0, T)
-  float* as = xs + R * XS;   // [R][AS]  relu(expand); rows [0, TT) then hold
-                             //          relu(conv), and at the end u
+constexpr int LDU = W + 4;  // row stride of the u tile: fragment reads on distinct banks
+constexpr size_t OUT_SMEM = sizeof(float) * (TT * LDU + W * TileShape<W>::LDB);
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int rg = lane & 15;             // this thread's rows: rg + 16*i, i < 4
-  const int cg = lane >> 4;
-  const int n8 = warp * 16 + cg * 8;    // its 8 columns of H (expand, conv)
-  const int n4 = warp * 8 + cg * 4;     // its 4 columns of W (t/s pairs, gate)
-  const int ldw = br.depth * H;         // row stride of wall
-  const float* xb = x + (size_t)b * T * W;
-
-  for (int i = tid; i < R * W; i += NT) {
-    const int r = i / W, c = i % W;
-    const int t = t0 - br.max_halo + r;
-    xs[r * XS + c] = (t >= 0 && t < T) ? xb[(size_t)t * W + c] : 0.f;
+// 4. out = (x + scale * (u Wg + bg)) * [t < min(T, len)], u from zp (in dzp):
+// the [64 x W] u tile in shared memory, then one 64-deep product with Wg
+__global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args p) {
+  TILE_PROLOGUE;
+  using S = TileShape<W>;
+  float* us = smem;             // [TT][LDU]
+  float* ws = smem + TT * LDU;  // [W][LDB]: Wg (in, out)
+  for (int f = threadIdx.x; f < W * (W / 4); f += NT) {
+    const int r = f / (W / 4), c4 = f % (W / 4);
+    tf32::cp_async16(ws + r * S::LDB + 4 * c4, p.wg + (size_t)r * W + 4 * c4, 16);
   }
+  tf32::cp_async_commit();
+  for (int f = threadIdx.x; f < TT * (W / 2); f += NT) {
+    const int r = f / (W / 2), c = 2 * (f % (W / 2));
+    const int t = t0 + r;
+    float u0 = 0.f, u1 = 0.f;
+    if (t < T) {
+      Mix mx;
+      mix(mx, p.dzp + (row0 + t) * ldw + c, p.br.depth);
+      u0 = mx.u[0];
+      u1 = mx.u[1];
+    }
+    st2(us + r * LDU + c, u0, u1);
+  }
+  tf32::cp_async_wait<0>();
   __syncthreads();
-
-  // online softmax over branches for (row rg+16i, column n4+j) of the t/s halves
-  float m_run[4][4], den[4][4], num[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      m_run[i][j] = -INFINITY;
-      den[i][j] = 0.f;
-      num[i][j] = 0.f;
+  const WarpTile<W> wt;
+  float acc[S::MT][4][4] = {};
+  mma_tile<W, W / 8, LDU, true>(acc, us, ws, wt);
+  const int len = min(T, p.lens[b]);
+  for_pairs<W>(acc, [&](int r, int c, float v0, float v1) {
+    const int t = t0 + r;
+    if (t >= T) return;
+    float2 o = make_float2(0.f, 0.f);
+    if (t < len) {
+      const float2 xv = ld2(p.x + (row0 + t) * W + c);
+      o = make_float2(xv.x + p.scale * (v0 + p.bg[c]), xv.y + p.scale * (v1 + p.bg[c + 1]));
     }
-
-  for (int d = 0; d < br.depth; ++d) {
-    const int k = br.k[d], dil = br.dil[d];
-    const int halo = (k - 1) / 2 * dil;
-    const uint32_t key = DROP ? dropout_key(drop.seed, b, d) : 0u;
-
-    // expand: as[r] = relu(x[r] W_d + b_d) * m0 over the branch's window
-    expand_tile<DROP>(as, xs, wall, ball, d, ldw, TT + 2 * halo, br.max_halo - halo, t0 - halo,
-                      halo, T, key, drop, rg, n8, nullptr);
-    __syncthreads();
-
-    // dilated conv at the TT centre rows: relu(sum_j a[t + (j-half)*dil] K_d[j] + cb_d) * m1
-    {
-      float acc[4][8] = {};
-      conv_tile(acc, as, ks + br.k_off[d] + n8, k, rg, dil);
-      __syncthreads();  // every conv read of `as` is done; rows [0, TT) are free
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + rg + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float h = fmaxf(acc[i][j] + cb[d * H + n8 + j], 0.f);
-          if (DROP)
-            h *= (dropout_bits(key, t, n8 + j) & 0xFFFFu) >= drop.threshold ? drop.scale : 0.f;
-          as[(rg + 16 * i) * AS + n8 + j] = h;
-        }
-      }
-    }
-    __syncthreads();
-
-    // the branch output at the centre rows, folded into the online softmax
-    {
-      float tv[4][4], sv[4][4];
-      branch_out_tile(tv, sv, as, xs, wall, ball, w1, b1, d, ldw, br.max_halo, scale, rg, n4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float m_new = fmaxf(m_run[i][j], sv[i][j]);
-          const float corr = expf(m_run[i][j] - m_new);
-          const float e = expf(sv[i][j] - m_new);
-          den[i][j] = den[i][j] * corr + e;
-          num[i][j] = num[i][j] * corr + tanhf(tv[i][j]) * e;
-          m_run[i][j] = m_new;
-        }
-    }
-    __syncthreads();  // the next expand overwrites `as`, which was just read
-  }
-
-  // u -> as rows [0, TT), columns [0, W); then the gate and the residual
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) as[(rg + 16 * i) * AS + n4 + j] = num[i][j] / den[i][j];
-  __syncthreads();
-
-  float acc[4][4] = {};
-#pragma unroll 8
-  for (int c = 0; c < W; ++c) {
-    const float4 wv = ld4(wg + (size_t)c * W + n4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) fma4(acc[i], as[(rg + 16 * i) * AS + c], wv);
-  }
-  const int len = min(T, lens[b]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + rg + 16 * i;
-    if (t >= T) continue;
-    const float* xr = xs + (br.max_halo + rg + 16 * i) * XS + n4;
-    const bool valid = t < len;
-    float4 o;
-    o.x = valid ? xr[0] + scale * (acc[i][0] + bg[n4 + 0]) : 0.f;
-    o.y = valid ? xr[1] + scale * (acc[i][1] + bg[n4 + 1]) : 0.f;
-    o.z = valid ? xr[2] + scale * (acc[i][2] + bg[n4 + 2]) : 0.f;
-    o.w = valid ? xr[3] + scale * (acc[i][3] + bg[n4 + 3]) : 0.f;
-    *reinterpret_cast<float4*>(out + ((size_t)b * T + t) * W + n4) = o;
-  }
-}
-
-template <bool DROP>
-cudaError_t launch(const float* x, const int* lens, const float* wall, const float* ball,
-                   const float* ks, const float* cb, const float* w1, const float* b1,
-                   const float* wg, const float* bg, float* out, int B, int T, float scale,
-                   const Branches& br, const Dropout& drop, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(br.max_halo);
-  cudaError_t err = cudaFuncSetAttribute(gated_hifi_fwd_kernel<DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  gated_hifi_fwd_kernel<DROP><<<grid, NT, smem, stream>>>(
-      x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, T, scale, br, drop);
-  return cudaGetLastError();
+    st2(p.out + (row0 + t) * W + c, o.x, o.y);
+  });
 }
 
 }  // namespace
 }  // namespace gated_hifi
 
-extern "C" long gated_hifi_fwd_smem_bytes(int max_halo) {
-  return (long)gated_hifi::tile_smem_bytes(max_halo);
-}
-
-// Launches the kernel on `stream`; returns a cudaError_t (0 on success).
-// kernels/dilations are host arrays of `depth` entries. All tensors are
-// contiguous float32 on the device (lens int32): x/out [B, T, width],
-// wall [width, depth*2*width], ball [depth*2*width], ks the branches'
-// [k_d, H, H] kernels back to back, cb/b1 [depth, H], w1 [depth, H, H],
-// wg [width, width], bg [width]. Dropout keeps an element when its 16-bit
-// field is >= threshold and scales it by keep_scale; threshold 0 is p = 0.
+// Launches the forward's four stages on `stream`; returns a cudaError_t (0
+// on success). kernels/dilations are host arrays of `depth` entries. All
+// tensors are contiguous float32 on the device (lens int32): x/out [B, T,
+// width], wall [width, depth*2*width], ball [depth*2*width], ks the
+// branches' [k_d, H, H] kernels back to back, cb/b1 [depth, H], w1 [depth,
+// H, H], wg [width, width], bg [width]; a and h1 are scratch of [B, T,
+// depth*H] each. Dropout keeps an element when its 16-bit field is >=
+// threshold and scales it by keep_scale; threshold 0 is p = 0.
 extern "C" int gated_hifi_fwd(const float* x, const int* lens, const float* wall,
                               const float* ball, const float* ks, const float* cb,
                               const float* w1, const float* b1, const float* wg,
-                              const float* bg, float* out, int B, int T, int width,
-                              int depth, const int* kernels, const int* dilations,
+                              const float* bg, float* a, float* h1, float* out, int B, int T,
+                              int width, int depth, const int* kernels, const int* dilations,
                               float scale, unsigned seed, unsigned threshold,
                               float keep_scale, void* stream) {
   using namespace gated_hifi;
-  Branches br;
-  if (width != W || B < 1 || T < 1 || !make_branches(depth, kernels, dilations, &br))
+  Args p{};
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &p.br))
     return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, threshold, keep_scale};
+  p.x = x;
+  p.lens = lens;
+  p.wall = wall;
+  p.ball = ball;
+  p.ks = ks;
+  p.cb = cb;
+  p.w1 = w1;
+  p.b1 = b1;
+  p.wg = wg;
+  p.bg = bg;
+  p.a = a;
+  p.h1 = h1;
+  p.dzp = a;  // zp over a: stage 2 has read a for every branch before stage 3 starts
+  p.out = out;
+  p.T = T;
+  p.scale = scale;
+  p.keep = threshold ? keep_scale : 1.f;
+  p.drop = Dropout{seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      threshold ? launch<true>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, B, T, scale, br, drop, s)
-                : launch<false>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, out, B, T, scale, br, drop, s);
+  // in stream order: each stage reads what the ones before it wrote
+  cudaError_t err = launch_stage(tile_expand_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_out_kernel, OUT_SMEM, p, B, 1, s);
   return (int)err;
+}
+
+// Resident blocks per SM of the forward's stages, in launch order (expand,
+// conv, branch, out), into blocks[0..3]; returns a cudaError_t.
+extern "C" int gated_hifi_fwd_blocks_per_sm(int* blocks) {
+  using namespace gated_hifi;
+  blocks[0] = blocks_per_sm((const void*)tile_expand_kernel<true>, NT, TileShape<H>::SMEM);
+  blocks[1] = blocks_per_sm((const void*)tile_conv_kernel<true>, NT, TileShape<H>::SMEM);
+  blocks[2] = blocks_per_sm((const void*)tile_branch_kernel<true>, NT, TileShape<H>::SMEM);
+  blocks[3] = blocks_per_sm((const void*)tile_out_kernel, NT, OUT_SMEM);
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// 3xTF32 products on the tensor cores and cp.async staging, shared by the
-// redesigned backward kernels (attention_bwd.cu, gated_hifi_bwd.cu).
+// 3xTF32 products on the tensor cores and cp.async staging, shared by B1's
+// kernels (gated_hifi_fwd.cu, gated_hifi_bwd.cu, through
+// gated_hifi_tiles.cuh) and B2's backward (attention_bwd.cu).
 //
 // Numerics. A TF32 operand keeps 10 explicit mantissa bits, so one TF32
 // product is good to about 3 decimal digits, short of the fp32 tolerances

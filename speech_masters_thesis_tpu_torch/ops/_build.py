@@ -109,16 +109,20 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     ints = ctypes.POINTER(i)
-    lib.gated_hifi_fwd.argtypes = [p] * 11 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
+    lib.gated_hifi_fwd.argtypes = [p] * 13 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_fwd.restype = i
-    lib.gated_hifi_fwd_smem_bytes.argtypes = [i]
-    lib.gated_hifi_fwd_smem_bytes.restype = ctypes.c_long
+    lib.gated_hifi_fwd_blocks_per_sm.argtypes = [ints]
+    lib.gated_hifi_fwd_blocks_per_sm.restype = i
     lib.gated_hifi_bwd.argtypes = [p] * 21 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_bwd.restype = i
     lib.gated_hifi_wgrad_partial_floats.argtypes = [i, ints, i]
     lib.gated_hifi_wgrad_partial_floats.restype = ctypes.c_long
     lib.gated_hifi_wgrad.argtypes = [p] * 10 + [i] * 4 + [ints] * 2 + [f, i, p]
     lib.gated_hifi_wgrad.restype = i
+    lib.gated_hifi_wgrad_splits.argtypes = [ctypes.c_longlong, i, ints]
+    lib.gated_hifi_wgrad_splits.restype = i
+    lib.gated_hifi_bwd_blocks_per_sm.argtypes = [ints]
+    lib.gated_hifi_bwd_blocks_per_sm.restype = i
     lib.attention_fwd.argtypes = [p] * 3 + [i] + [p] * 4 + [i] * 4 + [f, i, u, f, p]
     lib.attention_fwd.restype = i
     lib.attention_bwd.argtypes = [p] * 3 + [i] + [p] * 9 + [i] * 4 + [f, i, u, f, p]

@@ -339,9 +339,8 @@ def _check_call(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
             raise ValueError(f"gated_hifi: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x.device or not lens.is_contiguous():
         raise ValueError("gated_hifi: lens must be a contiguous int32 [B] tensor on the input's device")
-    max_halo = max((k - 1) // 2 * d for k, d in zip(w.kernels, w.dilations))
-    if _build.build().gated_hifi_fwd_smem_bytes(max_halo) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"gated_hifi: halo {max_halo} needs more shared memory than a block has")
+    if B > 65535:
+        raise ValueError(f"gated_hifi: batch {B} > 65535, the kernels' grid limit")
 
 
 def _ints(values: Sequence[int]):
@@ -356,11 +355,14 @@ def _launch_fwd(x, lens, w: GatedHiFiWeights, res_scale: float, p_drop: float, s
     _check_call(x, lens, w)
     B, T, W = x.shape
     ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
+    # the stages meet in two [B, T, depth*H] buffers: a (then zp over it) and h1
+    a = torch.empty(B, T, len(w.ks) * 2 * W, device=x.device, dtype=torch.float32)
+    h1 = torch.empty_like(a)
     out = torch.empty_like(x)
     rc = _build.build().gated_hifi_fwd(
         x.data_ptr(), lens.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(),
-        w.wg.data_ptr(), w.bg.data_ptr(), out.data_ptr(),
+        w.wg.data_ptr(), w.bg.data_ptr(), a.data_ptr(), h1.data_ptr(), out.data_ptr(),
         B, T, W, len(w.ks), _ints(w.kernels), _ints(w.dilations), float(res_scale),
         seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
@@ -425,10 +427,11 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
                        dilations: Sequence[int], res_scale: float = 1.0) -> GatedHiFiWeights:
     """The block's weight gradients from the backward's buffers.
 
-    A CUDA tensor launches the split-over-time reduction of
+    A CUDA tensor launches the split-over-frames reduction of
     ``csrc/gated_hifi_bwd.cu`` (per-block partial sums over a slice of the
-    B*T frames, then a second pass that adds the slices in a fixed order:
-    no float atomics, so equal inputs give bitwise-equal gradients); a CPU
+    B*T frames, 3xTF32 tensor-core products with the frames as their depth,
+    then a second pass that adds the slices in a fixed order: no float
+    atomics, so equal inputs give bitwise-equal gradients); a CPU
     tensor runs ``weight_grad_reduce_reference``. ``weight_grad_reduce.launches``
     counts launches.
     """
@@ -442,7 +445,9 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.shape != want:
             raise ValueError(f"weight_grad_reduce: {name} must be contiguous float32 {want} on {x.device}")
     lib = _build.build()
-    n_split = _build.wgrad_splits(B * T)
+    n_split = lib.gated_hifi_wgrad_splits(B * T, depth, _ints(kernels))
+    if n_split < 1:
+        raise RuntimeError("gated_hifi_wgrad_splits failed")
     partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
                            device=x.device, dtype=torch.float32)
     sizes = [W * depth * H, depth * H, sum(kernels) * H * H, depth * H, depth * H * H, depth * H, W * W, W]
@@ -490,10 +495,12 @@ def gated_hifi(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
                res_scale: float = 1.0, p_drop: float = 0.0, seed: int = 0) -> torch.Tensor:
     """GatedHiFi block forward; same contract as ``gated_hifi_reference``.
 
-    A CUDA tensor runs ``GatedHiFiFunction`` (``csrc/gated_hifi_fwd.cu``,
-    differentiable through ``gated_hifi_backward``), and anything the kernels
-    do not take raises. A CPU tensor runs the plain version.
-    ``gated_hifi.launches`` counts forward kernel launches.
+    A CUDA tensor runs ``GatedHiFiFunction`` (``csrc/gated_hifi_fwd.cu``:
+    four 3xTF32 tensor-core stages that meet in two scratch buffers of
+    [B, T, depth*2W], allocated by its wrapper; differentiable through
+    ``gated_hifi_backward``), and anything the kernels do not take raises.
+    A CPU tensor runs the plain version. ``gated_hifi.launches`` counts
+    forward kernel launches.
     """
     if x.device.type == "cpu":
         return gated_hifi_reference(x, lens, w, res_scale, p_drop, seed)

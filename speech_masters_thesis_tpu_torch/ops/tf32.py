@@ -1,6 +1,7 @@
 """The 3xTF32 split of ``csrc/tf32_mma.cuh``, emulated in torch.
 
-The backward kernels of B1 (``csrc/gated_hifi_bwd.cu``) and B2
+B1's forward and backward kernels (``csrc/gated_hifi_{fwd,bwd}.cu``, their
+weight-gradient reduction included) and B2's backward
 (``csrc/attention_bwd.cu``) run their products on the tensor cores with
 TF32 operands. A TF32 operand keeps 10 explicit mantissa bits, so each fp32
 operand is split as ``x = big + small`` (both TF32), and a product is
@@ -32,19 +33,43 @@ def split(x: torch.Tensor):
     return big, round_tf32(x.to(torch.float32) - big)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """a [M, K] @ b [K, N] as the kernels compute it: K in steps of 8, each
-    step's products of TF32 operands summed exactly (float64) and added to a
-    float32 accumulator, for passes = 3 in the kernels' order (small big,
-    big small, big big); passes = 1 is a single TF32 product (big big)."""
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> the float32 next to it on the side of zero."""
+    f = x.to(torch.float32)
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3, acc: torch.Tensor | None = None,
+           rz_steps: int | None = None) -> torch.Tensor:
+    """acc + a [M, K] @ b [K, N] as the kernels compute it: K in steps of 8,
+    each step's products of TF32 operands summed exactly (float64), for
+    passes = 3 in the kernels' order (small big, big small, big big);
+    passes = 1 is a single TF32 product (big big). ``acc`` (zeros if None)
+    is the float32 accumulator a product goes on accumulating into.
+
+    ``rz_steps`` None adds each MMA's sum to acc rounding to nearest.
+    Otherwise it models the tensor cores' accumulation, which truncates:
+    each MMA's sum is rounded toward zero in a register that starts from
+    zero and is added to acc (rounding to nearest) every ``rz_steps``
+    k-steps, or only at the end for 0: B1's forward stages
+    (``gated_hifi_tiles.cuh:mma_tile`` with RN) are 1, its weight-gradient
+    reduction 128, ``tf32_mma.cuh:mma3`` into one accumulator 0."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     a_big, a_small = split(a)
     b_big, b_small = split(b)
     terms = [(a_big, b_big)] if passes == 1 else [(a_small, b_big), (a_big, b_small), (a_big, b_big)]
-    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    for k0 in range(0, a.shape[1], KSTEP):
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32) if acc is None else acc.to(torch.float32)
+    part = torch.zeros_like(acc)  # the tensor cores' register, for rz_steps
+    n_steps = -(-a.shape[1] // KSTEP)
+    for i, k0 in enumerate(range(0, a.shape[1], KSTEP)):
         for x, y in terms:
             step = x[:, k0:k0 + KSTEP].double() @ y[k0:k0 + KSTEP].double()
-            acc = (acc.double() + step).to(torch.float32)
+            if rz_steps is None:
+                acc = (acc.double() + step).to(torch.float32)
+            else:
+                part = _round_toward_zero(part.double() + step)
+        if rz_steps is not None and (i + 1 == n_steps or (rz_steps and (i + 1) % rz_steps == 0)):
+            acc = acc + part
+            part = torch.zeros_like(acc)
     return acc

@@ -160,3 +160,20 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
+
+
+def test_launch_check_takes_any_halo_and_bounds_the_batch(monkeypatch):
+    """The forward's stages hold no halo window (each conv tap is a shifted
+    k-slice), so the launch check no longer caps the dilations by a block's
+    shared memory: a halo of 4 * 729 frames passes. It still raises on what
+    the kernels do not take, a batch over the grid's 65535 included. CPU
+    tensors, with the device-capability check stubbed to Hopper."""
+    monkeypatch.setattr(gh.torch.cuda, "get_device_capability", lambda device=None: (9, 0))
+    block = tblocks.GatedHiFiBlock(64, 4, dilation_growth_rate=9, kernel_size_growth_rate=2, zero_out=False)
+    weights = gh.pack_weights(dict(block.named_parameters()), block.dilations)
+    assert weights.dilations == (1, 9, 81, 729)
+    gh._check_call(torch.zeros(2, 100, 64), torch.full((2,), 100, dtype=torch.int32), weights)
+    with pytest.raises(ValueError, match="65535"):
+        gh._check_call(torch.zeros(65536, 1, 64), torch.ones(65536, dtype=torch.int32), weights)
+    with pytest.raises(ValueError, match="lens"):
+        gh._check_call(torch.zeros(2, 100, 64), torch.full((2,), 100, dtype=torch.int64), weights)
