@@ -1,9 +1,11 @@
 """Parent against change on one card: B2's backward, B1's forward, backward
 tile passes and weight-gradient reduction, the VQ-VAE train step, the
-codec's encode + decode and the LM train step, each tree in its own
+codec's encode + decode and the LM train step, B3's and B6's backward, the
+Glow-TTS train step on both routes and its val step, each tree in its own
 process, in the order given (parent, change, change, parent, ...).
 
     python3 ab_backward.py build/parent . . build/parent
+    python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
 
 Each argument is the root of a checkout of the port (its package and its
 ``chip_smoke.py``); a worker puts that root first on ``sys.path``, builds
@@ -17,14 +19,22 @@ and the reduction at p=0.1. Step times are those of
 ``chip_smoke.phase_train`` (median of steps 2-5, with its peak memory) and
 ``chip_smoke.phase_lm_train`` (batch 64); encode + decode is timed as
 ``chip_smoke.phase_timing`` times it (batch 16 x 66048, median of 5 after a
-warm-up, with its peak memory). Prints one JSON line per worker, then the
-pairs.
+warm-up, with its peak memory). B3's and B6's backward
+(``wn_coupling.wn_coupling_backward``, ``flow_step.flow_step_backward``) are
+timed back to back at chip_smoke's train shape, (8, 384) squeezed frames,
+p = 0.05, on a seeded Glow-TTS's first flow step; the Glow train step on
+the B3 and the B6 route is ``chip_smoke.phase_glow_train`` (median of steps
+4-10, with its peak memory), then ``chip_smoke.steps_in_turns`` (20 steps of
+each route in turns, medians), and the val step
+``chip_smoke.phase_glow_val`` (median of 3, with its peak memory). Prints
+one JSON line per worker, then the pairs.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -34,6 +44,7 @@ ATTN_REPS = 50
 TILE_REPS = 20
 TILE_P = 0.1
 FWD_PS = (0.0, 0.1)
+GLOW_BWD_REPS = 50
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -72,20 +83,59 @@ def encode_decode(torch, cs, model, device) -> tuple:
     return sorted(times)[len(times) // 2], torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def worker(tree: str) -> dict:
-    sys.path.insert(0, os.path.abspath(tree))
-    import numpy as np
-    import torch
+def glow_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
+    """B3's and B6's backward, back to back, at chip_smoke's train shape on
+    the first flow step's weights of a seeded Glow-TTS (phases 22 and 26)."""
+    model = cs.build_glow(device, cs.GLOW_SEED)
+    act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
+    w = cpl.conditioner_weights()
+    w = wn_ops.WNWeights.from_flat([t.detach() for t in w.flat()], w.dilations)
+    with torch.no_grad():
+        aln, alb, mt = act.logs.view(-1).clone(), act.bias.view(-1).clone(), inv.dense_matrix_t()
+    B, T = cs.B3_SHAPES[0]
+    C = model.n_mels * model.n_sqz
+    rng = np.random.RandomState(720)
+    lens = torch.from_numpy(cs.ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    valid = (torch.arange(T, device=device)[None, :] < lens[:, None])[..., None]
+    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid
+    g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
+    seed = torch.tensor([4242], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        return {
+            "b3_bwd_ms": back_to_back_ms(torch, lambda: wn_ops.wn_coupling_backward(
+                x[..., :C // 2], lens, w, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS),
+            "b6_bwd_ms": back_to_back_ms(torch, lambda: fs_ops.flow_step_backward(
+                x, lens, aln, alb, mt, w, g_xc, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS)}
 
-    import chip_smoke as cs
-    from speech_masters_thesis_tpu_torch.ops import attention as att
-    from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 
-    card = cs.phase_device()
-    device = cs.cuda_device()
-    cs.phase_build()
-    out = {"tree": tree, "card": card, "attention_bwd": {}, "tiles": {}, "reduction": {},
-           **{f"forward p={p}": {} for p in FWD_PS}}
+def glow_steps(torch, cs, device, card) -> dict:
+    """The Glow train step on both routes (phases 24 and 27, then the steps
+    in turns) and the val step with their peak memory."""
+    out = {}
+    steps = {}
+    for route, flow_step in (("b3", False), ("b6", True)):
+        res = cs.phase_glow_train(device, card, flow_step=flow_step)
+        out[f"glow_step_{route}_ms"], out[f"glow_step_{route}_peak_gib"] = res["step_ms"], res["peak"]
+        steps[route] = res["step"]
+        del res["model"]
+    turns = cs.steps_in_turns(steps, cs.GLOW_AB_ROUNDS)
+    for route, times in turns.items():
+        out[f"glow_turns_{route}_ms"] = statistics.median(times)
+    del steps, turns
+    torch.cuda.empty_cache()
+    model = cs.build_glow(device, cs.GLOW_SEED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["glow_val_ms"] = cs.phase_glow_val(model, device, card)["step_ms"]
+    out["glow_val_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    return out
+
+
+def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
+    """B2's backward, B1's forward, tile passes and reduction, the VQ-VAE
+    step, encode + decode and the LM b64 step."""
+    out = {"attention_bwd": {}, "tiles": {}, "reduction": {}, **{f"forward p={p}": {} for p in FWD_PS}}
     scale = 1.0 / np.sqrt(cs.ATTN_DIM)
     with torch.no_grad():
         for i, (B, T) in enumerate(ATTN_SHAPES):
@@ -120,21 +170,49 @@ def worker(tree: str) -> dict:
     del model
     torch.cuda.empty_cache()
     out["lm_b64_step_ms"] = cs.phase_lm_train(device, card, vq_state)[64]["step_ms"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def worker(tree: str, glow_only: bool) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from speech_masters_thesis_tpu_torch.ops import attention as att
+    from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
+    from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+    from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
+
+    card = cs.phase_device()
+    device = cs.cuda_device()
+    cs.phase_build()
+    out = {"tree": tree, "card": card, "attention_bwd": {}}
+    if not glow_only:
+        out.update(codec_and_lm(torch, np, cs, att, gh, device, card))
+    out.update(glow_backwards(torch, np, cs, wn_ops, fs_ops, device))
+    torch.cuda.empty_cache()
+    out.update(glow_steps(torch, cs, device, card))
     return out
 
 
 def main() -> None:
-    if sys.argv[1:2] == ["--worker"]:
-        print("AB_RESULT " + json.dumps(worker(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    glow_only = "--glow" in args
+    args = [a for a in args if a != "--glow"]
+    if args[:1] == ["--worker"]:
+        print("AB_RESULT " + json.dumps(worker(args[1], glow_only)), flush=True)
         return
-    trees = sys.argv[1:]
+    trees = args
     if len(trees) < 2:
-        raise SystemExit("usage: python3 ab_backward.py TREE TREE [TREE ...] (e.g. parent change change parent)")
+        raise SystemExit("usage: python3 ab_backward.py [--glow] TREE TREE [TREE ...] (e.g. parent change change "
+                         "parent)")
     results = []
     for tree in trees:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
-                              capture_output=True, text=True, timeout=1800)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree]
+                              + (["--glow"] if glow_only else []), capture_output=True, text=True, timeout=1800)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
@@ -145,7 +223,11 @@ def main() -> None:
         results.append(res)
     for key in (*results[0]["attention_bwd"], *(f"forward p={p} sum" for p in FWD_PS), "tiles sum",
                 "reduction sum", "vqvae_step_ms", "vqvae_step_peak_gib", "encode_decode_ms",
-                "encode_decode_peak_gib", "lm_b64_step_ms"):
+                "encode_decode_peak_gib", "lm_b64_step_ms", "b3_bwd_ms", "b6_bwd_ms", "glow_step_b3_ms",
+                "glow_step_b3_peak_gib", "glow_step_b6_ms", "glow_step_b6_peak_gib", "glow_turns_b3_ms",
+                "glow_turns_b6_ms", "glow_val_ms", "glow_val_peak_gib"):
+        if key not in results[0] and key not in results[0]["attention_bwd"]:
+            continue  # --glow: the codec's and the LM's were not measured
         vals = [r["attention_bwd"][key] if key in r["attention_bwd"] else r[key] for r in results]
         print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {v:.4f}" for r, v in zip(results, vals))
               + f" [{results[0]['card']}]")

@@ -11,7 +11,8 @@ points a user calls, with every kernel built from csrc/ in this checkout:
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
      and shared-memory report, B1's resident blocks per SM, and no B1 kernel
-     spilling;
+     spilling; the same for B3's and B6's tensor-core backward kernels
+     (their registers, spills, resident blocks and dynamic shared memory);
   3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
      against its plain PyTorch version in fp32 (TF32 off), with both times
      and the kernel's over 50 back-to-back calls (p=0);
@@ -93,7 +94,12 @@ with the zero-init leaves drawn from the seed):
      forward against the plain one; the kernels' masks, read back from the
      recompute's conv outputs (biases of 10 make them all positive), equal
      the plain version's bit for bit, keep rate within 5 sigma, one seed
-     reproduces and another differs; both times and the bound;
+     reproduces and another differs; both times and the bound, and at
+     (8, 384), p=0.05 the backward over 50 back-to-back calls; then the
+     backward at the other taps, rates and widths of B3_OTHER_SHAPES (k=3
+     at rate 2 with Glow's widths; k=5 at rate 3 and k=1 at widths that are
+     not multiples of 4, x0 a view at an odd stride and offset) with the
+     same tolerances and two calls bitwise equal;
  23. the same for B5 at the shapes of phase 17, p=0 and the encoder's 0.1,
      the plain backward taken at the kernel's own FFN relu decisions (every
      flip a near-tie), the masks of all four sites read back from the
@@ -121,7 +127,9 @@ the override glow_tts_tpu.yaml names):
      B3 route (plain ActNorm and InvConvNear, B3's kernels) through autograd
      against the B6 route: outputs and the prefix's gradients; the kernels'
      masks read back bit for bit against the B3 plain version's; the times
-     of both routes, the plain versions and the bounds;
+     of both routes, the plain versions and the bounds, and at (8, 384),
+     p=0.05 the backward over 50 back-to-back calls; the backward at
+     B3_OTHER_SHAPES as in phase 22;
  27. phase 24 on the B6 route in the same process (the same model seed,
      batch and dropout draws): ddi_init (B3), then 10 train steps; launches
      (6, 6, 0, 0, 1, 12, 12) per step, every parameter (each ActNorm's and
@@ -223,6 +231,8 @@ PALLAS_MAS = "speech_masters_thesis_tpu/ops/pallas/mas.py"
 PALLAS_ENC = "speech_masters_thesis_tpu/ops/pallas/enc_layer.py"
 # (B, squeezed frames): the val step's, a synthesis call's, the route's bound, one shorter than a tile
 B3_SHAPES = ((8, 384), (1, 512), (8, 512), (3, 7))
+# (B, T, half, hidden, taps, rate, layers): the backwards' other taps, rates and widths (not multiples of 4)
+B3_OTHER_SHAPES = ((3, 64, 80, 192, 3, 2, 4), (3, 64, 10, 30, 5, 3, 3), (2, 48, 6, 9, 1, 1, 2))
 # (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window
 B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3))
 MAS_SHAPES = ((8, 256, 768), (8, 512, 1024))  # [B, t_x, t_y]
@@ -347,12 +357,14 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
                 "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel",
                 "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
-                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel")
+                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel", "conv_mma_kernel",
+                "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
                   "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel", "wgrad_partial_kernel",
                   "wgrad_reduce_kernel")
+B3_B6_BWD_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -391,6 +403,19 @@ def phase_build() -> None:
               + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
     b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
+    # B3's and B6's backward kernels on the tensor cores (the same instances under each tag)
+    mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_BWD_KERNELS]
+    print("[build] B3/B6 backward, tensor-core kernels (ptxas: registers, shared memory, spills): "
+          + " | ".join(mma))
+    blocks, smem = (ctypes.c_int * 3)(), (ctypes.c_longlong * 3)()
+    rc = lib.wn_coupling_bwd_blocks_per_sm(blocks, smem)
+    names = ("conv_mma_kernel (gate, 64 rows x 128)", "conv_mma_kernel (transposed conv, 64 x 64)",
+             "wgrad_mma_kernel (64 x 128)")
+    print("[build] B3/B6 backward: resident blocks per SM (256 threads) at the launch's dynamic shared memory: "
+          + ", ".join(f"{n} {b} at {m} B" for n, b, m in zip(names, blocks, smem)))
+    require(rc == 0 and min(blocks) >= 1, f"B3/B6 backward: blocks per SM {list(blocks)} (cudaError {rc})")
+    require(len(mma) >= 2 * len(B3_B6_BWD_KERNELS) and all("0 bytes spill stores" in line for line in mma),
+            f"a B3/B6 backward kernel is missing or spills: {mma}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -1674,14 +1699,75 @@ def print_grads(tag: str, dx_err: float, dx_scale: float, leaves: dict, bitwise:
           f"{worst} {leaves[worst][0]:.3e} of scale {leaves[worst][1]:.3e} (tol {WGRAD_RTOL:g}x); two calls bitwise "
           f"equal {bitwise}; train-mode forward max_abs_err {fwd[0]:.3e} (tol {fwd[1]:.3e}); ms (median of 5): "
           f"backward kernels {times['bwd']:.4f}, plain backward {times['plain']:.4f}, forward kernel "
-          f"{times['fwd']:.4f}, plain forward {times['fwd_plain']:.4f}; backward bound {bnd[0]:.4f} ms by {bnd[1]} "
-          f"[{card}]")
+          f"{times['fwd']:.4f}, plain forward {times['fwd_plain']:.4f}"
+          + (f"; backward kernels back to back {times['dev']:.4f} ms a call ({DEVICE_REPS} calls)" if "dev" in times
+             else "") + f"; backward bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+    require_grads(tag, dx_err, dx_scale, leaves, bitwise)
+    require(np.isfinite(fwd[0]) and fwd[0] <= fwd[1], f"{tag}: the train-mode forward differs: {fwd[0]}")
+
+
+def require_grads(tag: str, dx_err: float, dx_scale: float, leaves: dict, bitwise: bool) -> None:
     require(np.isfinite(dx_err) and dx_err <= DX_RTOL * dx_scale, f"{tag}: dx differs: {dx_err}")
     for name, (err, scale) in leaves.items():
         require(np.isfinite(err) and err <= WGRAD_RTOL * scale, f"{tag}: grad {name} differs: {err} > "
                 f"{WGRAD_RTOL} * {scale}")
     require(bitwise, f"{tag}: two backward calls differ")
-    require(np.isfinite(fwd[0]) and fwd[0] <= fwd[1], f"{tag}: the train-mode forward differs: {fwd[0]}")
+
+
+def small_conditioner(rng, half: int, H: int, taps: int, rate: int, L: int, device) -> wn_ops.WNWeights:
+    """A seeded conditioner of out width 2 half (B3_OTHER_SHAPES)."""
+    def w(*shape):
+        fan_in = shape[1] * shape[2] if len(shape) == 3 else 10
+        return torch.from_numpy((rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)).to(device)
+    rs = [2 * H if i < L - 1 else H for i in range(L)]
+    return wn_ops.WNWeights(ws=w(H, half, 1), bs=w(H), win=tuple(w(2 * H, H, taps) for _ in range(L)),
+                            bin=tuple(w(2 * H) for _ in range(L)), wrs=tuple(w(r, H, 1) for r in rs),
+                            brs=tuple(w(r) for r in rs), wend=w(2 * half, H, 1), bend=w(2 * half),
+                            dilations=tuple(rate ** i for i in range(L)))
+
+
+def other_backward_shapes(device, card: str, flow_step: bool) -> float:
+    """B3's (flow_step False) or B6's backward kernels against the plain
+    backward at B3_OTHER_SHAPES, p=0 and B3_DROP, two calls bitwise equal;
+    B3's x0 is a view whose row stride and offset are not multiples of 4
+    floats. Returns the largest dx error."""
+    worst = 0.0
+    seed = torch.tensor([4444], dtype=torch.int64, device=device)
+    for j, (B, T, half, H, taps, rate, L) in enumerate(B3_OTHER_SHAPES):
+        rng = np.random.RandomState(740 + j)
+        w = small_conditioner(rng, half, H, taps, rate, L, device)
+        lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, 2 * half + 1).astype(np.float32)).to(device) * valid[..., None]
+        gs = [torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) for _ in range(2)]
+        if flow_step:
+            xf = x[..., :2 * half].contiguous()
+            aln, alb = (torch.from_numpy((0.1 * rng.randn(2 * half)).astype(np.float32)).to(device) for _ in range(2))
+            mt = torch.from_numpy(np.linalg.qr(rng.randn(2 * half, 2 * half))[0].astype(np.float32)).to(device)
+            args = (xf, lens, aln, alb, mt, w, *gs)
+            kernel, plain = fs_ops.flow_step_backward, fs_ops.flow_step_backward_reference
+            leaves = lambda out: {"daln": out[1], "dalb": out[2], "dmt": out[3], **out[4].tensors()}  # noqa: E731
+        else:
+            args = (x[..., 1:1 + half], lens, w, gs[0])
+            kernel, plain = wn_ops.wn_coupling_backward, wn_ops.wn_coupling_backward_reference
+            leaves = lambda out: out[1].tensors()  # noqa: E731
+        for p in (0.0, B3_DROP):
+            with torch.no_grad():
+                ours, again, ref = kernel(*args, seed, p), kernel(*args, seed, p), plain(*args, seed, p)
+                torch.cuda.synchronize()
+            bitwise = torch.equal(ours[0], again[0]) and all(
+                torch.equal(a, leaves(again)[n]) for n, a in leaves(ours).items())
+            dx_err = (ours[0] - ref[0])[valid].abs().max().item()
+            dx_scale = ref[0][valid].abs().max().item()
+            report = leaf_report(leaves(ours), leaves(ref))
+            top = max(report, key=lambda n: report[n][0] / report[n][1])
+            tag = f"[{'B6' if flow_step else 'B3'} bwd] p={p} B={B} T={T} half={half} H={H} k={taps} rate={rate} L={L}"
+            print(f"{tag}: dx max_abs_err {dx_err:.3e} (tol {DX_RTOL * dx_scale:.3e}); worst weight grad {top} "
+                  f"{report[top][0]:.3e} of scale {report[top][1]:.3e} (tol {WGRAD_RTOL:g}x); two calls bitwise "
+                  f"equal {bitwise} [{card}]")
+            require_grads(tag, dx_err, dx_scale, report, bitwise)
+            worst = max(worst, dx_err)
+    return worst
 
 
 def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
@@ -1715,6 +1801,8 @@ def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
                          "fwd": cuda_ms(lambda: wn_ops.wn_coupling(x0, lens, w, seed, p), reps=5, warmup=1),
                          "fwd_plain": cuda_ms(lambda: wn_ops.wn_coupling_reference(x0, lens, w, seed, p), reps=5,
                                               warmup=1)}
+                if i == 0 and p > 0:  # the train step's shape: the card's time alone
+                    times["dev"] = device_ms(lambda: wn_ops.wn_coupling_backward(*args))
             frames = int(lens_np.sum())
             weights = sum(t.numel() for t in w.flat())
             # recompute, transposed products and weight products: 3x the forward's operations;
@@ -1726,9 +1814,11 @@ def phase_wn_coupling_bwd(model: GlowTTS, device, card: str) -> dict:
                         leaf_report(gw_k.tensors(), gw_r.tensors()), bitwise, fwd, times, bnd, card)
             out["max_abs_err"] = max(out["max_abs_err"], dx_err)
             if i == 0 and p > 0:  # the train step's shape
-                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
-                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], tf32_ms=tf32_bound_ms(*work))
+                out.update(ms=times["dev"], call_ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0],
+                           bound_by=bnd[1], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                           tf32_ms=tf32_bound_ms(*work))
             del dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r
+    other_backward_shapes(device, card, flow_step=False)
     # the masks: with conv biases of 10 (conv weights scaled down) every pre-dropout
     # x_in is positive, so the recompute's x_in > 0 exactly where the kernel kept it
     B, T = B3_SHAPES[0]
@@ -1806,6 +1896,9 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
                      "bwd": cuda_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p), reps=5, warmup=1),
                      "plain": cuda_ms(lambda: fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p),
                                       reps=5, warmup=1)}
+            if i == 0 and p > 0:  # the train step's shape: the card's time alone
+                with torch.no_grad():
+                    times["dev"] = device_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p))
             routes = flow_step_routes(act, inv, x, mask, lens, w, g_xc, g_out, seed, p)
             dx_err = (dx_k - dx_r)[valid].abs().max().item()
             tag = f"[B6] p={p} B={B} T={T}"
@@ -1828,11 +1921,12 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
             out["max_abs_err"] = max(out["max_abs_err"], dx_err)
             out["fwd_err"] = max(out["fwd_err"], fwd_errs["xc"][0], fwd_errs["out"][0])
             if i == 0 and p > 0:  # the train step's shape
-                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd["bwd"][0], bound_by=bnd["bwd"][1],
-                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], fwd_bound_ms=bnd["fwd"][0],
-                           fwd_bound_by=bnd["fwd"][1], tf32_ms=tf32_bound_ms(*work["bwd"]),
+                out.update(ms=times["dev"], call_ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd["bwd"][0],
+                           bound_by=bnd["bwd"][1], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                           fwd_bound_ms=bnd["fwd"][0], fwd_bound_by=bnd["fwd"][1], tf32_ms=tf32_bound_ms(*work["bwd"]),
                            fwd_tf32_ms=tf32_bound_ms(*work["fwd"]))
             del dx_k, gk, dx_k2, gk2, dx_r, gr
+    other_backward_shapes(device, card, flow_step=True)
     # the masks, as in phase 22: with conv biases of 10 every pre-dropout x_in is positive
     B, T = B3_SHAPES[0]
     rng = np.random.RandomState(780)
@@ -2277,7 +2371,7 @@ def main() -> None:
               bound_3xtf32_ms=b3["tf32_ms"]),
         entry("wn_coupling_bwd", "wn_coupling_bwd.cu", PALLAS_WN + ":484", b3_bwd_n, b3_bwd["max_abs_err"],
               b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"],
-              bound_3xtf32_ms=b3_bwd["tf32_ms"]),
+              call_ms=b3_bwd["call_ms"], bound_3xtf32_ms=b3_bwd["tf32_ms"]),
         entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
               b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
@@ -2289,7 +2383,8 @@ def main() -> None:
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
               b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], bound_3xtf32_ms=b6["fwd_tf32_ms"]),
         entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
-              b6["plain_ms"], b6["bound_ms"], b6["bound_by"], bound_3xtf32_ms=b6["tf32_ms"])]}))
+              b6["plain_ms"], b6["bound_ms"], b6["bound_by"], call_ms=b6["call_ms"],
+              bound_3xtf32_ms=b6["tf32_ms"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

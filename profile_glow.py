@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch port's Glow-TTS paths on one GPU.
 
     python3 profile_glow.py
+    python3 profile_glow.py --backward-split
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
 seeded weights), and runs torch.profiler over 3 calls each of: the train step
@@ -14,12 +15,22 @@ times over the wall time; one stream, so kernels do not overlap), the
 kernel launches per call, and the kernels that take the most device time,
 with the card's name and power limit. It needs one card; it does nothing
 useful elsewhere.
+
+``--backward-split`` instead profiles B3's and B6's backward wrappers
+(``wn_coupling_backward``, ``flow_step_backward``) at chip_smoke's train
+shape, (8, 384) squeezed frames, p = 0.05, and splits one call's device
+time by the place of each kernel in the chain: the weight packing (kernels
+named ``pack``), B6's prefix, the recompute (1 + 2 L launches), the
+transposed products (2 + 2 L), B6's dx1, and the weight-gradient reduction
+(the rest), and prints the host's time a call beside the device's.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -27,6 +38,8 @@ import chip_smoke as cs
 from speech_masters_thesis_tpu_torch.device import cuda_device
 from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
+from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
@@ -69,9 +82,88 @@ def report(name: str, fn, card: str) -> None:
         print(f"[{name}]   {device_time_us(e) / CALLS / 1e3:8.3f} ms {e.count // CALLS:5d}x  {e.key[:110]}")
 
 
+def kernel_sequence(fn) -> list:
+    """(name, device us) of each kernel of ``CALLS`` calls of ``fn``, in launch order."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if is_kernel(e)), key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in kernels]
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """The host's time for one call of ``fn``, issued ``n`` times without a
+    synchronisation (the card's queue takes them all) after a synchronised
+    warm-up: the wrapper's Python, ctypes and launch work alone."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def split_report(name: str, seq: list, layers: int, prefix: bool, card: str) -> None:
+    """One call's kernels grouped by their place in the backward chain."""
+    per_call = len(seq) // CALLS
+    calls = [seq[i * per_call:(i + 1) * per_call] for i in range(CALLS)]
+    sizes = [("recompute", 1 + 2 * layers), ("transposed", 2 + 2 * layers)]
+    if prefix:
+        sizes = [("prefix", 1), *sizes, ("dx1", 1)]
+    sums = []
+    for call in calls:
+        n_pack = sum(1 for k, _ in call if "pack" in k)
+        groups, at = {"pack": call[:n_pack]}, n_pack
+        for group, n in sizes:
+            groups[group], at = call[at:at + n], at + n
+        groups["reduction"] = call[at:]
+        sums.append({g: sum(us for _, us in ks) / 1e3 for g, ks in groups.items()})
+    total = [sum(s.values()) for s in sums]
+    print(f"[{name}] {per_call} kernels a call; device ms a call, median of {CALLS}: total "
+          f"{float(np.median(total)):.4f}; " + ", ".join(
+              f"{g} {float(np.median([s[g] for s in sums])):.4f}" for g in sums[0]) + f" [{card}]")
+    for k, us in calls[-1]:
+        print(f"[{name}]   {us / 1e3:8.4f} ms  {k[:120]}")
+
+
+def backward_split(card: str, device) -> None:
+    cs.phase_build()
+    model = cs.build_glow(device, cs.GLOW_SEED)
+    act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
+    w = cpl.conditioner_weights()
+    w = wn_ops.WNWeights.from_flat([t.detach() for t in w.flat()], w.dilations)
+    with torch.no_grad():
+        aln, alb, mt = act.logs.view(-1).clone(), act.bias.view(-1).clone(), inv.dense_matrix_t()
+    B, T = cs.B3_SHAPES[0]
+    C = model.n_mels * model.n_sqz
+    rng = np.random.RandomState(720)
+    lens = torch.from_numpy(cs.ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    valid = (torch.arange(T, device=device)[None, :] < lens[:, None])[..., None]
+    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid
+    g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
+    seed = torch.tensor([4242], dtype=torch.int64, device=device)
+    x0 = x[..., :C // 2]
+    calls = {"B3": (lambda: wn_ops.wn_coupling_backward(x0, lens, w, g_out, seed, cs.B3_DROP), False),
+             "B6": (lambda: fs_ops.flow_step_backward(x, lens, aln, alb, mt, w, g_xc, g_out, seed, cs.B3_DROP), True)}
+    with torch.no_grad():
+        for kernel, (fn, prefix) in calls.items():
+            name = f"{kernel} backward B={B} T={T} p={cs.B3_DROP}"
+            split_report(name, kernel_sequence(fn), len(w.win), prefix, card)
+            print(f"[{name}] host ms a call (wrapper and launches, no synchronisation): {host_ms(fn):.4f}; "
+                  f"device ms a call over {cs.DEVICE_REPS} back-to-back calls: {cs.device_ms(fn):.4f} [{card}]")
+
+
 def main() -> None:
     card = cs.phase_device()
     device = cuda_device()
+    if sys.argv[1:] == ["--backward-split"]:
+        backward_split(card, device)
+        return
     _build.build()
     batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)
     for flow_step in (False, True):

@@ -1,6 +1,8 @@
 // A row-tiled 1-D convolution over [B, T, C] activations with fused
-// epilogues, shared by the Glow-TTS kernels (wn_coupling_{fwd,bwd}.cu,
-// enc_layer_{fwd,bwd}.cu). fp32 on the CUDA cores.
+// epilogues, shared by the Glow-TTS forwards (wn_coupling_fwd.cu,
+// flow_step_fwd.cu) and B5's kernels (enc_layer_{fwd,bwd}.cu). fp32 on the
+// CUDA cores. Its epilogues (CONV_ROWS_EPILOGUE) also finish conv_mma.cuh's
+// tensor-core tiles, which the B3 and B6 backwards run.
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * w[n, c, tap]
 //
@@ -129,6 +131,120 @@ __device__ __forceinline__ float drop_factor(const Args& a, uint32_t key, int t,
   return hash_draw(key, (uint32_t)t * (uint32_t)a.drop_ld + (uint32_t)col) >= a.threshold ? a.keep_scale : 0.0f;
 }
 
+// The epilogue of a tile, shared by this header's kernel and conv_mma.cuh's
+// tensor-core one (a macro, so this kernel compiles as it did before the
+// tensor-core one shared it): the tile's TR rows start at r0 of the
+// sequence whose rows start at row0 and whose length is len; zs holds z,
+// the product plus the bias, for TR rows by TN columns (rows TN + 1 floats
+// apart); a, key, tid, tx and ty are the kernel's (NT threads).
+#define CONV_ROWS_EPILOGUE                                                                                         \
+  if (EPI == LN || EPI == LN_BWD) {                                                                                \
+    /* one warp per row; TN == n_out */                                                                            \
+    for (int rl = ty; rl < TR; rl += NT / 32) {                                                                    \
+      const int t = r0 + rl;                                                                                       \
+      if (t >= a.T) continue;                                                                                      \
+      const size_t row = row0 + t;                                                                                 \
+      const float valid = t < len ? 1.0f : 0.0f;                                                                   \
+      const float za = a.mask_acc ? valid : 1.0f, zr = a.mask_res ? valid : 1.0f;                                  \
+      const float* res = a.res + row * a.ldr;                                                                      \
+      float* z = zs + rl * (TN + 1);                                                                               \
+      if (EPI == LN) {                                                                                             \
+        float s = 0.0f, sq = 0.0f;                                                                                 \
+        for (int j = tx; j < TN; j += 32) {                                                                        \
+          const float v = z[j] * za * drop_factor(a, key, t, j) + res[j] * zr;                                     \
+          z[j] = v;                                                                                                \
+          s += v;                                                                                                  \
+          sq += v * v;                                                                                             \
+        }                                                                                                          \
+_Pragma("unroll")                                                                                                  \
+        for (int o = 16; o > 0; o >>= 1) {                                                                         \
+          s += __shfl_xor_sync(0xffffffffu, s, o);                                                                 \
+          sq += __shfl_xor_sync(0xffffffffu, sq, o);                                                               \
+        }                                                                                                          \
+        const float mean = s / TN;                                                                                 \
+        const float inv = rsqrtf(fmaxf(sq / TN - mean * mean, 0.0f) + a.eps);                                      \
+        if (a.rinv && tx == 0) a.rinv[row] = inv;                                                                  \
+        float* out = a.out + row * a.ldo;                                                                          \
+        for (int j = tx; j < TN; j += 32) {                                                                        \
+          const float zh = (z[j] - mean) * inv;                                                                    \
+          if (a.zhat) a.zhat[row * a.ldz + j] = zh;                                                                \
+          out[j] = zh * a.gamma[j] + a.beta[j];                                                                    \
+        }                                                                                                          \
+      } else {                                                                                                     \
+        const float* zh = a.zhat + row * a.ldz;                                                                    \
+        float s1 = 0.0f, s2 = 0.0f;                                                                                \
+        for (int j = tx; j < TN; j += 32) {                                                                        \
+          const float dx = z[j] * za + res[j] * zr;                                                                \
+          if (a.out2) a.out2[row * a.ldo + j] = dx;                                                                \
+          const float dy = dx * a.gamma[j];                                                                        \
+          z[j] = dy;                                                                                               \
+          s1 += dy;                                                                                                \
+          s2 += dy * zh[j];                                                                                        \
+        }                                                                                                          \
+_Pragma("unroll")                                                                                                  \
+        for (int o = 16; o > 0; o >>= 1) {                                                                         \
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);                                                               \
+          s2 += __shfl_xor_sync(0xffffffffu, s2, o);                                                               \
+        }                                                                                                          \
+        const float m1 = s1 / TN, m2 = s2 / TN, inv = a.rinv[row];                                                 \
+        for (int j = tx; j < TN; j += 32) {                                                                        \
+          const float dz = inv * (z[j] - m1 - zh[j] * m2);                                                         \
+          a.out[row * a.ldo + j] = dz;                                                                             \
+          if (a.out3) a.out3[row * a.ldo + j] = dz * drop_factor(a, key, t, j) * valid;                            \
+        }                                                                                                          \
+      }                                                                                                            \
+    }                                                                                                              \
+    return;                                                                                                        \
+  }                                                                                                                \
+  if (EPI == GATE) {                                                                                               \
+    constexpr int half = TN / 2;                                                                                   \
+    for (int e = tid; e < TR * half; e += NT) {                                                                    \
+      const int rl = e / half, j = e % half, t = r0 + rl, p = blockIdx.y * half + j;                               \
+      if (t >= a.T || p >= a.hidden) continue;                                                                     \
+      const float zt = zs[rl * (TN + 1) + j] * drop_factor(a, key, t, p);                                          \
+      const float zg = zs[rl * (TN + 1) + half + j] * drop_factor(a, key, t, a.hidden + p);                        \
+      if (a.xin) {                                                                                                 \
+        a.xin[(row0 + t) * a.ldx + p] = zt;                                                                        \
+        a.xin[(row0 + t) * a.ldx + a.hidden + p] = zg;                                                             \
+      }                                                                                                            \
+      a.out[(row0 + t) * a.ldo + p] = tanhf(zt) * (1.0f / (1.0f + expf(-zg)));                                     \
+    }                                                                                                              \
+    return;                                                                                                        \
+  }                                                                                                                \
+  for (int e = tid; e < TR * TN; e += NT) {                                                                        \
+    const int rl = e / TN, j = e % TN, t = r0 + rl;                                                                \
+    int col;                                                                                                       \
+    if (t >= a.T || !out_column<TN, EPI>(a, j, &col)) continue;                                                    \
+    const size_t row = row0 + t;                                                                                   \
+    const float valid = t < len ? 1.0f : 0.0f;                                                                     \
+    const float z = zs[rl * (TN + 1) + j];                                                                         \
+    if (EPI == RES_SKIP) {                                                                                         \
+      const int n_res = a.n_out - a.hidden;                                                                        \
+      if (col < n_res) {                                                                                           \
+        a.out[row * a.ldo + col] = (a.res[row * a.ldr + col] + z) * valid;                                         \
+      } else {                                                                                                     \
+        float* s = a.skip + row * a.lds + (col - n_res);                                                           \
+        *s = a.first ? z : *s + z;                                                                                 \
+      }                                                                                                            \
+    } else if (EPI == GATE_BWD) {                                                                                  \
+      const float zt = a.xin[row * a.ldx + col], zg = a.xin[row * a.ldx + a.hidden + col];                         \
+      const float th = tanhf(zt), sg = 1.0f / (1.0f + expf(-zg));                                                  \
+      a.out[row * a.ldo + col] = z * sg * (1.0f - th * th) * drop_factor(a, key, t, col);                          \
+      a.out[row * a.ldo + a.hidden + col] = z * th * sg * (1.0f - sg) * drop_factor(a, key, t, a.hidden + col);    \
+    } else if (EPI == ACTNORM_BWD) {                                                                               \
+      const float v = z * valid;                                                                                   \
+      a.out2[row * a.ldo + col] = v;                                                                               \
+      a.out[row * a.ldo + col] = v * expf(a.out_logs[col]);                                                        \
+    } else if (EPI == DRELU) {                                                                                     \
+      a.out[row * a.ldo + col] = a.res[row * a.ldr + col] > 0.0f ? z * (a.threshold ? a.keep_scale : 1.0f) : 0.0f; \
+    } else {                                                                                                       \
+      float v = z;                                                                                                 \
+      if (EPI == MASK) v = z * valid;                                                                              \
+      if (EPI == RELU_MASK) v = fmaxf(z, 0.0f) * drop_factor(a, key, t, col) * valid;                              \
+      a.out[row * a.ldo + col] = v;                                                                                \
+    }                                                                                                              \
+  }
+
 template <class Tag, int TAPS, int TR, int TN, int EPI>
 __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
   constexpr int RM = TR / 8, RN = TN / 32;
@@ -200,112 +316,7 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
   }
   __syncthreads();
 
-  if (EPI == LN || EPI == LN_BWD) {
-    // one warp per row; TN == n_out
-    for (int rl = ty; rl < TR; rl += NT / 32) {
-      const int t = r0 + rl;
-      if (t >= a.T) continue;
-      const size_t row = row0 + t;
-      const float valid = t < len ? 1.0f : 0.0f;
-      const float za = a.mask_acc ? valid : 1.0f, zr = a.mask_res ? valid : 1.0f;
-      const float* res = a.res + row * a.ldr;
-      float* z = zs + rl * (TN + 1);
-      if (EPI == LN) {
-        float s = 0.0f, sq = 0.0f;
-        for (int j = tx; j < TN; j += 32) {
-          const float v = z[j] * za * drop_factor(a, key, t, j) + res[j] * zr;
-          z[j] = v;
-          s += v;
-          sq += v * v;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-          sq += __shfl_xor_sync(0xffffffffu, sq, o);
-        }
-        const float mean = s / TN;
-        const float inv = rsqrtf(fmaxf(sq / TN - mean * mean, 0.0f) + a.eps);
-        if (a.rinv && tx == 0) a.rinv[row] = inv;
-        float* out = a.out + row * a.ldo;
-        for (int j = tx; j < TN; j += 32) {
-          const float zh = (z[j] - mean) * inv;
-          if (a.zhat) a.zhat[row * a.ldz + j] = zh;
-          out[j] = zh * a.gamma[j] + a.beta[j];
-        }
-      } else {
-        const float* zh = a.zhat + row * a.ldz;
-        float s1 = 0.0f, s2 = 0.0f;
-        for (int j = tx; j < TN; j += 32) {
-          const float dx = z[j] * za + res[j] * zr;
-          if (a.out2) a.out2[row * a.ldo + j] = dx;
-          const float dy = dx * a.gamma[j];
-          z[j] = dy;
-          s1 += dy;
-          s2 += dy * zh[j];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-          s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-        }
-        const float m1 = s1 / TN, m2 = s2 / TN, inv = a.rinv[row];
-        for (int j = tx; j < TN; j += 32) {
-          const float dz = inv * (z[j] - m1 - zh[j] * m2);
-          a.out[row * a.ldo + j] = dz;
-          if (a.out3) a.out3[row * a.ldo + j] = dz * drop_factor(a, key, t, j) * valid;
-        }
-      }
-    }
-    return;
-  }
-  if (EPI == GATE) {
-    constexpr int half = TN / 2;
-    for (int e = tid; e < TR * half; e += NT) {
-      const int rl = e / half, j = e % half, t = r0 + rl, p = blockIdx.y * half + j;
-      if (t >= a.T || p >= a.hidden) continue;
-      const float zt = zs[rl * (TN + 1) + j] * drop_factor(a, key, t, p);
-      const float zg = zs[rl * (TN + 1) + half + j] * drop_factor(a, key, t, a.hidden + p);
-      if (a.xin) {
-        a.xin[(row0 + t) * a.ldx + p] = zt;
-        a.xin[(row0 + t) * a.ldx + a.hidden + p] = zg;
-      }
-      a.out[(row0 + t) * a.ldo + p] = tanhf(zt) * (1.0f / (1.0f + expf(-zg)));
-    }
-    return;
-  }
-  for (int e = tid; e < TR * TN; e += NT) {
-    const int rl = e / TN, j = e % TN, t = r0 + rl;
-    int col;
-    if (t >= a.T || !out_column<TN, EPI>(a, j, &col)) continue;
-    const size_t row = row0 + t;
-    const float valid = t < len ? 1.0f : 0.0f;
-    const float z = zs[rl * (TN + 1) + j];
-    if (EPI == RES_SKIP) {
-      const int n_res = a.n_out - a.hidden;
-      if (col < n_res) {
-        a.out[row * a.ldo + col] = (a.res[row * a.ldr + col] + z) * valid;
-      } else {
-        float* s = a.skip + row * a.lds + (col - n_res);
-        *s = a.first ? z : *s + z;
-      }
-    } else if (EPI == GATE_BWD) {
-      const float zt = a.xin[row * a.ldx + col], zg = a.xin[row * a.ldx + a.hidden + col];
-      const float th = tanhf(zt), sg = 1.0f / (1.0f + expf(-zg));
-      a.out[row * a.ldo + col] = z * sg * (1.0f - th * th) * drop_factor(a, key, t, col);
-      a.out[row * a.ldo + a.hidden + col] = z * th * sg * (1.0f - sg) * drop_factor(a, key, t, a.hidden + col);
-    } else if (EPI == ACTNORM_BWD) {
-      const float v = z * valid;
-      a.out2[row * a.ldo + col] = v;
-      a.out[row * a.ldo + col] = v * expf(a.out_logs[col]);
-    } else if (EPI == DRELU) {
-      a.out[row * a.ldo + col] = a.res[row * a.ldr + col] > 0.0f ? z * (a.threshold ? a.keep_scale : 1.0f) : 0.0f;
-    } else {
-      float v = z;
-      if (EPI == MASK) v = z * valid;
-      if (EPI == RELU_MASK) v = fmaxf(z, 0.0f) * drop_factor(a, key, t, col) * valid;
-      a.out[row * a.ldo + col] = v;
-    }
-  }
+  CONV_ROWS_EPILOGUE
 }
 
 // One launch: grid (row tiles, channel tiles, B).

@@ -48,7 +48,8 @@ extern "C" int flow_step_fwd(const float* x, const int* lens, const long long* s
   const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
   if (!wn_coupling::valid_shape(sh) || c_out != 2 * half) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = wn_coupling::flow_prefix<FlowFwdTag>(x, lens, aln, alb, mt, B, T, c_out, xc, nullptr, s);
+  cudaError_t err =
+      wn_coupling::flow_prefix<wn_coupling::Fma<FlowFwdTag>>(x, lens, aln, alb, mt, B, T, c_out, xc, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, bend};
   return (int)wn_coupling::forward<FlowFwdTag>(xc, c_out, lens, w, sh, {seed, threshold, keep_scale}, out, h,

@@ -88,13 +88,36 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB&
   mma(c, a.big, b.big);
 }
 
-// ---- cp.async: 16-byte copies from device to shared memory -------------
+// ---- cp.async: copies from device to shared memory ----------------------
 // src_bytes 0 writes 16 zero bytes and reads nothing (src must still be a
 // valid address)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
 }
+
+// 4-byte copy (.ca: .cg takes 16-byte copies only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// Four floats into shared memory at dst in 4-byte copies: at(e) is the
+// address of float e, or null for a zero. For rows whose width, stride or
+// offset is not a multiple of 4 floats, which a 16-byte copy needs.
+template <class At>
+__device__ __forceinline__ void stage4(float* dst, At at) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* q = at(e);
+    if (q)
+      cp_async4(dst + e, q);
+    else
+      dst[e] = 0.f;
+  }
+}
+
+__host__ __device__ inline bool aligned16(const void* p) { return !(reinterpret_cast<uintptr_t>(p) & 15); }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 

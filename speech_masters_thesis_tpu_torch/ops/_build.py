@@ -135,17 +135,19 @@ def build() -> ctypes.CDLL:
     lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 6 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
     lib.wn_coupling_bwd.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
-                                    + [p] * 10 + [i] * 8 + [u, f, i, p])
+                                    + [p] * 10 + [i] * 8 + [u, f, p])
     lib.wn_coupling_bwd.restype = i
-    lib.wn_coupling_bwd_partial_floats.argtypes = [i] * 9
-    lib.wn_coupling_bwd_partial_floats.restype = ctypes.c_long
+    lib.wn_coupling_bwd_workspace_floats.argtypes = [i] * 8
+    lib.wn_coupling_bwd_workspace_floats.restype = ctypes.c_long
+    lib.wn_coupling_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.wn_coupling_bwd_blocks_per_sm.restype = i
     lib.flow_step_fwd.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
     lib.flow_step_fwd.restype = i
     lib.flow_step_bwd.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 14
-                                  + [i] * 8 + [u, f, i, p])
+                                  + [i] * 8 + [u, f, p])
     lib.flow_step_bwd.restype = i
-    lib.flow_step_bwd_partial_floats.argtypes = [i] * 9
-    lib.flow_step_bwd_partial_floats.restype = ctypes.c_long
+    lib.flow_step_bwd_workspace_floats.argtypes = [i] * 8
+    lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_fwd.argtypes = [p] * 26 + [i] * 7 + [f, u, f, p]
     lib.enc_layer_fwd.restype = i
     lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, i, p]

@@ -127,7 +127,8 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     A CUDA tensor launches ``csrc/flow_step_bwd.cu`` (the recomputed prefix
     and conditioner, the conditioner's transposed products, the prefix's
     transposed product, then one fixed-order reduction of every weight
-    gradient: two calls are bitwise equal) and counts
+    gradient: two calls are bitwise equal; the products in 3xTF32 on the
+    tensor cores) and counts
     ``flow_step_backward.launches``; a CPU tensor runs
     ``flow_step_backward_reference``. ``return_buffers`` adds {"xin":
     [L, B, T, 2H]}: each conditioner layer's post-dropout conv output as the
@@ -155,10 +156,9 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
     xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
     skip, dskip = empty(B, T, H), empty(B, T, H)
-    n_split = _build.wgrad_splits(B * T)
     lib = _build.build()
     shape = _shape_args(x[..., :half], w)
-    partials = empty(lib.flow_step_bwd_partial_floats(*shape, n_split))
+    workspace = empty(lib.flow_step_bwd_workspace_floats(*shape))
     rc = lib.flow_step_bwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g_xc.data_ptr(), g_out.data_ptr(), aln.data_ptr(),
         alb.data_ptr(), mt.data_ptr(), w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
@@ -166,8 +166,8 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
         dmt.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
         _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(), x1.data_ptr(),
         xc.data_ptr(), dxc.data_ptr(), dx1.data_ptr(), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(),
-        skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), partials.data_ptr(), *shape,
-        *_dropout_args(p_drop), n_split, _stream(x))
+        skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), workspace.data_ptr(), *shape,
+        *_dropout_args(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"flow_step_bwd launch failed with cudaError {rc}")
     flow_step_backward.launches += 1

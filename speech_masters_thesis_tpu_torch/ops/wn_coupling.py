@@ -279,8 +279,10 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     A CUDA tensor launches ``csrc/wn_coupling_bwd.cu`` (the recomputed
     forward, then per layer in reverse the gate's and the dilated conv's
     transposes, then one fixed-order reduction of every weight gradient: two
-    calls are bitwise equal) and counts ``wn_coupling_backward.launches``; a
-    CPU tensor runs ``wn_coupling_backward_reference``. ``return_buffers``
+    calls are bitwise equal; every product in 3xTF32 on the tensor cores)
+    and counts
+    ``wn_coupling_backward.launches``; a CPU tensor runs
+    ``wn_coupling_backward_reference``. ``return_buffers``
     adds {"xin": [L, B, T, 2H]}: each layer's post-dropout conv output as
     the kernels recomputed it (the plain recompute's on the CPU).
     """
@@ -302,10 +304,9 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
     xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
     skip, dskip = empty(B, T, H), empty(B, T, H)
-    n_split = _build.wgrad_splits(B * T)
     lib = _build.build()
     shape = _shape_args(x0, w)
-    partials = empty(lib.wn_coupling_bwd_partial_floats(*shape, n_split))
+    workspace = empty(lib.wn_coupling_bwd_workspace_floats(*shape))
     rc = lib.wn_coupling_bwd(
         x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
         w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
@@ -313,7 +314,7 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
         dx0.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
         _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
         hs.data_ptr(), xin.data_ptr(), acts.data_ptr(), skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(),
-        dxin.data_ptr(), partials.data_ptr(), *shape, *_dropout_args(p_drop), n_split, _stream(x0))
+        dxin.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
         raise RuntimeError(f"wn_coupling_bwd launch failed with cudaError {rc}")
     wn_coupling_backward.launches += 1
