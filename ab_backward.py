@@ -1,8 +1,9 @@
 """Parent against change on one card: B2's backward, B1's forward, backward
 tile passes and weight-gradient reduction, the VQ-VAE train step, the
-codec's encode + decode and the LM train step, B3's and B6's backward, the
-Glow-TTS train step on both routes and its val step, each tree in its own
-process, in the order given (parent, change, change, parent, ...).
+codec's encode + decode and the LM train step, B3's and B6's forward and
+backward, the Glow-TTS train step on both routes, its val step and
+synthesis, each tree in its own process, in the order given (parent,
+change, change, parent, ...).
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -22,12 +23,16 @@ and the reduction at p=0.1. Step times are those of
 warm-up, with its peak memory). B3's and B6's backward
 (``wn_coupling.wn_coupling_backward``, ``flow_step.flow_step_backward``) are
 timed back to back at chip_smoke's train shape, (8, 384) squeezed frames,
-p = 0.05, on a seeded Glow-TTS's first flow step; the Glow train step on
-the B3 and the B6 route is ``chip_smoke.phase_glow_train`` (median of steps
+p = 0.05, on a seeded Glow-TTS's first flow step, and their forwards
+(``wn_coupling.wn_coupling`` at p = 0, ``flow_step.flow_step`` at p =
+0.05, the rows of chip_smoke's kernels line) the same way, each with its
+largest error against its plain version over chip_smoke's B3_RTOL; the
+Glow train step on the B3 and the B6 route is ``chip_smoke.phase_glow_train`` (median of steps
 4-10, with its peak memory), then ``chip_smoke.steps_in_turns`` (20 steps of
-each route in turns, medians), and the val step
-``chip_smoke.phase_glow_val`` (median of 3, with its peak memory). Prints
-one JSON line per worker, then the pairs.
+each route in turns, medians), the val step ``chip_smoke.phase_glow_val``
+(median of 3, with its peak memory) and synthesis
+``chip_smoke.phase_synthesis`` at batch 1 and 8 (median of 5: the mel, and
+text to waveform). Prints one JSON line per worker, then the pairs.
 """
 
 from __future__ import annotations
@@ -83,9 +88,10 @@ def encode_decode(torch, cs, model, device) -> tuple:
     return sorted(times)[len(times) // 2], torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def glow_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
-    """B3's and B6's backward, back to back, at chip_smoke's train shape on
-    the first flow step's weights of a seeded Glow-TTS (phases 22 and 26)."""
+def glow_inputs(torch, np, cs, wn_ops, device) -> tuple:
+    """chip_smoke's train shape, (8, 384) squeezed frames, on the first flow
+    step's weights of a seeded Glow-TTS (phases 22 and 26): (x, lens, valid,
+    aln, alb, mt, w, g_xc, g_out, seed)."""
     model = cs.build_glow(device, cs.GLOW_SEED)
     act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
     w = cpl.conditioner_weights()
@@ -96,14 +102,40 @@ def glow_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
     C = model.n_mels * model.n_sqz
     rng = np.random.RandomState(720)
     lens = torch.from_numpy(cs.ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
-    valid = (torch.arange(T, device=device)[None, :] < lens[:, None])[..., None]
-    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid
+    valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid[..., None]
     g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
     seed = torch.tensor([4242], dtype=torch.int64, device=device)
+    return x, lens, valid, aln, alb, mt, w, g_xc, g_out, seed
+
+
+def glow_forwards(torch, cs, wn_ops, fs_ops, inputs: tuple) -> dict:
+    """B3's forward at p = 0 and B6's at B3_DROP (the rows of chip_smoke's
+    kernels line), back to back, each with its largest error against its
+    plain version at valid frames over B3_RTOL of max|ref|."""
+    x, lens, valid, aln, alb, mt, w, _, _, seed = inputs
+    x0, p = x[..., :x.shape[2] // 2], cs.B3_DROP
+    calls = {"b3": (lambda: wn_ops.wn_coupling(x0, lens, w, seed, 0.0),
+                    lambda: wn_ops.wn_coupling_reference(x0, lens, w, seed, 0.0)),
+             "b6": (lambda: fs_ops.flow_step(x, lens, aln, alb, mt, w, seed, p)[1],
+                    lambda: fs_ops.flow_step_reference(x, lens, aln, alb, mt, w, seed, p)[1])}
+    out = {}
+    with torch.no_grad():
+        for name, (kernel, plain) in calls.items():
+            ours, ref = kernel(), plain()
+            out[f"{name}_fwd_err_over_tol"] = ((ours - ref)[valid].abs().max()
+                                               / (cs.B3_RTOL * ref[valid].abs().max())).item()
+            out[f"{name}_fwd_ms"] = back_to_back_ms(torch, kernel, GLOW_BWD_REPS)
+    return out
+
+
+def glow_backwards(torch, cs, wn_ops, fs_ops, inputs: tuple) -> dict:
+    """B3's and B6's backward, back to back, at p = B3_DROP."""
+    x, lens, _, aln, alb, mt, w, g_xc, g_out, seed = inputs
     with torch.no_grad():
         return {
             "b3_bwd_ms": back_to_back_ms(torch, lambda: wn_ops.wn_coupling_backward(
-                x[..., :C // 2], lens, w, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS),
+                x[..., :x.shape[2] // 2], lens, w, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS),
             "b6_bwd_ms": back_to_back_ms(torch, lambda: fs_ops.flow_step_backward(
                 x, lens, aln, alb, mt, w, g_xc, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS)}
 
@@ -129,6 +161,9 @@ def glow_steps(torch, cs, device, card) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out["glow_val_ms"] = cs.phase_glow_val(model, device, card)["step_ms"]
     out["glow_val_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    synthesis = cs.phase_synthesis(model, device, card)
+    for B in cs.SYNTH_BATCHES:
+        out[f"synth_b{B}_mel_ms"], out[f"synth_b{B}_total_ms"] = (synthesis[B][k] for k in ("mel_ms", "total_ms"))
     return out
 
 
@@ -191,7 +226,10 @@ def worker(tree: str, glow_only: bool) -> dict:
     out = {"tree": tree, "card": card, "attention_bwd": {}}
     if not glow_only:
         out.update(codec_and_lm(torch, np, cs, att, gh, device, card))
-    out.update(glow_backwards(torch, np, cs, wn_ops, fs_ops, device))
+    inputs = glow_inputs(torch, np, cs, wn_ops, device)
+    out.update(glow_forwards(torch, cs, wn_ops, fs_ops, inputs))
+    out.update(glow_backwards(torch, cs, wn_ops, fs_ops, inputs))
+    del inputs
     torch.cuda.empty_cache()
     out.update(glow_steps(torch, cs, device, card))
     return out
@@ -223,9 +261,10 @@ def main() -> None:
         results.append(res)
     for key in (*results[0]["attention_bwd"], *(f"forward p={p} sum" for p in FWD_PS), "tiles sum",
                 "reduction sum", "vqvae_step_ms", "vqvae_step_peak_gib", "encode_decode_ms",
-                "encode_decode_peak_gib", "lm_b64_step_ms", "b3_bwd_ms", "b6_bwd_ms", "glow_step_b3_ms",
-                "glow_step_b3_peak_gib", "glow_step_b6_ms", "glow_step_b6_peak_gib", "glow_turns_b3_ms",
-                "glow_turns_b6_ms", "glow_val_ms", "glow_val_peak_gib"):
+                "encode_decode_peak_gib", "lm_b64_step_ms", "b3_fwd_ms", "b3_fwd_err_over_tol", "b6_fwd_ms",
+                "b6_fwd_err_over_tol", "b3_bwd_ms", "b6_bwd_ms", "glow_step_b3_ms", "glow_step_b3_peak_gib",
+                "glow_step_b6_ms", "glow_step_b6_peak_gib", "glow_turns_b3_ms", "glow_turns_b6_ms", "glow_val_ms",
+                "glow_val_peak_gib", *(f"synth_b{B}_{k}_ms" for B in (1, 8) for k in ("mel", "total"))):
         if key not in results[0] and key not in results[0]["attention_bwd"]:
             continue  # --glow: the codec's and the LM's were not measured
         vals = [r["attention_bwd"][key] if key in r["attention_bwd"] else r[key] for r in results]

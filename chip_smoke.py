@@ -11,8 +11,9 @@ points a user calls, with every kernel built from csrc/ in this checkout:
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
      and shared-memory report, B1's resident blocks per SM, and no B1 kernel
-     spilling; the same for B3's and B6's tensor-core backward kernels
-     (their registers, spills, resident blocks and dynamic shared memory);
+     spilling; the same for B3's and B6's tensor-core forward and backward
+     kernels (their registers and spills; the backwards' resident blocks
+     and dynamic shared memory);
   3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
      against its plain PyTorch version in fp32 (TF32 off), with both times
      and the kernel's over 50 back-to-back calls (p=0);
@@ -67,9 +68,12 @@ layers of 192, 2 heads of 96, window 4; decoder 12 flow blocks over 160
 squeezed channels, WN hidden 192, 4 layers, k=5; seeded JAX initializers
 with the zero-init leaves drawn from the seed):
 
- 16. the coupling-conditioner kernel (B3) against its plain version at
-     (B, squeezed T) = (8, 384), (1, 512), (8, 512) and (3, 7), ragged
-     lengths, 1e-5 of max|ref| at valid frames; both times and the bound;
+ 16. the coupling-conditioner kernel (B3, 3xTF32 on the tensor cores)
+     against its plain version at (B, squeezed T) = (8, 384), (1, 512),
+     (8, 512) and (3, 7), ragged lengths, 1e-5 of max|ref| at valid frames,
+     two calls bitwise equal; both times, at (8, 384) also over 50
+     back-to-back calls, and the bounds; then at B3_OTHER_SHAPES (phase
+     22's), p=0 and 0.05, with the same tolerance and bitwise repeats;
  17. the encoder-layer kernel (B5) against its plain version at (B, T) =
      (8, 256), (1, 160), (8, 512) and (3, 3), ragged lengths, 1e-4 of
      max|ref| at valid rows; both times and the bound;
@@ -122,14 +126,16 @@ the override glow_tts_tpu.yaml names):
      conditioner) against their plain versions at the shapes of phase 16,
      p=0 and 0.05, on the first flow step's weights (ActNorm drawn, the
      InvConvNear a rotation, the end conv drawn): xc and out 1e-5 of max|ref|
-     at valid frames; dx, daln, dalb, dmt and every conditioner gradient at
-     phase 22's tolerances and floor; two backward calls bitwise equal; the
+     at valid frames, two forward calls bitwise equal, at (8, 384), p=0.05
+     the forward also over 50 back-to-back calls; dx, daln, dalb, dmt and
+     every conditioner gradient at phase 22's tolerances and floor; two
+     backward calls bitwise equal; the
      B3 route (plain ActNorm and InvConvNear, B3's kernels) through autograd
      against the B6 route: outputs and the prefix's gradients; the kernels'
      masks read back bit for bit against the B3 plain version's; the times
      of both routes, the plain versions and the bounds, and at (8, 384),
-     p=0.05 the backward over 50 back-to-back calls; the backward at
-     B3_OTHER_SHAPES as in phase 22;
+     p=0.05 the backward over 50 back-to-back calls; the forward (as in
+     phase 16) and the backward (as in phase 22) at B3_OTHER_SHAPES;
  27. phase 24 on the B6 route in the same process (the same model seed,
      batch and dropout draws): ddi_init (B3), then 10 train steps; launches
      (6, 6, 0, 0, 1, 12, 12) per step, every parameter (each ActNorm's and
@@ -364,7 +370,7 @@ B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel"
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
                   "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel", "wgrad_partial_kernel",
                   "wgrad_reduce_kernel")
-B3_B6_BWD_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
+B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -403,10 +409,16 @@ def phase_build() -> None:
               + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
     b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
-    # B3's and B6's backward kernels on the tensor cores (the same instances under each tag)
-    mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_BWD_KERNELS]
+    # B3's and B6's kernels on the tensor cores: the forwards' instances (their tags
+    # end in FwdTag), and the backwards' (the same instances under each tag)
+    mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS]
+    fwd = [line for line in mma if "FwdTag" in line.split(":")[0]]
+    bwd = [line for line in mma if line not in fwd]
+    print("[build] B3/B6 forward, tensor-core kernels (ptxas: registers, shared memory, spills): " + " | ".join(fwd))
     print("[build] B3/B6 backward, tensor-core kernels (ptxas: registers, shared memory, spills): "
-          + " | ".join(mma))
+          + " | ".join(bwd))
+    require(len(fwd) >= 4 and all("0 bytes spill stores" in line for line in fwd),
+            f"a B3/B6 forward kernel is missing or spills: {fwd}")
     blocks, smem = (ctypes.c_int * 3)(), (ctypes.c_longlong * 3)()
     rc = lib.wn_coupling_bwd_blocks_per_sm(blocks, smem)
     names = ("conv_mma_kernel (gate, 64 rows x 128)", "conv_mma_kernel (transposed conv, 64 x 64)",
@@ -414,8 +426,8 @@ def phase_build() -> None:
     print("[build] B3/B6 backward: resident blocks per SM (256 threads) at the launch's dynamic shared memory: "
           + ", ".join(f"{n} {b} at {m} B" for n, b, m in zip(names, blocks, smem)))
     require(rc == 0 and min(blocks) >= 1, f"B3/B6 backward: blocks per SM {list(blocks)} (cudaError {rc})")
-    require(len(mma) >= 2 * len(B3_B6_BWD_KERNELS) and all("0 bytes spill stores" in line for line in mma),
-            f"a B3/B6 backward kernel is missing or spills: {mma}")
+    require(len(bwd) >= 2 * len(B3_B6_KERNELS) and all("0 bytes spill stores" in line for line in bwd),
+            f"a B3/B6 backward kernel is missing or spills: {bwd}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -1411,7 +1423,8 @@ def wn_flops_per_frame(w: wn_ops.WNWeights) -> int:
 
 
 def phase_wn_coupling(model: GlowTTS, device, card: str) -> dict:
-    """B3 against its plain version on the first coupling block's weights."""
+    """B3 against its plain version on the first coupling block's weights,
+    two calls bitwise equal, then at B3_OTHER_SHAPES."""
     w = model.decoder.flows[2].conditioner_weights()
     half = model.n_mels * model.n_sqz // 2
     out = {"max_abs_err": 0.0}
@@ -1423,27 +1436,33 @@ def phase_wn_coupling(model: GlowTTS, device, card: str) -> dict:
         x = torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) * valid[..., None]
         x0 = x[..., :half]
         with torch.no_grad():
-            ours = wn_ops.wn_coupling(x0, lens, w)
+            ours, again = wn_ops.wn_coupling(x0, lens, w), wn_ops.wn_coupling(x0, lens, w)
             ref = wn_ops.wn_coupling_reference(x0, lens, w)
             torch.cuda.synchronize()
+            bitwise = torch.equal(ours, again)
             err = (ours - ref)[valid].abs().max().item()
             scale = ref[valid].abs().max().item()
             ms = cuda_ms(lambda: wn_ops.wn_coupling(x0, lens, w))
             plain = cuda_ms(lambda: wn_ops.wn_coupling_reference(x0, lens, w))
+            dev = device_ms(lambda: wn_ops.wn_coupling(x0, lens, w)) if i == 0 else None
         frames = int(lens_np.sum())  # padded frames are masked: the work is the valid ones
         flops = frames * wn_flops_per_frame(w)
         nbytes = 4 * (frames * (x0.shape[2] + ours.shape[2]) + sum(t.numel() for t in (
             w.ws, w.bs, w.wend, w.bend, *w.win, *w.bin, *w.wrs, *w.brs)))
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"[B3] B={B} T={T} (squeezed frames) half={half} H={w.hidden}: max_abs_err {err:.3e} (tol "
-              f"{B3_RTOL * scale:.3e} = {B3_RTOL:g} * max|ref| {scale:.3e}) at valid frames; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms (median of 10); bound {bound_ms:.4f} ms by {bound_by} "
+              f"{B3_RTOL * scale:.3e} = {B3_RTOL:g} * max|ref| {scale:.3e}) at valid frames; two calls bitwise "
+              f"equal {bitwise}; kernel {ms:.4f} ms, plain {plain:.4f} ms (median of 10)"
+              + (f", kernel back to back {dev:.4f} ms a call ({DEVICE_REPS} calls)" if dev is not None else "")
+              + f"; bound {bound_ms:.4f} ms by {bound_by}, 3xTF32 bound {tf32_bound_ms(flops, nbytes):.4f} ms "
               f"({frames} valid frames: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
         require(np.isfinite(err) and err <= B3_RTOL * scale, f"B3 disagrees at B={B} T={T}: {err}")
+        require(bitwise, f"B3: two forward calls differ at B={B} T={T}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if i == 0:  # the val step's shape
-            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+            out.update(ms=dev, call_ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
                        tf32_ms=tf32_bound_ms(flops, nbytes))
+    out["max_abs_err"] = max(out["max_abs_err"], other_forward_shapes(device, card, flow_step=False))
     return out
 
 
@@ -1726,6 +1745,58 @@ def small_conditioner(rng, half: int, H: int, taps: int, rate: int, L: int, devi
                             dilations=tuple(rate ** i for i in range(L)))
 
 
+def other_shape_inputs(j: int, device, flow_step: bool) -> tuple:
+    """(weights, lens, valid, the kernel's first arguments, two cotangents) of
+    B3_OTHER_SHAPES[j], seeded: B3's x0 a view whose row stride and offset
+    are not multiples of 4 floats, B6's x contiguous with its ActNorm and a
+    rotation as the InvConvNear."""
+    B, T, half, H, taps, rate, L = B3_OTHER_SHAPES[j]
+    rng = np.random.RandomState(740 + j)
+    w = small_conditioner(rng, half, H, taps, rate, L, device)
+    lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+    x = torch.from_numpy(rng.randn(B, T, 2 * half + 1).astype(np.float32)).to(device) * valid[..., None]
+    gs = [torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) for _ in range(2)]
+    if not flow_step:
+        return w, lens, valid, (x[..., 1:1 + half],), gs
+    xf = x[..., :2 * half].contiguous()
+    aln, alb = (torch.from_numpy((0.1 * rng.randn(2 * half)).astype(np.float32)).to(device) for _ in range(2))
+    mt = torch.from_numpy(np.linalg.qr(rng.randn(2 * half, 2 * half))[0].astype(np.float32)).to(device)
+    return w, lens, valid, (xf, lens, aln, alb, mt), gs
+
+
+def other_forward_shapes(device, card: str, flow_step: bool) -> float:
+    """B3's (flow_step False) or B6's forward kernel against its plain
+    version at B3_OTHER_SHAPES, p=0 and B3_DROP, within B3_RTOL of max|ref|
+    at valid frames, two calls bitwise equal. Returns the largest error."""
+    worst = 0.0
+    seed = torch.tensor([4545], dtype=torch.int64, device=device)
+    for j, (B, T, half, H, taps, rate, L) in enumerate(B3_OTHER_SHAPES):
+        w, lens, valid, head, _ = other_shape_inputs(j, device, flow_step)
+        if flow_step:
+            args = (*head, w)
+            kernel, plain = fs_ops.flow_step, fs_ops.flow_step_reference
+        else:
+            args = (head[0], lens, w)
+            kernel = lambda *a: (wn_ops.wn_coupling(*a),)  # noqa: E731
+            plain = lambda *a: (wn_ops.wn_coupling_reference(*a),)  # noqa: E731
+        for p in (0.0, B3_DROP):
+            with torch.no_grad():
+                ours, again, ref = kernel(*args, seed, p), kernel(*args, seed, p), plain(*args, seed, p)
+                torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(ours, again))
+            errs = [((o - r)[valid].abs().max().item(), r[valid].abs().max().item()) for o, r in zip(ours, ref)]
+            tag = f"[{'B6' if flow_step else 'B3'} fwd] p={p} B={B} T={T} half={half} H={H} k={taps} rate={rate} L={L}"
+            print(f"{tag}: " + ", ".join(f"{n} max_abs_err {e:.3e} (tol {B3_RTOL * sc:.3e})" for n, (e, sc) in zip(
+                ("xc", "out") if flow_step else ("out",), errs)) + f" at valid frames; two calls bitwise equal "
+                f"{bitwise} [{card}]")
+            for err, scale in errs:
+                require(np.isfinite(err) and err <= B3_RTOL * scale, f"{tag}: the forward differs: {err}")
+                worst = max(worst, err)
+            require(bitwise, f"{tag}: two forward calls differ")
+    return worst
+
+
 def other_backward_shapes(device, card: str, flow_step: bool) -> float:
     """B3's (flow_step False) or B6's backward kernels against the plain
     backward at B3_OTHER_SHAPES, p=0 and B3_DROP, two calls bitwise equal;
@@ -1734,21 +1805,13 @@ def other_backward_shapes(device, card: str, flow_step: bool) -> float:
     worst = 0.0
     seed = torch.tensor([4444], dtype=torch.int64, device=device)
     for j, (B, T, half, H, taps, rate, L) in enumerate(B3_OTHER_SHAPES):
-        rng = np.random.RandomState(740 + j)
-        w = small_conditioner(rng, half, H, taps, rate, L, device)
-        lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
-        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
-        x = torch.from_numpy(rng.randn(B, T, 2 * half + 1).astype(np.float32)).to(device) * valid[..., None]
-        gs = [torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) for _ in range(2)]
+        w, lens, valid, head, gs = other_shape_inputs(j, device, flow_step)
         if flow_step:
-            xf = x[..., :2 * half].contiguous()
-            aln, alb = (torch.from_numpy((0.1 * rng.randn(2 * half)).astype(np.float32)).to(device) for _ in range(2))
-            mt = torch.from_numpy(np.linalg.qr(rng.randn(2 * half, 2 * half))[0].astype(np.float32)).to(device)
-            args = (xf, lens, aln, alb, mt, w, *gs)
+            args = (*head, w, *gs)
             kernel, plain = fs_ops.flow_step_backward, fs_ops.flow_step_backward_reference
             leaves = lambda out: {"daln": out[1], "dalb": out[2], "dmt": out[3], **out[4].tensors()}  # noqa: E731
         else:
-            args = (x[..., 1:1 + half], lens, w, gs[0])
+            args = (head[0], lens, w, gs[0])
             kernel, plain = wn_ops.wn_coupling_backward, wn_ops.wn_coupling_backward_reference
             leaves = lambda out: out[1].tensors()  # noqa: E731
         for p in (0.0, B3_DROP):
@@ -1882,6 +1945,7 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
             args = (x, lens, aln, alb, mt, w)
             with torch.no_grad():
                 xc_k, out_k = fs_ops.flow_step(*args, seed, p)
+                xc_k2, out_k2 = fs_ops.flow_step(*args, seed, p)
                 xc_r, out_r = fs_ops.flow_step_reference(*args, seed, p)
                 dx_k, *gk = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
                 dx_k2, *gk2 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
@@ -1889,6 +1953,7 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
                 torch.cuda.synchronize()
             leaves = lambda g: {"daln": g[0], "dalb": g[1], "dmt": g[2], **g[3].tensors()}  # noqa: E731
             bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(a, leaves(gk2)[n]) for n, a in leaves(gk).items())
+            fwd_bitwise = torch.equal(xc_k, xc_k2) and torch.equal(out_k, out_k2)
             fwd_errs = {n: ((k - r)[valid].abs().max().item(), r[valid].abs().max().item())
                         for n, k, r in (("xc", xc_k, xc_r), ("out", out_k, out_r))}
             times = {"fwd": cuda_ms(lambda: fs_ops.flow_step(*args, seed, p), reps=5, warmup=1),
@@ -1899,11 +1964,14 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
             if i == 0 and p > 0:  # the train step's shape: the card's time alone
                 with torch.no_grad():
                     times["dev"] = device_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p))
+                    times["fwd_dev"] = device_ms(lambda: fs_ops.flow_step(*args, seed, p))
             routes = flow_step_routes(act, inv, x, mask, lens, w, g_xc, g_out, seed, p)
             dx_err = (dx_k - dx_r)[valid].abs().max().item()
             tag = f"[B6] p={p} B={B} T={T}"
             print(f"{tag}: forward xc max_abs_err {fwd_errs['xc'][0]:.3e} of max|ref| {fwd_errs['xc'][1]:.3e}, out "
-                  f"{fwd_errs['out'][0]:.3e} of {fwd_errs['out'][1]:.3e} (tol {B3_RTOL:g}x) at valid frames; B3 "
+                  f"{fwd_errs['out'][0]:.3e} of {fwd_errs['out'][1]:.3e} (tol {B3_RTOL:g}x) at valid frames, two "
+                  f"calls bitwise equal {fwd_bitwise}"
+                  + (f", back to back {times['fwd_dev']:.4f} ms a call" if "fwd_dev" in times else "") + "; B3 "
                   f"route (plain ActNorm + InvConvNear, B3's kernels) against the B6 route through autograd: out "
                   f"{routes['out_err'][0]:.3e} of {routes['out_err'][1]:.3e}, worst prefix/input gradient "
                   f"{routes['worst']} {routes['grads'][routes['worst']][0]:.3e} of scale "
@@ -1913,6 +1981,7 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
                   f"by {bnd['fwd'][1]} ({frames} valid frames: {flops / 1e9:.2f} GFLOP) [{card}]")
             for n, (err, scale) in fwd_errs.items():
                 require(np.isfinite(err) and err <= B3_RTOL * scale, f"{tag}: {n} differs: {err}")
+            require(fwd_bitwise, f"{tag}: two forward calls differ")
             require(routes["out_err"][0] <= B3_RTOL * routes["out_err"][1], f"{tag}: the B3 route's out differs")
             for n, (err, scale) in routes["grads"].items():
                 require(np.isfinite(err) and err <= WGRAD_RTOL * scale, f"{tag}: route gradient {n} differs: {err}")
@@ -1922,10 +1991,12 @@ def phase_flow_step(model: GlowTTS, device, card: str) -> dict:
             out["fwd_err"] = max(out["fwd_err"], fwd_errs["xc"][0], fwd_errs["out"][0])
             if i == 0 and p > 0:  # the train step's shape
                 out.update(ms=times["dev"], call_ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd["bwd"][0],
-                           bound_by=bnd["bwd"][1], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                           bound_by=bnd["bwd"][1], fwd_ms=times["fwd_dev"], fwd_call_ms=times["fwd"],
+                           fwd_plain_ms=times["fwd_plain"],
                            fwd_bound_ms=bnd["fwd"][0], fwd_bound_by=bnd["fwd"][1], tf32_ms=tf32_bound_ms(*work["bwd"]),
                            fwd_tf32_ms=tf32_bound_ms(*work["fwd"]))
             del dx_k, gk, dx_k2, gk2, dx_r, gr
+    out["fwd_err"] = max(out["fwd_err"], other_forward_shapes(device, card, flow_step=True))
     other_backward_shapes(device, card, flow_step=True)
     # the masks, as in phase 22: with conv biases of 10 every pre-dropout x_in is positive
     B, T = B3_SHAPES[0]
@@ -2367,7 +2438,7 @@ def main() -> None:
               attention["bwd_dev"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_dev"],
               ms_p0=attention["bwd_dev_p0"], call_ms=attention["bwd_ms"], bound_3xtf32_ms=attention["bwd_tf32"]),
         entry("wn_coupling_fwd", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_launches[1] + b3_fwd_n,
-              b3["max_abs_err"], b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"],
+              b3["max_abs_err"], b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"], call_ms=b3["call_ms"],
               bound_3xtf32_ms=b3["tf32_ms"]),
         entry("wn_coupling_bwd", "wn_coupling_bwd.cu", PALLAS_WN + ":484", b3_bwd_n, b3_bwd["max_abs_err"],
               b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"],
@@ -2381,7 +2452,8 @@ def main() -> None:
               b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
               bound_3xtf32_ms=b5_bwd["tf32_ms"]),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
-              b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], bound_3xtf32_ms=b6["fwd_tf32_ms"]),
+              b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], call_ms=b6["fwd_call_ms"],
+              bound_3xtf32_ms=b6["fwd_tf32_ms"]),
         entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
               b6["plain_ms"], b6["bound_ms"], b6["bound_by"], call_ms=b6["call_ms"],
               bound_3xtf32_ms=b6["tf32_ms"])]}))

@@ -3,6 +3,7 @@
 
     python3 profile_glow.py
     python3 profile_glow.py --backward-split
+    python3 profile_glow.py --forward-split
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
 seeded weights), and runs torch.profiler over 3 calls each of: the train step
@@ -23,6 +24,10 @@ time by the place of each kernel in the chain: the weight packing (kernels
 named ``pack``), B6's prefix, the recompute (1 + 2 L launches), the
 transposed products (2 + 2 L), B6's dx1, and the weight-gradient reduction
 (the rest), and prints the host's time a call beside the device's.
+``--forward-split`` lists one call of B3's forward (p = 0) and of B6's
+(p = 0.05) at the same shape kernel by kernel, in launch order (the
+packing, B6's prefix, then per layer the gate conv and the res/skip 1x1,
+the start and end 1x1s), with their sums and the host's time a call.
 """
 
 from __future__ import annotations
@@ -131,8 +136,19 @@ def split_report(name: str, seq: list, layers: int, prefix: bool, card: str) -> 
         print(f"[{name}]   {us / 1e3:8.4f} ms  {k[:120]}")
 
 
-def backward_split(card: str, device) -> None:
-    cs.phase_build()
+def forward_report(name: str, seq: list, card: str) -> None:
+    """One call's kernels in launch order, and the median sum of a call."""
+    per_call = len(seq) // CALLS
+    calls = [seq[i * per_call:(i + 1) * per_call] for i in range(CALLS)]
+    total = float(np.median([sum(us for _, us in call) for call in calls])) / 1e3
+    print(f"[{name}] {per_call} kernels a call; device ms a call, median of {CALLS}: total {total:.4f} [{card}]")
+    for k, us in calls[-1]:
+        print(f"[{name}]   {us / 1e3:8.4f} ms  {k[:120]}")
+
+
+def flow_step_inputs(device) -> tuple:
+    """chip_smoke's train shape on the first flow step's weights of a seeded
+    Glow-TTS: (x, lens, aln, alb, mt, w, g_xc, g_out, seed)."""
     model = cs.build_glow(device, cs.GLOW_SEED)
     act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
     w = cpl.conditioner_weights()
@@ -147,6 +163,27 @@ def backward_split(card: str, device) -> None:
     x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid
     g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
     seed = torch.tensor([4242], dtype=torch.int64, device=device)
+    return x, lens, aln, alb, mt, w, g_xc, g_out, seed
+
+
+def forward_split(card: str, device) -> None:
+    cs.phase_build()
+    x, lens, aln, alb, mt, w, _, _, seed = flow_step_inputs(device)
+    B, T, C = x.shape
+    calls = {f"B3 forward B={B} T={T} p=0.0": lambda: wn_ops.wn_coupling(x[..., :C // 2], lens, w, seed, 0.0),
+             f"B6 forward B={B} T={T} p={cs.B3_DROP}": lambda: fs_ops.flow_step(x, lens, aln, alb, mt, w, seed,
+                                                                                cs.B3_DROP)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            forward_report(name, kernel_sequence(fn), card)
+            print(f"[{name}] host ms a call (wrapper and launches, no synchronisation): {host_ms(fn):.4f}; "
+                  f"device ms a call over {cs.DEVICE_REPS} back-to-back calls: {cs.device_ms(fn):.4f} [{card}]")
+
+
+def backward_split(card: str, device) -> None:
+    cs.phase_build()
+    x, lens, aln, alb, mt, w, g_xc, g_out, seed = flow_step_inputs(device)
+    B, T, C = x.shape
     x0 = x[..., :C // 2]
     calls = {"B3": (lambda: wn_ops.wn_coupling_backward(x0, lens, w, g_out, seed, cs.B3_DROP), False),
              "B6": (lambda: fs_ops.flow_step_backward(x, lens, aln, alb, mt, w, g_xc, g_out, seed, cs.B3_DROP), True)}
@@ -163,6 +200,9 @@ def main() -> None:
     device = cuda_device()
     if sys.argv[1:] == ["--backward-split"]:
         backward_split(card, device)
+        return
+    if sys.argv[1:] == ["--forward-split"]:
+        forward_split(card, device)
         return
     _build.build()
     batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)

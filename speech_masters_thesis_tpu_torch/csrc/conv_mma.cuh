@@ -1,8 +1,9 @@
 // conv_rows.cuh's convolution on the tensor cores in 3xTF32 (tf32_mma.cuh),
-// for the Glow-TTS recompute backwards (wn_coupling_bwd.cu,
-// flow_step_bwd.cu through wn_coupling_common.cuh): the same Args, the same
-// grid of (row tile, channel tile, sequence) and the same epilogues
-// (conv_rows.cuh's CONV_ROWS_EPILOGUE), with another main loop.
+// for the Glow-TTS coupling conditioner's forwards and recompute backwards
+// (wn_coupling_{fwd,bwd}.cu, flow_step_{fwd,bwd}.cu through
+// wn_coupling_common.cuh): the same Args, the same grid of (row tile,
+// channel tile, sequence) and the same epilogues (conv_rows.cuh's
+// CONV_ROWS_EPILOGUE), with another main loop.
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * B_tap[c, n]
 //
@@ -26,7 +27,9 @@
 // padded to 36 and TN + 8 floats so fragment reads fall on distinct banks.
 // At most 83 KB of shared memory and 128 registers: two blocks an SM. The
 // accumulators go through shared memory (over the staging buffers) to the
-// epilogue.
+// epilogue. Each warp splits the fp32 operands it reads into their TF32
+// halves itself: a split once a block into shared memory, and 32-row GATE
+// tiles, measured slower for the forwards (PERF.md, the forwards' variants).
 //
 // Numerics: each k-step's three MMAs are added to the accumulators in fp32
 // (as gated_hifi_tiles.cuh:mma_tile), because the tensor cores' fp32
@@ -292,8 +295,9 @@ inline int blocks_per_sm(const void* kernel, size_t smem) {
 // the tensor-core loader as [taps][cin][n_out] (form 0, the conv itself) or
 // [taps][n_out][cin] tap-flipped (form 1, its transpose: B_tap[c, n] =
 // w[c, n, taps - 1 - tap]), for up to MAX_PACK convs of one shape (a
-// conditioner's layers) in one launch: conv i's form f goes to dst + (2 i +
-// f) * taps * n_out * cin.
+// conditioner's layers) in one launch: the forms 0 .. FORMS - 1 (1 for a
+// forward, 2 for a backward), conv i's form f at dst + (FORMS i + f) * taps
+// * n_out * cin.
 constexpr int MAX_PACK = 64;
 
 struct Pack {
@@ -302,12 +306,12 @@ struct Pack {
   int n_out, cin, taps;
 };
 
-template <class Tag>
+template <class Tag, int FORMS>
 __global__ void __launch_bounds__(NT) pack_weights_kernel(const Pack p) {
   const int i = blockIdx.y, form = blockIdx.z;
   const int size = p.taps * p.n_out * p.cin;
   const float* src = p.src[i];
-  float* dst = p.dst + (size_t)(2 * i + form) * size;
+  float* dst = p.dst + (size_t)(FORMS * i + form) * size;
   for (int e = blockIdx.x * NT + threadIdx.x; e < size; e += gridDim.x * NT) {
     int tap, c, n, v;
     if (form == 0) {  // dst[tap][c][n] = src[n][c][tap], c < cin, n < n_out
@@ -325,8 +329,9 @@ __global__ void __launch_bounds__(NT) pack_weights_kernel(const Pack p) {
   }
 }
 
-template <class Tag>
+template <class Tag, int FORMS>
 cudaError_t pack(const float* const* src, int count, float* dst, int n_out, int cin, int taps, cudaStream_t s) {
+  static_assert(FORMS == 1 || FORMS == 2, "the conv's form, or both");
   if (count < 1 || count > MAX_PACK) return cudaErrorInvalidValue;
   Pack p{};
   for (int i = 0; i < count; ++i) p.src[i] = src[i];
@@ -334,7 +339,8 @@ cudaError_t pack(const float* const* src, int count, float* dst, int n_out, int 
   p.n_out = n_out;
   p.cin = cin;
   p.taps = taps;
-  pack_weights_kernel<Tag><<<dim3((taps * n_out * cin + 4 * NT - 1) / (4 * NT), count, 2), NT, 0, s>>>(p);
+  const dim3 grid((taps * n_out * cin + 4 * NT - 1) / (4 * NT), count, FORMS);
+  pack_weights_kernel<Tag, FORMS><<<grid, NT, 0, s>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,14 +1,14 @@
 // A row-tiled 1-D convolution over [B, T, C] activations with fused
-// epilogues, shared by the Glow-TTS forwards (wn_coupling_fwd.cu,
-// flow_step_fwd.cu) and B5's kernels (enc_layer_{fwd,bwd}.cu). fp32 on the
-// CUDA cores. Its epilogues (CONV_ROWS_EPILOGUE) also finish conv_mma.cuh's
-// tensor-core tiles, which the B3 and B6 backwards run.
+// epilogues, for B5's kernels (enc_layer_{fwd,bwd}.cu). fp32 on the CUDA
+// cores. Its Args and epilogues (CONV_ROWS_EPILOGUE) also serve
+// conv_mma.cuh's tensor-core tiles, which B3's and B6's kernels run
+// (MASK, GATE, GATE_BWD, ACTNORM_FWD and ACTNORM_BWD are theirs alone).
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * w[n, c, tap]
 //
 // with pad = (taps - 1) / 2 * dil, zero rows outside [0, T) and, when
-// mask_in is set, at t >= lens[b] (ACTNORM_FWD: the loader first applies an
-// ActNorm to what it reads, pre_bias[c] + exp(pre_logs[c]) * in); w in
+// mask_in is set, at t >= lens[b] (ACTNORM_FWD: an ActNorm applied to what
+// the loader reads, pre_bias[c] + exp(pre_logs[c]) * in); w in
 // PyTorch's Conv1d layout
 // [n_out, c_in, taps]. With `wt` set, w is the weight of the conv being
 // transposed ([c_in, n_out, taps]) and is read as w[c, n, taps - 1 - tap]:
@@ -272,13 +272,9 @@ __global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
     for (int e = tid; e < xrows * KC; e += NT) {
       const int rr = e / KC, c = e % KC, t = r0 - pad + rr, ch = c0 + c;
       float x = 0.0f;
-      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len)) {
+      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len))
         x = (a.in2 && ch >= a.split) ? a.in2[(row0 + t) * a.ldi2 + (ch - a.split)] : a.in[(row0 + t) * a.ldi + ch];
-        if (EPI == ACTNORM_FWD) x = a.pre_bias[ch] + expf(a.pre_logs[ch]) * x;
-      }
       xs[rr * KC + c] = x;
-      if (EPI == ACTNORM_FWD && TAPS == 1 && a.in_out && blockIdx.y == 0 && t < a.T && ch < a.cin)
-        a.in_out[(row0 + t) * a.ldio + ch] = x;
     }
     for (int e = tid; e < TN * KC * TAPS; e += NT) {
       const int j = e / (KC * TAPS), kk = e % (KC * TAPS), ch = c0 + kk / TAPS, tap = kk % TAPS;

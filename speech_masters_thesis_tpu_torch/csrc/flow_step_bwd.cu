@@ -110,7 +110,7 @@ extern "C" long flow_step_bwd_workspace_floats(int B, int T, int half, int H, in
   if (!wn_coupling::valid_shape(sh) || c_out != 2 * half) return -1;
   const FlowProblems f = flow_problems(nullptr, nullptr, wn_coupling::Grads{}, wn_coupling::Scratch{}, sh, Prefix{});
   if (f.mma_split < 1) return -1;
-  return (long)(wn_coupling::packed_floats(sh) + f.mma_floats + f.rows_floats);
+  return (long)(wn_coupling::packed_floats(sh, 2) + f.mma_floats + f.rows_floats);
 }
 
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
@@ -130,12 +130,11 @@ extern "C" int flow_step_bwd(const float* x, const int* lens, const long long* s
                              int T, int half, int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
                              unsigned threshold, float keep_scale, void* stream) {
   using namespace conv_rows;
-  using E = wn_coupling::Mma<FlowBwdTag>;
   const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
   if (!wn_coupling::valid_shape(sh) || c_out != 2 * half) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int C = c_out;
-  cudaError_t err = wn_coupling::flow_prefix<E>(x, lens, aln, alb, mt, B, T, C, xc, x1, s);
+  cudaError_t err = wn_coupling::flow_prefix<FlowBwdTag>(x, lens, aln, alb, mt, B, T, C, xc, x1, s);
   if (err != cudaSuccess) return (int)err;
 
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, nullptr};
@@ -148,13 +147,13 @@ extern "C" int flow_step_bwd(const float* x, const int* lens, const long long* s
   a.lens = lens; a.T = T; a.dil = 1;
   a.in = dxc; a.ldi = half; a.in2 = g_xc + half; a.ldi2 = C; a.split = half; a.cin = C; a.mask_in = 1;
   a.w = mt; a.n_out = C; a.out = dx; a.out2 = dx1; a.ldo = C; a.out_logs = aln;
-  err = E::launch<1, ACTNORM_BWD>(a, B, s);
+  err = wn_coupling::launch<FlowBwdTag, 1, ACTNORM_BWD>(a, B, s);
   if (err != cudaSuccess) return (int)err;
 
   const wn_coupling::Grads d{dws, dbs, dwin, dbin, dwrs, dbrs, dwend, dbend};
   const FlowProblems f = flow_problems(xc, g_out, d, sc, sh, Prefix{x, x1, dxc, g_xc, dx, dx1, daln, dalb, dmt});
   if (f.mma_split < 1) return (int)cudaErrorInvalidValue;
-  float* partials = workspace + wn_coupling::packed_floats(sh);
+  float* partials = workspace + wn_coupling::packed_floats(sh, 2);
   err = wgrad_mma::run<FlowBwdTag>(f.mma, lens, B, T, f.mma_split, partials, s);
   if (err != cudaSuccess) return (int)err;
   return (int)wgrad_rows::run<FlowBwdTag>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);

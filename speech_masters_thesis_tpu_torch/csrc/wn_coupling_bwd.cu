@@ -76,7 +76,7 @@ extern "C" long wn_coupling_bwd_workspace_floats(int B, int T, int half, int H, 
   long long tiles;
   wgrad_problems(nullptr, half, nullptr, wn_coupling::Grads{}, wn_coupling::Scratch{}, sh, &n_split, &tiles);
   if (n_split < 1) return -1;
-  return (long)(wn_coupling::packed_floats(sh) + (size_t)tiles * n_split * wgrad_mma::PART);
+  return (long)(wn_coupling::packed_floats(sh, 2) + (size_t)tiles * n_split * wgrad_mma::PART);
 }
 
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
@@ -108,7 +108,7 @@ extern "C" int wn_coupling_bwd(const float* x0, int ldx, const int* lens, const 
   long long tiles;
   std::vector<wgrad_rows::Problem> probs = wgrad_problems(x0, ldx, g, d, sc, sh, &n_split, &tiles);
   if (n_split < 1) return (int)cudaErrorInvalidValue;
-  return (int)wgrad_mma::run<WnBwdTag>(probs, lens, B, T, n_split, workspace + wn_coupling::packed_floats(sh), s);
+  return (int)wgrad_mma::run<WnBwdTag>(probs, lens, B, T, n_split, workspace + wn_coupling::packed_floats(sh, 2), s);
 }
 
 // The tensor-core kernels' resident blocks per SM and dynamic shared memory

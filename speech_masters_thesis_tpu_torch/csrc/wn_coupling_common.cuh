@@ -4,10 +4,8 @@
 // gate and the res/skip 1x1, then the end 1x1), the backward's recompute and
 // transposed products, its weight-gradient problems, and the flow step's
 // prefix (ActNorm + InvConvNear as one [C, C] product). Each step is a launch
-// of one convolution engine: Fma (conv_rows.cuh, fp32 on the CUDA cores) for
-// the forwards, Mma (conv_mma.cuh, 3xTF32 on the tensor cores) for the
-// backwards' recompute and transposed products; the chains are templated on
-// the engine, and both engines run conv_rows.cuh's epilogues.
+// of the tensor-core convolution (conv_mma.cuh, 3xTF32) with conv_rows.cuh's
+// epilogues; each kernel file's Tag gives its launches kernels of their own.
 //
 // Dropout of layer i's conv output (both halves, before the gate): stream
 // b * WN_STREAMS + i, counter t * 2H + c (ops/wn_coupling.py:keep_mask).
@@ -28,31 +26,21 @@ namespace wn_coupling {
 constexpr int WN_STREAMS = 64;  // ops/wn_coupling.py WN_STREAMS: at most this many layers
 static_assert(conv_mma::MAX_PACK >= WN_STREAMS, "one packing launch takes every layer's weights");
 
-// The convolution engines: launch<TAPS, EPI> runs one step of a chain.
-template <class Tag>
-struct Fma {
-  template <int TAPS, int EPI>
-  static cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
-    return conv_rows::launch<Tag, TAPS, 32, 64, EPI>(a, B, s);
-  }
-};
-
-// The weight of a TAPS > 1 launch is conv_mma::pack's copy (conv_mma::weight_of).
-template <class Tag>
-struct Mma {
-  template <int TAPS, int EPI>
-  static cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
-    return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI>(a, B, s);
-  }
-};
+// One step of a chain: conv_mma's launch, 128 columns (64 channel pairs)
+// for GATE and 64 otherwise. The weight of a TAPS > 1 launch is
+// conv_mma::pack's copy (conv_mma::weight_of).
+template <class Tag, int TAPS, int EPI>
+cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
+  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI>(a, B, s);
+}
 
 // The same with the number of taps chosen at run time (1, 3 or 5).
-template <class Engine, int EPI>
+template <class Tag, int EPI>
 cudaError_t launch_taps(int taps, const conv_rows::Args& a, int B, cudaStream_t s) {
   switch (taps) {
-    case 1: return Engine::template launch<1, EPI>(a, B, s);
-    case 3: return Engine::template launch<3, EPI>(a, B, s);
-    case 5: return Engine::template launch<5, EPI>(a, B, s);
+    case 1: return launch<Tag, 1, EPI>(a, B, s);
+    case 3: return launch<Tag, 3, EPI>(a, B, s);
+    case 5: return launch<Tag, 5, EPI>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -101,16 +89,18 @@ inline bool valid_shape(const Shape& s) {
          (s.kernel_size == 1 || s.kernel_size == 3 || s.kernel_size == 5);
 }
 
-// Floats of the packed dilated-conv weights (both forms of every layer's; none for k = 1).
-inline size_t packed_floats(const Shape& s) {
-  return s.kernel_size > 1 ? (size_t)2 * s.n_layers * s.kernel_size * 2 * s.H * s.H : 0;
+// Floats of the packed dilated-conv weights, `forms` of every layer's (the
+// conv's for the forward, both for the backward; none for k = 1).
+inline size_t packed_floats(const Shape& s, int forms) {
+  return s.kernel_size > 1 ? (size_t)forms * s.n_layers * s.kernel_size * 2 * s.H * s.H : 0;
 }
 
 // Layer i reads hs + i * hs_step and (i < n_layers - 1) writes hs + (i + 1) *
 // hs_step (hs_step 0: h updated in place); its gate output goes to acts + i *
 // acts_step and, when xin is set, its post-dropout conv output to xin + i *
-// xin_step ([B, T, 2H]). The skip sum goes to skip.
-template <class Tag, class Engine>
+// xin_step ([B, T, 2H]). The skip sum goes to skip. For k > 1, w.win holds
+// the packed copies (pack_win).
+template <class Tag>
 cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
                           const Dropout& drop, float* hs, size_t hs_step, float* acts, size_t acts_step,
                           float* xin, size_t xin_step, float* skip, cudaStream_t s) {
@@ -124,7 +114,7 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
 
   a.in = x0; a.ldi = ldx; a.cin = sh.half; a.mask_in = 0;
   a.w = w.ws; a.bias = w.bs; a.n_out = H; a.out = hs; a.ldo = H;
-  cudaError_t err = Engine::template launch<1, MASK>(a, sh.B, s);
+  cudaError_t err = launch<Tag, 1, MASK>(a, sh.B, s);
   if (err != cudaSuccess) return err;
 
   int dil = 1;
@@ -137,38 +127,69 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     g.xin = xin ? xin + i * xin_step : nullptr; g.ldx = 2 * H;
     g.seed = drop.seed; g.threshold = drop.threshold; g.keep_scale = drop.keep_scale;
     g.stream_mul = WN_STREAMS; g.stream_add = i; g.drop_ld = 2 * H;
-    err = launch_taps<Engine, GATE>(sh.kernel_size, g, sh.B, s);
+    err = launch_taps<Tag, GATE>(sh.kernel_size, g, sh.B, s);
     if (err != cudaSuccess) return err;
 
+    // h in place (hs_step 0) is safe: this launch reads act, and its
+    // epilogue reads each residual element of h in the statement that
+    // writes it, in the one thread that owns that element
     Args r = a;
     r.in = act; r.ldi = H; r.cin = H; r.mask_in = 0;
     r.w = w.wrs[i]; r.bias = w.brs[i]; r.n_out = i < sh.n_layers - 1 ? 2 * H : H;
     r.out = i < sh.n_layers - 1 ? hs + (i + 1) * hs_step : h; r.ldo = H; r.res = h; r.ldr = H;
     r.skip = skip; r.lds = H; r.first = i == 0;
-    err = Engine::template launch<1, RES_SKIP>(r, sh.B, s);
+    err = launch<Tag, 1, RES_SKIP>(r, sh.B, s);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// The whole conditioner: the chain with h updated in place, then out =
-// (skip * valid) W_end + b_end [B, T, c_out] contiguous. 2 + 2 L launches.
+// Each layer's W_in as the conv ([k][H][2H], form 0 of conv_mma::pack)
+// into `packed` (packed_floats(sh, forms)), in the list `win`; a 1x1
+// conv's weight is read as it is. With forms 2 the transposes
+// ([k][2H][H], tap-flipped) follow each layer's conv, listed in `win_t`.
+template <class Tag, int FORMS>
+cudaError_t pack_win(const Weights& w, const Shape& sh, float* packed, std::vector<const float*>& win,
+                     std::vector<const float*>* win_t, cudaStream_t s) {
+  const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
+  win.assign(w.win, w.win + L);
+  if (win_t) win_t->assign(w.win, w.win + L);
+  if (k == 1) return cudaSuccess;
+  const cudaError_t err = conv_mma::pack<Tag, FORMS>(w.win, L, packed, 2 * H, H, k, s);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < L; ++i) {
+    win[i] = packed + (size_t)FORMS * i * k * 2 * H * H;
+    if (win_t) (*win_t)[i] = win[i] + (size_t)k * 2 * H * H;
+  }
+  return cudaSuccess;
+}
+
+// The whole conditioner: the dilated convs' weights packed into `packed`
+// (packed_floats(sh, 1)), the chain with h updated in place, then out =
+// (skip * valid) W_end + b_end [B, T, c_out] contiguous. 2 + 2 L launches,
+// and one more to pack for k > 1.
 template <class Tag>
 cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
-                    const Dropout& drop, float* out, float* h, float* acts, float* skip, cudaStream_t s) {
+                    const Dropout& drop, float* out, float* h, float* acts, float* skip, float* packed,
+                    cudaStream_t s) {
   using namespace conv_rows;
-  cudaError_t err = forward_chain<Tag, Fma<Tag>>(x0, ldx, lens, w, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
+  std::vector<const float*> win;
+  cudaError_t err = pack_win<Tag, 1>(w, sh, packed, win, nullptr, s);
+  if (err != cudaSuccess) return err;
+  Weights wc = w;
+  wc.win = win.data();
+  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
   if (err != cudaSuccess) return err;
   Args e{};
   e.lens = lens; e.T = sh.T; e.dil = 1;
   e.in = skip; e.ldi = sh.H; e.cin = sh.H; e.mask_in = 1;
   e.w = w.wend; e.bias = w.bend; e.n_out = sh.c_out; e.out = out; e.ldo = sh.c_out;
-  return launch<Tag, 1, 32, 64, BIAS>(e, sh.B, s);
+  return launch<Tag, 1, BIAS>(e, sh.B, s);
 }
 
 // The backward for the output cotangent g [B, T, c_out], up to the weight
-// gradients, on the tensor cores (Mma): the dilated convs' weights packed
-// into `packed` (packed_floats; both forms of each layer's), the recompute
+// gradients: the dilated convs' weights packed into `packed`
+// (packed_floats(sh, 2); both forms of each layer's), the recompute
 // into the scratch, dskip = (g W_end^T) * valid, per layer in reverse the
 // gate's derivative with the regenerated mask and
 // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
@@ -179,24 +200,14 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
                            const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
                            float* dx0, int ld_dx0, float* packed, cudaStream_t s) {
   using namespace conv_rows;
-  using E = Mma<Tag>;
   const int B = sh.B, H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)B * sh.T * H;
-  // each layer's W_in as the conv ([k][H][2H], its own form) and as its transpose
-  // ([k][2H][H], tap-flipped); a 1x1 conv's weight is read as it is
-  std::vector<const float*> win_conv(w.win, w.win + L), win_t(w.win, w.win + L);
-  cudaError_t err;
-  if (k > 1) {
-    err = conv_mma::pack<Tag>(w.win, L, packed, 2 * H, H, k, s);
-    if (err != cudaSuccess) return err;
-    for (int i = 0; i < L; ++i) {
-      win_conv[i] = packed + (size_t)2 * i * k * 2 * H * H;
-      win_t[i] = win_conv[i] + (size_t)k * 2 * H * H;
-    }
-  }
+  std::vector<const float*> win_conv, win_t;
+  cudaError_t err = pack_win<Tag, 2>(w, sh, packed, win_conv, &win_t, s);
+  if (err != cudaSuccess) return err;
   Weights wc = w;
   wc.win = win_conv.data();
-  err = forward_chain<Tag, E>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip, s);
+  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip, s);
   if (err != cudaSuccess) return err;
 
   Args a{};
@@ -207,7 +218,7 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
   Args e = a;  // dskip = (g W_end^T) * valid
   e.in = g; e.ldi = sh.c_out; e.cin = sh.c_out; e.mask_in = 1;
   e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H;
-  err = E::template launch<1, MASK>(e, B, s);
+  err = launch<Tag, 1, MASK>(e, B, s);
   if (err != cudaSuccess) return err;
 
   for (int i = L - 1; i >= 0; --i) {
@@ -223,17 +234,17 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
     }
     r.w = w.wrs[i]; r.n_out = H; r.out = sc.dxin + 2 * i * lay; r.ldo = 2 * H;
     r.xin = sc.xin + 2 * i * lay; r.ldx = 2 * H; r.stream_add = i;
-    err = E::template launch<1, GATE_BWD>(r, B, s);
+    err = launch<Tag, 1, GATE_BWD>(r, B, s);
     if (err != cudaSuccess) return err;
 
     Args c = a;  // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid
     c.in = sc.dxin + 2 * i * lay; c.ldi = 2 * H; c.cin = 2 * H; c.mask_in = 1;
     c.w = win_t[i]; c.n_out = H; c.dil = dil; c.out = sc.dh + i * lay; c.ldo = H;
     if (last) {
-      err = launch_taps<E, MASK>(k, c, B, s);
+      err = launch_taps<Tag, MASK>(k, c, B, s);
     } else {
       c.res = dh_next; c.ldr = H; c.hidden = 0;
-      err = launch_taps<E, RES_SKIP>(k, c, B, s);
+      err = launch_taps<Tag, RES_SKIP>(k, c, B, s);
     }
     if (err != cudaSuccess) return err;
   }
@@ -241,9 +252,9 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
   Args x = a;  // dx0 = (res + dh_0 W_s^T) * valid
   x.in = sc.dh; x.ldi = H; x.cin = H; x.mask_in = 1;
   x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0;
-  if (!res) return E::template launch<1, MASK>(x, B, s);
+  if (!res) return launch<Tag, 1, MASK>(x, B, s);
   x.res = res; x.ldr = ldres; x.hidden = 0;
-  return E::template launch<1, RES_SKIP>(x, B, s);
+  return launch<Tag, 1, RES_SKIP>(x, B, s);
 }
 
 // Every conditioner weight gradient as a reduction problem (pointers may be
@@ -294,8 +305,8 @@ inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const
 //   xc = ((alb + exp(aln) * x) * valid) mt      x, xc [B, T, C] contiguous, mt [C, C]
 // with the ActNorm in the tile loader and mt read as the transposed weight
 // of a 1x1 conv. With x1 set, the loader's rows (the ActNorm's output) are
-// written there too. One launch of the engine.
-template <class Engine>
+// written there too. One launch.
+template <class Tag>
 cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const float* alb, const float* mt,
                         int B, int T, int C, float* xc, float* x1, cudaStream_t s) {
   using namespace conv_rows;
@@ -304,7 +315,7 @@ cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const
   a.in = x; a.ldi = C; a.cin = C; a.mask_in = 1; a.pre_logs = aln; a.pre_bias = alb;
   a.in_out = x1; a.ldio = C;
   a.w = mt; a.wt = 1; a.n_out = C; a.out = xc; a.ldo = C;
-  return Engine::template launch<1, ACTNORM_FWD>(a, B, s);
+  return launch<Tag, 1, ACTNORM_FWD>(a, B, s);
 }
 
 }  // namespace wn_coupling

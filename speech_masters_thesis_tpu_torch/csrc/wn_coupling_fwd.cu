@@ -24,20 +24,25 @@
 // What bounds it on an H100: operations. At Glow-TTS's width (half 80,
 // H 192, k 5, 4 layers, c_out 160) a squeezed frame costs about 3.56 MFLOP
 // and moves 960 bytes of input and output, so at (8, 384) it is 10.9 GFLOP
-// against 2.9 MB: about 0.16 ms at 67 TFLOP/s of fp32 on the CUDA cores.
+// against 2.9 MB: about 0.16 ms at 67 TFLOP/s of fp32 on the CUDA cores,
+// 0.066 ms at 3 x 10.9 GFLOP over 495 TFLOP/s of TF32 in 3xTF32.
 //
 // Design: the TPU holds a whole sequence in VMEM with grid (B,), which gives
-// 8 programs. Here each step of the chain is one launch of the row-tiled
-// convolution of conv_rows.cuh over (32-row tile, channel tile, sequence),
-// so the time axis spreads over the card and a halo is only the conv's own
-// (k - 1) / 2 * dil rows, read again by the neighbouring tile. The dilated
-// conv's launch computes the channel pairs (c, H + c) in one tile and
-// applies the dropout and the gate in its epilogue; the res/skip launch
-// updates h in place and accumulates the skip sum. The dilated-conv weight
-// ([2H, H, k] fp32, 1.47 MB) streams through shared memory 16 input channels
-// at a time. One conditioner call is 2 + 2 * n_layers launches (10 at 4
-// layers); h, acts and skip ([B, T, H] each) go through device memory
-// between them.
+// 8 programs. Here each step of the chain is one launch of the tensor-core
+// convolution (conv_mma.cuh: 3xTF32 MMAs, fp32 at the interfaces, each
+// k-step's products added to the accumulators in fp32) over (row tile,
+// channel tile, sequence), so the time axis spreads over the card. Each
+// conv tap is a shifted k-slice of the same rows, so no tile holds a halo.
+// The dilated conv's launch computes the channel pairs (c, H + c) in one
+// tile and applies the dropout and the gate in its epilogue; the res/skip
+// launch updates h in place and accumulates the skip sum; the end 1x1 adds
+// its bias. The dilated convs' weights ([2H, H, k] a layer, 1.47 MB) are
+// packed tap-major once a call into the workspace
+// (wn_coupling_fwd_workspace_floats), which the loaders stage 32 input
+// channels at a time. One conditioner call is a packing launch (k > 1) and
+// 2 + 2 * n_layers convolutions (11 at 4 layers); h, acts and skip ([B, T,
+// H] each) go through device memory between them. The backward's recompute
+// (wn_coupling_bwd.cu) runs the same chain.
 
 #include <cuda_runtime.h>
 
@@ -47,16 +52,29 @@ namespace {
 struct WnFwdTag {};
 }  // namespace
 
+// Floats of the workspace wn_coupling_fwd needs: the packed dilated-conv
+// weights (-1 for a shape the kernels do not take).
+extern "C" long wn_coupling_fwd_workspace_floats(int B, int T, int half, int H, int c_out, int n_layers,
+                                                 int kernel_size, int dilation_rate) {
+  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
+  if (!wn_coupling::valid_shape(sh)) return -1;
+  return (long)wn_coupling::packed_floats(sh, 1);
+}
+
+// Launches the forward on `stream`; returns a cudaError_t (0 on success).
+// x0 [B, T, half] rows ldx floats apart; the weights in PyTorch's Conv1d
+// layout; out [B, T, c_out] contiguous; scratch h, acts, skip [B, T, H] and
+// the workspace (wn_coupling_fwd_workspace_floats).
 extern "C" int wn_coupling_fwd(const float* x0, int ldx, const int* lens, const long long* seed,
                                const float* ws, const float* bs, const float* const* win,
                                const float* const* bin, const float* const* wrs,
                                const float* const* brs, const float* wend, const float* bend,
-                               float* out, float* h, float* acts, float* skip, int B, int T, int half,
-                               int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
+                               float* out, float* h, float* acts, float* skip, float* workspace, int B, int T,
+                               int half, int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
                                unsigned threshold, float keep_scale, void* stream) {
   const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
   if (!wn_coupling::valid_shape(sh)) return (int)cudaErrorInvalidValue;
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, bend};
   return (int)wn_coupling::forward<WnFwdTag>(x0, ldx, lens, w, sh, {seed, threshold, keep_scale}, out, h, acts,
-                                             skip, static_cast<cudaStream_t>(stream));
+                                             skip, workspace, static_cast<cudaStream_t>(stream));
 }

@@ -132,8 +132,10 @@ def build() -> ctypes.CDLL:
     lib.mas_smem_bytes.argtypes = [i, i]
     lib.mas_smem_bytes.restype = ctypes.c_long
     ptrs = ctypes.POINTER(p)
-    lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 6 + [i] * 8 + [u, f, p]
+    lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
+    lib.wn_coupling_fwd_workspace_floats.argtypes = [i] * 8
+    lib.wn_coupling_fwd_workspace_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
                                     + [p] * 10 + [i] * 8 + [u, f, p])
     lib.wn_coupling_bwd.restype = i
@@ -141,8 +143,10 @@ def build() -> ctypes.CDLL:
     lib.wn_coupling_bwd_workspace_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]
     lib.wn_coupling_bwd_blocks_per_sm.restype = i
-    lib.flow_step_fwd.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
+    lib.flow_step_fwd.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 8 + [i] * 8 + [u, f, p]
     lib.flow_step_fwd.restype = i
+    lib.flow_step_fwd_workspace_floats.argtypes = [i] * 8
+    lib.flow_step_fwd_workspace_floats.restype = ctypes.c_long
     lib.flow_step_bwd.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 14
                                   + [i] * 8 + [u, f, p])
     lib.flow_step_bwd.restype = i

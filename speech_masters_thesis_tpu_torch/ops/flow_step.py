@@ -17,7 +17,8 @@ and the conditioner-only route draw the same masks from the same seed.
 
 The CUDA kernels are ``csrc/flow_step_fwd.cu`` and ``csrc/flow_step_bwd.cu``.
 ``flow_step`` runs ``FlowStepFunction``: for a CUDA tensor its forward
-launches the forward kernel (one call: 3 + 2 * n_layers launches) and its
+launches the forward kernel (one call: 3 + 2 * n_layers launches, and one
+more packing the conditioner's weights for k > 1) and its
 backward the backward kernels, or raises; for a CPU tensor the same Function
 runs ``flow_step_reference`` and ``flow_step_backward_reference``. The
 forward saves the inputs, the lengths, the seed and the weights, no
@@ -107,11 +108,14 @@ def _launch_fwd(x, lens, aln, alb, mt, w: WNWeights, seed, p_drop: float):
     H = w.hidden
     xc, out = (torch.empty(B, T, C, device=x.device, dtype=torch.float32) for _ in range(2))
     h, acts, skip = (torch.empty(B, T, H, device=x.device, dtype=torch.float32) for _ in range(3))
-    rc = _build.build().flow_step_fwd(
+    lib = _build.build()
+    shape = _shape_args(x[..., :C // 2], w)
+    workspace = torch.empty(lib.flow_step_fwd_workspace_floats(*shape), device=x.device, dtype=torch.float32)
+    rc = lib.flow_step_fwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), aln.data_ptr(), alb.data_ptr(), mt.data_ptr(),
         w.ws.data_ptr(), w.bs.data_ptr(), _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
         w.wend.data_ptr(), w.bend.data_ptr(), xc.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(),
-        skip.data_ptr(), *_shape_args(x[..., :C // 2], w), *_dropout_args(p_drop), _stream(x))
+        skip.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"flow_step_fwd launch failed with cudaError {rc}")
     flow_step.launches += 1
@@ -208,7 +212,8 @@ def flow_step(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch
     ``FlowStepFunction``.
 
     A CUDA tensor launches ``csrc/flow_step_fwd.cu`` (x contiguous, lens
-    int32 [B] and seed int64 [1] on the same device) and counts
+    int32 [B] and seed int64 [1] on the same device; every product in
+    3xTF32 on the tensor cores) and counts
     ``flow_step.launches``; anything the kernels do not take raises. A CPU
     tensor runs the plain versions. Weights from the flow cache are for
     inference: a call with dropout raises, as ``wn_coupling`` does.

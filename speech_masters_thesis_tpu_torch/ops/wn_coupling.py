@@ -5,9 +5,9 @@ and its custom VJP).
 
 The CUDA kernels are ``csrc/wn_coupling_fwd.cu`` and
 ``csrc/wn_coupling_bwd.cu``. ``wn_coupling`` runs ``WNCouplingFunction``:
-for a CUDA tensor its forward launches the forward kernel (one call: 2 + 2 *
-n_layers launches of the row-tiled convolution) and its backward the
-backward kernels, or raises; for a CPU tensor the same Function runs
+for a CUDA tensor its forward launches the forward kernel (one call: a
+weight packing launch for k > 1, then 2 + 2 * n_layers launches of the
+tensor-core convolution) and its backward the backward kernels, or raises; for a CPU tensor the same Function runs
 ``wn_coupling_reference`` and ``wn_coupling_backward_reference``. The
 forward saves the inputs, the lengths, the weights and the seed, no
 activations: the backward recomputes them, as the TPU kernel does.
@@ -261,11 +261,14 @@ def _launch_fwd(x0, lens, w: WNWeights, seed, p_drop: float) -> torch.Tensor:
     H, C = w.hidden, w.wend.shape[0]
     out = torch.empty(B, T, C, device=x0.device, dtype=torch.float32)
     h, acts, skip = (torch.empty(B, T, H, device=x0.device, dtype=torch.float32) for _ in range(3))
-    rc = _build.build().wn_coupling_fwd(
+    lib = _build.build()
+    shape = _shape_args(x0, w)
+    workspace = torch.empty(lib.wn_coupling_fwd_workspace_floats(*shape), device=x0.device, dtype=torch.float32)
+    rc = lib.wn_coupling_fwd(
         x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), w.ws.data_ptr(), w.bs.data_ptr(),
         _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
         w.wend.data_ptr(), w.bend.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(), skip.data_ptr(),
-        *_shape_args(x0, w), *_dropout_args(p_drop), _stream(x0))
+        workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
         raise RuntimeError(f"wn_coupling_fwd launch failed with cudaError {rc}")
     wn_coupling.launches += 1
@@ -354,8 +357,9 @@ def wn_coupling(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=None,
 
     A CUDA tensor launches ``csrc/wn_coupling_fwd.cu`` (x0 may be the
     first-half view of the coupling input; lens int32 [B] and seed int64 [1]
-    on the same device) and counts ``wn_coupling.launches``; anything the
-    kernels do not take raises. A CPU tensor runs the plain versions.
+    on the same device; every product in 3xTF32 on the tensor cores) and
+    counts ``wn_coupling.launches``; anything the kernels do not take
+    raises. A CPU tensor runs the plain versions.
     Weights from the flow cache are for inference: a train-mode call (with
     dropout) raises, since the cache carries no gradient back to the weight
     norm's parameters (``flows.CouplingBlock`` raises on any train-mode call

@@ -1,12 +1,23 @@
-"""B3's recompute backward as its kernels compute it on the tensor cores
-(csrc/wn_coupling_common.cuh:backward_chain on csrc/conv_mma.cuh, the
-weight gradients on csrc/wgrad_mma.cuh), emulated on the CPU by
-ops/tf32.py: every product in 3xTF32 in the kernels' k-order, each conv
-tap a shifted k-slice (tap-major), each k-step's MMAs added to the
+"""B3's and B6's forwards and B3's recompute backward as their kernels
+compute them on the tensor cores (csrc/wn_coupling_common.cuh:forward and
+backward_chain on csrc/conv_mma.cuh, the weight gradients on
+csrc/wgrad_mma.cuh), emulated on the CPU by ops/tf32.py: every product in
+3xTF32 in the kernels' k-order, each conv tap a shifted k-slice (tap-major,
+each tap's channels in whole k-steps), each k-step's MMAs added to the
 accumulators in fp32 (``rz_steps=1``, as conv_mma.cuh does), and the weight
 gradients over the frames as the MMAs' k in fixed-order slices, each
 slice's register added into its partial every 1,024 frames
-(``rz_steps=128``).
+(``rz_steps=128``). Splitting the operands once a block or per warp gives
+the same TF32 halves, so the emulation covers either.
+
+* The forwards (the conditioner alone, and the whole flow step: ActNorm,
+  the InvConvNear as one [C, C] product, the conditioner) at p=0 against
+  JAX's ``fused_wn_coupling`` and ``fused_flow_step`` (the Pallas kernels
+  in interpret mode, as tests/test_torch_flow_step.py runs them), at p>0
+  against the plain versions in fp64 with the port's hash masks (the JAX
+  kernels draw the TPU's own bits): within chip_smoke's B3_RTOL with 3 TF32
+  products; a single TF32 product misses. At Glow's taps and at 3 taps,
+  rate 3 and 1 tap with widths that are not multiples of 4.
 
 * The whole chain at a small size against JAX's VJP of ``fused_wn_coupling``
   (the Pallas kernel in interpret mode, as tests/test_torch_glow_train.py
@@ -24,8 +35,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import DX_RTOL, GRAD_FLOOR, WGRAD_RTOL
-from speech_masters_thesis_tpu.ops.pallas.wn_coupling import WNSpec, fused_wn_coupling
+from chip_smoke import B3_RTOL, DX_RTOL, GRAD_FLOOR, WGRAD_RTOL
+from speech_masters_thesis_tpu.ops.pallas.wn_coupling import WNSpec, fused_flow_step, fused_wn_coupling
+from speech_masters_thesis_tpu_torch.ops import flow_step as fs
 from speech_masters_thesis_tpu_torch.ops import tf32
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn
 
@@ -46,14 +58,64 @@ def _shift(x: torch.Tensor, shift: int) -> torch.Tensor:
 def _conv(x, w_taps, dil, passes, valid_in=None):
     """sum_tap x[t + tap * dil - pad] B_tap with the taps as shifted
     k-slices, tap-major: x [B, T, cin] (rows past the lengths zeroed on load
-    when valid_in is given), w_taps [taps, cin, n] (conv_mma::Weight)."""
-    taps = w_taps.shape[0]
+    when valid_in is given), w_taps [taps, cin, n] (conv_mma::Weight). Each
+    tap's channels are padded with zeros to whole k-steps, as the kernels'
+    32-channel slices are, so no k-step mixes two taps."""
+    taps, cin, n = w_taps.shape
     if valid_in is not None:
         x = x * valid_in
-    pad = (taps - 1) // 2 * dil
-    a = torch.cat([_shift(x, j * dil - pad) for j in range(taps)], dim=-1)
-    out = tf32.matmul(_rows(a), w_taps.reshape(-1, w_taps.shape[-1]), passes, rz_steps=1)
+    pad, fill = (taps - 1) // 2 * dil, -cin % tf32.KSTEP
+    zeros = x.new_zeros(*x.shape[:2], fill)
+    a = torch.cat([part for j in range(taps) for part in (_shift(x, j * dil - pad), zeros)], dim=-1)
+    b = torch.cat([w_taps, w_taps.new_zeros(taps, fill, n)], dim=1).reshape(-1, n)
+    out = tf32.matmul(_rows(a), b, passes, rz_steps=1)
     return out.reshape(*x.shape[:2], -1)
+
+
+def _one(w: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv's weight [n, cin, 1] as B [1, cin, n]."""
+    return w[:, :, 0].t()[None]
+
+
+def kernel_chain(x0, lens, w: wn.WNWeights, passes: int = 3, seed=0, p_drop: float = 0.0):
+    """forward_chain's launches and epilogues: (valid, hs, xins, acts, skip)."""
+    T = x0.shape[1]
+    valid = (torch.arange(T)[None, :] < lens[:, None]).to(x0.dtype)[..., None]
+    L, H, dils = len(w.win), w.hidden, w.dilations
+    h = (_conv(x0, _one(w.ws), 1, passes) + w.bs) * valid
+    hs, xins, acts = [], [], []
+    skip = None
+    for i in range(L):
+        hs.append(h)
+        z = _conv(h, w.win[i].permute(2, 1, 0), dils[i], passes, valid) + w.bin[i]
+        if p_drop > 0.0:
+            z = z * wn.keep_mask(seed, lens, T, i, 2 * H, p_drop)
+        xins.append(z)
+        act = torch.tanh(z[..., :H]) * torch.sigmoid(z[..., H:])
+        acts.append(act)
+        rs = _conv(act, _one(w.wrs[i]), 1, passes) + w.brs[i]
+        if i < L - 1:
+            h = (h + rs[..., :H]) * valid
+            skip = rs[..., H:] if skip is None else skip + rs[..., H:]
+        else:
+            skip = rs if skip is None else skip + rs
+    return valid, hs, xins, acts, skip
+
+
+def kernel_forward(x0, lens, w: wn.WNWeights, passes: int = 3, seed=0, p_drop: float = 0.0):
+    """out [B, T, C] by wn_coupling_common.cuh:forward: the chain, then the
+    end 1x1 on the masked skip sum."""
+    valid, *_, skip = kernel_chain(x0, lens, w, passes, seed, p_drop)
+    return _conv(skip, _one(w.wend), 1, passes, valid) + w.bend
+
+
+def kernel_flow_step(x, lens, aln, alb, mt, w: wn.WNWeights, passes: int = 3, seed=0, p_drop: float = 0.0):
+    """(xc, out) by flow_step_fwd.cu: the ActNorm in fp32 on the staged rows,
+    xc = x1 mt as a 1x1 conv, then the conditioner on xc's first half."""
+    valid = (torch.arange(x.shape[1])[None, :] < lens[:, None]).to(x.dtype)[..., None]
+    x1 = (alb + torch.exp(aln) * x) * valid
+    xc = _conv(x1, mt[None], 1, passes)
+    return xc, kernel_forward(xc[..., :x.shape[2] // 2], lens, w, passes, seed, p_drop)
 
 
 def _wgrad(X, Y, shift, passes, n_split, mask_x=None):
@@ -74,25 +136,8 @@ def _wgrad(X, Y, shift, passes, n_split, mask_x=None):
 
 def kernel_backward(x0, lens, w: wn.WNWeights, g, passes: int = 3, n_split: int = 4):
     """(dx0, {leaf: gradient}) by the kernels' launches and epilogues, p = 0."""
-    valid = (torch.arange(x0.shape[1])[None, :] < lens[:, None]).float()[..., None]
     L, k, H, dils = len(w.win), w.kernel_size, w.hidden, w.dilations
-    one = lambda t: t[:, :, 0].t()[None]  # noqa: E731  a 1x1 conv's weight as B [1, cin, n]
-    # recompute (forward_chain on the Mma engine)
-    h = (_conv(x0, one(w.ws), 1, passes) + w.bs) * valid
-    hs, xins, acts = [], [], []
-    skip = None
-    for i in range(L):
-        hs.append(h)
-        z = _conv(h, w.win[i].permute(2, 1, 0), dils[i], passes, valid) + w.bin[i]
-        xins.append(z)
-        act = torch.tanh(z[..., :H]) * torch.sigmoid(z[..., H:])
-        acts.append(act)
-        rs = _conv(act, one(w.wrs[i]), 1, passes) + w.brs[i]
-        if i < L - 1:
-            h = (h + rs[..., :H]) * valid
-            skip = rs[..., H:] if skip is None else skip + rs[..., H:]
-        else:
-            skip = rs if skip is None else skip + rs
+    valid, hs, xins, acts, skip = kernel_chain(x0, lens, w, passes)  # the recompute
     # the transposed products
     dskip = _conv(g, w.wend[:, :, 0][None], 1, passes, valid) * valid
     dh = [None] * L
@@ -121,7 +166,13 @@ def kernel_backward(x0, lens, w: wn.WNWeights, g, passes: int = 3, n_split: int 
     return dx0, grads
 
 
-def _jax_case(case):
+_conv_layout = lambda a: np.transpose(np.asarray(a), (2, 1, 0))  # noqa: E731  [k, in, out] -> [out, in, k]
+_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+
+
+def _numpy_case(case):
+    """Seeded inputs and weights in the JAX kernels' layouts: lens, valid,
+    x0, g, the weights, the spec, then the flow step's x, aln, alb, mt."""
     T, half, H, C, K, rate, layers = case
     rng = np.random.RandomState(T)
     lens = np.array([T, T - T // 3], dtype=np.int32)
@@ -135,6 +186,24 @@ def _jax_case(case):
           "brss": tuple(w(1, r) for r in rs), "wend": w(H, C), "bend": w(1, C)}
     spec = WNSpec(half=half, hidden=H, out_channels=C, kernel_size=K, dilation_rate=rate, n_layers=layers,
                   p_drop=0.0, interpret=True)
+    flow = {"x": (rng.randn(2, T, C) * valid).astype(np.float32), "aln": (0.1 * rng.randn(1, C)).astype(np.float32),
+            "alb": (0.1 * rng.randn(1, C)).astype(np.float32),
+            "mt": np.linalg.qr(rng.randn(C, C))[0].astype(np.float32)}
+    return lens, valid, x0, g, jw, spec, flow
+
+
+def _port_weights(jw: dict, rate: int) -> wn.WNWeights:
+    conv = _conv_layout
+    return wn.WNWeights(
+        ws=_t(conv(jw["ws"][None])), bs=_t(jw["bs"][0]), win=tuple(_t(conv(a)) for a in jw["wins"]),
+        bin=tuple(_t(b[0]) for b in jw["bins"]), wrs=tuple(_t(conv(a[None])) for a in jw["wrss"]),
+        brs=tuple(_t(b[0]) for b in jw["brss"]), wend=_t(conv(jw["wend"][None])), bend=_t(jw["bend"][0]),
+        dilations=tuple(rate ** i for i in range(len(jw["wins"]))))
+
+
+def _jax_case(case):
+    lens, valid, x0, g, jw, spec, _ = _numpy_case(case)
+    layers = len(jw["wins"])
 
     def loss(x0_, p):
         out = fused_wn_coupling(spec, jnp.float32(0.0), jnp.asarray(lens), x0_, p["ws"], p["bs"], p["wins"],
@@ -142,19 +211,13 @@ def _jax_case(case):
         return jnp.sum(out * jnp.asarray(g))
 
     jdx, jg = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x0), jax.tree.map(jnp.asarray, jw))
-    conv = lambda a: np.transpose(np.asarray(a), (2, 1, 0))  # noqa: E731  [k, in, out] -> [out, in, k]
+    conv = _conv_layout
     ref = {"x0": np.asarray(jdx), "ws": conv(jg["ws"][None]), "bs": np.asarray(jg["bs"])[0],
            "wend": conv(jg["wend"][None]), "bend": np.asarray(jg["bend"])[0]}
     for i in range(layers):
         ref.update({f"win{i}": conv(jg["wins"][i]), f"bin{i}": np.asarray(jg["bins"][i])[0],
                     f"wrs{i}": conv(jg["wrss"][i][None]), f"brs{i}": np.asarray(jg["brss"][i])[0]})
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
-    weights = wn.WNWeights(
-        ws=t(conv(jw["ws"][None])), bs=t(jw["bs"][0]), win=tuple(t(conv(a)) for a in jw["wins"]),
-        bin=tuple(t(b[0]) for b in jw["bins"]), wrs=tuple(t(conv(a[None])) for a in jw["wrss"]),
-        brs=tuple(t(b[0]) for b in jw["brss"]), wend=t(conv(jw["wend"][None])), bend=t(jw["bend"][0]),
-        dilations=tuple(rate ** i for i in range(layers)))
-    return t(x0), torch.from_numpy(lens), weights, t(g), valid[..., 0], ref
+    return _t(x0), torch.from_numpy(lens), _port_weights(jw, spec.dilation_rate), _t(g), valid[..., 0], ref
 
 
 @pytest.fixture(scope="module")
@@ -206,3 +269,60 @@ def test_kernel_order_meets_the_tolerances_at_other_taps_and_widths(case):
         errs = _errors(*kernel_backward(x0, lens, w, g), valid, ref)
     assert len(errs) == 5 + 4 * len(w.win)
     assert max(errs.values()) <= 0.1, errs
+
+
+# (case, the conditioner alone or the whole flow step, p): Glow's taps at p=0
+# and p>0 on both, then 3 taps at rate 3 and 1 tap at widths not multiples of 4
+FORWARD_CASES = [(MAIN, "coupling", 0.0), (MAIN, "coupling", 0.1), (MAIN, "flow", 0.0), (MAIN, "flow", 0.1),
+                 (OTHERS[0], "coupling", 0.1), (OTHERS[0], "flow", 0.0), (OTHERS[1], "coupling", 0.0),
+                 (OTHERS[1], "flow", 0.1)]
+FORWARD_IDS = [f"{name}-{kind}-p{p}" for (case, kind, p), name in zip(
+    FORWARD_CASES, ["k5"] * 4 + ["k3-rate3"] * 2 + ["k1-odd-widths"] * 2)]
+FORWARD_SEED = 77
+
+
+def _forward_refs(case, kind: str, p_drop: float):
+    """(valid [B, T], the kernel's inputs, {output: reference}): JAX's
+    interpret-mode kernel at p=0, else the plain version in fp64 with the
+    port's masks."""
+    lens, valid, x0, _, jw, spec, flow = _numpy_case(case)
+    w = _port_weights(jw, spec.dilation_rate)
+    lens_t = torch.from_numpy(lens)
+    params = [jnp.asarray(jw[n]) if n in ("ws", "bs", "wend", "bend") else tuple(map(jnp.asarray, jw[n]))
+              for n in ("ws", "bs", "wins", "bins", "wrss", "brss", "wend", "bend")]
+    if kind == "coupling":
+        args = (_t(x0), lens_t, w)
+        if p_drop == 0.0:
+            ref = {"out": np.asarray(fused_wn_coupling(spec, jnp.float32(0.0), jnp.asarray(lens), jnp.asarray(x0),
+                                                       *params))}
+        else:
+            wd = wn.WNWeights.from_flat([t.double() for t in w.flat()], w.dilations)
+            ref = {"out": wn.wn_coupling_reference(args[0].double(), lens_t, wd, FORWARD_SEED, p_drop).numpy()}
+    else:
+        args = (_t(flow["x"]), lens_t, _t(flow["aln"][0]), _t(flow["alb"][0]), _t(flow["mt"]), w)
+        if p_drop == 0.0:
+            xc, out = fused_flow_step(spec, jnp.float32(0.0), jnp.asarray(lens),
+                                      *(jnp.asarray(flow[n]) for n in ("x", "aln", "alb", "mt")), *params)
+        else:
+            wd = wn.WNWeights.from_flat([t.double() for t in w.flat()], w.dilations)
+            xc, out = (r.numpy() for r in fs.flow_step_reference(
+                *(a.double() for a in args[:1]), lens_t, *(a.double() for a in args[2:5]), wd, FORWARD_SEED, p_drop))
+        ref = {"xc": np.asarray(xc), "out": np.asarray(out)}
+    return valid[..., 0], args, ref
+
+
+@pytest.mark.parametrize("case,kind,p_drop", FORWARD_CASES, ids=FORWARD_IDS)
+def test_forward_kernel_order_meets_b3_rtol(case, kind, p_drop):
+    """Each output's error at valid frames over B3_RTOL of its max|ref|:
+    under 0.1 with 3 TF32 products, beyond 1 with 1."""
+    valid, args, ref = _forward_refs(case, kind, p_drop)
+    emulate = kernel_forward if kind == "coupling" else kernel_flow_step
+    errs = {}
+    for passes in (3, 1):
+        with torch.no_grad():
+            outs = emulate(*args, passes=passes, seed=FORWARD_SEED, p_drop=p_drop)
+        outs = dict(zip(ref, outs if kind == "flow" else (outs,)))
+        errs[passes] = {n: np.abs(outs[n].numpy()[valid] - r[valid]).max() / (B3_RTOL * np.abs(r[valid]).max())
+                        for n, r in ref.items()}
+    assert max(errs[3].values()) <= 0.1, errs    # 3 products: well inside the unchanged tolerance
+    assert max(errs[1].values()) > 1.0, errs     # 1 product would miss
