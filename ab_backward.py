@@ -1,12 +1,23 @@
 """Parent against change on one card: B2's backward, B1's forward, backward
 tile passes and weight-gradient reduction, the VQ-VAE train step, the
-codec's encode + decode and the LM train step, B3's and B6's forward and
-backward, the Glow-TTS train step on both routes, its val step and
+codec's encode + decode and the LM train step, B3's, B5's and B6's forward
+and backward, the Glow-TTS train step on both routes, its val step and
 synthesis, each tree in its own process, in the order given (parent,
 change, change, parent, ...).
 
+``--b5`` measures, for each tree, B5's forward and backward back to back
+(as below) and phase 25's step (``chip_smoke.phase_glow_train_vs_cpu``'s
+models, batch and seeds) with each parameter's gradient error against the
+fp64 step: the median and worst of B5's parameters (the encoder layers'),
+of the rest and of all, the CPU fp32 step's beside them, and the worst
+parameters. ``--ptxas`` builds each tree and compares its ptxas lines
+(``chip_smoke.ptxas_summary``, each kernel's template tag reduced to its
+name) outside B5 with the first tree's, as multisets.
+
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
+    python3 ab_backward.py --b5 build/parent . ...      # B5's times and phase 25's errors by group
+    python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside B5 against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
 ``chip_smoke.py``); a worker puts that root first on ``sys.path``, builds
@@ -26,7 +37,11 @@ timed back to back at chip_smoke's train shape, (8, 384) squeezed frames,
 p = 0.05, on a seeded Glow-TTS's first flow step, and their forwards
 (``wn_coupling.wn_coupling`` at p = 0, ``flow_step.flow_step`` at p =
 0.05, the rows of chip_smoke's kernels line) the same way, each with its
-largest error against its plain version over chip_smoke's B3_RTOL; the
+largest error against its plain version over chip_smoke's B3_RTOL; B5's
+forward (``enc_layer.enc_layer``, p = 0, with its largest error over
+B5_RTOL) and backward (``enc_layer.enc_layer_backward``, p = 0.1) back to
+back at chip_smoke's (8, 256) tokens on the seeded Glow-TTS's first
+encoder layer (phase 23's inputs); the
 Glow train step on the B3 and the B6 route is ``chip_smoke.phase_glow_train`` (median of steps
 4-10, with its peak memory), then ``chip_smoke.steps_in_turns`` (20 steps of
 each route in turns, medians), the val step ``chip_smoke.phase_glow_val``
@@ -37,8 +52,10 @@ text to waveform). Prints one JSON line per worker, then the pairs.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -140,6 +157,82 @@ def glow_backwards(torch, cs, wn_ops, fs_ops, inputs: tuple) -> dict:
                 x, lens, aln, alb, mt, w, g_xc, g_out, seed, cs.B3_DROP), GLOW_BWD_REPS)}
 
 
+def enc_layer_times(torch, np, cs, device) -> dict:
+    """B5's forward at p = 0 and backward at B5_DROP back to back at
+    B5_SHAPES[0], the forward with its largest error against the plain
+    version at valid rows over B5_RTOL of max|ref|."""
+    from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
+
+    w = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
+    w = w.with_tensors([t.detach() for t in w.tensors().values()])
+    B, T = cs.B5_SHAPES[0]
+    rng = np.random.RandomState(820)
+    lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
+    valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+    x = torch.from_numpy(rng.randn(B, T, w.wq.shape[0]).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device)
+    seed = torch.tensor([5151], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        ours, ref = enc_ops.enc_layer(x, lens, w), enc_ops.enc_layer_reference(x, lens, w)
+        return {"b5_fwd_err_over_tol": ((ours - ref)[valid].abs().max()
+                                        / (cs.B5_RTOL * ref[valid].abs().max())).item(),
+                "b5_fwd_ms": back_to_back_ms(torch, lambda: enc_ops.enc_layer(x, lens, w), GLOW_BWD_REPS),
+                "b5_bwd_ms": back_to_back_ms(torch, lambda: enc_ops.enc_layer_backward(
+                    x, lens, w, g, seed, cs.B5_DROP), GLOW_BWD_REPS)}
+
+
+def is_b5(name: str) -> bool:
+    """A parameter of the encoder's layers, which B5 computes."""
+    return any(part in name for part in ("attn_layers", "ffn_layers", "norm_layers"))
+
+
+def step_grad_errors(torch, cs, device) -> dict:
+    """Phase 25's train step (p=0, 2 sequences) on the card, the CPU and in
+    fp64 on the CPU: each parameter's relative L2 error against fp64 (the
+    denominator floored at 1e-4 of the global norm), summarised by group."""
+    import copy
+
+    from speech_masters_thesis_tpu_torch import configs
+    from speech_masters_thesis_tpu_torch.models.base import spect_from_audio
+    from speech_masters_thesis_tpu_torch.models.ema import default_mu
+    from speech_masters_thesis_tpu_torch.train.loop import make_train_step
+    from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
+    from speech_masters_thesis_tpu_torch.train.state import TrainState
+
+    n = cs.GLOW_VS_CPU
+    sub = {k: v[:n] for k, v in cs.glow_val_batch(cs.GLOW_BATCH, device, seed=32).items()}
+    models = {"cuda": cs.build_glow(device, cs.GLOW_SEED + 2)}
+    cs.set_dropout(models["cuda"], 0.0)
+    with torch.no_grad():
+        spect, spect_len = spect_from_audio(models["cuda"], sub)
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
+    grads = {}
+    for name, model in models.items():
+        dev = next(model.parameters()).device
+        batch = {"token": sub["token"].to(dev), "token_len": sub["token_len"].to(dev),
+                 "spect": spect.to(dev, torch.float64 if name == "cpu64" else torch.float32),
+                 "spect_len": spect_len.to(dev)}
+        opt, schedule = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
+                                        configs.GLOW_TTS_TPU_SCHEDULER, configs.GLOW_TTS_TPU)
+        make_train_step(schedule, default_mu(n, 1), use_ema=True)(TrainState.create(model, opt, use_ema=True),
+                                                                   batch, cs.TRAIN_SEED)
+        grads[name] = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+    ref = grads["cpu64"]
+    floor = 1e-4 * torch.sqrt(sum((r * r).sum() for r in ref.values())).item()
+    errs = {side: {k: ((grads[side][k] - r).norm() / max(r.norm().item(), floor)).item() for k, r in ref.items()}
+            for side in ("cuda", "cpu")}
+    out = {}
+    for group, keep in (("all", lambda k: True), ("b5", is_b5), ("rest", lambda k: not is_b5(k))):
+        for side in ("cuda", "cpu"):
+            vals = [e for k, e in errs[side].items() if keep(k)]
+            out[f"grad_{group}_{side}_median"] = statistics.median(vals)
+            out[f"grad_{group}_{side}_worst"] = max(vals)
+    out["grad_worst_params"] = [(k, errs["cuda"][k], errs["cpu"][k])
+                                for k in sorted(ref, key=lambda k: -errs["cuda"][k])[:5]]
+    return out
+
+
 def glow_steps(torch, cs, device, card) -> dict:
     """The Glow train step on both routes (phases 24 and 27, then the steps
     in turns) and the val step with their peak memory."""
@@ -209,12 +302,17 @@ def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
     return out
 
 
-def worker(tree: str, glow_only: bool) -> dict:
+def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
 
     import chip_smoke as cs
+
+    if mode == "--ptxas":
+        from speech_masters_thesis_tpu_torch.ops import _build
+
+        return {"tree": tree, "ptxas": cs.ptxas_summary(_build.compile_library(_build.library_path()))}
     from speech_masters_thesis_tpu_torch.ops import attention as att
     from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
     from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
@@ -224,45 +322,89 @@ def worker(tree: str, glow_only: bool) -> dict:
     device = cs.cuda_device()
     cs.phase_build()
     out = {"tree": tree, "card": card, "attention_bwd": {}}
+    if mode == "--b5":
+        out.update(enc_layer_times(torch, np, cs, device))
+        out.update(step_grad_errors(torch, cs, device))
+        return out
     if not glow_only:
         out.update(codec_and_lm(torch, np, cs, att, gh, device, card))
     inputs = glow_inputs(torch, np, cs, wn_ops, device)
     out.update(glow_forwards(torch, cs, wn_ops, fs_ops, inputs))
     out.update(glow_backwards(torch, cs, wn_ops, fs_ops, inputs))
     del inputs
+    out.update(enc_layer_times(torch, np, cs, device))
     torch.cuda.empty_cache()
     out.update(glow_steps(torch, cs, device, card))
     return out
 
 
+def reduced(line: str) -> str:
+    """A ptxas summary line with its kernel's template tag reduced to the
+    tag's name (a file's anonymous namespace is named after its path)."""
+    name, rest = line.split(":", 1)
+    m = re.match(r"(\w+)<(.*)>", name)
+    if m:
+        tag = re.search(r"([A-Za-z]+Tag)$", m.group(2))
+        name = f"{m.group(1)}<{tag.group(1) if tag else m.group(2)}>"
+    return name + ":" + rest
+
+
+def is_b5_kernel(line: str) -> bool:
+    """A ptxas line of B5's kernels (enc_layer_{fwd,bwd}.cu's instances)."""
+    return any(part in line.split(":")[0] for part in ("enc_", "Layer", "Enc", "conv_rows_kernel"))
+
+
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    args = [a for a in args if a != "--glow"]
+    mode = next((a for a in args if a in ("--b5", "--ptxas")), "")
+    args = [a for a in args if a not in ("--glow", "--b5", "--ptxas")]
     if args[:1] == ["--worker"]:
-        print("AB_RESULT " + json.dumps(worker(args[1], glow_only)), flush=True)
+        print("AB_RESULT " + json.dumps(worker(args[1], glow_only, mode)), flush=True)
         return
     trees = args
     if len(trees) < 2:
-        raise SystemExit("usage: python3 ab_backward.py [--glow] TREE TREE [TREE ...] (e.g. parent change change "
-                         "parent)")
+        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --ptxas] TREE TREE [TREE ...] (e.g. parent "
+                         "change change parent)")
     results = []
     for tree in trees:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree]
-                              + (["--glow"] if glow_only else []), capture_output=True, text=True, timeout=1800)
+                              + (["--glow"] if glow_only else []) + ([mode] if mode else []),
+                              capture_output=True, text=True, timeout=1800)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
             raise SystemExit(f"worker for {tree} failed with exit code {proc.returncode}")
         res = json.loads(lines[-1][len("AB_RESULT "):])
         res["seconds"] = time.perf_counter() - t0
-        print(json.dumps(res), flush=True)
+        if mode != "--ptxas":
+            print(json.dumps(res), flush=True)
         results.append(res)
+    if mode == "--ptxas":
+        first = collections.Counter(reduced(ln) for ln in results[0]["ptxas"] if not is_b5_kernel(ln))
+        for res in results:
+            lines = collections.Counter(reduced(ln) for ln in res["ptxas"] if not is_b5_kernel(ln))
+            print(f"[ptxas] {res['tree']}: {sum(lines.values())} lines outside B5, equal to {results[0]['tree']}'s "
+                  f"({sum(first.values())}) as multisets: {lines == first}; only here {dict(lines - first)}; only "
+                  f"there {dict(first - lines)}")
+            print(f"[ptxas] {res['tree']} B5: " + " | ".join(reduced(ln) for ln in res["ptxas"] if is_b5_kernel(ln)))
+        return
+    if mode == "--b5":
+        for res in results:
+            groups = "; ".join(f"{g} card {res[f'grad_{g}_cuda_median']:.3e} / {res[f'grad_{g}_cuda_worst']:.3e}, "
+                               f"cpu {res[f'grad_{g}_cpu_median']:.3e} / {res[f'grad_{g}_cpu_worst']:.3e}"
+                               for g in ("all", "b5", "rest"))
+            print(f"[b5] {res['tree']}: forward {res['b5_fwd_ms']:.4f} ms, backward {res['b5_bwd_ms']:.4f} ms back to "
+                  f"back; phase 25's gradient errors against fp64, median / worst: {groups}; worst parameters "
+                  + ", ".join(f"{k} {e:.2e} (cpu {c:.2e})" for k, e, c in res["grad_worst_params"])
+                  + f" [{res['card']}]")
+        return
     for key in (*results[0]["attention_bwd"], *(f"forward p={p} sum" for p in FWD_PS), "tiles sum",
                 "reduction sum", "vqvae_step_ms", "vqvae_step_peak_gib", "encode_decode_ms",
                 "encode_decode_peak_gib", "lm_b64_step_ms", "b3_fwd_ms", "b3_fwd_err_over_tol", "b6_fwd_ms",
-                "b6_fwd_err_over_tol", "b3_bwd_ms", "b6_bwd_ms", "glow_step_b3_ms", "glow_step_b3_peak_gib",
+                "b6_fwd_err_over_tol", "b3_bwd_ms", "b6_bwd_ms", "b5_fwd_ms", "b5_fwd_err_over_tol", "b5_bwd_ms",
+                "glow_step_b3_ms", "glow_step_b3_peak_gib",
                 "glow_step_b6_ms", "glow_step_b6_peak_gib", "glow_turns_b3_ms", "glow_turns_b6_ms", "glow_val_ms",
                 "glow_val_peak_gib", *(f"synth_b{B}_{k}_ms" for B in (1, 8) for k in ("mel", "total"))):
         if key not in results[0] and key not in results[0]["attention_bwd"]:

@@ -13,7 +13,10 @@ points a user calls, with every kernel built from csrc/ in this checkout:
      and shared-memory report, B1's resident blocks per SM, and no B1 kernel
      spilling; the same for B3's and B6's tensor-core forward and backward
      kernels (their registers and spills; the backwards' resident blocks
-     and dynamic shared memory);
+     and dynamic shared memory), and B5's (the forward's and the
+     backward's instances, none spilling; the resident blocks of its
+     192-column LayerNorm tile, its 64 x 128 and 64 x 64 tiles and its
+     weight-gradient slices);
   3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
      against its plain PyTorch version in fp32 (TF32 off), with both times
      and the kernel's over 50 back-to-back calls (p=0);
@@ -74,9 +77,10 @@ with the zero-init leaves drawn from the seed):
      two calls bitwise equal; both times, at (8, 384) also over 50
      back-to-back calls, and the bounds; then at B3_OTHER_SHAPES (phase
      22's), p=0 and 0.05, with the same tolerance and bitwise repeats;
- 17. the encoder-layer kernel (B5) against its plain version at (B, T) =
-     (8, 256), (1, 160), (8, 512) and (3, 3), ragged lengths, 1e-4 of
-     max|ref| at valid rows; both times and the bound;
+ 17. the encoder-layer kernel (B5, its products 3xTF32 on the tensor cores)
+     against its plain version at (B, T) = (8, 256), (1, 160), (8, 512) and
+     (3, 3), ragged lengths, 1e-4 of max|ref| at valid rows; both times and
+     the bounds, and at (8, 256) the forward over 50 back-to-back calls;
  18. the MAS kernel (B4) against its plain version bit for bit at
      [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties;
  19. the val step (make_val_step, EMA parameters) at batch 8: 768 frames of
@@ -108,6 +112,7 @@ with the zero-init leaves drawn from the seed):
      the plain backward taken at the kernel's own FFN relu decisions (every
      flip a near-tie), the masks of all four sites read back from the
      backward's buffers (the attention's on the band, every pair at T=3);
+     at (8, 256), p=0.1 the backward over 50 back-to-back calls;
  24. the Glow-TTS training path at batch 8 x 768 frames of seeded audio
      (the mel on the card) and 256 tokens, ragged: ddi_init (each ActNorm's
      output then has mean 0 and variance 1 at valid frames), then 10 train
@@ -117,7 +122,8 @@ with the zero-init leaves drawn from the seed):
      step time (median of steps 4-10), mel-frames/s and peak memory;
  25. one train step (p=0) on the card against the CPU on 2 sequences:
      losses 1e-4 relative, and the card's and the CPU's gradients each
-     against the same step in fp64 on the CPU.
+     against the same step in fp64 on the CPU: the card's median parameter
+     within 20x the CPU's and its worst within 10x.
 
 Then the whole-flow-step route (B6, GLOW_TTS_TPU with fused_flow_step: true,
 the override glow_tts_tpu.yaml names):
@@ -261,6 +267,13 @@ GLOW_AB_ROUNDS = 20            # then 20 more steps of each route, in turns B3, 
 ROUTE_LOSS_RTOL = 1e-3         # step 1's loss, B6 route vs B3 route: the same function and masks; MAS may
                                # flip a near-tie
 B5_DROP = 0.1                  # the encoder's
+# phases 25 and 28: the card's gradient error against the fp64 step, at most these multiples of the
+# CPU fp32 step's. The worst parameter: recorded runs 1.6-2.8x, so 10x. The median: the parameters'
+# errors are bimodal (B5's near 6e-7, most of the decoder's near 6e-6, 12-13x the CPU's median, since
+# B3's and B6's 3xTF32 kernels), and the median has landed at 2.2-6.9x; a variant without the
+# tensor-core kernels' per-k-step fp32 add gave 33x: 20x lies between
+GLOW_GRAD_WORST_MULTIPLE = 10
+GLOW_GRAD_MEDIAN_MULTIPLE = 20
 GRAD_FLOOR = 3e-4              # a gradient leaf's tolerance scale is at least this of the largest leaf's
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
 PEAK_FP32 = 67e12
@@ -363,14 +376,16 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
                 "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel",
                 "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
-                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_rows_kernel", "conv_mma_kernel",
-                "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
+                "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_mma_kernel",
+                "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel", "enc_pack_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
                   "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel", "wgrad_partial_kernel",
                   "wgrad_reduce_kernel")
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
+# B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
+B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -411,7 +426,8 @@ def phase_build() -> None:
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
     # B3's and B6's kernels on the tensor cores: the forwards' instances (their tags
     # end in FwdTag), and the backwards' (the same instances under each tag)
-    mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS]
+    mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS
+           and "LayerFwdTag" not in line and "LayerBwdTag" not in line]
     fwd = [line for line in mma if "FwdTag" in line.split(":")[0]]
     bwd = [line for line in mma if line not in fwd]
     print("[build] B3/B6 forward, tensor-core kernels (ptxas: registers, shared memory, spills): " + " | ".join(fwd))
@@ -428,6 +444,20 @@ def phase_build() -> None:
     require(rc == 0 and min(blocks) >= 1, f"B3/B6 backward: blocks per SM {list(blocks)} (cudaError {rc})")
     require(len(bwd) >= 2 * len(B3_B6_KERNELS) and all("0 bytes spill stores" in line for line in bwd),
             f"a B3/B6 backward kernel is missing or spills: {bwd}")
+    b5 = {side: [line for line in ptxas if line.split(":")[0].split("<")[0] in B5_KERNELS
+                 and f"Layer{side}Tag" in line.split(":")[0]] for side in ("Fwd", "Bwd")}
+    for side, lines in b5.items():
+        print(f"[build] B5 {side.lower()}, tensor-core kernels and packing (ptxas: registers, shared memory, "
+              "spills): " + " | ".join(lines))
+        require(len(lines) >= 2 and all("0 bytes spill stores" in line for line in lines),
+                f"a B5 {side.lower()} tensor-core kernel is missing or spills: {lines}")
+    blocks, smem = (ctypes.c_int * 4)(), (ctypes.c_longlong * 4)()
+    rc = lib.enc_layer_bwd_blocks_per_sm(blocks, smem)
+    names = ("conv_mma_kernel (LayerNorm, 16 rows x 192, k=3)", "conv_mma_kernel (FFN conv, 64 x 128, k=3)",
+             "conv_mma_kernel (1x1, 64 x 64)", "wgrad_mma_kernel (64 x 128)")
+    print("[build] B5 backward: resident blocks per SM (256 threads) at the launch's dynamic shared memory: "
+          + ", ".join(f"{n} {b} at {m} B" for n, b, m in zip(names, blocks, smem)))
+    require(rc == 0 and min(blocks) >= 1, f"B5 backward: blocks per SM {list(blocks)} (cudaError {rc})")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -1498,19 +1528,22 @@ def phase_enc_layer(model: GlowTTS, device, card: str) -> dict:
             scale = ref[valid].abs().max().item()
             finite = bool(torch.isfinite(ours).all())
             ms = cuda_ms(lambda: enc_ops.enc_layer(x, lens, w))
+            dev = device_ms(lambda: enc_ops.enc_layer(x, lens, w)) if i == 0 else None
             plain = cuda_ms(lambda: enc_ops.enc_layer_reference(x, lens, w))
         flops = enc_flops(lens_np, w)
         nbytes = 4 * (2 * int(lens_np.sum()) * C + sum(t.numel() for t in w.tensors().values()))
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"[B5] B={B} T={T} C={C} heads {w.n_heads} window {w.window}: max_abs_err {err:.3e} (tol "
               f"{B5_RTOL * scale:.3e} = {B5_RTOL:g} * max|ref| {scale:.3e}) at valid rows, all finite {finite}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median of 10); bound {bound_ms:.4f} ms by {bound_by} "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median of 10)"
+              + (f", kernel back to back {dev:.4f} ms a call ({DEVICE_REPS} calls)" if dev is not None else "")
+              + f"; bound {bound_ms:.4f} ms by {bound_by}, 3xTF32 bound {tf32_bound_ms(flops, nbytes):.4f} ms "
               f"({int(lens_np.sum())} valid rows: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
         require(np.isfinite(err) and err <= B5_RTOL * scale, f"B5 disagrees at B={B} T={T}: {err}")
         require(finite, f"B5 output not finite at B={B} T={T}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if i == 0:  # the val step's shape
-            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+            out.update(ms=dev, call_ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
                        tf32_ms=tf32_bound_ms(flops, nbytes))
     return out
 
@@ -2108,6 +2141,8 @@ def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
                          "fwd": cuda_ms(lambda: enc_ops.enc_layer(x, lens, w, seed, p), reps=5, warmup=1),
                          "fwd_plain": cuda_ms(lambda: enc_ops.enc_layer_reference(x, lens, w, seed, p), reps=5,
                                               warmup=1)}
+                if i == 0 and p > 0:  # the train step's shape
+                    times["dev"] = device_ms(lambda: enc_ops.enc_layer_backward(*args))
             tokens = int(lens_np.sum())
             params = sum(t.numel() for t in w.tensors().values())
             work = (3 * enc_flops(lens_np, w), 4 * (3 * tokens * C + 2 * params))
@@ -2120,8 +2155,9 @@ def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
                         leaf_report(gw_k, gw_r), bitwise, fwd, times, bnd, card)
             out["max_abs_err"] = max(out["max_abs_err"], dx_err)
             if i == 0 and p > 0:  # the train step's shape
-                out.update(ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0], bound_by=bnd[1],
-                           fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], tf32_ms=tf32_bound_ms(*work))
+                out.update(ms=times["dev"], call_ms=times["bwd"], plain_ms=times["plain"], bound_ms=bnd[0],
+                           bound_by=bnd[1], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                           tf32_ms=tf32_bound_ms(*work))
             if p > 0:
                 enc_masks(x, lens, w, g, seed, bufs, plain, valid, card)
             del dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
@@ -2292,8 +2328,10 @@ def set_dropout(model: GlowTTS, p: float) -> None:
 def phase_glow_train_vs_cpu(device, card: str, flow_step: bool = False) -> None:
     """One train step (p=0) on the card against the CPU on 2 sequences, each
     held against the same step in fp64 on the CPU, as phase 10 does: the
-    card's gradients must come as close to fp64 as the CPU's fp32 ones. On
-    the B3 route or (``flow_step``) the B6 route."""
+    card's gradients within GLOW_GRAD_MEDIAN_MULTIPLE (median parameter) and
+    GLOW_GRAD_WORST_MULTIPLE (worst) times the CPU fp32 step's distance from
+    fp64 (phase 10's additive allowance would admit some 200x here). On the B3
+    route or (``flow_step``) the B6 route."""
     tag = "[glow train vs cpu B6]" if flow_step else "[glow train vs cpu]"
     n = GLOW_VS_CPU
     sub = {k: v[:n] for k, v in glow_val_batch(GLOW_BATCH, device, seed=32).items()}
@@ -2328,14 +2366,15 @@ def phase_glow_train_vs_cpu(device, card: str, flow_step: bool = False) -> None:
     print(f"{tag} gradients against the fp64 step, relative L2 over {len(ref)} parameters "
           f"(denominator floored at 1e-4 of the global norm): card median {stats['cuda'][0]:.3e} worst "
           f"{stats['cuda'][1]:.3e}; cpu fp32 median {stats['cpu'][0]:.3e} worst {stats['cpu'][1]:.3e} (card within "
-          f"2x + {STEP_GRAD_MEDIAN_ATOL:g} / {STEP_GRAD_WORST_ATOL:g}) [{card}]")
+          f"{GLOW_GRAD_MEDIAN_MULTIPLE}x and {GLOW_GRAD_WORST_MULTIPLE}x: {stats['cuda'][0] / stats['cpu'][0]:.2f}x "
+          f"and {stats['cuda'][1] / stats['cpu'][1]:.2f}x) [{card}]")
     for key in ("loss", "loss_mle", "loss_length"):
         g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
         rel = abs(g_ - c_) / max(abs(c_), 1e-12)
         require(rel <= STEP_LOSS_RTOL, f"glow train step {key} differs: {rel}")
-    require(stats["cuda"][0] <= 2 * stats["cpu"][0] + STEP_GRAD_MEDIAN_ATOL,
+    require(stats["cuda"][0] <= GLOW_GRAD_MEDIAN_MULTIPLE * stats["cpu"][0],
             f"glow train step grads: card median {stats['cuda'][0]} vs cpu {stats['cpu'][0]}")
-    require(stats["cuda"][1] <= 2 * stats["cpu"][1] + STEP_GRAD_WORST_ATOL,
+    require(stats["cuda"][1] <= GLOW_GRAD_WORST_MULTIPLE * stats["cpu"][1],
             f"glow train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
 
 
@@ -2446,11 +2485,11 @@ def main() -> None:
         entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
               b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
-              b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"],
+              b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"], call_ms=b5["call_ms"],
               bound_3xtf32_ms=b5["tf32_ms"]),
         entry("enc_layer_bwd", "enc_layer_bwd.cu", PALLAS_ENC + ":496", b5_bwd_n, b5_bwd["max_abs_err"],
               b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
-              bound_3xtf32_ms=b5_bwd["tf32_ms"]),
+              call_ms=b5_bwd["call_ms"], bound_3xtf32_ms=b5_bwd["tf32_ms"]),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
               b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], call_ms=b6["fwd_call_ms"],
               bound_3xtf32_ms=b6["fwd_tf32_ms"]),

@@ -4,6 +4,7 @@
     python3 profile_glow.py
     python3 profile_glow.py --backward-split
     python3 profile_glow.py --forward-split
+    python3 profile_glow.py --enc-split
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
 seeded weights), and runs torch.profiler over 3 calls each of: the train step
@@ -28,6 +29,13 @@ transposed products (2 + 2 L), B6's dx1, and the weight-gradient reduction
 (p = 0.05) at the same shape kernel by kernel, in launch order (the
 packing, B6's prefix, then per layer the gate conv and the res/skip 1x1,
 the start and end 1x1s), with their sums and the host's time a call.
+``--enc-split`` lists one call of B5's forward and one of its backward
+(``enc_layer``, ``enc_layer_backward``) at chip_smoke's shape, (8, 256)
+tokens at p = 0.1, on the seeded Glow-TTS's first encoder layer (phase
+23's inputs), kernel by kernel in launch order, with each call's device
+time split into the weight packing, the products, the attention kernels
+and the weight-gradient reduction (by the kernels' names), the host's
+time a call and the device's over back-to-back calls.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import chip_smoke as cs
 from speech_masters_thesis_tpu_torch.device import cuda_device
 from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
 from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
@@ -146,6 +155,47 @@ def forward_report(name: str, seq: list, card: str) -> None:
         print(f"[{name}]   {us / 1e3:8.4f} ms  {k[:120]}")
 
 
+def kernel_group(name: str) -> str:
+    """The part of a B5 call a kernel belongs to, by its name."""
+    for key, group in (("pack", "packing"), ("attention", "attention"), ("wgrad", "reduction")):
+        if key in name:
+            return group
+    return "products"
+
+
+def enc_report(name: str, seq: list, card: str) -> None:
+    """One call's kernels in launch order, and the median split of a call by
+    ``kernel_group``."""
+    per_call = len(seq) // CALLS
+    calls = [seq[i * per_call:(i + 1) * per_call] for i in range(CALLS)]
+    groups = ("packing", "products", "attention", "reduction")
+    sums = [{g: sum(us for k, us in call if kernel_group(k) == g) / 1e3 for g in groups} for call in calls]
+    total = float(np.median([sum(s.values()) for s in sums]))
+    print(f"[{name}] {per_call} kernels a call; device ms a call, median of {CALLS}: total {total:.4f}; "
+          + ", ".join(f"{g} {float(np.median([s[g] for s in sums])):.4f}" for g in groups) + f" [{card}]")
+    for k, us in calls[-1]:
+        print(f"[{name}]   {us / 1e3:8.4f} ms  {kernel_group(k):9s}  {k[:110]}")
+
+
+def enc_split(card: str, device) -> None:
+    cs.phase_build()
+    w = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
+    w = w.with_tensors([t.detach() for t in w.tensors().values()])
+    B, T = cs.B5_SHAPES[0]
+    rng = np.random.RandomState(820)  # chip_smoke.phase_enc_layer_bwd's first shape
+    lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
+    x = torch.from_numpy(rng.randn(B, T, w.wq.shape[0]).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device)
+    seed, p = torch.tensor([5151], dtype=torch.int64, device=device), cs.B5_DROP
+    calls = {f"B5 forward B={B} T={T} p={p}": lambda: enc_ops.enc_layer(x, lens, w, seed, p),
+             f"B5 backward B={B} T={T} p={p}": lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            enc_report(name, kernel_sequence(fn), card)
+            print(f"[{name}] host ms a call (wrapper and launches, no synchronisation): {host_ms(fn):.4f}; "
+                  f"device ms a call over {cs.DEVICE_REPS} back-to-back calls: {cs.device_ms(fn):.4f} [{card}]")
+
+
 def flow_step_inputs(device) -> tuple:
     """chip_smoke's train shape on the first flow step's weights of a seeded
     Glow-TTS: (x, lens, aln, alb, mt, w, g_xc, g_out, seed)."""
@@ -203,6 +253,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--forward-split"]:
         forward_split(card, device)
+        return
+    if sys.argv[1:] == ["--enc-split"]:
+        enc_split(card, device)
         return
     _build.build()
     batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)

@@ -1,16 +1,16 @@
-// conv_rows.cuh's convolution on the tensor cores in 3xTF32 (tf32_mma.cuh),
+// A row-tiled 1-D convolution on the tensor cores in 3xTF32 (tf32_mma.cuh),
 // for the Glow-TTS coupling conditioner's forwards and recompute backwards
 // (wn_coupling_{fwd,bwd}.cu, flow_step_{fwd,bwd}.cu through
-// wn_coupling_common.cuh): the same Args, the same grid of (row tile,
-// channel tile, sequence) and the same epilogues (conv_rows.cuh's
-// CONV_ROWS_EPILOGUE), with another main loop.
+// wn_coupling_common.cuh) and the text-encoder layer's (enc_layer_{fwd,bwd}.cu
+// through enc_layer_common.cuh): conv_rows.cuh's Args and epilogues
+// (CONV_ROWS_EPILOGUE), on a grid of (row tile, channel tile, sequence).
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * B_tap[c, n]
 //
 // Each conv tap is a shifted k-slice: a k-slice is KS = 32 input channels of
-// TM = 64 consecutive rows read at t + tap * dil - pad (zero outside [0, T),
-// past lens[b] when mask_in, and past cin), so no block holds a halo window
-// and any dilation fits. Slices are staged three ahead by cp.async, in
+// the tile's TM consecutive rows read at t + tap * dil - pad (zero outside
+// [0, T), past lens[b] when mask_in, and past cin), so no block holds a halo
+// window and any dilation fits. Slices are staged three ahead by cp.async, in
 // 16-byte pieces when the launch's widths, strides and pointers are
 // multiples of 4 floats (whole_pieces: the kernel's WHOLE) and in 4-byte
 // ones otherwise (tf32::stage4), so any width, row stride or offset fits. The
@@ -18,18 +18,22 @@
 // a 1x1 conv's weight read transposed, or a packed tap-major [taps][cin][n]
 // copy, pack_weights_kernel) or [n][k] rows (k contiguous: a 1x1 conv's
 // own [n_out, cin] weight). GATE's channel pairs (p, hidden + p) come from
-// the loader's column map (conv_rows::out_column), as in the FMA kernel.
+// the loader's column map (conv_rows::out_column).
 // ACTNORM_FWD applies the loader's ActNorm to each landed slice in shared
 // memory (and writes it to in_out) before its products.
 //
-// Tile: TM = 64 rows by TN columns (64, or 128 for GATE's 64 channel
-// pairs) of 8 warps, each 16 or 32 rows by 32 columns in m16n8k8 MMAs; rows
-// padded to 36 and TN + 8 floats so fragment reads fall on distinct banks.
-// At most 83 KB of shared memory and 128 registers: two blocks an SM. The
-// accumulators go through shared memory (over the staging buffers) to the
-// epilogue. Each warp splits the fp32 operands it reads into their TF32
-// halves itself: a split once a block into shared memory, and 32-row GATE
-// tiles, measured slower for the forwards (PERF.md, the forwards' variants).
+// Tile (Tile<TN, ROWS, N8>): TM = ROWS rows by TN columns of 8 warps, each
+// MT m16 tiles by N8 n8 tiles in m16n8k8 MMAs: 64 rows by 64 or 128 columns
+// (128 for GATE's 64 channel pairs), warps of 16 or 32 rows by 32 columns,
+// for B3 and B6 and B5's other products; 16 rows by 192 columns, warps of 16
+// by 24, for B5's LayerNorm epilogues, which need a whole 192-channel row in
+// one block (LN, LN_BWD). Rows padded to 36 and TN + 8 floats so fragment
+// reads fall on distinct banks. At most 90 KB of shared memory and 128
+// registers: two blocks an SM. The accumulators go through shared memory
+// (over the staging buffers) to the epilogue. Each warp splits the fp32
+// operands it reads into their TF32 halves itself: a split once a block
+// into shared memory, and 32-row GATE tiles, measured slower for the
+// forwards (PERF.md, the forwards' variants).
 //
 // Numerics: each k-step's three MMAs are added to the accumulators in fp32
 // (as gated_hifi_tiles.cuh:mma_tile), because the tensor cores' fp32
@@ -49,7 +53,6 @@ using conv_rows::Args;
 
 constexpr int NT = conv_rows::NT;  // 256 threads: the epilogue's
 constexpr int KS = 32;             // input channels a k-slice
-constexpr int TM = 64;             // rows a tile
 constexpr int STAGES = 3;          // k-slices in flight
 constexpr int LDA = KS + 4;        // row stride of an activation slice
 
@@ -61,10 +64,15 @@ struct Weight {
   int ld, nk;
 };
 
-template <int TN>
+// A tile of ROWS rows by TN columns: 8 warps of WARPS_M x WARPS_N, each
+// N8 n8 tiles wide and MT m16 tiles high
+template <int TN, int ROWS = 64, int N8 = 4>
 struct Tile {
-  static constexpr int WARPS_M = TN == 128 ? 2 : 4;  // 8 warps: WARPS_M x (8 / WARPS_M), 32 columns each
+  static constexpr int TM = ROWS;
+  static constexpr int WARPS_N = TN / (8 * N8);
+  static constexpr int WARPS_M = 8 / WARPS_N;
   static constexpr int MT = TM / 16 / WARPS_M;       // m16 tiles a warp
+  static_assert(WARPS_M * WARPS_N == 8 && MT * 16 * WARPS_M == TM, "8 warps of whole m16 and n8 tiles");
   static constexpr int LDB_KN = TN + 8;              // row stride of a [k][n] weight slice
   static constexpr int LDB_NK = KS + 4;              // row stride of an [n][k] weight slice
   static constexpr int A_FLOATS = TM * LDA;
@@ -76,10 +84,11 @@ struct Tile {
 
 // k-slice s (tap s / slices, channels from 32 * (s % slices)) into one
 // stage, in 16-byte pieces (WHOLE: whole_pieces) or 4-byte ones
-template <int TN, int EPI, bool WHOLE>
+template <int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4>
 __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weight& wb, int s, int slices, int pad,
                                            int r0, int len, size_t row0) {
-  using S = Tile<TN>;
+  using S = Tile<TN, ROWS, N8>;
+  constexpr int TM = S::TM;
   const int tap = s / slices, c0 = (s % slices) * KS, shift = tap * a.dil - pad;
   float* as = st;
   float* bs = st + S::A_FLOATS;
@@ -133,7 +142,8 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
 }
 
 // ACTNORM_FWD: the loader's ActNorm on a landed slice (one tap), and the
-// rows written to in_out by the first channel tile, as conv_rows' loader
+// rows written to in_out by the first channel tile
+template <int TM>
 __device__ __forceinline__ void actnorm_slice(float* as, const Args& a, int c0, int r0, int len, size_t row0) {
   for (int e = threadIdx.x; e < TM * KS; e += NT) {
     const int r = e / KS, c = e % KS, t = r0 + r, ch = c0 + c;
@@ -148,10 +158,10 @@ __device__ __forceinline__ void actnorm_slice(float* as, const Args& a, int c0, 
 // acc += A B over one k-step of 8 from a stage: as at the step's first
 // column, b at this thread's first B element of the step (b_nt floats to
 // the next n8 tile, b_hi to k + 4: the layout's strides)
-template <int TN>
-__device__ __forceinline__ void mma_kstep(float (&acc)[Tile<TN>::MT][4][4], const float* as, const float* b,
-                                          int b_nt, int b_hi, int row0w, int gr, int qd) {
-  using S = Tile<TN>;
+template <int TN, int ROWS = 64, int N8 = 4>
+__device__ __forceinline__ void mma_kstep(float (&acc)[Tile<TN, ROWS, N8>::MT][N8][4], const float* as,
+                                          const float* b, int b_nt, int b_hi, int row0w, int gr, int qd) {
+  using S = Tile<TN, ROWS, N8>;
   tf32::FragA fa[S::MT];
 #pragma unroll
   for (int mt = 0; mt < S::MT; ++mt) {
@@ -159,7 +169,7 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[Tile<TN>::MT][4][4], cons
     fa[mt] = tf32::frag_a(r[0], r[8 * LDA], r[4], r[8 * LDA + 4]);
   }
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < N8; ++nt) {
     const float* c = b + nt * b_nt;
     const tf32::FragB fb = tf32::frag_b(c[0], c[b_hi]);
 #pragma unroll
@@ -167,9 +177,10 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[Tile<TN>::MT][4][4], cons
   }
 }
 
-template <class Tag, int TAPS, int TN, int EPI, bool WHOLE>
+template <class Tag, int TAPS, int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4>
 __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Weight wb) {
-  using S = Tile<TN>;
+  using S = Tile<TN, ROWS, N8>;
+  constexpr int TM = S::TM;
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, r0 = blockIdx.x * TM;
   const int len = a.lens[b];
@@ -177,16 +188,16 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
   const int pad = (TAPS - 1) / 2 * a.dil;
   const int slices = (a.cin + KS - 1) / KS, n = TAPS * slices;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0w = (warp % S::WARPS_M) * 16 * S::MT, col0w = (warp / S::WARPS_M) * 32;
+  const int row0w = (warp % S::WARPS_M) * 16 * S::MT, col0w = (warp / S::WARPS_M) * 8 * N8;
   const int gr = lane >> 2, qd = lane & 3;
   // this thread's B fragment elements in a stage, in the launch's layout
   const int b_base = wb.nk ? (col0w + gr) * S::LDB_NK + qd : qd * S::LDB_KN + col0w + gr;
   const int b_nt = wb.nk ? 8 * S::LDB_NK : 8, b_hi = wb.nk ? 4 : 4 * S::LDB_KN, b_kk = wb.nk ? 8 : 8 * S::LDB_KN;
 
-  float acc[S::MT][4][4] = {};
+  float acc[S::MT][N8][4] = {};
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n) load_slice<TN, EPI, WHOLE>(smem + s * S::STAGE, a, wb, s, slices, pad, r0, len, row0);
+    if (s < n) load_slice<TN, EPI, WHOLE, ROWS, N8>(smem + s * S::STAGE, a, wb, s, slices, pad, r0, len, row0);
     tf32::cp_async_commit();
   }
   for (int s = 0; s < n; ++s) {
@@ -194,24 +205,24 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
     __syncthreads();  // slice s has landed, and every warp is done with slice s - 1
     float* st = smem + (s % STAGES) * S::STAGE;
     if (EPI == conv_rows::ACTNORM_FWD) {
-      actnorm_slice(st, a, (s % slices) * KS, r0, len, row0);
+      actnorm_slice<TM>(st, a, (s % slices) * KS, r0, len, row0);
       __syncthreads();
     }
     if (s + STAGES - 1 < n)
-      load_slice<TN, EPI, WHOLE>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE, a, wb, s + STAGES - 1, slices, pad,
-                                 r0, len, row0);
+      load_slice<TN, EPI, WHOLE, ROWS, N8>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE, a, wb, s + STAGES - 1,
+                                           slices, pad, r0, len, row0);
     tf32::cp_async_commit();
     const float* bs = st + S::A_FLOATS + b_base;
     // each k-step's three MMAs into their own registers, then added to the
     // accumulators in fp32
 #pragma unroll 1
     for (int kk = 0; kk < KS / 8; ++kk) {
-      float part[S::MT][4][4] = {};
-      mma_kstep<TN>(part, st + 8 * kk, bs + kk * b_kk, b_nt, b_hi, row0w, gr, qd);
+      float part[S::MT][N8][4] = {};
+      mma_kstep<TN, ROWS, N8>(part, st + 8 * kk, bs + kk * b_kk, b_nt, b_hi, row0w, gr, qd);
 #pragma unroll
       for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < N8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
     }
@@ -223,7 +234,7 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
 #pragma unroll
   for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < N8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0w + 16 * mt + gr + 8 * (e / 2), j = col0w + 8 * nt + 2 * qd + e % 2;
@@ -262,23 +273,25 @@ inline bool whole_pieces(const Args& a, const Weight& wb) {
   return in && w;
 }
 
-template <int TN, int EPI, class Kernel>
+template <int TN, int EPI, int ROWS, int N8, class Kernel>
 cudaError_t launch_grid(Kernel kernel, const Args& a, const Weight& wb, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<TN>::SMEM);
+  using S = Tile<TN, ROWS, N8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (err != cudaSuccess) return err;
   const int tiles = EPI == conv_rows::GATE ? (a.hidden + TN / 2 - 1) / (TN / 2) : (a.n_out + TN - 1) / TN;
-  const dim3 grid((a.T + TM - 1) / TM, tiles, B);
-  kernel<<<grid, NT, Tile<TN>::SMEM, stream>>>(a, wb);
+  const dim3 grid((a.T + S::TM - 1) / S::TM, tiles, B);
+  kernel<<<grid, NT, S::SMEM, stream>>>(a, wb);
   return cudaGetLastError();
 }
 
-// One launch: grid (row tiles, channel tiles, B), as conv_rows::launch.
-template <class Tag, int TAPS, int TN, int EPI>
+// One launch: grid (row tiles, channel tiles, B);
+// ROWS x TN tiles of warps N8 n8 tiles wide.
+template <class Tag, int TAPS, int TN, int EPI, int ROWS = 64, int N8 = 4>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const Weight wb = weight_of<TAPS>(a);
   if (whole_pieces<EPI>(a, wb))
-    return launch_grid<TN, EPI>(conv_mma_kernel<Tag, TAPS, TN, EPI, true>, a, wb, B, stream);
-  return launch_grid<TN, EPI>(conv_mma_kernel<Tag, TAPS, TN, EPI, false>, a, wb, B, stream);
+    return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, true, ROWS, N8>, a, wb, B, stream);
+  return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, false, ROWS, N8>, a, wb, B, stream);
 }
 
 // Resident blocks per SM of a kernel at NT threads and `smem` bytes of

@@ -1,8 +1,8 @@
-// A row-tiled 1-D convolution over [B, T, C] activations with fused
-// epilogues, for B5's kernels (enc_layer_{fwd,bwd}.cu). fp32 on the CUDA
-// cores. Its Args and epilogues (CONV_ROWS_EPILOGUE) also serve
-// conv_mma.cuh's tensor-core tiles, which B3's and B6's kernels run
-// (MASK, GATE, GATE_BWD, ACTNORM_FWD and ACTNORM_BWD are theirs alone).
+// The arguments and the fused epilogues of a row-tiled 1-D convolution over
+// [B, T, C] activations, which conv_mma.cuh runs on the tensor cores for the
+// Glow-TTS kernels (B3's and B6's epilogues MASK, GATE, GATE_BWD,
+// ACTNORM_FWD and ACTNORM_BWD; B5's RELU_MASK, LN, LN_BWD and DRELU; both
+// BIAS and RES_SKIP).
 //
 //   z[b, t, n] = bias[n] + sum_{tap, c} in[b, t + tap * dil - pad, c] * w[n, c, tap]
 //
@@ -14,12 +14,8 @@
 // transposed ([c_in, n_out, taps]) and is read as w[c, n, taps - 1 - tap]:
 // the launch then computes that conv's input gradient. Input channels at or
 // past `split` come from in2 (rows ldi2 apart) when in2 is set. bias may be
-// null. Each block computes TR rows of one sequence and TN output channels:
-// the input rows (with the halo) and the weights stream through shared
-// memory KC input channels at a time; each of the 256 threads accumulates
-// RM = TR / 8 rows by RN = TN / 32 channels in registers (rows broadcast,
-// channels 32 apart, so shared-memory reads are conflict-free). The tile of
-// z then goes through shared memory to the epilogue:
+// null. A block computes TR rows of one sequence and TN output channels and
+// hands its tile of z, in shared memory, to the epilogue:
 //   BIAS      out = z
 //   MASK      out = z * valid(t)
 //   RELU_MASK out = max(z, 0) * drop * valid(t)
@@ -64,8 +60,7 @@ namespace conv_rows {
 enum Epilogue : int { BIAS = 0, MASK = 1, RELU_MASK = 2, GATE = 3, RES_SKIP = 4, LN = 5, GATE_BWD = 6,
                       LN_BWD = 7, DRELU = 8, ACTNORM_FWD = 9, ACTNORM_BWD = 10 };
 
-constexpr int NT = 256;  // threads per block: 32 channel groups x 8 row groups
-constexpr int KC = 16;   // input channels per shared-memory stage
+constexpr int NT = 256;  // threads per block
 
 struct Args {
   const float* in;
@@ -106,13 +101,6 @@ struct Args {
   int T;
 };
 
-template <int TAPS, int TR, int TN>
-inline size_t smem_bytes(int dil) {
-  const int pad = (TAPS - 1) / 2 * dil;
-  return sizeof(float) * ((size_t)(TR + 2 * pad) * KC + (size_t)KC * TAPS * (TN + 1) +
-                          (size_t)TR * (TN + 1));
-}
-
 template <int TN, int EPI>
 __device__ __forceinline__ bool out_column(const Args& a, int j, int* col) {
   if (EPI == GATE) {
@@ -131,9 +119,8 @@ __device__ __forceinline__ float drop_factor(const Args& a, uint32_t key, int t,
   return hash_draw(key, (uint32_t)t * (uint32_t)a.drop_ld + (uint32_t)col) >= a.threshold ? a.keep_scale : 0.0f;
 }
 
-// The epilogue of a tile, shared by this header's kernel and conv_mma.cuh's
-// tensor-core one (a macro, so this kernel compiles as it did before the
-// tensor-core one shared it): the tile's TR rows start at r0 of the
+// The epilogue of a tile, run by conv_mma.cuh's kernel (a macro: as an
+// inline function it moved kernels' registers, PERF.md): the tile's TR rows start at r0 of the
 // sequence whose rows start at row0 and whose length is len; zs holds z,
 // the product plus the bias, for TR rows by TN columns (rows TN + 1 floats
 // apart); a, key, tid, tx and ty are the kernel's (NT threads).
@@ -244,102 +231,5 @@ _Pragma("unroll")                                                               
       a.out[row * a.ldo + col] = v;                                                                                \
     }                                                                                                              \
   }
-
-template <class Tag, int TAPS, int TR, int TN, int EPI>
-__global__ void __launch_bounds__(NT) conv_rows_kernel(Args a) {
-  constexpr int RM = TR / 8, RN = TN / 32;
-  extern __shared__ float smem[];
-  const int pad = (TAPS - 1) / 2 * a.dil;
-  const int xrows = TR + 2 * pad;
-  float* xs = smem;                         // [xrows][KC]
-  float* ws = xs + xrows * KC;              // [KC * TAPS][TN + 1]
-  float* zs = ws + KC * TAPS * (TN + 1);    // [TR][TN + 1]
-
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-  const int b = blockIdx.z, r0 = blockIdx.x * TR;
-  const int len = a.lens[b];
-  const size_t row0 = (size_t)b * a.T;
-  const uint32_t key =
-      a.threshold ? stream_key((uint32_t)a.seed[0], (uint32_t)(b * a.stream_mul + a.stream_add)) : 0u;
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int q = 0; q < RN; ++q) acc[r][q] = 0.0f;
-
-  for (int c0 = 0; c0 < a.cin; c0 += KC) {
-    for (int e = tid; e < xrows * KC; e += NT) {
-      const int rr = e / KC, c = e % KC, t = r0 - pad + rr, ch = c0 + c;
-      float x = 0.0f;
-      if (t >= 0 && t < a.T && ch < a.cin && (!a.mask_in || t < len))
-        x = (a.in2 && ch >= a.split) ? a.in2[(row0 + t) * a.ldi2 + (ch - a.split)] : a.in[(row0 + t) * a.ldi + ch];
-      xs[rr * KC + c] = x;
-    }
-    for (int e = tid; e < TN * KC * TAPS; e += NT) {
-      const int j = e / (KC * TAPS), kk = e % (KC * TAPS), ch = c0 + kk / TAPS, tap = kk % TAPS;
-      int col;
-      float wv = 0.0f;
-      if (out_column<TN, EPI>(a, j, &col) && ch < a.cin)
-        wv = a.wt ? a.w[((size_t)ch * a.n_out + col) * TAPS + (TAPS - 1 - tap)]
-                  : a.w[((size_t)col * a.cin + ch) * TAPS + tap];
-      ws[kk * (TN + 1) + j] = wv;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC * TAPS; ++kk) {
-      const int c = kk / TAPS, tap = kk % TAPS;
-      float xv[RM], wv[RN];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) xv[r] = xs[(ty * RM + r + tap * a.dil) * KC + c];
-#pragma unroll
-      for (int q = 0; q < RN; ++q) wv[q] = ws[kk * (TN + 1) + tx + 32 * q];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int q = 0; q < RN; ++q) acc[r][q] = fmaf(xv[r], wv[q], acc[r][q]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < RN; ++q) {
-    int col;
-    const int j = tx + 32 * q;
-    const float bv = (a.bias && out_column<TN, EPI>(a, j, &col)) ? a.bias[col] : 0.0f;
-#pragma unroll
-    for (int r = 0; r < RM; ++r) zs[(ty * RM + r) * (TN + 1) + j] = acc[r][q] + bv;
-  }
-  __syncthreads();
-
-  CONV_ROWS_EPILOGUE
-}
-
-// One launch: grid (row tiles, channel tiles, B).
-template <class Tag, int TAPS, int TR, int TN, int EPI>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TAPS, TR, TN>(a.dil);
-  auto kernel = conv_rows_kernel<Tag, TAPS, TR, TN, EPI>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int tiles;
-  if (EPI == GATE) tiles = (a.hidden + TN / 2 - 1) / (TN / 2);
-  else if (EPI == LN || EPI == LN_BWD) tiles = 1;
-  else tiles = (a.n_out + TN - 1) / TN;
-  const dim3 grid((a.T + TR - 1) / TR, tiles, B);
-  kernel<<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// The same with the number of taps chosen at run time (1, 3 or 5).
-template <class Tag, int TR, int TN, int EPI>
-cudaError_t launch_taps(int taps, const Args& a, int B, cudaStream_t stream) {
-  switch (taps) {
-    case 1: return launch<Tag, 1, TR, TN, EPI>(a, B, stream);
-    case 3: return launch<Tag, 3, TR, TN, EPI>(a, B, stream);
-    case 5: return launch<Tag, 5, TR, TN, EPI>(a, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace conv_rows

@@ -1,5 +1,6 @@
 // One Glow-TTS text-encoder layer's recompute backward for Hopper (sm_90a),
-// fp32, with the forward's dropout masks regenerated in-kernel.
+// fp32 at the interfaces, its products in 3xTF32 on the tensor cores, with
+// the forward's dropout masks regenerated in-kernel.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, function
 // _vjp_bwd -> pallas_call(_bwd_kernel), the custom VJP of fused_enc_layer.
@@ -21,7 +22,7 @@
 //     dq_i = sum_j ds k_j + sum_o dclog[i, o] R_k[o], dclog = band(ds)
 //     dk_j = sum_i ds q_i;  dv_j = sum_i p keep_P doh_i
 //   dx = (dz1 + dq W_q^T + dk W_k^T + dv W_v^T) * valid
-//   and every weight's gradient over the B * T rows (wgrad_rows.cuh):
+//   and every weight's gradient over the B * T rows:
 //   W_{q,k,v} from (xm, dq|dk|dv), W_o from (oh, dy), W_1 from (x1 * valid
 //   shifted by each tap, dc1), W_2 from (h shifted, dc2), R_k from (q,
 //   band(ds)) and R_v from (doh, band(p keep_P)) summed over rows and heads
@@ -29,37 +30,51 @@
 //   the biases as column sums.
 //
 // What bounds it on an H100: operations, 3x the forward's: about 9.8 GFLOP
-// over the valid rows and pairs at (8, 256), 0.15 ms at 67 TFLOP/s.
+// over the valid rows and pairs at (8, 256), 0.15 ms at 67 TFLOP/s of fp32
+// on the CUDA cores, 0.06 ms at 3 x 9.8 GFLOP over 495 TFLOP/s of TF32.
 //
 // Design. The TPU kernel holds one sequence per program in VMEM. Here the
 // attention backward takes B2's design (attention_bwd.cu), 4 threads a row
-// as in the forward: a dq kernel (grid (64-query tile, head, sequence)) that
-// recomputes P from the saved (max, sum) with K and V streamed through
-// shared memory, writes delta, and keeps each row's 2w + 1 band values of ds
-// and of the dropped P in registers (dq's R_k term, and the inputs of R_k's
-// and R_v's gradients); and a dk/dv kernel (grid (64-key tile, head,
-// sequence)) with q, doh, the rows' statistics and their band dots with R_k
-// and R_v streamed through shared memory. No [T, T] tensor touches memory.
-// Only valid (query, key) pairs are visited: the plain version's -1e4 fill
-// gives them probability 0 in fp32. The LayerNorm backwards are the epilogue
-// of a launch that holds whole 192-channel rows (LN2's with no product
-// before it, LN1's after conv_k^T(dc1, W_1)); the other transposed products
-// are launches of conv_rows.cuh reading their weights transposed, and the
-// weight gradients one fixed-order split-over-time reduction, so two calls
-// are bitwise equal. One call: 7 recompute launches, 6 products with
-// epilogues, 2 attention kernels, 3 for dx, 2 reduction launches.
+// as in the forward, fp32 on the CUDA cores (a fifth of a call's time before
+// the products moved: PERF.md): a dq kernel (grid (32-query tile, head,
+// sequence)) that recomputes P from the saved (max, sum) with K and V
+// streamed through shared memory, writes delta, and keeps each row's 2w + 1
+// band values of ds and of the dropped P in registers (dq's R_k term, and
+// the inputs of R_k's and R_v's gradients); and a dk/dv kernel (grid (32-key
+// tile, head, sequence)) with q, doh, the rows' statistics and their band
+// dots with R_k and R_v streamed through shared memory. No [T, T] tensor
+// touches memory. Only valid (query, key) pairs are visited: the plain
+// version's -1e4 fill gives them probability 0 in fp32. Every product runs
+// on the tensor cores in 3xTF32 (conv_mma.cuh, each k-step's MMAs added in
+// fp32): the recompute is the forward's chain (enc_layer_common.cuh) on the
+// packed weights, one packing launch giving the forward's copies and the
+// FFN convs' transposes (tap-flipped, read as shifted k-slices as the
+// forward's taps are); the LayerNorm backwards are the epilogue of launches
+// on 16-row tiles of the whole 192-channel row (LN2's with no product before
+// it, LN1's after conv_k^T(dc1, W_1)); conv_k^T(dc2, W_2) with the relu's
+// derivative and doh = dy W_o on 64-row tiles; dx in one product of depth
+// 3C, dq|dk|dv against the packed [3C, C] weight, with dz1 added in the
+// epilogue. The weight gradients are two fixed-order split-over-frames
+// reductions: the products of one group a frame (W_q, W_k, W_v, W_o, each
+// tap of W_1 and W_2, their biases) with the frames as the tensor cores'
+// k (wgrad_mma.cuh), the head-grouped R_k and R_v and the LayerNorms'
+// diagonal gains on the CUDA cores (wgrad_rows.cuh); no atomics, so two
+// calls are bitwise equal. One call: a packing launch, 5 recompute
+// launches, 5 products with epilogues, 2 attention kernels and 4 reduction
+// launches (17).
 
 #include <cuda_runtime.h>
 
 #include <vector>
 
 #include "enc_layer_common.cuh"
+#include "wgrad_mma.cuh"
 #include "wgrad_rows.cuh"
 
 namespace enc_layer {
 namespace {
 
-struct EncBwdTag {};
+struct LayerBwdTag {};
 
 // the buffers, in ops/enc_layer.py:backward_buffer_shapes order
 enum Buf : int { QKV, ATT, STATS, X1, ZHAT1, RINV1, HID, OUT, ZHAT2, RINV2, DZ2, GM, DC2, DC1, DZ1, DX1, DY, DATT,
@@ -257,90 +272,110 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
 }
 
 // Every weight gradient as a reduction problem (pointers may be null when
-// only the partials' size is wanted).
-std::vector<wgrad_rows::Problem> problems(const float* x, float* const* d, float* const* bufs, const Shape& sh) {
+// only the workspace's size is wanted): the tensor cores' (one group a
+// frame), each list laid out with its slices, then the CUDA cores'
+// (head-grouped, diagonal).
+struct Problems {
+  std::vector<wgrad_rows::Problem> mma, rows;
+  int mma_split, rows_split;
+  long long mma_floats, rows_floats;
+};
+
+Problems problems(const float* x, float* const* d, float* const* bufs, const Shape& sh) {
   using wgrad_rows::problem;
   const int C = sh.C, F = sh.F, k = sh.kernel_size, H = sh.n_heads, R = 2 * sh.window + 1;
   auto buf = [bufs](int i) -> float* { return bufs ? bufs[i] : nullptr; };
   auto grad = [d](int i) -> float* { return d ? d[i] : nullptr; };
   auto at = [](const float* p, size_t off) -> const float* { return p ? p + off : nullptr; };
-  std::vector<wgrad_rows::Problem> probs;
+  Problems f;
   for (int i = 0; i < 3; ++i) {  // q, k, v
     wgrad_rows::Problem p = problem(x, C, C, at(buf(DQKV), i * C), 3 * C, C, grad(WQ + 2 * i), C, 1);
     p.mask_x = 1;
     p.out_b = grad(BQ + 2 * i);
-    probs.push_back(p);
+    f.mma.push_back(p);
   }
   wgrad_rows::Problem p = problem(buf(ATT), C, C, buf(DY), C, C, grad(WO), C, 1);
   p.out_b = grad(BO);
-  probs.push_back(p);
+  f.mma.push_back(p);
   for (int j = 0; j < k; ++j) {
     p = problem(buf(X1), C, C, buf(DC1), F, F, grad(W1) ? grad(W1) + j : nullptr, C * k, k);
     p.shift = j - (k - 1) / 2;
     p.mask_x = 1;
     p.out_b = j == 0 ? grad(B1) : nullptr;
-    probs.push_back(p);
+    f.mma.push_back(p);
     p = problem(buf(HID), F, F, buf(DC2), C, C, grad(W2) ? grad(W2) + j : nullptr, F * k, k);
     p.shift = j - (k - 1) / 2;
     p.out_b = j == 0 ? grad(B2) : nullptr;
-    probs.push_back(p);
+    f.mma.push_back(p);
   }
+  const long long tiles = wgrad_mma::assign_tiles(f.mma);
+  f.mma_split = wgrad_mma::splits<LayerBwdTag>(tiles, (long long)sh.B * sh.T);
+  f.mma_floats = tiles * f.mma_split * wgrad_mma::PART;
   p = problem(buf(QKV), 3 * C, HEAD_DIM, buf(DCLOG), H * R, R, grad(RK), HEAD_DIM, 1);
   p.groups = H; p.gx = HEAD_DIM; p.gy = R;
-  probs.push_back(p);
+  f.rows.push_back(p);
   p = problem(buf(DATT), C, HEAD_DIM, buf(BANDP), H * R, R, grad(RV), HEAD_DIM, 1);
   p.groups = H; p.gx = HEAD_DIM; p.gy = R;
-  probs.push_back(p);
+  f.rows.push_back(p);
   p = problem(buf(ZHAT1), C, C, buf(DX1), C, C, grad(G1), 1, 0);
   p.diag = 1;
   p.out_b = grad(BE1);
-  probs.push_back(p);
+  f.rows.push_back(p);
   p = problem(buf(ZHAT2), C, C, buf(GM), C, C, grad(G2), 1, 0);
   p.diag = 1;
   p.out_b = grad(BE2);
-  probs.push_back(p);
-  return probs;
+  f.rows.push_back(p);
+  // four light problems of 2-3 tiles each: slices of 64 frames (at most 64) spread them over the card
+  const long long frames = (long long)sh.B * sh.T;
+  f.rows_split = (int)((frames + 63) / 64 < 64 ? (frames + 63) / 64 : 64);
+  f.rows_floats = wgrad_rows::assign_partials(f.rows, f.rows_split);
+  return f;
 }
 
 }  // namespace
 }  // namespace enc_layer
 
-// Floats of the partials buffer enc_layer_bwd needs.
-extern "C" long enc_layer_bwd_partial_floats(int B, int T, int C, int n_heads, int window, int F, int kernel_size,
-                                             int n_split) {
+// Floats of the workspace enc_layer_bwd needs: the packed weights, then the
+// two reductions' partials (-1 for a shape the kernels do not take).
+extern "C" long enc_layer_bwd_workspace_floats(int B, int T, int C, int n_heads, int window, int F,
+                                               int kernel_size) {
   using namespace enc_layer;
   const Shape sh{B, T, C, n_heads, window, F, kernel_size, 0.0f};
-  if (!valid_shape(sh) || n_split < 1) return -1;
-  std::vector<wgrad_rows::Problem> probs = problems(nullptr, nullptr, nullptr, sh);
-  return (long)wgrad_rows::assign_partials(probs, n_split);
+  if (!valid_shape(sh)) return -1;
+  const Problems f = problems(nullptr, nullptr, nullptr, sh);
+  if (f.mma_split < 1) return -1;
+  return (long)(packed_floats(sh, true) + f.mma_floats + f.rows_floats);
 }
 
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
 // x, lens, seed and the 18 weights (`params`, PARAM_NAMES order) as for
 // enc_layer_fwd; g [B, T, C] contiguous; outputs dx [B, T, C] and the 18
 // gradients (`grads`, the weights' layouts); `bufs` the 22 device buffers of
-// ops/enc_layer.py:backward_buffer_shapes and `partials`
-// (enc_layer_bwd_partial_floats).
+// ops/enc_layer.py:backward_buffer_shapes and `workspace`
+// (enc_layer_bwd_workspace_floats).
 extern "C" int enc_layer_bwd(const float* x, const int* lens, const long long* seed, const float* g,
                              const float* const* params, float* dx, float* const* grads, float* const* bufs,
-                             float* partials, int B, int T, int C, int n_heads, int window, int F,
-                             int kernel_size, float eps, unsigned threshold, float keep_scale, int n_split,
-                             void* stream) {
+                             float* workspace, int B, int T, int C, int n_heads, int window, int F,
+                             int kernel_size, float eps, unsigned threshold, float keep_scale, void* stream) {
   using namespace enc_layer;
   using namespace conv_rows;
   const Shape sh{B, T, C, n_heads, window, F, kernel_size, eps};
-  if (!valid_shape(sh) || n_split < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(sh)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* const* p = params;
   const Weights w{p[WQ], p[BQ], p[WK], p[BK], p[WV], p[BV], p[RK], p[RV], p[WO], p[BO], p[G1], p[BE1],
                   p[W1], p[B1], p[W2], p[B2], p[G2], p[BE2]};
   const Dropout drop{seed, threshold, keep_scale};
   float2* stats = reinterpret_cast<float2*>(bufs[STATS]);
-  cudaError_t err = forward_chain<EncBwdTag>(x, lens, w, sh, drop, bufs[OUT], bufs[QKV], bufs[ATT], stats,
-                                             bufs[X1], bufs[ZHAT1], bufs[RINV1], bufs[HID], bufs[ZHAT2],
-                                             bufs[RINV2], s);
+  Packed pk;
+  cudaError_t err = pack<LayerBwdTag>(w, sh, true, workspace, &pk, s);
+  if (err != cudaSuccess) return (int)err;
+  err = forward_chain<LayerBwdTag>(x, lens, w, pk, sh, drop, bufs[OUT], bufs[QKV], bufs[ATT], stats, bufs[X1],
+                                   bufs[ZHAT1], bufs[RINV1], bufs[HID], bufs[ZHAT2], bufs[RINV2], s);
   if (err != cudaSuccess) return (int)err;
 
+  // the transposed products read their weights transposed: 1x1 ones as [cin][n_out]
+  // rows (wt), the FFN convs' from the packed tap-flipped copies
   Args a{};
   a.lens = lens; a.T = T; a.dil = 1; a.wt = 1;
   a.seed = seed; a.threshold = threshold; a.keep_scale = keep_scale; a.stream_mul = ENC_STREAMS;
@@ -351,55 +386,77 @@ extern "C" int enc_layer_bwd(const float* x, const int* lens, const long long* s
   l2.zhat = bufs[ZHAT2]; l2.rinv = bufs[RINV2]; l2.ldz = C; l2.gamma = w.g2;
   l2.out2 = bufs[GM]; l2.out3 = bufs[DC2];
   l2.stream_add = SITE_FFN_Y * 16; l2.drop_ld = C;
-  err = launch<EncBwdTag, 1, 16, 192, LN_BWD>(l2, B, s);
+  err = product<LayerBwdTag, 1, LN_TN, LN_BWD>(l2, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args f2 = a;  // dc1 = conv^T(dc2, W_2) where the relu kept the row (h > 0), times the keep scale
   f2.in = bufs[DC2]; f2.ldi = C; f2.cin = C; f2.mask_in = 1;
-  f2.w = w.w2; f2.n_out = F; f2.out = bufs[DC1]; f2.ldo = F; f2.res = bufs[HID]; f2.ldr = F;
-  err = launch_taps<EncBwdTag, 32, 64, DRELU>(kernel_size, f2, B, s);
+  f2.w = pk.w2t; f2.n_out = F; f2.out = bufs[DC1]; f2.ldo = F; f2.res = bufs[HID]; f2.ldr = F;
+  err = product_taps<LayerBwdTag, 128, DRELU>(kernel_size, f2, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args f1 = a;  // dx1 = dz2 + conv^T(dc1, W_1) * valid, then LN1's backward; dy = dz1 * keep_Y * valid
   f1.in = bufs[DC1]; f1.ldi = F; f1.cin = F; f1.mask_in = 1;
-  f1.w = w.w1; f1.n_out = C; f1.out = bufs[DZ1]; f1.ldo = C;
+  f1.w = pk.w1t; f1.n_out = C; f1.out = bufs[DZ1]; f1.ldo = C;
   f1.res = bufs[DZ2]; f1.ldr = C; f1.mask_res = 0; f1.mask_acc = 1;
   f1.zhat = bufs[ZHAT1]; f1.rinv = bufs[RINV1]; f1.ldz = C; f1.gamma = w.g1;
   f1.out2 = bufs[DX1]; f1.out3 = bufs[DY];
   f1.stream_add = SITE_ATTN_Y * 16; f1.drop_ld = C;
-  err = launch_taps<EncBwdTag, 16, 192, LN_BWD>(kernel_size, f1, B, s);
+  err = product_taps<LayerBwdTag, LN_TN, LN_BWD>(kernel_size, f1, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args o = a;  // doh = dy W_o^T
   o.in = bufs[DY]; o.ldi = C; o.cin = C; o.mask_in = 0;
   o.w = w.wo; o.n_out = C; o.out = bufs[DATT]; o.ldo = C;
-  err = launch<EncBwdTag, 1, 32, 64, BIAS>(o, B, s);
+  err = product<LayerBwdTag, 1, 64, BIAS>(o, B, s);
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid((T + ROWS - 1) / ROWS, n_heads, B);
   const float scale = 1.0f / sqrtf((float)HEAD_DIM);
-  enc_attention_bwd_dq_kernel<EncBwdTag><<<grid, ATT_THREADS, 0, s>>>(
+  enc_attention_bwd_dq_kernel<LayerBwdTag><<<grid, ATT_THREADS, 0, s>>>(
       bufs[QKV], bufs[ATT], bufs[DATT], stats, w.rk, w.rv, lens, bufs[DQKV], bufs[DELTA], bufs[DCLOG],
       bufs[BANDP], T, C, window, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // same stream: this kernel reads the delta the dq kernel wrote
-  enc_attention_bwd_dkdv_kernel<EncBwdTag><<<grid, ATT_THREADS, 0, s>>>(
+  enc_attention_bwd_dkdv_kernel<LayerBwdTag><<<grid, ATT_THREADS, 0, s>>>(
       bufs[QKV], bufs[DATT], stats, bufs[DELTA], w.rk, w.rv, lens, bufs[DQKV], T, C, window, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const float* w3[3] = {w.wq, w.wk, w.wv};
-  for (int i = 0; i < 3; ++i) {  // dx = (dz1 + dq W_q^T + dk W_k^T + dv W_v^T) * valid
-    Args t = a;
-    t.in = bufs[DQKV] + i * C; t.ldi = 3 * C; t.cin = C; t.mask_in = 0;
-    t.w = w3[i]; t.n_out = C; t.out = dx; t.ldo = C;
-    t.res = i == 0 ? bufs[DZ1] : dx; t.ldr = C; t.hidden = 0;
-    err = launch<EncBwdTag, 1, 32, 64, RES_SKIP>(t, B, s);
-    if (err != cudaSuccess) return (int)err;
-  }
+  Args t = a;  // dx = (dz1 + [dq|dk|dv] [W_q; W_k; W_v]) * valid: one product of depth 3C
+  t.in = bufs[DQKV]; t.ldi = 3 * C; t.cin = 3 * C; t.mask_in = 0;
+  t.w = pk.wqkv; t.n_out = C; t.out = dx; t.ldo = C;
+  t.res = bufs[DZ1]; t.ldr = C; t.hidden = 0;
+  err = product<LayerBwdTag, 1, LN_TN, RES_SKIP>(t, B, s);
+  if (err != cudaSuccess) return (int)err;
 
-  std::vector<wgrad_rows::Problem> probs = problems(x, grads, bufs, sh);
-  wgrad_rows::assign_partials(probs, n_split);
-  return (int)wgrad_rows::run<EncBwdTag>(probs, lens, B, T, n_split, partials, s);
+  const Problems f = problems(x, grads, bufs, sh);
+  if (f.mma_split < 1) return (int)cudaErrorInvalidValue;
+  float* partials = workspace + packed_floats(sh, true);
+  err = wgrad_mma::run<LayerBwdTag>(f.mma, lens, B, T, f.mma_split, partials, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wgrad_rows::run<LayerBwdTag>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);
+}
+
+// The tensor-core kernels' resident blocks per SM and dynamic shared memory
+// bytes at their launches: the 16-row LayerNorm tile of 192 columns (FFN
+// conv 2 + LN1's backward, k = 3), the 64 x 128 FFN conv (the transposed
+// one, k = 3), the 64 x 64 1x1 product, the weight-gradient slices. Returns
+// a cudaError_t.
+extern "C" int enc_layer_bwd_blocks_per_sm(int* blocks, long long* smem) {
+  using namespace conv_rows;
+  using enc_layer::LayerBwdTag;
+  const void* kernels[4] = {
+      (const void*)conv_mma::conv_mma_kernel<LayerBwdTag, 3, enc_layer::LN_TN, LN_BWD, true, 16, 3>,
+      (const void*)conv_mma::conv_mma_kernel<LayerBwdTag, 3, 128, DRELU, true>,
+      (const void*)conv_mma::conv_mma_kernel<LayerBwdTag, 1, 64, BIAS, true>,
+      (const void*)wgrad_mma::wgrad_mma_kernel<LayerBwdTag, true>};
+  const size_t bytes[4] = {conv_mma::Tile<enc_layer::LN_TN, 16, 3>::SMEM, conv_mma::Tile<128>::SMEM,
+                           conv_mma::Tile<64>::SMEM, wgrad_mma::SMEM};
+  for (int i = 0; i < 4; ++i) {
+    blocks[i] = conv_mma::blocks_per_sm(kernels[i], bytes[i]);
+    smem[i] = (long long)bytes[i];
+  }
+  return (int)cudaGetLastError();
 }

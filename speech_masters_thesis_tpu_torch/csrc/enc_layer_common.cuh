@@ -1,6 +1,8 @@
 // One Glow-TTS text-encoder layer's forward, shared by the forward kernel
 // (enc_layer_fwd.cu) and the backward's recompute (enc_layer_bwd.cu): the
-// windowed relative attention kernel and the chain of launches around it.
+// windowed relative attention kernel, the packing of the weights the
+// products read, and the chain of launches around them. The products run on
+// the tensor cores in 3xTF32 (conv_mma.cuh), with conv_rows.cuh's epilogues.
 //
 // Dropout (threshold 0: none; ops/enc_layer.py computes the same bits): the
 // attention probabilities of head h draw from stream b * ENC_STREAMS +
@@ -13,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "conv_mma.cuh"
 #include "conv_rows.cuh"
 
 namespace enc_layer {
@@ -22,7 +25,7 @@ constexpr int MAX_WINDOW = 8;    // ops/_build.py ENC_MAX_WINDOW
 constexpr int MAX_REL = 2 * MAX_WINDOW + 1;
 constexpr int PARTS = 4;         // threads per query (or key) row
 constexpr int DP = HEAD_DIM / PARTS;
-constexpr int ROWS = 64;         // rows per block
+constexpr int ROWS = 32;         // query (or key) rows per block: 128 blocks at (8, 256), not 64 (PERF.md)
 constexpr int ATT_THREADS = ROWS * PARTS;
 constexpr int KT = 32;           // rows per shared-memory tile
 constexpr int CHUNK = 16;        // keys per softmax update
@@ -39,6 +42,16 @@ struct Shape {
   float eps;
 };
 
+// What the products read in place of some weights (pack): W_q, W_k and W_v
+// as one [3C, C] weight and their biases as one [3C]; for k > 1 the FFN's
+// convs tap-major, W_1 as [k][C][F] and W_2 as [k][F][C] (the conv's
+// form), and for the backward their transposes tap-flipped, W_2's as
+// [k][C][F] and W_1's as [k][F][C]. For k = 1 the FFN's weights are read
+// as they are (w1t, w2t too: the backward's launches read them transposed).
+struct Packed {
+  const float *wqkv, *bqkv, *w1, *w2, *w1t, *w2t;
+};
+
 struct Dropout {
   const long long* seed;
   unsigned threshold;
@@ -48,6 +61,114 @@ struct Dropout {
 inline bool valid_shape(const Shape& s) {
   return s.B >= 1 && s.B <= 65535 && s.T >= 1 && s.C == 192 && s.C == s.n_heads * HEAD_DIM && s.window >= 0 &&
          s.window <= MAX_WINDOW && s.F >= 1 && (s.kernel_size == 1 || s.kernel_size == 3 || s.kernel_size == 5);
+}
+
+// Floats of the packed weights (the forward's, or with `backward` the
+// transposes too).
+inline size_t packed_floats(const Shape& s, bool backward) {
+  const size_t C = s.C, F = s.F, k = s.kernel_size;
+  return 3 * C * C + 3 * C + (k > 1 ? (backward ? 4 : 2) * k * C * F : 0);
+}
+
+// One copy of the packing launch: src [n_out, cin, taps] (PyTorch's Conv1d
+// layout) into dst as [taps][cin][n_out] (form 0: the conv) or
+// [taps][n_out][cin] tap-flipped (form 1: its transpose; with one tap and
+// one output a plain copy), as conv_mma::pack_weights_kernel's forms.
+struct PackJob {
+  const float* src;
+  float* dst;
+  int n_out, cin, taps, form;
+};
+
+constexpr int MAX_PACK_JOBS = 10;
+
+struct PackJobs {
+  PackJob job[MAX_PACK_JOBS];
+  int n;
+};
+
+template <class Tag>
+__global__ void __launch_bounds__(conv_mma::NT) enc_pack_kernel(const PackJobs p) {
+  const PackJob& j = p.job[blockIdx.y];
+  const int size = j.taps * j.n_out * j.cin;
+  for (int e = blockIdx.x * conv_mma::NT + threadIdx.x; e < size; e += gridDim.x * conv_mma::NT) {
+    int tap, c, n, v;
+    if (j.form == 0) {  // dst[tap][c][n] = src[n][c][tap], c < cin, n < n_out
+      tap = e / (j.cin * j.n_out);
+      c = e / j.n_out % j.cin;
+      n = e % j.n_out;
+      v = (n * j.cin + c) * j.taps + tap;
+    } else {  // dst[tap][c][n] = src[c][n][taps - 1 - tap], c < n_out, n < cin
+      tap = e / (j.n_out * j.cin);
+      c = e / j.cin % j.n_out;
+      n = e % j.cin;
+      v = (c * j.cin + n) * j.taps + (j.taps - 1 - tap);
+    }
+    j.dst[e] = j.src[v];
+  }
+}
+
+// The packed weights into `ws` (packed_floats(sh, backward)) in one launch.
+template <class Tag>
+cudaError_t pack(const Weights& w, const Shape& sh, bool backward, float* ws, Packed* pk, cudaStream_t s) {
+  const int C = sh.C, F = sh.F, k = sh.kernel_size;
+  PackJobs p{};
+  auto add = [&p](const float* src, float* dst, int n_out, int cin, int taps, int form) {
+    p.job[p.n++] = PackJob{src, dst, n_out, cin, taps, form};
+  };
+  float* wqkv = ws;
+  float* bqkv = wqkv + (size_t)3 * C * C;
+  const float* w3[3] = {w.wq, w.wk, w.wv};
+  const float* b3[3] = {w.bq, w.bk, w.bv};
+  for (int i = 0; i < 3; ++i) {
+    add(w3[i], wqkv + (size_t)i * C * C, C, C, 1, 1);
+    add(b3[i], bqkv + (size_t)i * C, 1, C, 1, 1);
+  }
+  *pk = Packed{wqkv, bqkv, w.w1, w.w2, w.w1, w.w2};
+  if (k > 1) {
+    const size_t size = (size_t)k * C * F;
+    float* f = bqkv + 3 * C;
+    add(w.w1, f, F, C, k, 0);
+    add(w.w2, f + size, C, F, k, 0);
+    pk->w1 = f;
+    pk->w2 = f + size;
+    if (backward) {
+      add(w.w2, f + 2 * size, C, F, k, 1);
+      add(w.w1, f + 3 * size, F, C, k, 1);
+      pk->w2t = f + 2 * size;
+      pk->w1t = f + 3 * size;
+    }
+  }
+  int most = 0;
+  for (int i = 0; i < p.n; ++i) {
+    const int size = p.job[i].taps * p.job[i].n_out * p.job[i].cin;
+    most = size > most ? size : most;
+  }
+  const dim3 grid((most + 4 * conv_mma::NT - 1) / (4 * conv_mma::NT), p.n);
+  enc_pack_kernel<Tag><<<grid, conv_mma::NT, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// A product of the chain on conv_mma.cuh: 64-row tiles of TN = 64 or 128
+// columns, or with TN = LN_TN tiles of 16 rows by the whole 192-channel row
+// (warps of 16 x 24), which the LayerNorm epilogues need (and which gives
+// 2,048 rows 128 blocks, about one wave of the card).
+constexpr int LN_TN = 192;
+
+template <class Tag, int TAPS, int TN, int EPI>
+cudaError_t product(const conv_rows::Args& a, int B, cudaStream_t s) {
+  return conv_mma::launch<Tag, TAPS, TN, EPI, TN == LN_TN ? 16 : 64, TN == LN_TN ? 3 : 4>(a, B, s);
+}
+
+// The same with the number of taps chosen at run time (1, 3 or 5).
+template <class Tag, int TN, int EPI>
+cudaError_t product_taps(int taps, const conv_rows::Args& a, int B, cudaStream_t s) {
+  switch (taps) {
+    case 1: return product<Tag, 1, TN, EPI>(a, B, s);
+    case 3: return product<Tag, 3, TN, EPI>(a, B, s);
+    case 5: return product<Tag, 5, TN, EPI>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // the dropout factor of (query r, key c) of one head's probabilities
@@ -180,13 +301,14 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_kernel(const float*
   }
 }
 
-// The layer's forward launches: q, k, v, attention, W_o + LN1, FFN conv 1,
-// FFN conv 2 + LN2. The recompute's extra outputs (stats, zhat1, rinv1,
-// zhat2, rinv2) are written when set.
+// The layer's forward launches on the packed weights `pk` (pack): q|k|v
+// in one product, attention, W_o + LN1, FFN conv 1, FFN conv 2 + LN2. The
+// recompute's extra outputs (stats, zhat1, rinv1, zhat2, rinv2) are
+// written when set.
 template <class Tag>
-cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, const Shape& sh, const Dropout& drop,
-                          float* out, float* qkv, float* att, float2* stats, float* x1, float* zhat1,
-                          float* rinv1, float* hid, float* zhat2, float* rinv2, cudaStream_t s) {
+cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, const Packed& pk, const Shape& sh,
+                          const Dropout& drop, float* out, float* qkv, float* att, float2* stats, float* x1,
+                          float* zhat1, float* rinv1, float* hid, float* zhat2, float* rinv2, cudaStream_t s) {
   using namespace conv_rows;
   const int B = sh.B, T = sh.T, C = sh.C, F = sh.F;
   Args a{};
@@ -197,20 +319,16 @@ cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, con
   a.seed = drop.seed; a.threshold = drop.threshold; a.keep_scale = drop.keep_scale;
   a.stream_mul = ENC_STREAMS;
 
-  const float* w3[3] = {w.wq, w.wk, w.wv};
-  const float* b3[3] = {w.bq, w.bk, w.bv};
-  for (int i = 0; i < 3; ++i) {
-    Args p = a;
-    p.in = x; p.ldi = C; p.cin = C; p.mask_in = 1;
-    p.w = w3[i]; p.bias = b3[i]; p.n_out = C; p.out = qkv + i * C; p.ldo = 3 * C;
-    cudaError_t err = launch<Tag, 1, 32, 64, BIAS>(p, B, s);
-    if (err != cudaSuccess) return err;
-  }
+  Args p = a;
+  p.in = x; p.ldi = C; p.cin = C; p.mask_in = 1;
+  p.w = pk.wqkv; p.bias = pk.bqkv; p.n_out = 3 * C; p.out = qkv; p.ldo = 3 * C;
+  cudaError_t err = product<Tag, 1, 64, BIAS>(p, B, s);
+  if (err != cudaSuccess) return err;
 
   const dim3 grid((T + ROWS - 1) / ROWS, sh.n_heads, B);
   enc_attention_kernel<Tag><<<grid, ATT_THREADS, 0, s>>>(qkv, w.rk, w.rv, lens, att, stats, T, C, sh.window,
                                                      1.0f / sqrtf((float)HEAD_DIM), drop);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   Args o = a;
@@ -219,23 +337,23 @@ cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, con
   o.res = x; o.ldr = C; o.mask_res = 1; o.mask_acc = 0; o.gamma = w.g1; o.beta = w.be1;
   o.zhat = zhat1; o.rinv = rinv1; o.ldz = C;
   o.stream_add = SITE_ATTN_Y * 16; o.drop_ld = C;
-  err = launch<Tag, 1, 16, 192, LN>(o, B, s);
+  err = product<Tag, 1, LN_TN, LN>(o, B, s);
   if (err != cudaSuccess) return err;
 
   Args f1 = a;
   f1.in = x1; f1.ldi = C; f1.cin = C; f1.mask_in = 1;
-  f1.w = w.w1; f1.bias = w.b1; f1.n_out = F; f1.out = hid; f1.ldo = F;
+  f1.w = pk.w1; f1.bias = w.b1; f1.n_out = F; f1.out = hid; f1.ldo = F;
   f1.stream_add = SITE_FFN_MID * 16; f1.drop_ld = F;
-  err = launch_taps<Tag, 32, 64, RELU_MASK>(sh.kernel_size, f1, B, s);
+  err = product_taps<Tag, 128, RELU_MASK>(sh.kernel_size, f1, B, s);
   if (err != cudaSuccess) return err;
 
   Args f2 = a;
   f2.in = hid; f2.ldi = F; f2.cin = F; f2.mask_in = 1;
-  f2.w = w.w2; f2.bias = w.b2; f2.n_out = C; f2.out = out; f2.ldo = C;
+  f2.w = pk.w2; f2.bias = w.b2; f2.n_out = C; f2.out = out; f2.ldo = C;
   f2.res = x1; f2.ldr = C; f2.mask_res = 0; f2.mask_acc = 1; f2.gamma = w.g2; f2.beta = w.be2;
   f2.zhat = zhat2; f2.rinv = rinv2; f2.ldz = C;
   f2.stream_add = SITE_FFN_Y * 16; f2.drop_ld = C;
-  return launch_taps<Tag, 16, 192, LN>(sh.kernel_size, f2, B, s);
+  return product_taps<Tag, LN_TN, LN>(sh.kernel_size, f2, B, s);
 }
 
 }  // namespace enc_layer

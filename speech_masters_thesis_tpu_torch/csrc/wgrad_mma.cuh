@@ -1,7 +1,8 @@
 // wgrad_rows.cuh's outer-product problems on the tensor cores in 3xTF32
 // (tf32_mma.cuh), for the Glow-TTS recompute backwards (wn_coupling_bwd.cu,
-// flow_step_bwd.cu): one group a frame and no diagonal forms (B6's daln and
-// dalb stay on wgrad_rows.cuh's CUDA-core kernels). For each problem, over
+// flow_step_bwd.cu, enc_layer_bwd.cu): one group a frame and no diagonal
+// forms (B6's daln and dalb, B5's head-grouped relative tables and
+// LayerNorm gains stay on wgrad_rows.cuh's CUDA-core kernels). For each problem, over
 // the rows r of a [B, T] batch,
 //   out_w[n * ldn + m * ldm] = sum_r Y[r, n] * X[r + shift, m]
 //   out_b[n] = sum_r Y[r, n] when out_b is set

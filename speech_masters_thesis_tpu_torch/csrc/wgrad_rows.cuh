@@ -1,7 +1,8 @@
-// Weight gradients as sums over the frames of a batch: B5's backward
-// (enc_layer_bwd.cu) and B6's diagonal sums (flow_step_bwd.cu); the B3 and
-// B6 backwards' products take wgrad_mma.cuh, on the same Problem. fp32 on
-// the CUDA cores; no atomics, so two calls are bitwise equal.
+// Weight gradients as sums over the frames of a batch: B5's head-grouped
+// relative tables and LayerNorm gains (enc_layer_bwd.cu) and B6's diagonal
+// sums (flow_step_bwd.cu); the products of one group a frame take
+// wgrad_mma.cuh, on the same Problem. fp32 on the CUDA cores; no atomics,
+// so two calls are bitwise equal.
 //
 // A problem is one gradient over the rows r of a [B, T] batch (rows grouped
 // `groups` to a frame when a frame holds several heads):

@@ -29,16 +29,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GATED_HIFI_WIDTH = 64
 GATED_HIFI_MAX_DEPTH = 8
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
-# the weight-gradient reduction splits the B*T frames into at most this many
-# slices of at least this many frames
-WGRAD_MAX_SPLIT = 64
-WGRAD_ROWS_PER_SPLIT = 1024
-
-
-def wgrad_splits(rows: int) -> int:
-    """Slices of ``rows`` frames a weight-gradient reduction sums apart."""
-    return max(1, min(WGRAD_MAX_SPLIT, -(-rows // WGRAD_ROWS_PER_SPLIT)))
-
 ATTENTION_HEAD_DIM = 32
 # compile-time limits of csrc/enc_layer_common.cuh
 ENC_HEAD_DIM = 96
@@ -152,10 +142,14 @@ def build() -> ctypes.CDLL:
     lib.flow_step_bwd.restype = i
     lib.flow_step_bwd_workspace_floats.argtypes = [i] * 8
     lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long
-    lib.enc_layer_fwd.argtypes = [p] * 26 + [i] * 7 + [f, u, f, p]
+    lib.enc_layer_fwd.argtypes = [p] * 27 + [i] * 7 + [f, u, f, p]
     lib.enc_layer_fwd.restype = i
-    lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, i, p]
+    lib.enc_layer_fwd_workspace_floats.argtypes = [i] * 7
+    lib.enc_layer_fwd_workspace_floats.restype = ctypes.c_long
+    lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, p]
     lib.enc_layer_bwd.restype = i
-    lib.enc_layer_bwd_partial_floats.argtypes = [i] * 8
-    lib.enc_layer_bwd_partial_floats.restype = ctypes.c_long
+    lib.enc_layer_bwd_workspace_floats.argtypes = [i] * 7
+    lib.enc_layer_bwd_workspace_floats.restype = ctypes.c_long
+    lib.enc_layer_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.enc_layer_bwd_blocks_per_sm.restype = i
     return lib

@@ -4,10 +4,13 @@ speech_masters_thesis_tpu/ops/pallas/enc_layer.py, ``fused_enc_layer`` and
 its custom VJP, and of the unfused layer in models/glow_tts/{attention,
 encoder}.py).
 
-The CUDA kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``.
-``enc_layer`` runs ``EncLayerFunction``: for a CUDA tensor its forward
-launches the forward kernel (one call: 7 launches) and its backward the
-backward kernels, or raises; for a CPU tensor the same Function runs
+The CUDA kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``:
+the products in 3xTF32 on the tensor cores (``csrc/conv_mma.cuh``, the
+weight gradients on ``csrc/wgrad_mma.cuh``), attention fp32 on the CUDA
+cores. ``enc_layer`` runs ``EncLayerFunction``: for a CUDA tensor its
+forward launches the forward kernels (one call: 6 launches, the first packs
+the weights the products read) and its backward the backward kernels (17
+launches), or raises; for a CPU tensor the same Function runs
 ``enc_layer_reference`` and ``enc_layer_backward_reference``. The forward
 saves the input, the lengths, the weights and the seed, no activations. The
 layer:
@@ -315,16 +318,25 @@ def _shape_args(x: torch.Tensor, w: EncLayerWeights) -> tuple:
     return B, T, C, w.n_heads, w.window, w.w1.shape[0], w.w1.shape[2], float(w.eps)
 
 
+def _workspace_floats(n: int) -> int:
+    if n < 0:
+        raise ValueError("enc_layer: the kernels do not take this shape")
+    return n
+
+
 def _launch_fwd(x, lens, w: EncLayerWeights, seed, p_drop: float) -> torch.Tensor:
     _check_call(x, lens, w, seed)
     B, T, C = x.shape
     Fc = w.w1.shape[0]
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
     out, qkv, att, x1, hid = empty(B, T, C), empty(B, T, 3 * C), empty(B, T, C), empty(B, T, C), empty(B, T, Fc)
-    rc = _build.build().enc_layer_fwd(
+    lib = _build.build()
+    shape = _shape_args(x, w)
+    workspace = empty(_workspace_floats(lib.enc_layer_fwd_workspace_floats(*shape[:-1])))
+    rc = lib.enc_layer_fwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), *[t.data_ptr() for t in w.tensors().values()],
-        out.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-        *_shape_args(x, w), keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+        out.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hid.data_ptr(), workspace.data_ptr(),
+        *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_fwd launch failed with cudaError {rc}")
     enc_layer.launches += 1
@@ -355,11 +367,12 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
                        p_drop: float = 0.0, return_buffers: bool = False):
     """(dx, {name: gradient}) for the output cotangent g.
 
-    A CUDA tensor launches ``csrc/enc_layer_bwd.cu`` (the recomputed forward
-    with its LayerNorm statistics and softmax (max, sum), the LayerNorm and
-    FFN backwards, the attention backward as a dq and a dk/dv kernel that
-    recompute P, then one fixed-order reduction of every weight gradient: two
-    calls are bitwise equal) and counts ``enc_layer_backward.launches``;
+    A CUDA tensor launches ``csrc/enc_layer_bwd.cu`` (the weights packed, the
+    recomputed forward with its LayerNorm statistics and softmax (max, sum),
+    the LayerNorm and FFN backwards, the attention backward as a dq and a
+    dk/dv kernel that recompute P, dx, then two fixed-order reductions of the
+    weight gradients, on the tensor cores and on the CUDA cores: two calls
+    are bitwise equal) and counts ``enc_layer_backward.launches``;
     ``return_buffers`` adds its device buffers (``backward_buffer_shapes``).
     A CPU tensor runs ``enc_layer_backward_reference``.
     """
@@ -377,14 +390,13 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     grads = {name: empty(*t.shape) for name, t in w.tensors().items()}
     bufs = {name: empty(*shape) for name, shape in backward_buffer_shapes(x, w).items()}
     pointers = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
-    n_split = _build.wgrad_splits(x.shape[0] * x.shape[1])
     lib = _build.build()
     shape = _shape_args(x, w)
-    partials = empty(lib.enc_layer_bwd_partial_floats(*shape[:-1], n_split))
+    workspace = empty(_workspace_floats(lib.enc_layer_bwd_workspace_floats(*shape[:-1])))
     rc = lib.enc_layer_bwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(), pointers(list(w.tensors().values())),
-        dx.data_ptr(), pointers(list(grads.values())), pointers(list(bufs.values())), partials.data_ptr(),
-        *shape, keep_threshold(p_drop), keep_scale(p_drop), n_split, _stream(x))
+        dx.data_ptr(), pointers(list(grads.values())), pointers(list(bufs.values())), workspace.data_ptr(),
+        *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_bwd launch failed with cudaError {rc}")
     enc_layer_backward.launches += 1
