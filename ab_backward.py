@@ -5,19 +5,28 @@ and backward, the Glow-TTS train step on both routes, its val step and
 synthesis, each tree in its own process, in the order given (parent,
 change, change, parent, ...).
 
-``--b5`` measures, for each tree, B5's forward and backward back to back
+``--b2b4`` measures, for each tree, B2's forward back to back at
+chip_smoke's three ATTN_SHAPES, p=0 and 0.1, B4 back to back at
+B4_SHAPES, B2's backward, B1's forward, tile passes and reduction, B3's,
+B5's and B6's forwards and backwards (as below), the LM train step at batch 8
+and 64 (``chip_smoke.phase_lm_train``), phase 15's gradient median (the
+card's LM step against the CPU's, ``chip_smoke.phase_lm_vs_cpu``), the Glow
+train step on the B3 route (``chip_smoke.phase_glow_train``) and the val
+step. ``--b5`` measures, for each tree, B5's forward and backward back to back
 (as below) and phase 25's step (``chip_smoke.phase_glow_train_vs_cpu``'s
 models, batch and seeds) with each parameter's gradient error against the
 fp64 step: the median and worst of B5's parameters (the encoder layers'),
 of the rest and of all, the CPU fp32 step's beside them, and the worst
 parameters. ``--ptxas`` builds each tree and compares its ptxas lines
 (``chip_smoke.ptxas_summary``, each kernel's template tag reduced to its
-name) outside B5 with the first tree's, as multisets.
+name) outside B2's forward and B4 (the kernels PTXAS_CHANGED names) with
+the first tree's, as multisets.
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
     python3 ab_backward.py --b5 build/parent . ...      # B5's times and phase 25's errors by group
-    python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside B5 against the first tree
+    python3 ab_backward.py --b2b4 build/parent . . build/parent   # B2's forward, B4, the LM and Glow steps
+    python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
 ``chip_smoke.py``); a worker puts that root first on ``sys.path``, builds
@@ -53,6 +62,8 @@ text to waveform). Prints one JSON line per worker, then the pairs.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import re
@@ -67,6 +78,8 @@ TILE_REPS = 20
 TILE_P = 0.1
 FWD_PS = (0.0, 0.1)
 GLOW_BWD_REPS = 50
+B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
+PTXAS_CHANGED = ("attention_fwd_kernel", "mas_kernel")  # kernels the change may alter
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -82,6 +95,27 @@ def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def attention_fwd_launch(torch, att, q, k, v, lens, seed, scale: float, p: float):
+    """chip_smoke.attention_fwd_launch, kept here because a parent tree's
+    chip_smoke.py may not have it: one launch of B2's forward through its C
+    entry point on outputs allocated once, without the wrapper's host time."""
+    from speech_masters_thesis_tpu_torch.ops import _build
+
+    B, T, H, D = q.shape
+    o = torch.empty(B, T, H, D, device=q.device)
+    stats = torch.empty(B, H, T, 2, device=q.device)
+    lib = _build.build()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1), lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+            stats.data_ptr(), B, T, H, D, float(scale), *att._dropout_args(p),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch():
+        if lib.attention_fwd(*args) != 0:
+            raise RuntimeError("attention_fwd launch failed")
+    launch.outputs = (o, stats)  # the pointers in args live as long as the closure
+    return launch
 
 
 def encode_decode(torch, cs, model, device) -> tuple:
@@ -260,9 +294,8 @@ def glow_steps(torch, cs, device, card) -> dict:
     return out
 
 
-def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
-    """B2's backward, B1's forward, tile passes and reduction, the VQ-VAE
-    step, encode + decode and the LM b64 step."""
+def codec_kernels(torch, np, cs, att, gh, device) -> dict:
+    """B2's backward, B1's forward, tile passes and reduction, back to back."""
     out = {"attention_bwd": {}, "tiles": {}, "reduction": {}, **{f"forward p={p}": {} for p in FWD_PS}}
     scale = 1.0 / np.sqrt(cs.ATTN_DIM)
     with torch.no_grad():
@@ -289,6 +322,13 @@ def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
             torch.cuda.empty_cache()
     for key in ("tiles", "reduction", *(f"forward p={p}" for p in FWD_PS)):
         out[f"{key} sum"] = sum(out[key].values())
+    return out
+
+
+def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
+    """codec_kernels, then the VQ-VAE step, encode + decode and the LM b64
+    step."""
+    out = codec_kernels(torch, np, cs, att, gh, device)
     out["vqvae_step_ms"] = cs.phase_train(device, card)["step_ms"]
     out["vqvae_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30  # phase_train resets it
     torch.cuda.empty_cache()
@@ -299,6 +339,57 @@ def codec_and_lm(torch, np, cs, att, gh, device, card) -> dict:
     torch.cuda.empty_cache()
     out["lm_b64_step_ms"] = cs.phase_lm_train(device, card, vq_state)[64]["step_ms"]
     torch.cuda.empty_cache()
+    return out
+
+
+def b2_b4_times(torch, np, cs, att, device) -> dict:
+    """B2's forward back to back at chip_smoke's ATTN_SHAPES, p=0 and 0.1
+    (through its C entry point, and through the wrapper), and B4 at
+    B4_SHAPES (chip_smoke.mas_inputs, ragged masks)."""
+    from speech_masters_thesis_tpu_torch.ops import mas as mas_ops
+
+    out = {}
+    scale = 1.0 / np.sqrt(cs.ATTN_DIM)
+    with torch.no_grad():
+        for i, (B, T) in enumerate(cs.ATTN_SHAPES):
+            packed, lens, _ = cs.packed_qkv(B, T, 500 + i, device)
+            q, k, v = cs.heads(packed)
+            for p in (0.0, cs.P_DROP):
+                seed = torch.tensor([12345 + i], dtype=torch.int64, device=device)
+                out[f"b2_fwd_{B}x{T}_p{p}_ms"] = back_to_back_ms(
+                    torch, attention_fwd_launch(torch, att, q, k, v, lens, seed, scale, p), ATTN_REPS)
+                out[f"b2_fwd_wrapper_{B}x{T}_p{p}_ms"] = back_to_back_ms(
+                    torch, lambda: att.fused_attention(q, k, v, lens, seed, scale, p), ATTN_REPS)
+        for i, (B, t_x, t_y) in enumerate(B4_SHAPES):
+            value, mask = cs.mas_inputs(B, t_x, t_y, 900 + i, False, device)
+            out[f"b4_{B}x{t_x}x{t_y}_ms"] = back_to_back_ms(
+                torch, lambda: mas_ops.maximum_path_auto(value, mask), ATTN_REPS)
+    return out
+
+
+def lm_and_glow_steps(torch, cs, device, card) -> dict:
+    """The LM train step at batch 8 and 64, phase 15's gradient median, the
+    Glow train step (B3 route) and the val step."""
+    out = {}
+    model = cs.build_model(device, *cs.audio_batch(cs.BATCH, cs.SAMPLES, seed=5))
+    vq_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    lm = cs.phase_lm_train(device, card, vq_state)
+    for B in cs.LM_BATCHES:
+        out[f"lm_b{B}_step_ms"] = lm[B]["step_ms"]
+    del lm
+    torch.cuda.empty_cache()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):  # a parent's phase_lm_vs_cpu returns nothing
+        cs.phase_lm_vs_cpu(device, card, vq_state)
+    out["lm_vs_cpu_grad_median"] = float(re.search(r"median ([0-9.e+-]+)", printed.getvalue()).group(1))
+    torch.cuda.empty_cache()
+    res = cs.phase_glow_train(device, card)
+    out["glow_step_b3_ms"] = res["step_ms"]
+    del res
+    torch.cuda.empty_cache()
+    out["glow_val_ms"] = cs.phase_glow_val(cs.build_glow(device, cs.GLOW_SEED), device, card)["step_ms"]
     return out
 
 
@@ -326,6 +417,17 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         out.update(enc_layer_times(torch, np, cs, device))
         out.update(step_grad_errors(torch, cs, device))
         return out
+    if mode == "--b2b4":
+        out.update(b2_b4_times(torch, np, cs, att, device))
+        out.update(codec_kernels(torch, np, cs, att, gh, device))
+        inputs = glow_inputs(torch, np, cs, wn_ops, device)
+        out.update(glow_forwards(torch, cs, wn_ops, fs_ops, inputs))
+        out.update(glow_backwards(torch, cs, wn_ops, fs_ops, inputs))
+        del inputs
+        out.update(enc_layer_times(torch, np, cs, device))
+        torch.cuda.empty_cache()
+        out.update(lm_and_glow_steps(torch, cs, device, card))
+        return out
     if not glow_only:
         out.update(codec_and_lm(torch, np, cs, att, gh, device, card))
     inputs = glow_inputs(torch, np, cs, wn_ops, device)
@@ -349,22 +451,22 @@ def reduced(line: str) -> str:
     return name + ":" + rest
 
 
-def is_b5_kernel(line: str) -> bool:
-    """A ptxas line of B5's kernels (enc_layer_{fwd,bwd}.cu's instances)."""
-    return any(part in line.split(":")[0] for part in ("enc_", "Layer", "Enc", "conv_rows_kernel"))
+def is_changed_kernel(line: str) -> bool:
+    """A ptxas line of a kernel the change may alter (PTXAS_CHANGED)."""
+    return line.split(":")[0].split("<")[0] in PTXAS_CHANGED
 
 
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    mode = next((a for a in args if a in ("--b5", "--ptxas")), "")
-    args = [a for a in args if a not in ("--glow", "--b5", "--ptxas")]
+    mode = next((a for a in args if a in ("--b5", "--b2b4", "--ptxas")), "")
+    args = [a for a in args if a not in ("--glow", "--b5", "--b2b4", "--ptxas")]
     if args[:1] == ["--worker"]:
         print("AB_RESULT " + json.dumps(worker(args[1], glow_only, mode)), flush=True)
         return
     trees = args
     if len(trees) < 2:
-        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --ptxas] TREE TREE [TREE ...] (e.g. parent "
+        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas] TREE TREE [TREE ...] (e.g. parent "
                          "change change parent)")
     results = []
     for tree in trees:
@@ -382,13 +484,21 @@ def main() -> None:
             print(json.dumps(res), flush=True)
         results.append(res)
     if mode == "--ptxas":
-        first = collections.Counter(reduced(ln) for ln in results[0]["ptxas"] if not is_b5_kernel(ln))
+        first = collections.Counter(reduced(ln) for ln in results[0]["ptxas"] if not is_changed_kernel(ln))
         for res in results:
-            lines = collections.Counter(reduced(ln) for ln in res["ptxas"] if not is_b5_kernel(ln))
-            print(f"[ptxas] {res['tree']}: {sum(lines.values())} lines outside B5, equal to {results[0]['tree']}'s "
-                  f"({sum(first.values())}) as multisets: {lines == first}; only here {dict(lines - first)}; only "
-                  f"there {dict(first - lines)}")
-            print(f"[ptxas] {res['tree']} B5: " + " | ".join(reduced(ln) for ln in res["ptxas"] if is_b5_kernel(ln)))
+            lines = collections.Counter(reduced(ln) for ln in res["ptxas"] if not is_changed_kernel(ln))
+            print(f"[ptxas] {res['tree']}: {sum(lines.values())} lines outside {', '.join(PTXAS_CHANGED)}, equal to "
+                  f"{results[0]['tree']}'s ({sum(first.values())}) as multisets: {lines == first}; only here "
+                  f"{dict(lines - first)}; only there {dict(first - lines)}")
+            print(f"[ptxas] {res['tree']} {', '.join(PTXAS_CHANGED)}: "
+                  + " | ".join(reduced(ln) for ln in res["ptxas"] if is_changed_kernel(ln)))
+        return
+    if mode == "--b2b4":
+        keys = [k for k in results[0] if k.endswith(("_ms", "_median", " sum")) and k != "seconds"]
+        for key in [*results[0]["attention_bwd"], *keys]:
+            vals = [r["attention_bwd"][key] if key in r["attention_bwd"] else r[key] for r in results]
+            print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {v:.6g}" for r, v in zip(results, vals))
+                  + f" [{results[0]['card']}]")
         return
     if mode == "--b5":
         for res in results:

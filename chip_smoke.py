@@ -16,7 +16,8 @@ points a user calls, with every kernel built from csrc/ in this checkout:
      and dynamic shared memory), and B5's (the forward's and the
      backward's instances, none spilling; the resident blocks of its
      192-column LayerNorm tile, its 64 x 128 and 64 x 64 tiles and its
-     weight-gradient slices);
+     weight-gradient slices), and B2's forward's and B4's instances, none
+     spilling;
   3. each GatedHiFi block shape of the path (batch 16, W=64), forward kernel
      against its plain PyTorch version in fp32 (TF32 off), with both times
      and the kernel's over 50 back-to-back calls (p=0);
@@ -49,7 +50,9 @@ phases 4-6, grafted with load_vqvae_into_lm:
  11. the small-T attention kernels against their plain versions at
      (B, T) = (8, 258), (64, 258) and (8, 1024), H=16, D=32, ragged lengths,
      at p=0 and p=0.1: the forward, dq/dk/dv of the recompute backward, two
-     backward calls bitwise equal, both times; the kernel's dropout masks
+     forward and two backward calls bitwise equal, both times; the forward
+     and the backward also over 50 back-to-back calls, beside SDPA's
+     forward and backward back to back (p=0); the kernel's dropout masks
      read back bit for bit against the plain version's, keep rate within
      5 sigma of 0.9, one seed reproduces and another differs;
  12. the LM training path at batch 8 x 258 and 64 x 258 tokens (dropout
@@ -82,7 +85,11 @@ with the zero-init leaves drawn from the seed):
      (3, 3), ragged lengths, 1e-4 of max|ref| at valid rows; both times and
      the bounds, and at (8, 256) the forward over 50 back-to-back calls;
  18. the MAS kernel (B4) against its plain version bit for bit at
-     [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties;
+     [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties,
+     then at MAS_EDGE_SHAPES ([3, 77, 301], [2, 1024, 1024], batch 1, more
+     valid tokens than frames, [8, 256, 1536]); one call and 50 back-to-back
+     calls, and the chain's ns per frame: the slope of the back-to-back
+     time between 768 and 1536 frames at t_x = 256;
  19. the val step (make_val_step, EMA parameters) at batch 8: 768 frames of
      seeded audio (the mel computed on the card) and 256 tokens, ragged;
      launches (B5, B3, B4, B6) = (6, 24, 1, 0) per step, finite losses, step
@@ -248,6 +255,10 @@ B3_OTHER_SHAPES = ((3, 64, 80, 192, 3, 2, 4), (3, 64, 10, 30, 5, 3, 3), (2, 48, 
 # (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window
 B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3))
 MAS_SHAPES = ((8, 256, 768), (8, 512, 1024))  # [B, t_x, t_y]
+# B4's edge shapes: t_x and t_y off the kernel's multiples of 32 and of its chunk, t_x at the wrapper's
+# limit, one sequence, more valid tokens than frames, and twice the frames of MAS_SHAPES[0] (the slope)
+MAS_EDGE_SHAPES = ((3, 77, 301), (2, 1024, 1024), (1, 256, 768), (2, 256, 96), (8, 256, 1536))
+MAS_INSTANCES = 6              # mas_kernel<KW> for KW = 1, 2, 4, ..., 32 tokens a lane
 B3_RTOL = 1e-5                 # of max|ref| at valid frames: fp32, other summation orders
 B5_RTOL = 1e-4                 # of max|ref| at valid rows: fp32, an online softmax and other orders
 GLOW_BATCH, GLOW_FRAMES, GLOW_TOKENS = 8, 768, 256
@@ -386,6 +397,7 @@ B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel"
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
+B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -458,6 +470,11 @@ def phase_build() -> None:
     print("[build] B5 backward: resident blocks per SM (256 threads) at the launch's dynamic shared memory: "
           + ", ".join(f"{n} {b} at {m} B" for n, b, m in zip(names, blocks, smem)))
     require(rc == 0 and min(blocks) >= 1, f"B5 backward: blocks per SM {list(blocks)} (cudaError {rc})")
+    b2b4 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B2_FWD_B4_KERNELS]
+    print("[build] B2 forward (tensor cores, <DROP>) and B4 (<tokens a lane>) (ptxas: registers, shared memory, "
+          "spills): " + " | ".join(b2b4))
+    require(len(b2b4) == 2 + MAS_INSTANCES and all("0 bytes spill stores" in line for line in b2b4),
+            f"a B2 forward or B4 instance is missing or spills: {b2b4}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
@@ -1085,13 +1102,34 @@ def phase_attention_dropout(device, card: str) -> None:
     require(changed > 0.1, f"another seed changed only {changed} of the attention masks")
 
 
+def attention_fwd_launch(q, k, v, lens, seed, scale: float, p: float):
+    """One launch of the forward kernel through its C entry point on
+    outputs allocated once: for timing the kernel back to back without the
+    wrapper's host time, which at (8, 258) is about the kernel's own. The
+    call counts no launch."""
+    B, T, H, D = q.shape
+    o = torch.empty(B, T, H, D, device=q.device)
+    stats = torch.empty(B, H, T, 2, device=q.device)
+    lib = _build.build()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1), lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+            stats.data_ptr(), B, T, H, D, float(scale), *att._dropout_args(p),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch():
+        require(lib.attention_fwd(*args) == 0, "attention_fwd launch failed")
+    launch.outputs = (o, stats)  # the pointers in args live as long as the closure
+    return launch
+
+
 def phase_attention(device, card: str) -> dict:
     """Forward and recompute backward kernels against their plain versions.
 
     The kernel's gradients come through autograd (``FusedAttentionFunction``,
     whose backward launches both kernels of attention_bwd.cu), the plain
     ones through autograd of ``attention_reference``; times are of those two
-    backward passes (CUDA events, median of 10, each with a retained graph).
+    backward passes (CUDA events, median of 10, each with a retained graph),
+    the forward's one call, and both kernels over DEVICE_REPS back-to-back
+    calls (the forward through its C entry point).
     """
     scale = 1.0 / np.sqrt(ATTN_DIM)
     out = {"fwd_err": 0.0, "bwd_err": 0.0}
@@ -1106,6 +1144,8 @@ def phase_attention(device, card: str) -> dict:
             grads = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
             again = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
             grads_ref = torch.autograd.grad(ref, qkv_ref, g, retain_graph=True)[0]
+            with torch.no_grad():
+                fwd_bitwise = torch.equal(o, att.fused_attention(*heads(packed), lens, seed, scale, p))
             torch.cuda.synchronize()
             fwd_scale = ref.abs().max().item()
             fwd_err = (o - ref).abs().max().item()
@@ -1115,7 +1155,8 @@ def phase_attention(device, card: str) -> dict:
             with torch.no_grad():
                 args = (*heads(packed), lens, seed, scale, p)
                 times = {"fwd": cuda_ms(lambda: att.fused_attention(*args)),
-                         "fwd_plain": cuda_ms(lambda: att.attention_reference(*args))}
+                         "fwd_plain": cuda_ms(lambda: att.attention_reference(*args)),
+                         "fwd_dev": device_ms(attention_fwd_launch(*args))}
             times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
             times["bwd_plain"] = cuda_ms(lambda: torch.autograd.grad(ref, qkv_ref, g, retain_graph=True))
             with torch.no_grad():  # the backward kernels alone, back to back
@@ -1128,39 +1169,50 @@ def phase_attention(device, card: str) -> dict:
             print(f"[attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward max_abs_err "
                   f"{fwd_err:.3e} (tol {ATTN_FWD_RTOL * fwd_scale:.3e}); " + ", ".join(
                       f"{k} {e:.3e} (tol {ATTN_GRAD_RTOL * s_:.3e})" for k, (e, s_) in errs.items())
-                  + f"; two backward calls bitwise equal {bitwise}; ms: forward kernel "
-                  f"{times['fwd']:.4f} vs plain {times['fwd_plain']:.4f}, backward kernels "
+                  + f"; two forward calls bitwise equal {fwd_bitwise}, two backward calls {bitwise}; ms: forward "
+                  f"kernel {times['fwd']:.4f} vs plain {times['fwd_plain']:.4f}, backward kernels "
                   f"{times['bwd']:.4f} vs plain autograd {times['bwd_plain']:.4f} (median of 10)"
                   + (f"; F.scaled_dot_product_attention (same mask, p=0) forward {times['sdpa']:.4f}, "
                      f"backward {times['sdpa_bwd']:.4f}" if p == 0.0 else "")
-                  + f"; over {DEVICE_REPS} back-to-back calls: backward kernels (attention_backward) "
-                  f"{times['bwd_dev']:.4f}"
-                  + (f", SDPA's backward (autograd.grad, p=0) {times['sdpa_bwd_dev']:.4f}" if p == 0.0 else "")
+                  + f"; over {DEVICE_REPS} back-to-back calls: forward kernel {times['fwd_dev']:.4f}, backward "
+                  f"kernels (attention_backward) {times['bwd_dev']:.4f}"
+                  + (f", SDPA's forward (p=0) {times['sdpa_dev']:.4f} and backward (autograd.grad) "
+                     f"{times['sdpa_bwd_dev']:.4f}" if p == 0.0 else "")
                   + f" [{card}]")
             require(np.isfinite(fwd_err) and fwd_err <= ATTN_FWD_RTOL * fwd_scale,
                     f"attention forward differs at B={B} T={T} p={p}: {fwd_err}")
             for name, (err, s_) in errs.items():
                 require(np.isfinite(err) and err <= ATTN_GRAD_RTOL * s_,
                         f"attention {name} differs at B={B} T={T} p={p}: {err} > {ATTN_GRAD_RTOL} * {s_}")
+            require(fwd_bitwise, f"two attention forward calls differ at B={B} T={T} p={p}")
             require(bitwise, f"two attention backward calls differ at B={B} T={T} p={p}")
             out["fwd_err"] = max(out["fwd_err"], fwd_err)
             out["bwd_err"] = max(out["bwd_err"], max(e for e, _ in errs.values()))
             if (B, T) == ATTN_SHAPES[0] and p == 0.0:
                 out.update(sdpa_ms=times["sdpa"], sdpa_bwd_ms=times["sdpa_bwd"], bwd_dev_p0=times["bwd_dev"],
-                           sdpa_bwd_dev=times["sdpa_bwd_dev"])
-            if (B, T) == ATTN_SHAPES[0] and p == P_DROP:  # the LM's training call
+                           sdpa_bwd_dev=times["sdpa_bwd_dev"], sdpa_dev=times["sdpa_dev"], fwd_dev_p0=times["fwd_dev"])
+            if (B, T) == ATTN_SHAPES[1] and p == 0.0:
+                out["b64_sdpa_dev"] = times["sdpa_dev"]
+            if (B, T) in ATTN_SHAPES[:2] and p == P_DROP:  # the LM's training calls
                 pairs = int(torch.minimum(torch.arange(1, T + 1, device=device)[None, :],
                                           lens.long()[:, None]).sum()) * ATTN_HEADS
                 row = B * T * ATTN_HEADS * ATTN_DIM * 4  # bytes of one [B, T, H, D] tensor
-                out["bound"] = bound(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
-                out["bwd_bound"] = bound(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
-                out["tf32"] = tf32_bound_ms(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
-                out["bwd_tf32"] = tf32_bound_ms(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
+                fwd_bound = bound(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
                 print(f"[attention] bounds at B={B} T={T} ({pairs} valid (query, key) pairs): forward "
-                      f"{out['bound'][0]:.4f} ms by {out['bound'][1]}, backward {out['bwd_bound'][0]:.4f} ms by "
-                      f"{out['bwd_bound'][1]} [{card}]")
-                out.update(fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
-                           bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"], bwd_dev=times["bwd_dev"])
+                      f"{fwd_bound[0]:.4f} ms by {fwd_bound[1]}, backward "
+                      f"{bound(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)[0]:.4f} ms [{card}]")
+                if (B, T) == ATTN_SHAPES[1]:  # the forward's second row in the kernels line
+                    out["b64"] = {"ms": times["fwd_dev"], "call_ms": times["fwd"], "plain_ms": times["fwd_plain"],
+                                  "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                                  "bound_3xtf32_ms": tf32_bound_ms(4 * ATTN_DIM * pairs,
+                                                                   4 * row + B * ATTN_HEADS * T * 8)}
+                else:
+                    out["bound"] = fwd_bound
+                    out["bwd_bound"] = bound(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
+                    out["tf32"] = tf32_bound_ms(4 * ATTN_DIM * pairs, 4 * row + B * ATTN_HEADS * T * 8)
+                    out["bwd_tf32"] = tf32_bound_ms(10 * ATTN_DIM * pairs, 8 * row + B * ATTN_HEADS * T * 8)
+                    out.update(fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"], fwd_dev=times["fwd_dev"],
+                               bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"], bwd_dev=times["bwd_dev"])
             del o, ref, grads, again, grads_ref, qkv, qkv_ref, o_k, stats_k
             torch.cuda.empty_cache()
     return out
@@ -1169,7 +1221,7 @@ def phase_attention(device, card: str) -> dict:
 def sdpa_times(packed: torch.Tensor, lens: torch.Tensor, g: torch.Tensor, scale: float) -> dict:
     """F.scaled_dot_product_attention's forward and backward on the same
     inputs and boolean mask at p=0, in ms (CUDA events, median of 10; and
-    the backward over DEVICE_REPS back-to-back calls)."""
+    both over DEVICE_REPS back-to-back calls)."""
     B, T, _ = packed.shape
     mask = att.valid_pairs(lens, T)
     leaf = packed.clone().requires_grad_(True)
@@ -1178,11 +1230,12 @@ def sdpa_times(packed: torch.Tensor, lens: torch.Tensor, g: torch.Tensor, scale:
         q, k, v, attn_mask=mask, dropout_p=0.0, scale=scale)
     with torch.no_grad():
         fwd = cuda_ms(sdpa)
+        fwd_dev = device_ms(sdpa)
     o = sdpa()
     gt = g.transpose(1, 2)
     bwd = cuda_ms(lambda: torch.autograd.grad(o, leaf, gt, retain_graph=True))
     bwd_dev = device_ms(lambda: torch.autograd.grad(o, leaf, gt, retain_graph=True))
-    return {"sdpa": fwd, "sdpa_bwd": bwd, "sdpa_bwd_dev": bwd_dev}
+    return {"sdpa": fwd, "sdpa_dev": fwd_dev, "sdpa_bwd": bwd, "sdpa_bwd_dev": bwd_dev}
 
 
 def lm_tokens(batch: int, T: int, seed: int, device) -> dict:
@@ -1561,9 +1614,13 @@ def mas_inputs(B: int, t_x: int, t_y: int, seed: int, ties: bool, device):
 
 
 def phase_mas(device, card: str) -> dict:
-    """B4 against its plain version, bit for bit."""
-    out = {}
-    cases = [(shape, False) for shape in MAS_SHAPES] + [(MAS_SHAPES[0], True)]
+    """B4 against its plain version, bit for bit, at MAS_SHAPES (and with
+    ties) and MAS_EDGE_SHAPES; one call (CUDA events, median of 10) and
+    DEVICE_REPS back-to-back calls; the chain's ns per frame between
+    MAS_SHAPES[0] and the edge shape with twice its frames."""
+    out, b2b = {}, {}
+    cases = ([(shape, False) for shape in MAS_SHAPES] + [(MAS_SHAPES[0], True)]
+             + [(shape, False) for shape in MAS_EDGE_SHAPES])
     for i, ((B, t_x, t_y), ties) in enumerate(cases):
         value, mask = mas_inputs(B, t_x, t_y, 900 + i, ties, device)
         path = mas_ops.maximum_path_auto(value, mask)
@@ -1572,18 +1629,27 @@ def phase_mas(device, card: str) -> dict:
         equal = torch.equal(path, ref)
         covers = torch.equal(path.sum(dim=1), mask[:, 0, :])
         ms = cuda_ms(lambda: mas_ops.maximum_path_auto(value, mask))
-        plain = cuda_ms(lambda: mas_ops.maximum_path(value, mask), reps=3, warmup=1)
+        dev = device_ms(lambda: mas_ops.maximum_path_auto(value, mask))
+        if not ties:
+            b2b[(B, t_x, t_y)] = dev
         cells = int(mask.sum())  # the DP reads value and mask at valid cells only; the path is written whole
         nbytes = 4 * (2 * cells + value.numel())
         bound_ms, bound_by = bound(3 * cells, nbytes)
+        plain = cuda_ms(lambda: mas_ops.maximum_path(value, mask), reps=3, warmup=1) if i == 0 else None
         print(f"[B4] [{B}, {t_x}, {t_y}]{' values in steps of 0.25 (exact ties)' if ties else ''}: path equal to "
               f"the plain version's bit for bit {equal}, one token per valid frame {covers}; kernel {ms:.4f} ms "
-              f"(median of 10), plain {plain:.2f} ms (median of 3); bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB; the DP's {t_y} serial frames are the real limit) [{card}]")
+              f"(median of 10), {dev:.4f} over {DEVICE_REPS} back-to-back calls"
+              + (f", plain {plain:.2f} ms (median of 3)" if plain is not None else "")
+              + f"; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB; the DP's {t_y} serial frames are "
+              f"the real limit) [{card}]")
         require(equal, f"B4 differs from the plain version at [{B}, {t_x}, {t_y}] ties={ties}")
         require(covers, f"B4 path does not cover the valid frames at [{B}, {t_x}, {t_y}]")
         if i == 0:
-            out.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+            out.update(ms=dev, call_ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by)
+    B, t_x, t_y = MAS_SHAPES[0]
+    out["ns_per_frame"] = (b2b[(B, t_x, 2 * t_y)] - b2b[(B, t_x, t_y)]) / t_y * 1e6
+    print(f"[B4] the chain's cost: {out['ns_per_frame']:.1f} ns per frame (back-to-back time, [{B}, {t_x}, "
+          f"{2 * t_y}] less [{B}, {t_x}, {t_y}], over {t_y} frames) [{card}]")
     out["max_abs_err"] = 0.0
     return out
 
@@ -2471,8 +2537,9 @@ def main() -> None:
               backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
               backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
-              attention["fwd_ms"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_ms"],
-              bound_3xtf32_ms=attention["tf32"]),
+              attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
+              ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],
+              at_64x258=dict(attention["b64"], library_ms=attention["b64_sdpa_dev"])),
         entry("attention_bwd", "attention_bwd.cu", PALLAS_ATTENTION + ":253", lm["bwd"], attention["bwd_err"],
               attention["bwd_dev"], attention["bwd_plain_ms"], *attention["bwd_bound"], attention["sdpa_bwd_dev"],
               ms_p0=attention["bwd_dev_p0"], call_ms=attention["bwd_ms"], bound_3xtf32_ms=attention["bwd_tf32"]),
@@ -2483,7 +2550,8 @@ def main() -> None:
               b3_bwd["ms"], b3_bwd["plain_ms"], b3_bwd["bound_ms"], b3_bwd["bound_by"],
               call_ms=b3_bwd["call_ms"], bound_3xtf32_ms=b3_bwd["tf32_ms"]),
         entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
-              b4["plain_ms"], b4["bound_ms"], b4["bound_by"]),
+              b4["plain_ms"], b4["bound_ms"], b4["bound_by"], call_ms=b4["call_ms"],
+              ns_per_frame=b4["ns_per_frame"]),
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
               b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"], call_ms=b5["call_ms"],
               bound_3xtf32_ms=b5["tf32_ms"]),

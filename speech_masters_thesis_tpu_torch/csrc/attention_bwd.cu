@@ -40,78 +40,18 @@
 //      delta staged one tile ahead): S^T = K Q^T and dP^T = V G^T, then
 //      dV += (P keep)^T G and dK += dS^T Q.
 // Warps skip the 8-column n-tiles that lie wholly above the diagonal, past
-// len_b or past T (warp-uniform tests). Shared memory rows are 36 floats
-// apart, so both fragment reads (row g, column q and row 2q (+1), column g)
-// fall on 32 distinct banks. Residuals beyond the TPU kernel's (q, k, v,
-// lens, seed): O and the forward's (m, l), see attention_fwd.cu.
+// len_b or past T (warp-uniform tests). The tile loads, fragments and
+// products are attention_common.cuh's, shared with the forward. Residuals
+// beyond the TPU kernel's (q, k, v, lens, seed): O and the forward's
+// (m, l), see attention_fwd.cu.
 
 #include "attention_common.cuh"
-#include "tf32_mma.cuh"
 
 namespace attention {
 namespace {
 
-constexpr int BWD_WARPS = 4;
-constexpr int BWD_NT = 32 * BWD_WARPS;
-constexpr int LDS = D + 4;  // shared-memory row stride of a [ROWS][D] tile
-constexpr int KSTEPS = D / 8;
-
-// rows [r0, r0 + ROWS) of one head (rows ld floats apart) into a
-// [ROWS][LDS] tile by cp.async; zero past `end`
-__device__ __forceinline__ void load_tile_async(float* tile, const float* src, int ld, int r0, int end) {
-  for (int f = threadIdx.x; f < ROWS * D4; f += BWD_NT) {
-    const int r = f / D4, c4 = f % D4;
-    const bool in = r0 + r < end;
-    tf32::cp_async16(tile + r * LDS + 4 * c4, in ? src + (size_t)(r0 + r) * ld + 4 * c4 : src, in ? 16 : 0);
-  }
-}
-
-// a warp's A fragments of rows r and r + 8 (global, rows ld floats apart,
-// zero at or past T), split, for the KSTEPS k-steps over D
-__device__ __forceinline__ void load_frags(tf32::FragA (&f)[KSTEPS], const float* src, int ld, int r,
-                                           int T, int qd) {
-  const float* ra = src + (size_t)r * ld;
-  const float* rb = src + (size_t)(r + 8) * ld;
-  const bool ia = r < T, ib = r + 8 < T;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = 8 * kk + qd;
-    f[kk] = tf32::frag_a(ia ? __ldg(ra + c) : 0.f, ib ? __ldg(rb + c) : 0.f, ia ? __ldg(ra + c + 4) : 0.f,
-                         ib ? __ldg(rb + c + 4) : 0.f);
-  }
-}
-
-// acc[j] = A B^T over D for n-tiles j in [j0, j1) of a tile held [row][d]
-template <int NJ>
-__device__ __forceinline__ void products_t(float (&acc)[NJ][4], const tf32::FragA (&a)[KSTEPS],
-                                           const float* tile, int j0, int j1, int g, int qd) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    if (j0 + j >= j1) continue;
-    const float* row = tile + (8 * (j0 + j) + g) * LDS + qd;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) tf32::mma3(acc[j], a[kk], tf32::frag_b(row[8 * kk], row[8 * kk + 4]));
-  }
-}
-
-// out[dn] += X B over the n-tiles j in [j0, j1) (their 8 columns the k-steps,
-// X the accumulators in C layout) with B = tile[column][d]
-template <int NJ>
-__device__ __forceinline__ void products_acc(float (&out)[KSTEPS][4], const float (&x)[NJ][4],
-                                             const float* tile, int j0, int j1, int g, int qd) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    if (j0 + j >= j1) continue;
-    const tf32::FragA fa = tf32::frag_a(x[j][0], x[j][2], x[j][1], x[j][3]);
-    const float* r0 = tile + (8 * (j0 + j) + 2 * qd) * LDS + g;
-#pragma unroll
-    for (int dn = 0; dn < KSTEPS; ++dn) tf32::mma3(out[dn], fa, tf32::frag_b(r0[8 * dn], r0[LDS + 8 * dn]));
-  }
-}
-
 template <bool DROP>
-__global__ void __launch_bounds__(BWD_NT) attention_bwd_dq_kernel(
+__global__ void __launch_bounds__(NT) attention_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, int ld,
     const float* __restrict__ o, const float2* __restrict__ stats, const int* __restrict__ lens,
     const long long* __restrict__ seed, const float* __restrict__ g, float* __restrict__ dq,
@@ -229,7 +169,7 @@ __global__ void __launch_bounds__(BWD_NT) attention_bwd_dq_kernel(
 }
 
 template <bool DROP>
-__global__ void __launch_bounds__(BWD_NT) attention_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(NT) attention_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, int ld,
     const float2* __restrict__ stats, const int* __restrict__ lens,
     const long long* __restrict__ seed, const float* __restrict__ g,
@@ -331,12 +271,12 @@ cudaError_t launch(const float* q, const float* k, const float* v, int ld, const
                    float* dq, float* dk, float* dv, float* delta, int B, int T, int H, float scale,
                    const Dropout& drop, cudaStream_t s) {
   const dim3 grid((T + ROWS - 1) / ROWS, H, B);
-  attention_bwd_dq_kernel<DROP><<<grid, BWD_NT, 0, s>>>(q, k, v, ld, o, stats, lens, seed, g, dq, delta,
+  attention_bwd_dq_kernel<DROP><<<grid, NT, 0, s>>>(q, k, v, ld, o, stats, lens, seed, g, dq, delta,
                                                         T, H, scale, drop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: kernel 2 reads the delta kernel 1 wrote
-  attention_bwd_dkdv_kernel<DROP><<<grid, BWD_NT, 0, s>>>(q, k, v, ld, stats, lens, seed, g, delta, dk,
+  attention_bwd_dkdv_kernel<DROP><<<grid, NT, 0, s>>>(q, k, v, ld, stats, lens, seed, g, delta, dk,
                                                           dv, T, H, scale, drop);
   return cudaGetLastError();
 }

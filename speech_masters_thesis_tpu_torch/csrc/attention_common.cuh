@@ -1,6 +1,8 @@
 // Shared by the small-T attention kernels (attention_fwd.cu, attention_bwd.cu):
 // compile-time shapes, the masking and dropout rules and the call checks;
-// the forward's one-row-a-thread tile loads and row products.
+// the tensor-core engine both run on (tf32_mma.cuh): tiles staged by
+// cp.async, split TF32 A fragments of a warp's 16 rows, S = A B^T over D and
+// the accumulators fed back as the A operand of a second product.
 //
 // Layout. q, k and v are [B, T, H, D] with D contiguous and rows `ld` floats
 // apart (ld = 3*H*D for the views of the LM's packed in-projection, H*D for
@@ -19,6 +21,11 @@
 // int(p * 2^32) and then scaled by 1/(1-p). The backward regenerates the
 // same bits from the seed, which the kernels read from device memory (the
 // LM draws it on the card, so nothing waits for the host).
+//
+// Blocks. Every kernel runs 4 warps on one 64-row tile (queries for the
+// forward and dq, keys for dk/dv); a warp owns 16 of its rows. Shared-memory
+// tiles keep rows 36 floats apart, so both fragment reads (row g, column q
+// and row 2q (+1), column g) fall on 32 distinct banks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,14 +33,17 @@
 #include <stdint.h>
 
 #include "hash.cuh"
+#include "tf32_mma.cuh"
 
 namespace attention {
 
 constexpr int D = 32;         // head dimension (the LM's 512 / 16)
 constexpr int ROWS = 64;      // rows per tile: queries (forward, dq) or keys (dk/dv)
-constexpr int NT = ROWS;      // the forward's threads per block: one per row of the tile
-constexpr int CHUNK = 16;     // keys per online-softmax update in the forward
 constexpr int D4 = D / 4;
+constexpr int WARPS = 4;
+constexpr int NT = 32 * WARPS;  // threads per block of every attention kernel
+constexpr int LDS = D + 4;      // shared-memory row stride of a [ROWS][D] tile
+constexpr int KSTEPS = D / 8;
 
 struct Dropout {
   uint32_t threshold;  // keep when the draw is >= threshold
@@ -49,62 +59,81 @@ __device__ __forceinline__ float keep_factor(uint32_t key, int r, int c, int T, 
   return hash_draw(key, (uint32_t)r * (uint32_t)T + (uint32_t)c) >= drop.threshold ? drop.scale : 0.f;
 }
 
-// rows [r0, r0 + ROWS) of one head of a [.., T, ld] tensor (head offset
-// applied by the caller) into a [ROWS][D] tile; zero past `end`
-__device__ __forceinline__ void load_tile(float* tile, const float* src, int ld, int r0, int end) {
+// rows [r0, r0 + ROWS) of one head (rows ld floats apart) into a
+// [ROWS][LDS] tile by cp.async; zero past `end`
+__device__ __forceinline__ void load_tile_async(float* tile, const float* src, int ld, int r0, int end) {
   for (int f = threadIdx.x; f < ROWS * D4; f += NT) {
     const int r = f / D4, c4 = f % D4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < end) val = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld) + c4);
-    reinterpret_cast<float4*>(tile)[f] = val;
+    const bool in = r0 + r < end;
+    tf32::cp_async16(tile + r * LDS + 4 * c4, in ? src + (size_t)(r0 + r) * ld + 4 * c4 : src, in ? 16 : 0);
   }
 }
 
-// one row of D floats (global, 16-byte aligned) into registers
-__device__ __forceinline__ void load_row(float (&dst)[D], const float* src) {
+// a warp's A fragments of rows r and r + 8 (global, rows ld floats apart,
+// zero at or past T), split, for the KSTEPS k-steps over D
+__device__ __forceinline__ void load_frags(tf32::FragA (&f)[KSTEPS], const float* src, int ld, int r,
+                                           int T, int qd) {
+  const float* ra = src + (size_t)r * ld;
+  const float* rb = src + (size_t)(r + 8) * ld;
+  const bool ia = r < T, ib = r + 8 < T;
 #pragma unroll
-  for (int c = 0; c < D4; ++c) {
-    const float4 val = __ldg(reinterpret_cast<const float4*>(src) + c);
-    dst[4 * c] = val.x;
-    dst[4 * c + 1] = val.y;
-    dst[4 * c + 2] = val.z;
-    dst[4 * c + 3] = val.w;
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int c = 8 * kk + qd;
+    f[kk] = tf32::frag_a(ia ? __ldg(ra + c) : 0.f, ib ? __ldg(rb + c) : 0.f, ia ? __ldg(ra + c + 4) : 0.f,
+                         ib ? __ldg(rb + c + 4) : 0.f);
   }
 }
 
-__device__ __forceinline__ void store_row(float* dst, const float (&src)[D], float mul) {
+// acc[j] = A B^T over D for n-tiles j in [j0, j1) of a tile held [row][d],
+// the k-steps in order. STEP_ADD (the forward) runs each k-step's three
+// MMAs into their own register and adds it to acc in fp32, as conv_mma.cuh
+// does (the tensor cores' accumulation truncates); the backward keeps the
+// whole product in one register.
+template <int NJ, bool STEP_ADD = false>
+__device__ __forceinline__ void products_t(float (&acc)[NJ][4], const tf32::FragA (&a)[KSTEPS],
+                                           const float* tile, int j0, int j1, int g, int qd) {
 #pragma unroll
-  for (int c = 0; c < D4; ++c)
-    reinterpret_cast<float4*>(dst)[c] =
-        make_float4(src[4 * c] * mul, src[4 * c + 1] * mul, src[4 * c + 2] * mul, src[4 * c + 3] * mul);
-}
-
-// sum_d a[d] * row[d], row a tile row in shared memory (all lanes of a warp
-// read the same row: broadcast)
-__device__ __forceinline__ float dot_row(const float (&a)[D], const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
+  for (int j = 0; j < NJ; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    if (j0 + j >= j1) continue;
+    const float* row = tile + (8 * (j0 + j) + g) * LDS + qd;
 #pragma unroll
-  for (int c = 0; c < D4; ++c) {
-    const float4 w = r4[c];
-    acc = fmaf(a[4 * c], w.x, acc);
-    acc = fmaf(a[4 * c + 1], w.y, acc);
-    acc = fmaf(a[4 * c + 2], w.z, acc);
-    acc = fmaf(a[4 * c + 3], w.w, acc);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      if constexpr (STEP_ADD) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        tf32::mma3(part, a[kk], tf32::frag_b(row[8 * kk], row[8 * kk + 4]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
+      } else {
+        tf32::mma3(acc[j], a[kk], tf32::frag_b(row[8 * kk], row[8 * kk + 4]));
+      }
+    }
   }
-  return acc;
 }
 
-// acc[d] += s * row[d]
-__device__ __forceinline__ void axpy_row(float (&acc)[D], float s, const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
+// out[dn] += X B over the n-tiles j in [j0, j1) (their 8 columns the k-steps,
+// X the accumulators in C layout) with B = tile[column][d]; STEP_ADD as in
+// products_t, one k-step an n-tile of X
+template <int NJ, bool STEP_ADD = false>
+__device__ __forceinline__ void products_acc(float (&out)[KSTEPS][4], const float (&x)[NJ][4],
+                                             const float* tile, int j0, int j1, int g, int qd) {
 #pragma unroll
-  for (int c = 0; c < D4; ++c) {
-    const float4 w = r4[c];
-    acc[4 * c] = fmaf(s, w.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(s, w.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(s, w.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(s, w.w, acc[4 * c + 3]);
+  for (int j = 0; j < NJ; ++j) {
+    if (j0 + j >= j1) continue;
+    const tf32::FragA fa = tf32::frag_a(x[j][0], x[j][2], x[j][1], x[j][3]);
+    const float* r0 = tile + (8 * (j0 + j) + 2 * qd) * LDS + g;
+    if constexpr (STEP_ADD) {
+      float part[KSTEPS][4] = {};
+#pragma unroll
+      for (int dn = 0; dn < KSTEPS; ++dn) tf32::mma3(part[dn], fa, tf32::frag_b(r0[8 * dn], r0[LDS + 8 * dn]));
+#pragma unroll
+      for (int dn = 0; dn < KSTEPS; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[dn][e] += part[dn][e];
+    } else {
+#pragma unroll
+      for (int dn = 0; dn < KSTEPS; ++dn) tf32::mma3(out[dn], fa, tf32::frag_b(r0[8 * dn], r0[LDS + 8 * dn]));
+    }
   }
 }
 

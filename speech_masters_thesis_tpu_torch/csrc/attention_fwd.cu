@@ -1,5 +1,6 @@
-// Small-T causal attention forward for Hopper (sm_90a), fp32, with in-kernel
-// dropout.
+// Small-T causal attention forward for Hopper (sm_90a), fp32 at its
+// interface, products in 3xTF32 on the tensor cores (tf32_mma.cuh), with
+// in-kernel dropout.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/attention.py, function
 // fused_attention -> pallas_call(_fwd_kernel). The backward is
@@ -17,20 +18,28 @@
 // step. On the card that matrix does not fit a block (266 KB at T=258,
 // 4 MB at T=1024, against 227 KB of shared memory), and 8 sequences would
 // give 8 blocks for 132 SMs. The work is small: at the LM's shapes
-// (T=258, D=32) a (query, key) pair costs 64 FMAs and one 32-bit hash when
-// dropping, against 256 bytes of q, k, v and o per row, so arithmetic and
-// the latency of shared-memory reads bound it, not device memory.
+// (T=258, D=32) a (query, key) pair costs 64 FLOP of products (192 on the
+// tensor cores in 3xTF32), an exp and, when dropping, a 32-bit hash,
+// against 256 bytes of q, k, v and o per row, so the products and the
+// latency of each block's serial walk over its key tiles bound it, not
+// device memory.
 //
-// Design: one block of 64 threads per (64-row query tile, head, sequence),
-// 640 blocks at B=8, T=258, H=16. Each thread owns one query row: its q
-// row and its o accumulator (32 floats each) live in registers. K and V
-// stream through shared memory in 64-key tiles over the block's causal
-// prefix [0, min(last row + 1, len_b)), so any T works in 16 KB of shared
-// memory. The softmax is online (running max m and sum l per row), updated
-// once per chunk of 16 keys. The loads of a key row are broadcasts (every
-// lane of a warp reads the same row), as 16-byte loads. Plain fp32 FMA on the
-// CUDA cores; tensor cores (TF32 would not meet the fp32 tolerance),
-// wgmma and TMA are later work.
+// Design (FlashAttention-2's forward on the engine of attention_bwd.cu's dq
+// kernel, attention_common.cuh): one block of 4 warps per (64-query tile,
+// head, sequence), 640 blocks at B=8, T=258, H=16. A warp owns 16 query rows
+// and holds them as split TF32 A fragments. K and V tiles of 64 keys are
+// staged through shared memory by cp.async one tile ahead, over the block's
+// causal prefix [0, min(last row + 1, len_b)), so any T runs in 36 KB of
+// shared memory. Per tile a warp computes S = Q K^T by 3xTF32 MMAs
+// (skipping the 8-key n-tiles wholly above its diagonal, past len_b or past
+// T: warp-uniform tests), then the online softmax in the accumulators' own
+// layout (row max and row sum over each quad by __shfl_xor_sync; the O
+// accumulators rescaled once a tile), the dropout draw at each element's
+// own (r, c), and O += P V with P fed back as the A operand (the permuted
+// k-step of tf32_mma.cuh). Every product adds each k-step's three MMAs to
+// its accumulators in fp32 (STEP_ADD): the tensor cores' accumulation
+// truncates. S is attention_common.cuh's products_t, the backward's dq
+// kernel's, in the same k-order (the backward keeps each S in one register).
 //
 // Residuals: the TPU kernel saves nothing and its backward recomputes the
 // softmax statistics. Here the forward also writes (m, l) per row,
@@ -48,59 +57,113 @@ __global__ void __launch_bounds__(NT) attention_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, int ld,
     const int* __restrict__ lens, const long long* __restrict__ seed, float* __restrict__ o,
     float2* __restrict__ stats, int T, int H, float scale, Dropout drop) {
-  __shared__ __align__(16) float ks[ROWS * D];
-  __shared__ __align__(16) float vs[ROWS * D];
+  __shared__ __align__(16) float kv[2][2][ROWS * LDS];  // [stage][k, v]
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int row = q0 + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, qd = lane & 3;
   const int len = min(max(lens[b], 0), T);
   const size_t head = (size_t)b * T * ld + (size_t)h * D;
-  const int kend = row < T ? min(row + 1, len) : 0;            // this row's keys [0, kend)
-  const int block_end = min(min(q0 + ROWS, T), len);           // the block's keys
+  const int HD = H * D;
+  const size_t out_head = (size_t)b * T * HD + (size_t)h * D;  // in o
+  const int block_end = min(min(q0 + ROWS, T), len);           // the block's keys [0, block_end)
+  const int n_tiles = (block_end + ROWS - 1) / ROWS;
   const uint32_t key = DROP ? head_key(seed, b, h, H) : 0u;
 
-  float qr[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = qr[d] = 0.f;
-  if (row < T) load_row(qr, q + head + (size_t)row * ld);
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < block_end; k0 += ROWS) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile(ks, k + head, ld, k0, block_end);
-    load_tile(vs, v + head, ld, k0, block_end);
-    __syncthreads();
-    const int n = min(ROWS, kend - k0);  // this row's keys in the tile
-    for (int j0 = 0; j0 < n; j0 += CHUNK) {
-      float s[CHUNK];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const float dot = dot_row(qr, ks + (j0 + jj) * D);
-        s[jj] = j0 + jj < n ? dot * scale : -INFINITY;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      // key j0 is valid, so m_new is finite; exp(-inf) = 0 clears the
-      // empty accumulator on the first chunk
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        float p = expf(s[jj] - m_new);
-        l += p;
-        if (DROP && j0 + jj < n) p *= keep_factor(key, row, k0 + j0 + jj, T, drop);
-        axpy_row(acc, p, vs + (j0 + jj) * D);
-      }
-      m = m_new;
-    }
+  if (n_tiles > 0) {
+    load_tile_async(kv[0][0], k + head, ld, 0, block_end);
+    load_tile_async(kv[0][1], v + head, ld, 0, block_end);
   }
-  if (row < T) {
+  tf32::cp_async_commit();
+
+  // this warp's 16 rows: r_a = w0 + gr and r_b = r_a + 8
+  const int w0 = q0 + 16 * warp;
+  tf32::FragA qa[KSTEPS];
+  load_frags(qa, q + head, ld, w0 + gr, T, qd);
+  int kend[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = w0 + gr + 8 * e;
+    kend[e] = row < T ? min(row + 1, len) : 0;  // this row's keys [0, kend)
+  }
+  // the warp's keys: [0, min(w0 + 16, len)) (rows past T have none)
+  const int warp_end = w0 < T ? min(min(w0 + 16, T), len) : 0;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[KSTEPS][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = it * ROWS;
+    if (it + 1 < n_tiles) {
+      load_tile_async(kv[st ^ 1][0], k + head, ld, k0 + ROWS, block_end);
+      load_tile_async(kv[st ^ 1][1], v + head, ld, k0 + ROWS, block_end);
+      tf32::cp_async_commit();
+      tf32::cp_async_wait<1>();
+    } else {
+      tf32::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j_end = min(8, max(0, (warp_end - k0 + 7) / 8));  // n-tiles with a key the warp sees
+    if (j_end > 0) {
+      float s[8][4];
+      products_t<8, true>(s, qa, kv[st][0], 0, j_end, gr, qd);
+      // scaled logits, -inf at invalid pairs (every n-tile at or past j_end
+      // lies past both rows' kend); the tile's row max over each quad
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, col = k0 + 8 * j + 2 * qd + (e & 1);
+          s[j][e] = col < kend[r] ? s[j][e] * scale : -INFINITY;
+          mx[r] = fmaxf(mx[r], s[j][e]);
+        }
+      float m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+        // a row with no valid key yet keeps m = -inf, l = 0 and O = 0
+        corr[r] = m_new[r] == -INFINITY ? 1.f : expf(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool valid = s[j][e] != -INFINITY;
+          float p = valid ? expf(s[j][e] - m_new[r]) : 0.f;
+          sum[r] += p;
+          if (DROP && valid) p *= keep_factor(key, w0 + gr + 8 * r, k0 + 8 * j + 2 * qd + (e & 1), T, drop);
+          s[j][e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int dn = 0; dn < KSTEPS; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dn][e] *= corr[e >> 1];
+      products_acc<8, true>(acc, s, kv[st][1], 0, j_end, gr, qd);
+    }
+    __syncthreads();  // the next load overwrites this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gr + 8 * r;
+    if (row >= T) continue;
     // a row with no valid key (len_b = 0) gives 0, as uniform weights over
     // the zeroed value rows do in the plain version
-    store_row(o + ((size_t)b * T + row) * H * D + (size_t)h * D, acc, kend > 0 ? 1.f / l : 0.f);
-    stats[((size_t)b * H + h) * T + row] = make_float2(m, l);
+    const float inv = kend[r] > 0 ? 1.f / l[r] : 0.f;
+    float* dst = o + out_head + (size_t)row * HD + 2 * qd;
+#pragma unroll
+    for (int dn = 0; dn < KSTEPS; ++dn)
+      *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(acc[dn][2 * r] * inv, acc[dn][2 * r + 1] * inv);
+    if (qd == 0) stats[((size_t)b * H + h) * T + row] = make_float2(m[r], l[r]);
   }
 }
 

@@ -1,6 +1,7 @@
 // 3xTF32 products on the tensor cores and cp.async staging, shared by B1's
 // kernels (gated_hifi_fwd.cu, gated_hifi_bwd.cu, through
-// gated_hifi_tiles.cuh) and B2's backward (attention_bwd.cu).
+// gated_hifi_tiles.cuh) and B2's forward and backward (attention_fwd.cu,
+// attention_bwd.cu, through attention_common.cuh).
 //
 // Numerics. A TF32 operand keeps 10 explicit mantissa bits, so one TF32
 // product is good to about 3 decimal digits, short of the fp32 tolerances

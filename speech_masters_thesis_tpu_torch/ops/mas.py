@@ -22,12 +22,15 @@ So kernel and plain version agree bit for bit on the same inputs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from speech_masters_thesis_tpu_torch.ops import _build
 
 MAX_NEG = -1e9
+MAX_TOKENS = 1024  # csrc/mas.cu holds a sequence's tokens in the registers of one warp
 
 
 def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -79,16 +82,25 @@ def _check_call(value: torch.Tensor, mask: torch.Tensor) -> None:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != value.device:
             raise ValueError(f"maximum_path_auto: {name} must be a contiguous float32 tensor on {value.device}")
     _, t_x, t_y = value.shape
-    smem = _build.build().mas_smem_bytes(t_x, t_y)
+    if t_x > MAX_TOKENS:
+        raise ValueError(f"maximum_path_auto: the kernel holds at most {MAX_TOKENS} tokens (32 a lane of one "
+                         f"warp), got t_x={t_x}")
+    smem = _smem_bytes(t_x, t_y)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"maximum_path_auto: t_x={t_x}, t_y={t_y} needs {smem} bytes of shared memory, "
                          f"more than a block has ({_build.MAX_SMEM_BYTES})")
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(t_x: int, t_y: int) -> int:
+    """The kernel's shared memory at (t_x, t_y), asked of the library once a shape."""
+    return _build.build().mas_smem_bytes(t_x, t_y)
+
+
 def maximum_path_auto(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """MAS on the inputs' device: a CUDA tensor launches ``csrc/mas.cu`` (one
-    block per sequence) and counts ``maximum_path_auto.launches``; a CPU
-    tensor runs ``maximum_path``."""
+    block per sequence, t_x <= 1024) and counts ``maximum_path_auto.launches``;
+    a CPU tensor runs ``maximum_path``."""
     if value.device.type == "cpu":
         return maximum_path(value, mask)
     if value.device.type != "cuda":
