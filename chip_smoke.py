@@ -5,8 +5,9 @@
 
 Drives the VQ-VAE codec's inference path and its training step
 (configs.VQVAE_TPU, full published width, random seeded weights), then the
-Transformer LM, and Glow-TTS's serving and training paths, through the entry
-points a user calls, with every kernel built from csrc/ in this checkout:
+Transformer LM, Glow-TTS's serving and training paths and VQ-TTS's training
+path, through the entry points a user calls, with every kernel built from
+csrc/ in this checkout:
 
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: nvcc for sm_90a, one process per source, with ptxas's register
@@ -81,8 +82,9 @@ with the zero-init leaves drawn from the seed):
      back-to-back calls, and the bounds; then at B3_OTHER_SHAPES (phase
      22's), p=0 and 0.05, with the same tolerance and bitwise repeats;
  17. the encoder-layer kernel (B5, its products 3xTF32 on the tensor cores)
-     against its plain version at (B, T) = (8, 256), (1, 160), (8, 512) and
-     (3, 3), ragged lengths, 1e-4 of max|ref| at valid rows; both times and
+     against its plain version at (B, T) = (8, 256), (1, 160), (8, 512),
+     (3, 3) and (4, 64) (VQ-TTS's train step on B5's encoder route), ragged
+     lengths, 1e-4 of max|ref| at valid rows; both times and
      the bounds, and at (8, 256) the forward over 50 back-to-back calls;
  18. the MAS kernel (B4) against its plain version bit for bit at
      [8, 256, 768] and [8, 512, 1024], ragged masks, and with exact ties,
@@ -159,6 +161,36 @@ the override glow_tts_tpu.yaml names):
      launches (B5, B3, B4, B6) = (6, 12, 1, 12) per step;
  28. phase 25 on the B6 route.
 
+Then VQ-TTS (configs.VQTTS_TPU with configs.LJSPEECH_TPU: the codec at
+width 64 and depth 3, 256x down; the text encoder 6 layers of 192; the
+grouped codebook of 149 x 512 codes of 128; seeded initializers with the
+zero-init leaves drawn; batch 4 x 2 s, 44032 samples, 64 tokens, ragged, the
+JAX package's A/B shape):
+
+ 29. B1 at VQ-TTS's eight depth-3 block shapes (batch 4, T = 22016 ...
+     172): the forward against its plain version at p=0 (phase 3's checks
+     and times) and p=0.1 (two calls bitwise equal), the backward's masks
+     read back bit for bit at every shape (keep rates within 5 sigma), and
+     the tile passes and the reduction at p=0 and 0.1 (phase 7's checks);
+ 30. 10 train steps with dropout at every site, Adam and the codebook and
+     parameter EMAs, the codebook's lazy init inside step 1, on the config's
+     encoder route (fused_encoder: false, the plain layer) and on B5's:
+     launches (B1 fwd, B1 bwd, B1 red, B4, B5 fwd, B5 bwd) = (16, 16, 16, 1,
+     0, 0) and (16, 16, 16, 1, 6, 6) a step, no op that waits for the card
+     after step 1 (torch.cuda's sync debug mode), every gradient finite;
+     step time (median of steps 2-10), audio seconds per second and peak
+     memory, then 20 more steps of each route in turns;
+ 31. the val step on the EMA parameters: (24, 0, 0, 1, 0, 0) launches (the
+     decoder runs twice in eval), finite losses and yh, q_acc;
+ 32. one train step (p=0, revival off, the codebook drawn once on the card
+     from other audio) on the card against the CPU on 2 sequences, each
+     against the same step in fp64, on the config's encoder route and then
+     on B5's (the card's step launching B5 (6, 6) times there, (0, 0) on the
+     config's): the MAS path and the codes first (equal to the CPU's, and B4
+     on the card's own value table bit for bit equal to the plain MAS), the
+     losses within 1e-4, and the card's gradients within 20x (median
+     parameter) and 10x (worst) the CPU fp32 step's distance from fp64.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -174,6 +206,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -186,6 +219,8 @@ from speech_masters_thesis_tpu_torch.models.base import spect_from_audio
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
 from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
+from speech_masters_thesis_tpu_torch.models.vqtts import model as vqtts_model
+from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import (
     BOS,
@@ -252,8 +287,9 @@ PALLAS_ENC = "speech_masters_thesis_tpu/ops/pallas/enc_layer.py"
 B3_SHAPES = ((8, 384), (1, 512), (8, 512), (3, 7))
 # (B, T, half, hidden, taps, rate, layers): the backwards' other taps, rates and widths (not multiples of 4)
 B3_OTHER_SHAPES = ((3, 64, 80, 192, 3, 2, 4), (3, 64, 10, 30, 5, 3, 3), (2, 48, 6, 9, 1, 1, 2))
-# (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window
-B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3))
+# (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window, VQ-TTS's
+# train step's (fused_encoder: true)
+B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3), (4, 64))
 MAS_SHAPES = ((8, 256, 768), (8, 512, 1024))  # [B, t_x, t_y]
 # B4's edge shapes: t_x and t_y off the kernel's multiples of 32 and of its chunk, t_x at the wrapper's
 # limit, one sequence, more valid tokens than frames, and twice the frames of MAS_SHAPES[0] (the slope)
@@ -286,6 +322,22 @@ B5_DROP = 0.1                  # the encoder's
 GLOW_GRAD_WORST_MULTIPLE = 10
 GLOW_GRAD_MEDIAN_MULTIPLE = 20
 GRAD_FLOOR = 3e-4              # a gradient leaf's tolerance scale is at least this of the largest leaf's
+# VQ-TTS (configs.VQTTS_TPU): the JAX package's A/B shape (vqtts_tpu.yaml, benchmarks/run_benchmarks.py:
+# build_vqtts_step): batch 4 x 2 s, 44032 samples (a multiple of 512), 172 code frames, 64 tokens
+VQTTS_BATCH, VQTTS_SAMPLES, VQTTS_TOKENS = 4, 44032, 64
+VQTTS_DEPTH = 3                # depth 3 x multipliers[-1] 1: branches of kernels 3, 5, 7 and dilations 1, 3, 9
+VQTTS_BLOCK_TS = (22016, 11008, 5504, 2752, 1376, 688, 344, 172)  # every block length on the path
+VQTTS_SEED = 21
+VQTTS_STEPS = 10
+VQTTS_STEADY_FROM = 2          # the step time is the median of steps 2-10
+VQTTS_AB_ROUNDS = 20           # then 20 more steps of each encoder route, in turns
+VQTTS_VS_CPU = 2
+VQTTS_LOSS_KEYS = ("loss", "loss_recon", "loss_stft", "loss_commit", "loss_dur", "loss_align", "loss_ce")
+# phase 32: the card's gradient error against the fp64 step, at most these multiples of the CPU fp32
+# step's (median and worst parameter), phases 25 and 28's multiples: B1's kernels run the same 3xTF32
+# engine with an fp32 add a k-step (a flush every 1,024 frames in the reduction)
+VQTTS_GRAD_MEDIAN_MULTIPLE = 20
+VQTTS_GRAD_WORST_MULTIPLE = 10
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 on the CUDA cores and HBM3
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12             # dense TF32 on the tensor cores; 3xTF32 takes 3 products per fp32 product
@@ -477,12 +529,9 @@ def phase_build() -> None:
             f"a B2 forward or B4 instance is missing or spills: {b2b4}")
 
 
-def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
+def phase_kernel(device: torch.device, card: str, block_ts, batch: int, depth: int = 4, tag: str = "[kernel]") -> dict:
     """Kernel against its plain version at each block shape of the path."""
-    block = GatedHiFiBlock(64, 4, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
-    randomize(block, seed=1)
-    block.to(device)
-    w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
+    w = block_weights(device, seed=1, depth=depth)
     max_err, ms_total, plain_total, dev_total, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
     with torch.inference_mode():
         for i, T in enumerate(block_ts):
@@ -503,7 +552,7 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
             ms = cuda_ms(lambda: gh.gated_hifi(x, lens, w))
             plain = cuda_ms(lambda: gh.gated_hifi_reference(x, lens, w))
             dev = device_ms(lambda: gh.gated_hifi(x, lens, w))
-            print(f"[kernel] B={batch} T={T} W=64: max_abs_err {err:.3e} (tol {tol:.3e} = "
+            print(f"{tag} B={batch} T={T} W=64 depth {depth}: max_abs_err {err:.3e} (tol {tol:.3e} = "
                   f"{KERNEL_RTOL:g} * max|ref| {scale:.3e}), exact zeros past lens {zeros}; "
                   f"kernel {ms:.3f} ms, plain {plain:.3f} ms (median of 10); kernel {dev:.3f} ms over "
                   f"{DEVICE_REPS} back-to-back calls [{card}]")
@@ -516,7 +565,7 @@ def phase_kernel(device: torch.device, card: str, block_ts, batch: int) -> dict:
             flops += batch * T * block_flops_per_frame(w)
             nbytes += 4 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[kernel] sum over the {len(block_ts)} block shapes: kernel {ms_total:.3f} ms, "
+    print(f"{tag} sum over the {len(block_ts)} block shapes: kernel {ms_total:.3f} ms, "
           f"plain {plain_total:.3f} ms; kernel {dev_total:.3f} ms over {DEVICE_REPS} back-to-back calls; "
           f"bound {bound_ms:.3f} ms by {bound_by} ({tf32_bound_ms(flops, nbytes):.3f} at the 3xTF32 rate; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
@@ -641,9 +690,9 @@ def phase_timing(model, device, audio, lengths, card: str) -> None:
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]")
 
 
-def block_weights(device: torch.device, seed: int) -> gh.GatedHiFiWeights:
-    """Packed weights of a vqvae_tpu-width block (W=64, depth 4), all seeded."""
-    block = GatedHiFiBlock(64, 4, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
+def block_weights(device: torch.device, seed: int, depth: int = 4) -> gh.GatedHiFiWeights:
+    """Packed weights of a codec block at W=64 (depth 4: vqvae_tpu's; 3: vqtts_tpu's), all seeded."""
+    block = GatedHiFiBlock(64, depth, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
     randomize(block, seed=seed)
     block.to(device)
     with torch.no_grad():
@@ -715,9 +764,9 @@ def leaf_errors(ours: gh.GatedHiFiWeights, ref: gh.GatedHiFiWeights) -> dict:
             for name, t in ours.tensors().items()}
 
 
-def phase_backward(device, card: str, block_ts, batch: int) -> dict:
+def phase_backward(device, card: str, block_ts, batch: int, depth: int = 4, tag: str = "[backward]") -> dict:
     """Backward kernels against plain autograd at each block shape, p=0 and p=0.1."""
-    w = block_weights(device, seed=1)
+    w = block_weights(device, seed=1, depth=depth)
     seed = 12345
     out = {"dx_err": 0.0, "red_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "red_ms": 0.0, "red_plain_ms": 0.0}
     for p in (0.0, P_DROP):
@@ -781,7 +830,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
             }
             for key, ms in times.items():
                 sums[key] += ms
-            print(f"[backward] p={p} B={batch} T={T}: relu/dropout decisions flipped against the "
+            print(f"{tag} p={p} B={batch} T={T}: relu/dropout decisions flipped against the "
                   f"plain forward: " + ", ".join(
                       f"{k} {n_} (largest value {v:.1e} of max {m:.1e})" for k, (n_, v, m) in flips.items())
                   + f"; at the kernel's decisions dx max_abs_err {dx_err:.3e} (tol "
@@ -812,7 +861,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
             out["red_err"] = max(out["red_err"], max(e for e, _ in red.values()))
             del dx_r, gw_r, dx_k, gw_k, dx_k2, gw_k2, bufs_r, red_k, red_r
             torch.cuda.empty_cache()
-        print(f"[backward] p={p} sums over the {len(block_ts)} block shapes: backward kernels "
+        print(f"{tag} p={p} sums over the {len(block_ts)} block shapes: backward kernels "
               f"{sums['bwd']:.3f} ms vs plain autograd {sums['plain']:.3f} ms; tile passes "
               f"{sums['tiles']:.3f} vs {sums['tiles_plain']:.3f} ms ({sums['tiles_dev']:.3f} ms over "
               f"{DEVICE_REPS} back-to-back calls); reduction {sums['red']:.3f} vs {sums['red_plain']:.3f} ms "
@@ -820,7 +869,7 @@ def phase_backward(device, card: str, block_ts, batch: int) -> dict:
         if p == P_DROP:  # the training configuration
             tiles_bound, tiles_by = bound(*work["tiles"])
             red_bound, red_by = bound(*work["red"])
-            print(f"[backward] p={p} bounds summed over the block shapes: tile passes {tiles_bound:.3f} ms by "
+            print(f"{tag} p={p} bounds summed over the block shapes: tile passes {tiles_bound:.3f} ms by "
                   f"{tiles_by} ({tf32_bound_ms(*work['tiles']):.3f} at the 3xTF32 rate), reduction "
                   f"{red_bound:.3f} ms by {red_by} ({tf32_bound_ms(*work['red']):.3f}) [{card}]")
             out.update(ms=sums["tiles_dev"], tiles_call_ms=sums["tiles"], plain_ms=sums["tiles_plain"],
@@ -859,16 +908,18 @@ def wgrad_mm_calls(x, bufs: gh.BackwardBuffers, kernels, dilations):
     return run
 
 
-def phase_dropout(device, card: str) -> float:
-    """The dropout law on the card; returns the train-mode forward's error."""
-    T, batch, seed = 4128, 16, 777
-    x, lens, valid, g = block_inputs(T, batch, 400, device)
-    # expand and conv biases of 10 (conv weights scaled down) make z > 0 and
-    # c > 0 everywhere, so the kernel's a > 0 and h1 > 0 exactly where kept
-    block = GatedHiFiBlock(64, 4, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
+def read_back_masks(device, T: int, batch: int, depth: int, seed: int) -> tuple:
+    """The backward kernels' dropout masks at p=P_DROP on a probe block whose
+    expand and conv biases of 10 (conv weights scaled down) make z > 0 and
+    c > 0 everywhere, so the kernel's a > 0 and h1 > 0 exactly where kept:
+    each branch's two masks must equal the plain version's (``branch_masks``)
+    bit for bit. Returns (kept counts at site 0, site 1 and both, elements,
+    the same seed's buffers equal, the share of site 0 another seed changes)."""
+    x, lens, _, g = block_inputs(T, batch, 400, device)
+    block = GatedHiFiBlock(64, depth, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
     randomize(block, seed=7)
     with torch.no_grad():
-        for d in range(4):
+        for d in range(depth):
             block.blocks[d][0].bias.fill_(10.0)
             block.blocks[d][1].model[2].weight.mul_(0.01)
             block.blocks[d][1].model[2].bias.fill_(10.0)
@@ -881,21 +932,28 @@ def phase_dropout(device, card: str) -> float:
         _, again = gh.backward_buffers(x, lens, w, g, 1.0, P_DROP, seed)
         _, other = gh.backward_buffers(x, lens, w, g, 1.0, P_DROP, seed + 1)
         H = 128
-        keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
         n0 = n1 = n01 = 0
-        for d in range(4):
+        for d in range(depth):
             k0 = bufs.a[..., d * H:(d + 1) * H] > 0
             k1 = bufs.h1[..., d * H:(d + 1) * H] > 0
             m0, m1 = gh.branch_masks(seed, batch, d, 0, T, H, P_DROP, device)
             require(torch.equal(k0, m0 > 0) and torch.equal(k1, m1 > 0),
-                    f"branch {d}: the kernel's masks differ from the plain version's")
+                    f"branch {d} at B={batch} T={T}: the kernel's masks differ from the plain version's")
             n0 += int(k0.sum())
             n1 += int(k1.sum())
             n01 += int((k0 & k1).sum())
-        n = batch * T * H * 4
-        rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
         same = torch.equal(bufs.a, again.a) and torch.equal(bufs.h1, again.h1)
         changed = ((bufs.a > 0) != (other.a > 0)).float().mean().item()
+    return (n0, n1, n01), batch * T * H * depth, same, changed
+
+
+def phase_dropout(device, card: str) -> float:
+    """The dropout law on the card; returns the train-mode forward's error."""
+    T, batch, seed = 4128, 16, 777
+    keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
+    (n0, n1, n01), n, same, changed = read_back_masks(device, T, batch, 4, seed)
+    rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
+    with torch.no_grad():
         wr = block_weights(device, seed=1)
         xr, lr, vr, _ = block_inputs(T, batch, 401, device)
         ref = gh.gated_hifi_reference(xr, lr, wr, 1.0, P_DROP, seed)
@@ -2444,6 +2502,305 @@ def phase_glow_train_vs_cpu(device, card: str, flow_step: bool = False) -> None:
             f"glow train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
 
 
+# ---------------------------------------------------------------------------
+# VQ-TTS
+# ---------------------------------------------------------------------------
+def phase_vqtts_blocks(device, card: str) -> dict:
+    """Phase 29: B1 at VQ-TTS's eight depth-3 block shapes, batch 4: the
+    forward at p=0 (phase 3's checks and times), at p=0.1 against the plain
+    version with two calls bitwise equal, the kernels' masks read back, then
+    the backward's tile passes and reduction at p=0 and 0.1 (phase 7's)."""
+    fwd = phase_kernel(device, card, VQTTS_BLOCK_TS, VQTTS_BATCH, depth=VQTTS_DEPTH, tag="[vqtts B1]")
+    w = block_weights(device, seed=1, depth=VQTTS_DEPTH)
+    keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
+    worst = 0.0
+    with torch.no_grad():
+        for i, T in enumerate(VQTTS_BLOCK_TS):
+            x, lens, valid, _ = block_inputs(T, VQTTS_BATCH, 500 + i, device)
+            seed = 900 + i
+            ref = gh.gated_hifi_reference(x, lens, w, 1.0, P_DROP, seed)
+            out = gh.gated_hifi(x, lens, w, 1.0, P_DROP, seed)
+            again = gh.gated_hifi(x, lens, w, 1.0, P_DROP, seed)
+            torch.cuda.synchronize()
+            err = (out - ref)[valid].abs().max().item()
+            scale = ref[valid].abs().max().item()
+            bitwise = torch.equal(out, again)
+            (n0, n1, n01), n, same, changed = read_back_masks(device, T, VQTTS_BATCH, VQTTS_DEPTH, seed)
+            rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
+            print(f"[vqtts B1] p={P_DROP} B={VQTTS_BATCH} T={T} depth {VQTTS_DEPTH}: forward max_abs_err {err:.3e} "
+                  f"(tol {KERNEL_RTOL * scale:.3e}), two calls bitwise equal {bitwise}; the backward's masks equal "
+                  f"the plain version's at both sites of all {VQTTS_DEPTH} branches, keep rates "
+                  + ", ".join(f"{k} {r:.5f} (expect {q:.5f})" for k, (r, q) in rates.items())
+                  + f"; same seed same masks {same}; another seed changes {changed:.4f} [{card}]")
+            require(np.isfinite(err) and err <= KERNEL_RTOL * scale, f"VQ-TTS block T={T}: p=0.1 forward {err}")
+            require(bitwise, f"VQ-TTS block T={T}: two p=0.1 forward calls differ")
+            for k, (r, q) in rates.items():
+                require(abs(r - q) <= 5 * np.sqrt(q * (1 - q) / n), f"VQ-TTS block T={T}: keep rate {k} {r} vs {q}")
+            require(same and changed > 0.1, f"VQ-TTS block T={T}: masks same {same}, changed {changed}")
+            worst = max(worst, err)
+    bwd = phase_backward(device, card, VQTTS_BLOCK_TS, VQTTS_BATCH, depth=VQTTS_DEPTH, tag="[vqtts B1 backward]")
+    return {"fwd": fwd, "fwd_drop_err": worst, "bwd": bwd}
+
+
+def vqtts_config(fused_encoder: bool = False, **overrides) -> dict:
+    """VQTTS_TPU (its encoder route, fused_encoder: false), or with
+    ``fused_encoder`` B5's, and ``overrides`` of the model section."""
+    model = dict(copy.deepcopy(configs.VQTTS_TPU), fused_encoder=fused_encoder, **overrides)
+    return {"model": model, "dataset": copy.deepcopy(configs.LJSPEECH_TPU)}
+
+
+def build_vqtts(device, seed: int, fused_encoder: bool = False, **overrides) -> VQTTS:
+    """VQTTS at VQTTS_TPU width with init_model_variables' initializers (the
+    text encoder's Glow-TTS ones), then the leaves those leave at zero (the
+    codec's gates and branch 1x1s, the quant decoder's 1x1s, the prenet's
+    proj) drawn lecun-normal from the seed. The codebook stays uninitialized:
+    its lazy init runs in the first train step."""
+    model = harness.get_model(vqtts_config(fused_encoder, **overrides), device=device)
+    harness.init_model_variables(model, None, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for module in model.modules():
+            if getattr(module, "zero_init", False):
+                w = module.weight
+                w.copy_(torch.randn(w.shape, generator=gen) / np.sqrt(w[0].numel()))
+    return model
+
+
+def vqtts_batch(batch: int, samples: int, device, seed: int) -> dict:
+    """Seeded audio (uniform in +-0.5, as the JAX package's bench) and token
+    ids, ragged: audio lengths from half to all of ``samples``, up to
+    VQTTS_TOKENS tokens and never more tokens than code frames."""
+    rng = np.random.RandomState(seed)
+    lens = ragged(rng, batch, samples // 2, samples)
+    tokens = np.minimum(ragged(rng, batch, VQTTS_TOKENS // 2, VQTTS_TOKENS), lens // 256)
+    audio = rng.uniform(-0.5, 0.5, (batch, samples)) * (np.arange(samples)[None, :] < lens[:, None])
+    ids = rng.randint(0, configs.VQTTS_TPU["encoder"]["n_vocab"] + 1, (batch, VQTTS_TOKENS))
+    ids *= np.arange(VQTTS_TOKENS)[None, :] < tokens[:, None]
+    return {"token": torch.from_numpy(ids).to(device), "token_len": torch.from_numpy(tokens).to(device),
+            "audio": torch.from_numpy(audio.astype(np.float32)).to(device),
+            "audio_len": torch.from_numpy(lens).to(device)}
+
+
+def vqtts_counts() -> tuple:
+    """(B1 fwd, B1 bwd, B1 red, B4, B5 fwd, B5 bwd) launches so far."""
+    return (gh.gated_hifi.launches, gh.backward_buffers.launches, gh.weight_grad_reduce.launches,
+            mas_ops.maximum_path_auto.launches, enc_ops.enc_layer.launches, enc_ops.enc_layer_backward.launches)
+
+
+def zero_vqtts_counts() -> None:
+    gh.gated_hifi.launches = gh.backward_buffers.launches = gh.weight_grad_reduce.launches = 0
+    mas_ops.maximum_path_auto.launches = enc_ops.enc_layer.launches = enc_ops.enc_layer_backward.launches = 0
+
+
+def phase_vqtts_train(device, card: str, fused_encoder: bool = False) -> dict:
+    """Phase 30: VQTTS_STEPS train steps at batch 4 x 2 s, ragged, every
+    dropout site on, Adam and the codebook and parameter EMAs, the codebook's
+    lazy init inside step 1; on the config's encoder route or B5's."""
+    tag = "[vqtts train B5]" if fused_encoder else "[vqtts train]"
+    expect = (16, 16, 16, 1, 6, 6) if fused_encoder else (16, 16, 16, 1, 0, 0)
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    model = build_vqtts(device, VQTTS_SEED, fused_encoder)
+    batch = vqtts_batch(VQTTS_BATCH, VQTTS_SAMPLES, device, seed=41)
+    bn = model.quant_bottleneck
+    require(not bool(bn.initialized), "the VQ-TTS codebook starts initialized")
+    opt, schedule = build_optimizer(model.parameters(), configs.VQTTS_TPU_OPTIMIZER)
+    state = TrainState.create(model, opt, use_ema=True)
+    train_step = make_train_step(schedule, default_mu(VQTTS_BATCH, 1), use_ema=True)
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_vqtts_counts()
+    times, per_step, losses, syncs = [], [], [], []
+    for _ in range(VQTTS_STEPS):
+        before = vqtts_counts()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")  # each op that waits for the card warns once
+            t0 = time.perf_counter()
+            scalars = train_step(state, batch, TRAIN_SEED)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        syncs.append([f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+                      if "synchronizing" in str(w.message)])
+        per_step.append(tuple(a - b for a, b in zip(vqtts_counts(), before)))
+        if len(times) == 1:
+            initialized = bool(bn.initialized) and bn.init_seen and bool(bn.k.abs().sum() > 0)
+        raise_if_not_finite(scalars, state.step)
+        losses.append({k: round(float(v), 6) for k, v in scalars.items() if k != "finite"})
+    totals = vqtts_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    not_finite = [k for k, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in grads.items() if g is not None and not bool(g.abs().sum() > 0)]
+    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
+    median = statistics.median(times[VQTTS_STEADY_FROM - 1:])
+    seconds = VQTTS_BATCH * VQTTS_SAMPLES / configs.LJSPEECH_TPU["sample_rate"]
+    valid = float(batch["audio_len"].sum()) / configs.LJSPEECH_TPU["sample_rate"]
+    print(f"{tag} B={VQTTS_BATCH} x {VQTTS_SAMPLES} samples ({seconds:.3f} s of audio, {valid:.3f} s valid) and "
+          f"{VQTTS_TOKENS} tokens, ragged; dropout (encoder {model.text_encoder.p_dropout}, prenet "
+          f"{model.text_encoder.pre.P_DROPOUT}, codec {model.audio_encoder.level_blocks[0].blocks[1].p_dropout}, "
+          f"quant decoder {model.quant_decoder.model[0].model[0].p}), Adam + codebook EMA + parameter EMA; the "
+          f"codebook's lazy init ran in step 1: {initialized}; losses per step {losses}")
+    print(f"{tag} launches per step (B1 fwd, B1 bwd, B1 red, B4, B5 fwd, B5 bwd) {per_step}; ops that waited for "
+          f"the card per step (torch.cuda sync debug mode) {[len(x) for x in syncs]}, in step 1 at {syncs[0]}; "
+          f"every one of {len(grads)} parameters a finite "
+          f"gradient: {not not_finite}, zero gradients {zero}; {ema_moved}/{len(ema0)} EMA parameters moved")
+    print(f"{tag} step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps {VQTTS_STEADY_FROM}-{VQTTS_STEPS} "
+          f"{median:.3f} ms = {seconds / (median / 1e3):.2f} audio seconds/s ({valid / (median / 1e3):.2f} valid); "
+          f"max_memory_allocated {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held before the phase [{card}]")
+    require(initialized, "the codebook's lazy init did not run in step 1")
+    require(all(c == expect for c in per_step), f"VQ-TTS train step launches {per_step} != {expect}")
+    require(not any(syncs[1:]), f"steps 2-{VQTTS_STEPS} wait for the card: {syncs[1:]}")
+    require(not not_finite, f"parameters without a finite gradient: {not_finite[:8]}")
+    # the key biases' true gradient is zero (the softmax is invariant to them): rounding may leave exact zeros
+    require(all(k.endswith("conv_k.bias") for k in zero), f"zero gradients: {zero[:8]}")
+    require(ema_moved == len(ema0), f"only {ema_moved}/{len(ema0)} EMA parameters moved")
+    return {"launches": totals, "per_step": per_step[0], "step_ms": median, "audio_s_per_s": seconds / (median / 1e3),
+            "peak": peak, "loss1": losses[0]["loss"], "state": state, "batch": batch,
+            "step": lambda: raise_if_not_finite(train_step(state, batch, TRAIN_SEED), state.step)}
+
+
+def phase_vqtts_val(state: TrainState, batch: dict, card: str) -> dict:
+    """Phase 31: the val step on the EMA parameters (eval forward: the codec's
+    decoder runs twice, once at the quantized encodings for the losses and
+    once at the predicted codes for ``yh``)."""
+    val_step = make_val_step(use_ema=True)
+    val_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    times, counts = [], []
+    for _ in range(3):
+        zero_vqtts_counts()
+        t0 = time.perf_counter()
+        loss, metrics = val_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(vqtts_counts())
+    losses = {k: float(loss[k]) for k in VQTTS_LOSS_KEYS}
+    yh, q_acc = loss["yh"], float(metrics["q_acc"])
+    print(f"[vqtts val] B={VQTTS_BATCH} x {VQTTS_SAMPLES} samples, {VQTTS_TOKENS} tokens, ragged; EMA parameters: "
+          f"losses {losses}; q_acc {q_acc:.6f}; yh {tuple(yh.shape)} finite {bool(torch.isfinite(yh).all())}; "
+          f"launches (B1 fwd, B1 bwd, B1 red, B4, B5 fwd, B5 bwd) per step {counts}; step ms "
+          f"{', '.join(f'{t:.3f}' for t in times)}, median {statistics.median(times):.3f} [{card}]")
+    require(all(c == (24, 0, 0, 1, 0, 0) for c in counts), f"VQ-TTS val step launches {counts}")
+    require(all(np.isfinite(v) for v in losses.values()), f"VQ-TTS val losses {losses}")
+    require(tuple(yh.shape) == tuple(batch["audio"].shape) and bool(torch.isfinite(yh).all()), "VQ-TTS val yh")
+    require(0.0 <= q_acc <= 1.0, f"q_acc {q_acc}")
+    return {"launches": counts[0], "step_ms": statistics.median(times), "q_acc": q_acc}
+
+
+def vqtts_step_capture(model: VQTTS, batch: dict) -> tuple:
+    """One train step (seed TRAIN_SEED) with the MAS inputs and path and the
+    codes captured: (scalars, grads, value, mask, path, codes)."""
+    seen = {}
+
+    def mas(value, mask):
+        seen["value"], seen["mask"] = value.detach().clone(), mask.detach().clone()
+        seen["path"] = mas_ops.maximum_path_auto(value, mask)
+        return seen["path"]
+
+    hook = model.quant_bottleneck.register_forward_hook(lambda m, inp, out: seen.update(codes=out[0].clone()))
+    route = vqtts_model.maximum_path_auto
+    vqtts_model.maximum_path_auto = mas
+    try:
+        opt, schedule = build_optimizer(model.parameters(), configs.VQTTS_TPU_OPTIMIZER)
+        state = TrainState.create(model, opt, use_ema=True)
+        scalars = make_train_step(schedule, default_mu(len(batch["token"]), 1), use_ema=True)(
+            state, batch, TRAIN_SEED)
+    finally:
+        vqtts_model.maximum_path_auto = route
+        hook.remove()
+    grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+    return ({k: float(v) for k, v in scalars.items()}, grads, *(seen[k].cpu() for k in ("value", "mask", "path",
+                                                                                          "codes")))
+
+
+def phase_vqtts_train_vs_cpu(device, card: str, fused_encoder: bool = False) -> dict:
+    """Phase 32: one train step (p=0 at every site, revival off) on the card
+    against the CPU on 2 sequences, each against the same step in fp64 on the
+    CPU, on the config's encoder route or B5's (the card's step launches B5
+    6 times each way there, and 0 on the config's; the CPU steps run B5's
+    plain version). The codebook is drawn once on the card from other audio (so all three
+    steps start from the same one and no frame meets its own encoding). First
+    the MAS path and the codes: the card's against the CPU's (frames that
+    differ), and B4 on the card's own value table against the plain MAS bit
+    for bit; then the losses within STEP_LOSS_RTOL and the card's gradients
+    within VQTTS_GRAD_{MEDIAN,WORST}_MULTIPLE times the CPU fp32 step's
+    distance from fp64."""
+    tag = "[vqtts train vs cpu B5]" if fused_encoder else "[vqtts train vs cpu]"
+    n = VQTTS_VS_CPU
+    enc = dict(configs.VQTTS_TPU["encoder"], p_dropout=0.0)
+    model = build_vqtts(device, VQTTS_SEED + 2, fused_encoder, p_dropout=0.0, revival_threshold=0.0, encoder=enc)
+    model.text_encoder.pre.P_DROPOUT = 0.0
+    for m in model.quant_decoder.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    sub = vqtts_batch(n, VQTTS_SAMPLES, device, seed=43)
+    other = vqtts_batch(n, VQTTS_SAMPLES, device, seed=44)
+    with torch.no_grad():
+        mask = (torch.arange(VQTTS_SAMPLES, device=device)[None, :] < other["audio_len"][:, None]).float()
+        h, h_mask = model.audio_encoder(other["audio"][..., None], mask[..., None])
+        model.quant_bottleneck._maybe_init(h.reshape(-1, h.shape[-1]), h_mask.reshape(-1),
+                                           torch.Generator(device=device).manual_seed(VQTTS_SEED))
+    models = {"cuda": model, "cpu": copy.deepcopy(model).to("cpu")}
+    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
+    out = {}
+    for name, m in models.items():
+        dev = next(m.parameters()).device
+        batch = {k: v.to(dev) for k, v in sub.items()}
+        if name == "cpu64":
+            batch["audio"] = batch["audio"].double()
+        before = vqtts_counts()
+        out[name] = vqtts_step_capture(m, batch)
+        if name == "cuda":
+            b5 = tuple(a - b for a, b in zip(vqtts_counts(), before))[4:]
+    (_, _, value, vmask, path, codes), (_, _, _, _, cpu_path, cpu_codes) = out["cuda"], out["cpu"]
+    path64, codes64 = out["cpu64"][4], out["cpu64"][5]
+    frames = vmask[:, 0, :] > 0                                     # valid code frames
+
+    def frames_apart(a, b):  # frames whose token differs, then codes that differ, at valid frames
+        return int(((a.argmax(dim=1) != b.argmax(dim=1)) & frames).sum())
+
+    b4_bitwise = torch.equal(mas_ops.maximum_path(value, vmask), path)
+    path_diff, code_diff = frames_apart(path, cpu_path), int(((codes != cpu_codes) & frames).sum())
+    path64_diff, code64_diff = frames_apart(path64.float(), cpu_path), int(((codes64 != cpu_codes) & frames).sum())
+    ref = out["cpu64"][1]
+    floor = 1e-4 * torch.sqrt(sum((r * r).sum() for r in ref.values())).item()
+
+    def rel_l2(ours: dict) -> dict:  # floored: the key biases' true gradients are zero
+        return {k: ((ours[k] - r).norm() / max(r.norm().item(), floor)).item() for k, r in ref.items()}
+
+    errs = {name: rel_l2(out[name][1]) for name in ("cuda", "cpu")}
+    stats = {name: (statistics.median(e.values()), max(e.values())) for name, e in errs.items()}
+    worst = sorted(errs["cuda"], key=errs["cuda"].get)[-3:]
+    print(f"{tag} {n} sequences, p=0, revival off, B5 launches on the card (fwd, bwd) {b5}: "
+          f"{int(frames.sum())} valid code frames; the MAS "
+          f"path's token differs from the CPU's at {path_diff} frames (fp64's from the CPU fp32's at {path64_diff}), "
+          f"the codes at {code_diff} (fp64's {code64_diff}); B4 on the card's value table equals the plain MAS bit "
+          f"for bit: {b4_bitwise} [{card}]")
+    print(f"{tag} losses card {out['cuda'][0]}; cpu {out['cpu'][0]}; cpu fp64 {out['cpu64'][0]}")
+    print(f"{tag} gradients against the fp64 step, relative L2 over {len(ref)} parameters "
+          f"(denominator floored at 1e-4 of the global norm): card median {stats['cuda'][0]:.3e} worst "
+          f"{stats['cuda'][1]:.3e} ({', '.join(f'{k} {errs['cuda'][k]:.2e}' for k in worst)}); "
+          f"cpu fp32 median {stats['cpu'][0]:.3e} worst {stats['cpu'][1]:.3e} (card within "
+          f"{VQTTS_GRAD_MEDIAN_MULTIPLE}x and {VQTTS_GRAD_WORST_MULTIPLE}x: {stats['cuda'][0] / stats['cpu'][0]:.2f}x "
+          f"and {stats['cuda'][1] / stats['cpu'][1]:.2f}x) [{card}]")
+    require(b5 == ((6, 6) if fused_encoder else (0, 0)), f"{tag} B5 launches on the card's step: {b5}")
+    require(b4_bitwise, "B4 on the card's value table differs from the plain MAS")
+    require(path_diff == 0 and code_diff == 0,
+            f"the card's MAS path ({path_diff} frames) or codes ({code_diff} frames) differ from the CPU's")
+    for key in VQTTS_LOSS_KEYS:
+        g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
+        rel = abs(g_ - c_) / max(abs(c_), 1e-12)
+        require(rel <= STEP_LOSS_RTOL, f"VQ-TTS train step {key} differs: {rel}")
+    require(stats["cuda"][0] <= VQTTS_GRAD_MEDIAN_MULTIPLE * stats["cpu"][0],
+            f"VQ-TTS train step grads: card median {stats['cuda'][0]} vs cpu {stats['cpu'][0]}")
+    require(stats["cuda"][1] <= VQTTS_GRAD_WORST_MULTIPLE * stats["cpu"][1],
+            f"VQ-TTS train step grads: card worst {stats['cuda'][1]} vs cpu {stats['cpu'][1]}")
+    return {"median_ratio": stats["cuda"][0] / stats["cpu"][0], "worst_ratio": stats["cuda"][1] / stats["cpu"][1]}
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -2514,12 +2871,54 @@ def main() -> None:
     b6_fwd_n = glow_train_b6["launches"][5] + val_b6["launches"][3]
     b6_bwd_n = glow_train_b6["launches"][6]
 
+    torch.cuda.empty_cache()
+
+    vq_blocks = phase_vqtts_blocks(device, card)
+    torch.cuda.empty_cache()
+    vq_train = phase_vqtts_train(device, card)
+    vq_train_b5 = phase_vqtts_train(device, card, fused_encoder=True)
+    turns = steps_in_turns({"config": vq_train.pop("step"), "B5": vq_train_b5.pop("step")}, VQTTS_AB_ROUNDS)
+    medians = {n: statistics.median(t) for n, t in turns.items()}
+    seconds = VQTTS_BATCH * VQTTS_SAMPLES / configs.LJSPEECH_TPU["sample_rate"]
+    print(f"[vqtts train A/B] median of steps {VQTTS_STEADY_FROM}-{VQTTS_STEPS}: the config's encoder route "
+          f"(fused_encoder: false, the plain layer) {vq_train['step_ms']:.3f} ms = {vq_train['audio_s_per_s']:.2f} "
+          f"audio seconds/s, peak {vq_train['peak']:.3f} GiB; B5's route {vq_train_b5['step_ms']:.3f} ms = "
+          f"{vq_train_b5['audio_s_per_s']:.2f}, peak {vq_train_b5['peak']:.3f} GiB; then {VQTTS_AB_ROUNDS} more steps "
+          f"of each in turns: config {', '.join(f'{t:.3f}' for t in turns['config'])}; B5 "
+          f"{', '.join(f'{t:.3f}' for t in turns['B5'])}; median config {medians['config']:.3f} ms = "
+          f"{seconds / (medians['config'] / 1e3):.2f} audio seconds/s, B5 {medians['B5']:.3f} ms = "
+          f"{seconds / (medians['B5'] / 1e3):.2f}; B5 / config {medians['B5'] / medians['config']:.4f} [{card}]")
+    del vq_train_b5["state"], vq_train_b5["batch"]
+    vq_val = phase_vqtts_val(vq_train.pop("state"), vq_train.pop("batch"), card)
+    torch.cuda.empty_cache()
+    phase_vqtts_train_vs_cpu(device, card)
+    phase_vqtts_train_vs_cpu(device, card, fused_encoder=True)
+
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
           f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
           f"one synthesis call (B5, B3, B4, B6) {glow_launches}; Glow-TTS training path (B5 fwd, B5 bwd, "
           f"B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) {glow_train['launches']}; on the B6 route "
-          f"{glow_train_b6['launches']} and one val step {val_b6['launches']}")
+          f"{glow_train_b6['launches']} and one val step {val_b6['launches']}; VQ-TTS training path (B1 fwd, B1 bwd, "
+          f"B1 red, B4, B5 fwd, B5 bwd) {vq_train['launches']}, on B5's encoder route {vq_train_b5['launches']}, one "
+          f"val step {vq_val['launches']}")
+
+    def at_vqtts(kernel: dict, **extra) -> dict:
+        return {"shapes": f"{len(VQTTS_BLOCK_TS)} block shapes, B={VQTTS_BATCH}, depth {VQTTS_DEPTH}, summed",
+                **{k: kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, **extra}
+
+    vq_fwd, vq_bwd = vq_blocks["fwd"], vq_blocks["bwd"]
+    vqtts_b1 = {"launches": vq_train["launches"][0], "launches_b5_route": vq_train_b5["launches"][0],
+                "launches_val_step": vq_val["launches"][0],
+                "at_vqtts": at_vqtts(vq_fwd, max_abs_err=max(vq_fwd["max_abs_err"], vq_blocks["fwd_drop_err"]),
+                                     bound_3xtf32_ms=vq_fwd["tf32_ms"])}
+    vqtts_bwd = {"launches": vq_train["launches"][1], "launches_b5_route": vq_train_b5["launches"][1],
+                 "at_vqtts": at_vqtts(vq_bwd, max_abs_err=vq_bwd["dx_err"], bound_3xtf32_ms=vq_bwd["tf32_ms"])}
+    vqtts_red = {"launches": vq_train["launches"][2], "launches_b5_route": vq_train_b5["launches"][2],
+                 "at_vqtts": dict(shapes=vqtts_bwd["at_vqtts"]["shapes"], ms=vq_bwd["red_ms"],
+                                  plain_ms=vq_bwd["red_plain_ms"], bound_ms=vq_bwd["red_bound_ms"],
+                                  bound_by=vq_bwd["red_bound_by"], library_ms=vq_bwd["red_library_ms"],
+                                  max_abs_err=vq_bwd["red_err"], bound_3xtf32_ms=vq_bwd["red_tf32_ms"])}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
@@ -2529,13 +2928,14 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("gated_hifi_fwd", "gated_hifi_fwd.cu", PALLAS + ":591", train["fwd"],
               max(kernel["max_abs_err"], dropout_err), kernel["ms"], kernel["plain_ms"], kernel["bound_ms"],
-              kernel["bound_by"], call_ms=kernel["call_ms"], bound_3xtf32_ms=kernel["tf32_ms"]),
+              kernel["bound_by"], call_ms=kernel["call_ms"], bound_3xtf32_ms=kernel["tf32_ms"], vqtts=vqtts_b1),
         entry("gated_hifi_bwd", "gated_hifi_bwd.cu", PALLAS + ":612", train["bwd"], backward["dx_err"],
               backward["ms"], backward["plain_ms"], backward["bound_ms"], backward["bound_by"],
-              call_ms=backward["tiles_call_ms"], bound_3xtf32_ms=backward["tf32_ms"]),
+              call_ms=backward["tiles_call_ms"], bound_3xtf32_ms=backward["tf32_ms"], vqtts=vqtts_bwd),
         entry("gated_hifi_wgrad", "gated_hifi_bwd.cu", PALLAS + ":360", train["red"], backward["red_err"],
               backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
-              backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"]),
+              backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"],
+              vqtts=vqtts_red),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
               ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],
@@ -2551,13 +2951,16 @@ def main() -> None:
               call_ms=b3_bwd["call_ms"], bound_3xtf32_ms=b3_bwd["tf32_ms"]),
         entry("mas", "mas.cu", PALLAS_MAS + ":123", glow_launches[2] + b4_n, b4["max_abs_err"], b4["ms"],
               b4["plain_ms"], b4["bound_ms"], b4["bound_by"], call_ms=b4["call_ms"],
-              ns_per_frame=b4["ns_per_frame"]),
+              ns_per_frame=b4["ns_per_frame"], vqtts={"launches": vq_train["launches"][3],
+                                                      "launches_b5_route": vq_train_b5["launches"][3],
+                                                      "launches_val_step": vq_val["launches"][3]}),
         entry("enc_layer_fwd", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_launches[0] + b5_fwd_n,
               b5["max_abs_err"], b5["ms"], b5["plain_ms"], b5["bound_ms"], b5["bound_by"], call_ms=b5["call_ms"],
-              bound_3xtf32_ms=b5["tf32_ms"]),
+              bound_3xtf32_ms=b5["tf32_ms"], vqtts={"launches_b5_route": vq_train_b5["launches"][4]}),
         entry("enc_layer_bwd", "enc_layer_bwd.cu", PALLAS_ENC + ":496", b5_bwd_n, b5_bwd["max_abs_err"],
               b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
-              call_ms=b5_bwd["call_ms"], bound_3xtf32_ms=b5_bwd["tf32_ms"]),
+              call_ms=b5_bwd["call_ms"], bound_3xtf32_ms=b5_bwd["tf32_ms"],
+              vqtts={"launches_b5_route": vq_train_b5["launches"][5]}),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
               b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], call_ms=b6["fwd_call_ms"],
               bound_3xtf32_ms=b6["fwd_tf32_ms"]),

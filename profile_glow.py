@@ -5,6 +5,7 @@
     python3 profile_glow.py --backward-split
     python3 profile_glow.py --forward-split
     python3 profile_glow.py --enc-split
+    python3 profile_glow.py --vqtts
 
 Builds the kernels, then the Glow-TTS of chip_smoke.py (GLOW_TTS_TPU width,
 seeded weights), and runs torch.profiler over 3 calls each of: the train step
@@ -36,6 +37,12 @@ tokens at p = 0.1, on the seeded Glow-TTS's first encoder layer (phase
 time split into the weight packing, the products, the attention kernels
 and the weight-gradient reduction (by the kernels' names), the host's
 time a call and the device's over back-to-back calls.
+``--vqtts`` profiles VQ-TTS instead (chip_smoke.py's phases 30 and 31:
+VQTTS_TPU width, batch 4 x 2 s, 64 tokens, seeded weights): the train step
+(dropout on, Adam, codebook and parameter EMAs, after a first step that runs
+the codebook's lazy init) on the config's encoder route (the plain layer)
+and on B5's (``fused_encoder: true``), and the val step, with the same
+report.
 """
 
 from __future__ import annotations
@@ -245,6 +252,22 @@ def backward_split(card: str, device) -> None:
                   f"device ms a call over {cs.DEVICE_REPS} back-to-back calls: {cs.device_ms(fn):.4f} [{card}]")
 
 
+def vqtts(card: str, device) -> None:
+    _build.build()
+    batch = cs.vqtts_batch(cs.VQTTS_BATCH, cs.VQTTS_SAMPLES, device, seed=41)
+    states = {}
+    for fused_encoder in (False, True):
+        model = cs.build_vqtts(device, cs.VQTTS_SEED, fused_encoder)
+        opt, schedule = build_optimizer(model.parameters(), cs.configs.VQTTS_TPU_OPTIMIZER)
+        state = states[fused_encoder] = TrainState.create(model, opt, use_ema=True)
+        train_step = make_train_step(schedule, default_mu(cs.VQTTS_BATCH, 1), use_ema=True)
+        train_step(state, batch, cs.TRAIN_SEED)  # the codebook's lazy init
+        report(f"vqtts train step, {'B5' if fused_encoder else 'config'} encoder route",
+               lambda: train_step(state, batch, cs.TRAIN_SEED), card)
+    val_step = make_val_step(use_ema=True)
+    report("vqtts val step, config encoder route", lambda: val_step(states[False], batch), card)
+
+
 def main() -> None:
     card = cs.phase_device()
     device = cuda_device()
@@ -256,6 +279,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--enc-split"]:
         enc_split(card, device)
+        return
+    if sys.argv[1:] == ["--vqtts"]:
+        vqtts(card, device)
         return
     _build.build()
     batch = cs.glow_val_batch(cs.GLOW_BATCH, device, seed=31)

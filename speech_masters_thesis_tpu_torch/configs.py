@@ -6,7 +6,9 @@ null); ``TRANSFORMER_LM_TPU``, ``TRANSFORMER_LM_TPU_OPTIMIZER`` and
 ``TRANSFORMER_LM_TPU_SCHEDULER`` are the three sections of
 ``configs/models/transformer_lm_tpu.yaml``; ``GLOW_TTS_TPU``,
 ``GLOW_TTS_TPU_OPTIMIZER`` and ``GLOW_TTS_TPU_SCHEDULER`` those of
-``configs/models/glow_tts_tpu.yaml``, and ``LJSPEECH_TPU`` the ``dataset:``
+``configs/models/glow_tts_tpu.yaml``; ``VQTTS_TPU`` and
+``VQTTS_TPU_OPTIMIZER`` those of ``configs/models/vqtts_tpu.yaml`` (its
+``scheduler:`` is null), and ``LJSPEECH_TPU`` the ``dataset:``
 section of ``configs/datasets/ljspeech_tpu.yaml``. Key for key; tests hold
 them equal.
 """
@@ -135,6 +137,70 @@ GLOW_TTS_TPU_OPTIMIZER = {
 }
 
 GLOW_TTS_TPU_SCHEDULER = {"name": "noam", "warmup_steps": 4000}
+
+VQTTS_TPU = {
+    "_import_": "models.vqtts.vqtts.VQTTS",
+    "fused_blocks": True,
+    "fused_encoder": False,
+    "n_speakers": 1,
+    "gin_channels": 0,
+    "encoder": {
+        "n_vocab": 148,
+        "out_channels": 128,
+        "hidden_channels": 192,
+        "filter_channels": 768,
+        "filter_channels_dp": 256,
+        "kernel_size": 3,
+        "p_dropout": 0.1,
+        "n_layers": 6,
+        "n_heads": 2,
+        "window_size": 4,
+        "prenet": True,
+        "mean_only": True,
+    },
+    "levels": 3,
+    "downs_t": [3, 3, 2],
+    "strides_t": [2, 2, 2],
+    "emb_width": 128,
+    "l_bins": 512,
+    "mu": 0.99,
+    "multipliers": [2, 1, 1],
+    "width": 64,
+    "depth": 3,
+    "m_conv": 1.0,
+    "revival_threshold": 1.0,
+    "use_bottleneck": True,
+    "dilation_growth_rate": 3,
+    "dilation_cycle": None,
+    "kernel_size_growth_rate": 2,
+    "kernel_size_cycle": None,
+    "reverse_decoder_dilation": True,
+    "zero_out": True,
+    "block_type": "gated_hifi",
+    "ddi": False,
+    "loss": {
+        "commit": 0.05,
+        "multispectral": 1.0,
+        "align": 0.1,
+        "l1": 0.0,
+        "l2": 1.0,
+        "linf": 0.02,
+        "linf_topk": 2048,
+        "n_ffts": [2048, 1024, 512],
+        "hop_lengths": [240, 120, 50],
+        "win_lengths": [1200, 600, 240],
+        "window": "hann",
+        "log": False,
+    },
+}
+
+VQTTS_TPU_OPTIMIZER = {
+    "name": "adam",
+    "lr": 0.0001,
+    "betas": [0.9, 0.98],
+    "weight_decay": 0,
+    "eps": 1e-9,
+}
 
 LJSPEECH_TPU = {
     "_import_": "datasets.ljspeech.LJSpeech",

@@ -1,5 +1,5 @@
-"""Weights and train state from the JAX package's VQ-VAE, Transformer LM and
-Glow-TTS into the port.
+"""Weights and train state from the JAX package's VQ-VAE, Transformer LM,
+Glow-TTS and VQ-TTS into the port.
 
 ``transformer_lm_params_from_jax`` maps an LM's params tree (its frozen
 codec's decoder included); ``codebook_from_jax`` takes an LM's codebook
@@ -25,7 +25,8 @@ and the port's can start from the same point. Conventions:
 
 ``glow_tts_params_from_jax`` gives the reference checkpoint's layout, key for
 key as ``tools/import_torch_checkpoint.py:export_glow_tts`` writes it (a
-copy of that mapping: the port imports nothing from ``tools/``).
+copy of that mapping: the port imports nothing from ``tools/``), and
+``vqtts_state_dict_from_jax`` that of ``export_vqtts``.
 """
 
 from __future__ import annotations
@@ -71,17 +72,22 @@ def _decoder(tree: dict, prefix: str, model_cfg: dict, out: Dict[str, torch.Tens
     _conv(tree["out"], f"{prefix}.out", out)
 
 
+def _encoder(tree: dict, prefix: str, model_cfg: dict, out: Dict[str, torch.Tensor]) -> None:
+    """A JAX encoder tree -> the port's ``Encoder`` parameters under ``prefix``."""
+    depth = _codec_depth(model_cfg)
+    for level, down_t in enumerate(model_cfg["downs_t"]):
+        enc = tree[f"level_{level}"]
+        p = f"{prefix}.level_blocks.{level}"
+        for i in range(down_t):
+            _conv(enc[f"MaskedConv1d_{i}"]["Conv_0"], f"{p}.blocks.{2 * i}", out)
+            _gated_hifi(enc[f"GatedHiFiBlock_{i}"], f"{p}.blocks.{2 * i + 1}", depth, out)
+        _conv(enc[f"MaskedConv1d_{down_t}"]["Conv_0"], f"{p}.blocks.{2 * down_t}", out)
+
+
 def params_from_jax(params: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
     """JAX VQVAE params tree (numpy) -> the port's parameters by name."""
-    depth = _codec_depth(model_cfg)
     sd: Dict[str, torch.Tensor] = {}
-    for level, down_t in enumerate(model_cfg["downs_t"]):
-        enc = params["encoder"][f"level_{level}"]
-        p = f"encoders.0.level_blocks.{level}"
-        for i in range(down_t):
-            _conv(enc[f"MaskedConv1d_{i}"]["Conv_0"], f"{p}.blocks.{2 * i}", sd)
-            _gated_hifi(enc[f"GatedHiFiBlock_{i}"], f"{p}.blocks.{2 * i + 1}", depth, sd)
-        _conv(enc[f"MaskedConv1d_{down_t}"]["Conv_0"], f"{p}.blocks.{2 * down_t}", sd)
+    _encoder(params["encoder"], "encoders.0", model_cfg, sd)
     _decoder(params["decoder"], "decoders.0", model_cfg, sd)
     return sd
 
@@ -94,10 +100,12 @@ def _codebook_level(level: dict, prefix: str) -> Dict[str, torch.Tensor]:
 
 def codebook_from_jax(codebook: dict) -> Dict[str, torch.Tensor]:
     """JAX ``codebook`` collection (numpy) -> the codebook buffers by name: a
-    VQ-VAE's (``bottleneck.level_0`` -> ``bottleneck.level_blocks.0``) or an
-    LM's frozen codec's (``vqvae_bottleneck``)."""
-    if "vqvae_bottleneck" in codebook:
-        return _codebook_level(codebook["vqvae_bottleneck"], "vqvae_bottleneck")
+    VQ-VAE's (``bottleneck.level_0`` -> ``bottleneck.level_blocks.0``), an
+    LM's frozen codec's (``vqvae_bottleneck``) or VQ-TTS's grouped one
+    (``quant_bottleneck``)."""
+    for name in ("vqvae_bottleneck", "quant_bottleneck"):
+        if name in codebook:
+            return _codebook_level(codebook[name], name)
     return _codebook_level(codebook["bottleneck"]["level_0"], "bottleneck.level_blocks.0")
 
 
@@ -216,4 +224,36 @@ def glow_tts_params_from_jax(params: dict, model_cfg: Optional[dict] = None) -> 
     sd: Dict[str, torch.Tensor] = {}
     _text_encoder(params["encoder"], "encoder", sd)
     _flow_decoder(params["decoder"], "decoder", sd)
+    return sd
+
+
+def vqtts_params_from_jax(params: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX VQTTS params tree (numpy) -> the port's parameters by name, in the
+    reference checkpoint's layout (``tools/import_torch_checkpoint.py:
+    export_vqtts``, copied: the port imports nothing from ``tools/``): the
+    codec at ``audio_encoder`` / ``audio_decoder``, the ``text_encoder``, the
+    quant decoder's ResLayers at ``quant_decoder.model.{i}`` (flax's
+    ``ResLayer_{i}``, layer 0 the largest dilation) and ``quant_proj``."""
+    if "emb_g" in params:
+        raise NotImplementedError("vqtts_params_from_jax: multi-speaker models are not ported")
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(params["audio_encoder"], "audio_encoder", model_cfg, sd)
+    _decoder(params["audio_decoder"], "audio_decoder", model_cfg, sd)
+    _text_encoder(params["text_encoder"], "text_encoder", sd)
+    i = 0
+    while f"ResLayer_{i}" in params["quant_decoder"]:
+        layer = params["quant_decoder"][f"ResLayer_{i}"]
+        _conv(layer["Conv_0"], f"quant_decoder.model.{i}.model.2", sd)
+        _conv(layer["Conv_1"], f"quant_decoder.model.{i}.model.5", sd)
+        i += 1
+    _conv(params["quant_proj"], "quant_proj", sd)
+    return sd
+
+
+def vqtts_state_dict_from_jax(variables: dict, model_cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX VQTTS ``{"params", "codebook"}`` (numpy) -> the port's ``state_dict``
+    (``export_vqtts``'s keys: the parameters and ``quant_bottleneck.k``); the
+    codebook's other buffers come from ``codebook_from_jax``."""
+    sd = vqtts_params_from_jax(variables["params"], model_cfg)
+    sd["quant_bottleneck.k"] = _tensor(variables["codebook"]["quant_bottleneck"]["k"])
     return sd

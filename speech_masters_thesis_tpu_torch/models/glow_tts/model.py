@@ -44,6 +44,8 @@ def _normal(shape, like: torch.Tensor, noise: Optional[torch.Tensor],
 class GlowTTS(TokenToSpectrogramModel):
     """Glow-TTS at a ``model:`` config section and its dataset's settings."""
 
+    USES_DATASET_CONFIG = True
+
     def __init__(self, model_cfg: Mapping, dataset_config: Mapping):
         super().__init__()
         enc, dec = model_cfg["encoder"], model_cfg["decoder"]

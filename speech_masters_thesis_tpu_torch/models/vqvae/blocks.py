@@ -1,12 +1,14 @@
 """Residual conv blocks of the VQ-VAE codec (counterpart of
 speech_masters_thesis_tpu/models/vqvae/blocks.py), NTC layout.
 
-Only ``gated_hifi`` is ported; ``base``, ``wavenet`` and ``hifi`` raise in
-``get_block``. Modules keep the reference torch ``state_dict`` layout
-(``blocks.{d}.0``, ``blocks.{d}.1.model.{2,5}``, ``gate``). Dropout runs in
-train mode only and draws from the ``torch.Generator`` the caller passes:
-``ResLayer`` draws its masks from it, ``GatedHiFiBlock`` one 32-bit seed per
-call for the kernel's hashed masks (as the JAX block draws its seed from
+``gated_hifi`` (the codec's) and ``base`` (``ResNetBlock``, VQ-TTS's quant
+decoder) are ported; ``wavenet`` and ``hifi`` raise in ``get_block``.
+Modules keep the reference torch ``state_dict`` layout (``blocks.{d}.0``,
+``blocks.{d}.1.model.{2,5}``, ``gate``; ``model.{i}.model.{2,5}``). Dropout
+runs in train mode only and draws from the ``torch.Generator`` the caller
+passes: ``ResLayer`` (and so ``ResNetBlock``) draws its masks from it, on the
+activations' device, ``GatedHiFiBlock`` one 32-bit seed per call for the
+kernel's hashed masks (as the JAX block draws its seed from
 ``make_rng("dropout")``).
 """
 
@@ -121,13 +123,42 @@ class GatedHiFiBlock(nn.Module):
         return out, mask
 
 
-BLOCKS = {"gated_hifi": GatedHiFiBlock}
-NOT_PORTED = ("base", "wavenet", "hifi")
+class ResNetBlock(nn.Module):
+    """Serial stack of dilated ``ResLayer``s (``model.{i}``), plain PyTorch
+    (the JAX block is flax, no kernel). Layer i has dilation
+    ``dilation_growth_rate ** depth_i``, the depths reversed under
+    ``reverse_dilation`` (layer 0 then has the largest); each layer sees
+    ``x * mask``."""
+
+    def __init__(self, n_in: int, n_depth: int, m_conv: float = 1.0, dilation_growth_rate: int = 1,
+                 dilation_cycle: Optional[int] = None, zero_out: bool = True, res_scale: bool = False,
+                 reverse_dilation: bool = False, p_dropout: float = 0.1):
+        super().__init__()
+        scale = 1.0 if not res_scale else 1.0 / math.sqrt(n_depth)
+        depths = list(range(n_depth))
+        if reverse_dilation:
+            depths = depths[::-1]
+        self.model = nn.ModuleList([
+            ResLayer(n_in, int(m_conv * n_in), dilation=dilation_growth_rate ** get_mod_cycle(d, dilation_cycle),
+                     zero_out=zero_out, res_scale=scale, dropout=p_dropout)
+            for d in depths])
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: [B, T, C]; mask: [B, T, 1] or None -> (out [B, T, C], mask)."""
+        m = 1.0 if mask is None else mask
+        for layer in self.model:
+            x = layer(x * m, train, generator)
+        return x, mask
+
+
+BLOCKS = {"gated_hifi": GatedHiFiBlock, "base": ResNetBlock}
+NOT_PORTED = ("wavenet", "hifi")
 
 
 def get_block(block_type: str):
     if block_type in NOT_PORTED:
-        raise NotImplementedError(f"block_type={block_type} is not ported yet; only gated_hifi is")
+        raise NotImplementedError(f"block_type={block_type} is not ported yet; gated_hifi and base are")
     if block_type not in BLOCKS:
         raise ValueError(f"Unknown block_type={block_type}; known: {sorted(BLOCKS)}")
     return BLOCKS[block_type]

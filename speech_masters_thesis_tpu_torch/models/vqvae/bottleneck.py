@@ -44,6 +44,9 @@ class BottleneckBlock(nn.Module):
         self.register_buffer("k_sum", torch.zeros(k_bins, emb_width), persistent=False)
         self.register_buffer("k_elem", torch.ones(k_bins), persistent=False)
         self.register_buffer("initialized", torch.zeros((), dtype=torch.bool), persistent=False)
+        # host copy of ``initialized`` once seen set: the lazy-init check reads the buffer (a sync
+        # with the card) only until then
+        self.init_seen = False
 
     def _distances(self, x_flat: torch.Tensor) -> torch.Tensor:
         """Squared L2 distance table [N, K] = |x|^2 - 2 x k^T + |k|^2, in fp32."""
@@ -122,13 +125,15 @@ class BottleneckBlock(nn.Module):
     def _maybe_init(self, x_flat: torch.Tensor, m_flat: torch.Tensor,
                     generator: torch.Generator) -> None:
         """Lazy data-dependent init from the first batch (reference init_k)."""
-        if bool(self.initialized):
+        if self.init_seen:
             return
-        k_init = sample_rows(generator, x_flat.to(torch.float32), m_flat, self.k_bins)
-        self.k.copy_(k_init)
-        self.k_sum.copy_(k_init)
-        self.k_elem.fill_(1.0)
-        self.initialized.fill_(True)
+        if not bool(self.initialized):
+            k_init = sample_rows(generator, x_flat.to(torch.float32), m_flat, self.k_bins)
+            self.k.copy_(k_init)
+            self.k_sum.copy_(k_init)
+            self.k_elem.fill_(1.0)
+            self.initialized.fill_(True)
+        self.init_seen = True
 
     @torch.no_grad()
     def _update_k(self, x_flat: torch.Tensor, m_flat: torch.Tensor, codes: torch.Tensor,

@@ -20,6 +20,16 @@ import torch.nn as nn
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import get_block
 
 
+def _codec_block(block_type: str):
+    """The codec's residual block class. Only ``gated_hifi`` is wired here:
+    a ``base`` codec block would also need ``m_conv`` and the decoder's
+    ``reverse_decoder_dilation``, which no shipped config uses."""
+    Block = get_block(block_type)
+    if block_type != "gated_hifi":
+        raise NotImplementedError(f"the codec's block_type={block_type} is not ported; only gated_hifi is")
+    return Block
+
+
 def _run(mods: nn.ModuleList, x: torch.Tensor, mask: torch.Tensor, train: bool,
          generator: Optional[torch.Generator]):
     """The convs take (x, mask); the residual blocks also the train flag and
@@ -55,7 +65,7 @@ class EncoderConvBlock(nn.Module):
     def __init__(self, input_emb_width: int, output_emb_width: int, down_t: int,
                  stride_t: int, block_type: str, width: int, depth: int, **block_kwargs):
         super().__init__()
-        Block = get_block(block_type)
+        Block = _codec_block(block_type)
         mods = []
         if down_t > 0:
             filt, pad = stride_t * 2, stride_t // 2
@@ -77,7 +87,7 @@ class DecoderConvBlock(nn.Module):
     def __init__(self, input_emb_width: int, output_emb_width: int, down_t: int,
                  stride_t: int, block_type: str, width: int, depth: int, **block_kwargs):
         super().__init__()
-        Block = get_block(block_type)
+        Block = _codec_block(block_type)
         mods = []
         if down_t > 0:
             filt, pad = stride_t * 2, stride_t // 2

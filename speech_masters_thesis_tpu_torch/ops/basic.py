@@ -12,6 +12,11 @@ def safe_log(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=eps))
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """fp32, or the input's dtype when it is wider (an fp64 reference step)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt with a zero (not NaN/inf) gradient at x == 0 (double-where)."""
     positive = x > 0

@@ -4,7 +4,7 @@ speech_masters_thesis_tpu/train/harness.py: ``get_model``,
 
 ``init_model_variables`` draws the parameters from a seed with the JAX
 package's initializers: lecun-normal conv weights and zero biases, zero for
-the ``zero_out`` layers (the codec), and flax's defaults for the LM
+the ``zero_out`` layers (the codec, VQ-TTS's quant decoder), and flax's defaults for the LM
 (truncated lecun-normal Dense kernels, zero biases, LayerNorm 1 and 0, an
 N(0, 1) embedding whose PAD row is zero), and Glow-TTS's own (xavier q/k/v,
 weight norm's g = ||v||, a QR rotation per InvConvNear, zeros where the JAX
@@ -23,11 +23,12 @@ from typing import Dict, List, Mapping, Optional
 import torch
 import torch.nn as nn
 
-from speech_masters_thesis_tpu_torch.models.base import TOKEN_TO_SPECTROGRAM, WaveformReconstructionModel
+from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
 from speech_masters_thesis_tpu_torch.models.glow_tts import attention as glow_attention
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
 from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention
+from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
 from speech_masters_thesis_tpu_torch.utils.registry import resolve_model
@@ -46,12 +47,13 @@ def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None,
     ``vqvae_model_config`` (or ``config["vqvae_model_config"]``) is the
     ``model:`` section of the VQ-VAE whose frozen codec an LM holds (the JAX
     package reads it from the codec's log dir; the port takes the dict, e.g.
-    ``configs.VQVAE_TPU``). A token-to-spectrogram model (Glow-TTS) takes the
-    config's ``dataset:`` section.
+    ``configs.VQVAE_TPU``). A model that reads its dataset's settings
+    (Glow-TTS, VQ-TTS: ``USES_DATASET_CONFIG``) takes the config's
+    ``dataset:`` section.
     """
     vq = vqvae_model_config if vqvae_model_config is not None else config.get("vqvae_model_config")
     kwargs = {} if vq is None else {"vqvae_model_config": dict(vq)}
-    if getattr(resolve_model(config["model"]["_import_"]), "TASK", None) == TOKEN_TO_SPECTROGRAM:
+    if getattr(resolve_model(config["model"]["_import_"]), "USES_DATASET_CONFIG", False):
         kwargs["dataset_config"] = dict(config["dataset"])
     return _get_model(dict(config["model"]), device=device, **kwargs)
 
@@ -69,7 +71,7 @@ def _xavier_uniform(shape, gen: torch.Generator) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _init_glow_tts(model: GlowTTS, gen: torch.Generator) -> None:
+def _init_glow_tts(model: nn.Module, gen: torch.Generator) -> None:
     """The JAX package's Glow-TTS initializers: truncated lecun-normal conv
     weights and zero biases; xavier-uniform q/k/v; normal(D^-1/2) relative
     tables; normal(H^-1/2) embedding; LayerNorm 1 and 0; weight norm's
@@ -115,12 +117,21 @@ def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Te
     codebook init on ``batch`` (on the model's device; the encoder runs in
     eval mode). The LM needs no batch; its frozen codec stays as drawn here
     until ``load_vqvae_into_lm`` grafts a trained one. Glow-TTS needs no
-    batch here (its data-dependent ActNorm init is ``maybe_ddi_init``)."""
+    batch here (its data-dependent ActNorm init is ``maybe_ddi_init``).
+    VQ-TTS's text encoder takes Glow-TTS's initializers and the rest the
+    codec's; its codebook's lazy init needs the alignment, so it runs in the
+    first train step (from that step's ``generators["codebook"]``)."""
     gen = torch.Generator().manual_seed(seed)
     if isinstance(model, GlowTTS):
         _init_glow_tts(model, gen)
         return
+    glow_parts = set()
+    if isinstance(model, VQTTS):
+        _init_glow_tts(model.text_encoder, gen)
+        glow_parts = {id(m) for m in model.text_encoder.modules()}
     for module in model.modules():
+        if id(module) in glow_parts:
+            continue
         if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
             weight = module.weight
             if getattr(module, "zero_init", False):

@@ -11,8 +11,9 @@ GatedHiFi blocks draw host-side seeds from it), ``codebook`` and
 ``device_dropout`` on the model's device (the LM draws its dropout masks and
 its attention-dropout seeds there, so nothing waits for the host). The step
 returns its scalars as device tensors with ``finite``; nothing syncs with
-the host except the VQ-VAE codebook's lazy-init check. The val step runs the
-model's ``supervised_step`` in eval mode with the EMA parameters, so it
+the host except a codebook's lazy-init check, on the first step that runs
+it (``BottleneckBlock.init_seen``). The val step runs the model's
+``supervised_step`` in eval mode with the EMA parameters, so it
 evaluates any task. fp32 only: the JAX step's bf16 path needs bf16 kernels.
 """
 

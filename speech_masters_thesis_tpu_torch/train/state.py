@@ -4,7 +4,8 @@ The JAX package threads one immutable pytree through its jitted step. Here
 the state is an object the step updates in place: the step count, the model
 (its parameters, and the codebook state as the buffers ``k``, ``k_sum``,
 ``k_elem``, ``initialized`` of its ``BottleneckBlock``s: the VQ-VAE's
-bottleneck, or the LM's frozen ``vqvae_bottleneck``), the optimizer with its
+bottleneck, the LM's frozen ``vqvae_bottleneck`` or VQ-TTS's grouped
+``quant_bottleneck``), the optimizer with its
 state, and the EMA parameters (of every parameter, frozen ones included, as
 in the JAX package).
 """
@@ -41,8 +42,8 @@ class TrainState:
 
     @property
     def codebook(self) -> Dict[str, torch.Tensor]:
-        """The codebook state by buffer name (``bottleneck.level_blocks.0.k``, or
-        ``vqvae_bottleneck.k`` for the LM, ...)."""
+        """The codebook state by buffer name (``bottleneck.level_blocks.0.k``,
+        ``vqvae_bottleneck.k`` for the LM, ``quant_bottleneck.k`` for VQ-TTS, ...)."""
         return {f"{prefix}.{name}": b
                 for prefix, module in self.model.named_modules() if isinstance(module, BottleneckBlock)
                 for name, b in module.named_buffers()}

@@ -21,6 +21,8 @@ _MODEL_PATHS: Dict[str, str] = {
     "transformer_lm": "speech_masters_thesis_tpu_torch.models.transformer_lm.model:TransformerLM",
     "models.glow_tts.glow_tts.GlowTTS": "speech_masters_thesis_tpu_torch.models.glow_tts.model:GlowTTS",
     "glow_tts": "speech_masters_thesis_tpu_torch.models.glow_tts.model:GlowTTS",
+    "models.vqtts.vqtts.VQTTS": "speech_masters_thesis_tpu_torch.models.vqtts.model:VQTTS",
+    "vqtts": "speech_masters_thesis_tpu_torch.models.vqtts.model:VQTTS",
 }
 
 
@@ -35,6 +37,6 @@ def get_model(model_cfg: dict, device: Optional[torch.device | str] = None, **kw
     """Builds the model a ``model:`` config section names in ``_import_``, on
     ``device`` (the card, ``device.cuda_device()``, unless the caller asks
     for another); ``kwargs`` go to its constructor (the LM's
-    ``vqvae_model_config``, Glow-TTS's ``dataset_config``)."""
+    ``vqvae_model_config``, Glow-TTS's and VQ-TTS's ``dataset_config``)."""
     device = cuda_device() if device is None else torch.device(device)
     return resolve_model(model_cfg["_import_"])(model_cfg, **kwargs).to(device)

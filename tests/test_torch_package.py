@@ -8,7 +8,8 @@ import pytest
 
 from speech_masters_thesis_tpu.utils.config import load_config
 from speech_masters_thesis_tpu_torch import configs
-from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock, get_block
+from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
+from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock, ResNetBlock, get_block
 from speech_masters_thesis_tpu_torch.models.vqvae.model import VQVAE, compression_factor
 from speech_masters_thesis_tpu_torch.utils.registry import get_model
 
@@ -35,7 +36,7 @@ def test_port_imports_no_jax():
     for module in ("models.ema", "models.base", "train.harness", "train.loop", "train.optim",
                    "train.state", "ops.attention", "ops.hash", "models.transformer_lm.model",
                    "models.glow_tts.model", "ops.wn_coupling", "ops.enc_layer", "ops.mas",
-                   "ops.griffin_lim", "inference"):
+                   "ops.griffin_lim", "inference", "models.vqtts.model", "models.vqtts.bottleneck"):
         assert f"speech_masters_thesis_tpu_torch.{module}" in names, module
 
 
@@ -63,11 +64,29 @@ def test_get_model_resolves_vqvae(name):
     assert not any(k.endswith(("k_sum", "k_elem")) for k in model.state_dict())
 
 
+@pytest.mark.parametrize("name", ["models.vqtts.vqtts.VQTTS", "vqtts"])
+def test_get_model_resolves_vqtts(name):
+    """VQ-TTS at vqtts_tpu width: a depth-3 codec (8 GatedHiFi blocks each
+    way), the grouped codebook of 149 x 512 codes, the ``base`` quant
+    decoder; ``get_block("base")`` is ``ResNetBlock``."""
+    cfg = {**configs.VQTTS_TPU, "_import_": name}
+    model = get_model(cfg, device="cpu", dataset_config=configs.LJSPEECH_TPU)
+    assert isinstance(model, VQTTS)
+    assert compression_factor(cfg) == 256
+    blocks = [m for m in model.modules() if isinstance(m, GatedHiFiBlock)]
+    assert len(blocks) == 16 and {b.dilations for b in blocks} == {(1, 3, 9)}
+    assert get_block("base") is ResNetBlock and isinstance(model.quant_decoder, ResNetBlock)
+    assert tuple(model.state_dict()["quant_bottleneck.k"].shape) == (149 * 512, 128)
+    assert not any(k.endswith(("k_sum", "k_elem")) for k in model.state_dict())
+
+
 def test_registry_and_blocks_reject_what_is_not_ported():
     with pytest.raises(KeyError):
-        get_model({**configs.VQVAE_TPU, "_import_": "vqtts"}, device="cpu")
-    for block_type in ("base", "wavenet", "hifi"):
+        get_model({**configs.VQVAE_TPU, "_import_": "models.nonexistent.Model"}, device="cpu")
+    for block_type in ("wavenet", "hifi"):
         with pytest.raises(NotImplementedError):
             get_block(block_type)
+    with pytest.raises(NotImplementedError):  # the codec's blocks stay gated_hifi
+        get_model({**configs.VQVAE_TPU, "block_type": "base"}, device="cpu")
     with pytest.raises(ValueError):
         get_block("nonexistent")
