@@ -191,6 +191,41 @@ JAX package's A/B shape):
      losses within 1e-4, and the card's gradients within 20x (median
      parameter) and 10x (worst) the CPU fp32 step's distance from fp64.
 
+Then B1's bf16 mode and the VQ-VAE's bf16 mixed-precision train step (the
+JAX package's shipped training configuration, train.py --bf16; bf16
+products outside the kernels sum in fp32: allow_bf16_reduced_precision_
+reduction off from phase 1 on, as TF32 is):
+
+ 33. whether the bf16 MMA's fp32 accumulation truncates (bf16_mma_probe: an
+     accumulator of +-1 plus one product of 0.75 of its ulp);
+ 34. B1's bf16 forward against its plain bf16 version at each block shape
+     of phase 3 (batch 16), p=0 (times: 50 back-to-back calls, one call,
+     the plain version) and p=0.1: at least 99% of the valid elements
+     within one bf16 ulp of their own magnitude and every one within 2^-6
+     of max|ref|, exact zeros past the lengths, two calls bitwise equal;
+     the bf16 backward kernels' dropout masks read back bit for bit at
+     every shape, keep rates within 5 sigma;
+ 35. B1's bf16 tile passes and reduction against the plain bf16 backward
+     at each shape, p=0 and 0.1, taken at the kernel's own relu and
+     dropout decisions (each flip within 2^-9 of max|value| of 0, one bf16
+     ulp of an operand's reach): dx as in phase 34, every weight gradient
+     within 2^-7 relative L2 and 2^-6 of max|ref| (sums over up to 528K
+     frames), the reduction alone on the plain version's buffers the same,
+     two calls bitwise equal; at p=0.1 the times and the reduction's
+     products as bf16 torch.mm with fp32 outputs;
+ 36. the bf16 train step at batch 16 x 66048 (harness.make_train_step_for
+     with train: {bf16: true}; AdamW, codebook and parameter EMA, dropout
+     0.1), in turns with the fp32 step (information, no claim): launches
+     (fp32 fwd, bwd, red, bf16 fwd, bwd, red) = (0, 0, 0, 14, 14, 14) a
+     bf16 step and (14, 14, 14, 0, 0, 0) an fp32 one, masters and codebook
+     fp32, finite losses; the median of steps 2-9 of each, a JSON line with
+     vqvae_train_mel_frames_per_sec_per_chip, the peak memory a step, one
+     bf16 step's device-busy share under torch.profiler;
+ 37. one bf16 train step (SGD, p=0, revival off) on the card and on the
+     CPU on a 2 x 11008 subset, each against the same step in fp64: losses
+     within 2^-8, and the card's update error (median over the parameters
+     and over all of them at once) within 2x the CPU bf16 step's.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -200,6 +235,8 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import functools
+import itertools
 import json
 import re
 import statistics
@@ -343,6 +380,24 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12             # dense TF32 on the tensor cores; 3xTF32 takes 3 products per fp32 product
 PEAK_BYTES = 3.35e12
 DEVICE_REPS = 50               # back-to-back calls per device_ms timing
+PEAK_BF16 = 989e12             # dense bf16 on the tensor cores (H100 SXM)
+# bf16 (B1's bf16 mode against its plain bf16 version, tests/test_torch_bf16_gated_hifi.py's
+# tolerance): an fp32 intermediate within rounding of a bf16 boundary may round one ulp apart
+# before the next product, and the output rounds once more
+BF16_ULP_SHARE = 0.99          # of elements within one bf16 ulp of their own magnitude
+BF16_MAX_RTOL = 2.0 ** -6      # of max|ref|, every element
+# a relu decision may flip only within this of max|value| of 0: one bf16 ulp of an operand
+# moves a pre-activation by about 2^-8 of one term
+BF16_FLIP_RTOL = 2.0 ** -9
+# a weight gradient sums up to 528K frames: operands that rounded one ulp apart upstream add an
+# error that is absolute, so its elements far below max|ref| miss the per-element ulp; such a
+# sum is held by its relative L2 error (and every element by BF16_MAX_RTOL)
+BF16_SUM_RTOL = 2.0 ** -7
+BF16_TRAIN_ROUNDS = 8          # after one step of each: 8 more of each in turns
+BF16_SUBSET = (2, 11008)       # the card-vs-CPU bf16 step's batch and samples
+BF16_SGD = {"name": "sgd", "lr": 1e-3, "momentum": 0.0, "weight_decay": 0.0}
+BF16_LOSS_RTOL = 2.0 ** -8     # card vs CPU bf16 step losses
+BF16_VS_CPU_MULTIPLE = 2       # the card's bf16 update error against fp64, within this x the CPU bf16 step's (0.6x measured)
 
 
 def require(ok: bool, what: str) -> None:
@@ -425,6 +480,8 @@ def phase_device() -> str:
     cuda_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products outside the kernels sum in fp32, as the JAX package's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
@@ -480,14 +537,19 @@ def phase_build() -> None:
     for name in KERNEL_NAMES:
         require(any(line.startswith(name) for line in ptxas), f"ptxas reports no {name}")
     lib = _build.build()
-    for side, names in (("fwd", B1_FWD_KERNELS), ("bwd", B1_BWD_KERNELS)):
+    for (side, names), (mode, bf16) in itertools.product((("fwd", B1_FWD_KERNELS), ("bwd", B1_BWD_KERNELS)),
+                                                         (("fp32", 0), ("bf16", 1))):
         blocks = (ctypes.c_int * len(names))()
-        rc = getattr(lib, f"gated_hifi_{side}_blocks_per_sm")(blocks)
-        require(rc == 0 and min(blocks) >= 1, f"B1 {side}: blocks per SM {list(blocks)} (cudaError {rc})")
-        print(f"[build] B1 {side}: resident blocks per SM (256 threads, at the launch's shared memory): "
+        rc = getattr(lib, f"gated_hifi_{side}_blocks_per_sm")(blocks, bf16)
+        require(rc == 0 and min(blocks) >= 1, f"B1 {side} {mode}: blocks per SM {list(blocks)} (cudaError {rc})")
+        print(f"[build] B1 {side} {mode}: resident blocks per SM (256 threads, at the launch's shared memory): "
               + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
     b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
+    # 13 instances a mode (the shared three stages twice, RN and not), fp32 and bf16 (B5's and B6's
+    # reductions share two of the names under their own tags)
+    own = [line for line in b1 if "Tag>" not in line.split(":")[0]]
+    require(len(own) == 2 * 13, f"B1 has {len(own)} instances, not 26 (13 each in fp32 and bf16): {own}")
     # B3's and B6's kernels on the tensor cores: the forwards' instances (their tags
     # end in FwdTag), and the backwards' (the same instances under each tag)
     mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS
@@ -880,17 +942,20 @@ def phase_backward(device, card: str, block_ts, batch: int, depth: int = 4, tag:
     return out
 
 
-def wgrad_mm_calls(x, bufs: gh.BackwardBuffers, kernels, dilations):
+def wgrad_mm_calls(x, bufs: gh.BackwardBuffers, kernels, dilations, bf16: bool = False):
     """The reduction's products as one torch.mm each (TF32 off, phase_device),
     the library yardstick for its time: a function that runs every conv
     tap's a^T dc, each branch's h1^T dzp, u^T gv and each branch's x^T dz
     over the B*T frames (33 products at the shipped config). A tap's shift runs over the flattened frames, so the few frames
     at each sequence boundary that the kernel zero-fills are not zeroed: the
-    same work, not the same bits. The port never calls this."""
+    same work, not the same bits. The port never calls this. ``bf16``: every
+    operand in bf16 (the fp32 buffers cast once, outside the timing) and each
+    product's output fp32 (``out_dtype``)."""
     B, T, W = x.shape
     H = 2 * W
     rows = B * T
-    flat = {name: getattr(bufs, name).reshape(rows, -1) for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv")}
+    cast = (lambda t: t.to(torch.bfloat16)) if bf16 else (lambda t: t)
+    flat = {name: cast(getattr(bufs, name).reshape(rows, -1)) for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv")}
     pairs = []
     for d, (k, dil) in enumerate(zip(kernels, dilations)):
         cols = slice(d * H, (d + 1) * H)
@@ -902,20 +967,24 @@ def wgrad_mm_calls(x, bufs: gh.BackwardBuffers, kernels, dilations):
     pairs.append((flat["u"], flat["gv"]))
     pairs += [(x.reshape(rows, W), flat["dz"][:, d * H:(d + 1) * H]) for d in range(len(kernels))]
 
+    mm = functools.partial(torch.mm, out_dtype=torch.float32) if bf16 else torch.mm
+
     def run():
         for a, b in pairs:
-            torch.mm(a.t(), b)
+            mm(a.t(), b)
     return run
 
 
-def read_back_masks(device, T: int, batch: int, depth: int, seed: int) -> tuple:
+def read_back_masks(device, T: int, batch: int, depth: int, seed: int, dtype=torch.float32) -> tuple:
     """The backward kernels' dropout masks at p=P_DROP on a probe block whose
     expand and conv biases of 10 (conv weights scaled down) make z > 0 and
     c > 0 everywhere, so the kernel's a > 0 and h1 > 0 exactly where kept:
     each branch's two masks must equal the plain version's (``branch_masks``)
     bit for bit. Returns (kept counts at site 0, site 1 and both, elements,
-    the same seed's buffers equal, the share of site 0 another seed changes)."""
+    the same seed's buffers equal, the share of site 0 another seed changes).
+    ``dtype`` bfloat16 runs the bf16 kernels."""
     x, lens, _, g = block_inputs(T, batch, 400, device)
+    x, g = x.to(dtype), g.to(dtype)
     block = GatedHiFiBlock(64, depth, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
     randomize(block, seed=7)
     with torch.no_grad():
@@ -923,7 +992,7 @@ def read_back_masks(device, T: int, batch: int, depth: int, seed: int) -> tuple:
             block.blocks[d][0].bias.fill_(10.0)
             block.blocks[d][1].model[2].weight.mul_(0.01)
             block.blocks[d][1].model[2].bias.fill_(10.0)
-        block.to(device)
+        block.to(device=device, dtype=dtype)
         w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
         _, plain = gh.backward_buffers(x, lens, w, g, 1.0, 0.0, seed)
         require(bool((plain.a > 0).all()) and bool((plain.h1 > 0).all()),
@@ -2801,6 +2870,363 @@ def phase_vqtts_train_vs_cpu(device, card: str, fused_encoder: bool = False) -> 
     return {"median_ratio": stats["cuda"][0] / stats["cpu"][0], "worst_ratio": stats["cuda"][1] / stats["cpu"][1]}
 
 
+# ---------------------------------------------------------------------------
+# bf16: B1's bf16 mode and the VQ-VAE's mixed-precision train step
+# ---------------------------------------------------------------------------
+def bf16_bound(flops: float, nbytes: float) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of the operations over
+    the bf16 tensor-core peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bf16_agreement(ours: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(share of elements within one bf16 ulp of the reference's own
+    magnitude, max abs error / max|ref|, max abs error, relative L2 error):
+    ulp = 2^-7 of the power of two at or below |ref| (0 where ref is 0)."""
+    ours, ref = ours.float(), ref.float()
+    _, e = torch.frexp(ref)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), e - 8))
+    err = (ours - ref).abs()
+    worst = err.max().item()
+    return ((err <= ulp).float().mean().item(), worst / max(ref.abs().max().item(), 1e-30), worst,
+            (err.norm() / max(ref.norm().item(), 1e-30)).item())
+
+
+def bf16_ok(agreement: tuple, summed: bool = False) -> bool:
+    """An elementwise output: BF16_ULP_SHARE within one ulp; a weight
+    gradient (``summed``): relative L2 within BF16_SUM_RTOL; both: every
+    element within BF16_MAX_RTOL of max|ref|."""
+    share, rel, _, l2 = agreement
+    return bool(np.isfinite(rel) and rel <= BF16_MAX_RTOL and (l2 <= BF16_SUM_RTOL if summed else
+                                                                share >= BF16_ULP_SHARE))
+
+
+def to_bf16(w: gh.GatedHiFiWeights) -> gh.GatedHiFiWeights:
+    return gh.GatedHiFiWeights(
+        ks=tuple(k.to(torch.bfloat16) for k in w.ks), dilations=w.dilations,
+        **{k: v.to(torch.bfloat16) for k, v in w.tensors().items() if not k.startswith("ks.")})
+
+
+def phase_bf16_mma(device, card: str) -> bool:
+    """Whether the bf16 MMA's fp32 accumulation truncates (csrc/gated_hifi_fwd.cu:bf16_mma_probe)."""
+    out = torch.zeros(2, device=device)
+    rc = _build.build().bf16_mma_probe(out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    torch.cuda.synchronize()
+    require(rc == 0, f"bf16_mma_probe failed with cudaError {rc}")
+    got = out.cpu().tolist()
+    nearest, truncated = [1.0 + 2.0 ** -23, -(1.0 + 2.0 ** -23)], [1.0, -1.0]
+    require(got in (nearest, truncated), f"bf16 MMA probe gave {got}, neither rounding")
+    truncates = got == truncated
+    print(f"[bf16 mma] m16n8k16 bf16 MMA, accumulator +-1 plus one product of 0.75 ulp: {got[0]!r}, {got[1]!r} "
+          f"-> the fp32 accumulation {'truncates (rounds toward zero)' if truncates else 'rounds to nearest'} "
+          f"[{card}]")
+    return truncates
+
+
+def phase_bf16_kernel(device, card: str) -> dict:
+    """B1's bf16 forward against its plain bf16 version at each block shape,
+    p=0 (times) and p=0.1 (two calls bitwise equal), and the bf16 backward
+    kernels' dropout masks read back bit for bit."""
+    w = to_bf16(block_weights(device, seed=1))
+    seed = 4321
+    out = {"max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "share": 1.0}
+    flops = nbytes = 0
+    keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
+    with torch.inference_mode():
+        for i, T in enumerate(BLOCK_TS):
+            x, lens, valid, _ = block_inputs(T, BATCH, 100 + i, device)
+            x = x.to(torch.bfloat16)
+            for p in (0.0, P_DROP):
+                ref = gh.gated_hifi_reference(x, lens, w, 1.0, p, seed)
+                got = gh.gated_hifi(x, lens, w, 1.0, p, seed)
+                again = gh.gated_hifi(x, lens, w, 1.0, p, seed)
+                torch.cuda.synchronize()
+                agree = bf16_agreement(got[valid], ref[valid])
+                zeros = bool((got[~valid] == 0).all().item())
+                bitwise = torch.equal(got, again)
+                times = ""
+                if p == 0.0:
+                    dev = device_ms(lambda: gh.gated_hifi(x, lens, w))
+                    call = cuda_ms(lambda: gh.gated_hifi(x, lens, w))
+                    plain = cuda_ms(lambda: gh.gated_hifi_reference(x, lens, w), reps=3, warmup=1)
+                    out["ms"] += dev
+                    out["call_ms"] += call
+                    out["plain_ms"] += plain
+                    times = (f"; kernel {dev:.3f} ms over {DEVICE_REPS} back-to-back calls, {call:.3f} ms a call, "
+                             f"plain {plain:.3f} ms")
+                print(f"[bf16 kernel] B={BATCH} T={T} p={p}: {agree[0]:.5f} of valid elements within one bf16 ulp "
+                      f"(need {BF16_ULP_SHARE}), max_abs_err {agree[2]:.3e} = {agree[1]:.2e} of max|ref| (tol "
+                      f"{BF16_MAX_RTOL:.4g}); exact zeros past lens {zeros}; two calls bitwise equal {bitwise}"
+                      f"{times} [{card}]")
+                require(bf16_ok(agree), f"bf16 forward disagrees at T={T} p={p}: {agree}")
+                require(zeros and bitwise, f"bf16 forward at T={T} p={p}: zeros {zeros}, bitwise {bitwise}")
+                out["max_abs_err"] = max(out["max_abs_err"], agree[2])
+                out["share"] = min(out["share"], agree[0])
+                del ref, got, again
+            (n0, n1, n01), n, same, changed = read_back_masks(device, T, BATCH, 4, seed, torch.bfloat16)
+            rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
+            print(f"[bf16 kernel] T={T}: the bf16 backward kernels' masks equal the plain version's at both sites "
+                  f"of all 4 branches; keep rates " + ", ".join(f"{k} {r:.6f} (expect {q:.6f})"
+                                                                for k, (r, q) in rates.items())
+                  + f"; same seed same masks {same}; another seed changes {changed:.4f} of site 0 [{card}]")
+            for k, (r, q) in rates.items():
+                require(abs(r - q) <= 5 * np.sqrt(q * (1 - q) / n), f"bf16 keep rate {k} {r} vs {q} at T={T}")
+            require(same and changed > 0.1, f"bf16 masks at T={T}: same {same}, changed {changed}")
+            flops += BATCH * T * block_flops_per_frame(w)
+            nbytes += 2 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
+            torch.cuda.empty_cache()
+    out["bound_ms"], out["bound_by"] = bf16_bound(flops, nbytes)
+    print(f"[bf16 kernel] sum over the {len(BLOCK_TS)} block shapes, p=0: kernel {out['ms']:.3f} ms over "
+          f"{DEVICE_REPS} back-to-back calls ({out['call_ms']:.3f} ms a call), plain {out['plain_ms']:.3f} ms; bound "
+          f"{out['bound_ms']:.3f} ms by {out['bound_by']} ({flops / 1e9:.1f} GFLOP at {PEAK_BF16 / 1e12:.0f} TF/s, "
+          f"{nbytes / 1e6:.1f} MB) [{card}]")
+    return out
+
+
+def phase_bf16_backward(device, card: str) -> dict:
+    """B1's bf16 tile passes and reduction against the plain bf16 backward at
+    each block shape, p=0 and p=0.1: dx and every weight gradient, taken at
+    the kernel's own relu and dropout decisions (the flips printed), two
+    calls bitwise equal; the reduction alone on the plain version's
+    buffers; times at p=0.1 (the training configuration)."""
+    w = to_bf16(block_weights(device, seed=1))
+    seed = 12345
+    out = {"dx_err": 0.0, "red_err": 0.0, "share": 1.0}
+    sums = dict.fromkeys(("tiles", "tiles_call", "tiles_plain", "red", "red_call", "red_plain", "red_mm"), 0.0)
+    work = {"tiles": [0, 0], "red": [0, 0]}
+    for p in (0.0, P_DROP):
+        for i, T in enumerate(BLOCK_TS):
+            x, lens, _, g = block_inputs(T, BATCH, 200 + i, device)
+            x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
+            args = (x, lens, w, g, 1.0, p, seed)
+            dx_k, bufs_k = gh.backward_buffers(*args)
+            gw_k = gh.weight_grad_reduce(x, bufs_k, w.kernels, w.dilations)
+            dx_k2, gw_k2 = gh.gated_hifi_backward(*args)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(dx_k, dx_k2) and all(
+                torch.equal(a, b) for a, b in zip(gw_k.tensors().values(), gw_k2.tensors().values()))
+            del dx_k2, gw_k2
+            gates = (bufs_k.a > 0, bufs_k.h1 > 0)
+            _, bufs_p = gh.backward_buffers_reference(*args)
+            flips = {"a": kink_flips(bufs_k.a.float(), bufs_p.a.float()),
+                     "h1": kink_flips(bufs_k.h1.float(), bufs_p.h1.float())}
+            del bufs_p
+            dx_r, bufs_r = gh.backward_buffers_reference(*args, gates=gates)
+            gw_r = gh.weight_grad_reduce_reference(x, bufs_r, w.kernels, w.dilations)
+            dx_agree = bf16_agreement(dx_k, dx_r)
+            leaves = {n: bf16_agreement(t, gw_r.tensors()[n]) for n, t in gw_k.tensors().items()}
+            red_k = gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations)
+            red = {n: bf16_agreement(t, gw_r.tensors()[n]) for n, t in red_k.tensors().items()}
+            worst = max(leaves, key=lambda n: leaves[n][3])
+            red_worst = max(red, key=lambda n: red[n][3])
+            times = ""
+            if p == P_DROP:
+                frames_flops = BATCH * T * block_flops_per_frame(w)
+                buf_bytes = sum(getattr(bufs_r, f).numel() * getattr(bufs_r, f).element_size()
+                                for f in ("a", "h1", "dzp", "dc", "dz", "u", "gv"))
+                work["tiles"][0] += 2 * frames_flops
+                work["tiles"][1] += 2 * 3 * x.numel() + buf_bytes
+                work["red"][0] += frames_flops
+                work["red"][1] += 2 * x.numel() + buf_bytes + 2 * sum(t.numel() for t in w.tensors().values())
+                mm = wgrad_mm_calls(x, bufs_r, w.kernels, w.dilations, bf16=True)
+                t_ = {"tiles": device_ms(lambda: gh.backward_buffers(*args)),
+                      "tiles_call": cuda_ms(lambda: gh.backward_buffers(*args), reps=5, warmup=1),
+                      "tiles_plain": cuda_ms(lambda: gh.backward_buffers_reference(*args), reps=3, warmup=1),
+                      "red": device_ms(lambda: gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations)),
+                      "red_call": cuda_ms(lambda: gh.weight_grad_reduce(x, bufs_r, w.kernels, w.dilations),
+                                          reps=5, warmup=1),
+                      "red_plain": cuda_ms(lambda: gh.weight_grad_reduce_reference(x, bufs_r, w.kernels, w.dilations),
+                                           reps=3, warmup=1),
+                      "red_mm": device_ms(mm)}
+                for k, v in t_.items():
+                    sums[k] += v
+                del mm
+                times = (f"; over {DEVICE_REPS} back-to-back calls tile passes {t_['tiles']:.3f} ms, reduction "
+                         f"{t_['red']:.3f} ms vs its products as bf16 torch.mm {t_['red_mm']:.3f} ms; a call: tile "
+                         f"passes {t_['tiles_call']:.3f} vs plain {t_['tiles_plain']:.3f}, reduction "
+                         f"{t_['red_call']:.3f} vs plain {t_['red_plain']:.3f}")
+            print(f"[bf16 backward] p={p} B={BATCH} T={T}: decisions flipped against the plain forward: "
+                  + ", ".join(f"{k} {n_} (largest value {v:.1e} of max {m:.1e})" for k, (n_, v, m) in flips.items())
+                  + f"; at the kernel's decisions dx {dx_agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
+                  f"max {dx_agree[1]:.2e} of max|ref|; weight grads worst {worst}: relative L2 {leaves[worst][3]:.2e} "
+                  f"(tol {BF16_SUM_RTOL:.4g}), max {max(a[1] for a in leaves.values()):.2e} of max|ref| (tol "
+                  f"{BF16_MAX_RTOL:.4g}), {min(a[0] for a in leaves.values()):.5f} within one ulp at the worst; "
+                  f"reduction alone worst {red_worst} relative L2 {red[red_worst][3]:.2e}, "
+                  f"{min(a[0] for a in red.values()):.5f} within one ulp; two calls bitwise equal {bitwise}{times} "
+                  f"[{card}]")
+            for name, (_, value, scale) in flips.items():
+                require(value <= BF16_FLIP_RTOL * scale, f"bf16 {name}: a decision flipped at {value} of {scale}")
+            require(bf16_ok(dx_agree), f"bf16 dx differs at p={p} T={T}: {dx_agree}")
+            for name, agree in {**leaves, **{f"reduction {k}": v for k, v in red.items()}}.items():
+                require(bf16_ok(agree, summed=True), f"bf16 grad {name} differs at p={p} T={T}: {agree}")
+            require(bitwise, f"two bf16 backward calls differ at p={p} T={T}")
+            out["dx_err"] = max(out["dx_err"], dx_agree[2])
+            out["red_err"] = max(out["red_err"], max(a[2] for a in leaves.values()))
+            out["share"] = min(out["share"], dx_agree[0])
+            del dx_k, bufs_k, gw_k, gates, dx_r, bufs_r, gw_r, red_k
+            torch.cuda.empty_cache()
+    out.update(ms=sums["tiles"], call_ms=sums["tiles_call"], plain_ms=sums["tiles_plain"], red_ms=sums["red"],
+               red_call_ms=sums["red_call"], red_plain_ms=sums["red_plain"], red_library_ms=sums["red_mm"])
+    out["bound_ms"], out["bound_by"] = bf16_bound(*work["tiles"])
+    out["red_bound_ms"], out["red_bound_by"] = bf16_bound(*work["red"])
+    print(f"[bf16 backward] p={P_DROP} sums over the {len(BLOCK_TS)} block shapes: tile passes {sums['tiles']:.3f} ms "
+          f"over {DEVICE_REPS} back-to-back calls ({sums['tiles_call']:.3f} a call, plain {sums['tiles_plain']:.3f}), "
+          f"bound {out['bound_ms']:.3f} ms by {out['bound_by']}; reduction {sums['red']:.3f} ms ({sums['red_call']:.3f} "
+          f"a call, plain {sums['red_plain']:.3f}), bound {out['red_bound_ms']:.3f} ms by {out['red_bound_by']}, its "
+          f"products as bf16 torch.mm with fp32 outputs {sums['red_mm']:.3f} ms [{card}]")
+    return out
+
+
+def bf16_counts() -> tuple:
+    return gh.gated_hifi.bf16_launches, gh.backward_buffers.bf16_launches, gh.weight_grad_reduce.bf16_launches
+
+
+def zero_b1_counts() -> None:
+    for fn in (gh.gated_hifi, gh.backward_buffers, gh.weight_grad_reduce):
+        fn.launches = fn.bf16_launches = 0
+
+
+def busy_share(fn) -> tuple:
+    """(kernel ms, wall ms) of one call of ``fn`` under torch.profiler: the
+    kernels' device time summed (one stream) against the host's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    total = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and not e.key.startswith(
+                ("Optimizer.", "ProfilerStep")):
+            total += next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                           if hasattr(e, n)), 0.0)
+    return total / 1e3, wall
+
+
+def phase_bf16_train(device, card: str) -> dict:
+    """The bf16 mixed-precision train step at 16 x 66048 samples (vqvae_tpu,
+    AdamW + codebook EMA + parameter EMA, dropout 0.1), built by
+    harness.make_train_step_for from ``train: {bf16: true}``, in turns with the
+    fp32 step (information, no claim)."""
+    audio, lengths = audio_batch(BATCH, SAMPLES, seed=8)
+    batch = {"audio": audio.to(device), "audio_len": lengths.to(device)}
+    runs = {}
+    for name, bf16 in (("bf16", True), ("fp32", False)):
+        model = harness.get_model({"model": copy.deepcopy(configs.VQVAE_TPU)}, device=device)
+        harness.init_model_variables(model, batch, seed=TRAIN_SEED)
+        opt, schedule = build_optimizer(model.parameters(), configs.VQVAE_TPU_OPTIMIZER)
+        state = TrainState.create(model, opt, use_ema=True)
+        runs[name] = (state, harness.make_train_step_for({"train": {"ema": True, "bf16": bf16}}, schedule,
+                                                         default_mu(BATCH, 1)))
+    times = {"bf16": [], "fp32": []}
+    per_step = {"bf16": [], "fp32": []}
+    losses, peaks = {"bf16": [], "fp32": []}, {}
+
+    def run(name: str) -> None:
+        state, step = runs[name]
+        before = launch_counts() + bf16_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scalars = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 2 ** 30)
+        per_step[name].append(tuple(a - b for a, b in zip(launch_counts() + bf16_counts(), before)))
+        raise_if_not_finite(scalars, state.step)
+        losses[name].append(float(scalars["loss"]))
+
+    zero_b1_counts()
+    order = ["bf16", "fp32"] + ["bf16", "fp32", "fp32", "bf16"] * (BF16_TRAIN_ROUNDS // 2)
+    for name in order:
+        run(name)
+    counts = bf16_counts()
+    state16 = runs["bf16"][0]
+    kernel_ms, wall_ms = busy_share(lambda: runs["bf16"][1](state16, batch, TRAIN_SEED))
+    medians = {n: statistics.median(t[1:]) for n, t in times.items()}
+    fps = {n: BATCH * SAMPLES / HOP / (m / 1e3) for n, m in medians.items()}
+    masters = all(p.dtype == torch.float32 for p in state16.params.values())
+    codebook = state16.model.bottleneck.level_blocks[0].k.dtype == torch.float32
+    print(f"[bf16 train] B={BATCH} x {SAMPLES} samples, vqvae_tpu, dropout {P_DROP}, AdamW + codebook EMA + parameter "
+          f"EMA: bf16 step losses {[round(l, 6) for l in losses['bf16']]}, fp32 step losses "
+          f"{[round(l, 6) for l in losses['fp32']]}; masters fp32 {masters}, codebook fp32 {codebook}")
+    print(f"[bf16 train] launches per step (fp32 fwd, bwd, red, bf16 fwd, bwd, red): bf16 step {per_step['bf16']}; "
+          f"fp32 step {per_step['fp32']}")
+    print(f"[bf16 train] in turns (bf16, fp32, then fp32, bf16, bf16, fp32, ...): bf16 step ms "
+          f"{', '.join(f'{t:.3f}' for t in times['bf16'])}; fp32 step ms {', '.join(f'{t:.3f}' for t in times['fp32'])}; "
+          f"medians of steps 2-{len(times['bf16'])}: bf16 {medians['bf16']:.3f} ms, fp32 {medians['fp32']:.3f} ms "
+          f"(bf16 / fp32 {medians['bf16'] / medians['fp32']:.4f}); max_memory_allocated a step: bf16 "
+          f"{peaks['bf16']:.3f} GiB, fp32 {peaks['fp32']:.3f} GiB; one bf16 step under torch.profiler: kernels "
+          f"{kernel_ms:.3f} ms of {wall_ms:.3f} ms wall, device busy {kernel_ms / wall_ms:.3f} [{card}]")
+    print(json.dumps({"vqvae_train_mel_frames_per_sec_per_chip": fps["bf16"],
+                      "vqvae_train_mel_frames_per_sec_per_chip_f32": fps["fp32"],
+                      "step_ms": medians["bf16"], "step_ms_f32": medians["fp32"], "peak_gib": peaks["bf16"],
+                      "peak_gib_f32": peaks["fp32"], "device_busy": kernel_ms / wall_ms, "card": card}))
+    require(all(s_ == (0, 0, 0, 14, 14, 14) for s_ in per_step["bf16"]),
+            f"bf16 launches per step {per_step['bf16']} != (0, 0, 0, 14, 14, 14)")
+    require(all(s_ == (14, 14, 14, 0, 0, 0) for s_ in per_step["fp32"]),
+            f"fp32 launches per step {per_step['fp32']} != (14, 14, 14, 0, 0, 0)")
+    require(masters and codebook, "the bf16 step changed the masters' or the codebook's dtype")
+    require(all(np.isfinite(l) for l in losses["bf16"]), "a bf16 loss is not finite")
+    return {"fwd": counts[0], "bwd": counts[1], "red": counts[2], "step_ms": medians["bf16"]}
+
+
+def phase_bf16_train_vs_cpu(device, card: str) -> None:
+    """One bf16 train step on the card and one on the CPU (plain path), each
+    against the same step in fp64 on the CPU, on a 2 x 11008 subset, dropout
+    0, revival off, SGD (so a parameter's update is lr times its gradient and
+    the parameters after the step carry the gradient's error). The card's
+    relative error of the update (median over parameters, and over all of
+    them at once) must be within BF16_VS_CPU_MULTIPLE of the CPU's."""
+    batch_n, samples = BF16_SUBSET
+    cfg = {**copy.deepcopy(configs.VQVAE_TPU), "p_dropout": 0.0, "revival_threshold": 0.0, "zero_out": False}
+    audio, _ = audio_batch(BATCH, SAMPLES, seed=9)
+    other, _ = audio_batch(BATCH, SAMPLES, seed=5)
+    x = audio[:batch_n, :samples].contiguous()
+    n = torch.tensor([samples, samples - 2005])
+    models = {"cuda": harness.get_model({"model": cfg}, device=device)}
+    harness.init_model_variables(models["cuda"], {"audio": other[:batch_n, :samples], "audio_len": n},
+                                 seed=TRAIN_SEED + 1)
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
+    start = {k: p.detach().cpu().double() for k, p in models["cpu"].named_parameters()}
+    out = {}
+    for name, model in models.items():
+        dev = next(model.parameters()).device
+        xx = x.double() if name == "cpu64" else x
+        opt, schedule = build_optimizer(model.parameters(), BF16_SGD)
+        state = TrainState.create(model, opt, use_ema=False)
+        step = harness.make_train_step_for({"train": {"bf16": name != "cpu64"}}, schedule, default_mu(batch_n, 1))
+        scalars = step(state, {"audio": xx.to(dev), "audio_len": n.to(dev)}, TRAIN_SEED)
+        out[name] = ({k: float(v) for k, v in scalars.items()},
+                     {k: p.detach().cpu().double() for k, p in model.named_parameters()})
+    ref = {k: v - start[k] for k, v in out["cpu64"][1].items()}
+
+    def errors(params: dict) -> tuple:
+        per = [((params[k] - start[k] - r).norm() / max(r.norm().item(), 1e-30)).item() for k, r in ref.items()]
+        total = (torch.sqrt(sum(((params[k] - start[k] - r) ** 2).sum() for k, r in ref.items()))
+                 / torch.sqrt(sum((r ** 2).sum() for r in ref.values()))).item()
+        return statistics.median(per), total
+
+    errs = {name: errors(out[name][1]) for name in ("cuda", "cpu")}
+    print(f"[bf16 vs cpu] {batch_n} x {samples}, p_dropout 0, revival off, SGD: losses card bf16 {out['cuda'][0]}; "
+          f"cpu bf16 {out['cpu'][0]}; cpu fp64 {out['cpu64'][0]}")
+    print(f"[bf16 vs cpu] each bf16 step's update against the fp64 step's, relative L2: card median over "
+          f"{len(ref)} parameters {errs['cuda'][0]:.3e}, all parameters {errs['cuda'][1]:.3e}; cpu bf16 median "
+          f"{errs['cpu'][0]:.3e}, all {errs['cpu'][1]:.3e}; card / cpu {errs['cuda'][0] / errs['cpu'][0]:.3f} and "
+          f"{errs['cuda'][1] / errs['cpu'][1]:.3f} (tol {BF16_VS_CPU_MULTIPLE}) [{card}]")
+    for key in ("loss", "loss_recon", "loss_stft", "loss_commit"):
+        g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
+        require(abs(g_ - c_) <= BF16_LOSS_RTOL * abs(c_), f"bf16 train step {key}: card {g_} cpu {c_}")
+    for i, what in enumerate(("median", "all parameters")):
+        require(errs["cuda"][i] <= BF16_VS_CPU_MULTIPLE * errs["cpu"][i],
+                f"bf16 step error against fp64 ({what}): card {errs['cuda'][i]} vs cpu {errs['cpu'][i]}")
+
+
 def main() -> None:
     card = phase_device()
     device = cuda_device()
@@ -2893,6 +3319,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_vqtts_train_vs_cpu(device, card)
     phase_vqtts_train_vs_cpu(device, card, fused_encoder=True)
+    torch.cuda.empty_cache()
+
+    bf16_truncates = phase_bf16_mma(device, card)
+    bf16_fwd = phase_bf16_kernel(device, card)
+    bf16_bwd = phase_bf16_backward(device, card)
+    bf16_train = phase_bf16_train(device, card)
+    torch.cuda.empty_cache()
+    phase_bf16_train_vs_cpu(device, card)
 
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
@@ -2901,7 +3335,8 @@ def main() -> None:
           f"B3 fwd, B3 bwd, B4, B6 fwd, B6 bwd) {glow_train['launches']}; on the B6 route "
           f"{glow_train_b6['launches']} and one val step {val_b6['launches']}; VQ-TTS training path (B1 fwd, B1 bwd, "
           f"B1 red, B4, B5 fwd, B5 bwd) {vq_train['launches']}, on B5's encoder route {vq_train_b5['launches']}, one "
-          f"val step {vq_val['launches']}")
+          f"val step {vq_val['launches']}; the bf16 training path (bf16 fwd, bwd, red) "
+          f"{(bf16_train['fwd'], bf16_train['bwd'], bf16_train['red'])}")
 
     def at_vqtts(kernel: dict, **extra) -> dict:
         return {"shapes": f"{len(VQTTS_BLOCK_TS)} block shapes, B={VQTTS_BATCH}, depth {VQTTS_DEPTH}, summed",
@@ -2936,6 +3371,15 @@ def main() -> None:
               backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
               backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"],
               vqtts=vqtts_red),
+        entry("gated_hifi_fwd_bf16", "gated_hifi_fwd.cu", PALLAS + ":591", bf16_train["fwd"], bf16_fwd["max_abs_err"],
+              bf16_fwd["ms"], bf16_fwd["plain_ms"], bf16_fwd["bound_ms"], bf16_fwd["bound_by"],
+              call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates),
+        entry("gated_hifi_bwd_bf16", "gated_hifi_bwd.cu", PALLAS + ":612", bf16_train["bwd"], bf16_bwd["dx_err"],
+              bf16_bwd["ms"], bf16_bwd["plain_ms"], bf16_bwd["bound_ms"], bf16_bwd["bound_by"],
+              call_ms=bf16_bwd["call_ms"], ulp_share=bf16_bwd["share"]),
+        entry("gated_hifi_wgrad_bf16", "gated_hifi_bwd.cu", PALLAS + ":360", bf16_train["red"], bf16_bwd["red_err"],
+              bf16_bwd["red_ms"], bf16_bwd["red_plain_ms"], bf16_bwd["red_bound_ms"], bf16_bwd["red_bound_by"],
+              bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
               ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],

@@ -10,10 +10,14 @@ null); ``TRANSFORMER_LM_TPU``, ``TRANSFORMER_LM_TPU_OPTIMIZER`` and
 ``VQTTS_TPU_OPTIMIZER`` those of ``configs/models/vqtts_tpu.yaml`` (its
 ``scheduler:`` is null), and ``LJSPEECH_TPU`` the ``dataset:``
 section of ``configs/datasets/ljspeech_tpu.yaml``. Key for key; tests hold
-them equal.
+them equal. ``TRAIN`` holds the defaults of train.py's train settings that
+the port's step reads (``--ema``, ``--grad_clip_norm``, ``--bf16``).
 """
 
+
 from __future__ import annotations
+
+TRAIN = {"ema": False, "grad_clip_norm": None, "bf16": False}
 
 VQVAE_TPU = {
     "_import_": "models.vqvae.vqvae.VQVAE",

@@ -1,6 +1,8 @@
-// GatedHiFi block backward for Hopper (sm_90a), fp32 at its interface, its
-// products in 3xTF32 on the tensor cores (tf32_mma.cuh), with the dropout
-// masks regenerated from the seed.
+// GatedHiFi block backward for Hopper (sm_90a), with the dropout masks
+// regenerated from the seed, in the forward's two modes: fp32 at its
+// interface with its products in 3xTF32 on the tensor cores (tf32_mma.cuh),
+// and bf16 (gated_hifi_bwd_bf16, gated_hifi_wgrad_bf16) with one bf16 MMA a
+// product (bf16_mma.cuh).
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
 // _vjp_bwd -> _bwd -> _bwd_kernel (the TPU kernel's recompute backward,
@@ -68,6 +70,19 @@
 // accumulators a thread leave no room for a second set). The bias
 // gradients are the column sums of Y, taken from the staged slabs on the
 // CUDA cores in fp32.
+//
+// bf16 mode, the TPU kernel's dot_dtype = bf16 (its _bwd_kernel): x, g, the
+// weights and dx are bf16; of the buffers, a, h1 and u (product operands
+// only) are bf16, dzp, dc, dz and gv (they feed elementwise work or a bias
+// sum) fp32, rounded to bf16 where a fragment is built, as the TPU kernel
+// rounds them at its dots (dzp at dh1 and dW1, dc at the transposed conv and
+// dK, dz at dx and dWall, dv at dWg). In the reduction X (a, h1, u, x) is
+// bf16, its A fragments X^T by ldmatrix.trans, and Y fp32. The weight
+// gradients are summed in fp32 and rounded to bf16 once, where
+// wgrad_reduce_kernel stores them (the TPU kernel's _vjp_bwd cast). The
+// bytes halve for x, g, dx, a, h1 and u, and the products run one MMA each
+// at 989 TF/s: at 16 x 33024 the tile passes' 2.1 TFLOP take 2.1 ms, the
+// reduction's 1.05 TFLOP 1.1 ms.
 
 #include "gated_hifi_tiles.cuh"
 
@@ -78,11 +93,12 @@ namespace {
 
 // 4. du = gv Wg^T, then gv, u and dzp_d (from zp_d, in place), element by
 // element: the softmax over branches of the s halves, tanh of the t halves
-__global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
+template <class IO>
+__global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   float acc[TileShape<W>::MT][4][4] = {};
-  gemm<W, false>(acc, smem, W / KS, t0, T, [&](int s) {
-    return Slice{p.g + row0 * W + KS * s, W, 0, p.wg_t + (size_t)KS * s * W, W};
+  gemm<W, false, IO, IO>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice<IO, IO>{p.g + row0 * W + KS * s, W, 0, p.wg_t + (size_t)KS * s * W, W};
   });
   const int len = min(T, p.lens[b]);
   const int depth = p.br.depth;
@@ -116,12 +132,13 @@ __global__ void __launch_bounds__(NT, 2) tile_gate_kernel(const Args p) {
 }
 
 // 5. dc_d = scale * (dzp_d W1_d^T) * m1 * [c > 0]  (h1 > 0 exactly there)
-__global__ void __launch_bounds__(NT, 2) tile_dc_kernel(const Args p) {
+template <class IO>
+__global__ void __launch_bounds__(NT, 2) tile_dc_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H, false>(acc, smem, H / KS, t0, T, [&](int s) {
-    return Slice{p.dzp + row0 * ldw + d * H + KS * s, ldw, 0,
-                 p.w1_t + (size_t)d * H * H + (size_t)KS * s * H, H};
+  gemm<H, false, IO, float>(acc, smem, H / KS, t0, T, [&](int s) {
+    return Slice<IO, float>{p.dzp + row0 * ldw + d * H + KS * s, ldw, 0,
+                            p.w1_t + (size_t)d * H * H + (size_t)KS * s * H, H};
   });
   for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
@@ -134,15 +151,16 @@ __global__ void __launch_bounds__(NT, 2) tile_dc_kernel(const Args p) {
 
 // 6. dz_d = dzp_d + (sum_j dc_d[t - (j-half) dil] K_d[j]^T) * m0 * [z > 0]
 // (a = relu(z) * m0 > 0 exactly there)
-__global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args p) {
+template <class IO>
+__global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
-  const float* kd = p.ks_t + p.br.k_off[d];
+  const IO* kd = p.ks_t + p.br.k_off[d];
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H, false>(acc, smem, k * (H / KS), t0, T, [&](int s) {
+  gemm<H, false, IO, float>(acc, smem, k * (H / KS), t0, T, [&](int s) {
     const int j = s / (H / KS), c = s % (H / KS);
-    return Slice{p.dc + row0 * ldw + d * H + KS * c, ldw, -(j - half) * dil,
-                 kd + (size_t)j * H * H + (size_t)KS * c * H, H};
+    return Slice<IO, float>{p.dc + row0 * ldw + d * H + KS * c, ldw, -(j - half) * dil,
+                            kd + (size_t)j * H * H + (size_t)KS * c * H, H};
   });
   for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
@@ -154,11 +172,12 @@ __global__ void __launch_bounds__(NT, 2) tile_convt_kernel(const Args p) {
 }
 
 // 7. dx = g * [t < len] + dz Wall^T
-__global__ void __launch_bounds__(NT, 2) tile_dx_kernel(const Args p) {
+template <class IO>
+__global__ void __launch_bounds__(NT, 2) tile_dx_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   float acc[TileShape<W>::MT][4][4] = {};
-  gemm<W, false>(acc, smem, ldw / KS, t0, T, [&](int s) {
-    return Slice{p.dz + row0 * ldw + KS * s, ldw, 0, p.wall_t + (size_t)KS * s * W, W};
+  gemm<W, false, IO, float>(acc, smem, ldw / KS, t0, T, [&](int s) {
+    return Slice<IO, float>{p.dz + row0 * ldw + KS * s, ldw, 0, p.wall_t + (size_t)KS * s * W, W};
   });
   const int len = min(T, p.lens[b]);
   for_pairs<W>(acc, [&](int r, int c, float v0, float v1) {
@@ -177,32 +196,55 @@ constexpr int WG_PART = WG_TILE + 256;    // a partial: the tile (fragment order
 constexpr int WG_KF = 32;                 // frames per staged slab: four k-steps
 constexpr int WG_STAGES = 2;              // slabs in flight (double buffering)
 constexpr int WG_FLUSH = 32;              // slabs between two adds of the accumulators into the partial
-constexpr int WG_STAGE_FLOATS = WG_KF * ((64 + 8) + (256 + 8));  // the wider (64 x 256) tile's slabs
-constexpr size_t WG_SMEM = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
 constexpr int WG_MAX_PROBLEMS = 48;
+
+// A slab's row strides (elements of X, floats of Y) for a tm-row tile:
+// fragment reads on distinct banks (Y's 4-float pad in bf16, where its
+// fragments read frames 2q and 2q + 1)
+template <class IO>
+__host__ __device__ constexpr int wg_ldxs(int tm) { return tm + 8; }
+template <class IO>
+__host__ __device__ constexpr int wg_ldys(int tm) { return WG_TILE / tm + (kBf16<IO> ? 4 : 8); }
+template <class IO>
+__host__ __device__ constexpr int wg_stage_bytes(int tm) {
+  return WG_KF * (wg_ldxs<IO>(tm) * (int)sizeof(IO) + wg_ldys<IO>(tm) * (int)sizeof(float));
+}
+template <class IO>
+constexpr size_t WG_SMEM =
+    (size_t)WG_STAGES * (wg_stage_bytes<IO>(64) > wg_stage_bytes<IO>(128) ? wg_stage_bytes<IO>(64)
+                                                                          : wg_stage_bytes<IO>(128));
 
 // out_w[m, n] = scale * sum_r X[r + shift, m] * Y[r, n] over the B*T frames r
 // (X zero where t + shift leaves [0, T)); out_b[n] = scale * sum_r Y[r, n].
-// M and N are multiples of 64, at most tm and WG_TILE / tm.
+// M and N are multiples of 64, at most tm and WG_TILE / tm. X and the
+// outputs are IO, Y fp32.
+template <class IO>
 struct WgradProblem {
-  const float* X;
+  const IO* X;
   const float* Y;
-  float* out_w;
-  float* out_b;  // nullptr: no column sums
+  IO* out_w;
+  IO* out_b;  // nullptr: no column sums
   int ldx, ldy, ldo, shift, M, N, tm;
   float scale;
 };
 
+template <class IO>
 struct WgradBatch {
-  WgradProblem p[WG_MAX_PROBLEMS];
+  WgradProblem<IO> p[WG_MAX_PROBLEMS];
 };
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16_t* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <class IO>
 __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
-    const WgradBatch batch, int p0, float* __restrict__ partials, int B, int T, int n_split) {
+    const WgradBatch<IO> batch, int p0, float* __restrict__ partials, int B, int T, int n_split) {
   extern __shared__ __align__(16) float smem[];
-  const WgradProblem pr = batch.p[blockIdx.y];
+  char* const sm = reinterpret_cast<char*>(smem);
+  const WgradProblem<IO> pr = batch.p[blockIdx.y];
   const int tm = pr.tm, tn = WG_TILE / tm;
-  const int ldxs = tm + 8, ldys = tn + 8;  // slab row strides: conflict-free fragment reads
+  const int ldxs = wg_ldxs<IO>(tm), ldys = wg_ldys<IO>(tm);  // slab row strides
+  const int stage_bytes = wg_stage_bytes<IO>(tm);
   const long long rows = (long long)B * T;
   const long long chunk = (rows + n_split - 1) / n_split;
   const long long r_begin = (long long)blockIdx.x * chunk;
@@ -215,17 +257,22 @@ __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
   const int gr = lane >> 2, qd = lane & 3;
   const int col = threadIdx.x % tn;  // this thread's column of the column sums
 
+  auto slab_x = [&](int slab) { return reinterpret_cast<IO*>(sm + (slab % WG_STAGES) * stage_bytes); };
+  auto slab_y = [&](int slab) {
+    return reinterpret_cast<float*>(sm + (slab % WG_STAGES) * stage_bytes + WG_KF * ldxs * sizeof(IO));
+  };
   auto load = [&](int slab) {
-    float* xs = smem + (slab % WG_STAGES) * WG_STAGE_FLOATS;
-    float* ys = xs + WG_KF * ldxs;
+    IO* xs = slab_x(slab);
+    float* ys = slab_y(slab);
     const long long r0 = r_begin + (long long)slab * WG_KF;
-    const int xq = pr.M / 4, yq = pr.N / 4;  // 16-byte copies per frame
+    constexpr int EX = 16 / sizeof(IO);
+    const int xq = pr.M / EX, yq = pr.N / 4;  // 16-byte copies per frame
     for (int f = threadIdx.x; f < WG_KF * xq; f += NT) {
-      const int rr = f / xq, c4 = f % xq;
+      const int rr = f / xq, c = f % xq;
       const long long r = r0 + rr;
       const int ts = (int)(r % T) + pr.shift;
       const bool in = r < r_end && ts >= 0 && ts < T;
-      tf32::cp_async16(xs + rr * ldxs + 4 * c4, in ? pr.X + (r + pr.shift) * pr.ldx + 4 * c4 : pr.X,
+      tf32::cp_async16(xs + rr * ldxs + EX * c, in ? pr.X + (r + pr.shift) * pr.ldx + EX * c : pr.X,
                        in ? 16 : 0);
     }
     for (int f = threadIdx.x; f < WG_KF * yq; f += NT) {
@@ -268,24 +315,44 @@ __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
     __syncthreads();  // slab s has landed, and every warp is done with slab s - 1
     if (s + WG_STAGES - 1 < n_slabs) load(s + WG_STAGES - 1);
     tf32::cp_async_commit();
-    const float* xs = smem + (s % WG_STAGES) * WG_STAGE_FLOATS;
-    const float* ys = xs + WG_KF * ldxs;
+    const IO* xs = slab_x(s);
+    const float* ys = slab_y(s);
     if (active) {
+      if constexpr (kBf16<IO>) {
+        // lane l addresses frame row l % 8 (+8 for matrices 2, 3) at channel
+        // column 8 * (matrix & 1): A fragments of X^T, frames as k
+        const int i = lane >> 3;
+        const IO* xl = xs + ((lane & 7) + 8 * (i >> 1)) * ldxs + wrow + 8 * (i & 1);
 #pragma unroll
-      for (int kk = 0; kk < WG_KF / 8; ++kk) {
-        // A (m, k) = X[frame k, channel m]: rows of the slab are frames
-        tf32::FragA fa[2];
+        for (int kk = 0; kk < WG_KF / 16; ++kk) {
+          uint32_t fa[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* q = xs + (8 * kk + qd) * ldxs + wrow + 16 * mt + gr;
-          fa[mt] = tf32::frag_a(q[0], q[8], q[4 * ldxs], q[4 * ldxs + 8]);
+          for (int mt = 0; mt < 2; ++mt) bf16::ldsm_x4_t(fa[mt], xl + 16 * kk * ldxs + 16 * mt);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float* c = ys + (16 * kk + 2 * qd) * ldys + wcol + 8 * nt + gr;
+            const uint32_t fb[2] = {bf16::pack(c[0], c[ldys]), bf16::pack(c[8 * ldys], c[9 * ldys])};
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) bf16::mma(acc[mt][nt], fa[mt], fb);
+          }
         }
+      } else {
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float* c = ys + (8 * kk + qd) * ldys + wcol + 8 * nt + gr;
-          const tf32::FragB fb = tf32::frag_b(c[0], c[4 * ldys]);
+        for (int kk = 0; kk < WG_KF / 8; ++kk) {
+          // A (m, k) = X[frame k, channel m]: rows of the slab are frames
+          tf32::FragA fa[2];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+          for (int mt = 0; mt < 2; ++mt) {
+            const float* q = xs + (8 * kk + qd) * ldxs + wrow + 16 * mt + gr;
+            fa[mt] = tf32::frag_a(q[0], q[8], q[4 * ldxs], q[4 * ldxs + 8]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float* c = ys + (8 * kk + qd) * ldys + wcol + 8 * nt + gr;
+            const tf32::FragB fb = tf32::frag_b(c[0], c[4 * ldys]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+          }
         }
       }
       if ((s + 1) % WG_FLUSH == 0 || s + 1 == n_slabs) flush(s < WG_FLUSH);
@@ -308,9 +375,11 @@ __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
   }
 }
 
+// the sums in fp32, each stored once in IO
+template <class IO>
 __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(
-    const WgradBatch batch, int p0, const float* __restrict__ partials, int n_split) {
-  const WgradProblem pr = batch.p[blockIdx.y];
+    const WgradBatch<IO> batch, int p0, const float* __restrict__ partials, int n_split) {
+  const WgradProblem<IO> pr = batch.p[blockIdx.y];
   const int tn = WG_TILE / pr.tm;
   const int e = blockIdx.x * NT + threadIdx.x;
   if (e >= WG_TILE + tn) return;
@@ -327,9 +396,9 @@ __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(
   for (int s = 0; s < n_split; ++s) sum += src[(size_t)s * WG_PART];  // fixed order
   sum *= pr.scale;
   if (m == pr.tm)
-    pr.out_b[n] = sum;
+    store(pr.out_b + n, sum);
   else
-    pr.out_w[(size_t)m * pr.ldo + n] = sum;
+    store(pr.out_w + (size_t)m * pr.ldo + n, sum);
 }
 
 int wgrad_problem_count(const Branches& br) {
@@ -339,28 +408,17 @@ int wgrad_problem_count(const Branches& br) {
   return taps + br.depth + 1 + (br.depth * H + 255) / 256;
 }
 
-}  // namespace
-}  // namespace gated_hifi
-
-// Launches the tile passes' seven stages on `stream`; returns a cudaError_t
-// (0 on success). Inputs as for gated_hifi_fwd, plus g [B, T, width] (the
-// output's cotangent) and the transposed weights: wg_t [W(out), W(in)], w1_t
-// [depth, H(out), H(in)], ks_t the branches' [k_d, H(out), H(in)] back to
-// back, wall_t [depth*H, W]. Outputs: a, h1, dzp, dc, dz [B, T, depth*H];
-// u, gv, dx [B, T, width].
-extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, const float* wall,
-                              const float* ball, const float* ks, const float* cb, const float* w1,
-                              const float* b1, const float* wg_t, const float* w1_t,
-                              const float* ks_t, const float* wall_t, float* a, float* h1,
-                              float* dzp, float* dc, float* dz, float* u, float* gv, float* dx,
-                              int B, int T, int width, int depth, const int* kernels,
-                              const int* dilations, float scale, unsigned seed,
-                              unsigned threshold, float keep_scale, void* stream) {
-  using namespace gated_hifi;
+template <class IO>
+int backward(const IO* x, const int* lens, const IO* g, const IO* wall, const IO* ball, const IO* ks,
+             const IO* cb, const IO* w1, const IO* b1, const IO* wg_t, const IO* w1_t, const IO* ks_t,
+             const IO* wall_t, IO* a, IO* h1, float* dzp, float* dc, float* dz, IO* u, float* gv, IO* dx,
+             int B, int T, int width, int depth, const int* kernels, const int* dilations, float scale,
+             unsigned seed, unsigned threshold, float keep_scale, void* stream) {
   Branches br;
-  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br))
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br) ||
+      (kBf16<IO> && scale != 1.f))
     return (int)cudaErrorInvalidValue;
-  Args p{};
+  Args<IO> p{};
   p.br = br;
   p.x = x;
   p.g = g;
@@ -388,24 +446,21 @@ extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, c
   p.keep = threshold ? keep_scale : 1.f;
   p.drop = Dropout{seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr size_t wide = Staging<H, IO, IO>::SMEM, narrow = Staging<W, IO, IO>::SMEM;
+  constexpr size_t wide_f = Staging<H, IO, float>::SMEM, narrow_f = Staging<W, IO, float>::SMEM;
   // in stream order: each stage reads what the ones before it wrote
-  cudaError_t err = launch_stage(tile_expand_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<false>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_gate_kernel, TileShape<W>::SMEM, p, B, 1, s);
-  if (err == cudaSuccess) err = launch_stage(tile_dc_kernel, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_convt_kernel, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_dx_kernel, TileShape<W>::SMEM, p, B, 1, s);
+  cudaError_t err = launch_stage(tile_expand_kernel<false, IO>, wide, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<false, IO>, wide, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<false, IO>, wide, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_gate_kernel<IO>, narrow, p, B, 1, s);
+  if (err == cudaSuccess) err = launch_stage(tile_dc_kernel<IO>, wide_f, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_convt_kernel<IO>, wide_f, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_dx_kernel<IO>, narrow_f, p, B, 1, s);
   return (int)err;
 }
 
-// Slices of the B*T frames gated_hifi_wgrad sums apart: one per 1,024
-// frames, at most 64, then as many as fill the same number of waves of the
-// card's resident wgrad_partial_kernel blocks (the blocks are problems x
-// slices: 31 x 9 = 279 for 264 slots left a second wave of 15 at 16 x 516
-// frames). Returns -1 on an invalid branch table or a failed device query.
-extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* kernels) {
-  using namespace gated_hifi;
+template <class IO>
+int wgrad_splits(long long rows, int depth, const int* kernels) {
   static int slots = 0;  // SMs x resident blocks, queried once
   std::vector<int> dil(depth > 0 ? depth : 1, 1);
   Branches br;
@@ -415,7 +470,7 @@ extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* ker
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return -1;
-    const int per_sm = blocks_per_sm((const void*)wgrad_partial_kernel, NT, WG_SMEM);
+    const int per_sm = blocks_per_sm((const void*)wgrad_partial_kernel<IO>, NT, WG_SMEM<IO>);
     if (per_sm < 1) return -1;
     slots = sms * per_sm;
   }
@@ -424,6 +479,128 @@ extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* ker
   const long long waves = (problems * n + slots - 1) / slots;
   const long long fill = waves * slots / problems;
   return (int)(fill < 1 ? 1 : fill < rows ? fill : rows);
+}
+
+template <class IO>
+int wgrad(const IO* x, const IO* a, const IO* h1, const float* dzp, const float* dc, const float* dz, const IO* u,
+          const float* gv, float* partials, IO* grads, int B, int T, int width, int depth, const int* kernels,
+          const int* dilations, float scale, int n_split, void* stream) {
+  Branches br;
+  if (width != W || B < 1 || T < 1 || n_split < 1 || !make_branches(depth, kernels, dilations, &br) ||
+      (kBf16<IO> && scale != 1.f))
+    return (int)cudaErrorInvalidValue;
+  const int ldb = depth * H;
+  int taps = 0;
+  for (int d = 0; d < depth; ++d) taps += br.k[d];
+  IO* dwall = grads;
+  IO* dball = dwall + W * ldb;
+  IO* dks = dball + ldb;
+  IO* dcb = dks + (size_t)taps * H * H;
+  IO* dw1 = dcb + ldb;
+  IO* db1 = dw1 + (size_t)depth * H * H;
+  IO* dwg = db1 + ldb;
+  IO* dbg = dwg + W * W;
+
+  std::vector<WgradProblem<IO>> probs;
+  for (int d = 0; d < depth; ++d) {
+    const int half = (br.k[d] - 1) / 2;
+    for (int j = 0; j < br.k[d]; ++j)
+      probs.push_back({a + d * H, dc + d * H, dks + br.k_off[d] + (size_t)j * H * H,
+                       j == 0 ? dcb + d * H : nullptr, ldb, ldb, H, (j - half) * br.dil[d], H, H, 128,
+                       1.f});
+  }
+  for (int d = 0; d < depth; ++d)
+    probs.push_back({h1 + d * H, dzp + d * H, dw1 + (size_t)d * H * H, db1 + d * H, ldb, ldb, H,
+                     0, H, H, 128, scale});
+  probs.push_back({u, gv, dwg, dbg, W, W, W, 0, W, W, 64, 1.f});
+  for (int c0 = 0; c0 < ldb; c0 += 256)  // x^T dz in 64 x 256 tiles
+    probs.push_back({x, dz + c0, dwall + c0, dball + c0, W, ldb, ldb, 0, W,
+                     ldb - c0 < 256 ? ldb - c0 : 256, 64, 1.f});
+
+  const size_t smem = WG_SMEM<IO>;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_partial_kernel<IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int p0 = 0; p0 < (int)probs.size(); p0 += WG_MAX_PROBLEMS) {
+    const int left = (int)probs.size() - p0;
+    const int n = left < WG_MAX_PROBLEMS ? left : WG_MAX_PROBLEMS;
+    WgradBatch<IO> batch{};
+    for (int i = 0; i < n; ++i) batch.p[i] = probs[p0 + i];
+    wgrad_partial_kernel<IO><<<dim3(n_split, n), NT, smem, s>>>(batch, p0, partials, B, T, n_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    wgrad_reduce_kernel<IO><<<dim3((WG_PART + NT - 1) / NT, n), NT, 0, s>>>(batch, p0, partials, n_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <class IO>
+int backward_blocks_per_sm(int* blocks) {
+  const StageKernel<IO> stages[7] = {tile_expand_kernel<false, IO>, tile_conv_kernel<false, IO>,
+                                     tile_branch_kernel<false, IO>, tile_gate_kernel<IO>,
+                                     tile_dc_kernel<IO>, tile_convt_kernel<IO>, tile_dx_kernel<IO>};
+  const size_t stage_smem[7] = {Staging<H, IO, IO>::SMEM, Staging<H, IO, IO>::SMEM, Staging<H, IO, IO>::SMEM,
+                                Staging<W, IO, IO>::SMEM, Staging<H, IO, float>::SMEM,
+                                Staging<H, IO, float>::SMEM, Staging<W, IO, float>::SMEM};
+  for (int i = 0; i < 7; ++i) blocks[i] = blocks_per_sm((const void*)stages[i], NT, stage_smem[i]);
+  blocks[7] = blocks_per_sm((const void*)wgrad_partial_kernel<IO>, NT, WG_SMEM<IO>);
+  blocks[8] = blocks_per_sm((const void*)wgrad_reduce_kernel<IO>, NT, 0);
+  return (int)cudaGetLastError();
+}
+
+const bf16_t* cb16(const void* q) { return static_cast<const bf16_t*>(q); }
+bf16_t* b16(void* q) { return static_cast<bf16_t*>(q); }
+
+}  // namespace
+}  // namespace gated_hifi
+
+// Launches the tile passes' seven stages on `stream`; returns a cudaError_t
+// (0 on success). Inputs as for gated_hifi_fwd, plus g [B, T, width] (the
+// output's cotangent) and the transposed weights: wg_t [W(out), W(in)], w1_t
+// [depth, H(out), H(in)], ks_t the branches' [k_d, H(out), H(in)] back to
+// back, wall_t [depth*H, W]. Outputs: a, h1, dzp, dc, dz [B, T, depth*H];
+// u, gv, dx [B, T, width].
+extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, const float* wall,
+                              const float* ball, const float* ks, const float* cb, const float* w1,
+                              const float* b1, const float* wg_t, const float* w1_t,
+                              const float* ks_t, const float* wall_t, float* a, float* h1,
+                              float* dzp, float* dc, float* dz, float* u, float* gv, float* dx,
+                              int B, int T, int width, int depth, const int* kernels,
+                              const int* dilations, float scale, unsigned seed,
+                              unsigned threshold, float keep_scale, void* stream) {
+  return gated_hifi::backward<float>(x, lens, g, wall, ball, ks, cb, w1, b1, wg_t, w1_t, ks_t, wall_t, a, h1, dzp,
+                                     dc, dz, u, gv, dx, B, T, width, depth, kernels, dilations, scale, seed,
+                                     threshold, keep_scale, stream);
+}
+
+// The same in bf16: x, g, the weights, a, h1, u and dx bf16; dzp, dc, dz and
+// gv fp32. scale must be 1.
+extern "C" int gated_hifi_bwd_bf16(const void* x, const int* lens, const void* g, const void* wall,
+                                   const void* ball, const void* ks, const void* cb, const void* w1,
+                                   const void* b1, const void* wg_t, const void* w1_t, const void* ks_t,
+                                   const void* wall_t, void* a, void* h1, float* dzp, float* dc, float* dz,
+                                   void* u, float* gv, void* dx, int B, int T, int width, int depth,
+                                   const int* kernels, const int* dilations, float scale, unsigned seed,
+                                   unsigned threshold, float keep_scale, void* stream) {
+  using namespace gated_hifi;
+  return backward<bf16_t>(cb16(x), lens, cb16(g), cb16(wall), cb16(ball), cb16(ks), cb16(cb), cb16(w1), cb16(b1),
+                          cb16(wg_t), cb16(w1_t), cb16(ks_t), cb16(wall_t), b16(a), b16(h1), dzp, dc, dz, b16(u),
+                          gv, b16(dx), B, T, width, depth, kernels, dilations, scale, seed, threshold, keep_scale,
+                          stream);
+}
+
+// Slices of the B*T frames gated_hifi_wgrad sums apart: one per 1,024
+// frames, at most 64, then as many as fill the same number of waves of the
+// card's resident wgrad_partial_kernel blocks (the blocks are problems x
+// slices: 31 x 9 = 279 for 264 slots left a second wave of 15 at 16 x 516
+// frames), for the fp32 (bf16 0) or the bf16 (1) instance. Returns -1 on
+// an invalid branch table or a failed device query.
+extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* kernels, int bf16) {
+  using namespace gated_hifi;
+  return bf16 ? wgrad_splits<bf16_t>(rows, depth, kernels) : wgrad_splits<float>(rows, depth, kernels);
 }
 
 // Floats of the partials buffer gated_hifi_wgrad needs.
@@ -444,68 +621,27 @@ extern "C" int gated_hifi_wgrad(const float* x, const float* a, const float* h1,
                                 float* partials, float* grads, int B, int T, int width, int depth,
                                 const int* kernels, const int* dilations, float scale,
                                 int n_split, void* stream) {
+  return gated_hifi::wgrad<float>(x, a, h1, dzp, dc, dz, u, gv, partials, grads, B, T, width, depth, kernels,
+                                  dilations, scale, n_split, stream);
+}
+
+// The same in bf16: x, a, h1 and u bf16 (the X operands), dzp, dc, dz and gv
+// fp32; the partials fp32 and `grads` bf16, each gradient rounded once.
+// scale must be 1.
+extern "C" int gated_hifi_wgrad_bf16(const void* x, const void* a, const void* h1, const float* dzp,
+                                     const float* dc, const float* dz, const void* u, const float* gv,
+                                     float* partials, void* grads, int B, int T, int width, int depth,
+                                     const int* kernels, const int* dilations, float scale, int n_split,
+                                     void* stream) {
   using namespace gated_hifi;
-  Branches br;
-  if (width != W || B < 1 || T < 1 || n_split < 1 || !make_branches(depth, kernels, dilations, &br))
-    return (int)cudaErrorInvalidValue;
-  const int ldb = depth * H;
-  int taps = 0;
-  for (int d = 0; d < depth; ++d) taps += br.k[d];
-  float* dwall = grads;
-  float* dball = dwall + W * ldb;
-  float* dks = dball + ldb;
-  float* dcb = dks + (size_t)taps * H * H;
-  float* dw1 = dcb + ldb;
-  float* db1 = dw1 + (size_t)depth * H * H;
-  float* dwg = db1 + ldb;
-  float* dbg = dwg + W * W;
-
-  std::vector<WgradProblem> probs;
-  for (int d = 0; d < depth; ++d) {
-    const int half = (br.k[d] - 1) / 2;
-    for (int j = 0; j < br.k[d]; ++j)
-      probs.push_back({a + d * H, dc + d * H, dks + br.k_off[d] + (size_t)j * H * H,
-                       j == 0 ? dcb + d * H : nullptr, ldb, ldb, H, (j - half) * br.dil[d], H, H, 128,
-                       1.f});
-  }
-  for (int d = 0; d < depth; ++d)
-    probs.push_back({h1 + d * H, dzp + d * H, dw1 + (size_t)d * H * H, db1 + d * H, ldb, ldb, H,
-                     0, H, H, 128, scale});
-  probs.push_back({u, gv, dwg, dbg, W, W, W, 0, W, W, 64, 1.f});
-  for (int c0 = 0; c0 < ldb; c0 += 256)  // x^T dz in 64 x 256 tiles
-    probs.push_back({x, dz + c0, dwall + c0, dball + c0, W, ldb, ldb, 0, W,
-                     ldb - c0 < 256 ? ldb - c0 : 256, 64, 1.f});
-
-  cudaError_t err = cudaFuncSetAttribute(wgrad_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)WG_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int p0 = 0; p0 < (int)probs.size(); p0 += WG_MAX_PROBLEMS) {
-    const int left = (int)probs.size() - p0;
-    const int n = left < WG_MAX_PROBLEMS ? left : WG_MAX_PROBLEMS;
-    WgradBatch batch{};
-    for (int i = 0; i < n; ++i) batch.p[i] = probs[p0 + i];
-    wgrad_partial_kernel<<<dim3(n_split, n), NT, WG_SMEM, s>>>(batch, p0, partials, B, T, n_split);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    wgrad_reduce_kernel<<<dim3((WG_PART + NT - 1) / NT, n), NT, 0, s>>>(batch, p0, partials, n_split);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return wgrad<bf16_t>(cb16(x), cb16(a), cb16(h1), dzp, dc, dz, cb16(u), gv, partials, b16(grads), B, T, width,
+                       depth, kernels, dilations, scale, n_split, stream);
 }
 
 // Resident blocks per SM of the backward's kernels, in launch order (the
 // seven tile stages, then wgrad_partial_kernel, wgrad_reduce_kernel), into
-// blocks[0..8]; returns a cudaError_t.
-extern "C" int gated_hifi_bwd_blocks_per_sm(int* blocks) {
+// blocks[0..8], fp32 (bf16 0) or bf16 (1); returns a cudaError_t.
+extern "C" int gated_hifi_bwd_blocks_per_sm(int* blocks, int bf16) {
   using namespace gated_hifi;
-  const StageKernel stages[7] = {tile_expand_kernel<false>, tile_conv_kernel<false>, tile_branch_kernel<false>,
-                                 tile_gate_kernel, tile_dc_kernel, tile_convt_kernel, tile_dx_kernel};
-  const size_t stage_smem[7] = {TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<W>::SMEM,
-                                TileShape<H>::SMEM, TileShape<H>::SMEM, TileShape<W>::SMEM};
-  for (int i = 0; i < 7; ++i) blocks[i] = blocks_per_sm((const void*)stages[i], NT, stage_smem[i]);
-  blocks[7] = blocks_per_sm((const void*)wgrad_partial_kernel, NT, WG_SMEM);
-  blocks[8] = blocks_per_sm((const void*)wgrad_reduce_kernel, NT, 0);
-  return (int)cudaGetLastError();
+  return bf16 ? backward_blocks_per_sm<bf16_t>(blocks) : backward_blocks_per_sm<float>(blocks);
 }

@@ -1,6 +1,8 @@
-// GatedHiFi block forward for Hopper (sm_90a), fp32 at its interface, its
-// products in 3xTF32 on the tensor cores (tf32_mma.cuh), with in-kernel
-// dropout.
+// GatedHiFi block forward for Hopper (sm_90a), with in-kernel dropout, in
+// two modes, as the TPU kernel's dot_dtype has them: fp32 at its interface
+// with its products in 3xTF32 on the tensor cores (tf32_mma.cuh), and bf16
+// at its interface (gated_hifi_fwd_bf16) with one bf16 MMA a product
+// (bf16_mma.cuh), every operand rounded where the TPU kernel rounds it.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
 // fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward), and
@@ -34,26 +36,40 @@
 //   4 out   u from zp (Mix, the backward's gate formula), u Wg, residual,
 //           length mask, exact zeros past min(T, len)
 // The wrapper passes two [B, T, depth*H] scratch buffers: a (stage 1),
-// which stage 3 overwrites with zp once stage 2 has read it, and h1.
+// which stage 3 overwrites with zp once stage 2 has read it, and h1. In
+// bf16 a and h1 are bf16 (product operands only) and zp is fp32 (it feeds
+// the gate): the first buffer is fp32-sized and holds a in its first half.
+//
+// bf16 mode: a frame's products cost the same 1.06 MFLOP, at 989 TF/s one
+// MMA each; x and out move 2 bytes an element, a and h1 2, zp 4. At 16 x
+// 33024 frames that is 0.56 ms of products against about 1 ms of bytes.
 
 #include "gated_hifi_tiles.cuh"
 
 namespace gated_hifi {
 namespace {
 
-constexpr int LDU = W + 4;  // row stride of the u tile: fragment reads on distinct banks
-constexpr size_t OUT_SMEM = sizeof(float) * (TT * LDU + W * TileShape<W>::LDB);
+// The output stage's u tile in IO: rows padded so that fragment reads fall
+// on distinct banks (68 floats for 3xTF32's scalar reads, 72 bf16 for pairs)
+template <class IO>
+struct OutTile {
+  static constexpr int LDU = kBf16<IO> ? W + 8 : W + 4;
+  static constexpr size_t SMEM = sizeof(IO) * (TT * LDU + W * TileShape<W>::LDB);
+};
 
 // 4. out = (x + scale * (u Wg + bg)) * [t < min(T, len)], u from zp (in dzp):
-// the [64 x W] u tile in shared memory, then one 64-deep product with Wg
-__global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args p) {
+// the [64 x W] u tile in shared memory (rounded to IO: the TPU kernel's
+// u.astype(dot_dtype)), then one 64-deep product with Wg
+template <class IO>
+__global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   using S = TileShape<W>;
-  float* us = smem;             // [TT][LDU]
-  float* ws = smem + TT * LDU;  // [W][LDB]: Wg (in, out)
-  for (int f = threadIdx.x; f < W * (W / 4); f += NT) {
-    const int r = f / (W / 4), c4 = f % (W / 4);
-    tf32::cp_async16(ws + r * S::LDB + 4 * c4, p.wg + (size_t)r * W + 4 * c4, 16);
+  constexpr int LDU = OutTile<IO>::LDU, E = 16 / sizeof(IO);
+  IO* us = reinterpret_cast<IO*>(smem);  // [TT][LDU]
+  IO* ws = us + TT * LDU;                // [W][LDB]: Wg (in, out)
+  for (int f = threadIdx.x; f < W * (W / E); f += NT) {
+    const int r = f / (W / E), c = f % (W / E);
+    tf32::cp_async16(ws + r * S::LDB + E * c, p.wg + (size_t)r * W + E * c, 16);
   }
   tf32::cp_async_commit();
   for (int f = threadIdx.x; f < TT * (W / 2); f += NT) {
@@ -72,7 +88,7 @@ __global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args p) {
   __syncthreads();
   const WarpTile<W> wt;
   float acc[S::MT][4][4] = {};
-  mma_tile<W, W / 8, LDU, true>(acc, us, ws, wt);
+  mma_tile<W, W, LDU, true>(acc, us, ws, wt);
   const int len = min(T, p.lens[b]);
   for_pairs<W>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
@@ -80,10 +96,74 @@ __global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args p) {
     float2 o = make_float2(0.f, 0.f);
     if (t < len) {
       const float2 xv = ld2(p.x + (row0 + t) * W + c);
-      o = make_float2(xv.x + p.scale * (v0 + p.bg[c]), xv.y + p.scale * (v1 + p.bg[c + 1]));
+      o = make_float2(xv.x + p.scale * (v0 + f32(p.bg[c])), xv.y + p.scale * (v1 + f32(p.bg[c + 1])));
     }
     st2(p.out + (row0 + t) * W + c, o.x, o.y);
   });
+}
+
+template <class IO>
+int forward(const IO* x, const int* lens, const IO* wall, const IO* ball, const IO* ks, const IO* cb,
+            const IO* w1, const IO* b1, const IO* wg, const IO* bg, void* az, IO* h1, IO* out, int B, int T,
+            int width, int depth, const int* kernels, const int* dilations, float scale, unsigned seed,
+            unsigned threshold, float keep_scale, void* stream) {
+  Args<IO> p{};
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &p.br) ||
+      (kBf16<IO> && scale != 1.f))
+    return (int)cudaErrorInvalidValue;
+  p.x = x;
+  p.lens = lens;
+  p.wall = wall;
+  p.ball = ball;
+  p.ks = ks;
+  p.cb = cb;
+  p.w1 = w1;
+  p.b1 = b1;
+  p.wg = wg;
+  p.bg = bg;
+  p.a = static_cast<IO*>(az);
+  p.h1 = h1;
+  p.dzp = static_cast<float*>(az);  // zp over a: stage 2 has read a for every branch before stage 3 starts
+  p.out = out;
+  p.T = T;
+  p.scale = scale;
+  p.keep = threshold ? keep_scale : 1.f;
+  p.drop = Dropout{seed, threshold, keep_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr size_t smem = Staging<H, IO, IO>::SMEM;
+  // in stream order: each stage reads what the ones before it wrote
+  cudaError_t err = launch_stage(tile_expand_kernel<true, IO>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<true, IO>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<true, IO>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_out_kernel<IO>, OutTile<IO>::SMEM, p, B, 1, s);
+  return (int)err;
+}
+
+template <class IO>
+int forward_blocks_per_sm(int* blocks) {
+  constexpr size_t smem = Staging<H, IO, IO>::SMEM;
+  blocks[0] = blocks_per_sm((const void*)tile_expand_kernel<true, IO>, NT, smem);
+  blocks[1] = blocks_per_sm((const void*)tile_conv_kernel<true, IO>, NT, smem);
+  blocks[2] = blocks_per_sm((const void*)tile_branch_kernel<true, IO>, NT, smem);
+  blocks[3] = blocks_per_sm((const void*)tile_out_kernel<IO>, NT, OutTile<IO>::SMEM);
+  return (int)cudaGetLastError();
+}
+
+// One m16n8k16 bf16 MMA whose accumulator starts at c and receives a single
+// product of 0.75 of c's ulp (3 * 2^-13 * 2^-12 against c = +-1): round to
+// nearest gives c + ulp, truncation c.
+__global__ void bf16_probe_kernel(float* out) {
+  const int lane = threadIdx.x;
+  const uint32_t a_lo = __bfloat16_as_ushort(__float2bfloat16(3.f * 0x1p-13f));
+  const uint32_t b_lo = __bfloat16_as_ushort(__float2bfloat16(0x1p-12f));
+  for (int sign = 0; sign < 2; ++sign) {
+    // lane 0 holds A (0, 0) and B (0, 0) in the low halves of a0 and b0
+    const uint32_t a[4] = {lane == 0 ? (a_lo | (sign ? 0x8000u : 0u)) : 0u, 0u, 0u, 0u};
+    const uint32_t b[2] = {lane == 0 ? b_lo : 0u, 0u};
+    float c[4] = {sign ? -1.f : 1.f, 0.f, 0.f, 0.f};
+    bf16::mma(c, a, b);
+    if (lane == 0) out[sign] = c[0];
+  }
 }
 
 }  // namespace
@@ -104,44 +184,41 @@ extern "C" int gated_hifi_fwd(const float* x, const int* lens, const float* wall
                               int width, int depth, const int* kernels, const int* dilations,
                               float scale, unsigned seed, unsigned threshold,
                               float keep_scale, void* stream) {
-  using namespace gated_hifi;
-  Args p{};
-  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &p.br))
-    return (int)cudaErrorInvalidValue;
-  p.x = x;
-  p.lens = lens;
-  p.wall = wall;
-  p.ball = ball;
-  p.ks = ks;
-  p.cb = cb;
-  p.w1 = w1;
-  p.b1 = b1;
-  p.wg = wg;
-  p.bg = bg;
-  p.a = a;
-  p.h1 = h1;
-  p.dzp = a;  // zp over a: stage 2 has read a for every branch before stage 3 starts
-  p.out = out;
-  p.T = T;
-  p.scale = scale;
-  p.keep = threshold ? keep_scale : 1.f;
-  p.drop = Dropout{seed, threshold, keep_scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // in stream order: each stage reads what the ones before it wrote
-  cudaError_t err = launch_stage(tile_expand_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<true>, TileShape<H>::SMEM, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_out_kernel, OUT_SMEM, p, B, 1, s);
-  return (int)err;
+  return gated_hifi::forward<float>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, a, h1, out, B, T, width,
+                                    depth, kernels, dilations, scale, seed, threshold, keep_scale, stream);
+}
+
+// The same in bf16: x, the weights and out bf16 ([B, T, width] and the
+// layouts above); az an fp32-sized [B, T, depth*H] buffer (a in bf16 in its
+// first half, then zp in fp32), h1 a bf16 [B, T, depth*H] one. scale must
+// be 1 (every shipped config's): the TPU kernel rounds scale * g and scale
+// * dzp before its backward's products, which the backward does not.
+extern "C" int gated_hifi_fwd_bf16(const void* x, const int* lens, const void* wall, const void* ball,
+                                   const void* ks, const void* cb, const void* w1, const void* b1,
+                                   const void* wg, const void* bg, void* az, void* h1, void* out, int B,
+                                   int T, int width, int depth, const int* kernels, const int* dilations,
+                                   float scale, unsigned seed, unsigned threshold, float keep_scale,
+                                   void* stream) {
+  using gated_hifi::bf16_t;
+  auto c = [](const void* q) { return static_cast<const bf16_t*>(q); };
+  return gated_hifi::forward<bf16_t>(c(x), lens, c(wall), c(ball), c(ks), c(cb), c(w1), c(b1), c(wg), c(bg),
+                                     az, static_cast<bf16_t*>(h1), static_cast<bf16_t*>(out), B, T, width,
+                                     depth, kernels, dilations, scale, seed, threshold, keep_scale, stream);
 }
 
 // Resident blocks per SM of the forward's stages, in launch order (expand,
-// conv, branch, out), into blocks[0..3]; returns a cudaError_t.
-extern "C" int gated_hifi_fwd_blocks_per_sm(int* blocks) {
+// conv, branch, out), into blocks[0..3], fp32 (bf16 0) or bf16 (1);
+// returns a cudaError_t.
+extern "C" int gated_hifi_fwd_blocks_per_sm(int* blocks, int bf16) {
   using namespace gated_hifi;
-  blocks[0] = blocks_per_sm((const void*)tile_expand_kernel<true>, NT, TileShape<H>::SMEM);
-  blocks[1] = blocks_per_sm((const void*)tile_conv_kernel<true>, NT, TileShape<H>::SMEM);
-  blocks[2] = blocks_per_sm((const void*)tile_branch_kernel<true>, NT, TileShape<H>::SMEM);
-  blocks[3] = blocks_per_sm((const void*)tile_out_kernel, NT, OUT_SMEM);
+  return bf16 ? forward_blocks_per_sm<bf16_t>(blocks) : forward_blocks_per_sm<float>(blocks);
+}
+
+// Whether the bf16 MMA's fp32 accumulation rounds to nearest or truncates:
+// out[0] = 1 + 0.75 ulp and out[1] = -(1 + 0.75 ulp) as the tensor cores
+// sum them (1 + 2^-23 and -(1 + 2^-23) round to nearest; 1 and -1
+// truncate). out: 2 floats on the device; returns a cudaError_t.
+extern "C" int bf16_mma_probe(float* out, void* stream) {
+  gated_hifi::bf16_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(out);
   return (int)cudaGetLastError();
 }

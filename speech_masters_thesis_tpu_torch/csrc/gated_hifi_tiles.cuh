@@ -1,7 +1,8 @@
 // B1's tensor-core tile stages, shared by the forward (gated_hifi_fwd.cu)
 // and the backward's recompute (gated_hifi_bwd.cu): the cp.async staging
-// of k-slices, the 3xTF32 products (tf32_mma.cuh), and the three stages
-// both directions run, in the same order of products:
+// of k-slices, the products (3xTF32, tf32_mma.cuh, for fp32 tensors; one
+// bf16 MMA, bf16_mma.cuh, for bf16 ones), and the three stages both
+// directions run, in the same order of products:
 //   1 expand   a_d   = relu(x Wall_d + ball_d) * m0_d
 //   2 conv     h1_d  = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
 //   3 branch   zp_d  = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d
@@ -23,53 +24,82 @@
 // backward's recompute runs them without (RN cost its tile passes 7%), so
 // its a and h1 may differ from the forward's in the last bits and take the
 // other side of a relu at a near-tie (chip_smoke phase 7 bounds those).
+//
+// The I/O type IO (float or __nv_bfloat16) is a template parameter of every
+// stage, and the weights' type picks the engine. In bf16 (the TPU kernel's
+// bf16 mode) x, the weights, g, out and dx are bf16 in device memory, and
+// so are the buffers the TPU kernel uses only as product operands (a, h1,
+// u): storing them is the TPU kernel's .astype(bf16) at its products. The
+// buffers that feed elementwise work or an fp32 sum (zp and its cotangent
+// dzp, dc, dz, gv) stay fp32 and are rounded to bf16 where a fragment is
+// built. k-slices stage as they are stored; a k-step is m16n8k16, its B
+// fragments by ldmatrix.trans. Accumulation, biases, relu, dropout, the
+// gate and the residual stay fp32; the epilogues' stores round to T.
 #pragma once
 
+#include "bf16_mma.cuh"
 #include "gated_hifi_common.cuh"
 #include "tf32_mma.cuh"
 
 #include <math.h>
+#include <type_traits>
 
 namespace gated_hifi {
 namespace {
 
+using bf16_t = __nv_bfloat16;
+template <class T>
+constexpr bool kBf16 = std::is_same_v<T, bf16_t>;
+
 constexpr int KS = 32;          // channels per k-slice
 constexpr int STAGES = 3;       // k-slices in flight
-constexpr int LDA = KS + 4;     // row stride of an activation slice
 
 template <int BN>
 struct TileShape {
-  static constexpr int LDB = BN + 8;                  // row stride of a weight slice
+  static constexpr int LDB = BN + 8;                  // row stride of a weight slice (elements)
   static constexpr int WARPS_M = BN == 128 ? 2 : 4;   // 8 warps: WARPS_M x (8 / WARPS_M)
   static constexpr int MT = TT / 16 / WARPS_M;        // m16 tiles per warp
-  static constexpr int STAGE_FLOATS = TT * LDA + KS * LDB;
-  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE_FLOATS;
+};
+
+// The staging of a stage's k-slices: TW the weights' type (it picks the
+// engine), TA the activation slice's. Rows padded so that fragment reads
+// fall on distinct banks: 36 floats for 3xTF32's scalar reads, 40 elements
+// for bf16's pair reads.
+template <int BN, class TW, class TA>
+struct Staging {
+  static constexpr int LDA = kBf16<TW> ? KS + 8 : KS + 4;  // row stride of an activation slice
+  static constexpr int A_BYTES = TT * LDA * (int)sizeof(TA);
+  static constexpr int STAGE_BYTES = A_BYTES + KS * TileShape<BN>::LDB * (int)sizeof(TW);
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES;
 };
 
 // One k-slice: 32 channels of an activation buffer (frame t at a + t*lda,
 // read at t + shift, zero outside [0, T)) against 32 rows of a weight
-// matrix (b, rows ldb floats apart).
+// matrix (b, rows ldb elements apart).
+template <class TW, class TA>
 struct Slice {
-  const float* a;
+  const TA* a;
   int lda;
   int shift;
-  const float* b;
+  const TW* b;
   int ldb;
 };
 
-template <int BN>
-__device__ __forceinline__ void load_slice(float* st, const Slice& s, int t0, int T) {
-  float* as = st;
-  float* bs = st + TT * LDA;
-  for (int f = threadIdx.x; f < TT * (KS / 4); f += NT) {
-    const int r = f / (KS / 4), c4 = f % (KS / 4);
+template <int BN, class TW, class TA>
+__device__ __forceinline__ void load_slice(char* st, const Slice<TW, TA>& s, int t0, int T) {
+  using G = Staging<BN, TW, TA>;
+  constexpr int EA = 16 / sizeof(TA), EB = 16 / sizeof(TW);  // elements a 16-byte copy moves
+  TA* as = reinterpret_cast<TA*>(st);
+  TW* bs = reinterpret_cast<TW*>(st + G::A_BYTES);
+  for (int f = threadIdx.x; f < TT * (KS / EA); f += NT) {
+    const int r = f / (KS / EA), c = f % (KS / EA);
     const int t = t0 + r + s.shift;
     const bool in = t >= 0 && t < T;
-    tf32::cp_async16(as + r * LDA + 4 * c4, in ? s.a + (size_t)t * s.lda + 4 * c4 : s.a, in ? 16 : 0);
+    tf32::cp_async16(as + r * G::LDA + EA * c, in ? s.a + (size_t)t * s.lda + EA * c : s.a, in ? 16 : 0);
   }
-  for (int f = threadIdx.x; f < KS * (BN / 4); f += NT) {
-    const int r = f / (BN / 4), c4 = f % (BN / 4);
-    tf32::cp_async16(bs + r * TileShape<BN>::LDB + 4 * c4, s.b + (size_t)r * s.ldb + 4 * c4, 16);
+  for (int f = threadIdx.x; f < KS * (BN / EB); f += NT) {
+    const int r = f / (BN / EB), c = f % (BN / EB);
+    tf32::cp_async16(bs + r * TileShape<BN>::LDB + EB * c, s.b + (size_t)r * s.ldb + EB * c, 16);
   }
 }
 
@@ -87,46 +117,68 @@ struct WarpTile {
   }
 };
 
-// acc += A B over one k-step of 8 from shared memory: A the tile's 64 rows
-// (LDA_ floats a row, from the step's first column), B the step's 8 rows
-// (TileShape<BN>::LDB floats a row)
-template <int BN, int LDA_>
-__device__ __forceinline__ void mma_kstep(float (&acc)[TileShape<BN>::MT][4][4], const float* as,
-                                          const float* bs, const WarpTile<BN>& wt) {
+// acc += A B over one k-step from shared memory (8 deep in 3xTF32, 16 in
+// bf16): A the tile's 64 rows (LDA_ elements a row, from the step's first
+// column), B the step's rows (TileShape<BN>::LDB elements a row)
+template <int BN, int LDA_, class TW, class TA>
+__device__ __forceinline__ void mma_kstep(float (&acc)[TileShape<BN>::MT][4][4], const TA* as,
+                                          const TW* bs, const WarpTile<BN>& wt) {
   using S = TileShape<BN>;
-  tf32::FragA fa[S::MT];
+  if constexpr (kBf16<TW>) {
+    uint32_t fa[S::MT][4];
 #pragma unroll
-  for (int mt = 0; mt < S::MT; ++mt) {
-    const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + wt.qd;
-    fa[mt] = tf32::frag_a(r[0], r[8 * LDA_], r[4], r[8 * LDA_ + 4]);
-  }
+    for (int mt = 0; mt < S::MT; ++mt) bf16::frag_a(fa[mt], as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + 2 * wt.qd, LDA_);
+    // lane l addresses row l % 8 of matrix l / 8: k rows 0-7 / 8-15 of n-tile 2np / 2np + 1
+    const int lane = threadIdx.x & 31, i = lane >> 3;
+    const TW* bl = bs + ((i & 1) * 8 + (lane & 7)) * S::LDB + wt.col0 + 8 * (i >> 1);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const float* c = bs + wt.qd * S::LDB + wt.col0 + 8 * nt + wt.gr;
-    const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      bf16::ldsm_x4_t(r, bl + 16 * np);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+      for (int mt = 0; mt < S::MT; ++mt) {
+        bf16::mma(acc[mt][2 * np], fa[mt], b0);
+        bf16::mma(acc[mt][2 * np + 1], fa[mt], b1);
+      }
+    }
+  } else {
+    tf32::FragA fa[S::MT];
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt) {
+      const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + wt.qd;
+      fa[mt] = tf32::frag_a(r[0], r[8 * LDA_], r[4], r[8 * LDA_ + 4]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* c = bs + wt.qd * S::LDB + wt.col0 + 8 * nt + wt.gr;
+      const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
+    }
   }
 }
 
-// acc += A B over KSTEPS k-steps. RN: each k-step's MMAs go into a part of
+// acc += A B over K channels. RN: each k-step's MMAs go into a part of
 // the tile that starts from zero, which is then added to acc in fp32 (round
-// to nearest), so at most 3 MMAs meet one tensor-core accumulator. The
+// to nearest), so at most 3 MMAs (one in bf16) meet one tensor-core
+// accumulator. The
 // tensor cores' fp32 accumulation truncates each MMA's sum, so with all of
 // a conv output's 432 MMAs in one register the forward's error was 8x the
 // fp32 FMA kernel's on the card, and the VQ-VAE loss's log-magnitude STFT
 // term amplified it into the train step's gradients. The RN k-steps are
 // not unrolled into each other: unrolled, the parts of two k-steps stay
 // live together and spill at two blocks an SM.
-template <int BN, int KSTEPS, int LDA_, bool RN>
-__device__ __forceinline__ void mma_tile(float (&acc)[TileShape<BN>::MT][4][4], const float* as,
-                                         const float* bs, const WarpTile<BN>& wt) {
+template <int BN, int K, int LDA_, bool RN, class TW, class TA>
+__device__ __forceinline__ void mma_tile(float (&acc)[TileShape<BN>::MT][4][4], const TA* as,
+                                         const TW* bs, const WarpTile<BN>& wt) {
   using S = TileShape<BN>;
+  constexpr int KSTEP = kBf16<TW> ? 16 : 8, KSTEPS = K / KSTEP;
   if (RN) {
 #pragma unroll 1
     for (int kk = 0; kk < KSTEPS; ++kk) {
       float part[S::MT][4][4] = {};
-      mma_kstep<BN, LDA_>(part, as + 8 * kk, bs + 8 * kk * S::LDB, wt);
+      mma_kstep<BN, LDA_>(part, as + KSTEP * kk, bs + KSTEP * kk * S::LDB, wt);
 #pragma unroll
       for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
@@ -136,30 +188,31 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TileShape<BN>::MT][4][4], 
     }
   } else {
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) mma_kstep<BN, LDA_>(acc, as + 8 * kk, bs + 8 * kk * S::LDB, wt);
+    for (int kk = 0; kk < KSTEPS; ++kk) mma_kstep<BN, LDA_>(acc, as + KSTEP * kk, bs + KSTEP * kk * S::LDB, wt);
   }
 }
 
-// acc += sum over the n slices slice_of(0 .. n-1), in slice order; RN as
-// for mma_tile
-template <int BN, bool RN, class F>
-__device__ __forceinline__ void gemm(float (&acc)[TileShape<BN>::MT][4][4], float* smem, int n, int t0,
+// acc += sum over the n slices slice_of(0 .. n-1) (Slice<TW, TA>), in slice
+// order; RN as for mma_tile
+template <int BN, bool RN, class TW, class TA, class F>
+__device__ __forceinline__ void gemm(float (&acc)[TileShape<BN>::MT][4][4], char* smem, int n, int t0,
                                      int T, F slice_of) {
-  using S = TileShape<BN>;
+  using G = Staging<BN, TW, TA>;
   const WarpTile<BN> wt;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n) load_slice<BN>(smem + s * S::STAGE_FLOATS, slice_of(s), t0, T);
+    if (s < n) load_slice<BN>(smem + s * G::STAGE_BYTES, slice_of(s), t0, T);
     tf32::cp_async_commit();
   }
   for (int s = 0; s < n; ++s) {
     tf32::cp_async_wait<STAGES - 2>();
     __syncthreads();  // slice s has landed, and every warp is done with slice s - 1
     if (s + STAGES - 1 < n)
-      load_slice<BN>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE_FLOATS, slice_of(s + STAGES - 1), t0, T);
+      load_slice<BN>(smem + ((s + STAGES - 1) % STAGES) * G::STAGE_BYTES, slice_of(s + STAGES - 1), t0, T);
     tf32::cp_async_commit();
-    const float* as = smem + (s % STAGES) * S::STAGE_FLOATS;
-    mma_tile<BN, KS / 8, LDA, RN>(acc, as, as + TT * LDA, wt);
+    const char* st = smem + (s % STAGES) * G::STAGE_BYTES;
+    mma_tile<BN, KS, G::LDA, RN>(acc, reinterpret_cast<const TA*>(st),
+                                 reinterpret_cast<const TW*>(st + G::A_BYTES), wt);
   }
   tf32::cp_async_wait<0>();
   __syncthreads();  // the staging buffers are free for the next gemm
@@ -184,7 +237,18 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
+// rounds each to nearest even
+__device__ __forceinline__ void st2(bf16_t* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+__device__ __forceinline__ float2 ld2(const bf16_t* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+using bf16::f32;
 
 // 0 or the keep scale of one dropout site (hi: the site before the conv)
 __device__ __forceinline__ float site_keep(uint32_t bits, bool hi, const Dropout& drop) {
@@ -233,11 +297,13 @@ __device__ __forceinline__ void mix(Mix& x, const float* zrow, int depth) {
 // Everything the stages read and write; the buffers are [B, T, depth*H]
 // (a, h1, dzp, dc, dz) or [B, T, W] (u, gv, dx, x, g, out). dzp first
 // receives the branch outputs zp (stage 3); the backward's gate stage turns
-// them into their cotangents in place.
+// them into their cotangents in place. IO: the I/O type (float or bf16).
+template <class IO>
 struct Args {
-  const float *x, *g, *wall, *ball, *ks, *cb, *w1, *b1, *wg, *bg, *wg_t, *w1_t, *ks_t, *wall_t;
+  const IO *x, *g, *wall, *ball, *ks, *cb, *w1, *b1, *wg, *bg, *wg_t, *w1_t, *ks_t, *wall_t;
   const int* lens;
-  float *a, *h1, *dzp, *dc, *dz, *u, *gv, *dx, *out;
+  IO *a, *h1, *u, *dx, *out;
+  float *dzp, *dc, *dz, *gv;
   int T;
   float scale, keep;  // keep: the dropout scale, 1 without dropout
   Branches br;
@@ -245,7 +311,8 @@ struct Args {
 };
 
 #define TILE_PROLOGUE                                        \
-  extern __shared__ __align__(16) float smem[];             \
+  extern __shared__ __align__(16) float smem_f[];           \
+  char* const smem = reinterpret_cast<char*>(smem_f);       \
   const int b = blockIdx.y, d = blockIdx.z;                 \
   const int t0 = blockIdx.x * TT;                           \
   const int T = p.T;                                        \
@@ -255,20 +322,20 @@ struct Args {
   (void)ldw
 
 // 1. a_d = relu(x Wall_d + ball_d) * m0_d
-template <bool RN>
-__global__ void __launch_bounds__(NT, 2) tile_expand_kernel(const Args p) {
+template <bool RN, class IO>
+__global__ void __launch_bounds__(NT, 2) tile_expand_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H, RN>(acc, smem, W / KS, t0, T, [&](int s) {
-    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
+  gemm<H, RN, IO, IO>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice<IO, IO>{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
   });
   const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
   for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
     if (t >= T) return;
     const int n = d * H + c;
-    v0 = fmaxf(v0 + p.ball[n], 0.f);
-    v1 = fmaxf(v1 + p.ball[n + 1], 0.f);
+    v0 = fmaxf(v0 + f32(p.ball[n]), 0.f);
+    v1 = fmaxf(v1 + f32(p.ball[n + 1]), 0.f);
     if (p.drop.threshold) {
       v0 *= site_keep(dropout_bits(key, t, c), true, p.drop);
       v1 *= site_keep(dropout_bits(key, t, c + 1), true, p.drop);
@@ -278,24 +345,24 @@ __global__ void __launch_bounds__(NT, 2) tile_expand_kernel(const Args p) {
 }
 
 // 2. h1_d = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
-template <bool RN>
-__global__ void __launch_bounds__(NT, 2) tile_conv_kernel(const Args p) {
+template <bool RN, class IO>
+__global__ void __launch_bounds__(NT, 2) tile_conv_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   const int k = p.br.k[d], dil = p.br.dil[d], half = (k - 1) / 2;
-  const float* kd = p.ks + p.br.k_off[d];
+  const IO* kd = p.ks + p.br.k_off[d];
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H, RN>(acc, smem, k * (H / KS), t0, T, [&](int s) {
+  gemm<H, RN, IO, IO>(acc, smem, k * (H / KS), t0, T, [&](int s) {
     const int j = s / (H / KS), c = s % (H / KS);
-    return Slice{p.a + row0 * ldw + d * H + KS * c, ldw, (j - half) * dil,
-                 kd + (size_t)j * H * H + (size_t)KS * c * H, H};
+    return Slice<IO, IO>{p.a + row0 * ldw + d * H + KS * c, ldw, (j - half) * dil,
+                       kd + (size_t)j * H * H + (size_t)KS * c * H, H};
   });
   const uint32_t key = p.drop.threshold ? dropout_key(p.drop.seed, b, d) : 0u;
   for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
     if (t >= T) return;
     const int n = d * H + c;
-    v0 = fmaxf(v0 + p.cb[n], 0.f);
-    v1 = fmaxf(v1 + p.cb[n + 1], 0.f);
+    v0 = fmaxf(v0 + f32(p.cb[n]), 0.f);
+    v1 = fmaxf(v1 + f32(p.cb[n + 1]), 0.f);
     if (p.drop.threshold) {
       v0 *= site_keep(dropout_bits(key, t, c), false, p.drop);
       v1 *= site_keep(dropout_bits(key, t, c + 1), false, p.drop);
@@ -305,34 +372,36 @@ __global__ void __launch_bounds__(NT, 2) tile_conv_kernel(const Args p) {
 }
 
 // 3. zp_d = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d, into dzp
-template <bool RN>
-__global__ void __launch_bounds__(NT, 2) tile_branch_kernel(const Args p) {
+template <bool RN, class IO>
+__global__ void __launch_bounds__(NT, 2) tile_branch_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
   float acc[TileShape<H>::MT][4][4] = {};
-  gemm<H, RN>(acc, smem, H / KS, t0, T, [&](int s) {
-    return Slice{p.h1 + row0 * ldw + d * H + KS * s, ldw, 0,
-                 p.w1 + (size_t)d * H * H + (size_t)KS * s * H, H};
+  gemm<H, RN, IO, IO>(acc, smem, H / KS, t0, T, [&](int s) {
+    return Slice<IO, IO>{p.h1 + row0 * ldw + d * H + KS * s, ldw, 0,
+                       p.w1 + (size_t)d * H * H + (size_t)KS * s * H, H};
   });
   for_pairs<H>(acc, [&](int, int c, float& v0, float& v1) {
-    v0 = p.scale * (v0 + p.b1[d * H + c]);
-    v1 = p.scale * (v1 + p.b1[d * H + c + 1]);
+    v0 = p.scale * (v0 + f32(p.b1[d * H + c]));
+    v1 = p.scale * (v1 + f32(p.b1[d * H + c + 1]));
   });
-  gemm<H, RN>(acc, smem, W / KS, t0, T, [&](int s) {
-    return Slice{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
+  gemm<H, RN, IO, IO>(acc, smem, W / KS, t0, T, [&](int s) {
+    return Slice<IO, IO>{p.x + row0 * W + KS * s, W, 0, p.wall + (size_t)KS * s * ldw + d * H, ldw};
   });
   for_pairs<H>(acc, [&](int r, int c, float v0, float v1) {
     const int t = t0 + r;
     if (t >= T) return;
     const int n = d * H + c;
-    st2(p.dzp + (row0 + t) * ldw + n, v0 + p.ball[n], v1 + p.ball[n + 1]);
+    st2(p.dzp + (row0 + t) * ldw + n, v0 + f32(p.ball[n]), v1 + f32(p.ball[n + 1]));
   });
 }
 
-using StageKernel = void (*)(const Args);
+template <class IO>
+using StageKernel = void (*)(const Args<IO>);
 
 // Opts the kernel into `smem` bytes of dynamic shared memory and launches
 // it over (64-frame tiles, B, branches).
-inline cudaError_t launch_stage(StageKernel kernel, size_t smem, const Args& p, int B, int branches,
+template <class IO>
+inline cudaError_t launch_stage(StageKernel<IO> kernel, size_t smem, const Args<IO>& p, int B, int branches,
                                 cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

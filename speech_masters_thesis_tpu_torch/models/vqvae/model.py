@@ -61,7 +61,15 @@ def codec_kwargs(model_cfg: dict) -> dict:
 
 
 class VQVAE(WaveformReconstructionModel):
-    """Codec built from a ``model:`` config dict (see ``configs.VQVAE_TPU``)."""
+    """Codec built from a ``model:`` config dict (see ``configs.VQVAE_TPU``).
+
+    Runs in float32 or, with bfloat16 parameters and audio (the train step's
+    bf16 mode), in bfloat16 as the JAX modules do: the convs and B1's kernels
+    in bf16, the bottleneck's distances, codebook updates and commitment
+    loss and the losses in fp32, the codebook buffers fp32.
+    """
+
+    BF16_TRAINING = True  # B1's kernels have a bf16 mode (train.loop.make_train_step)
 
     def __init__(self, model_cfg: dict):
         super().__init__()

@@ -5,9 +5,21 @@ Counterpart of speech_masters_thesis_tpu/ops/pallas/gated_hifi.py
 (``fused_gated_hifi`` and its custom VJP). The CUDA kernels are
 ``csrc/gated_hifi_fwd.cu`` and ``csrc/gated_hifi_bwd.cu``. For a CUDA tensor
 ``gated_hifi`` runs ``GatedHiFiFunction``, whose forward and backward launch
-them; for a CPU tensor it runs ``gated_hifi_reference``, which CPU autograd
-differentiates. Nothing falls back: a CUDA tensor the kernels do not take
-raises.
+them; for an fp32 CPU tensor it runs ``gated_hifi_reference``, which CPU
+autograd differentiates. Nothing falls back: a CUDA tensor the kernels do
+not take raises.
+
+Two modes, as the TPU kernel's ``dot_dtype`` (the input's dtype) has them.
+fp32: x, the weights and g float32. bf16 (the JAX package's mixed-precision
+training): x, every weight and g bfloat16, and each product's operands
+rounded to bf16 exactly where the TPU kernel calls ``.astype(dot_dtype)``,
+the products summed in fp32, everything between them (biases, relu,
+dropout, the gate, the residual) fp32; out and dx are stored in bf16, the
+weight gradients summed in fp32 and cast to bf16 once. The bf16 kernels
+take res_scale 1 only (every shipped config's). A bf16 CPU tensor runs
+``GatedHiFiFunction`` too, whose forward and backward are then the plain
+versions: autograd through the rounded plain forward would round the
+cotangents where the TPU kernel's backward does not.
 
 Semantics every version keeps:
   * the input arrives pre-masked (``x * mask``);
@@ -45,7 +57,8 @@ MASK_KEY_DEPTH = 8
 
 @dataclass(frozen=True)
 class GatedHiFiWeights:
-    """One block's weights in the kernel's layout (all float32).
+    """One block's weights in the kernel's layout, all of one dtype (float32,
+    or bfloat16 in the bf16 mode; float64 on the CPU's plain path).
 
     wall [W, depth*H] and ball [depth*H]: the branch 1x1 expands side by side.
     ks[d] [k_d, H, H]: branch d's dilated conv as (tap, in, out); cb [depth, H]
@@ -144,12 +157,45 @@ def branch_masks(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int,
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def _branches(x: torch.Tensor, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int):
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Rounds to bf16 (nearest even, as XLA's astype) and back to fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _check_dtypes(x: torch.Tensor, w: GatedHiFiWeights, g: torch.Tensor | None = None) -> None:
+    """x, every weight (and g) share one dtype."""
+    for name, t in {**w.tensors(), **({} if g is None else {"g": g})}.items():
+        if t.dtype != x.dtype:
+            raise ValueError(f"gated_hifi: {name} is {t.dtype} but x is {x.dtype}: x, every weight and g "
+                             "share one dtype (float32 or bfloat16)")
+
+
+def _operands(x: torch.Tensor, w: GatedHiFiWeights):
+    """(round, x, w) for the plain versions: in bf16 mode x and w in fp32 and
+    ``round`` rounding a product operand to bf16; otherwise as they are and
+    no rounding. A product of two bf16 values is exact in fp32, so an fp32
+    product of rounded operands is the TPU kernel's bf16 x bf16 -> f32 dot
+    up to the order of its sums (a bf16 torch.matmul would round its output
+    too)."""
+    _check_dtypes(x, w)
+    if x.dtype != torch.bfloat16:
+        return _same, x, w
+    wf = _weights_from({k: v.to(torch.float32) for k, v in w.tensors().items()}, w.dilations)
+    return _to_bf16, x.to(torch.float32), wf
+
+
+def _branches(x: torch.Tensor, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int,
+              rnd=_same):
     """Per branch of the plain forward: (a, h1, zp) with a = relu(z)*m0 (the
-    conv input), h1 = relu(c)*m1 (the 1x1 input) and zp = z + scale*h."""
+    conv input), h1 = relu(c)*m1 (the 1x1 input) and zp = z + scale*h;
+    ``rnd`` rounds the product operands (``_operands``)."""
     B, T, W = x.shape
     H = 2 * W
-    z_all = x @ w.wall + w.ball                               # [B, T, depth*H]
+    z_all = rnd(x) @ rnd(w.wall) + w.ball                     # [B, T, depth*H]
     out = []
     for d, (kernel, dil) in enumerate(zip(w.ks, w.dilations)):
         z = z_all[..., d * H:(d + 1) * H]
@@ -158,12 +204,12 @@ def _branches(x: torch.Tensor, w: GatedHiFiWeights, res_scale: float, p_drop: fl
             m0, m1 = branch_masks(seed, B, d, 0, T, H, p_drop, x.device)
             a = a * m0
         k = kernel.shape[0]
-        c = F.conv1d(a.transpose(1, 2), kernel.permute(2, 1, 0), w.cb[d],
+        c = F.conv1d(rnd(a).transpose(1, 2), rnd(kernel).permute(2, 1, 0), w.cb[d],
                      padding=(k - 1) // 2 * dil, dilation=dil).transpose(1, 2)
         h1 = torch.relu(c)
         if p_drop > 0.0:
             h1 = h1 * m1
-        out.append((a, h1, z + res_scale * (h1 @ w.w1[d] + w.b1[d])))
+        out.append((a, h1, z + res_scale * (rnd(h1) @ rnd(w.w1[d]) + w.b1[d])))
     return out
 
 
@@ -190,24 +236,31 @@ def gated_hifi_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeight
     """Plain PyTorch GatedHiFi block forward.
 
     x: [B, T, W] pre-masked input; lens: [B] int valid lengths; dropout at
-    rate ``p_drop`` with the masks of ``seed``. Returns [B, T, W], zero past
-    ``min(T, lens[b])``.
+    rate ``p_drop`` with the masks of ``seed``. Returns [B, T, W] in x's
+    dtype, zero past ``min(T, lens[b])``. bf16: the products' operands
+    rounded as the TPU kernel rounds them, the rest fp32, the output rounded.
     """
     B, T, W = x.shape
     keep_threshold(p_drop)  # validates p_drop
-    u, _, _ = _gate([zp for *_, zp in _branches(x, w, res_scale, p_drop, seed)], W)
-    out = x + res_scale * (u @ w.wg + w.bg)
+    rnd, xf, wf = _operands(x, w)
+    u, _, _ = _gate([zp for *_, zp in _branches(xf, wf, res_scale, p_drop, seed, rnd)], W)
+    out = xf + res_scale * (rnd(u) @ rnd(wf.wg) + wf.bg)
     valid = torch.arange(T, device=x.device)[None, :] < lens.to(x.device)[:, None]
-    return out * valid[..., None].to(out.dtype)
+    return (out * valid[..., None].to(out.dtype)).to(x.dtype)
 
 
 def gated_hifi_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
                                   g: torch.Tensor, res_scale: float = 1.0, p_drop: float = 0.0,
                                   seed: int = 0) -> Tuple[torch.Tensor, GatedHiFiWeights]:
-    """Plain version of the backward: autograd through ``gated_hifi_reference``.
+    """Plain version of the backward: autograd through ``gated_hifi_reference``
+    (bf16: the TPU kernel's backward formulas with its rounding points,
+    ``backward_buffers_reference`` then ``weight_grad_reduce_reference``).
 
     Returns (dx, the weights' gradients as ``GatedHiFiWeights``).
     """
+    if x.dtype == torch.bfloat16:
+        dx, bufs = backward_buffers_reference(x, lens, w, g, res_scale, p_drop, seed)
+        return dx, weight_grad_reduce_reference(x, bufs, w.kernels, w.dilations, res_scale)
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True) for k, v in w.tensors().items()}
         x_leaf = x.detach().requires_grad_(True)
@@ -226,7 +279,8 @@ def _weights_from(named: Mapping[str, torch.Tensor], dilations: Sequence[int]) -
 @dataclass(frozen=True)
 class BackwardBuffers:
     """What the backward's tile passes leave in device memory for the weight
-    gradients, all [B, T, depth*H] but u and gv ([B, T, W]).
+    gradients, all [B, T, depth*H] but u and gv ([B, T, W]). a, h1 and u
+    (product operands only) have x's dtype, the rest is fp32 in bf16 mode.
 
     a: relu(z)*m0 (the conv input); h1: relu(c)*m1 (the branch 1x1 input);
     dzp: the cotangent of the branch outputs z + scale*h; dc: of the conv
@@ -257,45 +311,61 @@ def _shift_time(a: torch.Tensor, shift: int) -> torch.Tensor:
 
 def backward_buffers_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
                                g: torch.Tensor, res_scale: float = 1.0, p_drop: float = 0.0,
-                               seed: int = 0) -> Tuple[torch.Tensor, BackwardBuffers]:
+                               seed: int = 0, gates: Tuple[torch.Tensor, torch.Tensor] | None = None
+                               ) -> Tuple[torch.Tensor, BackwardBuffers]:
     """Plain version of the backward kernel's tile passes: dx and the
     buffers, by the formulas of csrc/gated_hifi_bwd.cu. With
-    ``weight_grad_reduce_reference`` it gives what autograd gives."""
+    ``weight_grad_reduce_reference`` it gives what autograd gives. bf16: the
+    operands of du, dh1, the transposed conv and dx rounded to bf16 (the TPU
+    kernel's _bwd_kernel), dx and a, h1, u stored in bf16. ``gates`` (a > 0,
+    h1 > 0 as [B, T, depth*H] booleans, e.g. a kernel's own) replaces the
+    relu and dropout decisions the backward takes its gradient at: where a
+    pre-activation lies within rounding of 0 two versions may decide
+    apart, and that element's gradient then differs by a whole term."""
     B, T, W = x.shape
     H = 2 * W
     keep = keep_scale(p_drop)
+    _check_dtypes(x, w, g)
+    rnd, xf, wf = _operands(x, w)
     valid = (torch.arange(T, device=x.device)[None, :] < lens.to(x.device)[:, None])[..., None]
-    g_masked = g * valid.to(g.dtype)
+    g_masked = g.to(xf.dtype) * valid.to(xf.dtype)
     gv = res_scale * g_masked
-    du = gv @ w.wg.t()
-    branches = _branches(x, w, res_scale, p_drop, seed)
+    du = rnd(gv) @ rnd(wf.wg).t()
+    branches = _branches(xf, wf, res_scale, p_drop, seed, rnd)
     u, ps, ths = _gate([zp for *_, zp in branches], W)
     dzps, dcs, dzs = [], [], []
-    for d, ((a, h1, _), kernel, dil) in enumerate(zip(branches, w.ks, w.dilations)):
+    for d, ((a, h1, _), kernel, dil) in enumerate(zip(branches, wf.ks, wf.dilations)):
         p, th = ps[d], ths[d]
+        cols = slice(d * H, (d + 1) * H)
+        on_a, on_h = (a > 0, h1 > 0) if gates is None else (gates[0][..., cols], gates[1][..., cols])
         dzp = torch.cat([du * p * (1 - th * th), du * p * (th - u)], dim=-1)
         # relu(c)*m1 > 0 exactly where c > 0 and the element is kept, and m1 = keep there
-        dc = res_scale * (dzp @ w.w1[d].t()) * (h1 > 0) * keep
+        dc = res_scale * (rnd(dzp) @ rnd(wf.w1[d]).t()) * on_h * keep
         half = (kernel.shape[0] - 1) // 2
-        da = sum(_shift_time(dc, -(j - half) * dil) @ kernel[j].t() for j in range(kernel.shape[0]))
+        da = sum(_shift_time(rnd(dc), -(j - half) * dil) @ rnd(kernel[j]).t() for j in range(kernel.shape[0]))
         dzps.append(dzp)
         dcs.append(dc)
-        dzs.append(dzp + da * (a > 0) * keep)
+        dzs.append(dzp + da * on_a * keep)
     dz = torch.cat(dzs, dim=-1)
-    dx = g_masked + dz @ w.wall.t()
+    dx = g_masked + rnd(dz) @ rnd(wf.wall).t()
     cat = lambda xs: torch.cat(xs, dim=-1)
-    return dx, BackwardBuffers(a=cat([b[0] for b in branches]), h1=cat([b[1] for b in branches]),
-                               dzp=cat(dzps), dc=cat(dcs), dz=dz, u=u, gv=gv)
+    io = lambda t: t.to(x.dtype)
+    return io(dx), BackwardBuffers(a=io(cat([b[0] for b in branches])), h1=io(cat([b[1] for b in branches])),
+                                   dzp=cat(dzps), dc=cat(dcs), dz=dz, u=io(u), gv=gv)
 
 
 def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence[int],
                                  dilations: Sequence[int], res_scale: float = 1.0) -> GatedHiFiWeights:
     """Plain version of the weight-gradient reduction: each gradient is a
     product of two [B*T, .] operands summed over time (one tap at a time
-    for the convs, the conv input shifted by the tap's offset)."""
+    for the convs, the conv input shifted by the tap's offset). bf16: both
+    operands rounded to bf16 (dh = scale * dzp before it rounds, as the TPU
+    kernel's dW1), the sums fp32, each gradient cast to bf16 once."""
     W = x.shape[-1]
     H = 2 * W
-    outer = lambda p, q: torch.einsum("btm,btn->mn", p, q)
+    bf16 = x.dtype == torch.bfloat16
+    rnd = _to_bf16 if bf16 else _same
+    outer = lambda p, q: torch.einsum("btm,btn->mn", rnd(p), rnd(q))
     ks, cbs, w1s, b1s = [], [], [], []
     for d, (k, dil) in enumerate(zip(kernels, dilations)):
         cols = slice(d * H, (d + 1) * H)
@@ -303,25 +373,32 @@ def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels
         half = (k - 1) // 2
         ks.append(torch.stack([outer(_shift_time(a, (j - half) * dil), dc) for j in range(k)]))
         cbs.append(dc.sum(dim=(0, 1)))
-        w1s.append(res_scale * outer(bufs.h1[..., cols], dzp))
-        b1s.append(res_scale * dzp.sum(dim=(0, 1)))
-    return GatedHiFiWeights(
+        dh = res_scale * dzp  # the TPU kernel's dh_c, which rounds as one operand
+        w1s.append(outer(bufs.h1[..., cols], dh))
+        b1s.append(dh.sum(dim=(0, 1)))
+    out = GatedHiFiWeights(
         wall=outer(x, bufs.dz), ball=bufs.dz.sum(dim=(0, 1)), ks=tuple(ks),
         cb=torch.stack(cbs), w1=torch.stack(w1s), b1=torch.stack(b1s),
         wg=outer(bufs.u, bufs.gv), bg=bufs.gv.sum(dim=(0, 1)), dilations=tuple(dilations))
+    return _weights_from({k: v.to(x.dtype) for k, v in out.tensors().items()}, dilations) if bf16 else out
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _check_call(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
-                extra: Mapping[str, torch.Tensor] = {}) -> None:
+                extra: Mapping[str, torch.Tensor] = {}, res_scale: float = 1.0) -> None:
     """Raises on anything the kernels do not take."""
     B, T, W = x.shape
     H = 2 * W
     depth = len(w.ks)
     if torch.cuda.get_device_capability(x.device) != (9, 0):
         raise RuntimeError("gated_hifi: the kernels are built for sm_90a (Hopper)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gated_hifi: x is {x.dtype}; the kernels take float32 or bfloat16")
+    _check_dtypes(x, w, extra.get("g"))
+    if x.dtype == torch.bfloat16 and res_scale != 1.0:
+        raise ValueError(f"gated_hifi: the bf16 kernels take res_scale 1 (every shipped config's), got {res_scale}")
     if W != _build.GATED_HIFI_WIDTH:
         raise ValueError(f"gated_hifi: kernels are built for W={_build.GATED_HIFI_WIDTH}, got W={W}")
     if T < 1 or B < 1:
@@ -333,8 +410,8 @@ def _check_call(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
               **{f"ks.{d}": (k, H, H) for d, k in enumerate(w.kernels)},
               **{name: (B, T, W) for name in extra}}
     for name, t in {"x": x, **w.tensors(), **extra}.items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"gated_hifi: {name} must be a contiguous float32 tensor on {x.device}")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"gated_hifi: {name} must be a contiguous tensor on {x.device}")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"gated_hifi: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x.device or not lens.is_contiguous():
@@ -352,14 +429,17 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _launch_fwd(x, lens, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int) -> torch.Tensor:
-    _check_call(x, lens, w)
+    _check_call(x, lens, w, res_scale=res_scale)
     B, T, W = x.shape
     ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
-    # the stages meet in two [B, T, depth*H] buffers: a (then zp over it) and h1
+    # the stages meet in two [B, T, depth*H] buffers: a (then zp over it, fp32) and h1
+    # (both x's dtype: in bf16 a takes the first half of the first buffer's bytes)
     a = torch.empty(B, T, len(w.ks) * 2 * W, device=x.device, dtype=torch.float32)
-    h1 = torch.empty_like(a)
+    h1 = torch.empty_like(a, dtype=x.dtype)
     out = torch.empty_like(x)
-    rc = _build.build().gated_hifi_fwd(
+    lib = _build.build()
+    launch = lib.gated_hifi_fwd_bf16 if x.dtype == torch.bfloat16 else lib.gated_hifi_fwd
+    rc = launch(
         x.data_ptr(), lens.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(),
         w.wg.data_ptr(), w.bg.data_ptr(), a.data_ptr(), h1.data_ptr(), out.data_ptr(),
@@ -367,7 +447,10 @@ def _launch_fwd(x, lens, w: GatedHiFiWeights, res_scale: float, p_drop: float, s
         seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gated_hifi_fwd launch failed with cudaError {rc}")
-    gated_hifi.launches += 1
+    if x.dtype == torch.bfloat16:
+        gated_hifi.bf16_launches += 1
+    else:
+        gated_hifi.launches += 1
     return out
 
 
@@ -387,20 +470,22 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
     """dx and the ``BackwardBuffers`` of the cotangent ``g``.
 
     A CUDA tensor launches the tile passes of ``csrc/gated_hifi_bwd.cu``
-    (seven 3xTF32 tensor-core stages that meet in these buffers), which
-    recompute the forward from x and the seed; ``backward_buffers.launches``
-    counts launches. A CPU tensor runs ``backward_buffers_reference``.
+    (seven tensor-core stages that meet in these buffers, 3xTF32 in fp32 and
+    bf16 MMAs in bf16), which recompute the forward from x and the seed;
+    ``backward_buffers.launches`` counts fp32 launches, ``.bf16_launches``
+    bf16 ones. A CPU tensor runs ``backward_buffers_reference``.
     """
     if x.device.type == "cpu":
         return backward_buffers_reference(x, lens, w, g, res_scale, p_drop, seed)
     if x.device.type != "cuda":
         raise ValueError(f"backward_buffers: unsupported device {x.device}")
-    _check_call(x, lens, w, {"g": g})
+    _check_call(x, lens, w, {"g": g}, res_scale)
     B, T, W = x.shape
     H, depth = 2 * W, len(w.ks)
-    wide = lambda: torch.empty(B, T, depth * H, device=x.device, dtype=torch.float32)
-    bufs = BackwardBuffers(a=wide(), h1=wide(), dzp=wide(), dc=wide(), dz=wide(),
-                           u=torch.empty_like(x), gv=torch.empty_like(x))
+    wide = lambda dtype: torch.empty(B, T, depth * H, device=x.device, dtype=dtype)
+    f32 = torch.float32
+    bufs = BackwardBuffers(a=wide(x.dtype), h1=wide(x.dtype), dzp=wide(f32), dc=wide(f32), dz=wide(f32),
+                           u=torch.empty_like(x), gv=torch.empty_like(x, dtype=f32))
     # transposed weights: each product of the backward reads its operand
     # along rows, as the forward's do
     ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
@@ -409,7 +494,9 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
     wg_t = w.wg.t().contiguous()
     wall_t = w.wall.t().contiguous()
     dx = torch.empty_like(x)
-    rc = _build.build().gated_hifi_bwd(
+    lib = _build.build()
+    launch = lib.gated_hifi_bwd_bf16 if x.dtype == torch.bfloat16 else lib.gated_hifi_bwd
+    rc = launch(
         x.data_ptr(), lens.data_ptr(), g.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), wg_t.data_ptr(),
         w1_t.data_ptr(), ks_t.data_ptr(), wall_t.data_ptr(),
@@ -419,7 +506,10 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
         seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gated_hifi_bwd launch failed with cudaError {rc}")
-    backward_buffers.launches += 1
+    if x.dtype == torch.bfloat16:
+        backward_buffers.bf16_launches += 1
+    else:
+        backward_buffers.launches += 1
     return dx, bufs
 
 
@@ -429,37 +519,48 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
 
     A CUDA tensor launches the split-over-frames reduction of
     ``csrc/gated_hifi_bwd.cu`` (per-block partial sums over a slice of the
-    B*T frames, 3xTF32 tensor-core products with the frames as their depth,
-    then a second pass that adds the slices in a fixed order: no float
-    atomics, so equal inputs give bitwise-equal gradients); a CPU
+    B*T frames, tensor-core products with the frames as their depth, 3xTF32
+    in fp32 and bf16 MMAs in bf16, then a second pass that adds the slices
+    in a fixed order: no float atomics, so equal inputs give bitwise-equal
+    gradients; in bf16 each gradient is rounded once, there); a CPU
     tensor runs ``weight_grad_reduce_reference``. ``weight_grad_reduce.launches``
-    counts launches.
+    counts fp32 launches, ``.bf16_launches`` bf16 ones.
     """
     if x.device.type == "cpu":
         return weight_grad_reduce_reference(x, bufs, kernels, dilations, res_scale)
     B, T, W = x.shape
     H, depth = 2 * W, len(kernels)
+    bf16 = x.dtype == torch.bfloat16
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"weight_grad_reduce: x must be contiguous float32 or bfloat16, got {x.dtype}")
+    if bf16 and res_scale != 1.0:
+        raise ValueError(f"weight_grad_reduce: the bf16 kernels take res_scale 1, got {res_scale}")
     for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv"):
         t = getattr(bufs, name)
         want = (B, T, W) if name in ("u", "gv") else (B, T, depth * H)
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.shape != want:
-            raise ValueError(f"weight_grad_reduce: {name} must be contiguous float32 {want} on {x.device}")
+        dtype = x.dtype if name in ("a", "h1", "u") else torch.float32
+        if t.dtype != dtype or not t.is_contiguous() or t.device != x.device or t.shape != want:
+            raise ValueError(f"weight_grad_reduce: {name} must be contiguous {dtype} {want} on {x.device}")
     lib = _build.build()
-    n_split = lib.gated_hifi_wgrad_splits(B * T, depth, _ints(kernels))
+    n_split = lib.gated_hifi_wgrad_splits(B * T, depth, _ints(kernels), int(bf16))
     if n_split < 1:
         raise RuntimeError("gated_hifi_wgrad_splits failed")
     partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
                            device=x.device, dtype=torch.float32)
     sizes = [W * depth * H, depth * H, sum(kernels) * H * H, depth * H, depth * H * H, depth * H, W * W, W]
-    flat = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
-    rc = lib.gated_hifi_wgrad(
+    flat = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
+    launch = lib.gated_hifi_wgrad_bf16 if bf16 else lib.gated_hifi_wgrad
+    rc = launch(
         x.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
         bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), partials.data_ptr(),
         flat.data_ptr(), B, T, W, depth, _ints(kernels), _ints(dilations), float(res_scale),
         n_split, _stream(x))
     if rc != 0:
         raise RuntimeError(f"gated_hifi_wgrad launch failed with cudaError {rc}")
-    weight_grad_reduce.launches += 1
+    if bf16:
+        weight_grad_reduce.bf16_launches += 1
+    else:
+        weight_grad_reduce.launches += 1
     wall, ball, ks, cb, w1, b1, wg, bg = torch.split(flat, sizes)
     ks = torch.split(ks, [k * H * H for k in kernels])
     return GatedHiFiWeights(
@@ -469,9 +570,11 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
 
 
 class GatedHiFiFunction(torch.autograd.Function):
-    """The block on the card: forward kernel, and a backward that saves only
-    x, lens, the weights and the seed and recomputes the rest in the
-    backward kernel (as the TPU kernel's custom VJP does)."""
+    """The block with the TPU kernel's custom VJP: a backward that saves only
+    x, lens, the weights and the seed and recomputes the rest. On the card
+    the forward and backward kernels; for a CPU tensor (bf16 mode) the plain
+    versions. dx comes back in x's dtype, the weight gradients in the
+    weights'."""
 
     @staticmethod
     def forward(ctx, x, lens, dilations, res_scale, p_drop, seed,
@@ -479,6 +582,8 @@ class GatedHiFiFunction(torch.autograd.Function):
         w = GatedHiFiWeights(wall, ball, tuple(ks), cb, w1, b1, wg, bg, tuple(dilations))
         ctx.save_for_backward(x, lens, wall, ball, cb, w1, b1, wg, bg, *ks)
         ctx.meta = (tuple(dilations), res_scale, p_drop, seed)
+        if x.device.type == "cpu":
+            return gated_hifi_reference(x, lens, w, res_scale, p_drop, seed)
         return _launch_fwd(x, lens, w, res_scale, p_drop, seed)
 
     @staticmethod
@@ -496,21 +601,25 @@ def gated_hifi(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
     """GatedHiFi block forward; same contract as ``gated_hifi_reference``.
 
     A CUDA tensor runs ``GatedHiFiFunction`` (``csrc/gated_hifi_fwd.cu``:
-    four 3xTF32 tensor-core stages that meet in two scratch buffers of
-    [B, T, depth*2W], allocated by its wrapper; differentiable through
-    ``gated_hifi_backward``), and anything the kernels do not take raises.
-    A CPU tensor runs the plain version. ``gated_hifi.launches`` counts
-    forward kernel launches.
+    four tensor-core stages, 3xTF32 for fp32 tensors and bf16 MMAs for bf16
+    ones, that meet in two scratch buffers of [B, T, depth*2W], allocated by
+    its wrapper; differentiable through ``gated_hifi_backward``), and
+    anything the kernels do not take raises. An fp32 (or fp64) CPU tensor
+    runs the plain version, which autograd differentiates; a bf16 CPU tensor
+    runs ``GatedHiFiFunction`` over the plain versions (the TPU kernel's
+    backward rounding). ``gated_hifi.launches`` counts fp32 forward kernel
+    launches, ``gated_hifi.bf16_launches`` bf16 ones.
     """
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and x.dtype != torch.bfloat16:
         return gated_hifi_reference(x, lens, w, res_scale, p_drop, seed)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gated_hifi: unsupported device {x.device}")
     keep_threshold(p_drop)
     return GatedHiFiFunction.apply(x, lens, w.dilations, float(res_scale), float(p_drop), int(seed),
                                    w.wall, w.ball, w.cb, w.w1, w.b1, w.wg, w.bg, *w.ks)
 
 
-gated_hifi.launches = 0
-backward_buffers.launches = 0
-weight_grad_reduce.launches = 0
+# launches of the fp32 kernels and of the bf16 ones
+gated_hifi.launches = gated_hifi.bf16_launches = 0
+backward_buffers.launches = backward_buffers.bf16_launches = 0
+weight_grad_reduce.launches = weight_grad_reduce.bf16_launches = 0

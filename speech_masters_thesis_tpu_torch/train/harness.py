@@ -11,6 +11,8 @@ weight norm's g = ||v||, a QR rotation per InvConvNear, zeros where the JAX
 package has zeros). For the VQ-VAE it then runs the bottleneck's lazy
 codebook init on a first batch, so the codebook starts from real encodings.
 ``maybe_ddi_init`` is train.py's data-dependent init of Glow-TTS's ActNorms.
+``make_train_step_for`` builds the train step from a config's ``train:``
+settings (``configs.TRAIN``'s defaults), as train.py passes ``--bf16`` on.
 ``get_model`` builds on the card unless the caller passes a device. The data
 loaders, the CLI, checkpoints and the epoch loop are not ported.
 """
@@ -18,11 +20,12 @@ loaders, the CLI, checkpoints and the epoch loop are not ported.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
+from speech_masters_thesis_tpu_torch import configs
 from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
 from speech_masters_thesis_tpu_torch.models.glow_tts import attention as glow_attention
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
@@ -30,6 +33,7 @@ from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention
 from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
+from speech_masters_thesis_tpu_torch.train.loop import make_train_step
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
 from speech_masters_thesis_tpu_torch.utils.registry import resolve_model
 
@@ -56,6 +60,14 @@ def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None,
     if getattr(resolve_model(config["model"]["_import_"]), "USES_DATASET_CONFIG", False):
         kwargs["dataset_config"] = dict(config["dataset"])
     return _get_model(dict(config["model"]), device=device, **kwargs)
+
+
+def make_train_step_for(config: Mapping, schedule: Callable[[int], float], ema_mu: float) -> Callable:
+    """The train step of a config's ``train:`` section (``ema``,
+    ``grad_clip_norm``, ``bf16``; ``configs.TRAIN`` fills what it leaves
+    out), as train.py builds it from its flags."""
+    train = {**configs.TRAIN, **config.get("train", {})}
+    return make_train_step(schedule, ema_mu, bool(train["ema"]), train["grad_clip_norm"], bf16=bool(train["bf16"]))
 
 
 def _lecun_truncated(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:

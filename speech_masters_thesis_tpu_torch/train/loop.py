@@ -14,7 +14,16 @@ returns its scalars as device tensors with ``finite``; nothing syncs with
 the host except a codebook's lazy-init check, on the first step that runs
 it (``BottleneckBlock.init_seen``). The val step runs the model's
 ``supervised_step`` in eval mode with the EMA parameters, so it
-evaluates any task. fp32 only: the JAX step's bf16 path needs bf16 kernels.
+evaluates any task, in fp32 (the JAX package's val step has no bf16).
+
+``make_train_step(..., bf16=True)`` is the JAX step's mixed precision
+(``_to_bf16``, train.py's ``--bf16``): the forward runs on a bf16 compute
+copy of every float32 parameter and of every float32 tensor of the batch,
+made inside the graph (``functional_call``), so the gradients land in the
+float32 masters, on which the clip, the optimizer and the parameter EMA
+run. Buffers (the VQ codebook) keep their dtype, and the loss is taken in
+fp32. Only models whose kernels have a bf16 mode take it
+(``BF16_TRAINING``: the VQ-VAE); the others raise.
 """
 
 from __future__ import annotations
@@ -44,9 +53,15 @@ def step_generators(seed: int, step: int, device: torch.device) -> Dict[str, tor
             "device_dropout": torch.Generator(device=device).manual_seed(int(device_seed))}
 
 
+def _to_bf16(t):
+    """A float32 tensor's bfloat16 copy (differentiable); anything else as it is."""
+    return t.to(torch.bfloat16) if torch.is_tensor(t) and t.dtype == torch.float32 else t
+
+
 def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bool,
-                    grad_clip_norm: Optional[float] = None) -> Callable:
-    """Builds the train step: (state, batch, seed) -> scalars; updates ``state``."""
+                    grad_clip_norm: Optional[float] = None, bf16: bool = False) -> Callable:
+    """Builds the train step: (state, batch, seed) -> scalars; updates ``state``.
+    ``bf16``: the forward in bfloat16 over fp32 masters (module docstring)."""
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int):
         model, opt = state.model, state.optimizer
@@ -55,8 +70,18 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
         for group in opt.param_groups:
             group["lr"] = schedule(state.step)
         opt.zero_grad(set_to_none=True)
-        loss_dict, metrics = model.supervised_step(batch, train=True, generators=generators)
-        loss_dict["loss"].backward()
+        if bf16:
+            if not getattr(model, "BF16_TRAINING", False):
+                raise NotImplementedError(
+                    f"bf16 training of {type(model).__name__} is not ported: its kernels have no bf16 mode yet "
+                    "(B1's has: the VQ-VAE trains in bf16)")
+            compute = {f"model.{name}": _to_bf16(p) for name, p in model.named_parameters()}
+            loss_dict, metrics = functional_call(
+                _SupervisedStep(model), compute, ({k: _to_bf16(v) for k, v in batch.items()}, True),
+                {"generators": generators})
+        else:
+            loss_dict, metrics = model.supervised_step(batch, train=True, generators=generators)
+        loss_dict["loss"].to(torch.float32).backward()
         if grad_clip_norm:
             clip_by_global_norm([p.grad for p in model.parameters()], grad_clip_norm)
         opt.step()
@@ -79,8 +104,9 @@ class _SupervisedStep(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch: Mapping[str, torch.Tensor], train: bool):  # pylint: disable=arguments-differ
-        return self.model.supervised_step(batch, train=train)
+    def forward(self, batch: Mapping[str, torch.Tensor], train: bool,  # pylint: disable=arguments-differ
+                generators: Optional[Mapping[str, torch.Generator]] = None):
+        return self.model.supervised_step(batch, train=train, generators=generators)
 
 
 def make_val_step(use_ema: bool) -> Callable:
