@@ -395,9 +395,15 @@ BF16_FLIP_RTOL = 2.0 ** -9
 BF16_SUM_RTOL = 2.0 ** -7
 BF16_TRAIN_ROUNDS = 8          # after one step of each: 8 more of each in turns
 BF16_SUBSET = (2, 11008)       # the card-vs-CPU bf16 step's batch and samples
+BF16_DATA_SEED = 9             # its audio (bf16_seeds.py runs others)
 BF16_SGD = {"name": "sgd", "lr": 1e-3, "momentum": 0.0, "weight_decay": 0.0}
 BF16_LOSS_RTOL = 2.0 ** -8     # card vs CPU bf16 step losses
 BF16_VS_CPU_MULTIPLE = 2       # the card's bf16 update error against fp64, within this x the CPU bf16 step's (0.6x measured)
+# phase 37 without the log-magnitude STFT term: the card's bf16 update error against fp64 within
+# this x the CPU bf16 step's (median, all parameters, worst parameter); 0.81-2.03x measured over
+# data seeds 9-16, 1.22-1.27x at seed 9. The control, the card's update made 20% too large, must fail it
+BF16_LIN_MULTIPLE = 2.5
+BF16_CONTROL_SCALE = 1.2
 
 
 def require(ok: bool, what: str) -> None:
@@ -2994,7 +3000,7 @@ def phase_bf16_backward(device, card: str) -> dict:
     seed = 12345
     out = {"dx_err": 0.0, "red_err": 0.0, "share": 1.0}
     sums = dict.fromkeys(("tiles", "tiles_call", "tiles_plain", "red", "red_call", "red_plain", "red_mm"), 0.0)
-    work = {"tiles": [0, 0], "red": [0, 0]}
+    work = {"tiles": [0, 0], "red": [0, 0], "buffers": 0}
     for p in (0.0, P_DROP):
         for i, T in enumerate(BLOCK_TS):
             x, lens, _, g = block_inputs(T, BATCH, 200 + i, device)
@@ -3023,12 +3029,17 @@ def phase_bf16_backward(device, card: str) -> dict:
             times = ""
             if p == P_DROP:
                 frames_flops = BATCH * T * block_flops_per_frame(w)
+                w_bytes = 2 * sum(t.numel() for t in w.tensors().values())
                 buf_bytes = sum(getattr(bufs_r, f).numel() * getattr(bufs_r, f).element_size()
                                 for f in ("a", "h1", "dzp", "dc", "dz", "u", "gv"))
+                # the VJP's own bytes: the tile passes read x, g and the
+                # weights and write dx; the reduction reads x and g and
+                # writes the weight gradients
                 work["tiles"][0] += 2 * frames_flops
-                work["tiles"][1] += 2 * 3 * x.numel() + buf_bytes
+                work["tiles"][1] += 2 * 3 * x.numel() + w_bytes
                 work["red"][0] += frames_flops
-                work["red"][1] += 2 * x.numel() + buf_bytes + 2 * sum(t.numel() for t in w.tensors().values())
+                work["red"][1] += 2 * 2 * x.numel() + w_bytes
+                work["buffers"] += buf_bytes
                 mm = wgrad_mm_calls(x, bufs_r, w.kernels, w.dilations, bf16=True)
                 t_ = {"tiles": device_ms(lambda: gh.backward_buffers(*args)),
                       "tiles_call": cuda_ms(lambda: gh.backward_buffers(*args), reps=5, warmup=1),
@@ -3070,11 +3081,20 @@ def phase_bf16_backward(device, card: str) -> dict:
                red_call_ms=sums["red_call"], red_plain_ms=sums["red_plain"], red_library_ms=sums["red_mm"])
     out["bound_ms"], out["bound_by"] = bf16_bound(*work["tiles"])
     out["red_bound_ms"], out["red_bound_by"] = bf16_bound(*work["red"])
+    # the port's own buffers between the two (written by the tile passes,
+    # read by the reduction), which the TPU kernel's VJP does not store: a
+    # bound of this design, not of the function
+    out["bound_buffers_ms"] = bf16_bound(work["tiles"][0], work["tiles"][1] + work["buffers"])[0]
+    out["red_bound_buffers_ms"] = bf16_bound(work["red"][0], work["red"][1] + work["buffers"])[0]
     print(f"[bf16 backward] p={P_DROP} sums over the {len(BLOCK_TS)} block shapes: tile passes {sums['tiles']:.3f} ms "
           f"over {DEVICE_REPS} back-to-back calls ({sums['tiles_call']:.3f} a call, plain {sums['tiles_plain']:.3f}), "
-          f"bound {out['bound_ms']:.3f} ms by {out['bound_by']}; reduction {sums['red']:.3f} ms ({sums['red_call']:.3f} "
-          f"a call, plain {sums['red_plain']:.3f}), bound {out['red_bound_ms']:.3f} ms by {out['red_bound_by']}, its "
-          f"products as bf16 torch.mm with fp32 outputs {sums['red_mm']:.3f} ms [{card}]")
+          f"bound {out['bound_ms']:.3f} ms by {out['bound_by']} ({work['tiles'][0] / 1e9:.1f} GFLOP, "
+          f"{work['tiles'][1] / 1e6:.1f} MB); reduction {sums['red']:.3f} ms ({sums['red_call']:.3f} a call, plain "
+          f"{sums['red_plain']:.3f}), bound {out['red_bound_ms']:.3f} ms by {out['red_bound_by']} "
+          f"({work['red'][0] / 1e9:.1f} GFLOP, {work['red'][1] / 1e6:.1f} MB), its products as bf16 torch.mm with "
+          f"fp32 outputs {sums['red_mm']:.3f} ms; counting the port's buffers between them too "
+          f"({work['buffers'] / 1e6:.1f} MB): tile passes {out['bound_buffers_ms']:.3f} ms, reduction "
+          f"{out['red_bound_buffers_ms']:.3f} ms [{card}]")
     return out
 
 
@@ -3140,20 +3160,30 @@ def phase_bf16_train(device, card: str) -> dict:
         raise_if_not_finite(scalars, state.step)
         losses[name].append(float(scalars["loss"]))
 
+    state16 = runs["bf16"][0]
+    bn16 = state16.model.bottleneck.level_blocks[0]
+    params0 = {k: v.detach().clone() for k, v in state16.params.items()}
+    ema0 = {k: v.clone() for k, v in state16.ema_params.items()}
+    k0 = bn16.k.clone()
     zero_b1_counts()
     order = ["bf16", "fp32"] + ["bf16", "fp32", "fp32", "bf16"] * (BF16_TRAIN_ROUNDS // 2)
     for name in order:
         run(name)
     counts = bf16_counts()
-    state16 = runs["bf16"][0]
+    moved = sum(not torch.equal(p.detach(), params0[k]) for k, p in state16.params.items())
+    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state16.ema_params.items())
+    dk = (bn16.k - k0).abs().max().item()
+    del params0, ema0, k0
     kernel_ms, wall_ms = busy_share(lambda: runs["bf16"][1](state16, batch, TRAIN_SEED))
     medians = {n: statistics.median(t[1:]) for n, t in times.items()}
     fps = {n: BATCH * SAMPLES / HOP / (m / 1e3) for n, m in medians.items()}
     masters = all(p.dtype == torch.float32 for p in state16.params.values())
-    codebook = state16.model.bottleneck.level_blocks[0].k.dtype == torch.float32
+    codebook = bn16.k.dtype == torch.float32
     print(f"[bf16 train] B={BATCH} x {SAMPLES} samples, vqvae_tpu, dropout {P_DROP}, AdamW + codebook EMA + parameter "
           f"EMA: bf16 step losses {[round(l, 6) for l in losses['bf16']]}, fp32 step losses "
-          f"{[round(l, 6) for l in losses['fp32']]}; masters fp32 {masters}, codebook fp32 {codebook}")
+          f"{[round(l, 6) for l in losses['fp32']]}; masters fp32 {masters}, codebook fp32 {codebook}; over the "
+          f"{len(times['bf16'])} bf16 steps {moved}/{len(state16.params)} masters and {ema_moved}/"
+          f"{len(state16.ema_params)} EMA parameters moved, codebook k moved by up to {dk:.3e}")
     print(f"[bf16 train] launches per step (fp32 fwd, bwd, red, bf16 fwd, bwd, red): bf16 step {per_step['bf16']}; "
           f"fp32 step {per_step['fp32']}")
     print(f"[bf16 train] in turns (bf16, fp32, then fp32, bf16, bf16, fp32, ...): bf16 step ms "
@@ -3171,60 +3201,132 @@ def phase_bf16_train(device, card: str) -> dict:
     require(all(s_ == (14, 14, 14, 0, 0, 0) for s_ in per_step["fp32"]),
             f"fp32 launches per step {per_step['fp32']} != (14, 14, 14, 0, 0, 0)")
     require(masters and codebook, "the bf16 step changed the masters' or the codebook's dtype")
+    require(moved == len(state16.params), f"only {moved}/{len(state16.params)} masters moved in the bf16 steps")
+    require(ema_moved == len(state16.ema_params),
+            f"only {ema_moved}/{len(state16.ema_params)} EMA parameters moved in the bf16 steps")
+    require(dk > 0, "the codebook did not change in the bf16 steps")
     require(all(np.isfinite(l) for l in losses["bf16"]), "a bf16 loss is not finite")
     return {"fwd": counts[0], "bwd": counts[1], "red": counts[2], "step_ms": medians["bf16"]}
 
 
-def phase_bf16_train_vs_cpu(device, card: str) -> None:
-    """One bf16 train step on the card and one on the CPU (plain path), each
-    against the same step in fp64 on the CPU, on a 2 x 11008 subset, dropout
-    0, revival off, SGD (so a parameter's update is lr times its gradient and
-    the parameters after the step carry the gradient's error). The card's
-    relative error of the update (median over parameters, and over all of
-    them at once) must be within BF16_VS_CPU_MULTIPLE of the CPU's."""
+def bf16_updates(device, seed: int, log_stft: bool, names: tuple) -> dict:
+    """name -> (scalars, update) of one SGD step from one start on a 2 x 11008
+    subset (dropout 0, revival off): "cuda" the card's bf16 step, "cuda_fp32"
+    the card's fp32 step, "cpu" the CPU's bf16 step (plain path), "cpu64" the
+    CPU's step in fp64. SGD, so an update is lr times the gradient."""
     batch_n, samples = BF16_SUBSET
     cfg = {**copy.deepcopy(configs.VQVAE_TPU), "p_dropout": 0.0, "revival_threshold": 0.0, "zero_out": False}
-    audio, _ = audio_batch(BATCH, SAMPLES, seed=9)
+    cfg["loss"] = {**cfg["loss"], "log": log_stft}
+    audio, _ = audio_batch(BATCH, SAMPLES, seed=seed)
     other, _ = audio_batch(BATCH, SAMPLES, seed=5)
     x = audio[:batch_n, :samples].contiguous()
     n = torch.tensor([samples, samples - 2005])
-    models = {"cuda": harness.get_model({"model": cfg}, device=device)}
-    harness.init_model_variables(models["cuda"], {"audio": other[:batch_n, :samples], "audio_len": n},
-                                 seed=TRAIN_SEED + 1)
-    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
-    models["cpu64"] = copy.deepcopy(models["cpu"]).double()
-    start = {k: p.detach().cpu().double() for k, p in models["cpu"].named_parameters()}
+    first = harness.get_model({"model": cfg}, device=device)
+    harness.init_model_variables(first, {"audio": other[:batch_n, :samples], "audio_len": n}, seed=TRAIN_SEED + 1)
+    start = {k: p.detach().cpu().double() for k, p in first.named_parameters()}
     out = {}
-    for name, model in models.items():
+    for name in names:
+        model = copy.deepcopy(first).to("cpu" if name.startswith("cpu") else device)
+        if name == "cpu64":
+            model = model.double()
         dev = next(model.parameters()).device
         xx = x.double() if name == "cpu64" else x
         opt, schedule = build_optimizer(model.parameters(), BF16_SGD)
         state = TrainState.create(model, opt, use_ema=False)
-        step = harness.make_train_step_for({"train": {"bf16": name != "cpu64"}}, schedule, default_mu(batch_n, 1))
+        step = harness.make_train_step_for({"train": {"bf16": name in ("cuda", "cpu")}}, schedule,
+                                           default_mu(batch_n, 1))
         scalars = step(state, {"audio": xx.to(dev), "audio_len": n.to(dev)}, TRAIN_SEED)
         out[name] = ({k: float(v) for k, v in scalars.items()},
-                     {k: p.detach().cpu().double() for k, p in model.named_parameters()})
-    ref = {k: v - start[k] for k, v in out["cpu64"][1].items()}
+                     {k: p.detach().cpu().double() - start[k] for k, p in model.named_parameters()})
+        del model, state, opt
+    return out
 
-    def errors(params: dict) -> tuple:
-        per = [((params[k] - start[k] - r).norm() / max(r.norm().item(), 1e-30)).item() for k, r in ref.items()]
-        total = (torch.sqrt(sum(((params[k] - start[k] - r) ** 2).sum() for k, r in ref.items()))
-                 / torch.sqrt(sum((r ** 2).sum() for r in ref.values()))).item()
-        return statistics.median(per), total
 
-    errs = {name: errors(out[name][1]) for name in ("cuda", "cpu")}
-    print(f"[bf16 vs cpu] {batch_n} x {samples}, p_dropout 0, revival off, SGD: losses card bf16 {out['cuda'][0]}; "
-          f"cpu bf16 {out['cpu'][0]}; cpu fp64 {out['cpu64'][0]}")
-    print(f"[bf16 vs cpu] each bf16 step's update against the fp64 step's, relative L2: card median over "
-          f"{len(ref)} parameters {errs['cuda'][0]:.3e}, all parameters {errs['cuda'][1]:.3e}; cpu bf16 median "
-          f"{errs['cpu'][0]:.3e}, all {errs['cpu'][1]:.3e}; card / cpu {errs['cuda'][0] / errs['cpu'][0]:.3f} and "
-          f"{errs['cuda'][1] / errs['cpu'][1]:.3f} (tol {BF16_VS_CPU_MULTIPLE}) [{card}]")
-    for key in ("loss", "loss_recon", "loss_stft", "loss_commit"):
-        g_, c_ = out["cuda"][0][key], out["cpu"][0][key]
-        require(abs(g_ - c_) <= BF16_LOSS_RTOL * abs(c_), f"bf16 train step {key}: card {g_} cpu {c_}")
+def update_distance(update: dict, ref: dict) -> tuple:
+    """(median over parameters, (worst parameter, its value), all parameters
+    at once) of the relative L2 distance of ``update`` from ``ref``."""
+    per = {k: ((update[k] - r).norm() / max(r.norm().item(), 1e-30)).item() for k, r in ref.items()}
+    worst = max(per, key=per.get)
+    total = (torch.sqrt(sum(((update[k] - r) ** 2).sum() for k, r in ref.items()))
+             / torch.sqrt(sum((r ** 2).sum() for r in ref.values()))).item()
+    return statistics.median(per.values()), (worst, per[worst]), total
+
+
+def bf16_vs_cpu(device, seed: int) -> dict:
+    """Phase 37's readings at one data seed (also ``bf16_seeds.py``'s):
+    the steps' scalars, each bf16 update's distance from fp64's with the
+    model's loss ("full") and without its log-magnitude term ("lin"), the
+    card / CPU ratios and the control's without it, and the card's bf16
+    update against the CPU's."""
+    full = bf16_updates(device, seed, True, ("cuda", "cpu", "cpu64"))
+    errs = {name: update_distance(full[name][1], full["cpu64"][1]) for name in ("cuda", "cpu")}
+    scalars = {f"full_{k}": v[0] for k, v in full.items()}
+    del full
+    lin = bf16_updates(device, seed, False, ("cuda", "cuda_fp32", "cpu", "cpu64"))
+    ref = lin["cpu64"][1]
+    cond = {name: update_distance(lin[name][1], ref) for name in ("cuda", "cpu", "cuda_fp32")}
+    control = update_distance({k: BF16_CONTROL_SCALE * v for k, v in lin["cuda"][1].items()}, ref)
+    direct = update_distance(lin["cuda"][1], lin["cpu"][1])
+
+    def ratios(d: tuple) -> tuple:
+        """(median, all parameters, worst parameter) over the CPU bf16 step's."""
+        return d[0] / cond["cpu"][0], d[2] / cond["cpu"][2], d[1][1] / cond["cpu"][1][1]
+
+    return {"scalars": {**scalars, **{f"lin_{k}": v[0] for k, v in lin.items()}}, "full": errs,
+            "full_ratio": (errs["cuda"][0] / errs["cpu"][0], errs["cuda"][2] / errs["cpu"][2]), "lin": cond,
+            "lin_ratio": ratios(cond["cuda"]), "control_ratio": ratios(control), "direct": direct,
+            "direct_ratio": ratios(direct)}
+
+
+def phase_bf16_train_vs_cpu(device, card: str) -> dict:
+    """The card's bf16 train step against the CPU's, one SGD step each on a
+    2 x 11008 subset, dropout 0, revival off, each held against the same
+    step in fp64 on the CPU.
+
+    (1) The model's loss: the card's error within BF16_VS_CPU_MULTIPLE of the
+    CPU's. Its log-magnitude STFT term makes this a weak check: the gradient
+    weighs each STFT bin by 1/|Y|, a bf16 waveform's small bins are mostly
+    rounding, so a bf16 update is 0.2-1 of its own norm from fp64's.
+    (2) So the same steps again without the log term, where a bf16 update is
+    4-9% from fp64's and an fp32 one 1e-4: the card's error within
+    BF16_LIN_MULTIPLE of the CPU's by median, all parameters and worst
+    parameter; and a control that must fail it, the card's update made
+    BF16_CONTROL_SCALE times too large. Printed, no claim: the card's bf16
+    update against the CPU's. The two share their rounding points, yet
+    through the codec's depth an ulp's difference spreads until they are
+    about as far apart as either is from fp64 (0.3-2x over data seeds), so
+    that distance cannot hold the card.
+    """
+    r = bf16_vs_cpu(device, BF16_DATA_SEED)
+    sc, errs, cond = r["scalars"], r["full"], r["lin"]
+    print(f"[bf16 vs cpu] {BF16_SUBSET[0]} x {BF16_SUBSET[1]}, data seed {BF16_DATA_SEED}, p_dropout 0, revival off, SGD: losses "
+          f"card bf16 {sc['full_cuda']}; cpu bf16 {sc['full_cpu']}; cpu fp64 {sc['full_cpu64']}")
+    print(f"[bf16 vs cpu] (1) the model's loss: each bf16 step's update against the fp64 step's, relative L2: card "
+          f"median {errs['cuda'][0]:.3e}, all parameters {errs['cuda'][2]:.3e}; cpu bf16 median {errs['cpu'][0]:.3e}, "
+          f"all {errs['cpu'][2]:.3e}; card / cpu {r['full_ratio'][0]:.3f} and {r['full_ratio'][1]:.3f} (tol "
+          f"{BF16_VS_CPU_MULTIPLE}) [{card}]")
+    print(f"[bf16 vs cpu] (2) without the log-magnitude term: losses card bf16 {sc['lin_cuda']['loss']!r}, cpu bf16 "
+          f"{sc['lin_cpu']['loss']!r}, card fp32 {sc['lin_cuda_fp32']['loss']!r}, cpu fp64 {sc['lin_cpu64']['loss']!r}; "
+          f"updates against fp64's, median / all / worst parameter: card bf16 {cond['cuda'][0]:.3e} / "
+          f"{cond['cuda'][2]:.3e} / {cond['cuda'][1][0]} {cond['cuda'][1][1]:.3e}, cpu bf16 {cond['cpu'][0]:.3e} / "
+          f"{cond['cpu'][2]:.3e} / {cond['cpu'][1][0]} {cond['cpu'][1][1]:.3e}, card fp32 {cond['cuda_fp32'][0]:.3e} / "
+          f"{cond['cuda_fp32'][2]:.3e} [{card}]")
+    card_r, control_r, direct_r = r["lin_ratio"], r["control_ratio"], r["direct_ratio"]
+    print(f"[bf16 vs cpu] (2) card / cpu: median {card_r[0]:.3f}, all {card_r[1]:.3f}, worst {card_r[2]:.3f} (tol "
+          f"{BF16_LIN_MULTIPLE}); control, the card's update x {BF16_CONTROL_SCALE}: {control_r[0]:.3f}, "
+          f"{control_r[1]:.3f}, {control_r[2]:.3f} (must fail); no claim: the card's bf16 update against the cpu's "
+          f"bf16 update, over the cpu's own error {direct_r[0]:.3f}, {direct_r[1]:.3f}, {direct_r[2]:.3f} [{card}]")
+    for step in ("full", "lin"):
+        for key in ("loss", "loss_recon", "loss_stft", "loss_commit"):
+            g_, c_ = sc[f"{step}_cuda"][key], sc[f"{step}_cpu"][key]
+            require(abs(g_ - c_) <= BF16_LOSS_RTOL * abs(c_), f"bf16 train step ({step}) {key}: card {g_} cpu {c_}")
     for i, what in enumerate(("median", "all parameters")):
-        require(errs["cuda"][i] <= BF16_VS_CPU_MULTIPLE * errs["cpu"][i],
-                f"bf16 step error against fp64 ({what}): card {errs['cuda'][i]} vs cpu {errs['cpu'][i]}")
+        require(r["full_ratio"][i] <= BF16_VS_CPU_MULTIPLE,
+                f"bf16 step error against fp64 ({what}): card {errs['cuda']} vs cpu {errs['cpu']}")
+    require(max(card_r) <= BF16_LIN_MULTIPLE,
+            f"bf16 step error against fp64 without the log term: card / cpu {card_r} > {BF16_LIN_MULTIPLE}")
+    require(max(control_r) > BF16_LIN_MULTIPLE, f"the control passes the bf16 step's limit: {control_r}")
+    return r
 
 
 def main() -> None:
@@ -3376,10 +3478,12 @@ def main() -> None:
               call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates),
         entry("gated_hifi_bwd_bf16", "gated_hifi_bwd.cu", PALLAS + ":612", bf16_train["bwd"], bf16_bwd["dx_err"],
               bf16_bwd["ms"], bf16_bwd["plain_ms"], bf16_bwd["bound_ms"], bf16_bwd["bound_by"],
-              call_ms=bf16_bwd["call_ms"], ulp_share=bf16_bwd["share"]),
+              call_ms=bf16_bwd["call_ms"], ulp_share=bf16_bwd["share"],
+              bound_with_buffers_ms=bf16_bwd["bound_buffers_ms"]),
         entry("gated_hifi_wgrad_bf16", "gated_hifi_bwd.cu", PALLAS + ":360", bf16_train["red"], bf16_bwd["red_err"],
               bf16_bwd["red_ms"], bf16_bwd["red_plain_ms"], bf16_bwd["red_bound_ms"], bf16_bwd["red_bound_by"],
-              bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"]),
+              bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"],
+              bound_with_buffers_ms=bf16_bwd["red_bound_buffers_ms"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
               ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],

@@ -110,9 +110,9 @@ class GatedHiFiBlock(nn.Module):
         In train mode with ``p_dropout > 0`` one seed is drawn from
         ``generator`` (a CPU generator keeps the draw off the device). x and
         the parameters share one dtype, float32 or bfloat16 (the kernel's
-        bf16 mode). The lengths are counted in fp32: the JAX block sums a
-        bf16 mask in bf16, which rounds lengths above 256 that bf16 cannot
-        hold.
+        bf16 mode). The lengths are summed in the mask's dtype, as the JAX
+        block sums them: a bf16 mask rounds a length above 256 that bf16
+        cannot hold, and the kernel then takes the rounded length.
         """
         p = self.p_dropout if train else 0.0
         seed = 0
@@ -121,7 +121,7 @@ class GatedHiFiBlock(nn.Module):
                 raise ValueError("GatedHiFiBlock in train mode needs a dropout torch.Generator")
             seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
                                      device=generator.device).item())
-        lens = mask[..., 0].to(torch.float32).sum(dim=1).to(torch.int32)
+        lens = mask[..., 0].sum(dim=1).to(torch.int32)
         weights = pack_weights(dict(self.named_parameters()), self.dilations)
         out = gated_hifi((x * mask).contiguous(), lens, weights, self.res_scale, p, seed)
         return out, mask

@@ -64,22 +64,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3, acc: torch.Tensor 
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32) if acc is None else acc.to(torch.float32)
     part = torch.zeros_like(acc)  # the tensor cores' register, for rz_steps
     n_steps = -(-a.shape[1] // KSTEP)
-    # the loop is thousands of small ops: on one thread, so that a busy host's
-    # scheduler does not hold each op's thread pool (the results are the same
-    # bits, every step's sum being exact)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for i, k0 in enumerate(range(0, a.shape[1], KSTEP)):
-            for x, y in terms:
-                step = x[:, k0:k0 + KSTEP] @ y[k0:k0 + KSTEP]
-                if rz_steps is None:
-                    acc = (acc.double() + step).to(torch.float32)
-                else:
-                    part = _round_toward_zero(part.double() + step)
-            if rz_steps is not None and (i + 1 == n_steps or (rz_steps and (i + 1) % rz_steps == 0)):
-                acc = acc + part
-                part = torch.zeros_like(acc)
-    finally:
-        torch.set_num_threads(threads)
+    for i, k0 in enumerate(range(0, a.shape[1], KSTEP)):
+        for x, y in terms:
+            step = x[:, k0:k0 + KSTEP] @ y[k0:k0 + KSTEP]
+            if rz_steps is None:
+                acc = (acc.double() + step).to(torch.float32)
+            else:
+                part = _round_toward_zero(part.double() + step)
+        if rz_steps is not None and (i + 1 == n_steps or (rz_steps and (i + 1) % rz_steps == 0)):
+            acc = acc + part
+            part = torch.zeros_like(acc)
     return acc

@@ -30,6 +30,7 @@ from speech_masters_thesis_tpu.ops.pallas.attention import SmallTAttnSpec
 from speech_masters_thesis_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from speech_masters_thesis_tpu_torch.ops import attention as att
 from speech_masters_thesis_tpu_torch.ops import tf32
+from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TILE = 64  # keys a tile (csrc/attention_common.cuh: ROWS)
 B, H, D = 2, 2, 32

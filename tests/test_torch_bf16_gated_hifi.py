@@ -15,7 +15,9 @@ ulp apart before the next product, and the outputs are rounded to bf16 once
 more: at least 99% of the valid elements of out, dx and every weight
 cotangent must be within one bf16 ulp of their own magnitude (2^-7 of the
 power of two below them), and all within 2^-6 of the tensor's max|ref|.
-The lengths are bf16-exact (the JAX block sums a bf16 mask in bf16).
+Both blocks sum a bf16 mask in bf16, so a length above 256 that bf16 cannot
+hold rounds before the kernel takes it; the cases below are bf16-exact but
+for the one test of that rounding.
 """
 
 import jax
@@ -27,21 +29,13 @@ import torch
 from speech_masters_thesis_tpu.models.vqvae import blocks as jblocks
 from speech_masters_thesis_tpu_torch.models.vqvae import blocks as tblocks
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 W = 16
 ULP_SHARE = 0.99       # of elements within one bf16 ulp of their own magnitude
 MAX_RTOL = 2.0 ** -6   # of max|ref|, every element
 
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Thousands of small torch ops: on one thread, so that a busy host's
-    scheduler does not stall each op's thread pool."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 def _block(depth, seed, res_scale):
     block = tblocks.GatedHiFiBlock(W, depth, dilation_growth_rate=3, kernel_size_growth_rate=2,
@@ -114,6 +108,30 @@ def test_forward_bf16_matches_jax_kernel(depth, T, lens, res_scale):
     valid = mask[..., 0].bool().numpy()
     bf16_close(ours.float().numpy()[valid], np.asarray(theirs.astype(jnp.float32))[valid], "out")
     assert bool((ours.float().numpy()[~valid] == 0).all())
+
+
+def test_block_rounds_ragged_lengths_as_the_jax_block():
+    """Lengths 301 and 263 in bf16 are 300 and 264: the port's block runs the
+    kernel to those lengths as the JAX block does, so frame 300 of the first
+    row is zero in both and frame 263 of the second (past the mask) is
+    computed in both."""
+    depth, T, lens = 2, 320, (301, 263)
+    block = _block(depth, seed=7, res_scale=False)
+    x, mask, _ = _inputs(lens, T, seed=8)
+    rounded = torch.tensor(lens, dtype=torch.bfloat16).to(torch.int32)
+    assert rounded.tolist() == [300, 264]
+    w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
+    with torch.no_grad():
+        ours, _ = block(x, mask)
+        at_rounded = gh.gated_hifi_reference(x * mask, rounded, w)
+    torch.testing.assert_close(ours, at_rounded, rtol=0, atol=0)
+
+    jblock, params = _flax(block, depth)
+    theirs, _ = jblock.apply({"params": params}, _jax(x), _jax(mask), train=False)
+    theirs = np.asarray(theirs.astype(jnp.float32))
+    bf16_close(ours.float().numpy(), theirs, "out")
+    assert ours[0, 300].eq(0).all() and (theirs[0, 300] == 0).all()
+    assert ours[1, 263].ne(0).any() and (theirs[1, 263] != 0).any()
 
 
 @pytest.mark.parametrize("depth,T,lens,res_scale", CASES[::2])

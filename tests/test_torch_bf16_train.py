@@ -46,6 +46,7 @@ from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.models.vqvae.model import VQVAE
 from speech_masters_thesis_tpu_torch.train import harness, loop, optim
 from speech_masters_thesis_tpu_torch.train.state import TrainState
+from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SGD = {"name": "sgd", "lr": 1e-2, "momentum": 0.0, "weight_decay": 0.0}
 ADAM = {"name": "adam", "lr": 1e-3, "betas": [0.9, 0.98], "weight_decay": 0.01, "eps": 1e-9}
@@ -57,15 +58,6 @@ TIE_RTOL = 2.0 ** -6
 ROUNDING_RATIO = 0.4
 
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Thousands of small torch ops: on one thread, so that a busy host's
-    scheduler does not stall each op's thread pool."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 def _model_cfg():
     cfg = load_config("tests/fixtures/vqvae_tiny.yaml").to_dict()["model"]

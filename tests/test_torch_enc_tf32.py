@@ -41,6 +41,7 @@ from chip_smoke import B5_RTOL, DX_RTOL, GRAD_FLOOR, WGRAD_RTOL
 from speech_masters_thesis_tpu.ops.pallas.enc_layer import EncLayerSpec, fused_enc_layer
 from speech_masters_thesis_tpu_torch.ops import enc_layer as el
 
+from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from test_torch_wn_tf32 import _conv, _one, _wgrad
 
 C, HEADS, WINDOW, K = 192, 2, 4, 3

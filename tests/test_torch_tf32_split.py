@@ -31,6 +31,17 @@ from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 from speech_masters_thesis_tpu_torch.ops import tf32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Thousands of small torch ops (tf32.matmul's k-step loop): on one
+    thread, so that a busy host's scheduler does not stall each op's thread
+    pool. Modules that import this fixture get it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(x: torch.Tensor) -> list:
     return [v & 0xFFFFFFFF for v in x.view(torch.int32).tolist()]
 

@@ -40,6 +40,7 @@ from speech_masters_thesis_tpu.ops.pallas.wn_coupling import WNSpec, fused_flow_
 from speech_masters_thesis_tpu_torch.ops import flow_step as fs
 from speech_masters_thesis_tpu_torch.ops import tf32
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn
+from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # (T, half, hidden, out, taps, rate, layers); batch 2
 MAIN = (64, 8, 32, 16, 5, 2, 2)
