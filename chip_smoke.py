@@ -255,7 +255,9 @@ from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
 from speech_masters_thesis_tpu_torch.models.base import spect_from_audio
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
+from speech_masters_thesis_tpu_torch.models.glow_tts import model as glow_model_module
 from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
+from speech_masters_thesis_tpu_torch.models.vqtts import bottleneck as vqtts_bottleneck
 from speech_masters_thesis_tpu_torch.models.vqtts import model as vqtts_model
 from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
@@ -404,6 +406,7 @@ BF16_VS_CPU_MULTIPLE = 2       # the card's bf16 update error against fp64, with
 # data seeds 9-16, 1.22-1.27x at seed 9. The control, the card's update made 20% too large, must fail it
 BF16_LIN_MULTIPLE = 2.5
 BF16_CONTROL_SCALE = 1.2
+BF16_TRAIN_STEPS = 10          # Glow-TTS's and VQ-TTS's bf16 steps: the median of steps 2-10
 
 
 def require(ok: bool, what: str) -> None:
@@ -2930,18 +2933,19 @@ def phase_bf16_mma(device, card: str) -> bool:
     return truncates
 
 
-def phase_bf16_kernel(device, card: str) -> dict:
+def phase_bf16_kernel(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, depth: int = 4,
+                      tag: str = "[bf16 kernel]") -> dict:
     """B1's bf16 forward against its plain bf16 version at each block shape,
     p=0 (times) and p=0.1 (two calls bitwise equal), and the bf16 backward
     kernels' dropout masks read back bit for bit."""
-    w = to_bf16(block_weights(device, seed=1))
+    w = to_bf16(block_weights(device, seed=1, depth=depth))
     seed = 4321
     out = {"max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "share": 1.0}
     flops = nbytes = 0
     keep = 1.0 - gh.keep_threshold(P_DROP) / 65536.0
     with torch.inference_mode():
-        for i, T in enumerate(BLOCK_TS):
-            x, lens, valid, _ = block_inputs(T, BATCH, 100 + i, device)
+        for i, T in enumerate(block_ts):
+            x, lens, valid, _ = block_inputs(T, batch, 100 + i, device)
             x = x.to(torch.bfloat16)
             for p in (0.0, P_DROP):
                 ref = gh.gated_hifi_reference(x, lens, w, 1.0, p, seed)
@@ -2961,7 +2965,7 @@ def phase_bf16_kernel(device, card: str) -> dict:
                     out["plain_ms"] += plain
                     times = (f"; kernel {dev:.3f} ms over {DEVICE_REPS} back-to-back calls, {call:.3f} ms a call, "
                              f"plain {plain:.3f} ms")
-                print(f"[bf16 kernel] B={BATCH} T={T} p={p}: {agree[0]:.5f} of valid elements within one bf16 ulp "
+                print(f"{tag} B={batch} T={T} p={p}: {agree[0]:.5f} of valid elements within one bf16 ulp "
                       f"(need {BF16_ULP_SHARE}), max_abs_err {agree[2]:.3e} = {agree[1]:.2e} of max|ref| (tol "
                       f"{BF16_MAX_RTOL:.4g}); exact zeros past lens {zeros}; two calls bitwise equal {bitwise}"
                       f"{times} [{card}]")
@@ -2970,40 +2974,239 @@ def phase_bf16_kernel(device, card: str) -> dict:
                 out["max_abs_err"] = max(out["max_abs_err"], agree[2])
                 out["share"] = min(out["share"], agree[0])
                 del ref, got, again
-            (n0, n1, n01), n, same, changed = read_back_masks(device, T, BATCH, 4, seed, torch.bfloat16)
+            (n0, n1, n01), n, same, changed = read_back_masks(device, T, batch, depth, seed, torch.bfloat16)
             rates = {"site 0": (n0 / n, keep), "site 1": (n1 / n, keep), "both": (n01 / n, keep * keep)}
-            print(f"[bf16 kernel] T={T}: the bf16 backward kernels' masks equal the plain version's at both sites "
+            print(f"{tag} T={T}: the bf16 backward kernels' masks equal the plain version's at both sites "
                   f"of all 4 branches; keep rates " + ", ".join(f"{k} {r:.6f} (expect {q:.6f})"
                                                                 for k, (r, q) in rates.items())
                   + f"; same seed same masks {same}; another seed changes {changed:.4f} of site 0 [{card}]")
             for k, (r, q) in rates.items():
                 require(abs(r - q) <= 5 * np.sqrt(q * (1 - q) / n), f"bf16 keep rate {k} {r} vs {q} at T={T}")
             require(same and changed > 0.1, f"bf16 masks at T={T}: same {same}, changed {changed}")
-            flops += BATCH * T * block_flops_per_frame(w)
+            flops += batch * T * block_flops_per_frame(w)
             nbytes += 2 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
             torch.cuda.empty_cache()
     out["bound_ms"], out["bound_by"] = bf16_bound(flops, nbytes)
-    print(f"[bf16 kernel] sum over the {len(BLOCK_TS)} block shapes, p=0: kernel {out['ms']:.3f} ms over "
+    print(f"{tag} sum over the {len(block_ts)} block shapes, p=0: kernel {out['ms']:.3f} ms over "
           f"{DEVICE_REPS} back-to-back calls ({out['call_ms']:.3f} ms a call), plain {out['plain_ms']:.3f} ms; bound "
           f"{out['bound_ms']:.3f} ms by {out['bound_by']} ({flops / 1e9:.1f} GFLOP at {PEAK_BF16 / 1e12:.0f} TF/s, "
           f"{nbytes / 1e6:.1f} MB) [{card}]")
     return out
 
 
-def phase_bf16_backward(device, card: str) -> dict:
+def bf16_leaves(ours: dict, ref: dict) -> dict:
+    """name -> bf16_agreement of a weight gradient, its relative L2 over a
+    norm floored at BF16_SUM_RTOL of the largest leaf's (a leaf whose true
+    gradient is zero, like the key bias under the shift-invariant softmax,
+    holds rounding only)."""
+    top = max(t.float().norm().item() for t in ref.values())
+    out = {}
+    for name, r in ref.items():
+        share, rel, worst, _ = bf16_agreement(ours[name], r)
+        l2 = (ours[name].float() - r.float()).norm().item() / max(r.float().norm().item(), BF16_SUM_RTOL * top)
+        out[name] = (share, rel, worst, l2)
+    return out
+
+
+def bf16_grads_ok(tag: str, dx: tuple, leaves: dict, bitwise: bool) -> str:
+    """dx and every weight gradient by the CPU tests' measure (relative L2
+    within BF16_SUM_RTOL, every element within BF16_MAX_RTOL of max|ref|);
+    returns the report's text."""
+    worst = max(leaves, key=lambda n: leaves[n][3])
+    require(bf16_ok(dx, summed=True), f"{tag}: dx disagrees: {dx}")
+    for name, agree in leaves.items():
+        require(agree[3] <= BF16_SUM_RTOL and np.isfinite(agree[1]), f"{tag}: grad {name} disagrees: {agree}")
+    require(bitwise, f"{tag}: two backward calls differ")
+    return (f"dx relative L2 {dx[3]:.2e}, max_abs_err {dx[1]:.2e} of max|ref| ({dx[0]:.5f} within one ulp); "
+            f"worst weight grad {worst} relative L2 {leaves[worst][3]:.2e} (tol {BF16_SUM_RTOL:.4g}); two calls "
+            f"bitwise equal {bitwise}")
+
+
+def wn_bf16(w: wn_ops.WNWeights) -> wn_ops.WNWeights:
+    return wn_ops.WNWeights.from_flat([t.to(torch.bfloat16) for t in w.flat()], w.dilations)
+
+
+def enc_bf16(w: enc_ops.EncLayerWeights) -> enc_ops.EncLayerWeights:
+    return w.with_tensors([t.to(torch.bfloat16) for t in w.tensors().values()])
+
+
+def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
+    """B3's bf16 forward and backward kernels against the plain bf16
+    versions at B3_SHAPES (the first coupling block's weights in bf16) and
+    B3_OTHER_SHAPES (x0 a view of odd stride and offset), p=0 and B3_DROP:
+    the output, dx and the weight gradients within BF16_SUM_RTOL relative L2
+    and every element within BF16_MAX_RTOL of max|ref|
+    (tests/test_torch_bf16_wn_coupling.py's measures for dx), two calls
+    bitwise equal; times at (8, 384). The share within one ulp is printed,
+    not held: at Glow's width each product sums 960 terms in fp32, in
+    another order than the plain version's, so an intermediate within that
+    rounding of a bf16 boundary rounds one ulp apart (about 1e-4 of them);
+    through four layers and the end conv, whose outputs cancel, some 5% of
+    the outputs then move by more than one ulp of their own magnitude while
+    the relative L2 error stays near 2e-3 (the CPU tests' small widths sum
+    exactly and meet the share)."""
+    w0 = wn_bf16(model.decoder.flows[2].conditioner_weights())
+    half = model.n_mels * model.n_sqz // 2
+    seed = torch.tensor([4343], dtype=torch.int64, device=device)
+    fwd_out, bwd_out = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    cases = [("glow", B, T) for B, T in B3_SHAPES] + [("other", j, None) for j in range(len(B3_OTHER_SHAPES))]
+    for i, (kind, a, b) in enumerate(cases):
+        if kind == "glow":
+            B, T = a, b
+            rng = np.random.RandomState(780 + i)
+            lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+            lens = torch.from_numpy(lens_np).to(device)
+            valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+            x = (torch.from_numpy(rng.randn(B, T, 2 * half).astype(np.float32)).to(device) * valid[..., None])
+            x0, w = x.to(torch.bfloat16)[..., :half], w0
+            g = torch.from_numpy(rng.randn(B, T, w.wend.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
+            tag = f"B={B} T={T}"
+        else:
+            w32, lens, valid, head, gs = other_shape_inputs(a, device, flow_step=False)
+            B, T, hf, H, taps, rate, L = B3_OTHER_SHAPES[a]
+            w = wn_bf16(w32)
+            xb = head[0].to(torch.bfloat16)
+            wide = torch.zeros(B, T, 2 * hf + 1, device=device, dtype=torch.bfloat16)
+            wide[..., 1:1 + hf] = xb
+            x0 = wide[..., 1:1 + hf]  # a view of odd row stride and offset, as the fp32 phase's
+            g = gs[0].to(torch.bfloat16)
+            lens_np = lens.cpu().numpy()
+            tag = f"B={B} T={T} half={hf} H={H} k={taps} rate={rate} L={L}"
+        for p in (0.0, B3_DROP):
+            with torch.no_grad():
+                ours, again = wn_ops.wn_coupling(x0, lens, w, seed, p), wn_ops.wn_coupling(x0, lens, w, seed, p)
+                ref = wn_ops.wn_coupling_reference(x0, lens, w, seed, p)
+                dx_k, gw_k = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)
+                dx_k2, gw_k2 = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)
+                dx_r, gw_r = wn_ops.wn_coupling_backward_reference(x0, lens, w, g, seed, p)
+                torch.cuda.synchronize()
+            agree = bf16_agreement(ours[valid], ref[valid])
+            require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B3] {tag} p={p}: forward {agree}")
+            require(torch.equal(ours, again), f"[bf16 B3] {tag} p={p}: two forward calls differ")
+            bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(u, v) for u, v in zip(gw_k.flat(), gw_k2.flat()))
+            report = bf16_grads_ok(f"[bf16 B3 bwd] {tag} p={p}", bf16_agreement(dx_k[valid], dx_r[valid]),
+                                   bf16_leaves(gw_k.tensors(), gw_r.tensors()), bitwise)
+            times = ""
+            if i == 0:
+                with torch.no_grad():
+                    t = {"fwd": device_ms(lambda: wn_ops.wn_coupling(x0, lens, w, seed, p)),
+                         "fwd_call": cuda_ms(lambda: wn_ops.wn_coupling(x0, lens, w, seed, p)),
+                         "fwd_plain": cuda_ms(lambda: wn_ops.wn_coupling_reference(x0, lens, w, seed, p), reps=5),
+                         "bwd": device_ms(lambda: wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)),
+                         "bwd_call": cuda_ms(lambda: wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p), reps=5),
+                         "bwd_plain": cuda_ms(lambda: wn_ops.wn_coupling_backward_reference(x0, lens, w, g, seed, p),
+                                              reps=5, warmup=1)}
+                frames = int(lens_np.sum())
+                weights = sum(t_.numel() for t_ in w.flat())
+                fb = bf16_bound(frames * wn_flops_per_frame(w), 2 * (frames * (half + w.wend.shape[0]) + weights))
+                bb = bf16_bound(3 * frames * wn_flops_per_frame(w),
+                                2 * (frames * (2 * half + w.wend.shape[0]) + 2 * weights))
+                times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
+                         f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
+                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                if p == 0.0:
+                    fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
+                                   bound_by=fb[1])
+                else:
+                    bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
+                                   bound_by=bb[1])
+            print(f"[bf16 B3] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
+                  f"max_abs_err {agree[1]:.2e} of max|ref|; backward {report}{times} [{card}]")
+            fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
+            bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], bf16_agreement(dx_k[valid], dx_r[valid])[2])
+            del ours, again, ref, dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r
+    return {"fwd": fwd_out, "bwd": bwd_out}
+
+
+def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
+    """B5's bf16 forward and backward kernels against the plain bf16
+    versions at B5_SHAPES (the first encoder layer's weights in bf16), p=0
+    and B5_DROP, the backward at the kernel's own FFN relu decisions (flips
+    within BF16_FLIP_RTOL); measures as phase_bf16_wn_coupling's (the ulp
+    share, printed, is near 0.99 at (8, 256) and lower at (1, 160): the same
+    roundings of 192- to 768-term fp32 sums, through attention and two
+    LayerNorms); times at (8, 256)."""
+    w = enc_bf16(model.encoder.layer_weights(0))
+    C, Fc = w.wq.shape[0], w.w1.shape[0]
+    seed = torch.tensor([5353], dtype=torch.int64, device=device)
+    fwd_out, bwd_out = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for i, (B, T) in enumerate(B5_SHAPES):
+        rng = np.random.RandomState(840 + i)
+        lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(device)
+        valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+        x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device).to(torch.bfloat16)
+        g = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device).to(torch.bfloat16)
+        for p in (0.0, B5_DROP):
+            with torch.no_grad():
+                ours, again = enc_ops.enc_layer(x, lens, w, seed, p), enc_ops.enc_layer(x, lens, w, seed, p)
+                ref = enc_ops.enc_layer_reference(x, lens, w, seed, p)
+                dx_k, gw_k, bufs = enc_ops.enc_layer_backward(x, lens, w, g, seed, p, return_buffers=True)
+                dx_k2, gw_k2 = enc_ops.enc_layer_backward(x, lens, w, g, seed, p)
+                rnd, xf, wf = enc_ops._operands(x, w)
+                c1 = enc_ops._forward(xf, lens, wf, seed, p, rnd)["c1"]
+                gate = bufs["hid"] > 0
+                kept = (enc_ops.dropout_keep(seed, lens, T, Fc, enc_ops.SITE_FFN_MID, p) > 0) if p else True
+                flip = ((c1 > 0) != gate) & kept & valid[..., None]
+                flips = (int(flip.sum()), c1.abs()[flip].max().item() if bool(flip.any()) else 0.0,
+                         c1.abs().max().item())
+                dx_r, gw_r = enc_ops.enc_layer_backward_reference(x, lens, w, g, seed, p, relu_gate=gate.float())
+                torch.cuda.synchronize()
+            agree = bf16_agreement(ours[valid], ref[valid])
+            tag = f"B={B} T={T}"
+            require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B5] {tag} p={p}: forward {agree}")
+            require(torch.equal(ours, again), f"[bf16 B5] {tag} p={p}: two forward calls differ")
+            require(flips[1] <= BF16_FLIP_RTOL * flips[2], f"[bf16 B5] {tag} p={p}: a relu flipped: {flips}")
+            bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(gw_k[n], gw_k2[n]) for n in gw_k)
+            dx_agree = bf16_agreement(dx_k[valid], dx_r[valid])
+            report = bf16_grads_ok(f"[bf16 B5 bwd] {tag} p={p}", dx_agree, bf16_leaves(gw_k, gw_r), bitwise)
+            times = ""
+            if i == 0:
+                with torch.no_grad():
+                    t = {"fwd": device_ms(lambda: enc_ops.enc_layer(x, lens, w, seed, p)),
+                         "fwd_call": cuda_ms(lambda: enc_ops.enc_layer(x, lens, w, seed, p)),
+                         "fwd_plain": cuda_ms(lambda: enc_ops.enc_layer_reference(x, lens, w, seed, p), reps=5),
+                         "bwd": device_ms(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p)),
+                         "bwd_call": cuda_ms(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p), reps=5),
+                         "bwd_plain": cuda_ms(lambda: enc_ops.enc_layer_backward_reference(x, lens, w, g, seed, p),
+                                              reps=5, warmup=1)}
+                tokens = int(lens_np.sum())
+                params = sum(t_.numel() for t_ in w.tensors().values())
+                fb = bf16_bound(enc_flops(lens_np, w), 2 * (2 * tokens * C + params))
+                bb = bf16_bound(3 * enc_flops(lens_np, w), 2 * (3 * tokens * C + 2 * params))
+                times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
+                         f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
+                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                if p == 0.0:
+                    fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
+                                   bound_by=fb[1])
+                else:
+                    bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
+                                   bound_by=bb[1])
+            print(f"[bf16 B5] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
+                  f"max_abs_err {agree[1]:.2e} of max|ref|; FFN relu flips {flips[0]} (largest |c1| {flips[1]:.1e} of "
+                  f"max {flips[2]:.1e}); backward {report}{times} [{card}]")
+            fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
+            bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
+            del ours, again, ref, dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r
+    return {"fwd": fwd_out, "bwd": bwd_out}
+
+
+def phase_bf16_backward(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, depth: int = 4,
+                        tag: str = "[bf16 backward]") -> dict:
     """B1's bf16 tile passes and reduction against the plain bf16 backward at
     each block shape, p=0 and p=0.1: dx and every weight gradient, taken at
     the kernel's own relu and dropout decisions (the flips printed), two
     calls bitwise equal; the reduction alone on the plain version's
     buffers; times at p=0.1 (the training configuration)."""
-    w = to_bf16(block_weights(device, seed=1))
+    w = to_bf16(block_weights(device, seed=1, depth=depth))
     seed = 12345
     out = {"dx_err": 0.0, "red_err": 0.0, "share": 1.0}
     sums = dict.fromkeys(("tiles", "tiles_call", "tiles_plain", "red", "red_call", "red_plain", "red_mm"), 0.0)
     work = {"tiles": [0, 0], "red": [0, 0], "buffers": 0}
     for p in (0.0, P_DROP):
-        for i, T in enumerate(BLOCK_TS):
-            x, lens, _, g = block_inputs(T, BATCH, 200 + i, device)
+        for i, T in enumerate(block_ts):
+            x, lens, _, g = block_inputs(T, batch, 200 + i, device)
             x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
             args = (x, lens, w, g, 1.0, p, seed)
             dx_k, bufs_k = gh.backward_buffers(*args)
@@ -3028,7 +3231,7 @@ def phase_bf16_backward(device, card: str) -> dict:
             red_worst = max(red, key=lambda n: red[n][3])
             times = ""
             if p == P_DROP:
-                frames_flops = BATCH * T * block_flops_per_frame(w)
+                frames_flops = batch * T * block_flops_per_frame(w)
                 w_bytes = 2 * sum(t.numel() for t in w.tensors().values())
                 buf_bytes = sum(getattr(bufs_r, f).numel() * getattr(bufs_r, f).element_size()
                                 for f in ("a", "h1", "dzp", "dc", "dz", "u", "gv"))
@@ -3057,7 +3260,7 @@ def phase_bf16_backward(device, card: str) -> dict:
                          f"{t_['red']:.3f} ms vs its products as bf16 torch.mm {t_['red_mm']:.3f} ms; a call: tile "
                          f"passes {t_['tiles_call']:.3f} vs plain {t_['tiles_plain']:.3f}, reduction "
                          f"{t_['red_call']:.3f} vs plain {t_['red_plain']:.3f}")
-            print(f"[bf16 backward] p={p} B={BATCH} T={T}: decisions flipped against the plain forward: "
+            print(f"{tag} p={p} B={batch} T={T}: decisions flipped against the plain forward: "
                   + ", ".join(f"{k} {n_} (largest value {v:.1e} of max {m:.1e})" for k, (n_, v, m) in flips.items())
                   + f"; at the kernel's decisions dx {dx_agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
                   f"max {dx_agree[1]:.2e} of max|ref|; weight grads worst {worst}: relative L2 {leaves[worst][3]:.2e} "
@@ -3086,7 +3289,7 @@ def phase_bf16_backward(device, card: str) -> dict:
     # bound of this design, not of the function
     out["bound_buffers_ms"] = bf16_bound(work["tiles"][0], work["tiles"][1] + work["buffers"])[0]
     out["red_bound_buffers_ms"] = bf16_bound(work["red"][0], work["red"][1] + work["buffers"])[0]
-    print(f"[bf16 backward] p={P_DROP} sums over the {len(BLOCK_TS)} block shapes: tile passes {sums['tiles']:.3f} ms "
+    print(f"{tag} p={P_DROP} sums over the {len(block_ts)} block shapes: tile passes {sums['tiles']:.3f} ms "
           f"over {DEVICE_REPS} back-to-back calls ({sums['tiles_call']:.3f} a call, plain {sums['tiles_plain']:.3f}), "
           f"bound {out['bound_ms']:.3f} ms by {out['bound_by']} ({work['tiles'][0] / 1e9:.1f} GFLOP, "
           f"{work['tiles'][1] / 1e6:.1f} MB); reduction {sums['red']:.3f} ms ({sums['red_call']:.3f} a call, plain "
@@ -3207,6 +3410,281 @@ def phase_bf16_train(device, card: str) -> dict:
     require(dk > 0, "the codebook did not change in the bf16 steps")
     require(all(np.isfinite(l) for l in losses["bf16"]), "a bf16 loss is not finite")
     return {"fwd": counts[0], "bwd": counts[1], "red": counts[2], "step_ms": medians["bf16"]}
+
+
+def glow_bf16_counts() -> tuple:
+    """(fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) launches so far."""
+    e, eb, w_, wb = enc_ops.enc_layer, enc_ops.enc_layer_backward, wn_ops.wn_coupling, wn_ops.wn_coupling_backward
+    return (e.launches, eb.launches, w_.launches, wb.launches, e.bf16_launches, eb.bf16_launches, w_.bf16_launches,
+            wb.bf16_launches, mas_ops.maximum_path_auto.launches)
+
+
+def zero_glow_bf16_counts() -> None:
+    for fn in (enc_ops.enc_layer, enc_ops.enc_layer_backward, wn_ops.wn_coupling, wn_ops.wn_coupling_backward):
+        fn.launches = fn.bf16_launches = 0
+    mas_ops.maximum_path_auto.launches = 0
+
+
+def vqtts_bf16_counts() -> tuple:
+    """(fp32 B1 fwd, bwd, red, bf16 B1 fwd, bwd, red, B4, fp32 B5 fwd, bwd, bf16 B5 fwd, bwd) launches so far."""
+    e, eb = enc_ops.enc_layer, enc_ops.enc_layer_backward
+    return (*launch_counts(), *bf16_counts(), mas_ops.maximum_path_auto.launches, e.launches, eb.launches,
+            e.bf16_launches, eb.bf16_launches)
+
+
+def zero_vqtts_bf16_counts() -> None:
+    zero_b1_counts()
+    zero_glow_bf16_counts()
+
+
+def bf16_steps(tag: str, state: TrainState, step, batch: dict, n: int, counts, card: str) -> dict:
+    """``n`` bf16 train steps of ``state``: wall times, launches per step (``counts()``), losses, the
+    peak above what was held before, every master and EMA parameter moved, fp32 masters, and one
+    more step under torch.profiler for the device's busy share."""
+    held = torch.cuda.memory_allocated()
+    params0 = {k: v.detach().clone() for k, v in state.params.items()}
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step, losses = [], [], []
+    for _ in range(n):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+        raise_if_not_finite(scalars, state.step)
+        losses.append({k: round(float(v), 5) for k, v in scalars.items() if "loss" in k})
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    moved = sum(not torch.equal(p.detach(), params0[k]) for k, p in state.params.items())
+    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
+    masters = all(p.dtype == torch.float32 for p in state.params.values())
+    del params0, ema0
+    kernel_ms, wall_ms = busy_share(lambda: raise_if_not_finite(step(state, batch, TRAIN_SEED), state.step))
+    median = statistics.median(times[1:])
+    print(f"{tag} losses per step {losses}; masters fp32 {masters}; {moved}/{len(state.params)} masters and "
+          f"{ema_moved}/{len(state.ema_params)} EMA parameters moved over the {n} steps")
+    print(f"{tag} step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps 2-{n} {median:.3f} ms; "
+          f"max_memory_allocated {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held before; one more step under "
+          f"torch.profiler: kernels {kernel_ms:.3f} ms of {wall_ms:.3f} ms wall, device busy {kernel_ms / wall_ms:.3f} "
+          f"[{card}]")
+    require(masters, f"{tag}: the masters are not fp32")
+    require(moved == len(state.params), f"{tag}: only {moved}/{len(state.params)} masters moved")
+    require(ema_moved == len(state.ema_params), f"{tag}: only {ema_moved}/{len(state.ema_params)} EMA parameters moved")
+    return {"per_step": per_step, "step_ms": median, "peak": peak, "busy": kernel_ms / wall_ms, "losses": losses}
+
+
+def glow_mel_batch(model: GlowTTS, batch: int, device, seed: int) -> dict:
+    """A Glow batch with the mel computed once on the card, as the loader's
+    mel (with ``spect`` the bf16 step's flows run in bf16, as the JAX
+    package's do; from audio its mel is fp32 and so are the flows)."""
+    audio = glow_val_batch(batch, device, seed=seed)
+    with torch.no_grad():
+        spect, spect_len = spect_from_audio(model, audio)
+    return {"token": audio["token"], "token_len": audio["token_len"], "spect": spect, "spect_len": spect_len}
+
+
+def phase_bf16_glow_train(device, card: str) -> dict:
+    """Glow-TTS's bf16 train step (configs.GLOW_TTS_TPU: B3's route, dropout
+    on, AdamW + Noam + parameter EMA) at GLOW_BATCH x GLOW_FRAMES frames:
+    ddi_init in fp32 (as JAX), then BF16_TRAIN_STEPS steps built by
+    harness.make_train_step_for from ``train: {bf16: true}``. B3 and B5 run
+    their bf16 modes, 12 and 6 calls a step each way, their fp32 modes none."""
+    tag = "[bf16 glow train]"
+    model = build_glow(device, GLOW_SEED + 4)
+    batch = glow_mel_batch(model, GLOW_BATCH, device, seed=34)
+    model.ddi_init(batch, {"device_dropout": torch.Generator(device=device).manual_seed(18)})
+    opt, schedule = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
+                                    configs.GLOW_TTS_TPU_SCHEDULER, configs.GLOW_TTS_TPU)
+    state = TrainState.create(model, opt, use_ema=True)
+    step = harness.make_train_step_for({"train": {"ema": True, "bf16": True}}, schedule, default_mu(GLOW_BATCH, 1))
+    zero_glow_bf16_counts()
+    print(f"{tag} B={GLOW_BATCH} x {GLOW_FRAMES} frames ({int(batch['spect_len'].sum())} valid), {GLOW_TOKENS} "
+          f"tokens, ragged, the mel computed on the card once; dropout (encoder {model.encoder.p_dropout}, decoder "
+          f"{model.decoder.flows[2].p_dropout}, prenet {model.encoder.pre.P_DROPOUT}), AdamW + Noam + parameter EMA")
+    out = bf16_steps(tag, state, step, batch, BF16_TRAIN_STEPS, glow_bf16_counts, card)
+    expect = (0, 0, 0, 0, 6, 6, 12, 12, 1)
+    print(f"{tag} launches per step (fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) "
+          f"{out['per_step']}")
+    require(all(c == expect for c in out["per_step"]), f"{tag} launches {out['per_step']} != {expect}")
+    frames = GLOW_BATCH * GLOW_FRAMES
+    out.update(launches=glow_bf16_counts(), frames_per_s=frames / (out["step_ms"] / 1e3))
+    print(json.dumps({"glow_train_bf16_mel_frames_per_sec_per_chip": out["frames_per_s"], "step_ms": out["step_ms"],
+                      "peak_gib": out["peak"], "device_busy": out["busy"], "card": card}))
+    return out
+
+
+def phase_bf16_vqtts_train(device, card: str, fused_encoder: bool) -> dict:
+    """VQ-TTS's bf16 train step (configs.VQTTS_TPU, every dropout site on,
+    Adam + codebook and parameter EMAs, the lazy codebook init in step 1) at
+    VQTTS_BATCH x VQTTS_SAMPLES, on the config's encoder route or B5's: B1's
+    bf16 mode 16 calls a step each way, B5's 6 on its route, the fp32 modes
+    none."""
+    tag = "[bf16 vqtts train B5]" if fused_encoder else "[bf16 vqtts train]"
+    model = build_vqtts(device, VQTTS_SEED + 2, fused_encoder)
+    batch = vqtts_batch(VQTTS_BATCH, VQTTS_SAMPLES, device, seed=43)
+    opt, schedule = build_optimizer(model.parameters(), configs.VQTTS_TPU_OPTIMIZER)
+    state = TrainState.create(model, opt, use_ema=True)
+    step = harness.make_train_step_for({"train": {"ema": True, "bf16": True}}, schedule, default_mu(VQTTS_BATCH, 1))
+    k0 = model.quant_bottleneck.k.clone()
+    zero_vqtts_bf16_counts()
+    print(f"{tag} B={VQTTS_BATCH} x {VQTTS_SAMPLES} samples and {VQTTS_TOKENS} tokens, ragged, dropout on, Adam + "
+          f"codebook EMA + parameter EMA, the codebook's lazy init in step 1")
+    out = bf16_steps(tag, state, step, batch, BF16_TRAIN_STEPS, vqtts_bf16_counts, card)
+    b5 = 6 if fused_encoder else 0
+    expect = (0, 0, 0, 16, 16, 16, 1, 0, 0, b5, b5)
+    bn = model.quant_bottleneck
+    dk = (bn.k - k0).abs().max().item()
+    print(f"{tag} launches per step (fp32 B1 fwd, bwd, red, bf16 B1 fwd, bwd, red, B4, fp32 B5 fwd, bwd, bf16 B5 "
+          f"fwd, bwd) {out['per_step']}; codebook fp32 {bn.k.dtype == torch.float32}, moved by up to {dk:.3e}")
+    require(all(c == expect for c in out["per_step"]), f"{tag} launches {out['per_step']} != {expect}")
+    require(bn.k.dtype == torch.float32 and dk > 0, f"{tag}: the codebook is {bn.k.dtype}, moved {dk}")
+    seconds = VQTTS_BATCH * VQTTS_SAMPLES / configs.LJSPEECH_TPU["sample_rate"]
+    out.update(launches=vqtts_bf16_counts(), audio_s_per_s=seconds / (out["step_ms"] / 1e3))
+    print(json.dumps({f"vqtts_train_bf16{'_b5' if fused_encoder else ''}_audio_sec_per_sec_per_chip":
+                      out["audio_s_per_s"], "step_ms": out["step_ms"], "peak_gib": out["peak"],
+                      "device_busy": out["busy"], "card": card}))
+    return out
+
+
+class Decisions:
+    """Within the block, MAS's path (``module.maximum_path_auto``) and, for
+    VQ-TTS, the grouped bottleneck's codes (the ``min`` of its distance
+    table) come from a recorded step: with ``record`` set the path and codes
+    are recorded, else the recorded ones are answered. A bf16 step's
+    log-prior and encodings round an ulp apart from fp64's, and near a tie
+    the argmax / argmin flips; the comparison holds the rest of the step at
+    one set of decisions (as phase 35 holds gradients at the kernel's own
+    relu decisions)."""
+
+    def __init__(self, module, bottleneck=None):
+        self.module, self.bottleneck = module, bottleneck
+        self.path = self.codes = None
+        self.record = True
+
+    def __enter__(self):
+        inner = mas_ops.maximum_path_auto
+        outer = self
+
+        def path(value, mask):
+            if outer.record:
+                outer.path = inner(value, mask).cpu()
+            return outer.path.to(value.device)
+        self.saved = self.module.maximum_path_auto
+        self.module.maximum_path_auto = path
+        if self.bottleneck is not None:
+            class Torch:
+                def __getattr__(self, name):
+                    return getattr(torch, name)
+
+                def min(self, distance, dim):
+                    if outer.record:
+                        outer.codes = torch.min(distance, dim=dim)[1].cpu()
+                    codes = outer.codes.to(distance.device)
+                    return distance.gather(dim, codes[:, None])[:, 0], codes
+            self.saved_torch = self.bottleneck.torch
+            self.bottleneck.torch = Torch()
+        return self
+
+    def __exit__(self, *exc):
+        self.module.maximum_path_auto = self.saved
+        if self.bottleneck is not None:
+            self.bottleneck.torch = self.saved_torch
+
+
+def sgd_updates(first, batch: dict, device, names: tuple, decisions: Decisions) -> dict:
+    """name -> update of one SGD step from ``first``'s parameters: "cpu64"
+    (fp64 on the CPU, run first: its decisions are recorded), "cuda" (the
+    card's bf16 step), "cpu" (the CPU's bf16 step, the plain versions)."""
+    start = {k: p.detach().cpu().double() for k, p in first.named_parameters()}
+    out = {}
+    for name in names:
+        model = copy.deepcopy(first).to("cpu" if name.startswith("cpu") else device)
+        if name == "cpu64":
+            model = model.double()
+        dev = next(model.parameters()).device
+        b = {k: (v.double() if name == "cpu64" and v.is_floating_point() else v).to(dev) for k, v in batch.items()}
+        opt, schedule = build_optimizer(model.parameters(), BF16_SGD)
+        state = TrainState.create(model, opt, use_ema=False)
+        step = harness.make_train_step_for({"train": {"bf16": name != "cpu64"}}, schedule, 0.9)
+        decisions.record = name == "cpu64"
+        with decisions:
+            scalars = step(state, b, TRAIN_SEED)
+        out[name] = ({k: float(v) for k, v in scalars.items()},
+                     {k: p.detach().cpu().double() - start[k] for k, p in model.named_parameters()})
+        del model, state, opt
+    return out
+
+
+def phase_bf16_vs_fp64(device, card: str, kind: str) -> dict:
+    """One SGD step (dropout 0) of Glow-TTS (``kind`` "glow": GLOW_VS_CPU
+    sequences of the mel batch) or VQ-TTS ("vqtts", "vqtts_b5": 2 sequences of
+    VQTTS_SAMPLES, the log-magnitude STFT term off: with it any bf16 update
+    is 0.2-1 of its own norm from fp64's, PERF.md) on the card in bf16, on
+    the CPU in bf16 (the plain versions) and in fp64, at the fp64 step's MAS
+    path (and codes): the card's update within BF16_LIN_MULTIPLE of the CPU
+    bf16 step's distance from fp64's by median, all and worst parameter, and
+    the control (the card's update x BF16_CONTROL_SCALE) failing it. A
+    parameter's distance is over its fp64 update's norm floored at 1e-4 of
+    the whole update's (phase 25's floor)."""
+    tag = f"[bf16 {kind} vs fp64]"
+    if kind == "glow":
+        first = build_glow(device, GLOW_SEED + 5)
+        set_dropout(first, 0.0)
+        full = glow_mel_batch(first, GLOW_BATCH, device, seed=35)
+        batch = {k: v[:GLOW_VS_CPU] for k, v in full.items()}
+        decisions = Decisions(glow_model_module)
+    else:
+        first = build_vqtts(device, VQTTS_SEED + 3, kind == "vqtts_b5", p_dropout=0.0, revival_threshold=0.0,
+                            loss={**configs.VQTTS_TPU["loss"], "log": False})
+        first.text_encoder.p_dropout = 0.0
+        if first.text_encoder.pre is not None:
+            first.text_encoder.pre.P_DROPOUT = 0.0
+        for m in first.quant_decoder.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        full = vqtts_batch(VQTTS_BATCH, VQTTS_SAMPLES, device, seed=44)
+        batch = {k: v[:2] for k, v in full.items()}
+        decisions = Decisions(vqtts_model, vqtts_bottleneck)
+        with torch.no_grad():  # the lazy codebook init, once, from the card's fp32 forward
+            first.supervised_step(batch, train=True, generators={
+                "device_dropout": torch.Generator(device=device).manual_seed(1),
+                "dropout": torch.Generator().manual_seed(1),
+                "codebook": torch.Generator(device=device).manual_seed(1)})
+    first = first.cpu()
+    batch = {k: v.cpu() for k, v in batch.items()}
+    ups = sgd_updates(first, batch, device, ("cpu64", "cuda", "cpu"), decisions)
+    ref = ups["cpu64"][1]
+    # per parameter over a norm floored at 1e-4 of the whole update's: the key biases' true gradients are
+    # zero (the softmax ignores them), so their fp64 updates are rounding alone
+    floor = 1e-4 * torch.sqrt(sum((r ** 2).sum() for r in ref.values())).item()
+
+    def distance(update: dict) -> tuple:
+        per = {k: (update[k] - r).norm().item() / max(r.norm().item(), floor) for k, r in ref.items()}
+        worst = max(per, key=per.get)
+        return statistics.median(per.values()), (worst, per[worst]), update_distance(update, ref)[2]
+
+    errs = {n: distance(ups[n][1]) for n in ("cuda", "cpu")}
+    control = distance({k: BF16_CONTROL_SCALE * v for k, v in ups["cuda"][1].items()})
+
+    def ratios(d: tuple) -> tuple:
+        return d[0] / errs["cpu"][0], d[2] / errs["cpu"][2], d[1][1] / errs["cpu"][1][1]
+
+    card_r, control_r = ratios(errs["cuda"]), ratios(control)
+    print(f"{tag} losses: card bf16 {ups['cuda'][0]}; cpu bf16 {ups['cpu'][0]}; cpu fp64 {ups['cpu64'][0]}")
+    print(f"{tag} updates against fp64's, relative L2 (median parameter, all, worst; floored): card bf16 "
+          f"{errs['cuda'][0]:.3e} {errs['cuda'][2]:.3e} {errs['cuda'][1]}; cpu bf16 {errs['cpu'][0]:.3e} "
+          f"{errs['cpu'][2]:.3e} {errs['cpu'][1]}; card / cpu {card_r[0]:.3f} / {card_r[1]:.3f} / {card_r[2]:.3f} "
+          f"(within {BF16_LIN_MULTIPLE}); control x{BF16_CONTROL_SCALE} {control_r[0]:.3f} / {control_r[1]:.3f} / "
+          f"{control_r[2]:.3f} (must exceed it) [{card}]")
+    for key in ("loss",):
+        rel = abs(ups["cuda"][0][key] - ups["cpu"][0][key]) / max(abs(ups["cpu"][0][key]), 1e-12)
+        require(rel <= BF16_LOSS_RTOL, f"{tag}: the card's bf16 {key} is {rel} from the CPU's")
+    require(all(r <= BF16_LIN_MULTIPLE for r in card_r), f"{tag}: card / cpu {card_r}")
+    require(any(r > BF16_LIN_MULTIPLE for r in control_r), f"{tag}: the control passes: {control_r}")
+    return {"card_ratio": card_r, "control_ratio": control_r}
 
 
 def bf16_updates(device, seed: int, log_stft: bool, names: tuple) -> dict:
@@ -3429,6 +3907,26 @@ def main() -> None:
     bf16_train = phase_bf16_train(device, card)
     torch.cuda.empty_cache()
     phase_bf16_train_vs_cpu(device, card)
+    torch.cuda.empty_cache()
+
+    # the bf16 modes of B3 and B5, Glow-TTS's and VQ-TTS's bf16 train steps
+    glow = build_glow(device, GLOW_SEED)
+    b3_bf16 = phase_bf16_wn_coupling(glow, device, card)
+    b5_bf16 = phase_bf16_enc_layer(glow, device, card)
+    del glow
+    torch.cuda.empty_cache()
+    vq_fwd_bf16 = phase_bf16_kernel(device, card, VQTTS_BLOCK_TS, VQTTS_BATCH, VQTTS_DEPTH, "[bf16 kernel vqtts]")
+    vq_bwd_bf16 = phase_bf16_backward(device, card, VQTTS_BLOCK_TS, VQTTS_BATCH, VQTTS_DEPTH,
+                                      "[bf16 backward vqtts]")
+    torch.cuda.empty_cache()
+    glow_bf16 = phase_bf16_glow_train(device, card)
+    torch.cuda.empty_cache()
+    vq_bf16 = phase_bf16_vqtts_train(device, card, fused_encoder=False)
+    vq_bf16_b5 = phase_bf16_vqtts_train(device, card, fused_encoder=True)
+    torch.cuda.empty_cache()
+    for kind in ("glow", "vqtts", "vqtts_b5"):
+        phase_bf16_vs_fp64(device, card, kind)
+        torch.cuda.empty_cache()
 
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
@@ -3438,13 +3936,28 @@ def main() -> None:
           f"{glow_train_b6['launches']} and one val step {val_b6['launches']}; VQ-TTS training path (B1 fwd, B1 bwd, "
           f"B1 red, B4, B5 fwd, B5 bwd) {vq_train['launches']}, on B5's encoder route {vq_train_b5['launches']}, one "
           f"val step {vq_val['launches']}; the bf16 training path (bf16 fwd, bwd, red) "
-          f"{(bf16_train['fwd'], bf16_train['bwd'], bf16_train['red'])}")
+          f"{(bf16_train['fwd'], bf16_train['bwd'], bf16_train['red'])}; the bf16 Glow-TTS training path (fp32 B5 fwd, "
+          f"bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) {glow_bf16['launches']}; the bf16 VQ-TTS training "
+          f"path (fp32 B1 fwd, bwd, red, bf16 B1 fwd, bwd, red, B4, fp32 B5 fwd, bwd, bf16 B5 fwd, bwd) "
+          f"{vq_bf16['launches']}, on B5's encoder route {vq_bf16_b5['launches']}")
 
     def at_vqtts(kernel: dict, **extra) -> dict:
         return {"shapes": f"{len(VQTTS_BLOCK_TS)} block shapes, B={VQTTS_BATCH}, depth {VQTTS_DEPTH}, summed",
                 **{k: kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, **extra}
 
     vq_fwd, vq_bwd = vq_blocks["fwd"], vq_blocks["bwd"]
+    vq_b1_bf16 = {n: vq_bf16["launches"][i] + vq_bf16_b5["launches"][i] for n, i in (("fwd", 3), ("bwd", 4), ("red", 5))}
+    vqtts_bf16 = {
+        "fwd": {"launches": vq_b1_bf16["fwd"], "at_vqtts": at_vqtts(vq_fwd_bf16, max_abs_err=vq_fwd_bf16["max_abs_err"],
+                                                                     ulp_share=vq_fwd_bf16["share"])},
+        "bwd": {"launches": vq_b1_bf16["bwd"], "at_vqtts": at_vqtts(vq_bwd_bf16, max_abs_err=vq_bwd_bf16["dx_err"])},
+        "red": {"launches": vq_b1_bf16["red"], "at_vqtts": dict(
+            shapes=f"{len(VQTTS_BLOCK_TS)} block shapes, B={VQTTS_BATCH}, depth {VQTTS_DEPTH}, summed",
+            ms=vq_bwd_bf16["red_ms"], plain_ms=vq_bwd_bf16["red_plain_ms"], bound_ms=vq_bwd_bf16["red_bound_ms"],
+            bound_by=vq_bwd_bf16["red_bound_by"], library_ms=vq_bwd_bf16["red_library_ms"],
+            max_abs_err=vq_bwd_bf16["red_err"])}}
+    glow_b5_bf16 = glow_bf16["launches"][4] + vq_bf16_b5["launches"][9]
+    glow_b5_bwd_bf16 = glow_bf16["launches"][5] + vq_bf16_b5["launches"][10]
     vqtts_b1 = {"launches": vq_train["launches"][0], "launches_b5_route": vq_train_b5["launches"][0],
                 "launches_val_step": vq_val["launches"][0],
                 "at_vqtts": at_vqtts(vq_fwd, max_abs_err=max(vq_fwd["max_abs_err"], vq_blocks["fwd_drop_err"]),
@@ -3475,15 +3988,16 @@ def main() -> None:
               vqtts=vqtts_red),
         entry("gated_hifi_fwd_bf16", "gated_hifi_fwd.cu", PALLAS + ":591", bf16_train["fwd"], bf16_fwd["max_abs_err"],
               bf16_fwd["ms"], bf16_fwd["plain_ms"], bf16_fwd["bound_ms"], bf16_fwd["bound_by"],
-              call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates),
+              call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates,
+              vqtts=vqtts_bf16["fwd"]),
         entry("gated_hifi_bwd_bf16", "gated_hifi_bwd.cu", PALLAS + ":612", bf16_train["bwd"], bf16_bwd["dx_err"],
               bf16_bwd["ms"], bf16_bwd["plain_ms"], bf16_bwd["bound_ms"], bf16_bwd["bound_by"],
               call_ms=bf16_bwd["call_ms"], ulp_share=bf16_bwd["share"],
-              bound_with_buffers_ms=bf16_bwd["bound_buffers_ms"]),
+              bound_with_buffers_ms=bf16_bwd["bound_buffers_ms"], vqtts=vqtts_bf16["bwd"]),
         entry("gated_hifi_wgrad_bf16", "gated_hifi_bwd.cu", PALLAS + ":360", bf16_train["red"], bf16_bwd["red_err"],
               bf16_bwd["red_ms"], bf16_bwd["red_plain_ms"], bf16_bwd["red_bound_ms"], bf16_bwd["red_bound_by"],
               bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"],
-              bound_with_buffers_ms=bf16_bwd["red_bound_buffers_ms"]),
+              bound_with_buffers_ms=bf16_bwd["red_bound_buffers_ms"], vqtts=vqtts_bf16["red"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
               ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],
@@ -3509,6 +4023,20 @@ def main() -> None:
               b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
               call_ms=b5_bwd["call_ms"], bound_3xtf32_ms=b5_bwd["tf32_ms"],
               vqtts={"launches_b5_route": vq_train_b5["launches"][5]}),
+        entry("wn_coupling_fwd_bf16", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_bf16["launches"][6],
+              b3_bf16["fwd"]["max_abs_err"], b3_bf16["fwd"]["ms"], b3_bf16["fwd"]["plain_ms"],
+              b3_bf16["fwd"]["bound_ms"], b3_bf16["fwd"]["bound_by"], call_ms=b3_bf16["fwd"]["call_ms"]),
+        entry("wn_coupling_bwd_bf16", "wn_coupling_bwd.cu", PALLAS_WN + ":484", glow_bf16["launches"][7],
+              b3_bf16["bwd"]["max_abs_err"], b3_bf16["bwd"]["ms"], b3_bf16["bwd"]["plain_ms"],
+              b3_bf16["bwd"]["bound_ms"], b3_bf16["bwd"]["bound_by"], call_ms=b3_bf16["bwd"]["call_ms"]),
+        entry("enc_layer_fwd_bf16", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_b5_bf16,
+              b5_bf16["fwd"]["max_abs_err"], b5_bf16["fwd"]["ms"], b5_bf16["fwd"]["plain_ms"],
+              b5_bf16["fwd"]["bound_ms"], b5_bf16["fwd"]["bound_by"], call_ms=b5_bf16["fwd"]["call_ms"],
+              vqtts={"launches_b5_route": vq_bf16_b5["launches"][9]}),
+        entry("enc_layer_bwd_bf16", "enc_layer_bwd.cu", PALLAS_ENC + ":496", glow_b5_bwd_bf16,
+              b5_bf16["bwd"]["max_abs_err"], b5_bf16["bwd"]["ms"], b5_bf16["bwd"]["plain_ms"],
+              b5_bf16["bwd"]["bound_ms"], b5_bf16["bwd"]["bound_by"], call_ms=b5_bf16["bwd"]["call_ms"],
+              vqtts={"launches_b5_route": vq_bf16_b5["launches"][10]}),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
               b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], call_ms=b6["fwd_call_ms"],
               bound_3xtf32_ms=b6["fwd_tf32_ms"]),

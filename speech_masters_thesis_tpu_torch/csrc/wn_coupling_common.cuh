@@ -9,6 +9,11 @@
 //
 // Dropout of layer i's conv output (both halves, before the gate): stream
 // b * WN_STREAMS + i, counter t * 2H + c (ops/wn_coupling.py:keep_mask).
+//
+// IO is the mode (conv_mma.cuh): float, or bf16 for the TPU kernel's bf16
+// dot_dtype. In bf16 x0, g, the weights, out, dx0 and the gradients hold bf16
+// (the pointers stay float* and are read as bf16); h, acts, skip and the
+// backward's scratch stay fp32, each product rounding its operands.
 
 #pragma once
 
@@ -29,18 +34,18 @@ static_assert(conv_mma::MAX_PACK >= WN_STREAMS, "one packing launch takes every 
 // One step of a chain: conv_mma's launch, 128 columns (64 channel pairs)
 // for GATE and 64 otherwise. The weight of a TAPS > 1 launch is
 // conv_mma::pack's copy (conv_mma::weight_of).
-template <class Tag, int TAPS, int EPI>
+template <class Tag, int TAPS, int EPI, class IO = float>
 cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
-  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI>(a, B, s);
+  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI, 64, 4, IO>(a, B, s);
 }
 
 // The same with the number of taps chosen at run time (1, 3 or 5).
-template <class Tag, int EPI>
+template <class Tag, int EPI, class IO = float>
 cudaError_t launch_taps(int taps, const conv_rows::Args& a, int B, cudaStream_t s) {
   switch (taps) {
-    case 1: return launch<Tag, 1, EPI>(a, B, s);
-    case 3: return launch<Tag, 3, EPI>(a, B, s);
-    case 5: return launch<Tag, 5, EPI>(a, B, s);
+    case 1: return launch<Tag, 1, EPI, IO>(a, B, s);
+    case 3: return launch<Tag, 3, EPI, IO>(a, B, s);
+    case 5: return launch<Tag, 5, EPI, IO>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -100,7 +105,7 @@ inline size_t packed_floats(const Shape& s, int forms) {
 // acts_step and, when xin is set, its post-dropout conv output to xin + i *
 // xin_step ([B, T, 2H]). The skip sum goes to skip. For k > 1, w.win holds
 // the packed copies (pack_win).
-template <class Tag>
+template <class Tag, class IO = float>
 cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
                           const Dropout& drop, float* hs, size_t hs_step, float* acts, size_t acts_step,
                           float* xin, size_t xin_step, float* skip, cudaStream_t s) {
@@ -112,10 +117,11 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
   a.hidden = H;
   a.dil = 1;
 
-  a.in = x0; a.ldi = ldx; a.cin = sh.half; a.mask_in = 0;
+  a.in = x0; a.ldi = ldx; a.cin = sh.half; a.mask_in = 0; a.in_bf16 = conv_mma::kBf16<IO>;
   a.w = w.ws; a.bias = w.bs; a.n_out = H; a.out = hs; a.ldo = H;
-  cudaError_t err = launch<Tag, 1, MASK>(a, sh.B, s);
+  cudaError_t err = launch<Tag, 1, MASK, IO>(a, sh.B, s);
   if (err != cudaSuccess) return err;
+  a.in_bf16 = 0;  // the rest read fp32 buffers
 
   int dil = 1;
   for (int i = 0; i < sh.n_layers; ++i, dil *= sh.rate) {
@@ -127,7 +133,7 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     g.xin = xin ? xin + i * xin_step : nullptr; g.ldx = 2 * H;
     g.seed = drop.seed; g.threshold = drop.threshold; g.keep_scale = drop.keep_scale;
     g.stream_mul = WN_STREAMS; g.stream_add = i; g.drop_ld = 2 * H;
-    err = launch_taps<Tag, GATE>(sh.kernel_size, g, sh.B, s);
+    err = launch_taps<Tag, GATE, IO>(sh.kernel_size, g, sh.B, s);
     if (err != cudaSuccess) return err;
 
     // h in place (hs_step 0) is safe: this launch reads act, and its
@@ -138,7 +144,7 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     r.w = w.wrs[i]; r.bias = w.brs[i]; r.n_out = i < sh.n_layers - 1 ? 2 * H : H;
     r.out = i < sh.n_layers - 1 ? hs + (i + 1) * hs_step : h; r.ldo = H; r.res = h; r.ldr = H;
     r.skip = skip; r.lds = H; r.first = i == 0;
-    err = launch<Tag, 1, RES_SKIP>(r, sh.B, s);
+    err = launch<Tag, 1, RES_SKIP, IO>(r, sh.B, s);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -148,18 +154,19 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
 // into `packed` (packed_floats(sh, forms)), in the list `win`; a 1x1
 // conv's weight is read as it is. With forms 2 the transposes
 // ([k][2H][H], tap-flipped) follow each layer's conv, listed in `win_t`.
-template <class Tag, int FORMS>
+template <class Tag, int FORMS, class IO = float>
 cudaError_t pack_win(const Weights& w, const Shape& sh, float* packed, std::vector<const float*>& win,
                      std::vector<const float*>* win_t, cudaStream_t s) {
   const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   win.assign(w.win, w.win + L);
   if (win_t) win_t->assign(w.win, w.win + L);
   if (k == 1) return cudaSuccess;
-  const cudaError_t err = conv_mma::pack<Tag, FORMS>(w.win, L, packed, 2 * H, H, k, s);
+  const cudaError_t err = conv_mma::pack<Tag, FORMS, IO>(w.win, L, packed, 2 * H, H, k, s);
   if (err != cudaSuccess) return err;
-  for (int i = 0; i < L; ++i) {
-    win[i] = packed + (size_t)FORMS * i * k * 2 * H * H;
-    if (win_t) (*win_t)[i] = win[i] + (size_t)k * 2 * H * H;
+  for (int i = 0; i < L; ++i) {  // offsets in IO elements (pack_weights_kernel's)
+    float* conv = conv_mma::elems_at<IO>(packed, (size_t)FORMS * i * k * 2 * H * H);
+    win[i] = conv;
+    if (win_t) (*win_t)[i] = conv_mma::elems_at<IO>(conv, (size_t)k * 2 * H * H);
   }
   return cudaSuccess;
 }
@@ -168,23 +175,24 @@ cudaError_t pack_win(const Weights& w, const Shape& sh, float* packed, std::vect
 // (packed_floats(sh, 1)), the chain with h updated in place, then out =
 // (skip * valid) W_end + b_end [B, T, c_out] contiguous. 2 + 2 L launches,
 // and one more to pack for k > 1.
-template <class Tag>
+template <class Tag, class IO = float>
 cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
                     const Dropout& drop, float* out, float* h, float* acts, float* skip, float* packed,
                     cudaStream_t s) {
   using namespace conv_rows;
   std::vector<const float*> win;
-  cudaError_t err = pack_win<Tag, 1>(w, sh, packed, win, nullptr, s);
+  cudaError_t err = pack_win<Tag, 1, IO>(w, sh, packed, win, nullptr, s);
   if (err != cudaSuccess) return err;
   Weights wc = w;
   wc.win = win.data();
-  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
+  err = forward_chain<Tag, IO>(x0, ldx, lens, wc, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
   if (err != cudaSuccess) return err;
   Args e{};
   e.lens = lens; e.T = sh.T; e.dil = 1;
   e.in = skip; e.ldi = sh.H; e.cin = sh.H; e.mask_in = 1;
   e.w = w.wend; e.bias = w.bend; e.n_out = sh.c_out; e.out = out; e.ldo = sh.c_out;
-  return launch<Tag, 1, BIAS>(e, sh.B, s);
+  e.out_bf16 = conv_mma::kBf16<IO>;
+  return launch<Tag, 1, BIAS, IO>(e, sh.B, s);
 }
 
 // The backward for the output cotangent g [B, T, c_out], up to the weight
@@ -195,19 +203,21 @@ cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w,
 // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
 //   dx0 = (res + dh_0 W_s^T) * valid   (res rows ldres apart; 0 when null)
 // into dx0 (rows ld_dx0 apart). 3 + 4 L launches, and one more to pack for k > 1.
-template <class Tag>
+template <class Tag, class IO = float>
 cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const float* g, const Weights& w,
                            const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
                            float* dx0, int ld_dx0, float* packed, cudaStream_t s) {
   using namespace conv_rows;
+  constexpr bool BF = conv_mma::kBf16<IO>;  // (the flow step's res: fp32 mode only)
   const int B = sh.B, H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)B * sh.T * H;
   std::vector<const float*> win_conv, win_t;
-  cudaError_t err = pack_win<Tag, 2>(w, sh, packed, win_conv, &win_t, s);
+  cudaError_t err = pack_win<Tag, 2, IO>(w, sh, packed, win_conv, &win_t, s);
   if (err != cudaSuccess) return err;
   Weights wc = w;
   wc.win = win_conv.data();
-  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip, s);
+  err = forward_chain<Tag, IO>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip,
+                               s);
   if (err != cudaSuccess) return err;
 
   Args a{};
@@ -217,8 +227,8 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
 
   Args e = a;  // dskip = (g W_end^T) * valid
   e.in = g; e.ldi = sh.c_out; e.cin = sh.c_out; e.mask_in = 1;
-  e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H;
-  err = launch<Tag, 1, MASK>(e, B, s);
+  e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H; e.in_bf16 = BF;
+  err = launch<Tag, 1, MASK, IO>(e, B, s);
   if (err != cudaSuccess) return err;
 
   for (int i = L - 1; i >= 0; --i) {
@@ -234,43 +244,48 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
     }
     r.w = w.wrs[i]; r.n_out = H; r.out = sc.dxin + 2 * i * lay; r.ldo = 2 * H;
     r.xin = sc.xin + 2 * i * lay; r.ldx = 2 * H; r.stream_add = i;
-    err = launch<Tag, 1, GATE_BWD>(r, B, s);
+    err = launch<Tag, 1, GATE_BWD, IO>(r, B, s);
     if (err != cudaSuccess) return err;
 
     Args c = a;  // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid
     c.in = sc.dxin + 2 * i * lay; c.ldi = 2 * H; c.cin = 2 * H; c.mask_in = 1;
     c.w = win_t[i]; c.n_out = H; c.dil = dil; c.out = sc.dh + i * lay; c.ldo = H;
     if (last) {
-      err = launch_taps<Tag, MASK>(k, c, B, s);
+      err = launch_taps<Tag, MASK, IO>(k, c, B, s);
     } else {
       c.res = dh_next; c.ldr = H; c.hidden = 0;
-      err = launch_taps<Tag, RES_SKIP>(k, c, B, s);
+      err = launch_taps<Tag, RES_SKIP, IO>(k, c, B, s);
     }
     if (err != cudaSuccess) return err;
   }
 
   Args x = a;  // dx0 = (res + dh_0 W_s^T) * valid
   x.in = sc.dh; x.ldi = H; x.cin = H; x.mask_in = 1;
-  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0;
-  if (!res) return launch<Tag, 1, MASK>(x, B, s);
+  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0; x.out_bf16 = BF;
+  if (!res) return launch<Tag, 1, MASK, IO>(x, B, s);
   x.res = res; x.ldr = ldres; x.hidden = 0;
-  return launch<Tag, 1, RES_SKIP>(x, B, s);
+  return launch<Tag, 1, RES_SKIP, IO>(x, B, s);
 }
 
 // Every conditioner weight gradient as a reduction problem (pointers may be
 // null when only the partials' size is wanted): W_end from (skip * valid, g),
 // W_rs_i from (acts_i, [dh_{i+1}, dskip]), W_in_i from (h_i shifted by each
 // tap, dx_in_i), W_s from (x0, dh_0); the biases are the column sums.
+// bf16: x0 and g hold bf16 (Problem::bf16).
 inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const float* g, const Grads& d,
-                                                 const Scratch& sc, const Shape& sh) {
+                                                 const Scratch& sc, const Shape& sh, bool bf16 = false) {
   using wgrad_rows::problem;
   const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)sh.B * sh.T * H;
   auto at = [](const float* p, size_t off) { return p ? p + off : nullptr; };
-  auto atw = [](float* p, size_t off) { return p ? p + off : nullptr; };
+  // a gradient's element `off` (bf16 elements when the gradients hold bf16)
+  auto atw = [bf16](float* p, size_t off) {
+    return p ? (bf16 ? conv_mma::elems_at<conv_mma::bf16_t>(p, off) : p + off) : nullptr;
+  };
   std::vector<wgrad_rows::Problem> probs;
   wgrad_rows::Problem p = problem(x0, ldx, sh.half, sc.dh, H, H, d.dws, sh.half, 1);
   p.out_b = d.dbs;
+  p.bf16 = bf16 ? wgrad_rows::X_BF16 : 0;
   probs.push_back(p);
   int dil = 1;
   for (int i = 0; i < L; ++i, dil *= sh.rate) {
@@ -297,6 +312,7 @@ inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const
   p = problem(sc.skip, H, H, g, sh.c_out, sh.c_out, d.dwend, H, 1);
   p.mask_x = 1;
   p.out_b = d.dbend;
+  p.bf16 = bf16 ? wgrad_rows::Y_BF16 : 0;
   probs.push_back(p);
   return probs;
 }

@@ -19,6 +19,15 @@ Routes, as the JAX package chooses them:
     dropout needs the TPU's hardware generator, and the port's hashed
     dropout runs on every device.
 
+Under bf16 mixed precision (``make_train_step(..., bf16=True)``) the
+activations follow the JAX package's dtypes: the masks take the
+activations' dtype, so a bf16 mask's lengths (``flows.mask_lengths``) are
+bf16 sums, which round above 256 as the JAX package's do; both routes
+round the layer's product operands to bf16 as B5's bf16 mode does (the
+flax layers round where XLA materializes a tensor, which no op-by-op
+rounding reproduces; the products' rounding is the nearer of the two,
+tests/test_torch_bf16_vqtts_train.py).
+
 In train mode every route drops with the model's rates: each encoder layer
 and each coupling call draws one dropout seed on the card from the
 ``generator`` it is given (encoder.py:217-223), and the prenet's and the
@@ -101,7 +110,7 @@ class TextEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None):  # pylint: disable=arguments-differ
         """text [B, T] ids -> (x_m, x_logs [B, T, out], logw [B, T], x_mask [B, T, 1])."""
         x = self.emb(text) * math.sqrt(self.hidden_channels)
-        x_mask = sequence_mask(text_lengths, x.shape[1])[..., None]
+        x_mask = sequence_mask(text_lengths, x.shape[1])[..., None].to(x.dtype)
         if self.pre is not None:
             x = self.pre(x, x_mask, train, generator)
         layer = enc_layer if self.fused and x.shape[1] <= self.fused_max_t else enc_layer_reference

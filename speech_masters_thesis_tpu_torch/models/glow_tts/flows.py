@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from speech_masters_thesis_tpu_torch.ops.basic import draw_seed
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32, draw_seed
 from speech_masters_thesis_tpu_torch.ops.enc_layer import conv1d_ntc
 from speech_masters_thesis_tpu_torch.ops.flow_step import flow_step, flow_step_reference
 from speech_masters_thesis_tpu_torch.ops.wn_coupling import WNWeights, wn_coupling, wn_coupling_reference
@@ -108,7 +108,8 @@ class InvConvNear(nn.Module):
         self.register_buffer("position_eye", torch.eye(channels // n_split), persistent=False)
 
     def inverse(self) -> torch.Tensor:
-        return self.weight_inv if self.weight_inv is not None else torch.linalg.inv(self.weight)
+        """weight's inverse, in fp32 (or fp64) from the weight as it is."""
+        return self.weight_inv if self.weight_inv is not None else torch.linalg.inv(at_least_f32(self.weight))
 
     def dense_matrix_t(self) -> torch.Tensor:
         """The layer as one dense [C, C] matrix, transposed: forward(x) ==
@@ -125,12 +126,17 @@ class InvConvNear(nn.Module):
         return (w_t * self.position_eye[None, :, None, None, :, None]).reshape(c, c)
 
     def forward(self, x, mask, lens, reverse: bool = False, **_):  # pylint: disable=arguments-differ
+        """The n_split x n_split matrix work (slogdet, inverse) runs in fp32
+        from the weight as it is, the weight applied in x's dtype, and the
+        logdet in fp32 from lengths in x's dtype (flows.py:196-222 of the
+        JAX package: under bf16 the lengths round above 256 there too)."""
         s = self.n_split
+        w32 = at_least_f32(self.weight)
         if reverse:
-            w, logdet = self.inverse(), None
+            w, logdet = self.inverse().to(x.dtype), None
         else:
-            w = self.weight
-            logdet = torch.linalg.slogdet(w)[1] * (x.shape[2] / s) * lens.to(x.dtype)
+            w = w32.to(x.dtype)
+            logdet = torch.linalg.slogdet(w32)[1] * (x.shape[2] / s) * lens.to(x.dtype).to(w32.dtype)
         z = torch.einsum("btsc,ks->btkc", _regroup(x, s), w)
         return _ungroup(z, s) * mask, logdet
 
@@ -198,6 +204,10 @@ class CouplingBlock(nn.Module):
                 generator: Optional[torch.Generator] = None, prefix=None, **_):  # pylint: disable=arguments-differ
         half = self.in_channels // 2
         w = self.conditioner_weights()
+        if w.ws.dtype != x.dtype:  # the JAX package's promotion at the products (fp32 flows, bf16 weights)
+            dtype = torch.promote_types(w.ws.dtype, x.dtype)
+            w = WNWeights.from_flat([t.to(dtype) for t in w.flat()], w.dilations)
+            x = x.to(dtype)
         if train and w.cached:
             raise RuntimeError("CouplingBlock: the flow cache is for inference; clear_flow_cache before training")
         p = self.p_dropout if train else 0.0
@@ -271,6 +281,10 @@ def unsqueeze(x: torch.Tensor, x_mask: torch.Tensor, n_sqz: int = 2) -> Tuple[to
 
 
 def mask_lengths(mask: torch.Tensor) -> torch.Tensor:
-    """[B, T, 1] 0/1 mask -> int32 lengths [B] (on the mask's device, no sync)."""
+    """[B, T, 1] 0/1 mask -> int32 lengths [B] (on the mask's device, no
+    sync), summed in the mask's dtype as the JAX package sums them
+    (flows.py:459): a bf16 sum holds integers exactly only up to 256 and
+    rounds a longer length to the nearest even one (301 -> 300, 263 ->
+    264), and the kernels then take that length."""
     return mask[..., 0].sum(dim=1).to(torch.int32)
 

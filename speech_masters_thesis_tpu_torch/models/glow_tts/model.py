@@ -42,9 +42,21 @@ def _normal(shape, like: torch.Tensor, noise: Optional[torch.Tensor],
 
 
 class GlowTTS(TokenToSpectrogramModel):
-    """Glow-TTS at a ``model:`` config section and its dataset's settings."""
+    """Glow-TTS at a ``model:`` config section and its dataset's settings.
+
+    bf16 training (``make_train_step(..., bf16=True)``): the forward on bf16
+    parameters and batch follows the JAX model's dtypes: B5 and B3 in their
+    bf16 modes, InvConvNear's slogdet and inverse in fp32, MAS (B4, fp32)
+    on a log-prior of bf16 products that JAX's numpy constant promotes to
+    fp32, the path fp32 and the aligned statistics with it, the losses
+    reduced in the dtypes JAX reduces them in (fp32 where a term is). A mel
+    batch keeps the flows in bf16; from audio (``on_device_spect``) the mel
+    is fp32 and the flows run fp32, the weights promoted, as in JAX. The
+    flow-step route (B6, ``fused_flow_step: true``) has no bf16 mode yet:
+    ``check_bf16`` raises."""
 
     USES_DATASET_CONFIG = True
+    BF16_TRAINING = True
 
     def __init__(self, model_cfg: Mapping, dataset_config: Mapping):
         super().__init__()
@@ -86,6 +98,14 @@ class GlowTTS(TokenToSpectrogramModel):
             p_dropout=dec["p_dropout"],
         )
 
+    def check_bf16(self) -> None:
+        """Raises unless every kernel of this configuration's train path has
+        a bf16 mode."""
+        if self.decoder.fused_flow_step:
+            raise NotImplementedError("bf16 training of GlowTTS with fused_flow_step: true is not ported: the "
+                                      "whole-flow-step kernel (B6) has no bf16 mode yet; set fused_flow_step: "
+                                      "false (B3's route) for bf16")
+
     def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor, y_lengths: torch.Tensor,
                 speaker=None, train: bool = False, ddi: bool = False, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, generators=None):  # pylint: disable=arguments-differ
@@ -109,12 +129,14 @@ class GlowTTS(TokenToSpectrogramModel):
         attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, :, 0][:, None, :]
         with torch.no_grad():
             logp = mas_log_prior(x_m.detach(), x_logs.detach(), z_dec.detach())
-            attn = maximum_path_auto(logp, attn_mask).to(x_m.dtype)
+            attn = maximum_path_auto(logp, attn_mask)
+            # the path is fp32 (JAX's path * mask): the aligned statistics promote to it under bf16
+            attn = attn.to(torch.promote_types(attn.dtype, x_m.dtype))
 
         logw_dec = torch.log(1e-8 + attn.sum(dim=-1)) * x_mask[:, :, 0]
         attn_t = attn.transpose(1, 2)
-        z_m_enc = attn_t @ x_m
-        z_logs_enc = attn_t @ x_logs
+        z_m_enc = attn_t @ x_m.to(attn.dtype)
+        z_logs_enc = attn_t @ x_logs.to(attn.dtype)
 
         yh = None
         if not train:

@@ -52,9 +52,17 @@ def pairwise_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class VQTTS(TokenToWaveformModel):
-    """VQ-TTS at a ``model:`` config section and its dataset's settings."""
+    """VQ-TTS at a ``model:`` config section and its dataset's settings.
+
+    bf16 training (``make_train_step(..., bf16=True)``) follows the JAX
+    model's dtypes: the codec's blocks in B1's bf16 mode, the text encoder's
+    layers in B5's bf16 mode (``fused_encoder: true``) or its plain version
+    (the config's route), ``pairwise_l2`` and the grouped bottleneck's
+    distances in fp32 against the fp32 codebook (a buffer: it keeps its
+    dtype), MAS (B4) in fp32."""
 
     USES_DATASET_CONFIG = True
+    BF16_TRAINING = True
 
     def __init__(self, model_cfg: Mapping, dataset_config: Mapping):
         super().__init__()
@@ -124,15 +132,18 @@ class VQTTS(TokenToWaveformModel):
         distances = pairwise_l2(x_enc, y_enc)                                     # [B, T_x, T_q]
         attn_mask = x_mask[:, :, 0][:, :, None] * q_mask[:, :, 0][:, None, :]
         with torch.no_grad():
-            attn = maximum_path_auto(-distances.detach(), attn_mask).to(x_enc.dtype)
+            attn = maximum_path_auto(-distances.detach(), attn_mask)
+            # the path is fp32 (JAX's path * mask), and what it aligns promotes to it under bf16
+            attn = attn.to(torch.promote_types(attn.dtype, x_enc.dtype))
 
         y_q, y_d, loss_commit, _ = self.quant_bottleneck(y_enc, x, attn, update_k=train,
                                                          generator=gens.get("codebook"))
 
         # predict each frame's relative code from the aligned, detached text encodings
-        aligned_text = (attn.transpose(1, 2) @ x_enc).detach()
+        aligned_text = (attn.transpose(1, 2) @ x_enc.to(attn.dtype)).detach()
         y_qh, _ = self.quant_decoder(aligned_text, q_mask, train, device_gen)
-        y_qh = pointwise(y_qh * q_mask, self.quant_proj.weight, self.quant_proj.bias)  # [B, T_q, l_bins]
+        y_qh = y_qh * q_mask
+        y_qh = pointwise(y_qh, self.quant_proj.weight.to(y_qh.dtype), self.quant_proj.bias.to(y_qh.dtype))
 
         y_h, _ = self.audio_decoder(y_d, q_mask, train, codec_gen)
         y_h = y_h[..., 0]

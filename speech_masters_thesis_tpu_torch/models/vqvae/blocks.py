@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops.basic import dropout
 from speech_masters_thesis_tpu_torch.ops.gated_hifi import gated_hifi, pack_weights
@@ -65,11 +66,22 @@ class ResLayer(nn.Module):
         """x: [B, T, C] -> [B, T, C]; dropout (train only) from ``generator``."""
         p = self.model[0].p if train else 0.0
         h = dropout(x, p, generator) if p > 0 else x
-        h = self.model[2](torch.relu(h).transpose(1, 2))
+        h = _conv(self.model[2], torch.relu(h).transpose(1, 2))
         if p > 0:
             h = dropout(h, p, generator)
-        h = self.model[5](torch.relu(h)).transpose(1, 2)
+        h = _conv(self.model[5], torch.relu(h)).transpose(1, 2)
         return x + self.res_scale * h
+
+
+def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; an fp32 x against bf16 weights (VQ-TTS's quant decoder on
+    the fp32 aligned text under bf16 training) runs in fp32, the weights
+    promoted as JAX promotes them."""
+    if conv.weight.dtype == x.dtype:
+        return conv(x)
+    dtype = torch.promote_types(conv.weight.dtype, x.dtype)
+    return F.conv1d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), conv.stride, conv.padding,
+                    conv.dilation)
 
 
 class GatedHiFiBlock(nn.Module):

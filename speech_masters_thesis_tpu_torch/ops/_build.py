@@ -132,11 +132,15 @@ def build() -> ctypes.CDLL:
     ptrs = ctypes.POINTER(p)
     lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
+    lib.wn_coupling_fwd_bf16.argtypes = lib.wn_coupling_fwd.argtypes
+    lib.wn_coupling_fwd_bf16.restype = i
     lib.wn_coupling_fwd_workspace_floats.argtypes = [i] * 8
     lib.wn_coupling_fwd_workspace_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
                                     + [p] * 10 + [i] * 8 + [u, f, p])
     lib.wn_coupling_bwd.restype = i
+    lib.wn_coupling_bwd_bf16.argtypes = lib.wn_coupling_bwd.argtypes
+    lib.wn_coupling_bwd_bf16.restype = i
     lib.wn_coupling_bwd_workspace_floats.argtypes = [i] * 8
     lib.wn_coupling_bwd_workspace_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]
@@ -152,10 +156,14 @@ def build() -> ctypes.CDLL:
     lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_fwd.argtypes = [p] * 27 + [i] * 7 + [f, u, f, p]
     lib.enc_layer_fwd.restype = i
+    lib.enc_layer_fwd_bf16.argtypes = lib.enc_layer_fwd.argtypes
+    lib.enc_layer_fwd_bf16.restype = i
     lib.enc_layer_fwd_workspace_floats.argtypes = [i] * 7
     lib.enc_layer_fwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, p]
     lib.enc_layer_bwd.restype = i
+    lib.enc_layer_bwd_bf16.argtypes = lib.enc_layer_bwd.argtypes
+    lib.enc_layer_bwd_bf16.restype = i
     lib.enc_layer_bwd_workspace_floats.argtypes = [i] * 7
     lib.enc_layer_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]

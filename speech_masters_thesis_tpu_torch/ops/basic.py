@@ -17,6 +17,19 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Rounds to bf16 (nearest even, as XLA's astype) and back to fp32: a
+    product operand of the TPU kernels' bf16 mode. A product of two such
+    values is exact in fp32, so an fp32 product of rounded operands is their
+    bf16 x bf16 -> f32 dot up to the order of its sums."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def same(t: torch.Tensor) -> torch.Tensor:
+    """The fp32 mode's stand-in for ``round_bf16``: no rounding."""
+    return t
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt with a zero (not NaN/inf) gradient at x == 0 (double-where)."""
     positive = x > 0

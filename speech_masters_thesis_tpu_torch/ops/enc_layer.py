@@ -33,6 +33,18 @@ agree bit for bit and the backward regenerates them from the seed (an int64
 [out, in, k]. Rows at or past the length are unspecified in the output;
 their cotangent is taken as zero and their input gradient is zero, as in the
 TPU kernel.
+
+Two modes, as the TPU kernel's ``dot_dtype`` (x's dtype) has them. fp32: x,
+the weights and g float32. bf16 (the JAX package's mixed-precision
+training): x, every weight and g bfloat16, and the operands of every
+product (q/k/v, the scores and relative-key logits, P V after dropout, the
+relative-value band, the out-projection, the FFN convs, and each of their
+transposes and weight gradients in the backward) rounded to bf16 and summed
+in fp32; LayerNorm, the softmax, the masks and dropout fp32; out and dx in
+bf16, the weight gradients summed in fp32 and cast to bf16 once. Mixed
+dtypes raise. ``.launches`` counts fp32 kernel launches, ``.bf16_launches``
+bf16 ones. A bf16 CPU tensor runs ``EncLayerFunction`` over the plain
+versions (the TPU kernel's backward rounding).
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
-from speech_masters_thesis_tpu_torch.ops.basic import pointwise, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32, pointwise, round_bf16, same, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.hash import keep_factor, keep_scale, keep_threshold
 from speech_masters_thesis_tpu_torch.ops.wn_coupling import dilated_transpose, dilated_weight_grad
 
@@ -95,10 +107,13 @@ class EncLayerWeights:
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis with flax's statistics."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    return (x - mean) * (torch.rsqrt(var + eps) * gamma) + beta
+    """LayerNorm over the last axis with flax's statistics; for a bf16 x in
+    fp32 inside with one rounding at the output, as flax's LayerNorm
+    computes under the JAX package's mixed precision."""
+    xf = at_least_f32(x)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    return ((xf - mean) * (torch.rsqrt(var + eps) * gamma) + beta).to(x.dtype)
 
 
 def conv1d_ntc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1) -> torch.Tensor:
@@ -189,28 +204,49 @@ def _ln_backward(dout: torch.Tensor, zhat: torch.Tensor, inv: torch.Tensor, gamm
     return dz, (dout * zhat).sum(dim=(0, 1)), dout.sum(dim=(0, 1))
 
 
-def _forward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed, p_drop: float) -> dict:
-    """The layer, keeping what the backward needs."""
+def check_dtypes(x: torch.Tensor, w: EncLayerWeights, g: Optional[torch.Tensor] = None) -> None:
+    """x, every weight (and g) share one dtype: one mode per call."""
+    for name, t in {**w.tensors(), **({} if g is None else {"g": g})}.items():
+        if t.dtype != x.dtype:
+            raise ValueError(f"enc_layer: {name} is {t.dtype} but x is {x.dtype}: x, every weight and g share "
+                             "one dtype (float32 or bfloat16)")
+
+
+def _operands(x: torch.Tensor, w: EncLayerWeights):
+    """(round, x, w) for the plain versions: in bf16 mode x and w in fp32 and
+    ``round`` rounding a product operand to bf16; otherwise as they are and
+    no rounding."""
+    check_dtypes(x, w)
+    if x.dtype != torch.bfloat16:
+        return same, x, w
+    return round_bf16, x.float(), w.with_tensors([t.float() for t in w.tensors().values()])
+
+
+def _forward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed, p_drop: float, rnd=same) -> dict:
+    """The layer, keeping what the backward needs; ``rnd`` rounds each
+    product's operands (``_operands``)."""
     T, C = x.shape[1], x.shape[2]
     drop = p_drop > 0.0
     valid = sequence_mask(lens, T).to(x.dtype)[..., None]
     s = {"valid": valid, "xm": x * valid}
-    s["q"], s["k"], s["v"] = (pointwise(s["xm"], wt, b) for wt, b in ((w.wq, w.bq), (w.wk, w.bk), (w.wv, w.bv)))
-    s["p"] = attention_probs(s["q"], s["k"], valid, w.rk, w.n_heads, w.window)
+    s["q"], s["k"], s["v"] = (pointwise(rnd(s["xm"]), rnd(wt), b)
+                              for wt, b in ((w.wq, w.bq), (w.wk, w.bk), (w.wv, w.bv)))
+    s["p"] = attention_probs(rnd(s["q"]), rnd(s["k"]), valid, rnd(w.rk), w.n_heads, w.window)
     s["keep_p"] = attention_keep(seed, lens, w.n_heads, T, p_drop, x.dtype) if drop else None
     s["pd"] = s["p"] * s["keep_p"] if drop else s["p"]
-    s["att"] = _merge(s["pd"] @ _heads(s["v"], w.n_heads) + band_extract(s["pd"], w.window) @ w.rv)
-    y = pointwise(s["att"], w.wo, w.bo)
+    pd = rnd(s["pd"])
+    s["att"] = _merge(pd @ _heads(rnd(s["v"]), w.n_heads) + band_extract(pd, w.window) @ rnd(w.rv))
+    y = pointwise(rnd(s["att"]), rnd(w.wo), w.bo)
     if drop:
         y = y * dropout_keep(seed, lens, T, C, SITE_ATTN_Y, p_drop, x.dtype)
     s["z1"] = s["xm"] + y
     s["x1"] = layer_norm(s["z1"], w.g1, w.be1, w.eps)
-    s["c1"] = conv1d_ntc(s["x1"] * valid, w.w1, w.b1)
+    s["c1"] = conv1d_ntc(rnd(s["x1"] * valid), rnd(w.w1), w.b1)
     a1 = torch.relu(s["c1"])
     if drop:
         a1 = a1 * dropout_keep(seed, lens, T, w.w1.shape[0], SITE_FFN_MID, p_drop, x.dtype)
     s["d1m"] = a1 * valid
-    y2 = conv1d_ntc(s["d1m"], w.w2, w.b2) * valid
+    y2 = conv1d_ntc(rnd(s["d1m"]), rnd(w.w2), w.b2) * valid
     if drop:
         y2 = y2 * dropout_keep(seed, lens, T, C, SITE_FFN_Y, p_drop, x.dtype)
     s["z2"] = s["x1"] + y2
@@ -220,10 +256,13 @@ def _forward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed, p_dr
 
 def enc_layer_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=0,
                         p_drop: float = 0.0) -> torch.Tensor:
-    """Plain layer: x [B, T, C], lens [B] -> [B, T, C], with dropout
-    (``p_drop > 0``) at the JAX kernel's four sites and masks from ``seed``
-    (an int or an int64 tensor of one element)."""
-    return _forward(x, lens, w, seed, p_drop)["out"]
+    """Plain layer: x [B, T, C], lens [B] -> [B, T, C] in x's dtype, with
+    dropout (``p_drop > 0``) at the JAX kernel's four sites and masks from
+    ``seed`` (an int or an int64 tensor of one element); bf16: the products'
+    operands rounded as the TPU kernel rounds them, the rest fp32, the
+    output rounded."""
+    rnd, xf, wf = _operands(x, w)
+    return _forward(xf, lens, wf, seed, p_drop, rnd)["out"].to(x.dtype)
 
 
 def enc_layer_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, g: torch.Tensor,
@@ -231,13 +270,19 @@ def enc_layer_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLaye
                                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain recompute backward, by the TPU kernel's formulas
     (``_bwd_kernel``): (dx, {name: gradient} in ``PARAM_NAMES`` order), with
-    g taken as zero at rows at or past the length. ``relu_gate`` [B, T, F]
+    g taken as zero at rows at or past the length, in x's and the weights'
+    dtype (bf16: each product's operands rounded, the rest fp32, the
+    gradients summed in fp32 and rounded once). ``relu_gate`` [B, T, F]
     replaces the FFN relu's decisions (c1 > 0), e.g. by a kernel's own."""
     T, C = x.shape[1], x.shape[2]
     H, k = w.n_heads, w.w1.shape[2]
     drop = p_drop > 0.0
+    check_dtypes(x, w, g)
+    dtype = x.dtype
+    rnd, x, w = _operands(x, w)
+    g = g.to(x.dtype)
     with torch.no_grad():
-        s = _forward(x, lens, w, seed, p_drop)
+        s = _forward(x, lens, w, seed, p_drop, rnd)
         valid = s["valid"]
         grads = {}
         zhat2, inv2 = _ln_stats(s["z2"], w.eps)
@@ -245,36 +290,37 @@ def enc_layer_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLaye
         dc2 = dz2 * valid
         if drop:
             dc2 = dc2 * dropout_keep(seed, lens, T, C, SITE_FFN_Y, p_drop, x.dtype)
-        grads["w2"], grads["b2"] = dilated_weight_grad(s["d1m"], dc2, k, 1), dc2.sum(dim=(0, 1))
-        dc1 = dilated_transpose(dc2, w.w2, 1) * valid
+        grads["w2"], grads["b2"] = dilated_weight_grad(rnd(s["d1m"]), rnd(dc2), k, 1), dc2.sum(dim=(0, 1))
+        dc1 = dilated_transpose(rnd(dc2), rnd(w.w2), 1) * valid
         if drop:
             dc1 = dc1 * dropout_keep(seed, lens, T, w.w1.shape[0], SITE_FFN_MID, p_drop, x.dtype)
         dc1 = dc1 * (s["c1"] > 0 if relu_gate is None else relu_gate)
-        grads["w1"], grads["b1"] = dilated_weight_grad(s["x1"] * valid, dc1, k, 1), dc1.sum(dim=(0, 1))
+        grads["w1"], grads["b1"] = dilated_weight_grad(rnd(s["x1"] * valid), rnd(dc1), k, 1), dc1.sum(dim=(0, 1))
         zhat1, inv1 = _ln_stats(s["z1"], w.eps)
-        dz1, grads["g1"], grads["be1"] = _ln_backward(dz2 + dilated_transpose(dc1, w.w1, 1) * valid,
+        dz1, grads["g1"], grads["be1"] = _ln_backward(dz2 + dilated_transpose(rnd(dc1), rnd(w.w1), 1) * valid,
                                                       zhat1, inv1, w.g1)
         dy = dz1 * dropout_keep(seed, lens, T, C, SITE_ATTN_Y, p_drop, x.dtype) if drop else dz1
-        grads["wo"] = torch.einsum("btn,btc->nc", dy, s["att"])[..., None]
+        grads["wo"] = torch.einsum("btn,btc->nc", rnd(dy), rnd(s["att"]))[..., None]
         grads["bo"] = dy.sum(dim=(0, 1))
-        doh = _heads(dy @ w.wo[:, :, 0], H)
+        doh = rnd(_heads(rnd(dy) @ rnd(w.wo[:, :, 0]), H))  # only ever a product operand
         p, pd = s["p"], s["pd"]
-        qh, kh, vh = (_heads(s[n], H) for n in ("q", "k", "v"))
-        grads["rv"] = torch.einsum("bhto,bhtd->od", band_extract(pd, w.window), doh)
-        dp = doh @ vh.transpose(-2, -1) + band_scatter(doh @ w.rv.t(), w.window)
+        qh, kh, vh = (rnd(_heads(s[n], H)) for n in ("q", "k", "v"))
+        grads["rv"] = torch.einsum("bhto,bhtd->od", rnd(band_extract(pd, w.window)), doh)
+        dp = doh @ vh.transpose(-2, -1) + band_scatter(doh @ rnd(w.rv).t(), w.window)
         if drop:
             dp = dp * s["keep_p"]
         smask = valid[:, None, :, 0, None] * valid[:, None, None, :, 0]
         ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * smask / math.sqrt(C // H)
-        dclog = band_extract(ds, w.window)
+        dclog = rnd(band_extract(ds, w.window))
         grads["rk"] = torch.einsum("bhto,bhtd->od", dclog, qh)
         dxm = dz1
-        for name, d in (("q", _merge(ds @ kh + dclog @ w.rk)), ("k", _merge(ds.transpose(-2, -1) @ qh)),
-                        ("v", _merge(pd.transpose(-2, -1) @ doh))):
-            grads[f"w{name}"] = torch.einsum("btn,btc->nc", d, s["xm"])[..., None]
+        ds = rnd(ds)
+        for name, d in (("q", _merge(ds @ kh + dclog @ rnd(w.rk))), ("k", _merge(ds.transpose(-2, -1) @ qh)),
+                        ("v", _merge(rnd(pd).transpose(-2, -1) @ doh))):
+            grads[f"w{name}"] = torch.einsum("btn,btc->nc", rnd(d), rnd(s["xm"]))[..., None]
             grads[f"b{name}"] = d.sum(dim=(0, 1))
-            dxm = dxm + d @ getattr(w, f"w{name}")[:, :, 0]
-    return dxm * valid, {name: grads[name] for name in PARAM_NAMES}
+            dxm = dxm + rnd(d) @ rnd(getattr(w, f"w{name}")[:, :, 0])
+    return (dxm * valid).to(dtype), {name: grads[name].to(dtype) for name in PARAM_NAMES}
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +343,12 @@ def _check_call(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed: t
               "w1": (Fc, C, k), "b1": (Fc,), "w2": (C, Fc, k), "b2": (C,), "g2": (C,), "be2": (C,)}
     if k not in (1, 3, 5):
         raise ValueError(f"enc_layer: FFN kernel {k} must be 1, 3 or 5")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"enc_layer: x is {x.dtype}; the kernels take float32 or bfloat16")
+    check_dtypes(x, w)
     for name, t in {"x": x, **w.tensors()}.items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
-            raise ValueError(f"enc_layer: {name} must be a contiguous, 16-byte aligned float32 tensor "
+        if not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
+            raise ValueError(f"enc_layer: {name} must be a contiguous, 16-byte aligned {x.dtype} tensor "
                              f"on {x.device}")
         if name != "x" and tuple(t.shape) != shapes[name]:
             raise ValueError(f"enc_layer: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
@@ -329,17 +378,22 @@ def _launch_fwd(x, lens, w: EncLayerWeights, seed, p_drop: float) -> torch.Tenso
     B, T, C = x.shape
     Fc = w.w1.shape[0]
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
-    out, qkv, att, x1, hid = empty(B, T, C), empty(B, T, 3 * C), empty(B, T, C), empty(B, T, C), empty(B, T, Fc)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty_like(x)
+    qkv, att, x1, hid = empty(B, T, 3 * C), empty(B, T, C), empty(B, T, C), empty(B, T, Fc)
     lib = _build.build()
     shape = _shape_args(x, w)
     workspace = empty(_workspace_floats(lib.enc_layer_fwd_workspace_floats(*shape[:-1])))
-    rc = lib.enc_layer_fwd(
+    rc = (lib.enc_layer_fwd_bf16 if bf16 else lib.enc_layer_fwd)(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), *[t.data_ptr() for t in w.tensors().values()],
         out.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hid.data_ptr(), workspace.data_ptr(),
         *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_fwd launch failed with cudaError {rc}")
-    enc_layer.launches += 1
+    if bf16:
+        enc_layer.bf16_launches += 1
+    else:
+        enc_layer.launches += 1
     return out
 
 
@@ -372,9 +426,10 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     the LayerNorm and FFN backwards, the attention backward as a dq and a
     dk/dv kernel that recompute P, dx, then two fixed-order reductions of the
     weight gradients, on the tensor cores and on the CUDA cores: two calls
-    are bitwise equal) and counts ``enc_layer_backward.launches``;
-    ``return_buffers`` adds its device buffers (``backward_buffer_shapes``).
-    A CPU tensor runs ``enc_layer_backward_reference``.
+    are bitwise equal; bf16 tensors in the bf16 mode) and counts
+    ``enc_layer_backward.launches`` (fp32) or ``.bf16_launches``;
+    ``return_buffers`` adds its device buffers (``backward_buffer_shapes``,
+    fp32 in both modes). A CPU tensor runs ``enc_layer_backward_reference``.
     """
     if x.device.type == "cpu":
         if return_buffers:
@@ -383,23 +438,28 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     if x.device.type != "cuda":
         raise ValueError(f"enc_layer_backward: unsupported device {x.device}")
     _check_call(x, lens, w, seed)
-    if g.shape != x.shape or g.dtype != torch.float32 or not g.is_contiguous() or g.device != x.device:
-        raise ValueError(f"enc_layer_backward: g must be a contiguous float32 {tuple(x.shape)} tensor")
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
+        raise ValueError(f"enc_layer_backward: g must be a contiguous {x.dtype} {tuple(x.shape)} tensor, "
+                         f"got {g.dtype}")
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
-    dx = empty(*x.shape)
-    grads = {name: empty(*t.shape) for name, t in w.tensors().items()}
+    bf16 = x.dtype == torch.bfloat16
+    dx = torch.empty_like(x)
+    grads = {name: torch.empty_like(t) for name, t in w.tensors().items()}
     bufs = {name: empty(*shape) for name, shape in backward_buffer_shapes(x, w).items()}
     pointers = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
     lib = _build.build()
     shape = _shape_args(x, w)
     workspace = empty(_workspace_floats(lib.enc_layer_bwd_workspace_floats(*shape[:-1])))
-    rc = lib.enc_layer_bwd(
+    rc = (lib.enc_layer_bwd_bf16 if bf16 else lib.enc_layer_bwd)(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(), pointers(list(w.tensors().values())),
         dx.data_ptr(), pointers(list(grads.values())), pointers(list(bufs.values())), workspace.data_ptr(),
         *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_bwd launch failed with cudaError {rc}")
-    enc_layer_backward.launches += 1
+    if bf16:
+        enc_layer_backward.bf16_launches += 1
+    else:
+        enc_layer_backward.launches += 1
     return (dx, grads, bufs) if return_buffers else (dx, grads)
 
 
@@ -431,18 +491,21 @@ def enc_layer(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=None
     in x and every weight through ``EncLayerFunction``.
 
     A CUDA tensor launches ``csrc/enc_layer_fwd.cu`` (C = 192 in heads of 96,
-    lens int32 [B] and seed int64 [1] on the same device) and counts
-    ``enc_layer.launches``; anything the kernels do not take raises. A CPU
-    tensor runs the plain versions.
+    lens int32 [B] and seed int64 [1] on the same device; float32 or
+    bfloat16) and counts ``enc_layer.launches`` (fp32) or
+    ``enc_layer.bf16_launches``; anything the kernels do not take raises. A
+    CPU tensor runs the plain versions.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"enc_layer: unsupported device {x.device}")
     keep_threshold(p_drop)
+    check_dtypes(x, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x.device)
     return EncLayerFunction.apply(x, lens, seed, float(p_drop), (w.n_heads, w.window, w.eps),
                                   *w.tensors().values())
 
 
-enc_layer.launches = 0
-enc_layer_backward.launches = 0
+# launches of the fp32 kernels and of the bf16 ones
+enc_layer.launches = enc_layer.bf16_launches = 0
+enc_layer_backward.launches = enc_layer_backward.bf16_launches = 0

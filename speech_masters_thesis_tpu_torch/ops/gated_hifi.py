@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops.basic import round_bf16, same
 from speech_masters_thesis_tpu_torch.ops.hash import U32, draw, stream_key
 
 # must equal MAX_DEPTH in csrc/gated_hifi_common.cuh: it spaces the (sequence, branch) keys
@@ -157,15 +158,6 @@ def branch_masks(seed: int, batch: int, d: int, t0: int, rows: int, hidden: int,
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def _same(t: torch.Tensor) -> torch.Tensor:
-    return t
-
-
-def _to_bf16(t: torch.Tensor) -> torch.Tensor:
-    """Rounds to bf16 (nearest even, as XLA's astype) and back to fp32."""
-    return t.to(torch.bfloat16).to(torch.float32)
-
-
 def _check_dtypes(x: torch.Tensor, w: GatedHiFiWeights, g: torch.Tensor | None = None) -> None:
     """x, every weight (and g) share one dtype."""
     for name, t in {**w.tensors(), **({} if g is None else {"g": g})}.items():
@@ -183,13 +175,13 @@ def _operands(x: torch.Tensor, w: GatedHiFiWeights):
     too)."""
     _check_dtypes(x, w)
     if x.dtype != torch.bfloat16:
-        return _same, x, w
+        return same, x, w
     wf = _weights_from({k: v.to(torch.float32) for k, v in w.tensors().items()}, w.dilations)
-    return _to_bf16, x.to(torch.float32), wf
+    return round_bf16, x.to(torch.float32), wf
 
 
 def _branches(x: torch.Tensor, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int,
-              rnd=_same):
+              rnd=same):
     """Per branch of the plain forward: (a, h1, zp) with a = relu(z)*m0 (the
     conv input), h1 = relu(c)*m1 (the 1x1 input) and zp = z + scale*h;
     ``rnd`` rounds the product operands (``_operands``)."""
@@ -364,7 +356,7 @@ def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels
     W = x.shape[-1]
     H = 2 * W
     bf16 = x.dtype == torch.bfloat16
-    rnd = _to_bf16 if bf16 else _same
+    rnd = round_bf16 if bf16 else same
     outer = lambda p, q: torch.einsum("btm,btn->mn", rnd(p), rnd(q))
     ks, cbs, w1s, b1s = [], [], [], []
     for d, (k, dil) in enumerate(zip(kernels, dilations)):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32
 
 MAX_NEG = -1e9
 MAX_TOKENS = 1024  # csrc/mas.cu holds a sequence's tokens in the registers of one warp
@@ -65,7 +66,8 @@ def mas_log_prior(x_m: torch.Tensor, x_logs: torch.Tensor, z: torch.Tensor) -> t
     under the token priors (x_m, x_logs) [b, t_x, d]: two products and two
     rank-1 terms (the JAX package's ``mas.py:79-91``)."""
     x_s_sq_r = torch.exp(-2.0 * x_logs)
-    logp1 = torch.sum(-0.5 * np.log(2.0 * np.pi) - x_logs, dim=-1, keepdim=True)
+    # the constant is a numpy float there, which promotes bf16 statistics to fp32 (and with them the table)
+    logp1 = torch.sum(-0.5 * np.log(2.0 * np.pi) - at_least_f32(x_logs), dim=-1, keepdim=True)
     logp2 = torch.matmul(x_s_sq_r, (-0.5 * (z * z)).transpose(1, 2))
     logp3 = torch.matmul(x_m * x_s_sq_r, z.transpose(1, 2))
     logp4 = torch.sum(-0.5 * (x_m * x_m) * x_s_sq_r, dim=-1, keepdim=True)

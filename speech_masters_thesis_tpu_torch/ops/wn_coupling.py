@@ -25,6 +25,19 @@ for the host).
 Weights are post-weight-norm, in PyTorch's Conv1d layout [out, in, k]; the
 gradients are of those weights, and autograd carries them back through the
 weight norm (``flows.WNConv1d.weight``), as the JAX package does.
+
+Two modes, as the TPU kernel's ``dot_dtype`` (x0's dtype) has them. fp32:
+x0, the weights and g float32, every product in 3xTF32. bf16 (the JAX
+package's mixed-precision training): x0, every weight and g bfloat16, each
+product's operands rounded to bf16 where the TPU kernel's ``_dot`` casts
+them and summed in fp32, everything between the products (biases, dropout,
+the gate, the residual, the skip sum, the backward's scratch) fp32; out and
+dx0 come out in bf16, the weight gradients summed in fp32 and cast to bf16
+once (``_vjp_bwd``). Mixed dtypes raise. ``.launches`` counts fp32 kernel
+launches, ``.bf16_launches`` bf16 ones. A bf16 CPU tensor runs
+``WNCouplingFunction`` over the plain versions, whose backward rounds where
+the TPU kernel's does (autograd through the rounded plain forward would
+round cotangents it does not).
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops import _build
-from speech_masters_thesis_tpu_torch.ops.basic import pointwise, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.basic import pointwise, round_bf16, same, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.hash import keep_factor, keep_scale, keep_threshold
 
 WN_STREAMS = 64  # hash streams per sequence: one per layer (csrc/wn_coupling_common.cuh)
@@ -104,24 +117,43 @@ def _dilated(h: torch.Tensor, w: torch.Tensor, b, dil: int) -> torch.Tensor:
     return F.conv1d(h.transpose(1, 2), w, b, padding=(k - 1) // 2 * dil, dilation=dil).transpose(1, 2)
 
 
-def _recompute(x0, lens, w: WNWeights, seed, p_drop: float):
+def check_dtypes(x0: torch.Tensor, w: WNWeights, g: torch.Tensor | None = None) -> None:
+    """x0, every weight (and g) share one dtype: one mode per call."""
+    for name, t in {**w.tensors(), **({} if g is None else {"g": g})}.items():
+        if t.dtype != x0.dtype:
+            raise ValueError(f"wn_coupling: {name} is {t.dtype} but x0 is {x0.dtype}: x0, every weight and g "
+                             "share one dtype (float32 or bfloat16)")
+
+
+def _operands(x0: torch.Tensor, w: WNWeights):
+    """(round, x0, w) for the plain versions: in bf16 mode x0 and w in fp32
+    and ``round`` rounding a product operand to bf16; otherwise as they are
+    and no rounding."""
+    check_dtypes(x0, w)
+    if x0.dtype != torch.bfloat16:
+        return same, x0, w
+    return round_bf16, x0.float(), WNWeights.from_flat([t.float() for t in w.flat()], w.dilations)
+
+
+def _recompute(x0, lens, w: WNWeights, seed, p_drop: float, rnd=same):
     """The forward, keeping each layer's input h_i, post-dropout x_in_i and
-    gate output; returns (valid, hs, xins, acts, skip)."""
+    gate output; returns (valid, hs, xins, acts, skip). ``rnd`` rounds each
+    product's operands (``_operands``)."""
     H, L = w.hidden, len(w.win)
     T = x0.shape[1]
     valid = sequence_mask(lens, T).to(x0.dtype)[..., None]
-    h = pointwise(x0, w.ws, w.bs) * valid
+    h = pointwise(rnd(x0), rnd(w.ws), w.bs) * valid
     skip = torch.zeros_like(h)
     hs, xins, acts_all = [], [], []
     for i in range(L):
         hs.append(h)
-        x_in = _dilated(h, w.win[i], w.bin[i], w.dilations[i])
+        x_in = _dilated(rnd(h), rnd(w.win[i]), w.bin[i], w.dilations[i])
         if p_drop > 0.0:
             x_in = x_in * keep_mask(seed, lens, T, i, 2 * H, p_drop, x0.dtype)
         xins.append(x_in)
         acts = torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])
         acts_all.append(acts)
-        rs = pointwise(acts, w.wrs[i], w.brs[i])
+        rs = pointwise(rnd(acts), rnd(w.wrs[i]), w.brs[i])
         if i < L - 1:
             h = (h + rs[..., :H]) * valid
             skip = skip + rs[..., H:]
@@ -132,9 +164,12 @@ def _recompute(x0, lens, w: WNWeights, seed, p_drop: float):
 
 def wn_coupling_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0,
                           p_drop: float = 0.0) -> torch.Tensor:
-    """Plain conditioner: x0 [B, T, half], lens [B] -> [B, T, C]."""
-    valid, _, _, _, skip = _recompute(x0, lens, w, seed, p_drop)
-    return pointwise(skip * valid, w.wend, w.bend)
+    """Plain conditioner: x0 [B, T, half], lens [B] -> [B, T, C] in x0's
+    dtype (bf16: the products' operands rounded as the TPU kernel rounds
+    them, the rest fp32, the output rounded)."""
+    rnd, xf, wf = _operands(x0, w)
+    valid, _, _, _, skip = _recompute(xf, lens, wf, seed, p_drop, rnd)
+    return pointwise(rnd(skip * valid), rnd(wf.wend), wf.bend).to(x0.dtype)
 
 
 def _shift_rows(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -165,14 +200,20 @@ def dilated_transpose(dz: torch.Tensor, w: torch.Tensor, dil: int) -> torch.Tens
 def wn_coupling_backward_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: torch.Tensor,
                                    seed=0, p_drop: float = 0.0) -> Tuple[torch.Tensor, WNWeights]:
     """Plain recompute backward, by the TPU kernel's formulas
-    (``_conditioner_bwd``): (dx0 [B, T, half], the weights' gradients)."""
+    (``_conditioner_bwd``): (dx0 [B, T, half], the weights' gradients), in
+    x0's and the weights' dtype (bf16: each product's operands rounded, the
+    rest fp32, the gradients summed in fp32 and rounded once)."""
     H, L = w.hidden, len(w.win)
+    check_dtypes(x0, w, g)
+    dtype = x0.dtype
+    rnd, x0, w = _operands(x0, w)
+    g = g.to(x0.dtype)
     with torch.no_grad():
-        valid, hs, xins, acts_all, skip = _recompute(x0, lens, w, seed, p_drop)
+        valid, hs, xins, acts_all, skip = _recompute(x0, lens, w, seed, p_drop, rnd)
         T = x0.shape[1]
-        dwend = torch.einsum("btc,bth->ch", g, skip * valid)[..., None]
+        dwend = torch.einsum("btc,bth->ch", rnd(g), rnd(skip * valid))[..., None]
         dbend = g.sum(dim=(0, 1))
-        dskip = (g @ w.wend[:, :, 0]) * valid
+        dskip = (rnd(g) @ rnd(w.wend[:, :, 0])) * valid
         dwin, dbin, dwrs, dbrs = [None] * L, [None] * L, [None] * L, [None] * L
         dx_next = torch.zeros_like(skip)
         for i in reversed(range(L)):
@@ -185,22 +226,23 @@ def wn_coupling_backward_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWe
             else:
                 drs = dskip
                 dx_i = torch.zeros_like(dskip)
-            dwrs[i] = torch.einsum("btn,bth->nh", drs, acts_all[i])[..., None]
+            dwrs[i] = torch.einsum("btn,bth->nh", rnd(drs), rnd(acts_all[i]))[..., None]
             dbrs[i] = drs.sum(dim=(0, 1))
-            dacts = drs @ w.wrs[i][:, :, 0]
+            dacts = rnd(drs) @ rnd(w.wrs[i][:, :, 0])
             dxin = torch.cat([dacts * s * (1.0 - t * t), dacts * t * s * (1.0 - s)], dim=-1)
             if p_drop > 0.0:
                 dxin = dxin * keep_mask(seed, lens, T, i, 2 * H, p_drop, x0.dtype)
             k, dil = w.win[i].shape[2], w.dilations[i]
-            dwin[i] = dilated_weight_grad(hs[i], dxin, k, dil)
+            dwin[i] = dilated_weight_grad(rnd(hs[i]), rnd(dxin), k, dil)
             dbin[i] = dxin.sum(dim=(0, 1))
-            dx_next = dx_i + dilated_transpose(dxin, w.win[i], dil)
+            dx_next = dx_i + dilated_transpose(rnd(dxin), rnd(w.win[i]), dil)
         dh = dx_next * valid
-        dws = torch.einsum("bth,btc->hc", dh, x0)[..., None]
+        dws = torch.einsum("bth,btc->hc", rnd(dh), rnd(x0))[..., None]
         dbs = dh.sum(dim=(0, 1))
-        dx0 = dh @ w.ws[:, :, 0]
-    return dx0, WNWeights(ws=dws, bs=dbs, win=tuple(dwin), bin=tuple(dbin), wrs=tuple(dwrs), brs=tuple(dbrs),
-                          wend=dwend, bend=dbend, dilations=w.dilations)
+        dx0 = rnd(dh) @ rnd(w.ws[:, :, 0])
+    grads = WNWeights(ws=dws, bs=dbs, win=tuple(dwin), bin=tuple(dbin), wrs=tuple(dwrs), brs=tuple(dbrs),
+                      wend=dwend, bend=dbend, dilations=w.dilations)
+    return dx0.to(dtype), WNWeights.from_flat([t.to(dtype) for t in grads.flat()], w.dilations)
 
 
 # ---------------------------------------------------------------------------
@@ -213,17 +255,18 @@ def _check_call(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed: torch.
         raise RuntimeError("wn_coupling: the kernels are built for sm_90a (Hopper)")
     if B < 1 or T < 1 or k not in (1, 3, 5) or not 1 <= L <= WN_STREAMS:
         raise ValueError(f"wn_coupling: input {tuple(x0.shape)}, kernel {k} (1, 3 or 5), {L} layers")
-    if x0.dtype != torch.float32 or x0.stride(2) != 1 or x0.stride(0) != T * x0.stride(1):
-        raise ValueError("wn_coupling: x0 must be float32 [B, T, half] with unit channel stride and "
-                         f"rows of one stride; got strides {x0.stride()}")
+    if x0.dtype not in (torch.float32, torch.bfloat16) or x0.stride(2) != 1 or x0.stride(0) != T * x0.stride(1):
+        raise ValueError("wn_coupling: x0 must be float32 or bfloat16 [B, T, half] with unit channel stride and "
+                         f"rows of one stride; got {x0.dtype}, strides {x0.stride()}")
+    check_dtypes(x0, w)
     C = w.wend.shape[0]
     shapes = {"ws": (H, half, 1), "bs": (H,), "wend": (C, H, 1), "bend": (C,)}
     for i in range(L):
         rs = 2 * H if i < L - 1 else H
         shapes.update({f"win{i}": (2 * H, H, k), f"bin{i}": (2 * H,), f"wrs{i}": (rs, H, 1), f"brs{i}": (rs,)})
     for name, t in w.tensors().items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x0.device:
-            raise ValueError(f"wn_coupling: {name} must be a contiguous float32 tensor on {x0.device}")
+        if not t.is_contiguous() or t.device != x0.device:
+            raise ValueError(f"wn_coupling: {name} must be a contiguous {x0.dtype} tensor on {x0.device}")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"wn_coupling: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != x0.device or not lens.is_contiguous():
@@ -259,19 +302,23 @@ def _launch_fwd(x0, lens, w: WNWeights, seed, p_drop: float) -> torch.Tensor:
     _check_call(x0, lens, w, seed)
     B, T, _ = x0.shape
     H, C = w.hidden, w.wend.shape[0]
-    out = torch.empty(B, T, C, device=x0.device, dtype=torch.float32)
+    bf16 = x0.dtype == torch.bfloat16
+    out = torch.empty(B, T, C, device=x0.device, dtype=x0.dtype)
     h, acts, skip = (torch.empty(B, T, H, device=x0.device, dtype=torch.float32) for _ in range(3))
     lib = _build.build()
     shape = _shape_args(x0, w)
     workspace = torch.empty(lib.wn_coupling_fwd_workspace_floats(*shape), device=x0.device, dtype=torch.float32)
-    rc = lib.wn_coupling_fwd(
+    rc = (lib.wn_coupling_fwd_bf16 if bf16 else lib.wn_coupling_fwd)(
         x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), w.ws.data_ptr(), w.bs.data_ptr(),
         _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
         w.wend.data_ptr(), w.bend.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(), skip.data_ptr(),
         workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
         raise RuntimeError(f"wn_coupling_fwd launch failed with cudaError {rc}")
-    wn_coupling.launches += 1
+    if bf16:
+        wn_coupling.bf16_launches += 1
+    else:
+        wn_coupling.launches += 1
     return out
 
 
@@ -282,35 +329,38 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     A CUDA tensor launches ``csrc/wn_coupling_bwd.cu`` (the recomputed
     forward, then per layer in reverse the gate's and the dilated conv's
     transposes, then one fixed-order reduction of every weight gradient: two
-    calls are bitwise equal; every product in 3xTF32 on the tensor cores)
-    and counts
-    ``wn_coupling_backward.launches``; a CPU tensor runs
-    ``wn_coupling_backward_reference``. ``return_buffers``
+    calls are bitwise equal; every product in 3xTF32 on the tensor cores, or
+    in one bf16 MMA for bf16 tensors) and counts
+    ``wn_coupling_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
+    tensor runs ``wn_coupling_backward_reference``. ``return_buffers``
     adds {"xin": [L, B, T, 2H]}: each layer's post-dropout conv output as
-    the kernels recomputed it (the plain recompute's on the CPU).
+    the kernels recomputed it (the plain recompute's on the CPU), fp32.
     """
     if x0.device.type == "cpu":
         dx0, grads = wn_coupling_backward_reference(x0, lens, w, g, seed, p_drop)
         if return_buffers:
-            return dx0, grads, {"xin": torch.stack(_recompute(x0, lens, w, seed, p_drop)[2])}
+            rnd, xf, wf = _operands(x0, w)
+            return dx0, grads, {"xin": torch.stack(_recompute(xf, lens, wf, seed, p_drop, rnd)[2])}
         return dx0, grads
     if x0.device.type != "cuda":
         raise ValueError(f"wn_coupling_backward: unsupported device {x0.device}")
     _check_call(x0, lens, w, seed)
     B, T, half = x0.shape
     H, L, C = w.hidden, len(w.win), w.wend.shape[0]
-    if g.shape != (B, T, C) or g.dtype != torch.float32 or not g.is_contiguous() or g.device != x0.device:
-        raise ValueError(f"wn_coupling_backward: g must be a contiguous float32 [{B}, {T}, {C}] tensor")
+    bf16 = x0.dtype == torch.bfloat16
+    if g.shape != (B, T, C) or g.dtype != x0.dtype or not g.is_contiguous() or g.device != x0.device:
+        raise ValueError(f"wn_coupling_backward: g must be a contiguous {x0.dtype} [{B}, {T}, {C}] tensor, "
+                         f"got {g.dtype}")
     empty = lambda *shape: torch.empty(*shape, device=x0.device, dtype=torch.float32)  # noqa: E731
-    dx0 = empty(B, T, half)
-    grads = WNWeights.from_flat([empty(*t.shape) for t in w.flat()], w.dilations)
+    dx0 = torch.empty(B, T, half, device=x0.device, dtype=x0.dtype)
+    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
     hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
     xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
     skip, dskip = empty(B, T, H), empty(B, T, H)
     lib = _build.build()
     shape = _shape_args(x0, w)
     workspace = empty(lib.wn_coupling_bwd_workspace_floats(*shape))
-    rc = lib.wn_coupling_bwd(
+    rc = (lib.wn_coupling_bwd_bf16 if bf16 else lib.wn_coupling_bwd)(
         x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
         w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
         w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs),
@@ -320,7 +370,10 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
         dxin.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
         raise RuntimeError(f"wn_coupling_bwd launch failed with cudaError {rc}")
-    wn_coupling_backward.launches += 1
+    if bf16:
+        wn_coupling_backward.bf16_launches += 1
+    else:
+        wn_coupling_backward.launches += 1
     if return_buffers:
         return dx0, grads, {"xin": xin}
     return dx0, grads
@@ -357,8 +410,9 @@ def wn_coupling(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=None,
 
     A CUDA tensor launches ``csrc/wn_coupling_fwd.cu`` (x0 may be the
     first-half view of the coupling input; lens int32 [B] and seed int64 [1]
-    on the same device; every product in 3xTF32 on the tensor cores) and
-    counts ``wn_coupling.launches``; anything the kernels do not take
+    on the same device; every product in 3xTF32 on the tensor cores, or for
+    bf16 tensors in one bf16 MMA) and counts ``wn_coupling.launches`` (fp32)
+    or ``wn_coupling.bf16_launches``; anything the kernels do not take
     raises. A CPU tensor runs the plain versions.
     Weights from the flow cache are for inference: a train-mode call (with
     dropout) raises, since the cache carries no gradient back to the weight
@@ -371,10 +425,12 @@ def wn_coupling(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=None,
     if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wn_coupling: unsupported device {x0.device}")
     keep_threshold(p_drop)
+    check_dtypes(x0, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x0.device)
     return WNCouplingFunction.apply(x0, lens, seed, float(p_drop), tuple(w.dilations), *w.flat())
 
 
-wn_coupling.launches = 0
-wn_coupling_backward.launches = 0
+# launches of the fp32 kernels and of the bf16 ones
+wn_coupling.launches = wn_coupling.bf16_launches = 0
+wn_coupling_backward.launches = wn_coupling_backward.bf16_launches = 0

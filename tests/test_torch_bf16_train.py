@@ -223,13 +223,22 @@ def test_two_bf16_train_steps_adamw_ema():
 
 
 def test_bf16_setting_defaults_off_and_other_models_raise():
-    """train.py's --bf16 defaults off; only the VQ-VAE, whose kernels (B1)
-    have a bf16 mode, takes the bf16 step: the others raise in it."""
+    """train.py's --bf16 defaults off; the models whose train path's kernels
+    all have a bf16 mode take the bf16 step (the VQ-VAE: B1; VQ-TTS: B1, B4,
+    B5; Glow-TTS on B3's route: B3, B4, B5); the Transformer LM (B2) and
+    Glow-TTS on the flow-step route (B6) raise in it, naming the kernel."""
     assert configs.TRAIN["bf16"] is False
-    assert VQVAE.BF16_TRAINING
-    assert not any(getattr(cls, "BF16_TRAINING", False) for cls in (VQTTS, GlowTTS, TransformerLM))
-    model = torch.nn.Linear(2, 2)  # no BF16_TRAINING, as VQTTS, GlowTTS and TransformerLM
-    state = TrainState.create(model, torch.optim.SGD(model.parameters(), lr=0.1), use_ema=False)
+    assert VQVAE.BF16_TRAINING and VQTTS.BF16_TRAINING and GlowTTS.BF16_TRAINING
+    assert not getattr(TransformerLM, "BF16_TRAINING", False)
     step = loop.make_train_step(lambda _: 0.1, EMA_MU, use_ema=False, bf16=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    model = torch.nn.Linear(2, 2)  # no BF16_TRAINING, as TransformerLM
+    state = TrainState.create(model, torch.optim.SGD(model.parameters(), lr=0.1), use_ema=False)
+    with pytest.raises(NotImplementedError, match="B2"):
+        step(state, {}, 0)
+    config = {"model": {**copy.deepcopy(configs.GLOW_TTS_TPU), "fused_flow_step": True},
+              "dataset": copy.deepcopy(configs.LJSPEECH_TPU)}
+    glow = harness.get_model(config, device="cpu")
+    assert glow.decoder.fused_flow_step
+    state = TrainState.create(glow, torch.optim.SGD(glow.parameters(), lr=0.1), use_ema=False)
+    with pytest.raises(NotImplementedError, match="B6"):
         step(state, {}, 0)
