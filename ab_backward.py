@@ -19,8 +19,8 @@ fp64 step: the median and worst of B5's parameters (the encoder layers'),
 of the rest and of all, the CPU fp32 step's beside them, and the worst
 parameters. ``--ptxas`` builds each tree and compares its ptxas lines
 (``chip_smoke.ptxas_summary``, each kernel's template tag reduced to its
-name) outside B2's forward and B4 (the kernels PTXAS_CHANGED names) with
-the first tree's, as multisets.
+name) outside the kernels PTXAS_CHANGED names with the first tree's, as
+multisets, the fp32 instances apart from the bf16 ones.
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -79,7 +79,7 @@ TILE_P = 0.1
 FWD_PS = (0.0, 0.1)
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-PTXAS_CHANGED = ("attention_fwd_kernel", "mas_kernel")  # kernels the change may alter
+PTXAS_CHANGED = ()  # kernels the change may alter (their fp32 instances)
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -444,6 +444,7 @@ def reduced(line: str) -> str:
     """A ptxas summary line with its kernel's template tag reduced to the
     tag's name (a file's anonymous namespace is named after its path)."""
     name, rest = line.split(":", 1)
+    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", name)  # an anonymous namespace's path hash
     m = re.match(r"(\w+)<(.*)>", name)
     if m:
         tag = re.search(r"([A-Za-z]+Tag)$", m.group(2))
@@ -454,6 +455,13 @@ def reduced(line: str) -> str:
 def is_changed_kernel(line: str) -> bool:
     """A ptxas line of a kernel the change may alter (PTXAS_CHANGED)."""
     return line.split(":")[0].split("<")[0] in PTXAS_CHANGED
+
+
+def is_bf16(line: str) -> bool:
+    """A ptxas line of a bf16 instance (a Bfloat* tag, the bf16 I/O type, the bf16 attention
+    kernels or the bf16 MMA probe)."""
+    name = line.split(":")[0]
+    return "Bfloat" in name or "bf16" in name or "bfloat16" in name
 
 
 def main() -> None:
@@ -484,13 +492,18 @@ def main() -> None:
             print(json.dumps(res), flush=True)
         results.append(res)
     if mode == "--ptxas":
-        first = collections.Counter(reduced(ln) for ln in results[0]["ptxas"] if not is_changed_kernel(ln))
+        def count(res, bf16: bool):
+            return collections.Counter(reduced(ln) for ln in res["ptxas"]
+                                       if not is_changed_kernel(ln) and is_bf16(ln) == bf16)
+        for bf16, kind in ((False, "fp32"), (True, "bf16")):
+            first = count(results[0], bf16)
+            for res in results:
+                lines = count(res, bf16)
+                print(f"[ptxas] {res['tree']}: {sum(lines.values())} {kind} lines outside PTXAS_CHANGED "
+                      f"{PTXAS_CHANGED}, equal to {results[0]['tree']}'s ({sum(first.values())}) as multisets: "
+                      f"{lines == first}; only here {dict(lines - first)}; only there {dict(first - lines)}")
         for res in results:
-            lines = collections.Counter(reduced(ln) for ln in res["ptxas"] if not is_changed_kernel(ln))
-            print(f"[ptxas] {res['tree']}: {sum(lines.values())} lines outside {', '.join(PTXAS_CHANGED)}, equal to "
-                  f"{results[0]['tree']}'s ({sum(first.values())}) as multisets: {lines == first}; only here "
-                  f"{dict(lines - first)}; only there {dict(first - lines)}")
-            print(f"[ptxas] {res['tree']} {', '.join(PTXAS_CHANGED)}: "
+            print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(reduced(ln) for ln in res["ptxas"] if is_changed_kernel(ln)))
         return
     if mode == "--b2b4":

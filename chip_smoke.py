@@ -226,6 +226,18 @@ reduction off from phase 1 on, as TF32 is):
      within 2^-8, and the card's update error (median over the parameters
      and over all of them at once) within 2x the CPU bf16 step's.
 
+Then the bf16 modes of B3, B5, B6 and B2 and the bf16 train steps of
+Glow-TTS (both decoder routes), VQ-TTS (both encoder routes) and the LM:
+B3's and B6's bf16 kernels at B3_SHAPES and B3_OTHER_SHAPES and B5's at
+B5_SHAPES against their plain bf16 versions (relative L2 2^-7, 2^-6 of
+max|ref|; B6 also each conditioner layer at the kernel's own recomputed
+x_in, 99% within one ulp, and its masks read back bit for bit), B1's at
+VQ-TTS's shapes, B2's bf16 kernels at (8, 258) and (64, 258), p=0 and 0.1
+(beside bf16 SDPA, masks read back); each bf16 step with its ms, peak,
+busy share and launches; and one bf16 SGD step of Glow-TTS on each route,
+VQ-TTS on each route and the LM, on the card and the CPU against fp64,
+within 2.5x the CPU's error, a control (the card's update x 1.2) failing.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -502,6 +514,7 @@ def phase_device() -> str:
 
 
 KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", "enc_attention_kernel",
+                "attention_bf16_fwd_kernel", "attention_bf16_dq_kernel", "attention_bf16_dkdv_kernel",
                 "attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel",
                 "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel",
                 "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
@@ -516,6 +529,7 @@ B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
+B2_BF16_KERNELS = ("attention_bf16_fwd_kernel", "attention_bf16_dq_kernel", "attention_bf16_dkdv_kernel")
 
 
 def ptxas_summary(report: str) -> list:
@@ -598,6 +612,11 @@ def phase_build() -> None:
           "spills): " + " | ".join(b2b4))
     require(len(b2b4) == 2 + MAS_INSTANCES and all("0 bytes spill stores" in line for line in b2b4),
             f"a B2 forward or B4 instance is missing or spills: {b2b4}")
+    b2 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B2_BF16_KERNELS]
+    print("[build] B2 bf16 forward, dq and dk/dv (<DROP>) (ptxas: registers, shared memory, spills): "
+          + " | ".join(b2))
+    require(len(b2) == 2 * len(B2_BF16_KERNELS) and all("0 bytes spill stores" in line for line in b2),
+            f"a B2 bf16 instance is missing or spills: {b2}")
 
 
 def phase_kernel(device: torch.device, card: str, block_ts, batch: int, depth: int = 4, tag: str = "[kernel]") -> dict:
@@ -1190,21 +1209,23 @@ def heads(qkv: torch.Tensor):
     return [t.view(B, T, ATTN_HEADS, ATTN_DIM) for t in qkv.split(ATTN_HEADS * ATTN_DIM, dim=-1)]
 
 
-def kernel_keep_mask(B: int, T: int, lens: torch.Tensor, seed: torch.Tensor, device) -> torch.Tensor:
+def kernel_keep_mask(B: int, T: int, lens: torch.Tensor, seed: torch.Tensor, device,
+                     dtype=torch.float32) -> torch.Tensor:
     """The forward kernel's dropout decisions [B, H, T, T] at p=P_DROP, read
     back through its output: with q = k = 0 every valid key of row r has
     probability 1/n_r exactly (n_r = min(r + 1, len_b)), and with v one-hot
     over a window of D keys, o[b, r, h, d] * n_r * (1 - p) is 1 where the
-    kernel kept key c0 + d and 0 where it dropped it."""
+    kernel kept key c0 + d and 0 where it dropped it (in bf16 within the
+    rounding of p keep, 2^-9)."""
     H, D = ATTN_HEADS, ATTN_DIM
-    zeros = torch.zeros(B, T, H, D, device=device)
+    zeros = torch.zeros(B, T, H, D, device=device, dtype=dtype)
     n = torch.minimum(torch.arange(1, T + 1, device=device)[None, :], lens[:, None].long())
     keep = torch.zeros(B, H, T, T, dtype=torch.bool, device=device)
     for c0 in range(0, T, D):
         w = min(D, T - c0)
-        v = torch.zeros(B, T, H, D, device=device)
-        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=device)[None, :, None, :]
-        o = att.fused_attention(zeros, zeros, v, lens, seed, 1.0, P_DROP)
+        v = torch.zeros(B, T, H, D, device=device, dtype=dtype)
+        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=device, dtype=dtype)[None, :, None, :]
+        o = att.fused_attention(zeros, zeros, v, lens, seed, 1.0, P_DROP).float()
         kept = o[..., :w] * n[:, :, None, None] * (1.0 - P_DROP) > 0.5
         keep[..., c0:c0 + w] = kept.permute(0, 2, 1, 3)
     return keep
@@ -1244,15 +1265,16 @@ def attention_fwd_launch(q, k, v, lens, seed, scale: float, p: float):
     wrapper's host time, which at (8, 258) is about the kernel's own. The
     call counts no launch."""
     B, T, H, D = q.shape
-    o = torch.empty(B, T, H, D, device=q.device)
+    o = torch.empty(B, T, H, D, device=q.device, dtype=q.dtype)
     stats = torch.empty(B, H, T, 2, device=q.device)
     lib = _build.build()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1), lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
             stats.data_ptr(), B, T, H, D, float(scale), *att._dropout_args(p),
             torch.cuda.current_stream(q.device).cuda_stream)
+    entry = lib.attention_fwd_bf16 if q.dtype == torch.bfloat16 else lib.attention_fwd
 
     def launch():
-        require(lib.attention_fwd(*args) == 0, "attention_fwd launch failed")
+        require(entry(*args) == 0, "attention_fwd launch failed")
     launch.outputs = (o, stats)  # the pointers in args live as long as the closure
     return launch
 
@@ -3413,14 +3435,18 @@ def phase_bf16_train(device, card: str) -> dict:
 
 
 def glow_bf16_counts() -> tuple:
-    """(fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) launches so far."""
+    """(fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4, fp32 B6 fwd, bwd, bf16 B6 fwd, bwd)
+    launches so far."""
     e, eb, w_, wb = enc_ops.enc_layer, enc_ops.enc_layer_backward, wn_ops.wn_coupling, wn_ops.wn_coupling_backward
+    f, fb = fs_ops.flow_step, fs_ops.flow_step_backward
     return (e.launches, eb.launches, w_.launches, wb.launches, e.bf16_launches, eb.bf16_launches, w_.bf16_launches,
-            wb.bf16_launches, mas_ops.maximum_path_auto.launches)
+            wb.bf16_launches, mas_ops.maximum_path_auto.launches, f.launches, fb.launches, f.bf16_launches,
+            fb.bf16_launches)
 
 
 def zero_glow_bf16_counts() -> None:
-    for fn in (enc_ops.enc_layer, enc_ops.enc_layer_backward, wn_ops.wn_coupling, wn_ops.wn_coupling_backward):
+    for fn in (enc_ops.enc_layer, enc_ops.enc_layer_backward, wn_ops.wn_coupling, wn_ops.wn_coupling_backward,
+               fs_ops.flow_step, fs_ops.flow_step_backward):
         fn.launches = fn.bf16_launches = 0
     mas_ops.maximum_path_auto.launches = 0
 
@@ -3437,10 +3463,12 @@ def zero_vqtts_bf16_counts() -> None:
     zero_glow_bf16_counts()
 
 
-def bf16_steps(tag: str, state: TrainState, step, batch: dict, n: int, counts, card: str) -> dict:
+def bf16_steps(tag: str, state: TrainState, step, batch: dict, n: int, counts, card: str,
+               frozen: frozenset = frozenset()) -> dict:
     """``n`` bf16 train steps of ``state``: wall times, launches per step (``counts()``), losses, the
-    peak above what was held before, every master and EMA parameter moved, fp32 masters, and one
-    more step under torch.profiler for the device's busy share."""
+    peak above what was held before, every master and EMA parameter moved (the ``frozen`` masters
+    bitwise unchanged instead), fp32 masters, and one more step under torch.profiler for the
+    device's busy share."""
     held = torch.cuda.memory_allocated()
     params0 = {k: v.detach().clone() for k, v in state.params.items()}
     ema0 = {k: v.clone() for k, v in state.ema_params.items()}
@@ -3458,21 +3486,25 @@ def bf16_steps(tag: str, state: TrainState, step, batch: dict, n: int, counts, c
         raise_if_not_finite(scalars, state.step)
         losses.append({k: round(float(v), 5) for k, v in scalars.items() if "loss" in k})
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-    moved = sum(not torch.equal(p.detach(), params0[k]) for k, p in state.params.items())
-    ema_moved = sum(not torch.equal(e, ema0[k]) for k, e in state.ema_params.items())
+    trained = [k for k in state.params if k not in frozen]
+    moved = sum(not torch.equal(state.params[k].detach(), params0[k]) for k in trained)
+    ema_moved = sum(not torch.equal(state.ema_params[k], ema0[k]) for k in trained)
+    still = all(torch.equal(state.params[k].detach(), params0[k]) for k in frozen)
     masters = all(p.dtype == torch.float32 for p in state.params.values())
     del params0, ema0
     kernel_ms, wall_ms = busy_share(lambda: raise_if_not_finite(step(state, batch, TRAIN_SEED), state.step))
     median = statistics.median(times[1:])
-    print(f"{tag} losses per step {losses}; masters fp32 {masters}; {moved}/{len(state.params)} masters and "
-          f"{ema_moved}/{len(state.ema_params)} EMA parameters moved over the {n} steps")
+    print(f"{tag} losses per step {losses}; masters fp32 {masters}; {moved}/{len(trained)} masters and "
+          f"{ema_moved}/{len(trained)} EMA parameters moved over the {n} steps"
+          + (f"; the {len(frozen)} frozen masters unchanged {still}" if frozen else ""))
     print(f"{tag} step ms {', '.join(f'{t:.3f}' for t in times)}; median of steps 2-{n} {median:.3f} ms; "
           f"max_memory_allocated {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held before; one more step under "
           f"torch.profiler: kernels {kernel_ms:.3f} ms of {wall_ms:.3f} ms wall, device busy {kernel_ms / wall_ms:.3f} "
           f"[{card}]")
     require(masters, f"{tag}: the masters are not fp32")
-    require(moved == len(state.params), f"{tag}: only {moved}/{len(state.params)} masters moved")
-    require(ema_moved == len(state.ema_params), f"{tag}: only {ema_moved}/{len(state.ema_params)} EMA parameters moved")
+    require(moved == len(trained), f"{tag}: only {moved}/{len(trained)} masters moved")
+    require(ema_moved == len(trained), f"{tag}: only {ema_moved}/{len(trained)} EMA parameters moved")
+    require(still, f"{tag}: a frozen master changed")
     return {"per_step": per_step, "step_ms": median, "peak": peak, "busy": kernel_ms / wall_ms, "losses": losses}
 
 
@@ -3486,14 +3518,15 @@ def glow_mel_batch(model: GlowTTS, batch: int, device, seed: int) -> dict:
     return {"token": audio["token"], "token_len": audio["token_len"], "spect": spect, "spect_len": spect_len}
 
 
-def phase_bf16_glow_train(device, card: str) -> dict:
-    """Glow-TTS's bf16 train step (configs.GLOW_TTS_TPU: B3's route, dropout
-    on, AdamW + Noam + parameter EMA) at GLOW_BATCH x GLOW_FRAMES frames:
-    ddi_init in fp32 (as JAX), then BF16_TRAIN_STEPS steps built by
-    harness.make_train_step_for from ``train: {bf16: true}``. B3 and B5 run
-    their bf16 modes, 12 and 6 calls a step each way, their fp32 modes none."""
-    tag = "[bf16 glow train]"
-    model = build_glow(device, GLOW_SEED + 4)
+def phase_bf16_glow_train(device, card: str, flow_step: bool = False) -> dict:
+    """Glow-TTS's bf16 train step (configs.GLOW_TTS_TPU: B3's route, or with
+    ``flow_step`` B6's, fused_flow_step: true; dropout on, AdamW + Noam +
+    parameter EMA) at GLOW_BATCH x GLOW_FRAMES frames: ddi_init in fp32 (as
+    JAX), then BF16_TRAIN_STEPS steps built by harness.make_train_step_for
+    from ``train: {bf16: true}``. B3 (or B6) and B5 run their bf16 modes, 12
+    and 6 calls a step each way, their fp32 modes none."""
+    tag = "[bf16 glow train B6]" if flow_step else "[bf16 glow train]"
+    model = build_glow(device, GLOW_SEED + 4, flow_step=flow_step)
     batch = glow_mel_batch(model, GLOW_BATCH, device, seed=34)
     model.ddi_init(batch, {"device_dropout": torch.Generator(device=device).manual_seed(18)})
     opt, schedule = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
@@ -3505,14 +3538,15 @@ def phase_bf16_glow_train(device, card: str) -> dict:
           f"tokens, ragged, the mel computed on the card once; dropout (encoder {model.encoder.p_dropout}, decoder "
           f"{model.decoder.flows[2].p_dropout}, prenet {model.encoder.pre.P_DROPOUT}), AdamW + Noam + parameter EMA")
     out = bf16_steps(tag, state, step, batch, BF16_TRAIN_STEPS, glow_bf16_counts, card)
-    expect = (0, 0, 0, 0, 6, 6, 12, 12, 1)
-    print(f"{tag} launches per step (fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) "
-          f"{out['per_step']}")
+    expect = (0, 0, 0, 0, 6, 6, 0, 0, 1, 0, 0, 12, 12) if flow_step else (0, 0, 0, 0, 6, 6, 12, 12, 1, 0, 0, 0, 0)
+    print(f"{tag} launches per step (fp32 B5 fwd, bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4, fp32 B6 "
+          f"fwd, bwd, bf16 B6 fwd, bwd) {out['per_step']}")
     require(all(c == expect for c in out["per_step"]), f"{tag} launches {out['per_step']} != {expect}")
     frames = GLOW_BATCH * GLOW_FRAMES
     out.update(launches=glow_bf16_counts(), frames_per_s=frames / (out["step_ms"] / 1e3))
-    print(json.dumps({"glow_train_bf16_mel_frames_per_sec_per_chip": out["frames_per_s"], "step_ms": out["step_ms"],
-                      "peak_gib": out["peak"], "device_busy": out["busy"], "card": card}))
+    print(json.dumps({f"glow_train_bf16{'_b6' if flow_step else ''}_mel_frames_per_sec_per_chip":
+                      out["frames_per_s"], "step_ms": out["step_ms"], "peak_gib": out["peak"],
+                      "device_busy": out["busy"], "card": card}))
     return out
 
 
@@ -3549,6 +3583,298 @@ def phase_bf16_vqtts_train(device, card: str, fused_encoder: bool) -> dict:
     return out
 
 
+def teacher_forced(x0: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights, xins: torch.Tensor, seed,
+                   p: float) -> tuple:
+    """The conditioner's plain bf16 layers held at the kernel's own rounded
+    intermediates: layer i's conv output (post-dropout x_in) formed from the
+    h_i that the kernel's x_in of layers 0 .. i-1 give (through the gate,
+    the res/skip product and the residual), and the end conv's output from
+    the skip sum they give. Returns ([L, B, T, 2H] fp32, out in bf16)."""
+    rnd, xf, wf = wn_ops._operands(x0, w)
+    H, L, T = wf.hidden, len(wf.win), xf.shape[1]
+    valid = (torch.arange(T, device=xf.device)[None, :] < lens[:, None]).to(xf.dtype)[..., None]
+    h = wn_ops.pointwise(rnd(xf), rnd(wf.ws), wf.bs) * valid
+    skip = torch.zeros_like(h)
+    plain = []
+    for i in range(L):
+        x_in = wn_ops._dilated(rnd(h), rnd(wf.win[i]), wf.bin[i], wf.dilations[i])
+        if p > 0.0:
+            x_in = x_in * wn_ops.keep_mask(seed, lens, T, i, 2 * H, p, xf.dtype)
+        plain.append(x_in)
+        acts = torch.tanh(xins[i][..., :H]) * torch.sigmoid(xins[i][..., H:])
+        rs = wn_ops.pointwise(rnd(acts), rnd(wf.wrs[i]), wf.brs[i])
+        if i < L - 1:
+            h = (h + rs[..., :H]) * valid
+            skip = skip + rs[..., H:]
+        else:
+            skip = skip + rs
+    return torch.stack(plain), wn_ops.pointwise(rnd(skip * valid), rnd(wf.wend), wf.bend).to(x0.dtype)
+
+
+def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
+    """B6's bf16 forward and backward kernels against the plain bf16 versions
+    at B3_SHAPES (the first flow step's weights in bf16; aln, alb and mt fp32
+    holding the bf16 parameters' values, as the decoder passes them) and
+    B3_OTHER_SHAPES, p=0 and B3_DROP: xc, out, dx and every gradient (daln,
+    dalb, dmt in fp32) by phase_bf16_wn_coupling's measures, two calls bitwise
+    equal; then each conditioner layer at the kernel's own rounded
+    intermediates (teacher_forced on the backward's recomputed x_in): every
+    layer's x_in and the end conv's out at least BF16_ULP_SHARE within one
+    bf16 ulp; the bf16 kernels' dropout masks read back bit for bit; times
+    at (8, 384)."""
+    act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
+    w0 = wn_bf16(cpl.conditioner_weights())
+    w0 = wn_ops.WNWeights.from_flat([t.detach() for t in w0.flat()], w0.dilations)
+    with torch.no_grad():
+        prefix0 = tuple(t.detach().to(torch.bfloat16).float().contiguous()
+                        for t in (act.logs.view(-1), act.bias.view(-1), inv.dense_matrix_t()))
+    C = model.n_mels * model.n_sqz
+    seed = torch.tensor([4646], dtype=torch.int64, device=device)
+    fwd_out, bwd_out = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    cases = [("glow", B, T) for B, T in B3_SHAPES] + [("other", j, None) for j in range(len(B3_OTHER_SHAPES))]
+    for i, (kind, a, b) in enumerate(cases):
+        if kind == "glow":
+            B, T = a, b
+            rng = np.random.RandomState(790 + i)
+            lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
+            lens = torch.from_numpy(lens_np).to(device)
+            valid = torch.arange(T, device=device)[None, :] < lens[:, None]
+            x = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) * valid[..., None])
+            g_xc, g_out = (torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device) for _ in range(2))
+            w, (aln, alb, mt), L = w0, prefix0, len(w0.win)
+            tag = f"B={B} T={T}"
+        else:
+            w32, lens, valid, (x, _, aln, alb, mt), (g_xc, g_out) = other_shape_inputs(a, device, flow_step=True)
+            B, T, hf, H, taps, rate, L = B3_OTHER_SHAPES[a]
+            w = wn_bf16(w32)
+            aln, alb, mt = (t.to(torch.bfloat16).float() for t in (aln, alb, mt))
+            lens_np = lens.cpu().numpy()
+            tag = f"B={B} T={T} half={hf} H={H} k={taps} rate={rate} L={L}"
+        x, g_xc, g_out = (t.to(torch.bfloat16).contiguous() for t in (x, g_xc, g_out))
+        half = x.shape[2] // 2
+        args = (x, lens, aln, alb, mt, w)
+        for p in (0.0, B3_DROP):
+            with torch.no_grad():
+                (xc, out), again = fs_ops.flow_step(*args, seed, p), fs_ops.flow_step(*args, seed, p)
+                xc_r, out_r = fs_ops.flow_step_reference(*args, seed, p)
+                k1 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p, return_buffers=True)
+                k2 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
+                r = fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p)
+                xins, tf_out = teacher_forced(xc[..., :half], lens, w, k1[5]["xin"], seed, p)
+                torch.cuda.synchronize()
+            fwd = {n: bf16_agreement(k[valid], ref[valid]) for n, k, ref in (("xc", xc, xc_r), ("out", out, out_r))}
+            for n, agree in fwd.items():
+                require(bf16_ok(agree, summed=True), f"[bf16 B6] {tag} p={p}: forward {n} {agree}")
+            require(xc.dtype == out.dtype == torch.bfloat16 and torch.equal(xc, again[0]) and torch.equal(out, again[1]),
+                    f"[bf16 B6] {tag} p={p}: the forward's dtypes, or two forward calls differ")
+            leaves = lambda o: {"daln": o[1], "dalb": o[2], "dmt": o[3], **o[4].tensors()}  # noqa: E731
+            dtypes = (k1[0].dtype, k1[1].dtype, k1[3].dtype, k1[4].ws.dtype)
+            require(dtypes == (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16),
+                    f"[bf16 B6] {tag} p={p}: backward dtypes {dtypes}")
+            bitwise = torch.equal(k1[0], k2[0]) and all(torch.equal(u, leaves(k2)[n]) for n, u in leaves(k1).items())
+            dx_agree = bf16_agreement(k1[0][valid], r[0][valid])
+            report = bf16_grads_ok(f"[bf16 B6 bwd] {tag} p={p}", dx_agree, bf16_leaves(leaves(k1), leaves(r)), bitwise)
+            layers = [bf16_agreement(k1[5]["xin"][j][valid], xins[j][valid])[0] for j in range(L)]
+            end = bf16_agreement(out[valid], tf_out[valid])[0]
+            require(min(layers) >= BF16_ULP_SHARE and end >= BF16_ULP_SHARE,
+                    f"[bf16 B6] {tag} p={p}: a layer at the kernel's own intermediates: x_in {layers}, out {end}")
+            times = ""
+            if i == 0:
+                with torch.no_grad():
+                    t = {"fwd": device_ms(lambda: fs_ops.flow_step(*args, seed, p)),
+                         "fwd_call": cuda_ms(lambda: fs_ops.flow_step(*args, seed, p)),
+                         "fwd_plain": cuda_ms(lambda: fs_ops.flow_step_reference(*args, seed, p), reps=5),
+                         "bwd": device_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)),
+                         "bwd_call": cuda_ms(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p), reps=5),
+                         "bwd_plain": cuda_ms(lambda: fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p),
+                                              reps=5, warmup=1)}
+                frames = int(lens_np.sum())
+                flops = frames * (wn_flops_per_frame(w) + 2 * C * C)
+                weights = 2 * sum(t_.numel() for t_ in w.flat()) + 4 * (2 * C + C * C)  # bytes: bf16, fp32 prefix
+                fb = bf16_bound(flops, 2 * 3 * frames * C + weights)
+                bb = bf16_bound(3 * flops, 2 * 4 * frames * C + 2 * weights)
+                times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
+                         f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
+                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                if p == 0.0:
+                    fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
+                                   bound_by=fb[1])
+                else:
+                    bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
+                                   bound_by=bb[1])
+            print(f"[bf16 B6] {tag} p={p}: forward xc {fwd['xc'][0]:.5f} / out {fwd['out'][0]:.5f} within one bf16 "
+                  f"ulp, relative L2 {fwd['xc'][3]:.2e} / {fwd['out'][3]:.2e} (tol {BF16_SUM_RTOL:.4g}), max_abs_err "
+                  f"{fwd['xc'][1]:.2e} / {fwd['out'][1]:.2e} of max|ref|; at the kernel's own intermediates, within "
+                  f"one ulp: x_in of layers 0-{L - 1} {', '.join(f'{v:.5f}' for v in layers)}, out {end:.5f} (need "
+                  f"{BF16_ULP_SHARE}); backward {report}{times} [{card}]")
+            fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], fwd["xc"][2], fwd["out"][2])
+            bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
+            del xc, out, again, xc_r, out_r, k1, k2, r, xins
+    # the masks, as in phase 26: with conv biases of 10 every pre-dropout x_in is positive
+    B, T = B3_SHAPES[0]
+    H, L = w0.hidden, len(w0.win)
+    rng = np.random.RandomState(791)
+    lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    x = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)).to(device).to(torch.bfloat16)
+    g = torch.zeros(B, T, C, device=device, dtype=torch.bfloat16)
+    probe = wn_ops.WNWeights(ws=w0.ws, bs=w0.bs, win=tuple(t * 0.01 for t in w0.win),
+                             bin=tuple(torch.full_like(b_, 10.0) for b_ in w0.bin), wrs=w0.wrs, brs=w0.brs,
+                             wend=w0.wend, bend=w0.bend, dilations=w0.dilations)
+    with torch.no_grad():
+        plain = fs_ops.flow_step_backward(x, lens, *prefix0, probe, g, g, seed, 0.0, return_buffers=True)[5]["xin"]
+        require(bool((plain > 0).all()), "the bf16 B6 dropout probe's conv outputs are not all positive")
+        bufs = [fs_ops.flow_step_backward(x, lens, *prefix0, probe, g, g, s_, B3_DROP,
+                                          return_buffers=True)[5]["xin"] > 0 for s_ in (seed, seed + 1)]
+    for i in range(L):
+        require(torch.equal(bufs[0][i], wn_ops.keep_mask(seed, lens, T, i, 2 * H, B3_DROP) > 0),
+                f"bf16 B6 layer {i}: the kernel's masks differ from the plain version's")
+    keep_rates_ok({"x_in": (int(bufs[0].sum()), bufs[0].numel())}, B3_DROP)
+    changed = (bufs[0] != bufs[1]).float().mean().item()
+    print(f"[bf16 B6 dropout] p={B3_DROP} B={B} T={T}: the bf16 kernels' masks of all {L} layers equal the plain "
+          f"version's bit for bit; keep rate {bufs[0].float().mean().item():.6f} (expect {1 - B3_DROP:.6f}); another "
+          f"seed changes {changed:.4f} [{card}]")
+    require(changed > B3_DROP, f"bf16 B6: another seed changed only {changed} of the masks")
+    return {"fwd": fwd_out, "bwd": bwd_out}
+
+
+def phase_bf16_attention(device, card: str) -> dict:
+    """B2's bf16 forward and backward kernels against the plain bf16 versions
+    at ATTN_SHAPES[:2] (the LM's train shapes: packed bf16 projections,
+    ragged lengths), p=0 and P_DROP: o, dq, dk, dv by relative L2
+    (BF16_SUM_RTOL) and every element within BF16_MAX_RTOL of max|ref| (the
+    ulp share printed: the kernel's exp and sums in another order round a
+    probability an ulp apart now and then), two calls bitwise equal; the
+    kernel's dropout masks read back bit for bit (phase 11's way); times:
+    both kernels over DEVICE_REPS back-to-back calls (the forward through
+    its C entry point), one call, the plain versions, and bf16 SDPA's
+    forward and backward at p=0 on the same inputs and mask."""
+    scale = 1.0 / np.sqrt(ATTN_DIM)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for i, (B, T) in enumerate(ATTN_SHAPES[:2]):
+        packed, lens, g = packed_qkv(B, T, 520 + i, device)
+        packed, g = packed.to(torch.bfloat16), g.to(torch.bfloat16)
+        for p in (0.0, P_DROP):
+            seed = torch.tensor([22345 + i], dtype=torch.int64, device=device)
+            qkv = packed.clone().requires_grad_(True)
+            o = att.fused_attention(*heads(qkv), lens, seed, scale, p)
+            grads = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
+            again = torch.autograd.grad(o, qkv, g, retain_graph=True)[0]
+            with torch.no_grad():
+                fwd_bitwise = torch.equal(o, att.fused_attention(*heads(packed), lens, seed, scale, p))
+                ref = att.attention_reference(*heads(packed), lens, seed, scale, p)
+                grads_ref = att.attention_backward_reference(*heads(packed), lens, seed, g, scale, p)
+            torch.cuda.synchronize()
+            fwd = bf16_agreement(o, ref)
+            bwd = {n: bf16_agreement(a, b_) for n, a, b_ in zip(("dq", "dk", "dv"), heads(grads), grads_ref)}
+            bitwise = torch.equal(grads, again)
+            require(o.dtype == grads.dtype == torch.bfloat16, f"[bf16 attention] B={B} T={T}: dtypes")
+            require(bf16_ok(fwd, summed=True), f"[bf16 attention] B={B} T={T} p={p}: forward {fwd}")
+            for n, agree in bwd.items():
+                require(bf16_ok(agree, summed=True), f"[bf16 attention] B={B} T={T} p={p}: {n} {agree}")
+            require(fwd_bitwise and bitwise, f"[bf16 attention] B={B} T={T} p={p}: two calls differ")
+            with torch.no_grad():
+                args = (*heads(packed), lens, seed, scale, p)
+                q_, k_, v_ = heads(packed)
+                o_k, stats_k = att._launch_fwd(q_, k_, v_, lens, seed, scale, p)
+                times = {"fwd": cuda_ms(lambda: att.fused_attention(*args)),
+                         "fwd_plain": cuda_ms(lambda: att.attention_reference(*args)),
+                         "fwd_dev": device_ms(attention_fwd_launch(*args)),
+                         "bwd_dev": device_ms(
+                             lambda: att.attention_backward(q_, k_, v_, o_k, stats_k, lens, seed, g, scale, p)),
+                         "bwd_plain": cuda_ms(lambda: att.attention_backward_reference(q_, k_, v_, lens, seed, g,
+                                                                                       scale, p))}
+            times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
+            if p == 0.0:
+                times.update(sdpa_times(packed, lens, g, scale))
+            pairs = int(torch.minimum(torch.arange(1, T + 1, device=device)[None, :], lens.long()[:, None]).sum()) * ATTN_HEADS
+            row = B * T * ATTN_HEADS * ATTN_DIM * 2  # bytes of one [B, T, H, D] bf16 tensor
+            fb, bb = bf16_bound(4 * ATTN_DIM * pairs, 4 * row), bf16_bound(10 * ATTN_DIM * pairs, 7 * row)
+            print(f"[bf16 attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward relative L2 {fwd[3]:.2e} "
+                  f"(tol {BF16_SUM_RTOL:.4g}), {fwd[0]:.5f} within one bf16 ulp, max_abs_err {fwd[1]:.2e} of max|ref|; "
+                  + ", ".join(f"{n} relative L2 {a_[3]:.2e} ({a_[0]:.5f} within one ulp, max {a_[1]:.2e})"
+                              for n, a_ in bwd.items())
+                  + f"; two calls bitwise equal; over {DEVICE_REPS} back-to-back calls: forward {times['fwd_dev']:.4f} "
+                  f"ms, backward kernels {times['bwd_dev']:.4f}; a call: forward {times['fwd']:.4f}, backward "
+                  f"(autograd) {times['bwd']:.4f}; plain {times['fwd_plain']:.4f} / {times['bwd_plain']:.4f}"
+                  + (f"; bf16 F.scaled_dot_product_attention (same mask) forward {times['sdpa_dev']:.4f} ms b2b, "
+                     f"backward {times['sdpa_bwd_dev']:.4f}" if p == 0.0 else "")
+                  + f"; bounds ({pairs} valid pairs) forward {fb[0]:.4f} ms by {fb[1]}, backward {bb[0]:.4f} by "
+                  f"{bb[1]} [{card}]")
+            out["fwd_err"] = max(out["fwd_err"], fwd[2])
+            out["bwd_err"] = max(out["bwd_err"], max(a_[2] for a_ in bwd.values()))
+            if (B, T) == ATTN_SHAPES[0]:
+                if p == 0.0:
+                    out.update(sdpa_dev=times["sdpa_dev"], sdpa_bwd_dev=times["sdpa_bwd_dev"],
+                               fwd_dev_p0=times["fwd_dev"], bwd_dev_p0=times["bwd_dev"])
+                else:
+                    out.update(fwd_dev=times["fwd_dev"], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
+                               bwd_dev=times["bwd_dev"], bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"],
+                               bound=fb, bwd_bound=bb)
+            elif p == 0.0:
+                out["b64_sdpa_dev"] = times["sdpa_dev"]
+            else:
+                out["b64"] = {"ms": times["fwd_dev"], "call_ms": times["fwd"], "plain_ms": times["fwd_plain"],
+                              "bound_ms": fb[0], "bound_by": fb[1], "bwd_ms": times["bwd_dev"],
+                              "bwd_bound_ms": bb[0]}
+            del o, grads, again, ref, grads_ref, qkv, o_k, stats_k
+            torch.cuda.empty_cache()
+    B, T = ATTN_SHAPES[0]
+    _, lens, _ = packed_qkv(B, T, 601, device)
+    seed = torch.tensor([41337], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        keep = kernel_keep_mask(B, T, lens, seed, device, torch.bfloat16)
+        other = kernel_keep_mask(B, T, lens, seed + 1, device, torch.bfloat16)
+        plain = att.dropout_bits(seed, B, ATTN_HEADS, T, device) >= att.keep_threshold(P_DROP)
+    valid = att.valid_pairs(lens, T).expand(B, ATTN_HEADS, T, T)
+    equal = torch.equal(keep[valid], plain[valid])
+    changed = (keep[valid] != other[valid]).double().mean().item()
+    print(f"[bf16 attention dropout] p={P_DROP} B={B} T={T}: the bf16 kernel's masks read back at {int(valid.sum())} "
+          f"valid pairs equal the plain version's {equal}; keep rate {keep[valid].double().mean().item():.6f}; "
+          f"another seed changes {changed:.4f} [{card}]")
+    require(equal and changed > 0.1, f"bf16 attention masks: equal {equal}, another seed changes {changed}")
+    return out
+
+
+def lm_bf16_counts() -> tuple:
+    """(fp32 B2 fwd, bwd, bf16 B2 fwd, bwd) launches so far."""
+    f, b = att.fused_attention, att.attention_backward
+    return f.launches, b.launches, f.bf16_launches, b.bf16_launches
+
+
+def phase_bf16_lm_train(device, card: str, vq_state: dict) -> dict:
+    """The LM's bf16 train step (configs.TRANSFORMER_LM_TPU, dropout 0.1, Adam
+    with the LM's warm-up, parameter EMA, the codec frozen; make_train_step
+    with bf16=True) at each batch of LM_BATCHES x LM_T: BF16_TRAIN_STEPS
+    steps, launches (fp32 B2 fwd, bwd, bf16 B2 fwd, bwd) = (0, 0, L, L) a
+    step, ms, peak, the device's busy share."""
+    out = {"launches": (0, 0, 0, 0)}
+    n_layers = configs.TRANSFORMER_LM_TPU["num_layers"]
+    for batch_n in LM_BATCHES:
+        tag = f"[bf16 lm train b{batch_n}]"
+        lm = build_lm(device, vq_state, seed=LM_SEED + 2)
+        opt, schedule = lm_optimizer(lm)
+        state = TrainState.create(lm, opt, use_ema=True)
+        step = make_train_step(schedule, default_mu(batch_n, 1), use_ema=True, bf16=True)
+        batch = lm_tokens(batch_n, LM_T, seed=60 + batch_n, device=device)
+        frozen = frozenset(n for n, keep in harness.frozen_param_mask(lm).items() if not keep)
+        f, b_ = att.fused_attention, att.attention_backward
+        f.launches = f.bf16_launches = b_.launches = b_.bf16_launches = 0
+        print(f"{tag} B={batch_n} x {LM_T} tokens, dropout {lm.dropout_p}, Adam + parameter EMA, the codec frozen")
+        res = bf16_steps(tag, state, step, batch, BF16_TRAIN_STEPS, lm_bf16_counts, card, frozen)
+        expect = (0, 0, n_layers, n_layers)
+        print(f"{tag} launches per step (fp32 B2 fwd, bwd, bf16 B2 fwd, bwd) {res['per_step']}")
+        require(all(c == expect for c in res["per_step"]), f"{tag} launches {res['per_step']} != {expect}")
+        out["launches"] = tuple(a + c for a, c in zip(out["launches"], lm_bf16_counts()))
+        res["tokens_per_s"] = batch_n * LM_T / (res["step_ms"] / 1e3)
+        print(json.dumps({f"lm_train_bf16_b{batch_n}_token_positions_per_sec_per_chip": res["tokens_per_s"],
+                          "step_ms": res["step_ms"], "peak_gib": res["peak"], "device_busy": res["busy"],
+                          "card": card}))
+        out[batch_n] = res
+        del state, lm, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 class Decisions:
     """Within the block, MAS's path (``module.maximum_path_auto``) and, for
     VQ-TTS, the grouped bottleneck's codes (the ``min`` of its distance
@@ -3572,6 +3898,8 @@ class Decisions:
             if outer.record:
                 outer.path = inner(value, mask).cpu()
             return outer.path.to(value.device)
+        if self.module is None:  # a model without such decisions (the LM)
+            return self
         self.saved = self.module.maximum_path_auto
         self.module.maximum_path_auto = path
         if self.bottleneck is not None:
@@ -3589,6 +3917,8 @@ class Decisions:
         return self
 
     def __exit__(self, *exc):
+        if self.module is None:
+            return
         self.module.maximum_path_auto = self.saved
         if self.bottleneck is not None:
             self.bottleneck.torch = self.saved_torch
@@ -3618,24 +3948,30 @@ def sgd_updates(first, batch: dict, device, names: tuple, decisions: Decisions) 
     return out
 
 
-def phase_bf16_vs_fp64(device, card: str, kind: str) -> dict:
-    """One SGD step (dropout 0) of Glow-TTS (``kind`` "glow": GLOW_VS_CPU
-    sequences of the mel batch) or VQ-TTS ("vqtts", "vqtts_b5": 2 sequences of
-    VQTTS_SAMPLES, the log-magnitude STFT term off: with it any bf16 update
-    is 0.2-1 of its own norm from fp64's, PERF.md) on the card in bf16, on
-    the CPU in bf16 (the plain versions) and in fp64, at the fp64 step's MAS
-    path (and codes): the card's update within BF16_LIN_MULTIPLE of the CPU
-    bf16 step's distance from fp64's by median, all and worst parameter, and
-    the control (the card's update x BF16_CONTROL_SCALE) failing it. A
+def phase_bf16_vs_fp64(device, card: str, kind: str, vq_state: Optional[dict] = None) -> dict:
+    """One SGD step (dropout 0) of Glow-TTS (``kind`` "glow", or "glow_b6" on
+    the flow-step route: GLOW_VS_CPU sequences of the mel batch), the
+    Transformer LM ("lm": LM_SUBSET tokens, the codec of ``vq_state``
+    frozen) or VQ-TTS ("vqtts", "vqtts_b5": 2 sequences of VQTTS_SAMPLES,
+    the log-magnitude STFT term off: with it any bf16 update is 0.2-1 of its
+    own norm from fp64's, PERF.md) on the card in bf16, on the CPU in bf16
+    (the plain versions) and in fp64, at the fp64 step's MAS path (and
+    codes): the card's update within BF16_LIN_MULTIPLE of the CPU bf16
+    step's distance from fp64's by median, all and worst parameter, and the
+    control (the card's update x BF16_CONTROL_SCALE) failing it. A
     parameter's distance is over its fp64 update's norm floored at 1e-4 of
     the whole update's (phase 25's floor)."""
     tag = f"[bf16 {kind} vs fp64]"
-    if kind == "glow":
-        first = build_glow(device, GLOW_SEED + 5)
+    if kind in ("glow", "glow_b6"):
+        first = build_glow(device, GLOW_SEED + 5, flow_step=kind == "glow_b6")
         set_dropout(first, 0.0)
         full = glow_mel_batch(first, GLOW_BATCH, device, seed=35)
         batch = {k: v[:GLOW_VS_CPU] for k, v in full.items()}
         decisions = Decisions(glow_model_module)
+    elif kind == "lm":
+        first = build_lm(device, vq_state, seed=LM_SEED + 3, dropout=0.0)
+        batch = lm_tokens(*LM_SUBSET, seed=51, device="cpu")
+        decisions = Decisions(None)
     else:
         first = build_vqtts(device, VQTTS_SEED + 3, kind == "vqtts_b5", p_dropout=0.0, revival_threshold=0.0,
                             loss={**configs.VQTTS_TPU["loss"], "log": False})
@@ -3656,7 +3992,8 @@ def phase_bf16_vs_fp64(device, card: str, kind: str) -> dict:
     first = first.cpu()
     batch = {k: v.cpu() for k, v in batch.items()}
     ups = sgd_updates(first, batch, device, ("cpu64", "cuda", "cpu"), decisions)
-    ref = ups["cpu64"][1]
+    mask = harness.frozen_param_mask(first) or {}
+    ref = {k: r for k, r in ups["cpu64"][1].items() if mask.get(k, True)}  # the LM's frozen codec moves nowhere
     # per parameter over a norm floored at 1e-4 of the whole update's: the key biases' true gradients are
     # zero (the softmax ignores them), so their fp64 updates are rounding alone
     floor = 1e-4 * torch.sqrt(sum((r ** 2).sum() for r in ref.values())).item()
@@ -3808,6 +4145,7 @@ def phase_bf16_train_vs_cpu(device, card: str) -> dict:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     card = phase_device()
     device = cuda_device()
     phase_build()
@@ -3928,6 +4266,20 @@ def main() -> None:
         phase_bf16_vs_fp64(device, card, kind)
         torch.cuda.empty_cache()
 
+    # the bf16 modes of B6 and B2, Glow-TTS's bf16 step on the flow-step route and the LM's bf16 step
+    glow = build_glow(device, GLOW_SEED, flow_step=True)
+    b6_bf16 = phase_bf16_flow_step(glow, device, card)
+    del glow
+    torch.cuda.empty_cache()
+    b2_bf16 = phase_bf16_attention(device, card)
+    glow_bf16_b6 = phase_bf16_glow_train(device, card, flow_step=True)
+    torch.cuda.empty_cache()
+    lm_bf16 = phase_bf16_lm_train(device, card, vq_state)
+    torch.cuda.empty_cache()
+    for kind in ("glow_b6", "lm"):
+        phase_bf16_vs_fp64(device, card, kind, vq_state)
+        torch.cuda.empty_cache()
+
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
           f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
@@ -3937,9 +4289,12 @@ def main() -> None:
           f"B1 red, B4, B5 fwd, B5 bwd) {vq_train['launches']}, on B5's encoder route {vq_train_b5['launches']}, one "
           f"val step {vq_val['launches']}; the bf16 training path (bf16 fwd, bwd, red) "
           f"{(bf16_train['fwd'], bf16_train['bwd'], bf16_train['red'])}; the bf16 Glow-TTS training path (fp32 B5 fwd, "
-          f"bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4) {glow_bf16['launches']}; the bf16 VQ-TTS training "
+          f"bwd, B3 fwd, bwd, bf16 B5 fwd, bwd, B3 fwd, bwd, B4, fp32 B6 fwd, bwd, bf16 B6 fwd, bwd) "
+          f"{glow_bf16['launches']}; the bf16 VQ-TTS training "
           f"path (fp32 B1 fwd, bwd, red, bf16 B1 fwd, bwd, red, B4, fp32 B5 fwd, bwd, bf16 B5 fwd, bwd) "
-          f"{vq_bf16['launches']}, on B5's encoder route {vq_bf16_b5['launches']}")
+          f"{vq_bf16['launches']}, on B5's encoder route {vq_bf16_b5['launches']}; the bf16 Glow-TTS training path on "
+          f"the B6 route (the same counts) {glow_bf16_b6['launches']}; the bf16 LM "
+          f"training path (fp32 B2 fwd, bwd, bf16 B2 fwd, bwd) {lm_bf16['launches']}")
 
     def at_vqtts(kernel: dict, **extra) -> dict:
         return {"shapes": f"{len(VQTTS_BLOCK_TS)} block shapes, B={VQTTS_BATCH}, depth {VQTTS_DEPTH}, summed",
@@ -3969,6 +4324,8 @@ def main() -> None:
                                   plain_ms=vq_bwd["red_plain_ms"], bound_ms=vq_bwd["red_bound_ms"],
                                   bound_by=vq_bwd["red_bound_by"], library_ms=vq_bwd["red_library_ms"],
                                   max_abs_err=vq_bwd["red_err"], bound_3xtf32_ms=vq_bwd["red_tf32_ms"])}
+
+    print(f"[chip_smoke] every phase passed in {time.perf_counter() - t0:.1f} s [{card}]")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
@@ -4042,7 +4399,20 @@ def main() -> None:
               bound_3xtf32_ms=b6["fwd_tf32_ms"]),
         entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
               b6["plain_ms"], b6["bound_ms"], b6["bound_by"], call_ms=b6["call_ms"],
-              bound_3xtf32_ms=b6["tf32_ms"])]}))
+              bound_3xtf32_ms=b6["tf32_ms"]),
+        entry("flow_step_fwd_bf16", "flow_step_fwd.cu", PALLAS_WN + ":521", glow_bf16_b6["launches"][11],
+              b6_bf16["fwd"]["max_abs_err"], b6_bf16["fwd"]["ms"], b6_bf16["fwd"]["plain_ms"],
+              b6_bf16["fwd"]["bound_ms"], b6_bf16["fwd"]["bound_by"], call_ms=b6_bf16["fwd"]["call_ms"]),
+        entry("flow_step_bwd_bf16", "flow_step_bwd.cu", PALLAS_WN + ":569", glow_bf16_b6["launches"][12],
+              b6_bf16["bwd"]["max_abs_err"], b6_bf16["bwd"]["ms"], b6_bf16["bwd"]["plain_ms"],
+              b6_bf16["bwd"]["bound_ms"], b6_bf16["bwd"]["bound_by"], call_ms=b6_bf16["bwd"]["call_ms"]),
+        entry("attention_fwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":226", lm_bf16["launches"][2],
+              b2_bf16["fwd_err"], b2_bf16["fwd_dev"], b2_bf16["fwd_plain_ms"], *b2_bf16["bound"], b2_bf16["sdpa_dev"],
+              ms_p0=b2_bf16["fwd_dev_p0"], call_ms=b2_bf16["fwd_ms"],
+              at_64x258=dict(b2_bf16["b64"], library_ms=b2_bf16["b64_sdpa_dev"])),
+        entry("attention_bwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":253", lm_bf16["launches"][3],
+              b2_bf16["bwd_err"], b2_bf16["bwd_dev"], b2_bf16["bwd_plain_ms"], *b2_bf16["bwd_bound"],
+              b2_bf16["sdpa_bwd_dev"], ms_p0=b2_bf16["bwd_dev_p0"], call_ms=b2_bf16["bwd_ms"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

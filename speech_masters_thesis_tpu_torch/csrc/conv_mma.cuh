@@ -45,7 +45,8 @@
 // bf16 and sums in fp32. The staging buffers stay fp32: fp32 activations land
 // as they are (cp.async), bf16 ones (in_bf16: a kernel's input) and the bf16
 // weights by 2-byte loads converted to fp32, so any width, stride or offset
-// runs; the fragments are rounded to bf16 as they are built (bf16_mma.cuh:
+// runs (a bf16 in2 beside an fp32 in, and the ACTNORM epilogues' fp32 weight,
+// by 4-byte loads); the fragments are rounded to bf16 as they are built (bf16_mma.cuh:
 // exact for values that were bf16) and go through one m16n8k16 MMA, two
 // k-steps of 16 a slice, each k-step's MMAs added to the accumulators in
 // fp32 as in the fp32 mode (bf16 mma.sync's accumulation truncates too).
@@ -115,6 +116,8 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
   using S = Tile<TN, ROWS, N8>;
   constexpr int TM = S::TM;
   constexpr bool BF = kBf16<IO>;
+  // the flow step's prefix in bf16: its weight mt fp32, and (ACTNORM_BWD) a bf16 in2 beside an fp32 in
+  constexpr bool PREFIX = BF && (EPI == conv_rows::ACTNORM_FWD || EPI == conv_rows::ACTNORM_BWD);
   const int tap = s / slices, c0 = (s % slices) * KS, shift = tap * a.dil - pad;
   float* as = st;
   float* bs = st + S::A_FLOATS;
@@ -129,6 +132,13 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
       const bf16_t* src = reinterpret_cast<const bf16_t*>(a.in) + (row0 + t) * a.ldi;
 #pragma unroll
       for (int e = 0; e < 4; ++e) dst[e] = row && ch + e < a.cin ? __bfloat162float(src[ch + e]) : 0.f;
+    } else if (PREFIX && a.in2_bf16) {  // fp32 channels below split, bf16 ones from in2
+      const bf16_t* src2 = reinterpret_cast<const bf16_t*>(a.in2) + (row0 + t) * a.ldi2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = ch + e;
+        dst[e] = !row || c >= a.cin ? 0.f : c >= a.split ? __bfloat162float(src2[c - a.split]) : *at(c);
+      }
     } else if (WHOLE) {
       const bool in = row && ch < a.cin;
       tf32::cp_async16(dst, in ? at(ch) : a.in, in ? 16 : 0);
@@ -136,8 +146,10 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
       tf32::stage4(dst, [&](int e) -> const float* { return row && ch + e < a.cin ? at(ch + e) : nullptr; });
     }
   }
-  if (BF) {  // the bf16 weights
-    const bf16_t* wt = reinterpret_cast<const bf16_t*>(wb.w) + tap * wb.tap_ld;
+  if (BF) {  // the bf16 weights; the prefix's mt stays fp32
+    const bf16_t* wt16 = reinterpret_cast<const bf16_t*>(wb.w) + tap * wb.tap_ld;
+    const float* wt32 = wb.w + tap * wb.tap_ld;
+    auto wt = [&](size_t i) { return PREFIX ? wt32[i] : __bfloat162float(wt16[i]); };
     if (wb.nk) {
       for (int f = threadIdx.x; f < TN * (KS / 4); f += NT) {
         const int j = f / (KS / 4), ch = c0 + 4 * (f % (KS / 4));
@@ -146,7 +158,7 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
         float* dst = bs + j * S::LDB_NK + 4 * (f % (KS / 4));
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dst[e] = in && ch + e < a.cin ? __bfloat162float(wt[(size_t)col * wb.ld + ch + e]) : 0.f;
+          dst[e] = in && ch + e < a.cin ? wt((size_t)col * wb.ld + ch + e) : 0.f;
       }
     } else {
       for (int f = threadIdx.x; f < KS * (TN / 4); f += NT) {
@@ -156,7 +168,7 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
         for (int e = 0; e < 4; ++e) {
           int col;
           const bool ok = conv_rows::out_column<TN, EPI>(a, j + e, &col) && ch < a.cin;
-          dst[e] = ok ? __bfloat162float(wt[(size_t)ch * wb.ld + col]) : 0.f;
+          dst[e] = ok ? wt((size_t)ch * wb.ld + col) : 0.f;
         }
       }
     }
@@ -365,7 +377,7 @@ inline Weight weight_of(const Args& a) {
 template <int EPI, class IO = float>
 inline bool whole_pieces(const Args& a, const Weight& wb) {
   using tf32::aligned16;
-  if (kBf16<IO> && a.in_bf16) return true;
+  if (kBf16<IO> && (a.in_bf16 || a.in2_bf16)) return true;
   const bool in = aligned16(a.in) && a.ldi % 4 == 0 && a.cin % 4 == 0 &&
                   (!a.in2 || (aligned16(a.in2) && a.ldi2 % 4 == 0 && a.split % 4 == 0));
   if (kBf16<IO>) return in;

@@ -27,7 +27,8 @@
 // to fp32), the fragments are rounded to bf16 as they are built, two k-steps
 // of 16 a slab in m16n8k16 MMAs, the same flush every 1,024 frames (bf16
 // mma.sync's accumulation truncates too); the reduce kernel writes the
-// gradients in bf16 (the fp32 sums cast once).
+// gradients in bf16 (the fp32 sums cast once), or in fp32 for a problem
+// flagged wgrad_rows::OUT_F32 (the flow step's dmt).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(NT) wgrad_mma_reduce_kernel(const Batch batch,
   const float* src = partials + (size_t)tile * n_split * PART + at;
   float sum = 0.f;
   for (int s = 0; s < n_split; ++s) sum += src[(size_t)s * PART];  // fixed order
-  if (BF)
+  if (BF && !(pr.bf16 & wgrad_rows::OUT_F32))
     wgrad_rows::put<BF>(m < 0 ? pr.out_b : pr.out_w,
                         m < 0 ? n0 + n : (long long)(n0 + n) * pr.ldn + (long long)(m0 + m) * pr.ldm, sum);
   else if (m < 0)

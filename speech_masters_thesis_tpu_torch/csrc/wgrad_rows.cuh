@@ -27,8 +27,10 @@
 // bf16 before each product (the TPU kernels' bf16 dots: exact products,
 // fp32 sums), the diagonal ones (LayerNorm gains: elementwise, not dots) are
 // not, and the reduce kernel writes out_w and out_b in bf16 (the sums cast
-// once, as the TPU kernels' VJPs cast to the parameters' dtype). X and Y
-// are fp32 here; wgrad_mma.cuh reads bf16 ones (Problem::bf16).
+// once, as the TPU kernels' VJPs cast to the parameters' dtype), or in fp32
+// for a problem flagged OUT_F32 (the flow step's ActNorm and InvConvNear
+// gradients, which the TPU kernel keeps fp32). X or Y flagged X_BF16 or
+// Y_BF16 hold bf16 (Problem::bf16), here and in wgrad_mma.cuh.
 
 #pragma once
 
@@ -53,10 +55,10 @@ struct Problem {
   float* out_b;
   long long part;  // this problem's first partial float
   int ldx, ldy, gx, gy, groups, M, N, shift, mask_x, mask_y, diag, ldn, ldm;
-  int bf16;        // wgrad_mma.cuh's bf16 mode: X_BF16 | Y_BF16, the operands that hold bf16
+  int bf16;        // the bf16 mode: X_BF16 | Y_BF16, the operands that hold bf16; OUT_F32, fp32 outputs
 };
 static_assert(sizeof(Problem) == 96, "the bf16 flags fill Problem's padding: the fp32 kernels' parameters keep their layout");
-constexpr int X_BF16 = 1, Y_BF16 = 2;
+constexpr int X_BF16 = 1, Y_BF16 = 2, OUT_F32 = 4;
 
 // the bf16 value nearest v, as fp32
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
@@ -119,9 +121,14 @@ __global__ void __launch_bounds__(NT) wgrad_partial_kernel(const Batch batch, co
         const int g = (int)(r % pr.groups);
         const int b = (int)(f / T), t = (int)(f % T), len = lens[b];
         const int n = n0 + c, m = (pr.diag ? n0 : m0) + c, ts = t + pr.shift;
-        if (n < pr.N && !(pr.mask_y && t >= len)) yv = pr.Y[f * pr.ldy + (long long)g * pr.gy + n];
-        if (m < (pr.diag ? pr.N : pr.M) && ts >= 0 && ts < T && !(pr.mask_x && ts >= len))
-          xv = pr.X[(f + pr.shift) * pr.ldx + (long long)g * pr.gx + m];
+        if (n < pr.N && !(pr.mask_y && t >= len)) {
+          const long long i = f * pr.ldy + (long long)g * pr.gy + n;
+          yv = BF && (pr.bf16 & Y_BF16) ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pr.Y)[i]) : pr.Y[i];
+        }
+        if (m < (pr.diag ? pr.N : pr.M) && ts >= 0 && ts < T && !(pr.mask_x && ts >= len)) {
+          const long long i = (f + pr.shift) * pr.ldx + (long long)g * pr.gx + m;
+          xv = BF && (pr.bf16 & X_BF16) ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pr.X)[i]) : pr.X[i];
+        }
       }
       ys[rr][c] = yv;
       xs[rr][c] = xv;
@@ -187,7 +194,7 @@ __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(const Batch batch, int
   const float* src = partials + pr.part + (long long)tile * n_split * PART + e;
   float sum = 0.f;
   for (int s = 0; s < n_split; ++s) sum += src[(long long)s * PART];  // fixed order
-  if (BF)
+  if (BF && !(pr.bf16 & OUT_F32))
     put<BF>(e >= TILE * TILE ? pr.out_b : pr.out_w, e >= TILE * TILE ? n : (long long)n * pr.ldn + (long long)m * pr.ldm,
             sum);
   else if (e >= TILE * TILE)

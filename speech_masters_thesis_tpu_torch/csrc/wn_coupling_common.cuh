@@ -13,7 +13,9 @@
 // IO is the mode (conv_mma.cuh): float, or bf16 for the TPU kernel's bf16
 // dot_dtype. In bf16 x0, g, the weights, out, dx0 and the gradients hold bf16
 // (the pointers stay float* and are read as bf16); h, acts, skip and the
-// backward's scratch stay fp32, each product rounding its operands.
+// backward's scratch stay fp32, each product rounding its operands. The flow
+// step's prefix takes x and writes xc in bf16 with aln, alb and mt fp32, and
+// its backward's dxc (the conditioner's dx0 plus g_xc) stays fp32.
 
 #pragma once
 
@@ -203,12 +205,13 @@ cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w,
 // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
 //   dx0 = (res + dh_0 W_s^T) * valid   (res rows ldres apart; 0 when null)
 // into dx0 (rows ld_dx0 apart). 3 + 4 L launches, and one more to pack for k > 1.
+// In bf16 dx0 holds bf16, except with res (the flow step's dxc: fp32, res bf16).
 template <class Tag, class IO = float>
 cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const float* g, const Weights& w,
                            const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
                            float* dx0, int ld_dx0, float* packed, cudaStream_t s) {
   using namespace conv_rows;
-  constexpr bool BF = conv_mma::kBf16<IO>;  // (the flow step's res: fp32 mode only)
+  constexpr bool BF = conv_mma::kBf16<IO>;
   const int B = sh.B, H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)B * sh.T * H;
   std::vector<const float*> win_conv, win_t;
@@ -261,9 +264,9 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
 
   Args x = a;  // dx0 = (res + dh_0 W_s^T) * valid
   x.in = sc.dh; x.ldi = H; x.cin = H; x.mask_in = 1;
-  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0; x.out_bf16 = BF;
+  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0; x.out_bf16 = BF && !res;
   if (!res) return launch<Tag, 1, MASK, IO>(x, B, s);
-  x.res = res; x.ldr = ldres; x.hidden = 0;
+  x.res = res; x.ldr = ldres; x.hidden = 0; x.res_bf16 = BF;
   return launch<Tag, 1, RES_SKIP, IO>(x, B, s);
 }
 
@@ -320,9 +323,10 @@ inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const
 // The flow step's prefix (ActNorm, then InvConvNear as one dense product):
 //   xc = ((alb + exp(aln) * x) * valid) mt      x, xc [B, T, C] contiguous, mt [C, C]
 // with the ActNorm in the tile loader and mt read as the transposed weight
-// of a 1x1 conv. With x1 set, the loader's rows (the ActNorm's output) are
-// written there too. One launch.
-template <class Tag>
+// of a 1x1 conv. With x1 set, the loader's rows (the ActNorm's output, fp32)
+// are written there too. One launch. In bf16 x and xc hold bf16; aln, alb
+// and mt stay fp32, and the product rounds x1 and mt (the TPU kernel's _dot).
+template <class Tag, class IO = float>
 cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const float* alb, const float* mt,
                         int B, int T, int C, float* xc, float* x1, cudaStream_t s) {
   using namespace conv_rows;
@@ -331,7 +335,8 @@ cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const
   a.in = x; a.ldi = C; a.cin = C; a.mask_in = 1; a.pre_logs = aln; a.pre_bias = alb;
   a.in_out = x1; a.ldio = C;
   a.w = mt; a.wt = 1; a.n_out = C; a.out = xc; a.ldo = C;
-  return launch<Tag, 1, ACTNORM_FWD>(a, B, s);
+  a.in_bf16 = a.out_bf16 = conv_mma::kBf16<IO>;
+  return launch<Tag, 1, ACTNORM_FWD, IO>(a, B, s);
 }
 
 }  // namespace wn_coupling

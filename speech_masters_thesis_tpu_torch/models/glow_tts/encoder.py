@@ -58,7 +58,7 @@ from speech_masters_thesis_tpu_torch.models.glow_tts.flows import (
     squeeze,
     unsqueeze,
 )
-from speech_masters_thesis_tpu_torch.ops.basic import draw_seed, pointwise, sequence_mask
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32, draw_seed, pointwise, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.enc_layer import EncLayerWeights, enc_layer, enc_layer_reference
 
 
@@ -161,13 +161,18 @@ class FlowSpecDecoder(nn.Module):
         lens = mask_lengths(x_mask)
         logdet_tot = None if reverse else 0.0
         if self.fused_flow_step and not reverse and not ddi and x.shape[1] <= self.flows[2].fused_max_t:
+            # the JAX decoder's fused branch (encoder.py:296-318): the prefix's parameters upcast to at
+            # least fp32 (mt built from the weight as it is, then upcast); the ActNorm's logdet in the
+            # parameters' dtype on lengths in x's, the InvConvNear's slogdet in fp32 on those lengths
             x_len = lens.to(x.dtype)
             for actnorm, invconv, coupling in zip(self.flows[0::3], self.flows[1::3], self.flows[2::3]):
-                prefix = (actnorm.logs.view(-1), actnorm.bias.view(-1), invconv.dense_matrix_t())
+                prefix = (at_least_f32(actnorm.logs.view(-1)), at_least_f32(actnorm.bias.view(-1)),
+                          at_least_f32(invconv.dense_matrix_t()))
                 x, logdet_c = coupling(x, x_mask, lens, train=train, generator=generator, prefix=prefix)
-                slogdet = torch.linalg.slogdet(invconv.weight)[1]
+                slogdet = torch.linalg.slogdet(at_least_f32(invconv.weight))[1]
                 logdet_tot = logdet_tot + (torch.sum(actnorm.logs) * x_len
-                                           + slogdet * (x.shape[2] / invconv.n_split) * x_len + logdet_c)
+                                           + slogdet * (x.shape[2] / invconv.n_split) * x_len.to(slogdet.dtype)
+                                           + logdet_c)
         else:
             for flow in (reversed(self.flows) if reverse else self.flows):
                 x, logdet = flow(x, x_mask, lens, reverse=reverse, ddi=ddi, train=train, generator=generator)

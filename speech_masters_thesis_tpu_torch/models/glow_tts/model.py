@@ -51,9 +51,10 @@ class GlowTTS(TokenToSpectrogramModel):
     fp32, the path fp32 and the aligned statistics with it, the losses
     reduced in the dtypes JAX reduces them in (fp32 where a term is). A mel
     batch keeps the flows in bf16; from audio (``on_device_spect``) the mel
-    is fp32 and the flows run fp32, the weights promoted, as in JAX. The
-    flow-step route (B6, ``fused_flow_step: true``) has no bf16 mode yet:
-    ``check_bf16`` raises."""
+    is fp32 and the flows run fp32, the weights promoted, as in JAX. On the
+    flow-step route (B6, ``fused_flow_step: true``) the ActNorm's and the
+    InvConvNear's parameters reach the kernel upcast to fp32, as JAX's
+    decoder passes them (``FlowSpecDecoder``)."""
 
     USES_DATASET_CONFIG = True
     BF16_TRAINING = True
@@ -97,14 +98,6 @@ class GlowTTS(TokenToSpectrogramModel):
             fused_flow_step=model_cfg.get("fused_flow_step", True),
             p_dropout=dec["p_dropout"],
         )
-
-    def check_bf16(self) -> None:
-        """Raises unless every kernel of this configuration's train path has
-        a bf16 mode."""
-        if self.decoder.fused_flow_step:
-            raise NotImplementedError("bf16 training of GlowTTS with fused_flow_step: true is not ported: the "
-                                      "whole-flow-step kernel (B6) has no bf16 mode yet; set fused_flow_step: "
-                                      "false (B3's route) for bf16")
 
     def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor, y_lengths: torch.Tensor,
                 speaker=None, train: bool = False, ddi: bool = False, noise: Optional[torch.Tensor] = None,

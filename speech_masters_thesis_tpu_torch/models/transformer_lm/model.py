@@ -63,6 +63,19 @@ def _maybe_dropout(x: torch.Tensor, p: float, train: bool, generator: Optional[t
     return dropout(x, p, generator) if train and p > 0 else x
 
 
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A Dense layer as flax runs it: in bf16 the product is rounded to bf16
+    before its bias is added (flax's Dense adds the bias to the dot's
+    output), so two roundings as in the JAX LM; otherwise one fused product."""
+    if x.dtype == torch.bfloat16:
+        return F.linear(x, weight) + bias
+    return F.linear(x, weight, bias)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return _dense(x, layer.weight, layer.bias)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention with a packed in-projection (torch MHA layout)."""
 
@@ -78,7 +91,7 @@ class MultiHeadSelfAttention(nn.Module):
     def _qkv(self, x: torch.Tensor):
         """q, k, v as [B, T, H, D] views of one [B, T, 3C] projection."""
         b, t, _ = x.shape
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = _dense(x, self.in_proj_weight, self.in_proj_bias)
         return [part.view(b, t, self.n_heads, self.d_head) for part in qkv.split(self.d_model, dim=-1)]
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor, train: bool = True,
@@ -93,7 +106,7 @@ class MultiHeadSelfAttention(nn.Module):
             out = self._attend_sdpa(q, k, v, lens)
         else:
             out = self._attend(q, k, v, lens, train, generator)
-        return self.out_proj(out.reshape(x.shape[0], t, self.d_model))
+        return _linear(self.out_proj, out.reshape(x.shape[0], t, self.d_model))
 
     def _attend(self, q, k, v, lens, train, generator):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.d_head)
@@ -154,8 +167,8 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
 
     def _ff(self, x: torch.Tensor, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
-        h = _maybe_dropout(torch.relu(self.linear1(x)), self.dropout_p, train, generator)
-        return self.linear2(h)
+        h = _maybe_dropout(torch.relu(_linear(self.linear1, x)), self.dropout_p, train, generator)
+        return _linear(self.linear2, h)
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor, train: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -182,13 +195,23 @@ class _Encoder(nn.Module):
 class TransformerLM(TokenToWaveformModel):
     """LM built from a ``model:`` config dict (see ``configs.TRANSFORMER_LM_TPU``),
     with the frozen codec of ``vqvae_model_config`` (a VQ-VAE ``model:``
-    section, e.g. ``configs.VQVAE_TPU``) when one is given."""
+    section, e.g. ``configs.VQVAE_TPU``) when one is given.
+
+    bf16 training (``train.loop.make_train_step(bf16=True)``) follows the
+    JAX LM's dtypes: the fp32 positional table is cast to the activations'
+    dtype before the add (an fp32 add would promote the whole backbone, and
+    every attention call with it, to fp32), the attention bias to the
+    logits' dtype, the softmax reduces in fp32 (``softmax_f32``), the small-T
+    kernel runs its bf16 mode, each Dense layer rounds its product before the
+    bias as flax's does (``_dense``), and the losses take log_softmax of
+    fp32 logits."""
 
     PAD = PAD
     BOS = BOS
     OFFSET = OFFSET
     # parameter prefixes kept out of the optimizer (train/harness.py:frozen_param_mask)
     FROZEN_PREFIXES = ("vqvae_bottleneck", "vqvae_decoder")
+    BF16_TRAINING = True  # B2's kernels have a bf16 mode (train.loop.make_train_step)
 
     def __init__(self, model_cfg: dict, vqvae_model_config: Optional[dict] = None):
         super().__init__()
@@ -219,7 +242,7 @@ class TransformerLM(TokenToWaveformModel):
     def _backbone(self, tokens: torch.Tensor, lens: torch.Tensor, train: bool,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.embedding(tokens) * math.sqrt(self.d_model)
-        x = _maybe_dropout(x + self.pe[None, :x.shape[1]], self.dropout_p, train, generator)
+        x = _maybe_dropout(x + self.pe[None, :x.shape[1]].to(x.dtype), self.dropout_p, train, generator)
         for layer in self.transformer.layers:
             x = layer(x, lens, train, generator)
         return self.transformer.norm(x)
@@ -248,7 +271,7 @@ class TransformerLM(TokenToWaveformModel):
         b, t = x.shape
         key_mask = sequence_mask(x_lengths, t)
         lens = key_mask.sum(dim=-1).to(torch.int32)
-        logits = self.classifier(self._backbone(x, lens, train, generator))
+        logits = _linear(self.classifier, self._backbone(x, lens, train, generator))
 
         targets = x[:, 1:].reshape(-1)
         logits_flat = logits[:, :-1].reshape(targets.shape[0], -1)

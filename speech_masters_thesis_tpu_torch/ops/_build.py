@@ -125,6 +125,10 @@ def build() -> ctypes.CDLL:
     lib.attention_fwd.restype = i
     lib.attention_bwd.argtypes = [p] * 3 + [i] + [p] * 9 + [i] * 4 + [f, i, u, f, p]
     lib.attention_bwd.restype = i
+    lib.attention_fwd_bf16.argtypes = lib.attention_fwd.argtypes
+    lib.attention_fwd_bf16.restype = i
+    lib.attention_bwd_bf16.argtypes = [p] * 3 + [i] + [p] * 8 + [i] * 4 + [f, i, u, f, p]
+    lib.attention_bwd_bf16.restype = i
     lib.mas_forward.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.mas_forward.restype = i
     lib.mas_smem_bytes.argtypes = [i, i]
@@ -147,11 +151,16 @@ def build() -> ctypes.CDLL:
     lib.wn_coupling_bwd_blocks_per_sm.restype = i
     lib.flow_step_fwd.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 8 + [i] * 8 + [u, f, p]
     lib.flow_step_fwd.restype = i
+    lib.flow_step_fwd_bf16.argtypes = lib.flow_step_fwd.argtypes
+    lib.flow_step_fwd_bf16.restype = i
     lib.flow_step_fwd_workspace_floats.argtypes = [i] * 8
     lib.flow_step_fwd_workspace_floats.restype = ctypes.c_long
     lib.flow_step_bwd.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 14
                                   + [i] * 8 + [u, f, p])
     lib.flow_step_bwd.restype = i
+    lib.flow_step_bwd_bf16.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 15
+                                       + [i] * 8 + [u, f, p])
+    lib.flow_step_bwd_bf16.restype = i
     lib.flow_step_bwd_workspace_floats.argtypes = [i] * 8
     lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_fwd.argtypes = [p] * 27 + [i] * 7 + [f, u, f, p]

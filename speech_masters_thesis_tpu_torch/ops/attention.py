@@ -23,6 +23,19 @@ Semantics every version keeps (the JAX kernel's, ``attention.py:92-185``):
     version agree bit for bit on the masks and the backward regenerates them.
     The seed is an int64 [1] tensor on the inputs' device, so a seed drawn
     on the card never waits for the host.
+
+Two modes, as the TPU kernel's ``dot_dtype`` (q's dtype) has them. fp32:
+q, k, v and g float32, every product in 3xTF32 on the card. bf16 (the JAX
+package's mixed-precision training; ``csrc/attention_bf16.cu``): q, k, v
+and g bfloat16, each product's operands bf16 and its sums fp32, the masked
+softmax fp32, P keep rounded to bf16 after normalisation (before P V and
+dV), delta = rowsum(dp * p) in fp32 and dS rounded to bf16 before dQ and
+dK; o, dq, dk and dv come out in bf16. Mixed dtypes raise.
+``.launches`` counts fp32 kernel launches, ``.bf16_launches`` bf16 ones. A
+bf16 CPU tensor runs ``FusedAttentionFunction`` over the plain versions,
+whose backward rounds where the TPU kernel's does (autograd through the
+rounded plain forward would round cotangents it does not); an fp32 CPU
+tensor runs ``attention_reference`` under CPU autograd.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from typing import Tuple
 import torch
 
 from speech_masters_thesis_tpu_torch.ops import _build
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32, round_bf16, same
 from speech_masters_thesis_tpu_torch.ops.hash import draw, keep_scale, keep_threshold, stream_key
 
 NEG_INF = -1e9
@@ -81,42 +95,65 @@ def _masked_values(v, lens):
     return v * rows[:, :, None, None].to(v.dtype)
 
 
+def check_dtypes(*tensors: torch.Tensor) -> None:
+    """q, k, v (and g) share one dtype, float32 or bfloat16 (or float64 for
+    the plain versions): one mode per call."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16, torch.float64) or any(t.dtype != dtype for t in tensors):
+        raise ValueError(f"fused_attention: q, k, v and g share one dtype (float32 or bfloat16); got "
+                         f"{[t.dtype for t in tensors]}")
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
                         seed, scale: float, p_drop: float = 0.0) -> torch.Tensor:
     """Plain small-T attention: masked fp32 softmax, then dropout, then P V.
 
     q/k/v: [B, T, H, D]; lens: [B] int valid key lengths; ``seed`` (int or
     int64 tensor) picks the dropout masks when ``p_drop > 0``. Returns o
-    [B, T, H, D].
+    [B, T, H, D] in q's dtype (bf16: P V of the dropped probabilities
+    rounded to bf16, fp32 sums).
     """
+    check_dtypes(q, k, v)
     B, T, H, _ = q.shape
-    p = _probs(q, k, lens, scale)
+    rnd = round_bf16 if q.dtype == torch.bfloat16 else same
+    qf, kf, vf = (at_least_f32(t) for t in (q, k, v))
+    p = _probs(qf, kf, lens, scale)
     if p_drop > 0.0:
         p = p * keep_mask(seed, B, H, T, p_drop, q.device)
-    return torch.einsum("bhqk,bkhd->bqhd", p, _masked_values(v, lens))
+    return torch.einsum("bhqk,bkhd->bqhd", rnd(p), _masked_values(vf, lens)).to(q.dtype)
 
 
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  lens: torch.Tensor, seed, g: torch.Tensor, scale: float,
                                  p_drop: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the recompute backward, by the kernels' formulas:
-    (dq, dk, dv) for the output cotangent ``g``."""
+    (dq, dk, dv) for the output cotangent ``g``, in q's dtype. fp32:
+    delta = rowsum(g o); bf16 (the TPU kernel's form): delta = rowsum(dp p)
+    in fp32, P keep rounded before dV and dS before dQ and dK."""
+    check_dtypes(q, k, v, g)
+    dtype = q.dtype
+    bf16 = dtype == torch.bfloat16
+    rnd = round_bf16 if bf16 else same
+    q, k, v, g = (at_least_f32(t) for t in (q, k, v, g))
     B, T, H, _ = q.shape
     with torch.no_grad():
         p = _probs(q, k, lens, scale)
         keep = keep_mask(seed, B, H, T, p_drop, q.device) if p_drop > 0.0 else None
         pd = p * keep if keep is not None else p
         vm = _masked_values(v, lens)
-        o = torch.einsum("bhqk,bkhd->bqhd", pd, vm)
-        delta = (g * o).sum(dim=-1).permute(0, 2, 1)[..., None]   # rowsum(g o): [B, H, T, 1]
-        dv = _masked_values(torch.einsum("bhqk,bqhd->bkhd", pd, g), lens)
         dp = torch.einsum("bqhd,bkhd->bhqk", g, vm)
         if keep is not None:
             dp = dp * keep
-        ds = p * (dp - delta) * scale
+        if bf16:
+            delta = (dp * p).sum(dim=-1, keepdim=True)             # rowsum(dp p): [B, H, T, 1]
+        else:
+            o = torch.einsum("bhqk,bkhd->bqhd", pd, vm)
+            delta = (g * o).sum(dim=-1).permute(0, 2, 1)[..., None]   # rowsum(g o): [B, H, T, 1]
+        dv = _masked_values(torch.einsum("bhqk,bqhd->bkhd", rnd(pd), g), lens)
+        ds = rnd(p * (dp - delta) * scale)
         dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
         dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    return dq, dk, dv
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -131,15 +168,19 @@ def _check_call(q, k, v, lens, seed, contiguous=()) -> int:
     if D != _build.ATTENTION_HEAD_DIM:
         raise ValueError(f"fused_attention: kernels are built for D={_build.ATTENTION_HEAD_DIM}, got {D}")
     ld = q.stride(1)
+    check_dtypes(q, k, v)
+    if q.dtype == torch.float64:
+        raise ValueError("fused_attention: the kernels take float32 or bfloat16 tensors")
+    per_row = 16 // q.element_size()  # elements of a 16-byte piece
     for name, t in {"q": q, "k": k, "v": v}.items():
-        if t.dtype != torch.float32 or t.device != q.device or t.shape != q.shape:
-            raise ValueError(f"fused_attention: {name} must be float32 {tuple(q.shape)} on {q.device}")
-        if t.stride() != (T * ld, ld, D, 1) or ld % 4 or t.data_ptr() % 16:
+        if t.device != q.device or t.shape != q.shape:
+            raise ValueError(f"fused_attention: {name} must be {q.dtype} {tuple(q.shape)} on {q.device}")
+        if t.stride() != (T * ld, ld, D, 1) or ld % per_row or t.data_ptr() % 16:
             raise ValueError(f"fused_attention: {name} must have strides (T*ld, ld, D, 1) with "
                              f"16-byte rows, as q has; got {t.stride()}")
-    for name, t in contiguous:
-        if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"fused_attention: {name} must be a contiguous float32 tensor on {q.device}")
+    for name, t, dtype in contiguous:
+        if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"fused_attention: {name} must be a contiguous {dtype} tensor on {q.device}")
     if lens.dtype != torch.int32 or lens.shape != (B,) or lens.device != q.device or not lens.is_contiguous():
         raise ValueError("fused_attention: lens must be a contiguous int32 [B] tensor on the inputs' device")
     if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != q.device:
@@ -158,14 +199,19 @@ def _dropout_args(p_drop: float):
 def _launch_fwd(q, k, v, lens, seed, scale: float, p_drop: float):
     ld = _check_call(q, k, v, lens, seed)
     B, T, H, D = q.shape
-    o = torch.empty(B, T, H, D, device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    o = torch.empty(B, T, H, D, device=q.device, dtype=q.dtype)
     stats = torch.empty(B, H, T, 2, device=q.device, dtype=torch.float32)
-    rc = _build.build().attention_fwd(
+    lib = _build.build()
+    rc = (lib.attention_fwd_bf16 if bf16 else lib.attention_fwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, lens.data_ptr(), seed.data_ptr(),
         o.data_ptr(), stats.data_ptr(), B, T, H, D, float(scale), *_dropout_args(p_drop), _stream(q))
     if rc != 0:
-        raise RuntimeError(f"attention_fwd launch failed with cudaError {rc}")
-    fused_attention.launches += 1
+        raise RuntimeError(f"attention_fwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
+    if bf16:
+        fused_attention.bf16_launches += 1
+    else:
+        fused_attention.launches += 1
     return o, stats
 
 
@@ -174,40 +220,57 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
                        p_drop: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the cotangent ``g``.
 
-    A CUDA tensor launches the two kernels of ``csrc/attention_bwd.cu``,
-    which recompute P from q, k and the forward's row statistics ``stats``
-    ([B, H, T, 2]: max and sum) and regenerate its dropout masks;
-    ``attention_backward.launches`` counts calls that launch them. A CPU
+    A CUDA tensor launches the two kernels of ``csrc/attention_bwd.cu`` (bf16:
+    ``csrc/attention_bf16.cu``, which takes no ``o``), which recompute P
+    from q, k and the forward's row statistics ``stats`` ([B, H, T, 2]: max
+    and sum) and regenerate its dropout masks; ``attention_backward.launches``
+    (fp32) or ``.bf16_launches`` counts calls that launch them. A CPU
     tensor runs ``attention_backward_reference`` (``o`` and ``stats`` unused).
     """
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, lens, seed, g, scale, p_drop)
     if q.device.type != "cuda":
         raise ValueError(f"attention_backward: unsupported device {q.device}")
-    ld = _check_call(q, k, v, lens, seed, (("o", o), ("g", g), ("stats", stats)))
+    bf16 = q.dtype == torch.bfloat16
+    needs = ((("o", o, torch.float32),) if not bf16 else ()) + (("g", g, q.dtype), ("stats", stats, torch.float32))
+    ld = _check_call(q, k, v, lens, seed, needs)
     B, T, H, D = q.shape
-    if o.shape != q.shape or g.shape != q.shape or stats.shape != (B, H, T, 2):
+    if (not bf16 and o.shape != q.shape) or g.shape != q.shape or stats.shape != (B, H, T, 2):
         raise ValueError("attention_backward: o and g must be [B, T, H, D] and stats [B, H, T, 2]")
-    dq, dk, dv = (torch.empty(B, T, H, D, device=q.device, dtype=torch.float32) for _ in range(3))
+    dq, dk, dv = (torch.empty(B, T, H, D, device=q.device, dtype=q.dtype) for _ in range(3))
     delta = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
-    rc = _build.build().attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), stats.data_ptr(),
-        lens.data_ptr(), seed.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), B, T, H, D, float(scale), *_dropout_args(p_drop), _stream(q))
+    lib = _build.build()
+    if bf16:
+        rc = lib.attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, stats.data_ptr(), lens.data_ptr(), seed.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, H, D, float(scale),
+            *_dropout_args(p_drop), _stream(q))
+    else:
+        rc = lib.attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), stats.data_ptr(),
+            lens.data_ptr(), seed.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), B, T, H, D, float(scale), *_dropout_args(p_drop), _stream(q))
     if rc != 0:
-        raise RuntimeError(f"attention_bwd launch failed with cudaError {rc}")
-    attention_backward.launches += 1
+        raise RuntimeError(f"attention_bwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
+    if bf16:
+        attention_backward.bf16_launches += 1
+    else:
+        attention_backward.launches += 1
     return dq, dk, dv
 
 
 class FusedAttentionFunction(torch.autograd.Function):
-    """Attention on the card: the forward kernel, and a backward that keeps
-    q, k, v, lens, the seed, O and the row statistics and recomputes P in
-    the backward kernels."""
+    """Attention with a recompute backward: on the card the forward kernel,
+    and a backward that keeps q, k, v, lens, the seed, O and the row
+    statistics and recomputes P in the backward kernels; on the CPU (the
+    bf16 mode) the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, seed, scale, p_drop):  # pylint: disable=arguments-differ
-        o, stats = _launch_fwd(q, k, v, lens, seed, scale, p_drop)
+        if q.device.type == "cpu":
+            o, stats = attention_reference(q, k, v, lens, seed, scale, p_drop), None
+        else:
+            o, stats = _launch_fwd(q, k, v, lens, seed, scale, p_drop)
         ctx.save_for_backward(q, k, v, o, stats, lens, seed)
         ctx.meta = (scale, p_drop)
         return o
@@ -215,7 +278,7 @@ class FusedAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):  # pylint: disable=arguments-differ
         q, k, v, o, stats, lens, seed = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, o, stats, lens, seed, g.contiguous(), *ctx.meta)
+        dq, dk, dv = attention_backward(q, k, v, o, stats, lens, seed, g.to(q.dtype).contiguous(), *ctx.meta)
         return dq, dk, dv, None, None, None, None
 
 
@@ -225,19 +288,23 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: tor
     ``attention_reference``.
 
     A CUDA tensor runs ``FusedAttentionFunction`` (``csrc/attention_fwd.cu``,
-    differentiable through ``attention_backward``): q, k and v may be the
-    [B, T, H, D] views of one packed projection (rows ``ld`` floats apart),
-    lens is int32 [B] and seed int64 [1] on the same device, and anything
-    else raises. A CPU tensor runs the plain version.
-    ``fused_attention.launches`` counts forward kernel launches.
+    or ``csrc/attention_bf16.cu`` for bf16 tensors, differentiable through
+    ``attention_backward``): q, k and v may be the [B, T, H, D] views of one
+    packed projection (rows ``ld`` elements apart), lens is int32 [B] and
+    seed int64 [1] on the same device, and anything else raises. An fp32
+    CPU tensor runs the plain version, a bf16 one the Function over the
+    plain versions. ``fused_attention.launches`` counts fp32 forward kernel
+    launches, ``.bf16_launches`` bf16 ones.
     """
-    if q.device.type == "cpu":
+    check_dtypes(q, k, v)
+    if q.device.type == "cpu" and q.dtype != torch.bfloat16:
         return attention_reference(q, k, v, lens, seed, scale, p_drop)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     keep_threshold(p_drop)
     return FusedAttentionFunction.apply(q, k, v, lens, seed, float(scale), float(p_drop))
 
 
-fused_attention.launches = 0
-attention_backward.launches = 0
+# launches of the fp32 kernels and of the bf16 ones
+fused_attention.launches = fused_attention.bf16_launches = 0
+attention_backward.launches = attention_backward.bf16_launches = 0

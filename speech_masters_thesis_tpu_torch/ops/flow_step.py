@@ -15,6 +15,19 @@ and the step returns (xc, out); the logdets stay with the caller, as in the
 JAX package. Dropout is the conditioner's, on its hash streams, so this route
 and the conditioner-only route draw the same masks from the same seed.
 
+Two modes, as the TPU kernel's ``dot_dtype`` (x's dtype) has them. fp32: x,
+the weights and the cotangents float32, every product in 3xTF32. bf16 (the
+JAX package's mixed-precision training, ``wn_coupling.py:314-386``): x, the
+conditioner's weights and the cotangents bfloat16, while aln, alb and mt
+stay float32 (the JAX decoder upcasts them from the bf16 parameters; mt is
+built from the rounded weight); the ActNorm runs in fp32 on x upcast, the
+prefix's products round x1, dxc and mt as their operands, the conditioner
+rounds as B3's bf16 mode, xc, out and dx come out in bf16, daln, dalb and
+dmt in fp32 and the conditioner's gradients in bf16 (fp32 sums cast once).
+Mixed dtypes raise. ``.launches`` counts fp32 kernel launches,
+``.bf16_launches`` bf16 ones; a bf16 CPU tensor runs ``FlowStepFunction``
+over the plain versions.
+
 The CUDA kernels are ``csrc/flow_step_fwd.cu`` and ``csrc/flow_step_bwd.cu``.
 ``flow_step`` runs ``FlowStepFunction``: for a CUDA tensor its forward
 launches the forward kernel (one call: 3 + 2 * n_layers launches, and one
@@ -36,33 +49,56 @@ from typing import Tuple
 import torch
 
 from speech_masters_thesis_tpu_torch.ops import _build
-from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
+from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32, round_bf16, same, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.hash import keep_threshold
 from speech_masters_thesis_tpu_torch.ops.wn_coupling import (
     WNWeights,
     _check_call as _check_conditioner,
     _dropout_args,
     _pointers,
-    _recompute,
     _shape_args,
     _stream,
-    wn_coupling_backward_reference,
+    check_dtypes as check_conditioner_dtypes,
+    conditioner_backward,
+    recomputed_xin,
     wn_coupling_reference,
 )
 
 
-def _prefix(x, lens, aln, alb, mt):
-    """(valid [B, T, 1], x1, xc): the ActNorm and the dense InvConvNear."""
+def check_dtypes(x: torch.Tensor, aln: torch.Tensor, alb: torch.Tensor, mt: torch.Tensor, w: WNWeights,
+                 *cotangents: torch.Tensor) -> None:
+    """x, the conditioner's weights and the cotangents share one dtype; aln,
+    alb and mt are at least fp32 (fp32 for a bf16 x, as the TPU kernel takes them)."""
+    check_conditioner_dtypes(x, w)
+    prefix = torch.promote_types(x.dtype, torch.float32)
+    for name, t in (("aln", aln), ("alb", alb), ("mt", mt)):
+        if t.dtype != prefix:
+            raise ValueError(f"flow_step: {name} is {t.dtype} but must be {prefix} for a {x.dtype} x")
+    for g in cotangents:
+        if g.dtype != x.dtype:
+            raise ValueError(f"flow_step: a cotangent is {g.dtype} but x is {x.dtype}")
+
+
+def _prefix(x, lens, aln, alb, mt, rnd=same):
+    """(valid [B, T, 1], x1, xc): the ActNorm and the dense InvConvNear, x
+    at least fp32; ``rnd`` rounds the product's operands (bf16 mode)."""
     valid = sequence_mask(lens, x.shape[1]).to(x.dtype)[..., None]
     x1 = (alb + torch.exp(aln) * x) * valid
-    return valid, x1, x1 @ mt
+    return valid, x1, rnd(x1) @ rnd(mt)
+
+
+def _round_of(x: torch.Tensor):
+    return round_bf16 if x.dtype == torch.bfloat16 else same
 
 
 def flow_step_reference(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch.Tensor,
                         mt: torch.Tensor, w: WNWeights, seed=0,
                         p_drop: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain flow step: x [B, T, C], lens [B] -> (xc, out), both [B, T, C]."""
-    xc = _prefix(x, lens, aln, alb, mt)[2]
+    """Plain flow step: x [B, T, C], lens [B] -> (xc, out), both [B, T, C]
+    in x's dtype (bf16: the ActNorm fp32, xc from the rounded x1 and mt,
+    and the conditioner's bf16 mode on xc's first half)."""
+    check_dtypes(x, aln, alb, mt, w)
+    xc = _prefix(at_least_f32(x), lens, aln, alb, mt, _round_of(x))[2].to(x.dtype)
     return xc, wn_coupling_reference(xc[..., :x.shape[2] // 2], lens, w, seed, p_drop)
 
 
@@ -71,20 +107,26 @@ def flow_step_backward_reference(x: torch.Tensor, lens: torch.Tensor, aln: torch
                                  p_drop: float = 0.0):
     """Plain recompute backward by the TPU kernel's formulas
     (``_bwd_flow_kernel``): (dx, daln, dalb, dmt, the conditioner weights'
-    gradients) for the cotangents g_xc of xc and g_out of out."""
+    gradients) for the cotangents g_xc of xc and g_out of out. bf16: dxc =
+    g_xc + dx0 in fp32, the products round x1, dxc and mt, daln and dalb are
+    fp32 sums, dx is rounded to bf16 and the conditioner's gradients (fp32
+    sums) once, daln, dalb and dmt stay fp32."""
+    check_dtypes(x, aln, alb, mt, w, g_xc, g_out)
     half = x.shape[2] // 2
+    dtype, rnd = x.dtype, _round_of(x)
     with torch.no_grad():
-        valid, x1, xc = _prefix(x, lens, aln, alb, mt)
-        dx0, grads = wn_coupling_backward_reference(xc[..., :half], lens, w, g_out, seed, p_drop)
-        gxc = g_xc * valid
+        xf = at_least_f32(x)
+        valid, x1, xc = _prefix(xf, lens, aln, alb, mt, rnd)
+        dx0, grads = conditioner_backward(xc[..., :half].to(dtype), lens, w, g_out, seed, p_drop)
+        gxc = at_least_f32(g_xc) * valid
         dxc = torch.cat([gxc[..., :half] + dx0, gxc[..., half:]], dim=-1)
-        dmt = torch.einsum("btc,btn->cn", x1, dxc)
-        dx1 = dxc @ mt.t()
+        dmt = torch.einsum("btc,btn->cn", rnd(x1), rnd(dxc))
+        dx1 = rnd(dxc) @ rnd(mt).t()
         ex = torch.exp(aln)
-        daln = (dx1 * ex * x * valid).sum(dim=(0, 1))
+        daln = (dx1 * ex * xf * valid).sum(dim=(0, 1))
         dalb = (dx1 * valid).sum(dim=(0, 1))
         dx = dx1 * ex * valid
-    return dx, daln, dalb, dmt, grads
+    return dx.to(dtype), daln, dalb, dmt, WNWeights.from_flat([t.to(dtype) for t in grads.flat()], w.dilations)
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +135,10 @@ def flow_step_backward_reference(x: torch.Tensor, lens: torch.Tensor, aln: torch
 def _check_call(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch.Tensor, mt: torch.Tensor,
                 w: WNWeights, seed: torch.Tensor) -> None:
     B, T, C = x.shape
-    if x.dtype != torch.float32 or not x.is_contiguous() or C % 2 or w.wend.shape[0] != C:
-        raise ValueError(f"flow_step: x must be a contiguous float32 [B, T, C] tensor with C even and equal to "
-                         f"the end conv's width; got {tuple(x.shape)}, {x.dtype}, end {tuple(w.wend.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous() or C % 2 or w.wend.shape[0] != C:
+        raise ValueError(f"flow_step: x must be a contiguous float32 or bfloat16 [B, T, C] tensor with C even and "
+                         f"equal to the end conv's width; got {tuple(x.shape)}, {x.dtype}, end {tuple(w.wend.shape)}")
+    check_dtypes(x, aln, alb, mt, w)
     for name, t, shape in (("aln", aln, (C,)), ("alb", alb, (C,)), ("mt", mt, (C, C))):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or tuple(t.shape) != shape:
             raise ValueError(f"flow_step: {name} must be a contiguous float32 {shape} tensor on {x.device}")
@@ -106,19 +149,23 @@ def _launch_fwd(x, lens, aln, alb, mt, w: WNWeights, seed, p_drop: float):
     _check_call(x, lens, aln, alb, mt, w, seed)
     B, T, C = x.shape
     H = w.hidden
-    xc, out = (torch.empty(B, T, C, device=x.device, dtype=torch.float32) for _ in range(2))
+    bf16 = x.dtype == torch.bfloat16
+    xc, out = (torch.empty(B, T, C, device=x.device, dtype=x.dtype) for _ in range(2))
     h, acts, skip = (torch.empty(B, T, H, device=x.device, dtype=torch.float32) for _ in range(3))
     lib = _build.build()
     shape = _shape_args(x[..., :C // 2], w)
     workspace = torch.empty(lib.flow_step_fwd_workspace_floats(*shape), device=x.device, dtype=torch.float32)
-    rc = lib.flow_step_fwd(
+    rc = (lib.flow_step_fwd_bf16 if bf16 else lib.flow_step_fwd)(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), aln.data_ptr(), alb.data_ptr(), mt.data_ptr(),
         w.ws.data_ptr(), w.bs.data_ptr(), _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
         w.wend.data_ptr(), w.bend.data_ptr(), xc.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(),
         skip.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x))
     if rc != 0:
-        raise RuntimeError(f"flow_step_fwd launch failed with cudaError {rc}")
-    flow_step.launches += 1
+        raise RuntimeError(f"flow_step_fwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
+    if bf16:
+        flow_step.bf16_launches += 1
+    else:
+        flow_step.launches += 1
     return xc, out
 
 
@@ -132,49 +179,57 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     and conditioner, the conditioner's transposed products, the prefix's
     transposed product, then one fixed-order reduction of every weight
     gradient: two calls are bitwise equal; the products in 3xTF32 on the
-    tensor cores) and counts
-    ``flow_step_backward.launches``; a CPU tensor runs
-    ``flow_step_backward_reference``. ``return_buffers`` adds {"xin":
-    [L, B, T, 2H]}: each conditioner layer's post-dropout conv output as the
-    kernels recomputed it (the plain recompute's on the CPU).
+    tensor cores, or in one bf16 MMA for bf16 tensors) and counts
+    ``flow_step_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
+    tensor runs ``flow_step_backward_reference``. ``return_buffers`` adds
+    {"xin": [L, B, T, 2H]}: each conditioner layer's post-dropout conv
+    output as the kernels recomputed it (the plain recompute's on the CPU), fp32.
     """
     B, T, C = x.shape
     half = C // 2
     if x.device.type == "cpu":
         out = flow_step_backward_reference(x, lens, aln, alb, mt, w, g_xc, g_out, seed, p_drop)
         if return_buffers:
-            xc = _prefix(x, lens, aln, alb, mt)[2]
-            return (*out, {"xin": torch.stack(_recompute(xc[..., :half], lens, w, seed, p_drop)[2])})
+            xc = flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)[0]
+            return (*out, {"xin": recomputed_xin(xc[..., :half], lens, w, seed, p_drop)})
         return out
     if x.device.type != "cuda":
         raise ValueError(f"flow_step_backward: unsupported device {x.device}")
     _check_call(x, lens, aln, alb, mt, w, seed)
     for name, g in (("g_xc", g_xc), ("g_out", g_out)):
-        if g.shape != (B, T, C) or g.dtype != torch.float32 or not g.is_contiguous() or g.device != x.device:
-            raise ValueError(f"flow_step_backward: {name} must be a contiguous float32 [{B}, {T}, {C}] tensor")
+        if g.shape != (B, T, C) or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
+            raise ValueError(f"flow_step_backward: {name} must be a contiguous {x.dtype} [{B}, {T}, {C}] tensor")
     H, L = w.hidden, len(w.win)
+    bf16 = x.dtype == torch.bfloat16
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
-    dx, daln, dalb, dmt = empty(B, T, C), empty(C), empty(C), empty(C, C)
-    grads = WNWeights.from_flat([empty(*t.shape) for t in w.flat()], w.dilations)
-    x1, xc, dx1, dxc = empty(B, T, C), empty(B, T, C), empty(B, T, C), empty(B, T, half)
+    dx = torch.empty(B, T, C, device=x.device, dtype=x.dtype)
+    daln, dalb, dmt = empty(C), empty(C), empty(C, C)
+    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
+    x1, dx1, dxc = empty(B, T, C), empty(B, T, C), empty(B, T, half)
+    xc = torch.empty(B, T, C, device=x.device, dtype=x.dtype)
     hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
     xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
     skip, dskip = empty(B, T, H), empty(B, T, H)
     lib = _build.build()
     shape = _shape_args(x[..., :half], w)
     workspace = empty(lib.flow_step_bwd_workspace_floats(*shape))
-    rc = lib.flow_step_bwd(
+    # bf16: dx before its rounding, in fp32, for daln's sum
+    scratch = (x1, xc, dxc, dx1) + ((empty(B, T, C),) if bf16 else ())
+    rc = (lib.flow_step_bwd_bf16 if bf16 else lib.flow_step_bwd)(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g_xc.data_ptr(), g_out.data_ptr(), aln.data_ptr(),
         alb.data_ptr(), mt.data_ptr(), w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
         w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs), dx.data_ptr(), daln.data_ptr(), dalb.data_ptr(),
         dmt.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
-        _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(), x1.data_ptr(),
-        xc.data_ptr(), dxc.data_ptr(), dx1.data_ptr(), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(),
+        _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
+        *(t.data_ptr() for t in scratch), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(),
         skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), workspace.data_ptr(), *shape,
         *_dropout_args(p_drop), _stream(x))
     if rc != 0:
-        raise RuntimeError(f"flow_step_bwd launch failed with cudaError {rc}")
-    flow_step_backward.launches += 1
+        raise RuntimeError(f"flow_step_bwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
+    if bf16:
+        flow_step_backward.bf16_launches += 1
+    else:
+        flow_step_backward.launches += 1
     if return_buffers:
         return dx, daln, dalb, dmt, grads, {"xin": xin}
     return dx, daln, dalb, dmt, grads
@@ -200,8 +255,8 @@ class FlowStepFunction(torch.autograd.Function):
         x, lens, seed, aln, alb, mt, *weights = ctx.saved_tensors
         p_drop, dilations = ctx.meta
         dx, daln, dalb, dmt, grads = flow_step_backward(
-            x, lens, aln, alb, mt, WNWeights.from_flat(weights, dilations), g_xc.contiguous(), g_out.contiguous(),
-            seed, p_drop)
+            x, lens, aln, alb, mt, WNWeights.from_flat(weights, dilations), g_xc.to(x.dtype).contiguous(),
+            g_out.to(x.dtype).contiguous(), seed, p_drop)
         return (dx, None, None, None, None, daln, dalb, dmt, *grads.flat())
 
 
@@ -213,20 +268,23 @@ def flow_step(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch
 
     A CUDA tensor launches ``csrc/flow_step_fwd.cu`` (x contiguous, lens
     int32 [B] and seed int64 [1] on the same device; every product in
-    3xTF32 on the tensor cores) and counts
-    ``flow_step.launches``; anything the kernels do not take raises. A CPU
-    tensor runs the plain versions. Weights from the flow cache are for
-    inference: a call with dropout raises, as ``wn_coupling`` does.
+    3xTF32 on the tensor cores, or for a bf16 x in one bf16 MMA) and counts
+    ``flow_step.launches`` (fp32) or ``flow_step.bf16_launches``; anything
+    the kernels do not take raises. A CPU tensor runs the plain versions.
+    Weights from the flow cache are for inference: a call with dropout
+    raises, as ``wn_coupling`` does.
     """
     if w.cached and p_drop > 0.0:
         raise RuntimeError("flow_step: the flow cache's weights serve inference; clear_flow_cache before training")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flow_step: unsupported device {x.device}")
     keep_threshold(p_drop)
+    check_dtypes(x, aln, alb, mt, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x.device)
     return FlowStepFunction.apply(x, lens, seed, float(p_drop), tuple(w.dilations), aln, alb, mt, *w.flat())
 
 
-flow_step.launches = 0
-flow_step_backward.launches = 0
+# launches of the fp32 kernels and of the bf16 ones
+flow_step.launches = flow_step.bf16_launches = 0
+flow_step_backward.launches = flow_step_backward.bf16_launches = 0

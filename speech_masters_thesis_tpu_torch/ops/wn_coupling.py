@@ -162,6 +162,13 @@ def _recompute(x0, lens, w: WNWeights, seed, p_drop: float, rnd=same):
     return valid, hs, xins, acts_all, skip
 
 
+def recomputed_xin(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0, p_drop: float = 0.0) -> torch.Tensor:
+    """Each layer's post-dropout conv output [L, B, T, 2H] as the plain
+    recompute forms it (fp32, the products' operands rounded in bf16)."""
+    rnd, xf, wf = _operands(x0, w)
+    return torch.stack(_recompute(xf, lens, wf, seed, p_drop, rnd)[2])
+
+
 def wn_coupling_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0,
                           p_drop: float = 0.0) -> torch.Tensor:
     """Plain conditioner: x0 [B, T, half], lens [B] -> [B, T, C] in x0's
@@ -203,9 +210,18 @@ def wn_coupling_backward_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWe
     (``_conditioner_bwd``): (dx0 [B, T, half], the weights' gradients), in
     x0's and the weights' dtype (bf16: each product's operands rounded, the
     rest fp32, the gradients summed in fp32 and rounded once)."""
-    H, L = w.hidden, len(w.win)
     check_dtypes(x0, w, g)
-    dtype = x0.dtype
+    dx0, grads = conditioner_backward(x0, lens, w, g, seed, p_drop)
+    return dx0.to(x0.dtype), WNWeights.from_flat([t.to(x0.dtype) for t in grads.flat()], w.dilations)
+
+
+def conditioner_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: torch.Tensor,
+                         seed=0, p_drop: float = 0.0) -> Tuple[torch.Tensor, WNWeights]:
+    """``wn_coupling_backward_reference`` before its outputs' cast: dx0 and
+    the gradients in fp32 (or fp64) sums, as the TPU kernel's
+    ``_conditioner_bwd`` hands them on (the flow step adds g_xc to this dx0
+    in fp32)."""
+    H, L = w.hidden, len(w.win)
     rnd, x0, w = _operands(x0, w)
     g = g.to(x0.dtype)
     with torch.no_grad():
@@ -240,9 +256,8 @@ def wn_coupling_backward_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWe
         dws = torch.einsum("bth,btc->hc", rnd(dh), rnd(x0))[..., None]
         dbs = dh.sum(dim=(0, 1))
         dx0 = rnd(dh) @ rnd(w.ws[:, :, 0])
-    grads = WNWeights(ws=dws, bs=dbs, win=tuple(dwin), bin=tuple(dbin), wrs=tuple(dwrs), brs=tuple(dbrs),
-                      wend=dwend, bend=dbend, dilations=w.dilations)
-    return dx0.to(dtype), WNWeights.from_flat([t.to(dtype) for t in grads.flat()], w.dilations)
+    return dx0, WNWeights(ws=dws, bs=dbs, win=tuple(dwin), bin=tuple(dbin), wrs=tuple(dwrs), brs=tuple(dbrs),
+                          wend=dwend, bend=dbend, dilations=w.dilations)
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +353,7 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     """
     if x0.device.type == "cpu":
         dx0, grads = wn_coupling_backward_reference(x0, lens, w, g, seed, p_drop)
-        if return_buffers:
-            rnd, xf, wf = _operands(x0, w)
-            return dx0, grads, {"xin": torch.stack(_recompute(xf, lens, wf, seed, p_drop, rnd)[2])}
-        return dx0, grads
+        return (dx0, grads, {"xin": recomputed_xin(x0, lens, w, seed, p_drop)}) if return_buffers else (dx0, grads)
     if x0.device.type != "cuda":
         raise ValueError(f"wn_coupling_backward: unsupported device {x0.device}")
     _check_call(x0, lens, w, seed)

@@ -21,13 +21,13 @@ evaluates any task, in fp32 (the JAX package's val step has no bf16).
 copy of every float32 parameter and of every float32 tensor of the batch,
 made inside the graph (``functional_call``), so the gradients land in the
 float32 masters, on which the clip, the optimizer and the parameter EMA
-run. Buffers (the VQ codebook) keep their dtype; the model reduces its
-losses in the dtypes the JAX model does, and the loss is cast to fp32 for
-the backward (JAX's ``loss_dict["loss"].astype(jnp.float32)``). Only models
-whose train path's kernels all have a bf16 mode take it (``BF16_TRAINING``:
-the VQ-VAE (B1), VQ-TTS (B1, B4, B5) and Glow-TTS on B3's route (B3, B4,
-B5), whose ``check_bf16`` refuses the flow-step route, B6); the Transformer
-LM (B2) raises.
+run. Buffers (the VQ codebook, the LM's positional table) keep their dtype;
+the model casts them where the JAX model does, reduces its losses in the
+dtypes the JAX model does, and the loss is cast to fp32 for the backward
+(JAX's ``loss_dict["loss"].astype(jnp.float32)``). Every model of the
+package declares the mode (``BF16_TRAINING``: the VQ-VAE, the Transformer
+LM, Glow-TTS on both decoder routes and VQ-TTS, each kernel of their train
+paths in its bf16 mode); a model without it raises.
 """
 
 from __future__ import annotations
@@ -76,12 +76,8 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
         opt.zero_grad(set_to_none=True)
         if bf16:
             if not getattr(model, "BF16_TRAINING", False):
-                raise NotImplementedError(
-                    f"bf16 training of {type(model).__name__} is not ported: a kernel of its train path has no "
-                    "bf16 mode yet (still without one: B2, the attention of the Transformer LM, and B6, the whole "
-                    "flow step of Glow-TTS with fused_flow_step: true)")
-            if hasattr(model, "check_bf16"):
-                model.check_bf16()
+                raise NotImplementedError(f"bf16 training of {type(model).__name__}: the model declares no bf16 "
+                                          "mode (BF16_TRAINING), as the JAX package has none for it")
             compute = {f"model.{name}": _to_bf16(p) for name, p in model.named_parameters()}
             loss_dict, metrics = functional_call(
                 _SupervisedStep(model), compute, ({k: _to_bf16(v) for k, v in batch.items()}, True),

@@ -4,7 +4,11 @@ package's ``make_train_step(..., bf16=True)``, on the CPU.
 Model: tests/fixtures/glow_tts_tiny.yaml with the fused encoder (B5) and
 coupling (B3), the flow step off, dropout 0 and no prenet (as
 tests/test_torch_glow_train.py), so the JAX side runs both Pallas kernels
-in interpret mode in their bf16 modes and no randomness enters the step.
+in interpret mode in their bf16 modes and no randomness enters the step;
+then the same with ``fused_flow_step: true`` (``flow_steps``): at p = 0 the
+JAX decoder keeps its B6 route on the CPU (encoder.py:292-294) and runs the
+whole-flow-step kernel's bf16 mode in interpret mode, the port B6's plain
+bf16 versions through ``FlowStepFunction``.
 The variables are drawn from a numpy seed and cross as fp32 masters
 (convert.py); each side builds its own bf16 compute copy in the step. The
 batch is a mel batch (the flows then run in bf16 on both sides). The
@@ -53,10 +57,11 @@ LOSS_RTOL = 2.0 ** -8
 ROUNDING_RATIO = 0.5
 
 
-def _config() -> dict:
+def _config(flow_step: bool = False) -> dict:
     config = tiny_config()
     config["model"]["encoder"].update(p_dropout=0.0, prenet=False)
     config["model"]["decoder"]["p_dropout"] = 0.0
+    config["model"]["fused_flow_step"] = flow_step
     return config
 
 
@@ -90,11 +95,9 @@ def _port_step(config, variables, batch, bf16: bool, path: np.ndarray):
             {k: v.detach().clone() for k, v in state.params.items()}, model, seen[0][0].numpy(), seen[0][1])
 
 
-@pytest.fixture(scope="module")
-def steps():
+def _steps(config: dict) -> dict:
     """One bf16 SGD step on each side from the same variables, the port's
     fp32 step, JAX's log-prior and path from inside its jitted step."""
-    config = _config()
     jmodel = JaxGlowTTS(config=config)
     variables = jax_variables(jmodel)
     tx, _ = joptim.build_optimizer(Config({**config, "optimizer": SGD, "scheduler": None}))
@@ -120,6 +123,31 @@ def steps():
                     glow_tts_params_from_jax(jax.tree.map(np.asarray, jstate1.params), config["model"])),
             "port16": _port_step(config, variables, batch, True, path),
             "port32": _port_step(config, variables, batch, False, path)}
+
+
+@pytest.fixture(scope="module")
+def steps():
+    return _steps(_config())
+
+
+@pytest.fixture(scope="module")
+def flow_steps(monkeypatch_module):
+    """``steps`` on the B6 route, counting the port's bf16 flow-step calls."""
+    calls, inner = [], flows.flow_step
+
+    def counting(x, *args):
+        calls.append(x.dtype)
+        return inner(x, *args)
+    monkeypatch_module.setattr(flows, "flow_step", counting)
+    out = _steps(_config(flow_step=True))
+    out["calls"] = calls
+    return out
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    with pytest.MonkeyPatch.context() as mp:
+        yield mp
 
 
 def test_bf16_glow_step_losses_match_jax(steps):
@@ -162,6 +190,26 @@ def test_bf16_glow_step_rounds_where_jax_rounds(steps):
     params0 = glow_tts_params_from_jax(steps["variables"]["params"], steps["config"]["model"])
     dist = lambda ours: torch.sqrt(sum(((ours[k] - v) ** 2).sum() for k, v in jparams.items())).item()  # noqa: E731
     a, b = dist(steps["port16"][1]), dist(steps["port32"][1])
+    step = torch.sqrt(sum(((jparams[k] - v) ** 2).sum() for k, v in params0.items())).item()
+    assert a <= ROUNDING_RATIO * b, f"bf16 step {a:.3e} vs fp32 step {b:.3e} from JAX's bf16 step ({step:.3e})"
+
+
+def test_bf16_glow_flow_step_route_matches_jax(flow_steps):
+    """The B6 route (fused_flow_step: true): the bf16 step's losses within
+    LOSS_RTOL of JAX's, fp32 masters, every flow step through flow_step in
+    bf16 (n_blocks calls in the bf16 step, fp32 ones in the fp32 step), and
+    the rounding points JAX's (the rounding ratio, as above)."""
+    jscalars, jparams = flow_steps["jax"]
+    scalars, params, model = flow_steps["port16"][:3]
+    assert bool(scalars["finite"]) and bool(jscalars["finite"])
+    for key in LOSS_KEYS:
+        np.testing.assert_allclose(scalars[key], jscalars[key], rtol=LOSS_RTOL, err_msg=key)
+    assert model.decoder.fused_flow_step and all(p.dtype == torch.float32 for p in params.values())
+    n_blocks = flow_steps["config"]["model"]["decoder"]["n_blocks"]
+    assert flow_steps["calls"] == [torch.bfloat16] * n_blocks + [torch.float32] * n_blocks
+    params0 = glow_tts_params_from_jax(flow_steps["variables"]["params"], flow_steps["config"]["model"])
+    dist = lambda ours: torch.sqrt(sum(((ours[k] - v) ** 2).sum() for k, v in jparams.items())).item()  # noqa: E731
+    a, b = dist(flow_steps["port16"][1]), dist(flow_steps["port32"][1])
     step = torch.sqrt(sum(((jparams[k] - v) ** 2).sum() for k, v in params0.items())).item()
     assert a <= ROUNDING_RATIO * b, f"bf16 step {a:.3e} vs fp32 step {b:.3e} from JAX's bf16 step ({step:.3e})"
 
