@@ -17,15 +17,28 @@ step. ``--b5`` measures, for each tree, B5's forward and backward back to back
 models, batch and seeds) with each parameter's gradient error against the
 fp64 step: the median and worst of B5's parameters (the encoder layers'),
 of the rest and of all, the CPU fp32 step's beside them, and the worst
-parameters. ``--ptxas`` builds each tree and compares its ptxas lines
-(``chip_smoke.ptxas_summary``, each kernel's template tag reduced to its
-name) outside the kernels PTXAS_CHANGED names with the first tree's, as
-multisets, the fp32 instances apart from the bf16 ones.
+parameters. ``--bf16`` measures, for each tree, B1's bf16 tile passes and
+reduction back to back at p=0.1, summed over the VQ-VAE's 7 block shapes
+(batch 16, depth 4) and VQ-TTS's 8 (batch 4, depth 3), and the bf16
+VQ-VAE train step (``chip_smoke.phase_bf16_train``: the median bf16 step in
+turns with the fp32 one, and its max_memory_allocated). ``--bf16-tiles``
+measures the same two kernels' sums without the step, the tile passes'
+device time by kernel (each stage, torch.profiler over 3 calls at 16 x
+33024 frames, p=0.1) and a sha256 of their outputs there (dx, the buffers
+and the bias partials), so that two trees can be held bit for bit; it
+loads each tree's library from its build cache (building it there if it
+is missing) without ``chip_smoke.phase_build``'s checks. ``--ptxas`` builds
+each tree and compares its ptxas lines (each kernel by its mangled name,
+an anonymous namespace's path hash removed) outside the instances
+PTXAS_CHANGED names with the first tree's, as multisets, the fp32 instances
+apart from the bf16 ones.
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
     python3 ab_backward.py --b5 build/parent . ...      # B5's times and phase 25's errors by group
     python3 ab_backward.py --b2b4 build/parent . . build/parent   # B2's forward, B4, the LM and Glow steps
+    python3 ab_backward.py --bf16 build/parent . . build/parent   # B1's bf16 backward, the bf16 VQ-VAE step
+    python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
@@ -76,10 +89,16 @@ ATTN_SHAPES = ((8, 258), (64, 258))
 ATTN_REPS = 50
 TILE_REPS = 20
 TILE_P = 0.1
+STAGE_T = 33024  # --bf16-tiles: the frames of the stages' profile (the VQ-VAE's largest block shape)
 FWD_PS = (0.0, 0.1)
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-PTXAS_CHANGED = ()  # kernels the change may alter (their fp32 instances)
+# instances the change may alter, by a piece of their mangled names: B1's bf16 backward, the first bf16
+# form's (the recompute's <false, bf16> stages, the backward's own stages and reduction in bf16) and the
+# redesign's kernels (namespace gated_hifi::bwd16)
+PTXAS_CHANGED = ("5bwd16", *(f"{k}_kernelILb0E13__nv_bfloat16" for k in ("tile_expand", "tile_conv", "tile_branch")),
+                 *(f"{k}_kernelI13__nv_bfloat16" for k in ("tile_gate", "tile_dc", "tile_convt", "tile_dx",
+                                                            "wgrad_partial", "wgrad_reduce")))
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -393,6 +412,74 @@ def lm_and_glow_steps(torch, cs, device, card) -> dict:
     return out
 
 
+def bf16_stages(torch, cs, gh, device) -> dict:
+    """The bf16 tile passes' device time by kernel at 16 x STAGE_T frames
+    (p=TILE_P; torch.profiler over 3 calls, ms a call) and a sha256 of what
+    one call writes."""
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    w = cs.to_bf16(cs.block_weights(device, seed=1, depth=4))
+    x, lens, _, g = cs.block_inputs(STAGE_T, cs.BATCH, 7, device)
+    x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    args = (x, lens, w, g, 1.0, TILE_P, 12345)
+    with torch.no_grad():
+        dx, bufs = gh.backward_buffers(*args)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for t in (dx, bufs.a, bufs.h1, bufs.dzp, bufs.dc, bufs.dz, bufs.u, bufs.gv, bufs.bias):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        del dx, bufs
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                gh.backward_buffers(*args)
+            torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                  if hasattr(e, n)), 0.0)
+        name = re.sub(r"^void |\(.*$", "", e.key)
+        if t > 0 and ("bwd16" in name or "kernel" in name):
+            stages[name] = stages.get(name, 0.0) + t / 3 / 1e3
+    torch.cuda.empty_cache()
+    return {"stage_ms": stages, "outputs_sha256": digest.hexdigest()}
+
+
+def bf16_backward(torch, cs, gh, device, card, step: bool = True) -> dict:
+    """B1's bf16 tile passes and reduction back to back (p=TILE_P) summed
+    over the VQ-VAE's and VQ-TTS's block shapes, then (``step``) the bf16
+    VQ-VAE step."""
+    out = {}
+    shapes = (("vqvae", cs.BLOCK_TS, cs.BATCH, 4), ("vqtts", cs.VQTTS_BLOCK_TS, cs.VQTTS_BATCH, cs.VQTTS_DEPTH))
+    with torch.no_grad():
+        for name, block_ts, batch, depth in shapes:
+            w = cs.to_bf16(cs.block_weights(device, seed=1, depth=depth))
+            out[f"bf16_tiles_{name}_ms"] = out[f"bf16_reduction_{name}_ms"] = 0.0
+            for i, T in enumerate(block_ts):
+                x, lens, _, g = cs.block_inputs(T, batch, 200 + i, device)
+                x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
+                args = (x, lens, w, g, 1.0, TILE_P, 12345)
+                out[f"bf16_tiles_{name}_ms"] += back_to_back_ms(
+                    torch, lambda: gh.backward_buffers(*args), TILE_REPS, warmup=1)
+                _, bufs = gh.backward_buffers(*args)
+                out[f"bf16_reduction_{name}_ms"] += back_to_back_ms(
+                    torch, lambda: gh.weight_grad_reduce(x, bufs, w.kernels, w.dilations), TILE_REPS, warmup=1)
+                del x, lens, g, bufs, args
+                torch.cuda.empty_cache()
+    if not step:
+        return out
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):  # a parent's phase_bf16_train returns no peak
+        out["bf16_step_ms"] = cs.phase_bf16_train(device, card)["step_ms"]
+    text = printed.getvalue()
+    out["bf16_step_peak_gib"] = float(re.search(r"max_memory_allocated a step: bf16 ([0-9.]+) GiB", text).group(1))
+    out["fp32_step_in_turns_ms"] = float(re.search(r"medians of steps 2-\d+: bf16 [0-9.]+ ms, fp32 ([0-9.]+) ms",
+                                                   text).group(1))
+    torch.cuda.empty_cache()
+    return out
+
+
 def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
@@ -403,7 +490,7 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
     if mode == "--ptxas":
         from speech_masters_thesis_tpu_torch.ops import _build
 
-        return {"tree": tree, "ptxas": cs.ptxas_summary(_build.compile_library(_build.library_path()))}
+        return {"tree": tree, "ptxas": mangled_lines(_build.compile_library(_build.library_path()))}
     from speech_masters_thesis_tpu_torch.ops import attention as att
     from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
     from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
@@ -411,11 +498,22 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
 
     card = cs.phase_device()
     device = cs.cuda_device()
+    if mode == "--bf16-tiles":
+        from speech_masters_thesis_tpu_torch.ops import _build
+
+        _build.build()
+        out = {"tree": tree, "card": card, "attention_bwd": {}}
+        out.update(bf16_backward(torch, cs, gh, device, card, step=False))
+        out.update(bf16_stages(torch, cs, gh, device))
+        return out
     cs.phase_build()
     out = {"tree": tree, "card": card, "attention_bwd": {}}
     if mode == "--b5":
         out.update(enc_layer_times(torch, np, cs, device))
         out.update(step_grad_errors(torch, cs, device))
+        return out
+    if mode == "--bf16":
+        out.update(bf16_backward(torch, cs, gh, device, card))
         return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
@@ -440,41 +538,48 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
     return out
 
 
-def reduced(line: str) -> str:
-    """A ptxas summary line with its kernel's template tag reduced to the
-    tag's name (a file's anonymous namespace is named after its path)."""
-    name, rest = line.split(":", 1)
-    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", name)  # an anonymous namespace's path hash
-    m = re.match(r"(\w+)<(.*)>", name)
-    if m:
-        tag = re.search(r"([A-Za-z]+Tag)$", m.group(2))
-        name = f"{m.group(1)}<{tag.group(1) if tag else m.group(2)}>"
-    return name + ":" + rest
+def mangled_lines(report: str) -> list:
+    """One line per kernel of an nvcc -Xptxas -v report: its mangled name (a
+    file's anonymous namespace, named after its path, with the path's hash
+    and length removed), then its registers, shared memory and spills."""
+    lines, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", line.split("'")[1])
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}, {spills}")
+            name = None
+    return lines
 
 
 def is_changed_kernel(line: str) -> bool:
-    """A ptxas line of a kernel the change may alter (PTXAS_CHANGED)."""
-    return line.split(":")[0].split("<")[0] in PTXAS_CHANGED
+    """A ptxas line of an instance the change may alter (PTXAS_CHANGED)."""
+    return any(piece in line.split(":")[0] for piece in PTXAS_CHANGED)
 
 
 def is_bf16(line: str) -> bool:
     """A ptxas line of a bf16 instance (a Bfloat* tag, the bf16 I/O type, the bf16 attention
-    kernels or the bf16 MMA probe)."""
+    kernels, B1's bf16 backward or the bf16 MMA probe)."""
     name = line.split(":")[0]
-    return "Bfloat" in name or "bf16" in name or "bfloat16" in name
+    return any(piece in name for piece in ("Bfloat", "bf16", "bfloat16", "5bwd16"))
 
 
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    mode = next((a for a in args if a in ("--b5", "--b2b4", "--ptxas")), "")
-    args = [a for a in args if a not in ("--glow", "--b5", "--b2b4", "--ptxas")]
+    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles")
+    mode = next((a for a in args if a in modes), "")
+    args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
         print("AB_RESULT " + json.dumps(worker(args[1], glow_only, mode)), flush=True)
         return
     trees = args
     if len(trees) < 2:
-        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas] TREE TREE [TREE ...] (e.g. parent "
+        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles] "
+                         "TREE TREE [TREE ...] "
+                         "(e.g. parent "
                          "change change parent)")
     results = []
     for tree in trees:
@@ -493,8 +598,7 @@ def main() -> None:
         results.append(res)
     if mode == "--ptxas":
         def count(res, bf16: bool):
-            return collections.Counter(reduced(ln) for ln in res["ptxas"]
-                                       if not is_changed_kernel(ln) and is_bf16(ln) == bf16)
+            return collections.Counter(ln for ln in res["ptxas"] if not is_changed_kernel(ln) and is_bf16(ln) == bf16)
         for bf16, kind in ((False, "fp32"), (True, "bf16")):
             first = count(results[0], bf16)
             for res in results:
@@ -504,7 +608,20 @@ def main() -> None:
                       f"{lines == first}; only here {dict(lines - first)}; only there {dict(first - lines)}")
         for res in results:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
-                  + " | ".join(reduced(ln) for ln in res["ptxas"] if is_changed_kernel(ln)))
+                  + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
+        return
+    if mode in ("--bf16", "--bf16-tiles"):
+        for key in [k for k, v in results[0].items() if k.endswith(("_ms", "_gib")) and isinstance(v, float)]:
+            print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results)
+                  + f" [{results[0]['card']}]")
+        if mode == "--bf16-tiles":
+            for name in results[0]["stage_ms"]:
+                print(f"[ab] {name} (16 x {STAGE_T}): "
+                      + ", ".join(f"{r['tree']} {r['stage_ms'].get(name, float('nan')):.4f}" for r in results)
+                      + f" [{results[0]['card']}]")
+            print(f"[ab] outputs_sha256 at 16 x {STAGE_T}: " + ", ".join(f"{r['tree']} {r['outputs_sha256'][:16]}"
+                                                              for r in results)
+                  + f"; all equal: {len({r['outputs_sha256'] for r in results}) == 1}")
         return
     if mode == "--b2b4":
         keys = [k for k in results[0] if k.endswith(("_ms", "_median", " sum")) and k != "seconds"]

@@ -197,7 +197,10 @@ products outside the kernels sum in fp32: allow_bf16_reduced_precision_
 reduction off from phase 1 on, as TF32 is):
 
  33. whether the bf16 MMA's fp32 accumulation truncates (bf16_mma_probe: an
-     accumulator of +-1 plus one product of 0.75 of its ulp);
+     accumulator of +-1 plus one product of 0.75 of its ulp), and the same
+     for wgmma (wgmma_probe, which also holds both operand layouts B1's bf16
+     backward reads, K-major and MN-major, exact on a product of small
+     integers: it decides the reduction's 1,024-frame flush);
  34. B1's bf16 forward against its plain bf16 version at each block shape
      of phase 3 (batch 16), p=0 (times: 50 back-to-back calls, one call,
      the plain version) and p=0.1: at least 99% of the valid elements
@@ -205,14 +208,16 @@ reduction off from phase 1 on, as TF32 is):
      of max|ref|, exact zeros past the lengths, two calls bitwise equal;
      the bf16 backward kernels' dropout masks read back bit for bit at
      every shape, keep rates within 5 sigma;
- 35. B1's bf16 tile passes and reduction against the plain bf16 backward
-     at each shape, p=0 and 0.1, taken at the kernel's own relu and
-     dropout decisions (each flip within 2^-9 of max|value| of 0, one bf16
-     ulp of an operand's reach): dx as in phase 34, every weight gradient
-     within 2^-7 relative L2 and 2^-6 of max|ref| (sums over up to 528K
-     frames), the reduction alone on the plain version's buffers the same,
-     two calls bitwise equal; at p=0.1 the times and the reduction's
-     products as bf16 torch.mm with fp32 outputs;
+ 35. B1's bf16 tile passes and reduction (csrc/gated_hifi_bwd_bf16.cu:
+     TMA-fed wgmma, bf16 cotangents and fp32 bias partials) against the
+     plain bf16 backward at each shape, p=0 and 0.1, taken at the kernel's
+     own relu and dropout decisions (each flip within 2^-9 of max|value| of
+     0, one bf16 ulp of an operand's reach): dx as in phase 34, every
+     weight gradient within 2^-7 relative L2 and 2^-6 of max|ref| (sums
+     over up to 528K frames), the reduction alone on the plain version's
+     buffers the same, two calls bitwise equal; at p=0.1 the times and the
+     reduction's products as bf16 torch.mm with fp32 outputs, and the
+     bytes a frame both move by design;
  36. the bf16 train step at batch 16 x 66048 (harness.make_train_step_for
      with train: {bf16: true}; AdamW, codebook and parameter EMA, dropout
      0.1), in turns with the fp32 step (information, no claim): launches
@@ -248,7 +253,6 @@ from __future__ import annotations
 import copy
 import ctypes
 import functools
-import itertools
 import json
 import re
 import statistics
@@ -519,12 +523,21 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel",
                 "tile_gate_kernel", "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel",
                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_mma_kernel",
-                "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel", "enc_pack_kernel")
+                "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel", "enc_pack_kernel",
+                "tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel",
+                "wgmma_probe_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
                   "tile_dc_kernel", "tile_convt_kernel", "tile_dx_kernel", "wgrad_partial_kernel",
                   "wgrad_reduce_kernel")
+# B1's bf16 backward (csrc/gated_hifi_bwd_bf16.cu): gated_hifi_bwd_bf16_blocks_per_sm's order (tile_kernel<S>
+# for the stages S = 1 ... 7, the gate's elementwise pass, then the reduction's two), and its kernels' names in
+# the ptxas report
+B1_BF16_BWD_STAGES = ("tile_kernel<1 expand>", "tile_kernel<2 conv>", "tile_kernel<3 branch>",
+                      "tile_kernel<4 du>", "tile_kernel<5 dc>", "tile_kernel<6 convt>", "tile_kernel<7 dx>",
+                      "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel")
+B1_BF16_BWD_KERNELS = ("tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel")
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
@@ -560,19 +573,27 @@ def phase_build() -> None:
     for name in KERNEL_NAMES:
         require(any(line.startswith(name) for line in ptxas), f"ptxas reports no {name}")
     lib = _build.build()
-    for (side, names), (mode, bf16) in itertools.product((("fwd", B1_FWD_KERNELS), ("bwd", B1_BWD_KERNELS)),
-                                                         (("fp32", 0), ("bf16", 1))):
+    launches = (("fwd fp32", B1_FWD_KERNELS, lambda b: lib.gated_hifi_fwd_blocks_per_sm(b, 0), "256"),
+                ("fwd bf16", B1_FWD_KERNELS, lambda b: lib.gated_hifi_fwd_blocks_per_sm(b, 1), "256"),
+                ("bwd fp32", B1_BWD_KERNELS, lib.gated_hifi_bwd_blocks_per_sm, "256"),
+                ("bwd bf16", B1_BF16_BWD_STAGES, lib.gated_hifi_bwd_bf16_blocks_per_sm,
+                 "384; 256 the gate's pass and the reduce"))
+    for what, names, query, threads in launches:
         blocks = (ctypes.c_int * len(names))()
-        rc = getattr(lib, f"gated_hifi_{side}_blocks_per_sm")(blocks, bf16)
-        require(rc == 0 and min(blocks) >= 1, f"B1 {side} {mode}: blocks per SM {list(blocks)} (cudaError {rc})")
-        print(f"[build] B1 {side} {mode}: resident blocks per SM (256 threads, at the launch's shared memory): "
+        rc = query(blocks)
+        require(rc == 0 and min(blocks) >= 1, f"B1 {what}: blocks per SM {list(blocks)} (cudaError {rc})")
+        print(f"[build] B1 {what}: resident blocks per SM ({threads} threads, at the launch's shared memory): "
               + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
     b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
-    # 13 instances a mode (the shared three stages twice, RN and not), fp32 and bf16 (B5's and B6's
-    # reductions share two of the names under their own tags)
+    # 13 fp32 instances (the shared three stages twice, RN and not) and the bf16 forward's 4 (B5's and
+    # B6's reductions share two of the names under their own tags)
     own = [line for line in b1 if "Tag>" not in line.split(":")[0]]
-    require(len(own) == 2 * 13, f"B1 has {len(own)} instances, not 26 (13 each in fp32 and bf16): {own}")
+    require(len(own) == 13 + 4, f"B1 has {len(own)} instances of the fp32 design, not 17 (13 fp32, 4 bf16): {own}")
+    b1_bf16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BF16_BWD_KERNELS]
+    print("[build] B1 bf16 backward on TMA and wgmma (ptxas: registers, shared memory, spills): " + " | ".join(b1_bf16))
+    require(len(b1_bf16) == 11 and all("0 bytes spill stores" in line for line in b1_bf16),
+            f"a B1 bf16 backward kernel is missing or spills: {b1_bf16}")
     # B3's and B6's kernels on the tensor cores: the forwards' instances (their tags
     # end in FwdTag), and the backwards' (the same instances under each tag)
     mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS
@@ -2955,6 +2976,46 @@ def phase_bf16_mma(device, card: str) -> bool:
     return truncates
 
 
+def phase_wgmma(device, card: str) -> bool:
+    """wgmma as B1's bf16 backward runs it (csrc/gated_hifi_bwd_bf16.cu:wgmma_probe):
+    whether its fp32 accumulation truncates, as the bf16 MMA's does (the
+    reduction adds its accumulators into fp32 partials every 1,024 frames
+    either way), and both operand layouts it reads (K-major, and MN-major
+    with two 64-column tiles LBO apart) exact on a product of small integers,
+    and a K-major operand read from 3 rows into its tile, as a window of
+    frames shared by a conv's taps would be read, exact with the
+    descriptor's base offset 0 (with base offset 3 it reads other rows:
+    printed, not required)."""
+    out = torch.zeros(6, device=device)
+    rc = _build.build().wgmma_probe(out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    torch.cuda.synchronize()
+    require(rc == 0, f"wgmma_probe failed with cudaError {rc}")
+    got = out.cpu().tolist()
+    nearest, truncated = [1.0 + 2.0 ** -23, -(1.0 + 2.0 ** -23)], [1.0, -1.0]
+    require(got[:2] in (nearest, truncated), f"wgmma probe gave {got[:2]}, neither rounding")
+    truncates = got[:2] == truncated
+    print(f"[wgmma] m64n128k16 bf16 wgmma, accumulator +-1 plus one product of 0.75 ulp: {got[0]!r}, {got[1]!r} "
+          f"-> the fp32 accumulation {'truncates (rounds toward zero)' if truncates else 'rounds to nearest'}; "
+          f"64 x 128 x 64 products of small integers against FMA sums: K-major max error {got[2]!r}, MN-major "
+          f"{got[3]!r}, K-major from row 3 with base offset 0 {got[4]!r} (with base offset 3 {got[5]!r}) [{card}]")
+    require(got[2] == 0.0 and got[3] == 0.0 and got[4] == 0.0,
+            f"a wgmma layout reads other elements than written: {got[2:5]}")
+    return truncates
+
+
+def b1_bf16_bytes_per_frame(depth: int, W: int = 64) -> dict:
+    """Bytes a frame B1's bf16 backward moves through device memory by its
+    design, counted from the stages' reads and writes (a conv tap's shifted
+    re-reads of the same frames not counted): design arithmetic, printed
+    beside the measured times, not a measurement."""
+    ldw = depth * 2 * W
+    bias = 4 * (3 * ldw + W) / 128  # the 128-frame tiles' fp32 column sums: written once, read once
+    tiles = {"expand": 2 * W + 2 * ldw, "conv": 4 * ldw, "branch": 2 * ldw + 2 * W + 4 * ldw,
+             "gate": 2 * W + 4 * ldw + 4 * ldw + 2 * ldw + 4 * W, "dc": 2 * ldw + 2 * ldw + 2 * ldw,
+             "convt": 2 * ldw + 4 * ldw + 2 * ldw + 2 * ldw, "dx": 2 * ldw + 4 * W}
+    return {"tiles": sum(tiles.values()) + bias, "reduction": 6 * W + 10 * ldw + bias, "by_stage": tiles}
+
+
 def phase_bf16_kernel(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, depth: int = 4,
                       tag: str = "[bf16 kernel]") -> dict:
     """B1's bf16 forward against its plain bf16 version at each block shape,
@@ -3311,6 +3372,10 @@ def phase_bf16_backward(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH
     # bound of this design, not of the function
     out["bound_buffers_ms"] = bf16_bound(work["tiles"][0], work["tiles"][1] + work["buffers"])[0]
     out["red_bound_buffers_ms"] = bf16_bound(work["red"][0], work["red"][1] + work["buffers"])[0]
+    per_frame = b1_bf16_bytes_per_frame(depth)
+    print(f"{tag} bytes a frame by design, not measured (reads and writes of device memory): tile passes "
+          f"{per_frame['tiles']:.0f} (" + ", ".join(f"{k} {v}" for k, v in per_frame["by_stage"].items())
+          + f"), reduction {per_frame['reduction']:.0f}")
     print(f"{tag} p={P_DROP} sums over the {len(block_ts)} block shapes: tile passes {sums['tiles']:.3f} ms "
           f"over {DEVICE_REPS} back-to-back calls ({sums['tiles_call']:.3f} a call, plain {sums['tiles_plain']:.3f}), "
           f"bound {out['bound_ms']:.3f} ms by {out['bound_by']} ({work['tiles'][0] / 1e9:.1f} GFLOP, "
@@ -4240,6 +4305,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     bf16_truncates = phase_bf16_mma(device, card)
+    wgmma_truncates = phase_wgmma(device, card)
     bf16_fwd = phase_bf16_kernel(device, card)
     bf16_bwd = phase_bf16_backward(device, card)
     bf16_train = phase_bf16_train(device, card)
@@ -4347,14 +4413,15 @@ def main() -> None:
               bf16_fwd["ms"], bf16_fwd["plain_ms"], bf16_fwd["bound_ms"], bf16_fwd["bound_by"],
               call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates,
               vqtts=vqtts_bf16["fwd"]),
-        entry("gated_hifi_bwd_bf16", "gated_hifi_bwd.cu", PALLAS + ":612", bf16_train["bwd"], bf16_bwd["dx_err"],
-              bf16_bwd["ms"], bf16_bwd["plain_ms"], bf16_bwd["bound_ms"], bf16_bwd["bound_by"],
+        entry("gated_hifi_bwd_bf16", "gated_hifi_bwd_bf16.cu", PALLAS + ":612", bf16_train["bwd"],
+              bf16_bwd["dx_err"], bf16_bwd["ms"], bf16_bwd["plain_ms"], bf16_bwd["bound_ms"], bf16_bwd["bound_by"],
               call_ms=bf16_bwd["call_ms"], ulp_share=bf16_bwd["share"],
               bound_with_buffers_ms=bf16_bwd["bound_buffers_ms"], vqtts=vqtts_bf16["bwd"]),
-        entry("gated_hifi_wgrad_bf16", "gated_hifi_bwd.cu", PALLAS + ":360", bf16_train["red"], bf16_bwd["red_err"],
-              bf16_bwd["red_ms"], bf16_bwd["red_plain_ms"], bf16_bwd["red_bound_ms"], bf16_bwd["red_bound_by"],
-              bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"],
-              bound_with_buffers_ms=bf16_bwd["red_bound_buffers_ms"], vqtts=vqtts_bf16["red"]),
+        entry("gated_hifi_wgrad_bf16", "gated_hifi_bwd_bf16.cu", PALLAS + ":360", bf16_train["red"],
+              bf16_bwd["red_err"], bf16_bwd["red_ms"], bf16_bwd["red_plain_ms"], bf16_bwd["red_bound_ms"],
+              bf16_bwd["red_bound_by"], bf16_bwd["red_library_ms"], call_ms=bf16_bwd["red_call_ms"],
+              bound_with_buffers_ms=bf16_bwd["red_bound_buffers_ms"], wgmma_truncates=wgmma_truncates,
+              vqtts=vqtts_bf16["red"]),
         entry("attention_fwd", "attention_fwd.cu", PALLAS_ATTENTION + ":226", lm["fwd"], attention["fwd_err"],
               attention["fwd_dev"], attention["fwd_plain_ms"], *attention["bound"], attention["sdpa_dev"],
               ms_p0=attention["fwd_dev_p0"], call_ms=attention["fwd_ms"], bound_3xtf32_ms=attention["tf32"],

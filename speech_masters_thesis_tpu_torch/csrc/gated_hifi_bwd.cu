@@ -1,8 +1,7 @@
 // GatedHiFi block backward for Hopper (sm_90a), with the dropout masks
-// regenerated from the seed, in the forward's two modes: fp32 at its
-// interface with its products in 3xTF32 on the tensor cores (tf32_mma.cuh),
-// and bf16 (gated_hifi_bwd_bf16, gated_hifi_wgrad_bf16) with one bf16 MMA a
-// product (bf16_mma.cuh).
+// regenerated from the seed, in the fp32 mode: fp32 at its interface with
+// its products in 3xTF32 on the tensor cores (tf32_mma.cuh). The bf16 mode
+// is gated_hifi_bwd_bf16.cu (TMA and wgmma).
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
 // _vjp_bwd -> _bwd -> _bwd_kernel (the TPU kernel's recompute backward,
@@ -71,18 +70,6 @@
 // gradients are the column sums of Y, taken from the staged slabs on the
 // CUDA cores in fp32.
 //
-// bf16 mode, the TPU kernel's dot_dtype = bf16 (its _bwd_kernel): x, g, the
-// weights and dx are bf16; of the buffers, a, h1 and u (product operands
-// only) are bf16, dzp, dc, dz and gv (they feed elementwise work or a bias
-// sum) fp32, rounded to bf16 where a fragment is built, as the TPU kernel
-// rounds them at its dots (dzp at dh1 and dW1, dc at the transposed conv and
-// dK, dz at dx and dWall, dv at dWg). In the reduction X (a, h1, u, x) is
-// bf16, its A fragments X^T by ldmatrix.trans, and Y fp32. The weight
-// gradients are summed in fp32 and rounded to bf16 once, where
-// wgrad_reduce_kernel stores them (the TPU kernel's _vjp_bwd cast). The
-// bytes halve for x, g, dx, a, h1 and u, and the products run one MMA each
-// at 989 TF/s: at 16 x 33024 the tile passes' 2.1 TFLOP take 2.1 ms, the
-// reduction's 1.05 TFLOP 1.1 ms.
 
 #include "gated_hifi_tiles.cuh"
 
@@ -199,12 +186,11 @@ constexpr int WG_FLUSH = 32;              // slabs between two adds of the accum
 constexpr int WG_MAX_PROBLEMS = 48;
 
 // A slab's row strides (elements of X, floats of Y) for a tm-row tile:
-// fragment reads on distinct banks (Y's 4-float pad in bf16, where its
-// fragments read frames 2q and 2q + 1)
+// fragment reads on distinct banks
 template <class IO>
 __host__ __device__ constexpr int wg_ldxs(int tm) { return tm + 8; }
 template <class IO>
-__host__ __device__ constexpr int wg_ldys(int tm) { return WG_TILE / tm + (kBf16<IO> ? 4 : 8); }
+__host__ __device__ constexpr int wg_ldys(int tm) { return WG_TILE / tm + 8; }
 template <class IO>
 __host__ __device__ constexpr int wg_stage_bytes(int tm) {
   return WG_KF * (wg_ldxs<IO>(tm) * (int)sizeof(IO) + wg_ldys<IO>(tm) * (int)sizeof(float));
@@ -234,7 +220,6 @@ struct WgradBatch {
 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16_t* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <class IO>
 __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
@@ -318,41 +303,21 @@ __global__ void __launch_bounds__(NT, 2) wgrad_partial_kernel(
     const IO* xs = slab_x(s);
     const float* ys = slab_y(s);
     if (active) {
-      if constexpr (kBf16<IO>) {
-        // lane l addresses frame row l % 8 (+8 for matrices 2, 3) at channel
-        // column 8 * (matrix & 1): A fragments of X^T, frames as k
-        const int i = lane >> 3;
-        const IO* xl = xs + ((lane & 7) + 8 * (i >> 1)) * ldxs + wrow + 8 * (i & 1);
 #pragma unroll
-        for (int kk = 0; kk < WG_KF / 16; ++kk) {
-          uint32_t fa[2][4];
+      for (int kk = 0; kk < WG_KF / 8; ++kk) {
+        // A (m, k) = X[frame k, channel m]: rows of the slab are frames
+        tf32::FragA fa[2];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) bf16::ldsm_x4_t(fa[mt], xl + 16 * kk * ldxs + 16 * mt);
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const float* c = ys + (16 * kk + 2 * qd) * ldys + wcol + 8 * nt + gr;
-            const uint32_t fb[2] = {bf16::pack(c[0], c[ldys]), bf16::pack(c[8 * ldys], c[9 * ldys])};
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) bf16::mma(acc[mt][nt], fa[mt], fb);
-          }
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* q = xs + (8 * kk + qd) * ldxs + wrow + 16 * mt + gr;
+          fa[mt] = tf32::frag_a(q[0], q[8], q[4 * ldxs], q[4 * ldxs + 8]);
         }
-      } else {
 #pragma unroll
-        for (int kk = 0; kk < WG_KF / 8; ++kk) {
-          // A (m, k) = X[frame k, channel m]: rows of the slab are frames
-          tf32::FragA fa[2];
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* c = ys + (8 * kk + qd) * ldys + wcol + 8 * nt + gr;
+          const tf32::FragB fb = tf32::frag_b(c[0], c[4 * ldys]);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const float* q = xs + (8 * kk + qd) * ldxs + wrow + 16 * mt + gr;
-            fa[mt] = tf32::frag_a(q[0], q[8], q[4 * ldxs], q[4 * ldxs + 8]);
-          }
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const float* c = ys + (8 * kk + qd) * ldys + wcol + 8 * nt + gr;
-            const tf32::FragB fb = tf32::frag_b(c[0], c[4 * ldys]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
-          }
+          for (int mt = 0; mt < 2; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
         }
       }
       if ((s + 1) % WG_FLUSH == 0 || s + 1 == n_slabs) flush(s < WG_FLUSH);
@@ -415,8 +380,7 @@ int backward(const IO* x, const int* lens, const IO* g, const IO* wall, const IO
              int B, int T, int width, int depth, const int* kernels, const int* dilations, float scale,
              unsigned seed, unsigned threshold, float keep_scale, void* stream) {
   Branches br;
-  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br) ||
-      (kBf16<IO> && scale != 1.f))
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &br))
     return (int)cudaErrorInvalidValue;
   Args<IO> p{};
   p.br = br;
@@ -486,8 +450,7 @@ int wgrad(const IO* x, const IO* a, const IO* h1, const float* dzp, const float*
           const float* gv, float* partials, IO* grads, int B, int T, int width, int depth, const int* kernels,
           const int* dilations, float scale, int n_split, void* stream) {
   Branches br;
-  if (width != W || B < 1 || T < 1 || n_split < 1 || !make_branches(depth, kernels, dilations, &br) ||
-      (kBf16<IO> && scale != 1.f))
+  if (width != W || B < 1 || T < 1 || n_split < 1 || !make_branches(depth, kernels, dilations, &br))
     return (int)cudaErrorInvalidValue;
   const int ldb = depth * H;
   int taps = 0;
@@ -551,9 +514,6 @@ int backward_blocks_per_sm(int* blocks) {
   return (int)cudaGetLastError();
 }
 
-const bf16_t* cb16(const void* q) { return static_cast<const bf16_t*>(q); }
-bf16_t* b16(void* q) { return static_cast<bf16_t*>(q); }
-
 }  // namespace
 }  // namespace gated_hifi
 
@@ -576,31 +536,13 @@ extern "C" int gated_hifi_bwd(const float* x, const int* lens, const float* g, c
                                      threshold, keep_scale, stream);
 }
 
-// The same in bf16: x, g, the weights, a, h1, u and dx bf16; dzp, dc, dz and
-// gv fp32. scale must be 1.
-extern "C" int gated_hifi_bwd_bf16(const void* x, const int* lens, const void* g, const void* wall,
-                                   const void* ball, const void* ks, const void* cb, const void* w1,
-                                   const void* b1, const void* wg_t, const void* w1_t, const void* ks_t,
-                                   const void* wall_t, void* a, void* h1, float* dzp, float* dc, float* dz,
-                                   void* u, float* gv, void* dx, int B, int T, int width, int depth,
-                                   const int* kernels, const int* dilations, float scale, unsigned seed,
-                                   unsigned threshold, float keep_scale, void* stream) {
-  using namespace gated_hifi;
-  return backward<bf16_t>(cb16(x), lens, cb16(g), cb16(wall), cb16(ball), cb16(ks), cb16(cb), cb16(w1), cb16(b1),
-                          cb16(wg_t), cb16(w1_t), cb16(ks_t), cb16(wall_t), b16(a), b16(h1), dzp, dc, dz, b16(u),
-                          gv, b16(dx), B, T, width, depth, kernels, dilations, scale, seed, threshold, keep_scale,
-                          stream);
-}
-
 // Slices of the B*T frames gated_hifi_wgrad sums apart: one per 1,024
 // frames, at most 64, then as many as fill the same number of waves of the
 // card's resident wgrad_partial_kernel blocks (the blocks are problems x
 // slices: 31 x 9 = 279 for 264 slots left a second wave of 15 at 16 x 516
-// frames), for the fp32 (bf16 0) or the bf16 (1) instance. Returns -1 on
-// an invalid branch table or a failed device query.
-extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* kernels, int bf16) {
-  using namespace gated_hifi;
-  return bf16 ? wgrad_splits<bf16_t>(rows, depth, kernels) : wgrad_splits<float>(rows, depth, kernels);
+// frames). Returns -1 on an invalid branch table or a failed device query.
+extern "C" int gated_hifi_wgrad_splits(long long rows, int depth, const int* kernels) {
+  return gated_hifi::wgrad_splits<float>(rows, depth, kernels);
 }
 
 // Floats of the partials buffer gated_hifi_wgrad needs.
@@ -625,23 +567,7 @@ extern "C" int gated_hifi_wgrad(const float* x, const float* a, const float* h1,
                                   dilations, scale, n_split, stream);
 }
 
-// The same in bf16: x, a, h1 and u bf16 (the X operands), dzp, dc, dz and gv
-// fp32; the partials fp32 and `grads` bf16, each gradient rounded once.
-// scale must be 1.
-extern "C" int gated_hifi_wgrad_bf16(const void* x, const void* a, const void* h1, const float* dzp,
-                                     const float* dc, const float* dz, const void* u, const float* gv,
-                                     float* partials, void* grads, int B, int T, int width, int depth,
-                                     const int* kernels, const int* dilations, float scale, int n_split,
-                                     void* stream) {
-  using namespace gated_hifi;
-  return wgrad<bf16_t>(cb16(x), cb16(a), cb16(h1), dzp, dc, dz, cb16(u), gv, partials, b16(grads), B, T, width,
-                       depth, kernels, dilations, scale, n_split, stream);
-}
-
 // Resident blocks per SM of the backward's kernels, in launch order (the
 // seven tile stages, then wgrad_partial_kernel, wgrad_reduce_kernel), into
-// blocks[0..8], fp32 (bf16 0) or bf16 (1); returns a cudaError_t.
-extern "C" int gated_hifi_bwd_blocks_per_sm(int* blocks, int bf16) {
-  using namespace gated_hifi;
-  return bf16 ? backward_blocks_per_sm<bf16_t>(blocks) : backward_blocks_per_sm<float>(blocks);
-}
+// blocks[0..8]; returns a cudaError_t.
+extern "C" int gated_hifi_bwd_blocks_per_sm(int* blocks) { return gated_hifi::backward_blocks_per_sm<float>(blocks); }

@@ -1,0 +1,238 @@
+// Hopper (sm_90a) building blocks: TMA tensor maps and copies, mbarrier
+// rings, and wgmma with its shared-memory descriptors and fences. B1's bf16
+// backward (gated_hifi_bwd_bf16.cu) is built from them; any kernel that
+// stages bf16 tiles by TMA into a ring and multiplies them on wgmma can take
+// them as they are.
+//
+// Layout. Every operand tile in shared memory is bf16 with the 128-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_128B, wgmma's B128 layout): rows of 64
+// elements (128 bytes), a row's 16-byte pieces permuted by the row's index
+// mod 8, the tile 1024-byte aligned. Element (row r, column c) of a tile
+// lies at byte r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2 (sw128
+// below). TMA writes that layout from a box whose inner extent is 64
+// elements; wgmma reads it in two ways:
+//   K-major (rows are m or n, columns k): a k16 step is 32 bytes further
+//     along the row (desc start + 32 kk), 8-row groups 1024 bytes apart
+//     (SBO); the leading offset is unused (1).
+//   MN-major (rows are k, columns m or n; the transposed operand, which
+//     wgmma takes for 16-bit types): a k16 step is 16 rows, 2048 bytes
+//     further; 8-row groups 1024 bytes apart (SBO); the next 64 columns of
+//     m or n LBO bytes further (one tile per 64 columns).
+// Both start at a multiple of 1024 bytes but for the K-major step offset,
+// so the descriptors' base offset stays 0.
+//
+// The tensor-map encoder is libcuda's cuTensorMapEncodeTiled, looked up
+// through the CUDA runtime (cudaGetDriverEntryPointByVersion), so the
+// library links against the runtime alone, as before.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---- host: tensor maps -----------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's encoder, looked up once; nullptr where it is missing.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of dims d0 (innermost, contiguous) x d1 (rows `pitch` bytes
+// apart) [x d2 (planes `plane` bytes apart); d2 = 0: two dimensions], read
+// in boxes of b0 x b1 (x 1) elements, b0 * 2 <= 128, into 128-byte-swizzled
+// tiles. A box that reaches outside the tensor reads zeros there: a conv
+// tap's shifted slice needs no halo and no bounds check. False if the
+// encoder refuses the map.
+inline bool bf16_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t pitch,
+                     uint64_t plane, uint32_t b0, uint32_t b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t rank = d2 > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {d0, d1, d2 > 0 ? d2 : 1};
+  const cuuint64_t strides[2] = {pitch, plane};
+  const cuuint32_t box[3] = {b0, b1, 1}, step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- device: shared memory, mbarriers, TMA -----------------------------------
+__host__ __device__ constexpr int sw128(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// after the barriers are initialized, before any thread or copy uses them
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of copies to come (the producer's)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// waits until the phase of parity `parity` has completed (a fresh barrier
+// counts the phase before its first, parity 1, as completed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A ring of `stages` slots on full / empty barriers. The producer waits
+// for a slot to be empty, the consumers for it to be full; both walk the
+// same sequence of slots, the phase flipping when the ring wraps.
+struct RingPos {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// box of a 2-D map at (c0 innermost, c1) into shared memory at dst,
+// completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the `threads` threads that share barrier `id` (1-15; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- device: wgmma -----------------------------------------------------------
+// A shared-memory matrix descriptor of the B128 layout at byte address
+// `addr` (shared space), leading / stride byte offsets lbo and sbo, and the
+// base offset (bits 49-51: the start's row within the 8-row swizzle
+// pattern, for a start that is not 1024-byte aligned).
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo, uint32_t base = 0) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)(base & 7u) << 49) | (1ull << 62);
+}
+
+// before the first wgmma that reads shared memory or accumulators written
+// by other instructions
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// waits until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A B over one k16 step: m64n64k16, bf16 operands from shared memory
+// (descriptors a, b), fp32 accumulators; TA / TB 1: the operand is
+// MN-major (transposed), 0: K-major
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A B over one k16 step: m64n128k16, bf16 operands from shared memory
+// (descriptors a, b), fp32 accumulators; TA / TB 1: the operand is
+// MN-major (transposed), 0: K-major
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+
+// d += A B over one k16 step at width N (64 or 128)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 64)
+    mma_m64n64k16<TA, TB>(d, a, b);
+  else
+    mma_m64n128k16<TA, TB>(d, a, b);
+}
+
+// Where d[r] of a warpgroup's m64nN accumulator lies: row 16 * (warp % 4)
+// + lane / 4 + 8 * ((r / 2) % 2), column 8 * (r / 4) + 2 * (lane % 4) + r % 2
+// (the PTX ISA's wgmma D fragment).
+
+}  // namespace hopper

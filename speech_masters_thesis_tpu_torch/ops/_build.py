@@ -109,18 +109,24 @@ def build() -> ctypes.CDLL:
     lib.bf16_mma_probe.restype = i
     lib.gated_hifi_bwd.argtypes = [p] * 21 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_bwd.restype = i
-    lib.gated_hifi_bwd_bf16.argtypes = lib.gated_hifi_bwd.argtypes
+    lib.gated_hifi_bwd_bf16.argtypes = [p] * 24 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_bwd_bf16.restype = i
     lib.gated_hifi_wgrad_partial_floats.argtypes = [i, ints, i]
     lib.gated_hifi_wgrad_partial_floats.restype = ctypes.c_long
     lib.gated_hifi_wgrad.argtypes = [p] * 10 + [i] * 4 + [ints] * 2 + [f, i, p]
     lib.gated_hifi_wgrad.restype = i
-    lib.gated_hifi_wgrad_bf16.argtypes = lib.gated_hifi_wgrad.argtypes
+    lib.gated_hifi_wgrad_bf16.argtypes = [p] * 11 + [i] * 4 + [ints] * 2 + [f, p]
     lib.gated_hifi_wgrad_bf16.restype = i
-    lib.gated_hifi_wgrad_splits.argtypes = [ctypes.c_longlong, i, ints, i]
+    lib.gated_hifi_wgrad_bf16_partial_floats.argtypes = [i, i, i, ints]
+    lib.gated_hifi_wgrad_bf16_partial_floats.restype = ctypes.c_long
+    lib.gated_hifi_wgrad_splits.argtypes = [ctypes.c_longlong, i, ints]
     lib.gated_hifi_wgrad_splits.restype = i
-    lib.gated_hifi_bwd_blocks_per_sm.argtypes = [ints, i]
+    lib.gated_hifi_bwd_blocks_per_sm.argtypes = [ints]
     lib.gated_hifi_bwd_blocks_per_sm.restype = i
+    lib.gated_hifi_bwd_bf16_blocks_per_sm.argtypes = [ints]
+    lib.gated_hifi_bwd_bf16_blocks_per_sm.restype = i
+    lib.wgmma_probe.argtypes = [p, p]
+    lib.wgmma_probe.restype = i
     lib.attention_fwd.argtypes = [p] * 3 + [i] + [p] * 4 + [i] * 4 + [f, i, u, f, p]
     lib.attention_fwd.restype = i
     lib.attention_bwd.argtypes = [p] * 3 + [i] + [p] * 9 + [i] * 4 + [f, i, u, f, p]

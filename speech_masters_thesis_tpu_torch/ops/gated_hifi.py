@@ -3,7 +3,8 @@ the kernel wrappers (forward, recompute backward, weight-gradient reduction).
 
 Counterpart of speech_masters_thesis_tpu/ops/pallas/gated_hifi.py
 (``fused_gated_hifi`` and its custom VJP). The CUDA kernels are
-``csrc/gated_hifi_fwd.cu`` and ``csrc/gated_hifi_bwd.cu``. For a CUDA tensor
+``csrc/gated_hifi_fwd.cu``, ``csrc/gated_hifi_bwd.cu`` (the fp32 backward) and
+``csrc/gated_hifi_bwd_bf16.cu`` (the bf16 backward). For a CUDA tensor
 ``gated_hifi`` runs ``GatedHiFiFunction``, whose forward and backward launch
 them; for an fp32 CPU tensor it runs ``gated_hifi_reference``, which CPU
 autograd differentiates. Nothing falls back: a CUDA tensor the kernels do
@@ -268,16 +269,28 @@ def _weights_from(named: Mapping[str, torch.Tensor], dilations: Sequence[int]) -
     return GatedHiFiWeights(ks=ks, dilations=tuple(dilations), **rest)
 
 
+# frames of one row of the bf16 backward's bias partials (csrc/gated_hifi_bwd_bf16.cu's TM)
+BIAS_TILE = 128
+
+
 @dataclass(frozen=True)
 class BackwardBuffers:
     """What the backward's tile passes leave in device memory for the weight
-    gradients, all [B, T, depth*H] but u and gv ([B, T, W]). a, h1 and u
-    (product operands only) have x's dtype, the rest is fp32 in bf16 mode.
+    gradients, all [B, T, depth*H] but u and gv ([B, T, W]), in x's dtype.
 
     a: relu(z)*m0 (the conv input); h1: relu(c)*m1 (the branch 1x1 input);
     dzp: the cotangent of the branch outputs z + scale*h; dc: of the conv
     outputs; dz: of the branch expands; u: the gate input; gv: the cotangent
     of v, scale * g masked past the length.
+
+    bf16 mode: every buffer holds a product operand, rounded where the TPU
+    kernel rounds it at its dots, and dzp is the copy its dW1 takes (scale *
+    dzp, rounded). The bias gradients' fp32 sums come apart, in ``bias``:
+    [B * ceil(T / BIAS_TILE), 3*depth*H + W] fp32, row b * ceil(T /
+    BIAS_TILE) + i the column sums over frames [i * BIAS_TILE, min(T, (i + 1)
+    * BIAS_TILE)) of sequence b of dz | dc | scale * dzp | gv, in fp32 before
+    any rounding (``bias_partials``). fp32 mode: ``bias`` is None and the
+    reduction sums the buffers' columns.
     """
 
     a: torch.Tensor
@@ -287,6 +300,18 @@ class BackwardBuffers:
     dz: torch.Tensor
     u: torch.Tensor
     gv: torch.Tensor
+    bias: torch.Tensor | None = None
+
+
+def bias_partials(*columns: torch.Tensor) -> torch.Tensor:
+    """The frame tiles' column sums of [B, T, .] fp32 tensors side by side:
+    [B * ceil(T / BIAS_TILE), total columns], each tile's frames of its own
+    sequence only, the last tile of a sequence its T % BIAS_TILE frames."""
+    cat = torch.cat(columns, dim=-1)
+    B, T, C = cat.shape
+    n = -(-T // BIAS_TILE)
+    padded = F.pad(cat, (0, 0, 0, n * BIAS_TILE - T))
+    return padded.view(B, n, BIAS_TILE, C).sum(dim=2).reshape(B * n, C)
 
 
 def _shift_time(a: torch.Tensor, shift: int) -> torch.Tensor:
@@ -309,7 +334,8 @@ def backward_buffers_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFi
     buffers, by the formulas of csrc/gated_hifi_bwd.cu. With
     ``weight_grad_reduce_reference`` it gives what autograd gives. bf16: the
     operands of du, dh1, the transposed conv and dx rounded to bf16 (the TPU
-    kernel's _bwd_kernel), dx and a, h1, u stored in bf16. ``gates`` (a > 0,
+    kernel's _bwd_kernel), dx and every buffer stored in bf16 with the bias
+    partials beside them (``BackwardBuffers``). ``gates`` (a > 0,
     h1 > 0 as [B, T, depth*H] booleans, e.g. a kernel's own) replaces the
     relu and dropout decisions the backward takes its gradient at: where a
     pre-activation lies within rounding of 0 two versions may decide
@@ -342,8 +368,12 @@ def backward_buffers_reference(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFi
     dx = g_masked + rnd(dz) @ rnd(wf.wall).t()
     cat = lambda xs: torch.cat(xs, dim=-1)
     io = lambda t: t.to(x.dtype)
-    return io(dx), BackwardBuffers(a=io(cat([b[0] for b in branches])), h1=io(cat([b[1] for b in branches])),
-                                   dzp=cat(dzps), dc=cat(dcs), dz=dz, u=io(u), gv=gv)
+    a, h1, dzp, dc = io(cat([b[0] for b in branches])), io(cat([b[1] for b in branches])), cat(dzps), cat(dcs)
+    if x.dtype != torch.bfloat16:
+        return io(dx), BackwardBuffers(a=a, h1=h1, dzp=dzp, dc=dc, dz=dz, u=io(u), gv=gv)
+    dh = res_scale * dzp  # the TPU kernel's dh_c, which rounds as one operand
+    return io(dx), BackwardBuffers(a=a, h1=h1, dzp=io(dh), dc=io(dc), dz=io(dz), u=io(u), gv=io(gv),
+                                   bias=bias_partials(dz, dc, dh, gv))
 
 
 def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence[int],
@@ -352,7 +382,10 @@ def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels
     product of two [B*T, .] operands summed over time (one tap at a time
     for the convs, the conv input shifted by the tap's offset). bf16: both
     operands rounded to bf16 (dh = scale * dzp before it rounds, as the TPU
-    kernel's dW1), the sums fp32, each gradient cast to bf16 once."""
+    kernel's dW1), the sums fp32, each gradient cast to bf16 once: the bf16
+    buffers come rounded with dzp as dh already, and the bias gradients are
+    the partials' sums over the frame tiles. fp32: the bias gradients are
+    the buffers' column sums."""
     W = x.shape[-1]
     H = 2 * W
     bf16 = x.dtype == torch.bfloat16
@@ -364,14 +397,20 @@ def weight_grad_reduce_reference(x: torch.Tensor, bufs: BackwardBuffers, kernels
         a, dc, dzp = bufs.a[..., cols], bufs.dc[..., cols], bufs.dzp[..., cols]
         half = (k - 1) // 2
         ks.append(torch.stack([outer(_shift_time(a, (j - half) * dil), dc) for j in range(k)]))
-        cbs.append(dc.sum(dim=(0, 1)))
-        dh = res_scale * dzp  # the TPU kernel's dh_c, which rounds as one operand
+        dh = dzp if bf16 else res_scale * dzp  # the TPU kernel's dh_c, which rounds as one operand
         w1s.append(outer(bufs.h1[..., cols], dh))
-        b1s.append(dh.sum(dim=(0, 1)))
+        if not bf16:
+            cbs.append(dc.sum(dim=(0, 1)))
+            b1s.append(dh.sum(dim=(0, 1)))
+    if bf16:
+        ldw = len(kernels) * H
+        ball, cb, b1, bg = torch.split(bufs.bias.sum(dim=0), [ldw, ldw, ldw, W])
+        cb, b1 = cb.reshape(-1, H), b1.reshape(-1, H)
+    else:
+        ball, cb, b1, bg = bufs.dz.sum(dim=(0, 1)), torch.stack(cbs), torch.stack(b1s), bufs.gv.sum(dim=(0, 1))
     out = GatedHiFiWeights(
-        wall=outer(x, bufs.dz), ball=bufs.dz.sum(dim=(0, 1)), ks=tuple(ks),
-        cb=torch.stack(cbs), w1=torch.stack(w1s), b1=torch.stack(b1s),
-        wg=outer(bufs.u, bufs.gv), bg=bufs.gv.sum(dim=(0, 1)), dilations=tuple(dilations))
+        wall=outer(x, bufs.dz), ball=ball, ks=tuple(ks), cb=cb, w1=torch.stack(w1s), b1=b1,
+        wg=outer(bufs.u, bufs.gv), bg=bg, dilations=tuple(dilations))
     return _weights_from({k: v.to(x.dtype) for k, v in out.tensors().items()}, dilations) if bf16 else out
 
 
@@ -461,9 +500,12 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
                      seed: int = 0) -> Tuple[torch.Tensor, BackwardBuffers]:
     """dx and the ``BackwardBuffers`` of the cotangent ``g``.
 
-    A CUDA tensor launches the tile passes of ``csrc/gated_hifi_bwd.cu``
-    (seven tensor-core stages that meet in these buffers, 3xTF32 in fp32 and
-    bf16 MMAs in bf16), which recompute the forward from x and the seed;
+    A CUDA tensor launches the tile passes, which recompute the forward from
+    x and the seed: in fp32 the seven 3xTF32 tensor-core stages of
+    ``csrc/gated_hifi_bwd.cu``, in bf16 the TMA-fed wgmma stages of
+    ``csrc/gated_hifi_bwd_bf16.cu`` and the gate's elementwise pass (with
+    fp32 scratch that lives through the call: zp / dzp [B, T, depth*H] and
+    du [B, T, W]);
     ``backward_buffers.launches`` counts fp32 launches, ``.bf16_launches``
     bf16 ones. A CPU tensor runs ``backward_buffers_reference``.
     """
@@ -475,33 +517,46 @@ def backward_buffers(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights, g
     B, T, W = x.shape
     H, depth = 2 * W, len(w.ks)
     wide = lambda dtype: torch.empty(B, T, depth * H, device=x.device, dtype=dtype)
-    f32 = torch.float32
-    bufs = BackwardBuffers(a=wide(x.dtype), h1=wide(x.dtype), dzp=wide(f32), dc=wide(f32), dz=wide(f32),
-                           u=torch.empty_like(x), gv=torch.empty_like(x, dtype=f32))
-    # transposed weights: each product of the backward reads its operand
-    # along rows, as the forward's do
+    # transposed weights: each product of the fp32 backward reads its operand
+    # along rows, as the forward's do; the bf16 one reads every weight as a
+    # K-major wgmma operand, the recompute's transposed and the rest as stored
     ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
     ks_t = torch.cat([k.transpose(1, 2).reshape(-1) for k in w.ks])
     w1_t = w.w1.transpose(1, 2).contiguous()
-    wg_t = w.wg.t().contiguous()
     wall_t = w.wall.t().contiguous()
     dx = torch.empty_like(x)
     lib = _build.build()
-    launch = lib.gated_hifi_bwd_bf16 if x.dtype == torch.bfloat16 else lib.gated_hifi_bwd
-    rc = launch(
+    common = (B, T, W, depth, _ints(w.kernels), _ints(w.dilations), float(res_scale),
+              seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+    if x.dtype == torch.bfloat16:
+        bufs = BackwardBuffers(a=wide(x.dtype), h1=wide(x.dtype), dzp=wide(x.dtype), dc=wide(x.dtype),
+                               dz=wide(x.dtype), u=torch.empty_like(x), gv=torch.empty_like(x),
+                               bias=torch.empty(B * -(-T // BIAS_TILE), 3 * depth * H + W, device=x.device,
+                                                dtype=torch.float32))
+        zp, du = wide(torch.float32), torch.empty_like(x, dtype=torch.float32)
+        rc = lib.gated_hifi_bwd_bf16(
+            x.data_ptr(), lens.data_ptr(), g.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
+            ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), w.wg.data_ptr(),
+            w1_t.data_ptr(), ks_t.data_ptr(), wall_t.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(),
+            zp.data_ptr(), du.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(), bufs.dz.data_ptr(), bufs.u.data_ptr(),
+            bufs.gv.data_ptr(), bufs.bias.data_ptr(), dx.data_ptr(), *common)
+        if rc != 0:
+            raise RuntimeError(f"gated_hifi_bwd_bf16 launch failed with cudaError {rc}")
+        backward_buffers.bf16_launches += 1
+        return dx, bufs
+    f32 = torch.float32
+    bufs = BackwardBuffers(a=wide(x.dtype), h1=wide(x.dtype), dzp=wide(f32), dc=wide(f32), dz=wide(f32),
+                           u=torch.empty_like(x), gv=torch.empty_like(x, dtype=f32))
+    wg_t = w.wg.t().contiguous()
+    rc = lib.gated_hifi_bwd(
         x.data_ptr(), lens.data_ptr(), g.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(), wg_t.data_ptr(),
         w1_t.data_ptr(), ks_t.data_ptr(), wall_t.data_ptr(),
         bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
-        bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), dx.data_ptr(),
-        B, T, W, depth, _ints(w.kernels), _ints(w.dilations), float(res_scale),
-        seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+        bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), dx.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"gated_hifi_bwd launch failed with cudaError {rc}")
-    if x.dtype == torch.bfloat16:
-        backward_buffers.bf16_launches += 1
-    else:
-        backward_buffers.launches += 1
+    backward_buffers.launches += 1
     return dx, bufs
 
 
@@ -509,14 +564,16 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
                        dilations: Sequence[int], res_scale: float = 1.0) -> GatedHiFiWeights:
     """The block's weight gradients from the backward's buffers.
 
-    A CUDA tensor launches the split-over-frames reduction of
-    ``csrc/gated_hifi_bwd.cu`` (per-block partial sums over a slice of the
-    B*T frames, tensor-core products with the frames as their depth, 3xTF32
-    in fp32 and bf16 MMAs in bf16, then a second pass that adds the slices
-    in a fixed order: no float atomics, so equal inputs give bitwise-equal
-    gradients; in bf16 each gradient is rounded once, there); a CPU
-    tensor runs ``weight_grad_reduce_reference``. ``weight_grad_reduce.launches``
-    counts fp32 launches, ``.bf16_launches`` bf16 ones.
+    A CUDA tensor launches a split-over-frames reduction (per-block partial
+    sums over a slice of the B*T frames, tensor-core products with the
+    frames as their depth, then a second pass that adds the slices in a
+    fixed order: no float atomics, so equal inputs give bitwise-equal
+    gradients): in fp32 ``csrc/gated_hifi_bwd.cu``'s on 3xTF32, in bf16
+    ``csrc/gated_hifi_bwd_bf16.cu``'s on TMA-fed wgmma over the bf16
+    buffers, with the bias gradients from ``bufs.bias``, each gradient
+    rounded once. A CPU tensor runs ``weight_grad_reduce_reference``.
+    ``weight_grad_reduce.launches`` counts fp32 launches, ``.bf16_launches``
+    bf16 ones.
     """
     if x.device.type == "cpu":
         return weight_grad_reduce_reference(x, bufs, kernels, dilations, res_scale)
@@ -530,28 +587,41 @@ def weight_grad_reduce(x: torch.Tensor, bufs: BackwardBuffers, kernels: Sequence
     for name in ("a", "h1", "dzp", "dc", "dz", "u", "gv"):
         t = getattr(bufs, name)
         want = (B, T, W) if name in ("u", "gv") else (B, T, depth * H)
-        dtype = x.dtype if name in ("a", "h1", "u") else torch.float32
+        dtype = x.dtype if bf16 or name in ("a", "h1", "u") else torch.float32
         if t.dtype != dtype or not t.is_contiguous() or t.device != x.device or t.shape != want:
             raise ValueError(f"weight_grad_reduce: {name} must be contiguous {dtype} {want} on {x.device}")
+    bias_shape = (B * -(-T // BIAS_TILE), 3 * depth * H + W)
+    if bf16 and (bufs.bias is None or bufs.bias.dtype != torch.float32 or not bufs.bias.is_contiguous()
+                 or bufs.bias.device != x.device or tuple(bufs.bias.shape) != bias_shape):
+        raise ValueError(f"weight_grad_reduce: bias must be contiguous float32 {bias_shape} on {x.device}")
     lib = _build.build()
-    n_split = lib.gated_hifi_wgrad_splits(B * T, depth, _ints(kernels), int(bf16))
-    if n_split < 1:
-        raise RuntimeError("gated_hifi_wgrad_splits failed")
-    partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
-                           device=x.device, dtype=torch.float32)
     sizes = [W * depth * H, depth * H, sum(kernels) * H * H, depth * H, depth * H * H, depth * H, W * W, W]
     flat = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
-    launch = lib.gated_hifi_wgrad_bf16 if bf16 else lib.gated_hifi_wgrad
-    rc = launch(
-        x.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
-        bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), partials.data_ptr(),
-        flat.data_ptr(), B, T, W, depth, _ints(kernels), _ints(dilations), float(res_scale),
-        n_split, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"gated_hifi_wgrad launch failed with cudaError {rc}")
     if bf16:
+        n_floats = lib.gated_hifi_wgrad_bf16_partial_floats(B, T, depth, _ints(kernels))
+        if n_floats < 1:
+            raise RuntimeError("gated_hifi_wgrad_bf16_partial_floats failed")
+        partials = torch.empty(n_floats, device=x.device, dtype=torch.float32)
+        rc = lib.gated_hifi_wgrad_bf16(
+            x.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
+            bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), bufs.bias.data_ptr(), partials.data_ptr(),
+            flat.data_ptr(), B, T, W, depth, _ints(kernels), _ints(dilations), float(res_scale), _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"gated_hifi_wgrad_bf16 launch failed with cudaError {rc}")
         weight_grad_reduce.bf16_launches += 1
     else:
+        n_split = lib.gated_hifi_wgrad_splits(B * T, depth, _ints(kernels))
+        if n_split < 1:
+            raise RuntimeError("gated_hifi_wgrad_splits failed")
+        partials = torch.empty(lib.gated_hifi_wgrad_partial_floats(depth, _ints(kernels), n_split),
+                               device=x.device, dtype=torch.float32)
+        rc = lib.gated_hifi_wgrad(
+            x.data_ptr(), bufs.a.data_ptr(), bufs.h1.data_ptr(), bufs.dzp.data_ptr(), bufs.dc.data_ptr(),
+            bufs.dz.data_ptr(), bufs.u.data_ptr(), bufs.gv.data_ptr(), partials.data_ptr(),
+            flat.data_ptr(), B, T, W, depth, _ints(kernels), _ints(dilations), float(res_scale),
+            n_split, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"gated_hifi_wgrad launch failed with cudaError {rc}")
         weight_grad_reduce.launches += 1
     wall, ball, ks, cb, w1, b1, wg, bg = torch.split(flat, sizes)
     ks = torch.split(ks, [k * H * H for k in kernels])

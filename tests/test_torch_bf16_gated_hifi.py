@@ -198,7 +198,10 @@ def test_plain_bf16_rounds_where_the_tpu_kernel_rounds():
     assert 2.0 ** -12 < rel < 2.0 ** -5
     assert dx.dtype == torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in grads.tensors().values())
     assert bufs.a.dtype == bufs.h1.dtype == bufs.u.dtype == torch.bfloat16
-    assert bufs.dzp.dtype == bufs.dc.dtype == bufs.dz.dtype == bufs.gv.dtype == torch.float32
+    # the cotangents are stored rounded, as the TPU kernel rounds them at its
+    # products; the bias gradients' fp32 column sums come beside them
+    assert bufs.dzp.dtype == bufs.dc.dtype == bufs.dz.dtype == bufs.gv.dtype == torch.bfloat16
+    assert bufs.bias.dtype == torch.float32 and bufs.bias.shape == (2 * 2, 3 * 4 * 2 * W + W)
 
 
 def test_mixed_dtypes_raise():
