@@ -17,7 +17,13 @@ step. ``--b5`` measures, for each tree, B5's forward and backward back to back
 models, batch and seeds) with each parameter's gradient error against the
 fp64 step: the median and worst of B5's parameters (the encoder layers'),
 of the rest and of all, the CPU fp32 step's beside them, and the worst
-parameters. ``--bf16`` measures, for each tree, B1's bf16 tile passes and
+parameters. ``--bf16-fwd`` measures, for each tree, B1's bf16 forward back to
+back at p=0 and 0.1, summed over the VQ-VAE's 7 block shapes (batch 16,
+depth 4) and VQ-TTS's 8 (batch 4, depth 3), its device time by kernel
+(torch.profiler over 3 calls at 16 x 33024 frames, p=0.1) and a sha256 of
+its output there, the bf16 tile passes' and reduction's sums as ``--bf16``
+has them, and the bf16 VQ-VAE train step as ``--bf16`` has it. ``--bf16``
+measures, for each tree, B1's bf16 tile passes and
 reduction back to back at p=0.1, summed over the VQ-VAE's 7 block shapes
 (batch 16, depth 4) and VQ-TTS's 8 (batch 4, depth 3), and the bf16
 VQ-VAE train step (``chip_smoke.phase_bf16_train``: the median bf16 step in
@@ -38,6 +44,7 @@ apart from the bf16 ones.
     python3 ab_backward.py --b5 build/parent . ...      # B5's times and phase 25's errors by group
     python3 ab_backward.py --b2b4 build/parent . . build/parent   # B2's forward, B4, the LM and Glow steps
     python3 ab_backward.py --bf16 build/parent . . build/parent   # B1's bf16 backward, the bf16 VQ-VAE step
+    python3 ab_backward.py --bf16-fwd build/parent . . build/parent   # B1's bf16 forward (and backward), the step
     python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
@@ -91,14 +98,14 @@ TILE_REPS = 20
 TILE_P = 0.1
 STAGE_T = 33024  # --bf16-tiles: the frames of the stages' profile (the VQ-VAE's largest block shape)
 FWD_PS = (0.0, 0.1)
+FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B1's bf16 backward, the first bf16
-# form's (the recompute's <false, bf16> stages, the backward's own stages and reduction in bf16) and the
-# redesign's kernels (namespace gated_hifi::bwd16)
-PTXAS_CHANGED = ("5bwd16", *(f"{k}_kernelILb0E13__nv_bfloat16" for k in ("tile_expand", "tile_conv", "tile_branch")),
-                 *(f"{k}_kernelI13__nv_bfloat16" for k in ("tile_gate", "tile_dc", "tile_convt", "tile_dx",
-                                                            "wgrad_partial", "wgrad_reduce")))
+# instances the change may alter, by a piece of their mangled names: B1's bf16 forward, the first bf16
+# form's four mma.sync stages (<true, bf16> expand, conv, branch; out<bf16>) and the redesign's gate stage
+# and conv stages (namespace gated_hifi::fwd_bf16); its expand is the bf16 backward's own, held with the rest
+PTXAS_CHANGED = (*(f"{k}_kernelILb1E13__nv_bfloat16" for k in ("tile_expand", "tile_conv", "tile_branch")),
+                 "tile_out_kernelI13__nv_bfloat16", "8fwd_bf16")
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -412,13 +419,67 @@ def lm_and_glow_steps(torch, cs, device, card) -> dict:
     return out
 
 
+def profile_stages(torch, fn, keep) -> dict:
+    """Device time a call by kernel name (torch.profiler over 3 calls of
+    ``fn``), for the kernels whose names ``keep`` accepts; chip_smoke's
+    kernel_times, kept here because a parent tree's chip_smoke.py may not
+    have it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                  if hasattr(e, n)), 0.0)
+        name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+        if t > 0 and keep(name):
+            stages[name] = stages.get(name, 0.0) + t / 3 / 1e3
+    return stages
+
+
+def bf16_forward(torch, cs, gh, device) -> dict:
+    """B1's bf16 forward back to back at p=0 and 0.1 summed over the VQ-VAE's
+    and VQ-TTS's block shapes, then its device time by kernel at 16 x
+    STAGE_T frames (p=TILE_P; every kernel of the call, the wrapper's
+    copies included) and a sha256 of its output there."""
+    import hashlib
+
+    out = {}
+    shapes = (("vqvae", cs.BLOCK_TS, cs.BATCH, 4), ("vqtts", cs.VQTTS_BLOCK_TS, cs.VQTTS_BATCH, cs.VQTTS_DEPTH))
+    with torch.no_grad():
+        for name, block_ts, batch, depth in shapes:
+            w = cs.to_bf16(cs.block_weights(device, seed=1, depth=depth))
+            for p in FWD_PS:
+                out[f"bf16_fwd_{name}_p{p}_ms"] = 0.0
+            for i, T in enumerate(block_ts):
+                x, lens, _, _ = cs.block_inputs(T, batch, 200 + i, device)
+                x = x.to(torch.bfloat16)
+                for p in FWD_PS:
+                    out[f"bf16_fwd_{name}_p{p}_ms"] += back_to_back_ms(
+                        torch, lambda: gh.gated_hifi(x, lens, w, 1.0, p, 12345), FWD_REPS, warmup=1)
+                del x, lens
+                torch.cuda.empty_cache()
+        w = cs.to_bf16(cs.block_weights(device, seed=1, depth=4))
+        x, lens, _, _ = cs.block_inputs(STAGE_T, cs.BATCH, 7, device)
+        x = x.to(torch.bfloat16)
+        y = gh.gated_hifi(x, lens, w, 1.0, TILE_P, 12345)
+        torch.cuda.synchronize()
+        out["fwd_output_sha256"] = hashlib.sha256(y.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        del y
+        out["fwd_stage_ms"] = profile_stages(torch, lambda: gh.gated_hifi(x, lens, w, 1.0, TILE_P, 12345),
+                                             lambda n: True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def bf16_stages(torch, cs, gh, device) -> dict:
     """The bf16 tile passes' device time by kernel at 16 x STAGE_T frames
     (p=TILE_P; torch.profiler over 3 calls, ms a call) and a sha256 of what
     one call writes."""
     import hashlib
-
-    from torch.profiler import ProfilerActivity, profile
 
     w = cs.to_bf16(cs.block_weights(device, seed=1, depth=4))
     x, lens, _, g = cs.block_inputs(STAGE_T, cs.BATCH, 7, device)
@@ -431,17 +492,7 @@ def bf16_stages(torch, cs, gh, device) -> dict:
         for t in (dx, bufs.a, bufs.h1, bufs.dzp, bufs.dc, bufs.dz, bufs.u, bufs.gv, bufs.bias):
             digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
         del dx, bufs
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                gh.backward_buffers(*args)
-            torch.cuda.synchronize()
-    stages = {}
-    for e in prof.key_averages():
-        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
-                  if hasattr(e, n)), 0.0)
-        name = re.sub(r"^void |\(.*$", "", e.key)
-        if t > 0 and ("bwd16" in name or "kernel" in name):
-            stages[name] = stages.get(name, 0.0) + t / 3 / 1e3
+        stages = profile_stages(torch, lambda: gh.backward_buffers(*args), lambda n: "bwd16" in n or "kernel" in n)
     torch.cuda.empty_cache()
     return {"stage_ms": stages, "outputs_sha256": digest.hexdigest()}
 
@@ -515,6 +566,10 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
     if mode == "--bf16":
         out.update(bf16_backward(torch, cs, gh, device, card))
         return out
+    if mode == "--bf16-fwd":
+        out.update(bf16_forward(torch, cs, gh, device))
+        out.update(bf16_backward(torch, cs, gh, device, card))
+        return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
         out.update(codec_kernels(torch, np, cs, att, gh, device))
@@ -569,7 +624,7 @@ def is_bf16(line: str) -> bool:
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles")
+    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd")
     mode = next((a for a in args if a in modes), "")
     args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
@@ -577,7 +632,8 @@ def main() -> None:
         return
     trees = args
     if len(trees) < 2:
-        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles] "
+        raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles | "
+                         "--bf16-fwd] "
                          "TREE TREE [TREE ...] "
                          "(e.g. parent "
                          "change change parent)")
@@ -610,7 +666,7 @@ def main() -> None:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
         return
-    if mode in ("--bf16", "--bf16-tiles"):
+    if mode in ("--bf16", "--bf16-tiles", "--bf16-fwd"):
         for key in [k for k, v in results[0].items() if k.endswith(("_ms", "_gib")) and isinstance(v, float)]:
             print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results)
                   + f" [{results[0]['card']}]")
@@ -622,6 +678,14 @@ def main() -> None:
             print(f"[ab] outputs_sha256 at 16 x {STAGE_T}: " + ", ".join(f"{r['tree']} {r['outputs_sha256'][:16]}"
                                                               for r in results)
                   + f"; all equal: {len({r['outputs_sha256'] for r in results}) == 1}")
+        if mode == "--bf16-fwd":
+            for res in results:
+                print(f"[ab] {res['tree']} bf16 forward by kernel (16 x {STAGE_T}, p={TILE_P}): "
+                      + ", ".join(f"{n} {t:.4f}" for n, t in res["fwd_stage_ms"].items())
+                      + f" (sum {sum(res['fwd_stage_ms'].values()):.4f} ms) [{res['card']}]")
+            print(f"[ab] bf16 forward output sha256 at 16 x {STAGE_T}, p={TILE_P}: "
+                  + ", ".join(f"{r['tree']} {r['fwd_output_sha256'][:16]}" for r in results)
+                  + f"; all equal: {len({r['fwd_output_sha256'] for r in results}) == 1}")
         return
     if mode == "--b2b4":
         keys = [k for k in results[0] if k.endswith(("_ms", "_median", " sum")) and k != "seconds"]

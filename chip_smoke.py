@@ -201,13 +201,17 @@ reduction off from phase 1 on, as TF32 is):
      for wgmma (wgmma_probe, which also holds both operand layouts B1's bf16
      backward reads, K-major and MN-major, exact on a product of small
      integers: it decides the reduction's 1,024-frame flush);
- 34. B1's bf16 forward against its plain bf16 version at each block shape
+ 34. B1's bf16 forward (csrc/gated_hifi_fwd_bf16.cu: the bf16 backward's
+     expand stage, a conv stage with fp32 sums a k-slice, then zp, the gate
+     and u Wg in one stage, on TMA-fed wgmma) against its plain bf16 version at each block shape
      of phase 3 (batch 16), p=0 (times: 50 back-to-back calls, one call,
      the plain version) and p=0.1: at least 99% of the valid elements
      within one bf16 ulp of their own magnitude and every one within 2^-6
      of max|ref|, exact zeros past the lengths, two calls bitwise equal;
      the bf16 backward kernels' dropout masks read back bit for bit at
-     every shape, keep rates within 5 sigma;
+     every shape, keep rates within 5 sigma; the forward's device time by
+     kernel at the largest shape (torch.profiler) beside the bytes a frame
+     its design moves;
  35. B1's bf16 tile passes and reduction (csrc/gated_hifi_bwd_bf16.cu:
      TMA-fed wgmma, bf16 cotangents and fp32 bias partials) against the
      plain bf16 backward at each shape, p=0 and 0.1, taken at the kernel's
@@ -525,7 +529,7 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_mma_kernel",
                 "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel", "enc_pack_kernel",
                 "tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel",
-                "wgmma_probe_kernel")
+                "wgmma_probe_kernel", "branch_conv_kernel", "branch_gate_kernel", "transpose_weights_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
@@ -538,6 +542,9 @@ B1_BF16_BWD_STAGES = ("tile_kernel<1 expand>", "tile_kernel<2 conv>", "tile_kern
                       "tile_kernel<4 du>", "tile_kernel<5 dc>", "tile_kernel<6 convt>", "tile_kernel<7 dx>",
                       "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel")
 B1_BF16_BWD_KERNELS = ("tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel")
+# B1's bf16 forward (csrc/gated_hifi_fwd_bf16.cu): gated_hifi_fwd_bf16_blocks_per_sm's order (the backward's
+# stage 1, then its own conv and gate stages; its weights' transpose is a plain grid-stride loop)
+B1_BF16_FWD_STAGES = ("tile_kernel<1 expand>", "branch_conv_kernel", "branch_gate_kernel")
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
@@ -573,8 +580,8 @@ def phase_build() -> None:
     for name in KERNEL_NAMES:
         require(any(line.startswith(name) for line in ptxas), f"ptxas reports no {name}")
     lib = _build.build()
-    launches = (("fwd fp32", B1_FWD_KERNELS, lambda b: lib.gated_hifi_fwd_blocks_per_sm(b, 0), "256"),
-                ("fwd bf16", B1_FWD_KERNELS, lambda b: lib.gated_hifi_fwd_blocks_per_sm(b, 1), "256"),
+    launches = (("fwd fp32", B1_FWD_KERNELS, lib.gated_hifi_fwd_blocks_per_sm, "256"),
+                ("fwd bf16", B1_BF16_FWD_STAGES, lib.gated_hifi_fwd_bf16_blocks_per_sm, "384; 256 conv and gate"),
                 ("bwd fp32", B1_BWD_KERNELS, lib.gated_hifi_bwd_blocks_per_sm, "256"),
                 ("bwd bf16", B1_BF16_BWD_STAGES, lib.gated_hifi_bwd_bf16_blocks_per_sm,
                  "384; 256 the gate's pass and the reduce"))
@@ -586,14 +593,20 @@ def phase_build() -> None:
               + ", ".join(f"{n} {b}" for n, b in zip(names, blocks)))
     b1 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BWD_KERNELS + B1_FWD_KERNELS]
     require(all("0 bytes spill stores" in line for line in b1), f"a B1 kernel spills: {b1}")
-    # 13 fp32 instances (the shared three stages twice, RN and not) and the bf16 forward's 4 (B5's and
-    # B6's reductions share two of the names under their own tags)
+    # 13 fp32 instances (the shared three stages twice, RN and not; B5's and B6's reductions share two of
+    # the names under their own tags); the bf16 forward's mma.sync instances are gone
     own = [line for line in b1 if "Tag>" not in line.split(":")[0]]
-    require(len(own) == 13 + 4, f"B1 has {len(own)} instances of the fp32 design, not 17 (13 fp32, 4 bf16): {own}")
+    require(len(own) == 13, f"B1 has {len(own)} instances of the fp32 design, not 13: {own}")
     b1_bf16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in B1_BF16_BWD_KERNELS]
     print("[build] B1 bf16 backward on TMA and wgmma (ptxas: registers, shared memory, spills): " + " | ".join(b1_bf16))
     require(len(b1_bf16) == 11 and all("0 bytes spill stores" in line for line in b1_bf16),
             f"a B1 bf16 backward kernel is missing or spills: {b1_bf16}")
+    b1_fwd16 = [line for line in ptxas
+                if line.startswith(("branch_conv_kernel", "branch_gate_kernel", "transpose_weights_kernel"))]
+    print("[build] B1 bf16 forward's own kernels, the conv and gate stages on TMA and wgmma and the weights' "
+          "transpose (ptxas: registers, shared memory, spills): " + " | ".join(b1_fwd16))
+    require(len(b1_fwd16) == 3 and all("0 bytes spill stores" in line for line in b1_fwd16),
+            f"a B1 bf16 forward kernel is missing or spills: {b1_fwd16}")
     # B3's and B6's kernels on the tensor cores: the forwards' instances (their tags
     # end in FwdTag), and the backwards' (the same instances under each tag)
     mma = [line for line in ptxas if line.split(":")[0].split("<")[0] in B3_B6_KERNELS
@@ -3016,11 +3029,43 @@ def b1_bf16_bytes_per_frame(depth: int, W: int = 64) -> dict:
     return {"tiles": sum(tiles.values()) + bias, "reduction": 6 * W + 10 * ldw + bias, "by_stage": tiles}
 
 
+def b1_bf16_fwd_bytes_per_frame(depth: int, W: int = 64) -> dict:
+    """Bytes a frame B1's bf16 forward moves through device memory by its
+    design (csrc/gated_hifi_fwd_bf16.cu), each stage's reads and writes (a
+    conv tap's shifted re-reads and the gate stage's re-reads of x a branch
+    not counted): design arithmetic, printed beside the measured times, not a
+    measurement."""
+    ldw = depth * 2 * W
+    return {"expand": 2 * W + 2 * ldw, "conv": 2 * ldw + 2 * ldw, "gate": 2 * ldw + 2 * W + 2 * W}
+
+
+def kernel_times(fn) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler over 3
+    calls), the wrapper's own copies included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                  if hasattr(e, n)), 0.0)
+        if t > 0:
+            name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+            times[name] = times.get(name, 0.0) + t / 3 / 1e3
+    return times
+
+
 def phase_bf16_kernel(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, depth: int = 4,
                       tag: str = "[bf16 kernel]") -> dict:
     """B1's bf16 forward against its plain bf16 version at each block shape,
     p=0 (times) and p=0.1 (two calls bitwise equal), and the bf16 backward
-    kernels' dropout masks read back bit for bit."""
+    kernels' dropout masks read back bit for bit; then the forward's device
+    time by kernel at the largest shape (p=0.1) beside its design's bytes a
+    frame."""
     w = to_bf16(block_weights(device, seed=1, depth=depth))
     seed = 4321
     out = {"max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "share": 1.0}
@@ -3069,6 +3114,17 @@ def phase_bf16_kernel(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, 
             flops += batch * T * block_flops_per_frame(w)
             nbytes += 2 * (2 * x.numel() + sum(t.numel() for t in w.tensors().values()))
             torch.cuda.empty_cache()
+    with torch.inference_mode():
+        x, lens, _, _ = block_inputs(block_ts[0], batch, 100, device)
+        x = x.to(torch.bfloat16)
+        stages = kernel_times(lambda: gh.gated_hifi(x, lens, w, 1.0, P_DROP, seed))
+        del x, lens
+    per_frame = b1_bf16_fwd_bytes_per_frame(depth)
+    print(f"{tag} by kernel at B={batch} T={block_ts[0]}, p={P_DROP} (torch.profiler, 3 calls, device ms a call): "
+          + ", ".join(f"{n} {t:.4f}" for n, t in stages.items()) + f" (sum {sum(stages.values()):.4f}); the design's "
+          f"bytes a frame {sum(per_frame.values())} (" + ", ".join(f"{k} {v}" for k, v in per_frame.items())
+          + f"; design arithmetic, not measured) [{card}]")
+    torch.cuda.empty_cache()
     out["bound_ms"], out["bound_by"] = bf16_bound(flops, nbytes)
     print(f"{tag} sum over the {len(block_ts)} block shapes, p=0: kernel {out['ms']:.3f} ms over "
           f"{DEVICE_REPS} back-to-back calls ({out['call_ms']:.3f} ms a call), plain {out['plain_ms']:.3f} ms; bound "
@@ -4409,7 +4465,7 @@ def main() -> None:
               backward["red_ms"], backward["red_plain_ms"], backward["red_bound_ms"], backward["red_bound_by"],
               backward["red_library_ms"], call_ms=backward["red_call_ms"], bound_3xtf32_ms=backward["red_tf32_ms"],
               vqtts=vqtts_red),
-        entry("gated_hifi_fwd_bf16", "gated_hifi_fwd.cu", PALLAS + ":591", bf16_train["fwd"], bf16_fwd["max_abs_err"],
+        entry("gated_hifi_fwd_bf16", "gated_hifi_fwd_bf16.cu", PALLAS + ":591", bf16_train["fwd"], bf16_fwd["max_abs_err"],
               bf16_fwd["ms"], bf16_fwd["plain_ms"], bf16_fwd["bound_ms"], bf16_fwd["bound_by"],
               call_ms=bf16_fwd["call_ms"], ulp_share=bf16_fwd["share"], mma_truncates=bf16_truncates,
               vqtts=vqtts_bf16["fwd"]),

@@ -1,6 +1,6 @@
-// bf16 products on the tensor cores, for B1's bf16 mode (gated_hifi_fwd.cu,
-// gated_hifi_bwd.cu, through gated_hifi_tiles.cuh); tf32_mma.cuh is the fp32
-// mode's 3xTF32 engine.
+// bf16 products on the tensor cores (mma.sync), for the bf16 modes of B2,
+// B3, B5 and B6 and the bf16 MMA probe (gated_hifi_fwd.cu); B1's bf16 mode
+// runs on wgmma (hopper.cuh). tf32_mma.cuh is the fp32 modes' 3xTF32 engine.
 //
 // Numerics. The TPU kernel's bf16 mode (ops/pallas/gated_hifi.py, dot_dtype
 // = the input's dtype) rounds each product's operands to bf16 and
@@ -23,8 +23,7 @@
 //   C (16 x 8):       c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)
 // So two adjacent n8 accumulator tiles, packed as (c0, c1), (c2, c3) of tile
 // n and of tile n + 1, hold one k16 A fragment: the accumulator -> A operand
-// reuse that tf32_mma.cuh gets from a permuted k-index. B1's stages meet in
-// device memory and do not need it.
+// reuse that tf32_mma.cuh gets from a permuted k-index.
 #pragma once
 
 #include <cuda_bf16.h>

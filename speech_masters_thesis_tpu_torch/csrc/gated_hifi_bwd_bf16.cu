@@ -77,18 +77,13 @@
 // weight slices, read again for each 128-frame item, are most of what moves
 // between L2 and shared memory (PERF.md §6).
 
-#include "gated_hifi_tiles.cuh"
-#include "hopper.cuh"
+#include "gated_hifi_bf16.cuh"
 
 #include <vector>
 
 namespace gated_hifi {
 namespace bwd16 {
 
-using namespace hopper;
-
-constexpr int TM = 128;                      // frames a tile-pass item
-constexpr int KC = 64;                       // channels a k-slice: one 128-byte row
 constexpr int THREADS = 384;                 // warpgroup 0: producers; 1, 2: consumers
 constexpr int A_BYTES = TM * KC * 2;         // an activation slice
 constexpr int RED_BYTES = 2 * 2 * 4 * 128 * 4;  // the column sums' per-warp partials: 2 consumers x 2 sums x 4 warps
@@ -108,25 +103,6 @@ struct TileSmem {
   static constexpr int BYTES = BAR_OFF + 128 + 1024;  // + the 1024-byte alignment of the dynamic buffer
   static_assert(BYTES <= 232448, "tile passes: shared memory over the block limit");
 };
-
-// every map reads boxes of 64 channels: activations [B, T, C] x 128 frames,
-// weights 2-D [rows, k] x BN rows
-struct TileParams {
-  CUtensorMap m_x, m_g, m_a, m_h1, m_dzp, m_dc, m_dz;             // activations
-  CUtensorMap m_wall_t, m_ks_t, m_w1_t, m_wg, m_w1, m_ks, m_wall;  // weights: K-major B operands
-  const bf16_t *gp, *ball, *cb, *b1;
-  const int* lens;
-  bf16_t *a, *h1, *u, *dzp16, *dc16, *dz16, *gv, *dx;
-  float *zp, *du, *bias;  // zp: zp then dzp in fp32; du: gv Wg^T; bias: the column sums' partials
-  int B, T, ntt, nbias;
-  float keep;
-  Branches br;
-  Dropout drop;
-};
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 template <int S>
 __host__ __device__ __forceinline__ int branches_of(const Branches& br) {
@@ -829,6 +805,9 @@ cudaError_t launch_tiles(const TileParams& p, cudaStream_t s) {
   tile_kernel<S><<<grid, THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
+
+// the forward (gated_hifi_fwd_bf16.cu) runs stage 1 as it is
+template cudaError_t launch_tiles<1>(const TileParams& p, cudaStream_t s);
 
 int backward(const bf16_t* x, const int* lens, const bf16_t* g, const bf16_t* wall, const bf16_t* ball,
              const bf16_t* ks, const bf16_t* cb, const bf16_t* w1, const bf16_t* b1, const bf16_t* wg,

@@ -1,12 +1,11 @@
-// GatedHiFi block forward for Hopper (sm_90a), with in-kernel dropout, in
-// two modes, as the TPU kernel's dot_dtype has them: fp32 at its interface
-// with its products in 3xTF32 on the tensor cores (tf32_mma.cuh), and bf16
-// at its interface (gated_hifi_fwd_bf16) with one bf16 MMA a product
-// (bf16_mma.cuh), every operand rounded where the TPU kernel rounds it.
+// GatedHiFi block forward for Hopper (sm_90a) in fp32, with in-kernel
+// dropout, its products in 3xTF32 on the tensor cores (tf32_mma.cuh). The
+// bf16 mode is gated_hifi_fwd_bf16.cu (TMA and wgmma).
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/gated_hifi.py, function
-// fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward), and
-// its dropout (_branch_masks, _mix). The backward is gated_hifi_bwd.cu.
+// fused_gated_hifi -> _fwd -> _fwd_kernel (the TPU kernel's forward) with
+// dot_dtype fp32, and its dropout (_branch_masks, _mix). The backward is
+// gated_hifi_bwd.cu.
 //
 // What it computes, per sequence b and frame t (x pre-masked, H = 2W):
 //   z_d   = x W_d + b_d                       (4 branch 1x1 expands)
@@ -36,30 +35,23 @@
 //   4 out   u from zp (Mix, the backward's gate formula), u Wg, residual,
 //           length mask, exact zeros past min(T, len)
 // The wrapper passes two [B, T, depth*H] scratch buffers: a (stage 1),
-// which stage 3 overwrites with zp once stage 2 has read it, and h1. In
-// bf16 a and h1 are bf16 (product operands only) and zp is fp32 (it feeds
-// the gate): the first buffer is fp32-sized and holds a in its first half.
-//
-// bf16 mode: a frame's products cost the same 1.06 MFLOP, at 989 TF/s one
-// MMA each; x and out move 2 bytes an element, a and h1 2, zp 4. At 16 x
-// 33024 frames that is 0.56 ms of products against about 1 ms of bytes.
+// which stage 3 overwrites with zp once stage 2 has read it, and h1.
 
 #include "gated_hifi_tiles.cuh"
 
 namespace gated_hifi {
 namespace {
 
-// The output stage's u tile in IO: rows padded so that fragment reads fall
-// on distinct banks (68 floats for 3xTF32's scalar reads, 72 bf16 for pairs)
+// The output stage's u tile: rows padded to 68 floats so that 3xTF32's
+// scalar fragment reads fall on distinct banks
 template <class IO>
 struct OutTile {
-  static constexpr int LDU = kBf16<IO> ? W + 8 : W + 4;
+  static constexpr int LDU = W + 4;
   static constexpr size_t SMEM = sizeof(IO) * (TT * LDU + W * TileShape<W>::LDB);
 };
 
 // 4. out = (x + scale * (u Wg + bg)) * [t < min(T, len)], u from zp (in dzp):
-// the [64 x W] u tile in shared memory (rounded to IO: the TPU kernel's
-// u.astype(dot_dtype)), then one 64-deep product with Wg
+// the [64 x W] u tile in shared memory, then one 64-deep product with Wg
 template <class IO>
 __global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args<IO> p) {
   TILE_PROLOGUE;
@@ -102,14 +94,12 @@ __global__ void __launch_bounds__(NT, 2) tile_out_kernel(const Args<IO> p) {
   });
 }
 
-template <class IO>
-int forward(const IO* x, const int* lens, const IO* wall, const IO* ball, const IO* ks, const IO* cb,
-            const IO* w1, const IO* b1, const IO* wg, const IO* bg, void* az, IO* h1, IO* out, int B, int T,
-            int width, int depth, const int* kernels, const int* dilations, float scale, unsigned seed,
-            unsigned threshold, float keep_scale, void* stream) {
-  Args<IO> p{};
-  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &p.br) ||
-      (kBf16<IO> && scale != 1.f))
+int forward(const float* x, const int* lens, const float* wall, const float* ball, const float* ks,
+            const float* cb, const float* w1, const float* b1, const float* wg, const float* bg, float* a,
+            float* h1, float* out, int B, int T, int width, int depth, const int* kernels, const int* dilations,
+            float scale, unsigned seed, unsigned threshold, float keep_scale, void* stream) {
+  Args<float> p{};
+  if (width != W || B < 1 || B > 65535 || T < 1 || !make_branches(depth, kernels, dilations, &p.br))
     return (int)cudaErrorInvalidValue;
   p.x = x;
   p.lens = lens;
@@ -121,31 +111,30 @@ int forward(const IO* x, const int* lens, const IO* wall, const IO* ball, const 
   p.b1 = b1;
   p.wg = wg;
   p.bg = bg;
-  p.a = static_cast<IO*>(az);
+  p.a = a;
   p.h1 = h1;
-  p.dzp = static_cast<float*>(az);  // zp over a: stage 2 has read a for every branch before stage 3 starts
+  p.dzp = a;  // zp over a: stage 2 has read a for every branch before stage 3 starts
   p.out = out;
   p.T = T;
   p.scale = scale;
   p.keep = threshold ? keep_scale : 1.f;
   p.drop = Dropout{seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr size_t smem = Staging<H, IO, IO>::SMEM;
+  constexpr size_t smem = Staging<H, float, float>::SMEM;
   // in stream order: each stage reads what the ones before it wrote
-  cudaError_t err = launch_stage(tile_expand_kernel<true, IO>, smem, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<true, IO>, smem, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<true, IO>, smem, p, B, depth, s);
-  if (err == cudaSuccess) err = launch_stage(tile_out_kernel<IO>, OutTile<IO>::SMEM, p, B, 1, s);
+  cudaError_t err = launch_stage(tile_expand_kernel<true, float>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_conv_kernel<true, float>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_branch_kernel<true, float>, smem, p, B, depth, s);
+  if (err == cudaSuccess) err = launch_stage(tile_out_kernel<float>, OutTile<float>::SMEM, p, B, 1, s);
   return (int)err;
 }
 
-template <class IO>
 int forward_blocks_per_sm(int* blocks) {
-  constexpr size_t smem = Staging<H, IO, IO>::SMEM;
-  blocks[0] = blocks_per_sm((const void*)tile_expand_kernel<true, IO>, NT, smem);
-  blocks[1] = blocks_per_sm((const void*)tile_conv_kernel<true, IO>, NT, smem);
-  blocks[2] = blocks_per_sm((const void*)tile_branch_kernel<true, IO>, NT, smem);
-  blocks[3] = blocks_per_sm((const void*)tile_out_kernel<IO>, NT, OutTile<IO>::SMEM);
+  constexpr size_t smem = Staging<H, float, float>::SMEM;
+  blocks[0] = blocks_per_sm((const void*)tile_expand_kernel<true, float>, NT, smem);
+  blocks[1] = blocks_per_sm((const void*)tile_conv_kernel<true, float>, NT, smem);
+  blocks[2] = blocks_per_sm((const void*)tile_branch_kernel<true, float>, NT, smem);
+  blocks[3] = blocks_per_sm((const void*)tile_out_kernel<float>, NT, OutTile<float>::SMEM);
   return (int)cudaGetLastError();
 }
 
@@ -184,35 +173,13 @@ extern "C" int gated_hifi_fwd(const float* x, const int* lens, const float* wall
                               int width, int depth, const int* kernels, const int* dilations,
                               float scale, unsigned seed, unsigned threshold,
                               float keep_scale, void* stream) {
-  return gated_hifi::forward<float>(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, a, h1, out, B, T, width,
-                                    depth, kernels, dilations, scale, seed, threshold, keep_scale, stream);
-}
-
-// The same in bf16: x, the weights and out bf16 ([B, T, width] and the
-// layouts above); az an fp32-sized [B, T, depth*H] buffer (a in bf16 in its
-// first half, then zp in fp32), h1 a bf16 [B, T, depth*H] one. scale must
-// be 1 (every shipped config's): the TPU kernel rounds scale * g and scale
-// * dzp before its backward's products, which the backward does not.
-extern "C" int gated_hifi_fwd_bf16(const void* x, const int* lens, const void* wall, const void* ball,
-                                   const void* ks, const void* cb, const void* w1, const void* b1,
-                                   const void* wg, const void* bg, void* az, void* h1, void* out, int B,
-                                   int T, int width, int depth, const int* kernels, const int* dilations,
-                                   float scale, unsigned seed, unsigned threshold, float keep_scale,
-                                   void* stream) {
-  using gated_hifi::bf16_t;
-  auto c = [](const void* q) { return static_cast<const bf16_t*>(q); };
-  return gated_hifi::forward<bf16_t>(c(x), lens, c(wall), c(ball), c(ks), c(cb), c(w1), c(b1), c(wg), c(bg),
-                                     az, static_cast<bf16_t*>(h1), static_cast<bf16_t*>(out), B, T, width,
-                                     depth, kernels, dilations, scale, seed, threshold, keep_scale, stream);
+  return gated_hifi::forward(x, lens, wall, ball, ks, cb, w1, b1, wg, bg, a, h1, out, B, T, width, depth, kernels,
+                             dilations, scale, seed, threshold, keep_scale, stream);
 }
 
 // Resident blocks per SM of the forward's stages, in launch order (expand,
-// conv, branch, out), into blocks[0..3], fp32 (bf16 0) or bf16 (1);
-// returns a cudaError_t.
-extern "C" int gated_hifi_fwd_blocks_per_sm(int* blocks, int bf16) {
-  using namespace gated_hifi;
-  return bf16 ? forward_blocks_per_sm<bf16_t>(blocks) : forward_blocks_per_sm<float>(blocks);
-}
+// conv, branch, out), into blocks[0..3]; returns a cudaError_t.
+extern "C" int gated_hifi_fwd_blocks_per_sm(int* blocks) { return gated_hifi::forward_blocks_per_sm(blocks); }
 
 // Whether the bf16 MMA's fp32 accumulation rounds to nearest or truncates:
 // out[0] = 1 + 0.75 ulp and out[1] = -(1 + 0.75 ulp) as the tensor cores

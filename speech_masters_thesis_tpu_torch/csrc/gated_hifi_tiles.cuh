@@ -1,8 +1,7 @@
-// B1's tensor-core tile stages, shared by the forward (gated_hifi_fwd.cu)
-// and the backward's recompute (gated_hifi_bwd.cu): the cp.async staging
-// of k-slices, the products (3xTF32, tf32_mma.cuh, for fp32 tensors; one
-// bf16 MMA, bf16_mma.cuh, for bf16 ones), and the three stages both
-// directions run, in the same order of products:
+// B1's fp32 tensor-core tile stages, shared by the forward
+// (gated_hifi_fwd.cu) and the backward's recompute (gated_hifi_bwd.cu): the
+// cp.async staging of k-slices, the products (3xTF32, tf32_mma.cuh), and the
+// three stages both directions run, in the same order of products:
 //   1 expand   a_d   = relu(x Wall_d + ball_d) * m0_d
 //   2 conv     h1_d  = relu(sum_j a_d[t + (j-half) dil] K_d[j] + cb_d) * m1_d
 //   3 branch   zp_d  = scale * (h1_d W1_d + b1_d) + x Wall_d + ball_d
@@ -25,16 +24,11 @@
 // its a and h1 may differ from the forward's in the last bits and take the
 // other side of a relu at a near-tie (chip_smoke phase 7 bounds those).
 //
-// The I/O type IO (float or __nv_bfloat16) is a template parameter of every
-// stage, and the weights' type picks the engine. In bf16 (the TPU kernel's
-// bf16 mode) x, the weights, g, out and dx are bf16 in device memory, and
-// so are the buffers the TPU kernel uses only as product operands (a, h1,
-// u): storing them is the TPU kernel's .astype(bf16) at its products. The
-// buffers that feed elementwise work or an fp32 sum (zp and its cotangent
-// dzp, dc, dz, gv) stay fp32 and are rounded to bf16 where a fragment is
-// built. k-slices stage as they are stored; a k-step is m16n8k16, its B
-// fragments by ldmatrix.trans. Accumulation, biases, relu, dropout, the
-// gate and the residual stay fp32; the epilogues' stores round to T.
+// The stages take the I/O type IO as a template parameter (the fp32
+// kernels, their only instances, keep the names their ptxas lines are held
+// by in ab_backward.py --ptxas). B1's bf16 mode runs on TMA and wgmma instead
+// (gated_hifi_fwd_bf16.cu, gated_hifi_bwd_bf16.cu), which take bf16_t, the
+// bf16 loads and stores, the gate's Mix and blocks_per_sm from here.
 #pragma once
 
 #include "bf16_mma.cuh"
@@ -42,14 +36,11 @@
 #include "tf32_mma.cuh"
 
 #include <math.h>
-#include <type_traits>
 
 namespace gated_hifi {
 namespace {
 
 using bf16_t = __nv_bfloat16;
-template <class T>
-constexpr bool kBf16 = std::is_same_v<T, bf16_t>;
 
 constexpr int KS = 32;          // channels per k-slice
 constexpr int STAGES = 3;       // k-slices in flight
@@ -61,13 +52,12 @@ struct TileShape {
   static constexpr int MT = TT / 16 / WARPS_M;        // m16 tiles per warp
 };
 
-// The staging of a stage's k-slices: TW the weights' type (it picks the
-// engine), TA the activation slice's. Rows padded so that fragment reads
-// fall on distinct banks: 36 floats for 3xTF32's scalar reads, 40 elements
-// for bf16's pair reads.
+// The staging of a stage's k-slices: TW the weights' type, TA the
+// activation slice's. Rows padded to 36 floats so that 3xTF32's scalar
+// fragment reads fall on distinct banks.
 template <int BN, class TW, class TA>
 struct Staging {
-  static constexpr int LDA = kBf16<TW> ? KS + 8 : KS + 4;  // row stride of an activation slice
+  static constexpr int LDA = KS + 4;  // row stride of an activation slice
   static constexpr int A_BYTES = TT * LDA * (int)sizeof(TA);
   static constexpr int STAGE_BYTES = A_BYTES + KS * TileShape<BN>::LDB * (int)sizeof(TW);
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES;
@@ -117,52 +107,31 @@ struct WarpTile {
   }
 };
 
-// acc += A B over one k-step from shared memory (8 deep in 3xTF32, 16 in
-// bf16): A the tile's 64 rows (LDA_ elements a row, from the step's first
-// column), B the step's rows (TileShape<BN>::LDB elements a row)
+// acc += A B over one 8-deep k-step from shared memory: A the tile's 64
+// rows (LDA_ elements a row, from the step's first column), B the step's
+// rows (TileShape<BN>::LDB elements a row)
 template <int BN, int LDA_, class TW, class TA>
 __device__ __forceinline__ void mma_kstep(float (&acc)[TileShape<BN>::MT][4][4], const TA* as,
                                           const TW* bs, const WarpTile<BN>& wt) {
   using S = TileShape<BN>;
-  if constexpr (kBf16<TW>) {
-    uint32_t fa[S::MT][4];
+  tf32::FragA fa[S::MT];
 #pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt) bf16::frag_a(fa[mt], as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + 2 * wt.qd, LDA_);
-    // lane l addresses row l % 8 of matrix l / 8: k rows 0-7 / 8-15 of n-tile 2np / 2np + 1
-    const int lane = threadIdx.x & 31, i = lane >> 3;
-    const TW* bl = bs + ((i & 1) * 8 + (lane & 7)) * S::LDB + wt.col0 + 8 * (i >> 1);
+  for (int mt = 0; mt < S::MT; ++mt) {
+    const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + wt.qd;
+    fa[mt] = tf32::frag_a(r[0], r[8 * LDA_], r[4], r[8 * LDA_ + 4]);
+  }
 #pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t r[4];
-      bf16::ldsm_x4_t(r, bl + 16 * np);
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+  for (int nt = 0; nt < 4; ++nt) {
+    const float* c = bs + wt.qd * S::LDB + wt.col0 + 8 * nt + wt.gr;
+    const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt) {
-        bf16::mma(acc[mt][2 * np], fa[mt], b0);
-        bf16::mma(acc[mt][2 * np + 1], fa[mt], b1);
-      }
-    }
-  } else {
-    tf32::FragA fa[S::MT];
-#pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt) {
-      const float* r = as + (wt.row0 + 16 * mt + wt.gr) * LDA_ + wt.qd;
-      fa[mt] = tf32::frag_a(r[0], r[8 * LDA_], r[4], r[8 * LDA_ + 4]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* c = bs + wt.qd * S::LDB + wt.col0 + 8 * nt + wt.gr;
-      const tf32::FragB fb = tf32::frag_b(c[0], c[4 * S::LDB]);
-#pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
-    }
+    for (int mt = 0; mt < S::MT; ++mt) tf32::mma3(acc[mt][nt], fa[mt], fb);
   }
 }
 
 // acc += A B over K channels. RN: each k-step's MMAs go into a part of
 // the tile that starts from zero, which is then added to acc in fp32 (round
-// to nearest), so at most 3 MMAs (one in bf16) meet one tensor-core
-// accumulator. The
+// to nearest), so at most 3 MMAs meet one tensor-core accumulator. The
 // tensor cores' fp32 accumulation truncates each MMA's sum, so with all of
 // a conv output's 432 MMAs in one register the forward's error was 8x the
 // fp32 FMA kernel's on the card, and the VQ-VAE loss's log-magnitude STFT
@@ -173,7 +142,7 @@ template <int BN, int K, int LDA_, bool RN, class TW, class TA>
 __device__ __forceinline__ void mma_tile(float (&acc)[TileShape<BN>::MT][4][4], const TA* as,
                                          const TW* bs, const WarpTile<BN>& wt) {
   using S = TileShape<BN>;
-  constexpr int KSTEP = kBf16<TW> ? 16 : 8, KSTEPS = K / KSTEP;
+  constexpr int KSTEP = 8, KSTEPS = K / KSTEP;
   if (RN) {
 #pragma unroll 1
     for (int kk = 0; kk < KSTEPS; ++kk) {

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and copies, mbarrier
 // rings, and wgmma with its shared-memory descriptors and fences. B1's bf16
-// backward (gated_hifi_bwd_bf16.cu) is built from them; any kernel that
-// stages bf16 tiles by TMA into a ring and multiplies them on wgmma can take
-// them as they are.
+// backward (gated_hifi_bwd_bf16.cu) and forward (gated_hifi_fwd_bf16.cu)
+// are built from them; any kernel that stages bf16 tiles by TMA into a ring
+// and multiplies them on wgmma can take them as they are.
 //
 // Layout. Every operand tile in shared memory is bf16 with the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, wgmma's B128 layout): rows of 64
@@ -145,6 +145,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+
+// box of a 3-D map at (c0 innermost, c1, c2) from shared memory at src, in
+// the issuing thread's bulk group; elements outside the tensor are not
+// written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// waits until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// waits until this thread's bulk stores are done
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// orders this thread's ordinary writes to shared memory before the
+// asynchronous proxy's reads of it (a wgmma operand written by threads)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // the `threads` threads that share barrier `id` (1-15; 0 is __syncthreads)
 __device__ __forceinline__ void named_sync(int id, int threads) {

@@ -101,10 +101,13 @@ def build() -> ctypes.CDLL:
     ints = ctypes.POINTER(i)
     lib.gated_hifi_fwd.argtypes = [p] * 13 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_fwd.restype = i
-    lib.gated_hifi_fwd_bf16.argtypes = lib.gated_hifi_fwd.argtypes
+    ptrs = ctypes.POINTER(p)
+    lib.gated_hifi_fwd_bf16.argtypes = [p] * 4 + [ptrs] + [p] * 7 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
     lib.gated_hifi_fwd_bf16.restype = i
-    lib.gated_hifi_fwd_blocks_per_sm.argtypes = [ints, i]
+    lib.gated_hifi_fwd_blocks_per_sm.argtypes = [ints]
     lib.gated_hifi_fwd_blocks_per_sm.restype = i
+    lib.gated_hifi_fwd_bf16_blocks_per_sm.argtypes = [ints]
+    lib.gated_hifi_fwd_bf16_blocks_per_sm.restype = i
     lib.bf16_mma_probe.argtypes = [p, p]
     lib.bf16_mma_probe.restype = i
     lib.gated_hifi_bwd.argtypes = [p] * 21 + [i] * 4 + [ints] * 2 + [f, u, u, f, p]
@@ -139,7 +142,6 @@ def build() -> ctypes.CDLL:
     lib.mas_forward.restype = i
     lib.mas_smem_bytes.argtypes = [i, i]
     lib.mas_smem_bytes.restype = ctypes.c_long
-    ptrs = ctypes.POINTER(p)
     lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
     lib.wn_coupling_fwd_bf16.argtypes = lib.wn_coupling_fwd.argtypes

@@ -3,12 +3,12 @@ the kernel wrappers (forward, recompute backward, weight-gradient reduction).
 
 Counterpart of speech_masters_thesis_tpu/ops/pallas/gated_hifi.py
 (``fused_gated_hifi`` and its custom VJP). The CUDA kernels are
-``csrc/gated_hifi_fwd.cu``, ``csrc/gated_hifi_bwd.cu`` (the fp32 backward) and
-``csrc/gated_hifi_bwd_bf16.cu`` (the bf16 backward). For a CUDA tensor
-``gated_hifi`` runs ``GatedHiFiFunction``, whose forward and backward launch
-them; for an fp32 CPU tensor it runs ``gated_hifi_reference``, which CPU
-autograd differentiates. Nothing falls back: a CUDA tensor the kernels do
-not take raises.
+``csrc/gated_hifi_fwd.cu`` and ``csrc/gated_hifi_bwd.cu`` (fp32), and
+``csrc/gated_hifi_fwd_bf16.cu`` and ``csrc/gated_hifi_bwd_bf16.cu`` (bf16).
+For a CUDA tensor ``gated_hifi`` runs ``GatedHiFiFunction``, whose forward
+and backward launch them; for an fp32 CPU tensor it runs
+``gated_hifi_reference``, which CPU autograd differentiates. Nothing falls
+back: a CUDA tensor the kernels do not take raises.
 
 Two modes, as the TPU kernel's ``dot_dtype`` (the input's dtype) has them.
 fp32: x, the weights and g float32. bf16 (the JAX package's mixed-precision
@@ -462,26 +462,36 @@ def _stream(x: torch.Tensor) -> int:
 def _launch_fwd(x, lens, w: GatedHiFiWeights, res_scale: float, p_drop: float, seed: int) -> torch.Tensor:
     _check_call(x, lens, w, res_scale=res_scale)
     B, T, W = x.shape
-    ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
-    # the stages meet in two [B, T, depth*H] buffers: a (then zp over it, fp32) and h1
-    # (both x's dtype: in bf16 a takes the first half of the first buffer's bytes)
-    a = torch.empty(B, T, len(w.ks) * 2 * W, device=x.device, dtype=torch.float32)
-    h1 = torch.empty_like(a, dtype=x.dtype)
+    H, depth = 2 * W, len(w.ks)
     out = torch.empty_like(x)
     lib = _build.build()
-    launch = lib.gated_hifi_fwd_bf16 if x.dtype == torch.bfloat16 else lib.gated_hifi_fwd
-    rc = launch(
+    common = (B, T, W, depth, _ints(w.kernels), _ints(w.dilations), float(res_scale), seed & U32,
+              keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+    if x.dtype == torch.bfloat16:
+        # one buffer: a and h1 [B, T, depth*H], then the weights the kernel packs K-major (Wall,
+        # the conv kernels and W1 transposed); zp stays on chip
+        scratch = torch.empty(2 * B * T * depth * H + depth * H * (W + H) + sum(w.kernels) * H * H,
+                              device=x.device, dtype=x.dtype)
+        ks = (ctypes.c_void_p * depth)(*(k.data_ptr() for k in w.ks))
+        rc = lib.gated_hifi_fwd_bf16(
+            x.data_ptr(), lens.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(), ks, w.cb.data_ptr(),
+            w.w1.data_ptr(), w.b1.data_ptr(), w.wg.data_ptr(), w.bg.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), *common)
+        if rc != 0:
+            raise RuntimeError(f"gated_hifi_fwd_bf16 launch failed with cudaError {rc}")
+        gated_hifi.bf16_launches += 1
+        return out
+    ks_flat = torch.cat([k.reshape(-1) for k in w.ks])
+    # the stages meet in two [B, T, depth*H] buffers: a (then zp over it) and h1
+    a = torch.empty(B, T, depth * H, device=x.device, dtype=x.dtype)
+    h1 = torch.empty_like(a)
+    rc = lib.gated_hifi_fwd(
         x.data_ptr(), lens.data_ptr(), w.wall.data_ptr(), w.ball.data_ptr(),
         ks_flat.data_ptr(), w.cb.data_ptr(), w.w1.data_ptr(), w.b1.data_ptr(),
-        w.wg.data_ptr(), w.bg.data_ptr(), a.data_ptr(), h1.data_ptr(), out.data_ptr(),
-        B, T, W, len(w.ks), _ints(w.kernels), _ints(w.dilations), float(res_scale),
-        seed & U32, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
+        w.wg.data_ptr(), w.bg.data_ptr(), a.data_ptr(), h1.data_ptr(), out.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"gated_hifi_fwd launch failed with cudaError {rc}")
-    if x.dtype == torch.bfloat16:
-        gated_hifi.bf16_launches += 1
-    else:
-        gated_hifi.launches += 1
+    gated_hifi.launches += 1
     return out
 
 
@@ -662,11 +672,15 @@ def gated_hifi(x: torch.Tensor, lens: torch.Tensor, w: GatedHiFiWeights,
                res_scale: float = 1.0, p_drop: float = 0.0, seed: int = 0) -> torch.Tensor:
     """GatedHiFi block forward; same contract as ``gated_hifi_reference``.
 
-    A CUDA tensor runs ``GatedHiFiFunction`` (``csrc/gated_hifi_fwd.cu``:
-    four tensor-core stages, 3xTF32 for fp32 tensors and bf16 MMAs for bf16
-    ones, that meet in two scratch buffers of [B, T, depth*2W], allocated by
-    its wrapper; differentiable through ``gated_hifi_backward``), and
-    anything the kernels do not take raises. An fp32 (or fp64) CPU tensor
+    A CUDA tensor runs ``GatedHiFiFunction`` (fp32: ``csrc/gated_hifi_fwd.cu``,
+    four 3xTF32 tensor-core stages; bf16: ``csrc/gated_hifi_fwd_bf16.cu``, the
+    bf16 backward's expand stage, a conv stage that sums each k-slice in
+    fp32, then one stage that keeps zp on chip through the gate and u Wg, on
+    TMA-fed wgmma; both meet in two scratch
+    buffers of [B, T, depth*2W] in x's dtype, allocated by the wrapper (in
+    bf16 with the weights transposed K-major beside them);
+    differentiable through ``gated_hifi_backward``), and anything the kernels
+    do not take raises. An fp32 (or fp64) CPU tensor
     runs the plain version, which autograd differentiates; a bf16 CPU tensor
     runs ``GatedHiFiFunction`` over the plain versions (the TPU kernel's
     backward rounding). ``gated_hifi.launches`` counts fp32 forward kernel

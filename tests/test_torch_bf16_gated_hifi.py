@@ -18,6 +18,12 @@ power of two below them), and all within 2^-6 of the tensor's max|ref|.
 Both blocks sum a bf16 mask in bf16, so a length above 256 that bf16 cannot
 hold rounds before the kernel takes it; the cases below are bf16-exact but
 for the one test of that rounding.
+
+Dropout. The JAX kernel draws its masks from the TPU's hardware PRNG, which
+has no interpret-mode lowering; the forward cases at p = 0.1 replace its
+``_branch_masks`` with the port's hash (ops/gated_hifi.py:dropout_bits in
+jnp uint32 ops), so both sides drop the same elements, and let the JAX
+block run its kernel in train mode.
 """
 
 import jax
@@ -27,8 +33,10 @@ import pytest
 import torch
 
 from speech_masters_thesis_tpu.models.vqvae import blocks as jblocks
+from speech_masters_thesis_tpu.ops.pallas import gated_hifi as jgh
 from speech_masters_thesis_tpu_torch.models.vqvae import blocks as tblocks
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
+from speech_masters_thesis_tpu_torch.ops.hash import GOLDEN
 from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 W = 16
@@ -60,7 +68,7 @@ def _jax(t: torch.Tensor):
     return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
 
 
-def _flax(block, depth):
+def _flax(block, depth, p_drop=0.0):
     sd = {k: v.float().numpy() for k, v in block.state_dict().items()}
     conv = lambda name: {"kernel": _jax(torch.from_numpy(np.transpose(sd[f"{name}.weight"], (2, 1, 0)).copy())),
                          "bias": _jax(torch.from_numpy(sd[f"{name}.bias"]))}
@@ -71,8 +79,36 @@ def _flax(block, depth):
                                      "Conv_1": conv(f"blocks.{d}.1.model.5")}
     jblock = jblocks.GatedHiFiBlock(n_in=W, n_depth=depth, dilation_growth_rate=3, kernel_size_growth_rate=2,
                                     zero_out=False, res_scale=block.res_scale != 1.0, fused=True,
-                                    p_dropout=0.0)
+                                    p_dropout=p_drop)
     return jblock, params
+
+
+def _hash_masks(seed: int):
+    """A stand-in for the JAX kernel's ``_branch_masks``: the port's masks
+    of ``seed`` (gh.branch_masks) over the kernel's window of absolute frames
+    chunk0 * CHUNK ..., the hash in jnp uint32 ops on the kernel's traced
+    sequence index."""
+    u32 = jnp.uint32
+
+    def fmix(h):
+        h = h ^ (h >> 16)
+        h = h * u32(0x85EBCA6B)
+        h = h ^ (h >> 13)
+        h = h * u32(0xC2B2AE35)
+        return h ^ (h >> 16)
+
+    def masks(spec, _seed, b, d, chunk0, rows, cols):
+        if spec.p_drop <= 0.0:
+            return None, None
+        stream = (b * gh.MASK_KEY_DEPTH + d + 1).astype(u32)
+        key = fmix(fmix(u32(seed)) + stream * u32(GOLDEN))
+        t = chunk0 * jgh.CHUNK + jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 0)
+        counter = (t * cols + jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 1)).astype(u32)
+        bits = fmix(fmix(key ^ counter) + key)
+        th, scale = u32(gh.keep_threshold(spec.p_drop)), jnp.float32(gh.keep_scale(spec.p_drop))
+        return (((bits >> 16) >= th).astype(jnp.float32) * scale,
+                ((bits & u32(0xFFFF)) >= th).astype(jnp.float32) * scale)
+    return masks
 
 
 def bf16_close(ours, ref, what: str):
@@ -88,22 +124,36 @@ def bf16_close(ours, ref, what: str):
 
 
 CASES = [(4, 100, (100, 61), False), (4, 500, (500, 384), False), (3, 160, (160, 96), True)]
+# the bf16 forward's tiles (csrc/gated_hifi_fwd_bf16.cu: 128 frames in its expand, 64 in its conv and gate
+# stages) at their edges: lengths on and one past a tile, 4 frames past the last whole one; depth 4's
+# longest halo (108 frames) exceeds the last tile's remainder (44 at T = 172, 4 at T = 516)
+EDGE_CASES = [(4, 172, (172, 128, 65, 100), False), (4, 516, (516, 384, 258, 65), False)]
+DROP_SEED = 97531
 
 
-@pytest.mark.parametrize("depth,T,lens,res_scale", CASES)
-def test_forward_bf16_matches_jax_kernel(depth, T, lens, res_scale):
+FORWARD_CASES = ([pytest.param(*case, 0.0, id=f"{case[0]}-{case[1]}-lens{i}-{case[3]}") for i, case in enumerate(CASES)]
+                 + [pytest.param(*case, p, id=f"edge-{case[1]}-p{p}") for case in EDGE_CASES for p in (0.0, 0.1)])
+
+
+@pytest.mark.parametrize("depth,T,lens,res_scale,p_drop", FORWARD_CASES)
+def test_forward_bf16_matches_jax_kernel(depth, T, lens, res_scale, p_drop, monkeypatch):
     block = _block(depth, seed=depth * 10 + T, res_scale=res_scale)
     x, mask, _ = _inputs(lens, T, seed=T)
     lens_t = torch.tensor(lens, dtype=torch.int32)
     w = gh.pack_weights(dict(block.named_parameters()), block.dilations)
     with torch.no_grad():
-        ours = gh.gated_hifi_reference(x * mask, lens_t, w, block.res_scale)
-        ours_block, _ = block(x, mask)
-    assert ours.dtype == ours_block.dtype == torch.bfloat16
-    torch.testing.assert_close(ours_block, ours, rtol=0, atol=0)
+        ours = gh.gated_hifi_reference(x * mask, lens_t, w, block.res_scale, p_drop, DROP_SEED)
+        if p_drop == 0.0:
+            ours_block, _ = block(x, mask)
+            torch.testing.assert_close(ours_block, ours, rtol=0, atol=0)
+    assert ours.dtype == torch.bfloat16
 
-    jblock, params = _flax(block, depth)
-    theirs, _ = jblock.apply({"params": params}, _jax(x), _jax(mask), train=False)
+    jblock, params = _flax(block, depth, p_drop)
+    if p_drop > 0:
+        monkeypatch.setattr(jgh, "_branch_masks", _hash_masks(DROP_SEED))
+        monkeypatch.setattr(jblocks.GatedHiFiBlock, "uses_kernel", staticmethod(lambda fused, train, p: fused))
+    theirs, _ = jblock.apply({"params": params}, _jax(x), _jax(mask), train=p_drop > 0,
+                             rngs={"dropout": jax.random.PRNGKey(0)})
     assert theirs.dtype == jnp.bfloat16
     valid = mask[..., 0].bool().numpy()
     bf16_close(ours.float().numpy()[valid], np.asarray(theirs.astype(jnp.float32))[valid], "out")
