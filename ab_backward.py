@@ -37,7 +37,19 @@ is missing) without ``chip_smoke.phase_build``'s checks. ``--ptxas`` builds
 each tree and compares its ptxas lines (each kernel by its mangled name,
 an anonymous namespace's path hash removed) outside the instances
 PTXAS_CHANGED names with the first tree's, as multisets, the fp32 instances
-apart from the bf16 ones.
+apart from the bf16 ones. ``--bf16-wn`` measures, for each tree, B3's and
+B6's bf16 backwards at (8, 384) squeezed frames (``glow_inputs`` cast as
+``chip_smoke.phase_bf16_flow_step`` casts them: the conditioner's weights,
+x and the cotangents bf16, aln, alb and mt fp32 of their bf16 values; B3's
+x0 the first-half view of x), p = 0 and B3_DROP: back to back, a call
+(``chip_smoke.cuda_ms``: the wrapper's host time included), the device time
+and launches by launch kind (torch.profiler over 3 calls), and at B3_DROP a
+sha256 of dx and every gradient; then the bf16 Glow train step
+(``chip_smoke.phase_bf16_glow_train``) on the B3 and the B6 route in turns
+(b3, b6, b6, b3): the median of steps 2-10, the peak, the kernels' ms and
+the busy share of one step under torch.profiler, the median of each
+route's two runs. ``--bf16-wn-kernels`` measures the two backwards alone,
+without the steps (about 2 min a tree, most of it the build).
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -46,6 +58,8 @@ apart from the bf16 ones.
     python3 ab_backward.py --bf16 build/parent . . build/parent   # B1's bf16 backward, the bf16 VQ-VAE step
     python3 ab_backward.py --bf16-fwd build/parent . . build/parent   # B1's bf16 forward (and backward), the step
     python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
+    python3 ab_backward.py --bf16-wn build/parent . . build/parent   # B3's and B6's bf16 backwards, the bf16 Glow steps
+    python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the two backwards alone
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
@@ -101,11 +115,10 @@ FWD_PS = (0.0, 0.1)
 FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B1's bf16 forward, the first bf16
-# form's four mma.sync stages (<true, bf16> expand, conv, branch; out<bf16>) and the redesign's gate stage
-# and conv stages (namespace gated_hifi::fwd_bf16); its expand is the bf16 backward's own, held with the rest
-PTXAS_CHANGED = (*(f"{k}_kernelILb1E13__nv_bfloat16" for k in ("tile_expand", "tile_conv", "tile_branch")),
-                 "tile_out_kernelI13__nv_bfloat16", "8fwd_bf16")
+# instances the change may alter, by a piece of their mangled names: B3's and B6's bf16 backwards, the
+# first bf16 form's instances of conv_mma, wgrad_mma and wgrad_rows under their tags, and the redesign's
+# kernels (namespace wn16); B3's and B6's bf16 forwards, B1's and B5's bf16 kernels are held with the rest
+PTXAS_CHANGED = ("14BfloatWnBwdTag", "16BfloatFlowBwdTag", "4wn16")
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -424,20 +437,7 @@ def profile_stages(torch, fn, keep) -> dict:
     ``fn``), for the kernels whose names ``keep`` accepts; chip_smoke's
     kernel_times, kept here because a parent tree's chip_smoke.py may not
     have it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    stages = {}
-    for e in prof.key_averages():
-        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
-                  if hasattr(e, n)), 0.0)
-        name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
-        if t > 0 and keep(name):
-            stages[name] = stages.get(name, 0.0) + t / 3 / 1e3
-    return stages
+    return {name: ms for name, (ms, _) in launch_kinds(torch, fn).items() if keep(name)}
 
 
 def bf16_forward(torch, cs, gh, device) -> dict:
@@ -495,6 +495,95 @@ def bf16_stages(torch, cs, gh, device) -> dict:
         stages = profile_stages(torch, lambda: gh.backward_buffers(*args), lambda n: "bwd16" in n or "kernel" in n)
     torch.cuda.empty_cache()
     return {"stage_ms": stages, "outputs_sha256": digest.hexdigest()}
+
+
+def launch_kinds(torch, fn) -> dict:
+    """name -> (device ms a call, launches a call) of every kernel of ``fn``
+    (torch.profiler over 3 calls, the wrapper's own copies included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):  # a first session can drop a call's first kernels
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.key_averages():
+        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                  if hasattr(e, n)), 0.0)
+        if t > 0:
+            name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+            ms, n = kinds.get(name, (0.0, 0.0))
+            kinds[name] = (ms + t / 3 / 1e3, n + e.count / 3)
+    return kinds
+
+
+def glow_bf16_inputs(torch, np, cs, wn_ops, device) -> tuple:
+    """glow_inputs cast as chip_smoke.phase_bf16_flow_step casts them: the
+    conditioner's weights, x and the cotangents bf16; aln, alb and mt fp32
+    of their bf16 values."""
+    x, lens, valid, aln, alb, mt, w, g_xc, g_out, seed = glow_inputs(torch, np, cs, wn_ops, device)
+    w = wn_ops.WNWeights.from_flat([t.to(torch.bfloat16) for t in w.flat()], w.dilations)
+    aln, alb, mt = (t.to(torch.bfloat16).float().contiguous() for t in (aln, alb, mt))
+    x, g_xc, g_out = (t.to(torch.bfloat16).contiguous() for t in (x, g_xc, g_out))
+    return x, lens, valid, aln, alb, mt, w, g_xc, g_out, seed
+
+
+def bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
+    """B3's and B6's bf16 backwards at (8, 384), p = 0 and B3_DROP: back to
+    back and a call (median of CUDA-event timings of single calls, the
+    wrapper's host time included), their device time by launch kind at
+    both rates, and at B3_DROP a sha256 of dx and every gradient. B3's x0 is
+    the first-half view of x, as the B3 route passes it."""
+    import hashlib
+
+    x, lens, _, aln, alb, mt, w, g_xc, g_out, seed = glow_bf16_inputs(torch, np, cs, wn_ops, device)
+    x0 = x[..., :x.shape[2] // 2]
+    calls = {"b3": lambda p: wn_ops.wn_coupling_backward(x0, lens, w, g_out, seed, p),
+             "b6": lambda p: fs_ops.flow_step_backward(x, lens, aln, alb, mt, w, g_xc, g_out, seed, p)}
+    out = {}
+    with torch.no_grad():
+        for name, call in calls.items():
+            for p in (0.0, cs.B3_DROP):
+                out[f"{name}_bf16_bwd_p{p}_ms"] = back_to_back_ms(torch, lambda: call(p), GLOW_BWD_REPS)
+                out[f"{name}_bf16_bwd_p{p}_call_ms"] = cs.cuda_ms(lambda: call(p), reps=20, warmup=3)
+                out[f"{name}_bf16_bwd_p{p}_kinds"] = launch_kinds(torch, lambda: call(p))
+            res = call(cs.B3_DROP)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for t in res:
+                for leaf in (t.flat() if isinstance(t, wn_ops.WNWeights) else (t,)):
+                    digest.update(leaf.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            out[f"{name}_bf16_bwd_sha256"] = digest.hexdigest()
+            del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_glow_steps(torch, cs, device, card) -> dict:
+    """The bf16 Glow train step (chip_smoke.phase_bf16_glow_train) on the B3
+    and the B6 route in turns (b3, b6, b6, b3): each run's median of steps
+    2-10, its peak, and the kernels' ms and the device's busy share of one
+    more step under torch.profiler; the medians of the two runs a route."""
+    runs = {"b3": [], "b6": []}
+    for route in ("b3", "b6", "b6", "b3"):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = cs.phase_bf16_glow_train(device, card, flow_step=route == "b6")
+        kernels = re.search(r"kernels ([0-9.]+) ms of ([0-9.]+) ms wall", printed.getvalue())
+        runs[route].append({"ms": res["step_ms"], "peak": res["peak"], "busy": res["busy"],
+                            "kernel_ms": float(kernels.group(1))})
+        del res
+        torch.cuda.empty_cache()
+    out = {}
+    for route, rs in runs.items():
+        for key in ("ms", "peak", "busy", "kernel_ms"):
+            out[f"bf16_glow_{route}_step_{key}"] = statistics.median(r[key] for r in rs)
+        out[f"bf16_glow_{route}_step_runs"] = rs
+    return out
 
 
 def bf16_backward(torch, cs, gh, device, card, step: bool = True) -> dict:
@@ -570,6 +659,11 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         out.update(bf16_forward(torch, cs, gh, device))
         out.update(bf16_backward(torch, cs, gh, device, card))
         return out
+    if mode in ("--bf16-wn", "--bf16-wn-kernels"):
+        out.update(bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device))
+        if mode == "--bf16-wn":
+            out.update(bf16_glow_steps(torch, cs, device, card))
+        return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
         out.update(codec_kernels(torch, np, cs, att, gh, device))
@@ -624,7 +718,7 @@ def is_bf16(line: str) -> bool:
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd")
+    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd", "--bf16-wn", "--bf16-wn-kernels")
     mode = next((a for a in args if a in modes), "")
     args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
@@ -633,7 +727,7 @@ def main() -> None:
     trees = args
     if len(trees) < 2:
         raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles | "
-                         "--bf16-fwd] "
+                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels] "
                          "TREE TREE [TREE ...] "
                          "(e.g. parent "
                          "change change parent)")
@@ -665,6 +759,23 @@ def main() -> None:
         for res in results:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
+        return
+    if mode in ("--bf16-wn", "--bf16-wn-kernels"):
+        for key in [k for k, v in results[0].items() if isinstance(v, float) and k != "seconds"]:
+            print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results)
+                  + f" [{results[0]['card']}]")
+        for key in [k for k in results[0] if k.endswith("_kinds")]:
+            for res in results:
+                kinds = res[key]
+                print(f"[ab] {res['tree']} {key[:-6]} by launch kind (ms a call, launches a call): "
+                      + ", ".join(f"{n} {t:.4f} x{c:g}"
+                                  for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+                      + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} "
+                      f"launches) [{res['card']}]")
+        for key in ("b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256"):
+            print(f"[ab] {key} (dx and every gradient at p = B3_DROP): "
+                  + ", ".join(f"{r['tree']} {r[key][:16]}" for r in results)
+                  + f"; all equal: {len({r[key] for r in results}) == 1}")
         return
     if mode in ("--bf16", "--bf16-tiles", "--bf16-fwd"):
         for key in [k for k, v in results[0].items() if k.endswith(("_ms", "_gib")) and isinstance(v, float)]:

@@ -239,8 +239,10 @@ Then the bf16 modes of B3, B5, B6 and B2 and the bf16 train steps of
 Glow-TTS (both decoder routes), VQ-TTS (both encoder routes) and the LM:
 B3's and B6's bf16 kernels at B3_SHAPES and B3_OTHER_SHAPES and B5's at
 B5_SHAPES against their plain bf16 versions (relative L2 2^-7, 2^-6 of
-max|ref|; B6 also each conditioner layer at the kernel's own recomputed
-x_in, 99% within one ulp, and its masks read back bit for bit), B1's at
+max|ref|; B3 and B6 also each conditioner layer at the backward's own
+recomputed x_in and the end conv on its skip sum, 99% within one ulp, their
+masks read back bit for bit, and the backward by launch kind with its bytes
+a frame by design), B1's at
 VQ-TTS's shapes, B2's bf16 kernels at (8, 258) and (64, 258), p=0 and 0.1
 (beside bf16 SDPA, masks read back); each bf16 step with its ms, peak,
 busy share and launches; and one bf16 SGD step of Glow-TTS on each route,
@@ -529,7 +531,9 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "mas_kernel", "conv_mma_kernel",
                 "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel", "enc_pack_kernel",
                 "tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel",
-                "wgmma_probe_kernel", "branch_conv_kernel", "branch_gate_kernel", "transpose_weights_kernel")
+                "wgmma_probe_kernel", "branch_conv_kernel", "branch_gate_kernel", "transpose_weights_kernel",
+                "wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel", "wn16_bias_kernel",
+                "wn16_pack_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
@@ -546,6 +550,13 @@ B1_BF16_BWD_KERNELS = ("tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad1
 # stage 1, then its own conv and gate stages; its weights' transpose is a plain grid-stride loop)
 B1_BF16_FWD_STAGES = ("tile_kernel<1 expand>", "branch_conv_kernel", "branch_gate_kernel")
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
+# B3's and B6's bf16 backward (csrc/wn_coupling_bwd_bf16.cu): the product kernel's instances
+# (wn16_gemm_kernel<EPI>, EPI as WN16_EPILOGUES names them), the weight sums and their reduction,
+# the bias sums and the packing
+WN16_KERNELS = ("wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel", "wn16_bias_kernel",
+                "wn16_pack_kernel")
+WN16_EPILOGUES = ("start", "gate", "res/skip", "dskip", "gate bwd", "conv^T", "dx0", "dxc", "xc", "dx1")
+WN16_INSTANCES = 14
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
@@ -627,6 +638,11 @@ def phase_build() -> None:
     require(rc == 0 and min(blocks) >= 1, f"B3/B6 backward: blocks per SM {list(blocks)} (cudaError {rc})")
     require(len(bwd) >= 2 * len(B3_B6_KERNELS) and all("0 bytes spill stores" in line for line in bwd),
             f"a B3/B6 backward kernel is missing or spills: {bwd}")
+    wn16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in WN16_KERNELS]
+    print("[build] B3/B6 bf16 backward on TMA and wgmma (ptxas: registers, shared memory, spills): "
+          + " | ".join(wn16))
+    require(len(wn16) == WN16_INSTANCES and all("0 bytes spill stores" in line for line in wn16),
+            f"a B3/B6 bf16 backward kernel is missing or spills: {wn16}")
     b5 = {side: [line for line in ptxas if line.split(":")[0].split("<")[0] in B5_KERNELS
                  and f"Layer{side}Tag" in line.split(":")[0]] for side in ("Fwd", "Bwd")}
     for side, lines in b5.items():
@@ -3041,22 +3057,9 @@ def b1_bf16_fwd_bytes_per_frame(depth: int, W: int = 64) -> dict:
 
 def kernel_times(fn) -> dict:
     """Device ms a call of ``fn`` by kernel name (torch.profiler over 3
-    calls), the wrapper's own copies included."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.key_averages():
-        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
-                  if hasattr(e, n)), 0.0)
-        if t > 0:
-            name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
-            times[name] = times.get(name, 0.0) + t / 3 / 1e3
-    return times
+    calls), the wrapper's own copies included: launch_kinds without the
+    counts."""
+    return {name: ms for name, (ms, _) in launch_kinds(fn).items()}
 
 
 def phase_bf16_kernel(device, card: str, block_ts=BLOCK_TS, batch: int = BATCH, depth: int = 4,
@@ -3169,6 +3172,62 @@ def enc_bf16(w: enc_ops.EncLayerWeights) -> enc_ops.EncLayerWeights:
     return w.with_tensors([t.to(torch.bfloat16) for t in w.tensors().values()])
 
 
+def launch_kinds(fn) -> dict:
+    """name -> (device ms a call, launches a call) of every kernel of ``fn``
+    (torch.profiler over 3 calls); wn16_gemm_kernel's instances named by
+    their epilogue (WN16_EPILOGUES)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):  # a first session can drop a call's first kernels
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.key_averages():
+        t = next((float(getattr(e, n)) for n in ("self_device_time_total", "self_cuda_time_total")
+                  if hasattr(e, n)), 0.0)
+        if t > 0:
+            name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+            m = re.search(r"wn16_gemm_kernel<(\d+)>", name)
+            if m:
+                name = f"wn16_gemm_kernel<{WN16_EPILOGUES[int(m.group(1))]}>"
+            ms, n = kinds.get(name, (0.0, 0.0))
+            kinds[name] = (ms + t / 3 / 1e3, n + e.count / 3)
+    return kinds
+
+
+def kinds_line(kinds: dict) -> str:
+    return (", ".join(f"{n} {t:.4f} x{c:g}" for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+            + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} launches)")
+
+
+def wn16_bytes_per_frame(w: wn_ops.WNWeights, half: int, c_out: int, flow: bool) -> dict:
+    """Device-memory bytes a frame of csrc/wn_coupling_bwd_bf16.cu by design
+    (each launch's operands read once, a conv's taps and the weight sums'
+    shifts counted once, its outputs written once; weights and the
+    partials, which do not grow with the frames, left out), by part of the
+    call: design arithmetic, not a measurement."""
+    H, L, C = w.hidden, len(w.win), c_out
+    pack = 2 * 2 * C + (2 * C + 2 * C + 2 * 2 * (C - half) if flow else 2 * 2 * half)
+    recompute = (2 * half + 4 * H + 2 * H) + L * (2 * H + 8 * H + 2 * H) + (2 * C + 2 * half if flow else 0)
+    for i in range(L):
+        skip = 4 * H if i == 0 else 8 * H
+        recompute += 2 * H + (skip + 2 * H if i == L - 1 else 8 * H + 2 * H + skip)
+    transposed = 2 * C + 2 * H + 2 * H + 2 * half + (2 * half + 3 * 2 * C if flow else 0)
+    for i in range(L):
+        last = i == L - 1
+        transposed += (2 * H if last else 4 * H) + 8 * H + 4 * H + 4 * H + (4 * H if last else 8 * H) + 2 * H
+    wsums = 2 * half + 2 * H + L * (2 * H + 4 * H) + L * (2 * H + 2 * H) + (L - 1) * 2 * H + 2 * H + 2 * C
+    wsums += 4 * C if flow else 0
+    biases = 2 * C  # g's rows for dbend (the other bias sums come from the epilogues' partial rows)
+    return {"pack": pack, "recompute": recompute, "transposed": transposed, "weight and bias sums": wsums + biases,
+            "total": pack + recompute + transposed + wsums + biases}
+
+
 def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
     """B3's bf16 forward and backward kernels against the plain bf16
     versions at B3_SHAPES (the first coupling block's weights in bf16) and
@@ -3183,7 +3242,12 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
     through four layers and the end conv, whose outputs cancel, some 5% of
     the outputs then move by more than one ulp of their own magnitude while
     the relative L2 error stays near 2e-3 (the CPU tests' small widths sum
-    exactly and meet the share)."""
+    exactly and meet the share). So each layer is also held at the
+    backward's own rounded intermediates (teacher_forced on its recomputed
+    x_in): every layer's x_in, and the end conv on its skip sum (end_conv),
+    at least BF16_ULP_SHARE within one ulp. Then the bf16 backward's masks
+    read back bit for bit; the backward by launch kind at (8, 384) and its
+    bytes a frame by design."""
     w0 = wn_bf16(model.decoder.flows[2].conditioner_weights())
     half = model.n_mels * model.n_sqz // 2
     seed = torch.tensor([4343], dtype=torch.int64, device=device)
@@ -3215,9 +3279,10 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
             with torch.no_grad():
                 ours, again = wn_ops.wn_coupling(x0, lens, w, seed, p), wn_ops.wn_coupling(x0, lens, w, seed, p)
                 ref = wn_ops.wn_coupling_reference(x0, lens, w, seed, p)
-                dx_k, gw_k = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)
+                dx_k, gw_k, bufs = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p, return_buffers=True)
                 dx_k2, gw_k2 = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)
                 dx_r, gw_r = wn_ops.wn_coupling_backward_reference(x0, lens, w, g, seed, p)
+                xins, tf_out = teacher_forced(x0, lens, w, bufs["xin"], seed, p)
                 torch.cuda.synchronize()
             agree = bf16_agreement(ours[valid], ref[valid])
             require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B3] {tag} p={p}: forward {agree}")
@@ -3225,6 +3290,10 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
             bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(u, v) for u, v in zip(gw_k.flat(), gw_k2.flat()))
             report = bf16_grads_ok(f"[bf16 B3 bwd] {tag} p={p}", bf16_agreement(dx_k[valid], dx_r[valid]),
                                    bf16_leaves(gw_k.tensors(), gw_r.tensors()), bitwise)
+            layers = [bf16_agreement(bufs["xin"][j][valid], xins[j][valid])[0] for j in range(len(w.win))]
+            end = bf16_agreement(end_conv(bufs["skip"], lens, w)[valid], tf_out[valid])[0]
+            require(min(layers) >= BF16_ULP_SHARE and end >= BF16_ULP_SHARE,
+                    f"[bf16 B3] {tag} p={p}: a layer at the kernel's own intermediates: x_in {layers}, out {end}")
             times = ""
             if i == 0:
                 with torch.no_grad():
@@ -3249,11 +3318,41 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
                                    bound_by=bb[1])
+                with torch.no_grad():
+                    kinds = launch_kinds(lambda: wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p))
+                print(f"[bf16 B3 bwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(kinds)}; "
+                      f"bytes a frame by design {wn16_bytes_per_frame(w, half, w.wend.shape[0], False)} [{card}]")
             print(f"[bf16 B3] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
-                  f"max_abs_err {agree[1]:.2e} of max|ref|; backward {report}{times} [{card}]")
+                  f"max_abs_err {agree[1]:.2e} of max|ref|; at the kernel's own intermediates, within one ulp: x_in "
+                  f"of layers 0-{len(w.win) - 1} {', '.join(f'{v:.5f}' for v in layers)}, the end conv on its skip sum "
+                  f"{end:.5f}; backward {report}{times} [{card}]")
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], bf16_agreement(dx_k[valid], dx_r[valid])[2])
-            del ours, again, ref, dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r
+            del ours, again, ref, dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r, bufs, xins
+    # the masks, as phase_bf16_flow_step reads B6's: with conv biases of 10 every pre-dropout x_in is positive
+    B, T = B3_SHAPES[0]
+    H, L = w0.hidden, len(w0.win)
+    rng = np.random.RandomState(781)
+    lens = torch.from_numpy(ragged(rng, B, T // 2, T).astype(np.int32)).to(device)
+    x0 = torch.from_numpy(rng.randn(B, T, half).astype(np.float32)).to(device).to(torch.bfloat16)
+    g = torch.zeros(B, T, w0.wend.shape[0], device=device, dtype=torch.bfloat16)
+    probe = wn_ops.WNWeights(ws=w0.ws, bs=w0.bs, win=tuple(t * 0.01 for t in w0.win),
+                             bin=tuple(torch.full_like(b_, 10.0) for b_ in w0.bin), wrs=w0.wrs, brs=w0.brs,
+                             wend=w0.wend, bend=w0.bend, dilations=w0.dilations)
+    with torch.no_grad():
+        plain = wn_ops.wn_coupling_backward(x0, lens, probe, g, seed, 0.0, return_buffers=True)[2]["xin"]
+        require(bool((plain > 0).all()), "the bf16 B3 dropout probe's conv outputs are not all positive")
+        kept = [wn_ops.wn_coupling_backward(x0, lens, probe, g, s_, B3_DROP, return_buffers=True)[2]["xin"] > 0
+                for s_ in (seed, seed + 1)]
+    for i in range(L):
+        require(torch.equal(kept[0][i], wn_ops.keep_mask(seed, lens, T, i, 2 * H, B3_DROP) > 0),
+                f"bf16 B3 layer {i}: the kernel's masks differ from the plain version's")
+    keep_rates_ok({"x_in": (int(kept[0].sum()), kept[0].numel())}, B3_DROP)
+    changed = (kept[0] != kept[1]).float().mean().item()
+    print(f"[bf16 B3 dropout] p={B3_DROP} B={B} T={T}: the bf16 backward's masks of all {L} layers equal the plain "
+          f"version's bit for bit; keep rate {kept[0].float().mean().item():.6f} (expect {1 - B3_DROP:.6f}); another "
+          f"seed changes {changed:.4f} [{card}]")
+    require(changed > B3_DROP, f"bf16 B3: another seed changed only {changed} of the masks")
     return {"fwd": fwd_out, "bwd": bwd_out}
 
 
@@ -3732,17 +3831,26 @@ def teacher_forced(x0: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights, xi
     return torch.stack(plain), wn_ops.pointwise(rnd(skip * valid), rnd(wf.wend), wf.bend).to(x0.dtype)
 
 
+def end_conv(skip: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights) -> torch.Tensor:
+    """The conditioner's end conv, plain, on a skip sum (the kernel's own:
+    ``return_buffers``' skip), rounded as teacher_forced rounds it."""
+    rnd, _, wf = wn_ops._operands(skip.to(w.ws.dtype), w)
+    valid = (torch.arange(skip.shape[1], device=skip.device)[None, :] < lens[:, None]).float()[..., None]
+    return wn_ops.pointwise(rnd(skip.float() * valid), rnd(wf.wend), wf.bend).to(w.ws.dtype)
+
+
 def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
     """B6's bf16 forward and backward kernels against the plain bf16 versions
     at B3_SHAPES (the first flow step's weights in bf16; aln, alb and mt fp32
     holding the bf16 parameters' values, as the decoder passes them) and
     B3_OTHER_SHAPES, p=0 and B3_DROP: xc, out, dx and every gradient (daln,
     dalb, dmt in fp32) by phase_bf16_wn_coupling's measures, two calls bitwise
-    equal; then each conditioner layer at the kernel's own rounded
-    intermediates (teacher_forced on the backward's recomputed x_in): every
-    layer's x_in and the end conv's out at least BF16_ULP_SHARE within one
-    bf16 ulp; the bf16 kernels' dropout masks read back bit for bit; times
-    at (8, 384)."""
+    equal; then each conditioner layer at the backward's own rounded
+    intermediates (teacher_forced on its recomputed x_in): every layer's x_in,
+    and the end conv on the backward's skip sum (end_conv; the forward
+    kernel sums in another order than the backward's recompute), at least
+    BF16_ULP_SHARE within one bf16 ulp; the bf16 kernels' dropout masks read
+    back bit for bit; times at (8, 384)."""
     act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
     w0 = wn_bf16(cpl.conditioner_weights())
     w0 = wn_ops.WNWeights.from_flat([t.detach() for t in w0.flat()], w0.dilations)
@@ -3796,7 +3904,7 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
             dx_agree = bf16_agreement(k1[0][valid], r[0][valid])
             report = bf16_grads_ok(f"[bf16 B6 bwd] {tag} p={p}", dx_agree, bf16_leaves(leaves(k1), leaves(r)), bitwise)
             layers = [bf16_agreement(k1[5]["xin"][j][valid], xins[j][valid])[0] for j in range(L)]
-            end = bf16_agreement(out[valid], tf_out[valid])[0]
+            end = bf16_agreement(end_conv(k1[5]["skip"], lens, w)[valid], tf_out[valid])[0]
             require(min(layers) >= BF16_ULP_SHARE and end >= BF16_ULP_SHARE,
                     f"[bf16 B6] {tag} p={p}: a layer at the kernel's own intermediates: x_in {layers}, out {end}")
             times = ""
@@ -3823,10 +3931,15 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
                                    bound_by=bb[1])
+                with torch.no_grad():
+                    kinds = launch_kinds(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p))
+                print(f"[bf16 B6 bwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(kinds)}; "
+                      f"bytes a frame by design {wn16_bytes_per_frame(w, half, C, True)} [{card}]")
             print(f"[bf16 B6] {tag} p={p}: forward xc {fwd['xc'][0]:.5f} / out {fwd['out'][0]:.5f} within one bf16 "
                   f"ulp, relative L2 {fwd['xc'][3]:.2e} / {fwd['out'][3]:.2e} (tol {BF16_SUM_RTOL:.4g}), max_abs_err "
                   f"{fwd['xc'][1]:.2e} / {fwd['out'][1]:.2e} of max|ref|; at the kernel's own intermediates, within "
-                  f"one ulp: x_in of layers 0-{L - 1} {', '.join(f'{v:.5f}' for v in layers)}, out {end:.5f} (need "
+                  f"one ulp: x_in of layers 0-{L - 1} {', '.join(f'{v:.5f}' for v in layers)}, the end conv on "
+                  f"its skip sum {end:.5f} (need "
                   f"{BF16_ULP_SHARE}); backward {report}{times} [{card}]")
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], fwd["xc"][2], fwd["out"][2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
@@ -4506,7 +4619,7 @@ def main() -> None:
         entry("wn_coupling_fwd_bf16", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_bf16["launches"][6],
               b3_bf16["fwd"]["max_abs_err"], b3_bf16["fwd"]["ms"], b3_bf16["fwd"]["plain_ms"],
               b3_bf16["fwd"]["bound_ms"], b3_bf16["fwd"]["bound_by"], call_ms=b3_bf16["fwd"]["call_ms"]),
-        entry("wn_coupling_bwd_bf16", "wn_coupling_bwd.cu", PALLAS_WN + ":484", glow_bf16["launches"][7],
+        entry("wn_coupling_bwd_bf16", "wn_coupling_bwd_bf16.cu", PALLAS_WN + ":484", glow_bf16["launches"][7],
               b3_bf16["bwd"]["max_abs_err"], b3_bf16["bwd"]["ms"], b3_bf16["bwd"]["plain_ms"],
               b3_bf16["bwd"]["bound_ms"], b3_bf16["bwd"]["bound_by"], call_ms=b3_bf16["bwd"]["call_ms"]),
         entry("enc_layer_fwd_bf16", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_b5_bf16,
@@ -4526,7 +4639,7 @@ def main() -> None:
         entry("flow_step_fwd_bf16", "flow_step_fwd.cu", PALLAS_WN + ":521", glow_bf16_b6["launches"][11],
               b6_bf16["fwd"]["max_abs_err"], b6_bf16["fwd"]["ms"], b6_bf16["fwd"]["plain_ms"],
               b6_bf16["fwd"]["bound_ms"], b6_bf16["fwd"]["bound_by"], call_ms=b6_bf16["fwd"]["call_ms"]),
-        entry("flow_step_bwd_bf16", "flow_step_bwd.cu", PALLAS_WN + ":569", glow_bf16_b6["launches"][12],
+        entry("flow_step_bwd_bf16", "wn_coupling_bwd_bf16.cu", PALLAS_WN + ":569", glow_bf16_b6["launches"][12],
               b6_bf16["bwd"]["max_abs_err"], b6_bf16["bwd"]["ms"], b6_bf16["bwd"]["plain_ms"],
               b6_bf16["bwd"]["bound_ms"], b6_bf16["bwd"]["bound_by"], call_ms=b6_bf16["bwd"]["call_ms"]),
         entry("attention_fwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":226", lm_bf16["launches"][2],

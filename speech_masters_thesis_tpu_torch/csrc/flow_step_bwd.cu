@@ -1,10 +1,11 @@
 // One whole Glow-TTS flow step's recompute backward for Hopper (sm_90a),
-// fp32 or bf16, with the forward's dropout masks regenerated in-kernel.
+// fp32, with the forward's dropout masks regenerated in-kernel.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // _flow_vjp_bwd -> pallas_call(_bwd_flow_kernel) (_bwd_flow), the custom VJP
-// of fused_flow_step, in its fp32 mode and (flow_step_bwd_bf16) its bf16
-// mode. Plain version: ops/flow_step.py:flow_step_backward_reference.
+// of fused_flow_step, in its fp32 mode (the bf16 mode is
+// wn_coupling_bwd_bf16.cu). Plain version:
+// ops/flow_step.py:flow_step_backward_reference.
 //
 // What it computes, for the cotangents g_xc and g_out [B, T, C] of the
 // forward's xc and out (flow_step_fwd.cu):
@@ -38,17 +39,6 @@
 // wgrad_rows.cuh's on the CUDA cores: no atomics, two calls bitwise equal.
 // One call: 1 + (4 + 4 L, a packing launch with B3's chain) + 1 + 2 + 2
 // launches (26 at 4 layers: 31 products, then 2 CUDA-core problems).
-//
-// bf16 mode (wn_coupling.py:343-386, cast :633): x, g_xc, g_out, the
-// conditioner's weights, dx and their gradients bf16; aln, alb, mt and their
-// gradients daln, dalb, dmt fp32, as the TPU kernel keeps them. The
-// recompute is flow_step_fwd.cu's bf16 launches; dxc = g_xc + dx0 stays fp32
-// (the conditioner's last launch reads g_xc in bf16); dmt = x1^T dxc and
-// dx1 = dxc mt^T round x1, dxc and mt as their operands (the dx1 launch
-// reads dxc's second half from g_xc in bf16 and mt in fp32), daln and dalb
-// are fp32 sums of fp32 terms (dx = dx1 exp(aln) valid in fp32 beside the
-// bf16 dx the launch writes), and the conditioner's gradients are summed in
-// fp32 and written in bf16 once.
 
 #include <cuda_runtime.h>
 
@@ -61,14 +51,13 @@
 namespace {
 
 struct FlowBwdTag {};
-struct BfloatFlowBwdTag {};  // the bf16 mode's kernels
 
 struct Prefix {
   const float* x;
   const float* x1;
   const float* dxc;   // [B, T, half]: dxc's first half
   const float* g_xc;  // [B, T, C]: dxc's second half is g_xc's, masked
-  const float* dx;    // dx1 * exp(aln) * valid, fp32
+  const float* dx;    // dx1 * exp(aln) * valid
   const float* dx1;   // dx1 * valid
   float* daln;
   float* dalb;
@@ -84,38 +73,28 @@ struct FlowProblems {
   long long mma_floats, rows_floats;
 };
 
-// bf16: x, g_xc, g_out and xc hold bf16, the prefix's gradients stay fp32
 FlowProblems flow_problems(const float* xc, const float* g_out, const wn_coupling::Grads& d,
-                           const wn_coupling::Scratch& sc, const wn_coupling::Shape& sh, const Prefix& p,
-                           bool bf16 = false) {
+                           const wn_coupling::Scratch& sc, const wn_coupling::Shape& sh, const Prefix& p) {
   using wgrad_rows::problem;
   const int C = sh.c_out, half = sh.half;
   const long long frames = (long long)sh.B * sh.T;
-  const int out32 = bf16 ? wgrad_rows::OUT_F32 : 0;
-  const float* g_xc2 = p.g_xc ? (bf16 ? conv_mma::elems_at<conv_mma::bf16_t>(const_cast<float*>(p.g_xc), half)
-                                      : p.g_xc + half)
-                              : nullptr;
+  const float* g_xc2 = p.g_xc ? p.g_xc + half : nullptr;
   FlowProblems f;
-  f.mma = wn_coupling::problems(xc, C, g_out, d, sc, sh, bf16);
+  f.mma = wn_coupling::problems(xc, C, g_out, d, sc, sh);
   wgrad_rows::Problem q = problem(p.x1, C, C, p.dxc, half, half, p.dmt, 1, C);
-  q.bf16 = out32;
   f.mma.push_back(q);
   q = problem(p.x1, C, C, g_xc2, C, half, p.dmt ? p.dmt + half : nullptr, 1, C);
   q.mask_y = 1;
-  q.bf16 = out32 | (bf16 ? wgrad_rows::Y_BF16 : 0);
   f.mma.push_back(q);
   const long long tiles = wgrad_mma::assign_tiles(f.mma);
   f.mma_split = wgrad_mma::splits<FlowBwdTag>(tiles, frames);
   f.mma_floats = tiles * f.mma_split * wgrad_mma::PART;
-  const int x16 = out32 | (bf16 ? wgrad_rows::X_BF16 : 0);
   q = problem(p.x, C, C, p.dx, C, C, p.daln, 1, 0);
   q.diag = q.mask_x = 1;
-  q.bf16 = x16;
   f.rows.push_back(q);
   q = problem(p.x, C, C, p.dx1, C, C, nullptr, 1, 0);
   q.diag = q.mask_x = 1;
   q.out_b = p.dalb;
-  q.bf16 = x16;
   f.rows.push_back(q);
   // two light problems of 3 tiles each: slices of 64 frames (at most 64) spread them over the card
   f.rows_split = (int)((frames + 63) / 64 < 64 ? (frames + 63) / 64 : 64);
@@ -123,47 +102,39 @@ FlowProblems flow_problems(const float* xc, const float* g_out, const wn_couplin
   return f;
 }
 
-// The whole backward in either mode (IO): the pointers of bf16 buffers are
-// read as bf16 (the entry points' comments); dxf, the fp32 copy of dx, is
-// the bf16 mode's (dx itself in the fp32 mode).
-template <class Tag, class IO>
+// The whole backward.
 cudaError_t backward(const float* x, const int* lens, const long long* seed, const float* g_xc, const float* g_out,
                      const float* aln, const float* alb, const float* mt, const wn_coupling::Weights& w,
-                     const wn_coupling::Grads& d, float* dx, float* dxf, float* daln, float* dalb, float* dmt,
-                     float* x1, float* xc, float* dxc, float* dx1, const wn_coupling::Scratch& sc,
-                     float* workspace, const wn_coupling::Shape& sh, const wn_coupling::Dropout& drop,
-                     cudaStream_t s) {
+                     const wn_coupling::Grads& d, float* dx, float* daln, float* dalb, float* dmt, float* x1,
+                     float* xc, float* dxc, float* dx1, const wn_coupling::Scratch& sc, float* workspace,
+                     const wn_coupling::Shape& sh, const wn_coupling::Dropout& drop, cudaStream_t s) {
   using namespace conv_rows;
-  constexpr bool BF = conv_mma::kBf16<IO>;
+  using Tag = FlowBwdTag;
   const int B = sh.B, T = sh.T, C = sh.c_out, half = sh.half;
-  cudaError_t err = wn_coupling::flow_prefix<Tag, IO>(x, lens, aln, alb, mt, B, T, C, xc, x1, s);
+  cudaError_t err = wn_coupling::flow_prefix<Tag>(x, lens, aln, alb, mt, B, T, C, xc, x1, s);
   if (err != cudaSuccess) return err;
-  err = wn_coupling::backward_chain<Tag, IO>(xc, C, lens, g_out, w, sh, drop, sc, g_xc, C, dxc, half, workspace, s);
+  err = wn_coupling::backward_chain<Tag>(xc, C, lens, g_out, w, sh, drop, sc, g_xc, C, dxc, half, workspace, s);
   if (err != cudaSuccess) return err;
 
   Args a{};  // dx1 = dxc mt^T; dx = dx1 * exp(aln) * valid and dx1 * valid
   a.lens = lens; a.T = T; a.dil = 1;
   a.in = dxc; a.ldi = half; a.ldi2 = C; a.split = half; a.cin = C; a.mask_in = 1;
-  a.in2 = BF ? conv_mma::elems_at<conv_mma::bf16_t>(const_cast<float*>(g_xc), half) : g_xc + half;
-  a.in2_bf16 = BF;
+  a.in2 = g_xc + half;
   a.w = mt; a.n_out = C; a.out = dx; a.out2 = dx1; a.ldo = C; a.out_logs = aln;
-  a.out_bf16 = BF;
-  a.out3 = BF ? dxf : nullptr;
-  err = wn_coupling::launch<Tag, 1, ACTNORM_BWD, IO>(a, B, s);
+  err = wn_coupling::launch<Tag, 1, ACTNORM_BWD>(a, B, s);
   if (err != cudaSuccess) return err;
 
-  const FlowProblems f =
-      flow_problems(xc, g_out, d, sc, sh, Prefix{x, x1, dxc, g_xc, BF ? dxf : dx, dx1, daln, dalb, dmt}, BF);
+  const FlowProblems f = flow_problems(xc, g_out, d, sc, sh, Prefix{x, x1, dxc, g_xc, dx, dx1, daln, dalb, dmt});
   if (f.mma_split < 1) return cudaErrorInvalidValue;
   float* partials = workspace + wn_coupling::packed_floats(sh, 2);
-  err = wgrad_mma::run<Tag, IO>(f.mma, lens, B, T, f.mma_split, partials, s);
+  err = wgrad_mma::run<Tag>(f.mma, lens, B, T, f.mma_split, partials, s);
   if (err != cudaSuccess) return err;
-  return wgrad_rows::run<Tag, IO>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);
+  return wgrad_rows::run<Tag>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);
 }
 
 }  // namespace
 
-// Floats of the workspace flow_step_bwd and flow_step_bwd_bf16 need: the
+// Floats of the workspace flow_step_bwd needs: the
 // packed weights, then the two reductions' partials (-1 for a shape the
 // kernels do not take).
 extern "C" long flow_step_bwd_workspace_floats(int B, int T, int half, int H, int c_out, int n_layers,
@@ -196,36 +167,6 @@ extern "C" int flow_step_bwd(const float* x, const int* lens, const long long* s
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, nullptr};
   const wn_coupling::Grads d{dws, dbs, dwin, dbin, dwrs, dbrs, dwend, dbend};
   const wn_coupling::Scratch sc{hs, xin, acts, skip, dskip, dh, dxin};
-  return (int)backward<FlowBwdTag, float>(x, lens, seed, g_xc, g_out, aln, alb, mt, w, d, dx, nullptr, daln, dalb,
-                                          dmt, x1, xc, dxc, dx1, sc, workspace, sh, {seed, threshold, keep_scale},
-                                          static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 mode: x, g_xc, g_out, the conditioner's weights, dx and their
-// gradients bf16; aln, alb, mt, daln, dalb, dmt fp32; scratch as for
-// flow_step_bwd (xc holds bf16) plus dxf [B, T, c_out] fp32 (dx before its
-// rounding, for daln); the same workspace (flow_step_bwd_workspace_floats).
-extern "C" int flow_step_bwd_bf16(const void* x, const int* lens, const long long* seed, const void* g_xc,
-                                  const void* g_out, const float* aln, const float* alb, const float* mt,
-                                  const void* ws, const void* const* win, const void* const* wrs, const void* wend,
-                                  const void* bs, const void* const* bin, const void* const* brs, void* dx,
-                                  float* daln, float* dalb, float* dmt, void* dws, void* dbs, void* const* dwin,
-                                  void* const* dbin, void* const* dwrs, void* const* dbrs, void* dwend,
-                                  void* dbend, float* x1, void* xc, float* dxc, float* dx1, float* dxf, float* hs,
-                                  float* xin, float* acts, float* skip, float* dskip, float* dh, float* dxin,
-                                  float* workspace, int B, int T, int half, int H, int c_out, int n_layers,
-                                  int kernel_size, int dilation_rate, unsigned threshold, float keep_scale,
-                                  void* stream) {
-  using F = const float*;
-  using FP = const float* const*;
-  using G = float*;
-  using GP = float* const*;
-  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
-  if (!wn_coupling::valid_shape(sh) || c_out != 2 * half) return (int)cudaErrorInvalidValue;
-  const wn_coupling::Weights w{F(ws), F(bs), FP(win), FP(bin), FP(wrs), FP(brs), F(wend), nullptr};
-  const wn_coupling::Grads d{G(dws), G(dbs), GP(dwin), GP(dbin), GP(dwrs), GP(dbrs), G(dwend), G(dbend)};
-  const wn_coupling::Scratch sc{hs, xin, acts, skip, dskip, dh, dxin};
-  return (int)backward<BfloatFlowBwdTag, conv_mma::bf16_t>(
-      F(x), lens, seed, F(g_xc), F(g_out), aln, alb, mt, w, d, G(dx), dxf, daln, dalb, dmt, x1, G(xc), dxc, dx1, sc,
-      workspace, sh, {seed, threshold, keep_scale}, static_cast<cudaStream_t>(stream));
+  return (int)backward(x, lens, seed, g_xc, g_out, aln, alb, mt, w, d, dx, daln, dalb, dmt, x1, xc, dxc, dx1, sc,
+                       workspace, sh, {seed, threshold, keep_scale}, static_cast<cudaStream_t>(stream));
 }

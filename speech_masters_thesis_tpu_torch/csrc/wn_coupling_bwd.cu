@@ -3,10 +3,8 @@
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // _vjp_bwd -> pallas_call(_bwd_kernel) (body _conditioner_bwd), the custom
-// VJP of fused_wn_coupling, in its fp32 mode and (wn_coupling_bwd_bf16) its
-// bf16 mode: every product's operands rounded to bf16, fp32 sums and fp32
-// scratch, dx0 and the weight gradients (fp32 sums cast once) in bf16, as
-// the TPU kernel's _bwd and _vjp_bwd. Plain version:
+// VJP of fused_wn_coupling, in its fp32 mode (the bf16 mode is
+// wn_coupling_bwd_bf16.cu). Plain version:
 // ops/wn_coupling.py:wn_coupling_backward_reference.
 //
 // What it computes, for the output cotangent g [B, T, c_out]:
@@ -56,15 +54,12 @@
 namespace {
 
 struct WnBwdTag {};
-struct BfloatWnBwdTag {};  // the bf16 mode's kernels
 
-// The weight-gradient problems with their tiles assigned, and the slices
-// (both modes: the fp32 reduction's resident blocks set the slices).
+// The weight-gradient problems with their tiles assigned, and the slices.
 std::vector<wgrad_rows::Problem> wgrad_problems(const float* x0, int ldx, const float* g,
                                                 const wn_coupling::Grads& d, const wn_coupling::Scratch& sc,
-                                                const wn_coupling::Shape& sh, int* n_split, long long* tiles,
-                                                bool bf16 = false) {
-  std::vector<wgrad_rows::Problem> probs = wn_coupling::problems(x0, ldx, g, d, sc, sh, bf16);
+                                                const wn_coupling::Shape& sh, int* n_split, long long* tiles) {
+  std::vector<wgrad_rows::Problem> probs = wn_coupling::problems(x0, ldx, g, d, sc, sh);
   *tiles = wgrad_mma::assign_tiles(probs);
   *n_split = wgrad_mma::splits<WnBwdTag>(*tiles, (long long)sh.B * sh.T);
   return probs;
@@ -115,40 +110,6 @@ extern "C" int wn_coupling_bwd(const float* x0, int ldx, const int* lens, const 
   std::vector<wgrad_rows::Problem> probs = wgrad_problems(x0, ldx, g, d, sc, sh, &n_split, &tiles);
   if (n_split < 1) return (int)cudaErrorInvalidValue;
   return (int)wgrad_mma::run<WnBwdTag>(probs, lens, B, T, n_split, workspace + wn_coupling::packed_floats(sh, 2), s);
-}
-
-// The bf16 mode (conv_mma.cuh's and wgrad_mma.cuh's IO = bf16): x0, g, the
-// weights, dx0 and the gradients bf16; the scratch fp32, as for
-// wn_coupling_bwd; the same workspace (wn_coupling_bwd_workspace_floats).
-extern "C" int wn_coupling_bwd_bf16(const void* x0, int ldx, const int* lens, const long long* seed, const void* g,
-                                    const void* ws, const void* const* win, const void* const* wrs,
-                                    const void* wend, const void* bs, const void* const* bin,
-                                    const void* const* brs, void* dx0, void* dws, void* dbs, void* const* dwin,
-                                    void* const* dbin, void* const* dwrs, void* const* dbrs, void* dwend,
-                                    void* dbend, float* hs, float* xin, float* acts, float* skip, float* dskip,
-                                    float* dh, float* dxin, float* workspace, int B, int T, int half, int H,
-                                    int c_out, int n_layers, int kernel_size, int dilation_rate,
-                                    unsigned threshold, float keep_scale, void* stream) {
-  using bf16_t = conv_mma::bf16_t;
-  using F = const float*;
-  using FP = const float* const*;
-  using G = float*;
-  using GP = float* const*;
-  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
-  if (!wn_coupling::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const wn_coupling::Weights w{F(ws), F(bs), FP(win), FP(bin), FP(wrs), FP(brs), F(wend), nullptr};
-  const wn_coupling::Scratch sc{hs, xin, acts, skip, dskip, dh, dxin};
-  cudaError_t err = wn_coupling::backward_chain<BfloatWnBwdTag, bf16_t>(
-      F(x0), ldx, lens, F(g), w, sh, {seed, threshold, keep_scale}, sc, nullptr, 0, G(dx0), half, workspace, s);
-  if (err != cudaSuccess) return (int)err;
-  const wn_coupling::Grads d{G(dws), G(dbs), GP(dwin), GP(dbin), GP(dwrs), GP(dbrs), G(dwend), G(dbend)};
-  int n_split;
-  long long tiles;
-  std::vector<wgrad_rows::Problem> probs = wgrad_problems(F(x0), ldx, F(g), d, sc, sh, &n_split, &tiles, true);
-  if (n_split < 1) return (int)cudaErrorInvalidValue;
-  return (int)wgrad_mma::run<BfloatWnBwdTag, bf16_t>(probs, lens, B, T, n_split,
-                                                      workspace + wn_coupling::packed_floats(sh, 2), s);
 }
 
 // The tensor-core kernels' resident blocks per SM and dynamic shared memory

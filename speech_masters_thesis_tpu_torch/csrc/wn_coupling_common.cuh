@@ -10,12 +10,13 @@
 // Dropout of layer i's conv output (both halves, before the gate): stream
 // b * WN_STREAMS + i, counter t * 2H + c (ops/wn_coupling.py:keep_mask).
 //
-// IO is the mode (conv_mma.cuh): float, or bf16 for the TPU kernel's bf16
-// dot_dtype. In bf16 x0, g, the weights, out, dx0 and the gradients hold bf16
-// (the pointers stay float* and are read as bf16); h, acts, skip and the
-// backward's scratch stay fp32, each product rounding its operands. The flow
-// step's prefix takes x and writes xc in bf16 with aln, alb and mt fp32, and
-// its backward's dxc (the conditioner's dx0 plus g_xc) stays fp32.
+// IO is the forwards' mode (conv_mma.cuh): float, or bf16 for the TPU
+// kernel's bf16 dot_dtype. In bf16 x0, the weights and out hold bf16 (the
+// pointers stay float* and are read as bf16); h, acts and skip stay fp32,
+// each product rounding its operands. The flow step's prefix takes x and
+// writes xc in bf16 with aln, alb and mt fp32. The backward chain and its
+// weight-gradient problems are the fp32 mode's: the bf16 backwards are
+// wn_coupling_bwd_bf16.cu's own engine.
 
 #pragma once
 
@@ -205,21 +206,20 @@ cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w,
 // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
 //   dx0 = (res + dh_0 W_s^T) * valid   (res rows ldres apart; 0 when null)
 // into dx0 (rows ld_dx0 apart). 3 + 4 L launches, and one more to pack for k > 1.
-// In bf16 dx0 holds bf16, except with res (the flow step's dxc: fp32, res bf16).
-template <class Tag, class IO = float>
+// fp32 only: the bf16 mode's backward is wn_coupling_bwd_bf16.cu.
+template <class Tag>
 cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const float* g, const Weights& w,
                            const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
                            float* dx0, int ld_dx0, float* packed, cudaStream_t s) {
   using namespace conv_rows;
-  constexpr bool BF = conv_mma::kBf16<IO>;
   const int B = sh.B, H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)B * sh.T * H;
   std::vector<const float*> win_conv, win_t;
-  cudaError_t err = pack_win<Tag, 2, IO>(w, sh, packed, win_conv, &win_t, s);
+  cudaError_t err = pack_win<Tag, 2>(w, sh, packed, win_conv, &win_t, s);
   if (err != cudaSuccess) return err;
   Weights wc = w;
   wc.win = win_conv.data();
-  err = forward_chain<Tag, IO>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip,
+  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, sc.hs, lay, sc.acts, lay, sc.xin, 2 * lay, sc.skip,
                                s);
   if (err != cudaSuccess) return err;
 
@@ -230,8 +230,8 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
 
   Args e = a;  // dskip = (g W_end^T) * valid
   e.in = g; e.ldi = sh.c_out; e.cin = sh.c_out; e.mask_in = 1;
-  e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H; e.in_bf16 = BF;
-  err = launch<Tag, 1, MASK, IO>(e, B, s);
+  e.w = w.wend; e.n_out = H; e.out = sc.dskip; e.ldo = H;
+  err = launch<Tag, 1, MASK>(e, B, s);
   if (err != cudaSuccess) return err;
 
   for (int i = L - 1; i >= 0; --i) {
@@ -247,48 +247,44 @@ cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const floa
     }
     r.w = w.wrs[i]; r.n_out = H; r.out = sc.dxin + 2 * i * lay; r.ldo = 2 * H;
     r.xin = sc.xin + 2 * i * lay; r.ldx = 2 * H; r.stream_add = i;
-    err = launch<Tag, 1, GATE_BWD, IO>(r, B, s);
+    err = launch<Tag, 1, GATE_BWD>(r, B, s);
     if (err != cudaSuccess) return err;
 
     Args c = a;  // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid
     c.in = sc.dxin + 2 * i * lay; c.ldi = 2 * H; c.cin = 2 * H; c.mask_in = 1;
     c.w = win_t[i]; c.n_out = H; c.dil = dil; c.out = sc.dh + i * lay; c.ldo = H;
     if (last) {
-      err = launch_taps<Tag, MASK, IO>(k, c, B, s);
+      err = launch_taps<Tag, MASK>(k, c, B, s);
     } else {
       c.res = dh_next; c.ldr = H; c.hidden = 0;
-      err = launch_taps<Tag, RES_SKIP, IO>(k, c, B, s);
+      err = launch_taps<Tag, RES_SKIP>(k, c, B, s);
     }
     if (err != cudaSuccess) return err;
   }
 
   Args x = a;  // dx0 = (res + dh_0 W_s^T) * valid
   x.in = sc.dh; x.ldi = H; x.cin = H; x.mask_in = 1;
-  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0; x.out_bf16 = BF && !res;
-  if (!res) return launch<Tag, 1, MASK, IO>(x, B, s);
-  x.res = res; x.ldr = ldres; x.hidden = 0; x.res_bf16 = BF;
-  return launch<Tag, 1, RES_SKIP, IO>(x, B, s);
+  x.w = w.ws; x.n_out = sh.half; x.out = dx0; x.ldo = ld_dx0;
+  if (!res) return launch<Tag, 1, MASK>(x, B, s);
+  x.res = res; x.ldr = ldres; x.hidden = 0;
+  return launch<Tag, 1, RES_SKIP>(x, B, s);
 }
 
 // Every conditioner weight gradient as a reduction problem (pointers may be
 // null when only the partials' size is wanted): W_end from (skip * valid, g),
 // W_rs_i from (acts_i, [dh_{i+1}, dskip]), W_in_i from (h_i shifted by each
 // tap, dx_in_i), W_s from (x0, dh_0); the biases are the column sums.
-// bf16: x0 and g hold bf16 (Problem::bf16).
+// fp32 only (wn_coupling_bwd.cu, flow_step_bwd.cu).
 inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const float* g, const Grads& d,
-                                                 const Scratch& sc, const Shape& sh, bool bf16 = false) {
+                                                 const Scratch& sc, const Shape& sh) {
   using wgrad_rows::problem;
   const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   const size_t lay = (size_t)sh.B * sh.T * H;
   auto at = [](const float* p, size_t off) { return p ? p + off : nullptr; };
-  // a gradient's element `off` (bf16 elements when the gradients hold bf16)
-  auto atw = [bf16](float* p, size_t off) {
-    return p ? (bf16 ? conv_mma::elems_at<conv_mma::bf16_t>(p, off) : p + off) : nullptr;
-  };
+  auto atw = [](float* p, size_t off) { return p ? p + off : nullptr; };
   std::vector<wgrad_rows::Problem> probs;
   wgrad_rows::Problem p = problem(x0, ldx, sh.half, sc.dh, H, H, d.dws, sh.half, 1);
   p.out_b = d.dbs;
-  p.bf16 = bf16 ? wgrad_rows::X_BF16 : 0;
   probs.push_back(p);
   int dil = 1;
   for (int i = 0; i < L; ++i, dil *= sh.rate) {
@@ -315,7 +311,6 @@ inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const
   p = problem(sc.skip, H, H, g, sh.c_out, sh.c_out, d.dwend, H, 1);
   p.mask_x = 1;
   p.out_b = d.dbend;
-  p.bf16 = bf16 ? wgrad_rows::Y_BF16 : 0;
   probs.push_back(p);
   return probs;
 }

@@ -151,8 +151,11 @@ def build() -> ctypes.CDLL:
     lib.wn_coupling_bwd.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
                                     + [p] * 10 + [i] * 8 + [u, f, p])
     lib.wn_coupling_bwd.restype = i
-    lib.wn_coupling_bwd_bf16.argtypes = lib.wn_coupling_bwd.argtypes
+    lib.wn_coupling_bwd_bf16.argtypes = ([p, i, p, p, p, p, ptrs, ptrs, p, p, ptrs, ptrs, p, p, p] + [ptrs] * 4
+                                         + [p, p, ptrs] + [i] * 8 + [u, f, p])
     lib.wn_coupling_bwd_bf16.restype = i
+    lib.wn16_wsum_part_floats.argtypes = [i] * 9
+    lib.wn16_wsum_part_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd_workspace_floats.argtypes = [i] * 8
     lib.wn_coupling_bwd_workspace_floats.restype = ctypes.c_long
     lib.wn_coupling_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]
@@ -166,8 +169,8 @@ def build() -> ctypes.CDLL:
     lib.flow_step_bwd.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 14
                                   + [i] * 8 + [u, f, p])
     lib.flow_step_bwd.restype = i
-    lib.flow_step_bwd_bf16.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 15
-                                       + [i] * 8 + [u, f, p])
+    lib.flow_step_bwd_bf16.argtypes = ([p] * 9 + [ptrs] * 2 + [p] * 2 + [ptrs] * 2 + [p] * 6 + [ptrs] * 4 + [p] * 2
+                                       + [ptrs] + [i] * 8 + [u, f, p])
     lib.flow_step_bwd_bf16.restype = i
     lib.flow_step_bwd_workspace_floats.argtypes = [i] * 8
     lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long

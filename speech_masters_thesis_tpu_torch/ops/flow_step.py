@@ -58,9 +58,10 @@ from speech_masters_thesis_tpu_torch.ops.wn_coupling import (
     _pointers,
     _shape_args,
     _stream,
+    bwd16_scratch,
     check_dtypes as check_conditioner_dtypes,
     conditioner_backward,
-    recomputed_xin,
+    recomputed_buffers,
     wn_coupling_reference,
 )
 
@@ -179,11 +180,13 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     and conditioner, the conditioner's transposed products, the prefix's
     transposed product, then one fixed-order reduction of every weight
     gradient: two calls are bitwise equal; the products in 3xTF32 on the
-    tensor cores, or in one bf16 MMA for bf16 tensors) and counts
+    tensor cores), or for bf16 tensors ``csrc/wn_coupling_bwd_bf16.cu``
+    (B3's bf16 engine with the prefix's products, on TMA and wgmma) and counts
     ``flow_step_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
     tensor runs ``flow_step_backward_reference``. ``return_buffers`` adds
-    {"xin": [L, B, T, 2H]}: each conditioner layer's post-dropout conv
-    output as the kernels recomputed it (the plain recompute's on the CPU), fp32.
+    {"xin": [L, B, T, 2H], "skip": [B, T, H]}: each conditioner layer's
+    post-dropout conv output and the skip sum as the kernels recomputed them
+    (the plain recompute's on the CPU), fp32.
     """
     B, T, C = x.shape
     half = C // 2
@@ -191,7 +194,7 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
         out = flow_step_backward_reference(x, lens, aln, alb, mt, w, g_xc, g_out, seed, p_drop)
         if return_buffers:
             xc = flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)[0]
-            return (*out, {"xin": recomputed_xin(xc[..., :half], lens, w, seed, p_drop)})
+            return (*out, recomputed_buffers(xc[..., :half], lens, w, seed, p_drop))
         return out
     if x.device.type != "cuda":
         raise ValueError(f"flow_step_backward: unsupported device {x.device}")
@@ -204,26 +207,33 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
     dx = torch.empty(B, T, C, device=x.device, dtype=x.dtype)
     daln, dalb, dmt = empty(C), empty(C), empty(C, C)
-    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
-    x1, dx1, dxc = empty(B, T, C), empty(B, T, C), empty(B, T, half)
-    xc = torch.empty(B, T, C, device=x.device, dtype=x.dtype)
-    hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
-    xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
-    skip, dskip = empty(B, T, H), empty(B, T, H)
     lib = _build.build()
     shape = _shape_args(x[..., :half], w)
-    workspace = empty(lib.flow_step_bwd_workspace_floats(*shape))
-    # bf16: dx before its rounding, in fp32, for daln's sum
-    scratch = (x1, xc, dxc, dx1) + ((empty(B, T, C),) if bf16 else ())
-    rc = (lib.flow_step_bwd_bf16 if bf16 else lib.flow_step_bwd)(
-        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g_xc.data_ptr(), g_out.data_ptr(), aln.data_ptr(),
-        alb.data_ptr(), mt.data_ptr(), w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
-        w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs), dx.data_ptr(), daln.data_ptr(), dalb.data_ptr(),
-        dmt.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
-        _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
-        *(t.data_ptr() for t in scratch), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(),
-        skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), workspace.data_ptr(), *shape,
-        *_dropout_args(p_drop), _stream(x))
+    inputs = (x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g_xc.data_ptr(), g_out.data_ptr(), aln.data_ptr(),
+              alb.data_ptr(), mt.data_ptr(), w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
+              w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs), dx.data_ptr(), daln.data_ptr(), dalb.data_ptr(),
+              dmt.data_ptr())
+    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
+    if bf16:
+        scratch, parts, bufs = bwd16_scratch(x, shape, flow=True)
+        rc = lib.flow_step_bwd_bf16(
+            *inputs, grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
+            _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(), parts, *shape,
+            *_dropout_args(p_drop), _stream(x))
+    else:
+        x1, dx1, dxc = empty(B, T, C), empty(B, T, C), empty(B, T, half)
+        xc = torch.empty(B, T, C, device=x.device, dtype=x.dtype)
+        hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
+        xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
+        skip, dskip = empty(B, T, H), empty(B, T, H)
+        workspace = empty(lib.flow_step_bwd_workspace_floats(*shape))
+        bufs = {"xin": xin, "skip": skip}
+        rc = lib.flow_step_bwd(
+            *inputs, grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
+            _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
+            *(t.data_ptr() for t in (x1, xc, dxc, dx1)), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(),
+            skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), workspace.data_ptr(), *shape,
+            *_dropout_args(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"flow_step_bwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
     if bf16:
@@ -231,7 +241,7 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     else:
         flow_step_backward.launches += 1
     if return_buffers:
-        return dx, daln, dalb, dmt, grads, {"xin": xin}
+        return dx, daln, dalb, dmt, grads, bufs
     return dx, daln, dalb, dmt, grads
 
 

@@ -4,7 +4,9 @@ speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, ``fused_wn_coupling``
 and its custom VJP).
 
 The CUDA kernels are ``csrc/wn_coupling_fwd.cu`` and
-``csrc/wn_coupling_bwd.cu``. ``wn_coupling`` runs ``WNCouplingFunction``:
+``csrc/wn_coupling_bwd.cu``, and for the bf16 backward
+``csrc/wn_coupling_bwd_bf16.cu`` (TMA and wgmma; its scratch is
+``bwd16_layout``, one allocation a call). ``wn_coupling`` runs ``WNCouplingFunction``:
 for a CUDA tensor its forward launches the forward kernel (one call: a
 weight packing launch for k > 1, then 2 + 2 * n_layers launches of the
 tensor-core convolution) and its backward the backward kernels, or raises; for a CPU tensor the same Function runs
@@ -43,8 +45,10 @@ round cotangents it does not).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -162,11 +166,14 @@ def _recompute(x0, lens, w: WNWeights, seed, p_drop: float, rnd=same):
     return valid, hs, xins, acts_all, skip
 
 
-def recomputed_xin(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0, p_drop: float = 0.0) -> torch.Tensor:
-    """Each layer's post-dropout conv output [L, B, T, 2H] as the plain
-    recompute forms it (fp32, the products' operands rounded in bf16)."""
+def recomputed_buffers(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0,
+                       p_drop: float = 0.0) -> Dict[str, torch.Tensor]:
+    """{"xin": each layer's post-dropout conv output [L, B, T, 2H], "skip":
+    the skip sum [B, T, H]} as the plain recompute forms them (fp32, the
+    products' operands rounded in bf16)."""
     rnd, xf, wf = _operands(x0, w)
-    return torch.stack(_recompute(xf, lens, wf, seed, p_drop, rnd)[2])
+    _, _, xins, _, skip = _recompute(xf, lens, wf, seed, p_drop, rnd)
+    return {"xin": torch.stack(xins), "skip": skip}
 
 
 def wn_coupling_reference(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=0,
@@ -313,6 +320,101 @@ def _dropout_args(p_drop: float) -> tuple:
     return keep_threshold(p_drop), keep_scale(p_drop)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 backward's scratch (csrc/wn_coupling_bwd_bf16.cu, B3's and B6's)
+# ---------------------------------------------------------------------------
+# The parts in the order the kernels take their pointers: the products' bf16
+# operands (x0 and g packed, each layer's h, acts, dh and dx_in, skip * valid,
+# dskip), the fp32 values fp32 work reads (x_in, the residual chains of h and
+# dh, the skip sum), the packed weights, B6's x1, dxc, mt^T's first half rows
+# and mt, then the fp32 partials of the bias and weight-gradient sums.
+BWD16_PARTS = ("x0", "g", "h", "acts", "skip", "dskip", "dh", "dxin", "xin", "h32", "skip32", "dh32", "w_s",
+               "w_s_t", "w_end_t", "w_in", "w_in_t", "w_rs", "w_rs_t", "x1", "dxc", "mt_t", "mt", "bias_part",
+               "wsum_part")
+BWD16_ALIGN = 1024  # bytes: every part starts on this boundary of the one allocation
+BWD16_TILE = 64     # frames of a product's tile: a row of the bias partials
+
+
+class Part(NamedTuple):
+    """A part of the scratch: its byte offset, shape (a bf16 operand's last
+    dimension padded to pitch8 of its channels) and dtype; ``tma``: TMA reads
+    it, so its base and row stride must be multiples of 16 bytes."""
+
+    offset: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    tma: bool
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+def pitch8(channels: int) -> int:
+    """Elements of a padded bf16 row: the next multiple of 8 (16 bytes)."""
+    return -(-channels // 8) * 8
+
+
+@functools.lru_cache(maxsize=64)
+def bwd16_layout(B: int, T: int, half: int, H: int, c_out: int, n_layers: int, kernel_size: int, flow: bool,
+                 wsum_floats: int) -> Dict[str, Part]:
+    """The bf16 backward's scratch in one allocation, BWD16_PARTS in order,
+    each part BWD16_ALIGN-aligned; B6's parts (``flow``) empty for B3.
+    ``wsum_floats``: the weight sums' partials (the library's
+    wn16_wsum_part_floats, which depends on the card's SMs). Cached: the
+    caller must not change the dict."""
+    L, k, C = n_layers, kernel_size, c_out
+    bf, f32 = torch.bfloat16, torch.float32
+    bt, lbt = (B, T), (L, B, T)
+    none = (0,)
+    S = 1 + 2 * L + (2 if flow else 0)  # bias sources: dskip, each dh_i and dx_in_i, B6's daln and dalb
+    shapes = {
+        "x0": ((*bt, pitch8(half)), bf, True), "g": ((*bt, pitch8(C)), bf, True),
+        "h": ((*lbt, pitch8(H)), bf, True), "acts": ((*lbt, pitch8(H)), bf, True),
+        "skip": ((*bt, pitch8(H)), bf, True), "dskip": ((*bt, pitch8(H)), bf, True),
+        "dh": ((*lbt, pitch8(H)), bf, True), "dxin": ((*lbt, pitch8(2 * H)), bf, True),
+        "xin": ((*lbt, 2 * H), f32, False), "h32": ((*bt, H), f32, False), "skip32": ((*bt, H), f32, False),
+        "dh32": ((*bt, H), f32, False),
+        "w_s": ((1, H, pitch8(half)), bf, True), "w_s_t": ((1, half, pitch8(H)), bf, True),
+        "w_end_t": ((1, H, pitch8(C)), bf, True),
+        "w_in": ((L * k, 64 * -(-H // 32), pitch8(H)), bf, True),  # the gate's row order: 32 tanh rows, 32 sigmoid
+        "w_in_t": ((L * k, H, pitch8(2 * H)), bf, True), "w_rs": ((L, 2 * H, pitch8(H)), bf, True),
+        # W_rs^T: the residual half's H columns, zeros to a multiple of 64, the skip half's H
+        "w_rs_t": ((L, H, pitch8(64 * -(-H // 64) + H)), bf, True),
+        "x1": ((*bt, pitch8(C)) if flow else none, bf, True), "dxc": ((*bt, pitch8(C)) if flow else none, bf, True),
+        "mt_t": ((1, half, pitch8(C)) if flow else none, bf, True),
+        "mt": ((1, C, pitch8(C)) if flow else none, bf, True),
+        "bias_part": ((S, B * -(-T // BWD16_TILE), max(2 * H, C)), f32, False),
+        "wsum_part": ((wsum_floats,), f32, False),
+    }
+    layout, offset = {}, 0
+    for name in BWD16_PARTS:
+        part = Part(offset, *shapes[name])
+        layout[name] = part
+        offset += -(-part.nbytes // BWD16_ALIGN) * BWD16_ALIGN
+    return layout
+
+
+def bwd16_scratch(x: torch.Tensor, shape: tuple, flow: bool):
+    """(the one uint8 allocation, its parts' pointers in BWD16_PARTS order
+    (None for an empty part), the recompute's buffers as ``return_buffers``
+    gives them: {"xin": [L, B, T, 2H], "skip": [B, T, H]} fp32 views) for
+    the bf16 backward of ``shape`` (``_shape_args``)."""
+    lib = _build.build()
+    wsum = lib.wn16_wsum_part_floats(*shape, int(flow))
+    if wsum < 0:
+        raise ValueError(f"wn_coupling: the bf16 backward does not take the shape {shape}")
+    B, T, half, H, c_out, L, k, _ = shape
+    layout = bwd16_layout(B, T, half, H, c_out, L, k, flow, wsum)
+    last = layout[BWD16_PARTS[-1]]
+    buf = torch.empty(last.offset + last.nbytes, dtype=torch.uint8, device=x.device)
+    base = buf.data_ptr()
+    ptrs = (ctypes.c_void_p * len(BWD16_PARTS))(*[base + p.offset if p.nbytes else None for p in layout.values()])
+    views = {name: buf[layout[part].offset:layout[part].offset + layout[part].nbytes].view(torch.float32)
+             .view(layout[part].shape) for name, part in (("xin", "xin"), ("skip", "skip32"))}
+    return buf, ptrs, views
+
+
 def _launch_fwd(x0, lens, w: WNWeights, seed, p_drop: float) -> torch.Tensor:
     _check_call(x0, lens, w, seed)
     B, T, _ = x0.shape
@@ -344,16 +446,18 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     A CUDA tensor launches ``csrc/wn_coupling_bwd.cu`` (the recomputed
     forward, then per layer in reverse the gate's and the dilated conv's
     transposes, then one fixed-order reduction of every weight gradient: two
-    calls are bitwise equal; every product in 3xTF32 on the tensor cores, or
-    in one bf16 MMA for bf16 tensors) and counts
-    ``wn_coupling_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
+    calls are bitwise equal; every product in 3xTF32 on the tensor cores),
+    or for bf16 tensors ``csrc/wn_coupling_bwd_bf16.cu`` (the same chain on
+    TMA and wgmma, its scratch ``bwd16_layout`` in one allocation), and
+    counts ``wn_coupling_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
     tensor runs ``wn_coupling_backward_reference``. ``return_buffers``
-    adds {"xin": [L, B, T, 2H]}: each layer's post-dropout conv output as
-    the kernels recomputed it (the plain recompute's on the CPU), fp32.
+    adds {"xin": [L, B, T, 2H], "skip": [B, T, H]}: each layer's
+    post-dropout conv output and the skip sum as the kernels recomputed
+    them (the plain recompute's on the CPU), fp32.
     """
     if x0.device.type == "cpu":
         dx0, grads = wn_coupling_backward_reference(x0, lens, w, g, seed, p_drop)
-        return (dx0, grads, {"xin": recomputed_xin(x0, lens, w, seed, p_drop)}) if return_buffers else (dx0, grads)
+        return (dx0, grads, recomputed_buffers(x0, lens, w, seed, p_drop)) if return_buffers else (dx0, grads)
     if x0.device.type != "cuda":
         raise ValueError(f"wn_coupling_backward: unsupported device {x0.device}")
     _check_call(x0, lens, w, seed)
@@ -363,31 +467,40 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     if g.shape != (B, T, C) or g.dtype != x0.dtype or not g.is_contiguous() or g.device != x0.device:
         raise ValueError(f"wn_coupling_backward: g must be a contiguous {x0.dtype} [{B}, {T}, {C}] tensor, "
                          f"got {g.dtype}")
-    empty = lambda *shape: torch.empty(*shape, device=x0.device, dtype=torch.float32)  # noqa: E731
     dx0 = torch.empty(B, T, half, device=x0.device, dtype=x0.dtype)
-    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
-    hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
-    xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
-    skip, dskip = empty(B, T, H), empty(B, T, H)
     lib = _build.build()
     shape = _shape_args(x0, w)
-    workspace = empty(lib.wn_coupling_bwd_workspace_floats(*shape))
-    rc = (lib.wn_coupling_bwd_bf16 if bf16 else lib.wn_coupling_bwd)(
-        x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
-        w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
-        w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs),
-        dx0.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
-        _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
-        hs.data_ptr(), xin.data_ptr(), acts.data_ptr(), skip.data_ptr(), dskip.data_ptr(), dh.data_ptr(),
-        dxin.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
+    inputs = (x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
+              w.ws.data_ptr(), _pointers(w.win), _pointers(w.wrs), w.wend.data_ptr(),
+              w.bs.data_ptr(), _pointers(w.bin), _pointers(w.brs))
+    grads = WNWeights.from_flat([torch.empty_like(t) for t in w.flat()], w.dilations)
+    if bf16:
+        scratch, parts, bufs = bwd16_scratch(x0, shape, flow=False)
+        rc = lib.wn_coupling_bwd_bf16(
+            *inputs, dx0.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win),
+            _pointers(grads.bin), _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(),
+            grads.bend.data_ptr(), parts, *shape, *_dropout_args(p_drop), _stream(x0))
+    else:
+        empty = lambda *shape: torch.empty(*shape, device=x0.device, dtype=torch.float32)  # noqa: E731
+        hs, acts, dh = empty(L, B, T, H), empty(L, B, T, H), empty(L, B, T, H)
+        xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
+        skip, dskip = empty(B, T, H), empty(B, T, H)
+        workspace = empty(lib.wn_coupling_bwd_workspace_floats(*shape))
+        bufs = {"xin": xin, "skip": skip}
+        rc = lib.wn_coupling_bwd(
+            *inputs, dx0.data_ptr(), grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win),
+            _pointers(grads.bin), _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(),
+            grads.bend.data_ptr(), hs.data_ptr(), xin.data_ptr(), acts.data_ptr(), skip.data_ptr(),
+            dskip.data_ptr(), dh.data_ptr(), dxin.data_ptr(), workspace.data_ptr(), *shape,
+            *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
-        raise RuntimeError(f"wn_coupling_bwd launch failed with cudaError {rc}")
+        raise RuntimeError(f"wn_coupling_bwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
     if bf16:
         wn_coupling_backward.bf16_launches += 1
     else:
         wn_coupling_backward.launches += 1
     if return_buffers:
-        return dx0, grads, {"xin": xin}
+        return dx0, grads, bufs
     return dx0, grads
 
 

@@ -185,3 +185,39 @@ def test_mixed_dtypes_raise():
     w32 = wn.WNWeights.from_flat([t if i else t.float() for i, t in enumerate(w.flat())], w.dilations)
     with pytest.raises(ValueError, match="share one dtype"):
         wn.wn_coupling_reference(_t(x0), lens, w32)
+
+
+# the bf16 backward's scratch (csrc/wn_coupling_bwd_bf16.cu): Glow's width at (8, 384) and
+# chip_smoke's B3_OTHER_SHAPES, odd widths included, (B, T, half, H, c_out, n_layers, kernel_size)
+LAYOUT_SHAPES = ((8, 384, 80, 192, 160, 4, 5), (3, 7, 80, 192, 160, 4, 5), (3, 64, 80, 192, 160, 4, 3),
+                 (3, 64, 10, 30, 20, 3, 5), (2, 48, 6, 9, 12, 2, 1))
+
+
+@pytest.mark.parametrize("flow", (False, True), ids=("b3", "b6"))
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd16_layout_follows_tma_rules(shape, flow):
+    """Every part of the one allocation starts on a 16-byte boundary; every
+    part TMA reads has rows a multiple of 16 bytes apart that hold its
+    channels; no two parts overlap; B6's parts are empty for B3."""
+    B, T, half, H, c_out, L, k = shape
+    layout = wn.bwd16_layout(B, T, half, H, c_out, L, k, flow, wsum_floats=12345)
+    assert tuple(layout) == wn.BWD16_PARTS
+    channels = {"x0": half, "g": c_out, "h": H, "acts": H, "skip": H, "dskip": H, "dh": H, "dxin": 2 * H,
+                "w_s": half, "w_s_t": H, "w_end_t": c_out, "w_in": H, "w_in_t": 2 * H, "w_rs": H,
+                "w_rs_t": 64 * -(-H // 64) + H, "x1": c_out, "dxc": c_out, "mt_t": c_out, "mt": c_out}
+    spans = []
+    for name, part in layout.items():
+        assert part.offset % 16 == 0 and part.offset % wn.BWD16_ALIGN == 0, name
+        if part.tma and part.nbytes:
+            row = part.shape[-1] * part.dtype.itemsize
+            assert part.dtype == torch.bfloat16 and row % 16 == 0, (name, part.shape)
+            assert channels[name] <= part.shape[-1] < channels[name] + 8, (name, part.shape)
+        if name in ("x1", "dxc", "mt_t", "mt"):
+            assert (part.nbytes > 0) == flow, name
+        spans.append((part.offset, part.offset + part.nbytes, name))
+    spans.sort()
+    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+        assert end <= start, (a, b)
+    assert layout["xin"].shape == (L, B, T, 2 * H) and layout["xin"].dtype == torch.float32
+    assert layout["wsum_part"].nbytes == 4 * 12345
+    assert layout["w_in"].shape[1] == 64 * -(-H // 32)  # the gate's rows: 32 tanh, then 32 sigmoid a group
