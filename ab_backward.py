@@ -35,7 +35,8 @@ and the bias partials), so that two trees can be held bit for bit; it
 loads each tree's library from its build cache (building it there if it
 is missing) without ``chip_smoke.phase_build``'s checks. ``--ptxas`` builds
 each tree and compares its ptxas lines (each kernel by its mangled name,
-an anonymous namespace's path hash removed) outside the instances
+an anonymous namespace's path hash and an fp32 instance's float IO
+argument removed: without_io) outside the instances
 PTXAS_CHANGED names with the first tree's, as multisets, the fp32 instances
 apart from the bf16 ones. ``--bf16-wn`` measures, for each tree, B3's and
 B6's bf16 backwards at (8, 384) squeezed frames (``glow_inputs`` cast as
@@ -50,6 +51,19 @@ sha256 of dx and every gradient; then the bf16 Glow train step
 the busy share of one step under torch.profiler, the median of each
 route's two runs. ``--bf16-wn-kernels`` measures the two backwards alone,
 without the steps (about 2 min a tree, most of it the build).
+``--bf16-enc`` measures, for each tree, B5's bf16 backward
+(``enc_layer.enc_layer_backward`` on the Glow encoder's first layer cast
+as ``chip_smoke.enc_bf16`` casts it, phase_bf16_enc_layer's inputs) at
+(8, 256) and VQ-TTS's (4, 64), p = 0 and B5_DROP, beside B5's fp32
+backward on the same values in fp32: back to back, a call
+(``chip_smoke.cuda_ms``), the bf16 backward's device time and launches by
+launch kind (torch.profiler over 3 calls) and at (8, 256), p = B5_DROP, a
+sha256 of dx and every gradient; then the bf16 Glow train step on the B3
+and the B6 route and the bf16 VQ-TTS train step on B5's route
+(``chip_smoke.phase_bf16_vqtts_train``, fused_encoder: true) in turns (b3,
+b6, vqtts, vqtts, b6, b3): each run's median step, peak, the kernels' ms and
+the busy share of one step under torch.profiler, the medians of a route's
+two runs.
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -60,6 +74,7 @@ without the steps (about 2 min a tree, most of it the build).
     python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
     python3 ab_backward.py --bf16-wn build/parent . . build/parent   # B3's and B6's bf16 backwards, the bf16 Glow steps
     python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the two backwards alone
+    python3 ab_backward.py --bf16-enc build/parent . . build/parent   # B5's bf16 backward, the bf16 Glow/VQ-TTS steps
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
@@ -115,10 +130,16 @@ FWD_PS = (0.0, 0.1)
 FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B3's and B6's bf16 backwards, the
-# first bf16 form's instances of conv_mma, wgrad_mma and wgrad_rows under their tags, and the redesign's
-# kernels (namespace wn16); B3's and B6's bf16 forwards, B1's and B5's bf16 kernels are held with the rest
-PTXAS_CHANGED = ("14BfloatWnBwdTag", "16BfloatFlowBwdTag", "4wn16")
+# instances the change may alter, by a piece of their mangled names: B5's bf16 backward, the first bf16
+# form's instances of conv_mma, wgrad_mma, wgrad_rows and the encoder's attention under its tag, and the
+# redesign's kernels (namespace enc16); of the engine it shares with B3's and B6's bf16 backwards
+# (namespace wn16), the kernels whose code changed: the products (their k-slice ring now in
+# bf16_engine.cuh), the weight sums' reduction and the bias sums (now the engine's, for all three); the
+# weight sums and the packing, B3's, B5's and B6's bf16 forwards, B1's bf16 kernels and every fp32 instance
+# are held with the rest
+PTXAS_CHANGED = ("17BfloatLayerBwdTag", "5enc16", "16wn16_gemm_kernel", "23wn16_wsum_reduce_kernel",
+                 "16wn16_bias_kernel")
+BF16_ENC_SHAPES = (0, 4)  # chip_smoke.B5_SHAPES' (8, 256) and VQ-TTS's (4, 64)
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -586,6 +607,75 @@ def bf16_glow_steps(torch, cs, device, card) -> dict:
     return out
 
 
+def bf16_enc_backwards(torch, np, cs, device) -> dict:
+    """B5's bf16 backward at B5_SHAPES[i] for i in BF16_ENC_SHAPES, p = 0 and
+    B5_DROP (phase_bf16_enc_layer's inputs), B5's fp32 backward beside it on
+    the same values: back to back, a call, the bf16 backward's device time
+    by launch kind, and at the first shape and B5_DROP a sha256 of dx and
+    every gradient."""
+    import hashlib
+
+    from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
+
+    w32 = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
+    w32 = w32.with_tensors([t.detach() for t in w32.tensors().values()])
+    w16 = cs.enc_bf16(w32)
+    seed = torch.tensor([5353], dtype=torch.int64, device=device)
+    out = {}
+    with torch.no_grad():
+        for i in BF16_ENC_SHAPES:
+            B, T = cs.B5_SHAPES[i]
+            rng = np.random.RandomState(840 + i)
+            lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
+            x = torch.from_numpy(rng.randn(B, T, w16.wq.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
+            g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device).to(torch.bfloat16)
+            for p in (0.0, cs.B5_DROP):
+                for mode, args in (("bf16", (x, lens, w16, g)), ("fp32", (x.float(), lens, w32, g.float()))):
+                    call = lambda: enc_ops.enc_layer_backward(*args, seed, p)  # noqa: E731
+                    key = f"b5_{mode}_bwd_{B}x{T}_p{p}"
+                    out[f"{key}_ms"] = back_to_back_ms(torch, call, GLOW_BWD_REPS)
+                    out[f"{key}_call_ms"] = cs.cuda_ms(call, reps=20, warmup=3)
+                    if mode == "bf16":
+                        out[f"{key}_kinds"] = launch_kinds(torch, call)
+            if i == BF16_ENC_SHAPES[0]:
+                dx, grads = enc_ops.enc_layer_backward(x, lens, w16, g, seed, cs.B5_DROP)
+                torch.cuda.synchronize()
+                digest = hashlib.sha256()
+                for t in (dx, *grads.values()):
+                    digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                out["b5_bf16_bwd_sha256"] = digest.hexdigest()
+                del dx, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_enc_steps(torch, cs, device, card) -> dict:
+    """The bf16 Glow train step on the B3 and the B6 route and the bf16
+    VQ-TTS train step on B5's route in turns (b3, b6, vqtts, vqtts, b6, b3):
+    each run's median step, its peak, and the kernels' ms and the device's
+    busy share of one more step under torch.profiler; the medians of the two
+    runs a route."""
+    runs = {"glow_b3": [], "glow_b6": [], "vqtts_b5": []}
+    for route in ("glow_b3", "glow_b6", "vqtts_b5", "vqtts_b5", "glow_b6", "glow_b3"):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            if route == "vqtts_b5":
+                res = cs.phase_bf16_vqtts_train(device, card, fused_encoder=True)
+            else:
+                res = cs.phase_bf16_glow_train(device, card, flow_step=route == "glow_b6")
+        kernels = re.search(r"kernels ([0-9.]+) ms of ([0-9.]+) ms wall", printed.getvalue())
+        runs[route].append({"ms": res["step_ms"], "peak": res["peak"], "busy": res["busy"],
+                            "kernel_ms": float(kernels.group(1))})
+        del res
+        torch.cuda.empty_cache()
+    out = {}
+    for route, rs in runs.items():
+        for key in ("ms", "peak", "busy", "kernel_ms"):
+            out[f"bf16_{route}_step_{key}"] = statistics.median(r[key] for r in rs)
+        out[f"bf16_{route}_step_runs"] = rs
+    return out
+
+
 def bf16_backward(torch, cs, gh, device, card, step: bool = True) -> dict:
     """B1's bf16 tile passes and reduction back to back (p=TILE_P) summed
     over the VQ-VAE's and VQ-TTS's block shapes, then (``step``) the bf16
@@ -664,6 +754,10 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         if mode == "--bf16-wn":
             out.update(bf16_glow_steps(torch, cs, device, card))
         return out
+    if mode == "--bf16-enc":
+        out.update(bf16_enc_backwards(torch, np, cs, device))
+        out.update(bf16_enc_steps(torch, cs, device, card))
+        return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
         out.update(codec_kernels(torch, np, cs, att, gh, device))
@@ -694,13 +788,23 @@ def mangled_lines(report: str) -> list:
     lines, name, spills = [], None, ""
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", line.split("'")[1])
+            name = without_io(re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", line.split("'")[1]))
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and name:
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}, {spills}")
             name = None
     return lines
+
+
+def without_io(name: str) -> str:
+    """A mangled name without the float IO template argument that the fp32
+    instances of wgrad_rows, wgrad_mma and the encoder's attention backward
+    took after their tag (and WHOLE) in trees that still had a bf16 mode
+    there, so that their lines compare by kernel across that change."""
+    if not re.match(r"_ZN(10wgrad_rows|9wgrad_mma|9enc_layer)", name):
+        return name
+    return re.sub(r"(Tag(?:ELb[01])?E)fEEv", r"\1EEv", name, count=1)
 
 
 def is_changed_kernel(line: str) -> bool:
@@ -718,7 +822,8 @@ def is_bf16(line: str) -> bool:
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
-    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd", "--bf16-wn", "--bf16-wn-kernels")
+    modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd", "--bf16-wn", "--bf16-wn-kernels",
+             "--bf16-enc")
     mode = next((a for a in args if a in modes), "")
     args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
@@ -727,7 +832,7 @@ def main() -> None:
     trees = args
     if len(trees) < 2:
         raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles | "
-                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels] "
+                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels | --bf16-enc] "
                          "TREE TREE [TREE ...] "
                          "(e.g. parent "
                          "change change parent)")
@@ -760,7 +865,7 @@ def main() -> None:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
         return
-    if mode in ("--bf16-wn", "--bf16-wn-kernels"):
+    if mode in ("--bf16-wn", "--bf16-wn-kernels", "--bf16-enc"):
         for key in [k for k, v in results[0].items() if isinstance(v, float) and k != "seconds"]:
             print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results)
                   + f" [{results[0]['card']}]")
@@ -772,8 +877,9 @@ def main() -> None:
                                   for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
                       + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} "
                       f"launches) [{res['card']}]")
-        for key in ("b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256"):
-            print(f"[ab] {key} (dx and every gradient at p = B3_DROP): "
+        shas = ("b5_bf16_bwd_sha256",) if mode == "--bf16-enc" else ("b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256")
+        for key in shas:
+            print(f"[ab] {key} (dx and every gradient at p = {'B5_DROP' if 'b5' in key else 'B3_DROP'}): "
                   + ", ".join(f"{r['tree']} {r[key][:16]}" for r in results)
                   + f"; all equal: {len({r[key] for r in results}) == 1}")
         return

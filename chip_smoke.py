@@ -238,7 +238,8 @@ reduction off from phase 1 on, as TF32 is):
 Then the bf16 modes of B3, B5, B6 and B2 and the bf16 train steps of
 Glow-TTS (both decoder routes), VQ-TTS (both encoder routes) and the LM:
 B3's and B6's bf16 kernels at B3_SHAPES and B3_OTHER_SHAPES and B5's at
-B5_SHAPES against their plain bf16 versions (relative L2 2^-7, 2^-6 of
+B5_SHAPES (and at B5_SWEEP's kernel sizes and windows) against their plain
+bf16 versions (relative L2 2^-7, 2^-6 of
 max|ref|; B3 and B6 also each conditioner layer at the backward's own
 recomputed x_in and the end conv on its skip sum, 99% within one ulp, their
 masks read back bit for bit, and the backward by launch kind with its bytes
@@ -351,6 +352,10 @@ B3_OTHER_SHAPES = ((3, 64, 80, 192, 3, 2, 4), (3, 64, 10, 30, 5, 3, 3), (2, 48, 
 # (B, tokens): the val step's, one utterance, the route's bound, one shorter than the window, VQ-TTS's
 # train step's (fused_encoder: true)
 B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3), (4, 64))
+# phase_bf16_enc_layer's sweep of the bf16 layer's other kernel sizes and
+# windows (k, window), at one ragged shape: the smallest and largest window
+# (band widths 1 and 17) at kernel sizes 1 and 5
+B5_SWEEP_SHAPE, B5_SWEEP = (4, 64), ((1, 0), (1, 8), (5, 0), (5, 8))
 MAS_SHAPES = ((8, 256, 768), (8, 512, 1024))  # [B, t_x, t_y]
 # B4's edge shapes: t_x and t_y off the kernel's multiples of 32 and of its chunk, t_x at the wrapper's
 # limit, one sequence, more valid tokens than frames, and twice the frames of MAS_SHAPES[0] (the slope)
@@ -533,7 +538,8 @@ KERNEL_NAMES = ("enc_attention_bwd_dq_kernel", "enc_attention_bwd_dkdv_kernel", 
                 "tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad16_reduce_kernel", "bias16_kernel",
                 "wgmma_probe_kernel", "branch_conv_kernel", "branch_gate_kernel", "transpose_weights_kernel",
                 "wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel", "wn16_bias_kernel",
-                "wn16_pack_kernel")
+                "wn16_pack_kernel", "enc16_gemm_kernel", "enc16_rows_kernel", "enc16_att_fwd_kernel",
+                "enc16_att_dq_kernel", "enc16_att_dkdv_kernel")
 # B1's kernels in the order gated_hifi_{fwd,bwd}_blocks_per_sm report them
 B1_FWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_out_kernel")
 B1_BWD_KERNELS = ("tile_expand_kernel", "tile_conv_kernel", "tile_branch_kernel", "tile_gate_kernel",
@@ -557,6 +563,14 @@ WN16_KERNELS = ("wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel
                 "wn16_pack_kernel")
 WN16_EPILOGUES = ("start", "gate", "res/skip", "dskip", "gate bwd", "conv^T", "dx0", "dxc", "xc", "dx1")
 WN16_INSTANCES = 14
+# B5's bf16 backward (csrc/enc_layer_bwd_bf16.cu, on bf16_engine.cuh's ring, weight sums and bias sums,
+# which WN16_KERNELS count): the product kernel's instances (enc16_gemm_kernel<EPI>, EPI as ENC16_EPILOGUES
+# names them), the LayerNorm rows (enc16_rows_kernel<MODE>, ENC16_ROWS) and attention's three (<DROP>)
+ENC16_KERNELS = ("enc16_gemm_kernel", "enc16_rows_kernel", "enc16_att_fwd_kernel", "enc16_att_dq_kernel",
+                 "enc16_att_dkdv_kernel")
+ENC16_EPILOGUES = ("qkv", "part", "ffn1", "drelu", "doh", "dx")
+ENC16_ROWS = ("ln1 fwd", "ln2 fwd+bwd", "ln1 bwd")
+ENC16_INSTANCES = 15
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
@@ -643,6 +657,11 @@ def phase_build() -> None:
           + " | ".join(wn16))
     require(len(wn16) == WN16_INSTANCES and all("0 bytes spill stores" in line for line in wn16),
             f"a B3/B6 bf16 backward kernel is missing or spills: {wn16}")
+    enc16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in ENC16_KERNELS]
+    print("[build] B5 bf16 backward on TMA and wgmma, attention on bf16 mma.sync (ptxas: registers, shared "
+          "memory, spills): " + " | ".join(enc16))
+    require(len(enc16) == ENC16_INSTANCES and all("0 bytes spill stores" in line for line in enc16),
+            f"a B5 bf16 backward kernel is missing or spills: {enc16}")
     b5 = {side: [line for line in ptxas if line.split(":")[0].split("<")[0] in B5_KERNELS
                  and f"Layer{side}Tag" in line.split(":")[0]] for side in ("Fwd", "Bwd")}
     for side, lines in b5.items():
@@ -2438,21 +2457,24 @@ def phase_enc_layer_bwd(model: GlowTTS, device, card: str) -> dict:
     return out
 
 
-def enc_masks(x, lens, w: enc_ops.EncLayerWeights, g, seed, bufs: dict, plain: dict, valid, card: str) -> None:
-    """B5's four dropout sites read back from its backward buffers: the
-    band's dropped probabilities (every pair at T <= w + 1), conv_o's output
-    cotangent after dropout, the FFN's hidden rows (where |c1| is clear of
-    0) and its output cotangent, each against the plain version's masks."""
+def enc_masks(x, lens, w: enc_ops.EncLayerWeights, g, seed, bufs: dict, plain: dict, valid, card: str,
+              flip_rtol: float = FLIP_RTOL) -> None:
+    """B5's four dropout sites read back from its backward buffers (fp32, or
+    the bf16 mode's: enc_ops.backward_buffer_shapes): the band's dropped
+    probabilities (every pair at T <= w + 1), conv_o's output cotangent
+    after dropout, the FFN's hidden rows (where |c1| is clear of 0 by
+    flip_rtol of its max) and its output cotangent, each against the plain
+    version's masks."""
     B, T, C = x.shape
     H, R, Fc, p = w.n_heads, 2 * w.window + 1, w.w1.shape[0], B5_DROP
     site = lambda s, width: enc_ops.dropout_keep(seed, lens, T, width, s, p) > 0  # noqa: E731
     band_ok = band_keys(lens, T, w.window)[:, :, None, :].expand(B, T, H, R)
     want_p = enc_ops.band_extract(enc_ops.attention_keep(seed, lens, H, T, p), w.window).permute(0, 2, 1, 3) > 0
     c1 = plain["c1"]
-    clear = (c1.abs() > FLIP_RTOL * c1.abs().max()) & valid[..., None]  # relu decisions clear of a tie
+    clear = (c1.abs() > flip_rtol * c1.abs().max()) & valid[..., None]  # relu decisions clear of a tie
     rows = valid[..., None].expand(B, T, C)
     checks = {
-        "attention P (band)": (bufs["bandp"].view(B, T, H, R) != 0, want_p, band_ok),
+        "attention P (band)": (bufs["bandp"].reshape(B, T, H, R) != 0, want_p, band_ok),
         "conv_o output": (bufs["dy"] != 0, site(enc_ops.SITE_ATTN_Y, C), rows),
         "FFN hidden (c1 > 0)": (bufs["hid"] != 0, site(enc_ops.SITE_FFN_MID, Fc), clear & (c1 > 0)),
         "FFN output": (bufs["dc2"] != 0, site(enc_ops.SITE_FFN_Y, C), rows),
@@ -2464,7 +2486,7 @@ def enc_masks(x, lens, w: enc_ops.EncLayerWeights, g, seed, bufs: dict, plain: d
         rates[name] = (int(got[where].sum()), int(where.sum()))
     other = enc_ops.enc_layer_backward(x, lens, w, g, seed + 1, p, return_buffers=True)[2]
     changed = ((bufs["dy"] != 0) != (other["dy"] != 0))[rows].float().mean().item()
-    print(f"[B5 dropout] p={p} B={B} T={T}: the kernels' masks equal the plain version's bit for bit; keep rates "
+    print(f"[B5 dropout{' bf16' if x.dtype == torch.bfloat16 else ''}] p={p} B={B} T={T}: the kernels' masks equal the plain version's bit for bit; keep rates "
           + ", ".join(f"{k} {kept / n:.5f} of {n} (5 sigma {5 * np.sqrt(p * (1 - p) / n):.1e})"
                       for k, (kept, n) in rates.items())
           + f" (expect {1 - p:.5f}); another seed changes {changed:.4f} of conv_o's [{card}]")
@@ -3174,8 +3196,9 @@ def enc_bf16(w: enc_ops.EncLayerWeights) -> enc_ops.EncLayerWeights:
 
 def launch_kinds(fn) -> dict:
     """name -> (device ms a call, launches a call) of every kernel of ``fn``
-    (torch.profiler over 3 calls); wn16_gemm_kernel's instances named by
-    their epilogue (WN16_EPILOGUES)."""
+    (torch.profiler over 3 calls); wn16_gemm_kernel's and enc16_gemm_kernel's
+    instances named by their epilogue (WN16_EPILOGUES, ENC16_EPILOGUES),
+    enc16_rows_kernel's by its mode (ENC16_ROWS)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3192,9 +3215,11 @@ def launch_kinds(fn) -> dict:
                   if hasattr(e, n)), 0.0)
         if t > 0:
             name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
-            m = re.search(r"wn16_gemm_kernel<(\d+)>", name)
-            if m:
-                name = f"wn16_gemm_kernel<{WN16_EPILOGUES[int(m.group(1))]}>"
+            for kernel, kinds_of in (("wn16_gemm_kernel", WN16_EPILOGUES), ("enc16_gemm_kernel", ENC16_EPILOGUES),
+                                     ("enc16_rows_kernel", ENC16_ROWS)):
+                m = re.search(kernel + r"<(\d+)>", name)
+                if m:
+                    name = f"{kernel}<{kinds_of[int(m.group(1))]}>"
             ms, n = kinds.get(name, (0.0, 0.0))
             kinds[name] = (ms + t / 3 / 1e3, n + e.count / 3)
     return kinds
@@ -3356,6 +3381,76 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
     return {"fwd": fwd_out, "bwd": bwd_out}
 
 
+def enc16_bytes_per_frame(F: int, H: int, R: int, splits: int) -> dict:
+    """Device-memory bytes a frame of csrc/enc_layer_bwd_bf16.cu by design, by
+    launch (each launch's operands read once, a conv's taps and the weight
+    sums' shifts counted once, its outputs written once; the weights and the
+    partials that do not grow with the frames left out; C = 192, S the split
+    of the two 2,304-deep products): design arithmetic, not a measurement."""
+    C, S, dots = 192, splits, 2 * 4 * 24 * H  # q R_k^T and doh R_v^T: 24 fp32 a row and head
+    launches = {
+        "pack (x masked)": 2 * C + 2 * C,
+        "q|k|v": 2 * C + 6 * C,
+        "attention recompute": 6 * C + 2 * C + 8 * H,
+        "W_o (partials)": 2 * C + 4 * C,
+        "LN1 forward": 4 * C + 2 * C + 4 * C + 4 * C + 2 * C + 4,
+        "FFN conv 1": 2 * C + 4 * F + 2 * F,
+        "FFN conv 2 (split partials)": 2 * F + 4 * S * C,
+        "LN2 forward and backward": 4 * S * C + 4 * C + 2 * C + 4 * C + 2 * C,
+        "conv^T W_2, relu'": 2 * C + 4 * F + 2 * F,
+        "conv^T W_1 (split partials)": 2 * F + 4 * S * C,
+        "LN1 backward": 4 * S * C + 4 * C + 4 * C + 4 + 4 * C + 2 * C,
+        "doh": 2 * C + 2 * C,
+        "attention dq": 6 * C + 2 * C + 8 * H + 4 * H + dots + 2 * 2 * H * R + 2 * C,
+        "attention dk/dv": 6 * C + 2 * C + 12 * H + dots + 4 * C,
+        "dx": 6 * C + 4 * C + 2 * C,
+        "weight sums": 2 * C + 6 * C + 2 * C + 2 * C + 2 * C + 2 * F + 2 * F + 2 * C,
+    }
+    return {**launches, "total": sum(launches.values())}
+
+
+def enc_variant(w: enc_ops.EncLayerWeights, k: int, window: int, seed: int) -> enc_ops.EncLayerWeights:
+    """``w`` with FFN convs of kernel size ``k`` and relative tables of
+    ``window``, drawn from ``seed`` at the layer's init scales, in bf16."""
+    rng = np.random.RandomState(seed)
+    Fc, C, _ = w.w1.shape
+    D, R = C // w.n_heads, 2 * window + 1
+    draw = lambda *shape, fan: torch.from_numpy(  # noqa: E731
+        (rng.randn(*shape) / np.sqrt(fan)).astype(np.float32)).to(w.wq.device, torch.bfloat16)
+    t = {**w.tensors(), "w1": draw(Fc, C, k, fan=C * k), "w2": draw(C, Fc, k, fan=Fc * k),
+         "rk": draw(R, D, fan=D), "rv": draw(R, D, fan=D)}
+    return enc_ops.EncLayerWeights(*t.values(), n_heads=w.n_heads, window=window, eps=w.eps)
+
+
+def enc_bf16_intermediates(x, lens, w: enc_ops.EncLayerWeights, bufs: dict, seed, p: float) -> dict:
+    """The bf16 backward's recompute held at its own intermediates, as
+    teacher_forced holds B3's: its q|k|v against the plain bf16 products of
+    x, its heads' output against the plain attention of its own q|k|v, and
+    its FFN hidden rows (hid) against the plain conv, relu, dropout and mask
+    of its own LN1 output (x1m). name -> bf16_agreement at the valid rows."""
+    rnd, xf, wf = enc_ops._operands(x, w)
+    B, T, C = x.shape
+    H = wf.n_heads
+    valid = torch.arange(T, device=x.device)[None, :] < lens[:, None]
+    validf = valid.to(xf.dtype)[..., None]
+    xm = xf * validf
+    qkv = torch.cat([enc_ops.pointwise(rnd(xm), rnd(wt), b) for wt, b in ((wf.wq, wf.bq), (wf.wk, wf.bk),
+                                                                           (wf.wv, wf.bv))], dim=-1)
+    qk = bufs["qkv"].float()
+    probs = enc_ops.attention_probs(qk[..., :C], qk[..., C:2 * C], validf, rnd(wf.rk), H, wf.window)
+    if p > 0:
+        probs = probs * enc_ops.attention_keep(seed, lens, H, T, p)
+    pd = rnd(probs)
+    att = enc_ops._merge(pd @ enc_ops._heads(qk[..., 2 * C:], H) + enc_ops.band_extract(pd, wf.window) @ rnd(wf.rv))
+    hid = torch.relu(enc_ops.conv1d_ntc(bufs["x1m"].float(), rnd(wf.w1), wf.b1))
+    if p > 0:
+        hid = hid * enc_ops.dropout_keep(seed, lens, T, wf.w1.shape[0], enc_ops.SITE_FFN_MID, p)
+    hid = hid * validf
+    return {"q|k|v": bf16_agreement(bufs["qkv"][valid], qkv[valid]),
+            "heads' output": bf16_agreement(bufs["att"][valid], att[valid]),
+            "hid": bf16_agreement(bufs["hid"][valid], hid[valid])}
+
+
 def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
     """B5's bf16 forward and backward kernels against the plain bf16
     versions at B5_SHAPES (the first encoder layer's weights in bf16), p=0
@@ -3363,12 +3458,20 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
     within BF16_FLIP_RTOL); measures as phase_bf16_wn_coupling's (the ulp
     share, printed, is near 0.99 at (8, 256) and lower at (1, 160): the same
     roundings of 192- to 768-term fp32 sums, through attention and two
-    LayerNorms); times at (8, 256)."""
-    w = enc_bf16(model.encoder.layer_weights(0))
-    C, Fc = w.wq.shape[0], w.w1.shape[0]
+    LayerNorms); the backward's recompute at its own intermediates
+    (enc_bf16_intermediates: q|k|v, the heads' output and hid at least
+    BF16_ULP_SHARE within one ulp); the bf16 dropout masks read back bit for
+    bit (enc_masks); the same checks at B5_SWEEP_SHAPE over the kernel sizes
+    and windows of B5_SWEEP (enc_variant); times at (8, 256), with the
+    backward's device time by launch kind (launch_kinds) and its bytes a
+    frame by design."""
+    w0 = enc_bf16(model.encoder.layer_weights(0))
+    C, Fc, H = w0.wq.shape[0], w0.w1.shape[0], w0.n_heads
     seed = torch.tensor([5353], dtype=torch.int64, device=device)
     fwd_out, bwd_out = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
-    for i, (B, T) in enumerate(B5_SHAPES):
+    cases = [(w0, B, T) for B, T in B5_SHAPES] + [(enc_variant(w0, k, window, 860 + j), *B5_SWEEP_SHAPE)
+                                                   for j, (k, window) in enumerate(B5_SWEEP)]
+    for i, (w, B, T) in enumerate(cases):
         rng = np.random.RandomState(840 + i)
         lens_np = ragged(rng, B, max(1, T // 2), T).astype(np.int32)
         lens = torch.from_numpy(lens_np).to(device)
@@ -3382,19 +3485,25 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
                 dx_k, gw_k, bufs = enc_ops.enc_layer_backward(x, lens, w, g, seed, p, return_buffers=True)
                 dx_k2, gw_k2 = enc_ops.enc_layer_backward(x, lens, w, g, seed, p)
                 rnd, xf, wf = enc_ops._operands(x, w)
-                c1 = enc_ops._forward(xf, lens, wf, seed, p, rnd)["c1"]
+                plain = enc_ops._forward(xf, lens, wf, seed, p, rnd)
+                c1 = plain["c1"]
                 gate = bufs["hid"] > 0
                 kept = (enc_ops.dropout_keep(seed, lens, T, Fc, enc_ops.SITE_FFN_MID, p) > 0) if p else True
                 flip = ((c1 > 0) != gate) & kept & valid[..., None]
                 flips = (int(flip.sum()), c1.abs()[flip].max().item() if bool(flip.any()) else 0.0,
                          c1.abs().max().item())
                 dx_r, gw_r = enc_ops.enc_layer_backward_reference(x, lens, w, g, seed, p, relu_gate=gate.float())
+                inter = enc_bf16_intermediates(x, lens, w, bufs, seed, p)
                 torch.cuda.synchronize()
             agree = bf16_agreement(ours[valid], ref[valid])
-            tag = f"B={B} T={T}"
+            tag = f"B={B} T={T} k={w.w1.shape[2]} window={w.window}"
             require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B5] {tag} p={p}: forward {agree}")
             require(torch.equal(ours, again), f"[bf16 B5] {tag} p={p}: two forward calls differ")
             require(flips[1] <= BF16_FLIP_RTOL * flips[2], f"[bf16 B5] {tag} p={p}: a relu flipped: {flips}")
+            for name, a in inter.items():
+                require(a[0] >= BF16_ULP_SHARE and np.isfinite(a[1]),
+                        f"[bf16 B5 bwd] {tag} p={p}: the recompute's {name} is {a[0]} within one ulp of the plain "
+                        f"forward at its own upstream values (need {BF16_ULP_SHARE}): {a}")
             bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(gw_k[n], gw_k2[n]) for n in gw_k)
             dx_agree = bf16_agreement(dx_k[valid], dx_r[valid])
             report = bf16_grads_ok(f"[bf16 B5 bwd] {tag} p={p}", dx_agree, bf16_leaves(gw_k, gw_r), bitwise)
@@ -3408,25 +3517,33 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
                          "bwd_call": cuda_ms(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p), reps=5),
                          "bwd_plain": cuda_ms(lambda: enc_ops.enc_layer_backward_reference(x, lens, w, g, seed, p),
                                               reps=5, warmup=1)}
+                    kinds = launch_kinds(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p))
                 tokens = int(lens_np.sum())
                 params = sum(t_.numel() for t_ in w.tensors().values())
                 fb = bf16_bound(enc_flops(lens_np, w), 2 * (2 * tokens * C + params))
                 bb = bf16_bound(3 * enc_flops(lens_np, w), 2 * (3 * tokens * C + 2 * params))
+                per_frame = enc16_bytes_per_frame(Fc, H, 2 * w.window + 1, enc_ops.bwd16_splits(
+                    B, T, Fc, w.w1.shape[2], torch.cuda.get_device_properties(device).multi_processor_count))
                 times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
                          f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
-                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}; backward by launch kind: "
+                         f"{kinds_line(kinds)}; bytes a frame by design {per_frame}")
                 if p == 0.0:
                     fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
                                    bound_by=fb[1])
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
-                                   bound_by=bb[1])
+                                   bound_by=bb[1], kinds={n: [ms, c] for n, (ms, c) in kinds.items()})
             print(f"[bf16 B5] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
                   f"max_abs_err {agree[1]:.2e} of max|ref|; FFN relu flips {flips[0]} (largest |c1| {flips[1]:.1e} of "
-                  f"max {flips[2]:.1e}); backward {report}{times} [{card}]")
+                  f"max {flips[2]:.1e}); the backward's recompute at its own intermediates, within one bf16 ulp: "
+                  + ", ".join(f"{n} {a[0]:.5f}" for n, a in inter.items())
+                  + f" (need {BF16_ULP_SHARE}); backward {report}{times} [{card}]")
+            if p > 0:
+                enc_masks(x, lens, w, g, seed, bufs, plain, valid, card, flip_rtol=BF16_FLIP_RTOL)
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
-            del ours, again, ref, dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r
+            del ours, again, ref, dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
     return {"fwd": fwd_out, "bwd": bwd_out}
 
 
@@ -4626,9 +4743,11 @@ def main() -> None:
               b5_bf16["fwd"]["max_abs_err"], b5_bf16["fwd"]["ms"], b5_bf16["fwd"]["plain_ms"],
               b5_bf16["fwd"]["bound_ms"], b5_bf16["fwd"]["bound_by"], call_ms=b5_bf16["fwd"]["call_ms"],
               vqtts={"launches_b5_route": vq_bf16_b5["launches"][9]}),
-        entry("enc_layer_bwd_bf16", "enc_layer_bwd.cu", PALLAS_ENC + ":496", glow_b5_bwd_bf16,
+        entry("enc_layer_bwd_bf16", "enc_layer_bwd_bf16.cu", PALLAS_ENC + ":496", glow_b5_bwd_bf16,
               b5_bf16["bwd"]["max_abs_err"], b5_bf16["bwd"]["ms"], b5_bf16["bwd"]["plain_ms"],
               b5_bf16["bwd"]["bound_ms"], b5_bf16["bwd"]["bound_by"], call_ms=b5_bf16["bwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in ("enc_layer_bwd_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")],
+              launch_kinds=b5_bf16["bwd"]["kinds"],
               vqtts={"launches_b5_route": vq_bf16_b5["launches"][10]}),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],
               b6["fwd_plain_ms"], b6["fwd_bound_ms"], b6["fwd_bound_by"], call_ms=b6["fwd_call_ms"],

@@ -4,11 +4,7 @@
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, function
 // _vjp_bwd -> pallas_call(_bwd_kernel), the custom VJP of fused_enc_layer,
-// in its fp32 mode and (enc_layer_bwd_bf16) its bf16 mode: every product's
-// operands rounded to bf16 (enc_layer_common.cuh), fp32 sums and buffers,
-// delta_i = rowsum(dp * p) taken directly in a first pass over the keys
-// (the TPU kernel's form; doh . oh holds only without the rounding), dx
-// and the gradients (fp32 sums cast once) in bf16. Plain version:
+// in its fp32 mode (the bf16 mode is enc_layer_bwd_bf16.cu). Plain version:
 // ops/enc_layer.py:enc_layer_backward_reference.
 //
 // What it computes, for the output cotangent g [B, T, C] (zero at rows at or
@@ -80,7 +76,6 @@ namespace enc_layer {
 namespace {
 
 struct LayerBwdTag {};
-struct BfloatLayerBwdTag {};  // the bf16 mode's kernels
 
 // the buffers, in ops/enc_layer.py:backward_buffer_shapes order
 enum Buf : int { QKV, ATT, STATS, X1, ZHAT1, RINV1, HID, OUT, ZHAT2, RINV2, DZ2, GM, DC2, DC1, DZ1, DX1, DY, DATT,
@@ -93,13 +88,12 @@ __device__ __forceinline__ void load_part(float (&dst)[DP], const float* src) {
   for (int d = 0; d < DP; ++d) dst[d] = src[d];
 }
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
     const float* __restrict__ qkv, const float* __restrict__ att, const float* __restrict__ datt,
     const float2* __restrict__ stats, const float* __restrict__ rk, const float* __restrict__ rv,
     const int* __restrict__ lens, float* __restrict__ dqkv, float* __restrict__ delta,
     float* __restrict__ dclog, float* __restrict__ bandp, int T, int C, int window, float scale, Dropout drop) {
-  constexpr bool BF = conv_mma::kBf16<IO>;  // bf16: product operands rounded, rk and rv bf16
   __shared__ __align__(16) float ks[KT][HEAD_DIM];
   __shared__ __align__(16) float vs[KT][HEAD_DIM];
   const int tid = threadIdx.x, part = tid % PARTS, rl = tid / PARTS;
@@ -117,47 +111,20 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
   load_part(q, base + (size_t)rr * ld + d0);
   load_part(dout, datt + orow);
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    dq[d] = 0.0f;
-    if (BF) {
-      q[d] = rnd(q[d]);
-      dout[d] = rnd(dout[d]);
-    }
-  }
-  // delta_i = doh_i . oh_i (bf16: the first pass below sums dp * p)
-  float dl = BF ? 0.0f : part_dot(dout, att + orow);
+  for (int d = 0; d < DP; ++d) dq[d] = 0.0f;
+  // delta_i = doh_i . oh_i
+  float dl = part_dot(dout, att + orow);
   const float2 st = stats[((size_t)b * H + h) * T + rr];
   const float m = st.x, inv_l = 1.0f / st.y;
   float qr[MAX_REL], dr[MAX_REL], dcl[MAX_REL], bp[MAX_REL];
 #pragma unroll
   for (int i = 0; i < MAX_REL; ++i) {
-    qr[i] = i < nrel ? part_dot_param<BF>(q, rk, i * HEAD_DIM + part * DP) : 0.0f;
-    dr[i] = i < nrel ? part_dot_param<BF>(dout, rv, i * HEAD_DIM + part * DP) : 0.0f;
+    qr[i] = i < nrel ? part_dot(q, rk + i * HEAD_DIM + part * DP) : 0.0f;
+    dr[i] = i < nrel ? part_dot(dout, rv + i * HEAD_DIM + part * DP) : 0.0f;
     dcl[i] = bp[i] = 0.0f;
   }
 
   const int c_end = blockIdx.x * ROWS < len ? len : 0;  // a tile of padded rows visits no key
-  if (BF) {  // delta_i = sum_j dp_ij p_ij over the keys, as the TPU kernel takes it
-    for (int c0 = 0; c0 < c_end; c0 += KT) {
-      __syncthreads();
-      stage_kv<true>(ks, vs, base, c0, len, ld, C, h);
-      __syncthreads();
-      const int n = min(KT, len - c0);
-      for (int j = 0; j < n; ++j) {
-        const int c = c0 + j, off = c - rr;
-        float rel = 0.0f, drel = 0.0f;
-#pragma unroll
-        for (int i = 0; i < MAX_REL; ++i) {
-          const bool at = i < nrel && off == i - window;
-          rel = at ? qr[i] : rel;
-          drel = at ? dr[i] : drel;
-        }
-        const float p = expf((part_dot(q, &ks[j][part * DP]) + rel) * scale - m) * inv_l;
-        const float dp = (part_dot(dout, &vs[j][part * DP]) + drel) * keep_p(key, rr, c, T, drop);
-        dl = fmaf(dp, p, dl);
-      }
-    }
-  }
   for (int c0 = 0; c0 < c_end; c0 += KT) {  // uniform in the block: every lane runs every key
     __syncthreads();
     for (int e = tid; e < KT * HEAD_DIM / 4; e += ATT_THREADS) {
@@ -166,10 +133,6 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
       if (c < len) {
         kv = *reinterpret_cast<const float4*>(base + (size_t)c * ld + C + h * HEAD_DIM + d);
         vv = *reinterpret_cast<const float4*>(base + (size_t)c * ld + 2 * C + h * HEAD_DIM + d);
-      }
-      if (BF) {
-        kv = make_float4(rnd(kv.x), rnd(kv.y), rnd(kv.z), rnd(kv.w));
-        vv = make_float4(rnd(vv.x), rnd(vv.y), rnd(vv.z), rnd(vv.w));
       }
       *reinterpret_cast<float4*>(&ks[kr][d]) = kv;
       *reinterpret_cast<float4*>(&vs[kr][d]) = vv;
@@ -191,9 +154,8 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
       const float dp = (part_dot(dout, &vs[j][part * DP]) + drel) * kf;
       const float ds = p * (dp - dl) * scale;
       if (row_ok) {
-        const float dsr = BF ? rnd(ds) : ds;
 #pragma unroll
-        for (int d = 0; d < DP; ++d) dq[d] = fmaf(dsr, ks[j][part * DP + d], dq[d]);
+        for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, ks[j][part * DP + d], dq[d]);
 #pragma unroll
         for (int i = 0; i < MAX_REL; ++i) {
           const bool at = i < nrel && off == i - window;
@@ -208,8 +170,7 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
     for (int i = 0; i < nrel; ++i)
 #pragma unroll
       for (int d = 0; d < DP; ++d)
-        dq[d] = BF ? fmaf(rnd(dcl[i]), param<true>(rk, i * HEAD_DIM + part * DP + d), dq[d])
-                   : fmaf(dcl[i], rk[i * HEAD_DIM + part * DP + d], dq[d]);
+        dq[d] = fmaf(dcl[i], rk[i * HEAD_DIM + part * DP + d], dq[d]);
   float* dst = dqkv + ((size_t)b * T + r) * ld + d0;
 #pragma unroll
   for (int d = 0; d < DP; ++d) dst[d] = row_ok ? dq[d] : 0.0f;
@@ -226,12 +187,11 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dq_kernel(
   }
 }
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
     const float* __restrict__ qkv, const float* __restrict__ datt, const float2* __restrict__ stats,
     const float* __restrict__ delta, const float* __restrict__ rk, const float* __restrict__ rv,
     const int* __restrict__ lens, float* __restrict__ dqkv, int T, int C, int window, float scale, Dropout drop) {
-  constexpr bool BF = conv_mma::kBf16<IO>;  // bf16: product operands rounded, rk and rv bf16
   __shared__ __align__(16) float qs[KT][HEAD_DIM];
   __shared__ __align__(16) float gs[KT][HEAD_DIM];
   __shared__ float sm[KT], sl[KT], sd[KT];
@@ -251,13 +211,7 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
   load_part(kr, base + (size_t)cc * ld + C + d0);
   load_part(vr, base + (size_t)cc * ld + 2 * C + d0);
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    dk[d] = dv[d] = 0.0f;
-    if (BF) {
-      kr[d] = rnd(kr[d]);
-      vr[d] = rnd(vr[d]);
-    }
-  }
+  for (int d = 0; d < DP; ++d) dk[d] = dv[d] = 0.0f;
 
   const int r_end = blockIdx.x * ROWS < len ? len : 0;  // a tile of padded keys visits no row
   for (int r0 = 0; r0 < r_end; r0 += KT) {  // uniform in the block
@@ -268,10 +222,6 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
       if (r < len) {
         qv = *reinterpret_cast<const float4*>(base + (size_t)r * ld + h * HEAD_DIM + d);
         gv = *reinterpret_cast<const float4*>(datt + ((size_t)b * T + r) * C + h * HEAD_DIM + d);
-      }
-      if (BF) {
-        qv = make_float4(rnd(qv.x), rnd(qv.y), rnd(qv.z), rnd(qv.w));
-        gv = make_float4(rnd(gv.x), rnd(gv.y), rnd(gv.z), rnd(gv.w));
       }
       *reinterpret_cast<float4*>(&qs[i][d]) = qv;
       *reinterpret_cast<float4*>(&gs[i][d]) = gv;
@@ -289,8 +239,8 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
       const int i = e / nrel, o = e % nrel;
       float a = 0.0f, g = 0.0f;
       for (int d = 0; d < HEAD_DIM; ++d) {
-        a = fmaf(qs[i][d], param<BF>(rk, o * HEAD_DIM + d), a);
-        g = fmaf(gs[i][d], param<BF>(rv, o * HEAD_DIM + d), g);
+        a = fmaf(qs[i][d], rk[o * HEAD_DIM + d], a);
+        g = fmaf(gs[i][d], rv[o * HEAD_DIM + d], g);
       }
       sqr[i][o] = a;
       sdr[i][o] = g;
@@ -306,12 +256,11 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_bwd_dkdv_kernel(
       const float dp = (part_dot(vr, &gs[i][part * DP]) + (band ? sdr[i][o] : 0.0f)) * kf;
       const float ds = p * (dp - sd[i]) * scale;
       if (col_ok) {
-        const float pd = BF ? rnd(p * kf) : p * kf;
-        const float dsr = BF ? rnd(ds) : ds;
+        const float pd = p * kf;
 #pragma unroll
         for (int d = 0; d < DP; ++d) {
           dv[d] = fmaf(pd, gs[i][part * DP + d], dv[d]);
-          dk[d] = fmaf(dsr, qs[i][part * DP + d], dk[d]);
+          dk[d] = fmaf(ds, qs[i][part * DP + d], dk[d]);
         }
       }
     }
@@ -335,22 +284,18 @@ struct Problems {
   long long mma_floats, rows_floats;
 };
 
-Problems problems(const float* x, float* const* d, float* const* bufs, const Shape& sh, bool bf16 = false) {
+Problems problems(const float* x, float* const* d, float* const* bufs, const Shape& sh) {
   using wgrad_rows::problem;
   const int C = sh.C, F = sh.F, k = sh.kernel_size, H = sh.n_heads, R = 2 * sh.window + 1;
   auto buf = [bufs](int i) -> float* { return bufs ? bufs[i] : nullptr; };
   auto grad = [d](int i) -> float* { return d ? d[i] : nullptr; };
   auto at = [](const float* p, size_t off) -> const float* { return p ? p + off : nullptr; };
-  // a gradient's element `off` (bf16 elements when the gradients hold bf16)
-  auto atg = [d, bf16](int i, size_t off) -> float* {
-    return d ? (bf16 ? conv_mma::elems_at<conv_mma::bf16_t>(d[i], off) : d[i] + off) : nullptr;
-  };
+  auto atg = [d](int i, size_t off) -> float* { return d ? d[i] + off : nullptr; };
   Problems f;
   for (int i = 0; i < 3; ++i) {  // q, k, v
     wgrad_rows::Problem p = problem(x, C, C, at(buf(DQKV), i * C), 3 * C, C, grad(WQ + 2 * i), C, 1);
     p.mask_x = 1;
     p.out_b = grad(BQ + 2 * i);
-    p.bf16 = bf16 ? wgrad_rows::X_BF16 : 0;  // x
     f.mma.push_back(p);
   }
   wgrad_rows::Problem p = problem(buf(ATT), C, C, buf(DY), C, C, grad(WO), C, 1);
@@ -409,14 +354,12 @@ extern "C" long enc_layer_bwd_workspace_floats(int B, int T, int C, int n_heads,
 namespace enc_layer {
 namespace {
 
-// The backward's launches in the mode IO (float, or bf16: x, g, the
-// weights, dx and the gradients hold bf16; the buffers stay fp32).
-template <class Tag, class IO>
+// The backward's launches.
 int backward(const float* x, const int* lens, const long long* seed, const float* g, const float* const* params,
              float* dx, float* const* grads, float* const* bufs, float* workspace, const Shape& sh, unsigned threshold,
              float keep_scale, cudaStream_t s) {
   using namespace conv_rows;
-  constexpr bool BF = conv_mma::kBf16<IO>;
+  using Tag = LayerBwdTag;
   const int B = sh.B, T = sh.T, C = sh.C, kernel_size = sh.kernel_size, n_heads = sh.n_heads, window = sh.window;
   const float* const* p = params;
   const Weights w{p[WQ], p[BQ], p[WK], p[BK], p[WV], p[BV], p[RK], p[RV], p[WO], p[BO], p[G1], p[BE1],
@@ -424,9 +367,9 @@ int backward(const float* x, const int* lens, const long long* seed, const float
   const Dropout drop{seed, threshold, keep_scale};
   float2* stats = reinterpret_cast<float2*>(bufs[STATS]);
   Packed pk;
-  cudaError_t err = pack<Tag, IO>(w, sh, true, workspace, &pk, s);
+  cudaError_t err = pack<Tag>(w, sh, true, workspace, &pk, s);
   if (err != cudaSuccess) return (int)err;
-  err = forward_chain<Tag, IO>(x, lens, w, pk, sh, drop, bufs[OUT], bufs[QKV], bufs[ATT], stats, bufs[X1],
+  err = forward_chain<Tag>(x, lens, w, pk, sh, drop, bufs[OUT], bufs[QKV], bufs[ATT], stats, bufs[X1],
                                bufs[ZHAT1], bufs[RINV1], bufs[HID], bufs[ZHAT2], bufs[RINV2], s);
   if (err != cudaSuccess) return (int)err;
 
@@ -438,17 +381,17 @@ int backward(const float* x, const int* lens, const long long* seed, const float
 
   Args l2 = a;  // LN2's backward alone: dz2, g masked, dc2 = dz2 * keep_F * valid
   l2.cin = 0; l2.n_out = C; l2.out = bufs[DZ2]; l2.ldo = C;
-  l2.res = g; l2.ldr = C; l2.mask_res = 1; l2.mask_acc = 0; l2.res_bf16 = BF;
+  l2.res = g; l2.ldr = C; l2.mask_res = 1; l2.mask_acc = 0;
   l2.zhat = bufs[ZHAT2]; l2.rinv = bufs[RINV2]; l2.ldz = C; l2.gamma = w.g2;
   l2.out2 = bufs[GM]; l2.out3 = bufs[DC2];
   l2.stream_add = SITE_FFN_Y * 16; l2.drop_ld = C;
-  err = product<Tag, 1, LN_TN, LN_BWD, IO>(l2, B, s);
+  err = product<Tag, 1, LN_TN, LN_BWD>(l2, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args f2 = a;  // dc1 = conv^T(dc2, W_2) where the relu kept the row (h > 0), times the keep scale
   f2.in = bufs[DC2]; f2.ldi = C; f2.cin = C; f2.mask_in = 1;
   f2.w = pk.w2t; f2.n_out = sh.F; f2.out = bufs[DC1]; f2.ldo = sh.F; f2.res = bufs[HID]; f2.ldr = sh.F;
-  err = product_taps<Tag, 128, DRELU, IO>(kernel_size, f2, B, s);
+  err = product_taps<Tag, 128, DRELU>(kernel_size, f2, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args f1 = a;  // dx1 = dz2 + conv^T(dc1, W_1) * valid, then LN1's backward; dy = dz1 * keep_Y * valid
@@ -458,41 +401,41 @@ int backward(const float* x, const int* lens, const long long* seed, const float
   f1.zhat = bufs[ZHAT1]; f1.rinv = bufs[RINV1]; f1.ldz = C; f1.gamma = w.g1;
   f1.out2 = bufs[DX1]; f1.out3 = bufs[DY];
   f1.stream_add = SITE_ATTN_Y * 16; f1.drop_ld = C;
-  err = product_taps<Tag, LN_TN, LN_BWD, IO>(kernel_size, f1, B, s);
+  err = product_taps<Tag, LN_TN, LN_BWD>(kernel_size, f1, B, s);
   if (err != cudaSuccess) return (int)err;
 
   Args o = a;  // doh = dy W_o^T
   o.in = bufs[DY]; o.ldi = C; o.cin = C; o.mask_in = 0;
   o.w = w.wo; o.n_out = C; o.out = bufs[DATT]; o.ldo = C;
-  err = product<Tag, 1, 64, BIAS, IO>(o, B, s);
+  err = product<Tag, 1, 64, BIAS>(o, B, s);
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid((T + ROWS - 1) / ROWS, n_heads, B);
   const float scale = 1.0f / sqrtf((float)HEAD_DIM);
-  enc_attention_bwd_dq_kernel<Tag, IO><<<grid, ATT_THREADS, 0, s>>>(
+  enc_attention_bwd_dq_kernel<Tag><<<grid, ATT_THREADS, 0, s>>>(
       bufs[QKV], bufs[ATT], bufs[DATT], stats, w.rk, w.rv, lens, bufs[DQKV], bufs[DELTA], bufs[DCLOG],
       bufs[BANDP], T, C, window, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // same stream: this kernel reads the delta the dq kernel wrote
-  enc_attention_bwd_dkdv_kernel<Tag, IO><<<grid, ATT_THREADS, 0, s>>>(
+  enc_attention_bwd_dkdv_kernel<Tag><<<grid, ATT_THREADS, 0, s>>>(
       bufs[QKV], bufs[DATT], stats, bufs[DELTA], w.rk, w.rv, lens, bufs[DQKV], T, C, window, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   Args t = a;  // dx = (dz1 + [dq|dk|dv] [W_q; W_k; W_v]) * valid: one product of depth 3C
   t.in = bufs[DQKV]; t.ldi = 3 * C; t.cin = 3 * C; t.mask_in = 0;
-  t.w = pk.wqkv; t.n_out = C; t.out = dx; t.ldo = C; t.out_bf16 = BF;
+  t.w = pk.wqkv; t.n_out = C; t.out = dx; t.ldo = C;
   t.res = bufs[DZ1]; t.ldr = C; t.hidden = 0;
-  err = product<Tag, 1, LN_TN, RES_SKIP, IO>(t, B, s);
+  err = product<Tag, 1, LN_TN, RES_SKIP>(t, B, s);
   if (err != cudaSuccess) return (int)err;
 
-  const Problems f = problems(x, grads, bufs, sh, BF);
+  const Problems f = problems(x, grads, bufs, sh);
   if (f.mma_split < 1) return (int)cudaErrorInvalidValue;
   float* partials = workspace + packed_floats(sh, true);
-  err = wgrad_mma::run<Tag, IO>(f.mma, lens, B, T, f.mma_split, partials, s);
+  err = wgrad_mma::run<Tag>(f.mma, lens, B, T, f.mma_split, partials, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)wgrad_rows::run<Tag, IO>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);
+  return (int)wgrad_rows::run<Tag>(f.rows, lens, B, T, f.rows_split, partials + f.mma_floats, s);
 }
 
 }  // namespace
@@ -510,22 +453,8 @@ extern "C" int enc_layer_bwd(const float* x, const int* lens, const long long* s
                              int kernel_size, float eps, unsigned threshold, float keep_scale, void* stream) {
   const enc_layer::Shape sh{B, T, C, n_heads, window, F, kernel_size, eps};
   if (!enc_layer::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  return enc_layer::backward<enc_layer::LayerBwdTag, float>(x, lens, seed, g, params, dx, grads, bufs, workspace, sh,
-                                                            threshold, keep_scale, static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 mode: x, g, the weights, dx and the gradients bf16 (void*); the
-// buffers fp32; the same workspace (enc_layer_bwd_workspace_floats).
-extern "C" int enc_layer_bwd_bf16(const void* x, const int* lens, const long long* seed, const void* g,
-                                  const void* const* params, void* dx, void* const* grads, float* const* bufs,
-                                  float* workspace, int B, int T, int C, int n_heads, int window, int F,
-                                  int kernel_size, float eps, unsigned threshold, float keep_scale, void* stream) {
-  const enc_layer::Shape sh{B, T, C, n_heads, window, F, kernel_size, eps};
-  if (!enc_layer::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  return enc_layer::backward<enc_layer::BfloatLayerBwdTag, conv_mma::bf16_t>(
-      static_cast<const float*>(x), lens, seed, static_cast<const float*>(g),
-      reinterpret_cast<const float* const*>(params), static_cast<float*>(dx), reinterpret_cast<float* const*>(grads),
-      bufs, workspace, sh, threshold, keep_scale, static_cast<cudaStream_t>(stream));
+  return enc_layer::backward(x, lens, seed, g, params, dx, grads, bufs, workspace, sh, threshold, keep_scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core kernels' resident blocks per SM and dynamic shared memory

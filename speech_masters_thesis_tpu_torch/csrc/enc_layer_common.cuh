@@ -1,12 +1,13 @@
 // One Glow-TTS text-encoder layer's forward, shared by the forward kernel
-// (enc_layer_fwd.cu) and the backward's recompute (enc_layer_bwd.cu): the
-// windowed relative attention kernel, the packing of the weights the
+// (enc_layer_fwd.cu) and the fp32 backward's recompute (enc_layer_bwd.cu):
+// the windowed relative attention kernel, the packing of the weights the
 // products read, and the chain of launches around them. The products run on
 // the tensor cores in 3xTF32 (conv_mma.cuh), with conv_rows.cuh's epilogues.
+// The bf16 backward (enc_layer_bwd_bf16.cu) has a recompute of its own.
 //
 // IO is the mode (conv_mma.cuh): float, or bf16 for the TPU kernel's bf16
-// dot_dtype, in which x, the weights, out (and the backward's g, dx and
-// gradients) hold bf16 (the pointers stay float* and are read as bf16), the
+// dot_dtype, in which x, the weights and out hold bf16 (the pointers stay
+// float* and are read as bf16), the
 // buffers between the launches stay fp32 and every product rounds its
 // operands to bf16: on the tensor cores as conv_mma.cuh builds fragments, in
 // the attention kernels (CUDA cores, fp32 sums: a bf16 x bf16 product is

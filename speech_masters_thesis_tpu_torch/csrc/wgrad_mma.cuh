@@ -22,22 +22,14 @@
 // partials in slice order: no atomics, two calls are bitwise equal. The
 // slice count fills whole waves of the card's resident blocks (splits).
 //
-// bf16 mode (IO = __nv_bfloat16, the TPU kernels' bf16 dots): the slabs stay
-// fp32 (X or Y that hold bf16, Problem::bf16, land by 2-byte loads converted
-// to fp32), the fragments are rounded to bf16 as they are built, two k-steps
-// of 16 a slab in m16n8k16 MMAs, the same flush every 1,024 frames (bf16
-// mma.sync's accumulation truncates too); the reduce kernel writes the
-// gradients in bf16 (the fp32 sums cast once), or in fp32 for a problem
-// flagged wgrad_rows::OUT_F32 (the flow step's dmt).
+// fp32 only: the bf16 backwards sum their weights on bf16_engine.cuh.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 #include <vector>
 
-#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 #include "wgrad_rows.cuh"
 
@@ -75,10 +67,9 @@ inline long long assign_tiles(std::vector<Problem>& probs) {
   return total;
 }
 
-template <class Tag, bool WHOLE, class IO = float>
+template <class Tag, bool WHOLE>
 __global__ void __launch_bounds__(NT, 2) wgrad_mma_kernel(const Batch batch, const int* __restrict__ lens, int B,
                                                           int T, int n_split, float* __restrict__ partials) {
-  constexpr bool BF = std::is_same<IO, __nv_bfloat16>::value;
   extern __shared__ __align__(16) float smem[];
   // the block's problem and tile: blockIdx.x counts the batch's tiles
   const long long tile = batch.p[0].part + blockIdx.x;
@@ -112,11 +103,7 @@ __global__ void __launch_bounds__(NT, 2) wgrad_mma_kernel(const Batch batch, con
         in = ts >= 0 && ts < T && !(pr.mask_x && ts >= lens[b]);
       }
       float* dst = xs + rr * LDX + 4 * (f % (TMW / 4));
-      if (BF && (pr.bf16 & wgrad_rows::X_BF16)) {
-        const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(pr.X) + (r + pr.shift) * pr.ldx + m;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = in && m + e < pr.M ? __bfloat162float(x[e]) : 0.f;
-      } else if (WHOLE)
+      if (WHOLE)
         tf32::cp_async16(dst, in ? pr.X + (r + pr.shift) * pr.ldx + m : pr.X, in ? 16 : 0);
       else
         tf32::stage4(dst, [&](int e) -> const float* {
@@ -129,11 +116,7 @@ __global__ void __launch_bounds__(NT, 2) wgrad_mma_kernel(const Batch batch, con
       bool in = r < r_end && n < pr.N;
       if (in && pr.mask_y) in = (int)(r % T) < lens[r / T];
       float* dst = ys + rr * LDY + 4 * (f % (TNW / 4));
-      if (BF && (pr.bf16 & wgrad_rows::Y_BF16)) {
-        const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(pr.Y) + r * pr.ldy + n;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = in && n + e < pr.N ? __bfloat162float(y[e]) : 0.f;
-      } else if (WHOLE)
+      if (WHOLE)
         tf32::cp_async16(dst, in ? pr.Y + r * pr.ldy + n : pr.Y, in ? 16 : 0);
       else
         tf32::stage4(dst, [&](int e) -> const float* {
@@ -177,30 +160,7 @@ __global__ void __launch_bounds__(NT, 2) wgrad_mma_kernel(const Batch batch, con
     tf32::cp_async_commit();
     const float* xs = smem + (s % STAGES) * STAGE_FLOATS;
     const float* ys = xs + KF * LDX;
-    if (active && BF) {
-#pragma unroll
-      for (int kk = 0; kk < KF / 16; ++kk) {
-        // A (m, k) = X[frame k, channel m], B (k, n) = Y[frame k, channel n]: each
-        // register two frames (k = 2q, 2q + 1, and 8 further), rounded to bf16
-        uint32_t fa[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* x = xs + (16 * kk + 2 * qd) * LDX + wrow + 16 * mt + gr;
-          fa[mt][0] = bf16::pack(x[0], x[LDX]);
-          fa[mt][1] = bf16::pack(x[8], x[LDX + 8]);
-          fa[mt][2] = bf16::pack(x[8 * LDX], x[9 * LDX]);
-          fa[mt][3] = bf16::pack(x[8 * LDX + 8], x[9 * LDX + 8]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float* y = ys + (16 * kk + 2 * qd) * LDY + wcol + 8 * nt + gr;
-          const uint32_t fb[2] = {bf16::pack(y[0], y[LDY]), bf16::pack(y[8 * LDY], y[9 * LDY])};
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) bf16::mma(acc[mt][nt], fa[mt], fb);
-        }
-      }
-      if ((s + 1) % FLUSH == 0 || s + 1 == n_slabs) flush(s < FLUSH);
-    } else if (active) {
+    if (active) {
 #pragma unroll
       for (int kk = 0; kk < KF / 8; ++kk) {
         // A (m, k) = X[frame k, channel m]: the slab's rows are frames
@@ -238,10 +198,9 @@ __global__ void __launch_bounds__(NT, 2) wgrad_mma_kernel(const Batch batch, con
   }
 }
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(NT) wgrad_mma_reduce_kernel(const Batch batch, int n_split,
                                                               const float* __restrict__ partials) {
-  constexpr bool BF = std::is_same<IO, __nv_bfloat16>::value;
   const long long tile = batch.p[0].part + blockIdx.y;
   int q = 0;
   while (q + 1 < batch.n && batch.p[q + 1].part <= tile) ++q;
@@ -267,10 +226,7 @@ __global__ void __launch_bounds__(NT) wgrad_mma_reduce_kernel(const Batch batch,
   const float* src = partials + (size_t)tile * n_split * PART + at;
   float sum = 0.f;
   for (int s = 0; s < n_split; ++s) sum += src[(size_t)s * PART];  // fixed order
-  if (BF && !(pr.bf16 & wgrad_rows::OUT_F32))
-    wgrad_rows::put<BF>(m < 0 ? pr.out_b : pr.out_w,
-                        m < 0 ? n0 + n : (long long)(n0 + n) * pr.ldn + (long long)(m0 + m) * pr.ldm, sum);
-  else if (m < 0)
+  if (m < 0)
     pr.out_b[n0 + n] = sum;
   else
     pr.out_w[(long long)(n0 + n) * pr.ldn + (long long)(m0 + m) * pr.ldm] = sum;
@@ -303,11 +259,10 @@ int splits(long long tile_count, long long rows) {
 }
 
 // Every problem's X and Y in 16-byte pieces: widths, row strides and pointers in multiples of 4 floats
-// (operands that hold bf16 take 2-byte loads either way)
 inline bool whole_pieces(const std::vector<Problem>& probs) {
   for (const Problem& p : probs) {
-    const bool x = (p.bf16 & wgrad_rows::X_BF16) || (tf32::aligned16(p.X) && p.ldx % 4 == 0 && p.M % 4 == 0);
-    const bool y = (p.bf16 & wgrad_rows::Y_BF16) || (tf32::aligned16(p.Y) && p.ldy % 4 == 0 && p.N % 4 == 0);
+    const bool x = tf32::aligned16(p.X) && p.ldx % 4 == 0 && p.M % 4 == 0;
+    const bool y = tf32::aligned16(p.Y) && p.ldy % 4 == 0 && p.N % 4 == 0;
     if (!x || !y) return false;
   }
   return true;
@@ -316,10 +271,10 @@ inline bool whole_pieces(const std::vector<Problem>& probs) {
 // Both kernels for every problem (assign_tiles first), MAX_PROBLEMS at a
 // time, on `stream`: the slices in 16-byte pieces when whole_pieces, else
 // in 4-byte ones.
-template <class Tag, class IO = float>
+template <class Tag>
 cudaError_t run(const std::vector<Problem>& probs, const int* lens, int B, int T, int n_split, float* partials,
                 cudaStream_t stream) {
-  auto kernel = whole_pieces(probs) ? wgrad_mma_kernel<Tag, true, IO> : wgrad_mma_kernel<Tag, false, IO>;
+  auto kernel = whole_pieces(probs) ? wgrad_mma_kernel<Tag, true> : wgrad_mma_kernel<Tag, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return err;
   for (size_t p0 = 0; p0 < probs.size(); p0 += MAX_PROBLEMS) {
@@ -333,7 +288,7 @@ cudaError_t run(const std::vector<Problem>& probs, const int* lens, int B, int T
     kernel<<<dim3(n_tiles, n_split), NT, SMEM, stream>>>(batch, lens, B, T, n_split, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    wgrad_mma_reduce_kernel<Tag, IO><<<dim3((PART + NT - 1) / NT, n_tiles), NT, 0, stream>>>(batch, n_split,
+    wgrad_mma_reduce_kernel<Tag><<<dim3((PART + NT - 1) / NT, n_tiles), NT, 0, stream>>>(batch, n_split,
                                                                                               partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

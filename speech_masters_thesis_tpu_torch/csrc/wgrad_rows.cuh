@@ -23,18 +23,10 @@
 // into its own partial, and the reduce kernel adds the slices' partials in
 // slice order.
 //
-// bf16 mode (IO = __nv_bfloat16): the outer problems' X and Y are rounded to
-// bf16 before each product (the TPU kernels' bf16 dots: exact products,
-// fp32 sums), the diagonal ones (LayerNorm gains: elementwise, not dots) are
-// not, and the reduce kernel writes out_w and out_b in bf16 (the sums cast
-// once, as the TPU kernels' VJPs cast to the parameters' dtype), or in fp32
-// for a problem flagged OUT_F32 (the flow step's ActNorm and InvConvNear
-// gradients, which the TPU kernel keeps fp32). X or Y flagged X_BF16 or
-// Y_BF16 hold bf16 (Problem::bf16), here and in wgrad_mma.cuh.
+// fp32 only: the bf16 backwards sum their weights on bf16_engine.cuh.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -55,22 +47,8 @@ struct Problem {
   float* out_b;
   long long part;  // this problem's first partial float
   int ldx, ldy, gx, gy, groups, M, N, shift, mask_x, mask_y, diag, ldn, ldm;
-  int bf16;        // the bf16 mode: X_BF16 | Y_BF16, the operands that hold bf16; OUT_F32, fp32 outputs
 };
-static_assert(sizeof(Problem) == 96, "the bf16 flags fill Problem's padding: the fp32 kernels' parameters keep their layout");
-constexpr int X_BF16 = 1, Y_BF16 = 2, OUT_F32 = 4;
-
-// the bf16 value nearest v, as fp32
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// out[i] = v, in bf16 when BF
-template <bool BF>
-__device__ __forceinline__ void put(float* out, long long i, float v) {
-  if (BF)
-    reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
-  else
-    out[i] = v;
-}
+static_assert(sizeof(Problem) == 96, "the kernels' parameters keep their layout");
 
 struct Batch {
   Problem p[MAX_PROBLEMS];
@@ -90,11 +68,10 @@ inline long long assign_partials(std::vector<Problem>& probs, int n_split) {
   return total;
 }
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(NT) wgrad_partial_kernel(const Batch batch, const int* __restrict__ lens,
                                                            int B, int T, int n_split,
                                                            float* __restrict__ partials) {
-  constexpr bool BF = std::is_same<IO, __nv_bfloat16>::value;
   __shared__ float ys[SLAB][TILE];
   __shared__ float xs[SLAB][TILE];
   const Problem& pr = batch.p[blockIdx.y];
@@ -123,11 +100,11 @@ __global__ void __launch_bounds__(NT) wgrad_partial_kernel(const Batch batch, co
         const int n = n0 + c, m = (pr.diag ? n0 : m0) + c, ts = t + pr.shift;
         if (n < pr.N && !(pr.mask_y && t >= len)) {
           const long long i = f * pr.ldy + (long long)g * pr.gy + n;
-          yv = BF && (pr.bf16 & Y_BF16) ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pr.Y)[i]) : pr.Y[i];
+          yv = pr.Y[i];
         }
         if (m < (pr.diag ? pr.N : pr.M) && ts >= 0 && ts < T && !(pr.mask_x && ts >= len)) {
           const long long i = (f + pr.shift) * pr.ldx + (long long)g * pr.gx + m;
-          xv = BF && (pr.bf16 & X_BF16) ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pr.X)[i]) : pr.X[i];
+          xv = pr.X[i];
         }
       }
       ys[rr][c] = yv;
@@ -143,8 +120,8 @@ __global__ void __launch_bounds__(NT) wgrad_partial_kernel(const Batch batch, co
         float yn[4], xm[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          yn[i] = BF ? round_bf16(ys[rr][ty + 16 * i]) : ys[rr][ty + 16 * i];
-          xm[i] = BF ? round_bf16(xs[rr][tx + 16 * i]) : xs[rr][tx + 16 * i];
+          yn[i] = ys[rr][ty + 16 * i];
+          xm[i] = xs[rr][tx + 16 * i];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -169,10 +146,9 @@ __global__ void __launch_bounds__(NT) wgrad_partial_kernel(const Batch batch, co
   if (tid < TILE) out[TILE * TILE + tid] = colsum;
 }
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(const Batch batch, int n_split,
                                                           const float* __restrict__ partials) {
-  constexpr bool BF = std::is_same<IO, __nv_bfloat16>::value;
   const Problem& pr = batch.p[blockIdx.z];
   const int tile = blockIdx.y;
   const int e = blockIdx.x * NT + threadIdx.x;
@@ -194,17 +170,14 @@ __global__ void __launch_bounds__(NT) wgrad_reduce_kernel(const Batch batch, int
   const float* src = partials + pr.part + (long long)tile * n_split * PART + e;
   float sum = 0.f;
   for (int s = 0; s < n_split; ++s) sum += src[(long long)s * PART];  // fixed order
-  if (BF && !(pr.bf16 & OUT_F32))
-    put<BF>(e >= TILE * TILE ? pr.out_b : pr.out_w, e >= TILE * TILE ? n : (long long)n * pr.ldn + (long long)m * pr.ldm,
-            sum);
-  else if (e >= TILE * TILE)
+  if (e >= TILE * TILE)
     pr.out_b[n] = sum;
   else
     pr.out_w[(long long)n * pr.ldn + (long long)m * pr.ldm] = sum;
 }
 
 // Both kernels for every problem, MAX_PROBLEMS at a time, on `stream`.
-template <class Tag, class IO = float>
+template <class Tag>
 cudaError_t run(const std::vector<Problem>& probs, const int* lens, int B, int T, int n_split, float* partials,
                 cudaStream_t stream) {
   for (size_t p0 = 0; p0 < probs.size(); p0 += MAX_PROBLEMS) {
@@ -215,11 +188,11 @@ cudaError_t run(const std::vector<Problem>& probs, const int* lens, int B, int T
       batch.p[i] = probs[p0 + i];
       max_tiles = tiles(batch.p[i]) > max_tiles ? tiles(batch.p[i]) : max_tiles;
     }
-    wgrad_partial_kernel<Tag, IO><<<dim3(max_tiles, n, n_split), NT, 0, stream>>>(batch, lens, B, T, n_split,
+    wgrad_partial_kernel<Tag><<<dim3(max_tiles, n, n_split), NT, 0, stream>>>(batch, lens, B, T, n_split,
                                                                                    partials);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    wgrad_reduce_kernel<Tag, IO><<<dim3((PART + NT - 1) / NT, max_tiles, n), NT, 0, stream>>>(batch, n_split,
+    wgrad_reduce_kernel<Tag><<<dim3((PART + NT - 1) / NT, max_tiles, n), NT, 0, stream>>>(batch, n_split,
                                                                                               partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -69,14 +69,15 @@
 // residual add of dh, and the column sums of the fp32 cotangents that the
 // bias gradients need (one fixed-order partial row a tile). Every epilogue
 // that writes an operand the convs read (h, dx_in, dh) writes exact zeros
-// past the lengths. The weight gradients are wn16_wsum_kernel: a block
+// past the lengths. The weight gradients are wn16_wsum_kernel (the engine
+// this file shares with B5's bf16 backward: bf16_engine.cuh): a block
 // computes 64 x 128 outputs of one problem over the frames (the frames as
 // wgmma's K, both operands MN-major as they lie in device memory, fp32 sums
 // every FLUSH slabs) and writes them in the gradient's own layout and
 // dtype; where the jobs are too few to fill the card, over a fixed share of
 // the frames, and wn16_wsum_reduce_kernel adds the shares in a fixed order.
-// wn16_bias_kernel adds the bias partials. No float atomics: two calls are
-// bitwise equal. Launches a call at Glow's shape (4 layers): B3 22 (a pack,
+// The engine's column sums (wn16_bias_kernel) add the bias partials. No
+// float atomics: two calls are bitwise equal. Launches a call at Glow's shape (4 layers): B3 22 (a pack,
 // 1 + 2 L recompute products, 1 + 2 L transposed, dx0, the weight sums, the
 // biases), B6 24 (x1 mt and dx1 = dxc mt^T more).
 
@@ -88,55 +89,12 @@
 
 #include <vector>
 
+#include "bf16_engine.cuh"
 #include "hash.cuh"
-#include "hopper.cuh"
 
 namespace wn16 {
 
-using namespace hopper;
-using bf16_t = __nv_bfloat16;
-
 constexpr int WN_STREAMS = 64;  // ops/wn_coupling.py WN_STREAMS: hash streams a sequence, one a layer
-constexpr int TM = 64;          // frames a tile, and a weight-gradient slab
-constexpr int KC = 64;          // channels a k-slice: one 128-byte swizzled row
-constexpr int RING = 4;         // k-slices in flight
-constexpr int THREADS = 128;    // one warpgroup
-
-__host__ __device__ constexpr int pitch8(int c) { return (c + 7) / 8 * 8; }  // a padded row: 16-byte multiple
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-__device__ __forceinline__ float f32(bf16_t v) { return __bfloat162float(v); }
-
-// Two adjacent elements (the second only when `two`): one 8-byte (fp32) or
-// 4-byte (bf16) access where the address allows, else one a element.
-__device__ __forceinline__ float2 ld2(const float* p, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(p) & 7) == 0) return *reinterpret_cast<const float2*>(p);
-  return make_float2(p[0], two ? p[1] : 0.f);
-}
-__device__ __forceinline__ float2 ld2(const bf16_t* p, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  return make_float2(f32(p[0]), two ? f32(p[1]) : 0.f);
-}
-__device__ __forceinline__ void st2(float* p, float a, float b, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = a;
-    if (two) p[1] = b;
-  }
-}
-__device__ __forceinline__ void st2(bf16_t* p, float a, float b, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    p[0] = __float2bfloat16_rn(a);
-    if (two) p[1] = __float2bfloat16_rn(b);
-  }
-}
 
 // ---- the products ------------------------------------------------------------
 enum Epi : int { START, GATE, RES, DSKIP, GATE_BWD, CONVT, DX0, DXC, XC, DX1 };
@@ -170,44 +128,12 @@ struct Gemm {
   int part_ld;
 };
 
-constexpr int BN = 64;  // output channels a tile
-struct GemmSmem {
-  static constexpr int A_BYTES = TM * KC * 2;
-  static constexpr int B_BYTES = BN * KC * 2;
-  static constexpr int SLOT = A_BYTES + B_BYTES;
-  static constexpr int RED_OFF = RING * SLOT;            // column sums: 4 warps x BN floats
-  static constexpr int BAR_OFF = RED_OFF + 4 * BN * 4;
-  static constexpr int BYTES = BAR_OFF + RING * 8 + 1024;  // + the 1024-byte alignment of the dynamic buffer
-  static_assert(SLOT % 1024 == 0 && BYTES <= 232448, "gemm16: swizzled slots, shared memory");
-};
-
 // rows of W_in's conv form: per 32 channels, their tanh rows then their sigmoid rows
 __host__ __device__ constexpr int gate_rows(int H) { return 2 * 32 * cdiv(H, 32); }
 
 __device__ __forceinline__ float drop(const Gemm& p, uint32_t key, int t, int c) {
   if (!p.threshold) return 1.0f;
   return hash_draw(key, (uint32_t)t * (uint32_t)(2 * p.H) + (uint32_t)c) >= p.threshold ? p.keep_scale : 0.0f;
-}
-
-// The tile's column sums of v (this thread's accumulator layout: element r
-// at column 8 (r / 4) + 2 (lane % 4) + r % 2 of two rows), rows in a fixed
-// order, into out[c] for c < limit.
-__device__ __forceinline__ void col_sums(const float (&v)[BN / 2], float* red, float* out, int limit) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < BN / 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = v[4 * q + e] + v[4 * q + 2 + e];
-      s += __shfl_xor_sync(0xFFFFFFFFu, s, 4);
-      s += __shfl_xor_sync(0xFFFFFFFFu, s, 8);
-      s += __shfl_xor_sync(0xFFFFFFFFu, s, 16);
-      if (lane < 4) red[warp * BN + 8 * q + 2 * lane + e] = s;
-    }
-  __syncthreads();
-  for (int c = threadIdx.x; c < BN && c < limit; c += THREADS)
-    out[c] = ((red[c] + red[BN + c]) + red[2 * BN + c]) + red[3 * BN + c];
-  __syncthreads();
 }
 
 template <int EPI>
@@ -218,23 +144,11 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
   uint64_t* const full = reinterpret_cast<uint64_t*>(sm + S::BAR_OFF);
   float* const red = reinterpret_cast<float*>(sm + S::RED_OFF);
   const int b = blockIdx.x / p.ntt, t0 = (blockIdx.x % p.ntt) * TM, n0 = blockIdx.y * BN;
-  const int per_tap = p.ch0 + p.ch1, ns = p.taps * per_tap;
+  const int ns = p.taps * (p.ch0 + p.ch1);
   const bool lead = threadIdx.x == 0;
-  if (lead) {
-    for (int i = 0; i < RING; ++i) mbar_init(&full[i], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
+  ring_init(full);
   auto load = [&](int s) {
-    if (s >= ns) return;
-    const int j = s / per_tap, u = s % per_tap, q = u < p.ch0 ? 0 : 1, c = q ? u - p.ch0 : u;
-    const int shift = p.sign * (j - (p.taps - 1) / 2) * p.dil;
-    uint64_t* const f = &full[s % RING];
-    uint8_t* const st = sm + (s % RING) * S::SLOT;
-    mbar_expect_tx(f, S::SLOT);
-    tma_load_3d(st, &p.a[q], f, KC * c, t0 + shift, p.a_plane[q] + b);
-    tma_load_3d(st + S::A_BYTES, &p.w, f, KC * (q ? p.ch0 + c : c), n0, p.w_plane + j);
+    if (s < ns) load_slice(p, sm, full, s, s, b, t0, n0);
   };
   if (lead)
     for (int s = 0; s < RING; ++s) load(s);
@@ -284,49 +198,8 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
     pre2[r + 1] = w.y;
   }
 
-  // Each k-slice's 4 wgmmas start from zero in one of two accumulators and
-  // are added to the fp32 sums while the next slice's run.
-  float sum[BN / 2], a0[BN / 2], a1[BN / 2];
-#pragma unroll
-  for (int r = 0; r < BN / 2; ++r) sum[r] = 0.f;
-  auto issue = [&](float (&acc)[BN / 2], int s) {
-#pragma unroll
-    for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
-    fence_regs(acc);
-    mbar_wait(&full[s % RING], (uint32_t)(s / RING) & 1u);
-    const uint32_t a_addr = smem_u32(sm + (s % RING) * S::SLOT), b_addr = a_addr + S::A_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk)
-      mma_k16<BN, 0, 0>(acc, desc_b128(a_addr + 32 * kk, 16, 1024), desc_b128(b_addr + 32 * kk, 16, 1024));
-    wgmma_commit();
-  };
-  auto retire = [&](float (&acc)[BN / 2], int s) {  // slice s's products are done: refill its slot, add them
-    fence_regs(acc);
-    if (lead) load(s + RING);
-#pragma unroll
-    for (int r = 0; r < BN / 2; ++r) sum[r] += acc[r];
-  };
-  issue(a0, 0);
-  int s = 1;
-  for (; s + 1 < ns; s += 2) {
-    issue(a1, s);
-    wgmma_wait<1>();
-    retire(a0, s - 1);
-    issue(a0, s + 1);
-    wgmma_wait<1>();
-    retire(a1, s);
-  }
-  if (s < ns) {
-    issue(a1, s);
-    wgmma_wait<1>();
-    retire(a0, s - 1);
-    wgmma_wait<0>();
-    retire(a1, s);
-  } else {
-    wgmma_wait<0>();
-    retire(a0, s - 1);
-  }
+  float sum[BN / 2];
+  ring_products(sm, full, ns, load, sum);
 
   // ---- epilogue
   const uint32_t key = p.threshold ? stream_key((uint32_t)p.seed[0], (uint32_t)(b * WN_STREAMS + p.layer)) : 0u;
@@ -464,16 +337,6 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
   }
 }
 
-// sets a kernel's dynamic shared memory once (a host call a launch otherwise)
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 template <int EPI>
 cudaError_t gemm(const Gemm& p, cudaStream_t s) {
   constexpr int smem = GemmSmem::BYTES;
@@ -484,264 +347,10 @@ cudaError_t gemm(const Gemm& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// ---- the weight gradients ------------------------------------------------------
-// out[m sm + n sn] = sum over the frames t of X[t + shift, m] Y[t, n], m < M,
-// n < N, X and Y [layers * B, T, C] bf16 maps (planes xplane + b, yplane + b)
-constexpr int W_MAPS = 10;
+// ---- the weight gradients (bf16_engine.cu's weight sums) ------------------------------
 enum WMap : int { M_X0, M_G, M_H, M_ACTS, M_SKIP, M_DSKIP, M_DH, M_DXIN, M_X1, M_DXC };
-constexpr int MAX_PROBS = 40;  // a launch's problems (its parameters stay under 4 KB)
-constexpr int W_CHUNK = TM * 128;             // bytes of a 64-frame x 64-channel slab
-constexpr int W_SLOT = 3 * W_CHUNK;           // X's chunk, then Y's two
-constexpr int W_BAR_OFF = RING * W_SLOT;
-constexpr int W_SMEM = W_BAR_OFF + RING * 8 + 1024;
-constexpr int FLUSH = 4;                      // slabs between two adds of the accumulators into fp32 sums
-constexpr int JOB_FLOATS = 64 * 128;
-
-struct WProb {
-  void* out;
-  int sm, sn, shift, xplane, yplane, block0;  // block0: the problem's first block
-  int16_t M, N, mchunks, ntiles;
-  int8_t xmap, ymap, f32, pad;
-};
-
-struct WParams {
-  CUtensorMap maps[W_MAPS];
-  WProb prob[MAX_PROBS];
-  float* part;
-  int n_probs, n_split, ntt, slabs;
-};
-
-__device__ __forceinline__ int prob_of(const WParams& p, int block) {
-  int i = 0;
-  while (i + 1 < p.n_probs && block >= p.prob[i + 1].block0) ++i;
-  return i;
-}
-
-// one 64 x 128 job of a problem over its share of the slabs (64 frames of a
-// sequence), split = block % n_split; its fp32 sums to the partials in the
-// accumulators' order
-__global__ void __launch_bounds__(THREADS) wn16_wsum_kernel(const __grid_constant__ WParams p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* const sm = align1024(smem_raw);
-  uint64_t* const full = reinterpret_cast<uint64_t*>(sm + W_BAR_OFF);
-  const WProb& P = p.prob[prob_of(p, blockIdx.x)];
-  const int local = blockIdx.x - P.block0, split = local % p.n_split, job = local / p.n_split;
-  const int mi = job % P.mchunks, ni = job / P.mchunks;
-  const int chunk = cdiv(p.slabs, p.n_split), s0 = split * chunk;
-  const int n = max(0, min(p.slabs, s0 + chunk) - s0);
-  const bool lead = threadIdx.x == 0;
-  if (lead) {
-    for (int i = 0; i < RING; ++i) mbar_init(&full[i], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  auto load = [&](int k) {
-    if (k >= n) return;
-    const int s = s0 + k, b = s / p.ntt, t0 = (s % p.ntt) * TM;
-    uint64_t* const f = &full[k % RING];
-    uint8_t* const st = sm + (k % RING) * W_SLOT;
-    mbar_expect_tx(f, W_SLOT);
-    tma_load_3d(st, &p.maps[P.xmap], f, KC * mi, t0 + P.shift, P.xplane + b);
-    tma_load_3d(st + W_CHUNK, &p.maps[P.ymap], f, 128 * ni, t0, P.yplane + b);
-    tma_load_3d(st + 2 * W_CHUNK, &p.maps[P.ymap], f, 128 * ni + KC, t0, P.yplane + b);
-  };
-  if (lead)
-    for (int k = 0; k < RING; ++k) load(k);
-  float acc[64], sum[64];
-#pragma unroll
-  for (int r = 0; r < 64; ++r) acc[r] = sum[r] = 0.f;
-  for (int k = 0; k < n; ++k) {
-    mbar_wait(&full[k % RING], (uint32_t)(k / RING) & 1u);
-    const uint32_t xa = smem_u32(sm + (k % RING) * W_SLOT), yb = xa + W_CHUNK;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TM / 16; ++kk)
-      mma_k16<128, 1, 1>(acc, desc_b128(xa + 2048 * kk, W_CHUNK, 1024), desc_b128(yb + 2048 * kk, W_CHUNK, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if (lead) load(k + RING);
-    if ((k + 1) % FLUSH == 0 || k + 1 == n) {
-#pragma unroll
-      for (int r = 0; r < 64; ++r) {
-        sum[r] += acc[r];
-        acc[r] = 0.f;
-      }
-    }
-  }
-  if (p.n_split == 1) {  // the whole sum: straight into the gradient, in its layout and dtype
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-    for (int r = 0; r < 64; ++r) {  // register r: row 16 warp + lane / 4 + 8 ((r / 2) % 2), column 8 (r / 4) + ...
-      const int M = KC * mi + 16 * warp + (lane >> 2) + 8 * ((r >> 1) & 1);
-      const int N = 128 * ni + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
-      if (M >= P.M || N >= P.N) continue;
-      const size_t o = (size_t)M * P.sm + (size_t)N * P.sn;
-      if (P.f32)
-        static_cast<float*>(P.out)[o] = sum[r];
-      else
-        static_cast<bf16_t*>(P.out)[o] = __float2bfloat16_rn(sum[r]);
-    }
-    return;
-  }
-  float2* const part = reinterpret_cast<float2*>(p.part) + (size_t)blockIdx.x * (JOB_FLOATS / 2) + threadIdx.x;
-#pragma unroll
-  for (int pr = 0; pr < 32; ++pr) part[pr * 128] = make_float2(sum[2 * pr], sum[2 * pr + 1]);
-}
-
-// each job's shares added in a fixed order (read as they lie, into shared
-// memory), then written once in the gradient's layout and dtype, the
-// output's smaller stride varying fastest across the threads
-__global__ void __launch_bounds__(256) wn16_wsum_reduce_kernel(const __grid_constant__ WParams p) {
-  __shared__ float acc[JOB_FLOATS];
-  const int jg = blockIdx.x;
-  int i = 0;
-  while (i + 1 < p.n_probs && jg >= p.prob[i + 1].block0 / p.n_split) ++i;
-  const WProb& P = p.prob[i];
-  const int job = jg - P.block0 / p.n_split, mi = job % P.mchunks, ni = job / P.mchunks;
-  const float* src = p.part + (size_t)(P.block0 + job * p.n_split) * JOB_FLOATS;
-#pragma unroll 8
-  for (int e = threadIdx.x; e < JOB_FLOATS; e += 256) {
-    float s = 0.f;
-    for (int k = 0; k < p.n_split; ++k) s += src[(size_t)k * JOB_FLOATS + e];
-    acc[e] = s;
-  }
-  __syncthreads();
-  const bool m_fast = P.sm <= P.sn;
-  for (int e = threadIdx.x; e < JOB_FLOATS; e += 256) {
-    const int m = m_fast ? e & 63 : e >> 7, n = m_fast ? e >> 6 : e & 127;
-    const int M = KC * mi + m, N = 128 * ni + n;
-    if (M >= P.M || N >= P.N) continue;
-    // where the accumulators keep (m, n): thread (m / 16) * 32 + (m % 8) * 4 + (n % 8) / 2, register
-    // 4 (n / 8) + 2 ((m % 16) / 8) + n % 2
-    const int th = (m >> 4) * 32 + (m & 7) * 4 + ((n & 7) >> 1);
-    const int pr = 2 * (n >> 3) + ((m >> 3) & 1);
-    const float v = acc[(pr * 128 + th) * 2 + (n & 1)];
-    const size_t o = (size_t)M * P.sm + (size_t)N * P.sn;
-    if (P.f32)
-      static_cast<float*>(P.out)[o] = v;
-    else
-      static_cast<bf16_t*>(P.out)[o] = __float2bfloat16_rn(v);
-  }
-}
-
-// ---- the bias gradients ----------------------------------------------------------
-// part [S][R][Wp]: the column sums of the R tiles of source s: 0 dskip (H
-// columns), 1 + i dh_i (H), 1 + L + i dx_in_i (2H), B6's 1 + 2L daln and
-// 2 + 2L dalb (C); source S: g's rows themselves (dbend, every frame)
-struct BiasParams {
-  const float* part;
-  const bf16_t* g;
-  int S, R, Wp, H, L, c_out, g_rows, g_ld;
-  bf16_t *dbs, *dbend;
-  float *daln, *dalb;
-  bf16_t* dbin[WN_STREAMS];
-  bf16_t* dbrs[WN_STREAMS];
-};
-
-__global__ void __launch_bounds__(1024) wn16_bias_kernel(const __grid_constant__ BiasParams p) {
-  __shared__ float s[32][33];
-  const int cx = threadIdx.x & 31, r = threadIdx.x >> 5, c = blockIdx.x * 32 + cx, src = blockIdx.y;
-  const int H = p.H, L = p.L;
-  const int ncols = src == p.S ? p.c_out : src == 0 || src <= L ? H : src <= 2 * L ? 2 * H : p.c_out;
-  float v = 0.f;
-  if (c < ncols) {
-    if (src == p.S) {
-      for (int i = r; i < p.g_rows; i += 32) v += f32(p.g[(size_t)i * p.g_ld + c]);
-    } else {
-      const float* part = p.part + (size_t)src * p.R * p.Wp + c;
-      for (int i = r; i < p.R; i += 32) v += part[(size_t)i * p.Wp];
-    }
-  }
-  s[r][cx] = v;
-  __syncthreads();
-  if (r != 0 || c >= ncols) return;
-  float t = 0.f;
-  for (int k = 0; k < 32; ++k) t += s[k][cx];
-  const bf16_t tb = __float2bfloat16_rn(t);
-  if (src == p.S) {
-    p.dbend[c] = tb;
-  } else if (src == 0) {  // dskip: the skip half of every layer's drs, all of the last layer's
-    for (int i = 0; i + 1 < L; ++i) p.dbrs[i][H + c] = tb;
-    p.dbrs[L - 1][c] = tb;
-  } else if (src <= L) {  // dh_i: dbs, or the residual half of layer i - 1's drs
-    if (src == 1)
-      p.dbs[c] = tb;
-    else
-      p.dbrs[src - 2][c] = tb;
-  } else if (src <= 2 * L) {
-    p.dbin[src - 1 - L][c] = tb;
-  } else {
-    (src == 2 * L + 1 ? p.daln : p.dalb)[c] = t;
-  }
-}
-
-// ---- packing -------------------------------------------------------------------------
-// dst[(j * rows + r) * pitch + c] for planes j, rows r, columns c: the
-// source's element src[j s_plane + r' s_row + c s_col] (r' = r, or GATE's
-// row order), zero where r' >= src_rows or c >= src_cols
-enum Pack : int { P_BF16, P_F32, P_GATE, P_ACTNORM, P_MASKED };
-constexpr int MAX_JOBS = 32;
-
-struct PackJob {
-  const void* src;
-  bf16_t* dst;
-  long long s_plane, s_row, s_col;
-  int planes, rows, cols, pitch, src_rows, src_cols, kind, H;
-};
-
-struct PackParams {
-  PackJob job[MAX_JOBS];
-  int n, T;
-  const int* lens;
-  const float *aln, *alb;
-};
-
-__global__ void __launch_bounds__(256) wn16_pack_kernel(const __grid_constant__ PackParams p) {
-  const unsigned stride = gridDim.x * blockDim.x;
-  for (int i = 0; i < p.n; ++i) {
-    const PackJob& J = p.job[i];
-    const unsigned total = (unsigned)J.planes * J.rows * J.cols;  // < 2^31 (pack)
-    for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-      const int c = (int)(e % (unsigned)J.cols);
-      const unsigned rj = e / (unsigned)J.cols;
-      const int r = (int)(rj % (unsigned)J.rows), j = (int)(rj / (unsigned)J.rows);
-      int sr = r;
-      bool ok = c < J.src_cols;
-      if (J.kind == P_GATE) {  // row group g: tanh channels 32 g .. 32 g + 31, then their sigmoid channels
-        const int g = r / 64, w = r % 64, ch = 32 * g + (w & 31);
-        sr = w < 32 ? ch : J.H + ch;
-        ok = ok && ch < J.H;
-      } else {
-        ok = ok && r < J.src_rows;
-      }
-      float v = 0.f;
-      if (ok) {
-        const long long at = j * J.s_plane + sr * J.s_row + c * J.s_col;
-        v = J.kind == P_F32 ? static_cast<const float*>(J.src)[at] : f32(static_cast<const bf16_t*>(J.src)[at]);
-        if (J.kind == P_ACTNORM || J.kind == P_MASKED) {  // rows are the frames of [B, T]
-          const bool valid = r % p.T < p.lens[r / p.T];
-          v = J.kind == P_ACTNORM ? (p.alb[c] + expf(p.aln[c]) * v) * (valid ? 1.f : 0.f) : v * (valid ? 1.f : 0.f);
-        }
-      }
-      J.dst[((long long)j * J.rows + r) * J.pitch + c] = __float2bfloat16_rn(v);
-    }
-  }
-}
 
 // ---- host ------------------------------------------------------------------------------
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-  }
-  return sms;
-}
-
 struct Shape {
   int B, T, half, H, c_out, L, k, rate;
 };
@@ -767,16 +376,6 @@ Bufs bufs_of(void* const* b) {
               h(13), h(14), h(15), h(16), h(17), h(18), h(19), h(20), h(21), h(22), f(23), f(24)};
 }
 
-// a [planes, T, C] activation map in boxes of 64 channels x 64 frames
-bool act_map(CUtensorMap* m, const bf16_t* base, int C, int T, int planes) {
-  return bf16_map(m, base, C, T, planes, (uint64_t)pitch8(C) * 2, (uint64_t)T * pitch8(C) * 2, KC, TM);
-}
-
-// a [planes, N, K] weight map (K-major rows) in boxes of 64 columns x box_rows
-bool w_map(CUtensorMap* m, const bf16_t* base, int K, int N, int planes, int box_rows) {
-  return bf16_map(m, base, K, N, planes, (uint64_t)pitch8(K) * 2, (uint64_t)N * pitch8(K) * 2, KC, box_rows);
-}
-
 // The weight-gradient problems (pointers may be null when only the blocks are wanted).
 struct Grads {
   bf16_t *dws, *dwend;
@@ -789,23 +388,7 @@ std::vector<WProb> problems(const Shape& sh, const Grads& d, bool flow) {
   const int H = sh.H, L = sh.L, k = sh.k, C = sh.c_out;
   std::vector<WProb> v;
   auto add = [&](void* out, int f32, int xmap, int xplane, int shift, int M, int ymap, int yplane, int N, int sm,
-                 int sn) {
-    WProb q{};
-    q.out = out;
-    q.f32 = (int8_t)f32;
-    q.xmap = (int8_t)xmap;
-    q.ymap = (int8_t)ymap;
-    q.xplane = xplane;
-    q.yplane = yplane;
-    q.shift = shift;
-    q.M = (int16_t)M;
-    q.N = (int16_t)N;
-    q.mchunks = (int16_t)cdiv(M, KC);
-    q.ntiles = (int16_t)cdiv(N, 128);
-    q.sm = sm;
-    q.sn = sn;
-    v.push_back(q);
-  };
+                 int sn) { v.push_back(wprob(out, f32, xmap, xplane, shift, M, ymap, yplane, N, sm, sn)); };
   auto at = [](bf16_t* p, size_t off) { return p ? (void*)(p + off) : nullptr; };
   add(d.dws, 0, M_X0, 0, 0, sh.half, M_DH, 0, H, 1, sh.half);  // dws[n, c] = sum dh_0[t, n] x0[t, c]
   int dil = 1;
@@ -822,57 +405,11 @@ std::vector<WProb> problems(const Shape& sh, const Grads& d, bool flow) {
   return v;
 }
 
-// the problems' launches (at most MAX_PROBS each) with their blocks assigned; the frame split
-int assign(std::vector<WProb>& v, const Shape& sh, long long* most_blocks) {
-  long long jobs = 0;
-  for (const WProb& q : v) jobs += (long long)q.mchunks * q.ntiles;
-  const int slabs = sh.B * cdiv(sh.T, TM);
-  // about two resident blocks an SM; one share a job (no partials) where the jobs fill that
-  const long long target = 2LL * (sm_count() > 0 ? sm_count() : 132);
-  int n_split = (int)((target + jobs / 2) / jobs);
-  n_split = n_split < 1 ? 1 : n_split > slabs ? slabs : n_split;
-  *most_blocks = 0;
-  for (size_t u0 = 0; u0 < v.size(); u0 += MAX_PROBS) {
-    int block = 0;
-    for (size_t i = u0; i < v.size() && i < u0 + MAX_PROBS; ++i) {
-      v[i].block0 = block;
-      block += v[i].mchunks * v[i].ntiles * n_split;
-    }
-    *most_blocks = block > *most_blocks ? block : *most_blocks;
-  }
-  return n_split;
-}
-
-cudaError_t weight_sums(std::vector<WProb> v, const Shape& sh, const CUtensorMap (&maps)[W_MAPS], float* part,
-                        cudaStream_t s) {
-  long long most;
-  const int n_split = assign(v, sh, &most);
-  WParams p{};
-  for (int i = 0; i < W_MAPS; ++i) p.maps[i] = maps[i];
-  p.part = part;
-  p.n_split = n_split;
-  p.ntt = cdiv(sh.T, TM);
-  p.slabs = sh.B * p.ntt;
-  cudaError_t err = allow_smem<wn16_wsum_kernel>(W_SMEM);
-  for (size_t u0 = 0; u0 < v.size() && err == cudaSuccess; u0 += MAX_PROBS) {
-    p.n_probs = (int)(v.size() - u0 < (size_t)MAX_PROBS ? v.size() - u0 : MAX_PROBS);
-    for (int i = 0; i < p.n_probs; ++i) p.prob[i] = v[u0 + i];
-    const WProb& last = p.prob[p.n_probs - 1];
-    const int blocks = last.block0 + last.mchunks * last.ntiles * n_split;
-    wn16_wsum_kernel<<<blocks, THREADS, W_SMEM, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || n_split == 1) continue;
-    wn16_wsum_reduce_kernel<<<blocks / n_split, 256, 0, s>>>(p);
-    err = cudaGetLastError();
-  }
-  return err;
-}
-
 // floats of the weight sums' partials (the largest launch's blocks x 64 x 128; none without a split)
 long wsum_part_floats(const Shape& sh, bool flow) {
   std::vector<WProb> v = problems(sh, Grads{}, flow);
   long long most;
-  return assign(v, sh, &most) > 1 ? (long)(most * JOB_FLOATS) : 0;
+  return assign(v, sh.B, sh.T, &most) > 1 ? (long)(most * JOB_FLOATS) : 0;
 }
 
 // Inputs of the conditioner's chain, after the prefix (B6) or the packing of x0 (B3).
@@ -927,26 +464,6 @@ void weight_jobs(const Weights& w, const Shape& sh, const Bufs& u, std::vector<P
     job(static_cast<const bf16_t*>(w.wrs[i]) + (size_t)H * H, rs_t + KC * cdiv(H, KC), 0, 1, H, 1, H, H, H,
         i + 1 < L ? H : 0, P_BF16, pitch8(rst));
   }
-}
-
-cudaError_t pack(std::vector<PackJob>& jobs, const int* lens, int T, const float* aln, const float* alb,
-                 cudaStream_t s) {
-  PackParams p{};
-  p.T = T;
-  p.lens = lens;
-  p.aln = aln;
-  p.alb = alb;
-  const int grid = 4 * (sm_count() > 0 ? sm_count() : 132);
-  for (const PackJob& J : jobs)
-    if ((long long)J.planes * J.rows * J.cols >= (1LL << 31)) return cudaErrorInvalidValue;
-  for (size_t u0 = 0; u0 < jobs.size(); u0 += MAX_JOBS) {
-    p.n = (int)(jobs.size() - u0 < (size_t)MAX_JOBS ? jobs.size() - u0 : MAX_JOBS);
-    for (int i = 0; i < p.n; ++i) p.job[i] = jobs[u0 + i];
-    wn16_pack_kernel<<<grid, 256, 0, s>>>(p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
 }
 
 struct Maps {
@@ -1127,34 +644,29 @@ cudaError_t chain(const Shape& sh, const Weights& w, const Bufs& u, const Maps& 
   return gemm<DX0>(p, s);
 }
 
-BiasParams bias_params(const Shape& sh, const Bufs& u, bf16_t* dbs, bf16_t* const* dbin, bf16_t* const* dbrs,
-                       bf16_t* dbend, float* daln, float* dalb) {
-  BiasParams b{};
-  b.part = u.bias_part;
-  b.g = u.g;
-  b.L = sh.L;
-  b.H = sh.H;
-  b.S = 1 + 2 * sh.L + (daln ? 2 : 0);
-  b.R = sh.B * cdiv(sh.T, TM);
-  b.Wp = 2 * sh.H > sh.c_out ? 2 * sh.H : sh.c_out;
-  b.c_out = sh.c_out;
-  b.g_rows = sh.B * sh.T;
-  b.g_ld = pitch8(sh.c_out);
-  b.dbs = dbs;
-  b.dbend = dbend;
-  b.daln = daln;
-  b.dalb = dalb;
-  for (int i = 0; i < sh.L; ++i) {
-    b.dbin[i] = dbin[i];
-    b.dbrs[i] = dbrs[i];
+// The bias gradients (the engine's column sums) from part [S][R][Wp], the
+// column sums of the R tiles of source s: 0 dskip (H columns: the skip
+// half of every layer's drs, all of the last layer's), 1 + i dh_i (H: dbs,
+// or the residual half of layer i - 1's drs), 1 + L + i dx_in_i (2H: dbin),
+// B6's 1 + 2L daln and 2 + 2L dalb (C, fp32); and g's rows themselves
+// (dbend, every frame).
+cudaError_t biases(const Shape& sh, const Bufs& u, bf16_t* dbs, bf16_t* const* dbin, bf16_t* const* dbrs,
+                   bf16_t* dbend, float* daln, float* dalb, cudaStream_t s) {
+  const int L = sh.L, H = sh.H, R = sh.B * cdiv(sh.T, TM), Wp = 2 * H > sh.c_out ? 2 * H : sh.c_out;
+  auto part = [&](int src) { return u.bias_part + (size_t)src * R * Wp; };
+  std::vector<SumSource> v;
+  SumSource skip{part(0), nullptr, R, H, Wp, {}, nullptr};
+  for (int i = 0; i + 1 < L; ++i) skip.outs.push_back(dbrs[i] + H);
+  skip.outs.push_back(dbrs[L - 1]);
+  v.push_back(skip);
+  for (int i = 0; i < L; ++i) v.push_back({part(1 + i), nullptr, R, H, Wp, {i == 0 ? dbs : dbrs[i - 1]}, nullptr});
+  for (int i = 0; i < L; ++i) v.push_back({part(1 + L + i), nullptr, R, 2 * H, Wp, {dbin[i]}, nullptr});
+  if (daln) {
+    v.push_back({part(1 + 2 * L), nullptr, R, sh.c_out, Wp, {}, daln});
+    v.push_back({part(2 + 2 * L), nullptr, R, sh.c_out, Wp, {}, dalb});
   }
-  return b;
-}
-
-cudaError_t biases(const BiasParams& b, cudaStream_t s) {
-  const int cols = b.Wp > b.c_out ? b.Wp : b.c_out;
-  wn16_bias_kernel<<<dim3(cdiv(cols, 32), b.S + 1), 1024, 0, s>>>(b);
-  return cudaGetLastError();
+  v.push_back({nullptr, u.g, sh.B * sh.T, sh.c_out, pitch8(sh.c_out), {dbend}, nullptr});
+  return column_sums(v, s);
 }
 
 }  // namespace wn16
@@ -1218,10 +730,10 @@ extern "C" int wn_coupling_bwd_bf16(const void* x0, int ldx, const int* lens, co
   cudaError_t err = pack(jobs, lens, T, nullptr, nullptr, s);
   if (err == cudaSuccess) err = chain(sh, w, u, m, lens, seed, threshold, keep_scale, nullptr, P(dx0), s);
   if (err == cudaSuccess)
-    err = weight_sums(problems(sh, Grads{P(dws), P(dwend), PP(dwin), PP(dwrs), nullptr}, false), sh, m.act,
+    err = weight_sums(problems(sh, Grads{P(dws), P(dwend), PP(dwin), PP(dwrs), nullptr}, false), B, T, m.act,
                       u.wsum_part, s);
   if (err == cudaSuccess)
-    err = biases(bias_params(sh, u, P(dbs), PP(dbin), PP(dbrs), P(dbend), nullptr, nullptr), s);
+    err = biases(sh, u, P(dbs), PP(dbin), PP(dbrs), P(dbend), nullptr, nullptr, s);
   return (int)err;
 }
 
@@ -1309,8 +821,8 @@ extern "C" int flow_step_bwd_bf16(const void* x, const int* lens, const long lon
   p.part_ld = Wp;
   err = gemm<DX1>(p, s);
   if (err == cudaSuccess)
-    err = weight_sums(problems(sh, Grads{P(dws), P(dwend), PP(dwin), PP(dwrs), dmt}, true), sh, m.act,
+    err = weight_sums(problems(sh, Grads{P(dws), P(dwend), PP(dwin), PP(dwrs), dmt}, true), B, T, m.act,
                       u.wsum_part, s);
-  if (err == cudaSuccess) err = biases(bias_params(sh, u, P(dbs), PP(dbin), PP(dbrs), P(dbend), daln, dalb), s);
+  if (err == cudaSuccess) err = biases(sh, u, P(dbs), PP(dbin), PP(dbrs), P(dbend), daln, dalb, s);
   return (int)err;
 }

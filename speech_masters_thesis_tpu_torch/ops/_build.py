@@ -182,8 +182,10 @@ def build() -> ctypes.CDLL:
     lib.enc_layer_fwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_bwd.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs, p] + [i] * 7 + [f, u, f, p]
     lib.enc_layer_bwd.restype = i
-    lib.enc_layer_bwd_bf16.argtypes = lib.enc_layer_bwd.argtypes
+    lib.enc_layer_bwd_bf16.argtypes = [p] * 4 + [ptrs, p, ptrs, ptrs] + [i] * 7 + [f, u, f, i, p]
     lib.enc_layer_bwd_bf16.restype = i
+    lib.enc16_wsum_part_floats.argtypes = [i] * 7
+    lib.enc16_wsum_part_floats.restype = ctypes.c_long
     lib.enc_layer_bwd_workspace_floats.argtypes = [i] * 7
     lib.enc_layer_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_bwd_blocks_per_sm.argtypes = [ints, ctypes.POINTER(ctypes.c_longlong)]

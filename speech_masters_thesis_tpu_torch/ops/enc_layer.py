@@ -7,10 +7,14 @@ encoder}.py).
 The CUDA kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``:
 the products in 3xTF32 on the tensor cores (``csrc/conv_mma.cuh``, the
 weight gradients on ``csrc/wgrad_mma.cuh``), attention fp32 on the CUDA
-cores. ``enc_layer`` runs ``EncLayerFunction``: for a CUDA tensor its
-forward launches the forward kernels (one call: 6 launches, the first packs
-the weights the products read) and its backward the backward kernels (17
-launches), or raises; for a CPU tensor the same Function runs
+cores; the bf16 backward is ``csrc/enc_layer_bwd_bf16.cu`` (every dense
+product on wgmma, its operands staged by TMA, on the engine it shares with
+B3's and B6's bf16 backwards, ``csrc/bf16_engine.cuh``; attention on bf16
+tensor-core MMA). ``enc_layer`` runs ``EncLayerFunction``: for a CUDA
+tensor its forward launches the forward kernels (one call: 6 launches, the
+first packs the weights the products read) and its backward the backward
+kernels (17 launches; bf16 17, or 18 where the weight sums split the
+frames), or raises; for a CPU tensor the same Function runs
 ``enc_layer_reference`` and ``enc_layer_backward_reference``. The forward
 saves the input, the lengths, the weights and the seed, no activations. The
 layer:
@@ -50,6 +54,7 @@ versions (the TPU kernel's backward rounding).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -398,7 +403,10 @@ def _launch_fwd(x, lens, w: EncLayerWeights, seed, p_drop: float) -> torch.Tenso
 
 
 def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tuple]:
-    """The backward kernels' device buffers, in the order
+    """The buffers ``enc_layer_backward(..., return_buffers=True)`` hands
+    back, name -> shape, in x's mode.
+
+    fp32 (all fp32): the backward kernels' device buffers, in the order
     ``csrc/enc_layer_bwd.cu`` takes them: the recomputed forward's (q|k|v,
     the heads' output, each row's softmax (max, sum), LN1's output, both
     LayerNorms' normalised input and 1/std, the FFN's hidden rows after
@@ -406,10 +414,21 @@ def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tup
     cotangent, g masked, the FFN's output and hidden cotangents, LN1's input
     and output cotangents, conv_o's output cotangent after dropout, the heads'
     output cotangent, each row's rowsum(doh * oh), the band's ds and dropped
-    probabilities, dq|dk|dv)."""
+    probabilities, dq|dk|dv).
+
+    bf16: views of parts of ``bwd16_layout``'s scratch: the recomputed
+    q|k|v, the heads' output (att) and LN1's output masked (x1m), bf16; the
+    FFN's hidden rows after relu, dropout and the mask (hid), fp32; the
+    cotangents that carry the dropout masks, conv_o's output after dropout
+    (dy) and the FFN's output (dc2), bf16; the band's ds (dclog) and dropped
+    probabilities (bandp), bf16, head h at columns h (2w + 1); each row's
+    softmax max, sum and delta (stats, fp32, a fourth column unused)."""
     B, T, C = x.shape
     H, R, Fc = w.n_heads, 2 * w.window + 1, w.w1.shape[0]
     row = lambda n: (B, T, n)  # noqa: E731
+    if x.dtype == torch.bfloat16:
+        return {"qkv": row(3 * C), "att": row(C), "x1m": row(C), "hid": row(Fc), "dy": row(C), "dc2": row(C),
+                "dclog": row(H * R), "bandp": row(H * R), "stats": (B, H, T, 4)}
     return {"qkv": row(3 * C), "att": row(C), "stats": (B, H, T, 2), "x1": row(C), "zhat1": row(C),
             "rinv1": (B, T), "hid": row(Fc), "out": row(C), "zhat2": row(C), "rinv2": (B, T),
             "dz2": row(C), "gm": row(C), "dc2": row(C), "dc1": row(Fc), "dz1": row(C), "dx1": row(C),
@@ -417,19 +436,157 @@ def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tup
             "dqkv": row(3 * C)}
 
 
+BWD16_BAND = 24        # band dots a row (2w + 1 <= 17): csrc/enc_layer_bwd_bf16.cu RB
+BWD16_TILE = 64        # frames a product tile (csrc/bf16_engine.cuh TM)
+BWD16_ATT_ROWS = 32    # rows an attention block (AR)
+BWD16_ROW_BLOCK = 8    # rows a LayerNorm row block (ROW_BLOCK)
+BWD16_ALIGN = 1024     # bytes: every part's base
+
+# The bf16 backward's scratch (csrc/enc_layer_bwd_bf16.cu's Part order):
+# name, dtype, rows and width as functions of the shape ``s``
+# (_Bwd16Shape). Every bf16 part's rows are pitch8 of its width elements
+# apart, every fp32 part's pitch4: 16-byte multiples, as TMA reads them.
+_BF, _F32 = torch.bfloat16, torch.float32
+BWD16_PARTS = (
+    ("w_qkv", _BF, lambda s: (3 * s.C, s.C)), ("b_qkv", _BF, lambda s: (1, 3 * s.C)),
+    ("w_qkv_t", _BF, lambda s: (s.C, 3 * s.C)), ("w_o", _BF, lambda s: (s.C, s.C)),
+    ("w_o_t", _BF, lambda s: (s.C, s.C)), ("w_1", _BF, lambda s: (s.k * s.F, s.C)),
+    ("w_1_t", _BF, lambda s: (s.k * s.C, s.F)), ("w_2", _BF, lambda s: (s.k * s.C, s.F)),
+    ("w_2_t", _BF, lambda s: (s.k * s.F, s.C)), ("xm", _BF, lambda s: (s.BT, s.C)),
+    ("qkv", _BF, lambda s: (s.BT, 3 * s.C)), ("att", _BF, lambda s: (s.BT, s.C)),
+    ("x1m", _BF, lambda s: (s.BT, s.C)), ("hid16", _BF, lambda s: (s.BT, s.F)),
+    ("dc2", _BF, lambda s: (s.BT, s.C)), ("dc1", _BF, lambda s: (s.BT, s.F)),
+    ("dy", _BF, lambda s: (s.BT, s.C)), ("doh", _BF, lambda s: (s.BT, s.C)),
+    ("dqkv", _BF, lambda s: (s.BT, 3 * s.C)), ("dclog", _BF, lambda s: (s.BT, s.H * s.R)),
+    ("bandp", _BF, lambda s: (s.BT, s.H * s.R)), ("stats", _F32, lambda s: (s.B * s.H * s.T, 4)),
+    ("qr", _F32, lambda s: (s.B * s.H * s.T, BWD16_BAND)), ("dr", _F32, lambda s: (s.B * s.H * s.T, BWD16_BAND)),
+    ("x1", _F32, lambda s: (s.BT, s.C)), ("zhat1", _F32, lambda s: (s.BT, s.C)),
+    ("rinv1", _F32, lambda s: (1, s.BT)), ("hid", _F32, lambda s: (s.BT, s.F)),
+    ("dz2", _F32, lambda s: (s.BT, s.C)), ("dz1", _F32, lambda s: (s.BT, s.C)),
+    ("split_part", _F32, lambda s: (s.splits * s.BT, s.C)),
+    ("row_part", _F32, lambda s: (6 * -(-s.BT // BWD16_ROW_BLOCK), s.C)),
+    ("b1_part", _F32, lambda s: (s.B * -(-s.T // BWD16_TILE), s.F)),
+    ("att_part", _F32, lambda s: (3 * s.B * -(-s.T // BWD16_ATT_ROWS), s.C)),
+    ("band_part", _F32, lambda s: (2 * s.B * s.H * -(-s.T // BWD16_ATT_ROWS), s.R * (s.C // s.H))),
+    ("wsum_part", _F32, lambda s: (1, max(s.wsum_floats, 1))),
+)
+
+
+@dataclass(frozen=True)
+class _Bwd16Shape:
+    B: int
+    T: int
+    C: int
+    F: int
+    H: int
+    R: int
+    k: int
+    splits: int
+    wsum_floats: int
+
+    @property
+    def BT(self) -> int:
+        return self.B * self.T
+
+
+@dataclass(frozen=True)
+class Bwd16Part:
+    """One part of the bf16 backward's scratch: ``rows`` rows of ``width``
+    elements of ``dtype``, ``pitch`` bytes apart, from byte ``offset``."""
+
+    name: str
+    dtype: torch.dtype
+    rows: int
+    width: int
+    pitch: int
+    offset: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows * self.pitch
+
+
+def bwd16_splits(B: int, T: int, F: int, kernel_size: int, sms: int = 132) -> int:
+    """The split of the 2,304-deep products (the FFN's second conv and W_1's
+    transposed conv: kernel_size * F / 64 k-slices) over their k-slices:
+    about two blocks an SM over the B * ceil(T / 64) * 3 output tiles, no
+    split left empty."""
+    slices = kernel_size * -(-F // 64)
+    tiles = B * -(-T // BWD16_TILE) * -(-_build.ENC_CHANNELS // 64)
+    want = max(1, min(slices, round(2 * sms / tiles)))
+    per = -(-slices // want)
+    return -(-slices // per)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd16_layout(B: int, T: int, C: int, F: int, n_heads: int, window: int, kernel_size: int, splits: int,
+                 wsum_floats: int) -> Tuple[Dict[str, Bwd16Part], int]:
+    """The bf16 backward's scratch and packed operands as one allocation:
+    ({name: part} in BWD16_PARTS order, total bytes; cached by shape, not to
+    be changed). Every base is BWD16_ALIGN-aligned and every row pitch a
+    multiple of 16 bytes (TMA's rules for what it reads); the parts do not
+    overlap."""
+    s = _Bwd16Shape(B, T, C, F, n_heads, 2 * window + 1, kernel_size, splits, wsum_floats)
+    parts, offset = {}, 0
+    for name, dtype, shape in BWD16_PARTS:
+        rows, width = shape(s)
+        size = torch.finfo(dtype).bits // 8
+        per16 = 16 // size
+        pitch = -(-width // per16) * per16 * size
+        parts[name] = Bwd16Part(name, dtype, rows, width, pitch, offset)
+        offset += -(-rows * pitch // BWD16_ALIGN) * BWD16_ALIGN
+    return parts, offset
+
+
+def _part_view(scratch: torch.Tensor, part: Bwd16Part, shape: tuple) -> torch.Tensor:
+    """A part of the scratch as a [rows, width] tensor of its dtype, reshaped (a copy where padded)."""
+    flat = scratch[part.offset:part.offset + part.nbytes].view(part.dtype)
+    return flat.view(part.rows, part.pitch // flat.element_size())[:, :part.width].reshape(shape)
+
+
+def _launch_bwd16(x, lens, w: EncLayerWeights, g, seed, p_drop: float, return_buffers: bool):
+    B, T, C = x.shape
+    H, Fc, k = w.n_heads, w.w1.shape[0], w.w1.shape[2]
+    lib = _build.build()
+    shape = _shape_args(x, w)
+    splits = bwd16_splits(B, T, Fc, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    wsum = _workspace_floats(lib.enc16_wsum_part_floats(*shape[:-1]))
+    parts, total = bwd16_layout(B, T, C, Fc, H, w.window, k, splits, wsum)
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    grads = {name: torch.empty_like(t) for name, t in w.tensors().items()}
+    pointers = lambda ts: (ctypes.c_void_p * len(ts))(*ts)  # noqa: E731
+    rc = lib.enc_layer_bwd_bf16(
+        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
+        pointers([t.data_ptr() for t in w.tensors().values()]), dx.data_ptr(),
+        pointers([t.data_ptr() for t in grads.values()]),
+        pointers([scratch.data_ptr() + part.offset for part in parts.values()]),
+        *shape, keep_threshold(p_drop), keep_scale(p_drop), splits, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"enc_layer_bwd_bf16 launch failed with cudaError {rc}")
+    enc_layer_backward.bf16_launches += 1
+    if not return_buffers:
+        return dx, grads
+    bufs = {name: _part_view(scratch, parts[name], shape_)
+            for name, shape_ in backward_buffer_shapes(x, w).items()}
+    return dx, grads, bufs
+
+
 def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, g: torch.Tensor, seed,
                        p_drop: float = 0.0, return_buffers: bool = False):
     """(dx, {name: gradient}) for the output cotangent g.
 
-    A CUDA tensor launches ``csrc/enc_layer_bwd.cu`` (the weights packed, the
-    recomputed forward with its LayerNorm statistics and softmax (max, sum),
-    the LayerNorm and FFN backwards, the attention backward as a dq and a
-    dk/dv kernel that recompute P, dx, then two fixed-order reductions of the
-    weight gradients, on the tensor cores and on the CUDA cores: two calls
-    are bitwise equal; bf16 tensors in the bf16 mode) and counts
-    ``enc_layer_backward.launches`` (fp32) or ``.bf16_launches``;
-    ``return_buffers`` adds its device buffers (``backward_buffer_shapes``,
-    fp32 in both modes). A CPU tensor runs ``enc_layer_backward_reference``.
+    A CUDA fp32 tensor launches ``csrc/enc_layer_bwd.cu`` (the weights
+    packed, the recomputed forward with its LayerNorm statistics and softmax
+    (max, sum), the LayerNorm and FFN backwards, the attention backward as a
+    dq and a dk/dv kernel that recompute P, dx, then two fixed-order
+    reductions of the weight gradients, on the tensor cores and on the CUDA
+    cores) and counts ``enc_layer_backward.launches``; a CUDA bf16 tensor
+    launches ``csrc/enc_layer_bwd_bf16.cu`` on the scratch of
+    ``bwd16_layout`` (one allocation) and counts ``.bf16_launches``. Two
+    calls are bitwise equal. ``return_buffers`` adds the buffers of
+    ``backward_buffer_shapes``. A CPU tensor runs
+    ``enc_layer_backward_reference``.
     """
     if x.device.type == "cpu":
         if return_buffers:
@@ -441,8 +598,9 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
         raise ValueError(f"enc_layer_backward: g must be a contiguous {x.dtype} {tuple(x.shape)} tensor, "
                          f"got {g.dtype}")
+    if x.dtype == torch.bfloat16:
+        return _launch_bwd16(x, lens, w, g, seed, p_drop, return_buffers)
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
-    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
     grads = {name: torch.empty_like(t) for name, t in w.tensors().items()}
     bufs = {name: empty(*shape) for name, shape in backward_buffer_shapes(x, w).items()}
@@ -450,16 +608,13 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     lib = _build.build()
     shape = _shape_args(x, w)
     workspace = empty(_workspace_floats(lib.enc_layer_bwd_workspace_floats(*shape[:-1])))
-    rc = (lib.enc_layer_bwd_bf16 if bf16 else lib.enc_layer_bwd)(
+    rc = lib.enc_layer_bwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(), pointers(list(w.tensors().values())),
         dx.data_ptr(), pointers(list(grads.values())), pointers(list(bufs.values())), workspace.data_ptr(),
         *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_bwd launch failed with cudaError {rc}")
-    if bf16:
-        enc_layer_backward.bf16_launches += 1
-    else:
-        enc_layer_backward.launches += 1
+    enc_layer_backward.launches += 1
     return (dx, grads, bufs) if return_buffers else (dx, grads)
 
 

@@ -147,3 +147,46 @@ def test_mixed_dtypes_raise():
     mixed = w.with_tensors([t.float() if n == "rk" else t for n, t in w.tensors().items()])
     with pytest.raises(ValueError, match="share one dtype"):
         el.enc_layer_reference(_t(x), lens, mixed)
+
+
+# chip_smoke.B5_SHAPES, (B, T), at the encoders' widths (C 192 in 2 heads of 96, F 768)
+B5_SHAPES = ((8, 256), (1, 160), (8, 512), (3, 3), (4, 64))
+
+
+@pytest.mark.parametrize("kernel_size", (1, 3, 5))
+@pytest.mark.parametrize("shape", B5_SHAPES, ids=lambda s: f"B{s[0]}xT{s[1]}")
+def test_bwd16_scratch_layout_keeps_tma_rules(shape, kernel_size):
+    """The bf16 backward's scratch (ops/enc_layer.py:bwd16_layout), at every
+    window: every base 16-byte aligned, every row pitch a multiple of 16
+    bytes (TMA's rules for what it reads; the bf16 parts' rows pitch8 of
+    their width, as csrc/bf16_engine.cuh's maps take them), no two parts
+    overlapping, the split of the long products leaving no split empty, and
+    the buffers ``return_buffers`` hands back viewed at their shapes."""
+    B, T = shape
+    Cw, Fw, H = 192, 768, 2
+    splits = el.bwd16_splits(B, T, Fw, kernel_size)
+    slices = kernel_size * Fw // 64
+    per = -(-slices // splits)
+    assert 1 <= splits <= slices and -(-slices // per) == splits
+    for window in range(9):
+        for wsum in (0, 2 * 132 * 64 * 128):
+            parts, total = el.bwd16_layout(B, T, Cw, Fw, H, window, kernel_size, splits, wsum)
+            assert [p.name for p in parts.values()] == [n for n, _, _ in el.BWD16_PARTS]
+            end = 0
+            for p in sorted(parts.values(), key=lambda q: q.offset):
+                size = torch.finfo(p.dtype).bits // 8
+                assert p.offset % 16 == 0 and p.offset % el.BWD16_ALIGN == 0, p
+                assert p.pitch % 16 == 0 and p.pitch >= p.width * size, p
+                if p.dtype == torch.bfloat16:
+                    assert p.pitch == -(-p.width // 8) * 8 * 2, p
+                assert p.offset >= end, (p, end)
+                end = p.offset + p.nbytes
+            assert end <= total
+    parts, total = el.bwd16_layout(B, T, Cw, Fw, H, 4, kernel_size, splits, 0)
+    scratch = torch.empty(total, dtype=torch.uint8)
+    x = torch.empty(B, T, Cw, dtype=torch.bfloat16)
+    w = el.EncLayerWeights(*[torch.empty(1, dtype=torch.bfloat16)] * 12, torch.empty(Fw, Cw, kernel_size),
+                           *[torch.empty(1, dtype=torch.bfloat16)] * 5, n_heads=H, window=4)
+    for name, want in el.backward_buffer_shapes(x, w).items():
+        view = el._part_view(scratch, parts[name], want)
+        assert tuple(view.shape) == want and view.dtype == parts[name].dtype, name
