@@ -39,17 +39,19 @@ an anonymous namespace's path hash and an fp32 instance's float IO
 argument removed: without_io) outside the instances
 PTXAS_CHANGED names with the first tree's, as multisets, the fp32 instances
 apart from the bf16 ones. ``--bf16-wn`` measures, for each tree, B3's and
-B6's bf16 backwards at (8, 384) squeezed frames (``glow_inputs`` cast as
+B6's bf16 forwards and backwards at (8, 384) squeezed frames (``glow_inputs`` cast as
 ``chip_smoke.phase_bf16_flow_step`` casts them: the conditioner's weights,
 x and the cotangents bf16, aln, alb and mt fp32 of their bf16 values; B3's
 x0 the first-half view of x), p = 0 and B3_DROP: back to back, a call
 (``chip_smoke.cuda_ms``: the wrapper's host time included), the device time
 and launches by launch kind (torch.profiler over 3 calls), and at B3_DROP a
-sha256 of dx and every gradient; then the bf16 Glow train step
+sha256 of the forwards' out (B6: xc and out) and of dx and every gradient, and
+of B5's bf16 forward at every B5_SHAPES (p = 0 and 0.1) and its backward
+(bf16_enc_hashes: B5 shares conv_mma.cuh and the engine); then the bf16 Glow train step
 (``chip_smoke.phase_bf16_glow_train``) on the B3 and the B6 route in turns
 (b3, b6, b6, b3): the median of steps 2-10, the peak, the kernels' ms and
 the busy share of one step under torch.profiler, the median of each
-route's two runs. ``--bf16-wn-kernels`` measures the two backwards alone,
+route's two runs. ``--bf16-wn-kernels`` measures the two forwards and backwards alone,
 without the steps (about 2 min a tree, most of it the build).
 ``--bf16-enc`` measures, for each tree, B5's bf16 backward
 (``enc_layer.enc_layer_backward`` on the Glow encoder's first layer cast
@@ -72,8 +74,8 @@ two runs.
     python3 ab_backward.py --bf16 build/parent . . build/parent   # B1's bf16 backward, the bf16 VQ-VAE step
     python3 ab_backward.py --bf16-fwd build/parent . . build/parent   # B1's bf16 forward (and backward), the step
     python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
-    python3 ab_backward.py --bf16-wn build/parent . . build/parent   # B3's and B6's bf16 backwards, the bf16 Glow steps
-    python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the two backwards alone
+    python3 ab_backward.py --bf16-wn build/parent . . build/parent   # B3's and B6's bf16 kernels, the bf16 Glow steps
+    python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the four kernels alone
     python3 ab_backward.py --bf16-enc build/parent . . build/parent   # B5's bf16 backward, the bf16 Glow/VQ-TTS steps
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
@@ -130,15 +132,12 @@ FWD_PS = (0.0, 0.1)
 FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B5's bf16 backward, the first bf16
-# form's instances of conv_mma, wgrad_mma, wgrad_rows and the encoder's attention under its tag, and the
-# redesign's kernels (namespace enc16); of the engine it shares with B3's and B6's bf16 backwards
-# (namespace wn16), the kernels whose code changed: the products (their k-slice ring now in
-# bf16_engine.cuh), the weight sums' reduction and the bias sums (now the engine's, for all three); the
-# weight sums and the packing, B3's, B5's and B6's bf16 forwards, B1's bf16 kernels and every fp32 instance
-# are held with the rest
-PTXAS_CHANGED = ("17BfloatLayerBwdTag", "5enc16", "16wn16_gemm_kernel", "23wn16_wsum_reduce_kernel",
-                 "16wn16_bias_kernel")
+# instances the change may alter, by a piece of their mangled names: B3's and B6's bf16 kernels' products
+# (wn16_gemm_kernel: the END epilogue, XC's copy of x0, GATE's optional x_in store) and the first bf16
+# form of their forwards, mma.sync instances under their own tags (gone); the engine's weight sums,
+# packing and bias sums, B5's bf16 kernels (its forward still on conv_mma.cuh's bf16 mode), B1's bf16
+# kernels and every fp32 instance are held with the rest
+PTXAS_CHANGED = ("16wn16_gemm_kernel", "14BfloatWnFwdTag", "16BfloatFlowFwdTag")
 BF16_ENC_SHAPES = (0, 4)  # chip_smoke.B5_SHAPES' (8, 256) and VQ-TTS's (4, 64)
 
 
@@ -584,6 +583,66 @@ def bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
     return out
 
 
+def bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
+    """B3's and B6's bf16 forwards at (8, 384), p = 0 and B3_DROP (the
+    inputs of bf16_wn_backwards): back to back, a call (the wrapper's host
+    time included), their device time by launch kind at both rates, and at
+    B3_DROP a sha256 of out (B6: xc, then out)."""
+    import hashlib
+
+    x, lens, _, aln, alb, mt, w, _, _, seed = glow_bf16_inputs(torch, np, cs, wn_ops, device)
+    x0 = x[..., :x.shape[2] // 2]
+    calls = {"b3": lambda p: (wn_ops.wn_coupling(x0, lens, w, seed, p),),
+             "b6": lambda p: fs_ops.flow_step(x, lens, aln, alb, mt, w, seed, p)}
+    out = {}
+    with torch.no_grad():
+        for name, call in calls.items():
+            for p in (0.0, cs.B3_DROP):
+                out[f"{name}_bf16_fwd_p{p}_ms"] = back_to_back_ms(torch, lambda: call(p), GLOW_BWD_REPS)
+                out[f"{name}_bf16_fwd_p{p}_call_ms"] = cs.cuda_ms(lambda: call(p), reps=20, warmup=3)
+                out[f"{name}_bf16_fwd_p{p}_kinds"] = launch_kinds(torch, lambda: call(p))
+            res = call(cs.B3_DROP)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for t in res:
+                digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            out[f"{name}_bf16_fwd_sha256"] = digest.hexdigest()
+            del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_enc_hashes(torch, np, cs, device) -> dict:
+    """sha256 of B5's bf16 forward outputs at every chip_smoke.B5_SHAPES,
+    p = 0 and 0.1 (phase_bf16_enc_layer's weights; bf16_enc_backwards'
+    inputs), and of its bf16 backward's dx and gradients at (8, 256), p =
+    B5_DROP: B5 shares conv_mma.cuh and the bf16 engine with B3 and B6, so a
+    change to either is held bit for bit against the other tree."""
+    import hashlib
+
+    from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
+
+    w32 = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
+    w16 = cs.enc_bf16(w32.with_tensors([t.detach() for t in w32.tensors().values()]))
+    seed = torch.tensor([5353], dtype=torch.int64, device=device)
+    fwd, bwd = hashlib.sha256(), hashlib.sha256()
+    with torch.no_grad():
+        for i, (B, T) in enumerate(cs.B5_SHAPES):
+            rng = np.random.RandomState(840 + i)
+            lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
+            x = torch.from_numpy(rng.randn(B, T, w16.wq.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
+            g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device).to(torch.bfloat16)
+            for p in (0.0, 0.1):
+                fwd.update(enc_ops.enc_layer(x, lens, w16, seed, p).contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes())
+            if i == BF16_ENC_SHAPES[0]:
+                dx, grads = enc_ops.enc_layer_backward(x, lens, w16, g, seed, cs.B5_DROP)
+                for t in (dx, *grads.values()):
+                    bwd.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    torch.cuda.empty_cache()
+    return {"b5_bf16_fwd_sha256": fwd.hexdigest(), "b5_bf16_bwd_sha256": bwd.hexdigest()}
+
+
 def bf16_glow_steps(torch, cs, device, card) -> dict:
     """The bf16 Glow train step (chip_smoke.phase_bf16_glow_train) on the B3
     and the B6 route in turns (b3, b6, b6, b3): each run's median of steps
@@ -750,7 +809,9 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         out.update(bf16_backward(torch, cs, gh, device, card))
         return out
     if mode in ("--bf16-wn", "--bf16-wn-kernels"):
+        out.update(bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device))
         out.update(bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device))
+        out.update(bf16_enc_hashes(torch, np, cs, device))
         if mode == "--bf16-wn":
             out.update(bf16_glow_steps(torch, cs, device, card))
         return out
@@ -799,12 +860,13 @@ def mangled_lines(report: str) -> list:
 
 def without_io(name: str) -> str:
     """A mangled name without the float IO template argument that the fp32
-    instances of wgrad_rows, wgrad_mma and the encoder's attention backward
-    took after their tag (and WHOLE) in trees that still had a bf16 mode
-    there, so that their lines compare by kernel across that change."""
-    if not re.match(r"_ZN(10wgrad_rows|9wgrad_mma|9enc_layer)", name):
+    instances of wgrad_rows, wgrad_mma, the encoder's attention backward and
+    conv_mma's weight packing took after their tag (and WHOLE or FORMS) in
+    trees that still had a bf16 mode there, so that their lines compare by
+    kernel across that change."""
+    if not re.match(r"_ZN(10wgrad_rows|9wgrad_mma|9enc_layer|8conv_mma19pack_weights_kernel)", name):
         return name
-    return re.sub(r"(Tag(?:ELb[01])?E)fEEv", r"\1EEv", name, count=1)
+    return re.sub(r"(Tag(?:ELb[01]|ELi\d+)?E)fEEv", r"\1EEv", name, count=1)
 
 
 def is_changed_kernel(line: str) -> bool:
@@ -877,9 +939,14 @@ def main() -> None:
                                   for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
                       + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} "
                       f"launches) [{res['card']}]")
-        shas = ("b5_bf16_bwd_sha256",) if mode == "--bf16-enc" else ("b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256")
+        shas = (("b5_bf16_bwd_sha256",) if mode == "--bf16-enc" else
+                ("b3_bf16_fwd_sha256", "b6_bf16_fwd_sha256", "b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256",
+                 "b5_bf16_fwd_sha256", "b5_bf16_bwd_sha256"))
         for key in shas:
-            print(f"[ab] {key} (dx and every gradient at p = {'B5_DROP' if 'b5' in key else 'B3_DROP'}): "
+            what = ("out at every B5_SHAPES, p = 0 and 0.1" if key == "b5_bf16_fwd_sha256" else
+                    "out (B6: xc and out) at p = B3_DROP" if "_fwd_" in key else
+                    f"dx and every gradient at p = {'B5_DROP' if 'b5' in key else 'B3_DROP'}")
+            print(f"[ab] {key} ({what}): "
                   + ", ".join(f"{r['tree']} {r[key][:16]}" for r in results)
                   + f"; all equal: {len({r[key] for r in results}) == 1}")
         return

@@ -556,13 +556,14 @@ B1_BF16_BWD_KERNELS = ("tile_kernel", "gate16_kernel", "wgrad16_kernel", "wgrad1
 # stage 1, then its own conv and gate stages; its weights' transpose is a plain grid-stride loop)
 B1_BF16_FWD_STAGES = ("tile_kernel<1 expand>", "branch_conv_kernel", "branch_gate_kernel")
 B3_B6_KERNELS = ("conv_mma_kernel", "pack_weights_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
-# B3's and B6's bf16 backward (csrc/wn_coupling_bwd_bf16.cu): the product kernel's instances
+# B3's and B6's bf16 forwards and backwards (csrc/wn_coupling_bf16.cu): the product kernel's instances
 # (wn16_gemm_kernel<EPI>, EPI as WN16_EPILOGUES names them), the weight sums and their reduction,
 # the bias sums and the packing
 WN16_KERNELS = ("wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel", "wn16_bias_kernel",
                 "wn16_pack_kernel")
-WN16_EPILOGUES = ("start", "gate", "res/skip", "dskip", "gate bwd", "conv^T", "dx0", "dxc", "xc", "dx1")
-WN16_INSTANCES = 14
+WN16_EPILOGUES = ("start", "gate", "res/skip", "dskip", "gate bwd", "conv^T", "dx0", "dxc", "xc", "dx1", "end")
+WN16_INSTANCES = 15
+WN16_SOURCES = ("wn_coupling_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")
 # B5's bf16 backward (csrc/enc_layer_bwd_bf16.cu, on bf16_engine.cuh's ring, weight sums and bias sums,
 # which WN16_KERNELS count): the product kernel's instances (enc16_gemm_kernel<EPI>, EPI as ENC16_EPILOGUES
 # names them), the LayerNorm rows (enc16_rows_kernel<MODE>, ENC16_ROWS) and attention's three (<DROP>)
@@ -643,6 +644,8 @@ def phase_build() -> None:
           + " | ".join(bwd))
     require(len(fwd) >= 4 and all("0 bytes spill stores" in line for line in fwd),
             f"a B3/B6 forward kernel is missing or spills: {fwd}")
+    first_form = [line for line in ptxas if "BfloatWnFwdTag" in line or "BfloatFlowFwdTag" in line]
+    require(not first_form, f"the bf16 forwards' mma.sync instances are back: {first_form}")
     blocks, smem = (ctypes.c_int * 3)(), (ctypes.c_longlong * 3)()
     rc = lib.wn_coupling_bwd_blocks_per_sm(blocks, smem)
     names = ("conv_mma_kernel (gate, 64 rows x 128)", "conv_mma_kernel (transposed conv, 64 x 64)",
@@ -653,10 +656,10 @@ def phase_build() -> None:
     require(len(bwd) >= 2 * len(B3_B6_KERNELS) and all("0 bytes spill stores" in line for line in bwd),
             f"a B3/B6 backward kernel is missing or spills: {bwd}")
     wn16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in WN16_KERNELS]
-    print("[build] B3/B6 bf16 backward on TMA and wgmma (ptxas: registers, shared memory, spills): "
+    print("[build] B3/B6 bf16 forward and backward on TMA and wgmma (ptxas: registers, shared memory, spills): "
           + " | ".join(wn16))
     require(len(wn16) == WN16_INSTANCES and all("0 bytes spill stores" in line for line in wn16),
-            f"a B3/B6 bf16 backward kernel is missing or spills: {wn16}")
+            f"a B3/B6 bf16 kernel is missing or spills: {wn16}")
     enc16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in ENC16_KERNELS]
     print("[build] B5 bf16 backward on TMA and wgmma, attention on bf16 mma.sync (ptxas: registers, shared "
           "memory, spills): " + " | ".join(enc16))
@@ -3230,8 +3233,25 @@ def kinds_line(kinds: dict) -> str:
             + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} launches)")
 
 
+def wn16_fwd_bytes_per_frame(w: wn_ops.WNWeights, half: int, c_out: int, flow: bool) -> dict:
+    """Device-memory bytes a frame of csrc/wn_coupling_bf16.cu's forward by
+    design (each launch's operands read once, a conv's taps counted once,
+    its outputs written once; weights left out), by part of the call:
+    design arithmetic, not a measurement."""
+    H, L, C = w.hidden, len(w.win), c_out
+    pack = 2 * C + 2 * C if flow else 2 * half + 2 * half
+    prefix = 2 * C + 2 * C if flow else 0
+    chain = 2 * half + 4 * H + 2 * H  # START: x0 in, h32 and h out
+    for i in range(L):
+        last = i == L - 1
+        chain += 2 * H + 2 * H  # GATE: h in, acts out
+        chain += 2 * H + (4 * H if i else 0) + (0 if last else 4 * H + 4 * H + 2 * H) + 4 * H + (2 * H if last else 0)
+    end = 2 * H + 2 * C
+    return {"pack": pack, "prefix": prefix, "chain": chain, "end": end, "total": pack + prefix + chain + end}
+
+
 def wn16_bytes_per_frame(w: wn_ops.WNWeights, half: int, c_out: int, flow: bool) -> dict:
-    """Device-memory bytes a frame of csrc/wn_coupling_bwd_bf16.cu by design
+    """Device-memory bytes a frame of csrc/wn_coupling_bf16.cu's backward by design
     (each launch's operands read once, a conv's taps and the weight sums'
     shifts counted once, its outputs written once; weights and the
     partials, which do not grow with the frames, left out), by part of the
@@ -3260,19 +3280,21 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
     the output, dx and the weight gradients within BF16_SUM_RTOL relative L2
     and every element within BF16_MAX_RTOL of max|ref|
     (tests/test_torch_bf16_wn_coupling.py's measures for dx), two calls
-    bitwise equal; times at (8, 384). The share within one ulp is printed,
-    not held: at Glow's width each product sums 960 terms in fp32, in
-    another order than the plain version's, so an intermediate within that
-    rounding of a bf16 boundary rounds one ulp apart (about 1e-4 of them);
-    through four layers and the end conv, whose outputs cancel, some 5% of
-    the outputs then move by more than one ulp of their own magnitude while
-    the relative L2 error stays near 2e-3 (the CPU tests' small widths sum
-    exactly and meet the share). So each layer is also held at the
-    backward's own rounded intermediates (teacher_forced on its recomputed
-    x_in): every layer's x_in, and the end conv on its skip sum (end_conv),
-    at least BF16_ULP_SHARE within one ulp. Then the bf16 backward's masks
-    read back bit for bit; the backward by launch kind at (8, 384) and its
-    bytes a frame by design."""
+    bitwise equal; the forward's x_in and skip sum (``return_buffers``)
+    equal to the backward's recompute bit for bit; times at (8, 384). The
+    share within one ulp is printed, not held: at Glow's width each product
+    sums 960 terms in fp32, in another order than the plain version's, so
+    an intermediate within that rounding of a bf16 boundary rounds one ulp
+    apart (about 1e-4 of them); through four layers and the end conv, whose
+    outputs cancel, some 5% of the outputs then move by more than one ulp of
+    their own magnitude while the relative L2 error stays near 2e-3 (the
+    CPU tests' small widths sum exactly and meet the share). So each layer
+    is also held at the kernel's own rounded intermediates (teacher_forced
+    on its x_in): every layer's x_in, and the forward's out against the
+    plain end conv on its skip sum (end_conv), at least BF16_ULP_SHARE
+    within one ulp. Then the bf16 backward's masks read back bit for bit;
+    the forward and the backward by launch kind at (8, 384) and their bytes
+    a frame by design."""
     w0 = wn_bf16(model.decoder.flows[2].conditioner_weights())
     half = model.n_mels * model.n_sqz // 2
     seed = torch.tensor([4343], dtype=torch.int64, device=device)
@@ -3303,20 +3325,24 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
         for p in (0.0, B3_DROP):
             with torch.no_grad():
                 ours, again = wn_ops.wn_coupling(x0, lens, w, seed, p), wn_ops.wn_coupling(x0, lens, w, seed, p)
+                out_b, fbufs = wn_ops.wn_coupling(x0, lens, w, seed, p, return_buffers=True)
                 ref = wn_ops.wn_coupling_reference(x0, lens, w, seed, p)
                 dx_k, gw_k, bufs = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p, return_buffers=True)
                 dx_k2, gw_k2 = wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p)
                 dx_r, gw_r = wn_ops.wn_coupling_backward_reference(x0, lens, w, g, seed, p)
-                xins, tf_out = teacher_forced(x0, lens, w, bufs["xin"], seed, p)
+                xins = teacher_forced(x0, lens, w, fbufs["xin"], seed, p)
                 torch.cuda.synchronize()
             agree = bf16_agreement(ours[valid], ref[valid])
             require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B3] {tag} p={p}: forward {agree}")
-            require(torch.equal(ours, again), f"[bf16 B3] {tag} p={p}: two forward calls differ")
+            require(torch.equal(ours, again) and torch.equal(ours, out_b),
+                    f"[bf16 B3] {tag} p={p}: two forward calls differ")
+            recompute = torch.equal(fbufs["xin"], bufs["xin"]) and torch.equal(fbufs["skip"], bufs["skip"])
+            require(recompute, f"[bf16 B3] {tag} p={p}: the forward's x_in or skip sum is not the backward's recompute")
             bitwise = torch.equal(dx_k, dx_k2) and all(torch.equal(u, v) for u, v in zip(gw_k.flat(), gw_k2.flat()))
             report = bf16_grads_ok(f"[bf16 B3 bwd] {tag} p={p}", bf16_agreement(dx_k[valid], dx_r[valid]),
                                    bf16_leaves(gw_k.tensors(), gw_r.tensors()), bitwise)
-            layers = [bf16_agreement(bufs["xin"][j][valid], xins[j][valid])[0] for j in range(len(w.win))]
-            end = bf16_agreement(end_conv(bufs["skip"], lens, w)[valid], tf_out[valid])[0]
+            layers = [bf16_agreement(fbufs["xin"][j][valid], xins[j][valid])[0] for j in range(len(w.win))]
+            end = bf16_agreement(ours[valid], end_conv(fbufs["skip"], lens, w)[valid])[0]
             require(min(layers) >= BF16_ULP_SHARE and end >= BF16_ULP_SHARE,
                     f"[bf16 B3] {tag} p={p}: a layer at the kernel's own intermediates: x_in {layers}, out {end}")
             times = ""
@@ -3337,23 +3363,27 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
                 times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
                          f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
                          f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                with torch.no_grad():
+                    fkinds = launch_kinds(lambda: wn_ops.wn_coupling(x0, lens, w, seed, p))
+                    kinds = launch_kinds(lambda: wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p))
                 if p == 0.0:
                     fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
-                                   bound_by=fb[1])
+                                   bound_by=fb[1], kinds={n: [ms, c] for n, (ms, c) in fkinds.items()})
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
                                    bound_by=bb[1])
-                with torch.no_grad():
-                    kinds = launch_kinds(lambda: wn_ops.wn_coupling_backward(x0, lens, w, g, seed, p))
+                print(f"[bf16 B3 fwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(fkinds)}; "
+                      f"bytes a frame by design {wn16_fwd_bytes_per_frame(w, half, w.wend.shape[0], False)} [{card}]")
                 print(f"[bf16 B3 bwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(kinds)}; "
                       f"bytes a frame by design {wn16_bytes_per_frame(w, half, w.wend.shape[0], False)} [{card}]")
             print(f"[bf16 B3] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
-                  f"max_abs_err {agree[1]:.2e} of max|ref|; at the kernel's own intermediates, within one ulp: x_in "
-                  f"of layers 0-{len(w.win) - 1} {', '.join(f'{v:.5f}' for v in layers)}, the end conv on its skip sum "
-                  f"{end:.5f}; backward {report}{times} [{card}]")
+                  f"max_abs_err {agree[1]:.2e} of max|ref|; its x_in and skip sum the backward's recompute bit for "
+                  f"bit {recompute}; at the kernel's own intermediates, within one ulp: x_in of layers "
+                  f"0-{len(w.win) - 1} {', '.join(f'{v:.5f}' for v in layers)}, out against the end conv on its skip "
+                  f"sum {end:.5f}; backward {report}{times} [{card}]")
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], bf16_agreement(dx_k[valid], dx_r[valid])[2])
-            del ours, again, ref, dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r, bufs, xins
+            del ours, again, out_b, fbufs, ref, dx_k, gw_k, dx_k2, gw_k2, dx_r, gw_r, bufs, xins
     # the masks, as phase_bf16_flow_step reads B6's: with conv biases of 10 every pre-dropout x_in is positive
     B, T = B3_SHAPES[0]
     H, L = w0.hidden, len(w0.win)
@@ -3921,17 +3951,15 @@ def phase_bf16_vqtts_train(device, card: str, fused_encoder: bool) -> dict:
 
 
 def teacher_forced(x0: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights, xins: torch.Tensor, seed,
-                   p: float) -> tuple:
+                   p: float) -> torch.Tensor:
     """The conditioner's plain bf16 layers held at the kernel's own rounded
     intermediates: layer i's conv output (post-dropout x_in) formed from the
     h_i that the kernel's x_in of layers 0 .. i-1 give (through the gate,
-    the res/skip product and the residual), and the end conv's output from
-    the skip sum they give. Returns ([L, B, T, 2H] fp32, out in bf16)."""
+    the res/skip product and the residual). Returns [L, B, T, 2H] fp32."""
     rnd, xf, wf = wn_ops._operands(x0, w)
     H, L, T = wf.hidden, len(wf.win), xf.shape[1]
     valid = (torch.arange(T, device=xf.device)[None, :] < lens[:, None]).to(xf.dtype)[..., None]
     h = wn_ops.pointwise(rnd(xf), rnd(wf.ws), wf.bs) * valid
-    skip = torch.zeros_like(h)
     plain = []
     for i in range(L):
         x_in = wn_ops._dilated(rnd(h), rnd(wf.win[i]), wf.bin[i], wf.dilations[i])
@@ -3942,15 +3970,13 @@ def teacher_forced(x0: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights, xi
         rs = wn_ops.pointwise(rnd(acts), rnd(wf.wrs[i]), wf.brs[i])
         if i < L - 1:
             h = (h + rs[..., :H]) * valid
-            skip = skip + rs[..., H:]
-        else:
-            skip = skip + rs
-    return torch.stack(plain), wn_ops.pointwise(rnd(skip * valid), rnd(wf.wend), wf.bend).to(x0.dtype)
+    return torch.stack(plain)
 
 
 def end_conv(skip: torch.Tensor, lens: torch.Tensor, w: wn_ops.WNWeights) -> torch.Tensor:
     """The conditioner's end conv, plain, on a skip sum (the kernel's own:
-    ``return_buffers``' skip), rounded as teacher_forced rounds it."""
+    ``return_buffers``' skip), its operands rounded to bf16 as the plain
+    bf16 version rounds them."""
     rnd, _, wf = wn_ops._operands(skip.to(w.ws.dtype), w)
     valid = (torch.arange(skip.shape[1], device=skip.device)[None, :] < lens[:, None]).float()[..., None]
     return wn_ops.pointwise(rnd(skip.float() * valid), rnd(wf.wend), wf.bend).to(w.ws.dtype)
@@ -3962,12 +3988,14 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
     holding the bf16 parameters' values, as the decoder passes them) and
     B3_OTHER_SHAPES, p=0 and B3_DROP: xc, out, dx and every gradient (daln,
     dalb, dmt in fp32) by phase_bf16_wn_coupling's measures, two calls bitwise
-    equal; then each conditioner layer at the backward's own rounded
-    intermediates (teacher_forced on its recomputed x_in): every layer's x_in,
-    and the end conv on the backward's skip sum (end_conv; the forward
-    kernel sums in another order than the backward's recompute), at least
-    BF16_ULP_SHARE within one bf16 ulp; the bf16 kernels' dropout masks read
-    back bit for bit; times at (8, 384)."""
+    equal; the forward's x_in and skip sum (``return_buffers``) and its xc's
+    first half equal to the backward's recomputed x_in, skip sum and x0 bit
+    for bit; then each conditioner layer at the kernel's own rounded
+    intermediates (teacher_forced on its x_in): every layer's x_in, and the
+    forward's out against the plain end conv on its skip sum (end_conv), at
+    least BF16_ULP_SHARE within one bf16 ulp; the bf16 kernels' dropout
+    masks read back bit for bit; times, and the forward and backward by
+    launch kind, at (8, 384)."""
     act, inv, cpl = model.decoder.flows[0], model.decoder.flows[1], model.decoder.flows[2]
     w0 = wn_bf16(cpl.conditioner_weights())
     w0 = wn_ops.WNWeights.from_flat([t.detach() for t in w0.flat()], w0.dilations)
@@ -4002,17 +4030,23 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
         for p in (0.0, B3_DROP):
             with torch.no_grad():
                 (xc, out), again = fs_ops.flow_step(*args, seed, p), fs_ops.flow_step(*args, seed, p)
+                xc_b, out_b, fbufs = fs_ops.flow_step(*args, seed, p, return_buffers=True)
                 xc_r, out_r = fs_ops.flow_step_reference(*args, seed, p)
                 k1 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p, return_buffers=True)
                 k2 = fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p)
                 r = fs_ops.flow_step_backward_reference(*args, g_xc, g_out, seed, p)
-                xins, tf_out = teacher_forced(xc[..., :half], lens, w, k1[5]["xin"], seed, p)
+                xins = teacher_forced(xc[..., :half], lens, w, fbufs["xin"], seed, p)
                 torch.cuda.synchronize()
             fwd = {n: bf16_agreement(k[valid], ref[valid]) for n, k, ref in (("xc", xc, xc_r), ("out", out, out_r))}
             for n, agree in fwd.items():
                 require(bf16_ok(agree, summed=True), f"[bf16 B6] {tag} p={p}: forward {n} {agree}")
-            require(xc.dtype == out.dtype == torch.bfloat16 and torch.equal(xc, again[0]) and torch.equal(out, again[1]),
+            require(xc.dtype == out.dtype == torch.bfloat16 and torch.equal(xc, again[0]) and torch.equal(out, again[1])
+                    and torch.equal(xc, xc_b) and torch.equal(out, out_b),
                     f"[bf16 B6] {tag} p={p}: the forward's dtypes, or two forward calls differ")
+            recompute = (torch.equal(fbufs["xin"], k1[5]["xin"]) and torch.equal(fbufs["skip"], k1[5]["skip"])
+                         and torch.equal(xc[..., :half], k1[5]["x0"]))
+            require(recompute, f"[bf16 B6] {tag} p={p}: the forward's xc, x_in or skip sum is not the backward's "
+                    "recompute")
             leaves = lambda o: {"daln": o[1], "dalb": o[2], "dmt": o[3], **o[4].tensors()}  # noqa: E731
             dtypes = (k1[0].dtype, k1[1].dtype, k1[3].dtype, k1[4].ws.dtype)
             require(dtypes == (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16),
@@ -4020,8 +4054,8 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
             bitwise = torch.equal(k1[0], k2[0]) and all(torch.equal(u, leaves(k2)[n]) for n, u in leaves(k1).items())
             dx_agree = bf16_agreement(k1[0][valid], r[0][valid])
             report = bf16_grads_ok(f"[bf16 B6 bwd] {tag} p={p}", dx_agree, bf16_leaves(leaves(k1), leaves(r)), bitwise)
-            layers = [bf16_agreement(k1[5]["xin"][j][valid], xins[j][valid])[0] for j in range(L)]
-            end = bf16_agreement(end_conv(k1[5]["skip"], lens, w)[valid], tf_out[valid])[0]
+            layers = [bf16_agreement(fbufs["xin"][j][valid], xins[j][valid])[0] for j in range(L)]
+            end = bf16_agreement(out[valid], end_conv(fbufs["skip"], lens, w)[valid])[0]
             require(min(layers) >= BF16_ULP_SHARE and end >= BF16_ULP_SHARE,
                     f"[bf16 B6] {tag} p={p}: a layer at the kernel's own intermediates: x_in {layers}, out {end}")
             times = ""
@@ -4042,25 +4076,28 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
                 times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
                          f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
                          f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}")
+                with torch.no_grad():
+                    fkinds = launch_kinds(lambda: fs_ops.flow_step(*args, seed, p))
+                    kinds = launch_kinds(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p))
                 if p == 0.0:
                     fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
-                                   bound_by=fb[1])
+                                   bound_by=fb[1], kinds={n: [ms, c] for n, (ms, c) in fkinds.items()})
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
                                    bound_by=bb[1])
-                with torch.no_grad():
-                    kinds = launch_kinds(lambda: fs_ops.flow_step_backward(*args, g_xc, g_out, seed, p))
+                print(f"[bf16 B6 fwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(fkinds)}; "
+                      f"bytes a frame by design {wn16_fwd_bytes_per_frame(w, half, C, True)} [{card}]")
                 print(f"[bf16 B6 bwd] {tag} p={p}: by launch kind (ms a call, launches a call): {kinds_line(kinds)}; "
                       f"bytes a frame by design {wn16_bytes_per_frame(w, half, C, True)} [{card}]")
             print(f"[bf16 B6] {tag} p={p}: forward xc {fwd['xc'][0]:.5f} / out {fwd['out'][0]:.5f} within one bf16 "
                   f"ulp, relative L2 {fwd['xc'][3]:.2e} / {fwd['out'][3]:.2e} (tol {BF16_SUM_RTOL:.4g}), max_abs_err "
-                  f"{fwd['xc'][1]:.2e} / {fwd['out'][1]:.2e} of max|ref|; at the kernel's own intermediates, within "
-                  f"one ulp: x_in of layers 0-{L - 1} {', '.join(f'{v:.5f}' for v in layers)}, the end conv on "
-                  f"its skip sum {end:.5f} (need "
-                  f"{BF16_ULP_SHARE}); backward {report}{times} [{card}]")
+                  f"{fwd['xc'][1]:.2e} / {fwd['out'][1]:.2e} of max|ref|; its xc's first half, x_in and skip sum the "
+                  f"backward's recompute bit for bit {recompute}; at the kernel's own intermediates, within one ulp: "
+                  f"x_in of layers 0-{L - 1} {', '.join(f'{v:.5f}' for v in layers)}, out against the end conv on "
+                  f"its skip sum {end:.5f} (need {BF16_ULP_SHARE}); backward {report}{times} [{card}]")
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], fwd["xc"][2], fwd["out"][2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
-            del xc, out, again, xc_r, out_r, k1, k2, r, xins
+            del xc, out, again, xc_b, out_b, fbufs, xc_r, out_r, k1, k2, r, xins
     # the masks, as in phase 26: with conv biases of 10 every pre-dropout x_in is positive
     B, T = B3_SHAPES[0]
     H, L = w0.hidden, len(w0.win)
@@ -4733,12 +4770,14 @@ def main() -> None:
               b5_bwd["ms"], b5_bwd["plain_ms"], b5_bwd["bound_ms"], b5_bwd["bound_by"],
               call_ms=b5_bwd["call_ms"], bound_3xtf32_ms=b5_bwd["tf32_ms"],
               vqtts={"launches_b5_route": vq_train_b5["launches"][5]}),
-        entry("wn_coupling_fwd_bf16", "wn_coupling_fwd.cu", PALLAS_WN + ":442", glow_bf16["launches"][6],
+        entry("wn_coupling_fwd_bf16", "wn_coupling_bf16.cu", PALLAS_WN + ":442", glow_bf16["launches"][6],
               b3_bf16["fwd"]["max_abs_err"], b3_bf16["fwd"]["ms"], b3_bf16["fwd"]["plain_ms"],
-              b3_bf16["fwd"]["bound_ms"], b3_bf16["fwd"]["bound_by"], call_ms=b3_bf16["fwd"]["call_ms"]),
-        entry("wn_coupling_bwd_bf16", "wn_coupling_bwd_bf16.cu", PALLAS_WN + ":484", glow_bf16["launches"][7],
+              b3_bf16["fwd"]["bound_ms"], b3_bf16["fwd"]["bound_by"], call_ms=b3_bf16["fwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in WN16_SOURCES], launch_kinds=b3_bf16["fwd"]["kinds"]),
+        entry("wn_coupling_bwd_bf16", "wn_coupling_bf16.cu", PALLAS_WN + ":484", glow_bf16["launches"][7],
               b3_bf16["bwd"]["max_abs_err"], b3_bf16["bwd"]["ms"], b3_bf16["bwd"]["plain_ms"],
-              b3_bf16["bwd"]["bound_ms"], b3_bf16["bwd"]["bound_by"], call_ms=b3_bf16["bwd"]["call_ms"]),
+              b3_bf16["bwd"]["bound_ms"], b3_bf16["bwd"]["bound_by"], call_ms=b3_bf16["bwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in WN16_SOURCES]),
         entry("enc_layer_fwd_bf16", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_b5_bf16,
               b5_bf16["fwd"]["max_abs_err"], b5_bf16["fwd"]["ms"], b5_bf16["fwd"]["plain_ms"],
               b5_bf16["fwd"]["bound_ms"], b5_bf16["fwd"]["bound_by"], call_ms=b5_bf16["fwd"]["call_ms"],
@@ -4755,12 +4794,14 @@ def main() -> None:
         entry("flow_step_bwd", "flow_step_bwd.cu", PALLAS_WN + ":569", b6_bwd_n, b6["max_abs_err"], b6["ms"],
               b6["plain_ms"], b6["bound_ms"], b6["bound_by"], call_ms=b6["call_ms"],
               bound_3xtf32_ms=b6["tf32_ms"]),
-        entry("flow_step_fwd_bf16", "flow_step_fwd.cu", PALLAS_WN + ":521", glow_bf16_b6["launches"][11],
+        entry("flow_step_fwd_bf16", "wn_coupling_bf16.cu", PALLAS_WN + ":521", glow_bf16_b6["launches"][11],
               b6_bf16["fwd"]["max_abs_err"], b6_bf16["fwd"]["ms"], b6_bf16["fwd"]["plain_ms"],
-              b6_bf16["fwd"]["bound_ms"], b6_bf16["fwd"]["bound_by"], call_ms=b6_bf16["fwd"]["call_ms"]),
-        entry("flow_step_bwd_bf16", "wn_coupling_bwd_bf16.cu", PALLAS_WN + ":569", glow_bf16_b6["launches"][12],
+              b6_bf16["fwd"]["bound_ms"], b6_bf16["fwd"]["bound_by"], call_ms=b6_bf16["fwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in WN16_SOURCES], launch_kinds=b6_bf16["fwd"]["kinds"]),
+        entry("flow_step_bwd_bf16", "wn_coupling_bf16.cu", PALLAS_WN + ":569", glow_bf16_b6["launches"][12],
               b6_bf16["bwd"]["max_abs_err"], b6_bf16["bwd"]["ms"], b6_bf16["bwd"]["plain_ms"],
-              b6_bf16["bwd"]["bound_ms"], b6_bf16["bwd"]["bound_by"], call_ms=b6_bf16["bwd"]["call_ms"]),
+              b6_bf16["bwd"]["bound_ms"], b6_bf16["bwd"]["bound_by"], call_ms=b6_bf16["bwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in WN16_SOURCES]),
         entry("attention_fwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":226", lm_bf16["launches"][2],
               b2_bf16["fwd_err"], b2_bf16["fwd_dev"], b2_bf16["fwd_plain_ms"], *b2_bf16["bound"], b2_bf16["sdpa_dev"],
               ms_p0=b2_bf16["fwd_dev_p0"], call_ms=b2_bf16["fwd_ms"],

@@ -1,6 +1,6 @@
-// The bf16 backward engine for Hopper (sm_90a) that B3's and B6's bf16
-// backwards (wn_coupling_bwd_bf16.cu) and B5's (enc_layer_bwd_bf16.cu)
-// share: the k-slice pipeline of a product tile (TMA into an mbarrier ring,
+// The bf16 engine for Hopper (sm_90a) that B3's and B6's bf16 forwards and
+// backwards (wn_coupling_bf16.cu) and B5's bf16 backward
+// (enc_layer_bwd_bf16.cu) share: the k-slice pipeline of a product tile (TMA into an mbarrier ring,
 // wgmma with fp32 sums a slice), the weight sums with the frames as wgmma's
 // K (wn16_wsum_kernel and its fixed-order reduction), the packing launch
 // (wn16_pack_kernel) and the bias sums (wn16_bias_kernel). The kernels of

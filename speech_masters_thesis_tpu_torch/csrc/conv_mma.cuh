@@ -41,12 +41,12 @@
 // would meet one register (up to 3 x 240 for a 1,920-deep transposed conv).
 //
 // bf16 mode (template parameter IO = __nv_bfloat16; float is the 3xTF32
-// mode): the TPU kernels' bf16 dot_dtype rounds each product's operands to
-// bf16 and sums in fp32. The staging buffers stay fp32: fp32 activations land
-// as they are (cp.async), bf16 ones (in_bf16: a kernel's input) and the bf16
-// weights by 2-byte loads converted to fp32, so any width, stride or offset
-// runs (a bf16 in2 beside an fp32 in, and the ACTNORM epilogues' fp32 weight,
-// by 4-byte loads); the fragments are rounded to bf16 as they are built (bf16_mma.cuh:
+// mode; B5's bf16 forward, enc_layer_fwd.cu): the TPU kernels' bf16
+// dot_dtype rounds each product's operands to bf16 and sums in fp32. The
+// staging buffers stay fp32: fp32 activations land as they are (cp.async),
+// bf16 ones (in_bf16: a kernel's input) and the bf16 weights by 2-byte loads
+// converted to fp32, so any width, stride or offset runs; the fragments are
+// rounded to bf16 as they are built (bf16_mma.cuh:
 // exact for values that were bf16) and go through one m16n8k16 MMA, two
 // k-steps of 16 a slice, each k-step's MMAs added to the accumulators in
 // fp32 as in the fp32 mode (bf16 mma.sync's accumulation truncates too).
@@ -116,8 +116,6 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
   using S = Tile<TN, ROWS, N8>;
   constexpr int TM = S::TM;
   constexpr bool BF = kBf16<IO>;
-  // the flow step's prefix in bf16: its weight mt fp32, and (ACTNORM_BWD) a bf16 in2 beside an fp32 in
-  constexpr bool PREFIX = BF && (EPI == conv_rows::ACTNORM_FWD || EPI == conv_rows::ACTNORM_BWD);
   const int tap = s / slices, c0 = (s % slices) * KS, shift = tap * a.dil - pad;
   float* as = st;
   float* bs = st + S::A_FLOATS;
@@ -132,13 +130,6 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
       const bf16_t* src = reinterpret_cast<const bf16_t*>(a.in) + (row0 + t) * a.ldi;
 #pragma unroll
       for (int e = 0; e < 4; ++e) dst[e] = row && ch + e < a.cin ? __bfloat162float(src[ch + e]) : 0.f;
-    } else if (PREFIX && a.in2_bf16) {  // fp32 channels below split, bf16 ones from in2
-      const bf16_t* src2 = reinterpret_cast<const bf16_t*>(a.in2) + (row0 + t) * a.ldi2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = ch + e;
-        dst[e] = !row || c >= a.cin ? 0.f : c >= a.split ? __bfloat162float(src2[c - a.split]) : *at(c);
-      }
     } else if (WHOLE) {
       const bool in = row && ch < a.cin;
       tf32::cp_async16(dst, in ? at(ch) : a.in, in ? 16 : 0);
@@ -146,10 +137,9 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
       tf32::stage4(dst, [&](int e) -> const float* { return row && ch + e < a.cin ? at(ch + e) : nullptr; });
     }
   }
-  if (BF) {  // the bf16 weights; the prefix's mt stays fp32
+  if (BF) {  // the bf16 weights
     const bf16_t* wt16 = reinterpret_cast<const bf16_t*>(wb.w) + tap * wb.tap_ld;
-    const float* wt32 = wb.w + tap * wb.tap_ld;
-    auto wt = [&](size_t i) { return PREFIX ? wt32[i] : __bfloat162float(wt16[i]); };
+    auto wt = [&](size_t i) { return __bfloat162float(wt16[i]); };
     if (wb.nk) {
       for (int f = threadIdx.x; f < TN * (KS / 4); f += NT) {
         const int j = f / (KS / 4), ch = c0 + 4 * (f % (KS / 4));
@@ -377,7 +367,7 @@ inline Weight weight_of(const Args& a) {
 template <int EPI, class IO = float>
 inline bool whole_pieces(const Args& a, const Weight& wb) {
   using tf32::aligned16;
-  if (kBf16<IO> && (a.in_bf16 || a.in2_bf16)) return true;
+  if (kBf16<IO> && a.in_bf16) return true;
   const bool in = aligned16(a.in) && a.ldi % 4 == 0 && a.cin % 4 == 0 &&
                   (!a.in2 || (aligned16(a.in2) && a.ldi2 % 4 == 0 && a.split % 4 == 0));
   if (kBf16<IO>) return in;
@@ -435,13 +425,12 @@ struct Pack {
   int n_out, cin, taps;
 };
 
-// IO: the weights' type (bf16 weights pack as bf16, dst counted in bf16)
-template <class Tag, int FORMS, class IO = float>
+template <class Tag, int FORMS>
 __global__ void __launch_bounds__(NT) pack_weights_kernel(const Pack p) {
   const int i = blockIdx.y, form = blockIdx.z;
   const int size = p.taps * p.n_out * p.cin;
-  const IO* src = reinterpret_cast<const IO*>(p.src[i]);
-  IO* dst = reinterpret_cast<IO*>(p.dst) + (size_t)(FORMS * i + form) * size;
+  const float* src = p.src[i];
+  float* dst = p.dst + (size_t)(FORMS * i + form) * size;
   for (int e = blockIdx.x * NT + threadIdx.x; e < size; e += gridDim.x * NT) {
     int tap, c, n, v;
     if (form == 0) {  // dst[tap][c][n] = src[n][c][tap], c < cin, n < n_out
@@ -459,7 +448,7 @@ __global__ void __launch_bounds__(NT) pack_weights_kernel(const Pack p) {
   }
 }
 
-template <class Tag, int FORMS, class IO = float>
+template <class Tag, int FORMS>
 cudaError_t pack(const float* const* src, int count, float* dst, int n_out, int cin, int taps, cudaStream_t s) {
   static_assert(FORMS == 1 || FORMS == 2, "the conv's form, or both");
   if (count < 1 || count > MAX_PACK) return cudaErrorInvalidValue;
@@ -470,7 +459,7 @@ cudaError_t pack(const float* const* src, int count, float* dst, int n_out, int 
   p.cin = cin;
   p.taps = taps;
   const dim3 grid((taps * n_out * cin + 4 * NT - 1) / (4 * NT), count, FORMS);
-  pack_weights_kernel<Tag, FORMS, IO><<<grid, NT, 0, s>>>(p);
+  pack_weights_kernel<Tag, FORMS><<<grid, NT, 0, s>>>(p);
   return cudaGetLastError();
 }
 

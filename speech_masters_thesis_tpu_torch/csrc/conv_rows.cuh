@@ -49,14 +49,11 @@
 // kernels of its own names.
 //
 // bf16 mode (conv_mma.cuh's IO = __nv_bfloat16, the TPU kernels' bf16
-// dot_dtype): w, bias, gamma and beta hold bf16 (the parameters), and so do
-// in, in2, res and out where in_bf16, in2_bf16, res_bf16 and out_bf16 are set
-// (a kernel's inputs and outputs); every other buffer stays fp32. The
-// ACTNORM epilogues' weight (the flow step's dense InvConvNear matrix mt)
-// and out_logs stay fp32, as the TPU kernel takes them; ACTNORM_BWD with
-// out_bf16 writes out in bf16 and the same values in fp32 to out3 (the
-// ActNorm's log-scale gradient sums them). The flags sit in Args' padding,
-// so the fp32 kernels' parameters keep their layout.
+// dot_dtype; B5's bf16 forward): w, bias, gamma and beta hold bf16 (the
+// parameters), and so do in, res and out where in_bf16, res_bf16 and
+// out_bf16 are set (a kernel's inputs and outputs); every other buffer stays
+// fp32. The flags sit in Args' padding, so the fp32 kernels' parameters
+// keep their layout.
 
 #pragma once
 
@@ -81,7 +78,6 @@ struct Args {
   const float* pre_bias;
   float* in_out;          // ACTNORM_FWD, one tap: the loaded rows written back (rows ldio apart), or null
   int ldio;
-  int in2_bf16;           // bf16 mode: `in2` holds bf16 (and `in` fp32)
   const float* in2;   // channels >= split (when set)
   int ldi2, split;
   const float* w;     // [n_out, cin, taps], or with wt [cin, n_out, taps]
@@ -106,7 +102,7 @@ struct Args {
   float* rinv;
   int ldz;
   float* out2;        // LN_BWD, ACTNORM_BWD
-  float* out3;        // LN_BWD; ACTNORM_BWD in bf16: out in fp32
+  float* out3;        // LN_BWD
   const float* out_logs;  // ACTNORM_BWD
   const long long* seed;  // dropout: threshold 0 means none
   unsigned threshold;
@@ -266,13 +262,7 @@ _Pragma("unroll")                                                               
     } else if (EPI == ACTNORM_BWD) {                                                                               \
       const float v = z * valid;                                                                                   \
       a.out2[row * a.ldo + col] = v;                                                                               \
-      if (BF && a.out_bf16) {                                                                                      \
-        const float d = v * expf(a.out_logs[col]);                                                                 \
-        bf16_put(a.out, row * a.ldo + col, d);                                                                     \
-        a.out3[row * a.ldo + col] = d;                                                                             \
-      } else {                                                                                                     \
-        a.out[row * a.ldo + col] = v * expf(a.out_logs[col]);                                                      \
-      }                                                                                                            \
+      a.out[row * a.ldo + col] = v * expf(a.out_logs[col]);                                                        \
     } else if (EPI == DRELU) {                                                                                     \
       a.out[row * a.ldo + col] = a.res[row * a.ldr + col] > 0.0f ? z * (a.threshold ? a.keep_scale : 1.0f) : 0.0f; \
     } else {                                                                                                       \

@@ -4,7 +4,7 @@
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // _flow_vjp_bwd -> pallas_call(_bwd_flow_kernel) (_bwd_flow), the custom VJP
 // of fused_flow_step, in its fp32 mode (the bf16 mode is
-// wn_coupling_bwd_bf16.cu). Plain version:
+// wn_coupling_bf16.cu). Plain version:
 // ops/flow_step.py:flow_step_backward_reference.
 //
 // What it computes, for the cotangents g_xc and g_out [B, T, C] of the

@@ -1,9 +1,9 @@
 // One whole Glow-TTS flow step (ActNorm -> InvConvNear -> the coupling
-// conditioner) forward for Hopper (sm_90a), fp32 or bf16, with dropout.
+// conditioner) forward for Hopper (sm_90a), fp32, with dropout.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // fused_flow_step -> pallas_call(_fwd_flow_kernel) (_fwd_flow), in its fp32
-// mode and (flow_step_fwd_bf16) its bf16 mode (dot_dtype = x's dtype). The
+// mode (the bf16 mode, dot_dtype = x's dtype, is wn_coupling_bf16.cu). The
 // recompute backward (its _flow_vjp_bwd) is flow_step_bwd.cu. Plain version:
 // ops/flow_step.py:flow_step_reference.
 //
@@ -30,15 +30,6 @@
 // backward's recompute (flow_step_bwd.cu) runs the same launches. One call:
 // 1 + 1 + 2 + 2 * n_layers launches (12 at 4 layers: the prefix, the
 // packing, the conditioner's).
-//
-// bf16 mode (the TPU kernel's, wn_coupling.py:327-331): x, the conditioner's
-// weights, xc and out bf16; the ActNorm's aln, alb and the dense matrix mt
-// fp32 (the JAX decoder passes them upcast from the bf16 parameters). The
-// ActNorm runs in fp32 on x upcast, and the prefix's product rounds x1 and
-// mt as its operands (conv_mma.cuh's bf16 mode; mt read in fp32), one bf16
-// MMA a product as for the conditioner (wn_coupling_fwd.cu's bf16 mode). xc
-// is written in bf16: the conditioner's first product rounds its first half
-// anyway, as the TPU kernel's _dot rounds the fp32 xc it keeps.
 
 #include <cuda_runtime.h>
 
@@ -46,7 +37,6 @@
 
 namespace {
 struct FlowFwdTag {};
-struct BfloatFlowFwdTag {};  // the bf16 mode's kernels
 }  // namespace
 
 // Floats of the workspace flow_step_fwd needs: the conditioner's packed
@@ -78,27 +68,4 @@ extern "C" int flow_step_fwd(const float* x, const int* lens, const long long* s
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, bend};
   return (int)wn_coupling::forward<FlowFwdTag>(xc, c_out, lens, w, sh, {seed, threshold, keep_scale}, out, h,
                                                acts, skip, workspace, s);
-}
-
-// The bf16 mode: x, the conditioner's weights, xc and out bf16; aln, alb, mt
-// fp32; h, acts, skip fp32; the workspace as for the fp32 mode
-// (flow_step_fwd_workspace_floats; the packed copies take half).
-extern "C" int flow_step_fwd_bf16(const void* x, const int* lens, const long long* seed, const float* aln,
-                                  const float* alb, const float* mt, const void* ws, const void* bs,
-                                  const void* const* win, const void* const* bin, const void* const* wrs,
-                                  const void* const* brs, const void* wend, const void* bend, void* xc, void* out,
-                                  float* h, float* acts, float* skip, float* workspace, int B, int T, int half,
-                                  int H, int c_out, int n_layers, int kernel_size, int dilation_rate,
-                                  unsigned threshold, float keep_scale, void* stream) {
-  using F = const float*;
-  using FP = const float* const*;
-  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
-  if (!wn_coupling::valid_shape(sh) || c_out != 2 * half) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = wn_coupling::flow_prefix<BfloatFlowFwdTag, conv_mma::bf16_t>(
-      F(x), lens, aln, alb, mt, B, T, c_out, static_cast<float*>(xc), nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  const wn_coupling::Weights w{F(ws), F(bs), FP(win), FP(bin), FP(wrs), FP(brs), F(wend), F(bend)};
-  return (int)wn_coupling::forward<BfloatFlowFwdTag, conv_mma::bf16_t>(
-      F(xc), c_out, lens, w, sh, {seed, threshold, keep_scale}, static_cast<float*>(out), h, acts, skip, workspace, s);
 }

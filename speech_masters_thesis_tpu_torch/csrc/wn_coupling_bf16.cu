@@ -1,19 +1,31 @@
-// The Glow-TTS coupling conditioner's recompute backward in bf16 for Hopper
-// (sm_90a), on one engine for B3 (wn_coupling_bwd_bf16) and the whole flow
-// step, B6 (flow_step_bwd_bf16): every product on wgmma with both operands
-// bf16, staged by TMA into mbarrier rings (hopper.cuh), fp32 sums. The fp32
-// modes stay in wn_coupling_bwd.cu and flow_step_bwd.cu.
+// The Glow-TTS coupling conditioner in bf16 for Hopper (sm_90a), forward
+// and recompute backward, on one engine for B3 (wn_coupling_fwd_bf16,
+// wn_coupling_bwd_bf16) and the whole flow step, B6 (flow_step_fwd_bf16,
+// flow_step_bwd_bf16): every product on wgmma with both operands bf16,
+// staged by TMA into mbarrier rings (hopper.cuh), fp32 sums. The forward is
+// the backward's recompute, launch for launch (recompute below), so the
+// backward's x_in, acts, h and skip sum are the forward's bits, as the TPU
+// kernel's forward and backward share one _forward_body. The fp32 modes
+// stay in wn_coupling_{fwd,bwd}.cu and flow_step_{fwd,bwd}.cu.
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, functions
-// _vjp_bwd -> _bwd -> pallas_call(_bwd_kernel) (body _conditioner_bwd) and
+// fused_wn_coupling -> _fwd -> pallas_call(_fwd_kernel) (body _forward_body),
+// _vjp_bwd -> _bwd -> pallas_call(_bwd_kernel) (body _conditioner_bwd),
+// fused_flow_step -> _fwd_flow -> pallas_call(_fwd_flow_kernel) and
 // _flow_vjp_bwd -> _bwd_flow -> pallas_call(_bwd_flow_kernel), in their bf16
 // mode (dot_dtype bf16). Plain versions: ops/wn_coupling.py:
-// wn_coupling_backward_reference, ops/flow_step.py:
-// flow_step_backward_reference. Rounding points, as the TPU kernel's: every
-// product's operands bf16 (_dot), fp32 sums; the gate's derivative, the
-// residual chains of h and dh, the skip sum and the ActNorm fp32; dx0 (B3)
-// and dx (B6) written in bf16; the conditioner's weight gradients fp32 sums
-// over every frame cast to bf16 once, dmt, daln and dalb fp32.
+// wn_coupling_reference, wn_coupling_backward_reference, ops/flow_step.py:
+// flow_step_reference, flow_step_backward_reference. Rounding points, as
+// the TPU kernel's: every product's operands bf16 (_dot), fp32 sums; the
+// gate, its derivative, the residual chains of h and dh, the skip sum and
+// the ActNorm fp32; out, xc (B6), dx0 (B3) and dx (B6) written in bf16; the
+// conditioner's weight gradients fp32 sums over every frame cast to bf16
+// once, dmt, daln and dalb fp32.
+//
+// The forward: B6 first x1 = (alb + exp(aln) x) * valid, xc = x1 mt (all C
+// columns, bf16), x0 = xc[:, :half]; then the recompute below, and out =
+// (skip * valid) W_end + b_end with b_end at every frame, padded ones
+// included (wn_coupling.py:178).
 //
 // What it computes, for the output cotangent g [B, T, c_out] (B6: g_out,
 // and g_xc of xc):
@@ -36,10 +48,12 @@
 //   fp32 cotangents dh_0, drs, dx_in.
 //
 // What bounds it on an H100: operations. At Glow's width (H 192, half 80,
-// k 5, 4 layers) a frame costs about 7.9 MFLOP (the recompute, the
-// transposed products and the weight products, 3x the forward), 24 GFLOP
-// at (8, 384): 0.024 ms at 989 TFLOP/s of bf16; the inputs and outputs move
-// about 1 KB a frame.
+// k 5, 4 layers, c_out 160) the forward costs about 3.56 MFLOP a frame,
+// 10.9 GFLOP at (8, 384): 0.011 ms at 989 TFLOP/s of bf16 (B6 0.05 MFLOP a
+// frame more for xc); the backward about 7.9 MFLOP a frame (the recompute, the
+// transposed products and the weight products, 3x the forward), 24 GFLOP:
+// 0.024 ms; the inputs and outputs move about 0.5 KB (forward) and 1 KB
+// (backward) a frame.
 //
 // Design. The TPU kernel keeps a sequence and its per-layer scratch in VMEM.
 // Here the scratch lives in device memory, laid out by the wrapper
@@ -77,9 +91,21 @@
 // dtype; where the jobs are too few to fill the card, over a fixed share of
 // the frames, and wn16_wsum_reduce_kernel adds the shares in a fixed order.
 // The engine's column sums (wn16_bias_kernel) add the bias partials. No
-// float atomics: two calls are bitwise equal. Launches a call at Glow's shape (4 layers): B3 22 (a pack,
-// 1 + 2 L recompute products, 1 + 2 L transposed, dx0, the weight sums, the
-// biases), B6 24 (x1 mt and dx1 = dxc mt^T more).
+// float atomics: two calls are bitwise equal. Launches a call at Glow's
+// shape (4 layers): B3's backward 22 (a pack, 1 + 2 L recompute products,
+// 1 + 2 L transposed, dx0, the weight sums, the biases), B6's 24 (x1 mt and
+// dx1 = dxc mt^T more).
+//
+// The forward runs the backward's pack (only the weights it reads, and x0,
+// or B6's x1 and mt^T), B6's x1 mt over all C columns into the caller's xc,
+// the same recompute launches and an END product into the caller's out:
+// B3 11 launches (pack, 1 + 2 L, END), B6 12. Its scratch
+// (ops/wn_coupling.py:fwd16_layout, one allocation) keeps h in two planes
+// and acts in one (no weight sum reads them); x_in goes to device memory
+// only when the caller asks for it (the wrapper's return_buffers). B6's
+// conditioner reads x0 in place from xc through a map of width half and
+// row pitch C where the pitch is a multiple of 16 bytes, else from a
+// padded copy that XC writes beside xc.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,7 +123,7 @@ namespace wn16 {
 constexpr int WN_STREAMS = 64;  // ops/wn_coupling.py WN_STREAMS: hash streams a sequence, one a layer
 
 // ---- the products ------------------------------------------------------------
-enum Epi : int { START, GATE, RES, DSKIP, GATE_BWD, CONVT, DX0, DXC, XC, DX1 };
+enum Epi : int { START, GATE, RES, DSKIP, GATE_BWD, CONVT, DX0, DXC, XC, DX1, END };
 
 // One product out[b, t, n] = sum over taps j and input channels c of
 // A[b, t + sign (j - (taps-1)/2) dil, c] W_j[n, c], A the concatenation of up
@@ -115,11 +141,11 @@ struct Gemm {
   float keep_scale;
   int layer, first, last;
   const bf16_t* bias;
-  float* f0;  // fp32 state: h (START, RES), x_in (GATE, GATE_BWD), dh (CONVT)
+  float* f0;  // fp32 state: h (START, RES), x_in (GATE, not stored where null; GATE_BWD), dh (CONVT)
   float* f1;  // RES: the skip sum
   bf16_t* o0;  // the bf16 output (rows ld0 apart)
-  bf16_t* o1;  // RES of the last layer: skip * valid
-  int ld0, ld1;
+  bf16_t* o1;  // RES of the last layer: skip * valid; XC: where set, a copy of columns < n1 (x0)
+  int ld0, ld1, n1;
   const bf16_t* r16;  // DXC: g_xc, DX1: x (rows ldr apart)
   int ldr;
   const float* aln;   // DX1
@@ -220,8 +246,10 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
         zg[e] = (sum[r + BN / 4 + e] + f32(p.bias[H + ce])) * drop(p, key, t, H + ce);
         a[e] = tanhf(zt[e]) * (1.0f / (1.0f + expf(-zg[e])));
       }
-      st2(p.f0 + row * 2 * H + c, zt[0], zt[1], two);
-      st2(p.f0 + row * 2 * H + H + c, zg[0], zg[1], two);
+      if (p.f0) {
+        st2(p.f0 + row * 2 * H + c, zt[0], zt[1], two);
+        st2(p.f0 + row * 2 * H + H + c, zg[0], zg[1], two);
+      }
       st2(p.o0 + row * p.ld0 + c, a[0], a[1], two);
     }
   } else if constexpr (EPI == RES) {
@@ -302,7 +330,7 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
     col_sums(da, red, p.part + (size_t)blockIdx.x * p.part_ld + n0, p.n_out - n0);
     col_sums(db, red, p.part2 + (size_t)blockIdx.x * p.part_ld + n0, p.n_out - n0);
   } else {
-    // START, DSKIP, CONVT, DX0, DXC, XC: one value a column
+    // START, DSKIP, CONVT, DX0, DXC, XC, END: one value a column
     float v[BN / 2];
 #pragma unroll
     for (int r = 0; r < BN / 2; r += 2) {
@@ -324,6 +352,9 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
       } else if constexpr (EPI == DXC) {
         x0 = (pre[r] + x0) * valid;
         x1 = (pre[r + 1] + x1) * valid;
+      } else if constexpr (EPI == END) {  // the bias at every frame, padded ones included
+        x0 += f32(p.bias[n]);
+        x1 = two ? x1 + f32(p.bias[n + 1]) : 0.0f;
       } else if constexpr (EPI != XC) {
         x0 *= valid;  // DSKIP, DX0
         x1 *= valid;
@@ -331,6 +362,8 @@ __global__ void __launch_bounds__(THREADS) wn16_gemm_kernel(const __grid_constan
       v[r] = x0;
       v[r + 1] = x1;
       st2(p.o0 + row * p.ld0 + n, x0, x1, two);
+      if constexpr (EPI == XC)
+        if (p.o1 && n < p.n1) st2(p.o1 + row * p.ld1 + n, x0, x1, n + 1 < p.n1);
     }
     if constexpr (EPI == DSKIP || EPI == CONVT)
       col_sums(v, red, p.part + (size_t)blockIdx.x * p.part_ld + n0, p.n_out - n0);
@@ -426,43 +459,62 @@ struct Weights {
 // columns of W_rs^T: the residual half's H, zeros to a 64-column boundary, the skip half's H
 __host__ __device__ constexpr int rs_t_cols(int H) { return KC * cdiv(H, KC) + H; }
 
-// the weights' packing jobs: W_s [H][half], W_s^T [half][H], W_end^T [H][c_out], W_in in the
-// gate's row order [L k][gate_rows(H)][H], W_in transposed [L k][H][2H], W_rs [L][2H][H]
-// (the last layer's H rows, then zeros), W_rs^T [L][H][rs_t_cols(H)] (the last layer's skip half zeros)
-void weight_jobs(const Weights& w, const Shape& sh, const Bufs& u, std::vector<PackJob>& jobs) {
-  const int H = sh.H, L = sh.L, k = sh.k, half = sh.half, C = sh.c_out;
-  const int R2 = gate_rows(H), rst = rs_t_cols(H);
-  auto job = [&](const void* src, bf16_t* dst, long long sp, long long sr, long long sc, int planes, int rows,
-                 int cols, int src_rows, int src_cols, int kind, int pitch = 0) {
-    PackJob J{};
-    J.src = src;
-    J.dst = dst;
-    J.s_plane = sp;
-    J.s_row = sr;
-    J.s_col = sc;
-    J.planes = planes;
-    J.rows = rows;
-    J.cols = cols;
-    J.pitch = pitch ? pitch : pitch8(cols);
-    J.src_rows = src_rows;
-    J.src_cols = src_cols;
-    J.kind = kind;
-    J.H = H;
-    jobs.push_back(J);
-  };
-  job(w.ws, u.w_s, 0, half, 1, 1, H, half, H, half, P_BF16);
-  job(w.ws, u.w_s_t, 0, 1, half, 1, half, H, half, H, P_BF16);
-  job(w.wend, u.w_end_t, 0, 1, H, 1, H, C, H, C, P_BF16);
+// a packing job: dst [planes][rows][pitch] from src (plane, row and column strides sp, sr, sc), zero past
+// src_rows and src_cols (the pitch pitch8(cols) unless given)
+void add_job(std::vector<PackJob>& jobs, const void* src, bf16_t* dst, long long sp, long long sr, long long sc,
+             int planes, int rows, int cols, int src_rows, int src_cols, int kind, int H, int pitch = 0) {
+  PackJob J{};
+  J.src = src;
+  J.dst = dst;
+  J.s_plane = sp;
+  J.s_row = sr;
+  J.s_col = sc;
+  J.planes = planes;
+  J.rows = rows;
+  J.cols = cols;
+  J.pitch = pitch ? pitch : pitch8(cols);
+  J.src_rows = src_rows;
+  J.src_cols = src_cols;
+  J.kind = kind;
+  J.H = H;
+  jobs.push_back(J);
+}
+
+// rows [rows][cols] of src, rows s_row elements apart (any offset), into dst's rows (pitch8(cols) apart
+// unless given)
+void add_rows(std::vector<PackJob>& jobs, const void* src, bf16_t* dst, long long s_row, int rows, int cols,
+              int kind, int pitch = 0) {
+  add_job(jobs, src, dst, 0, s_row, 1, 1, rows, cols, rows, cols, kind, 0, pitch);
+}
+
+// the weights the recompute reads: W_s [H][half], W_in in the gate's row order [L k][gate_rows(H)][H],
+// W_rs [L][2H][H] (the last layer's H rows, then zeros)
+void recompute_jobs(const Weights& w, const Shape& sh, bf16_t* w_s, bf16_t* w_in, bf16_t* w_rs,
+                    std::vector<PackJob>& jobs) {
+  const int H = sh.H, L = sh.L, k = sh.k, half = sh.half, R2 = gate_rows(H);
+  add_job(jobs, w.ws, w_s, 0, half, 1, 1, H, half, H, half, P_BF16, H);
   for (int i = 0; i < L; ++i) {
-    const int rs = i + 1 < L ? 2 * H : H;
-    job(w.win[i], u.w_in + (size_t)i * k * R2 * pitch8(H), 1, (long long)H * k, k, k, R2, H, 2 * H, H, P_GATE);
-    job(w.win[i], u.w_in_t + (size_t)i * k * H * pitch8(2 * H), 1, k, (long long)H * k, k, H, 2 * H, H, 2 * H,
-        P_BF16);
-    job(w.wrs[i], u.w_rs + (size_t)i * 2 * H * pitch8(H), 0, H, 1, 1, 2 * H, H, rs, H, P_BF16);
+    add_job(jobs, w.win[i], w_in + (size_t)i * k * R2 * pitch8(H), 1, (long long)H * k, k, k, R2, H, 2 * H, H,
+            P_GATE, H);
+    add_job(jobs, w.wrs[i], w_rs + (size_t)i * 2 * H * pitch8(H), 0, H, 1, 1, 2 * H, H, i + 1 < L ? 2 * H : H, H,
+            P_BF16, H);
+  }
+}
+
+// the backward's: the recompute's, then W_s^T [half][H], W_end^T [H][c_out], W_in transposed [L k][H][2H],
+// W_rs^T [L][H][rs_t_cols(H)] (the last layer's skip half zeros)
+void weight_jobs(const Weights& w, const Shape& sh, const Bufs& u, std::vector<PackJob>& jobs) {
+  const int H = sh.H, L = sh.L, k = sh.k, half = sh.half, C = sh.c_out, rst = rs_t_cols(H);
+  recompute_jobs(w, sh, u.w_s, u.w_in, u.w_rs, jobs);
+  add_job(jobs, w.ws, u.w_s_t, 0, 1, half, 1, half, H, half, H, P_BF16, H);
+  add_job(jobs, w.wend, u.w_end_t, 0, 1, H, 1, H, C, H, C, P_BF16, H);
+  for (int i = 0; i < L; ++i) {
+    add_job(jobs, w.win[i], u.w_in_t + (size_t)i * k * H * pitch8(2 * H), 1, k, (long long)H * k, k, H, 2 * H, H,
+            2 * H, P_BF16, H);
     bf16_t* const rs_t = u.w_rs_t + (size_t)i * H * pitch8(rst);
-    job(w.wrs[i], rs_t, 0, 1, H, 1, H, KC * cdiv(H, KC), H, H, P_BF16, pitch8(rst));
-    job(static_cast<const bf16_t*>(w.wrs[i]) + (size_t)H * H, rs_t + KC * cdiv(H, KC), 0, 1, H, 1, H, H, H,
-        i + 1 < L ? H : 0, P_BF16, pitch8(rst));
+    add_job(jobs, w.wrs[i], rs_t, 0, 1, H, 1, H, KC * cdiv(H, KC), H, H, P_BF16, H, pitch8(rst));
+    add_job(jobs, static_cast<const bf16_t*>(w.wrs[i]) + (size_t)H * H, rs_t + KC * cdiv(H, KC), 0, 1, H, 1, H, H,
+            H, i + 1 < L ? H : 0, P_BF16, H, pitch8(rst));
   }
 }
 
@@ -489,33 +541,25 @@ bool encode_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
   return ok;
 }
 
-// The maps of a call, from a cache of the last few calls' (the caching
-// allocator hands a wrapper the same scratch call after call, and encoding
-// the maps is a large part of a call's host time). A key holds every
-// pointer and size a map reads. Host calls come from one thread.
-bool make_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
-  struct Key {
-    Bufs u;
-    Shape sh;
-    int flow;
-  };
+// A call's maps, from a cache of the last few calls' (the caching allocator
+// hands a wrapper the same scratch call after call, and encoding the maps
+// is a large part of a call's host time). The key holds every pointer and
+// size a map reads, its padding zeroed: keys compare as bytes. One cache
+// per call site; host calls come from one thread.
+template <class Key, class M, class Encode>
+bool cached_maps(const Key& key, M* m, Encode encode) {
   struct Entry {
     Key key;
-    Maps maps;
+    M maps;
   };
   static std::vector<Entry> cache;
   static size_t next = 0;
-  Key key;
-  memset(&key, 0, sizeof(key));  // padding included: keys compare as bytes
-  key.u = u;
-  key.sh = sh;
-  key.flow = flow;
   for (const Entry& e : cache)
     if (memcmp(&e.key, &key, sizeof(Key)) == 0) {
       *m = e.maps;
       return true;
     }
-  if (!encode_maps(sh, u, flow, m)) return false;
+  if (!encode(m)) return false;
   constexpr size_t SLOTS = 8;
   if (cache.size() < SLOTS) {
     cache.push_back(Entry{key, *m});
@@ -524,6 +568,19 @@ bool make_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
     next = (next + 1) % SLOTS;
   }
   return true;
+}
+
+bool make_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
+  struct Key {
+    Bufs u;
+    Shape sh;
+    int flow;
+  } key;
+  memset(&key, 0, sizeof(key));
+  key.u = u;
+  key.sh = sh;
+  key.flow = flow;
+  return cached_maps(key, m, [&](Maps* out) { return encode_maps(sh, u, flow, out); });
 }
 
 // A product over one source (or two) and its epilogue's common fields.
@@ -547,9 +604,69 @@ Gemm product(const Shape& sh, const CUtensorMap& a0, int plane0, int c_a0, const
   return p;
 }
 
-// The conditioner's chain from the packed x0 and g: the recompute, dskip,
-// the layers' transposed products in reverse, then (B3) dx0 into dx0 or
-// (B6) dxc's first half (g_xc + dh_0 W_s) * valid into the scratch.
+// What the recompute reads and writes: the maps of x0 [B], h, acts and the
+// packed W_s, W_in, W_rs, and the buffers behind h, acts, skip (bf16), x_in
+// [L, B, T, 2H] (fp32; not stored where null), h32 and skip32 (fp32). keep:
+// layer i's h and acts at plane i B of their buffers (the backward's weight
+// sums read every layer's); otherwise h alternates between planes 0 and B
+// and acts keeps plane 0 (the forward).
+struct Chain {
+  const CUtensorMap *x0, *h, *acts, *w_s, *w_in, *w_rs;
+  bf16_t *h_buf, *acts_buf, *skip;
+  float *xin, *h32, *skip32;
+  bool keep;
+};
+
+// The forward's chain up to the skip sum, for the forward and the
+// backward's recompute alike: h_0 = START, then per layer GATE (x_in_i,
+// acts_i) and RES (h_{i+1} and the skip sum; skip * valid in bf16 after the
+// last layer). The same launches with the same tiles either way, so the
+// forward's x_in, acts, h and skip sum are the recompute's bits.
+cudaError_t recompute(const Shape& sh, const Weights& w, const Chain& c, const int* lens, const long long* seed,
+                      unsigned threshold, float keep_scale, cudaStream_t s) {
+  const int B = sh.B, T = sh.T, H = sh.H, L = sh.L, k = sh.k;
+  const size_t lay = (size_t)B * T, ph = pitch8(H);
+  auto h_plane = [&](int i) { return c.keep ? i : i % 2; };
+  auto acts_plane = [&](int i) { return c.keep ? i : 0; };
+
+  Gemm p = product(sh, *c.x0, 0, sh.half, *c.w_s, 0, 1, 1, 1, H, lens);  // h_0
+  p.bias = w.bs;
+  p.f0 = c.h32;
+  p.o0 = c.h_buf;
+  p.ld0 = (int)ph;
+  cudaError_t err = gemm<START>(p, s);
+  int dil = 1;
+  for (int i = 0; i < L && err == cudaSuccess; ++i, dil *= sh.rate) {
+    p = product(sh, *c.h, h_plane(i) * B, H, *c.w_in, i * k, k, dil, 1, 2 * H, lens);  // x_in_i, acts_i
+    p.seed = seed;
+    p.threshold = threshold;
+    p.keep_scale = keep_scale;
+    p.layer = i;
+    p.bias = w.bin[i];
+    p.f0 = c.xin ? c.xin + i * lay * 2 * H : nullptr;
+    p.o0 = c.acts_buf + acts_plane(i) * lay * ph;
+    p.ld0 = (int)ph;
+    err = gemm<GATE>(p, s);
+    if (err != cudaSuccess) break;
+    const bool last = i + 1 == L;  // h_{i+1}, the skip sum
+    p = product(sh, *c.acts, acts_plane(i) * B, H, *c.w_rs, i, 1, 1, 1, last ? H : 2 * H, lens);
+    p.bias = w.brs[i];
+    p.first = i == 0;
+    p.last = last;
+    p.f0 = c.h32;
+    p.f1 = c.skip32;
+    p.o0 = last ? nullptr : c.h_buf + h_plane(i + 1) * lay * ph;
+    p.o1 = c.skip;
+    p.ld0 = p.ld1 = (int)ph;
+    err = gemm<RES>(p, s);
+  }
+  return err;
+}
+
+// The backward's conditioner chain from the packed x0 and g: the
+// recompute, dskip, the layers' transposed products in reverse, then (B3)
+// dx0 into dx0 or (B6) dxc's first half (g_xc + dh_0 W_s) * valid into the
+// scratch.
 cudaError_t chain(const Shape& sh, const Weights& w, const Bufs& u, const Maps& m, const int* lens,
                   const long long* seed, unsigned threshold, float keep_scale, const bf16_t* g_xc, bf16_t* dx0,
                   cudaStream_t s) {
@@ -558,47 +675,19 @@ cudaError_t chain(const Shape& sh, const Weights& w, const Bufs& u, const Maps& 
   const int R = B * cdiv(T, TM), Wp = 2 * H > sh.c_out ? 2 * H : sh.c_out;
   auto part = [&](int src) { return u.bias_part + (size_t)src * R * Wp; };
 
-  Gemm p = product(sh, m.act[M_X0], 0, half, m.w_s, 0, 1, 1, 1, H, lens);  // h_0
-  p.bias = w.bs;
-  p.f0 = u.h32;
-  p.o0 = u.h;
-  p.ld0 = (int)ph;
-  cudaError_t err = gemm<START>(p, s);
-  int dil = 1;
-  for (int i = 0; i < L && err == cudaSuccess; ++i, dil *= sh.rate) {
-    p = product(sh, m.act[M_H], i * B, H, m.w_in, i * k, k, dil, 1, 2 * H, lens);  // x_in_i, acts_i
-    p.seed = seed;
-    p.threshold = threshold;
-    p.keep_scale = keep_scale;
-    p.layer = i;
-    p.bias = w.bin[i];
-    p.f0 = u.xin + i * lay * 2 * H;
-    p.o0 = u.acts + i * lay * ph;
-    p.ld0 = (int)ph;
-    err = gemm<GATE>(p, s);
-    if (err != cudaSuccess) break;
-    const bool last = i + 1 == L;  // h_{i+1}, the skip sum
-    p = product(sh, m.act[M_ACTS], i * B, H, m.w_rs, i, 1, 1, 1, last ? H : 2 * H, lens);
-    p.bias = w.brs[i];
-    p.first = i == 0;
-    p.last = last;
-    p.f0 = u.h32;
-    p.f1 = u.skip32;
-    p.o0 = last ? nullptr : u.h + (i + 1) * lay * ph;
-    p.o1 = u.skip;
-    p.ld0 = p.ld1 = (int)ph;
-    err = gemm<RES>(p, s);
-  }
+  const Chain c{&m.act[M_X0], &m.act[M_H], &m.act[M_ACTS], &m.w_s, &m.w_in, &m.w_rs, u.h, u.acts, u.skip,
+                u.xin, u.h32, u.skip32, true};
+  cudaError_t err = recompute(sh, w, c, lens, seed, threshold, keep_scale, s);
   if (err != cudaSuccess) return err;
 
-  p = product(sh, m.act[M_G], 0, sh.c_out, m.w_end_t, 0, 1, 1, 1, H, lens);  // dskip
+  Gemm p = product(sh, m.act[M_G], 0, sh.c_out, m.w_end_t, 0, 1, 1, 1, H, lens);  // dskip
   p.o0 = u.dskip;
   p.ld0 = (int)ph;
   p.part = part(0);
   p.part_ld = Wp;
   err = gemm<DSKIP>(p, s);
   for (int i = L - 1; i >= 0 && err == cudaSuccess; --i) {
-    dil = 1;
+    int dil = 1;
     for (int j = 0; j < i; ++j) dil *= sh.rate;
     const bool last = i + 1 == L;
     // dx_in_i from dacts = drs W_rs_i, drs = [dh_{i+1}, dskip] (dskip alone for the last layer)
@@ -669,6 +758,75 @@ cudaError_t biases(const Shape& sh, const Bufs& u, bf16_t* dbs, bf16_t* const* d
   return column_sums(v, s);
 }
 
+// ---- the forward -------------------------------------------------------------------
+// The forward's scratch, in ops/wn_coupling.py:FWD16_PARTS order (bf16 but
+// for h32, skip32 and xin): x0 packed (B3; B6 where xc's rows cannot be
+// read in place), h in min(L, 2) planes, acts in one, skip * valid, h32,
+// skip32, x_in (only for return_buffers), the packed W_s, W_in, W_rs and
+// W_end [c_out][H], B6's x1 and mt^T [C][C].
+struct FwdBufs {
+  bf16_t *x0, *h, *acts, *skip;
+  float *h32, *skip32, *xin;
+  bf16_t *w_s, *w_in, *w_rs, *w_end, *x1, *mt_t;
+};
+
+FwdBufs fwd_bufs_of(void* const* b) {
+  auto h = [&](int i) { return static_cast<bf16_t*>(b[i]); };
+  auto f = [&](int i) { return static_cast<float*>(b[i]); };
+  return FwdBufs{h(0), h(1), h(2), h(3), f(4), f(5), f(6), h(7), h(8), h(9), h(10), h(11), h(12)};
+}
+
+struct FwdMaps {
+  CUtensorMap x0, h, acts, skip, x1, w_s, w_in, w_rs, w_end, mt_t;
+};
+
+// x0's map: xc's first half in place (rows C apart) when xc is given, else the packed x0
+bool encode_fwd_maps(const Shape& sh, const FwdBufs& u, const bf16_t* xc, FwdMaps* m) {
+  const int B = sh.B, T = sh.T, H = sh.H, L = sh.L, k = sh.k, C = sh.c_out, half = sh.half;
+  memset(m, 0, sizeof(*m));
+  bool ok = (xc ? act_map(&m->x0, xc, half, T, B, C) : act_map(&m->x0, u.x0, half, T, B)) &&
+            act_map(&m->h, u.h, H, T, (L < 2 ? L : 2) * B) && act_map(&m->acts, u.acts, H, T, B) &&
+            act_map(&m->skip, u.skip, H, T, B) && w_map(&m->w_s, u.w_s, half, H, 1, 64) &&
+            w_map(&m->w_in, u.w_in, H, gate_rows(H), L * k, 64) && w_map(&m->w_rs, u.w_rs, H, 2 * H, L, 64) &&
+            w_map(&m->w_end, u.w_end, H, C, 1, 64);
+  if (u.x1) ok = ok && act_map(&m->x1, u.x1, C, T, B) && w_map(&m->mt_t, u.mt_t, C, C, 1, 64);
+  return ok;
+}
+
+bool make_fwd_maps(const Shape& sh, const FwdBufs& u, const bf16_t* xc, FwdMaps* m) {
+  struct Key {
+    FwdBufs u;
+    Shape sh;
+    const bf16_t* xc;
+  } key;
+  memset(&key, 0, sizeof(key));
+  key.u = u;
+  key.sh = sh;
+  key.xc = xc;
+  return cached_maps(key, m, [&](FwdMaps* out) { return encode_fwd_maps(sh, u, xc, out); });
+}
+
+// The packing jobs of the weights the forward reads: the recompute's and W_end [c_out][H].
+void forward_weight_jobs(const Weights& w, const Shape& sh, const FwdBufs& u, std::vector<PackJob>& jobs) {
+  recompute_jobs(w, sh, u.w_s, u.w_in, u.w_rs, jobs);
+  add_job(jobs, w.wend, u.w_end, 0, sh.H, 1, 1, sh.c_out, sh.H, sh.c_out, sh.H, P_BF16, sh.H);
+}
+
+// The recompute from x0's map, then out = (skip * valid) W_end + b_end
+// [B, T, c_out] contiguous bf16.
+cudaError_t forward(const Shape& sh, const Weights& w, const bf16_t* bend, const FwdBufs& u, const FwdMaps& m,
+                    const int* lens, const long long* seed, unsigned threshold, float keep_scale, bf16_t* out,
+                    cudaStream_t s) {
+  const Chain c{&m.x0, &m.h, &m.acts, &m.w_s, &m.w_in, &m.w_rs, u.h, u.acts, u.skip, u.xin, u.h32, u.skip32, false};
+  cudaError_t err = recompute(sh, w, c, lens, seed, threshold, keep_scale, s);
+  if (err != cudaSuccess) return err;
+  Gemm p = product(sh, m.skip, 0, sh.H, m.w_end, 0, 1, 1, 1, sh.c_out, lens);
+  p.bias = bend;
+  p.o0 = out;
+  p.ld0 = sh.c_out;
+  return gemm<END>(p, s);
+}
+
 }  // namespace wn16
 
 using wn16::bf16_t;
@@ -682,6 +840,82 @@ extern "C" long wn16_wsum_part_floats(int B, int T, int half, int H, int c_out, 
   const wn16::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
   if (!wn16::valid_shape(sh) || (flow && c_out != 2 * half) || wn16::sm_count() < 1) return -1;
   return wn16::wsum_part_floats(sh, flow != 0);
+}
+
+// B3's bf16 forward on `stream`; returns a cudaError_t (0 on success). x0
+// [B, T, half] bf16 with rows ldx elements apart (any offset), the weights
+// contiguous bf16 in PyTorch's layouts; out [B, T, c_out] contiguous bf16;
+// `scratch` the pointers of ops/wn_coupling.py:fwd16_layout's parts,
+// FWD16_PARTS order (B6's null, xin null unless the caller reads it).
+extern "C" int wn_coupling_fwd_bf16(const void* x0, int ldx, const int* lens, const long long* seed, const void* ws,
+                                    const void* bs, const void* const* win, const void* const* bin,
+                                    const void* const* wrs, const void* const* brs, const void* wend,
+                                    const void* bend, void* out, void* const* scratch, int B, int T, int half, int H,
+                                    int c_out, int n_layers, int kernel_size, int dilation_rate, unsigned threshold,
+                                    float keep_scale, void* stream) {
+  using namespace wn16;
+  const Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
+  if (!valid_shape(sh)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdBufs u = fwd_bufs_of(scratch);
+  if (!u.x0) return (int)cudaErrorInvalidValue;
+  using C = const bf16_t*;
+  using CP = const bf16_t* const*;
+  const Weights w{C(ws), CP(win), CP(wrs), C(wend), C(bs), CP(bin), CP(brs)};
+  FwdMaps m;
+  if (!make_fwd_maps(sh, u, nullptr, &m)) return (int)cudaErrorInvalidValue;
+  std::vector<PackJob> jobs;
+  forward_weight_jobs(w, sh, u, jobs);
+  add_rows(jobs, x0, u.x0, ldx, B * T, half, P_BF16);
+  cudaError_t err = pack(jobs, lens, T, nullptr, nullptr, s);
+  if (err == cudaSuccess)
+    err = forward(sh, w, C(bend), u, m, lens, seed, threshold, keep_scale, static_cast<bf16_t*>(out), s);
+  return (int)err;
+}
+
+// B6's bf16 forward on `stream`; returns a cudaError_t. x [B, T, C]
+// contiguous bf16 (C = 2 half = c_out); aln, alb [C] and mt [C, C] fp32;
+// the conditioner's weights bf16; xc and out [B, T, C] contiguous bf16;
+// `scratch` as wn_coupling_fwd_bf16's (x0 null where C is a multiple of 8:
+// the conditioner then reads xc's first half in place).
+extern "C" int flow_step_fwd_bf16(const void* x, const int* lens, const long long* seed, const float* aln,
+                                  const float* alb, const float* mt, const void* ws, const void* bs,
+                                  const void* const* win, const void* const* bin, const void* const* wrs,
+                                  const void* const* brs, const void* wend, const void* bend, void* xc, void* out,
+                                  void* const* scratch, int B, int T, int half, int H, int c_out, int n_layers,
+                                  int kernel_size, int dilation_rate, unsigned threshold, float keep_scale,
+                                  void* stream) {
+  using namespace wn16;
+  const Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
+  const bool in_place = c_out % 8 == 0;  // xc's rows 16-byte multiples apart: TMA reads its first half
+  const FwdBufs u = fwd_bufs_of(scratch);
+  if (!valid_shape(sh) || c_out != 2 * half || !u.x1 || in_place == (u.x0 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using C = const bf16_t*;
+  using CP = const bf16_t* const*;
+  const Weights w{C(ws), CP(win), CP(wrs), C(wend), C(bs), CP(bin), CP(brs)};
+  bf16_t* const xc16 = static_cast<bf16_t*>(xc);
+  FwdMaps m;
+  if (!make_fwd_maps(sh, u, in_place ? xc16 : nullptr, &m)) return (int)cudaErrorInvalidValue;
+  std::vector<PackJob> jobs;
+  forward_weight_jobs(w, sh, u, jobs);
+  add_rows(jobs, x, u.x1, c_out, B * T, c_out, P_ACTNORM);  // x1 = (alb + exp(aln) x) * valid
+  add_job(jobs, mt, u.mt_t, 0, 1, c_out, 1, c_out, c_out, c_out, c_out, P_F32, H);  // mt^T, fp32 to bf16
+  cudaError_t err = pack(jobs, lens, T, aln, alb, s);
+  if (err != cudaSuccess) return (int)err;
+  Gemm p = product(sh, m.x1, 0, c_out, m.mt_t, 0, 1, 1, 1, c_out, lens);  // xc = x1 mt, and x0 where not in place
+  p.o0 = xc16;
+  p.ld0 = c_out;
+  if (!in_place) {
+    p.o1 = u.x0;
+    p.ld1 = pitch8(half);
+    p.n1 = half;
+  }
+  err = gemm<XC>(p, s);
+  if (err == cudaSuccess)
+    err = forward(sh, w, C(bend), u, m, lens, seed, threshold, keep_scale, static_cast<bf16_t*>(out), s);
+  return (int)err;
 }
 
 // B3's bf16 backward on `stream`; returns a cudaError_t (0 on success).
@@ -710,23 +944,8 @@ extern "C" int wn_coupling_bwd_bf16(const void* x0, int ldx, const int* lens, co
   if (!make_maps(sh, u, false, &m)) return (int)cudaErrorInvalidValue;
   std::vector<PackJob> jobs;
   weight_jobs(w, sh, u, jobs);
-  PackJob a{};  // x0 and g into their padded buffers
-  a.src = x0;
-  a.dst = u.x0;
-  a.s_row = ldx;
-  a.s_col = 1;
-  a.planes = 1;
-  a.rows = a.src_rows = B * T;
-  a.cols = a.src_cols = half;
-  a.pitch = pitch8(half);
-  a.kind = P_BF16;
-  jobs.push_back(a);
-  a.src = g;
-  a.dst = u.g;
-  a.s_row = c_out;
-  a.cols = a.src_cols = c_out;
-  a.pitch = pitch8(c_out);
-  jobs.push_back(a);
+  add_rows(jobs, x0, u.x0, ldx, B * T, half, P_BF16);  // x0 and g into their padded buffers
+  add_rows(jobs, g, u.g, c_out, B * T, c_out, P_BF16);
   cudaError_t err = pack(jobs, lens, T, nullptr, nullptr, s);
   if (err == cudaSuccess) err = chain(sh, w, u, m, lens, seed, threshold, keep_scale, nullptr, P(dx0), s);
   if (err == cudaSuccess)
@@ -765,42 +984,11 @@ extern "C" int flow_step_bwd_bf16(const void* x, const int* lens, const long lon
   if (!make_maps(sh, u, true, &m)) return (int)cudaErrorInvalidValue;
   std::vector<PackJob> jobs;
   weight_jobs(w, sh, u, jobs);
-  PackJob a{};
-  a.planes = 1;
-  a.s_col = 1;
-  a.rows = a.src_rows = B * T;
-  a.src = g_out;  // g
-  a.dst = u.g;
-  a.s_row = Cc;
-  a.cols = a.src_cols = Cc;
-  a.pitch = pitch8(Cc);
-  a.kind = P_BF16;
-  jobs.push_back(a);
-  a.src = x;  // x1 = (alb + exp(aln) x) * valid
-  a.dst = u.x1;
-  a.kind = P_ACTNORM;
-  jobs.push_back(a);
-  a.src = C(g_xc) + half;  // dxc's second half: g_xc[:, half:] * valid
-  a.dst = u.dxc + half;
-  a.cols = a.src_cols = Cc - half;
-  a.kind = P_MASKED;
-  jobs.push_back(a);
-  a = PackJob{};  // mt^T's first half rows [half][C] and mt [C][C], fp32 to bf16
-  a.src = mt;
-  a.dst = u.mt_t;
-  a.planes = 1;
-  a.rows = a.src_rows = half;
-  a.cols = a.src_cols = Cc;
-  a.pitch = pitch8(Cc);
-  a.s_row = 1;
-  a.s_col = Cc;
-  a.kind = P_F32;
-  jobs.push_back(a);
-  a.dst = u.mt;
-  a.rows = a.src_rows = Cc;
-  a.s_row = Cc;
-  a.s_col = 1;
-  jobs.push_back(a);
+  add_rows(jobs, g_out, u.g, Cc, B * T, Cc, P_BF16);  // g
+  add_rows(jobs, x, u.x1, Cc, B * T, Cc, P_ACTNORM);  // x1 = (alb + exp(aln) x) * valid
+  add_rows(jobs, C(g_xc) + half, u.dxc + half, Cc, B * T, Cc - half, P_MASKED, pitch8(Cc));  // dxc's second half
+  add_job(jobs, mt, u.mt_t, 0, 1, Cc, 1, half, Cc, half, Cc, P_F32, H);  // mt^T's first half rows [half][C]
+  add_job(jobs, mt, u.mt, 0, Cc, 1, 1, Cc, Cc, Cc, Cc, P_F32, H);        // mt [C][C]
   cudaError_t err = pack(jobs, lens, T, aln, alb, s);
   if (err != cudaSuccess) return (int)err;
   Gemm p = product(sh, m.act[M_X1], 0, Cc, m.mt_t, 0, 1, 1, 1, half, lens);  // x0 = (x1 mt)[:, :half]

@@ -4,7 +4,7 @@
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // _vjp_bwd -> pallas_call(_bwd_kernel) (body _conditioner_bwd), the custom
 // VJP of fused_wn_coupling, in its fp32 mode (the bf16 mode is
-// wn_coupling_bwd_bf16.cu). Plain version:
+// wn_coupling_bf16.cu). Plain version:
 // ops/wn_coupling.py:wn_coupling_backward_reference.
 //
 // What it computes, for the output cotangent g [B, T, c_out]:

@@ -10,13 +10,8 @@
 // Dropout of layer i's conv output (both halves, before the gate): stream
 // b * WN_STREAMS + i, counter t * 2H + c (ops/wn_coupling.py:keep_mask).
 //
-// IO is the forwards' mode (conv_mma.cuh): float, or bf16 for the TPU
-// kernel's bf16 dot_dtype. In bf16 x0, the weights and out hold bf16 (the
-// pointers stay float* and are read as bf16); h, acts and skip stay fp32,
-// each product rounding its operands. The flow step's prefix takes x and
-// writes xc in bf16 with aln, alb and mt fp32. The backward chain and its
-// weight-gradient problems are the fp32 mode's: the bf16 backwards are
-// wn_coupling_bwd_bf16.cu's own engine.
+// fp32 only: the bf16 forwards and backwards are wn_coupling_bf16.cu's own
+// engine.
 
 #pragma once
 
@@ -37,18 +32,18 @@ static_assert(conv_mma::MAX_PACK >= WN_STREAMS, "one packing launch takes every 
 // One step of a chain: conv_mma's launch, 128 columns (64 channel pairs)
 // for GATE and 64 otherwise. The weight of a TAPS > 1 launch is
 // conv_mma::pack's copy (conv_mma::weight_of).
-template <class Tag, int TAPS, int EPI, class IO = float>
+template <class Tag, int TAPS, int EPI>
 cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
-  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI, 64, 4, IO>(a, B, s);
+  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI, 64, 4, float>(a, B, s);
 }
 
 // The same with the number of taps chosen at run time (1, 3 or 5).
-template <class Tag, int EPI, class IO = float>
+template <class Tag, int EPI>
 cudaError_t launch_taps(int taps, const conv_rows::Args& a, int B, cudaStream_t s) {
   switch (taps) {
-    case 1: return launch<Tag, 1, EPI, IO>(a, B, s);
-    case 3: return launch<Tag, 3, EPI, IO>(a, B, s);
-    case 5: return launch<Tag, 5, EPI, IO>(a, B, s);
+    case 1: return launch<Tag, 1, EPI>(a, B, s);
+    case 3: return launch<Tag, 3, EPI>(a, B, s);
+    case 5: return launch<Tag, 5, EPI>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -108,7 +103,7 @@ inline size_t packed_floats(const Shape& s, int forms) {
 // acts_step and, when xin is set, its post-dropout conv output to xin + i *
 // xin_step ([B, T, 2H]). The skip sum goes to skip. For k > 1, w.win holds
 // the packed copies (pack_win).
-template <class Tag, class IO = float>
+template <class Tag>
 cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
                           const Dropout& drop, float* hs, size_t hs_step, float* acts, size_t acts_step,
                           float* xin, size_t xin_step, float* skip, cudaStream_t s) {
@@ -120,11 +115,10 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
   a.hidden = H;
   a.dil = 1;
 
-  a.in = x0; a.ldi = ldx; a.cin = sh.half; a.mask_in = 0; a.in_bf16 = conv_mma::kBf16<IO>;
+  a.in = x0; a.ldi = ldx; a.cin = sh.half; a.mask_in = 0;
   a.w = w.ws; a.bias = w.bs; a.n_out = H; a.out = hs; a.ldo = H;
-  cudaError_t err = launch<Tag, 1, MASK, IO>(a, sh.B, s);
+  cudaError_t err = launch<Tag, 1, MASK>(a, sh.B, s);
   if (err != cudaSuccess) return err;
-  a.in_bf16 = 0;  // the rest read fp32 buffers
 
   int dil = 1;
   for (int i = 0; i < sh.n_layers; ++i, dil *= sh.rate) {
@@ -136,7 +130,7 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     g.xin = xin ? xin + i * xin_step : nullptr; g.ldx = 2 * H;
     g.seed = drop.seed; g.threshold = drop.threshold; g.keep_scale = drop.keep_scale;
     g.stream_mul = WN_STREAMS; g.stream_add = i; g.drop_ld = 2 * H;
-    err = launch_taps<Tag, GATE, IO>(sh.kernel_size, g, sh.B, s);
+    err = launch_taps<Tag, GATE>(sh.kernel_size, g, sh.B, s);
     if (err != cudaSuccess) return err;
 
     // h in place (hs_step 0) is safe: this launch reads act, and its
@@ -147,7 +141,7 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
     r.w = w.wrs[i]; r.bias = w.brs[i]; r.n_out = i < sh.n_layers - 1 ? 2 * H : H;
     r.out = i < sh.n_layers - 1 ? hs + (i + 1) * hs_step : h; r.ldo = H; r.res = h; r.ldr = H;
     r.skip = skip; r.lds = H; r.first = i == 0;
-    err = launch<Tag, 1, RES_SKIP, IO>(r, sh.B, s);
+    err = launch<Tag, 1, RES_SKIP>(r, sh.B, s);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -157,19 +151,19 @@ cudaError_t forward_chain(const float* x0, int ldx, const int* lens, const Weigh
 // into `packed` (packed_floats(sh, forms)), in the list `win`; a 1x1
 // conv's weight is read as it is. With forms 2 the transposes
 // ([k][2H][H], tap-flipped) follow each layer's conv, listed in `win_t`.
-template <class Tag, int FORMS, class IO = float>
+template <class Tag, int FORMS>
 cudaError_t pack_win(const Weights& w, const Shape& sh, float* packed, std::vector<const float*>& win,
                      std::vector<const float*>* win_t, cudaStream_t s) {
   const int H = sh.H, L = sh.n_layers, k = sh.kernel_size;
   win.assign(w.win, w.win + L);
   if (win_t) win_t->assign(w.win, w.win + L);
   if (k == 1) return cudaSuccess;
-  const cudaError_t err = conv_mma::pack<Tag, FORMS, IO>(w.win, L, packed, 2 * H, H, k, s);
+  const cudaError_t err = conv_mma::pack<Tag, FORMS>(w.win, L, packed, 2 * H, H, k, s);
   if (err != cudaSuccess) return err;
-  for (int i = 0; i < L; ++i) {  // offsets in IO elements (pack_weights_kernel's)
-    float* conv = conv_mma::elems_at<IO>(packed, (size_t)FORMS * i * k * 2 * H * H);
+  for (int i = 0; i < L; ++i) {
+    float* conv = packed + (size_t)FORMS * i * k * 2 * H * H;
     win[i] = conv;
-    if (win_t) (*win_t)[i] = conv_mma::elems_at<IO>(conv, (size_t)k * 2 * H * H);
+    if (win_t) (*win_t)[i] = conv + (size_t)k * 2 * H * H;
   }
   return cudaSuccess;
 }
@@ -178,24 +172,23 @@ cudaError_t pack_win(const Weights& w, const Shape& sh, float* packed, std::vect
 // (packed_floats(sh, 1)), the chain with h updated in place, then out =
 // (skip * valid) W_end + b_end [B, T, c_out] contiguous. 2 + 2 L launches,
 // and one more to pack for k > 1.
-template <class Tag, class IO = float>
+template <class Tag>
 cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w, const Shape& sh,
                     const Dropout& drop, float* out, float* h, float* acts, float* skip, float* packed,
                     cudaStream_t s) {
   using namespace conv_rows;
   std::vector<const float*> win;
-  cudaError_t err = pack_win<Tag, 1, IO>(w, sh, packed, win, nullptr, s);
+  cudaError_t err = pack_win<Tag, 1>(w, sh, packed, win, nullptr, s);
   if (err != cudaSuccess) return err;
   Weights wc = w;
   wc.win = win.data();
-  err = forward_chain<Tag, IO>(x0, ldx, lens, wc, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
+  err = forward_chain<Tag>(x0, ldx, lens, wc, sh, drop, h, 0, acts, 0, nullptr, 0, skip, s);
   if (err != cudaSuccess) return err;
   Args e{};
   e.lens = lens; e.T = sh.T; e.dil = 1;
   e.in = skip; e.ldi = sh.H; e.cin = sh.H; e.mask_in = 1;
   e.w = w.wend; e.bias = w.bend; e.n_out = sh.c_out; e.out = out; e.ldo = sh.c_out;
-  e.out_bf16 = conv_mma::kBf16<IO>;
-  return launch<Tag, 1, BIAS, IO>(e, sh.B, s);
+  return launch<Tag, 1, BIAS>(e, sh.B, s);
 }
 
 // The backward for the output cotangent g [B, T, c_out], up to the weight
@@ -206,7 +199,6 @@ cudaError_t forward(const float* x0, int ldx, const int* lens, const Weights& w,
 // dh_i = (dh_{i+1} + conv^T(dx_in, W_in)) * valid, and last
 //   dx0 = (res + dh_0 W_s^T) * valid   (res rows ldres apart; 0 when null)
 // into dx0 (rows ld_dx0 apart). 3 + 4 L launches, and one more to pack for k > 1.
-// fp32 only: the bf16 mode's backward is wn_coupling_bwd_bf16.cu.
 template <class Tag>
 cudaError_t backward_chain(const float* x0, int ldx, const int* lens, const float* g, const Weights& w,
                            const Shape& sh, const Dropout& drop, const Scratch& sc, const float* res, int ldres,
@@ -319,9 +311,8 @@ inline std::vector<wgrad_rows::Problem> problems(const float* x0, int ldx, const
 //   xc = ((alb + exp(aln) * x) * valid) mt      x, xc [B, T, C] contiguous, mt [C, C]
 // with the ActNorm in the tile loader and mt read as the transposed weight
 // of a 1x1 conv. With x1 set, the loader's rows (the ActNorm's output, fp32)
-// are written there too. One launch. In bf16 x and xc hold bf16; aln, alb
-// and mt stay fp32, and the product rounds x1 and mt (the TPU kernel's _dot).
-template <class Tag, class IO = float>
+// are written there too. One launch.
+template <class Tag>
 cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const float* alb, const float* mt,
                         int B, int T, int C, float* xc, float* x1, cudaStream_t s) {
   using namespace conv_rows;
@@ -330,8 +321,7 @@ cudaError_t flow_prefix(const float* x, const int* lens, const float* aln, const
   a.in = x; a.ldi = C; a.cin = C; a.mask_in = 1; a.pre_logs = aln; a.pre_bias = alb;
   a.in_out = x1; a.ldio = C;
   a.w = mt; a.wt = 1; a.n_out = C; a.out = xc; a.ldo = C;
-  a.in_bf16 = a.out_bf16 = conv_mma::kBf16<IO>;
-  return launch<Tag, 1, ACTNORM_FWD, IO>(a, B, s);
+  return launch<Tag, 1, ACTNORM_FWD>(a, B, s);
 }
 
 }  // namespace wn_coupling

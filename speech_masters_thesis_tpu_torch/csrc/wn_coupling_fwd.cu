@@ -3,10 +3,9 @@
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, function
 // fused_wn_coupling -> pallas_call(_fwd_kernel) (body _forward_body), in its
-// fp32 mode and (wn_coupling_fwd_bf16) its bf16 mode (dot_dtype = x0's
-// dtype, _dot: each product's operands rounded to bf16, fp32 sums). The
-// recompute backward (its _vjp_bwd) is wn_coupling_bwd.cu. Plain version:
-// ops/wn_coupling.py:wn_coupling_reference.
+// fp32 mode (the bf16 mode, dot_dtype = x0's dtype, is wn_coupling_bf16.cu).
+// The recompute backward (its _vjp_bwd) is wn_coupling_bwd.cu. Plain
+// version: ops/wn_coupling.py:wn_coupling_reference.
 //
 // What it computes for x0 [B, T, half] (rows ldx floats apart: the first
 // half of the coupling input) and the post-weight-norm weights:
@@ -27,8 +26,7 @@
 // H 192, k 5, 4 layers, c_out 160) a squeezed frame costs about 3.56 MFLOP
 // and moves 960 bytes of input and output, so at (8, 384) it is 10.9 GFLOP
 // against 2.9 MB: about 0.16 ms at 67 TFLOP/s of fp32 on the CUDA cores,
-// 0.066 ms at 3 x 10.9 GFLOP over 495 TFLOP/s of TF32 in 3xTF32; in bf16
-// 0.011 ms at 989 TFLOP/s (one bf16 MMA a product).
+// 0.066 ms at 3 x 10.9 GFLOP over 495 TFLOP/s of TF32 in 3xTF32.
 //
 // Design: the TPU holds a whole sequence in VMEM with grid (B,), which gives
 // 8 programs. Here each step of the chain is one launch of the tensor-core
@@ -53,7 +51,6 @@
 
 namespace {
 struct WnFwdTag {};
-struct BfloatWnFwdTag {};  // the bf16 mode's kernels
 }  // namespace
 
 // Floats of the workspace wn_coupling_fwd needs: the packed dilated-conv
@@ -81,24 +78,4 @@ extern "C" int wn_coupling_fwd(const float* x0, int ldx, const int* lens, const 
   const wn_coupling::Weights w{ws, bs, win, bin, wrs, brs, wend, bend};
   return (int)wn_coupling::forward<WnFwdTag>(x0, ldx, lens, w, sh, {seed, threshold, keep_scale}, out, h, acts,
                                              skip, workspace, static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 mode, on the same chain (conv_mma.cuh's IO = bf16): x0, the
-// weights and out bf16; h, acts, skip fp32; the workspace as for the fp32
-// mode (wn_coupling_fwd_workspace_floats; the packed copies take half).
-extern "C" int wn_coupling_fwd_bf16(const void* x0, int ldx, const int* lens, const long long* seed,
-                                    const void* ws, const void* bs, const void* const* win,
-                                    const void* const* bin, const void* const* wrs, const void* const* brs,
-                                    const void* wend, const void* bend, void* out, float* h, float* acts,
-                                    float* skip, float* workspace, int B, int T, int half, int H, int c_out,
-                                    int n_layers, int kernel_size, int dilation_rate, unsigned threshold,
-                                    float keep_scale, void* stream) {
-  const wn_coupling::Shape sh{B, T, half, H, c_out, n_layers, kernel_size, dilation_rate};
-  if (!wn_coupling::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  using F = const float*;
-  using FP = const float* const*;
-  const wn_coupling::Weights w{F(ws), F(bs), FP(win), FP(bin), FP(wrs), FP(brs), F(wend), F(bend)};
-  return (int)wn_coupling::forward<BfloatWnFwdTag, conv_mma::bf16_t>(
-      F(x0), ldx, lens, w, sh, {seed, threshold, keep_scale}, static_cast<float*>(out), h, acts, skip, workspace,
-      static_cast<cudaStream_t>(stream));
 }

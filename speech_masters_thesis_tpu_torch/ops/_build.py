@@ -144,7 +144,7 @@ def build() -> ctypes.CDLL:
     lib.mas_smem_bytes.restype = ctypes.c_long
     lib.wn_coupling_fwd.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 7 + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd.restype = i
-    lib.wn_coupling_fwd_bf16.argtypes = lib.wn_coupling_fwd.argtypes
+    lib.wn_coupling_fwd_bf16.argtypes = [p, i, p, p, p, p] + [ptrs] * 4 + [p] * 3 + [ptrs] + [i] * 8 + [u, f, p]
     lib.wn_coupling_fwd_bf16.restype = i
     lib.wn_coupling_fwd_workspace_floats.argtypes = [i] * 8
     lib.wn_coupling_fwd_workspace_floats.restype = ctypes.c_long
@@ -162,7 +162,7 @@ def build() -> ctypes.CDLL:
     lib.wn_coupling_bwd_blocks_per_sm.restype = i
     lib.flow_step_fwd.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 8 + [i] * 8 + [u, f, p]
     lib.flow_step_fwd.restype = i
-    lib.flow_step_fwd_bf16.argtypes = lib.flow_step_fwd.argtypes
+    lib.flow_step_fwd_bf16.argtypes = [p] * 8 + [ptrs] * 4 + [p] * 4 + [ptrs] + [i] * 8 + [u, f, p]
     lib.flow_step_fwd_bf16.restype = i
     lib.flow_step_fwd_workspace_floats.argtypes = [i] * 8
     lib.flow_step_fwd_workspace_floats.restype = ctypes.c_long

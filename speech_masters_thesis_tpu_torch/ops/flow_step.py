@@ -28,10 +28,12 @@ Mixed dtypes raise. ``.launches`` counts fp32 kernel launches,
 ``.bf16_launches`` bf16 ones; a bf16 CPU tensor runs ``FlowStepFunction``
 over the plain versions.
 
-The CUDA kernels are ``csrc/flow_step_fwd.cu`` and ``csrc/flow_step_bwd.cu``.
-``flow_step`` runs ``FlowStepFunction``: for a CUDA tensor its forward
-launches the forward kernel (one call: 3 + 2 * n_layers launches, and one
-more packing the conditioner's weights for k > 1) and its
+The CUDA kernels are ``csrc/flow_step_fwd.cu`` and ``csrc/flow_step_bwd.cu``
+(fp32), and for bf16 ``csrc/wn_coupling_bf16.cu`` (B3's bf16 engine with the
+prefix's products; the forward is the backward's recompute, launch for
+launch). ``flow_step`` runs ``FlowStepFunction``: for a CUDA tensor its
+forward launches the forward kernel (one call: 3 + 2 * n_layers launches, and
+one more packing the weights, for fp32 only for k > 1) and its
 backward the backward kernels, or raises; for a CPU tensor the same Function
 runs ``flow_step_reference`` and ``flow_step_backward_reference``. The
 forward saves the inputs, the lengths, the seed and the weights, no
@@ -60,6 +62,7 @@ from speech_masters_thesis_tpu_torch.ops.wn_coupling import (
     _stream,
     bwd16_scratch,
     check_dtypes as check_conditioner_dtypes,
+    fwd16_scratch,
     conditioner_backward,
     recomputed_buffers,
     wn_coupling_reference,
@@ -146,28 +149,37 @@ def _check_call(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: tor
     _check_conditioner(x[..., :C // 2], lens, w, seed)
 
 
-def _launch_fwd(x, lens, aln, alb, mt, w: WNWeights, seed, p_drop: float):
+def _launch_fwd(x, lens, aln, alb, mt, w: WNWeights, seed, p_drop: float, return_buffers: bool = False):
+    """(xc, out), or with ``return_buffers`` (bf16 only) (xc, out, the
+    conditioner's {"xin", "skip"} as ``flow_step_backward`` returns the
+    recompute's)."""
     _check_call(x, lens, aln, alb, mt, w, seed)
     B, T, C = x.shape
     H = w.hidden
     bf16 = x.dtype == torch.bfloat16
+    if return_buffers and not bf16:
+        raise ValueError("flow_step: return_buffers reads back the bf16 forward's buffers only")
     xc, out = (torch.empty(B, T, C, device=x.device, dtype=x.dtype) for _ in range(2))
-    h, acts, skip = (torch.empty(B, T, H, device=x.device, dtype=torch.float32) for _ in range(3))
     lib = _build.build()
     shape = _shape_args(x[..., :C // 2], w)
-    workspace = torch.empty(lib.flow_step_fwd_workspace_floats(*shape), device=x.device, dtype=torch.float32)
-    rc = (lib.flow_step_fwd_bf16 if bf16 else lib.flow_step_fwd)(
-        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), aln.data_ptr(), alb.data_ptr(), mt.data_ptr(),
-        w.ws.data_ptr(), w.bs.data_ptr(), _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
-        w.wend.data_ptr(), w.bend.data_ptr(), xc.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(),
-        skip.data_ptr(), workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x))
+    inputs = (x.data_ptr(), lens.data_ptr(), seed.data_ptr(), aln.data_ptr(), alb.data_ptr(), mt.data_ptr(),
+              w.ws.data_ptr(), w.bs.data_ptr(), _pointers(w.win), _pointers(w.bin), _pointers(w.wrs),
+              _pointers(w.brs), w.wend.data_ptr(), w.bend.data_ptr(), xc.data_ptr(), out.data_ptr())
+    if bf16:
+        scratch, parts, bufs = fwd16_scratch(x, shape, flow=True, buffers=return_buffers)
+        rc = lib.flow_step_fwd_bf16(*inputs, parts, *shape, *_dropout_args(p_drop), _stream(x))
+    else:
+        h, acts, skip = (torch.empty(B, T, H, device=x.device, dtype=torch.float32) for _ in range(3))
+        workspace = torch.empty(lib.flow_step_fwd_workspace_floats(*shape), device=x.device, dtype=torch.float32)
+        rc = lib.flow_step_fwd(*inputs, h.data_ptr(), acts.data_ptr(), skip.data_ptr(), workspace.data_ptr(),
+                               *shape, *_dropout_args(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"flow_step_fwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
     if bf16:
         flow_step.bf16_launches += 1
     else:
         flow_step.launches += 1
-    return xc, out
+    return (xc, out, bufs) if return_buffers else (xc, out)
 
 
 def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch.Tensor,
@@ -180,21 +192,23 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
     and conditioner, the conditioner's transposed products, the prefix's
     transposed product, then one fixed-order reduction of every weight
     gradient: two calls are bitwise equal; the products in 3xTF32 on the
-    tensor cores), or for bf16 tensors ``csrc/wn_coupling_bwd_bf16.cu``
+    tensor cores), or for bf16 tensors ``csrc/wn_coupling_bf16.cu``
     (B3's bf16 engine with the prefix's products, on TMA and wgmma) and counts
     ``flow_step_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
     tensor runs ``flow_step_backward_reference``. ``return_buffers`` adds
     {"xin": [L, B, T, 2H], "skip": [B, T, H]}: each conditioner layer's
     post-dropout conv output and the skip sum as the kernels recomputed them
-    (the plain recompute's on the CPU), fp32.
+    (the plain recompute's on the CPU), fp32; in bf16 ``flow_step``'s
+    ``return_buffers`` bit for bit; and "x0" [B, T, half]: the conditioner's
+    input, xc's first half as the recompute formed it.
     """
     B, T, C = x.shape
     half = C // 2
     if x.device.type == "cpu":
         out = flow_step_backward_reference(x, lens, aln, alb, mt, w, g_xc, g_out, seed, p_drop)
         if return_buffers:
-            xc = flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)[0]
-            return (*out, recomputed_buffers(xc[..., :half], lens, w, seed, p_drop))
+            x0 = flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)[0][..., :half]
+            return (*out, {**recomputed_buffers(x0, lens, w, seed, p_drop), "x0": x0})
         return out
     if x.device.type != "cuda":
         raise ValueError(f"flow_step_backward: unsupported device {x.device}")
@@ -227,7 +241,7 @@ def flow_step_backward(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, a
         xin, dxin = empty(L, B, T, 2 * H), empty(L, B, T, 2 * H)
         skip, dskip = empty(B, T, H), empty(B, T, H)
         workspace = empty(lib.flow_step_bwd_workspace_floats(*shape))
-        bufs = {"xin": xin, "skip": skip}
+        bufs = {"xin": xin, "skip": skip, "x0": xc[..., :half]}
         rc = lib.flow_step_bwd(
             *inputs, grads.ws.data_ptr(), grads.bs.data_ptr(), _pointers(grads.win), _pointers(grads.bin),
             _pointers(grads.wrs), _pointers(grads.brs), grads.wend.data_ptr(), grads.bend.data_ptr(),
@@ -271,18 +285,23 @@ class FlowStepFunction(torch.autograd.Function):
 
 
 def flow_step(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch.Tensor, mt: torch.Tensor,
-              w: WNWeights, seed=None, p_drop: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+              w: WNWeights, seed=None, p_drop: float = 0.0, return_buffers: bool = False):
     """The flow step; same contract as ``flow_step_reference``, differentiable
     in x, aln, alb, mt and every conditioner weight through
     ``FlowStepFunction``.
 
     A CUDA tensor launches ``csrc/flow_step_fwd.cu`` (x contiguous, lens
     int32 [B] and seed int64 [1] on the same device; every product in
-    3xTF32 on the tensor cores, or for a bf16 x in one bf16 MMA) and counts
+    3xTF32 on the tensor cores), or for a bf16 x ``csrc/wn_coupling_bf16.cu``
+    (TMA and wgmma, the bf16 backward's recompute launches), and counts
     ``flow_step.launches`` (fp32) or ``flow_step.bf16_launches``; anything
     the kernels do not take raises. A CPU tensor runs the plain versions.
     Weights from the flow cache are for inference: a call with dropout
-    raises, as ``wn_coupling`` does.
+    raises, as ``wn_coupling`` does. ``return_buffers`` (for tests; bf16 on
+    the card, outside autograd) returns (xc, out, {"xin", "skip"}): the
+    conditioner's post-dropout conv outputs and skip sum as
+    ``flow_step_backward`` returns the recompute's (the plain recompute's on
+    the CPU).
     """
     if w.cached and p_drop > 0.0:
         raise RuntimeError("flow_step: the flow cache's weights serve inference; clear_flow_cache before training")
@@ -292,6 +311,12 @@ def flow_step(x: torch.Tensor, lens: torch.Tensor, aln: torch.Tensor, alb: torch
     check_dtypes(x, aln, alb, mt, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x.device)
+    if return_buffers:
+        with torch.no_grad():
+            if x.device.type == "cpu":
+                xc, out = flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)
+                return xc, out, recomputed_buffers(xc[..., :x.shape[2] // 2], lens, w, seed, p_drop)
+            return _launch_fwd(x, lens, aln, alb, mt, w, seed, p_drop, return_buffers=True)
     return FlowStepFunction.apply(x, lens, seed, float(p_drop), tuple(w.dilations), aln, alb, mt, *w.flat())
 
 

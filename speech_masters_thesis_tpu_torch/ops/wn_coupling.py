@@ -4,12 +4,13 @@ speech_masters_thesis_tpu/ops/pallas/wn_coupling.py, ``fused_wn_coupling``
 and its custom VJP).
 
 The CUDA kernels are ``csrc/wn_coupling_fwd.cu`` and
-``csrc/wn_coupling_bwd.cu``, and for the bf16 backward
-``csrc/wn_coupling_bwd_bf16.cu`` (TMA and wgmma; its scratch is
-``bwd16_layout``, one allocation a call). ``wn_coupling`` runs ``WNCouplingFunction``:
-for a CUDA tensor its forward launches the forward kernel (one call: a
-weight packing launch for k > 1, then 2 + 2 * n_layers launches of the
-tensor-core convolution) and its backward the backward kernels, or raises; for a CPU tensor the same Function runs
+``csrc/wn_coupling_bwd.cu`` (fp32), and for bf16 ``csrc/wn_coupling_bf16.cu``
+(TMA and wgmma; the forward is the backward's recompute, launch for launch;
+their scratch is ``fwd16_layout`` and ``bwd16_layout``, one allocation a
+call). ``wn_coupling`` runs ``WNCouplingFunction``: for a CUDA tensor its
+forward launches the forward kernel (one call: a packing launch, for fp32
+only for k > 1, then 2 + 2 * n_layers product launches) and its backward
+the backward kernels, or raises; for a CPU tensor the same Function runs
 ``wn_coupling_reference`` and ``wn_coupling_backward_reference``. The
 forward saves the inputs, the lengths, the weights and the seed, no
 activations: the backward recomputes them, as the TPU kernel does.
@@ -321,7 +322,7 @@ def _dropout_args(p_drop: float) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# the bf16 backward's scratch (csrc/wn_coupling_bwd_bf16.cu, B3's and B6's)
+# the bf16 backward's scratch (csrc/wn_coupling_bf16.cu, B3's and B6's)
 # ---------------------------------------------------------------------------
 # The parts in the order the kernels take their pointers: the products' bf16
 # operands (x0 and g packed, each layer's h, acts, dh and dx_in, skip * valid,
@@ -387,56 +388,122 @@ def bwd16_layout(B: int, T: int, half: int, H: int, c_out: int, n_layers: int, k
         "bias_part": ((S, B * -(-T // BWD16_TILE), max(2 * H, C)), f32, False),
         "wsum_part": ((wsum_floats,), f32, False),
     }
+    return _laid_out(BWD16_PARTS, shapes)
+
+
+def _laid_out(names: Tuple[str, ...], shapes: dict) -> Dict[str, Part]:
+    """The parts in order, each starting on a BWD16_ALIGN boundary."""
     layout, offset = {}, 0
-    for name in BWD16_PARTS:
+    for name in names:
         part = Part(offset, *shapes[name])
         layout[name] = part
         offset += -(-part.nbytes // BWD16_ALIGN) * BWD16_ALIGN
     return layout
 
 
+def _allocate(x: torch.Tensor, layout: Dict[str, Part], views: Tuple[Tuple[str, str], ...]):
+    """(one uint8 allocation on x's device holding the layout, its parts'
+    pointers in order (None for an empty part), {name: the view of part at
+    its shape and dtype} for each (name, part) of views)."""
+    last = layout[next(reversed(layout))]
+    buf = torch.empty(last.offset + last.nbytes, dtype=torch.uint8, device=x.device)
+    base = buf.data_ptr()
+    ptrs = (ctypes.c_void_p * len(layout))(*[base + p.offset if p.nbytes else None for p in layout.values()])
+    out = {name: buf[layout[part].offset:layout[part].offset + layout[part].nbytes].view(layout[part].dtype)
+           .view(layout[part].shape) for name, part in views}
+    return buf, ptrs, out
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward's scratch (csrc/wn_coupling_bf16.cu, B3's and B6's)
+# ---------------------------------------------------------------------------
+# The parts in the order the kernels take their pointers: x0 packed (B3; B6
+# only where xc's rows are not 16 bytes apart, else it reads xc in place),
+# h in two planes (layers alternate), acts, skip * valid, the fp32 residual
+# chain of h and skip sum, x_in (only when the caller reads it back), the
+# packed W_s, W_in (the gate's row order), W_rs and W_end, B6's x1 and mt^T.
+FWD16_PARTS = ("x0", "h", "acts", "skip", "h32", "skip32", "xin", "w_s", "w_in", "w_rs", "w_end", "x1", "mt_t")
+
+
+@functools.lru_cache(maxsize=64)
+def fwd16_layout(B: int, T: int, half: int, H: int, c_out: int, n_layers: int, kernel_size: int, flow: bool,
+                 buffers: bool) -> Dict[str, Part]:
+    """The bf16 forward's scratch in one allocation, FWD16_PARTS in order,
+    each part BWD16_ALIGN-aligned; B6's parts (``flow``) empty for B3, x_in
+    empty unless ``buffers`` (the wrapper's return_buffers). Cached: the
+    caller must not change the dict."""
+    L, k, C = n_layers, kernel_size, c_out
+    bf, f32 = torch.bfloat16, torch.float32
+    bt, none = (B, T), (0,)
+    shapes = {
+        "x0": ((*bt, pitch8(half)) if not flow or C % 8 else none, bf, True),
+        "h": ((min(L, 2), *bt, pitch8(H)), bf, True), "acts": ((*bt, pitch8(H)), bf, True),
+        "skip": ((*bt, pitch8(H)), bf, True), "h32": ((*bt, H), f32, False), "skip32": ((*bt, H), f32, False),
+        "xin": ((L, *bt, 2 * H) if buffers else none, f32, False),
+        "w_s": ((1, H, pitch8(half)), bf, True), "w_in": ((L * k, 64 * -(-H // 32), pitch8(H)), bf, True),
+        "w_rs": ((L, 2 * H, pitch8(H)), bf, True), "w_end": ((1, C, pitch8(H)), bf, True),
+        "x1": ((*bt, pitch8(C)) if flow else none, bf, True), "mt_t": ((1, C, pitch8(C)) if flow else none, bf, True),
+    }
+    return _laid_out(FWD16_PARTS, shapes)
+
+
+def fwd16_scratch(x: torch.Tensor, shape: tuple, flow: bool, buffers: bool):
+    """(the one uint8 allocation, its parts' pointers in FWD16_PARTS order,
+    {"xin": [L, B, T, 2H], "skip": [B, T, H]} fp32 views when ``buffers``,
+    else {}) for the bf16 forward of ``shape`` (``_shape_args``)."""
+    B, T, half, H, c_out, L, k, _ = shape
+    layout = fwd16_layout(B, T, half, H, c_out, L, k, flow, buffers)
+    return _allocate(x, layout, (("xin", "xin"), ("skip", "skip32")) if buffers else ())
+
+
 def bwd16_scratch(x: torch.Tensor, shape: tuple, flow: bool):
     """(the one uint8 allocation, its parts' pointers in BWD16_PARTS order
     (None for an empty part), the recompute's buffers as ``return_buffers``
-    gives them: {"xin": [L, B, T, 2H], "skip": [B, T, H]} fp32 views) for
-    the bf16 backward of ``shape`` (``_shape_args``)."""
+    gives them: {"xin": [L, B, T, 2H], "skip": [B, T, H]} fp32 views, for
+    B6 (``flow``) also "x0": the bf16 x0 = (x1 mt)[:, :half] [B, T, half])
+    for the bf16 backward of ``shape`` (``_shape_args``)."""
     lib = _build.build()
     wsum = lib.wn16_wsum_part_floats(*shape, int(flow))
     if wsum < 0:
         raise ValueError(f"wn_coupling: the bf16 backward does not take the shape {shape}")
     B, T, half, H, c_out, L, k, _ = shape
     layout = bwd16_layout(B, T, half, H, c_out, L, k, flow, wsum)
-    last = layout[BWD16_PARTS[-1]]
-    buf = torch.empty(last.offset + last.nbytes, dtype=torch.uint8, device=x.device)
-    base = buf.data_ptr()
-    ptrs = (ctypes.c_void_p * len(BWD16_PARTS))(*[base + p.offset if p.nbytes else None for p in layout.values()])
-    views = {name: buf[layout[part].offset:layout[part].offset + layout[part].nbytes].view(torch.float32)
-             .view(layout[part].shape) for name, part in (("xin", "xin"), ("skip", "skip32"))}
+    buf, ptrs, views = _allocate(x, layout, (("xin", "xin"), ("skip", "skip32")) + ((("x0", "x0"),) if flow else ()))
+    if flow:
+        views["x0"] = views["x0"][..., :half]
     return buf, ptrs, views
 
 
-def _launch_fwd(x0, lens, w: WNWeights, seed, p_drop: float) -> torch.Tensor:
+def _launch_fwd(x0, lens, w: WNWeights, seed, p_drop: float, return_buffers: bool = False):
+    """out, or with ``return_buffers`` (bf16 only) (out, the forward's
+    {"xin", "skip"} as ``wn_coupling_backward`` returns the recompute's)."""
     _check_call(x0, lens, w, seed)
     B, T, _ = x0.shape
     H, C = w.hidden, w.wend.shape[0]
     bf16 = x0.dtype == torch.bfloat16
+    if return_buffers and not bf16:
+        raise ValueError("wn_coupling: return_buffers reads back the bf16 forward's buffers only")
     out = torch.empty(B, T, C, device=x0.device, dtype=x0.dtype)
-    h, acts, skip = (torch.empty(B, T, H, device=x0.device, dtype=torch.float32) for _ in range(3))
     lib = _build.build()
     shape = _shape_args(x0, w)
-    workspace = torch.empty(lib.wn_coupling_fwd_workspace_floats(*shape), device=x0.device, dtype=torch.float32)
-    rc = (lib.wn_coupling_fwd_bf16 if bf16 else lib.wn_coupling_fwd)(
-        x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), w.ws.data_ptr(), w.bs.data_ptr(),
-        _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs),
-        w.wend.data_ptr(), w.bend.data_ptr(), out.data_ptr(), h.data_ptr(), acts.data_ptr(), skip.data_ptr(),
-        workspace.data_ptr(), *shape, *_dropout_args(p_drop), _stream(x0))
+    inputs = (x0.data_ptr(), x0.stride(1), lens.data_ptr(), seed.data_ptr(), w.ws.data_ptr(), w.bs.data_ptr(),
+              _pointers(w.win), _pointers(w.bin), _pointers(w.wrs), _pointers(w.brs), w.wend.data_ptr(),
+              w.bend.data_ptr(), out.data_ptr())
+    if bf16:
+        scratch, parts, bufs = fwd16_scratch(x0, shape, flow=False, buffers=return_buffers)
+        rc = lib.wn_coupling_fwd_bf16(*inputs, parts, *shape, *_dropout_args(p_drop), _stream(x0))
+    else:
+        h, acts, skip = (torch.empty(B, T, H, device=x0.device, dtype=torch.float32) for _ in range(3))
+        workspace = torch.empty(lib.wn_coupling_fwd_workspace_floats(*shape), device=x0.device, dtype=torch.float32)
+        rc = lib.wn_coupling_fwd(*inputs, h.data_ptr(), acts.data_ptr(), skip.data_ptr(), workspace.data_ptr(),
+                                 *shape, *_dropout_args(p_drop), _stream(x0))
     if rc != 0:
-        raise RuntimeError(f"wn_coupling_fwd launch failed with cudaError {rc}")
+        raise RuntimeError(f"wn_coupling_fwd{'_bf16' if bf16 else ''} launch failed with cudaError {rc}")
     if bf16:
         wn_coupling.bf16_launches += 1
     else:
         wn_coupling.launches += 1
-    return out
+    return (out, bufs) if return_buffers else out
 
 
 def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: torch.Tensor, seed,
@@ -447,13 +514,15 @@ def wn_coupling_backward(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, g: 
     forward, then per layer in reverse the gate's and the dilated conv's
     transposes, then one fixed-order reduction of every weight gradient: two
     calls are bitwise equal; every product in 3xTF32 on the tensor cores),
-    or for bf16 tensors ``csrc/wn_coupling_bwd_bf16.cu`` (the same chain on
+    or for bf16 tensors ``csrc/wn_coupling_bf16.cu`` (the same chain on
     TMA and wgmma, its scratch ``bwd16_layout`` in one allocation), and
     counts ``wn_coupling_backward.launches`` (fp32) or ``.bf16_launches``; a CPU
     tensor runs ``wn_coupling_backward_reference``. ``return_buffers``
     adds {"xin": [L, B, T, 2H], "skip": [B, T, H]}: each layer's
     post-dropout conv output and the skip sum as the kernels recomputed
-    them (the plain recompute's on the CPU), fp32.
+    them (the plain recompute's on the CPU), fp32. The bf16 recompute runs
+    the bf16 forward's launches, so these equal ``wn_coupling``'s
+    ``return_buffers`` bit for bit.
     """
     if x0.device.type == "cpu":
         dx0, grads = wn_coupling_backward_reference(x0, lens, w, g, seed, p_drop)
@@ -529,16 +598,21 @@ class WNCouplingFunction(torch.autograd.Function):
 
 
 def wn_coupling(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=None,
-                p_drop: float = 0.0) -> torch.Tensor:
+                p_drop: float = 0.0, return_buffers: bool = False):
     """The conditioner; same contract as ``wn_coupling_reference``,
     differentiable in x0 and every weight through ``WNCouplingFunction``.
 
     A CUDA tensor launches ``csrc/wn_coupling_fwd.cu`` (x0 may be the
     first-half view of the coupling input; lens int32 [B] and seed int64 [1]
-    on the same device; every product in 3xTF32 on the tensor cores, or for
-    bf16 tensors in one bf16 MMA) and counts ``wn_coupling.launches`` (fp32)
-    or ``wn_coupling.bf16_launches``; anything the kernels do not take
-    raises. A CPU tensor runs the plain versions.
+    on the same device; every product in 3xTF32 on the tensor cores), or for
+    bf16 tensors ``csrc/wn_coupling_bf16.cu`` (TMA and wgmma, the bf16
+    backward's recompute launches), and counts ``wn_coupling.launches``
+    (fp32) or ``wn_coupling.bf16_launches``; anything the kernels do not
+    take raises. A CPU tensor runs the plain versions.
+    ``return_buffers`` (for tests; bf16 on the card, outside autograd)
+    returns (out, {"xin", "skip"}): the forward's post-dropout conv outputs
+    and skip sum as ``wn_coupling_backward`` returns the recompute's (the
+    plain recompute's on the CPU).
     Weights from the flow cache are for inference: a train-mode call (with
     dropout) raises, since the cache carries no gradient back to the weight
     norm's parameters (``flows.CouplingBlock`` raises on any train-mode call
@@ -553,6 +627,12 @@ def wn_coupling(x0: torch.Tensor, lens: torch.Tensor, w: WNWeights, seed=None,
     check_dtypes(x0, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x0.device)
+    if return_buffers:
+        with torch.no_grad():
+            if x0.device.type == "cpu":
+                return (wn_coupling_reference(x0, lens, w, seed, p_drop),
+                        recomputed_buffers(x0, lens, w, seed, p_drop))
+            return _launch_fwd(x0, lens, w, seed, p_drop, return_buffers=True)
     return WNCouplingFunction.apply(x0, lens, seed, float(p_drop), tuple(w.dilations), *w.flat())
 
 

@@ -108,6 +108,26 @@ def test_forward_bf16_matches_jax_kernel(case):
         assert share >= ULP_SHARE and worst <= MAX_RTOL, (name, share, worst)
 
 
+@pytest.mark.parametrize("p_drop", (0.0, 0.05))
+def test_forward_return_buffers_are_the_recompute(case, p_drop):
+    """flow_step's return_buffers on the CPU: the plain forward's xc and out,
+    and x_in and the skip sum equal to recomputed_buffers on xc's first half
+    and to the backward's return_buffers, whose x0 is xc's first half."""
+    x, lens, aln, alb, mt, w = case["port"]
+    seed = torch.tensor([9], dtype=torch.int64)
+    xc, out, bufs = fs.flow_step(x, lens, aln, alb, mt, w, seed, p_drop, return_buffers=True)
+    xc_r, out_r = fs.flow_step_reference(x, lens, aln, alb, mt, w, seed, p_drop)
+    torch.testing.assert_close(xc, xc_r, rtol=0, atol=0)
+    torch.testing.assert_close(out, out_r, rtol=0, atol=0)
+    plain = wn.recomputed_buffers(xc[..., :HALF], lens, w, seed, p_drop)
+    recomputed = fs.flow_step_backward(x, lens, aln, alb, mt, w, *case["cots"], seed, p_drop, return_buffers=True)[5]
+    assert set(bufs) == set(plain) == {"xin", "skip"} and set(recomputed) == {"xin", "skip", "x0"}
+    torch.testing.assert_close(recomputed["x0"], xc[..., :HALF], rtol=0, atol=0)
+    for name in bufs:
+        torch.testing.assert_close(bufs[name], plain[name], rtol=0, atol=0)
+        torch.testing.assert_close(bufs[name], recomputed[name], rtol=0, atol=0)
+
+
 def test_vjp_bf16_matches_jax_kernel(case):
     """dx, daln, dalb, dmt and every conditioner weight gradient, through
     flow_step's autograd Function (the plain backward on the CPU) and the

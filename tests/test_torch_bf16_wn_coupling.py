@@ -187,8 +187,27 @@ def test_mixed_dtypes_raise():
         wn.wn_coupling_reference(_t(x0), lens, w32)
 
 
-# the bf16 backward's scratch (csrc/wn_coupling_bwd_bf16.cu): Glow's width at (8, 384) and
-# chip_smoke's B3_OTHER_SHAPES, odd widths included, (B, T, half, H, c_out, n_layers, kernel_size)
+@pytest.mark.parametrize("p_drop", (0.0, 0.05))
+def test_forward_return_buffers_are_the_recompute(case, p_drop):
+    """wn_coupling's return_buffers on the CPU: the plain forward's out, and
+    x_in and the skip sum equal to recomputed_buffers and to the backward's
+    return_buffers (on the card the forward is the backward's recompute,
+    and chip_smoke holds the two bit for bit)."""
+    x0, lens, w = case["x0"], case["lens"], case["w"]
+    seed = torch.tensor([7], dtype=torch.int64)
+    out, bufs = wn.wn_coupling(x0, lens, w, seed, p_drop, return_buffers=True)
+    torch.testing.assert_close(out, wn.wn_coupling_reference(x0, lens, w, seed, p_drop), rtol=0, atol=0)
+    plain = wn.recomputed_buffers(x0, lens, w, seed, p_drop)
+    recomputed = wn.wn_coupling_backward(x0, lens, w, case["g"], seed, p_drop, return_buffers=True)[2]
+    assert set(bufs) == set(plain) == set(recomputed) == {"xin", "skip"}
+    for name in bufs:
+        torch.testing.assert_close(bufs[name], plain[name], rtol=0, atol=0)
+        torch.testing.assert_close(bufs[name], recomputed[name], rtol=0, atol=0)
+    assert bufs["xin"].shape == (len(w.win), *x0.shape[:2], 2 * H) and bufs["skip"].shape == (*x0.shape[:2], H)
+
+
+# the bf16 scratch (csrc/wn_coupling_bf16.cu): Glow's width at (8, 384) and chip_smoke's
+# B3_OTHER_SHAPES, odd widths included, (B, T, half, H, c_out, n_layers, kernel_size)
 LAYOUT_SHAPES = ((8, 384, 80, 192, 160, 4, 5), (3, 7, 80, 192, 160, 4, 5), (3, 64, 80, 192, 160, 4, 3),
                  (3, 64, 10, 30, 20, 3, 5), (2, 48, 6, 9, 12, 2, 1))
 
@@ -221,3 +240,36 @@ def test_bwd16_layout_follows_tma_rules(shape, flow):
     assert layout["xin"].shape == (L, B, T, 2 * H) and layout["xin"].dtype == torch.float32
     assert layout["wsum_part"].nbytes == 4 * 12345
     assert layout["w_in"].shape[1] == 64 * -(-H // 32)  # the gate's rows: 32 tanh, then 32 sigmoid a group
+
+
+@pytest.mark.parametrize("buffers", (False, True), ids=("out", "buffers"))
+@pytest.mark.parametrize("flow", (False, True), ids=("b3", "b6"))
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fwd16_layout_follows_tma_rules(shape, flow, buffers):
+    """The bf16 forward's scratch, by test_bwd16_layout_follows_tma_rules'
+    rules; B6's parts empty for B3; x0 packed for B3, and for B6 only where
+    xc's rows (C bf16) are not 16 bytes apart, so TMA cannot read them in
+    place; h in two planes, acts in one; x_in only for return_buffers."""
+    B, T, half, H, c_out, L, k = shape
+    layout = wn.fwd16_layout(B, T, half, H, c_out, L, k, flow, buffers)
+    assert tuple(layout) == wn.FWD16_PARTS
+    channels = {"x0": half, "h": H, "acts": H, "skip": H, "w_s": half, "w_in": H, "w_rs": H, "w_end": H,
+                "x1": c_out, "mt_t": c_out}
+    spans = []
+    for name, part in layout.items():
+        assert part.offset % 16 == 0 and part.offset % wn.BWD16_ALIGN == 0, name
+        if part.tma and part.nbytes:
+            row = part.shape[-1] * part.dtype.itemsize
+            assert part.dtype == torch.bfloat16 and row % 16 == 0, (name, part.shape)
+            assert channels[name] <= part.shape[-1] < channels[name] + 8, (name, part.shape)
+        if name in ("x1", "mt_t"):
+            assert (part.nbytes > 0) == flow, name
+        spans.append((part.offset, part.offset + part.nbytes, name))
+    spans.sort()
+    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+        assert end <= start, (a, b)
+    assert (layout["x0"].nbytes > 0) == (not flow or (2 * c_out) % 16 != 0)
+    assert layout["h"].shape[0] == min(L, 2) and layout["acts"].shape == (B, T, wn.pitch8(H))
+    assert layout["xin"].shape == ((L, B, T, 2 * H) if buffers else (0,)) and layout["xin"].dtype == torch.float32
+    assert layout["w_in"].shape == (L * k, 64 * -(-H // 32), wn.pitch8(H))  # the backward's gate row order
+    assert layout["w_end"].shape == (1, c_out, wn.pitch8(H)) and layout["mt_t"].shape[1:2] in ((c_out,), ())
