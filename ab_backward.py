@@ -47,25 +47,28 @@ x0 the first-half view of x), p = 0 and B3_DROP: back to back, a call
 and launches by launch kind (torch.profiler over 3 calls), and at B3_DROP a
 sha256 of the forwards' out (B6: xc and out) and of dx and every gradient, and
 of B5's bf16 forward at every B5_SHAPES (p = 0 and 0.1) and its backward
-(bf16_enc_hashes: B5 shares conv_mma.cuh and the engine); then the bf16 Glow train step
+(bf16_enc_hashes: B5 shares the engine); then the bf16 Glow train step
 (``chip_smoke.phase_bf16_glow_train``) on the B3 and the B6 route in turns
 (b3, b6, b6, b3): the median of steps 2-10, the peak, the kernels' ms and
 the busy share of one step under torch.profiler, the median of each
 route's two runs. ``--bf16-wn-kernels`` measures the two forwards and backwards alone,
 without the steps (about 2 min a tree, most of it the build).
-``--bf16-enc`` measures, for each tree, B5's bf16 backward
-(``enc_layer.enc_layer_backward`` on the Glow encoder's first layer cast
-as ``chip_smoke.enc_bf16`` casts it, phase_bf16_enc_layer's inputs) at
-(8, 256) and VQ-TTS's (4, 64), p = 0 and B5_DROP, beside B5's fp32
-backward on the same values in fp32: back to back, a call
-(``chip_smoke.cuda_ms``), the bf16 backward's device time and launches by
-launch kind (torch.profiler over 3 calls) and at (8, 256), p = B5_DROP, a
-sha256 of dx and every gradient; then the bf16 Glow train step on the B3
+``--bf16-enc`` measures, for each tree, B5's bf16 forward and backward
+(``enc_layer.enc_layer`` and ``enc_layer.enc_layer_backward`` on the Glow
+encoder's first layer cast as ``chip_smoke.enc_bf16`` casts it,
+phase_bf16_enc_layer's inputs) at (8, 256) and VQ-TTS's (4, 64), p = 0 and
+B5_DROP, each beside B5's fp32 kernel on the same values in fp32: back to
+back, a call (``chip_smoke.cuda_ms``), the bf16 kernels' device time and
+launches by launch kind (torch.profiler over 3 calls); a sha256 of the bf16
+backward's dx and every gradient at (8, 256), p = B5_DROP, and of B3's
+and B6's bf16 forwards and backwards as ``--bf16-wn`` takes them (the
+shared engine must not move them); then the bf16 Glow train step on the B3
 and the B6 route and the bf16 VQ-TTS train step on B5's route
 (``chip_smoke.phase_bf16_vqtts_train``, fused_encoder: true) in turns (b3,
 b6, vqtts, vqtts, b6, b3): each run's median step, peak, the kernels' ms and
 the busy share of one step under torch.profiler, the medians of a route's
-two runs.
+two runs. ``--bf16-enc-kernels`` measures the same without the steps
+(``--worker TREE --bf16-enc-kernels`` measures one tree alone).
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -76,7 +79,8 @@ two runs.
     python3 ab_backward.py --bf16-tiles build/parent . . build/parent   # the same kernels by stage, no step
     python3 ab_backward.py --bf16-wn build/parent . . build/parent   # B3's and B6's bf16 kernels, the bf16 Glow steps
     python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the four kernels alone
-    python3 ab_backward.py --bf16-enc build/parent . . build/parent   # B5's bf16 backward, the bf16 Glow/VQ-TTS steps
+    python3 ab_backward.py --bf16-enc build/parent . . build/parent   # B5's bf16 kernels, the bf16 Glow/VQ-TTS steps
+    python3 ab_backward.py --bf16-enc-kernels build/parent . . build/parent   # B5's bf16 kernels alone
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
@@ -132,12 +136,12 @@ FWD_PS = (0.0, 0.1)
 FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B3's and B6's bf16 kernels' products
-# (wn16_gemm_kernel: the END epilogue, XC's copy of x0, GATE's optional x_in store) and the first bf16
-# form of their forwards, mma.sync instances under their own tags (gone); the engine's weight sums,
-# packing and bias sums, B5's bf16 kernels (its forward still on conv_mma.cuh's bf16 mode), B1's bf16
-# kernels and every fp32 instance are held with the rest
-PTXAS_CHANGED = ("16wn16_gemm_kernel", "14BfloatWnFwdTag", "16BfloatFlowFwdTag")
+# instances the change may alter, by a piece of their mangled names: B5's bf16 kernels whose stores the
+# forward skips (enc16_gemm_kernel's FFN1 epilogue, the fp32 hid; attention's softmax statistics; LN1's zhat
+# and 1/std) or that it adds (the row kernel's LN2F; the row kernels' parameters gained out), and the first
+# bf16 form of its forward, mma.sync instances under their own tag (gone); the engine, B3's and B6's bf16
+# kernels, B5's other bf16 instances, B1's bf16 kernels and every fp32 instance are held with the rest
+PTXAS_CHANGED = ("17enc16_gemm_kernelILi2E", "17enc16_rows_kernel", "20enc16_att_fwd_kernel", "17BfloatLayerFwdTag")
 BF16_ENC_SHAPES = (0, 4)  # chip_smoke.B5_SHAPES' (8, 256) and VQ-TTS's (4, 64)
 
 
@@ -552,14 +556,13 @@ def glow_bf16_inputs(torch, np, cs, wn_ops, device) -> tuple:
     return x, lens, valid, aln, alb, mt, w, g_xc, g_out, seed
 
 
-def bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
+def bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device, times: bool = True) -> dict:
     """B3's and B6's bf16 backwards at (8, 384), p = 0 and B3_DROP: back to
     back and a call (median of CUDA-event timings of single calls, the
     wrapper's host time included), their device time by launch kind at
-    both rates, and at B3_DROP a sha256 of dx and every gradient. B3's x0 is
-    the first-half view of x, as the B3 route passes it."""
-    import hashlib
-
+    both rates (``times``), and at B3_DROP a sha256 of dx and every
+    gradient. B3's x0 is the first-half view of x, as the B3 route passes
+    it."""
     x, lens, _, aln, alb, mt, w, g_xc, g_out, seed = glow_bf16_inputs(torch, np, cs, wn_ops, device)
     x0 = x[..., :x.shape[2] // 2]
     calls = {"b3": lambda p: wn_ops.wn_coupling_backward(x0, lens, w, g_out, seed, p),
@@ -567,29 +570,23 @@ def bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
     out = {}
     with torch.no_grad():
         for name, call in calls.items():
-            for p in (0.0, cs.B3_DROP):
+            for p in (0.0, cs.B3_DROP) if times else ():
                 out[f"{name}_bf16_bwd_p{p}_ms"] = back_to_back_ms(torch, lambda: call(p), GLOW_BWD_REPS)
                 out[f"{name}_bf16_bwd_p{p}_call_ms"] = cs.cuda_ms(lambda: call(p), reps=20, warmup=3)
                 out[f"{name}_bf16_bwd_p{p}_kinds"] = launch_kinds(torch, lambda: call(p))
             res = call(cs.B3_DROP)
-            torch.cuda.synchronize()
-            digest = hashlib.sha256()
-            for t in res:
-                for leaf in (t.flat() if isinstance(t, wn_ops.WNWeights) else (t,)):
-                    digest.update(leaf.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-            out[f"{name}_bf16_bwd_sha256"] = digest.hexdigest()
+            out[f"{name}_bf16_bwd_sha256"] = sha256_of(
+                torch, [leaf for t in res for leaf in (t.flat() if isinstance(t, wn_ops.WNWeights) else (t,))])
             del res
     torch.cuda.empty_cache()
     return out
 
 
-def bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
+def bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device, times: bool = True) -> dict:
     """B3's and B6's bf16 forwards at (8, 384), p = 0 and B3_DROP (the
     inputs of bf16_wn_backwards): back to back, a call (the wrapper's host
-    time included), their device time by launch kind at both rates, and at
-    B3_DROP a sha256 of out (B6: xc, then out)."""
-    import hashlib
-
+    time included), their device time by launch kind at both rates
+    (``times``), and at B3_DROP a sha256 of out (B6: xc, then out)."""
     x, lens, _, aln, alb, mt, w, _, _, seed = glow_bf16_inputs(torch, np, cs, wn_ops, device)
     x0 = x[..., :x.shape[2] // 2]
     calls = {"b3": lambda p: (wn_ops.wn_coupling(x0, lens, w, seed, p),),
@@ -597,50 +594,90 @@ def bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device) -> dict:
     out = {}
     with torch.no_grad():
         for name, call in calls.items():
-            for p in (0.0, cs.B3_DROP):
+            for p in (0.0, cs.B3_DROP) if times else ():
                 out[f"{name}_bf16_fwd_p{p}_ms"] = back_to_back_ms(torch, lambda: call(p), GLOW_BWD_REPS)
                 out[f"{name}_bf16_fwd_p{p}_call_ms"] = cs.cuda_ms(lambda: call(p), reps=20, warmup=3)
                 out[f"{name}_bf16_fwd_p{p}_kinds"] = launch_kinds(torch, lambda: call(p))
             res = call(cs.B3_DROP)
-            torch.cuda.synchronize()
-            digest = hashlib.sha256()
-            for t in res:
-                digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-            out[f"{name}_bf16_fwd_sha256"] = digest.hexdigest()
+            out[f"{name}_bf16_fwd_sha256"] = sha256_of(torch, res)
             del res
     torch.cuda.empty_cache()
     return out
+
+
+def bf16_enc_inputs(torch, np, cs, device):
+    """(fp32 weights, their bf16 cast, seed, cases): the Glow encoder's first
+    layer cast as chip_smoke.enc_bf16 casts it, and for each
+    chip_smoke.B5_SHAPES (i, B, T, x, lens, g) in bf16 as
+    phase_bf16_enc_layer draws them."""
+    w32 = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
+    w32 = w32.with_tensors([t.detach() for t in w32.tensors().values()])
+    w16 = cs.enc_bf16(w32)
+    seed = torch.tensor([5353], dtype=torch.int64, device=device)
+    cases = []
+    for i, (B, T) in enumerate(cs.B5_SHAPES):
+        rng = np.random.RandomState(840 + i)
+        lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
+        x = torch.from_numpy(rng.randn(B, T, w16.wq.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
+        g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device).to(torch.bfloat16)
+        cases.append((i, B, T, x, lens, g))
+    return w32, w16, seed, cases
+
+
+def sha256_of(torch, tensors) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def bf16_enc_hashes(torch, np, cs, device) -> dict:
     """sha256 of B5's bf16 forward outputs at every chip_smoke.B5_SHAPES,
     p = 0 and 0.1 (phase_bf16_enc_layer's weights; bf16_enc_backwards'
     inputs), and of its bf16 backward's dx and gradients at (8, 256), p =
-    B5_DROP: B5 shares conv_mma.cuh and the bf16 engine with B3 and B6, so a
-    change to either is held bit for bit against the other tree."""
-    import hashlib
-
+    B5_DROP: B5 shares the bf16 engine with B3 and B6, so a change to
+    either is held bit for bit against the other tree."""
     from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
 
-    w32 = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
-    w16 = cs.enc_bf16(w32.with_tensors([t.detach() for t in w32.tensors().values()]))
-    seed = torch.tensor([5353], dtype=torch.int64, device=device)
-    fwd, bwd = hashlib.sha256(), hashlib.sha256()
+    _, w16, seed, cases = bf16_enc_inputs(torch, np, cs, device)
+    outs, grads = [], []
     with torch.no_grad():
-        for i, (B, T) in enumerate(cs.B5_SHAPES):
-            rng = np.random.RandomState(840 + i)
-            lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
-            x = torch.from_numpy(rng.randn(B, T, w16.wq.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
-            g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device).to(torch.bfloat16)
-            for p in (0.0, 0.1):
-                fwd.update(enc_ops.enc_layer(x, lens, w16, seed, p).contiguous().view(torch.uint8).cpu().numpy()
-                           .tobytes())
+        for i, B, T, x, lens, g in cases:
+            outs += [enc_ops.enc_layer(x, lens, w16, seed, p) for p in (0.0, 0.1)]
             if i == BF16_ENC_SHAPES[0]:
-                dx, grads = enc_ops.enc_layer_backward(x, lens, w16, g, seed, cs.B5_DROP)
-                for t in (dx, *grads.values()):
-                    bwd.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                dx, gw = enc_ops.enc_layer_backward(x, lens, w16, g, seed, cs.B5_DROP)
+                grads = [dx, *gw.values()]
+    out = {"b5_bf16_fwd_sha256": sha256_of(torch, outs), "b5_bf16_bwd_sha256": sha256_of(torch, grads)}
     torch.cuda.empty_cache()
-    return {"b5_bf16_fwd_sha256": fwd.hexdigest(), "b5_bf16_bwd_sha256": bwd.hexdigest()}
+    return out
+
+
+def bf16_enc_forwards(torch, np, cs, device) -> dict:
+    """B5's bf16 forward at B5_SHAPES[i] for i in BF16_ENC_SHAPES, p = 0 and
+    B5_DROP (phase_bf16_enc_layer's inputs), B5's fp32 forward beside it on
+    the same values in fp32: back to back, a call (chip_smoke.cuda_ms, the
+    wrapper's host time included), the bf16 forward's device time and
+    launches by launch kind (torch.profiler over 3 calls)."""
+    from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
+
+    w32, w16, seed, cases = bf16_enc_inputs(torch, np, cs, device)
+    out = {}
+    with torch.no_grad():
+        for i, B, T, x, lens, _ in cases:
+            if i not in BF16_ENC_SHAPES:
+                continue
+            for p in (0.0, cs.B5_DROP):
+                for mode, args in (("bf16", (x, lens, w16)), ("fp32", (x.float(), lens, w32))):
+                    call = lambda: enc_ops.enc_layer(*args, seed, p)  # noqa: E731
+                    key = f"b5_{mode}_fwd_{B}x{T}_p{p}"
+                    out[f"{key}_ms"] = back_to_back_ms(torch, call, GLOW_BWD_REPS)
+                    out[f"{key}_call_ms"] = cs.cuda_ms(call, reps=20, warmup=3)
+                    if mode == "bf16":
+                        out[f"{key}_kinds"] = launch_kinds(torch, call)
+    torch.cuda.empty_cache()
+    return out
 
 
 def bf16_glow_steps(torch, cs, device, card) -> dict:
@@ -669,25 +706,17 @@ def bf16_glow_steps(torch, cs, device, card) -> dict:
 def bf16_enc_backwards(torch, np, cs, device) -> dict:
     """B5's bf16 backward at B5_SHAPES[i] for i in BF16_ENC_SHAPES, p = 0 and
     B5_DROP (phase_bf16_enc_layer's inputs), B5's fp32 backward beside it on
-    the same values: back to back, a call, the bf16 backward's device time
-    by launch kind, and at the first shape and B5_DROP a sha256 of dx and
-    every gradient."""
-    import hashlib
-
+    the same values in fp32: back to back, a call, the bf16 backward's device
+    time by launch kind, and at the first shape and B5_DROP a sha256 of dx
+    and every gradient."""
     from speech_masters_thesis_tpu_torch.ops import enc_layer as enc_ops
 
-    w32 = cs.build_glow(device, cs.GLOW_SEED).encoder.layer_weights(0)
-    w32 = w32.with_tensors([t.detach() for t in w32.tensors().values()])
-    w16 = cs.enc_bf16(w32)
-    seed = torch.tensor([5353], dtype=torch.int64, device=device)
+    w32, w16, seed, cases = bf16_enc_inputs(torch, np, cs, device)
     out = {}
     with torch.no_grad():
-        for i in BF16_ENC_SHAPES:
-            B, T = cs.B5_SHAPES[i]
-            rng = np.random.RandomState(840 + i)
-            lens = torch.from_numpy(cs.ragged(rng, B, max(1, T // 2), T).astype(np.int32)).to(device)
-            x = torch.from_numpy(rng.randn(B, T, w16.wq.shape[0]).astype(np.float32)).to(device).to(torch.bfloat16)
-            g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(device).to(torch.bfloat16)
+        for i, B, T, x, lens, g in cases:
+            if i not in BF16_ENC_SHAPES:
+                continue
             for p in (0.0, cs.B5_DROP):
                 for mode, args in (("bf16", (x, lens, w16, g)), ("fp32", (x.float(), lens, w32, g.float()))):
                     call = lambda: enc_ops.enc_layer_backward(*args, seed, p)  # noqa: E731
@@ -698,11 +727,7 @@ def bf16_enc_backwards(torch, np, cs, device) -> dict:
                         out[f"{key}_kinds"] = launch_kinds(torch, call)
             if i == BF16_ENC_SHAPES[0]:
                 dx, grads = enc_ops.enc_layer_backward(x, lens, w16, g, seed, cs.B5_DROP)
-                torch.cuda.synchronize()
-                digest = hashlib.sha256()
-                for t in (dx, *grads.values()):
-                    digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-                out["b5_bf16_bwd_sha256"] = digest.hexdigest()
+                out["b5_bf16_bwd_sha256"] = sha256_of(torch, [dx, *grads.values()])
                 del dx, grads
     torch.cuda.empty_cache()
     return out
@@ -815,9 +840,13 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         if mode == "--bf16-wn":
             out.update(bf16_glow_steps(torch, cs, device, card))
         return out
-    if mode == "--bf16-enc":
+    if mode in ("--bf16-enc", "--bf16-enc-kernels"):
+        out.update(bf16_enc_forwards(torch, np, cs, device))
         out.update(bf16_enc_backwards(torch, np, cs, device))
-        out.update(bf16_enc_steps(torch, cs, device, card))
+        out.update(bf16_wn_forwards(torch, np, cs, wn_ops, fs_ops, device, times=False))
+        out.update(bf16_wn_backwards(torch, np, cs, wn_ops, fs_ops, device, times=False))
+        if mode == "--bf16-enc":
+            out.update(bf16_enc_steps(torch, cs, device, card))
         return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
@@ -860,10 +889,12 @@ def mangled_lines(report: str) -> list:
 
 def without_io(name: str) -> str:
     """A mangled name without the float IO template argument that the fp32
-    instances of wgrad_rows, wgrad_mma, the encoder's attention backward and
-    conv_mma's weight packing took after their tag (and WHOLE or FORMS) in
-    trees that still had a bf16 mode there, so that their lines compare by
-    kernel across that change."""
+    instances of wgrad_rows, wgrad_mma, the encoder's kernels, conv_mma's
+    weight packing (after their tag, and WHOLE or FORMS) and conv_mma's
+    kernel (its last) took in trees that still had a bf16 mode there, so
+    that their lines compare by kernel across that change."""
+    if name.startswith("_ZN8conv_mma15conv_mma_kernel"):
+        return re.sub(r"(Li\d+E)fEEv", r"\1EEv", name, count=1)
     if not re.match(r"_ZN(10wgrad_rows|9wgrad_mma|9enc_layer|8conv_mma19pack_weights_kernel)", name):
         return name
     return re.sub(r"(Tag(?:ELb[01]|ELi\d+)?E)fEEv", r"\1EEv", name, count=1)
@@ -885,7 +916,7 @@ def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
     modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd", "--bf16-wn", "--bf16-wn-kernels",
-             "--bf16-enc")
+             "--bf16-enc", "--bf16-enc-kernels")
     mode = next((a for a in args if a in modes), "")
     args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
@@ -894,7 +925,7 @@ def main() -> None:
     trees = args
     if len(trees) < 2:
         raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles | "
-                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels | --bf16-enc] "
+                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels | --bf16-enc | --bf16-enc-kernels] "
                          "TREE TREE [TREE ...] "
                          "(e.g. parent "
                          "change change parent)")
@@ -927,7 +958,7 @@ def main() -> None:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
         return
-    if mode in ("--bf16-wn", "--bf16-wn-kernels", "--bf16-enc"):
+    if mode in ("--bf16-wn", "--bf16-wn-kernels", "--bf16-enc", "--bf16-enc-kernels"):
         for key in [k for k, v in results[0].items() if isinstance(v, float) and k != "seconds"]:
             print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results)
                   + f" [{results[0]['card']}]")
@@ -939,9 +970,8 @@ def main() -> None:
                                   for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
                       + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} "
                       f"launches) [{res['card']}]")
-        shas = (("b5_bf16_bwd_sha256",) if mode == "--bf16-enc" else
-                ("b3_bf16_fwd_sha256", "b6_bf16_fwd_sha256", "b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256",
-                 "b5_bf16_fwd_sha256", "b5_bf16_bwd_sha256"))
+        shas = ("b3_bf16_fwd_sha256", "b6_bf16_fwd_sha256", "b3_bf16_bwd_sha256", "b6_bf16_bwd_sha256",
+                *(() if mode.startswith("--bf16-enc") else ("b5_bf16_fwd_sha256",)), "b5_bf16_bwd_sha256")
         for key in shas:
             what = ("out at every B5_SHAPES, p = 0 and 0.1" if key == "b5_bf16_fwd_sha256" else
                     "out (B6: xc and out) at p = B3_DROP" if "_fwd_" in key else

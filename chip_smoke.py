@@ -243,7 +243,9 @@ bf16 versions (relative L2 2^-7, 2^-6 of
 max|ref|; B3 and B6 also each conditioner layer at the backward's own
 recomputed x_in and the end conv on its skip sum, 99% within one ulp, their
 masks read back bit for bit, and the backward by launch kind with its bytes
-a frame by design), B1's at
+a frame by design; B3's, B5's and B6's forwards are their backward's
+recompute launches, their buffers held to the backward's bit for bit, and
+timed by launch kind), B1's at
 VQ-TTS's shapes, B2's bf16 kernels at (8, 258) and (64, 258), p=0 and 0.1
 (beside bf16 SDPA, masks read back); each bf16 step with its ms, peak,
 busy share and launches; and one bf16 SGD step of Glow-TTS on each route,
@@ -564,14 +566,16 @@ WN16_KERNELS = ("wn16_gemm_kernel", "wn16_wsum_kernel", "wn16_wsum_reduce_kernel
 WN16_EPILOGUES = ("start", "gate", "res/skip", "dskip", "gate bwd", "conv^T", "dx0", "dxc", "xc", "dx1", "end")
 WN16_INSTANCES = 15
 WN16_SOURCES = ("wn_coupling_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")
-# B5's bf16 backward (csrc/enc_layer_bwd_bf16.cu, on bf16_engine.cuh's ring, weight sums and bias sums,
-# which WN16_KERNELS count): the product kernel's instances (enc16_gemm_kernel<EPI>, EPI as ENC16_EPILOGUES
-# names them), the LayerNorm rows (enc16_rows_kernel<MODE>, ENC16_ROWS) and attention's three (<DROP>)
+# B5's bf16 forward and backward (csrc/enc_layer_bf16.cu, on bf16_engine.cuh's ring, weight sums and bias
+# sums, which WN16_KERNELS count): the product kernel's instances (enc16_gemm_kernel<EPI>, EPI as
+# ENC16_EPILOGUES names them), the LayerNorm rows (enc16_rows_kernel<MODE>, ENC16_ROWS: the forward ends in
+# "ln2 fwd") and attention's three (<DROP>)
 ENC16_KERNELS = ("enc16_gemm_kernel", "enc16_rows_kernel", "enc16_att_fwd_kernel", "enc16_att_dq_kernel",
                  "enc16_att_dkdv_kernel")
 ENC16_EPILOGUES = ("qkv", "part", "ffn1", "drelu", "doh", "dx")
-ENC16_ROWS = ("ln1 fwd", "ln2 fwd+bwd", "ln1 bwd")
-ENC16_INSTANCES = 15
+ENC16_ROWS = ("ln1 fwd", "ln2 fwd+bwd", "ln1 bwd", "ln2 fwd")
+ENC16_INSTANCES = 16
+ENC16_SOURCES = ("enc_layer_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
@@ -661,10 +665,12 @@ def phase_build() -> None:
     require(len(wn16) == WN16_INSTANCES and all("0 bytes spill stores" in line for line in wn16),
             f"a B3/B6 bf16 kernel is missing or spills: {wn16}")
     enc16 = [line for line in ptxas if line.split(":")[0].split("<")[0] in ENC16_KERNELS]
-    print("[build] B5 bf16 backward on TMA and wgmma, attention on bf16 mma.sync (ptxas: registers, shared "
-          "memory, spills): " + " | ".join(enc16))
+    print("[build] B5 bf16 forward and backward on TMA and wgmma, attention on bf16 mma.sync (ptxas: registers, "
+          "shared memory, spills): " + " | ".join(enc16))
     require(len(enc16) == ENC16_INSTANCES and all("0 bytes spill stores" in line for line in enc16),
-            f"a B5 bf16 backward kernel is missing or spills: {enc16}")
+            f"a B5 bf16 kernel is missing or spills: {enc16}")
+    first_form = [line for line in ptxas if "BfloatLayerFwdTag" in line]
+    require(not first_form, f"B5's bf16 forward's mma.sync instances are back: {first_form}")
     b5 = {side: [line for line in ptxas if line.split(":")[0].split("<")[0] in B5_KERNELS
                  and f"Layer{side}Tag" in line.split(":")[0]] for side in ("Fwd", "Bwd")}
     for side, lines in b5.items():
@@ -3412,7 +3418,7 @@ def phase_bf16_wn_coupling(model: GlowTTS, device, card: str) -> dict:
 
 
 def enc16_bytes_per_frame(F: int, H: int, R: int, splits: int) -> dict:
-    """Device-memory bytes a frame of csrc/enc_layer_bwd_bf16.cu by design, by
+    """Device-memory bytes a frame of csrc/enc_layer_bf16.cu's backward by design, by
     launch (each launch's operands read once, a conv's taps and the weight
     sums' shifts counted once, its outputs written once; the weights and the
     partials that do not grow with the frames left out; C = 192, S the split
@@ -3491,10 +3497,12 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
     LayerNorms); the backward's recompute at its own intermediates
     (enc_bf16_intermediates: q|k|v, the heads' output and hid at least
     BF16_ULP_SHARE within one ulp); the bf16 dropout masks read back bit for
-    bit (enc_masks); the same checks at B5_SWEEP_SHAPE over the kernel sizes
-    and windows of B5_SWEEP (enc_variant); times at (8, 256), with the
-    backward's device time by launch kind (launch_kinds) and its bytes a
-    frame by design."""
+    bit (enc_masks); the forward's q|k|v, heads' output, x1m and hid
+    (``return_buffers``) equal to the backward's recompute bit for bit; the
+    same checks at B5_SWEEP_SHAPE over the kernel sizes and windows of
+    B5_SWEEP (enc_variant); times at (8, 256), with the forward's and the
+    backward's device time by launch kind (launch_kinds) and the backward's
+    bytes a frame by design."""
     w0 = enc_bf16(model.encoder.layer_weights(0))
     C, Fc, H = w0.wq.shape[0], w0.w1.shape[0], w0.n_heads
     seed = torch.tensor([5353], dtype=torch.int64, device=device)
@@ -3511,6 +3519,7 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
         for p in (0.0, B5_DROP):
             with torch.no_grad():
                 ours, again = enc_ops.enc_layer(x, lens, w, seed, p), enc_ops.enc_layer(x, lens, w, seed, p)
+                out_b, fbufs = enc_ops.enc_layer(x, lens, w, seed, p, return_buffers=True)
                 ref = enc_ops.enc_layer_reference(x, lens, w, seed, p)
                 dx_k, gw_k, bufs = enc_ops.enc_layer_backward(x, lens, w, g, seed, p, return_buffers=True)
                 dx_k2, gw_k2 = enc_ops.enc_layer_backward(x, lens, w, g, seed, p)
@@ -3528,7 +3537,11 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
             agree = bf16_agreement(ours[valid], ref[valid])
             tag = f"B={B} T={T} k={w.w1.shape[2]} window={w.window}"
             require(ours.dtype == torch.bfloat16 and bf16_ok(agree, summed=True), f"[bf16 B5] {tag} p={p}: forward {agree}")
-            require(torch.equal(ours, again), f"[bf16 B5] {tag} p={p}: two forward calls differ")
+            require(torch.equal(ours, again) and torch.equal(ours, out_b),
+                    f"[bf16 B5] {tag} p={p}: two forward calls differ")
+            recompute = {n: torch.equal(fbufs[n], bufs[n]) for n in enc_ops.FWD16_BUFFERS}
+            require(all(recompute.values()),
+                    f"[bf16 B5] {tag} p={p}: the forward's buffers are not the backward's recompute: {recompute}")
             require(flips[1] <= BF16_FLIP_RTOL * flips[2], f"[bf16 B5] {tag} p={p}: a relu flipped: {flips}")
             for name, a in inter.items():
                 require(a[0] >= BF16_ULP_SHARE and np.isfinite(a[1]),
@@ -3547,6 +3560,7 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
                          "bwd_call": cuda_ms(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p), reps=5),
                          "bwd_plain": cuda_ms(lambda: enc_ops.enc_layer_backward_reference(x, lens, w, g, seed, p),
                                               reps=5, warmup=1)}
+                    fkinds = launch_kinds(lambda: enc_ops.enc_layer(x, lens, w, seed, p))
                     kinds = launch_kinds(lambda: enc_ops.enc_layer_backward(x, lens, w, g, seed, p))
                 tokens = int(lens_np.sum())
                 params = sum(t_.numel() for t_ in w.tensors().values())
@@ -3556,16 +3570,19 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
                     B, T, Fc, w.w1.shape[2], torch.cuda.get_device_properties(device).multi_processor_count))
                 times = (f"; forward {t['fwd']:.4f} ms b2b ({t['fwd_call']:.4f} a call), plain {t['fwd_plain']:.4f}, "
                          f"bound {fb[0]:.4f} by {fb[1]}; backward {t['bwd']:.4f} ms b2b ({t['bwd_call']:.4f} a call), "
-                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}; backward by launch kind: "
-                         f"{kinds_line(kinds)}; bytes a frame by design {per_frame}")
+                         f"plain {t['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]}; forward by launch kind: "
+                         f"{kinds_line(fkinds)}; backward by launch kind: {kinds_line(kinds)}; backward's bytes a "
+                         f"frame by design {per_frame}")
                 if p == 0.0:
                     fwd_out.update(ms=t["fwd"], call_ms=t["fwd_call"], plain_ms=t["fwd_plain"], bound_ms=fb[0],
-                                   bound_by=fb[1])
+                                   bound_by=fb[1], kinds={n: [ms, c] for n, (ms, c) in fkinds.items()})
                 else:
                     bwd_out.update(ms=t["bwd"], call_ms=t["bwd_call"], plain_ms=t["bwd_plain"], bound_ms=bb[0],
                                    bound_by=bb[1], kinds={n: [ms, c] for n, (ms, c) in kinds.items()})
             print(f"[bf16 B5] {tag} p={p}: forward {agree[0]:.5f} within one bf16 ulp (need {BF16_ULP_SHARE}), "
-                  f"max_abs_err {agree[1]:.2e} of max|ref|; FFN relu flips {flips[0]} (largest |c1| {flips[1]:.1e} of "
+                  f"max_abs_err {agree[1]:.2e} of max|ref|; its q|k|v, heads' output, x1m and hid the backward's "
+                  f"recompute bit for bit {all(recompute.values())}; FFN relu flips {flips[0]} (largest |c1| "
+                  f"{flips[1]:.1e} of "
                   f"max {flips[2]:.1e}); the backward's recompute at its own intermediates, within one bf16 ulp: "
                   + ", ".join(f"{n} {a[0]:.5f}" for n, a in inter.items())
                   + f" (need {BF16_ULP_SHARE}); backward {report}{times} [{card}]")
@@ -3573,7 +3590,7 @@ def phase_bf16_enc_layer(model: GlowTTS, device, card: str) -> dict:
                 enc_masks(x, lens, w, g, seed, bufs, plain, valid, card, flip_rtol=BF16_FLIP_RTOL)
             fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], agree[2])
             bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], dx_agree[2])
-            del ours, again, ref, dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
+            del ours, again, out_b, fbufs, ref, dx_k, gw_k, bufs, dx_k2, gw_k2, dx_r, gw_r, plain
     return {"fwd": fwd_out, "bwd": bwd_out}
 
 
@@ -4778,14 +4795,15 @@ def main() -> None:
               b3_bf16["bwd"]["max_abs_err"], b3_bf16["bwd"]["ms"], b3_bf16["bwd"]["plain_ms"],
               b3_bf16["bwd"]["bound_ms"], b3_bf16["bwd"]["bound_by"], call_ms=b3_bf16["bwd"]["call_ms"],
               sources=[SOURCE_DIR + s for s in WN16_SOURCES]),
-        entry("enc_layer_fwd_bf16", "enc_layer_fwd.cu", PALLAS_ENC + ":470", glow_b5_bf16,
+        entry("enc_layer_fwd_bf16", "enc_layer_bf16.cu", PALLAS_ENC + ":470", glow_b5_bf16,
               b5_bf16["fwd"]["max_abs_err"], b5_bf16["fwd"]["ms"], b5_bf16["fwd"]["plain_ms"],
               b5_bf16["fwd"]["bound_ms"], b5_bf16["fwd"]["bound_by"], call_ms=b5_bf16["fwd"]["call_ms"],
+              sources=[SOURCE_DIR + s for s in ENC16_SOURCES], launch_kinds=b5_bf16["fwd"]["kinds"],
               vqtts={"launches_b5_route": vq_bf16_b5["launches"][9]}),
-        entry("enc_layer_bwd_bf16", "enc_layer_bwd_bf16.cu", PALLAS_ENC + ":496", glow_b5_bwd_bf16,
+        entry("enc_layer_bwd_bf16", "enc_layer_bf16.cu", PALLAS_ENC + ":496", glow_b5_bwd_bf16,
               b5_bf16["bwd"]["max_abs_err"], b5_bf16["bwd"]["ms"], b5_bf16["bwd"]["plain_ms"],
               b5_bf16["bwd"]["bound_ms"], b5_bf16["bwd"]["bound_by"], call_ms=b5_bf16["bwd"]["call_ms"],
-              sources=[SOURCE_DIR + s for s in ("enc_layer_bwd_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")],
+              sources=[SOURCE_DIR + s for s in ENC16_SOURCES],
               launch_kinds=b5_bf16["bwd"]["kinds"],
               vqtts={"launches_b5_route": vq_bf16_b5["launches"][10]}),
         entry("flow_step_fwd", "flow_step_fwd.cu", PALLAS_WN + ":521", b6_fwd_n, b6["fwd_err"], b6["fwd_ms"],

@@ -1,11 +1,12 @@
 // The bf16 engine for Hopper (sm_90a) that B3's and B6's bf16 forwards and
-// backwards (wn_coupling_bf16.cu) and B5's bf16 backward
-// (enc_layer_bwd_bf16.cu) share: the k-slice pipeline of a product tile (TMA into an mbarrier ring,
-// wgmma with fp32 sums a slice), the weight sums with the frames as wgmma's
-// K (wn16_wsum_kernel and its fixed-order reduction), the packing launch
-// (wn16_pack_kernel) and the bias sums (wn16_bias_kernel). The kernels of
-// the last three are built once, in bf16_engine.cu; each source builds its own product kernels around
-// ring_products with the epilogues it needs.
+// backwards (wn_coupling_bf16.cu) and B5's (enc_layer_bf16.cu) share: the
+// k-slice pipeline of a product tile (TMA into an mbarrier ring, wgmma with
+// fp32 sums a slice), the weight sums with the frames as wgmma's K
+// (wn16_wsum_kernel and its fixed-order reduction), the packing launch
+// (wn16_pack_kernel), the bias sums (wn16_bias_kernel) and the host's cache
+// of tensor maps (cached_maps). The kernels of the middle three are built
+// once, in bf16_engine.cu; each source builds its own product kernels
+// around ring_products with the epilogues it needs.
 //
 // Layout rules (hopper.cuh): operands are bf16 buffers whose rows are a
 // multiple of 16 bytes apart (pitch8) on 16-byte aligned bases; every box
@@ -20,6 +21,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <vector>
 
@@ -291,6 +293,35 @@ struct SumSource {
 };
 
 cudaError_t column_sums(const std::vector<SumSource>& sources, cudaStream_t s);
+
+// A call's maps, from a cache of the last few calls' (the caching allocator
+// hands a wrapper the same scratch call after call, and encoding the maps
+// is a large part of a call's host time). The key holds every pointer and
+// size a map reads, its padding zeroed: keys compare as bytes. One cache
+// per call site; host calls come from one thread.
+template <class Key, class M, class Encode>
+inline bool cached_maps(const Key& key, M* m, Encode encode) {
+  struct Entry {
+    Key key;
+    M maps;
+  };
+  static std::vector<Entry> cache;
+  static size_t next = 0;
+  for (const Entry& e : cache)
+    if (memcmp(&e.key, &key, sizeof(Key)) == 0) {
+      *m = e.maps;
+      return true;
+    }
+  if (!encode(m)) return false;
+  constexpr size_t SLOTS = 8;
+  if (cache.size() < SLOTS) {
+    cache.push_back(Entry{key, *m});
+  } else {
+    cache[next] = Entry{key, *m};
+    next = (next + 1) % SLOTS;
+  }
+  return true;
+}
 
 // a [planes, T, C] activation map (rows `pitch` elements apart) in boxes of 64 channels x 64 frames
 inline bool act_map(CUtensorMap* m, const bf16_t* base, int C, int T, int planes, int pitch) {

@@ -1,6 +1,7 @@
-// bf16 products on the tensor cores (mma.sync), for the bf16 modes of B2,
-// B3, B5 and B6 and the bf16 MMA probe (gated_hifi_fwd.cu); B1's bf16 mode
-// runs on wgmma (hopper.cuh). tf32_mma.cuh is the fp32 modes' 3xTF32 engine.
+// bf16 products on the tensor cores (mma.sync), for B2's bf16 kernels, B5's
+// bf16 attention and the bf16 MMA probe (gated_hifi_fwd.cu); the bf16 dense
+// products run on wgmma (hopper.cuh, bf16_engine.cuh). tf32_mma.cuh is the
+// fp32 modes' 3xTF32 engine.
 //
 // Numerics. The TPU kernel's bf16 mode (ops/pallas/gated_hifi.py, dot_dtype
 // = the input's dtype) rounds each product's operands to bf16 and
@@ -37,24 +38,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
-}
-
-// two adjacent k of one row of an A operand in shared memory
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pair(const float* p) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  return pack(v.x, v.y);
-}
-
-// The A fragment of one k16 step: r at (row g, column 2q) of a row-major
-// tile with rows ld elements apart
-template <class TA>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const TA* r, int ld) {
-  a[0] = pair(r);
-  a[1] = pair(r + 8 * ld);
-  a[2] = pair(r + 8);
-  a[3] = pair(r + 8 * ld + 8);
 }
 
 // c += a * b on one m16n8k16 tile, bf16 operands, fp32 accumulator

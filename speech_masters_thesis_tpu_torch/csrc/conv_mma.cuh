@@ -40,39 +40,17 @@
 // accumulation truncates each MMA's sum; otherwise every MMA of a product
 // would meet one register (up to 3 x 240 for a 1,920-deep transposed conv).
 //
-// bf16 mode (template parameter IO = __nv_bfloat16; float is the 3xTF32
-// mode; B5's bf16 forward, enc_layer_fwd.cu): the TPU kernels' bf16
-// dot_dtype rounds each product's operands to bf16 and sums in fp32. The
-// staging buffers stay fp32: fp32 activations land as they are (cp.async),
-// bf16 ones (in_bf16: a kernel's input) and the bf16 weights by 2-byte loads
-// converted to fp32, so any width, stride or offset runs; the fragments are
-// rounded to bf16 as they are built (bf16_mma.cuh:
-// exact for values that were bf16) and go through one m16n8k16 MMA, two
-// k-steps of 16 a slice, each k-step's MMAs added to the accumulators in
-// fp32 as in the fp32 mode (bf16 mma.sync's accumulation truncates too).
+// The bf16 kernels (B3's, B5's and B6's) run the TMA + wgmma engine of
+// bf16_engine.cuh instead.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16_mma.cuh"
 #include "conv_rows.cuh"
 #include "tf32_mma.cuh"
 
 namespace conv_mma {
-
-using bf16_t = __nv_bfloat16;
-template <class IO>
-constexpr bool kBf16 = std::is_same<IO, bf16_t>::value;
-
-// a pointer into a buffer of IO elements (the packed weights), `elems` past base
-template <class IO>
-inline float* elems_at(float* base, size_t elems) {
-  return reinterpret_cast<float*>(reinterpret_cast<IO*>(base) + elems);
-}
 
 using conv_rows::Args;
 
@@ -108,14 +86,12 @@ struct Tile {
 };
 
 // k-slice s (tap s / slices, channels from 32 * (s % slices)) into one
-// stage, in 16-byte pieces (WHOLE: whole_pieces) or 4-byte ones; in the bf16
-// mode the weights, and a bf16 input, by 2-byte loads converted to fp32
-template <int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4, class IO = float>
+// stage, in 16-byte pieces (WHOLE: whole_pieces) or 4-byte ones
+template <int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4>
 __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weight& wb, int s, int slices, int pad,
                                            int r0, int len, size_t row0) {
   using S = Tile<TN, ROWS, N8>;
   constexpr int TM = S::TM;
-  constexpr bool BF = kBf16<IO>;
   const int tap = s / slices, c0 = (s % slices) * KS, shift = tap * a.dil - pad;
   float* as = st;
   float* bs = st + S::A_FLOATS;
@@ -126,43 +102,12 @@ __device__ __forceinline__ void load_slice(float* st, const Args& a, const Weigh
     auto at = [&](int c) {  // channel c of row t
       return (a.in2 && c >= a.split) ? a.in2 + (row0 + t) * a.ldi2 + (c - a.split) : a.in + (row0 + t) * a.ldi + c;
     };
-    if (BF && a.in_bf16) {
-      const bf16_t* src = reinterpret_cast<const bf16_t*>(a.in) + (row0 + t) * a.ldi;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = row && ch + e < a.cin ? __bfloat162float(src[ch + e]) : 0.f;
-    } else if (WHOLE) {
+    if (WHOLE) {
       const bool in = row && ch < a.cin;
       tf32::cp_async16(dst, in ? at(ch) : a.in, in ? 16 : 0);
     } else {
       tf32::stage4(dst, [&](int e) -> const float* { return row && ch + e < a.cin ? at(ch + e) : nullptr; });
     }
-  }
-  if (BF) {  // the bf16 weights
-    const bf16_t* wt16 = reinterpret_cast<const bf16_t*>(wb.w) + tap * wb.tap_ld;
-    auto wt = [&](size_t i) { return __bfloat162float(wt16[i]); };
-    if (wb.nk) {
-      for (int f = threadIdx.x; f < TN * (KS / 4); f += NT) {
-        const int j = f / (KS / 4), ch = c0 + 4 * (f % (KS / 4));
-        int col;
-        const bool in = conv_rows::out_column<TN, EPI>(a, j, &col);
-        float* dst = bs + j * S::LDB_NK + 4 * (f % (KS / 4));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dst[e] = in && ch + e < a.cin ? wt((size_t)col * wb.ld + ch + e) : 0.f;
-      }
-    } else {
-      for (int f = threadIdx.x; f < KS * (TN / 4); f += NT) {
-        const int k = f / (TN / 4), j = 4 * (f % (TN / 4)), ch = c0 + k;
-        float* dst = bs + k * S::LDB_KN + j;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int col;
-          const bool ok = conv_rows::out_column<TN, EPI>(a, j + e, &col) && ch < a.cin;
-          dst[e] = ok ? wt((size_t)ch * wb.ld + col) : 0.f;
-        }
-      }
-    }
-    return;
   }
   const float* wt = wb.w + tap * wb.tap_ld;
   if (wb.nk) {
@@ -235,33 +180,10 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[Tile<TN, ROWS, N8>::MT][N
   }
 }
 
-// The bf16 mode's k-step of 16: acc += A B with A's and B's fp32 values
-// rounded to bf16 as the fragments are built (bf16_mma.cuh's m16n8k16
-// layout): as at the step's first column, b at this thread's first B
-// element (k = 2q, n = g; b_k1 floats to k + 1, b_hi to k + 8, b_nt to the
-// next n8 tile)
-template <int TN, int ROWS = 64, int N8 = 4>
-__device__ __forceinline__ void mma_kstep_bf16(float (&acc)[Tile<TN, ROWS, N8>::MT][N8][4], const float* as,
-                                               const float* b, int b_nt, int b_k1, int b_hi, int row0w, int gr,
-                                               int qd) {
-  using S = Tile<TN, ROWS, N8>;
-  uint32_t fa[S::MT][4];
-#pragma unroll
-  for (int mt = 0; mt < S::MT; ++mt) bf16::frag_a(fa[mt], as + (row0w + 16 * mt + gr) * LDA + 2 * qd, LDA);
-#pragma unroll
-  for (int nt = 0; nt < N8; ++nt) {
-    const float* c = b + nt * b_nt;
-    const uint32_t fb[2] = {bf16::pack(c[0], c[b_k1]), bf16::pack(c[b_hi], c[b_hi + b_k1])};
-#pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt) bf16::mma(acc[mt][nt], fa[mt], fb);
-  }
-}
-
-template <class Tag, int TAPS, int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4, class IO = float>
+template <class Tag, int TAPS, int TN, int EPI, bool WHOLE, int ROWS = 64, int N8 = 4>
 __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Weight wb) {
   using S = Tile<TN, ROWS, N8>;
   constexpr int TM = S::TM;
-  constexpr bool BF = kBf16<IO>;
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, r0 = blockIdx.x * TM;
   const int len = a.lens[b];
@@ -278,7 +200,7 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
   float acc[S::MT][N8][4] = {};
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n) load_slice<TN, EPI, WHOLE, ROWS, N8, IO>(smem + s * S::STAGE, a, wb, s, slices, pad, r0, len, row0);
+    if (s < n) load_slice<TN, EPI, WHOLE, ROWS, N8>(smem + s * S::STAGE, a, wb, s, slices, pad, r0, len, row0);
     tf32::cp_async_commit();
   }
   for (int s = 0; s < n; ++s) {
@@ -290,26 +212,9 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
       __syncthreads();
     }
     if (s + STAGES - 1 < n)
-      load_slice<TN, EPI, WHOLE, ROWS, N8, IO>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE, a, wb,
-                                               s + STAGES - 1, slices, pad, r0, len, row0);
+      load_slice<TN, EPI, WHOLE, ROWS, N8>(smem + ((s + STAGES - 1) % STAGES) * S::STAGE, a, wb, s + STAGES - 1,
+                                           slices, pad, r0, len, row0);
     tf32::cp_async_commit();
-    if (BF) {
-      // the B fragment's elements (k = 2q, n = g) in the launch's layout: k + 1 and k + 8 apart
-      const float* bs = st + S::A_FLOATS + (wb.nk ? (col0w + gr) * S::LDB_NK + 2 * qd : 2 * qd * S::LDB_KN + col0w + gr);
-      const int b_k1 = wb.nk ? 1 : S::LDB_KN;
-#pragma unroll 1
-      for (int kk = 0; kk < KS / 16; ++kk) {
-        float part[S::MT][N8][4] = {};
-        mma_kstep_bf16<TN, ROWS, N8>(part, st + 16 * kk, bs + 16 * kk * b_k1, b_nt, b_k1, 8 * b_k1, row0w, gr, qd);
-#pragma unroll
-        for (int mt = 0; mt < S::MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < N8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
-      }
-      continue;
-    }
     const float* bs = st + S::A_FLOATS + b_base;
     // each k-step's three MMAs into their own registers, then added to the
     // accumulators in fp32
@@ -337,9 +242,7 @@ __global__ void __launch_bounds__(NT, 2) conv_mma_kernel(const Args a, const Wei
       for (int e = 0; e < 4; ++e) {
         const int r = row0w + 16 * mt + gr + 8 * (e / 2), j = col0w + 8 * nt + 2 * qd + e % 2;
         int col;
-        const float bv = (a.bias && conv_rows::out_column<TN, EPI>(a, j, &col))
-                             ? (BF ? conv_rows::bf16_at(a.bias, col) : a.bias[col])
-                             : 0.0f;
+        const float bv = (a.bias && conv_rows::out_column<TN, EPI>(a, j, &col)) ? a.bias[col] : 0.0f;
         zs[r * (TN + 1) + j] = acc[mt][nt][e] + bv;
       }
   __syncthreads();
@@ -362,15 +265,12 @@ inline Weight weight_of(const Args& a) {
 }
 
 // Widths, row strides, `split` and pointers in multiples of 4 floats, and
-// the columns' pieces valid or not as a whole (n_out, or GATE's hidden); in
-// the bf16 mode only the fp32 activations count (the rest takes 2-byte loads)
-template <int EPI, class IO = float>
+// the columns' pieces valid or not as a whole (n_out, or GATE's hidden)
+template <int EPI>
 inline bool whole_pieces(const Args& a, const Weight& wb) {
   using tf32::aligned16;
-  if (kBf16<IO> && a.in_bf16) return true;
   const bool in = aligned16(a.in) && a.ldi % 4 == 0 && a.cin % 4 == 0 &&
                   (!a.in2 || (aligned16(a.in2) && a.ldi2 % 4 == 0 && a.split % 4 == 0));
-  if (kBf16<IO>) return in;
   const bool w = aligned16(wb.w) && wb.ld % 4 == 0 && wb.tap_ld % 4 == 0 &&
                  (wb.nk || (EPI == conv_rows::GATE ? a.hidden : a.n_out) % 4 == 0);
   return in && w;
@@ -388,16 +288,13 @@ cudaError_t launch_grid(Kernel kernel, const Args& a, const Weight& wb, int B, c
 }
 
 // One launch: grid (row tiles, channel tiles, B);
-// ROWS x TN tiles of warps N8 n8 tiles wide. IO: the mode (float: 3xTF32,
-// bf16: conv_rows.cuh's bf16 mode).
-template <class Tag, int TAPS, int TN, int EPI, int ROWS = 64, int N8 = 4, class IO = float>
+// ROWS x TN tiles of warps N8 n8 tiles wide.
+template <class Tag, int TAPS, int TN, int EPI, int ROWS = 64, int N8 = 4>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const Weight wb = weight_of<TAPS>(a);
-  if (whole_pieces<EPI, IO>(a, wb))
-    return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, true, ROWS, N8, IO>, a, wb, B,
-                                          stream);
-  return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, false, ROWS, N8, IO>, a, wb, B,
-                                        stream);
+  if (whole_pieces<EPI>(a, wb))
+    return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, true, ROWS, N8>, a, wb, B, stream);
+  return launch_grid<TN, EPI, ROWS, N8>(conv_mma_kernel<Tag, TAPS, TN, EPI, false, ROWS, N8>, a, wb, B, stream);
 }
 
 // Resident blocks per SM of a kernel at NT threads and `smem` bytes of

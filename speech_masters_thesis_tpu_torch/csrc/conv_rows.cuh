@@ -46,18 +46,11 @@
 // stream_mul + stream_add), t * drop_ld + n) >= threshold ? keep_scale : 0
 // (hash.cuh; the plain versions draw the same bits). The kernel template
 // carries a tag type so each translation unit that includes this header has
-// kernels of its own names.
-//
-// bf16 mode (conv_mma.cuh's IO = __nv_bfloat16, the TPU kernels' bf16
-// dot_dtype; B5's bf16 forward): w, bias, gamma and beta hold bf16 (the
-// parameters), and so do in, res and out where in_bf16, res_bf16 and
-// out_bf16 are set (a kernel's inputs and outputs); every other buffer stays
-// fp32. The flags sit in Args' padding, so the fp32 kernels' parameters
-// keep their layout.
+// kernels of its own names. Every buffer is fp32 (the bf16 kernels run
+// bf16_engine.cuh's engine).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,7 +66,6 @@ constexpr int NT = 256;  // threads per block
 struct Args {
   const float* in;
   int ldi, cin, mask_in;
-  int in_bf16;            // bf16 mode: `in` holds bf16 (no in2 then)
   const float* pre_logs;  // ACTNORM_FWD: the loader's ActNorm
   const float* pre_bias;
   float* in_out;          // ACTNORM_FWD, one tap: the loaded rows written back (rows ldio apart), or null
@@ -86,10 +78,8 @@ struct Args {
   int n_out, dil;
   float* out;
   int ldo;
-  int out_bf16;       // bf16 mode: `out` holds bf16
   const float* res;   // RES_SKIP: the residual stream (read), LN/LN_BWD: the residual, DRELU: the relu output
   int ldr, mask_res, mask_acc;
-  int res_bf16;       // bf16 mode: `res` holds bf16
   float* skip;        // RES_SKIP: the skip sum
   int lds, first;
   const float* gamma;
@@ -111,16 +101,7 @@ struct Args {
   const int* lens;
   int T;
 };
-static_assert(sizeof(Args) == 296, "the bf16 flags fill Args' padding: the fp32 kernels' parameters keep their layout");
-
-// element i of a buffer that holds bf16 (bf16 mode)
-__device__ __forceinline__ float bf16_at(const float* p, size_t i) {
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-__device__ __forceinline__ void bf16_put(float* p, size_t i, float v) {
-  reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-}
+static_assert(sizeof(Args) == 296, "the kernels' parameters keep their layout");
 
 template <int TN, int EPI>
 __device__ __forceinline__ bool out_column(const Args& a, int j, int* col) {
@@ -144,8 +125,7 @@ __device__ __forceinline__ float drop_factor(const Args& a, uint32_t key, int t,
 // inline function it moved kernels' registers, PERF.md): the tile's TR rows start at r0 of the
 // sequence whose rows start at row0 and whose length is len; zs holds z,
 // the product plus the bias, for TR rows by TN columns (rows TN + 1 floats
-// apart); a, key, tid, tx and ty are the kernel's (NT threads), BF its mode
-// (the GATE, GATE_BWD and DRELU epilogues read and write fp32 only).
+// apart); a, key, tid, tx and ty are the kernel's (NT threads).
 #define CONV_ROWS_EPILOGUE                                                                                         \
   if (EPI == LN || EPI == LN_BWD) {                                                                                \
     /* one warp per row; TN == n_out */                                                                            \
@@ -156,13 +136,11 @@ __device__ __forceinline__ float drop_factor(const Args& a, uint32_t key, int t,
       const float valid = t < len ? 1.0f : 0.0f;                                                                   \
       const float za = a.mask_acc ? valid : 1.0f, zr = a.mask_res ? valid : 1.0f;                                  \
       const float* res = a.res + row * a.ldr;                                                                      \
-      const bool res16 = BF && a.res_bf16;                                                                         \
       float* z = zs + rl * (TN + 1);                                                                               \
       if (EPI == LN) {                                                                                             \
         float s = 0.0f, sq = 0.0f;                                                                                 \
         for (int j = tx; j < TN; j += 32) {                                                                        \
-          const float rj = res16 ? bf16_at(a.res, row * a.ldr + j) : res[j];                                       \
-          const float v = z[j] * za * drop_factor(a, key, t, j) + rj * zr;                                         \
+          const float v = z[j] * za * drop_factor(a, key, t, j) + res[j] * zr;                                     \
           z[j] = v;                                                                                                \
           s += v;                                                                                                  \
           sq += v * v;                                                                                             \
@@ -179,24 +157,15 @@ _Pragma("unroll")                                                               
         for (int j = tx; j < TN; j += 32) {                                                                        \
           const float zh = (z[j] - mean) * inv;                                                                    \
           if (a.zhat) a.zhat[row * a.ldz + j] = zh;                                                                \
-          if (BF) {                                                                                                \
-            const float v = zh * bf16_at(a.gamma, j) + bf16_at(a.beta, j);                                         \
-            if (a.out_bf16)                                                                                        \
-              bf16_put(a.out, row * a.ldo + j, v);                                                                 \
-            else                                                                                                   \
-              out[j] = v;                                                                                          \
-          } else {                                                                                                 \
-            out[j] = zh * a.gamma[j] + a.beta[j];                                                                  \
-          }                                                                                                        \
+          out[j] = zh * a.gamma[j] + a.beta[j];                                                                    \
         }                                                                                                          \
       } else {                                                                                                     \
         const float* zh = a.zhat + row * a.ldz;                                                                    \
         float s1 = 0.0f, s2 = 0.0f;                                                                                \
         for (int j = tx; j < TN; j += 32) {                                                                        \
-          const float rj = res16 ? bf16_at(a.res, row * a.ldr + j) : res[j];                                       \
-          const float dx = z[j] * za + rj * zr;                                                                    \
+          const float dx = z[j] * za + res[j] * zr;                                                                \
           if (a.out2) a.out2[row * a.ldo + j] = dx;                                                                \
-          const float dy = dx * (BF ? bf16_at(a.gamma, j) : a.gamma[j]);                                           \
+          const float dy = dx * a.gamma[j];                                                                        \
           z[j] = dy;                                                                                               \
           s1 += dy;                                                                                                \
           s2 += dy * zh[j];                                                                                        \
@@ -241,15 +210,7 @@ _Pragma("unroll")                                                               
     if (EPI == RES_SKIP) {                                                                                         \
       const int n_res = a.n_out - a.hidden;                                                                        \
       if (col < n_res) {                                                                                           \
-        if (BF) {                                                                                                  \
-          const float v = ((a.res_bf16 ? bf16_at(a.res, row * a.ldr + col) : a.res[row * a.ldr + col]) + z) * valid; \
-          if (a.out_bf16)                                                                                          \
-            bf16_put(a.out, row * a.ldo + col, v);                                                                 \
-          else                                                                                                     \
-            a.out[row * a.ldo + col] = v;                                                                          \
-        } else {                                                                                                   \
-          a.out[row * a.ldo + col] = (a.res[row * a.ldr + col] + z) * valid;                                       \
-        }                                                                                                          \
+        a.out[row * a.ldo + col] = (a.res[row * a.ldr + col] + z) * valid;                                         \
       } else {                                                                                                     \
         float* s = a.skip + row * a.lds + (col - n_res);                                                           \
         *s = a.first ? z : *s + z;                                                                                 \
@@ -269,10 +230,7 @@ _Pragma("unroll")                                                               
       float v = z;                                                                                                 \
       if (EPI == MASK) v = z * valid;                                                                              \
       if (EPI == RELU_MASK) v = fmaxf(z, 0.0f) * drop_factor(a, key, t, col) * valid;                              \
-      if (BF && a.out_bf16)                                                                                        \
-        bf16_put(a.out, row * a.ldo + col, v);                                                                     \
-      else                                                                                                         \
-        a.out[row * a.ldo + col] = v;                                                                              \
+      a.out[row * a.ldo + col] = v;                                                                                \
     }                                                                                                              \
   }
 

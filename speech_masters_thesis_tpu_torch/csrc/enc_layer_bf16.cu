@@ -1,28 +1,33 @@
-// One Glow-TTS text-encoder layer's recompute backward in bf16 for Hopper
-// (sm_90a): every dense product on wgmma with both operands bf16, staged by
-// TMA into mbarrier rings (the engine B3's and B6's bf16 backwards run:
-// bf16_engine.cuh), attention's products on bf16 tensor-core MMA
-// (mma.sync m16n8k16, bf16_mma.cuh), fp32 sums. The fp32 mode stays in
-// enc_layer_bwd.cu.
+// One Glow-TTS text-encoder layer in bf16 for Hopper (sm_90a), its forward
+// and its recompute backward on one engine: every dense product on wgmma
+// with both operands bf16, staged by TMA into mbarrier rings (the engine
+// B3's and B6's bf16 kernels run: bf16_engine.cuh), attention's products on
+// bf16 tensor-core MMA (mma.sync m16n8k16, bf16_mma.cuh), fp32 sums. The
+// forward is the backward's recompute, launch for launch (recompute below),
+// so the backward differentiates the forward that ran, as in the TPU kernel,
+// where _fwd_kernel and _bwd_kernel run one body. The fp32 mode stays in
+// enc_layer_fwd.cu and enc_layer_bwd.cu.
 //
-// Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, function
-// _vjp_bwd -> pallas_call(_bwd_kernel) (recompute: _layer_fwd_body), in its
-// bf16 mode (dot_dtype bf16). Plain version: ops/enc_layer.py:
-// enc_layer_backward_reference on bf16 tensors. Rounding points, as the TPU
-// kernel's: every product's operands bf16 (_dot_nn, _dot_nt, _dot_tn, _conv,
-// _conv_t, _conv_wgrad), fp32 sums; the softmax, the LayerNorms and their
-// backwards, the relu's derivative, the dropout scales and delta_i =
-// sum_j dp_ij p_ij fp32; dx written in bf16; the weight gradients fp32 sums
-// over every frame cast to bf16 once, the bias and LayerNorm sums over their
-// fp32 cotangents.
+// Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, functions
+// fused_enc_layer -> pallas_call(_fwd_kernel) and _vjp_bwd ->
+// pallas_call(_bwd_kernel) (both on _layer_fwd_body), in their bf16 mode
+// (dot_dtype bf16). Plain versions: ops/enc_layer.py: enc_layer_reference
+// and enc_layer_backward_reference on bf16 tensors. Rounding points, as the
+// TPU kernel's: every product's operands bf16 (_dot_nn, _dot_nt, _dot_tn,
+// _conv, _conv_t, _conv_wgrad), fp32 sums; the softmax, the LayerNorms and
+// their backwards, the relu's derivative, the dropout scales and delta_i =
+// sum_j dp_ij p_ij fp32; out and dx written in bf16; the weight gradients
+// fp32 sums over every frame cast to bf16 once, the bias and LayerNorm sums
+// over their fp32 cotangents.
 //
-// What it computes, for the output cotangent g [B, T, C] (zero at rows at
-// or past len, as the TPU kernel takes it), valid = t < len:
-//   recompute: xm = x valid; q|k|v = xm [W_q; W_k; W_v]^T + b; per head
-//     S = (q k^T + band(q R_k^T)) / sqrt(D), P = softmax (keys past len
-//     out), oh = bf16(P keep) v + band(bf16(P keep)) R_v; y = oh W_o^T + b_o;
-//     x1 = LN1(xm + y keep_Y); hid = relu(conv_k(x1 valid, W_1) + b_1)
-//     keep_M valid; z2 = x1 + (conv_k(hid, W_2) + b_2) valid keep_F
+// What it computes, for x [B, T, C] and (backward) the output cotangent g
+// (zero at rows at or past len, as the TPU kernel takes it), valid = t < len:
+//   forward (the backward's recompute up to z2): xm = x valid; q|k|v = xm
+//     [W_q; W_k; W_v]^T + b; per head S = (q k^T + band(q R_k^T)) / sqrt(D),
+//     P = softmax (keys past len out), oh = bf16(P keep) v + band(bf16(P
+//     keep)) R_v; y = oh W_o^T + b_o; x1 = LN1(xm + y keep_Y); hid =
+//     relu(conv_k(x1 valid, W_1) + b_1) keep_M valid; z2 = x1 + (conv_k(hid,
+//     W_2) + b_2) valid keep_F; out = LN2(z2)
 //   dz2 = LN2^T(g valid); dc2 = dz2 keep_F valid
 //   dc1 = conv_k^T(dc2, W_2) where hid > 0, times the keep scale
 //   dx1 = dz2 + conv_k^T(dc1, W_1) valid; dz1 = LN1^T(dx1); dy = dz1 keep_Y
@@ -37,20 +42,23 @@
 //   and heads, the gains (LN output cotangent times zhat) and the biases as
 //   column sums.
 //
-// What bounds it on an H100: operations, about 10.6 GFLOP over the valid
-// rows and pairs at (8, 256): 0.011 ms at 989 TFLOP/s of bf16; the inputs,
-// outputs and weights move about 1.5 MB.
+// What bounds it on an H100: operations, about 3.5 GFLOP (forward) and
+// 10.6 GFLOP (backward) over the valid rows and pairs at (8, 256): 0.0036
+// and 0.011 ms at 989 TFLOP/s of bf16; the inputs, outputs and weights move
+// about 1.5 MB.
 //
 // Design. The TPU kernel keeps a sequence in VMEM. Here the scratch lives in
-// device memory, laid out by the wrapper (ops/enc_layer.py:bwd16_layout, one
-// allocation): what only the products read is bf16, exact copies of the
-// operands the TPU kernel rounds (xm, q|k|v, oh, x1 valid, hid, dc2, dc1,
-// dy, doh, dq|dk|dv), rows padded to 16 bytes so TMA can read them; what
-// fp32 work reads stays fp32 (x1, LN1's zhat and 1/std, hid for the relu's
-// sign, dz2, dz1, the softmax statistics and delta). One launch packs every
-// weight K-major in the layout its product reads, and x masked. Each dense
-// product is one launch of enc16_gemm_kernel<EPI> on the engine's ring (a
-// block: 64 frames of one sequence by 64 output channels, each k-slice's
+// device memory, laid out by the wrapper (ops/enc_layer.py:fwd16_layout and
+// bwd16_layout, one allocation a call): what only the products read is
+// bf16, exact copies of the operands the TPU kernel rounds (xm, q|k|v, oh,
+// x1 valid, hid, dc2, dc1, dy, doh, dq|dk|dv), rows padded to 16 bytes so
+// TMA can read them; what fp32 work reads stays fp32 (x1, LN1's zhat and
+// 1/std, hid for the relu's sign, dz2, dz1, the softmax statistics and
+// delta). One launch packs every weight a call's products read, K-major in
+// the layout its product reads, and x masked (the forward: W_q|W_k|W_v,
+// their biases, W_o, W_1 and W_2; the backward also their transposes). Each
+// dense product is one launch of enc16_gemm_kernel<EPI> on the engine's ring
+// (a block: 64 frames of one sequence by 64 output channels, each k-slice's
 // wgmmas added to fp32 sums), its epilogue in the accumulators' layout with
 // its device-memory inputs loaded before the products. A LayerNorm needs a
 // whole 192-channel row, which a 64 x 64 tile does not hold, and 2,048
@@ -59,8 +67,9 @@
 // long ones over a fixed split of their k-slices that fills the card, and a
 // row kernel (a warp a row) adds the splits in order and runs the
 // LayerNorm: LN1's forward, LN2's forward with LN2's backward at once (no
-// zhat2 leaves the kernel), and LN1's backward; the row kernels and the
-// relu-derivative epilogue also write fixed-order column partials of the
+// zhat2 leaves the kernel), LN1's backward, and for the forward LN2's
+// forward half and out (LN2F, the same code as LN2's); the row kernels and
+// the relu-derivative epilogue also write fixed-order column partials of the
 // gains' and biases' sums. Attention takes three kernels on 32-row tiles,
 // 4 warps (two row groups of 16 rows, each over half of every staged tile
 // of the other side, their partials added in a fixed order), bf16 row tiles
@@ -79,9 +88,10 @@
 // engine's weight sums (wn16_wsum_kernel: the frames as wgmma's K), the
 // biases, gains and tables one fixed-order sum of the partials (the
 // engine's column sums, wn16_bias_kernel). No float atomics: two calls are bitwise equal.
-// Launches a call: a pack, 8 products, 3 row kernels, 3 attention
-// kernels, the weight sums (and their reduction where the frames are split)
-// and the biases: 17 or 18.
+// Launches a call: the forward a pack, q|k|v, attention, W_o, LN1, conv 1,
+// conv 2 and LN2F: 8; the backward a pack, 8 products, 3 row kernels, 3
+// attention kernels, the weight sums (and their reduction where the frames
+// are split) and the biases: 17 or 18.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,7 +129,8 @@ __device__ __forceinline__ uint32_t site_key(const long long* seed, unsigned thr
 // ---- the dense products ---------------------------------------------------------------
 //   QKV    o0 = sum + bias (bf16)
 //   PART   f0[split] = sum (fp32 partials of a split of the k-slices)
-//   FFN1   hid = relu(sum + bias) keep_M valid: f0 (fp32) and o0 (bf16)
+//   FFN1   hid = relu(sum + bias) keep_M valid: o0 (bf16) and, where set, f0
+//          (fp32: the backward's relu signs)
 //   DRELU  o0 = r32 > 0 ? sum * keep scale : 0 (bf16; r32 = hid), its column
 //          sums to part
 //   DOH    o0 = sum (bf16)
@@ -211,7 +222,7 @@ __global__ void __launch_bounds__(THREADS) enc16_gemm_kernel(const __grid_consta
       x0 = fmaxf(x0 + f32(p.bias[c]), 0.0f) * drop_at(key, p.threshold, p.keep_scale, at) * valid;
       x1 = two ? fmaxf(x1 + f32(p.bias[c + 1]), 0.0f) * drop_at(key, p.threshold, p.keep_scale, at + 1) * valid
                : 0.0f;
-      st2(p.f0 + row * p.ldf + c, x0, x1, two);
+      if (p.f0) st2(p.f0 + row * p.ldf + c, x0, x1, two);
       st2(p.o0 + row * p.ld0 + c, x0, x1, two);
     } else if constexpr (EPI == DRELU) {
       const float ks = p.threshold ? p.keep_scale : 1.0f;
@@ -240,16 +251,18 @@ cudaError_t gemm(const Gemm& p, int splits, cudaStream_t s) {
 
 // ---- the LayerNorm rows -----------------------------------------------------------------
 //   LN1F  y = (sum of the splits + b_o) keep_Y; z1 = x valid + y; x1 = LN1(z1):
-//         x1, x1 valid (bf16), zhat1, 1/std
+//         x1, x1 valid (bf16), and where set zhat1, 1/std (the backward's)
 //   LN2   y2 = (sum + b_2) valid keep_F; z2 = x1 + y2; LN2's statistics, then
 //         its backward for g valid: dz2, dc2 = dz2 keep_F valid (bf16);
 //         column partials of g valid zhat2 (g2), g valid (be2), dc2 (b2)
 //   LN1B  dx1 = dz2 + sum valid; dz1 = LN1^T(dx1); dy = dz1 keep_Y valid
 //         (bf16); column partials of dx1 zhat1 (g1), dx1 (be1), dy (b_o)
+//   LN2F  the forward's end: z2 and its statistics by LN2's code, then out =
+//         LN2(z2) (bf16)
 // A warp a row, each lane 6 of the 192 channels (lane + 32 i); a block 8
 // warps, a row each; the block's column partials summed over its warps in
 // order.
-enum RowMode : int { LN1F, LN2, LN1B };
+enum RowMode : int { LN1F, LN2, LN1B, LN2F };
 constexpr int CPL = C / 32;
 constexpr int ROW_WARPS = 8, ROWS_PER_WARP = 1, ROW_BLOCK = ROW_WARPS * ROWS_PER_WARP;
 
@@ -263,7 +276,7 @@ struct Rows {
   const float* part;  // the product's split partials [splits][rows][C]
   const bf16_t *bias, *gamma, *beta, *x, *g;
   float *x1, *zhat1, *rinv1, *dz2, *dz1;
-  bf16_t *x1m, *dc2, *dy;
+  bf16_t *x1m, *dc2, *dy, *out;
   float* cols;  // [3][R][C]
 };
 
@@ -294,7 +307,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32) enc16_rows_kernel(const __grid
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
       return s;
     };
-    if constexpr (MODE == LN1F || MODE == LN2) {
+    if constexpr (MODE != LN1B) {  // LN2F runs LN2's forward half: z2's statistics are the backward's
       const uint32_t key = site_key(p.seed, p.threshold, b, (MODE == LN1F ? SITE_ATTN_Y : SITE_FFN_Y) * 16);
       float s = 0.f, sq = 0.f;
 #pragma unroll
@@ -315,15 +328,22 @@ __global__ void __launch_bounds__(ROW_WARPS * 32) enc16_rows_kernel(const __grid
       const float mean = s / C;
       const float inv = rsqrtf(fmaxf(sq / C - mean * mean, 0.0f) + p.eps);
       if constexpr (MODE == LN1F) {
-        if (lane == 0) p.rinv1[row] = inv;
+        if (lane == 0 && p.rinv1) p.rinv1[row] = inv;
 #pragma unroll
         for (int i = 0; i < CPL; ++i) {
           const int c = lane + 32 * i;
           const float zh = (z[i] - mean) * inv;
           const float x1 = zh * f32(p.gamma[c]) + f32(p.beta[c]);
-          p.zhat1[(size_t)row * C + c] = zh;
+          if (p.zhat1) p.zhat1[(size_t)row * C + c] = zh;
           p.x1[(size_t)row * C + c] = x1;
           p.x1m[(size_t)row * C + c] = __float2bfloat16_rn(x1 * valid);
+        }
+      } else if constexpr (MODE == LN2F) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          const int c = lane + 32 * i;
+          const float zh = (z[i] - mean) * inv;
+          p.out[(size_t)row * C + c] = __float2bfloat16_rn(zh * f32(p.gamma[c]) + f32(p.beta[c]));
         }
       } else {  // LN2's backward for g valid
         float zh[CPL], dyl[CPL], s1 = 0.f, s2 = 0.f;
@@ -382,7 +402,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32) enc16_rows_kernel(const __grid
       }
     }
   }
-  if constexpr (MODE == LN1F) return;
+  if constexpr (MODE == LN1F || MODE == LN2F) return;
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
@@ -527,7 +547,7 @@ struct Att {
   float keep_scale, scale;
   int T, H, window, nat;
   bf16_t* oh;          // the recompute's heads' output [B, T, C]
-  float* stats;        // [B, H, T, 4]: max, sum, delta
+  float* stats;        // [B, H, T, 4]: max, sum, delta (the recompute's only where set)
   float *qr, *dr;      // [B, H, T, RB]: q R_k^T, doh R_v^T
   bf16_t* dqkv;        // [B, T, 3C]
   bf16_t *dclog, *bandp;  // [B, T, ldband]: head h's band at h (2w + 1)
@@ -616,7 +636,8 @@ struct AttFwdSmem {
   static constexpr int BYTES = COMB + DN * 4 * 2 * 32 * 4;
 };
 
-// The recompute's attention: oh and each row's softmax (max, sum).
+// The recompute's attention: oh and, where stats is set, each row's softmax
+// (max, sum).
 template <bool DROP>
 __global__ void __launch_bounds__(ANT, 1) enc16_att_fwd_kernel(const __grid_constant__ Att p) {
   using S = AttFwdSmem;
@@ -760,7 +781,7 @@ __global__ void __launch_bounds__(ANT, 1) enc16_att_fwd_kernel(const __grid_cons
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + lr0 + 8 * r;
-      if (row < T && qd == 0) {
+      if (row < T && qd == 0 && p.stats) {
         float* st = p.stats + (((size_t)b * H + h) * T + row) * 4;
         st[0] = m[r];
         st[1] = l[r];
@@ -1068,13 +1089,26 @@ bool valid_shape(const Shape& s) {
          s.F >= 1 && (s.k == 1 || s.k == 3 || s.k == 5);
 }
 
-// the scratch, in ops/enc_layer.py:BWD16_PARTS order: bf16 rows pitch8 of
-// their width, fp32 rows pitch4
+// the k-slices of the 2,304-deep products a split (ops/enc_layer.py:bwd16_splits), 0 for a split that
+// leaves one empty
+int split_depth(const Shape& s, int splits) {
+  const int slices = s.k * cdiv(s.F, KC), per = splits >= 1 ? cdiv(slices, splits) : 0;
+  return per >= 1 && cdiv(slices, per) == splits ? per : 0;
+}
+
+// the backward's scratch, in ops/enc_layer.py:BWD16_PARTS order: bf16 rows
+// pitch8 of their width, fp32 rows pitch4
 enum Part : int {
   S_W_QKV, S_B_QKV, S_W_QKV_T, S_W_O, S_W_O_T, S_W_1, S_W_1_T, S_W_2, S_W_2_T, S_XM, S_QKV, S_OH, S_X1M, S_HID16, S_DC2,
   S_DC1, S_DY, S_DOH, S_DQKV,
   S_DCLOG, S_BANDP, S_STATS, S_QR, S_DR, S_X1, S_ZHAT1, S_RINV1, S_HID, S_DZ2, S_DZ1, S_SPLIT_PART, S_ROW_PART, S_B1_PART, S_ATT_PART,
   S_BAND_PART, S_WSUM_PART, S_N_PARTS
+};
+
+// the forward's scratch, in ops/enc_layer.py:FWD16_PARTS order (F_HID only
+// for the caller's return_buffers, else null)
+enum FwdPart : int {
+  F_W_QKV, F_B_QKV, F_W_O, F_W_1, F_W_2, F_XM, F_QKV, F_OH, F_X1M, F_HID16, F_X1, F_SPLIT_PART, F_HID, F_N_PARTS
 };
 
 // the weights and their gradients, in ops/enc_layer.py:PARAM_NAMES order
@@ -1086,6 +1120,10 @@ struct Maps {
   CUtensorMap act[W_MAPS];
   CUtensorMap dqkv;  // dq|dk|dv as one source of 3C channels (dx's product)
   CUtensorMap w_qkv, w_qkv_t, w_o, w_o_t, w_1, w_1_t, w_2, w_2_t;
+};
+
+struct FwdMaps {
+  CUtensorMap xm, oh, x1m, hid16, w_qkv, w_o, w_1, w_2;
 };
 
 template <class T_>
@@ -1109,38 +1147,37 @@ bool encode_maps(const Shape& sh, void* const* u, Maps* m) {
   return ok;
 }
 
-// The maps of a call, from a cache of the last few calls' (the caching
-// allocator hands a wrapper the same scratch call after call); a key holds
-// every pointer and size a map reads. Host calls come from one thread.
+bool encode_fwd_maps(const Shape& sh, void* const* u, FwdMaps* m) {
+  const int B = sh.B, T = sh.T, F = sh.F, k = sh.k;
+  auto h = [u](int i) { return part<bf16_t>(u, i); };
+  return act_map(&m->xm, h(F_XM), C, T, B) && act_map(&m->oh, h(F_OH), C, T, B) &&
+         act_map(&m->x1m, h(F_X1M), C, T, B) && act_map(&m->hid16, h(F_HID16), F, T, B) &&
+         w_map(&m->w_qkv, h(F_W_QKV), C, 3 * C, 1, 64) && w_map(&m->w_o, h(F_W_O), C, C, 1, 64) &&
+         w_map(&m->w_1, h(F_W_1), C, F, k, 64) && w_map(&m->w_2, h(F_W_2), F, C, k, 64);
+}
+
+// A call's maps, from the engine's cache (cached_maps); the key holds every
+// scratch pointer and the shape.
+template <int N>
+struct Key {
+  void* u[N];
+  Shape sh;
+};
+
 bool make_maps(const Shape& sh, void* const* u, Maps* m) {
-  struct Key {
-    void* u[S_N_PARTS];
-    Shape sh;
-  };
-  struct Entry {
-    Key key;
-    Maps maps;
-  };
-  static std::vector<Entry> cache;
-  static size_t next = 0;
-  Key key;
+  Key<S_N_PARTS> key;
   memset(&key, 0, sizeof(key));
   for (int i = 0; i < S_N_PARTS; ++i) key.u[i] = u[i];
   key.sh = sh;
-  for (const Entry& e : cache)
-    if (memcmp(&e.key, &key, sizeof(Key)) == 0) {
-      *m = e.maps;
-      return true;
-    }
-  if (!encode_maps(sh, u, m)) return false;
-  constexpr size_t SLOTS = 8;
-  if (cache.size() < SLOTS) {
-    cache.push_back(Entry{key, *m});
-  } else {
-    cache[next] = Entry{key, *m};
-    next = (next + 1) % SLOTS;
-  }
-  return true;
+  return cached_maps(key, m, [&](Maps* out) { return encode_maps(sh, u, out); });
+}
+
+bool make_fwd_maps(const Shape& sh, void* const* u, FwdMaps* m) {
+  Key<F_N_PARTS> key;
+  memset(&key, 0, sizeof(key));
+  for (int i = 0; i < F_N_PARTS; ++i) key.u[i] = u[i];
+  key.sh = sh;
+  return cached_maps(key, m, [&](FwdMaps* out) { return encode_fwd_maps(sh, u, out); });
 }
 
 // The weight-gradient problems (pointers may be null when only the blocks are wanted).
@@ -1167,38 +1204,56 @@ long wsum_part_floats(const Shape& sh) {
   return assign(v, sh.B, sh.T, &most) > 1 ? (long)(most * JOB_FLOATS) : 0;
 }
 
-// the pack's jobs: the weights K-major as their products read them, their
-// q|k|v biases as one row, x masked
-void pack_jobs(const Shape& sh, const void* x, const void* const* w, void* const* u, std::vector<PackJob>& jobs) {
+// one packing job: src's element (j, r, c) at j sp + r sr + c sc into dst (rows `pitch` apart)
+void pack_job(std::vector<PackJob>& jobs, const void* src, bf16_t* dst, long long sp, long long sr, long long sc,
+              int planes, int rows, int cols, int pitch, int kind) {
+  PackJob J{};
+  J.src = src;
+  J.dst = dst;
+  J.s_plane = sp;
+  J.s_row = sr;
+  J.s_col = sc;
+  J.planes = planes;
+  J.rows = J.src_rows = rows;
+  J.cols = J.src_cols = cols;
+  J.pitch = pitch;
+  J.kind = kind;
+  jobs.push_back(J);
+}
+
+// Where the recompute's packed operands go: W_q|W_k|W_v, their biases, W_o,
+// W_1 and W_2 tap-major, each K-major as its product reads it, and x masked.
+struct Packed {
+  bf16_t *w_qkv, *b_qkv, *w_o, *w_1, *w_2, *xm;
+};
+
+// the packing jobs of what the recompute reads
+void recompute_jobs(const Shape& sh, const void* x, const void* const* w, const Packed& d,
+                    std::vector<PackJob>& jobs) {
   const int F = sh.F, k = sh.k, BT = sh.B * sh.T;
-  auto job = [&](const void* src, int dst, size_t dst_off, long long sp, long long sr, long long sc, int planes,
-                 int rows, int cols, int pitch, int kind) {
-    PackJob J{};
-    J.src = src;
-    J.dst = part<bf16_t>(u, dst) + dst_off;
-    J.s_plane = sp;
-    J.s_row = sr;
-    J.s_col = sc;
-    J.planes = planes;
-    J.rows = J.src_rows = rows;
-    J.cols = J.src_cols = cols;
-    J.pitch = pitch;
-    J.kind = kind;
-    jobs.push_back(J);
-  };
   const int wi[3] = {WQ, WK, WV}, bi[3] = {BQ, BK, BV};
   for (int i = 0; i < 3; ++i) {
-    job(w[wi[i]], S_W_QKV, (size_t)i * C * C, 0, C, 1, 1, C, C, C, P_BF16);        // [3C][C]: W_i[n][c]
-    job(w[bi[i]], S_B_QKV, (size_t)i * C, 0, 0, 1, 1, 1, C, 3 * C, P_BF16);        // [3C]
-    job(w[wi[i]], S_W_QKV_T, (size_t)i * C, 0, 1, C, 1, C, C, 3 * C, P_BF16);      // [C][3C]: W_i[n][c] at (c, iC + n)
+    pack_job(jobs, w[wi[i]], d.w_qkv + (size_t)i * C * C, 0, C, 1, 1, C, C, C, P_BF16);  // [3C][C]: W_i[n][c]
+    pack_job(jobs, w[bi[i]], d.b_qkv + (size_t)i * C, 0, 0, 1, 1, 1, C, 3 * C, P_BF16);  // [3C]
   }
-  job(w[WO], S_W_O, 0, 0, C, 1, 1, C, C, C, P_BF16);                                // [C][C]: W_o[n][c]
-  job(w[WO], S_W_O_T, 0, 0, 1, C, 1, C, C, C, P_BF16);                              // [C][C]: W_o[n][c] at (c, n)
-  job(w[W1], S_W_1, 0, 1, (long long)C * k, k, k, F, C, pitch8(C), P_BF16);         // [k][F][C]: W_1[f, c, j]
-  job(w[W1], S_W_1_T, 0, 1, k, (long long)C * k, k, C, F, pitch8(F), P_BF16);       // [k][C][F]
-  job(w[W2], S_W_2, 0, 1, (long long)F * k, k, k, C, F, pitch8(F), P_BF16);         // [k][C][F]: W_2[c, f, j]
-  job(w[W2], S_W_2_T, 0, 1, k, (long long)F * k, k, F, C, pitch8(C), P_BF16);       // [k][F][C]
-  job(x, S_XM, 0, 0, C, 1, 1, BT, C, C, P_MASKED);                                  // x valid
+  pack_job(jobs, w[WO], d.w_o, 0, C, 1, 1, C, C, C, P_BF16);                             // [C][C]: W_o[n][c]
+  pack_job(jobs, w[W1], d.w_1, 1, (long long)C * k, k, k, F, C, pitch8(C), P_BF16);      // [k][F][C]: W_1[f, c, j]
+  pack_job(jobs, w[W2], d.w_2, 1, (long long)F * k, k, k, C, F, pitch8(F), P_BF16);      // [k][C][F]: W_2[c, f, j]
+  pack_job(jobs, x, d.xm, 0, C, 1, 1, BT, C, C, P_MASKED);                               // x valid
+}
+
+// the backward's: the recompute's, then the transposes its products read
+void backward_jobs(const Shape& sh, const void* x, const void* const* w, void* const* u,
+                   std::vector<PackJob>& jobs) {
+  const int F = sh.F, k = sh.k;
+  auto h = [u](int i) { return part<bf16_t>(u, i); };
+  recompute_jobs(sh, x, w, Packed{h(S_W_QKV), h(S_B_QKV), h(S_W_O), h(S_W_1), h(S_W_2), h(S_XM)}, jobs);
+  const int wi[3] = {WQ, WK, WV};
+  for (int i = 0; i < 3; ++i)  // [C][3C]: W_i[n][c] at (c, iC + n)
+    pack_job(jobs, w[wi[i]], h(S_W_QKV_T) + (size_t)i * C, 0, 1, C, 1, C, C, 3 * C, P_BF16);
+  pack_job(jobs, w[WO], h(S_W_O_T), 0, 1, C, 1, C, C, C, P_BF16);                        // [C][C]: W_o[n][c] at (c, n)
+  pack_job(jobs, w[W1], h(S_W_1_T), 1, k, (long long)C * k, k, C, F, pitch8(F), P_BF16);  // [k][C][F]
+  pack_job(jobs, w[W2], h(S_W_2_T), 1, k, (long long)F * k, k, F, C, pitch8(C), P_BF16);  // [k][F][C]
 }
 
 // A product over one source and its epilogue's common fields.
@@ -1220,108 +1275,157 @@ Gemm product(const Shape& sh, const CUtensorMap& a, int cin, const CUtensorMap& 
   return p;
 }
 
+// The dropout's and the shape's fields of the attention kernels.
+struct Dropout {
+  const int* lens;
+  const long long* seed;
+  unsigned threshold;
+  float keep_scale;
+};
+
+Att attention(const Shape& sh, const bf16_t* qkv, const void* const* w, const Dropout& d) {
+  Att a{};
+  a.qkv = qkv;
+  a.rk = static_cast<const bf16_t*>(w[RK]);
+  a.rv = static_cast<const bf16_t*>(w[RV]);
+  a.lens = d.lens;
+  a.seed = d.seed;
+  a.threshold = d.threshold;
+  a.keep_scale = d.keep_scale;
+  a.scale = 1.0f / sqrtf((float)D);
+  a.T = sh.T;
+  a.H = sh.heads;
+  a.window = sh.window;
+  a.nat = cdiv(sh.T, AR);
+  return a;
+}
+
+cudaError_t attention_fwd(const Att& a, int B, cudaStream_t s) {
+  return a.threshold ? attention_launch(enc16_att_fwd_kernel<true>, AttFwdSmem::BYTES, a, B, s)
+                     : attention_launch(enc16_att_fwd_kernel<false>, AttFwdSmem::BYTES, a, B, s);
+}
+
+// The LayerNorm row kernels' common fields (x: the layer's input).
+Rows rows_of(const Shape& sh, const void* x, const Dropout& d) {
+  const int BT = sh.B * sh.T;
+  Rows r{};
+  r.T = sh.T;
+  r.rows = BT;
+  r.R = cdiv(BT, ROW_BLOCK);
+  r.split_ld = (long long)BT * C;
+  r.lens = d.lens;
+  r.seed = d.seed;
+  r.threshold = d.threshold;
+  r.keep_scale = d.keep_scale;
+  r.eps = sh.eps;
+  r.x = static_cast<const bf16_t*>(x);
+  return r;
+}
+
+// What the recompute reads and writes: the maps of xm, oh, x1m, hid16 and
+// the packed weights; the buffers behind the activations and b_qkv; x1 and
+// the split partials (fp32); the stores only the backward reads, made where
+// set: each row's softmax (max, sum), LN1's zhat and 1/std, the fp32 hid.
+struct Chain {
+  const CUtensorMap *xm, *oh, *x1m, *hid16, *w_qkv, *w_o, *w_1, *w_2;
+  const bf16_t* b_qkv;
+  bf16_t *qkv, *oh_buf, *x1m_buf, *hid16_buf;
+  float *x1, *split_part, *stats, *zhat1, *rinv1, *hid;
+};
+
+// The layer's forward up to z2's split partials, for the forward and the
+// backward's recompute alike: q|k|v, attention, W_o's product, LN1's
+// forward, the FFN's first conv with its relu, dropout and mask, and its
+// second conv's partials over `splits` of its k-slices. The same launches
+// with the same tiles either way, so the forward's q|k|v, oh, x1, x1m, hid
+// and partials are the recompute's bits.
+cudaError_t recompute(const Shape& sh, const void* x, const void* const* w, const Chain& c, const Dropout& d,
+                      int splits, cudaStream_t s) {
+  const int B = sh.B, F = sh.F, k = sh.k, BT = B * sh.T, per = split_depth(sh, splits);
+  auto wb = [w](int i) { return static_cast<const bf16_t*>(w[i]); };
+
+  Gemm p = product(sh, *c.xm, C, *c.w_qkv, 1, 1, 3 * C, d.lens, 0);  // q|k|v
+  p.bias = c.b_qkv;
+  p.o0 = c.qkv;
+  p.ld0 = 3 * C;
+  cudaError_t err = gemm<QKV>(p, 1, s);
+  if (err != cudaSuccess) return err;
+
+  Att a = attention(sh, c.qkv, w, d);
+  a.oh = c.oh_buf;
+  a.stats = c.stats;
+  if ((err = attention_fwd(a, B, s)) != cudaSuccess) return err;
+
+  // W_o, then LN1's forward
+  p = product(sh, *c.oh, C, *c.w_o, 1, 1, C, d.lens, 0);
+  p.f0 = c.split_part;
+  p.ldf = C;
+  p.split_ld = (long long)BT * C;
+  if ((err = gemm<PART>(p, 1, s)) != cudaSuccess) return err;
+  Rows r = rows_of(sh, x, d);
+  r.splits = 1;
+  r.part = c.split_part;
+  r.bias = wb(BO);
+  r.gamma = wb(G1);
+  r.beta = wb(BE1);
+  r.x1 = c.x1;
+  r.zhat1 = c.zhat1;
+  r.rinv1 = c.rinv1;
+  r.x1m = c.x1m_buf;
+  if ((err = rows<LN1F>(r, s)) != cudaSuccess) return err;
+
+  // the FFN: conv 1 with relu, dropout and the mask; conv 2 in splits
+  p = product(sh, *c.x1m, C, *c.w_1, k, 1, F, d.lens, 0);
+  p.seed = d.seed;
+  p.threshold = d.threshold;
+  p.keep_scale = d.keep_scale;
+  p.bias = wb(B1);
+  p.f0 = c.hid;
+  p.ldf = pitch4(F);
+  p.o0 = c.hid16_buf;
+  p.ld0 = pitch8(F);
+  if ((err = gemm<FFN1>(p, 1, s)) != cudaSuccess) return err;
+  p = product(sh, *c.hid16, F, *c.w_2, k, 1, C, d.lens, per);
+  p.f0 = c.split_part;
+  p.ldf = C;
+  p.split_ld = (long long)BT * C;
+  return gemm<PART>(p, splits, s);
+}
+
 cudaError_t backward(const Shape& sh, const void* x, const int* lens, const long long* seed, const void* g,
                      const void* const* w, void* dx, void* const* grads, void* const* u, int splits,
                      unsigned threshold, float keep_scale, cudaStream_t s) {
   const int B = sh.B, T = sh.T, F = sh.F, k = sh.k, H = sh.heads, nrel = 2 * sh.window + 1;
   const int BT = B * T, ntt = cdiv(T, TM), nat = cdiv(T, AR), R = cdiv(BT, ROW_BLOCK);
-  const int long_slices = k * cdiv(F, KC), per = cdiv(long_slices, splits);
-  if (splits < 1 || cdiv(long_slices, per) != splits) return cudaErrorInvalidValue;
   auto h = [u](int i) { return part<bf16_t>(u, i); };
   auto f = [u](int i) { return part<float>(u, i); };
   auto wb = [w](int i) { return static_cast<const bf16_t*>(w[i]); };
+  const Dropout d{lens, seed, threshold, keep_scale};
   Maps m;
   if (!make_maps(sh, u, &m)) return cudaErrorInvalidValue;
   std::vector<PackJob> jobs;
-  pack_jobs(sh, x, w, u, jobs);
+  backward_jobs(sh, x, w, u, jobs);
   cudaError_t err = pack(jobs, lens, T, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
 
-  // recompute: q|k|v
-  Gemm p = product(sh, m.act[M_XM], C, m.w_qkv, 1, 1, 3 * C, lens, 0);
-  p.bias = h(S_B_QKV);
-  p.o0 = h(S_QKV);
-  p.ld0 = 3 * C;
-  if ((err = gemm<QKV>(p, 1, s)) != cudaSuccess) return err;
+  // the recompute, keeping what the backward reads
+  const Chain c{&m.act[M_XM], &m.act[M_OH], &m.act[M_X1M], &m.act[M_H], &m.w_qkv, &m.w_o, &m.w_1, &m.w_2,
+                h(S_B_QKV), h(S_QKV), h(S_OH), h(S_X1M), h(S_HID16), f(S_X1), f(S_SPLIT_PART), f(S_STATS),
+                f(S_ZHAT1), f(S_RINV1), f(S_HID)};
+  if ((err = recompute(sh, x, w, c, d, splits, s)) != cudaSuccess) return err;
+  const int per = split_depth(sh, splits);
 
-  Att a{};
-  a.qkv = h(S_QKV);
-  a.doh = h(S_DOH);
-  a.rk = wb(RK);
-  a.rv = wb(RV);
-  a.lens = lens;
-  a.seed = seed;
-  a.threshold = threshold;
-  a.keep_scale = keep_scale;
-  a.scale = 1.0f / sqrtf((float)D);
-  a.T = T;
-  a.H = H;
-  a.window = sh.window;
-  a.nat = nat;
-  a.oh = h(S_OH);
-  a.stats = f(S_STATS);
-  a.qr = f(S_QR);
-  a.dr = f(S_DR);
-  a.dqkv = h(S_DQKV);
-  a.dclog = h(S_DCLOG);
-  a.bandp = h(S_BANDP);
-  a.ldband = pitch8(H * nrel);
-  a.bias_part = f(S_ATT_PART);
-  a.band_part = f(S_BAND_PART);
-  err = threshold ? attention_launch(enc16_att_fwd_kernel<true>, AttFwdSmem::BYTES, a, B, s)
-                  : attention_launch(enc16_att_fwd_kernel<false>, AttFwdSmem::BYTES, a, B, s);
-  if (err != cudaSuccess) return err;
-
-  // W_o, then LN1's forward
-  p = product(sh, m.act[M_OH], C, m.w_o, 1, 1, C, lens, 0);
-  p.f0 = f(S_SPLIT_PART);
-  p.ldf = C;
-  p.split_ld = (long long)BT * C;
-  if ((err = gemm<PART>(p, 1, s)) != cudaSuccess) return err;
-  Rows r{};
-  r.T = T;
-  r.rows = BT;
-  r.R = R;
-  r.split_ld = (long long)BT * C;
-  r.lens = lens;
-  r.seed = seed;
-  r.threshold = threshold;
-  r.keep_scale = keep_scale;
-  r.eps = sh.eps;
-  r.part = f(S_SPLIT_PART);
-  r.x = static_cast<const bf16_t*>(x);
+  // LN2's forward and backward
+  Rows r = rows_of(sh, x, d);
   r.g = static_cast<const bf16_t*>(g);
+  r.part = f(S_SPLIT_PART);
   r.x1 = f(S_X1);
   r.zhat1 = f(S_ZHAT1);
   r.rinv1 = f(S_RINV1);
   r.dz2 = f(S_DZ2);
   r.dz1 = f(S_DZ1);
-  r.x1m = h(S_X1M);
   r.dc2 = h(S_DC2);
   r.dy = h(S_DY);
-  Rows r1 = r;
-  r1.splits = 1;
-  r1.bias = wb(BO);
-  r1.gamma = wb(G1);
-  r1.beta = wb(BE1);
-  if ((err = rows<LN1F>(r1, s)) != cudaSuccess) return err;
-
-  // the FFN: conv 1 with relu, dropout and the mask; conv 2 in splits, then LN2's forward and backward
-  p = product(sh, m.act[M_X1M], C, m.w_1, k, 1, F, lens, 0);
-  p.seed = seed;
-  p.threshold = threshold;
-  p.keep_scale = keep_scale;
-  p.bias = wb(B1);
-  p.f0 = f(S_HID);
-  p.ldf = pitch4(F);
-  p.o0 = h(S_HID16);
-  p.ld0 = pitch8(F);
-  if ((err = gemm<FFN1>(p, 1, s)) != cudaSuccess) return err;
-  p = product(sh, m.act[M_H], F, m.w_2, k, 1, C, lens, per);
-  p.f0 = f(S_SPLIT_PART);
-  p.ldf = C;
-  p.split_ld = (long long)BT * C;
-  if ((err = gemm<PART>(p, splits, s)) != cudaSuccess) return err;
   Rows r2 = r;
   r2.splits = splits;
   r2.bias = wb(B2);
@@ -1331,7 +1435,7 @@ cudaError_t backward(const Shape& sh, const void* x, const int* lens, const long
 
   // dc1 = conv^T(dc2, W_2) where the relu kept the row; dx1 = dz2 + conv^T(dc1, W_1) valid in splits, LN1's
   // backward
-  p = product(sh, m.act[M_DC2], C, m.w_2_t, k, -1, F, lens, 0);
+  Gemm p = product(sh, m.act[M_DC2], C, m.w_2_t, k, -1, F, lens, 0);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   p.r32 = f(S_HID);
@@ -1357,6 +1461,17 @@ cudaError_t backward(const Shape& sh, const void* x, const int* lens, const long
   p.o0 = h(S_DOH);
   p.ld0 = C;
   if ((err = gemm<DOH>(p, 1, s)) != cudaSuccess) return err;
+  Att a = attention(sh, h(S_QKV), w, d);
+  a.doh = h(S_DOH);
+  a.stats = f(S_STATS);
+  a.qr = f(S_QR);
+  a.dr = f(S_DR);
+  a.dqkv = h(S_DQKV);
+  a.dclog = h(S_DCLOG);
+  a.bandp = h(S_BANDP);
+  a.ldband = pitch8(H * nrel);
+  a.bias_part = f(S_ATT_PART);
+  a.band_part = f(S_BAND_PART);
   err = threshold ? attention_launch(enc16_att_dq_kernel<true>, AttDqSmem::BYTES, a, B, s)
                   : attention_launch(enc16_att_dq_kernel<false>, AttDqSmem::BYTES, a, B, s);
   if (err != cudaSuccess) return err;
@@ -1391,6 +1506,35 @@ cudaError_t backward(const Shape& sh, const void* x, const int* lens, const long
   return column_sums(v, s);
 }
 
+// The forward: one pack of what the recompute reads, the recompute (the
+// backward's stores left out; the fp32 hid where the caller reads it back),
+// then out = LN2(z2) [B, T, C] bf16.
+cudaError_t forward(const Shape& sh, const void* x, const int* lens, const long long* seed, const void* const* w,
+                    void* out, void* const* u, int splits, unsigned threshold, float keep_scale, cudaStream_t s) {
+  auto h = [u](int i) { return part<bf16_t>(u, i); };
+  auto f = [u](int i) { return part<float>(u, i); };
+  auto wb = [w](int i) { return static_cast<const bf16_t*>(w[i]); };
+  const Dropout d{lens, seed, threshold, keep_scale};
+  FwdMaps m;
+  if (!make_fwd_maps(sh, u, &m)) return cudaErrorInvalidValue;
+  std::vector<PackJob> jobs;
+  recompute_jobs(sh, x, w, Packed{h(F_W_QKV), h(F_B_QKV), h(F_W_O), h(F_W_1), h(F_W_2), h(F_XM)}, jobs);
+  cudaError_t err = pack(jobs, lens, sh.T, nullptr, nullptr, s);
+  if (err != cudaSuccess) return err;
+  const Chain c{&m.xm, &m.oh, &m.x1m, &m.hid16, &m.w_qkv, &m.w_o, &m.w_1, &m.w_2, h(F_B_QKV), h(F_QKV), h(F_OH),
+                h(F_X1M), h(F_HID16), f(F_X1), f(F_SPLIT_PART), nullptr, nullptr, nullptr, f(F_HID)};
+  if ((err = recompute(sh, x, w, c, d, splits, s)) != cudaSuccess) return err;
+  Rows r = rows_of(sh, x, d);
+  r.splits = splits;
+  r.part = f(F_SPLIT_PART);
+  r.bias = wb(B2);
+  r.gamma = wb(G2);
+  r.beta = wb(BE2);
+  r.x1 = f(F_X1);
+  r.out = static_cast<bf16_t*>(out);
+  return rows<LN2F>(r, s);
+}
+
 }  // namespace enc16
 
 // Floats of the weight sums' partials that enc_layer_bwd_bf16 needs in its
@@ -1400,6 +1544,23 @@ extern "C" long enc16_wsum_part_floats(int B, int T, int C, int n_heads, int win
   const enc16::Shape sh{B, T, n_heads, window, F, kernel_size, 0.0f};
   if (C != enc16::C || !enc16::valid_shape(sh) || wn16::sm_count() < 1) return -1;
   return enc16::wsum_part_floats(sh);
+}
+
+// B5's bf16 forward on `stream`; returns a cudaError_t (0 on success). x
+// [B, T, C] contiguous bf16, the 18 weights (`params`, PARAM_NAMES order)
+// contiguous bf16 in PyTorch's layouts; out [B, T, C] bf16; `scratch` the
+// pointers of ops/enc_layer.py:fwd16_layout's parts (FWD16_PARTS order;
+// hid null unless the caller reads it back); `splits` as the backward's
+// (ops/enc_layer.py:bwd16_splits).
+extern "C" int enc_layer_fwd_bf16(const void* x, const int* lens, const long long* seed, const void* const* params,
+                                  void* out, void* const* scratch, int B, int T, int C, int n_heads, int window, int F,
+                                  int kernel_size, float eps, unsigned threshold, float keep_scale, int splits,
+                                  void* stream) {
+  const enc16::Shape sh{B, T, n_heads, window, F, kernel_size, eps};
+  if (C != enc16::C || !enc16::valid_shape(sh) || !enc16::split_depth(sh, splits) || wn16::sm_count() < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)enc16::forward(sh, x, lens, seed, params, out, scratch, splits, threshold, keep_scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // B5's bf16 backward on `stream`; returns a cudaError_t (0 on success). x
@@ -1414,7 +1575,8 @@ extern "C" int enc_layer_bwd_bf16(const void* x, const int* lens, const long lon
                                   int B, int T, int C, int n_heads, int window, int F, int kernel_size, float eps,
                                   unsigned threshold, float keep_scale, int splits, void* stream) {
   const enc16::Shape sh{B, T, n_heads, window, F, kernel_size, eps};
-  if (C != enc16::C || !enc16::valid_shape(sh) || wn16::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  if (C != enc16::C || !enc16::valid_shape(sh) || !enc16::split_depth(sh, splits) || wn16::sm_count() < 1)
+    return (int)cudaErrorInvalidValue;
   return (int)enc16::backward(sh, x, lens, seed, g, params, dx, grads, scratch, splits, threshold, keep_scale,
                               static_cast<cudaStream_t>(stream));
 }

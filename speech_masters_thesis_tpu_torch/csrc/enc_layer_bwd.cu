@@ -4,7 +4,7 @@
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, function
 // _vjp_bwd -> pallas_call(_bwd_kernel), the custom VJP of fused_enc_layer,
-// in its fp32 mode (the bf16 mode is enc_layer_bwd_bf16.cu). Plain version:
+// in its fp32 mode (the bf16 mode is enc_layer_bf16.cu). Plain version:
 // ops/enc_layer.py:enc_layer_backward_reference.
 //
 // What it computes, for the output cotangent g [B, T, C] (zero at rows at or

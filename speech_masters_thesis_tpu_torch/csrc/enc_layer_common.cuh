@@ -3,17 +3,8 @@
 // the windowed relative attention kernel, the packing of the weights the
 // products read, and the chain of launches around them. The products run on
 // the tensor cores in 3xTF32 (conv_mma.cuh), with conv_rows.cuh's epilogues.
-// The bf16 backward (enc_layer_bwd_bf16.cu) has a recompute of its own.
-//
-// IO is the mode (conv_mma.cuh): float, or bf16 for the TPU kernel's bf16
-// dot_dtype, in which x, the weights and out hold bf16 (the pointers stay
-// float* and are read as bf16), the
-// buffers between the launches stay fp32 and every product rounds its
-// operands to bf16: on the tensor cores as conv_mma.cuh builds fragments, in
-// the attention kernels (CUDA cores, fp32 sums: a bf16 x bf16 product is
-// exact in fp32) as each operand is loaded or formed. There the TPU kernel
-// rounds the normalised, dropped probabilities at P V, so the bf16 forward
-// takes the row's max and sum in a first pass over the keys.
+// fp32 only: the bf16 mode's forward and backward (enc_layer_bf16.cu) run
+// the TMA + wgmma engine of bf16_engine.cuh.
 //
 // Dropout (threshold 0: none; ops/enc_layer.py computes the same bits): the
 // attention probabilities of head h draw from stream b * ENC_STREAMS +
@@ -86,7 +77,7 @@ inline size_t packed_floats(const Shape& s, bool backward) {
 // [taps][n_out][cin] tap-flipped (form 1: its transpose; with one tap and
 // one output a plain copy), as conv_mma::pack_weights_kernel's forms.
 struct PackJob {
-  const float* src;  // IO elements, as dst
+  const float* src;
   float* dst;
   int n_out, cin, taps, form;
 };
@@ -98,11 +89,11 @@ struct PackJobs {
   int n;
 };
 
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(conv_mma::NT) enc_pack_kernel(const PackJobs p) {
   const PackJob& j = p.job[blockIdx.y];
-  const IO* src = reinterpret_cast<const IO*>(j.src);
-  IO* dst = reinterpret_cast<IO*>(j.dst);
+  const float* src = j.src;
+  float* dst = j.dst;
   const int size = j.taps * j.n_out * j.cin;
   for (int e = blockIdx.x * conv_mma::NT + threadIdx.x; e < size; e += gridDim.x * conv_mma::NT) {
     int tap, c, n, v;
@@ -121,16 +112,15 @@ __global__ void __launch_bounds__(conv_mma::NT) enc_pack_kernel(const PackJobs p
   }
 }
 
-// The packed weights into `ws` (packed_floats(sh, backward)) in one launch
-// (in the bf16 mode bf16 copies, offsets in bf16 elements).
-template <class Tag, class IO = float>
+// The packed weights into `ws` (packed_floats(sh, backward)) in one launch.
+template <class Tag>
 cudaError_t pack(const Weights& w, const Shape& sh, bool backward, float* ws, Packed* pk, cudaStream_t s) {
   const int C = sh.C, F = sh.F, k = sh.kernel_size;
   PackJobs p{};
   auto add = [&p](const float* src, float* dst, int n_out, int cin, int taps, int form) {
     p.job[p.n++] = PackJob{src, dst, n_out, cin, taps, form};
   };
-  auto at = [](float* base, size_t elems) { return conv_mma::elems_at<IO>(base, elems); };
+  auto at = [](float* base, size_t elems) { return base + elems; };
   float* wqkv = ws;
   float* bqkv = at(wqkv, (size_t)3 * C * C);
   const float* w3[3] = {w.wq, w.wk, w.wv};
@@ -160,7 +150,7 @@ cudaError_t pack(const Weights& w, const Shape& sh, bool backward, float* ws, Pa
     most = size > most ? size : most;
   }
   const dim3 grid((most + 4 * conv_mma::NT - 1) / (4 * conv_mma::NT), p.n);
-  enc_pack_kernel<Tag, IO><<<grid, conv_mma::NT, 0, s>>>(p);
+  enc_pack_kernel<Tag><<<grid, conv_mma::NT, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -170,29 +160,20 @@ cudaError_t pack(const Weights& w, const Shape& sh, bool backward, float* ws, Pa
 // 2,048 rows 128 blocks, about one wave of the card).
 constexpr int LN_TN = 192;
 
-template <class Tag, int TAPS, int TN, int EPI, class IO = float>
+template <class Tag, int TAPS, int TN, int EPI>
 cudaError_t product(const conv_rows::Args& a, int B, cudaStream_t s) {
-  return conv_mma::launch<Tag, TAPS, TN, EPI, TN == LN_TN ? 16 : 64, TN == LN_TN ? 3 : 4, IO>(a, B, s);
+  return conv_mma::launch<Tag, TAPS, TN, EPI, TN == LN_TN ? 16 : 64, TN == LN_TN ? 3 : 4>(a, B, s);
 }
 
 // The same with the number of taps chosen at run time (1, 3 or 5).
-template <class Tag, int TN, int EPI, class IO = float>
+template <class Tag, int TN, int EPI>
 cudaError_t product_taps(int taps, const conv_rows::Args& a, int B, cudaStream_t s) {
   switch (taps) {
-    case 1: return product<Tag, 1, TN, EPI, IO>(a, B, s);
-    case 3: return product<Tag, 3, TN, EPI, IO>(a, B, s);
-    case 5: return product<Tag, 5, TN, EPI, IO>(a, B, s);
+    case 1: return product<Tag, 1, TN, EPI>(a, B, s);
+    case 3: return product<Tag, 3, TN, EPI>(a, B, s);
+    case 5: return product<Tag, 5, TN, EPI>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// the bf16 value nearest v, as fp32 (a product operand in the bf16 mode)
-__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// element i of a parameter that holds IO
-template <bool BF>
-__device__ __forceinline__ float param(const float* p, int i) {
-  return BF ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]) : p[i];
 }
 
 // the dropout factor of (query r, key c) of one head's probabilities
@@ -221,134 +202,9 @@ __device__ __forceinline__ float part_dot(const float (&q)[DP], const float* row
   return s;
 }
 
-// a row's DP-slice dot with a parameter's elements off .. off + DP - 1 (IO
-// elements: the offset counts bf16 ones in the bf16 mode), summed over the row's 4 lanes
-template <bool BF>
-__device__ __forceinline__ float part_dot_param(const float (&q)[DP], const float* p, int off) {
-  if (!BF) return part_dot(q, p + off);
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < DP; ++d) s = fmaf(q[d], param<true>(p, off + d), s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
-}
-
-// part_dot with the row's values rounded to bf16
-__device__ __forceinline__ float part_dot_rnd(const float (&q)[DP], const float* row) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    const float4 k4 = *reinterpret_cast<const float4*>(row + d);
-    s = fmaf(q[d], rnd(k4.x), s);
-    s = fmaf(q[d + 1], rnd(k4.y), s);
-    s = fmaf(q[d + 2], rnd(k4.z), s);
-    s = fmaf(q[d + 3], rnd(k4.w), s);
-  }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
-}
-
-// K and V rows c0 .. c0 + KT - 1 of head h (those below `end`, else zeros)
-// into shared memory, rounded to bf16 in the bf16 mode
-template <bool BF>
-__device__ __forceinline__ void stage_kv(float (&ks)[KT][HEAD_DIM], float (&vs)[KT][HEAD_DIM], const float* base,
-                                         int c0, int end, int ld, int C, int h) {
-  for (int e = threadIdx.x; e < KT * HEAD_DIM / 4; e += ATT_THREADS) {
-    const int kr = e / (HEAD_DIM / 4), d = (e % (HEAD_DIM / 4)) * 4, c = c0 + kr;
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (c < end) {
-      kv = *reinterpret_cast<const float4*>(base + (size_t)c * ld + C + h * HEAD_DIM + d);
-      vv = *reinterpret_cast<const float4*>(base + (size_t)c * ld + 2 * C + h * HEAD_DIM + d);
-    }
-    if (BF) {
-      kv = make_float4(rnd(kv.x), rnd(kv.y), rnd(kv.z), rnd(kv.w));
-      vv = make_float4(rnd(vv.x), rnd(vv.y), rnd(vv.z), rnd(vv.w));
-    }
-    *reinterpret_cast<float4*>(&ks[kr][d]) = kv;
-    *reinterpret_cast<float4*>(&vs[kr][d]) = vv;
-  }
-}
-
-// The bf16 mode's attention rows (enc_attention_kernel's, IO = bf16): q, k,
-// v and the band's probabilities rounded to bf16 where they meet a product,
-// R_k and R_v bf16; the row's max and sum in a first pass over the keys, so
-// each probability is rounded normalised and dropped, as the TPU kernel's
-// P V and band products take it.
-__device__ __forceinline__ void attention_row_bf16(float (&ks)[KT][HEAD_DIM], float (&vs)[KT][HEAD_DIM],
-                                                   const float* base, const float* rk, const float* rv,
-                                                   const int* lens, float* att, float2* stats, int T, int C,
-                                                   int window, float scale, const Dropout& drop) {
-  const int tid = threadIdx.x, part = tid % PARTS, rl = tid / PARTS;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r = blockIdx.x * ROWS + rl, rr = min(r, T - 1);
-  const int len = lens[b];
-  const int ld = 3 * C, d0 = h * HEAD_DIM + part * DP, nrel = 2 * window + 1;
-  const uint32_t key = head_key(drop, b, h);
-  const bool row_ok = r < len;
-  float q[DP], o[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    q[d] = rnd(base[(size_t)rr * ld + d0 + d]);
-    o[d] = 0.0f;
-  }
-  float qr[MAX_REL];
-#pragma unroll
-  for (int i = 0; i < MAX_REL; ++i) qr[i] = i < nrel ? part_dot_param<true>(q, rk, i * HEAD_DIM + part * DP) : 0.0f;
-  auto score = [&](int c, float dot) {  // the masked, scaled score of key c
-    const int off = c - rr;
-    float rel = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAX_REL; ++i) rel = (i < nrel && off == i - window) ? qr[i] : rel;
-    const float sc = (dot + rel) * scale;
-    return (row_ok && c < len) ? sc : NEG_MASK;
-  };
-  float m = -INFINITY, l = 0.0f;
-  for (int pass = 0; pass < 2; ++pass) {  // 0: the row's max and sum; 1: P V
-    const float inv_l = 1.0f / l;
-    for (int c0 = 0; c0 < T; c0 += KT) {
-      __syncthreads();
-      stage_kv<true>(ks, vs, base, c0, T, ld, C, h);
-      __syncthreads();
-      const int n = min(KT, T - c0);
-      for (int kk = 0; kk < n; ++kk) {
-        const int c = c0 + kk;
-        const float s = score(c, part_dot(q, &ks[kk][part * DP]));
-        if (pass == 0) {
-          const float m_new = fmaxf(m, s);
-          l = l * expf(m - m_new) + expf(s - m_new);
-          m = m_new;
-        } else {
-          const float pd = rnd(expf(s - m) * inv_l * keep_p(key, rr, c, T, drop));
-          const float* vrow = &vs[kk][part * DP];
-#pragma unroll
-          for (int d = 0; d < DP; ++d) o[d] = fmaf(pd, vrow[d], o[d]);
-        }
-      }
-    }
-  }
-  const float inv_l = 1.0f / l;
-  for (int i = 0; i < nrel; ++i) {  // the relative-value term; every lane runs every step: part_dot shuffles
-    const int c = rr + i - window;
-    const int cc = min(max(c, 0), T - 1);
-    const float s = score(c, part_dot_rnd(q, base + (size_t)cc * ld + C + h * HEAD_DIM + part * DP));
-    const float p = (c >= 0 && c < T) ? rnd(expf(s - m) * inv_l * keep_p(key, rr, cc, T, drop)) : 0.0f;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) o[d] = fmaf(p, param<true>(rv, i * HEAD_DIM + part * DP + d), o[d]);
-  }
-  if (r < T) {
-    float* dst = att + ((size_t)b * T + r) * C + d0;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) dst[d] = o[d];
-    if (stats && part == 0) stats[((size_t)b * gridDim.y + h) * T + r] = make_float2(m, l);
-  }
-}
-
 // qkv: [B, T, 3C] (q | k | v, head h at columns h * D); att: [B, T, C];
 // stats (when set): [B, heads, T] of (max, sum) of each row's softmax.
-// IO: the mode (bf16: attention_row_bf16; rk and rv hold IO).
-template <class Tag, class IO = float>
+template <class Tag>
 __global__ void __launch_bounds__(ATT_THREADS) enc_attention_kernel(const float* __restrict__ qkv,
                                                                 const float* __restrict__ rk,
                                                                 const float* __restrict__ rv,
@@ -357,11 +213,6 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_kernel(const float*
                                                                 int T, int C, int window, float scale, Dropout drop) {
   __shared__ __align__(16) float ks[KT][HEAD_DIM];
   __shared__ __align__(16) float vs[KT][HEAD_DIM];
-  if (conv_mma::kBf16<IO>) {
-    attention_row_bf16(ks, vs, qkv + (size_t)blockIdx.z * T * 3 * C, rk, rv, lens, att, stats, T, C, window,
-                       scale, drop);
-    return;
-  }
   const int tid = threadIdx.x, part = tid % PARTS, rl = tid / PARTS;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r = blockIdx.x * ROWS + rl;
@@ -458,15 +309,12 @@ __global__ void __launch_bounds__(ATT_THREADS) enc_attention_kernel(const float*
 // The layer's forward launches on the packed weights `pk` (pack): q|k|v
 // in one product, attention, W_o + LN1, FFN conv 1, FFN conv 2 + LN2. The
 // recompute's extra outputs (stats, zhat1, rinv1, zhat2, rinv2) are
-// written when set. bf16 mode: x bf16, and out when out_bf16 (the forward's
-// output; the recompute's stays fp32).
-template <class Tag, class IO = float>
+// written when set.
+template <class Tag>
 cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, const Packed& pk, const Shape& sh,
                           const Dropout& drop, float* out, float* qkv, float* att, float2* stats, float* x1,
-                          float* zhat1, float* rinv1, float* hid, float* zhat2, float* rinv2, cudaStream_t s,
-                          bool out_bf16 = false) {
+                          float* zhat1, float* rinv1, float* hid, float* zhat2, float* rinv2, cudaStream_t s) {
   using namespace conv_rows;
-  constexpr bool BF = conv_mma::kBf16<IO>;
   const int B = sh.B, T = sh.T, C = sh.C, F = sh.F;
   Args a{};
   a.lens = lens;
@@ -478,12 +326,12 @@ cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, con
 
   Args p = a;
   p.in = x; p.ldi = C; p.cin = C; p.mask_in = 1;
-  p.w = pk.wqkv; p.bias = pk.bqkv; p.n_out = 3 * C; p.out = qkv; p.ldo = 3 * C; p.in_bf16 = BF;
-  cudaError_t err = product<Tag, 1, 64, BIAS, IO>(p, B, s);
+  p.w = pk.wqkv; p.bias = pk.bqkv; p.n_out = 3 * C; p.out = qkv; p.ldo = 3 * C;
+  cudaError_t err = product<Tag, 1, 64, BIAS>(p, B, s);
   if (err != cudaSuccess) return err;
 
   const dim3 grid((T + ROWS - 1) / ROWS, sh.n_heads, B);
-  enc_attention_kernel<Tag, IO><<<grid, ATT_THREADS, 0, s>>>(qkv, w.rk, w.rv, lens, att, stats, T, C, sh.window,
+  enc_attention_kernel<Tag><<<grid, ATT_THREADS, 0, s>>>(qkv, w.rk, w.rv, lens, att, stats, T, C, sh.window,
                                                          1.0f / sqrtf((float)HEAD_DIM), drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -491,26 +339,26 @@ cudaError_t forward_chain(const float* x, const int* lens, const Weights& w, con
   Args o = a;
   o.in = att; o.ldi = C; o.cin = C; o.mask_in = 0;
   o.w = w.wo; o.bias = w.bo; o.n_out = C; o.out = x1; o.ldo = C;
-  o.res = x; o.ldr = C; o.mask_res = 1; o.mask_acc = 0; o.gamma = w.g1; o.beta = w.be1; o.res_bf16 = BF;
+  o.res = x; o.ldr = C; o.mask_res = 1; o.mask_acc = 0; o.gamma = w.g1; o.beta = w.be1;
   o.zhat = zhat1; o.rinv = rinv1; o.ldz = C;
   o.stream_add = SITE_ATTN_Y * 16; o.drop_ld = C;
-  err = product<Tag, 1, LN_TN, LN, IO>(o, B, s);
+  err = product<Tag, 1, LN_TN, LN>(o, B, s);
   if (err != cudaSuccess) return err;
 
   Args f1 = a;
   f1.in = x1; f1.ldi = C; f1.cin = C; f1.mask_in = 1;
   f1.w = pk.w1; f1.bias = w.b1; f1.n_out = F; f1.out = hid; f1.ldo = F;
   f1.stream_add = SITE_FFN_MID * 16; f1.drop_ld = F;
-  err = product_taps<Tag, 128, RELU_MASK, IO>(sh.kernel_size, f1, B, s);
+  err = product_taps<Tag, 128, RELU_MASK>(sh.kernel_size, f1, B, s);
   if (err != cudaSuccess) return err;
 
   Args f2 = a;
   f2.in = hid; f2.ldi = F; f2.cin = F; f2.mask_in = 1;
   f2.w = pk.w2; f2.bias = w.b2; f2.n_out = C; f2.out = out; f2.ldo = C;
   f2.res = x1; f2.ldr = C; f2.mask_res = 0; f2.mask_acc = 1; f2.gamma = w.g2; f2.beta = w.be2;
-  f2.zhat = zhat2; f2.rinv = rinv2; f2.ldz = C; f2.out_bf16 = BF && out_bf16;
+  f2.zhat = zhat2; f2.rinv = rinv2; f2.ldz = C;
   f2.stream_add = SITE_FFN_Y * 16; f2.drop_ld = C;
-  return product_taps<Tag, LN_TN, LN, IO>(sh.kernel_size, f2, B, s);
+  return product_taps<Tag, LN_TN, LN>(sh.kernel_size, f2, B, s);
 }
 
 }  // namespace enc_layer

@@ -3,10 +3,8 @@
 //
 // Replaces: speech_masters_thesis_tpu/ops/pallas/enc_layer.py, function
 // fused_enc_layer -> pallas_call(_fwd_kernel) (body _layer_fwd_body), for
-// the windowed, bidirectional text-encoder layer, in its fp32 mode and
-// (enc_layer_fwd_bf16) its bf16 mode (dot_dtype = x's dtype: every
-// product's operands rounded to bf16, fp32 sums; LayerNorms, softmax and
-// masks fp32; enc_layer_common.cuh). The recompute backward
+// the windowed, bidirectional text-encoder layer, in its fp32 mode (the bf16
+// mode, forward and backward, is enc_layer_bf16.cu). The recompute backward
 // (its _vjp_bwd) is enc_layer_bwd.cu. Plain version:
 // ops/enc_layer.py:enc_layer_reference.
 //
@@ -62,7 +60,6 @@
 
 namespace {
 struct LayerFwdTag {};
-struct BfloatLayerFwdTag {};  // the bf16 mode's kernels
 }  // namespace
 
 // Floats of the workspace enc_layer_fwd needs (the packed weights), or -1
@@ -95,27 +92,4 @@ extern "C" int enc_layer_fwd(const float* x, const int* lens, const long long* s
   if (err != cudaSuccess) return (int)err;
   return (int)enc_layer::forward_chain<LayerFwdTag>(x, lens, w, pk, sh, {seed, threshold, keep_scale}, out, qkv,
                                                     att, nullptr, x1, nullptr, nullptr, hid, nullptr, nullptr, s);
-}
-
-// The bf16 mode: x, the 18 weights and out bf16 (void*); the buffers fp32,
-// as for enc_layer_fwd; the same workspace (the packed copies take half).
-extern "C" int enc_layer_fwd_bf16(const void* x, const int* lens, const long long* seed, const void* wq,
-                                  const void* bq, const void* wk, const void* bk, const void* wv, const void* bv,
-                                  const void* rk, const void* rv, const void* wo, const void* bo, const void* g1,
-                                  const void* be1, const void* w1, const void* b1, const void* w2, const void* b2,
-                                  const void* g2, const void* be2, void* out, float* qkv, float* att, float* x1,
-                                  float* hid, float* workspace, int B, int T, int C, int n_heads, int window, int F,
-                                  int kernel_size, float eps, unsigned threshold, float keep_scale, void* stream) {
-  using P = const float*;
-  const enc_layer::Shape sh{B, T, C, n_heads, window, F, kernel_size, eps};
-  if (!enc_layer::valid_shape(sh)) return (int)cudaErrorInvalidValue;
-  const enc_layer::Weights w{P(wq), P(bq), P(wk), P(bk), P(wv), P(bv), P(rk), P(rv), P(wo),
-                             P(bo), P(g1), P(be1), P(w1), P(b1), P(w2), P(b2), P(g2), P(be2)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  enc_layer::Packed pk;
-  const cudaError_t err = enc_layer::pack<BfloatLayerFwdTag, conv_mma::bf16_t>(w, sh, false, workspace, &pk, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)enc_layer::forward_chain<BfloatLayerFwdTag, conv_mma::bf16_t>(
-      P(x), lens, w, pk, sh, {seed, threshold, keep_scale}, static_cast<float*>(out), qkv, att, nullptr, x1, nullptr,
-      nullptr, hid, nullptr, nullptr, s, true);
 }

@@ -541,35 +541,6 @@ bool encode_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
   return ok;
 }
 
-// A call's maps, from a cache of the last few calls' (the caching allocator
-// hands a wrapper the same scratch call after call, and encoding the maps
-// is a large part of a call's host time). The key holds every pointer and
-// size a map reads, its padding zeroed: keys compare as bytes. One cache
-// per call site; host calls come from one thread.
-template <class Key, class M, class Encode>
-bool cached_maps(const Key& key, M* m, Encode encode) {
-  struct Entry {
-    Key key;
-    M maps;
-  };
-  static std::vector<Entry> cache;
-  static size_t next = 0;
-  for (const Entry& e : cache)
-    if (memcmp(&e.key, &key, sizeof(Key)) == 0) {
-      *m = e.maps;
-      return true;
-    }
-  if (!encode(m)) return false;
-  constexpr size_t SLOTS = 8;
-  if (cache.size() < SLOTS) {
-    cache.push_back(Entry{key, *m});
-  } else {
-    cache[next] = Entry{key, *m};
-    next = (next + 1) % SLOTS;
-  }
-  return true;
-}
-
 bool make_maps(const Shape& sh, const Bufs& u, bool flow, Maps* m) {
   struct Key {
     Bufs u;

@@ -34,7 +34,7 @@ static_assert(conv_mma::MAX_PACK >= WN_STREAMS, "one packing launch takes every 
 // conv_mma::pack's copy (conv_mma::weight_of).
 template <class Tag, int TAPS, int EPI>
 cudaError_t launch(const conv_rows::Args& a, int B, cudaStream_t s) {
-  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI, 64, 4, float>(a, B, s);
+  return conv_mma::launch<Tag, TAPS, EPI == conv_rows::GATE ? 128 : 64, EPI, 64, 4>(a, B, s);
 }
 
 // The same with the number of taps chosen at run time (1, 3 or 5).

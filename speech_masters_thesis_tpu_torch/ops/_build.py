@@ -30,7 +30,7 @@ GATED_HIFI_WIDTH = 64
 GATED_HIFI_MAX_DEPTH = 8
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 ATTENTION_HEAD_DIM = 32
-# compile-time limits of csrc/enc_layer_common.cuh
+# compile-time limits of csrc/enc_layer_common.cuh and csrc/enc_layer_bf16.cu
 ENC_HEAD_DIM = 96
 ENC_MAX_WINDOW = 8
 ENC_CHANNELS = 192  # the LayerNorm epilogue's tile holds a whole row of this width
@@ -176,7 +176,7 @@ def build() -> ctypes.CDLL:
     lib.flow_step_bwd_workspace_floats.restype = ctypes.c_long
     lib.enc_layer_fwd.argtypes = [p] * 27 + [i] * 7 + [f, u, f, p]
     lib.enc_layer_fwd.restype = i
-    lib.enc_layer_fwd_bf16.argtypes = lib.enc_layer_fwd.argtypes
+    lib.enc_layer_fwd_bf16.argtypes = [p] * 3 + [ptrs, p, ptrs] + [i] * 7 + [f, u, f, i, p]
     lib.enc_layer_fwd_bf16.restype = i
     lib.enc_layer_fwd_workspace_floats.argtypes = [i] * 7
     lib.enc_layer_fwd_workspace_floats.restype = ctypes.c_long

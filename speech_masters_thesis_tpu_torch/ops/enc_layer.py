@@ -4,15 +4,16 @@ speech_masters_thesis_tpu/ops/pallas/enc_layer.py, ``fused_enc_layer`` and
 its custom VJP, and of the unfused layer in models/glow_tts/{attention,
 encoder}.py).
 
-The CUDA kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``:
+The fp32 kernels are ``csrc/enc_layer_fwd.cu`` and ``csrc/enc_layer_bwd.cu``:
 the products in 3xTF32 on the tensor cores (``csrc/conv_mma.cuh``, the
 weight gradients on ``csrc/wgrad_mma.cuh``), attention fp32 on the CUDA
-cores; the bf16 backward is ``csrc/enc_layer_bwd_bf16.cu`` (every dense
-product on wgmma, its operands staged by TMA, on the engine it shares with
-B3's and B6's bf16 backwards, ``csrc/bf16_engine.cuh``; attention on bf16
-tensor-core MMA). ``enc_layer`` runs ``EncLayerFunction``: for a CUDA
-tensor its forward launches the forward kernels (one call: 6 launches, the
-first packs the weights the products read) and its backward the backward
+cores. The bf16 forward and backward are ``csrc/enc_layer_bf16.cu`` (every
+dense product on wgmma, its operands staged by TMA, on the engine it shares
+with B3's and B6's bf16 kernels, ``csrc/bf16_engine.cuh``; attention on bf16
+tensor-core MMA): the forward is the backward's recompute, launch for
+launch. ``enc_layer`` runs ``EncLayerFunction``: for a CUDA tensor its
+forward launches the forward kernels (one call: 6 launches, the first packs
+the weights the products read; bf16 8) and its backward the backward
 kernels (17 launches; bf16 17, or 18 where the weight sums split the
 frames), or raises; for a CPU tensor the same Function runs
 ``enc_layer_reference`` and ``enc_layer_backward_reference``. The forward
@@ -270,6 +271,22 @@ def enc_layer_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights,
     return _forward(xf, lens, wf, seed, p_drop, rnd)["out"].to(x.dtype)
 
 
+def recomputed_buffers(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=0,
+                       p_drop: float = 0.0) -> Dict[str, torch.Tensor]:
+    """The plain recompute's buffers as ``enc_layer(..., return_buffers=True)``
+    and ``enc_layer_backward(..., return_buffers=True)`` hand them back on the
+    CPU: {"qkv": q|k|v [B, T, 3C], "att": the heads' output [B, T, C] (zero at
+    rows at or past the length, as the kernels store it), "x1m": LN1's output
+    masked [B, T, C], all three in x's dtype; "hid": the FFN's hidden rows
+    after relu, dropout and the mask [B, T, F], fp32}."""
+    rnd, xf, wf = _operands(x, w)
+    with torch.no_grad():
+        s = _forward(xf, lens, wf, seed, p_drop, rnd)
+        return {"qkv": torch.cat([s["q"], s["k"], s["v"]], dim=-1).to(x.dtype),
+                "att": (s["att"] * s["valid"]).to(x.dtype), "x1m": (s["x1"] * s["valid"]).to(x.dtype),
+                "hid": s["d1m"].float()}
+
+
 def enc_layer_backward_reference(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, g: torch.Tensor,
                                  seed=0, p_drop: float = 0.0, relu_gate: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -378,28 +395,59 @@ def _workspace_floats(n: int) -> int:
     return n
 
 
+def _pointers(ptrs) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _launch_fwd(x, lens, w: EncLayerWeights, seed, p_drop: float) -> torch.Tensor:
     _check_call(x, lens, w, seed)
+    if x.dtype == torch.bfloat16:
+        return _launch_fwd16(x, lens, w, seed, p_drop, return_buffers=False)
     B, T, C = x.shape
     Fc = w.w1.shape[0]
     empty = lambda *shape: torch.empty(*shape, device=x.device, dtype=torch.float32)  # noqa: E731
-    bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
     qkv, att, x1, hid = empty(B, T, 3 * C), empty(B, T, C), empty(B, T, C), empty(B, T, Fc)
     lib = _build.build()
     shape = _shape_args(x, w)
     workspace = empty(_workspace_floats(lib.enc_layer_fwd_workspace_floats(*shape[:-1])))
-    rc = (lib.enc_layer_fwd_bf16 if bf16 else lib.enc_layer_fwd)(
+    rc = lib.enc_layer_fwd(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), *[t.data_ptr() for t in w.tensors().values()],
         out.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hid.data_ptr(), workspace.data_ptr(),
         *shape, keep_threshold(p_drop), keep_scale(p_drop), _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_fwd launch failed with cudaError {rc}")
-    if bf16:
-        enc_layer.bf16_launches += 1
-    else:
-        enc_layer.launches += 1
+    enc_layer.launches += 1
     return out
+
+
+def _launch_fwd16(x, lens, w: EncLayerWeights, seed, p_drop: float, return_buffers: bool):
+    """out, or with ``return_buffers`` (out, {"qkv", "att", "x1m", "hid"}:
+    views of the forward's scratch as ``backward_buffer_shapes`` has them);
+    x checked by the caller (``_check_call``)."""
+    B, T, C = x.shape
+    Fc, k = w.w1.shape[0], w.w1.shape[2]
+    splits = bwd16_splits(B, T, Fc, k, _sm_count(x.device.index))
+    parts, total = fwd16_layout(B, T, C, Fc, w.n_heads, w.window, k, splits, return_buffers)
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    base = scratch.data_ptr()
+    rc = _build.build().enc_layer_fwd_bf16(
+        x.data_ptr(), lens.data_ptr(), seed.data_ptr(), _pointers([t.data_ptr() for t in w.tensors().values()]),
+        out.data_ptr(), _pointers([base + part.offset if part.nbytes else None for part in parts.values()]),
+        *_shape_args(x, w), keep_threshold(p_drop), keep_scale(p_drop), splits, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"enc_layer_fwd_bf16 launch failed with cudaError {rc}")
+    enc_layer.bf16_launches += 1
+    if not return_buffers:
+        return out
+    shapes = backward_buffer_shapes(x, w)
+    return out, {name: _part_view(scratch, parts[name], shapes[name]) for name in FWD16_BUFFERS}
 
 
 def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tuple]:
@@ -436,13 +484,13 @@ def backward_buffer_shapes(x: torch.Tensor, w: EncLayerWeights) -> Dict[str, tup
             "dqkv": row(3 * C)}
 
 
-BWD16_BAND = 24        # band dots a row (2w + 1 <= 17): csrc/enc_layer_bwd_bf16.cu RB
+BWD16_BAND = 24        # band dots a row (2w + 1 <= 17): csrc/enc_layer_bf16.cu RB
 BWD16_TILE = 64        # frames a product tile (csrc/bf16_engine.cuh TM)
 BWD16_ATT_ROWS = 32    # rows an attention block (AR)
 BWD16_ROW_BLOCK = 8    # rows a LayerNorm row block (ROW_BLOCK)
 BWD16_ALIGN = 1024     # bytes: every part's base
 
-# The bf16 backward's scratch (csrc/enc_layer_bwd_bf16.cu's Part order):
+# The bf16 backward's scratch (csrc/enc_layer_bf16.cu's Part order):
 # name, dtype, rows and width as functions of the shape ``s``
 # (_Bwd16Shape). Every bf16 part's rows are pitch8 of its width elements
 # apart, every fp32 part's pitch4: 16-byte multiples, as TMA reads them.
@@ -483,6 +531,7 @@ class _Bwd16Shape:
     k: int
     splits: int
     wsum_floats: int
+    buffers: bool = False  # the forward's parts only for return_buffers
 
     @property
     def BT(self) -> int:
@@ -506,6 +555,7 @@ class Bwd16Part:
         return self.rows * self.pitch
 
 
+@functools.lru_cache(maxsize=64)
 def bwd16_splits(B: int, T: int, F: int, kernel_size: int, sms: int = 132) -> int:
     """The split of the 2,304-deep products (the FFN's second conv and W_1's
     transposed conv: kernel_size * F / 64 k-slices) over their k-slices:
@@ -518,6 +568,37 @@ def bwd16_splits(B: int, T: int, F: int, kernel_size: int, sms: int = 132) -> in
     return -(-slices // per)
 
 
+# The bf16 forward's scratch (csrc/enc_layer_bf16.cu's FwdPart order): the
+# packed weights and x masked, the recompute's activations, x1 and the split
+# partials; the fp32 hid only for the caller's return_buffers (FWD16_BUFFERS
+# are the parts it hands back).
+FWD16_PARTS = (
+    ("w_qkv", _BF, lambda s: (3 * s.C, s.C)), ("b_qkv", _BF, lambda s: (1, 3 * s.C)),
+    ("w_o", _BF, lambda s: (s.C, s.C)), ("w_1", _BF, lambda s: (s.k * s.F, s.C)),
+    ("w_2", _BF, lambda s: (s.k * s.C, s.F)), ("xm", _BF, lambda s: (s.BT, s.C)),
+    ("qkv", _BF, lambda s: (s.BT, 3 * s.C)), ("att", _BF, lambda s: (s.BT, s.C)),
+    ("x1m", _BF, lambda s: (s.BT, s.C)), ("hid16", _BF, lambda s: (s.BT, s.F)),
+    ("x1", _F32, lambda s: (s.BT, s.C)), ("split_part", _F32, lambda s: (s.splits * s.BT, s.C)),
+    ("hid", _F32, lambda s: (s.BT if s.buffers else 0, s.F)),
+)
+FWD16_BUFFERS = ("qkv", "att", "x1m", "hid")
+
+
+def _laid_out(spec, s: "_Bwd16Shape") -> Tuple[Dict[str, Bwd16Part], int]:
+    """The parts of ``spec`` (name, dtype, shape) at shape ``s`` in one
+    allocation: ({name: part}, total bytes), each base BWD16_ALIGN-aligned,
+    bf16 rows pitch8 of their width elements apart, fp32 rows pitch4."""
+    parts, offset = {}, 0
+    for name, dtype, shape in spec:
+        rows, width = shape(s)
+        size = torch.finfo(dtype).bits // 8
+        per16 = 16 // size
+        pitch = -(-width // per16) * per16 * size
+        parts[name] = Bwd16Part(name, dtype, rows, width, pitch, offset)
+        offset += -(-rows * pitch // BWD16_ALIGN) * BWD16_ALIGN
+    return parts, offset
+
+
 @functools.lru_cache(maxsize=64)
 def bwd16_layout(B: int, T: int, C: int, F: int, n_heads: int, window: int, kernel_size: int, splits: int,
                  wsum_floats: int) -> Tuple[Dict[str, Bwd16Part], int]:
@@ -526,16 +607,19 @@ def bwd16_layout(B: int, T: int, C: int, F: int, n_heads: int, window: int, kern
     be changed). Every base is BWD16_ALIGN-aligned and every row pitch a
     multiple of 16 bytes (TMA's rules for what it reads); the parts do not
     overlap."""
-    s = _Bwd16Shape(B, T, C, F, n_heads, 2 * window + 1, kernel_size, splits, wsum_floats)
-    parts, offset = {}, 0
-    for name, dtype, shape in BWD16_PARTS:
-        rows, width = shape(s)
-        size = torch.finfo(dtype).bits // 8
-        per16 = 16 // size
-        pitch = -(-width // per16) * per16 * size
-        parts[name] = Bwd16Part(name, dtype, rows, width, pitch, offset)
-        offset += -(-rows * pitch // BWD16_ALIGN) * BWD16_ALIGN
-    return parts, offset
+    return _laid_out(BWD16_PARTS, _Bwd16Shape(B, T, C, F, n_heads, 2 * window + 1, kernel_size, splits,
+                                              wsum_floats))
+
+
+@functools.lru_cache(maxsize=64)
+def fwd16_layout(B: int, T: int, C: int, F: int, n_heads: int, window: int, kernel_size: int, splits: int,
+                 buffers: bool) -> Tuple[Dict[str, Bwd16Part], int]:
+    """The bf16 forward's scratch and packed operands as one allocation, by
+    bwd16_layout's rules: ({name: part} in FWD16_PARTS order, total bytes;
+    cached by shape, not to be changed); the fp32 hid empty unless
+    ``buffers`` (the wrapper's return_buffers)."""
+    return _laid_out(FWD16_PARTS, _Bwd16Shape(B, T, C, F, n_heads, 2 * window + 1, kernel_size, splits, 0,
+                                              buffers))
 
 
 def _part_view(scratch: torch.Tensor, part: Bwd16Part, shape: tuple) -> torch.Tensor:
@@ -549,18 +633,17 @@ def _launch_bwd16(x, lens, w: EncLayerWeights, g, seed, p_drop: float, return_bu
     H, Fc, k = w.n_heads, w.w1.shape[0], w.w1.shape[2]
     lib = _build.build()
     shape = _shape_args(x, w)
-    splits = bwd16_splits(B, T, Fc, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    splits = bwd16_splits(B, T, Fc, k, _sm_count(x.device.index))
     wsum = _workspace_floats(lib.enc16_wsum_part_floats(*shape[:-1]))
     parts, total = bwd16_layout(B, T, C, Fc, H, w.window, k, splits, wsum)
     scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = {name: torch.empty_like(t) for name, t in w.tensors().items()}
-    pointers = lambda ts: (ctypes.c_void_p * len(ts))(*ts)  # noqa: E731
     rc = lib.enc_layer_bwd_bf16(
         x.data_ptr(), lens.data_ptr(), seed.data_ptr(), g.data_ptr(),
-        pointers([t.data_ptr() for t in w.tensors().values()]), dx.data_ptr(),
-        pointers([t.data_ptr() for t in grads.values()]),
-        pointers([scratch.data_ptr() + part.offset for part in parts.values()]),
+        _pointers([t.data_ptr() for t in w.tensors().values()]), dx.data_ptr(),
+        _pointers([t.data_ptr() for t in grads.values()]),
+        _pointers([scratch.data_ptr() + part.offset for part in parts.values()]),
         *shape, keep_threshold(p_drop), keep_scale(p_drop), splits, _stream(x))
     if rc != 0:
         raise RuntimeError(f"enc_layer_bwd_bf16 launch failed with cudaError {rc}")
@@ -582,16 +665,16 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     dq and a dk/dv kernel that recompute P, dx, then two fixed-order
     reductions of the weight gradients, on the tensor cores and on the CUDA
     cores) and counts ``enc_layer_backward.launches``; a CUDA bf16 tensor
-    launches ``csrc/enc_layer_bwd_bf16.cu`` on the scratch of
+    launches ``csrc/enc_layer_bf16.cu`` on the scratch of
     ``bwd16_layout`` (one allocation) and counts ``.bf16_launches``. Two
     calls are bitwise equal. ``return_buffers`` adds the buffers of
     ``backward_buffer_shapes``. A CPU tensor runs
-    ``enc_layer_backward_reference``.
+    ``enc_layer_backward_reference``; there ``return_buffers`` adds the plain
+    recompute's q|k|v, att, x1m and hid (``recomputed_buffers``).
     """
     if x.device.type == "cpu":
-        if return_buffers:
-            raise ValueError("enc_layer_backward: the buffers are the CUDA kernels'")
-        return enc_layer_backward_reference(x, lens, w, g, seed, p_drop)
+        dx, grads = enc_layer_backward_reference(x, lens, w, g, seed, p_drop)
+        return (dx, grads, recomputed_buffers(x, lens, w, seed, p_drop)) if return_buffers else (dx, grads)
     if x.device.type != "cuda":
         raise ValueError(f"enc_layer_backward: unsupported device {x.device}")
     _check_call(x, lens, w, seed)
@@ -604,7 +687,7 @@ def enc_layer_backward(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, 
     dx = torch.empty_like(x)
     grads = {name: torch.empty_like(t) for name, t in w.tensors().items()}
     bufs = {name: empty(*shape) for name, shape in backward_buffer_shapes(x, w).items()}
-    pointers = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
+    pointers = lambda ts: _pointers([t.data_ptr() for t in ts])  # noqa: E731
     lib = _build.build()
     shape = _shape_args(x, w)
     workspace = empty(_workspace_floats(lib.enc_layer_bwd_workspace_floats(*shape[:-1])))
@@ -640,16 +723,22 @@ class EncLayerFunction(torch.autograd.Function):
 
 
 def enc_layer(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=None,
-              p_drop: float = 0.0) -> torch.Tensor:
+              p_drop: float = 0.0, return_buffers: bool = False):
     """One encoder layer; same contract as ``enc_layer_reference`` at valid
     rows (rows at or past lens[b] are finite and unspecified), differentiable
     in x and every weight through ``EncLayerFunction``.
 
-    A CUDA tensor launches ``csrc/enc_layer_fwd.cu`` (C = 192 in heads of 96,
-    lens int32 [B] and seed int64 [1] on the same device; float32 or
-    bfloat16) and counts ``enc_layer.launches`` (fp32) or
+    A CUDA tensor launches ``csrc/enc_layer_fwd.cu`` (float32) or
+    ``csrc/enc_layer_bf16.cu`` (bfloat16: the bf16 backward's recompute
+    launches and LN2's forward, on the scratch of ``fwd16_layout``, one
+    allocation) (C = 192 in heads of 96, lens int32 [B] and seed int64 [1]
+    on the same device) and counts ``enc_layer.launches`` (fp32) or
     ``enc_layer.bf16_launches``; anything the kernels do not take raises. A
-    CPU tensor runs the plain versions.
+    CPU tensor runs the plain versions. ``return_buffers`` (for tests; bf16
+    on the card, outside autograd) returns (out, {"qkv", "att", "x1m",
+    "hid"}): the forward's buffers as ``enc_layer_backward`` returns the
+    recompute's, dtypes and shapes as ``backward_buffer_shapes`` (the plain
+    recompute's on the CPU, ``recomputed_buffers``).
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"enc_layer: unsupported device {x.device}")
@@ -657,6 +746,14 @@ def enc_layer(x: torch.Tensor, lens: torch.Tensor, w: EncLayerWeights, seed=None
     check_dtypes(x, w)
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int64, device=x.device)
+    if return_buffers:
+        with torch.no_grad():
+            if x.device.type == "cpu":
+                return enc_layer_reference(x, lens, w, seed, p_drop), recomputed_buffers(x, lens, w, seed, p_drop)
+            _check_call(x, lens, w, seed)
+            if x.dtype != torch.bfloat16:
+                raise ValueError("enc_layer: return_buffers reads back the bf16 forward's buffers only")
+            return _launch_fwd16(x, lens, w, seed, p_drop, return_buffers=True)
     return EncLayerFunction.apply(x, lens, seed, float(p_drop), (w.n_heads, w.window, w.eps),
                                   *w.tensors().values())
 

@@ -190,3 +190,70 @@ def test_bwd16_scratch_layout_keeps_tma_rules(shape, kernel_size):
     for name, want in el.backward_buffer_shapes(x, w).items():
         view = el._part_view(scratch, parts[name], want)
         assert tuple(view.shape) == want and view.dtype == parts[name].dtype, name
+
+
+@pytest.mark.parametrize("p_drop", (0.0, 0.1))
+def test_forward_return_buffers_are_the_recompute(case, p_drop):
+    """enc_layer's return_buffers on the CPU: the plain forward's out, and
+    q|k|v, the heads' output, LN1's output masked and the FFN's hidden rows
+    equal to the plain backward's recompute (enc_layer_backward's
+    return_buffers) and to the plain forward's own values, bit for bit, in
+    the dtypes and shapes of backward_buffer_shapes (on the card the forward
+    is the backward's recompute, and chip_smoke holds the two bit for bit)."""
+    x, lens, w = case["x"], case["lens"], case["w"]
+    seed = torch.tensor([7], dtype=torch.int64)
+    out, bufs = el.enc_layer(x, lens, w, seed, p_drop, return_buffers=True)
+    torch.testing.assert_close(out, el.enc_layer_reference(x, lens, w, seed, p_drop), rtol=0, atol=0)
+    recomputed = el.enc_layer_backward(x, lens, w, case["g"], seed, p_drop, return_buffers=True)[2]
+    rnd, xf, wf = el._operands(x, w)
+    s = el._forward(xf, lens, wf, seed, p_drop, rnd)
+    plain = {"qkv": round_bf16(torch.cat([s["q"], s["k"], s["v"]], dim=-1)), "att": round_bf16(s["att"] * s["valid"]),
+             "x1m": round_bf16(s["x1"] * s["valid"]), "hid": s["d1m"]}
+    shapes = el.backward_buffer_shapes(x, w)
+    assert tuple(bufs) == tuple(recomputed) == el.FWD16_BUFFERS
+    for name, buf in bufs.items():
+        assert tuple(buf.shape) == shapes[name], name
+        assert buf.dtype == (torch.float32 if name == "hid" else torch.bfloat16), name
+        torch.testing.assert_close(buf, recomputed[name], rtol=0, atol=0)
+        torch.testing.assert_close(buf.float(), plain[name], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("buffers", (False, True), ids=("out", "buffers"))
+@pytest.mark.parametrize("kernel_size", (1, 3, 5))
+@pytest.mark.parametrize("shape", B5_SHAPES, ids=lambda s: f"B{s[0]}xT{s[1]}")
+def test_fwd16_layout_keeps_tma_rules(shape, kernel_size, buffers):
+    """The bf16 forward's scratch (ops/enc_layer.py:fwd16_layout), by the
+    backward's rules (test_bwd16_scratch_layout_keeps_tma_rules; it has no
+    part whose size depends on the window): bases 16-byte and BWD16_ALIGN
+    aligned, bf16 rows pitch8 of their width, fp32 rows 16-byte multiples,
+    no overlap; its recompute parts as wide as the backward's; the fp32 hid
+    only for return_buffers, and the buffers return_buffers hands back
+    viewed at their shapes."""
+    B, T = shape
+    Cw, Fw, H = 192, 768, 2
+    splits = el.bwd16_splits(B, T, Fw, kernel_size)
+    parts, total = el.fwd16_layout(B, T, Cw, Fw, H, 8, kernel_size, splits, buffers)
+    back, _ = el.bwd16_layout(B, T, Cw, Fw, H, 8, kernel_size, splits, 0)
+    assert [p.name for p in parts.values()] == [n for n, _, _ in el.FWD16_PARTS]
+    end = 0
+    for p in sorted(parts.values(), key=lambda q: q.offset):
+        size = torch.finfo(p.dtype).bits // 8
+        assert p.offset % 16 == 0 and p.offset % el.BWD16_ALIGN == 0, p
+        assert p.pitch % 16 == 0 and p.pitch >= p.width * size, p
+        if p.dtype == torch.bfloat16:
+            assert p.pitch == -(-p.width // 8) * 8 * 2, p
+        same = (p.rows, p.width, p.pitch, p.dtype) == (back[p.name].rows, back[p.name].width, back[p.name].pitch,
+                                                       back[p.name].dtype)
+        assert same or (p.name == "hid" and not buffers and p.nbytes == 0), p
+        assert p.offset >= end, (p, end)
+        end = p.offset + p.nbytes
+    assert end <= total
+    scratch = torch.empty(total, dtype=torch.uint8)
+    x = torch.empty(B, T, Cw, dtype=torch.bfloat16)
+    w = el.EncLayerWeights(*[torch.empty(1, dtype=torch.bfloat16)] * 12, torch.empty(Fw, Cw, kernel_size),
+                           *[torch.empty(1, dtype=torch.bfloat16)] * 5, n_heads=H, window=8)
+    if buffers:
+        for name in el.FWD16_BUFFERS:
+            want = el.backward_buffer_shapes(x, w)[name]
+            view = el._part_view(scratch, parts[name], want)
+            assert tuple(view.shape) == want and view.dtype == parts[name].dtype, name
