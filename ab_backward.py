@@ -69,6 +69,23 @@ b6, vqtts, vqtts, b6, b3): each run's median step, peak, the kernels' ms and
 the busy share of one step under torch.profiler, the medians of a route's
 two runs. ``--bf16-enc-kernels`` measures the same without the steps
 (``--worker TREE --bf16-enc-kernels`` measures one tree alone).
+``--bf16-attn`` measures, for each tree, B2's bf16 forward and backward at
+chip_smoke's ATTN_SHAPES ((8, 258), (64, 258), (8, 1024)), p = 0 and
+P_DROP, on phase_bf16_attention's inputs (packed bf16 projections, ragged
+lengths): back to back (the forward through its C entry point, the backward
+through ``attention.attention_backward``), a call (``chip_smoke.cuda_ms``: the
+forward through ``fused_attention``, the backward through
+``attention_backward`` and through autograd on the packed views), the host
+time a call without waiting for the card (the wrappers' enqueue), the
+kernels' device time and launches by launch kind (torch.profiler over 3
+calls), a sha256 of o, dq, dk and dv over every shape and p; the sha256 of
+B2's fp32 forward and backward at (8, 258) and of B5's bf16 forward and
+backward (bf16_enc_hashes), which share B2's headers; then the bf16 LM
+train step at batch 8 and 64 (``chip_smoke.phase_bf16_lm_train``'s model,
+batch and seeds; ``chip_smoke.bf16_steps``: the median of steps 2-10, the
+peak, launches a step, the busy share) and the kernels of one more step by
+launch kind, with B2's share of them. ``--bf16-attn-kernels`` measures the
+same without the steps.
 
     python3 ab_backward.py build/parent . . build/parent
     python3 ab_backward.py --glow build/parent . . build/parent ...   # the Glow pairs only
@@ -81,6 +98,8 @@ two runs. ``--bf16-enc-kernels`` measures the same without the steps
     python3 ab_backward.py --bf16-wn-kernels build/v1 build/v2 build/v2 build/v1   # the four kernels alone
     python3 ab_backward.py --bf16-enc build/parent . . build/parent   # B5's bf16 kernels, the bf16 Glow/VQ-TTS steps
     python3 ab_backward.py --bf16-enc-kernels build/parent . . build/parent   # B5's bf16 kernels alone
+    python3 ab_backward.py --bf16-attn build/parent . . build/parent   # B2's bf16 kernels, the bf16 LM steps
+    python3 ab_backward.py --bf16-attn-kernels build/parent . . build/parent   # B2's bf16 kernels alone
     python3 ab_backward.py --ptxas build/parent .       # ptxas lines outside PTXAS_CHANGED against the first tree
 
 Each argument is the root of a checkout of the port (its package and its
@@ -136,13 +155,11 @@ FWD_PS = (0.0, 0.1)
 FWD_REPS = 20
 GLOW_BWD_REPS = 50
 B4_SHAPES = ((8, 256, 768), (8, 512, 1024), (8, 256, 1536))  # [B, t_x, t_y]
-# instances the change may alter, by a piece of their mangled names: B5's bf16 kernels whose stores the
-# forward skips (enc16_gemm_kernel's FFN1 epilogue, the fp32 hid; attention's softmax statistics; LN1's zhat
-# and 1/std) or that it adds (the row kernel's LN2F; the row kernels' parameters gained out), and the first
-# bf16 form of its forward, mma.sync instances under their own tag (gone); the engine, B3's and B6's bf16
-# kernels, B5's other bf16 instances, B1's bf16 kernels and every fp32 instance are held with the rest
-PTXAS_CHANGED = ("17enc16_gemm_kernelILi2E", "17enc16_rows_kernel", "20enc16_att_fwd_kernel", "17BfloatLayerFwdTag")
+# instances the change may alter, by a piece of their mangled names: B2's bf16 kernels (attention_bf16.cu's
+# anonymous namespace); every other instance, fp32 and bf16, is held with the rest
+PTXAS_CHANGED = ("attention_bf16_",)
 BF16_ENC_SHAPES = (0, 4)  # chip_smoke.B5_SHAPES' (8, 256) and VQ-TTS's (4, 64)
+BF16_ATTN_REPS = 50
 
 
 def back_to_back_ms(torch, fn, n: int, warmup: int = 3) -> float:
@@ -545,6 +562,18 @@ def launch_kinds(torch, fn) -> dict:
     return kinds
 
 
+def whole_kinds(torch, fn, launches: int, tries: int = 4):
+    """launch_kinds(torch, fn) once it counts ``launches`` kernels a call,
+    each kind a whole number of times: torch.profiler drops a launch now
+    and then, so a profile that misses one is taken again, up to ``tries``
+    times; None if none was whole."""
+    for _ in range(tries):
+        kinds = launch_kinds(torch, fn)
+        if sum(n for _, n in kinds.values()) == launches and all(n == int(n) for _, n in kinds.values()):
+            return kinds
+    return None
+
+
 def glow_bf16_inputs(torch, np, cs, wn_ops, device) -> tuple:
     """glow_inputs cast as chip_smoke.phase_bf16_flow_step casts them: the
     conditioner's weights, x and the cotangents bf16; aln, alb and mt fp32
@@ -760,6 +789,111 @@ def bf16_enc_steps(torch, cs, device, card) -> dict:
     return out
 
 
+def host_ms(torch, fn, n: int = 50) -> float:
+    """Host time a call of ``fn`` without waiting for the card (its checks,
+    allocations and launches: the enqueue), over n calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def bf16_attn_kernels(torch, np, cs, att, device) -> dict:
+    """B2's bf16 forward and backward at chip_smoke's ATTN_SHAPES, p = 0 and
+    P_DROP, on phase_bf16_attention's inputs: back to back, a call, the
+    host time a call, the device time by launch kind (None where no
+    profile counted every launch), and one sha256 of o, dq, dk and dv over
+    them all."""
+    scale = 1.0 / np.sqrt(cs.ATTN_DIM)
+    out, outs = {}, []
+    for i, (B, T) in enumerate(cs.ATTN_SHAPES):
+        packed, lens, g = cs.packed_qkv(B, T, 520 + i, device)
+        packed, g = packed.to(torch.bfloat16), g.to(torch.bfloat16)
+        q, k, v = cs.heads(packed)
+        for p in (0.0, cs.P_DROP):
+            seed = torch.tensor([22345 + i], dtype=torch.int64, device=device)
+            key = f"b2_bf16_{B}x{T}_p{p}"
+            with torch.no_grad():
+                fwd = lambda: att.fused_attention(q, k, v, lens, seed, scale, p)  # noqa: E731
+                out[f"{key}_fwd_ms"] = back_to_back_ms(
+                    torch, cs.attention_fwd_launch(q, k, v, lens, seed, scale, p), BF16_ATTN_REPS)
+                out[f"{key}_fwd_call_ms"] = cs.cuda_ms(fwd, reps=20, warmup=3)
+                out[f"{key}_fwd_host_ms"] = host_ms(torch, fwd)
+                out[f"{key}_fwd_kinds"] = whole_kinds(torch, fwd, 1)
+                o, stats = att._launch_fwd(q, k, v, lens, seed, scale, p)
+                bwd = lambda: att.attention_backward(q, k, v, o, stats, lens, seed, g, scale, p)  # noqa: E731
+                out[f"{key}_bwd_ms"] = back_to_back_ms(torch, bwd, BF16_ATTN_REPS)
+                out[f"{key}_bwd_wrapper_call_ms"] = cs.cuda_ms(bwd, reps=20, warmup=3)
+                out[f"{key}_bwd_host_ms"] = host_ms(torch, bwd)
+                out[f"{key}_bwd_kinds"] = whole_kinds(torch, bwd, 2)
+                outs += [o, *bwd()]
+            qkv = packed.clone().requires_grad_(True)
+            o_grad = att.fused_attention(*cs.heads(qkv), lens, seed, scale, p)
+            grad = lambda: torch.autograd.grad(o_grad, qkv, g, retain_graph=True)  # noqa: E731
+            out[f"{key}_bwd_call_ms"] = cs.cuda_ms(grad, reps=20, warmup=3)
+            out[f"{key}_bwd_autograd_host_ms"] = host_ms(torch, grad)
+            del o_grad, qkv, o, stats
+        torch.cuda.empty_cache()
+    out["b2_bf16_sha256"] = sha256_of(torch, outs)
+    return out
+
+
+def b2_fp32_hashes(torch, np, cs, att, device) -> dict:
+    """sha256 of B2's fp32 forward (o) and backward (dq, dk, dv) at
+    ATTN_SHAPES[0], p = 0 and P_DROP, on phase_attention's packed inputs:
+    B2's fp32 kernels share attention_common.cuh with the bf16 ones."""
+    B, T = cs.ATTN_SHAPES[0]
+    packed, lens, g = cs.packed_qkv(B, T, 500, device)
+    q, k, v = cs.heads(packed)
+    scale = 1.0 / np.sqrt(cs.ATTN_DIM)
+    fwd, bwd = [], []
+    with torch.no_grad():
+        for p in (0.0, cs.P_DROP):
+            seed = torch.tensor([12345], dtype=torch.int64, device=device)
+            o, stats = att._launch_fwd(q, k, v, lens, seed, scale, p)
+            fwd.append(o)
+            bwd += att.attention_backward(q, k, v, o, stats, lens, seed, g, scale, p)
+    return {"b2_fp32_fwd_sha256": sha256_of(torch, fwd), "b2_fp32_bwd_sha256": sha256_of(torch, bwd)}
+
+
+def bf16_lm_steps(torch, cs, device, card) -> dict:
+    """The bf16 LM train step (chip_smoke.phase_bf16_lm_train's model, batch
+    and seeds) at each of LM_BATCHES: chip_smoke.bf16_steps (the median of
+    steps 2-10, the peak, launches a step, the busy share of one more step),
+    then the kernels of one more step by launch kind: their ms a step and
+    B2's bf16 kernels' among them."""
+    model = cs.build_model(device, *cs.audio_batch(cs.BATCH, cs.SAMPLES, seed=5))
+    vq_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    out = {}
+    for batch_n in cs.LM_BATCHES:
+        lm = cs.build_lm(device, vq_state, seed=cs.LM_SEED + 2)
+        opt, schedule = cs.lm_optimizer(lm)
+        state = cs.TrainState.create(lm, opt, use_ema=True)
+        step = cs.make_train_step(schedule, cs.default_mu(batch_n, 1), use_ema=True, bf16=True)
+        batch = cs.lm_tokens(batch_n, cs.LM_T, seed=60 + batch_n, device=device)
+        frozen = frozenset(n for n, keep in cs.harness.frozen_param_mask(lm).items() if not keep)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = cs.bf16_steps(f"[bf16 lm train b{batch_n}]", state, step, batch, cs.BF16_TRAIN_STEPS,
+                                cs.lm_bf16_counts, card, frozen)
+        kinds = launch_kinds(torch, lambda: step(state, batch, cs.TRAIN_SEED))
+        b2 = {n: v for n, v in kinds.items() if "attention_bf16" in n}
+        key = f"lm_bf16_b{batch_n}"
+        out.update({f"{key}_step_ms": res["step_ms"], f"{key}_peak_gib": res["peak"], f"{key}_busy": res["busy"],
+                    f"{key}_kernel_ms": sum(t for t, _ in kinds.values()),
+                    f"{key}_b2_kernel_ms": sum(t for t, _ in b2.values()),
+                    f"{key}_launches_per_step": [list(c) for c in res["per_step"]], f"{key}_b2_kinds": b2})
+        del state, lm, opt, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def bf16_backward(torch, cs, gh, device, card, step: bool = True) -> dict:
     """B1's bf16 tile passes and reduction back to back (p=TILE_P) summed
     over the VQ-VAE's and VQ-TTS's block shapes, then (``step``) the bf16
@@ -848,6 +982,13 @@ def worker(tree: str, glow_only: bool, mode: str = "") -> dict:
         if mode == "--bf16-enc":
             out.update(bf16_enc_steps(torch, cs, device, card))
         return out
+    if mode in ("--bf16-attn", "--bf16-attn-kernels"):
+        out.update(bf16_attn_kernels(torch, np, cs, att, device))
+        out.update(b2_fp32_hashes(torch, np, cs, att, device))
+        out.update(bf16_enc_hashes(torch, np, cs, device))
+        if mode == "--bf16-attn":
+            out.update(bf16_lm_steps(torch, cs, device, card))
+        return out
     if mode == "--b2b4":
         out.update(b2_b4_times(torch, np, cs, att, device))
         out.update(codec_kernels(torch, np, cs, att, gh, device))
@@ -912,11 +1053,36 @@ def is_bf16(line: str) -> bool:
     return any(piece in name for piece in ("Bfloat", "bf16", "bfloat16", "5bwd16"))
 
 
+def print_attn(results: list) -> None:
+    """--bf16-attn's lines: each number by tree, B2's bf16 kernels and the
+    LM steps' B2 kernels by launch kind, each sha256 against the first
+    tree's."""
+    card = results[0]["card"]
+    for key in [k for k, v in results[0].items() if isinstance(v, (int, float)) and not isinstance(v, bool)
+                and k != "seconds"]:
+        print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key]:.4f}" for r in results) + f" [{card}]")
+    for key in [k for k in results[0] if k.endswith("_kinds")]:
+        for res in results:
+            kinds = res[key]
+            print(f"[ab] {res['tree']} {key[:-6]} by launch kind (ms a call, launches a call): "
+                  + ("not measured (no profile counted every launch)" if kinds is None else
+                     ", ".join(f"{n} {t:.4f} x{c:g}" for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+                     + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} "
+                     "launches)") + f" [{res['card']}]")
+    for key in [k for k in results[0] if k.endswith("_launches_per_step")]:
+        print(f"[ab] {key} (fp32 B2 fwd, bwd, bf16 B2 fwd, bwd): "
+              + ", ".join(f"{r['tree']} {r[key]}" for r in results))
+    for key in ("b2_bf16_sha256", "b2_fp32_fwd_sha256", "b2_fp32_bwd_sha256", "b5_bf16_fwd_sha256",
+                "b5_bf16_bwd_sha256"):
+        print(f"[ab] {key}: " + ", ".join(f"{r['tree']} {r[key][:16]}" for r in results)
+              + f"; all equal: {len({r[key] for r in results}) == 1}")
+
+
 def main() -> None:
     args = sys.argv[1:]
     glow_only = "--glow" in args
     modes = ("--b5", "--b2b4", "--ptxas", "--bf16", "--bf16-tiles", "--bf16-fwd", "--bf16-wn", "--bf16-wn-kernels",
-             "--bf16-enc", "--bf16-enc-kernels")
+             "--bf16-enc", "--bf16-enc-kernels", "--bf16-attn", "--bf16-attn-kernels")
     mode = next((a for a in args if a in modes), "")
     args = [a for a in args if a not in ("--glow", *modes)]
     if args[:1] == ["--worker"]:
@@ -925,7 +1091,8 @@ def main() -> None:
     trees = args
     if len(trees) < 2:
         raise SystemExit("usage: python3 ab_backward.py [--glow | --b5 | --b2b4 | --ptxas | --bf16 | --bf16-tiles | "
-                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels | --bf16-enc | --bf16-enc-kernels] "
+                         "--bf16-fwd | --bf16-wn | --bf16-wn-kernels | --bf16-enc | --bf16-enc-kernels | "
+                         "--bf16-attn | --bf16-attn-kernels] "
                          "TREE TREE [TREE ...] "
                          "(e.g. parent "
                          "change change parent)")
@@ -957,6 +1124,9 @@ def main() -> None:
         for res in results:
             print(f"[ptxas] {res['tree']} {PTXAS_CHANGED}: "
                   + " | ".join(ln for ln in res["ptxas"] if is_changed_kernel(ln)))
+        return
+    if mode in ("--bf16-attn", "--bf16-attn-kernels"):
+        print_attn(results)
         return
     if mode in ("--bf16-wn", "--bf16-wn-kernels", "--bf16-enc", "--bf16-enc-kernels"):
         for key in [k for k, v in results[0].items() if isinstance(v, float) and k != "seconds"]:

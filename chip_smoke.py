@@ -246,8 +246,9 @@ masks read back bit for bit, and the backward by launch kind with its bytes
 a frame by design; B3's, B5's and B6's forwards are their backward's
 recompute launches, their buffers held to the backward's bit for bit, and
 timed by launch kind), B1's at
-VQ-TTS's shapes, B2's bf16 kernels at (8, 258) and (64, 258), p=0 and 0.1
-(beside bf16 SDPA, masks read back); each bf16 step with its ms, peak,
+VQ-TTS's shapes, B2's bf16 kernels at ATTN_SHAPES and ATTN_BF16_EDGES, p=0
+and 0.1 (beside bf16 SDPA, by launch kind, masks read back at every shape);
+each bf16 step with its ms, peak,
 busy share and launches; and one bf16 SGD step of Glow-TTS on each route,
 VQ-TTS on each route and the LM, on the card and the CPU against fp64,
 within 2.5x the CPU's error, a control (the card's update x 1.2) failing.
@@ -329,6 +330,7 @@ PALLAS = "speech_masters_thesis_tpu/ops/pallas/gated_hifi.py"
 PALLAS_ATTENTION = "speech_masters_thesis_tpu/ops/pallas/attention.py"
 # the Transformer LM
 ATTN_SHAPES = ((8, 258), (64, 258), (8, 1024))  # (B, T): the LM's train shapes and the route's bound
+ATTN_BF16_EDGES = ((3, 1), (3, 3), (3, 63), (3, 65), (2, 257))  # B2 bf16's odd T (lens T, ..., 1)
 ATTN_HEADS, ATTN_DIM = 16, 32
 ATTN_FWD_RTOL = 1e-5           # of max|ref|: fp32, an online softmax against a two-pass one
 ATTN_GRAD_RTOL = 2e-5          # of each gradient's max|ref|: sums over up to 1024 rows, other order
@@ -579,7 +581,9 @@ ENC16_SOURCES = ("enc_layer_bf16.cu", "bf16_engine.cuh", "bf16_engine.cu")
 # B5's kernels on the tensor cores and its packing (their tags name the layer: LayerFwdTag, LayerBwdTag)
 B5_KERNELS = ("conv_mma_kernel", "enc_pack_kernel", "wgrad_mma_kernel", "wgrad_mma_reduce_kernel")
 B2_FWD_B4_KERNELS = ("attention_fwd_kernel", "mas_kernel")
+# B2's bf16 forward and backward (csrc/attention_bf16.cu, cp.async stages and ldmatrix fragments): <DROP> each
 B2_BF16_KERNELS = ("attention_bf16_fwd_kernel", "attention_bf16_dq_kernel", "attention_bf16_dkdv_kernel")
+B2_BF16_SOURCES = ("attention_bf16.cu", "attention_common.cuh", "bf16_mma.cuh", "tf32_mma.cuh", "hash.cuh")
 
 
 def ptxas_summary(report: str) -> list:
@@ -3234,7 +3238,21 @@ def launch_kinds(fn) -> dict:
     return kinds
 
 
-def kinds_line(kinds: dict) -> str:
+def complete_kinds(fn, kernels: tuple, tries: int = 4):
+    """launch_kinds(fn) once it counts each of ``kernels`` exactly once a
+    call: torch.profiler drops a launch now and then, so a profile that
+    misses one is taken again, up to ``tries`` times; None if none was
+    complete."""
+    for _ in range(tries):
+        kinds = launch_kinds(fn)
+        if all(kinds.get(k, (0.0, 0.0))[1] == 1.0 for k in kernels):
+            return kinds
+    return None
+
+
+def kinds_line(kinds) -> str:
+    if kinds is None:
+        return "not measured (no complete profile)"
     return (", ".join(f"{n} {t:.4f} x{c:g}" for n, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
             + f" (sum {sum(t for t, _ in kinds.values()):.4f} ms, {sum(c for _, c in kinds.values()):g} launches)")
 
@@ -4144,19 +4162,26 @@ def phase_bf16_flow_step(model: GlowTTS, device, card: str) -> dict:
 
 def phase_bf16_attention(device, card: str) -> dict:
     """B2's bf16 forward and backward kernels against the plain bf16 versions
-    at ATTN_SHAPES[:2] (the LM's train shapes: packed bf16 projections,
-    ragged lengths), p=0 and P_DROP: o, dq, dk, dv by relative L2
+    at ATTN_SHAPES (the LM's train shapes and the route's bound: packed bf16
+    projections, ragged lengths) and ATTN_BF16_EDGES (odd T, lens from T
+    down to 1), p=0 and P_DROP: o, dq, dk, dv by relative L2
     (BF16_SUM_RTOL) and every element within BF16_MAX_RTOL of max|ref| (the
     ulp share printed: the kernel's exp and sums in another order round a
     probability an ulp apart now and then), two calls bitwise equal; the
-    kernel's dropout masks read back bit for bit (phase 11's way); times:
-    both kernels over DEVICE_REPS back-to-back calls (the forward through
-    its C entry point), one call, the plain versions, and bf16 SDPA's
-    forward and backward at p=0 on the same inputs and mask."""
+    kernel's dropout masks read back bit for bit (phase 11's way) at every
+    shape, another seed's at (8, 258); times at ATTN_SHAPES: both kernels
+    over DEVICE_REPS back-to-back calls (the forward through its C entry
+    point), one call, the plain versions, the kernels' device time by
+    launch kind (torch.profiler over 3 calls, taken again until it counts
+    each kernel once a call, else left out), and bf16 SDPA's forward and
+    backward at p=0 on the same inputs and mask."""
     scale = 1.0 / np.sqrt(ATTN_DIM)
     out = {"fwd_err": 0.0, "bwd_err": 0.0}
-    for i, (B, T) in enumerate(ATTN_SHAPES[:2]):
+    for i, (B, T) in enumerate(ATTN_SHAPES + ATTN_BF16_EDGES):
+        timed = i < len(ATTN_SHAPES)
         packed, lens, g = packed_qkv(B, T, 520 + i, device)
+        if not timed:
+            lens[-1] = 1
         packed, g = packed.to(torch.bfloat16), g.to(torch.bfloat16)
         for p in (0.0, P_DROP):
             seed = torch.tensor([22345 + i], dtype=torch.int64, device=device)
@@ -4177,36 +4202,57 @@ def phase_bf16_attention(device, card: str) -> dict:
             for n, agree in bwd.items():
                 require(bf16_ok(agree, summed=True), f"[bf16 attention] B={B} T={T} p={p}: {n} {agree}")
             require(fwd_bitwise and bitwise, f"[bf16 attention] B={B} T={T} p={p}: two calls differ")
+            masks = ""
+            if p > 0.0:
+                with torch.no_grad():
+                    keep = kernel_keep_mask(B, T, lens, seed, device, torch.bfloat16)
+                    plain = att.dropout_bits(seed, B, ATTN_HEADS, T, device) >= att.keep_threshold(P_DROP)
+                valid = att.valid_pairs(lens, T).expand(B, ATTN_HEADS, T, T)
+                equal = torch.equal(keep[valid], plain[valid])
+                masks = f"; the masks read back at {int(valid.sum())} valid pairs equal the plain version's {equal}"
+                require(equal, f"[bf16 attention] B={B} T={T}: the kernel's masks differ from the plain version's")
+                del keep, plain, valid
+            out["fwd_err"] = max(out["fwd_err"], fwd[2])
+            out["bwd_err"] = max(out["bwd_err"], max(a_[2] for a_ in bwd.values()))
+            agreement = (f"forward relative L2 {fwd[3]:.2e} (tol {BF16_SUM_RTOL:.4g}), {fwd[0]:.5f} within one bf16 "
+                         f"ulp, max_abs_err {fwd[1]:.2e} of max|ref|; "
+                         + ", ".join(f"{n} relative L2 {a_[3]:.2e} ({a_[0]:.5f} within one ulp, max {a_[1]:.2e})"
+                                     for n, a_ in bwd.items())
+                         + "; two calls bitwise equal" + masks)
+            if not timed:
+                print(f"[bf16 attention] B={B} T={T} lens {lens.tolist()} p={p}: {agreement} [{card}]")
+                del o, grads, again, ref, grads_ref, qkv
+                continue
             with torch.no_grad():
                 args = (*heads(packed), lens, seed, scale, p)
                 q_, k_, v_ = heads(packed)
                 o_k, stats_k = att._launch_fwd(q_, k_, v_, lens, seed, scale, p)
+                bwd_call = lambda: att.attention_backward(q_, k_, v_, o_k, stats_k, lens, seed, g, scale, p)  # noqa: E731
                 times = {"fwd": cuda_ms(lambda: att.fused_attention(*args)),
                          "fwd_plain": cuda_ms(lambda: att.attention_reference(*args)),
                          "fwd_dev": device_ms(attention_fwd_launch(*args)),
-                         "bwd_dev": device_ms(
-                             lambda: att.attention_backward(q_, k_, v_, o_k, stats_k, lens, seed, g, scale, p)),
+                         "bwd_dev": device_ms(bwd_call),
                          "bwd_plain": cuda_ms(lambda: att.attention_backward_reference(q_, k_, v_, lens, seed, g,
                                                                                        scale, p))}
+                inst = f"<{'true' if p > 0.0 else 'false'}>"
+                kinds = {"fwd": complete_kinds(lambda: att.fused_attention(*args),
+                                               (f"attention_bf16::{B2_BF16_KERNELS[0]}{inst}",)),
+                         "bwd": complete_kinds(bwd_call, tuple(f"attention_bf16::{k}{inst}" for k in B2_BF16_KERNELS[1:]))}
             times["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, qkv, g, retain_graph=True))
             if p == 0.0:
                 times.update(sdpa_times(packed, lens, g, scale))
             pairs = int(torch.minimum(torch.arange(1, T + 1, device=device)[None, :], lens.long()[:, None]).sum()) * ATTN_HEADS
             row = B * T * ATTN_HEADS * ATTN_DIM * 2  # bytes of one [B, T, H, D] bf16 tensor
             fb, bb = bf16_bound(4 * ATTN_DIM * pairs, 4 * row), bf16_bound(10 * ATTN_DIM * pairs, 7 * row)
-            print(f"[bf16 attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: forward relative L2 {fwd[3]:.2e} "
-                  f"(tol {BF16_SUM_RTOL:.4g}), {fwd[0]:.5f} within one bf16 ulp, max_abs_err {fwd[1]:.2e} of max|ref|; "
-                  + ", ".join(f"{n} relative L2 {a_[3]:.2e} ({a_[0]:.5f} within one ulp, max {a_[1]:.2e})"
-                              for n, a_ in bwd.items())
-                  + f"; two calls bitwise equal; over {DEVICE_REPS} back-to-back calls: forward {times['fwd_dev']:.4f} "
-                  f"ms, backward kernels {times['bwd_dev']:.4f}; a call: forward {times['fwd']:.4f}, backward "
-                  f"(autograd) {times['bwd']:.4f}; plain {times['fwd_plain']:.4f} / {times['bwd_plain']:.4f}"
+            print(f"[bf16 attention] B={B} T={T} H={ATTN_HEADS} D={ATTN_DIM} p={p}: {agreement}; over {DEVICE_REPS} "
+                  f"back-to-back calls: forward {times['fwd_dev']:.4f} ms, backward kernels {times['bwd_dev']:.4f}; a "
+                  f"call: forward {times['fwd']:.4f}, backward (autograd) {times['bwd']:.4f}; plain "
+                  f"{times['fwd_plain']:.4f} / {times['bwd_plain']:.4f}"
                   + (f"; bf16 F.scaled_dot_product_attention (same mask) forward {times['sdpa_dev']:.4f} ms b2b, "
                      f"backward {times['sdpa_bwd_dev']:.4f}" if p == 0.0 else "")
                   + f"; bounds ({pairs} valid pairs) forward {fb[0]:.4f} ms by {fb[1]}, backward {bb[0]:.4f} by "
-                  f"{bb[1]} [{card}]")
-            out["fwd_err"] = max(out["fwd_err"], fwd[2])
-            out["bwd_err"] = max(out["bwd_err"], max(a_[2] for a_ in bwd.values()))
+                  f"{bb[1]}; on the card by launch kind: forward {kinds_line(kinds['fwd'])}; backward "
+                  f"{kinds_line(kinds['bwd'])} [{card}]")
             if (B, T) == ATTN_SHAPES[0]:
                 if p == 0.0:
                     out.update(sdpa_dev=times["sdpa_dev"], sdpa_bwd_dev=times["sdpa_bwd_dev"],
@@ -4214,13 +4260,17 @@ def phase_bf16_attention(device, card: str) -> dict:
                 else:
                     out.update(fwd_dev=times["fwd_dev"], fwd_ms=times["fwd"], fwd_plain_ms=times["fwd_plain"],
                                bwd_dev=times["bwd_dev"], bwd_ms=times["bwd"], bwd_plain_ms=times["bwd_plain"],
-                               bound=fb, bwd_bound=bb)
-            elif p == 0.0:
-                out["b64_sdpa_dev"] = times["sdpa_dev"]
+                               bound=fb, bwd_bound=bb, fwd_kinds=kinds["fwd"], bwd_kinds=kinds["bwd"])
             else:
-                out["b64"] = {"ms": times["fwd_dev"], "call_ms": times["fwd"], "plain_ms": times["fwd_plain"],
-                              "bound_ms": fb[0], "bound_by": fb[1], "bwd_ms": times["bwd_dev"],
-                              "bwd_bound_ms": bb[0]}
+                at = f"at_{B}x{T}"
+                if p == 0.0:
+                    out[at] = {"library_ms": times["sdpa_dev"], "bwd_library_ms": times["sdpa_bwd_dev"]}
+                else:
+                    out[at].update(ms=times["fwd_dev"], call_ms=times["fwd"], plain_ms=times["fwd_plain"],
+                                   bound_ms=fb[0], bound_by=fb[1], bwd_ms=times["bwd_dev"], bwd_call_ms=times["bwd"],
+                                   bwd_plain_ms=times["bwd_plain"], bwd_bound_ms=bb[0], bwd_bound_by=bb[1],
+                                   **{n: v for n, v in (("launch_kinds", kinds["fwd"]),
+                                                        ("bwd_launch_kinds", kinds["bwd"])) if v is not None})
             del o, grads, again, ref, grads_ref, qkv, o_k, stats_k
             torch.cuda.empty_cache()
     B, T = ATTN_SHAPES[0]
@@ -4822,11 +4872,17 @@ def main() -> None:
               sources=[SOURCE_DIR + s for s in WN16_SOURCES]),
         entry("attention_fwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":226", lm_bf16["launches"][2],
               b2_bf16["fwd_err"], b2_bf16["fwd_dev"], b2_bf16["fwd_plain_ms"], *b2_bf16["bound"], b2_bf16["sdpa_dev"],
-              ms_p0=b2_bf16["fwd_dev_p0"], call_ms=b2_bf16["fwd_ms"],
-              at_64x258=dict(b2_bf16["b64"], library_ms=b2_bf16["b64_sdpa_dev"])),
+              ms_p0=b2_bf16["fwd_dev_p0"], call_ms=b2_bf16["fwd_ms"], sources=[SOURCE_DIR + s for s in B2_BF16_SOURCES],
+              **({"launch_kinds": b2_bf16["fwd_kinds"]} if b2_bf16["fwd_kinds"] is not None else {}),
+              **{at: {k: v for k, v in shape.items() if not k.startswith("bwd_")} for at, shape in b2_bf16.items()
+                 if at.startswith("at_")}),
         entry("attention_bwd_bf16", "attention_bf16.cu", PALLAS_ATTENTION + ":253", lm_bf16["launches"][3],
               b2_bf16["bwd_err"], b2_bf16["bwd_dev"], b2_bf16["bwd_plain_ms"], *b2_bf16["bwd_bound"],
-              b2_bf16["sdpa_bwd_dev"], ms_p0=b2_bf16["bwd_dev_p0"], call_ms=b2_bf16["bwd_ms"])]}))
+              b2_bf16["sdpa_bwd_dev"], ms_p0=b2_bf16["bwd_dev_p0"], call_ms=b2_bf16["bwd_ms"],
+              sources=[SOURCE_DIR + s for s in B2_BF16_SOURCES],
+              **({"launch_kinds": b2_bf16["bwd_kinds"]} if b2_bf16["bwd_kinds"] is not None else {}),
+              **{at: {k[4:]: v for k, v in shape.items() if k.startswith("bwd_")} for at, shape in b2_bf16.items()
+                 if at.startswith("at_")})]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -49,6 +49,19 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8 x 8 bf16 matrices: lane l gives the address of row l % 8 of matrix
+// l / 8 (16 bytes, 16-byte aligned); register i of lane (g, q) receives row
+// g of matrix i at columns 2q and 2q + 1. From a [row][k] tile that is an A
+// fragment (matrices: rows 0-7 and 8-15 at k 0-7, then at k 8-15) or, from a
+// [n][k] tile, the B fragments of two k-steps.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
 // Four 8 x 8 bf16 matrices, transposed: lane l gives the address of row l % 8
 // of matrix l / 8 (16 bytes, 16-byte aligned); register i of lane (g, q)
 // receives rows 2q and 2q + 1 of matrix i at column g. From a [k][n] tile

@@ -167,7 +167,7 @@ def _check_call(q, k, v, lens, seed, contiguous=()) -> int:
         raise RuntimeError("fused_attention: the kernels are built for sm_90a (Hopper)")
     if D != _build.ATTENTION_HEAD_DIM:
         raise ValueError(f"fused_attention: kernels are built for D={_build.ATTENTION_HEAD_DIM}, got {D}")
-    ld = q.stride(1)
+    ld = q.stride(1) if T > 1 else q.stride(0)  # a dimension of size 1 may carry any stride
     check_dtypes(q, k, v)
     if q.dtype == torch.float64:
         raise ValueError("fused_attention: the kernels take float32 or bfloat16 tensors")
@@ -175,7 +175,8 @@ def _check_call(q, k, v, lens, seed, contiguous=()) -> int:
     for name, t in {"q": q, "k": k, "v": v}.items():
         if t.device != q.device or t.shape != q.shape:
             raise ValueError(f"fused_attention: {name} must be {q.dtype} {tuple(q.shape)} on {q.device}")
-        if t.stride() != (T * ld, ld, D, 1) or ld % per_row or t.data_ptr() % 16:
+        strides = t.stride() if T > 1 else (t.stride(0), ld, *t.stride()[2:])
+        if strides != (T * ld, ld, D, 1) or ld % per_row or t.data_ptr() % 16:
             raise ValueError(f"fused_attention: {name} must have strides (T*ld, ld, D, 1) with "
                              f"16-byte rows, as q has; got {t.stride()}")
     for name, t, dtype in contiguous:

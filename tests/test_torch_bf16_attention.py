@@ -143,3 +143,23 @@ def test_mixed_dtypes_raise():
         att.fused_attention(_t16(q), _t16(k), torch.from_numpy(v), lens, seed, SCALE)
     with pytest.raises(ValueError, match="share one dtype"):
         att.attention_backward_reference(_t16(q), _t16(k), _t16(v), lens, seed, torch.from_numpy(g), SCALE)
+
+
+# ---------------------------------------------------------------------------
+# the host side of the bf16 kernels (csrc/attention_bf16.cu): the wrapper's
+# stride check on the LM's packed views
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("T", [1, 2, 3, 63, 64, 65, 257, 258, 513, 1024])
+def test_check_call_takes_packed_views(monkeypatch, T):
+    """The LM's q, k, v (views of one packed [B, T, 3 H D] projection) pass
+    the kernels' stride check with ld = 3 H D at any T, T = 1 included
+    (where torch gives the time dimension a stride of its own); a view that
+    is not rows ld apart still raises."""
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
+    packed = torch.zeros(3, T, 3 * H * D, dtype=torch.bfloat16)
+    q, k, v = (t.view(3, T, H, D) for t in packed.split(H * D, dim=-1))
+    lens, seed = torch.full((3,), T, dtype=torch.int32), torch.zeros(1, dtype=torch.int64)
+    assert att._check_call(q, k, v, lens, seed) == 3 * H * D
+    strided = torch.zeros(3, H, T + 1, D, dtype=torch.bfloat16).transpose(1, 2)[:, :T]
+    with pytest.raises(ValueError, match="strides"):
+        att._check_call(q, k, strided, lens, seed)
