@@ -253,6 +253,21 @@ busy share and launches; and one bf16 SGD step of Glow-TTS on each route,
 VQ-TTS on each route and the LM, on the card and the CPU against fp64,
 within 2.5x the CPU's error, a control (the card's update x 1.2) failing.
 
+Last, phase_cli_pipeline drives the training CLI and the tokenizer as a user
+runs them (scripts/train.py, scripts/generate_vq_dataset.py, in process) in
+a temporary directory, at published widths: a seeded corpus of 42 clips of
+2-6 s (scripts/make_synth_dataset.py); the codec (vqvae_tpu on ljspeech,
+full clips, batch 8, --bf16 --ema, 2 epochs of 4 steps, checkpoints every 4
+steps, val every epoch); a resume from ckpt.4, restored at step 4, that
+trains on to step 8 with its schedule; the tokenizer on ckpt.last (42
+pickles, metadata, each pickle's audio equal to the loader's, two clips'
+codes encoded again on the CPU); the LM (transformer_lm_tpu through the
+grafted codec, batch 8, --bf16 --ema, 1 epoch and val) on those tokens;
+Glow-TTS (glow_tts_tpu with ddi: true, on ljspeech_tpu, batch 8, --bf16, 1
+epoch and val: DDI, ckpt.0, Griffin-Lim audio). Each run prints its wall
+time, steps, median step time (each step synced) and peak memory; the
+kernels line gains each kernel's launches over these runs (cli_launches).
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -264,10 +279,14 @@ import copy
 import ctypes
 import functools
 import json
+import logging
+import os
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from typing import Optional
@@ -301,11 +320,17 @@ from speech_masters_thesis_tpu_torch.ops import flow_step as fs_ops
 from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 from speech_masters_thesis_tpu_torch.ops import mas as mas_ops
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
-from speech_masters_thesis_tpu_torch.train import harness
+from speech_masters_thesis_tpu_torch.data.ljspeech import LJSpeech
+from speech_masters_thesis_tpu_torch.scripts import generate_vq_dataset
+from speech_masters_thesis_tpu_torch.scripts import train as train_cli
+from speech_masters_thesis_tpu_torch.scripts.make_synth_dataset import write_corpus
+from speech_masters_thesis_tpu_torch.train import checkpoint, harness
 from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step, raise_if_not_finite
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
 from speech_masters_thesis_tpu_torch.train.state import TrainState
+from speech_masters_thesis_tpu_torch.utils.config import load_config
 from speech_masters_thesis_tpu_torch.utils.registry import get_model
+from speech_masters_thesis_tpu_torch.utils.scalars import read_scalars
 
 BATCH = 16
 SAMPLES = 66048                # 3 s at 22.05 kHz, a multiple of 128
@@ -4599,6 +4624,290 @@ def phase_bf16_train_vs_cpu(device, card: str) -> dict:
     return r
 
 
+CLI_CLIPS = 42                 # 10 val, 32 train: 4 steps an epoch at batch 8
+CLI_SECONDS = (2.0, 6.0)
+CLI_BATCH = 8
+CLI_SEED = 31
+CLI_RECHECK = 2                # clips whose codes are encoded again on the CPU
+
+
+def all_counts() -> dict:
+    """Every kernel wrapper's launches so far, by the kernels line's names."""
+    fns = {"gated_hifi_fwd": gh.gated_hifi, "gated_hifi_bwd": gh.backward_buffers,
+           "gated_hifi_wgrad": gh.weight_grad_reduce, "attention_fwd": att.fused_attention,
+           "attention_bwd": att.attention_backward, "wn_coupling_fwd": wn_ops.wn_coupling,
+           "wn_coupling_bwd": wn_ops.wn_coupling_backward, "enc_layer_fwd": enc_ops.enc_layer,
+           "enc_layer_bwd": enc_ops.enc_layer_backward, "flow_step_fwd": fs_ops.flow_step,
+           "flow_step_bwd": fs_ops.flow_step_backward}
+    counts = {"mas": mas_ops.maximum_path_auto.launches}
+    for name, fn in fns.items():
+        counts[name] = fn.launches
+        counts[name + "_bf16"] = fn.bf16_launches
+    return counts
+
+
+def zero_all_counts() -> None:
+    zero_glow_bf16_counts()
+    zero_b1_counts()
+    for fn in (att.fused_attention, att.attention_backward):
+        fn.launches = fn.bf16_launches = 0
+
+
+class LogLines(logging.Handler):
+    """Collects the CLI's log records (and echoes the epoch, checkpoint and restore lines)."""
+
+    NAMES = ("train", "generate_vq_dataset", "speech_masters_thesis_tpu_torch")
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        line = record.getMessage()
+        self.lines.append(line)
+        if line.startswith(("epoch", "Restored", "Saved", "Wrote", "metadata", "Loaded", "Reached")):
+            print(f"[cli log] {line}")
+
+    def __enter__(self):
+        for name in self.NAMES:
+            logging.getLogger(name).addHandler(self)
+            logging.getLogger(name).setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            logging.getLogger(name).removeHandler(self)
+
+
+def cli_run(tag: str, argv: list, card: str, expect: tuple, logs: LogLines) -> dict:
+    """One in-process run of scripts/train.py's main: wall time, steps, the
+    median step (each step synced before and after, on the host clock),
+    peak memory, and the launches of the run; every kernel in ``expect``
+    must have launched."""
+    times = []
+    factory = harness.make_train_step_for
+
+    def timed_factory(config, schedule, mu):
+        step = factory(config, schedule, mu)
+
+        def timed(state, batch, seed):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch, seed)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+    zero_all_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = len(logs.lines)
+    t0 = time.perf_counter()
+    harness.make_train_step_for = timed_factory
+    try:
+        state = train_cli.main(argv)
+    finally:
+        harness.make_train_step_for = factory
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in all_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[cli {tag}] wall {wall:.3f} s, {len(times)} train steps, median step {statistics.median(times):.3f} ms "
+          f"(steps {', '.join(f'{t:.1f}' for t in times)}), peak {peak:.3f} GiB, launches {counts} [{card}]")
+    missing = [k for k in expect if not counts.get(k)]
+    require(not missing, f"{tag}: the run launched no {missing}")
+    return {"state": state, "wall_s": wall, "steps": len(times), "step_ms": statistics.median(times), "peak": peak,
+            "counts": counts, "log": logs.lines[first:]}
+
+
+def scalars_ok(log_dir: str, tag: str) -> dict:
+    """The run's train and val losses are logged and finite; returns the last of each."""
+    rows = read_scalars(log_dir)
+    last = {}
+    for row in rows:
+        require(np.isfinite(row["value"]), f"{tag}: {row} is not finite")
+        last[row["tag"]] = row["value"]
+    require("loss/train_loss" in last and "loss/val_loss" in last, f"{tag}: losses missing from scalars.jsonl")
+    return last
+
+
+def phase_cli_pipeline(device, card: str) -> dict:
+    """The user's workflow through the port's own entry points (module docstring's last paragraph)."""
+    out = {}
+    codec_cfg = configs.MODELS["vqvae_tpu"]["model"]
+    with tempfile.TemporaryDirectory() as root, LogLines() as logs:
+        corpus, cmudict = os.path.join(root, "LJSpeech-1.1"), os.path.join(root, "cmudict.dict")
+        write_corpus(corpus, cmudict, n=CLI_CLIPS, min_sec=CLI_SECONDS[0], max_sec=CLI_SECONDS[1], seed=CLI_SEED)
+
+        def dataset_json(name: str, section: dict) -> str:
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump({"dataset": section}, f)
+            return path
+
+        lj = dataset_json("ljspeech", dict(configs.LJSPEECH, dataset_path=corpus, cmudict_path=cmudict))
+        common = ["--batch_size", str(CLI_BATCH), "--seed", str(CLI_SEED), "--eval_every_n_epochs", "1",
+                  "--log_every_n_steps", "2"]
+
+        # the codec
+        vq_dir = os.path.join(root, "vqvae")
+        codec = cli_run("codec", ["--model", "vqvae_tpu", "--dataset", lj, "--log_dir", vq_dir, "--bf16", "--ema",
+                                  "--total_epochs", "2", "--ckpt_every_n_steps", "4", *common], card,
+                        ("gated_hifi_fwd", "gated_hifi_fwd_bf16", "gated_hifi_bwd_bf16", "gated_hifi_wgrad_bf16"),
+                        logs)
+        for name in ("ckpts/ckpt.4", "ckpts/ckpt.last", "config.json", "scalars.jsonl",
+                     "audio/val_audio_1_gt.wav", "audio/val_audio_2_pred.wav", "spect/val_spect_2.npy"):
+            require(os.path.exists(os.path.join(vq_dir, name)), f"codec: {name} missing")
+        losses = scalars_ok(vq_dir, "codec")
+        at4 = checkpoint.load_payload(checkpoint.ckpt_dir(vq_dir, 4))
+        last = checkpoint.load_payload(checkpoint.ckpt_dir(vq_dir, "last"))
+        params = [n for n, _ in codec["state"].model.named_parameters()]
+        still = [n for n in params if torch.equal(at4["model"][n], last["model"][n])]
+        still += [f"ema {n}" for n in params if torch.equal(at4["ema"][n], last["ema"][n])]
+        still += [f"codebook {n}" for n in at4["codebook"] if "initialized" not in n
+                  and torch.equal(at4["codebook"][n], last["codebook"][n])]
+        print(f"[cli codec] step {last['step']}: train loss {losses['loss/train_loss']:.6g}, val loss "
+              f"{losses['loss/val_loss']:.6g}; {len(params)} parameters, their EMA and the codebook moved between "
+              f"ckpt.4 and ckpt.last except {still} [{card}]")
+        require(last["step"] == 8 and not still, f"codec: step {last['step']}, unmoved {still}")
+        del codec["state"]
+        out["codec"] = codec
+
+        # a resume from ckpt.4: restored at step 4 (restore raises on a missing or unexpected key), it
+        # reruns epoch 0 (the loader restarts at seed + 0) to step 8; that a restored state equals the
+        # live one bit for bit is tests/test_torch_checkpoint.py's, on the CPU
+        resume_dir = os.path.join(root, "vqvae_resume")
+        resume = cli_run("resume", ["--model", "vqvae_tpu", "--dataset", lj, "--log_dir", resume_dir, "--bf16",
+                                    "--ema", "--total_epochs", "2", "--ckpt_every_n_steps", "4", "--load_ckpt",
+                                    os.path.join(vq_dir, "ckpts", "ckpt.4"), "--max_steps", "6", *common],
+                         card, ("gated_hifi_fwd_bf16", "gated_hifi_bwd_bf16", "gated_hifi_wgrad_bf16"), logs)
+        logged = [line for line in resume["log"] if line.startswith("Restored checkpoint") and "at step 4 " in line]
+        resumed = checkpoint.load_payload(checkpoint.ckpt_dir(resume_dir, "last"))
+        still = [n for n in params if torch.equal(at4["model"][n], resumed["model"][n])]
+        resume_losses = scalars_ok(resume_dir, "resume")
+        print(f"[cli resume] {logged}; {resume['steps']} steps to ckpt.last at step {resumed['step']}, schedule "
+              f"step {resumed['sched']}; train loss {resume_losses['loss/train_loss']:.6g}; parameters unmoved from "
+              f"ckpt.4: {still} [{card}]")
+        require(logged, "resume: no restore at step 4")
+        require(resume["steps"] == 4 and resumed["step"] == resumed["sched"] == 8 and not still,
+                f"resume: {resume['steps']} steps, step {resumed['step']}, schedule {resumed['sched']}, unmoved {still}")
+        del resume["state"]
+        out["resume"] = resume
+
+        # the tokenizer on the codec's last checkpoint
+        tokens = os.path.join(root, "VQ-Latent")
+        zero_all_counts()
+        t0 = time.perf_counter()
+        metadata = generate_vq_dataset.main(["--log_dir", vq_dir, "--ckpt_num", "last", "--save_path", tokens,
+                                             "--batch_size", str(CLI_BATCH)])
+        torch.cuda.synchronize()
+        tok_wall = time.perf_counter() - t0
+        tok_counts = {k: v for k, v in all_counts().items() if v}
+        factor = compression_factor(codec_cfg)
+        expect_meta = {"compression_factor": factor, "vocab_size": codec_cfg["l_bins"]}
+        with open(os.path.join(tokens, "metadata.json"), encoding="utf-8") as f:
+            require(json.load(f) == expect_meta == metadata, f"tokenize: metadata {metadata}")
+        require(tok_counts.get("gated_hifi_fwd", 0) > 0, "tokenize: no GatedHiFi launch")
+        vq_config = load_config(os.path.join(vq_dir, "config.json"))
+        vq_config.dataset.segment_length = -1
+        cpu_model = harness.get_model(vq_config, device="cpu")
+        harness.elide_features(vq_config, cpu_model)
+        pickles = {}
+        for split, n_clips in (("train", CLI_CLIPS - 10), ("val", 10)):
+            files = sorted(os.listdir(os.path.join(tokens, split)))
+            require(len(files) == n_clips, f"tokenize: {len(files)} {split} pickles")
+            data = LJSpeech(vq_config, split)
+            for i, name in enumerate(files):
+                with open(os.path.join(tokens, split, name), "rb") as f:
+                    item = pickle.load(f)
+                audio = data[i]["audio"]
+                require(np.array_equal(item["x"], audio) and len(item["q"]) == len(audio) // factor,
+                        f"tokenize: {split} pickle {i} differs from the loader's clip")
+                pickles[(split, i)] = item
+        checkpoint.load_model_state(cpu_model, checkpoint.restore_model_state(checkpoint.ckpt_dir(vq_dir, "last")))
+        cpu_model.eval()
+        shortest = sorted((k for k in pickles if k[0] == "train"), key=lambda k: len(pickles[k]["x"]))[:CLI_RECHECK]
+        agree, frames, gaps = 0, 0, []
+        with torch.inference_mode():
+            for key in shortest:
+                x = torch.from_numpy(pickles[key]["x"])[None]
+                q = torch.tensor(pickles[key]["q"])
+                mask = torch.ones_like(x)
+                codes_c, _ = cpu_model.encode(x, mask)
+                h, _ = cpu_model.encoders[0](x[..., None], mask[..., None])
+                dist = cpu_model.bottleneck.level_blocks[0]._distances(h[0])
+                agree += int((codes_c[0] == q).sum())
+                frames += q.numel()
+                for t in (codes_c[0] != q).nonzero().flatten().tolist():
+                    gaps.append(((dist[t, q[t]] - dist[t, codes_c[0, t]]).item(), 1e-4 * (h[0, t] ** 2).sum().item() + 1e-6))
+        share = agree / frames
+        print(f"[cli tokenize] wall {tok_wall:.3f} s, {CLI_CLIPS} pickles (train {CLI_CLIPS - 10}, val 10), metadata "
+              f"{metadata}, launches {tok_counts}; {CLI_RECHECK} clips encoded again on the CPU: codes agree on "
+              f"{share:.6f} of {frames} frames (need {CODE_AGREEMENT}), mismatch gaps {gaps} [{card}]")
+        require(share >= CODE_AGREEMENT, f"tokenize: codes agree on {share}")
+        require(all(gap <= tol for gap, tol in gaps), f"tokenize: a code mismatch is no near-tie: {gaps}")
+        out["tokenize"] = {"wall_s": tok_wall, "counts": tok_counts}
+
+        # the LM on the tokens, through the codec grafted from ckpt.last
+        lm_json = os.path.join(root, "transformer_lm.json")
+        lm_cfg = copy.deepcopy(configs.MODELS["transformer_lm_tpu"])
+        lm_cfg["model"]["vqvae"] = {"log_dir": vq_dir, "ckpt_num": "last"}
+        with open(lm_json, "w", encoding="utf-8") as f:
+            json.dump(lm_cfg, f)
+        vql = dataset_json("vqlatent", dict(configs.VQLATENT, dataset_path=tokens))
+        lm_dir = os.path.join(root, "lm")
+        lm = cli_run("lm", ["--model", lm_json, "--dataset", vql, "--log_dir", lm_dir, "--bf16", "--ema",
+                            "--total_epochs", "1", *common], card,
+                     ("attention_fwd", "attention_fwd_bf16", "attention_bwd_bf16", "gated_hifi_fwd"), logs)
+        decoder = {f"decoders.0.{k[len('vqvae_decoder.'):]}": v for k, v in lm["state"].model.state_dict().items()
+                   if k.startswith("vqvae_decoder.")}
+        grafted = all(torch.equal(v.cpu(), last["model"][k]) for k, v in decoder.items()) and torch.equal(
+            lm["state"].model.vqvae_bottleneck.k.cpu(), last["model"]["bottleneck.level_blocks.0.k"])
+        lm_losses = scalars_ok(lm_dir, "lm")
+        print(f"[cli lm] the frozen codec ({len(decoder)} decoder tensors and the codebook) equals the codec's "
+              f"ckpt.last: {grafted}; train loss {lm_losses['loss/train_loss']:.6g}, val loss "
+              f"{lm_losses['loss/val_loss']:.6g} [{card}]")
+        require(grafted and len(decoder) > 0, "lm: the frozen codec is not the codec's ckpt.last")
+        require(os.path.exists(checkpoint.ckpt_dir(lm_dir, "last")), "lm: ckpt.last missing")
+        del lm["state"]
+        out["lm"] = lm
+
+        # Glow-TTS with DDI
+        glow_json = os.path.join(root, "glow_tts.json")
+        glow_cfg = copy.deepcopy(configs.MODELS["glow_tts_tpu"])
+        glow_cfg["model"]["ddi"] = True
+        with open(glow_json, "w", encoding="utf-8") as f:
+            json.dump(glow_cfg, f)
+        lj_tpu = dataset_json("ljspeech_tpu", dict(configs.LJSPEECH_TPU, dataset_path=corpus, cmudict_path=cmudict))
+        glow_dir = os.path.join(root, "glow")
+        glow = cli_run("glow", ["--model", glow_json, "--dataset", lj_tpu, "--log_dir", glow_dir, "--bf16",
+                                "--total_epochs", "1", *common], card,
+                       ("enc_layer_fwd_bf16", "enc_layer_bwd_bf16", "wn_coupling_fwd", "wn_coupling_bwd", "mas",
+                        "enc_layer_fwd"), logs)
+        at0 = checkpoint.load_payload(checkpoint.ckpt_dir(glow_dir, 0))
+        actnorms = [k for k in at0["model"] if k.startswith("decoder.") and k.endswith((".logs", ".bias"))
+                    and at0["model"][k].dim() == 3 and at0["model"][k].shape[0] == 1]
+        zero = [k for k in actnorms if not bool(at0["model"][k].abs().sum() > 0)]
+        glow_losses = scalars_ok(glow_dir, "glow")
+        wav = os.path.join(glow_dir, "audio", "val_audio_1_pred.wav")
+        print(f"[cli glow] DDI then ckpt.0 (step {at0['step']}): {len(actnorms)} ActNorm tensors, zero {zero}; "
+              f"train loss {glow_losses['loss/train_loss']:.6g}, val loss {glow_losses['loss/val_loss']:.6g}; "
+              f"Griffin-Lim val wav {os.path.exists(wav)} [{card}]")
+        require(at0["step"] == 0 and actnorms and not zero, "glow: ckpt.0 holds no DDI'd ActNorm")
+        require(os.path.exists(wav) and os.path.exists(checkpoint.ckpt_dir(glow_dir, "last")), "glow: files missing")
+        del glow["state"]
+        out["glow"] = glow
+    totals = {}
+    for run in out.values():
+        for k, v in run["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"[cli] runs (wall s, train steps, median step ms, peak GiB): "
+          f"{ {k: (round(v['wall_s'], 3), v.get('steps'), v.get('step_ms'), v.get('peak')) for k, v in out.items()} }; "
+          f"launches over the runs {totals} [{card}]")
+    return totals
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -4736,6 +5045,9 @@ def main() -> None:
         phase_bf16_vs_fp64(device, card, kind, vq_state)
         torch.cuda.empty_cache()
 
+    cli = phase_cli_pipeline(device, card)
+    torch.cuda.empty_cache()
+
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
           f"path {lm['fwd']} attention forward, {lm['bwd']} attention backward; Glow-TTS val step and "
@@ -4788,7 +5100,7 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("gated_hifi_fwd", "gated_hifi_fwd.cu", PALLAS + ":591", train["fwd"],
               max(kernel["max_abs_err"], dropout_err), kernel["ms"], kernel["plain_ms"], kernel["bound_ms"],
               kernel["bound_by"], call_ms=kernel["call_ms"], bound_3xtf32_ms=kernel["tf32_ms"], vqtts=vqtts_b1),
@@ -4882,7 +5194,10 @@ def main() -> None:
               sources=[SOURCE_DIR + s for s in B2_BF16_SOURCES],
               **({"launch_kinds": b2_bf16["bwd_kinds"]} if b2_bf16["bwd_kinds"] is not None else {}),
               **{at: {k[4:]: v for k, v in shape.items() if k.startswith("bwd_")} for at, shape in b2_bf16.items()
-                 if at.startswith("at_")})]}))
+                 if at.startswith("at_")})]
+    for k in kernels:
+        k["cli_launches"] = cli.get(k["name"], 0)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,9 +8,11 @@ null); ``TRANSFORMER_LM_TPU``, ``TRANSFORMER_LM_TPU_OPTIMIZER`` and
 ``GLOW_TTS_TPU_OPTIMIZER`` and ``GLOW_TTS_TPU_SCHEDULER`` those of
 ``configs/models/glow_tts_tpu.yaml``; ``VQTTS_TPU`` and
 ``VQTTS_TPU_OPTIMIZER`` those of ``configs/models/vqtts_tpu.yaml`` (its
-``scheduler:`` is null), and ``LJSPEECH_TPU`` the ``dataset:``
-section of ``configs/datasets/ljspeech_tpu.yaml``. Key for key; tests hold
-them equal. ``TRAIN`` holds the defaults of train.py's train settings that
+``scheduler:`` is null), and ``LJSPEECH``, ``LJSPEECH_TPU`` and
+``VQLATENT`` the ``dataset:`` sections of ``configs/datasets/ljspeech.yaml``,
+``ljspeech_tpu.yaml`` and ``vqlatent.yaml``. Key for key; tests hold them
+equal. ``MODELS`` and ``DATASETS`` are the CLI's name table: each name is
+its YAML file's stem and maps to the file's sections. ``TRAIN`` holds the defaults of train.py's train settings that
 the port's step reads (``--ema``, ``--grad_clip_norm``, ``--bf16``).
 """
 
@@ -221,4 +223,37 @@ LJSPEECH_TPU = {
     "use_token": True,
     "use_spect": True,
     "use_audio": True,
+}
+
+LJSPEECH = {k: v for k, v in LJSPEECH_TPU.items() if k != "on_device_spect"}
+
+VQLATENT = {
+    "_import_": "datasets.vqlatent.VQLatent",
+    "dataset_path": "./data/VQ-Latent",
+    "sample_rate": 22050,
+    "n_fft": 1024,
+    "hop_length": 256,
+    "win_length": 1024,
+    "n_mels": 80,
+    "intersperse_blanks": True,
+    "segment_length": 256,
+    "remove_consecutive": False,
+    "use_token": True,
+    "use_spect": False,
+    "use_audio": True,
+}
+
+MODELS = {
+    "vqvae_tpu": {"model": VQVAE_TPU, "optimizer": VQVAE_TPU_OPTIMIZER, "scheduler": None},
+    "transformer_lm_tpu": {"model": TRANSFORMER_LM_TPU, "optimizer": TRANSFORMER_LM_TPU_OPTIMIZER,
+                           "scheduler": TRANSFORMER_LM_TPU_SCHEDULER},
+    "glow_tts_tpu": {"model": GLOW_TTS_TPU, "optimizer": GLOW_TTS_TPU_OPTIMIZER,
+                     "scheduler": GLOW_TTS_TPU_SCHEDULER},
+    "vqtts_tpu": {"model": VQTTS_TPU, "optimizer": VQTTS_TPU_OPTIMIZER, "scheduler": None},
+}
+
+DATASETS = {
+    "ljspeech": {"dataset": LJSPEECH},
+    "ljspeech_tpu": {"dataset": LJSPEECH_TPU},
+    "vqlatent": {"dataset": VQLATENT},
 }

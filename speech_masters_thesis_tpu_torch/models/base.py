@@ -4,7 +4,8 @@ speech_masters_thesis_tpu/models/base.py).
 A batch is a dict with the keys ``token, token_len, spect, spect_len,
 audio, audio_len, speaker`` (entries may be absent when the task elides
 them). ``supervised_step`` routes the task's fields into ``forward`` and
-attaches the ground truth ``y``. The waveform-reconstruction task (the
+attaches the ground truth ``y``; ``TASK_FEATURES`` says which features a
+task's dataset loads and ``TASK_OUTPUT`` which val artifacts it writes. The waveform-reconstruction task (the
 VQ-VAE), the token-to-waveform task (the Transformer LM) and the
 token-to-spectrogram task (Glow-TTS) are ported.
 """
@@ -19,6 +20,20 @@ import torch.nn as nn
 TOKEN_TO_WAVEFORM = "token_to_waveform"
 WAVEFORM_RECONSTRUCTION = "waveform_reconstruction"
 TOKEN_TO_SPECTROGRAM = "token_to_spectrogram"
+
+# the batch features each task consumes (the dataset's elision, train/harness.py)
+TASK_FEATURES = {
+    TOKEN_TO_WAVEFORM: {"use_token": True, "use_spect": False, "use_audio": True},
+    WAVEFORM_RECONSTRUCTION: {"use_token": False, "use_spect": False, "use_audio": True},
+    TOKEN_TO_SPECTROGRAM: {"use_token": True, "use_spect": True, "use_audio": False},
+}
+
+# whether val artifacts are audio (mel computed from it) or mel (audio inverted from it)
+TASK_OUTPUT = {
+    TOKEN_TO_WAVEFORM: "waveform",
+    WAVEFORM_RECONSTRUCTION: "waveform",
+    TOKEN_TO_SPECTROGRAM: "spectrogram",
+}
 
 
 class TokenToWaveformModel(nn.Module):

@@ -68,8 +68,11 @@ def mas_log_prior(x_m: torch.Tensor, x_logs: torch.Tensor, z: torch.Tensor) -> t
     x_s_sq_r = torch.exp(-2.0 * x_logs)
     # the constant is a numpy float there, which promotes bf16 statistics to fp32 (and with them the table)
     logp1 = torch.sum(-0.5 * np.log(2.0 * np.pi) - at_least_f32(x_logs), dim=-1, keepdim=True)
-    logp2 = torch.matmul(x_s_sq_r, (-0.5 * (z * z)).transpose(1, 2))
-    logp3 = torch.matmul(x_m * x_s_sq_r, z.transpose(1, 2))
+    # bf16 statistics against fp32 frames (the bf16 step's flows on a mel computed from audio) meet in
+    # fp32, as jnp.matmul promotes them
+    dtype = torch.promote_types(x_m.dtype, z.dtype)
+    logp2 = torch.matmul(x_s_sq_r.to(dtype), (-0.5 * (z * z)).transpose(1, 2).to(dtype))
+    logp3 = torch.matmul((x_m * x_s_sq_r).to(dtype), z.transpose(1, 2).to(dtype))
     logp4 = torch.sum(-0.5 * (x_m * x_m) * x_s_sq_r, dim=-1, keepdim=True)
     return logp1 + logp2 + logp3 + logp4
 

@@ -3,13 +3,15 @@ speech_masters_thesis_tpu/ops/stft.py).
 
 The numpy builders (windows, DFT basis, the Slaney mel filterbank, the
 window sum-square) are copied from the JAX module, which imports jax at
-module top. Layout: audio [B, T]; spectra [B, frames, bins]. Phase jitter of
+module top. ``cached_mel`` and ``host_mel`` are the data path's host mel:
+the same operator on CPU tensors. Layout: audio [B, T]; spectra [B, frames, bins]. Phase jitter of
 ``MelSpectrogram`` is a training feature and is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import functools
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -216,3 +218,16 @@ def mel_from_config(dataset_cfg: Mapping) -> MelSpectrogram:
     """The dataset config's log-mel operator."""
     return MelSpectrogram(dataset_cfg["sample_rate"], dataset_cfg["n_fft"], dataset_cfg["hop_length"],
                           dataset_cfg.get("win_length"), dataset_cfg["n_mels"], *mel_band_edges(dataset_cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def cached_mel(sample_rate: int, n_fft: int, hop_length: int, win_length: Optional[int],
+               n_mels: int, f_min: float, f_max: Optional[float]) -> MelSpectrogram:
+    return MelSpectrogram(sample_rate, n_fft, hop_length, win_length, n_mels, f_min, f_max)
+
+
+def host_mel(mel_op: MelSpectrogram, audio: np.ndarray) -> np.ndarray:
+    """Log-mel of host audio on the CPU ([T] -> [1, frames, n_mels] float32):
+    dataset workers call this per utterance and never touch the card."""
+    with torch.inference_mode():
+        return mel_op(torch.from_numpy(np.asarray(audio, np.float32))).numpy()

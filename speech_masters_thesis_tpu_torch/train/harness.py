@@ -13,29 +13,44 @@ codebook init on a first batch, so the codebook starts from real encodings.
 ``maybe_ddi_init`` is train.py's data-dependent init of Glow-TTS's ActNorms.
 ``make_train_step_for`` builds the train step from a config's ``train:``
 settings (``configs.TRAIN``'s defaults), as train.py passes ``--bf16`` on.
-``get_model`` builds on the card unless the caller passes a device. The data
-loaders, the CLI, checkpoints and the epoch loop are not ported.
+``get_model`` builds on the card unless the caller passes a device.
+``elide_features`` sets the dataset's features from the model's task,
+``get_dataloaders`` builds the train and val loaders,
+``load_pretrained_submodules`` grafts a trained codec into the LM and
+``print_top_level_summary`` prints the parameter table, as the CLI
+(``scripts/train.py``) runs them.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import math
-from typing import Callable, Dict, List, Mapping, Optional
+import os
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from speech_masters_thesis_tpu_torch import configs
-from speech_masters_thesis_tpu_torch.models.base import WaveformReconstructionModel
+from speech_masters_thesis_tpu_torch.data.batching import DataLoader
+from speech_masters_thesis_tpu_torch.models.base import (
+    TASK_FEATURES,
+    TOKEN_TO_SPECTROGRAM,
+    WaveformReconstructionModel,
+)
 from speech_masters_thesis_tpu_torch.models.glow_tts import attention as glow_attention
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
 from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
-from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention
+from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention, load_vqvae_into_lm
 from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
+from speech_masters_thesis_tpu_torch.train.checkpoint import ckpt_dir, restore_model_state
 from speech_masters_thesis_tpu_torch.train.loop import make_train_step
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
-from speech_masters_thesis_tpu_torch.utils.registry import resolve_model
+from speech_masters_thesis_tpu_torch.utils.registry import resolve_dataset, resolve_model
+
+logger = logging.getLogger(__name__)
 
 # flax's truncated_normal draws within +-2 stds and divides its std by this,
 # the std of a unit normal truncated there
@@ -49,13 +64,22 @@ def get_model(config: Mapping, vqvae_model_config: Optional[Mapping] = None,
     none) unless the caller asks for another, e.g. ``device="cpu"``.
 
     ``vqvae_model_config`` (or ``config["vqvae_model_config"]``) is the
-    ``model:`` section of the VQ-VAE whose frozen codec an LM holds (the JAX
-    package reads it from the codec's log dir; the port takes the dict, e.g.
-    ``configs.VQVAE_TPU``). A model that reads its dataset's settings
-    (Glow-TTS, VQ-TTS: ``USES_DATASET_CONFIG``) takes the config's
-    ``dataset:`` section.
+    ``model:`` section of the VQ-VAE whose frozen codec an LM holds, e.g.
+    ``configs.VQVAE_TPU``; given neither, it is read from the codec's log
+    dir (``<model.vqvae.log_dir>/config.json``) where that file exists, as
+    the JAX package reads ``config.yaml`` there. A model that reads its
+    dataset's settings (Glow-TTS, VQ-TTS: ``USES_DATASET_CONFIG``) takes the
+    config's ``dataset:`` section.
     """
     vq = vqvae_model_config if vqvae_model_config is not None else config.get("vqvae_model_config")
+    log_dir = (config["model"].get("vqvae") or {}).get("log_dir")
+    if vq is None and log_dir:
+        path = os.path.join(log_dir, "config.json")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                vq = json.load(f)["model"]
+        else:
+            logger.warning("VQ-VAE config %s not found; reconstruction disabled", path)
     kwargs = {} if vq is None else {"vqvae_model_config": dict(vq)}
     if getattr(resolve_model(config["model"]["_import_"]), "USES_DATASET_CONFIG", False):
         kwargs["dataset_config"] = dict(config["dataset"])
@@ -125,9 +149,12 @@ def _init_glow_tts(model: nn.Module, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Tensor]], seed: int) -> None:
-    """Seeded parameters for every module, then, for the VQ-VAE, the lazy
-    codebook init on ``batch`` (on the model's device; the encoder runs in
-    eval mode). The LM needs no batch; its frozen codec stays as drawn here
+    """Seeded parameters for every module, then, for the VQ-VAE given a
+    ``batch``, the lazy codebook init on it (on the model's device; the
+    encoder runs in eval mode). Without a batch the VQ-VAE's codebook stays
+    uninitialized and its first train step initializes it from that step's
+    train-mode encodings and ``generators["codebook"]``, where the JAX CLI's
+    first step does (``scripts/train.py``). The LM needs no batch; its frozen codec stays as drawn here
     until ``load_vqvae_into_lm`` grafts a trained one. Glow-TTS needs no
     batch here (its data-dependent ActNorm init is ``maybe_ddi_init``).
     VQ-TTS's text encoder takes Glow-TTS's initializers and the rest the
@@ -167,7 +194,7 @@ def init_model_variables(model: nn.Module, batch: Optional[Mapping[str, torch.Te
             table[PAD] = 0.0
             module.weight.copy_(table)
 
-    if isinstance(model, WaveformReconstructionModel):
+    if isinstance(model, WaveformReconstructionModel) and batch is not None:
         device = next(model.parameters()).device
         audio = batch["audio"].to(device)
         mask = sequence_mask(batch["audio_len"].to(device), audio.shape[-1]).to(audio.dtype)
@@ -211,3 +238,55 @@ def trainable_parameters(model: nn.Module) -> List[nn.Parameter]:
         else:
             params.append(p)
     return params
+
+
+def elide_features(config: Mapping, model: nn.Module) -> None:
+    """Sets the dataset's ``use_token`` / ``use_spect`` / ``use_audio`` from
+    the model's task, in place (the JAX ``get_model``'s elision). With
+    ``on_device_spect`` a token-to-spectrogram model gets raw audio and
+    computes its mel on its own device (``models/base.py:spect_from_audio``)."""
+    dataset, task = config["dataset"], type(model).TASK
+    dataset.update(TASK_FEATURES[task])
+    if dataset.get("on_device_spect") and dataset.get("use_spect") and task == TOKEN_TO_SPECTROGRAM:
+        dataset["use_spect"] = False
+        dataset["use_audio"] = True
+
+
+def get_dataloaders(config: Mapping, shuffle: bool = True,
+                    collate_kwargs: Optional[dict] = None) -> Tuple[DataLoader, DataLoader]:
+    """Train and val loaders: train shuffled from ``train.seed`` (unless
+    ``shuffle`` is False) and wrap-padded; val in order with its partial
+    batch (``pad_last=False``), so the epoch's averages count each clip
+    once. ``collate_kwargs`` (bucket sizes) go to both loaders' collate."""
+    train = config["train"]
+    num_workers = int(train.get("num_workers", 0) or 0)
+    dataset_cls = resolve_dataset(config["dataset"]["_import_"])
+    train_loader = DataLoader(dataset_cls(config, split="train"), batch_size=train["batch_size"], shuffle=shuffle,
+                              seed=train["seed"], num_workers=num_workers, collate_kwargs=collate_kwargs)
+    val_loader = DataLoader(dataset_cls(config, split="val"), batch_size=train["batch_size"], shuffle=False,
+                            pad_last=False, num_workers=num_workers, collate_kwargs=collate_kwargs)
+    return train_loader, val_loader
+
+
+def load_pretrained_submodules(model: nn.Module, config: Mapping) -> None:
+    """Grafts the trained codec an LM points at (``model.vqvae.log_dir`` and
+    ``ckpt_num``: ``ckpt.<ckpt_num>`` there) into its frozen decoder and
+    codebook through ``load_vqvae_into_lm``; a model without a frozen codec
+    is left as it is."""
+    if not getattr(model, "FROZEN_PREFIXES", ()) or getattr(model, "vqvae_decoder", None) is None:
+        return
+    vq = config["model"]["vqvae"]
+    load_vqvae_into_lm(model, restore_model_state(ckpt_dir(vq["log_dir"], vq["ckpt_num"])))
+    logger.info("Loaded frozen VQ-VAE from %s (ckpt %s)", vq["log_dir"], vq["ckpt_num"])
+
+
+def print_top_level_summary(model: nn.Module) -> None:
+    """Parameter count of each top-level submodule, then the totals."""
+    rows = [(name, sum(p.numel() for p in child.parameters())) for name, child in model.named_children()]
+    total = sum(p.numel() for p in model.parameters())
+    buffers = sum(b.numel() for b in model.buffers())
+    width = max([len(r[0]) for r in rows] + [10])
+    lines = [f"{'Name':<{width}}  Params"]
+    lines += [f"{name:<{width}}  {n:,}" for name, n in rows]
+    lines += [f"{'TOTAL':<{width}}  {total:,} params, {buffers:,} buffer elements"]
+    print("\n".join(lines))

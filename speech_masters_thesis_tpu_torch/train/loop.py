@@ -1,5 +1,6 @@
-"""Train and val steps (counterpart of speech_masters_thesis_tpu/train/loop.py,
-``make_train_step``, ``make_val_step`` and ``NanLossError``).
+"""Train and val steps and the epoch loops (counterpart of
+speech_masters_thesis_tpu/train/loop.py: ``make_train_step``,
+``make_val_step``, ``NanLossError``, ``train_epoch`` and ``val_epoch``).
 
 One train step: forward in train mode (dropout, codebook init and EMA
 update), backward, optional clip by global norm (over the parameters that
@@ -28,11 +29,28 @@ dtypes the JAX model does, and the loss is cast to fp32 for the backward
 package declares the mode (``BF16_TRAINING``: the VQ-VAE, the Transformer
 LM, Glow-TTS on both decoder routes and VQ-TTS, each kernel of their train
 paths in its bf16 mode); a model without it raises.
+
+``train_epoch`` keeps each step's scalars on the device and drains them
+every ``log_every_n_steps`` steps with one host sync a window, checking
+``finite`` on every drained step (``NanLossError``), and drains the trailing
+window at the epoch's end; it cuts a checkpoint when the step crosses a
+multiple of ``ckpt_every_n_steps`` and logs the epoch's steps/s and the
+share of its time blocked on input. Ctrl-C (SIGINT) during the epoch is
+held until the running step ends: the epoch then drains its window and
+raises ``TrainingInterrupted``, which carries the steps taken, so the
+checkpoint the CLI cuts on it is one whole state. ``val_epoch`` averages the val step's
+scalars over the split's batches, the partial one included.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+import contextlib
+import logging
+import signal
+import threading
+import time
+from collections import defaultdict
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +62,36 @@ from speech_masters_thesis_tpu_torch.train.optim import clip_by_global_norm
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 
 
+logger = logging.getLogger(__name__)
+
+
 class NanLossError(RuntimeError):
     pass
+
+
+class TrainingInterrupted(KeyboardInterrupt):
+    """Ctrl-C during ``train_epoch``, raised between steps after the window
+    is drained; ``global_step`` counts the steps taken."""
+
+    def __init__(self, global_step: int):
+        super().__init__(global_step)
+        self.global_step = global_step
+
+
+@contextlib.contextmanager
+def _held_interrupt() -> Iterator[List[bool]]:
+    """Holds SIGINT while the block runs: the handler only appends to the
+    yielded list, which the loop reads between steps. Off the main thread,
+    where no handler can be set, SIGINT is left as it is."""
+    seen: List[bool] = []
+    if threading.current_thread() is not threading.main_thread():
+        yield seen
+        return
+    previous = signal.signal(signal.SIGINT, lambda *_: seen.append(True))
+    try:
+        yield seen
+    finally:
+        signal.signal(signal.SIGINT, previous)
 
 
 def step_generators(seed: int, step: int, device: torch.device) -> Dict[str, torch.Generator]:
@@ -132,3 +178,103 @@ def raise_if_not_finite(scalars: Mapping[str, torch.Tensor], step: int) -> None:
     if not bool(scalars["finite"]):
         stats = {k: float(v) for k, v in scalars.items() if k != "finite"}
         raise NanLossError(f"Nan detected in loss near step {step}: {stats}")
+
+
+def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
+    """A loader's numpy batch as tensors on ``device``; elided features stay None."""
+    return {k: None if v is None else torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _group(key: str) -> str:
+    return "loss" if "loss" in key else "metrics"
+
+
+def train_epoch(*, state: TrainState, global_step: int, epoch: int, config: Mapping, train_step: Callable,
+                dataloader, seed: int, writer=None, save_ckpt: Optional[Callable] = None) -> Tuple[TrainState, int]:
+    """One training epoch; logs the window's mean scalars every
+    ``log_every_n_steps`` steps under ``loss/train_*`` and ``metrics/train_*``.
+    Raises TrainingInterrupted on Ctrl-C, once the running step has ended."""
+    train = config["train"]
+    log_every, ckpt_every = int(train["log_every_n_steps"]), int(train["ckpt_every_n_steps"])
+    device = next(state.model.parameters()).device
+    pending = []  # each step's scalars, on the device until the window drains
+
+    def drain(at_step: int) -> None:
+        nonlocal pending
+        if not pending:
+            return
+        keys = list(pending[0])
+        host = torch.stack([torch.stack([s[k].reshape(()).to(torch.float64) for k in keys])
+                            for s in pending]).cpu().numpy()  # the window's one sync
+        window, pending = host.shape[0], []
+        finite = keys.index("finite")
+        for row in host:
+            if not row[finite]:
+                stats = {k: float(v) for k, v in zip(keys, row) if k != "finite"}
+                logger.error("Loss stats at failure: %s", stats)
+                raise NanLossError(f"Nan detected in loss near step {at_step}")
+        if writer is not None:
+            for k, v in zip(keys, host.sum(axis=0) / window):
+                if k != "finite":
+                    writer.add_scalar(f"{_group(k)}/train_{k}", float(v), at_step)
+
+    epoch_start = time.perf_counter()
+    data_wait, steps = 0.0, 0
+    it = iter(dataloader)
+    with _held_interrupt() as interrupted:
+        while not interrupted:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            data_wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            pending.append(train_step(state, to_device(batch, device), seed))
+            prev_step, global_step, steps = global_step, global_step + 1, steps + 1
+            if global_step // log_every > prev_step // log_every:
+                drain(global_step)
+            if save_ckpt is not None and global_step // ckpt_every > prev_step // ckpt_every:
+                save_ckpt(state, global_step, epoch)
+        drain(global_step)  # the trailing window: checked and logged too
+    if interrupted:
+        logger.info("Interrupted in epoch %d after step %d", epoch, global_step)
+        raise TrainingInterrupted(global_step)
+
+    elapsed = time.perf_counter() - epoch_start  # the drain above waited for the card
+    if steps:
+        logger.info("epoch %d: %d steps in %.1fs (%.2f steps/s end-to-end; %.1fs = %.0f%% blocked on input "
+                    "pipeline)", epoch, steps, elapsed, steps / elapsed, data_wait,
+                    100.0 * data_wait / max(elapsed, 1e-9))
+    return state, global_step
+
+
+def _pad_time(x: np.ndarray, length: int) -> np.ndarray:
+    """Zero-pads axis 1 (samples of [B, T] audio, frames of [B, frames, n_mels] mel)."""
+    return np.pad(x, [(0, 0), (0, length - x.shape[1])] + [(0, 0)] * (x.ndim - 2))
+
+
+def val_epoch(*, state: TrainState, epoch: int, config: Mapping, val_step: Callable, dataloader, writer=None,
+              artifact_fn: Optional[Callable] = None) -> Dict[str, float]:
+    """One validation epoch: the mean of each scalar over the batches, logged
+    under ``loss/val_*`` and ``metrics/val_*`` at ``epoch``; ``artifact_fn``
+    gets the ground truth ``y`` and the prediction ``yh`` of every batch."""
+    device = next(state.model.parameters()).device
+    losses: Dict[str, float] = defaultdict(float)
+    ys, yhs = [], []
+    n_batches = max(len(dataloader), 1)
+    for batch in dataloader:
+        loss_dict, metrics = val_step(state, to_device(batch, device))
+        scalars = {k: v for k, v in loss_dict.items() if "loss" in k and v.ndim == 0}
+        scalars.update({k: v for k, v in metrics.items() if torch.is_tensor(v) and v.ndim == 0})
+        for k, v in scalars.items():
+            losses[k] += float(v) / n_batches
+        if loss_dict.get("y") is not None and loss_dict.get("yh") is not None:
+            ys.append(loss_dict["y"].float().cpu().numpy())
+            yhs.append(loss_dict["yh"].float().cpu().numpy())
+    if writer is not None:
+        for k, v in losses.items():
+            writer.add_scalar(f"{_group(k)}/val_{k}", v, epoch)
+    if artifact_fn is not None and ys:
+        max_y, max_yh = max(a.shape[1] for a in ys), max(a.shape[1] for a in yhs)
+        artifact_fn(config, epoch, writer, np.concatenate([_pad_time(a, max_y) for a in ys]),
+                    np.concatenate([_pad_time(a, max_yh) for a in yhs]))
+    return dict(losses)

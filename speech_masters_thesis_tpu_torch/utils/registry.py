@@ -1,7 +1,7 @@
 """Model registry: ``_import_`` strings and short names -> the port's classes.
 
-Counterpart of speech_masters_thesis_tpu/utils/registry.py (the table) and
-``train/harness.py:get_model``.
+Counterpart of speech_masters_thesis_tpu/utils/registry.py (the tables,
+``resolve_model`` and ``resolve_dataset``) and ``train/harness.py:get_model``.
 """
 
 from __future__ import annotations
@@ -26,11 +26,27 @@ _MODEL_PATHS: Dict[str, str] = {
 }
 
 
-def resolve_model(import_path: str) -> Any:
-    if import_path not in _MODEL_PATHS:
-        raise KeyError(f"Unknown or not yet ported model '{import_path}'. Known: {sorted(_MODEL_PATHS)}")
-    module_name, attr = _MODEL_PATHS[import_path].split(":")
+_DATASET_PATHS: Dict[str, str] = {
+    "datasets.ljspeech.LJSpeech": "speech_masters_thesis_tpu_torch.data.ljspeech:LJSpeech",
+    "ljspeech": "speech_masters_thesis_tpu_torch.data.ljspeech:LJSpeech",
+    "datasets.vqlatent.VQLatent": "speech_masters_thesis_tpu_torch.data.vqlatent:VQLatent",
+    "vqlatent": "speech_masters_thesis_tpu_torch.data.vqlatent:VQLatent",
+}
+
+
+def _resolve(table: Dict[str, str], key: str, kind: str) -> Any:
+    if key not in table:
+        raise KeyError(f"Unknown or not yet ported {kind} '{key}'. Known: {sorted(table)}")
+    module_name, attr = table[key].split(":")
     return getattr(importlib.import_module(module_name), attr)
+
+
+def resolve_model(import_path: str) -> Any:
+    return _resolve(_MODEL_PATHS, import_path, "model")
+
+
+def resolve_dataset(import_path: str) -> Any:
+    return _resolve(_DATASET_PATHS, import_path, "dataset")
 
 
 def get_model(model_cfg: dict, device: Optional[torch.device | str] = None, **kwargs):

@@ -9,6 +9,9 @@ then the same with ``fused_flow_step: true`` (``flow_steps``): at p = 0 the
 JAX decoder keeps its B6 route on the CPU (encoder.py:292-294) and runs the
 whole-flow-step kernel's bf16 mode in interpret mode, the port B6's plain
 bf16 versions through ``FlowStepFunction``.
+Then the CLI's batch on ljspeech_tpu (``on_device_spect``): raw audio,
+whose mel both steps compute in fp32, so both packages' flows and B3 run
+fp32 on the bf16 weights, promoted.
 The variables are drawn from a numpy seed and cross as fp32 masters
 (convert.py); each side builds its own bf16 compute copy in the step. The
 batch is a mel batch (the flows then run in bf16 on both sides). The
@@ -36,6 +39,7 @@ import torch
 
 from speech_masters_thesis_tpu.models.glow_tts import model as jax_glow_model
 from speech_masters_thesis_tpu.models.glow_tts.model import GlowTTS as JaxGlowTTS
+from speech_masters_thesis_tpu.ops.pallas import wn_coupling as jax_wn_coupling
 from speech_masters_thesis_tpu.train import loop as jloop
 from speech_masters_thesis_tpu.train import optim as joptim
 from speech_masters_thesis_tpu.train.state import TrainState as JaxTrainState
@@ -47,7 +51,7 @@ from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
 from speech_masters_thesis_tpu_torch.train import harness, optim
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 
-from test_torch_glow import batch_numpy, jax_variables, port_model, tiny_config
+from test_torch_glow import HOP, batch_numpy, jax_variables, port_model, tiny_config
 from test_torch_tf32_split import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SGD = {"name": "sgd", "lr": 1e-2, "momentum": 0.0, "weight_decay": 0.0}
@@ -74,6 +78,19 @@ def _batches():
     return jbatch, batch
 
 
+def _audio_batches():
+    """The CLI's Glow batch on ljspeech_tpu (``on_device_spect``): raw audio
+    whose mel each side's step computes, Y_LENS frames of it valid."""
+    x, x_len, _, y_len = batch_numpy()
+    audio = np.random.RandomState(5).uniform(-0.5, 0.5, (2, int(y_len.max()) * HOP)).astype(np.float32)
+    audio_len = (y_len * HOP).astype(np.int32)
+    jbatch = {"token": jnp.asarray(x), "token_len": jnp.asarray(x_len), "spect": None, "spect_len": None,
+              "audio": jnp.asarray(audio), "audio_len": jnp.asarray(audio_len), "speaker": None}
+    batch = {"token": torch.from_numpy(x).long(), "token_len": torch.from_numpy(x_len).long(), "spect": None,
+             "spect_len": None, "audio": torch.from_numpy(audio), "audio_len": torch.from_numpy(audio_len).long()}
+    return jbatch, batch
+
+
 def _port_step(config, variables, batch, bf16: bool, path: np.ndarray):
     """One SGD step of the port with MAS's path replaced by ``path`` (JAX's):
     both sides then align alike and the step shows the rest's rounding."""
@@ -95,14 +112,14 @@ def _port_step(config, variables, batch, bf16: bool, path: np.ndarray):
             {k: v.detach().clone() for k, v in state.params.items()}, model, seen[0][0].numpy(), seen[0][1])
 
 
-def _steps(config: dict) -> dict:
+def _steps(config: dict, batches=_batches) -> dict:
     """One bf16 SGD step on each side from the same variables, the port's
     fp32 step, JAX's log-prior and path from inside its jitted step."""
     jmodel = JaxGlowTTS(config=config)
     variables = jax_variables(jmodel)
     tx, _ = joptim.build_optimizer(Config({**config, "optimizer": SGD, "scheduler": None}))
     jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), tx, use_ema=True)
-    jbatch, batch = _batches()
+    jbatch, batch = batches()
     inner, mas = jax_glow_model.maximum_path_auto, []
 
     def recording(value, mask):
@@ -141,6 +158,29 @@ def flow_steps(monkeypatch_module):
     monkeypatch_module.setattr(flows, "flow_step", counting)
     out = _steps(_config(flow_step=True))
     out["calls"] = calls
+    return out
+
+
+@pytest.fixture(scope="module")
+def audio_steps():
+    """``steps`` on the audio batch, recording the dtype of x0 at every B3
+    call: the port's wrapper and the JAX package's (at each trace, with
+    its start weight's dtype: bf16 in the bf16 step's traces)."""
+    port_calls, jax_calls = [], []
+    inner, jinner = flows.wn_coupling, jax_wn_coupling.apply_fused_wn_coupling
+
+    def port_recording(x0, *args):
+        port_calls.append(str(x0.dtype).removeprefix("torch."))
+        return inner(x0, *args)
+
+    def jax_recording(spec, seed, lens, x0, ws, *args):
+        jax_calls.append((str(x0.dtype), str(ws.dtype)))
+        return jinner(spec, seed, lens, x0, ws, *args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flows, "wn_coupling", port_recording)
+        mp.setattr(jax_wn_coupling, "apply_fused_wn_coupling", jax_recording)
+        out = _steps(_config(), _audio_batches)
+    out["b3_dtypes"] = port_calls, jax_calls
     return out
 
 
@@ -210,6 +250,30 @@ def test_bf16_glow_flow_step_route_matches_jax(flow_steps):
     params0 = glow_tts_params_from_jax(flow_steps["variables"]["params"], flow_steps["config"]["model"])
     dist = lambda ours: torch.sqrt(sum(((ours[k] - v) ** 2).sum() for k, v in jparams.items())).item()  # noqa: E731
     a, b = dist(flow_steps["port16"][1]), dist(flow_steps["port32"][1])
+    step = torch.sqrt(sum(((jparams[k] - v) ** 2).sum() for k, v in params0.items())).item()
+    assert a <= ROUNDING_RATIO * b, f"bf16 step {a:.3e} vs fp32 step {b:.3e} from JAX's bf16 step ({step:.3e})"
+
+
+def test_bf16_glow_step_on_audio_matches_jax(audio_steps):
+    """The CLI's Glow step (glow_tts on ljspeech_tpu, ``--bf16``): the mel is
+    computed from the batch's audio in fp32 on both sides, so the flows run
+    in fp32 with their bf16 weights promoted, B3 in its fp32 mode in both
+    packages, while the encoder runs bf16. The losses within LOSS_RTOL of
+    JAX's, the MAS prior fp32, and the rounding points JAX's (as above)."""
+    port_dtypes, jax_dtypes = audio_steps["b3_dtypes"]
+    n_blocks = audio_steps["config"]["model"]["decoder"]["n_blocks"]
+    step_traces = [x0 for x0, w in jax_dtypes if w == "bfloat16"]
+    assert step_traces and set(step_traces) == {"float32"} and len(step_traces) % n_blocks == 0
+    assert port_dtypes == ["float32"] * (2 * n_blocks)  # the bf16 step's, then the fp32 step's
+    jscalars, jparams = audio_steps["jax"]
+    scalars, params = audio_steps["port16"][:2]
+    assert bool(scalars["finite"]) and bool(jscalars["finite"])
+    for key in LOSS_KEYS:
+        np.testing.assert_allclose(scalars[key], jscalars[key], rtol=LOSS_RTOL, err_msg=key)
+    assert audio_steps["jax_mas"][0].dtype == np.float32 and audio_steps["port16"][4].dtype == torch.float32
+    params0 = glow_tts_params_from_jax(audio_steps["variables"]["params"], audio_steps["config"]["model"])
+    dist = lambda ours: torch.sqrt(sum(((ours[k] - v) ** 2).sum() for k, v in jparams.items())).item()  # noqa: E731
+    a, b = dist(params), dist(audio_steps["port32"][1])
     step = torch.sqrt(sum(((jparams[k] - v) ** 2).sum() for k, v in params0.items())).item()
     assert a <= ROUNDING_RATIO * b, f"bf16 step {a:.3e} vs fp32 step {b:.3e} from JAX's bf16 step ({step:.3e})"
 
