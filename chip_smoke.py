@@ -268,6 +268,31 @@ epoch and val: DDI, ckpt.0, Griffin-Lim audio). Each run prints its wall
 time, steps, median step time (each step synced) and peak memory; the
 kernels line gains each kernel's launches over these runs (cli_launches).
 
+Then the offline programs on those log dirs (phase_offline):
+scripts/synthesize.py on three corpus sentences with the device vocoder
+(frames, seconds of audio, RTF, peak; 6 B5 and 12 B3 forward launches a
+call, none else), the log dir's GlowTTSSynthesizer and the model-taking one
+on the loaded model at noise scale 0 bit for bit; scripts/sample_from_lm.py
+at 4 x 344 codes (tokens/s; no B2 launch, one decode's B1 launches a call),
+one seed twice equal, another different (offline_launches). Then
+phase_one_rank_group: the codec's CLI for two steps at --n_devices 1, and in
+a one-rank NCCL group (--multihost_coordinator, --num_processes 1):
+ckpt.last bit for bit (cuDNN deterministic for both), both median steps
+(one_rank_group_launches). Last, phase_data_parallel: two ranks on the one
+card over gloo on CUDA tensors (NCCL takes one rank a GPU), spawned and
+joined with a timeout, against the 1-process step on the same global batch:
+vqvae_tpu at 16 x 3 s and Glow-TTS on B3's route at 8 x 768, fp32, p=0,
+rank 0 holding the long rows; the losses and every all-reduced gradient
+within DP_MULTIPLE times the 1-process step's distance from the same step
+in fp64 (the VQ-VAE's on the card through B1's plain version at its call
+site, Glow's on the CPU; median and worst parameter), both ranks'
+gradients bit for bit equal, each rank launching its kernels
+(data_parallel_launches); three steps of each at p=0.1, the ranks'
+parameters, EMA and codebook bit for bit equal after each; the first B1
+call's seed on rank 0 a one-process step's, rank 1's its own draw mixed
+with its rank, and B1's masks read back at those seeds: rank 0's equal to
+the one-process kernel's, rank 1's other.
+
 Every phase raises on failure, so the script exits non-zero; there is no CPU
 fallback. The line before the last is the kernels' JSON summary; the last
 line is {"ok": true, "device": {...}}.
@@ -275,9 +300,11 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import functools
+import hashlib
 import json
 import logging
 import os
@@ -296,7 +323,7 @@ import torch
 
 from speech_masters_thesis_tpu_torch import configs
 from speech_masters_thesis_tpu_torch.device import cuda_device
-from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer
+from speech_masters_thesis_tpu_torch.inference import GlowTTSSynthesizer, LMSampler, load_model_from_logdir
 from speech_masters_thesis_tpu_torch.models.base import spect_from_audio
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
 from speech_masters_thesis_tpu_torch.models.glow_tts import flows as glow_flows
@@ -305,6 +332,7 @@ from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.vqtts import bottleneck as vqtts_bottleneck
 from speech_masters_thesis_tpu_torch.models.vqtts import model as vqtts_model
 from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
+from speech_masters_thesis_tpu_torch.models.vqvae import blocks as vq_blocks
 from speech_masters_thesis_tpu_torch.models.vqvae.blocks import GatedHiFiBlock
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import (
     BOS,
@@ -321,11 +349,17 @@ from speech_masters_thesis_tpu_torch.ops import gated_hifi as gh
 from speech_masters_thesis_tpu_torch.ops import mas as mas_ops
 from speech_masters_thesis_tpu_torch.ops import wn_coupling as wn_ops
 from speech_masters_thesis_tpu_torch.data.ljspeech import LJSpeech
-from speech_masters_thesis_tpu_torch.scripts import generate_vq_dataset
+from speech_masters_thesis_tpu_torch.parallel import mesh
+from speech_masters_thesis_tpu_torch.scripts import generate_vq_dataset, sample_from_lm, synthesize
 from speech_masters_thesis_tpu_torch.scripts import train as train_cli
-from speech_masters_thesis_tpu_torch.scripts.make_synth_dataset import write_corpus
+from speech_masters_thesis_tpu_torch.scripts.make_synth_dataset import SENTENCES, write_corpus
 from speech_masters_thesis_tpu_torch.train import checkpoint, harness
-from speech_masters_thesis_tpu_torch.train.loop import make_train_step, make_val_step, raise_if_not_finite
+from speech_masters_thesis_tpu_torch.train.loop import (
+    make_train_step,
+    make_val_step,
+    raise_if_not_finite,
+    step_generators,
+)
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 from speech_masters_thesis_tpu_torch.utils.config import load_config
@@ -4732,11 +4766,13 @@ def scalars_ok(log_dir: str, tag: str) -> dict:
     return last
 
 
-def phase_cli_pipeline(device, card: str) -> dict:
-    """The user's workflow through the port's own entry points (module docstring's last paragraph)."""
+def phase_cli_pipeline(device, card: str, root: str) -> dict:
+    """The user's workflow through the port's own entry points (module
+    docstring's last paragraphs), in ``root``, where the offline programs
+    then find its log dirs."""
     out = {}
     codec_cfg = configs.MODELS["vqvae_tpu"]["model"]
-    with tempfile.TemporaryDirectory() as root, LogLines() as logs:
+    with LogLines() as logs:
         corpus, cmudict = os.path.join(root, "LJSpeech-1.1"), os.path.join(root, "cmudict.dict")
         write_corpus(corpus, cmudict, n=CLI_CLIPS, min_sec=CLI_SECONDS[0], max_sec=CLI_SECONDS[1], seed=CLI_SEED)
 
@@ -4908,6 +4944,361 @@ def phase_cli_pipeline(device, card: str) -> dict:
     return totals
 
 
+SYNTH_TEXT = " ".join(SENTENCES[:3])   # three of the corpus sentences, about 6 s of speech
+OFFLINE_SAMPLES, OFFLINE_STEPS = 4, 344   # sample_from_lm's defaults: 2 s of audio a sample
+
+
+def phase_offline(device, card: str, root: str, decode_launches: int) -> dict:
+    """The offline programs on phase_cli_pipeline's log dirs: scripts/synthesize.py
+    (Glow-TTS, one sentence, the device vocoder) and scripts/sample_from_lm.py
+    (4 x 344 codes), each a warm and a timed call; their launches."""
+    glow_dir, lm_dir = os.path.join(root, "glow"), os.path.join(root, "lm")
+    totals = {}
+
+    def counted(fn):
+        zero_all_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_counts().items() if v}
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return result, counts, torch.cuda.max_memory_allocated() / 2**30
+
+    wav = os.path.join(root, "synthesis.wav")
+    res, counts, peak = counted(lambda: synthesize.main(["--log_dir", glow_dir, "--ckpt_num", "last", "--text",
+                                                         SYNTH_TEXT, "--out", wav, "--gl_iters", str(GL_ITERS)]))
+    print(f"[offline synthesize] {len(SYNTH_TEXT)} characters: {res['frames']} frames = {res['audio_s']:.3f} s of "
+          f"audio in {res['seconds'] * 1e3:.3f} ms (text to waveform, {GL_ITERS} Griffin-Lim iterations on the card): "
+          f"RTF {res['rtf']:.5f}; peak {peak:.3f} GiB; launches over the warm and the timed call {counts} [{card}]")
+    require(counts == {"enc_layer_fwd": 12, "wn_coupling_fwd": 24},
+            f"synthesize: launches {counts} != 6 B5 and 12 B3 forwards a call, two calls")
+    require(os.path.exists(wav) and res["frames"] > 0 and np.isfinite(res["audio"]).all(), "synthesize: no audio")
+    synth = GlowTTSSynthesizer(glow_dir, "last")
+    mel_dir, _ = synth.synthesize(SYNTH_TEXT, noise_scale=0.0, invert_audio=False)
+    model, config = load_model_from_logdir(glow_dir, "last")
+    mel_model, _ = GlowTTSSynthesizer(model, config).synthesize(SYNTH_TEXT, seed=5, noise_scale=0.0,
+                                                                 invert_audio=False)
+    print(f"[offline synthesize] noise scale 0: the log dir's synthesizer and the model-taking one on the loaded "
+          f"model, mel {mel_dir.shape}, bit for bit {np.array_equal(mel_dir, mel_model)} [{card}]")
+    require(np.array_equal(mel_dir, mel_model), "the log dir's synthesizer and the model-taking one differ")
+    del synth, model
+
+    save = os.path.join(root, "samples")
+    res_lm, counts, peak = counted(lambda: sample_from_lm.main(
+        ["--log_dir", lm_dir, "--ckpt_num", "last", "--n_samples", str(OFFLINE_SAMPLES),
+         "--n_steps", str(OFFLINE_STEPS), "--save_path", save]))
+    print(f"[offline sample_from_lm] {OFFLINE_SAMPLES} x {OFFLINE_STEPS} codes in {res_lm['seconds'] * 1e3:.3f} ms = "
+          f"{res_lm['tokens_per_s']:.1f} tokens/s (the codec decode included); peak {peak:.3f} GiB; launches over the "
+          f"warm and the timed call {counts} [{card}]")
+    require(counts == {"gated_hifi_fwd": 2 * decode_launches},
+            f"sample_from_lm: launches {counts} != no attention and one decode's GatedHiFi a call")
+    for name in ("tokens.txt", "samples_mel.npy", *(f"sample_{i}.wav" for i in range(OFFLINE_SAMPLES))):
+        require(os.path.exists(os.path.join(save, name)), f"sample_from_lm: {name} missing")
+    sampler = LMSampler(lm_dir, "last")
+    again = sampler.sample(OFFLINE_SAMPLES, OFFLINE_STEPS, seed=0)[1]
+    other = sampler.sample(OFFLINE_SAMPLES, OFFLINE_STEPS, seed=1)[1]
+    same, differ = np.array_equal(again, res_lm["codes"]), float((other != res_lm["codes"]).mean())
+    print(f"[offline sample_from_lm] seed 0 again: codes equal {same}; seed 1: {differ:.4f} of the codes differ [{card}]")
+    require(same and differ > 0, "sampling: one seed does not repeat its codes, or another seed repeats them")
+    return {"counts": totals, "rtf": res["rtf"], "frames": res["frames"], "audio_s": res["audio_s"],
+            "tokens_per_s": res_lm["tokens_per_s"]}
+
+
+def phase_one_rank_group(device, card: str, root: str) -> dict:
+    """The codec's CLI at --n_devices 1, then in a one-rank NCCL group
+    (--multihost_coordinator, --num_processes 1): two steps (batch 16 of the
+    pipeline's 32 train clips), ckpt.last bit for bit; cuDNN deterministic
+    for both, so the comparison sees the group and nothing else."""
+    lj = os.path.join(root, "ljspeech.json")
+    common = ["--model", "vqvae_tpu", "--dataset", lj, "--batch_size", "16", "--seed", str(CLI_SEED), "--ema",
+              "--total_epochs", "1", "--eval_every_n_epochs", "100", "--n_devices", "1"]
+    expect = ("gated_hifi_fwd", "gated_hifi_bwd", "gated_hifi_wgrad")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with LogLines() as logs:
+            plain = cli_run("one rank", [*common, "--log_dir", os.path.join(root, "rank1")], card, expect, logs)
+            group = cli_run("one-rank NCCL group", [*common, "--log_dir", os.path.join(root, "nccl1"),
+                                                    "--multihost_coordinator", f"localhost:{mesh.free_port()}",
+                                                    "--num_processes", "1", "--process_id", "0"], card, expect, logs)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    joined = [line for line in group["log"] if " joined the " in line]
+    a, b = (checkpoint.load_payload(checkpoint.ckpt_dir(os.path.join(root, d), "last")) for d in ("rank1", "nccl1"))
+    unequal = [f"{part} {k}" for part in ("model", "ema", "codebook") for k, v in a[part].items()
+               if not torch.equal(v, b[part][k])]
+    print(f"[one-rank group] {joined}; steps {plain['steps']} and {group['steps']}, median step {plain['step_ms']:.3f} ms "
+          f"without a group, {group['step_ms']:.3f} ms in the one-rank NCCL group; ckpt.last at step {a['step']} and "
+          f"{b['step']}: parameters, EMA and codebook unequal {unequal} [{card}]")
+    require(len(joined) == 1 and "nccl" in joined[0], f"the CLI set up no one-rank NCCL group: {joined}")
+    require(a["step"] == b["step"] == 2 and not unequal, "the one-rank group changed the run")
+    return {"step_ms": plain["step_ms"], "group_step_ms": group["step_ms"], "counts": group["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# data parallel: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+DP_WORLD = 2
+DP_STEPS = 3                    # at p > 0, the replicas compared after each
+DP_MULTIPLE = 2.0               # the 2-rank step's distance from the 1-process step, in units of the 1-process
+#                                 step's distance from fp64 (median and worst parameter; loss): two fp32 sums
+#                                 in other orders, each that far from the exact one
+DP_JOIN_S = 600
+DP_PROBE = (512, 2, 4)          # T, batch, depth of the B1 block whose masks are read back
+
+
+def dp_case(name: str, device, p: float = 0.0):
+    """(model, global batch, optimizer schedule) of the data-parallel phase:
+    vqvae_tpu at 16 x 3 s (revival off, the codebook drawn once on the card
+    from other audio) or Glow-TTS on B3's route at 8 x 768 (the mel on the
+    card), rows sorted by length so that rank 0 holds the long ones."""
+    if name == "vqvae":
+        cfg = {**copy.deepcopy(configs.VQVAE_TPU), "p_dropout": p, "revival_threshold": 0.0, "zero_out": False}
+        model = harness.get_model({"model": cfg}, device=device)
+        audio, lengths = audio_batch(BATCH, SAMPLES, seed=41)
+        other, other_len = audio_batch(BATCH, SAMPLES, seed=42)
+        with mesh.local():  # every rank draws the same codebook from the whole of the other audio
+            harness.init_model_variables(model, {"audio": other, "audio_len": other_len}, seed=TRAIN_SEED + 7)
+        lengths = torch.sort(lengths, descending=True).values
+        batch = {"audio": audio.to(device), "audio_len": lengths.to(device)}
+        opt = build_optimizer(model.parameters(), configs.VQVAE_TPU_OPTIMIZER)
+    else:
+        model = build_glow(device, GLOW_SEED + 5)
+        set_dropout(model, p)
+        raw = glow_val_batch(GLOW_BATCH, device, seed=43)
+        order = torch.argsort(raw["audio_len"], descending=True)
+        raw = {k: v[order] for k, v in raw.items()}
+        with torch.no_grad():
+            spect, spect_len = spect_from_audio(model, raw)
+        batch = {"token": raw["token"], "token_len": raw["token_len"], "spect": spect, "spect_len": spect_len}
+        opt = build_optimizer(model.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER, configs.GLOW_TTS_TPU_SCHEDULER,
+                              configs.GLOW_TTS_TPU)
+    return model, batch, opt
+
+
+def dp_step(name: str, device, p: float = 0.0):
+    model, batch, (opt, schedule) = dp_case(name, device, p)
+    n = batch["audio" if name == "vqvae" else "spect"].shape[0]
+    state = TrainState.create(model.train(), opt, use_ema=True)
+    return state, batch, make_train_step(schedule, default_mu(n, 1), use_ema=True)
+
+
+def dp_grads(model) -> dict:
+    return {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+
+
+def dp_digest(state: TrainState) -> str:
+    """One hash of every parameter, EMA parameter and codebook tensor's bytes."""
+    h = hashlib.sha256()
+    for part in (state.params, state.ema_params, state.codebook):
+        for k in sorted(part):
+            h.update(k.encode())
+            h.update(part[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def probe_masks(device, seed: int) -> torch.Tensor:
+    """The B1 backward kernels' site-0 keep mask at ``seed`` on read_back_masks' probe block."""
+    T, batch, depth = DP_PROBE
+    x, lens, _, g = block_inputs(T, batch, 400, device)
+    block = GatedHiFiBlock(64, depth, dilation_growth_rate=3, kernel_size_growth_rate=2, zero_out=True)
+    randomize(block, seed=7)
+    with torch.no_grad():
+        for d in range(depth):
+            block.blocks[d][0].bias.fill_(10.0)
+            block.blocks[d][1].model[2].weight.mul_(0.01)
+            block.blocks[d][1].model[2].bias.fill_(10.0)
+        block.to(device)
+        _, bufs = gh.backward_buffers(x, lens, gh.pack_weights(dict(block.named_parameters()), block.dilations), g,
+                                      1.0, P_DROP, seed)
+    return (bufs.a > 0).cpu()
+
+
+class SeedLog:
+    """Records the seed of every GatedHiFi block call of the codec (its call site, models/vqvae/blocks.py)."""
+
+    def __init__(self):
+        self.seeds = []
+        self.wrapped = vq_blocks.gated_hifi
+
+    def __enter__(self):
+        def recording(x, lens, w, res_scale, p, seed):
+            self.seeds.append(int(seed))
+            return self.wrapped(x, lens, w, res_scale, p, seed)
+        vq_blocks.gated_hifi = recording
+        return self
+
+    def __exit__(self, *exc):
+        vq_blocks.gated_hifi = self.wrapped
+
+
+def dp_rank(rank: int, port: int, out_dir: str, device_name: str) -> None:
+    """One rank of the data-parallel phase, in a process of its own on the parent's device."""
+    torch.backends.cudnn.allow_tf32 = False  # as phase_device sets the parent's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+    mesh.initialize(f"localhost:{port}", DP_WORLD, rank, device, backend="gloo")
+    try:
+        out = {}
+        for name in ("vqvae", "glow"):
+            state, batch, step = dp_step(name, device)
+            zero_all_counts()
+            scalars = step(state, mesh.shard_batch(batch), TRAIN_SEED)
+            torch.cuda.synchronize()
+            out[name] = {"scalars": {k: float(v) for k, v in scalars.items()}, "grads": dp_grads(state.model),
+                         "counts": {k: v for k, v in all_counts().items() if v},
+                         "rows": int(mesh.shard_batch(batch)["audio_len" if name == "vqvae" else "spect_len"].sum())}
+            del state, batch, step
+            torch.cuda.empty_cache()
+            state, batch, step = dp_step(name, device, P_DROP)
+            digests = []
+            with SeedLog() as log:
+                for _ in range(DP_STEPS):
+                    step(state, mesh.shard_batch(batch), TRAIN_SEED)
+                    digests.append(dp_digest(state))
+            out[name + "@p"] = {"digests": digests, "seeds": log.seeds}
+            if name == "vqvae":
+                out["masks"] = probe_masks(device, log.seeds[0])
+                out["raw_seed"] = int(torch.randint(0, 2 ** 32, (1,), generator=step_generators(
+                    TRAIN_SEED, 0, device, rank)["dropout"]))
+            del state, batch, step
+            torch.cuda.empty_cache()
+        out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def dp_reference(name: str, device) -> dict:
+    """The 1-process step on the global batch on the card (fp32, the kernels),
+    and the same step in fp64: the VQ-VAE's on the card through B1's plain
+    version at its call site, Glow-TTS's on the CPU (phase 25's)."""
+    state, batch, step = dp_step(name, device)
+    model64 = copy.deepcopy(state.model)
+    scalars = step(state, batch, TRAIN_SEED)
+    out = {"scalars": {k: float(v) for k, v in scalars.items()}, "grads": dp_grads(state.model)}
+    del state, step
+    torch.cuda.empty_cache()
+    if name == "vqvae":
+        ctx, dev64 = PlainB1(), device
+    else:
+        ctx, dev64 = contextlib.nullcontext(), torch.device("cpu")
+    model64 = model64.to(dev64).double()
+    batch64 = {k: (v.double() if v.is_floating_point() else v).to(dev64) for k, v in batch.items()}
+    with ctx:
+        opt, schedule = (build_optimizer(model64.parameters(), configs.VQVAE_TPU_OPTIMIZER) if name == "vqvae" else
+                         build_optimizer(model64.parameters(), configs.GLOW_TTS_TPU_OPTIMIZER,
+                                         configs.GLOW_TTS_TPU_SCHEDULER, configs.GLOW_TTS_TPU))
+        n = batch64["audio" if name == "vqvae" else "spect"].shape[0]
+        scalars64 = make_train_step(schedule, default_mu(n, 1), use_ema=True)(
+            TrainState.create(model64, opt, use_ema=True), batch64, TRAIN_SEED)
+    out.update(scalars64={k: float(v) for k, v in scalars64.items()}, grads64=dp_grads(model64))
+    del model64, batch64
+    torch.cuda.empty_cache()
+    return out
+
+
+class PlainB1:
+    """B1's plain version in place of its wrapper at the codec's call site, for
+    the fp64 reference step on the card (the kernels are fp32 and bf16)."""
+
+    def __enter__(self):
+        self.wrapped = vq_blocks.gated_hifi
+        vq_blocks.gated_hifi = gh.gated_hifi_reference
+        return self
+
+    def __exit__(self, *exc):
+        vq_blocks.gated_hifi = self.wrapped
+
+
+def dp_distances(ours: dict, ref: dict) -> dict:
+    """Relative L2 per parameter, the denominator floored at 1e-4 of the global norm (phase 25's)."""
+    floor = 1e-4 * torch.sqrt(sum((r * r).sum() for r in ref.values())).item()
+    return {k: ((ours[k] - r).norm() / max(r.norm().item(), floor)).item() for k, r in ref.items()}
+
+
+def phase_data_parallel(device, card: str) -> dict:
+    """Two ranks on the one card over gloo (NCCL takes one rank a GPU) against
+    the 1-process step on the same global batch, and at p > 0 the replicas
+    and the kernels' masks (module docstring)."""
+    refs = {name: dp_reference(name, device) for name in ("vqvae", "glow")}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = mesh.free_port()
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, port, out_dir, str(device))) for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(DP_JOIN_S)
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(30)
+        wall = time.perf_counter() - t0
+        require(not hung and all(proc.exitcode == 0 for proc in procs),
+                f"data parallel: ranks hung {hung}, exit codes {[proc.exitcode for proc in procs]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    print(f"[data parallel] {DP_WORLD} ranks on the card over gloo (CUDA tensors): {wall:.1f} s from spawn to exit; "
+          f"peak {[round(r['peak'], 3) for r in ranks]} GiB a rank [{card}]")
+    counts = {}
+    for name, expect, keys in (("vqvae", (14, 14, 14), ("gated_hifi_fwd", "gated_hifi_bwd", "gated_hifi_wgrad")),
+                               ("glow", (6, 6, 12, 12, 1), ("enc_layer_fwd", "enc_layer_bwd", "wn_coupling_fwd",
+                                                            "wn_coupling_bwd", "mas"))):
+        ref, r0, r1 = refs[name], ranks[0][name], ranks[1][name]
+        got = [tuple(r[name]["counts"].get(k, 0) for k in keys) for r in ranks]
+        for r in ranks:
+            for k, v in r[name]["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        d21 = dp_distances(r0["grads"], ref["grads"])
+        d164 = dp_distances(ref["grads"], ref["grads64"])
+        stat = lambda d: (statistics.median(d.values()), max(d.values()))  # noqa: E731
+        (m21, w21), (m164, w164) = stat(d21), stat(d164)
+        replicas = all(torch.equal(v, r1["grads"][k]) for k, v in r0["grads"].items())
+        losses = {}
+        for key in (k for k in ref["scalars"] if "loss" in k):
+            gap, ref_gap = abs(r0["scalars"][key] - ref["scalars"][key]), abs(ref["scalars"][key] - ref["scalars64"][key])
+            losses[key] = (gap, max(DP_MULTIPLE * ref_gap, 8 * np.finfo(np.float32).eps * abs(ref["scalars64"][key])))
+        print(f"[data parallel {name}] valid rows (samples or frames) rank 0 {r0['rows']}, rank 1 {r1['rows']}; "
+              f"launches a rank {got} (expect {expect}); losses (|2 ranks - 1 process|, bound): "
+              f"{ {k: (f'{g:.3e}', f'{b:.3e}') for k, (g, b) in losses.items()} }; gradients over {len(d21)} "
+              f"parameters, relative L2 (floored at 1e-4 of the global norm): 2 ranks against 1 process median "
+              f"{m21:.3e} worst {w21:.3e}; 1 process against fp64 median {m164:.3e} worst {w164:.3e} (bound "
+              f"{DP_MULTIPLE:g}x: {m21 / max(m164, 1e-30):.3f}x and {w21 / max(w164, 1e-30):.3f}x); the ranks' "
+              f"gradients bitwise equal {replicas} [{card}]")
+        require(all(g == expect for g in got), f"data parallel {name}: launches {got} != {expect} a rank")
+        require(r0["rows"] > r1["rows"], f"data parallel {name}: rank 0 does not hold the long rows")
+        require(all(g <= b for g, b in losses.values()), f"data parallel {name}: losses {losses}")
+        require(m21 <= DP_MULTIPLE * m164 and w21 <= DP_MULTIPLE * w164,
+                f"data parallel {name}: gradients {m21}, {w21} against {m164}, {w164}")
+        require(replicas, f"data parallel {name}: the ranks' all-reduced gradients differ")
+        a, b = ranks[0][name + "@p"], ranks[1][name + "@p"]
+        equal = [x == y for x, y in zip(a["digests"], b["digests"])]
+        print(f"[data parallel {name}] {DP_STEPS} steps at p={P_DROP}: parameters, EMA and codebook bitwise equal "
+              f"across the ranks after each step {equal} [{card}]")
+        require(len(equal) == DP_STEPS and all(equal), f"data parallel {name}: the replicas diverged")
+    seeds = [r["vqvae@p"]["seeds"][0] for r in ranks]
+    one_process = int(torch.randint(0, 2 ** 32, (1,), generator=step_generators(TRAIN_SEED, 0, device)["dropout"]))
+    mixed = (ranks[1]["raw_seed"] + mesh.KERNEL_SEED_MIX) % 2 ** 32
+    masks = probe_masks(device, seeds[0])
+    same0, differ = torch.equal(masks, ranks[0]["masks"]), float((ranks[0]["masks"] != ranks[1]["masks"]).float().mean())
+    print(f"[data parallel masks] the first B1 call's seed: rank 0 {seeds[0]} (a one-process step draws "
+          f"{one_process}), rank 1 {seeds[1]} (its own draw {ranks[1]['raw_seed']} + 1640531527 mod 2^32 = {mixed}); "
+          f"B1's masks read back at {DP_PROBE} (T, B, depth): rank 0 equal to the one-process kernel's at that seed "
+          f"{same0}, rank 1 differs from rank 0 on {differ:.4f} of site 0 [{card}]")
+    require(seeds[0] == one_process and seeds[1] == mixed, "data parallel: the ranks' kernel seeds")
+    require(same0 and differ > 0, "data parallel: the ranks' masks")
+    return {"counts": counts}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -5045,8 +5436,14 @@ def main() -> None:
         phase_bf16_vs_fp64(device, card, kind, vq_state)
         torch.cuda.empty_cache()
 
-    cli = phase_cli_pipeline(device, card)
+    with tempfile.TemporaryDirectory() as root:
+        cli = phase_cli_pipeline(device, card, root)
+        torch.cuda.empty_cache()
+        offline = phase_offline(device, card, root, decode_launches)
+        torch.cuda.empty_cache()
+        group = phase_one_rank_group(device, card, root)
     torch.cuda.empty_cache()
+    dp = phase_data_parallel(device, card)
 
     print(f"[launches] inference path {inference_launches} forward; training path {train['fwd']} "
           f"forward, {train['bwd']} backward tile passes, {train['red']} reductions; LM training "
@@ -5197,6 +5594,9 @@ def main() -> None:
                  if at.startswith("at_")})]
     for k in kernels:
         k["cli_launches"] = cli.get(k["name"], 0)
+        k["offline_launches"] = offline["counts"].get(k["name"], 0)
+        k["one_rank_group_launches"] = group["counts"].get(k["name"], 0)
+        k["data_parallel_launches"] = dp["counts"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ from speech_masters_thesis_tpu_torch.models.base import TokenToSpectrogramModel,
 from speech_masters_thesis_tpu_torch.models.glow_tts.encoder import FlowSpecDecoder, TextEncoder
 from speech_masters_thesis_tpu_torch.ops.basic import generate_path, sequence_mask
 from speech_masters_thesis_tpu_torch.ops.mas import mas_log_prior, maximum_path_auto
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 def _normal(shape, like: torch.Tensor, noise: Optional[torch.Tensor],
@@ -137,12 +138,13 @@ class GlowTTS(TokenToSpectrogramModel):
             z_enc = (z_m_enc + torch.exp(z_logs_enc) * eps) * y_mask
             yh, _ = self.decoder(z_enc, y_mask, reverse=True)
 
-        l_mle = 0.5 * math.log(2 * math.pi) + (
+        # the data-parallel rank's share of the global batch's losses (parallel/mesh.py)
+        l_mle = mesh.local_share(0.5 * math.log(2 * math.pi)) + (
             torch.sum(z_logs_enc)
             + 0.5 * torch.sum(torch.exp(-2 * z_logs_enc) * (z_dec - z_m_enc) ** 2)
             - torch.sum(logdet)
-        ) / (torch.sum(y_lengths) * z_dec.shape[-1])
-        l_length = torch.sum((logw_enc - logw_dec) ** 2) / torch.sum(x_lengths)
+        ) / (mesh.global_sum(torch.sum(y_lengths)) * z_dec.shape[-1])
+        l_length = torch.sum((logw_enc - logw_dec) ** 2) / mesh.global_sum(torch.sum(x_lengths))
         return {"loss_mle": l_mle, "loss_length": l_length, "loss": l_mle + l_length, "yh": yh}, {}
 
     @torch.no_grad()

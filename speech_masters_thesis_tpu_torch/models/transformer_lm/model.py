@@ -43,6 +43,7 @@ from speech_masters_thesis_tpu_torch.models.vqvae.model import codec_kwargs
 from speech_masters_thesis_tpu_torch.ops.attention import NEG_INF, fused_attention, valid_pairs
 from speech_masters_thesis_tpu_torch.ops.basic import dropout, sequence_mask, softmax_f32
 from speech_masters_thesis_tpu_torch.ops.losses import focal_loss, masked_cross_entropy, mmi_loss
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 PAD = 0
 BOS = 1
@@ -121,7 +122,8 @@ class MultiHeadSelfAttention(nn.Module):
         if p > 0.0:
             if generator is None:
                 raise ValueError("attention dropout in train mode needs a torch.Generator")
-            seed = torch.randint(0, 2 ** 32, (1,), generator=generator, device=q.device, dtype=torch.int64)
+            seed = mesh.mix_seed(torch.randint(0, 2 ** 32, (1,), generator=generator, device=q.device,
+                                               dtype=torch.int64))
         else:
             seed = torch.zeros(1, dtype=torch.int64, device=q.device)
         return fused_attention(q, k, v, lens, seed, 1.0 / math.sqrt(self.d_head), p)
@@ -284,7 +286,8 @@ class TransformerLM(TokenToWaveformModel):
         else:
             loss = focal_loss(logits_flat, shifted, gamma=10.0, mask=loss_mask)
         correct = (shifted == torch.argmax(logits_flat, dim=-1)).to(torch.float32)
-        accuracy = torch.sum(correct * loss_mask) / torch.clamp(torch.sum(loss_mask), min=1.0)
+        accuracy = (mesh.global_sum(torch.sum(correct * loss_mask))
+                    / torch.clamp(mesh.global_sum(torch.sum(loss_mask)), min=1.0))
 
         yh = None
         if not train and self.vqvae_bottleneck is not None:

@@ -8,7 +8,8 @@ from the frame's gathered [l_bins, C] centroids, one batched product, and
 the codebook's squared norms, taken once a forward and gathered alike. The
 relative code goes to the absolute index ``id * l_bins + q_rel`` for the
 lookup and the EMA update, which (with the lazy init and dead-code revival)
-is the base ``BottleneckBlock``'s. Unlike the base block's eval forward, the
+is the base ``BottleneckBlock``'s, global over the data-parallel ranks as
+there, as are the commitment loss's count and ``fit``. Unlike the base block's eval forward, the
 straight-through value passes the encoder's gradient in both modes, as in
 the JAX package.
 """
@@ -21,6 +22,7 @@ import torch
 
 from speech_masters_thesis_tpu_torch.models.vqvae.bottleneck import BottleneckBlock
 from speech_masters_thesis_tpu_torch.ops.basic import at_least_f32
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 class GroupedBottleneck(BottleneckBlock):
@@ -63,11 +65,11 @@ class GroupedBottleneck(BottleneckBlock):
             metrics = self._update_k(y_flat, m_flat, q_abs, generator)
 
         # reference quirk kept by the JAX package: fit is sum(min_distance) / l_bins over all rows
-        fit = torch.sum(min_distance) / self.l_bins
+        fit = mesh.global_sum(torch.sum(min_distance)) / self.l_bins
         metrics = dict(fit=fit, **metrics)
 
         diff = (y_d - at_least_f32(y_flat)) * m_flat[:, None]
-        commit_loss = torch.sum(diff * diff) / (torch.clamp(torch.sum(m_flat), min=1.0) * c)
+        commit_loss = torch.sum(diff * diff) / (torch.clamp(mesh.global_sum(torch.sum(m_flat)), min=1.0) * c)
 
         y_d = y_d.to(y_flat.dtype)
         y_d = y_flat + (y_d - y_flat).detach()

@@ -39,6 +39,7 @@ from speech_masters_thesis_tpu_torch.ops.losses import (
     cross_entropy,
 )
 from speech_masters_thesis_tpu_torch.ops.mas import maximum_path_auto
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 def pairwise_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,8 +152,9 @@ class VQTTS(TokenToWaveformModel):
         logw_dec = safe_log(torch.sum(attn, dim=-1)) * x_mask[:, :, 0]
         loss_recon = self.multi_recon_loss(y, y_h, y_mask)
         loss_stft = self.multi_stft_loss(y, y_h, y_mask)
-        loss_dur = torch.sum((logw_enc - logw_dec) ** 2) / torch.sum(x_lengths)
-        loss_align = torch.sum(distances * attn) / torch.clamp(torch.sum(attn_mask), min=1.0)
+        # the data-parallel rank's share of the global batch's losses (parallel/mesh.py)
+        loss_dur = torch.sum((logw_enc - logw_dec) ** 2) / mesh.global_sum(torch.sum(x_lengths))
+        loss_align = torch.sum(distances * attn) / torch.clamp(mesh.global_sum(torch.sum(attn_mask)), min=1.0)
         # the JAX model's unmasked mean over every frame, padding included
         loss_ce = cross_entropy(y_qh.reshape(-1, self.l_bins), y_q.reshape(-1))
         loss = (loss_recon + self.l_stft * loss_stft + self.l_commit * loss_commit
@@ -164,7 +166,7 @@ class VQTTS(TokenToWaveformModel):
             y_h, _ = self.audio_decoder(y_d_pred, q_mask)
             y_h = y_h[..., 0]
 
-        q_acc = torch.mean((torch.argmax(y_qh, dim=-1) == y_q).to(torch.float32))
+        q_acc = mesh.global_mean((torch.argmax(y_qh, dim=-1) == y_q).to(torch.float32))
         return {
             "loss": loss,
             "loss_recon": loss_recon,

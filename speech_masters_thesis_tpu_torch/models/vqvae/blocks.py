@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops.basic import dropout
 from speech_masters_thesis_tpu_torch.ops.gated_hifi import gated_hifi, pack_weights
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 def get_mod_cycle(depth: int, cycle: Optional[int]) -> int:
@@ -131,8 +132,8 @@ class GatedHiFiBlock(nn.Module):
         if p > 0:
             if generator is None:
                 raise ValueError("GatedHiFiBlock in train mode needs a dropout torch.Generator")
-            seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
-                                     device=generator.device).item())
+            seed = mesh.mix_seed(int(torch.randint(0, 2 ** 32, (1,), generator=generator,
+                                                   device=generator.device).item()))
         lens = mask[..., 0].sum(dim=1).to(torch.int32)
         weights = pack_weights(dict(self.named_parameters()), self.dilations)
         out = gated_hifi((x * mask).contiguous(), lens, weights, self.res_scale, p, seed)

@@ -11,6 +11,14 @@ blocks every gradient into the encoder. The codebook is the buffer ``k``;
 ``state_dict`` holds only ``k``, as a reference checkpoint does. Randomness
 comes from the ``torch.Generator`` the caller passes, on the codebook's
 device.
+
+Under data parallelism (``parallel/mesh.py``) the codebook is the global
+batch's: the EMA update adds ``k_sum_batch`` and ``k_elem_batch`` over the
+ranks, the lazy init and the revivals draw from every rank's rows in
+global-batch order with the caller's generator (the same on every rank),
+the commitment loss divides by the global count of valid rows and the
+metrics come from global sums, so every rank holds the codebook of the
+1-process step.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from speech_masters_thesis_tpu_torch.ops.basic import safe_log, safe_sqrt
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 def sample_rows(generator: torch.Generator, x: torch.Tensor, weights: torch.Tensor, k: int) -> torch.Tensor:
@@ -102,15 +111,16 @@ class BottleneckBlock(nn.Module):
 
         # reference quirk kept by the JAX package: fit is sum(min_distance)/k_bins
         # over ALL rows, padding included
-        fit = torch.sum(min_distance) / self.k_bins
+        fit = mesh.global_sum(torch.sum(min_distance)) / self.k_bins
         x32 = x_flat.to(torch.float32)
-        n_valid = torch.clamp(torch.sum(m_flat) * c, min=1.0)
-        x_mean = torch.sum(x32 * m_flat[:, None]) / n_valid
-        prenorm = safe_sqrt(torch.sum(((x32 - x_mean) * m_flat[:, None]) ** 2)) / safe_sqrt(n_valid)
+        n_valid = torch.clamp(mesh.global_sum(torch.sum(m_flat)) * c, min=1.0)
+        x_mean = mesh.global_sum(torch.sum(x32 * m_flat[:, None])) / n_valid
+        prenorm = (safe_sqrt(mesh.global_sum(torch.sum(((x32 - x_mean) * m_flat[:, None]) ** 2)))
+                   / safe_sqrt(n_valid))
         metrics = dict(fit=fit, prenorm=prenorm, **metrics)
 
         diff = (x_d.detach() - x32) * m_flat[:, None]
-        commit_loss = torch.sum(diff * diff) / (torch.clamp(torch.sum(m_flat), min=1.0) * c)
+        commit_loss = torch.sum(diff * diff) / (torch.clamp(mesh.global_sum(torch.sum(m_flat)), min=1.0) * c)
 
         # straight-through value, computed as the JAX package does
         x_d = x_d.to(x_flat.dtype)
@@ -128,7 +138,8 @@ class BottleneckBlock(nn.Module):
         if self.init_seen:
             return
         if not bool(self.initialized):
-            k_init = sample_rows(generator, x_flat.to(torch.float32), m_flat, self.k_bins)
+            k_init = sample_rows(generator, mesh.gather_rows(x_flat.to(torch.float32)), mesh.gather_rows(m_flat),
+                                 self.k_bins)
             self.k.copy_(k_init)
             self.k_sum.copy_(k_init)
             self.k_elem.fill_(1.0)
@@ -143,10 +154,10 @@ class BottleneckBlock(nn.Module):
         onehot = torch.zeros(x32.shape[0], self.k_bins, device=x32.device, dtype=torch.float32)
         onehot.scatter_(1, codes[:, None], 1.0)
         onehot = onehot * m_flat[:, None]
-        k_sum_batch = onehot.t() @ x32                    # [K, C]
-        k_elem_batch = torch.sum(onehot, dim=0)           # [K]
+        k_sum_batch = mesh.global_sum(onehot.t() @ x32)            # [K, C]
+        k_elem_batch = mesh.global_sum(torch.sum(onehot, dim=0))   # [K]
 
-        k_rand = sample_rows(generator, x32, m_flat, self.k_bins)
+        k_rand = sample_rows(generator, mesh.gather_rows(x32), mesh.gather_rows(m_flat), self.k_bins)
 
         old_k = self.k.clone()
         k_sum = self.mu * self.k_sum + (1.0 - self.mu) * k_sum_batch

@@ -5,12 +5,15 @@ started together, and the objects are linked into one shared library with a
 plain C interface, under ``build/kernels/`` at the repository root, on first
 use. The library's name carries a hash of the sources, headers and flags, so
 a changed source builds anew and an unchanged one loads from the cache. A
-missing ``nvcc`` or a failed build raises; nothing falls back.
+missing ``nvcc`` or a failed build raises; nothing falls back. The build
+holds a file lock, so the ranks of a data-parallel run that start together
+build once and the others load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -95,7 +98,12 @@ def build() -> ctypes.CDLL:
     """Builds (or loads from the cache) the kernel library and binds its C API."""
     lib_path = library_path()
     if not lib_path.exists():
-        compile_library(lib_path)
+        find_nvcc()  # raises before anything is written
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w", encoding="utf-8") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not lib_path.exists():
+                compile_library(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     ints = ctypes.POINTER(i)

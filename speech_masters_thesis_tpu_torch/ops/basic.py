@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from speech_masters_thesis_tpu_torch.parallel import mesh
+
 
 def safe_log(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """log(max(x, eps)); clamps to avoid -inf on silence/zero bins."""
@@ -75,7 +77,8 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """One kernel call's dropout seed, an int64 [1] tensor drawn on ``device``
-    from ``generator`` (no host sync)."""
+    from ``generator`` (no host sync), mixed with the data-parallel rank
+    (``parallel.mesh.mix_seed``)."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
-    return torch.randint(0, 2 ** 32, (1,), generator=generator, device=device, dtype=torch.int64)
+    return mesh.mix_seed(torch.randint(0, 2 ** 32, (1,), generator=generator, device=device, dtype=torch.int64))

@@ -3,6 +3,12 @@ of speech_masters_thesis_tpu/ops/losses.py).
 
 Layouts are NTC: waveforms [B, T], masks [B, T], spectra [B, frames, bins].
 The LM losses take flattened logits [N, C] and reduce in float32.
+
+Under data parallelism (``parallel/mesh.py``) each rank returns its share of
+the global batch's loss, so the ranks' shares add up to it: a mean over
+rows enters as ``local_share`` (every rank holds as many rows) and a masked
+mean divides by the mask's sum over every rank (``global_sum``). Outside a
+process group both are the identity.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_masters_thesis_tpu_torch.ops.basic import safe_log, safe_sqrt
+from speech_masters_thesis_tpu_torch.parallel import mesh
 from speech_masters_thesis_tpu_torch.ops.stft import STFT
 
 
@@ -58,7 +65,7 @@ class MultiResolutionSpectralLoss:
             if self.log:
                 log_diff = (safe_log(y_mag) - safe_log(yh_mag)) * frame_mask
                 loss = loss + torch.mean(safe_sqrt(torch.sum(log_diff * log_diff, dim=(1, 2))))
-        return loss / len(self.stfts)
+        return mesh.local_share(loss / len(self.stfts))
 
 
 class MultiNormReconstructionLoss:
@@ -85,7 +92,7 @@ class MultiNormReconstructionLoss:
             k = min(self.linf_topk, sq.shape[-1])
             topk_vals = torch.topk(sq, k, dim=-1).values
             loss = loss + self.linf * torch.sum(torch.mean(topk_vals, dim=0))
-        return loss
+        return mesh.local_share(loss)
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +105,13 @@ def _target_log_prob(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean CE over rows."""
-    return -torch.mean(_target_log_prob(logits, targets))
+    return mesh.local_share(-torch.mean(_target_log_prob(logits, targets)))
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """CE averaged over the rows the mask selects."""
     nll = -_target_log_prob(logits, targets)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask) / torch.clamp(mesh.global_sum(torch.sum(mask)), min=1.0)
 
 
 def mmi_loss(logits: torch.Tensor, targets: torch.Tensor, num_classes: int,
@@ -117,19 +124,33 @@ def mmi_loss(logits: torch.Tensor, targets: torch.Tensor, num_classes: int,
     as jax.nn.one_hot gives.
     """
     p_zy = torch.softmax(logits.to(torch.float32), dim=-1)
+    classes = torch.arange(num_classes, device=targets.device)
+    one_hot = (targets[:, None] == classes[None, :]).to(logits.dtype)
+    row = -torch.sum(p_zy * torch.log_softmax(one_hot, dim=-1), dim=-1)
+    if mesh.world_size() > 1:
+        return _mmi_global(p_zy, row, mask)
     if mask is not None:
         p_z = torch.sum(p_zy * mask[:, None], dim=0) / torch.clamp(torch.sum(mask), min=1.0)
     else:
         p_z = torch.mean(p_zy, dim=0)
     h_z = -torch.sum(p_z * torch.log(p_z))
-    classes = torch.arange(num_classes, device=targets.device)
-    one_hot = (targets[:, None] == classes[None, :]).to(logits.dtype)
-    row = -torch.sum(p_zy * torch.log_softmax(one_hot, dim=-1), dim=-1)
     if mask is not None:
         h_z_x_ub = torch.sum(row * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:
         h_z_x_ub = torch.mean(row)
     return h_z_x_ub - h_z
+
+
+def _mmi_global(p_zy: torch.Tensor, row: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """This rank's share of the global batch's MMI loss. H(z) is a function of
+    the global p(z): every rank computes its value, with the gradient of its
+    own rows, and the value enters the ranks' sum once."""
+    weights = torch.ones_like(row) if mask is None else mask
+    count = torch.clamp(mesh.global_sum(torch.sum(weights)), min=1.0)
+    p_z = mesh.global_sum_through(torch.sum(p_zy * weights[:, None], dim=0)) / count
+    h_z = -torch.sum(p_z * torch.log(p_z))
+    h_z = h_z.detach() / mesh.world_size() + (h_z - h_z.detach())
+    return torch.sum(row * weights) / count - h_z
 
 
 def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 0.0,
@@ -138,5 +159,5 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 0.0,
     log_pt = _target_log_prob(logits, targets)
     per_row = (1.0 - torch.exp(log_pt)) ** gamma * -log_pt
     if mask is not None:
-        return torch.sum(per_row * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(per_row)
+        return torch.sum(per_row * mask) / torch.clamp(mesh.global_sum(torch.sum(mask)), min=1.0)
+    return mesh.local_share(torch.mean(per_row))

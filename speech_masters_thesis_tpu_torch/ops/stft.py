@@ -51,6 +51,13 @@ def dft_basis(n_fft: int) -> np.ndarray:
     return np.vstack([np.cos(angle), np.sin(angle)])
 
 
+@functools.lru_cache(maxsize=8)
+def _windowed_pinv(n_fft: int, hop_length: int, window: bytes) -> np.ndarray:
+    window_np = np.frombuffer(window, dtype=np.float64)
+    inverse = np.linalg.pinv(n_fft / hop_length * dft_basis(n_fft)).T * window_np[None, :]
+    return inverse.astype(np.float32)
+
+
 def _hz_to_mel_slaney(freq):
     freq = np.asarray(freq, dtype=np.float64)
     f_sp = 200.0 / 3
@@ -131,10 +138,9 @@ class STFT:
 
     def inverse_basis(self) -> torch.Tensor:
         """[2*cutoff, n_fft] windowed pinv of the scaled DFT basis (built on
-        first use: a pinv of the forward transform's size)."""
-        scale = self.n_fft / self.hop_length
-        inverse = np.linalg.pinv(scale * dft_basis(self.n_fft)).T * self.window_np[None, :]
-        return torch.from_numpy(inverse.astype(np.float32))
+        first use: a pinv of the forward transform's size, once a process
+        for each transform's sizes and window)."""
+        return torch.tensor(_windowed_pinv(self.n_fft, self.hop_length, self.window_np.astype(np.float64).tobytes()))
 
     @property
     def pad_amount(self) -> int:

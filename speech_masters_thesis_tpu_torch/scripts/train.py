@@ -24,12 +24,25 @@ reference's ``vqvae`` config is not in the port's table. Scalars go to
 goes on the card (it raises when there is none) unless ``--platform cpu``.
 Flags for what the port does not have raise NotImplementedError and name
 the ROADMAP.md item.
+
+Data parallel (``parallel/mesh.py``), one process (rank) per GPU:
+``--n_devices N`` starts N local ranks, each on its own GPU (``-1``, the
+default, takes every visible GPU, as the JAX CLI takes every device; one
+GPU is one rank, run in this process with no process group, today's run);
+with ``--platform cpu``, N ranks on the CPU over gloo (``-1`` is one).
+``--multihost_coordinator host:port --num_processes P --process_id i``
+joins P such processes (each with its local ranks) into one group, and
+with ``--num_processes 1`` sets up a one-rank group. ``--batch_size`` is
+the global batch, which must divide over the ranks; every rank loads it
+and trains on its rows, and rank 0 writes the log dir. NCCL on the card,
+gloo on the CPU; the kernels build once, behind a file lock.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import random
 from typing import List, Optional
 
@@ -39,6 +52,7 @@ import torch
 from speech_masters_thesis_tpu_torch.device import cuda_device
 from speech_masters_thesis_tpu_torch.models.base import TASK_OUTPUT
 from speech_masters_thesis_tpu_torch.models.ema import default_mu
+from speech_masters_thesis_tpu_torch.parallel import mesh
 from speech_masters_thesis_tpu_torch.train import artifacts, checkpoint, harness, loop
 from speech_masters_thesis_tpu_torch.train.optim import build_optimizer
 from speech_masters_thesis_tpu_torch.train.state import TrainState
@@ -94,10 +108,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def reject_unported(args: argparse.Namespace) -> None:
     """Raises NotImplementedError for a flag whose feature the port lacks."""
     unported = [
-        (args.n_devices > 1, "--n_devices > 1", "A.4 (data parallel)"),
-        (args.multihost_coordinator is not None, "--multihost_coordinator", "A.4 (data parallel)"),
-        (args.num_processes > 1, "--num_processes > 1", "A.4 (data parallel)"),
-        (args.process_id != 0, f"--process_id {args.process_id}", "A.4 (data parallel)"),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "A.6 (training tools)"),
         (args.profile_steps > 0, "--profile_steps > 0", "A.6 (training tools: utils/profiling.py)"),
         (args.prng_impl != "threefry", f"--prng_impl {args.prng_impl}",
@@ -108,26 +118,91 @@ def reject_unported(args: argparse.Namespace) -> None:
             raise NotImplementedError(f"{flag} is not ported: ROADMAP.md {item}")
 
 
-def main(argv: Optional[List[str]] = None) -> TrainState:
-    """Runs the CLI; returns the final TrainState."""
+def local_ranks(args: argparse.Namespace) -> int:
+    """This process's ranks: ``--n_devices`` GPUs (-1: every visible one) or CPU ranks (-1: one)."""
+    if args.platform == "cpu":
+        return max(args.n_devices, 1)
+    cuda_device()  # raises when there is no card
+    visible = torch.cuda.device_count()
+    n = visible if args.n_devices == -1 else args.n_devices
+    if not 1 <= n <= visible:
+        raise ValueError(f"--n_devices {args.n_devices}: {visible} GPU(s) visible")
+    return n
+
+
+def rendezvous(args: argparse.Namespace, n_local: int) -> Optional[str]:
+    """The group's coordinator (None: one rank, no group)."""
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"--process_id {args.process_id} with --num_processes {args.num_processes}")
+    if args.num_processes > 1 and args.multihost_coordinator is None:
+        raise ValueError("--num_processes > 1 needs --multihost_coordinator host:port")
+    if args.multihost_coordinator is not None:
+        return args.multihost_coordinator
+    return f"localhost:{mesh.free_port()}" if n_local > 1 else None
+
+
+def main(argv: Optional[List[str]] = None) -> Optional[TrainState]:
+    """Runs the CLI; returns the final TrainState of a run in this process
+    (None when it started its local ranks in processes of their own)."""
     args = parse_args(argv)
     reject_unported(args)
-    device = torch.device("cpu") if args.platform == "cpu" else cuda_device()
+    n_local = local_ranks(args)
+    coordinator = rendezvous(args, n_local)
+    if n_local > 1:  # a rank a process, spawned; one that fails raises here
+        torch.multiprocessing.start_processes(_rank_main, args=(args, n_local, coordinator), nprocs=n_local,
+                                              join=True, start_method="spawn")
+        return None
+    return _run(args, 0, n_local, coordinator)
+
+
+def _rank_main(local_rank: int, args: argparse.Namespace, n_local: int, coordinator: str) -> None:
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format=f"%(asctime)s rank {local_rank} %(name)s %(levelname)s %(message)s")
+    if args.platform == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_local))
+    _run(args, local_rank, n_local, coordinator)
+
+
+def _run(args: argparse.Namespace, local_rank: int, n_local: int, coordinator: Optional[str]) -> TrainState:
+    """One rank's run: joins the group when there is one, trains, leaves it."""
+    if args.platform == "cpu":
+        device = torch.device("cpu")
+    elif coordinator is None:
+        device = cuda_device()
+    else:
+        torch.cuda.set_device(local_rank)
+        device = torch.device("cuda", local_rank)
+    if coordinator is not None:
+        mesh.initialize(coordinator, args.num_processes * n_local, args.process_id * n_local + local_rank, device)
+    try:
+        return _train(args, device)
+    finally:
+        mesh.shutdown()
+
+
+def _train(args: argparse.Namespace, device: torch.device) -> TrainState:
     config = build_config(args.model, args.dataset, {k: getattr(args, k) for k in TRAIN_FLAGS})
+    if config.train.batch_size % mesh.world_size():
+        raise ValueError(f"Global batch {config.train.batch_size} must divide across {mesh.world_size()} ranks")
     seed = config.train.seed
     random.seed(seed)  # dataset crops
     np.random.seed(seed)
-    logger.info("Training on %s", torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU")
+    logger.info("Training on %s (rank %d of %d)",
+                torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU", mesh.rank(),
+                mesh.world_size())
     if config.train.fp16:
         logger.info("--fp16 requested: the port has no fp16 mode and no GradScaler; --bf16 is its mixed precision")
     setup_logdir(config)
-    writer = ScalarWriter(config.train.log_dir)
+    writer = ScalarWriter(config.train.log_dir) if mesh.rank() == 0 else None
 
     model = harness.get_model(config, device=device)
     harness.elide_features(config, model)
     harness.init_model_variables(model, None, seed)
     harness.load_pretrained_submodules(model, config)
-    harness.print_top_level_summary(model)
+    mesh.broadcast_module(model)
+    if mesh.rank() == 0:
+        harness.print_top_level_summary(model)
 
     train_loader, val_loader = harness.get_dataloaders(config)
     ddi_ran = False
@@ -178,7 +253,8 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
         logger.info("Interrupted at step %d; saving final checkpoint", global_step)
 
     checkpoint.save_checkpoint(config, global_step, -1, state)
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state
 
 

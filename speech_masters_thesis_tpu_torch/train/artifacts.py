@@ -61,9 +61,15 @@ def _dump_audio_pair(config: Mapping, global_step: int, gt: np.ndarray, pred: np
 
 
 def _dump_grid(config: Mapping, global_step: int, spect: list, spect_pred: list) -> None:
+    spect_dir = os.path.join(config["train"]["log_dir"], "spect")
+    os.makedirs(spect_dir, exist_ok=True)
+    save_mel_grid(os.path.join(spect_dir, f"val_spect_{global_step}.npy"), spect, spect_pred)
+
+
+def save_mel_grid(path: str, spect: list, spect_pred: list) -> None:
+    """Two lists of [n_mels, frames] mels as one float32 ``.npy`` [2, n,
+    n_mels, frames], each zero-padded to the longest."""
     frames = max(s.shape[-1] for s in spect + spect_pred)
     grid = np.stack([np.stack([np.pad(s, ((0, 0), (0, frames - s.shape[-1]))) for s in side])
                      for side in (spect, spect_pred)]).astype(np.float32)
-    spect_dir = os.path.join(config["train"]["log_dir"], "spect")
-    os.makedirs(spect_dir, exist_ok=True)
-    np.save(os.path.join(spect_dir, f"val_spect_{global_step}.npy"), grid)
+    np.save(path, grid)

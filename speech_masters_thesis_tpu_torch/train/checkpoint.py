@@ -11,6 +11,9 @@ EMA. Files sit at ``log_dir/ckpts/ckpt.{step|last}``, the JAX package's
 layout, so the LM's pointer to its codec (``vqvae.log_dir`` and
 ``ckpt_num``) works the same way.
 
+Under data parallelism rank 0 writes the file and every rank then waits at
+a barrier (the JAX CLI writes from process 0); every rank restores.
+
 Restore copies every tensor into the live state on the model's device, bit
 for bit, and raises on a missing or unexpected key. The JAX package stores
 its PRNG implementation and refuses a resume under another; the port has one
@@ -27,6 +30,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from speech_masters_thesis_tpu_torch.models.vqvae.bottleneck import BottleneckBlock
+from speech_masters_thesis_tpu_torch.parallel import mesh
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -44,9 +48,18 @@ def _plain(config) -> dict:
 
 
 def save_checkpoint(config: Mapping, global_step: int, epoch: int, state: TrainState) -> str:
-    """``epoch == -1`` saves as ``last`` with the run's ``total_epochs``."""
+    """``epoch == -1`` saves as ``last`` with the run's ``total_epochs``;
+    rank 0 writes, then every rank waits for it."""
     train = config["train"]
     path = ckpt_dir(train["log_dir"], "last" if epoch == -1 else global_step)
+    if mesh.rank() == 0:
+        _write_checkpoint(path, config, global_step, epoch, state)
+    mesh.barrier()
+    return path
+
+
+def _write_checkpoint(path: str, config: Mapping, global_step: int, epoch: int, state: TrainState) -> None:
+    train = config["train"]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "config": _plain(config),
@@ -62,7 +75,6 @@ def save_checkpoint(config: Mapping, global_step: int, epoch: int, state: TrainS
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a crash mid-write leaves the previous file whole
     logger.info("Saved checkpoint to %s", path)
-    return path
 
 
 def load_payload(path: str) -> dict:

@@ -45,6 +45,7 @@ from speech_masters_thesis_tpu_torch.models.glow_tts.model import GlowTTS
 from speech_masters_thesis_tpu_torch.models.transformer_lm.model import PAD, MultiHeadSelfAttention, load_vqvae_into_lm
 from speech_masters_thesis_tpu_torch.models.vqtts.model import VQTTS
 from speech_masters_thesis_tpu_torch.ops.basic import sequence_mask
+from speech_masters_thesis_tpu_torch.parallel import mesh
 from speech_masters_thesis_tpu_torch.train.checkpoint import ckpt_dir, restore_model_state
 from speech_masters_thesis_tpu_torch.train.loop import make_train_step
 from speech_masters_thesis_tpu_torch.utils.registry import get_model as _get_model
@@ -209,11 +210,15 @@ def maybe_ddi_init(model: nn.Module, config: Mapping, batch: Mapping[str, torch.
     """train.py:195-212: when ``config["model"]["ddi"]`` is set, no checkpoint
     is loaded (``config["train"]["load_ckpt"]``) and the model has a
     ``ddi_init``, runs it on ``batch`` (on the model's device) and returns
-    True; else returns False."""
+    True; else returns False. Under data parallelism every rank runs it
+    alone (``mesh.local``: rank 0's kernel seeds, no collective) on the
+    whole batch it is given, and then takes rank 0's parameters."""
     if not config["model"].get("ddi") or (config.get("train") or {}).get("load_ckpt") \
             or not hasattr(model, "ddi_init"):
         return False
-    model.ddi_init(batch, generators)
+    with mesh.local():
+        model.ddi_init(batch, generators)
+    mesh.broadcast_module(model)
     return True
 
 
@@ -254,17 +259,21 @@ def elide_features(config: Mapping, model: nn.Module) -> None:
 
 def get_dataloaders(config: Mapping, shuffle: bool = True,
                     collate_kwargs: Optional[dict] = None) -> Tuple[DataLoader, DataLoader]:
-    """Train and val loaders: train shuffled from ``train.seed`` (unless
-    ``shuffle`` is False) and wrap-padded; val in order with its partial
-    batch (``pad_last=False``), so the epoch's averages count each clip
-    once. ``collate_kwargs`` (bucket sizes) go to both loaders' collate."""
+    """Train and val loaders of the global batch (every data-parallel rank
+    loads the same batches and takes its rows, ``mesh.shard_batch``): train
+    shuffled from ``train.seed`` (unless ``shuffle`` is False) and
+    wrap-padded; val in order with its partial batch (``pad_last=False``),
+    so the epoch's averages count each clip once, except over more than one
+    rank, where the partial batch is wrap-padded too so that it divides, as
+    the JAX package's multi-process val loader is.
+    ``collate_kwargs`` (bucket sizes) go to both loaders' collate."""
     train = config["train"]
     num_workers = int(train.get("num_workers", 0) or 0)
     dataset_cls = resolve_dataset(config["dataset"]["_import_"])
     train_loader = DataLoader(dataset_cls(config, split="train"), batch_size=train["batch_size"], shuffle=shuffle,
                               seed=train["seed"], num_workers=num_workers, collate_kwargs=collate_kwargs)
     val_loader = DataLoader(dataset_cls(config, split="val"), batch_size=train["batch_size"], shuffle=False,
-                            pad_last=False, num_workers=num_workers, collate_kwargs=collate_kwargs)
+                            pad_last=mesh.world_size() > 1, num_workers=num_workers, collate_kwargs=collate_kwargs)
     return train_loader, val_loader
 
 

@@ -40,6 +40,16 @@ held until the running step ends: the epoch then drains its window and
 raises ``TrainingInterrupted``, which carries the steps taken, so the
 checkpoint the CLI cuts on it is one whole state. ``val_epoch`` averages the val step's
 scalars over the split's batches, the partial one included.
+
+Data parallel (``parallel/mesh.py``): both epochs hand each rank its rows of
+the loader's global batch; the train step adds the ranks' gradients after
+the backward and before the clip, so the clip sees the global norm, and
+returns the global scalars (each rank's losses are its shares of the global
+batch's, added over the ranks; the metrics are global already). The
+dropout and device-dropout generators are the rank's own, a pure function
+of (seed, step, rank) and rank 0's those of a one-process run; the codebook
+generator is the same on every rank. ``val_epoch`` gathers every rank's
+``y`` and ``yh`` and rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from speech_masters_thesis_tpu_torch.models.ema import ema_step, eval_params
+from speech_masters_thesis_tpu_torch.parallel import mesh
 from speech_masters_thesis_tpu_torch.train.optim import clip_by_global_norm
 from speech_masters_thesis_tpu_torch.train.state import TrainState
 
@@ -94,10 +105,14 @@ def _held_interrupt() -> Iterator[List[bool]]:
         signal.signal(signal.SIGINT, previous)
 
 
-def step_generators(seed: int, step: int, device: torch.device) -> Dict[str, torch.Generator]:
+def step_generators(seed: int, step: int, device: torch.device, rank: int = 0) -> Dict[str, torch.Generator]:
     """The step's dropout (CPU), codebook and device dropout (``device``)
-    generators, a pure function of (seed, step)."""
+    generators, a pure function of (seed, step) and, for the two dropout
+    generators, of the data-parallel ``rank`` (rank 0 draws what a
+    one-process run draws; the codebook generator is every rank's)."""
     dropout_seed, codebook_seed, device_seed = np.random.SeedSequence([seed, step]).generate_state(3)
+    if rank:
+        dropout_seed, _, device_seed = np.random.SeedSequence([seed, step, rank]).generate_state(3)
     return {"dropout": torch.Generator().manual_seed(int(dropout_seed)),
             "codebook": torch.Generator(device=device).manual_seed(int(codebook_seed)),
             "device_dropout": torch.Generator(device=device).manual_seed(int(device_seed))}
@@ -116,7 +131,7 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], seed: int):
         model, opt = state.model, state.optimizer
         device = next(model.parameters()).device
-        generators = step_generators(seed, state.step, device)
+        generators = step_generators(seed, state.step, device, mesh.rank())
         for group in opt.param_groups:
             group["lr"] = schedule(state.step)
         opt.zero_grad(set_to_none=True)
@@ -131,6 +146,7 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
         else:
             loss_dict, metrics = model.supervised_step(batch, train=True, generators=generators)
         loss_dict["loss"].to(torch.float32).backward()
+        mesh.all_reduce_grads(model.parameters())
         if grad_clip_norm:
             clip_by_global_norm([p.grad for p in model.parameters()], grad_clip_norm)
         opt.step()
@@ -139,6 +155,7 @@ def make_train_step(schedule: Callable[[int], float], ema_mu: float, use_ema: bo
         state.step += 1
         scalars = {k: v.detach() for k, v in loss_dict.items() if "loss" in k}
         scalars.update({k: v.detach() for k, v in metrics.items()})
+        scalars = mesh.sum_losses(scalars)
         scalars["finite"] = torch.isfinite(scalars["loss"])
         return scalars
 
@@ -228,7 +245,7 @@ def train_epoch(*, state: TrainState, global_step: int, epoch: int, config: Mapp
             data_wait += time.perf_counter() - t0
             if batch is None:
                 break
-            pending.append(train_step(state, to_device(batch, device), seed))
+            pending.append(train_step(state, to_device(mesh.shard_batch(batch), device), seed))
             prev_step, global_step, steps = global_step, global_step + 1, steps + 1
             if global_step // log_every > prev_step // log_every:
                 drain(global_step)
@@ -256,24 +273,25 @@ def val_epoch(*, state: TrainState, epoch: int, config: Mapping, val_step: Calla
               artifact_fn: Optional[Callable] = None) -> Dict[str, float]:
     """One validation epoch: the mean of each scalar over the batches, logged
     under ``loss/val_*`` and ``metrics/val_*`` at ``epoch``; ``artifact_fn``
-    gets the ground truth ``y`` and the prediction ``yh`` of every batch."""
+    gets the ground truth ``y`` and the prediction ``yh`` of every batch (on
+    rank 0, every rank's rows)."""
     device = next(state.model.parameters()).device
     losses: Dict[str, float] = defaultdict(float)
     ys, yhs = [], []
     n_batches = max(len(dataloader), 1)
     for batch in dataloader:
-        loss_dict, metrics = val_step(state, to_device(batch, device))
-        scalars = {k: v for k, v in loss_dict.items() if "loss" in k and v.ndim == 0}
+        loss_dict, metrics = val_step(state, to_device(mesh.shard_batch(batch), device))
+        scalars = mesh.sum_losses({k: v for k, v in loss_dict.items() if "loss" in k and v.ndim == 0})
         scalars.update({k: v for k, v in metrics.items() if torch.is_tensor(v) and v.ndim == 0})
         for k, v in scalars.items():
             losses[k] += float(v) / n_batches
         if loss_dict.get("y") is not None and loss_dict.get("yh") is not None:
-            ys.append(loss_dict["y"].float().cpu().numpy())
-            yhs.append(loss_dict["yh"].float().cpu().numpy())
+            ys.append(mesh.gather_rows(loss_dict["y"]).float().cpu().numpy())
+            yhs.append(mesh.gather_rows(loss_dict["yh"]).float().cpu().numpy())
     if writer is not None:
         for k, v in losses.items():
             writer.add_scalar(f"{_group(k)}/val_{k}", v, epoch)
-    if artifact_fn is not None and ys:
+    if artifact_fn is not None and ys and mesh.rank() == 0:
         max_y, max_yh = max(a.shape[1] for a in ys), max(a.shape[1] for a in yhs)
         artifact_fn(config, epoch, writer, np.concatenate([_pad_time(a, max_y) for a in ys]),
                     np.concatenate([_pad_time(a, max_yh) for a in yhs]))

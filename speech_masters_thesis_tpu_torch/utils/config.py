@@ -17,6 +17,7 @@ import os
 from typing import Any, Dict, Mapping, Optional
 
 from speech_masters_thesis_tpu_torch import configs
+from speech_masters_thesis_tpu_torch.parallel import mesh
 
 
 class Config(dict):
@@ -109,8 +110,11 @@ def build_config(model: str, dataset: str, train: Mapping[str, Any]) -> Config:
 
 
 def setup_logdir(config: Config) -> None:
-    """Creates ``log_dir/{ckpts,spect,audio}`` and writes ``log_dir/config.json``."""
-    log_dir = config.train.log_dir
-    for sub in ("ckpts", "spect", "audio"):
-        os.makedirs(os.path.join(log_dir, sub), exist_ok=True)
-    config.save(os.path.join(log_dir, "config.json"))
+    """Creates ``log_dir/{ckpts,spect,audio}`` and writes ``log_dir/config.json``
+    (rank 0 of a data-parallel run, which every rank then waits for)."""
+    if mesh.rank() == 0:
+        log_dir = config.train.log_dir
+        for sub in ("ckpts", "spect", "audio"):
+            os.makedirs(os.path.join(log_dir, sub), exist_ok=True)
+        config.save(os.path.join(log_dir, "config.json"))
+    mesh.barrier()

@@ -17,8 +17,10 @@
 * The Glow-TTS CLI runs DDI, saves ``ckpt.0`` and starts the EMA from the
   DDI'd parameters; the LM CLI grafts a port codec through its
   ``config.json`` and ``ckpt.<n>``; each flag for what the port lacks
-  raises; without ``--platform cpu`` the run wants the card; Ctrl-C lets
-  the running step end and ``ckpt.last`` records the steps taken.
+  raises (the data-parallel flags are ported: see
+  tests/test_torch_data_parallel.py); without ``--platform cpu`` the run
+  wants the card; Ctrl-C lets the running step end and ``ckpt.last``
+  records the steps taken.
 * ``mas_log_prior`` on bf16 statistics and fp32 frames (the bf16 step's
   flows on a mel computed from audio) against the JAX package's, which
   promotes at its products.
@@ -230,9 +232,10 @@ def test_lm_cli_grafts_the_codec_from_its_log_dir(files, codec_run):
     assert os.path.exists(log_dir / "audio" / "val_audio_1_pred.wav")
 
 
-@pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--multihost_coordinator", "localhost:1234"],
-                                  ["--num_processes", "2"], ["--steps_per_dispatch", "4"],
-                                  ["--profile_steps", "3"], ["--prng_impl", "rbg"], ["--process_id", "3"]])
+# the data-parallel flags are ported: tests/test_torch_data_parallel.py holds them
+@pytest.mark.parametrize("flag", [pytest.param(["--steps_per_dispatch", "4"], id="flag3"),
+                                  pytest.param(["--profile_steps", "3"], id="flag4"),
+                                  pytest.param(["--prng_impl", "rbg"], id="flag5")])
 def test_unported_flags_raise(files, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_cli.main(_argv(files, files["vq"], tmp_path / "x", *flag))
